@@ -1,0 +1,55 @@
+"""Shared diffusion-RHS machinery (port of `graphax/functions/common.py`).
+
+The learnable ``alpha_train``/``beta_train`` scalars live on the RHS module;
+the per-forward context is an explicit :class:`FuncState`."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from graphax_torch.sparse.graph import Graph
+
+
+@dataclasses.dataclass(frozen=True)
+class FuncState:
+    """Per-forward context of a diffusion RHS.
+
+    Attributes:
+      graph: normalised topology and edge weights.
+      x0: the encoder output at t=0, detached (source term).
+      wb: ``[E_pad]`` edge values in the state dtype (the graph's weights
+        or the attention a block pinned), built once per forward.
+      wb_t: the same values in the CSC slot order (for ``A^T g``).
+    """
+
+    graph: Graph
+    x0: torch.Tensor
+    wb: torch.Tensor
+    wb_t: torch.Tensor
+
+
+def init_alpha_beta(module: nn.Module) -> None:
+    """`alpha_train`/`beta_train` initialised to 0.0
+    (`src/base_classes.py:125-126`)."""
+    module.alpha_train = nn.Parameter(torch.zeros(()))
+    module.beta_train = nn.Parameter(torch.zeros(()))
+
+
+def prepare_scalars(module: nn.Module, cfg, dtype):
+    """(alpha, beta) once per forward, outside the solver loop, cast to the
+    state dtype; gradients flow back to alpha_train/beta_train."""
+    alpha = module.alpha_train
+    if not cfg.no_alpha_sigmoid:
+        alpha = torch.sigmoid(alpha)
+    return alpha.to(dtype), module.beta_train.to(dtype)
+
+
+def apply_alpha_beta(cfg, alpha, beta, ax, x, x0):
+    """``f = alpha (ax - x) [+ beta x0]``, every term in the state dtype."""
+    f = alpha.to(x.dtype) * (ax.to(x.dtype) - x)
+    if cfg.add_source:
+        f = f + beta.to(x.dtype) * x0.to(x.dtype)
+    return f

@@ -1,0 +1,37 @@
+"""GRAND-l: linear graph diffusion RHS (port of
+`graphax/functions/laplacian.py`).
+
+``f = alpha (A x - x) [+ beta x0]`` where A carries the graph's rw/gcn
+weights or the attention pinned by the enclosing block. The SpMM is the
+hand-written CSR kernel with its CSC/SDDMM backward
+(`graphax_torch.kernels.spmm`)."""
+
+from __future__ import annotations
+
+from torch import nn
+
+from graphax_torch.functions.common import apply_alpha_beta, init_alpha_beta
+from graphax_torch.kernels.spmm import spmm
+
+
+def laplacian_rhs(cfg, graph, alpha, beta, x0, wb, wb_t, x):
+    ax = spmm(graph, wb, wb_t, x)
+    return apply_alpha_beta(cfg, alpha, beta, ax, x, x0)
+
+
+class LaplacianFunction(nn.Module):
+    def __init__(self, cfg, in_dim: int):
+        super().__init__()
+        if cfg.multi_modal:
+            raise NotImplementedError("multimodal cross-attention is not "
+                                      "ported yet (ROADMAP Queue 1, M9)")
+        self.cfg = cfg
+        init_alpha_beta(self)
+
+    def reset_parameters(self, generator=None) -> None:
+        nn.init.zeros_(self.alpha_train)
+        nn.init.zeros_(self.beta_train)
+
+    def rhs(self, alpha, beta, fstate, t, x):
+        return laplacian_rhs(self.cfg, fstate.graph, alpha, beta, fstate.x0,
+                             fstate.wb, fstate.wb_t, x)

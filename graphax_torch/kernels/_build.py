@@ -1,0 +1,138 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``graphax_torch/kernels/csrc/*.cu`` file is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, at first use,
+into ``graphax_torch/kernels/_build/`` (listed in ``.gitignore``), and loaded
+with ``ctypes``. All sources compile in parallel, one ``nvcc`` each. A
+library is named by the hash of its source, so an edited source is rebuilt
+and an unchanged one is reused within one checkout.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine class has no ``nvcc``."""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(HERE, "csrc")
+BUILD_DIR = os.path.join(HERE, "_build")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+# launches of each kernel, counted by its wrapper where it launches and
+# nowhere else (chip_smoke.py zeroes them around the main path)
+LAUNCHES: collections.Counter = collections.Counter()
+
+_LIBS: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every exported function: name -> argtypes (restype int,
+# the cudaError_t of the launch)
+SIGNATURES = {
+    "spmm": {
+        "gx_spmm_csr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "gx_sddmm_csr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "attention_pin": {
+        "gx_attention_pin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _F, _F, _I, _P],
+    },
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "are built from graphax_torch/kernels/csrc at first use")
+
+
+def _target(name: str) -> tuple:
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build_all(verbose: bool = False) -> float:
+    """Compile every source that has no up-to-date library (in parallel)
+    and load all of them. Returns the seconds spent."""
+    t0 = time.perf_counter()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = None
+    procs = []
+    for name in SIGNATURES:
+        if name in _LIBS:
+            continue
+        src, so = _target(name)
+        if os.path.exists(so):
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = so + f".tmp{os.getpid()}"
+        cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-lineinfo", "-shared",
+               "-Xcompiler", "-fPIC", "-o", tmp, src]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((name, tmp, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for name, tmp, so, proc in procs:
+        out, _ = proc.communicate()
+        text = out.decode(errors="replace")
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {name}.cu:\n{text}")
+            continue
+        if verbose and text.strip():
+            print(text)
+        os.replace(tmp, so)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for name in SIGNATURES:
+        _load(name)
+    return time.perf_counter() - t0
+
+
+def _load(name: str) -> ctypes.CDLL:
+    if name in _LIBS:
+        return _LIBS[name]
+    _, so = _target(name)
+    lib = ctypes.CDLL(so)
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    if name not in _LIBS:
+        build_all()
+    return _LIBS[name]
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError_t {err})")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

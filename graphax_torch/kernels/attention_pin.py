@@ -1,0 +1,124 @@
+"""Attention pin: the per-edge head-mean of row-softmax transformer attention.
+
+Replaces graphax's K1 + K2 + `attention_edge_means_pallas`
+(`graphax/kernels/pallas_attention.py:114, 197, 944-991`); the CUDA source
+is `csrc/attention_pin.cu`. Covered: the `_score_math` score types
+scaled_dot (q pre-scaled by the caller), cosine_sim, pearson and
+exp_kernel, with reweight on or off, row softmax without squareplus (the
+gate of `attention_means_supported`, :994-997). Not differentiable: the
+hard-attention block calls it under no_grad.
+
+dtype steps as graphax's kernel path: q and Wk in the state dtype, bk and
+every score in f32; k = x[col] Wk + bk is accumulated in f32; the output is
+f32 (the caller casts it to the state dtype)."""
+
+from __future__ import annotations
+
+import torch
+
+from graphax_torch.kernels import _build
+from graphax_torch.sparse.graph import Layout
+from graphax_torch.sparse.ops import segment_max, segment_sum
+
+ATT_TYPES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3}
+COS_EPS = 1e-5
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 232_448
+_WPB = 8
+
+
+def score_math(att_type: str, q, k, ov2: float = 1.0, inv2l2: float = 0.5):
+    """``q, k [E, H, Dh]`` f32 -> ``[E, H]`` scores."""
+    if att_type == "scaled_dot":
+        return (q * k).sum(-1)
+    if att_type in ("cosine_sim", "pearson"):
+        if att_type == "pearson":
+            q = q - q.mean(-1, keepdim=True)
+            k = k - k.mean(-1, keepdim=True)
+        qn = torch.clamp(torch.sqrt((q * q).sum(-1)), min=COS_EPS)
+        kn = torch.clamp(torch.sqrt((k * k).sum(-1)), min=COS_EPS)
+        return (q * k).sum(-1) / (qn * kn)
+    if att_type == "exp_kernel":
+        sq = ((q - k) ** 2).sum(-1)
+        return ov2 * torch.exp(-sq * inv2l2)
+    raise ValueError(f"attention_pin: unsupported att_type {att_type!r}")
+
+
+def attention_pin_plain(layout: Layout, q, x, wk, bk, edge_w, att_type: str,
+                        heads: int, ov2: float = 1.0, inv2l2: float = 0.5):
+    """The pin in plain PyTorch: ``[layout.num_slots]`` f32."""
+    e, n = layout.num_slots, layout.num_rows
+    seg, col = layout.seg, layout.idx.long()
+    k_nodes = x.float() @ wk.float() + bk.float()         # [N, A] f32
+    qe = q.float()[seg].reshape(e, heads, -1)
+    ke = k_nodes[col].reshape(e, heads, -1)
+    s = score_math(att_type, qe, ke, ov2, inv2l2)          # [E, H]
+    if edge_w is not None:
+        s = s * edge_w[:e, None].float()
+    shift = segment_max(s, seg, n)
+    ex = torch.exp(s - shift[seg])
+    den = segment_sum(ex, seg, n)
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    return (ex / den[seg]).mean(1)
+
+
+def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
+                  wk: torch.Tensor, bk: torch.Tensor, edge_w, att_type: str,
+                  heads: int, ov2: float = 1.0, inv2l2: float = 0.5
+                  ) -> torch.Tensor:
+    """Head-mean attention per CSR slot, ``[layout.num_slots]`` f32.
+
+    ``q [N, A]`` (pre-scaled for scaled_dot) and ``x [N, D]``, ``wk [D, A]``
+    in one dtype; ``bk [A]`` f32; ``edge_w [>= E]`` f32 reweight values or
+    None."""
+    if att_type not in ATT_TYPES:
+        raise ValueError(f"attention_pin: unsupported att_type {att_type!r} "
+                         "(beltrami_exp is not covered)")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, x, wk, bk, edge_w)):
+        raise RuntimeError("attention_pin is not differentiable; call it "
+                           "under torch.no_grad()")
+    if not x.is_cuda:
+        return attention_pin_plain(layout, q, x, wk, bk, edge_w, att_type,
+                                   heads, ov2, inv2l2)
+    n, d = x.shape
+    a = q.shape[1]
+    if x.dtype not in _DTYPES or q.dtype != x.dtype or wk.dtype != x.dtype:
+        raise TypeError("attention_pin: q, x and wk must share a float32 or "
+                        "bfloat16 dtype")
+    if q.shape[0] != n or wk.shape != (d, a) or bk.shape != (a,) \
+            or bk.dtype != torch.float32:
+        raise ValueError("attention_pin: shapes q [N, A], x [N, D], wk [D, A], "
+                         "bk [A] f32 required")
+    if heads < 1 or heads > 32 or a % heads:
+        raise ValueError("attention_pin: heads must divide A and be <= 32")
+    if layout.num_rows != n:
+        raise ValueError("attention_pin: layout and x disagree on N")
+    smem = 4 * (d * a + a + _WPB * (d + 2 * a + 2 * heads))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"attention_pin: D*A too large for shared memory "
+                         f"({smem} bytes)")
+    tensors = [layout.ptr, layout.idx, q, x, wk, bk]
+    if edge_w is not None:
+        if edge_w.dtype != torch.float32 or edge_w.shape[0] < layout.num_slots:
+            raise ValueError("attention_pin: edge_w must be f32 with one value "
+                             "per slot")
+        tensors.append(edge_w)
+    for t in tensors:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("attention_pin: operands must be contiguous and "
+                             f"on {x.device}")
+    e = layout.num_slots
+    scores = torch.empty((e, heads), dtype=torch.float32, device=x.device)
+    out = torch.empty(e, dtype=torch.float32, device=x.device)
+    lib = _build.library("attention_pin")
+    err = lib.gx_attention_pin(
+        layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+        edge_w.data_ptr() if edge_w is not None else None,
+        scores.data_ptr(), out.data_ptr(), n, d, a, heads,
+        ATT_TYPES[att_type], int(edge_w is not None), float(ov2),
+        float(inv2l2), _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(err, "attention_pin")
+    _build.LAUNCHES["attention_pin"] += 1
+    return out

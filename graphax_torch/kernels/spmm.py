@@ -1,0 +1,139 @@
+"""CSR SpMM and SDDMM: the laplacian RHS's sparse product and its gradient.
+
+Replaces `graphax/kernels/pallas_tiled.py` (`_spmm_kernel` :79 and
+`_sddmm_kernel` :146 with the custom VJP of `_make_spmm` :216-255). The CUDA
+sources are `csrc/spmm.cu`. Each wrapper:
+
+- takes a CUDA tensor to its kernel and a CPU tensor to the plain PyTorch
+  version beside it, and never falls back from one to the other;
+- checks device, dtype, shape and contiguity and raises on what the kernel
+  does not take;
+- counts its launches in ``_build.LAUNCHES``.
+
+Numerics (both versions): each product ``w_e * x[idx_e]`` is rounded to the
+state dtype, sums accumulate in f32 and are cast once to the state dtype;
+rows with no edge give 0; the SDDMM accumulates in f32 and returns f32."""
+
+from __future__ import annotations
+
+import torch
+
+from graphax_torch.kernels import _build
+from graphax_torch.sparse.graph import Graph, Layout
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _vec(x: torch.Tensor) -> int:
+    """Values per load: pairs when every row starts on a pair boundary."""
+    d = x.shape[1]
+    return 2 if d % 2 == 0 and x.data_ptr() % (2 * x.element_size()) == 0 \
+        else 1
+
+
+def _check(layout: Layout, a: torch.Tensor, x: torch.Tensor, what: str):
+    if x.dim() != 2:
+        raise ValueError(f"{what}: x must be [N, D], got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {x.dtype} not supported")
+    for name, t in (("ptr", layout.ptr), ("idx", layout.idx)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"{what}: layout.{name} must be contiguous int32")
+    for t in (layout.ptr, layout.idx, a):
+        if t.device != x.device:
+            raise ValueError(f"{what}: all operands must be on {x.device}")
+    if not x.is_contiguous() or not a.is_contiguous():
+        raise ValueError(f"{what}: operands must be contiguous")
+
+
+def spmm_csr_plain(layout: Layout, values, x, num_rows: int):
+    """y[r] = sum over slots j of row r of values[j] * x[idx[j]]."""
+    prod = x[layout.idx.long()] * values[:layout.num_slots].to(x.dtype)[:, None]
+    out = torch.zeros((num_rows, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    return out.index_add_(0, layout.seg, prod.float()).to(x.dtype)
+
+
+def spmm_csr(layout: Layout, values: torch.Tensor, x: torch.Tensor,
+             num_rows: int) -> torch.Tensor:
+    """``[num_rows, D]`` in x's dtype; ``values`` hold one entry per slot of
+    ``layout`` (at least ``layout.num_slots``), in x's dtype."""
+    if not x.is_cuda:
+        return spmm_csr_plain(layout, values, x, num_rows)
+    _check(layout, values, x, "spmm_csr")
+    if values.dtype != x.dtype or values.dim() != 1 \
+            or values.shape[0] < layout.num_slots:
+        raise ValueError("spmm_csr: values must be 1-D in x's dtype with one "
+                         "entry per slot")
+    if layout.num_rows != num_rows:
+        raise ValueError("spmm_csr: layout and num_rows disagree")
+    y = torch.empty((num_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    lib = _build.library("spmm")
+    err = lib.gx_spmm_csr(layout.ptr.data_ptr(), layout.idx.data_ptr(),
+                          values.data_ptr(), x.data_ptr(), y.data_ptr(),
+                          num_rows, x.shape[1], _DTYPES[x.dtype], _vec(x),
+                          _build.stream_ptr(x))
+    _build.check(err, "spmm_csr")
+    _build.LAUNCHES["spmm_csr"] += 1
+    return y
+
+
+def sddmm_plain(layout: Layout, g, x):
+    """out[j] = g[seg[j]] . x[idx[j]] in f32, one value per slot."""
+    return (g[layout.seg].float() * x[layout.idx.long()].float()).sum(-1)
+
+
+def sddmm(layout: Layout, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``[layout.num_slots]`` float32 per-slot dot products."""
+    if not x.is_cuda:
+        return sddmm_plain(layout, g, x)
+    _check(layout, g, x, "sddmm")
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError("sddmm: g and x must share shape and dtype")
+    out = torch.empty(layout.num_slots, dtype=torch.float32, device=x.device)
+    lib = _build.library("spmm")
+    err = lib.gx_sddmm_csr(layout.ptr.data_ptr(), layout.idx.data_ptr(),
+                           g.data_ptr(), x.data_ptr(), out.data_ptr(),
+                           layout.num_rows, x.shape[1], _DTYPES[x.dtype],
+                           min(_vec(x), _vec(g)), _build.stream_ptr(x))
+    _build.check(err, "sddmm")
+    _build.LAUNCHES["sddmm"] += 1
+    return out
+
+
+class _SpMM(torch.autograd.Function):
+    """``y = A x`` with ``dx = A^T g`` (the same kernel on the CSC layout)
+    and, only when asked for, ``dw`` through the SDDMM."""
+
+    @staticmethod
+    def forward(ctx, wb, wb_t, x, graph):
+        ctx.graph = graph
+        ctx.save_for_backward(wb_t, x)
+        return spmm_csr(graph.csr, wb, x, graph.num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        wb_t, x = ctx.saved_tensors
+        graph = ctx.graph
+        g = g.to(x.dtype).contiguous()
+        dwb = dx = None
+        if ctx.needs_input_grad[2]:
+            dx = spmm_csr(graph.csc, wb_t, g, graph.num_nodes)
+        if ctx.needs_input_grad[0]:
+            dw = sddmm(graph.csr, g, x)
+            dwb = torch.zeros(graph.edge_buffer_size, dtype=wb_t.dtype,
+                              device=x.device)
+            dwb[:graph.num_edges] = dw.to(wb_t.dtype)
+        return dwb, None, dx, None
+
+
+def transpose_values(graph: Graph, wb: torch.Tensor) -> torch.Tensor:
+    """Edge values in the CSC slot order (once per forward)."""
+    return wb[graph.csc.perm].contiguous()
+
+
+def spmm(graph: Graph, wb: torch.Tensor, wb_t: torch.Tensor,
+         x: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``A @ x``: ``wb [E_pad]`` edge values in x's dtype
+    (0 on padding) and ``wb_t = transpose_values(graph, wb)``."""
+    return _SpMM.apply(wb, wb_t, x.contiguous(), graph)

@@ -1,0 +1,88 @@
+"""The GRAND node classifier: encoder -> ODE block -> decoder (port of
+`graphax/models/gnn.py`).
+
+encode: dropout -> m1 -> [residual MLP m11/m12] -> [batch-norm] ->
+        [ANODE augmentation: append zeros]
+solve:  block over [0, T] with the state in ``cfg.dtype`` (bf16 halves the
+        solver's memory traffic; the encoder and decoder stay f32)
+decode: [truncate augmentation] -> relu -> [fc -> relu] -> dropout -> m2
+
+Module and parameter names follow graphax's param tree, so
+`graphax_torch.utils.transplant.load_graphax_params` maps one onto the
+other."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from graphax_torch.blocks import get_block
+from graphax_torch.models.layers import BatchNorm, dropout
+from graphax_torch.utils.params import linear_apply, linear_init
+
+
+class GNN(nn.Module):
+    def __init__(self, cfg, num_features: int, num_classes: int):
+        super().__init__()
+        if cfg.beltrami or cfg.use_labels:
+            raise NotImplementedError("Beltrami and the label trick are not "
+                                      "ported yet (ROADMAP Queue 1, M6)")
+        self.cfg = cfg
+        self.num_classes = num_classes
+        self.state_dim = cfg.state_dim(num_features, num_classes)
+        base = self.state_dim // 2 if cfg.augment else self.state_dim
+        hidden = cfg.hidden_dim
+        self.m1 = nn.Linear(num_features, hidden)
+        if cfg.use_mlp:
+            self.m11 = nn.Linear(hidden, hidden)
+            self.m12 = nn.Linear(hidden, hidden)
+        if cfg.fc_out:
+            self.fc = nn.Linear(base, base)
+        self.m2 = nn.Linear(base, num_classes)
+        if cfg.batch_norm:
+            self.bn_in = BatchNorm(base)
+            self.bn_out = BatchNorm(base)  # allocated but unused, as in graphax
+        self.block = get_block(cfg, self.state_dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in ("m1", "m11", "m12", "fc", "m2"):
+            if hasattr(self, name):
+                linear_init(getattr(self, name), generator)
+        for name in ("bn_in", "bn_out"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters()
+        self.block.reset_parameters(generator)
+
+    def encode(self, x, *, train: bool, generator=None):
+        cfg = self.cfg
+        x = dropout(x, cfg.input_dropout, train, generator)
+        x = linear_apply(self.m1, x)
+        if cfg.use_mlp:
+            x = dropout(x, cfg.dropout, train, generator)
+            x = dropout(x + linear_apply(self.m11, torch.relu(x)),
+                        cfg.dropout, train, generator)
+            x = dropout(x + linear_apply(self.m12, torch.relu(x)),
+                        cfg.dropout, train, generator)
+        if cfg.batch_norm:
+            x = self.bn_in(x, train)
+        if cfg.augment:
+            x = torch.cat([x, torch.zeros_like(x)], dim=-1)
+        return x
+
+    def decode(self, z, *, train: bool, generator=None):
+        cfg = self.cfg
+        if cfg.augment:
+            z = z[..., : z.shape[-1] // 2]
+        z = torch.relu(z)
+        if cfg.fc_out:
+            z = torch.relu(linear_apply(self.fc, z))
+        z = dropout(z, cfg.dropout, train, generator)
+        return linear_apply(self.m2, z)
+
+    def forward(self, graph, x, *, train: bool, generator=None):
+        """Returns (logits, BlockOutput)."""
+        x0 = self.encode(x, train=train, generator=generator)
+        ode_dtype = getattr(torch, self.cfg.dtype)
+        out = self.block(graph, x0.to(ode_dtype), train=train)
+        z = out.z.to(x0.dtype)
+        return self.decode(z, train=train, generator=generator), out

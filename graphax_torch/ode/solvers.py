@@ -1,0 +1,337 @@
+"""ODE integrators: fixed-grid RK, adaptive RK with torchdiffeq's step-size
+controller, and the continuous adjoint.
+
+Port of `graphax/ode/solvers.py`. The adaptive loop is a plain Python loop;
+gradients flow through the accepted RK stages by autograd (the step-size
+controller runs detached, as graphax stop_gradients it), or through
+:func:`odeint_adjoint`, whose backward integrates ``(y, a_y, a_p)`` and takes
+the vector-Jacobian products from ``torch.autograd.grad``.
+
+Numerics follow graphax:
+
+- the state may be a tensor or a tuple of tensors; it is carried in the
+  promoted dtype of its leaves (graphax ravels the pytree into one vector)
+  and each leaf is cast back to its own dtype where the RHS sees it;
+- stage combinations, error estimates, time and step size never drop below
+  f32 (a bf16 state does not quantise the grid);
+- the controller scalars are f32 values computed on the host, so the
+  accept/reject sequence, NFE and step counts match graphax's;
+- the ``max_nfe`` budget halts stepping and reports ``success=False``.
+
+Explicit/implicit Adams and the early-stop observer are not ported yet
+(ROADMAP Queue 1, M2 and M6)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from graphax_torch.ode.tableaus import TABLEAUS, stacked
+
+FIXED_STEP_METHODS = ("euler", "midpoint", "rk4", "rk4_classic")
+ADAPTIVE_METHODS = ("dopri5", "adaptive_heun", "bosh3")
+
+SAFETY, IFACTOR, DFACTOR = 0.9, 10.0, 0.2
+F32 = torch.float32
+
+
+@dataclasses.dataclass
+class AdjointRecord:
+    """Filled by the adjoint's backward: the NFE of the backward solve (the
+    reference's `bm` meter)."""
+
+    nfe: int = 0
+
+
+@dataclasses.dataclass
+class ODEResult:
+    y: Any               # final state, same structure as y0
+    nfe: int             # RHS evaluations
+    steps: int           # accepted steps
+    success: bool        # False iff the max_nfe budget was exhausted
+    adjoint: Optional[AdjointRecord] = None
+
+
+def _scalar(v) -> torch.Tensor:
+    """An f32 host scalar (the controller's arithmetic type)."""
+    return torch.tensor(v, dtype=F32)
+
+
+class _State:
+    """Flatten/unflatten a tensor or tuple-of-tensors state."""
+
+    def __init__(self, y0):
+        self.single = torch.is_tensor(y0)
+        leaves = (y0,) if self.single else tuple(y0)
+        self.dtypes = tuple(t.dtype for t in leaves)
+        flat = leaves[0].dtype
+        for t in leaves[1:]:
+            flat = torch.promote_types(flat, t.dtype)
+        self.flat = flat
+        self.acc = torch.promote_types(flat, F32)
+
+    def leaves(self, y):
+        return (y,) if torch.is_tensor(y) else tuple(y)
+
+    def carry(self, y):
+        return tuple(t.to(self.flat) for t in self.leaves(y))
+
+    def unravel(self, carry):
+        out = tuple(t.to(dt) for t, dt in zip(carry, self.dtypes))
+        return out[0] if self.single else out
+
+
+def _rms(leaves) -> torch.Tensor:
+    """RMS over all leaves jointly, as an f32 host scalar."""
+    tot = sum(torch.sum(torch.square(t)) for t in leaves)
+    cnt = sum(t.numel() for t in leaves)
+    return _scalar(float(torch.sqrt(tot / cnt)))
+
+
+def _rk_step(call, st: _State, tab_name: str, t, y, h, f0=None):
+    """One explicit RK step on the carried state. Returns (y1, f1 or None,
+    err or None, nfe)."""
+    tab = TABLEAUS[tab_name]
+    a, b, c, e = stacked(tab)
+    acc = st.acc
+    s = len(c)
+    ks = []
+    nfe = 0
+    for i in range(s):
+        if i == 0 and f0 is not None:
+            ki = f0
+        else:
+            yi = [t_.to(acc) for t_ in y]
+            for j in range(i):
+                if a[i, j] != 0.0:
+                    coef = float(h * float(a[i, j]))
+                    yi = [u + coef * k.to(acc) for u, k in zip(yi, ks[j])]
+            ki = call(t + float(c[i]) * h, tuple(u.to(st.flat) for u in yi))
+            nfe += 1
+        ks.append(ki)
+    y1 = [t_.to(acc) for t_ in y]
+    for i in range(s):
+        if b[i] != 0.0:
+            coef = float(h * float(b[i]))
+            y1 = [u + coef * k.to(acc) for u, k in zip(y1, ks[i])]
+    y1 = tuple(u.to(st.flat) for u in y1)
+    err = None
+    if e is not None:
+        with torch.no_grad():
+            err = [torch.zeros(t_.shape, dtype=acc, device=t_.device) for t_ in y]
+            for i in range(s):
+                if e[i] != 0.0:
+                    coef = float(h * float(e[i]))
+                    err = [u + coef * k.detach().to(acc)
+                           for u, k in zip(err, ks[i])]
+    f1 = ks[-1] if tab.fsal else None
+    return y1, f1, err, nfe
+
+
+def _error_ratio(st: _State, err, y0, y1, rtol, atol) -> torch.Tensor:
+    with torch.no_grad():
+        scaled = []
+        for e_, a_, b_ in zip(err, y0, y1):
+            scale = atol + rtol * torch.maximum(a_.detach().to(st.acc).abs(),
+                                                b_.detach().to(st.acc).abs())
+            scaled.append(e_.to(st.acc) / scale)
+        return _rms(scaled)
+
+
+def _optimal_step(h, ratio, order):
+    """torchdiffeq `_optimal_step_size`: grow by <= IFACTOR, shrink by >=
+    DFACTOR."""
+    ratio = torch.maximum(ratio, _scalar(1e-10))
+    factor = torch.clamp(SAFETY * ratio ** (-1.0 / order), DFACTOR, IFACTOR)
+    return h * factor
+
+
+def _initial_step(call, st: _State, t0, y0, f0, order, rtol, atol):
+    """Hairer/Wanner initial step (torchdiffeq `_select_initial_step`).
+    Costs one RHS evaluation."""
+    with torch.no_grad():
+        acc = st.acc
+        y0a = [t_.detach().to(acc) for t_ in y0]
+        f0a = [t_.detach().to(acc) for t_ in f0]
+        scale = [atol + t_.abs() * rtol for t_ in y0a]
+        d0 = _rms([u / s_ for u, s_ in zip(y0a, scale)])
+        d1 = _rms([u / s_ for u, s_ in zip(f0a, scale)])
+        if bool((d0 < 1e-5) | (d1 < 1e-5)):
+            h0 = _scalar(1e-6)
+        else:
+            h0 = 0.01 * d0 / d1
+        y1 = tuple((u + float(h0) * f).to(st.flat) for u, f in zip(y0a, f0a))
+        f1 = call(t0 + h0, y1)
+        d2 = _rms([(f.to(acc) - u) / s_ for f, u, s_ in zip(f1, f0a, scale)]) / h0
+        dmax = torch.maximum(d1, d2)
+        if bool(dmax <= 1e-15):
+            h1 = torch.maximum(_scalar(1e-6), h0 * 1e-3)
+        else:
+            h1 = (0.01 / dmax) ** (1.0 / (order + 1))
+        return torch.minimum(100.0 * h0, h1)
+
+
+def _fixed_grid(t0: float, t1: float, step_size: float) -> np.ndarray:
+    """Uniform steps of ``step_size`` from t0 with a final clamp onto t1
+    (torchdiffeq's grid constructor)."""
+    t0, t1, dt = float(t0), float(t1), float(step_size)
+    n_full = max(int(np.floor((t1 - t0) / dt + 1e-9)), 0)
+    ts = [t0 + i * dt for i in range(n_full + 1)]
+    if ts[-1] < t1 - 1e-9 * max(1.0, abs(t1)):
+        ts.append(t1)
+    else:
+        ts[-1] = t1
+    return np.asarray(ts, dtype=np.float64)
+
+
+def odeint(func: Callable, y0, t0: float, t1: float, *,
+           method: str = "dopri5", rtol: float = 1e-9, atol: float = 1e-7,
+           step_size: float = 1.0, max_nfe: int = 1000) -> ODEResult:
+    """Integrate ``dy/dt = func(t, y)`` from t0 to t1 (t1 > t0). ``y0`` is a
+    tensor or a tuple of tensors; ``func`` returns the same structure."""
+    st = _State(y0)
+
+    def call(t, carry):
+        out = func(t, st.unravel(carry))
+        return st.leaves(out)
+
+    y = st.carry(y0)
+    if method in FIXED_STEP_METHODS:
+        ts = _fixed_grid(t0, t1, step_size)
+        starts = torch.tensor(ts[:-1], dtype=F32)
+        hs = torch.tensor(np.diff(ts), dtype=F32)
+        for i in range(len(ts) - 1):
+            y, _, _, _ = _rk_step(call, st, method, starts[i], y, hs[i])
+        n = len(ts) - 1
+        return ODEResult(y=st.unravel(y), nfe=n * len(TABLEAUS[method].c),
+                         steps=n, success=True)
+    if method not in ADAPTIVE_METHODS:
+        raise NotImplementedError(
+            f"method {method!r} is not ported (explicit/implicit Adams: "
+            "ROADMAP Queue 1, M2)")
+    tab = TABLEAUS[method]
+    order = tab.order
+    nfe_per_step = len(tab.c) - (1 if tab.fsal else 0)
+    max_steps = max(int(max_nfe) // nfe_per_step + 1, 4)
+    t = _scalar(t0)
+    t1a = _scalar(t1)
+    span = t1a - t
+    f = call(t, y)
+    h = torch.minimum(_initial_step(call, st, t, y, f, order, rtol, atol),
+                      span)
+    nfe = 2
+    steps = attempts = 0
+    done = bool(span <= 0)
+    end = t1a - 1e-12 * torch.maximum(_scalar(1.0), t1a.abs())
+    while (not done) and nfe + nfe_per_step <= max_nfe \
+            and attempts < max_steps:
+        h = torch.minimum(h, t1a - t)
+        y_prop, f_prop, err, _ = _rk_step(call, st, method, t, y, h,
+                                          f if tab.fsal else None)
+        ratio = _error_ratio(st, err, y, y_prop, rtol, atol)
+        accept = bool(ratio <= 1.0)
+        h_next = _optimal_step(h, ratio, order)
+        if accept:
+            t = t + h
+            y = y_prop
+            if tab.fsal:
+                f = f_prop
+        done = bool(t >= end)
+        nfe += nfe_per_step
+        steps += int(accept)
+        attempts += 1
+        h = h_next
+    return ODEResult(y=st.unravel(y), nfe=nfe, steps=steps, success=done)
+
+
+# ----------------------------------------------------------------------
+# Continuous adjoint
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _AdjointSpec:
+    func: Callable
+    t0: float
+    t1: float
+    solve_kwargs: dict
+    adj_kwargs: dict
+    result: Optional[ODEResult] = None
+    record: AdjointRecord = dataclasses.field(default_factory=AdjointRecord)
+
+
+class _Adjoint(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, spec: _AdjointSpec, y0, *params):
+        res = odeint(lambda t, y: spec.func(params, t, y), y0, spec.t0,
+                     spec.t1, **spec.solve_kwargs)
+        spec.result = res
+        ctx.spec = spec
+        ctx.save_for_backward(res.y, *params)
+        return res.y
+
+    @staticmethod
+    def backward(ctx, g_y1):
+        y1, *params = ctx.saved_tensors
+        spec = ctx.spec
+        needs = [bool(ctx.needs_input_grad[2 + i]) for i in range(len(params))]
+        p_in = [p.detach().requires_grad_(nd) for p, nd in zip(params, needs)]
+        wanted = [p for p, nd in zip(p_in, needs) if nd]
+        t1 = _scalar(spec.t1)
+
+        # augmented state z(s) = (y(t), a_y(t), a_p(t)) with s = t1 - t:
+        # dy/ds = -f, da_y/ds = a^T df/dy, da_p/ds = a^T df/dp
+        def aug(s, z):
+            y, a, *_ = z
+            with torch.enable_grad():
+                y_ = y.detach().requires_grad_(True)
+                f = spec.func(p_in, t1 - s, y_)
+                grads = torch.autograd.grad(f, [y_] + wanted, a,
+                                            allow_unused=True)
+            vy = grads[0] if grads[0] is not None else torch.zeros_like(y)
+            it = iter(grads[1:])
+            vp = []
+            for p, nd in zip(p_in, needs):
+                v = next(it) if nd else None
+                vp.append(torch.zeros_like(p) if v is None else v)
+            return (-f.detach(), vy, *vp)
+
+        z0 = (y1, g_y1.to(y1.dtype), *[torch.zeros_like(p) for p in params])
+        with record_function("graphax_torch.adjoint"):
+            res = odeint(aug, z0, 0.0, float(spec.t1 - spec.t0),
+                         **spec.adj_kwargs)
+        spec.record.nfe = res.nfe
+        _, a0, *ap = res.y
+        return (None, a0, *[v if nd else None for v, nd in zip(ap, needs)])
+
+
+def odeint_adjoint(func: Callable, params, y0: torch.Tensor, t0: float,
+                   t1: float, *, method: str = "dopri5", rtol: float = 1e-9,
+                   atol: float = 1e-7, step_size: float = 1.0,
+                   max_nfe: int = 1000,
+                   adjoint_method: str = "adaptive_heun",
+                   adjoint_rtol: float = 1e-9, adjoint_atol: float = 1e-7,
+                   adjoint_step_size: float = 1.0) -> ODEResult:
+    """O(1)-memory gradients through the solve by the continuous adjoint,
+    with its own method and tolerances. ``func(params, t, y) -> dy`` where
+    ``params`` is a sequence of tensors; gradients flow to those of them
+    that require grad and to ``y0``. Every param enters the adjoint state
+    (its a_p leaf), whether or not it needs a gradient.
+
+    ``result.adjoint.nfe`` holds the backward solve's NFE once backward has
+    run."""
+    spec = _AdjointSpec(
+        func=func, t0=float(t0), t1=float(t1),
+        solve_kwargs=dict(method=method, rtol=rtol, atol=atol,
+                          step_size=step_size, max_nfe=max_nfe),
+        adj_kwargs=dict(method=adjoint_method, rtol=adjoint_rtol,
+                        atol=adjoint_atol, step_size=adjoint_step_size,
+                        max_nfe=max_nfe))
+    y1 = _Adjoint.apply(spec, y0, *params)
+    res = spec.result
+    return ODEResult(y=y1, nfe=res.nfe, steps=res.steps, success=res.success,
+                     adjoint=spec.record)

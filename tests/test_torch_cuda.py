@@ -1,0 +1,122 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+This file imports torch and graphax_torch only (no JAX), so it runs on a
+machine with a card and no JAX:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Here, without a card, every case skips (the kernels have no CPU mode).
+Tolerances: f32 outputs 1e-5 (sums in another order); bf16 outputs one bf16
+ulp (2^-7 relative); the pin's f32 scores 2e-4 relative / 2e-5 absolute;
+the SDDMM's f32 dot products of D terms 1e-4 absolute."""
+
+import numpy as np
+import pytest
+import torch
+
+from graphax_torch.kernels import attention_pin as pin_mod
+from graphax_torch.kernels import spmm as spmm_mod
+from graphax_torch.sparse.graph import Graph
+
+pytestmark = pytest.mark.cuda
+
+BF16_RTOL = 2.0 ** -7
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+# ----------------------------------------------------------------------
+
+def _cuda_graph(device, n=300, e=2500, seed=0):
+    rng = np.random.RandomState(seed)
+    row = rng.randint(0, n - 7, e)
+    col = rng.randint(0, n - 7, e)
+    order = np.lexsort((col, row))
+    w = rng.rand(e).astype(np.float32) + 0.1
+    return Graph.from_edges(row[order], col[order], n, edge_weight=w[order],
+                            edge_buffer_size=e + 13, device=device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [162, 7, 300])
+def test_cuda_spmm_and_sddmm_match_plain(cuda, dtype, d):
+    g = _cuda_graph(cuda)
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(g.num_nodes, d, generator=gen, device=cuda).to(tdt)
+    w = g.edge_weight.to(tdt)
+    wt = spmm_mod.transpose_values(g, w)
+    rtol = 1e-5 if dtype == "float32" else BF16_RTOL
+    for lay, vals in ((g.csr, w), (g.csc, wt)):
+        got = spmm_mod.spmm_csr(lay, vals, x, g.num_nodes)
+        want = spmm_mod.spmm_csr_plain(lay, vals, x, g.num_nodes)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=1e-5)
+    got = spmm_mod.sddmm(g.csr, x, x)
+    want = spmm_mod.sddmm_plain(g.csr, x, x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("att_type", ["scaled_dot", "cosine_sim", "pearson",
+                                      "exp_kernel"])
+def test_cuda_pin_matches_plain(cuda, dtype, att_type):
+    g = _cuda_graph(cuda)
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    n, d, a = g.num_nodes, 162, 32
+    q = (0.3 * torch.randn(n, a, generator=gen, device=cuda)).to(tdt)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+    wk = (0.1 * torch.randn(d, a, generator=gen, device=cuda)).to(tdt)
+    bk = 0.1 * torch.randn(a, generator=gen, device=cuda)
+    for ew in (None, g.edge_weight):
+        args = (g.csr, q, x, wk, bk, ew, att_type, 2, 1.3, 0.7)
+        torch.testing.assert_close(pin_mod.attention_pin(*args),
+                                   pin_mod.attention_pin_plain(*args),
+                                   rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_spmm_autograd_matches_plain(cuda, dtype):
+    """The autograd Function's forward, its dx (A^T g on the CSC layout) and
+    its dw (the SDDMM) against the plain versions of the same products on
+    the same inputs: each product rounded to the state dtype, f32 sums, one
+    rounding of the result (one bf16 ulp apart at most)."""
+    g = _cuda_graph(cuda, seed=2)
+    n, tdt = g.num_nodes, getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(n, 162, generator=gen, device=cuda).to(tdt)
+    probe = torch.randn(n, 162, generator=gen, device=cuda).to(tdt)
+    w = g.edge_weight.to(tdt)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = spmm_mod.spmm(g, wr, spmm_mod.transpose_values(g, wr), xr)
+    y.backward(probe)
+    rtol = 1e-5 if dtype == "float32" else BF16_RTOL
+    want_y = spmm_mod.spmm_csr_plain(g.csr, w, x, n)
+    want_dx = spmm_mod.spmm_csr_plain(g.csc, spmm_mod.transpose_values(g, w),
+                                      probe, n)
+    want_dw = spmm_mod.sddmm_plain(g.csr, probe, x).to(tdt)
+    torch.testing.assert_close(y.detach().float(), want_y.float(), rtol=rtol,
+                               atol=1e-5)
+    torch.testing.assert_close(xr.grad.float(), want_dx.float(), rtol=rtol,
+                               atol=1e-5)
+    e = g.num_edges
+    torch.testing.assert_close(wr.grad[:e].float(), want_dw.float(),
+                               rtol=rtol, atol=1e-4)
+    assert torch.all(wr.grad[e:] == 0)
+
+
+def test_cuda_wrappers_reject_bad_operands(cuda):
+    g = _cuda_graph(cuda)
+    x = torch.randn(g.num_nodes, 8, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        spmm_mod.spmm_csr(g.csr, g.edge_weight.double(), x, g.num_nodes)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_mod.spmm_csr(g.csr, g.edge_weight, x.t(), g.num_nodes)
+    with pytest.raises(TypeError):
+        spmm_mod.spmm_csr(g.csr, g.edge_weight.half(), x.half(), g.num_nodes)
