@@ -6,7 +6,7 @@ port imports torch and numpy only, never jax or graphax. Entry points run on
 the card unless the caller passes ``device="cpu"``.
 
     from graphax_torch import Trainer, best_config, get_dataset
-    cfg = best_config("ogbn-arxiv", community_window=0)
+    cfg = best_config("ogbn-arxiv")
     Trainer(cfg, get_dataset(cfg)).fit(epochs=3, use_early_stop=False)
 """
 

@@ -11,7 +11,9 @@ from torch.profiler import record_function
 from graphax_torch.functions.common import FuncState, prepare_scalars
 from graphax_torch.functions.laplacian import laplacian_rhs
 from graphax_torch.kernels.spmm import transpose_values
+from graphax_torch.kernels.windowed_spmm import densify_windows
 from graphax_torch.ode import ODEResult, odeint, odeint_adjoint
+from graphax_torch.ode.solvers import FIXED_STEP_METHODS
 from graphax_torch.sparse.graph import Graph
 from graphax_torch.sparse.ops import gcn_norm_weights, rw_norm_weights
 
@@ -45,13 +47,25 @@ def normalize_graph(cfg, graph: Graph) -> Graph:
 
 def make_fstate(graph: Graph, x: torch.Tensor, attention=None) -> FuncState:
     """The per-forward FuncState: edge values cast to the state dtype and
-    permuted to the CSC order once here, not at every solver evaluation."""
+    permuted to the CSC order once here, not at every solver evaluation.
+    On a windowed graph (`graphax/blocks/common.py:76-100`) the in-window
+    values become the dense blocks here, and the residual values go in its
+    CSR and CSC slot orders."""
+    values = graph.edge_weight if attention is None else attention
+    pinned = attention is not None
+    if graph.strategy == "windowed":
+        wl = graph.windows
+        v = values.to(x.dtype)
+        return FuncState(graph=graph, x0=x.detach(),
+                         wb=v[wl.residual.perm].contiguous(),
+                         wb_t=v[wl.residual_t.perm].contiguous(),
+                         dense=densify_windows(values, wl, x.dtype),
+                         pinned=pinned)
     if graph.strategy != "sparse":
         raise NotImplementedError(f"strategy {graph.strategy!r} is not ported")
-    values = graph.edge_weight if attention is None else attention
     wb = values.to(x.dtype).contiguous()
     return FuncState(graph=graph, x0=x.detach(), wb=wb,
-                     wb_t=transpose_values(graph, wb))
+                     wb_t=transpose_values(graph, wb), pinned=pinned)
 
 
 def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
@@ -69,15 +83,37 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
                   step_size=cfg.step_size, max_nfe=cfg.max_nfe)
     g = fstate.graph
     if cfg.adjoint and train:
-        def f_adj(p, t, y):
-            return laplacian_rhs(cfg, g, *p, y)
+        adaptive = cfg.adjoint_method not in FIXED_STEP_METHODS
+        if adaptive and g.strategy == "windowed":
+            raise NotImplementedError(
+                "an adaptive adjoint on the windowed strategy: graphax "
+                "integrates the dense blocks' a_p in its error norm (ROADMAP "
+                "Queue 3); use a fixed-grid adjoint_method")
+        params = (alpha, beta, fstate.x0, fstate.wb, fstate.wb_t)
+        if fstate.dense is not None:
+            params += (fstate.dense,)
 
+        def f_adj(p, t, y):
+            return laplacian_rhs(cfg, g, *p[:5], y,
+                                 dense=p[5] if len(p) > 5 else None)
+
+        # graphax's adjoint state on this path (`_split_diff_state`, its
+        # XLA SpMM) holds the a_p of alpha_eff, beta_eff, x0 and the edge
+        # values, which the port integrates under an adaptive method even
+        # where it discards them; its leaves that stay zero are the RHS
+        # module's raw parameters (alpha_train and beta_train; the RHS
+        # reads them only as alpha and beta above) and, when a block pinned
+        # attention, the unused edge weights.
+        zero = sum(p.numel() for p in func.parameters())
+        zero += g.edge_buffer_size if fstate.pinned else 0
         with record_function("graphax_torch.solve"):
             res = odeint_adjoint(
-                f_adj, (alpha, beta, fstate.x0, fstate.wb, fstate.wb_t), x,
-                0.0, t_end, adjoint_method=cfg.adjoint_method,
+                f_adj, params, x, 0.0, t_end,
+                adjoint_method=cfg.adjoint_method,
                 adjoint_rtol=cfg.rtol_adjoint, adjoint_atol=cfg.atol_adjoint,
-                adjoint_step_size=cfg.adjoint_step_size, **common)
+                adjoint_step_size=cfg.adjoint_step_size,
+                track=(True, True, True, True, False, False)[:len(params)],
+                zero_leaves=zero, **common)
     else:
         with record_function("graphax_torch.solve"):
             res = odeint(lambda t, y: func.rhs(alpha, beta, fstate, t, y), x,

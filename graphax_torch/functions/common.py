@@ -21,14 +21,21 @@ class FuncState:
       graph: normalised topology and edge weights.
       x0: the encoder output at t=0, detached (source term).
       wb: ``[E_pad]`` edge values in the state dtype (the graph's weights
-        or the attention a block pinned), built once per forward.
+        or the attention a block pinned), built once per forward. On a
+        windowed graph: the residual edges' values in its CSR slot order.
       wb_t: the same values in the CSC slot order (for ``A^T g``).
+      dense: on a windowed graph, the in-window values as dense
+        ``[T, tile, W]`` blocks in the state dtype; else None.
+      pinned: the values are attention a block pinned, not the graph's
+        weights (graphax then keeps both as adjoint leaves).
     """
 
     graph: Graph
     x0: torch.Tensor
     wb: torch.Tensor
     wb_t: torch.Tensor
+    dense: torch.Tensor | None = None
+    pinned: bool = False
 
 
 def init_alpha_beta(module: nn.Module) -> None:

@@ -4,7 +4,9 @@
 ``f = alpha (A x - x) [+ beta x0]`` where A carries the graph's rw/gcn
 weights or the attention pinned by the enclosing block. The SpMM is the
 hand-written CSR kernel with its CSC/SDDMM backward
-(`graphax_torch.kernels.spmm`)."""
+(`graphax_torch.kernels.spmm`), or on a windowed graph the block-dense
+product plus the residual CSR SpMM (`graphax_torch.kernels.windowed_spmm`,
+`graphax/functions/laplacian.py:39-46`)."""
 
 from __future__ import annotations
 
@@ -12,10 +14,14 @@ from torch import nn
 
 from graphax_torch.functions.common import apply_alpha_beta, init_alpha_beta
 from graphax_torch.kernels.spmm import spmm
+from graphax_torch.kernels.windowed_spmm import spmm_windowed
 
 
-def laplacian_rhs(cfg, graph, alpha, beta, x0, wb, wb_t, x):
-    ax = spmm(graph, wb, wb_t, x)
+def laplacian_rhs(cfg, graph, alpha, beta, x0, wb, wb_t, x, dense=None):
+    if graph.strategy == "windowed":
+        ax = spmm_windowed(dense, wb, wb_t, x, graph.windows)
+    else:
+        ax = spmm(graph, wb, wb_t, x)
     return apply_alpha_beta(cfg, alpha, beta, ax, x, x0)
 
 
@@ -34,4 +40,4 @@ class LaplacianFunction(nn.Module):
 
     def rhs(self, alpha, beta, fstate, t, x):
         return laplacian_rhs(self.cfg, fstate.graph, alpha, beta, fstate.x0,
-                             fstate.wb, fstate.wb_t, x)
+                             fstate.wb, fstate.wb_t, x, dense=fstate.dense)

@@ -55,19 +55,30 @@ def attention_means_supported(cfg) -> bool:
 
 def attention_edge_means(att: TransformerAttention, cfg, graph, x
                          ) -> torch.Tensor:
-    """Head-mean normalised attention per edge, ``[E_pad]`` in x's dtype
-    (0 on padding). Not differentiable: callers run it under no_grad."""
+    """Head-mean normalised attention per edge, ``[E_pad]`` (0 on padding).
+    Not differentiable: callers run it under no_grad.
+
+    On the sparse strategy it follows graphax's kernel path: q, x and Wk in
+    the state dtype, the result cast to it. graphax takes that path only on
+    its tiled strategy (`graphax/functions/transformer.py:175-187`); on a
+    windowed graph it pins through XLA, where ``x @ w`` promotes a bf16 x to
+    f32, so there q, x and Wk go to the kernel in f32 and the result stays
+    f32."""
     if not attention_means_supported(cfg):
         raise NotImplementedError(
             "the pin covers row softmax only; column or squareplus "
             "normalisation is ROADMAP Queue 2, K2")
     heads = cfg.heads
+    dtype = x.dtype
+    if graph.strategy == "windowed":
+        dtype = torch.promote_types(dtype, torch.float32)
+        x = x.to(dtype)
     q = linear_apply(att.Q, x)                              # f32
     if cfg.attention_type == "scaled_dot":
         q = q / torch.sqrt(torch.tensor(cfg.attention_dim // heads,
                                         dtype=torch.float32, device=q.device))
-    q = q.to(x.dtype).contiguous()
-    wk = att.K.weight.t().to(x.dtype).contiguous()          # [D, A]
+    q = q.to(dtype).contiguous()
+    wk = att.K.weight.t().to(dtype).contiguous()            # [D, A]
     bk = att.K.bias.to(torch.float32).contiguous()
     ov2 = inv2l2 = 0.0
     if cfg.attention_type == "exp_kernel":
@@ -80,4 +91,4 @@ def attention_edge_means(att: TransformerAttention, cfg, graph, x
     out = torch.zeros(graph.edge_buffer_size, dtype=torch.float32,
                       device=x.device)
     out[:graph.num_edges] = mean
-    return out.to(x.dtype)
+    return out.to(dtype)

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Every ``graphax_torch/kernels/csrc/*.cu`` file is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
@@ -7,8 +7,12 @@ with ``ctypes``. All sources compile in parallel, one ``nvcc`` each. A
 library is named by the hash of its source, so an edited source is rebuilt
 and an unchanged one is reused within one checkout.
 
-Nothing here runs at import: the CPU tests import every module, and this
-machine class has no ``nvcc``."""
+The host code of ``graphax_torch/native/*.cpp`` (the community partitioner)
+is built the same way by ``g++`` into ``graphax_torch/native/_build/``
+(:func:`host_library`); it runs on the CPU, so the CPU tests build it too.
+
+Nothing here runs at import: the CPU tests import every module, and a
+machine without a card has no ``nvcc``."""
 
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ _LIBS: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # C signature of every exported function: name -> argtypes (restype int,
 # the cudaError_t of the launch)
 SIGNATURES = {
@@ -44,6 +49,23 @@ SIGNATURES = {
     "attention_pin": {
         "gx_attention_pin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _F, _F, _I, _P],
+    },
+    "windowed_spmm": {
+        "gx_densify": [_P, _P, _P, _P, _I, _L, _I, _I, _P],
+        "gx_win_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
+        "gx_win_bwd_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P],
+        "gx_win_bwd_slab": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
+    },
+}
+
+HOST_DIR = os.path.join(os.path.dirname(HERE), "native")
+HOST_BUILD_DIR = os.path.join(HOST_DIR, "_build")
+_HOST_SIGNATURES = {
+    "graphbuild": {
+        "gx_partition_grow": (_L, [_P, _P, _L, _L, _L, _L, _P]),
     },
 }
 
@@ -62,11 +84,16 @@ def _nvcc() -> str:
                        "are built from graphax_torch/kernels/csrc at first use")
 
 
-def _target(name: str) -> tuple:
-    src = os.path.join(CSRC, name + ".cu")
+def _library_path(src: str, build_dir: str, name: str) -> str:
+    """``build_dir/lib<name>-<hash of src>.so``."""
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    return os.path.join(build_dir, f"lib{name}-{digest}.so")
+
+
+def _target(name: str) -> tuple:
+    src = os.path.join(CSRC, name + ".cu")
+    return src, _library_path(src, BUILD_DIR, name)
 
 
 def build_all(verbose: bool = False) -> float:
@@ -125,6 +152,32 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         build_all()
     return _LIBS[name]
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library of ``native/<name>.cpp``, built by ``g++``
+    at first use. A failed build raises."""
+    key = "host:" + name
+    if key in _LIBS:
+        return _LIBS[key]
+    src = os.path.join(HOST_DIR, name + ".cpp")
+    so = _library_path(src, HOST_BUILD_DIR, name)
+    if not os.path.exists(so):
+        os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+        tmp = so + f".tmp{os.getpid()}"
+        proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                               "-o", tmp, src], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {name}.cpp:\n{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    for fn, (restype, argtypes) in _HOST_SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    _LIBS[key] = lib
+    return lib
 
 
 def check(err: int, what: str) -> None:

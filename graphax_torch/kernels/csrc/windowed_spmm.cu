@@ -1,0 +1,559 @@
+// The windowed (block-dense) SpMM: densify once per forward, then a batched
+// product of the dense per-tile blocks with the window slabs per solver
+// evaluation, and its two backward products.
+//
+// Replaces graphax/kernels/pallas_windows.py:
+//   `_densify_kernel` (:57)       -> densify_kernel
+//   `_win_matmul_kernel` (:185)   -> win_matmul_kernel
+//   `_win_bwd_dense_kernel` (:214)-> win_bwd_dense_kernel
+//   `_win_bwd_slab_kernel` (:243) -> win_bwd_slab_kernel
+//
+// Layout (graphax_torch/kernels/windows.py): node rows fall into T tiles of
+// `tile` rows; tile t reads window w = tile_win[t], the `W` consecutive
+// nodes w*W .. w*W+W-1 (the "slab"; slab rows past N read as zero). The
+// in-window edges of tile t form the dense block dense[t] in [tile, W].
+//
+// What bounds them on an H100: bytes. At the ogbn-arxiv shapes (T = 1323,
+// tile 128, W 512, D 162, bf16) the blocks alone are 173 MB per pass, while
+// 2*T*tile*W*D = 28 GFLOP is 0.03 ms at the bf16 tensor-core peak against
+// 0.1 ms to read the blocks once. The three products are one tiled GEMM
+// each, with A and B staged through shared memory; bf16 inputs go through
+// the tensor cores (WMMA 16x16x16, bf16 in, f32 accumulators: bf16 products
+// are exact in f32, as on the MXU), f32 inputs through CUDA-core FMAs (the
+// TPU's f32 MXU passes keep f32 precision; TF32 would not).
+//
+// Design, against the TPU kernels:
+// - No sequential grid: the TPU densify accumulates one-hot products into a
+//   revisited output block, and win_bwd_slab accumulates a window's tiles
+//   into a resident block in window-sorted order. Here densify zero-fills
+//   and then stores one value per in-window edge (cells are disjoint: the
+//   edges are coalesced), and win_bwd_slab gives each (window, W-chunk,
+//   D-chunk) to one CTA that walks that window's tiles from a host-built
+//   window -> tiles CSR, so no output is revisited and nothing is atomic.
+// - Runtime shapes: tile, W and D are arguments. Every staged run is
+//   guarded (rows past tile or N, columns past W or D read as zero) and
+//   every store is guarded, so D = 162 (not a multiple of 16) and small test
+//   shapes need no padding in device memory.
+// - Staging: each operand is copied in runs along its contiguous axis (16
+//   bytes of the blocks, 2 values of a state row) into shared memory laid
+//   out the same way, and the WMMA fragment layout (row or column major)
+//   absorbs the transposes of the two backward products. The next step's
+//   loads are issued into registers before this step's products, and the
+//   1-D grid puts the column chunks of one output block side by side, so
+//   they share its A operand in L2 instead of reading it from HBM again.
+//
+// Not yet done (later work): cp.async/TMA staging with a multi-stage ring,
+// wgmma, wider column chunks (D = 162 runs as 3 chunks of 64), and skipping
+// all-zero 32-column strips of the blocks (0.66 % of the cells are filled
+// at the arxiv shapes).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+
+constexpr int BM = 128;        // output rows per CTA
+constexpr int BN = 64;         // output columns per CTA
+constexpr int BK = 32;         // reduction depth per staged step
+constexpr int THREADS = 256;   // 8 warps: 4 (rows) x 2 (columns) of 32x32
+constexpr int PAD = 8;         // shared pitch padding (elements)
+constexpr int LDC = BN + 4;    // shared row pitch of the f32 epilogue
+// A is staged [BM][BK] or [BK][BM], B [BK][BN] or [BN][BK], whichever
+// keeps each operand's contiguous axis contiguous in shared memory
+constexpr int A_ELEMS = (BM * (BK + PAD)) > (BK * (BM + PAD))
+                            ? BM * (BK + PAD) : BK * (BM + PAD);
+constexpr int B_ELEMS = (BK * (BN + PAD)) > (BN * (BK + PAD))
+                            ? BK * (BN + PAD) : BN * (BK + PAD);
+constexpr int SMEM_AB_F32 = (A_ELEMS + B_ELEMS) * 4;
+constexpr int SMEM_C = BM * LDC * 4;
+constexpr int SMEM = SMEM_C > SMEM_AB_F32 ? SMEM_C : SMEM_AB_F32;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Copy VEC consecutive elements in one load or store where VEC elements
+// make 4, 8 or 16 bytes (both pointers aligned to that size).
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_vec(T* dst, const T* src) {
+  constexpr int BYTES = VEC * sizeof(T);
+  if constexpr (BYTES == 16) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else if constexpr (BYTES == 8) {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+  } else if constexpr (BYTES == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(src);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) dst[j] = src[j];
+  }
+}
+
+// One SR x SC operand tile on its way from device memory to shared memory
+// (S[r * (SC + PAD) + c]), held in registers in between so that the next
+// step's loads are in flight while this step's products run. Each thread
+// moves NV runs of VEC elements along c, contiguous in device memory and in
+// shared memory. fetch(step, r, c, v) fills the run at (r, c) or zeros
+// when it lies outside the operand (a run never straddles the operand's
+// edge: the wrapper takes VEC > 1 only where the extent divides by it).
+template <typename T, int VEC, int SR, int SC>
+struct Staged {
+  static constexpr int NV = SR * SC / VEC / THREADS;
+  static_assert(NV * VEC * THREADS == SR * SC, "tile must split evenly");
+  T buf[NV][VEC];
+
+  __device__ __forceinline__ static void pos(int p, int& r, int& c) {
+    const int i = threadIdx.x + p * THREADS;
+    r = i / (SC / VEC);
+    c = (i % (SC / VEC)) * VEC;
+  }
+  template <typename F>
+  __device__ __forceinline__ void load(F fetch, int step) {
+#pragma unroll
+    for (int p = 0; p < NV; ++p) {
+      int r, c;
+      pos(p, r, c);
+      fetch(step, r, c, buf[p]);
+    }
+  }
+  __device__ __forceinline__ void store(T* S) const {
+#pragma unroll
+    for (int p = 0; p < NV; ++p) {
+      int r, c;
+      pos(p, r, c);
+      copy_vec<T, VEC>(S + r * (SC + PAD) + c, buf[p]);
+    }
+  }
+};
+
+// fetch helper: VEC values at p, or zeros
+template <typename T, int VEC>
+__device__ __forceinline__ void fetch_or_zero(bool ok, const T* p, T* v) {
+  if (ok) {
+    copy_vec<T, VEC>(v, p);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = from_f<T>(0.f);
+  }
+}
+
+// Per-thread share of the CTA's BM x BN f32 accumulator. mma() adds
+// A[BM x BK] @ B[BK x BN] from shared memory, A staged [m][k] (A_MK) or
+// [k][m], B staged [k][n] (B_KN) or [n][k].
+template <typename T> struct Accum;
+
+template <> struct Accum<bf16> {
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[2][2];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(f[i][j], 0.f);
+  }
+  template <bool A_MK, bool B_KN>
+  __device__ __forceinline__ void mma(const bf16* As, const bf16* Bs) {
+    using LA = typename std::conditional<A_MK, wmma::row_major,
+                                         wmma::col_major>::type;
+    using LB = typename std::conditional<B_KN, wmma::row_major,
+                                         wmma::col_major>::type;
+    constexpr int lda = A_MK ? BK + PAD : BM + PAD;
+    constexpr int ldb = B_KN ? BN + PAD : BK + PAD;
+    const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = wm * 32 + i * 16;
+        wmma::load_matrix_sync(a[i], As + (A_MK ? m * lda + kk : kk * lda + m),
+                               lda);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = wn * 32 + j * 16;
+        wmma::load_matrix_sync(b[j], Bs + (B_KN ? kk * ldb + n : n * ldb + kk),
+                               ldb);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(f[i][j], a[i], b[j], f[i][j]);
+    }
+  }
+  __device__ __forceinline__ void store(float* Cs) {
+    const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
+                                f[i][j], LDC, wmma::mem_row_major);
+  }
+};
+
+template <> struct Accum<float> {
+  float r[8][4];  // rows ty*8 + i, columns tx*4 + j
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[i][j] = 0.f;
+  }
+  template <bool A_MK, bool B_KN>
+  __device__ __forceinline__ void mma(const float* As, const float* Bs) {
+    constexpr int lda = A_MK ? BK + PAD : BM + PAD;
+    constexpr int ldb = B_KN ? BN + PAD : BK + PAD;
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll 8
+    for (int k = 0; k < BK; ++k) {
+      float a[8], b[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = ty * 8 + i;
+        a[i] = As[A_MK ? m * lda + k : k * lda + m];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = tx * 4 + j;
+        b[j] = Bs[B_KN ? k * ldb + n : n * ldb + k];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) r[i][j] = fmaf(a[i], b[j], r[i][j]);
+    }
+  }
+  __device__ __forceinline__ void store(float* Cs) {
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Cs[(ty * 8 + i) * LDC + tx * 4 + j] = r[i][j];
+  }
+};
+
+// The CTA's accumulator through shared memory to out[row(m), col(n)] for
+// m < m_lim, n < n_lim (put(m, n, v) does the guarded store).
+template <typename T, typename P>
+__device__ __forceinline__ void epilogue(Accum<T>& acc, float* Cs, P put) {
+  __syncthreads();  // the last staged tiles share Cs's memory
+  acc.store(Cs);
+  __syncthreads();
+  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
+    const int m = i / BN, n = i % BN;
+    put(m, n, Cs[m * LDC + n]);
+  }
+}
+
+// dense[cell[i]] = values[edge_id[i]] (after a zero fill of dense)
+template <typename TI, typename TO>
+__global__ void densify_kernel(const int* __restrict__ edge_id,
+                               const int* __restrict__ cell,
+                               const TI* __restrict__ values,
+                               TO* __restrict__ dense, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) dense[cell[i]] = from_f<TO>(to_f(values[edge_id[i]]));
+}
+
+// The staged GEMM of one CTA: acc += A @ B over `steps` steps of BK, the
+// operands staged by fa / fb (SA, SB: their Staged tiles, laid out as
+// A_MK / B_KN say), the next step's loads issued before this step's
+// products.
+template <typename T, bool A_MK, bool B_KN, int VA, int VB, typename FA,
+          typename FB>
+__device__ __forceinline__ void gemm_steps(Accum<T>& acc, T* As, T* Bs,
+                                           int steps, FA fa, FB fb) {
+  Staged<T, VA, A_MK ? BM : BK, A_MK ? BK : BM> sa;
+  Staged<T, VB, B_KN ? BK : BN, B_KN ? BN : BK> sb;
+  if (steps > 0) {
+    sa.load(fa, 0);
+    sb.load(fb, 0);
+  }
+  for (int s = 0; s < steps; ++s) {
+    sa.store(As);
+    sb.store(Bs);
+    __syncthreads();
+    if (s + 1 < steps) {
+      sa.load(fa, s + 1);
+      sb.load(fb, s + 1);
+    }
+    acc.template mma<A_MK, B_KN>(As, Bs);
+    __syncthreads();
+  }
+}
+
+// The CTA of a flat 1-D grid: column chunk fastest, so the chunks of one
+// output row block run side by side and share its A operand in L2.
+__device__ __forceinline__ void cta_coords(int nchunks, int mblocks, int& b,
+                                           int& m0, int& n0) {
+  const int i = blockIdx.x;
+  n0 = (i % nchunks) * BN;
+  m0 = ((i / nchunks) % mblocks) * BM;
+  b = i / nchunks / mblocks;
+}
+
+// out[t*tile + r, :] = dense[t, r, :] @ slab[tile_win[t]] summed in f32,
+// plus addend[t*tile + r, :], rounded once to T (the windowed SpMM's
+// residual, added in the epilogue instead of three elementwise passes over
+// [N, D]). A [m][k] = dense[t] rows (runs of VA along W), B [k][n] = slab
+// rows (runs of VB along D).
+template <typename T, int VA, int VB>
+__global__ void __launch_bounds__(THREADS)
+win_matmul_kernel(const T* __restrict__ dense, const T* __restrict__ x,
+                  const int* __restrict__ tile_win,
+                  const T* __restrict__ addend, T* __restrict__ out,
+                  int tile, int W, int N, int D) {
+  __shared__ __align__(128) unsigned char smem[SMEM];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + A_ELEMS;
+  int t, m0, n0;
+  cta_coords((D + BN - 1) / BN, (tile + BM - 1) / BM, t, m0, n0);
+  const long long base = (long long)tile_win[t] * W;  // first slab row
+  const T* A = dense + (size_t)t * tile * W;
+  Accum<T> acc;
+  acc.zero();
+  gemm_steps<T, true, true, VA, VB>(
+      acc, As, Bs, (W + BK - 1) / BK,
+      [&](int s, int m, int k, T* v) {
+        const int r = m0 + m, c = s * BK + k;
+        fetch_or_zero<T, VA>(r < tile && c < W, A + (size_t)r * W + c, v);
+      },
+      [&](int s, int k, int n, T* v) {
+        const long long node = base + s * BK + k;
+        const int c = n0 + n;
+        fetch_or_zero<T, VB>(s * BK + k < W && node < N && c < D,
+                             x + node * D + c, v);
+      });
+  epilogue(acc, reinterpret_cast<float*>(smem), [&](int m, int n, float v) {
+    const long long row = (long long)t * tile + m0 + m;
+    const int c = n0 + n;
+    if (m0 + m < tile && row < N && c < D)
+      out[row * D + c] = from_f<T>(v + to_f(addend[row * D + c]));
+  });
+}
+
+// d_dense[t, r, k] = g[t*tile + r, :] . slab[tile_win[t]][k, :]   (f32)
+// A [m][d] = g rows (runs of VA along D), B staged [n][d] = slab rows
+// (runs of VB along D)
+template <typename T, int VA, int VB>
+__global__ void __launch_bounds__(THREADS)
+win_bwd_dense_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                     const int* __restrict__ tile_win, float* __restrict__ out,
+                     int tile, int W, int N, int D) {
+  __shared__ __align__(128) unsigned char smem[SMEM];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + A_ELEMS;
+  int t, m0, n0;
+  cta_coords((W + BN - 1) / BN, (tile + BM - 1) / BM, t, m0, n0);
+  const long long row0 = (long long)t * tile;         // first node of tile t
+  const long long base = (long long)tile_win[t] * W;  // first slab row
+  Accum<T> acc;
+  acc.zero();
+  gemm_steps<T, true, false, VA, VB>(
+      acc, As, Bs, (D + BK - 1) / BK,
+      [&](int s, int m, int k, T* v) {
+        const int r = m0 + m, c = s * BK + k;
+        fetch_or_zero<T, VA>(r < tile && row0 + r < N && c < D,
+                             g + (row0 + r) * D + c, v);
+      },
+      [&](int s, int n, int k, T* v) {
+        const int j = n0 + n, c = s * BK + k;
+        fetch_or_zero<T, VB>(j < W && base + j < N && c < D,
+                             x + (base + j) * D + c, v);
+      });
+  epilogue(acc, reinterpret_cast<float*>(smem), [&](int m, int n, float v) {
+    const int r = m0 + m, j = n0 + n;
+    if (r < tile && j < W) out[((size_t)t * tile + r) * W + j] = v;
+  });
+}
+
+// d_slab[w, k, :] = sum over tiles t with tile_win[t] == w of
+//                   sum_r dense[t, r, k] * g[t*tile + r, :]   (f32)
+// A staged [r][k] = dense[t] rows (runs of VA along W), B [r][n] = g rows
+// (runs of VB along D). The steps walk the window's tiles from the
+// window -> tiles CSR, tile rows in BK chunks within each.
+template <typename T, int VA, int VB>
+__global__ void __launch_bounds__(THREADS)
+win_bwd_slab_kernel(const T* __restrict__ dense, const T* __restrict__ g,
+                    const int* __restrict__ win_ptr,
+                    const int* __restrict__ win_tiles,
+                    float* __restrict__ out, int tile, int W, int N, int D) {
+  __shared__ __align__(128) unsigned char smem[SMEM];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + A_ELEMS;
+  int w, m0, n0;
+  cta_coords((D + BN - 1) / BN, (W + BM - 1) / BM, w, m0, n0);
+  const int beg = win_ptr[w];
+  const int ksteps = (tile + BK - 1) / BK;
+  Accum<T> acc;
+  acc.zero();
+  gemm_steps<T, false, true, VA, VB>(
+      acc, As, Bs, (win_ptr[w + 1] - beg) * ksteps,
+      [&](int s, int k, int m, T* v) {
+        const int t = win_tiles[beg + s / ksteps];
+        const int r = (s % ksteps) * BK + k, c = m0 + m;
+        fetch_or_zero<T, VA>(r < tile && c < W,
+                             dense + ((size_t)t * tile + r) * W + c, v);
+      },
+      [&](int s, int k, int n, T* v) {
+        const long long t = win_tiles[beg + s / ksteps];
+        const int r = (s % ksteps) * BK + k, c = n0 + n;
+        fetch_or_zero<T, VB>(r < tile && t * tile + r < N && c < D,
+                             g + (t * tile + r) * D + c, v);
+      });
+  epilogue(acc, reinterpret_cast<float*>(smem), [&](int m, int n, float v) {
+    const int k = m0 + m, c = n0 + n;
+    if (k < W && c < D) out[((size_t)w * W + k) * D + c] = v;
+  });
+}
+
+template <typename TI, typename TO>
+cudaError_t densify_launch(const void* edge_id, const void* cell,
+                           const void* values, void* dense, int n,
+                           long long n_cells, cudaStream_t s) {
+  cudaError_t err = cudaMemsetAsync(dense, 0, (size_t)n_cells * sizeof(TO), s);
+  if (err != cudaSuccess) return err;
+  if (n > 0)
+    densify_kernel<TI, TO><<<(n + 255) / 256, 256, 0, s>>>(
+        (const int*)edge_id, (const int*)cell, (const TI*)values, (TO*)dense, n);
+  return cudaGetLastError();
+}
+
+// The three products take va, vb: the run length of A's and B's staged
+// loads. A runs along W (the blocks) take 16 bytes or 1 value; A runs
+// along D (g in win_bwd_dense) and every B run (along D) take 2 values or
+// 1. The wrapper picks the longer run where the extent divides by it and
+// the pointer is aligned to it.
+
+template <template <typename, int, int> class K, typename T, int VAW,
+          typename... Args>
+cudaError_t launch_gemm(int blocks, int va, int vb, cudaStream_t s,
+                        Args... args) {
+  if (va == VAW && vb == 2)
+    K<T, VAW, 2>::run(blocks, s, args...);
+  else if (va == VAW && vb == 1)
+    K<T, VAW, 1>::run(blocks, s, args...);
+  else if (va == 1 && vb == 2)
+    K<T, 1, 2>::run(blocks, s, args...);
+  else if (va == 1 && vb == 1)
+    K<T, 1, 1>::run(blocks, s, args...);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+template <typename T, int VA, int VB> struct MatmulK {
+  static void run(int blocks, cudaStream_t s, const void* dense,
+                  const void* x, const void* tile_win, const void* addend,
+                  void* out, int tile, int W, int N, int D) {
+    win_matmul_kernel<T, VA, VB><<<blocks, THREADS, 0, s>>>(
+        (const T*)dense, (const T*)x, (const int*)tile_win, (const T*)addend,
+        (T*)out, tile, W, N, D);
+  }
+};
+template <typename T, int VA, int VB> struct BwdDenseK {
+  static void run(int blocks, cudaStream_t s, const void* g, const void* x,
+                  const void* tile_win, void* out, int tile, int W, int N,
+                  int D) {
+    win_bwd_dense_kernel<T, VA, VB><<<blocks, THREADS, 0, s>>>(
+        (const T*)g, (const T*)x, (const int*)tile_win, (float*)out, tile,
+        W, N, D);
+  }
+};
+template <typename T, int VA, int VB> struct BwdSlabK {
+  static void run(int blocks, cudaStream_t s, const void* dense,
+                  const void* g, const void* win_ptr, const void* win_tiles,
+                  void* out, int tile, int W, int N, int D) {
+    win_bwd_slab_kernel<T, VA, VB><<<blocks, THREADS, 0, s>>>(
+        (const T*)dense, (const T*)g, (const int*)win_ptr,
+        (const int*)win_tiles, (float*)out, tile, W, N, D);
+  }
+};
+
+// A_ALONG_W: A's runs lie along W (16-byte runs), else along D (pairs)
+template <template <typename, int, int> class K, bool A_ALONG_W,
+          typename... Args>
+int dispatch_gemm(int dtype, int blocks, int va, int vb, void* stream,
+                  Args... args) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (blocks <= 0) return (int)cudaSuccess;
+  if (dtype == 0)
+    return (int)launch_gemm<K, float, A_ALONG_W ? 4 : 2>(blocks, va, vb, s,
+                                                         args...);
+  if (dtype == 1)
+    return (int)launch_gemm<K, bf16, A_ALONG_W ? 8 : 2>(blocks, va, vb, s,
+                                                        args...);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype codes: 0 float32, 1 bfloat16. Each function returns the cudaError_t
+// of its launch.
+
+// dense [n_cells] (out_dtype) = 0, then dense[cell[i]] = values[edge_id[i]]
+// for i < n_win; edge_id and cell are int32.
+int gx_densify(const void* edge_id, const void* cell, const void* values,
+               void* dense, int n_win, long long n_cells, int in_dtype,
+               int out_dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (in_dtype == 0 && out_dtype == 0)
+    return densify_launch<float, float>(edge_id, cell, values, dense, n_win, n_cells, s);
+  if (in_dtype == 0 && out_dtype == 1)
+    return densify_launch<float, bf16>(edge_id, cell, values, dense, n_win, n_cells, s);
+  if (in_dtype == 1 && out_dtype == 0)
+    return densify_launch<bf16, float>(edge_id, cell, values, dense, n_win, n_cells, s);
+  if (in_dtype == 1 && out_dtype == 1)
+    return densify_launch<bf16, bf16>(edge_id, cell, values, dense, n_win, n_cells, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+
+// out [N, D] = dense @ slab + addend, rounded once to the shared dtype of
+// dense [T, tile, W], x [N, D], addend [N, D] and out; tile_win [T] int32.
+int gx_win_matmul(const void* dense, const void* x, const void* tile_win,
+                  const void* addend, void* out, int T, int tile, int W,
+                  int N, int D, int dtype, int va, int vb, void* stream) {
+  const int blocks = T * ((tile + BM - 1) / BM) * ((D + BN - 1) / BN);
+  return dispatch_gemm<MatmulK, true>(dtype, blocks, va, vb, stream, dense, x,
+                                      tile_win, addend, out, tile, W, N, D);
+}
+
+// out [T, tile, W] f32; g [N, D] and x [N, D] share dtype.
+int gx_win_bwd_dense(const void* g, const void* x, const void* tile_win,
+                     void* out, int T, int tile, int W, int N, int D,
+                     int dtype, int va, int vb, void* stream) {
+  const int blocks = T * ((tile + BM - 1) / BM) * ((W + BN - 1) / BN);
+  return dispatch_gemm<BwdDenseK, false>(dtype, blocks, va, vb, stream, g,
+                                         x, tile_win, out, tile, W, N, D);
+}
+
+// out [Wn*W, D] f32; dense [T, tile, W] and g [N, D] share dtype;
+// win_ptr [Wn+1] and win_tiles [T] int32 (the window -> tiles CSR).
+int gx_win_bwd_slab(const void* dense, const void* g, const void* win_ptr,
+                    const void* win_tiles, void* out, int Wn, int tile, int W,
+                    int N, int D, int dtype, int va, int vb, void* stream) {
+  const int blocks = Wn * ((W + BM - 1) / BM) * ((D + BN - 1) / BN);
+  return dispatch_gemm<BwdSlabK, true>(dtype, blocks, va, vb, stream, dense,
+                                       g, win_ptr, win_tiles, out, tile, W,
+                                       N, D);
+}
+
+}  // extern "C"

@@ -102,29 +102,29 @@ def sddmm(layout: Layout, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 class _SpMM(torch.autograd.Function):
-    """``y = A x`` with ``dx = A^T g`` (the same kernel on the CSC layout)
-    and, only when asked for, ``dw`` through the SDDMM."""
+    """``y = A x`` over the slots of ``csr`` with ``dx = A^T g`` (the same
+    kernel on ``csc``, the transpose of the same edges) and, only when asked
+    for, ``dw`` through the SDDMM. ``wb`` holds one value per CSR slot (or
+    more: the rest, a graph's padding, gets a zero gradient)."""
 
     @staticmethod
-    def forward(ctx, wb, wb_t, x, graph):
-        ctx.graph = graph
-        ctx.save_for_backward(wb_t, x)
-        return spmm_csr(graph.csr, wb, x, graph.num_nodes)
+    def forward(ctx, wb, wb_t, x, csr, csc):
+        ctx.layouts = (csr, csc)
+        ctx.save_for_backward(wb, wb_t, x)
+        return spmm_csr(csr, wb, x, csr.num_rows)
 
     @staticmethod
     def backward(ctx, g):
-        wb_t, x = ctx.saved_tensors
-        graph = ctx.graph
+        wb, wb_t, x = ctx.saved_tensors
+        csr, csc = ctx.layouts
         g = g.to(x.dtype).contiguous()
         dwb = dx = None
         if ctx.needs_input_grad[2]:
-            dx = spmm_csr(graph.csc, wb_t, g, graph.num_nodes)
+            dx = spmm_csr(csc, wb_t, g, csc.num_rows)
         if ctx.needs_input_grad[0]:
-            dw = sddmm(graph.csr, g, x)
-            dwb = torch.zeros(graph.edge_buffer_size, dtype=wb_t.dtype,
-                              device=x.device)
-            dwb[:graph.num_edges] = dw.to(wb_t.dtype)
-        return dwb, None, dx, None
+            dwb = torch.zeros_like(wb)
+            dwb[:csr.num_slots] = sddmm(csr, g, x).to(wb.dtype)
+        return dwb, None, dx, None, None
 
 
 def transpose_values(graph: Graph, wb: torch.Tensor) -> torch.Tensor:
@@ -136,4 +136,12 @@ def spmm(graph: Graph, wb: torch.Tensor, wb_t: torch.Tensor,
          x: torch.Tensor) -> torch.Tensor:
     """Differentiable ``A @ x``: ``wb [E_pad]`` edge values in x's dtype
     (0 on padding) and ``wb_t = transpose_values(graph, wb)``."""
-    return _SpMM.apply(wb, wb_t, x.contiguous(), graph)
+    return spmm_layouts(graph.csr, graph.csc, wb, wb_t, x)
+
+
+def spmm_layouts(csr: Layout, csc: Layout, wb: torch.Tensor,
+                 wb_t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable product over one CSR/CSC pair of the same edges (a
+    whole graph, or the windowed layout's residual): ``wb`` per CSR slot,
+    ``wb_t`` per CSC slot, both in x's dtype."""
+    return _SpMM.apply(wb, wb_t, x.contiguous(), csr, csc)

@@ -1,0 +1,285 @@
+"""The windowed (block-dense) SpMM: dense per-tile blocks built once per
+forward, a batched product with the window slabs per solver evaluation, and
+the CSR SpMM for the residual edges.
+
+Replaces `graphax/kernels/pallas_windows.py`: `_densify_kernel` (:57),
+`_win_matmul_kernel` (:185), `_win_bwd_dense_kernel` (:214) and
+`_win_bwd_slab_kernel` (:243), with the custom VJPs of `_make_densify`
+(:134-165) and `_make_win_matmul` (:293-348) and `spmm_windowed`
+(:351-374). The CUDA source is `csrc/windowed_spmm.cu`; the layout is
+`graphax_torch.kernels.windows.WindowLayout`. Each wrapper takes a CUDA
+tensor to its kernel and a CPU tensor to the plain PyTorch version beside
+it, never falls back from one to the other, checks its operands and counts
+its launches in ``_build.LAUNCHES``.
+
+Numerics, as graphax's: the blocks hold the edge values rounded once to the
+state dtype; the in-window product sums in f32 (bf16 products are exact in
+f32), then adds the residual SpMM's result (already in the state dtype)
+and rounds once to the state dtype, as graphax's `spmm_windowed` does
+(:366-374); the backward casts the cotangent to the state dtype before
+both products, returns ``d_dense`` in the blocks' dtype and ``dx`` in the
+state dtype."""
+
+from __future__ import annotations
+
+import torch
+
+from graphax_torch.kernels import _build
+from graphax_torch.kernels.spmm import spmm_layouts
+from graphax_torch.kernels.windows import WindowLayout
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _slab(x: torch.Tensor, wl: WindowLayout) -> torch.Tensor:
+    """``x`` padded with zero rows to ``[Wn, W, D]``."""
+    pad = wl.num_windows * wl.window - x.shape[0]
+    xp = torch.cat([x, x.new_zeros(pad, x.shape[1])]) if pad else x
+    return xp.reshape(wl.num_windows, wl.window, -1)
+
+
+def _tiles(g: torch.Tensor, wl: WindowLayout) -> torch.Tensor:
+    """``g [N, D]`` padded with zero rows to ``[T, tile, D]``."""
+    pad = wl.num_tiles * wl.tile - g.shape[0]
+    gp = torch.cat([g, g.new_zeros(pad, g.shape[1])]) if pad else g
+    return gp.reshape(wl.num_tiles, wl.tile, -1)
+
+
+def _check(wl: WindowLayout, what: str, x: torch.Tensor, *others):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {x.dtype} not supported")
+    for t in (x,) + others + (wl.tile_win,):
+        if t.device != x.device:
+            raise ValueError(f"{what}: all operands must be on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+    for t in others:
+        if t.dtype != x.dtype:
+            raise TypeError(f"{what}: operands must share x's dtype")
+
+
+def _check_rows(wl: WindowLayout, what: str, t: torch.Tensor):
+    if t.dim() != 2 or t.shape[0] != wl.num_nodes:
+        raise ValueError(f"{what}: expected [N, D] with N = {wl.num_nodes}, "
+                         f"got {tuple(t.shape)}")
+
+
+def _run(t: torch.Tensor, extent: int, run: int) -> int:
+    """The staged load's run length along a contiguous axis of ``extent``
+    values: ``run`` where the extent divides by it and ``t`` is aligned to
+    it, else 1."""
+    ok = extent % run == 0 and t.data_ptr() % (run * t.element_size()) == 0
+    return run if ok else 1
+
+
+def _wide(t: torch.Tensor) -> int:
+    """16 bytes of ``t``'s dtype."""
+    return 16 // t.element_size()
+
+
+def _check_blocks(wl: WindowLayout, what: str, dense: torch.Tensor):
+    if tuple(dense.shape) != wl.block_shape:
+        raise ValueError(f"{what}: blocks must be {wl.block_shape}, got "
+                         f"{tuple(dense.shape)}")
+
+
+# ----------------------------------------------------------------------
+# densify: in-window edge values -> dense [T, tile, W] blocks
+# ----------------------------------------------------------------------
+
+def densify_plain(wl: WindowLayout, values, dtype) -> torch.Tensor:
+    dense = torch.zeros(wl.num_tiles * wl.tile * wl.window, dtype=dtype,
+                        device=values.device)
+    dense[wl.win_cell.long()] = values[wl.win_edge.long()].to(dtype)
+    return dense.reshape(wl.block_shape)
+
+
+def densify(wl: WindowLayout, values: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """``[T, tile, W]`` blocks in ``dtype``: each in-window edge's value
+    (``values`` indexed by edge buffer position) at its cell, 0 elsewhere."""
+    if not values.is_cuda:
+        return densify_plain(wl, values, dtype)
+    if values.dtype not in _DTYPES or dtype not in _DTYPES:
+        raise TypeError("densify: float32 or bfloat16 values and blocks")
+    if values.dim() != 1 or not values.is_contiguous():
+        raise ValueError("densify: values must be 1-D and contiguous")
+    for t in (wl.win_edge, wl.win_cell):
+        if t.device != values.device:
+            raise ValueError(f"densify: layout must be on {values.device}")
+    dense = torch.empty(wl.block_shape, dtype=dtype, device=values.device)
+    err = _build.library("windowed_spmm").gx_densify(
+        wl.win_edge.data_ptr(), wl.win_cell.data_ptr(), values.data_ptr(),
+        dense.data_ptr(), wl.in_window_edges, dense.numel(),
+        _DTYPES[values.dtype], _DTYPES[dtype], _build.stream_ptr(values))
+    _build.check(err, "densify")
+    _build.LAUNCHES["windowed_densify"] += 1
+    return dense
+
+
+class _Densify(torch.autograd.Function):
+    """The backward is the transpose: a gather of the cotangent at each
+    in-window edge's cell (plain indexing, as graphax does it in XLA)."""
+
+    @staticmethod
+    def forward(ctx, values, wl, dtype):
+        ctx.wl = wl
+        ctx.values_meta = (values.shape, values.dtype)
+        return densify(wl, values.contiguous(), dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        wl = ctx.wl
+        shape, dtype = ctx.values_meta
+        dv = torch.zeros(shape, dtype=dtype, device=g.device)
+        dv[wl.win_edge.long()] = g.reshape(-1)[wl.win_cell.long()].to(dtype)
+        return dv, None, None
+
+
+def densify_windows(values: torch.Tensor, wl: WindowLayout,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Differentiable :func:`densify` (once per forward)."""
+    return _Densify.apply(values, wl, dtype)
+
+
+# ----------------------------------------------------------------------
+# win_matmul: out[t] = dense[t] @ slab[tile_win[t]]
+# ----------------------------------------------------------------------
+
+def win_matmul_plain(wl: WindowLayout, dense, x, addend):
+    slab = _slab(x.float(), wl)[wl.tile_win.long()]          # [T, W, D]
+    out = torch.bmm(dense.float(), slab)                       # [T, tile, D]
+    out = out.reshape(wl.num_tiles * wl.tile, -1)[:wl.num_nodes]
+    return (out + addend.float()).to(x.dtype)
+
+
+def win_matmul(wl: WindowLayout, dense: torch.Tensor, x: torch.Tensor,
+               addend: torch.Tensor) -> torch.Tensor:
+    """``[N, D]`` in x's dtype: the in-window product of the blocks with x,
+    summed in f32, plus ``addend`` (``[N, D]`` in x's dtype), rounded once
+    to x's dtype (the kernel adds it in its epilogue)."""
+    if not x.is_cuda:
+        return win_matmul_plain(wl, dense, x, addend)
+    _check(wl, "win_matmul", x, dense, addend)
+    _check_rows(wl, "win_matmul", x)
+    _check_blocks(wl, "win_matmul", dense)
+    n, d = x.shape
+    if addend.shape != x.shape:
+        raise ValueError("win_matmul: addend must be shaped like x")
+    out = torch.empty((n, d), device=x.device, dtype=x.dtype)
+    err = _build.library("windowed_spmm").gx_win_matmul(
+        dense.data_ptr(), x.data_ptr(), wl.tile_win.data_ptr(),
+        addend.data_ptr(), out.data_ptr(),
+        wl.num_tiles, wl.tile, wl.window, n, d, _DTYPES[x.dtype],
+        _run(dense, wl.window, _wide(dense)), _run(x, d, 2),
+        _build.stream_ptr(x))
+    _build.check(err, "win_matmul")
+    _build.LAUNCHES["win_matmul"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# win_bwd_dense: d_dense[t] = g[t] @ slab[tile_win[t]]^T
+# ----------------------------------------------------------------------
+
+def win_bwd_dense_plain(wl: WindowLayout, g, x) -> torch.Tensor:
+    slab = _slab(x.float(), wl)[wl.tile_win.long()]          # [T, W, D]
+    return torch.bmm(_tiles(g.float(), wl), slab.transpose(1, 2))
+
+
+def win_bwd_dense(wl: WindowLayout, g: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """``[T, tile, W]`` f32: the gradient of the blocks."""
+    if not x.is_cuda:
+        return win_bwd_dense_plain(wl, g, x)
+    _check(wl, "win_bwd_dense", x, g)
+    _check_rows(wl, "win_bwd_dense", x)
+    _check_rows(wl, "win_bwd_dense", g)
+    n, d = x.shape
+    out = torch.empty(wl.block_shape, dtype=torch.float32, device=x.device)
+    err = _build.library("windowed_spmm").gx_win_bwd_dense(
+        g.data_ptr(), x.data_ptr(), wl.tile_win.data_ptr(), out.data_ptr(),
+        wl.num_tiles, wl.tile, wl.window, n, d, _DTYPES[x.dtype],
+        _run(g, d, 2), _run(x, d, 2), _build.stream_ptr(x))
+    _build.check(err, "win_bwd_dense")
+    _build.LAUNCHES["win_bwd_dense"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# win_bwd_slab: d_slab[w] = sum over tiles t of window w of dense[t]^T g[t]
+# ----------------------------------------------------------------------
+
+def win_bwd_slab_plain(wl: WindowLayout, dense, g) -> torch.Tensor:
+    per_tile = torch.bmm(dense.float().transpose(1, 2),
+                         _tiles(g.float(), wl))                # [T, W, D]
+    out = torch.zeros((wl.num_windows, wl.window, g.shape[1]),
+                      dtype=torch.float32, device=g.device)
+    out.index_add_(0, wl.tile_win.long(), per_tile)
+    return out.reshape(wl.num_windows * wl.window, -1)
+
+
+def win_bwd_slab(wl: WindowLayout, dense: torch.Tensor,
+                 g: torch.Tensor) -> torch.Tensor:
+    """``[Wn * W, D]`` f32: the gradient of the slab (rows past N are the
+    zero padding's)."""
+    if not g.is_cuda:
+        return win_bwd_slab_plain(wl, dense, g)
+    _check(wl, "win_bwd_slab", g, dense)
+    _check_rows(wl, "win_bwd_slab", g)
+    _check_blocks(wl, "win_bwd_slab", dense)
+    for t in (wl.win_ptr, wl.win_tiles):
+        if t.device != g.device:
+            raise ValueError(f"win_bwd_slab: layout must be on {g.device}")
+    n, d = g.shape
+    out = torch.empty((wl.num_windows * wl.window, d), dtype=torch.float32,
+                      device=g.device)
+    err = _build.library("windowed_spmm").gx_win_bwd_slab(
+        dense.data_ptr(), g.data_ptr(), wl.win_ptr.data_ptr(),
+        wl.win_tiles.data_ptr(), out.data_ptr(), wl.num_windows, wl.tile,
+        wl.window, n, d, _DTYPES[g.dtype],
+        _run(dense, wl.window, _wide(dense)), _run(g, d, 2),
+        _build.stream_ptr(g))
+    _build.check(err, "win_bwd_slab")
+    _build.LAUNCHES["win_bwd_slab"] += 1
+    return out
+
+
+class _WinMatmul(torch.autograd.Function):
+    """``out = blocks x + addend``, rounded to x's dtype, with ``dx`` from
+    `win_bwd_slab`, the addend's gradient passed through, and, only when the
+    blocks need a gradient, ``d_dense`` from `win_bwd_dense`."""
+
+    @staticmethod
+    def forward(ctx, dense, x, wl, addend):
+        ctx.wl = wl
+        ctx.save_for_backward(dense, x)
+        return win_matmul(wl, dense, x, addend)
+
+    @staticmethod
+    def backward(ctx, g):
+        dense, x = ctx.saved_tensors
+        wl = ctx.wl
+        g = g.to(x.dtype).contiguous()
+        d_dense = dx = None
+        if ctx.needs_input_grad[1]:
+            blocks = dense.to(x.dtype).contiguous()
+            dx = win_bwd_slab(wl, blocks, g)[:wl.num_nodes].to(x.dtype)
+        if ctx.needs_input_grad[0]:
+            d_dense = win_bwd_dense(wl, g, x).to(dense.dtype)
+        return d_dense, dx, None, g
+
+
+def spmm_windowed(dense: torch.Tensor, res_wb: torch.Tensor,
+                  res_wb_t: torch.Tensor, x: torch.Tensor,
+                  wl: WindowLayout) -> torch.Tensor:
+    """Differentiable ``A @ x`` on the windowed layout, in x's dtype.
+
+    ``dense``: the blocks from :func:`densify_windows`; ``res_wb`` /
+    ``res_wb_t``: the residual edges' values in x's dtype, in the slot
+    orders of ``wl.residual`` / ``wl.residual_t``. The residual SpMM's
+    result (in x's dtype) is added to the f32 in-window sum in
+    `win_matmul`'s epilogue, with one rounding to x's dtype."""
+    x = x.contiguous()
+    res = spmm_layouts(wl.residual, wl.residual_t, res_wb, res_wb_t, x)
+    return _WinMatmul.apply(dense, x, wl, res)

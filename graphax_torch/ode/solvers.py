@@ -85,10 +85,11 @@ class _State:
         return out[0] if self.single else out
 
 
-def _rms(leaves) -> torch.Tensor:
-    """RMS over all leaves jointly, as an f32 host scalar."""
+def _rms(leaves, pad: int = 0) -> torch.Tensor:
+    """RMS over all leaves jointly and ``pad`` further zeros (leaves of the
+    reference's state that are identically zero), as an f32 host scalar."""
     tot = sum(torch.sum(torch.square(t)) for t in leaves)
-    cnt = sum(t.numel() for t in leaves)
+    cnt = sum(t.numel() for t in leaves) + pad
     return _scalar(float(torch.sqrt(tot / cnt)))
 
 
@@ -132,14 +133,14 @@ def _rk_step(call, st: _State, tab_name: str, t, y, h, f0=None):
     return y1, f1, err, nfe
 
 
-def _error_ratio(st: _State, err, y0, y1, rtol, atol) -> torch.Tensor:
+def _error_ratio(st: _State, err, y0, y1, rtol, atol, pad) -> torch.Tensor:
     with torch.no_grad():
         scaled = []
         for e_, a_, b_ in zip(err, y0, y1):
             scale = atol + rtol * torch.maximum(a_.detach().to(st.acc).abs(),
                                                 b_.detach().to(st.acc).abs())
             scaled.append(e_.to(st.acc) / scale)
-        return _rms(scaled)
+        return _rms(scaled, pad)
 
 
 def _optimal_step(h, ratio, order):
@@ -150,7 +151,7 @@ def _optimal_step(h, ratio, order):
     return h * factor
 
 
-def _initial_step(call, st: _State, t0, y0, f0, order, rtol, atol):
+def _initial_step(call, st: _State, t0, y0, f0, order, rtol, atol, pad):
     """Hairer/Wanner initial step (torchdiffeq `_select_initial_step`).
     Costs one RHS evaluation."""
     with torch.no_grad():
@@ -158,15 +159,16 @@ def _initial_step(call, st: _State, t0, y0, f0, order, rtol, atol):
         y0a = [t_.detach().to(acc) for t_ in y0]
         f0a = [t_.detach().to(acc) for t_ in f0]
         scale = [atol + t_.abs() * rtol for t_ in y0a]
-        d0 = _rms([u / s_ for u, s_ in zip(y0a, scale)])
-        d1 = _rms([u / s_ for u, s_ in zip(f0a, scale)])
+        d0 = _rms([u / s_ for u, s_ in zip(y0a, scale)], pad)
+        d1 = _rms([u / s_ for u, s_ in zip(f0a, scale)], pad)
         if bool((d0 < 1e-5) | (d1 < 1e-5)):
             h0 = _scalar(1e-6)
         else:
             h0 = 0.01 * d0 / d1
         y1 = tuple((u + float(h0) * f).to(st.flat) for u, f in zip(y0a, f0a))
         f1 = call(t0 + h0, y1)
-        d2 = _rms([(f.to(acc) - u) / s_ for f, u, s_ in zip(f1, f0a, scale)]) / h0
+        d2 = _rms([(f.to(acc) - u) / s_ for f, u, s_ in zip(f1, f0a, scale)],
+                  pad) / h0
         dmax = torch.maximum(d1, d2)
         if bool(dmax <= 1e-15):
             h1 = torch.maximum(_scalar(1e-6), h0 * 1e-3)
@@ -190,9 +192,12 @@ def _fixed_grid(t0: float, t1: float, step_size: float) -> np.ndarray:
 
 def odeint(func: Callable, y0, t0: float, t1: float, *,
            method: str = "dopri5", rtol: float = 1e-9, atol: float = 1e-7,
-           step_size: float = 1.0, max_nfe: int = 1000) -> ODEResult:
+           step_size: float = 1.0, max_nfe: int = 1000,
+           norm_pad: int = 0) -> ODEResult:
     """Integrate ``dy/dt = func(t, y)`` from t0 to t1 (t1 > t0). ``y0`` is a
-    tensor or a tuple of tensors; ``func`` returns the same structure."""
+    tensor or a tuple of tensors; ``func`` returns the same structure.
+    ``norm_pad`` zeros join every error norm of the adaptive controller
+    (the adjoint's count of the reference's identically-zero leaves)."""
     st = _State(y0)
 
     def call(t, carry):
@@ -221,8 +226,8 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
     t1a = _scalar(t1)
     span = t1a - t
     f = call(t, y)
-    h = torch.minimum(_initial_step(call, st, t, y, f, order, rtol, atol),
-                      span)
+    h = torch.minimum(_initial_step(call, st, t, y, f, order, rtol, atol,
+                                    norm_pad), span)
     nfe = 2
     steps = attempts = 0
     done = bool(span <= 0)
@@ -232,7 +237,7 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
         h = torch.minimum(h, t1a - t)
         y_prop, f_prop, err, _ = _rk_step(call, st, method, t, y, h,
                                           f if tab.fsal else None)
-        ratio = _error_ratio(st, err, y, y_prop, rtol, atol)
+        ratio = _error_ratio(st, err, y, y_prop, rtol, atol, norm_pad)
         accept = bool(ratio <= 1.0)
         h_next = _optimal_step(h, ratio, order)
         if accept:
@@ -259,6 +264,8 @@ class _AdjointSpec:
     t1: float
     solve_kwargs: dict
     adj_kwargs: dict
+    track: tuple
+    zero_leaves: int
     result: Optional[ODEResult] = None
     record: AdjointRecord = dataclasses.field(default_factory=AdjointRecord)
 
@@ -279,8 +286,16 @@ class _Adjoint(torch.autograd.Function):
         y1, *params = ctx.saved_tensors
         spec = ctx.spec
         needs = [bool(ctx.needs_input_grad[2 + i]) for i in range(len(params))]
-        p_in = [p.detach().requires_grad_(nd) for p, nd in zip(params, needs)]
-        wanted = [p for p, nd in zip(p_in, needs) if nd]
+        # The a_p leaves never feed back into y or a_y, so a fixed grid
+        # carries only those with a gradient. An adaptive method's error
+        # norm reads the whole state: there the tracked leaves (those the
+        # reference integrates although their gradient is discarded) are
+        # integrated too, and its zero leaves are counted.
+        adaptive = spec.adj_kwargs["method"] not in FIXED_STEP_METHODS
+        carried = [nd or (adaptive and tr)
+                   for nd, tr in zip(needs, spec.track)]
+        p_in = [p.detach().requires_grad_(c) for p, c in zip(params, carried)]
+        wanted = [p for p, c in zip(p_in, carried) if c]
         t1 = _scalar(spec.t1)
 
         # augmented state z(s) = (y(t), a_y(t), a_p(t)) with s = t1 - t:
@@ -293,20 +308,24 @@ class _Adjoint(torch.autograd.Function):
                 grads = torch.autograd.grad(f, [y_] + wanted, a,
                                             allow_unused=True)
             vy = grads[0] if grads[0] is not None else torch.zeros_like(y)
-            it = iter(grads[1:])
-            vp = []
-            for p, nd in zip(p_in, needs):
-                v = next(it) if nd else None
-                vp.append(torch.zeros_like(p) if v is None else v)
+            vp = [torch.zeros_like(p) if v is None else v
+                  for v, p in zip(grads[1:], wanted)]
             return (-f.detach(), vy, *vp)
 
-        z0 = (y1, g_y1.to(y1.dtype), *[torch.zeros_like(p) for p in params])
+        # a_p in f32 at least, as the reference's raveled parameter vector
+        z0 = (y1, g_y1.to(y1.dtype),
+              *[torch.zeros(p.shape, dtype=torch.promote_types(p.dtype, F32),
+                            device=p.device) for p in wanted])
         with record_function("graphax_torch.adjoint"):
             res = odeint(aug, z0, 0.0, float(spec.t1 - spec.t0),
+                         norm_pad=spec.zero_leaves if adaptive else 0,
                          **spec.adj_kwargs)
         spec.record.nfe = res.nfe
         _, a0, *ap = res.y
-        return (None, a0, *[v if nd else None for v, nd in zip(ap, needs)])
+        it = iter(ap)
+        grads = [next(it) if c else None for c in carried]
+        return (None, a0, *[v.to(p.dtype) if nd else None
+                            for v, p, nd in zip(grads, params, needs)])
 
 
 def odeint_adjoint(func: Callable, params, y0: torch.Tensor, t0: float,
@@ -315,22 +334,33 @@ def odeint_adjoint(func: Callable, params, y0: torch.Tensor, t0: float,
                    max_nfe: int = 1000,
                    adjoint_method: str = "adaptive_heun",
                    adjoint_rtol: float = 1e-9, adjoint_atol: float = 1e-7,
-                   adjoint_step_size: float = 1.0) -> ODEResult:
+                   adjoint_step_size: float = 1.0, track=None,
+                   zero_leaves: int = 0) -> ODEResult:
     """O(1)-memory gradients through the solve by the continuous adjoint,
     with its own method and tolerances. ``func(params, t, y) -> dy`` where
     ``params`` is a sequence of tensors; gradients flow to those of them
-    that require grad and to ``y0``. Every param enters the adjoint state
-    (its a_p leaf), whether or not it needs a gradient.
+    that require grad and to ``y0``.
+
+    The adjoint state holds ``y``, ``a_y`` and the ``a_p`` of every param
+    that requires grad. Under an adaptive ``adjoint_method`` it also holds
+    the ``a_p`` of the params flagged in ``track`` (one bool each), and its
+    error norm counts ``zero_leaves`` further zeros: that is how a caller
+    makes the norm run over the same leaves as the reference's adjoint
+    state (graphax ravels every parameter and per-forward tensor into it,
+    `graphax/ode/solvers.py:566-607`) without materialising zero leaves.
 
     ``result.adjoint.nfe`` holds the backward solve's NFE once backward has
     run."""
+    params = tuple(params)
     spec = _AdjointSpec(
         func=func, t0=float(t0), t1=float(t1),
         solve_kwargs=dict(method=method, rtol=rtol, atol=atol,
                           step_size=step_size, max_nfe=max_nfe),
         adj_kwargs=dict(method=adjoint_method, rtol=adjoint_rtol,
                         atol=adjoint_atol, step_size=adjoint_step_size,
-                        max_nfe=max_nfe))
+                        max_nfe=max_nfe),
+        track=tuple(track) if track is not None else (False,) * len(params),
+        zero_leaves=int(zero_leaves))
     y1 = _Adjoint.apply(spec, y0, *params)
     res = spec.result
     return ODEResult(y=y1, nfe=res.nfe, steps=res.steps, success=res.success,

@@ -86,14 +86,16 @@ def build_graph(row, col, num_nodes: int, edge_weight=None,
     to a bucket -> Graph on ``device`` (the card unless asked otherwise).
 
     ``strategy="auto"`` resolves as graphax does: dense when ``num_nodes <=
-    dense_threshold``, sparse otherwise. The dense strategy is not in this
-    slice and raises."""
+    dense_threshold``, sparse otherwise. ``"windowed"`` attaches the
+    block-dense layout (`graphax/sparse/build.py:157-162`; node ids should be
+    community-ordered first). The dense strategy is not ported and
+    raises."""
     dev = resolve_device(device)
     if strategy == "auto":
         strategy = "dense" if num_nodes <= dense_threshold else "sparse"
     if strategy == "dense":
         raise NotImplementedError(DENSE_ROADMAP)
-    if strategy != "sparse":
+    if strategy not in ("sparse", "windowed"):
         raise ValueError(f"unknown strategy {strategy!r}")
     if make_undirected:
         row, col = to_undirected(row, col, num_nodes)
@@ -105,6 +107,10 @@ def build_graph(row, col, num_nodes: int, edge_weight=None,
         row, col, edge_weight = coalesce(row, col, edge_weight, num_nodes)
     e = int(row.shape[0])
     cap = round_up(e, pad_multiple)
-    return Graph.from_edges(row, col, num_nodes, edge_weight,
-                            edge_buffer_size=cap, device=dev,
-                            strategy=strategy)
+    g = Graph.from_edges(row, col, num_nodes, edge_weight,
+                         edge_buffer_size=cap, device=dev)
+    if strategy == "windowed":
+        from graphax_torch.kernels.dispatch import attach_windows
+
+        g = attach_windows(g)
+    return g

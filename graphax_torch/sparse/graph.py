@@ -15,6 +15,10 @@ Instead of graphax's TPU row tiles the GPU layout is:
 - CSC: a column permutation of the real edges plus ``col_ptr`` (``csc``),
   built in numpy the way ``perm_from_row`` is in
   `graphax/kernels/dispatch.py:37-61`. It serves ``A^T g``.
+
+A graph of ``strategy="windowed"`` also carries the block-dense windowed
+layout (``windows``, `graphax_torch.kernels.windows.WindowLayout`), which
+the laplacian SpMM uses; every other op keeps the CSR and CSC layouts.
 """
 
 from __future__ import annotations
@@ -86,9 +90,10 @@ class Graph:
       num_edges: true number of edges.
       num_nodes: number of nodes.
       csr, csc: :class:`Layout` of the real edges.
-      strategy: ``"sparse"`` (the only one this slice runs).
+      strategy: ``"sparse"`` (CSR SpMM) or ``"windowed"`` (``windows``).
       pre_normalized: the per-forward weight normalization has already been
         applied (the Trainer hoists it to init, as graphax does).
+      windows: the windowed layout of a ``"windowed"`` graph, else None.
     """
 
     row: torch.Tensor
@@ -100,6 +105,7 @@ class Graph:
     csc: Layout
     strategy: str = "sparse"
     pre_normalized: bool = False
+    windows: object = None
 
     @property
     def edge_buffer_size(self) -> int:
@@ -124,12 +130,13 @@ class Graph:
         return dataclasses.replace(
             self, row=self.row.to(device), col=self.col.to(device),
             edge_weight=self.edge_weight.to(device), csr=mv(self.csr),
-            csc=mv(self.csc))
+            csc=mv(self.csc),
+            windows=None if self.windows is None else self.windows.to(device))
 
     @staticmethod
     def from_edges(row, col, num_nodes: int, edge_weight=None,
                    edge_buffer_size: int | None = None,
-                   device="cpu", strategy: str = "sparse") -> "Graph":
+                   device="cpu") -> "Graph":
         """Padded Graph from host edge arrays sorted by (row, col)."""
         row = np.asarray(row, dtype=np.int64)
         col = np.asarray(col, dtype=np.int64)
@@ -147,5 +154,4 @@ class Graph:
         as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
         return Graph(row=as_t(row_p, torch.int64), col=as_t(col_p, torch.int64),
                      edge_weight=as_t(w_p, torch.float32), num_edges=e,
-                     num_nodes=int(num_nodes), csr=csr, csc=csc,
-                     strategy=strategy)
+                     num_nodes=int(num_nodes), csr=csr, csc=csc)

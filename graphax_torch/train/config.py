@@ -149,7 +149,7 @@ class Config:
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("graph",)
     # >0: community-reorder node ids with this window size and use the
-    # windowed SpMM layout (not ported yet: the port's Trainer raises)
+    # windowed SpMM layout
     community_window: int = 0
 
     # ------------------------------------------------------------------

@@ -21,6 +21,7 @@ from torch.profiler import record_function
 
 from graphax_torch.blocks.common import normalize_graph
 from graphax_torch.data.container import GraphData
+from graphax_torch.data.reorder import community_reorder
 from graphax_torch.models.gnn import GNN
 from graphax_torch.train.optimizers import get_optimizer
 from graphax_torch.utils.device import resolve_device
@@ -59,7 +60,6 @@ def masked_accuracy(logits, labels, mask):
 
 
 _UNPORTED = {
-    "community_window": "the windowed layout (ROADMAP Queue 1 M7, Queue 2 K4)",
     "rewire_KNN": "kNN rewiring (ROADMAP Queue 1, M8)",
     "fa_layer": "the fa-layer model (ROADMAP Queue 1, M8)",
     "edge_sampling": "edge-sampling rewiring (ROADMAP Queue 1, M8)",
@@ -78,6 +78,15 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         data = data.to(self.device)
+        self.reorder_seconds = 0.0
+        if cfg.community_window and data.graph.strategy != "windowed":
+            # the windowed layout on community-ordered node ids, as graphax
+            # (`graphax/train/loop.py:95-103`); below 35 % of the edges
+            # in-window the ids stay reordered on the plain CSR strategy
+            t0 = time.perf_counter()
+            data = community_reorder(data, window=cfg.community_window,
+                                     min_in_window_frac=0.35)
+            self.reorder_seconds = time.perf_counter() - t0
         # the per-forward weight normalisation hoisted to init: weights are
         # static between topology changes
         graph = dataclasses.replace(normalize_graph(cfg, data.graph),

@@ -108,7 +108,7 @@ BEST_PARAMS = {
         # encoder, decoder and accumulations stay f32
         dtype="bfloat16",
         # graphax addition: community-reorder node ids for the windowed
-        # SpMM layout (the port runs this preset with community_window=0)
+        # SpMM layout
         community_window=512,
     ),
 }

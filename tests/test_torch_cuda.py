@@ -8,7 +8,9 @@ machine with a card and no JAX:
 Here, without a card, every case skips (the kernels have no CPU mode).
 Tolerances: f32 outputs 1e-5 (sums in another order); bf16 outputs one bf16
 ulp (2^-7 relative); the pin's f32 scores 2e-4 relative / 2e-5 absolute;
-the SDDMM's f32 dot products of D terms 1e-4 absolute."""
+the SDDMM's f32 dot products of D terms 1e-4 absolute; the windowed
+products' f32 outputs of up to W (or tile) terms 1e-5 relative / 1e-4
+absolute, and the densified blocks exactly."""
 
 import numpy as np
 import pytest
@@ -16,6 +18,8 @@ import torch
 
 from graphax_torch.kernels import attention_pin as pin_mod
 from graphax_torch.kernels import spmm as spmm_mod
+from graphax_torch.kernels import windowed_spmm as ws
+from graphax_torch.kernels.dispatch import attach_windows
 from graphax_torch.sparse.graph import Graph
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +124,85 @@ def test_cuda_wrappers_reject_bad_operands(cuda):
         spmm_mod.spmm_csr(g.csr, g.edge_weight, x.t(), g.num_nodes)
     with pytest.raises(TypeError):
         spmm_mod.spmm_csr(g.csr, g.edge_weight.half(), x.half(), g.num_nodes)
+
+
+# ----------------------------------------------------------------------
+# the windowed layout's kernels
+
+def _windowed_graph(device, n, tile, window, seed=3):
+    """Communities of one window each, ids in order, plus random edges; a
+    few windows at the end get no tile (n is not a multiple of window)."""
+    rng = np.random.RandomState(seed)
+    e = 12 * n
+    row = rng.randint(0, n, e)
+    col = np.clip(row // window * window + rng.randint(0, window, e), 0, n - 1)
+    far = rng.rand(e) < 0.3
+    col[far] = rng.randint(0, n, far.sum())
+    key = np.unique(row * n + col)
+    row, col = key // n, key % n
+    w = rng.rand(len(row)).astype(np.float32) + 0.1
+    g = Graph.from_edges(row, col, n, edge_weight=w,
+                         edge_buffer_size=len(row) + 7, device=device)
+    return attach_windows(g, window=window, tile=tile)
+
+
+# (N, tile, W, D): the slice's tile, W and D; a small odd shape; and one
+# whose W and D take the kernels' one-value runs (W not a multiple of 16
+# bytes, D odd)
+SHAPES = {"small_odd": (301, 8, 16, 5), "slice": (3000, 128, 512, 162),
+          "unaligned": (203, 6, 18, 7)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_cuda_windowed_kernels_match_plain(cuda, dtype, shape):
+    n, tile, window, d = SHAPES[shape]
+    g = _windowed_graph(cuda, n, tile, window)
+    wl, tdt = g.windows, getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+    gr = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+    dense = ws.densify(wl, g.edge_weight, tdt)
+    assert torch.equal(dense, ws.densify_plain(wl, g.edge_weight, tdt))
+    tol = dict(rtol=1e-5, atol=1e-4)
+    # the f32 product plus the addend (the residual on the main path),
+    # rounded once to the state dtype
+    got = ws.win_matmul(wl, dense, x, gr)
+    assert got.dtype == tdt
+    torch.testing.assert_close(
+        got.float(), ws.win_matmul_plain(wl, dense, x, gr).float(),
+        **(tol if dtype == "float32" else dict(rtol=BF16_RTOL, atol=1e-2)))
+    torch.testing.assert_close(ws.win_bwd_dense(wl, gr, x),
+                               ws.win_bwd_dense_plain(wl, gr, x), **tol)
+    torch.testing.assert_close(ws.win_bwd_slab(wl, dense, gr),
+                               ws.win_bwd_slab_plain(wl, dense, gr), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_windowed_autograd_matches_plain(cuda, dtype):
+    """The win_matmul Function's dx and d_dense against the plain versions
+    of the same products (cotangent cast to the state dtype, results cast
+    to the blocks' and x's dtype: one bf16 ulp apart at most)."""
+    n, tile, window, d = SHAPES["slice"]
+    g = _windowed_graph(cuda, n, tile, window, seed=5)
+    wl, tdt = g.windows, getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+    probe = torch.randn(n, d, generator=gen, device=cuda)
+    dense = ws.densify(wl, g.edge_weight, tdt)
+    add = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+    dr, xr = dense.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    ar = add.clone().requires_grad_(True)
+    out = ws._WinMatmul.apply(dr, xr, wl, ar)
+    assert out.dtype == tdt
+    pc = probe.to(tdt)
+    out.backward(pc)
+    want_dx = ws.win_bwd_slab_plain(wl, dense, pc)[:n].to(tdt)
+    want_dd = ws.win_bwd_dense_plain(wl, pc, x).to(tdt)
+    rtol = 1e-5 if dtype == "float32" else BF16_RTOL
+    torch.testing.assert_close(xr.grad.float(), want_dx.float(), rtol=rtol,
+                               atol=1e-4)
+    torch.testing.assert_close(dr.grad.float(), want_dd.float(), rtol=rtol,
+                               atol=1e-4)
+    # the addend's gradient is the cotangent itself
+    torch.testing.assert_close(ar.grad, pc)

@@ -75,7 +75,6 @@ def test_graph_and_data_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("overrides,err", [
-    (dict(community_window=512), "windowed"),
     (dict(block="attention"), "M6"),
     (dict(use_labels=True), "label"),
     (dict(function="transformer"), "M6"),
@@ -85,6 +84,33 @@ def test_unported_configs_raise(overrides, err):
                  hidden_dim=8, no_early=True).replace(**overrides)
     with pytest.raises(NotImplementedError, match=err):
         Trainer(cfg, _small_data(), device="cpu")
+
+
+def test_community_window_trains_on_graphax_node_order():
+    """The ogbn-arxiv preset as published (community_window=512) builds the
+    windowed layout on the CPU as graphax does: the same node order (its
+    community_order on the stand-in's edges) and the same in-window edge
+    set (its build_window_tiles), with no hub layout."""
+    from graphax.kernels.windows import build_window_tiles as gx_build
+    from graphax.kernels.windows import community_order as gx_order
+
+    data = get_dataset("ogbn-arxiv", device="cpu")
+    tr = Trainer(best_config("ogbn-arxiv"), data, device="cpu")
+    g = tr.data.graph
+    wl = g.windows
+    assert g.strategy == "windowed"
+    assert (wl.in_window_edges, wl.num_tiles, wl.num_windows, wl.tile) == \
+        (575_621, 1_323, 331, 128)
+    e = data.graph.num_edges
+    row, col = data.graph.row[:e].numpy(), data.graph.col[:e].numpy()
+    inv = np.argsort(gx_order(row, col, data.num_nodes, window=512))
+    np.testing.assert_array_equal(tr.data.y.numpy(), data.y.numpy()[inv])
+    np.testing.assert_array_equal(tr.data.x.numpy(), data.x.numpy()[inv])
+    wt = gx_build(g.row[:e].numpy(), g.col[:e].numpy(), g.num_nodes,
+                  tile=128, window=512, hubs=False)
+    gx_in = np.asarray(wt.edge_slot)[np.asarray(wt.slot_mask)]
+    np.testing.assert_array_equal(np.sort(wl.win_edge.numpy()),
+                                  np.sort(gx_in))
 
 
 def test_early_stop_evaluation_is_not_ported():
