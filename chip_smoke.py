@@ -15,18 +15,27 @@ and prints no result):
    its path gives it (the sparse graph for spmm_csr, sddmm and the pin; the
    windowed layout, T=1323, tile 128, W=512, Wn=331, D=162, and a small odd
    shape, tile 8, W 16, D 5, for the windowed kernels and for spmm_csr on
-   the layout's residual edges, as the main path calls it), in f32 and bf16,
-   with its error beside the stated tolerance, its median time, the plain
-   version's time, its bound and a PyTorch call as a yardstick where one
-   computes the same function; then one line naming every ported kernel;
+   the layout's residual edges, as the main path calls it; GRAND-nl's K
+   projection, global max and flash kernels on the arxiv CSR with the
+   model's own q, Wk and bk, and on a small graph with empty rows over every
+   score type, reweight and squareplus), in f32 and bf16, with its error
+   beside the stated tolerance, its median time, the plain version's time,
+   its bound and a PyTorch call as a yardstick where one computes the same
+   function; then one line naming every ported kernel;
 5. slice: the main path, ``Trainer(best_config("ogbn-arxiv"),
    get_dataset("ogbn-arxiv")).fit(3 epochs)``, with the kernel launch
    counts of that run; then the earlier ``community_window=0`` path for as
-   many epochs, with its own counts, so that its kernels stay driven;
-6. breakdown: one more train step of the windowed path under
-   torch.profiler, its time by span;
+   many epochs, with its own counts, so that its kernels stay driven; then
+   GRAND-nl (``block="constant", function="transformer",
+   community_window=0``, random Q/K): ``Trainer.evaluate()`` three times,
+   each with its NFE, seconds, ms per NFE and launch counts (flash and the
+   K projection once per NFE), one RHS evaluation timed alone, and one
+   evaluation of its squareplus variant (gmax once per NFE);
+6. breakdown: one more train step of the windowed path, and one GRAND-nl
+   evaluation, under torch.profiler, time by span and by kernel;
 7. reference: small graphs (sparse, and windowed) trained from the same
-   weights on the card and on the CPU must agree step by step.
+   weights on the card and on the CPU must agree step by step, and small
+   GRAND-nl evaluations must give the same logits and NFE.
 
 Then the kernels line (launches summed over both paths of phase 5), the
 card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Needs
@@ -60,6 +69,17 @@ TOL_PIN = (2e-5, 2e-4)
 TOL_WIN = (1e-4, 1e-5)
 # the densified blocks hold copies (one rounding to the blocks' dtype)
 TOL_EXACT = (0.0, 0.0)
+# GRAND-nl's kernels: the f32 keys (sums of D exact products in another
+# order); the global max (the same f32 scores up to their summation order);
+# flash's output: f32 sums and exp in another order (graphax's own
+# attention tolerance), and in bf16 a rounded weight can land on either side
+# of a bf16 boundary (one bf16 ulp of one term)
+TOL_KPROJ = (1e-4, 1e-5)
+TOL_GMAX = (1e-6, 1e-6)
+TOL_FLASH = {"float32": (2e-5, 2e-4), "bfloat16": (2e-3, 2e-2)}
+# the small GRAND-nl evaluation on the card against the CPU: f32 logits,
+# and bf16 logits (rounded weights at the margin, through ~30 NFE)
+TOL_NL_REF = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def emit(obj) -> None:
@@ -120,6 +140,36 @@ def bound_ms(nbytes: float, ops: float, dtype_name: str) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hold_to_plain(results: dict, row: dict, fn, plain, tol, nbytes: float,
+                  ops: float, lib=None, timed: bool = True, tag=None):
+    """Run a kernel ``fn`` and its ``plain`` version on the same inputs and
+    compare them within ``tol``; when ``timed``, add the median times, the
+    ``lib`` yardstick ``(label, fn)`` and the bound, and keep the row in
+    ``results`` under ``(kernel, dtype[, tag])``. ``row`` names the kernel,
+    the dtype and the case. Emits the row; fails on a disagreement."""
+    got, want = fn(), plain()
+    c = compare(got, want, tol)
+    row.update(c)
+    if timed:
+        row["ms"] = time_ms(fn)
+        row["plain_ms"] = time_ms(plain, reps=5)
+        row["library_ms"] = None
+        if lib is not None:
+            row["library"] = lib[0]
+            try:
+                row["library_ms"] = time_ms(lib[1], reps=10)
+            except (RuntimeError, NotImplementedError) as exc:
+                row["library_error"] = str(exc).splitlines()[0][:120]
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, row["dtype"])
+        row["bytes"], row["ops"] = nbytes, ops
+        key = (row["kernel"], row["dtype"]) + (() if tag is None else (tag,))
+        results.setdefault(key, row)
+    emit({"phase": "kernels", **row})
+    check(c["ok"], f"{row['kernel']} {tag or ''} {row['dtype']} "
+          f"{row.get('layout', '')} disagrees with plain")
+    return got
 
 
 def phase_kernels(graph, results: dict) -> None:
@@ -285,31 +335,11 @@ def phase_windowed_kernels(graph, results: dict) -> None:
 
             def run(kernel, fn, plain, tol, nbytes, ops, lib=None,
                     product=None):
-                got, want = fn(), plain()
-                c = compare(got, want, tol)
-                row = dict(kernel=kernel, layout=shape, dtype=name, **c)
+                row = dict(kernel=kernel, layout=shape, dtype=name)
                 if product is not None:
                     row["product"] = product
-                if timed:
-                    row["ms"] = time_ms(fn)
-                    row["plain_ms"] = time_ms(plain, reps=5)
-                    row["library_ms"] = None
-                    if lib is not None:
-                        row["library"] = lib[0]
-                        try:
-                            row["library_ms"] = time_ms(lib[1], reps=10)
-                        except (RuntimeError, NotImplementedError) as exc:
-                            row["library_error"] = \
-                                str(exc).splitlines()[0][:120]
-                    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops,
-                                                                name)
-                    row["bytes"], row["ops"] = nbytes, ops
-                    key = (kernel, name) if product is None \
-                        else (kernel, name, product)
-                    results.setdefault(key, row)
-                emit({"phase": "kernels", **row})
-                check(c["ok"], f"{kernel} {shape} {name} disagrees with plain")
-                return got
+                return hold_to_plain(results, row, fn, plain, tol, nbytes,
+                                     ops, lib, timed=timed, tag=product)
 
             # spmm_csr on the residual edges, as the main path calls it:
             # their values gathered into the CSR and CSC slot orders
@@ -378,10 +408,272 @@ def phase_windowed_kernels(graph, results: dict) -> None:
             torch.cuda.empty_cache()
 
 
-def phase_breakdown(trainer) -> dict:
-    """One train step and one evaluation under torch.profiler: each labelled
-    span's host-side and device-side duration in order, device time by
-    kernel, and the device's idle share of the window."""
+def randomize_attention(att, seed: int) -> None:
+    """Random Q/K at graphax's test scale (0.3 randn weights, 0.1 randn
+    biases) from a seeded CPU generator: the constant 1e-5 init makes the
+    attention uniform and would check nothing."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for lin in (att.Q, att.K):
+            lin.weight.copy_(0.3 * torch.randn(lin.weight.shape,
+                                               generator=gen))
+            lin.bias.copy_(0.1 * torch.randn(lin.bias.shape, generator=gen))
+
+
+def _nl_small_graph(device):
+    """300 nodes, duplicate edges, the last 7 rows without an edge, padded
+    edge buffer."""
+    import numpy as np
+
+    from graphax_torch.sparse.graph import Graph
+
+    rng = np.random.RandomState(5)
+    n, e = 300, 2500
+    row, col = rng.randint(0, n - 7, e), rng.randint(0, n - 7, e)
+    row[:50], col[:50] = row[50:100], col[50:100]
+    order = np.lexsort((col, row))
+    return Graph.from_edges(row[order], col[order], n,
+                            edge_weight=rng.rand(e).astype(np.float32) + 0.1,
+                            edge_buffer_size=e + 11, device=device)
+
+
+def phase_flash_kernels(trainer, results: dict) -> None:
+    """GRAND-nl's three kernels against their plain versions at the slice's
+    shapes: the arxiv CSR and the model's own q, Wk and bk on its encoded
+    state (random Q/K); kproj and softmax flash in f32 and bf16, gmax and
+    squareplus flash in bf16 (the path's dtype). Then a small graph with
+    empty rows over every score type, reweight and squareplus in both
+    dtypes."""
+    import torch
+
+    from graphax_torch.kernels import fused_attention as fa
+
+    g, cfg = trainer.data.graph, trainer.cfg
+    att = trainer.model.block.func.att
+    n, e = g.num_nodes, g.num_edges
+    trainer.model.eval()
+    with torch.no_grad():
+        x_enc = trainer.model.encode(trainer.data.x, train=False)
+    d, a, heads = x_enc.shape[1], cfg.attention_dim, cfg.heads
+    emit({"phase": "kernels", "path": "grand_nl", "N": n, "E": e, "D": d,
+          "A": a, "H": heads, "att_type": cfg.attention_type})
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        b = torch.finfo(dt).bits // 8
+        x = x_enc.to(dt).contiguous()
+        with torch.no_grad():
+            p = fa.prep_inputs(cfg, att, g, x)
+        q, wk, bk = p["q"], p["wk"], p["bk"]
+        scal = (cfg.attention_type, heads, p["ov2"], p["inv2l2"])
+        csr_bytes = 4 * e + 4 * (n + 1)
+
+        def run(kernel, fn, plain, tol, nbytes, ops, lib=None, variant=None):
+            row = dict(kernel=kernel, path="grand_nl", dtype=name)
+            if variant is not None:
+                row["variant"] = variant
+            return hold_to_plain(results, row, fn, plain, tol, nbytes, ops,
+                                 lib, tag=variant)
+
+        with torch.no_grad():
+            xf, wkf = x.float(), wk.float()
+            kt = run("attention_kproj", lambda: fa.attention_kproj(x, wk, bk),
+                     lambda: fa.attention_kproj_plain(x, wk, bk), TOL_KPROJ,
+                     n * d * b + d * a * b + 4 * a + 4 * n * a,
+                     2.0 * n * d * a,
+                     ("torch.addmm on f32 copies of x and Wk",
+                      lambda: torch.addmm(bk, xf, wkf)))
+            del xf, wkf
+            # per edge: the scores (2A) and, per head, the weighted sum (2D)
+            ops = e * (2.0 * a + 2.0 * heads * d)
+            nbytes = (n * a * b + 4 * n * a + n * d * b + csr_bytes
+                      + 4 * n * d)
+            fn_bytes = (n * d * b + n * a * b + csr_bytes + 4 * n * d
+                        + d * a * b + 4 * a)
+            fn_ops = 2.0 * n * d * a + ops
+            variants = [None] if dt == torch.float32 else [None, "squareplus"]
+            for variant in variants:
+                gshift = None
+                if variant == "squareplus":
+                    gshift = run(
+                        "attention_gmax",
+                        lambda: fa.attention_gmax(g.csr, q, kt, None, *scal),
+                        lambda: fa.attention_gmax_plain(g.csr, q, kt, None,
+                                                        *scal),
+                        TOL_GMAX, n * a * b + 4 * n * a + csr_bytes + 4,
+                        e * 2.0 * a)
+                run("flash_attention",
+                    lambda: fa.flash_attention(g.csr, q, x, kt, None, gshift,
+                                               *scal),
+                    lambda: fa.flash_attention_plain(g.csr, q, x, kt, None,
+                                                     gshift, *scal),
+                    TOL_FLASH[name], nbytes, ops, variant=variant)
+            # the whole operator as the RHS calls it (kproj + flash, the
+            # softmax config), beside the bound of that function
+            fcfg = cfg.replace(square_plus=False)
+            row = results[("flash_attention", name)]
+            row["function_ms"] = time_ms(
+                lambda: fa.flash_attention_ax(fcfg, att, g, x))
+            row["function_bound_ms"], row["function_bound_by"] = bound_ms(
+                fn_bytes, fn_ops, name)
+            emit({"phase": "kernels", "kernel": "flash_attention_ax",
+                  "dtype": name, "ms": row["function_ms"],
+                  "bound_ms": row["function_bound_ms"],
+                  "bound_by": row["function_bound_by"],
+                  "bytes": fn_bytes, "ops": fn_ops})
+            del kt, q, x
+        torch.cuda.empty_cache()
+
+    # a small graph with empty rows, every score type, reweight, squareplus
+    small = _nl_small_graph("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        x = torch.randn(small.num_nodes, 162, generator=gen,
+                        device="cuda").to(dt)
+        wk = (0.1 * torch.randn(162, 32, generator=gen, device="cuda")).to(dt)
+        bk = 0.1 * torch.randn(32, generator=gen, device="cuda")
+        q = (0.3 * torch.randn(small.num_nodes, 32, generator=gen,
+                               device="cuda")).to(dt)
+        with torch.no_grad():
+            kt = fa.attention_kproj(x, wk, bk)
+            for att_type in ("scaled_dot", "cosine_sim", "pearson",
+                             "exp_kernel"):
+                for ew in (None, small.edge_weight):
+                    for sqp in (False, True):
+                        scal = (att_type, 2, 1.3, 0.7)
+                        gs = None
+                        if sqp:
+                            gs = fa.attention_gmax(small.csr, q, kt, ew, *scal)
+                            cg = compare(gs, fa.attention_gmax_plain(
+                                small.csr, q, kt, ew, *scal), TOL_GMAX)
+                            check(cg["ok"], f"gmax small {att_type} {name}")
+                        got = fa.flash_attention(small.csr, q, x, kt, ew, gs,
+                                                 *scal)
+                        c = compare(got, fa.flash_attention_plain(
+                            small.csr, q, x, kt, ew, gs, *scal),
+                            TOL_FLASH[name])
+                        check(c["ok"] and bool((got[-7:] == 0).all()),
+                              f"flash small {att_type} rw={ew is not None} "
+                              f"sqp={sqp} {name} disagrees with plain")
+                        worst[name] = max(worst.get(name, 0.0),
+                                          c["max_abs_err"])
+    emit({"phase": "kernels", "kernel": "flash_attention", "graph": "small",
+          "cases": 32, "max_abs_err": worst, "ok": True})
+
+
+def phase_grand_nl(trainer, label: str, evals: int) -> dict:
+    """``Trainer.evaluate()`` of GRAND-nl ``evals`` times, the launch counts
+    zeroed before each and read after it: flash and kproj once per forward
+    NFE, gmax once per NFE with squareplus. Then one RHS evaluation timed
+    alone and the logits checked finite. Returns the launches summed."""
+    import torch
+
+    from graphax_torch.blocks.common import make_fstate
+    from graphax_torch.functions.common import prepare_scalars
+    from graphax_torch.kernels import _build
+
+    g, cfg = trainer.data.graph, trainer.cfg
+    total: dict = {}
+    for i in range(evals):
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accs = trainer.evaluate()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        res = trainer.last_eval
+        emit({"phase": "grand_nl", "path": label, "eval": i + 1,
+              "nfe": res.nfe, "steps": res.steps, "success": res.success,
+              "seconds": sec, "ms_per_nfe": sec * 1e3 / res.nfe,
+              "edges_x_nfe_per_s": g.num_edges * res.nfe / sec,
+              "accuracies": accs, "launches": counts})
+        check(bool(res.success), f"{label} evaluation {i + 1}: solver failed")
+        check(bool(torch.isfinite(res.y).all()),
+              f"{label} evaluation {i + 1}: state not finite")
+        for k in ("flash_attention", "attention_kproj"):
+            check(counts.get(k, 0) == res.nfe,
+                  f"{label}: {k} launched {counts.get(k, 0)} times in an "
+                  f"evaluation of {res.nfe} NFE")
+        check(counts.get("attention_gmax", 0)
+              == (res.nfe if cfg.square_plus else 0),
+              f"{label}: attention_gmax launched {counts.get('attention_gmax')}"
+              f" times in {res.nfe} NFE")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    # one RHS evaluation alone, at the evaluation's state and dtype
+    model = trainer.model
+    with torch.no_grad():
+        x0 = model.encode(trainer.data.x, train=False).to(
+            getattr(torch, cfg.dtype))
+        fs = make_fstate(g, x0, train=False)
+        alpha, beta = prepare_scalars(model.block.func, cfg, x0.dtype)
+        rhs_ms = time_ms(lambda: model.block.func.rhs(alpha, beta, fs, 0.0,
+                                                      x0))
+        logits, _ = model(g, trainer.data.x, train=False)
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (g.num_nodes, trainer.data.num_classes),
+          f"{label}: logits not finite or of the wrong shape")
+    emit({"phase": "grand_nl", "path": label, "rhs_ms": rhs_ms,
+          "rhs_edges_per_s": g.num_edges / (rhs_ms * 1e-3),
+          "note": "the quantity bench.py reports for graphax on the TPU as "
+                  "attention_rhs_edges_per_s_per_chip (its own graph)",
+          "launches": total})
+    return total
+
+
+def phase_reference_nl() -> dict:
+    """A small graph evaluated by GRAND-nl from the same weights on the card
+    (kernels) and on the CPU (plain versions): logits within TOL_NL_REF and
+    NFE equal (f32: softmax scaled_dot, and squareplus with reweight over
+    cosine scores; bf16: softmax)."""
+    import torch
+
+    from graphax_torch import Config, Trainer, make_sbm_dataset
+
+    out = []
+    for dtype, over in (("float32", {}),
+                        ("float32", dict(square_plus=True,
+                                         reweight_attention=True,
+                                         attention_type="cosine_sim",
+                                         add_source=True)),
+                        ("bfloat16", {})):
+        cfg = Config(dataset="smoke", block="constant", function="transformer",
+                     hidden_dim=32, heads=2, attention_dim=16, batch_norm=True,
+                     attention_type="scaled_dot", method="dopri5",
+                     tol_scale=11353.6, time=3.676, input_dropout=0.0,
+                     dropout=0.0, max_nfe=500, dtype=dtype).replace(**over)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            data = make_sbm_dataset(num_nodes=400, num_classes=4,
+                                    num_features=32, seed=0,
+                                    strategy="sparse", device=dev)
+            tr = Trainer(cfg, data, device=dev)
+            randomize_attention(tr.model.block.func.att, 7)
+            tr.model.eval()
+            with torch.no_grad():
+                logits, o = tr.model(tr.data.graph, tr.data.x, train=False)
+            got[dev] = (logits.float().cpu(), o.result.nfe)
+        err = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+        row = {"dtype": dtype, **over, "max_abs_err": err,
+               "tol": TOL_NL_REF[dtype], "nfe_cuda": got["cuda"][1],
+               "nfe_cpu": got["cpu"][1]}
+        out.append(row)
+        check(math.isfinite(err) and err <= TOL_NL_REF[dtype],
+              f"GRAND-nl reference {row}: logits disagree")
+        check(got["cuda"][1] == got["cpu"][1],
+              f"GRAND-nl reference {row}: NFE differ")
+    return {"grand_nl": out}
+
+
+def phase_breakdown(steps) -> dict:
+    """``steps``, ``(span name, fn)`` pairs, run in order under
+    torch.profiler: each labelled span's host-side and device-side duration
+    in order, device time by kernel, and the device's idle share of the
+    window."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -390,12 +682,10 @@ def phase_breakdown(trainer) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
-        with record_function("graphax_torch.train_step"):
-            trainer.train_step()
-            torch.cuda.synchronize()
-        with record_function("graphax_torch.evaluate"):
-            trainer.evaluate()
-            torch.cuda.synchronize()
+        for span, fn in steps:
+            with record_function(span):
+                fn()
+                torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, kernels = [], {}
     for ev in sorted(prof.events(), key=lambda e: e.time_range.start):
@@ -521,11 +811,20 @@ def main(argv=None) -> int:
     trainer0 = Trainer(cfg0, data)
     check(trainer0.data.graph.strategy == "sparse",
           "the community_window=0 graph is not sparse")
+    # GRAND-nl at the preset's widths, evaluation only (its training is not
+    # ported): constant block, transformer RHS, sparse strategy
+    cfg_nl = best_config("ogbn-arxiv", block="constant",
+                         function="transformer", community_window=0)
+    trainer_nl = Trainer(cfg_nl, data)
+    check(trainer_nl.data.graph.strategy == "sparse",
+          "the GRAND-nl graph is not sparse")
+    randomize_attention(trainer_nl.model.block.func.att, 11)
 
     # 4. kernels against their plain versions
     results: dict = {}
     phase_kernels(trainer0.data.graph, results)
     phase_windowed_kernels(graph, results)
+    phase_flash_kernels(trainer_nl, results)
     emit({"phase": "kernels",
           "ported": list(dict.fromkeys(k[0] for k in results))})
 
@@ -568,14 +867,27 @@ def main(argv=None) -> int:
     emit({"phase": "slice", "epoch_seconds": epoch_s,
           "steady_epoch_seconds": steady,
           "windowed_over_sparse": steady["windowed"] / steady["sparse"]})
+    # GRAND-nl's evaluation: the preset's softmax three times, then the
+    # squareplus variant (the gmax kernel's path) once
+    trainer_sp = Trainer(cfg_nl.replace(square_plus=True), data)
+    randomize_attention(trainer_sp.model.block.func.att, 11)
+    for label, tr, evals in (("grand_nl", trainer_nl, 3),
+                             ("grand_nl_squareplus", trainer_sp, 1)):
+        for k, v in phase_grand_nl(tr, label, evals).items():
+            launches[k] = launches.get(k, 0) + v
+    del trainer_sp
 
     # 6. where the time goes, on the windowed path
     emit({"phase": "breakdown", "path": "windowed",
-          **phase_breakdown(trainer)})
+          **phase_breakdown([("graphax_torch.train_step", trainer.train_step),
+                             ("graphax_torch.evaluate", trainer.evaluate)])})
+    emit({"phase": "breakdown", "path": "grand_nl",
+          **phase_breakdown([("graphax_torch.evaluate", trainer_nl.evaluate)])})
 
     # 7. small references: the card against the CPU
     emit({"phase": "reference", **phase_reference()})
     emit({"phase": "reference", **phase_reference(window=64)})
+    emit({"phase": "reference", **phase_reference_nl()})
 
     # the kernels line: times from phase 4 at the main path's shapes and
     # dtype (bf16); spmm_csr's at the residual edges, with its whole-graph
@@ -601,7 +913,16 @@ def main(argv=None) -> int:
               "graphax/kernels/pallas_windows.py:214"),
              ("win_bwd_slab", ("win_bwd_slab", "bfloat16"),
               "graphax_torch/kernels/csrc/windowed_spmm.cu",
-              "graphax/kernels/pallas_windows.py:243"))
+              "graphax/kernels/pallas_windows.py:243"),
+             ("flash_attention", ("flash_attention", "bfloat16"),
+              "graphax_torch/kernels/csrc/fused_attention.cu",
+              "graphax/kernels/pallas_attention.py:359"),
+             ("attention_gmax", ("attention_gmax", "bfloat16"),
+              "graphax_torch/kernels/csrc/fused_attention.cu",
+              "graphax/kernels/pallas_attention.py:481"),
+             ("attention_kproj", ("attention_kproj", "bfloat16"),
+              "graphax_torch/kernels/csrc/fused_attention.cu",
+              "graphax/kernels/pallas_attention.py:382"))
     for name, key, src, repl in specs:
         r = results[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -617,6 +938,15 @@ def main(argv=None) -> int:
     kernels[2]["also_replaces"] = "graphax/kernels/pallas_attention.py:197"
     kernels[4]["variant"] = ("with the residual SpMM's result added in the "
                              "epilogue, as the main path calls it")
+    flash = results[("flash_attention", "bfloat16")]
+    kernels[7]["function_ms"] = flash["function_ms"]
+    kernels[7]["function_bound_ms"] = flash["function_bound_ms"]
+    kernels[7]["squareplus"] = {
+        k: results[("flash_attention", "bfloat16", "squareplus")][k]
+        for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+    kernels[9]["also_replaces"] = ("the K projection inside "
+                                   "graphax/kernels/pallas_attention.py:481 "
+                                   "(:496)")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

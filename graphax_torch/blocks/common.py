@@ -9,7 +9,7 @@ import torch
 from torch.profiler import record_function
 
 from graphax_torch.functions.common import FuncState, prepare_scalars
-from graphax_torch.functions.laplacian import laplacian_rhs
+from graphax_torch.functions.laplacian import LaplacianFunction, laplacian_rhs
 from graphax_torch.kernels.spmm import transpose_values
 from graphax_torch.kernels.windowed_spmm import densify_windows
 from graphax_torch.ode import ODEResult, odeint, odeint_adjoint
@@ -45,12 +45,16 @@ def normalize_graph(cfg, graph: Graph) -> Graph:
     return graph.with_weights(w)
 
 
-def make_fstate(graph: Graph, x: torch.Tensor, attention=None) -> FuncState:
+def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
+                train: bool) -> FuncState:
     """The per-forward FuncState: edge values cast to the state dtype and
     permuted to the CSC order once here, not at every solver evaluation.
     On a windowed graph (`graphax/blocks/common.py:76-100`) the in-window
     values become the dense blocks here, and the residual values go in its
-    CSR and CSC slot orders."""
+    CSR and CSC slot orders. ``fast_attention`` is set for an evaluation
+    forward (``train=False``) on a sparse graph with a 2-D state
+    (`:116-131`; graphax also sets it for training where its Pallas backward
+    covers the config, which the port has not ported)."""
     values = graph.edge_weight if attention is None else attention
     pinned = attention is not None
     if graph.strategy == "windowed":
@@ -65,7 +69,8 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None) -> FuncState:
         raise NotImplementedError(f"strategy {graph.strategy!r} is not ported")
     wb = values.to(x.dtype).contiguous()
     return FuncState(graph=graph, x0=x.detach(), wb=wb,
-                     wb_t=transpose_values(graph, wb), pinned=pinned)
+                     wb_t=transpose_values(graph, wb), pinned=pinned,
+                     fast_attention=not train and x.dim() == 2)
 
 
 def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
@@ -83,6 +88,10 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
                   step_size=cfg.step_size, max_nfe=cfg.max_nfe)
     g = fstate.graph
     if cfg.adjoint and train:
+        if not isinstance(func, LaplacianFunction):
+            raise NotImplementedError(
+                f"the adjoint of the {cfg.function} RHS is not ported yet "
+                "(GRAND-nl training: ROADMAP Queue 2b, item 1)")
         adaptive = cfg.adjoint_method not in FIXED_STEP_METHODS
         if adaptive and g.strategy == "windowed":
             raise NotImplementedError(

@@ -28,6 +28,9 @@ class FuncState:
         ``[T, tile, W]`` blocks in the state dtype; else None.
       pinned: the values are attention a block pinned, not the graph's
         weights (graphax then keeps both as adjoint leaves).
+      fast_attention: the transformer RHS may run its flash kernels: an
+        evaluation forward on a sparse graph with a 2-D state (graphax's
+        flag, `graphax/blocks/common.py:116-131`).
     """
 
     graph: Graph
@@ -36,6 +39,7 @@ class FuncState:
     wb_t: torch.Tensor
     dense: torch.Tensor | None = None
     pinned: bool = False
+    fast_attention: bool = False
 
 
 def init_alpha_beta(module: nn.Module) -> None:

@@ -1,21 +1,39 @@
-"""Transformer attention, as far as the attention pin needs it.
+"""GRAND-nl: transformer attention diffusion (port of
+`graphax/functions/transformer.py`).
 
-Port of the parts of `graphax/functions/transformer.py` the hard-attention
-block uses: the attention layer's parameters (`transformer_attention_init`,
-constant 1e-5 weights so Q = K and attention is uniform at init) and
-`attention_edge_means` (:162-189), which pins the head-mean row-softmax
-attention per edge through the `attention_pin` kernel. The Q projection is
-a dense matmul here, as graphax leaves it to XLA.
+- The attention layer's parameters (`transformer_attention_init`: constant
+  1e-5 weights, so Q = K and attention is uniform at init).
+- `transformer_attention_apply` (:112-155) and `multiply_attention`
+  (:192-198): the plain per-edge path, every score type, row or column
+  normalisation, softmax or squareplus, reweighting. The port's RHS does not
+  run it; it is the oracle the tests hold the kernels to.
+- `attention_edge_means` (:162-189): the hard-attention block's per-edge
+  pin, through the `attention_pin` kernel.
+- `TransformerFunction`, the twin of `make_transformer` (:259-314): its RHS
+  runs the evaluation forward through the graph flash-attention kernels
+  (`graphax_torch.kernels.fused_attention`).
 
-The per-NFE transformer RHS (GRAND-nl), Beltrami and column/squareplus
-normalisation are not ported yet (ROADMAP Queue 2, K2/K3)."""
+The Q projection is a dense matmul here, as graphax leaves it to XLA. Not
+ported yet, and raising: training with this RHS (the attention backward
+kernels), column normalisation in the RHS (K1/K2/K3), the windowed
+attention RHS (K5) and Beltrami, mix_features and multi_modal (ROADMAP
+Queue 1 M6/M9, Queue 2b)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
-from graphax_torch.kernels.attention_pin import attention_pin
+from graphax_torch.functions.common import apply_alpha_beta, init_alpha_beta
+from graphax_torch.kernels.attention_pin import COS_EPS, attention_pin
+from graphax_torch.kernels.dispatch import (
+    attention_spmm_auto, segment_softmax_auto, squareplus_auto,
+)
+from graphax_torch.kernels.fused_attention import (
+    flash_attention_ax, flash_supported, prep_inputs,
+)
 from graphax_torch.utils.params import linear_apply, linear_init
 
 
@@ -68,27 +86,137 @@ def attention_edge_means(att: TransformerAttention, cfg, graph, x
         raise NotImplementedError(
             "the pin covers row softmax only; column or squareplus "
             "normalisation is ROADMAP Queue 2, K2")
-    heads = cfg.heads
-    dtype = x.dtype
     if graph.strategy == "windowed":
-        dtype = torch.promote_types(dtype, torch.float32)
-        x = x.to(dtype)
-    q = linear_apply(att.Q, x)                              # f32
-    if cfg.attention_type == "scaled_dot":
-        q = q / torch.sqrt(torch.tensor(cfg.attention_dim // heads,
-                                        dtype=torch.float32, device=q.device))
-    q = q.to(dtype).contiguous()
-    wk = att.K.weight.t().to(dtype).contiguous()            # [D, A]
-    bk = att.K.bias.to(torch.float32).contiguous()
-    ov2 = inv2l2 = 0.0
-    if cfg.attention_type == "exp_kernel":
-        ov2 = float(att.output_var ** 2)
-        inv2l2 = float(1.0 / (2.0 * att.lengthscale ** 2))
-    edge_w = graph.edge_weight.float().contiguous() \
-        if cfg.reweight_attention else None
-    mean = attention_pin(graph.csr, q, x.detach().contiguous(), wk, bk,
-                         edge_w, cfg.attention_type, heads, ov2, inv2l2)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+    x = x.detach().contiguous()
+    p = prep_inputs(cfg, att, graph, x)
+    mean = attention_pin(graph.csr, p["q"], x, p["wk"], p["bk"], p["edge_w"],
+                         p["att_type"], p["heads"], p["ov2"], p["inv2l2"])
     out = torch.zeros(graph.edge_buffer_size, dtype=torch.float32,
                       device=x.device)
     out[:graph.num_edges] = mean
-    return out.to(dtype)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# the plain per-edge path
+# ----------------------------------------------------------------------
+
+def _split_heads(z, heads: int):
+    """``[N, A] -> [N, H, A / H]``, head-major (`:78-82`)."""
+    return z.reshape(z.shape[0], heads, z.shape[1] // heads)
+
+
+def _cosine(a, b):
+    na = torch.clamp(torch.linalg.vector_norm(a, dim=-1), min=COS_EPS)
+    nb = torch.clamp(torch.linalg.vector_norm(b, dim=-1), min=COS_EPS)
+    return (a * b).sum(-1) / (na * nb)
+
+
+def _edge_scores(cfg, att, q_src, k_dst):
+    """``[E, H, Dh]`` gathered q[row] and k[col] -> ``[E, H]`` (`:85-103`)."""
+    d_k = q_src.shape[-1]
+    if cfg.attention_type == "scaled_dot":
+        return (q_src * (k_dst / math.sqrt(d_k))).sum(-1)
+    if cfg.attention_type == "cosine_sim":
+        return _cosine(q_src, k_dst)
+    if cfg.attention_type == "pearson":
+        return _cosine(q_src - q_src.mean(-1, keepdim=True),
+                       k_dst - k_dst.mean(-1, keepdim=True))
+    if cfg.attention_type == "exp_kernel":
+        sq = ((q_src - k_dst) ** 2).sum(-1)
+        return att.output_var ** 2 * torch.exp(
+            -sq / (2 * att.lengthscale ** 2))
+    raise ValueError(f"unknown attention_type {cfg.attention_type!r}")
+
+
+def transformer_attention_apply(att: TransformerAttention, cfg, graph, x):
+    """(attention ``[E_pad, H]`` normalised over the real edges of each row
+    (``attention_norm_idx=0``) or column, (v ``[N, H, Dh]``, the raw scores
+    ``[E_pad, H]``))."""
+    if cfg.multi_modal:
+        raise NotImplementedError("multimodal cross-attention is not ported "
+                                  "yet (ROADMAP Queue 1, M9)")
+    heads = cfg.heads
+    q = _split_heads(linear_apply(att.Q, x), heads)
+    k = _split_heads(linear_apply(att.K, x), heads)
+    v = _split_heads(linear_apply(att.V, x), heads)
+    prods = _edge_scores(cfg, att, q[graph.row], k[graph.col])
+    if cfg.reweight_attention:
+        prods = prods * graph.edge_weight[:, None]
+    is_row = cfg.attention_norm_idx == 0
+    mask = graph.edge_mask
+    if cfg.square_plus:
+        attention = squareplus_auto(graph, prods, is_row, mask)
+    else:
+        attention = segment_softmax_auto(graph, prods, is_row, mask)
+    return attention, (v, prods)
+
+
+def multiply_attention(att: TransformerAttention, cfg, graph, x, attention,
+                       v):
+    """`ODEFuncTransformerAtt.multiply_attention` without mix_features:
+    ``A x`` with the head-mean attention as A's values."""
+    if cfg.mix_features:
+        raise NotImplementedError("mix_features is not ported yet (ROADMAP "
+                                  "Queue 1, M6)")
+    return attention_spmm_auto(graph, attention, x, mask=graph.edge_mask)
+
+
+# ----------------------------------------------------------------------
+# the RHS
+# ----------------------------------------------------------------------
+
+_UNPORTED_RHS = (
+    "GRAND-nl {}: not ported yet (ROADMAP Queue 2b; only the evaluation "
+    "forward on the sparse strategy runs)")
+
+
+class TransformerFunction(nn.Module):
+    """``f = alpha (A(x) x - x) [+ beta x0]`` with A the head-mean
+    transformer attention of the current state, recomputed at every solver
+    evaluation (graphax `make_transformer`). Parameters: ``att`` (the
+    attention layer) and ``alpha_train``/``beta_train``, as graphax's tree
+    ``{alpha_train, beta_train, att}``."""
+
+    def __init__(self, cfg, in_dim: int):
+        super().__init__()
+        if cfg.mix_features or cfg.multi_modal:
+            raise NotImplementedError("mix_features and multi_modal are not "
+                                      "ported yet (ROADMAP Queue 1, M6/M9)")
+        self.cfg = cfg
+        init_alpha_beta(self)
+        self.att = TransformerAttention(cfg, in_dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.zeros_(self.alpha_train)
+        nn.init.zeros_(self.beta_train)
+        self.att.reset_parameters(generator)
+
+    def rhs(self, alpha, beta, fstate, t, x):
+        """graphax's dispatch (`:270-313`) on the port's strategies: the
+        evaluation forward on a sparse graph runs the flash kernels (its
+        `fused_attention_ax_pallas` route with ``fast_attention``); every
+        other route raises."""
+        cfg = self.cfg
+        g = fstate.graph
+        if g.strategy != "sparse":
+            raise NotImplementedError(_UNPORTED_RHS.format(
+                "on the windowed strategy (the windowed attention kernel "
+                "K5, `pallas_winatt.py:43`)" if g.strategy == "windowed" else
+                f"on the {g.strategy} strategy (M7, the dense flash kernel "
+                "K6)"))
+        if not fstate.fast_attention:
+            raise NotImplementedError(_UNPORTED_RHS.format(
+                "training (the three-kernel forward K1/K2/K3, the backward "
+                "kernels B1/B2/B3 and the adjoint over the attention "
+                "parameters)"))
+        if cfg.attention_norm_idx != 0:
+            raise NotImplementedError(_UNPORTED_RHS.format(
+                "with column normalisation (attention_norm_idx=1: K1/K2 and "
+                "the K3 attention SpMM)"))
+        if not flash_supported(cfg, x.shape[1]):
+            raise NotImplementedError(_UNPORTED_RHS.format(
+                "beyond the flash kernels' gate (flash_supported)"))
+        ax = flash_attention_ax(cfg, self.att, g, x)
+        return apply_alpha_beta(cfg, alpha, beta, ax, x, fstate.x0)

@@ -50,6 +50,13 @@ SIGNATURES = {
         "gx_attention_pin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _F, _F, _I, _P],
     },
+    "fused_attention": {
+        "gx_attention_kproj": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "gx_attention_gmax": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _F, _F, _I, _P],
+        "gx_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    },
     "windowed_spmm": {
         "gx_densify": [_P, _P, _P, _P, _I, _L, _I, _I, _P],
         "gx_win_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -84,16 +91,23 @@ def _nvcc() -> str:
                        "are built from graphax_torch/kernels/csrc at first use")
 
 
-def _library_path(src: str, build_dir: str, name: str) -> str:
-    """``build_dir/lib<name>-<hash of src>.so``."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(build_dir, f"lib{name}-{digest}.so")
+def _library_path(src: str, build_dir: str, name: str,
+                  headers: tuple = ()) -> str:
+    """``build_dir/lib<name>-<hash of src and headers>.so``."""
+    h = hashlib.sha1()
+    for path in (src,) + tuple(headers):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(build_dir, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _target(name: str) -> tuple:
+    """The source of ``name`` and its library, named by the hash of the
+    source and of every shared header in ``csrc`` (``*.cuh``)."""
     src = os.path.join(CSRC, name + ".cu")
-    return src, _library_path(src, BUILD_DIR, name)
+    headers = tuple(sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                           if f.endswith(".cuh")))
+    return src, _library_path(src, BUILD_DIR, name, headers)
 
 
 def build_all(verbose: bool = False) -> float:

@@ -37,46 +37,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_score.cuh"
+
 namespace {
 
 constexpr int WPB = 8;  // warps (rows in flight) per block
-constexpr float COS_EPS = 1e-5f;
+
+using gx_att::score;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// att_type: 0 scaled_dot (q pre-scaled), 1 cosine_sim, 2 pearson, 3 exp_kernel
-__device__ float score(const float* q, const float* k, int dk, int att_type,
-                       float ov2, float inv2l2) {
-  if (att_type == 0) {
-    float s = 0.f;
-    for (int i = 0; i < dk; ++i) s += q[i] * k[i];
-    return s;
-  }
-  if (att_type == 3) {
-    float sq = 0.f;
-    for (int i = 0; i < dk; ++i) {
-      const float t = q[i] - k[i];
-      sq += t * t;
-    }
-    return ov2 * expf(-sq * inv2l2);
-  }
-  float qm = 0.f, km = 0.f;
-  if (att_type == 2) {
-    for (int i = 0; i < dk; ++i) { qm += q[i]; km += k[i]; }
-    qm /= (float)dk;
-    km /= (float)dk;
-  }
-  float dot = 0.f, qq = 0.f, kk = 0.f;
-  for (int i = 0; i < dk; ++i) {
-    const float a = q[i] - qm, b = k[i] - km;
-    dot += a * b;
-    qq += a * a;
-    kk += b * b;
-  }
-  const float qn = fmaxf(sqrtf(qq), COS_EPS), kn = fmaxf(sqrtf(kk), COS_EPS);
-  return dot / (qn * kn);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(WPB * 32)

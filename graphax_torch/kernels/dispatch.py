@@ -1,15 +1,21 @@
 """Attaching the windowed layout to a graph (port of `attach_windows`,
-`graphax/kernels/dispatch.py:65-87`).
+`graphax/kernels/dispatch.py:65-87`), and the per-edge attention ops of the
+plain transformer path (`:98-136`).
 
-graphax also routes between its XLA segment ops and TPU row tiles here; the
-port's CSR and CSC layouts are always present, so only the windowed layout
-is attached. The dense strategy's routing stays in ROADMAP Queue 1, M7."""
+graphax routes its segment softmax, squareplus and attention SpMM between
+XLA segment ops and one-hot reductions over its TPU row tiles; neither is a
+Pallas kernel, and both give the same numbers, so the port runs the plain
+segment ops (`graphax_torch.sparse.ops`) on either device. The dense
+strategy's routing stays in ROADMAP Queue 1, M7."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from graphax_torch.kernels.windows import build_window_tiles
+from graphax_torch.sparse import ops
 
 
 def attach_windows(graph, window: int = 512, tile: int = 128):
@@ -21,3 +27,24 @@ def attach_windows(graph, window: int = 512, tile: int = 128):
                             graph.col[:e].cpu().numpy(), graph.num_nodes,
                             tile=tile, window=window, device=graph.device)
     return dataclasses.replace(graph, windows=wl, strategy="windowed")
+
+
+def segment_softmax_auto(graph, scores, norm_index_is_row: bool, mask=None):
+    """Softmax of ``scores [E_pad, H]`` over the rows' (or the columns')
+    edges."""
+    index = graph.row if norm_index_is_row else graph.col
+    return ops.segment_softmax(scores, index, graph.num_nodes, mask=mask)
+
+
+def squareplus_auto(graph, scores, norm_index_is_row: bool, mask=None):
+    """Square-plus normalisation (global max shift) over rows or columns."""
+    index = graph.row if norm_index_is_row else graph.col
+    return ops.squareplus_norm(scores, index, graph.num_nodes, mask=mask)
+
+
+def attention_spmm_auto(graph, attention, x, mask=None):
+    """``A x`` with the head-mean of ``attention [E_pad, H]`` as A's values."""
+    mean_att = attention.mean(dim=1)
+    if mask is not None:
+        mean_att = torch.where(mask, mean_att, torch.zeros_like(mean_att))
+    return ops.spmm(graph.row, graph.col, mean_att, x, graph.num_nodes)

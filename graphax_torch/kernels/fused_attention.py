@@ -1,0 +1,319 @@
+"""Graph flash attention: GRAND-nl's evaluation RHS, ``A(x) x`` with A the
+head-mean of the row-normalised transformer attention over the CSR layout.
+
+Replaces graphax's `_make_flash_kernel` and `_make_gmax_kernel`
+(`graphax/kernels/pallas_attention.py:359, 481`) with the forward of
+`_make_fused` (`:1046-1112`, ``allow_flash=True``) around them; the CUDA
+source is `csrc/fused_attention.cu`. Three kernels, each with its plain
+PyTorch version beside it:
+
+- ``attention_kproj``: the keys ``K = x Wk + bk [N, A]`` in f32, once per
+  node (graphax projects each gathered source row inside its kernels; the
+  values are the same f32 sums of exact state-dtype products);
+- ``attention_gmax``: the global max of the scores, squareplus's shift
+  (0 when no edge is real);
+- ``flash_attention``: per row and head the scores, the shift (the row's
+  max for softmax, the global one for squareplus), ``e``, the denominator
+  ``d`` in f32, ``acc = sum rnd(x[col] * rnd(e))`` with ``rnd`` the state
+  dtype's rounding (`:435`), and ``out = mean_h acc / (d + 1e-16)`` in f32
+  (`:442`, ``+EPS``, not K3's zero-select). A row with no edge gives 0.
+
+Softmax shifts by each row's final max: graphax's online recurrence over
+its 128-row tiles gives the same values to f32 rounding, and bf16 ``e``
+that differ by a bf16 rounding of their own.
+
+Not differentiable: the evaluation forward runs under no_grad. The wrappers
+take CUDA tensors to their kernels and CPU tensors to the plain versions and
+count their launches in ``_build.LAUNCHES``."""
+
+from __future__ import annotations
+
+import torch
+
+from graphax_torch.kernels import _build
+from graphax_torch.kernels.attention_pin import ATT_TYPES, score_math
+from graphax_torch.sparse.graph import Layout
+from graphax_torch.sparse.ops import EPS, segment_max, segment_sum
+from graphax_torch.utils.params import linear_apply
+
+NEG = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_WPB = 8            # warps per block in every kernel of fused_attention.cu
+_KROWS = 4          # rows per warp at a time in the K projection
+_SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into
+_SMEM_STATIC = 49_152     # without opting in (the flash kernel's q, shifts)
+
+
+def _no_grad(what: str, *ts) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ts):
+        raise RuntimeError(f"{what} is not differentiable; call it under "
+                           "torch.no_grad()")
+
+
+def _check_operands(what: str, ref: torch.Tensor, *ts) -> None:
+    for t in ts:
+        if t is None:
+            continue
+        if t.device != ref.device or not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous and on "
+                             f"{ref.device}")
+
+
+def _check_layout(what: str, layout: Layout, n: int, edge_w) -> None:
+    for name, t in (("ptr", layout.ptr), ("idx", layout.idx)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: layout.{name} must be int32")
+    if layout.num_rows != n:
+        raise ValueError(f"{what}: layout and q disagree on N")
+    if edge_w is not None and (edge_w.dtype != torch.float32
+                               or edge_w.dim() != 1
+                               or edge_w.shape[0] < layout.num_slots):
+        raise ValueError(f"{what}: edge_w must be f32 with one value per "
+                         "slot")
+
+
+def _check_scores(what: str, q, kt, heads: int, att_type: str) -> None:
+    if att_type not in ATT_TYPES:
+        raise ValueError(f"{what}: unsupported att_type {att_type!r} "
+                         "(beltrami_exp is not covered)")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{what}: q must be float32 or bfloat16")
+    if q.dim() != 2 or kt.shape != q.shape or kt.dtype != torch.float32:
+        raise ValueError(f"{what}: q [N, A] and kt [N, A] f32 required")
+    if heads < 1 or q.shape[1] % heads:
+        raise ValueError(f"{what}: heads must divide A")
+
+
+# ----------------------------------------------------------------------
+# K projection
+# ----------------------------------------------------------------------
+
+def attention_kproj_plain(x, wk, bk):
+    """``x Wk + bk`` in f32 from x and Wk in the state dtype."""
+    return x.float() @ wk.float() + bk.float()
+
+
+def attention_kproj(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
+                    ) -> torch.Tensor:
+    """``[N, A]`` float32 keys of every node: ``x [N, D]`` and ``wk
+    [D, A]`` in one dtype, ``bk [A]`` f32."""
+    _no_grad("attention_kproj", x, wk, bk)
+    if not x.is_cuda:
+        return attention_kproj_plain(x, wk, bk)
+    n, d = x.shape
+    a = wk.shape[1]
+    if x.dtype not in _DTYPES or wk.dtype != x.dtype:
+        raise TypeError("attention_kproj: x and wk must share a float32 or "
+                        "bfloat16 dtype")
+    if wk.shape != (d, a) or bk.shape != (a,) or bk.dtype != torch.float32:
+        raise ValueError("attention_kproj: shapes x [N, D], wk [D, A], bk [A] "
+                         "f32 required")
+    smem = 4 * (d * a + _WPB * _KROWS * d)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"attention_kproj: D*A too large for shared memory "
+                         f"({smem} bytes)")
+    _check_operands("attention_kproj", x, x, wk, bk)
+    kt = torch.empty((n, a), dtype=torch.float32, device=x.device)
+    lib = _build.library("fused_attention")
+    err = lib.gx_attention_kproj(x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+                                 kt.data_ptr(), n, d, a, _DTYPES[x.dtype],
+                                 _build.stream_ptr(x))
+    _build.check(err, "attention_kproj")
+    _build.LAUNCHES["attention_kproj"] += 1
+    return kt
+
+
+# ----------------------------------------------------------------------
+# scores and their global max
+# ----------------------------------------------------------------------
+
+def edge_scores_plain(layout: Layout, q, kt, edge_w, att_type: str,
+                      heads: int, ov2: float = 1.0, inv2l2: float = 0.5):
+    """``[layout.num_slots, H]`` f32 scores of ``_score_math``, times the
+    slot's reweight value when ``edge_w`` is given."""
+    e, dk = layout.num_slots, q.shape[1] // heads
+    qe = q.float()[layout.seg].reshape(e, heads, dk)
+    ke = kt[layout.idx.long()].reshape(e, heads, dk)
+    s = score_math(att_type, qe, ke, ov2, inv2l2)
+    if edge_w is not None:
+        s = s * edge_w[:e, None]
+    return s
+
+
+def attention_gmax_plain(layout: Layout, q, kt, edge_w, att_type: str,
+                         heads: int, ov2: float = 1.0, inv2l2: float = 0.5):
+    """The max score over every slot and head, 0 when there is none (or
+    when it is at or below NEG/2, graphax's rule, `:533-534`)."""
+    s = edge_scores_plain(layout, q, kt, edge_w, att_type, heads, ov2,
+                          inv2l2)
+    if s.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=q.device)
+    g = s.max()
+    return torch.where(g <= NEG / 2, torch.zeros_like(g), g)
+
+
+def attention_gmax(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
+                   edge_w, att_type: str, heads: int, ov2: float = 1.0,
+                   inv2l2: float = 0.5) -> torch.Tensor:
+    """0-d float32 global max of the scores. ``q [N, A]`` in the state
+    dtype (pre-scaled for scaled_dot), ``kt [N, A]`` f32 from
+    :func:`attention_kproj`, ``edge_w [>= E]`` f32 or None."""
+    _check_scores("attention_gmax", q, kt, heads, att_type)
+    _no_grad("attention_gmax", q, kt, edge_w)
+    if not q.is_cuda:
+        return attention_gmax_plain(layout, q, kt, edge_w, att_type, heads,
+                                    ov2, inv2l2)
+    n, a = q.shape
+    if n == 0:
+        raise ValueError("attention_gmax: empty graph")
+    _check_layout("attention_gmax", layout, n, edge_w)
+    _check_operands("attention_gmax", q, layout.ptr, layout.idx, q, kt,
+                    edge_w)
+    state = torch.zeros(2, dtype=torch.int32, device=q.device)
+    out = torch.empty((), dtype=torch.float32, device=q.device)
+    lib = _build.library("fused_attention")
+    err = lib.gx_attention_gmax(
+        layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
+        kt.data_ptr(), edge_w.data_ptr() if edge_w is not None else None,
+        state.data_ptr(), out.data_ptr(), n, a, heads, ATT_TYPES[att_type],
+        int(edge_w is not None), float(ov2), float(inv2l2), _DTYPES[q.dtype],
+        _build.stream_ptr(q))
+    _build.check(err, "attention_gmax")
+    _build.LAUNCHES["attention_gmax"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# flash
+# ----------------------------------------------------------------------
+
+def flash_attention_plain(layout: Layout, q, x, kt, edge_w, gshift,
+                          att_type: str, heads: int, ov2: float = 1.0,
+                          inv2l2: float = 0.5):
+    """The flash kernel's function in plain PyTorch: ``[N, D]`` f32.
+    ``gshift`` None: row softmax; else squareplus shifted by it."""
+    n = layout.num_rows
+    seg = layout.seg
+    s = edge_scores_plain(layout, q, kt, edge_w, att_type, heads, ov2,
+                          inv2l2)                              # [E, H]
+    if gshift is None:
+        ex = torch.exp(s - segment_max(s, seg, n)[seg])
+    else:
+        z = s - gshift
+        ex = (z + torch.sqrt(z * z + 4.0)) / 2.0
+    den = segment_sum(ex, seg, n)                              # [N, H] f32
+    wt = ex.to(x.dtype)
+    xs = x[layout.idx.long()]                                  # [E, D]
+    out = torch.zeros((n, x.shape[1]), dtype=torch.float32, device=x.device)
+    for h in range(heads):
+        acc = torch.zeros_like(out).index_add_(
+            0, seg, (xs * wt[:, h:h + 1]).float())
+        out += acc / (den[:, h:h + 1] + EPS)
+    return out / heads
+
+
+def flash_attention(layout: Layout, q: torch.Tensor, x: torch.Tensor,
+                    kt: torch.Tensor, edge_w, gshift, att_type: str,
+                    heads: int, ov2: float = 1.0, inv2l2: float = 0.5
+                    ) -> torch.Tensor:
+    """``[N, D]`` float32 head-mean attention aggregation over ``layout``.
+
+    ``q [N, A]`` (pre-scaled for scaled_dot) and ``x [N, D]`` in one dtype;
+    ``kt [N, A]`` f32 keys; ``edge_w [>= E]`` f32 or None; ``gshift`` a 0-d
+    f32 tensor (squareplus) or None (row softmax)."""
+    _check_scores("flash_attention", q, kt, heads, att_type)
+    _no_grad("flash_attention", q, x, kt, edge_w)
+    if not x.is_cuda:
+        return flash_attention_plain(layout, q, x, kt, edge_w, gshift,
+                                     att_type, heads, ov2, inv2l2)
+    n, d = x.shape
+    a = q.shape[1]
+    if x.dtype != q.dtype or q.shape[0] != n:
+        raise ValueError("flash_attention: q [N, A] and x [N, D] must share "
+                         "N and dtype")
+    _check_layout("flash_attention", layout, n, edge_w)
+    if gshift is not None and (gshift.dtype != torch.float32
+                               or gshift.numel() != 1):
+        raise ValueError("flash_attention: gshift must be one f32 value")
+    _check_operands("flash_attention", x, layout.ptr, layout.idx, q, x, kt,
+                    edge_w, gshift)
+    scores = torch.empty((layout.num_slots, heads), dtype=torch.float32,
+                         device=x.device)
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    lib = _build.library("fused_attention")
+    err = lib.gx_flash_attention(
+        layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
+        x.data_ptr(), kt.data_ptr(),
+        edge_w.data_ptr() if edge_w is not None else None,
+        gshift.data_ptr() if gshift is not None else None,
+        scores.data_ptr(), out.data_ptr(), n, d, a, heads,
+        ATT_TYPES[att_type], int(edge_w is not None), int(gshift is not None),
+        float(ov2), float(inv2l2), _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(err, "flash_attention")
+    _build.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# the RHS's attention product
+# ----------------------------------------------------------------------
+
+def flash_supported(cfg, d: int) -> bool:
+    """The port's gate for the flash path (graphax's is
+    `flash_applicable`, `:542-553`, a VMEM estimate): row normalisation, the
+    four `_score_math` types, head-mean aggregation, and a K projection
+    whose f32 Wk and staged rows fit one block's shared memory (and the
+    flash kernel's q rows and per-head shifts the default 48 KB). The flash
+    kernel keeps no per-head accumulators (each head's weight folds into
+    one f32 sum per column), so any head count that divides attention_dim
+    runs."""
+    a = cfg.attention_dim
+    return (cfg.attention_norm_idx == 0
+            and cfg.attention_type in ATT_TYPES
+            and not cfg.beltrami and not cfg.mix_features
+            and not cfg.multi_modal
+            and a % cfg.heads == 0
+            and 4 * (d * a + _WPB * _KROWS * d) <= _SMEM_LIMIT
+            and 4 * _WPB * (a + 2 * cfg.heads) <= _SMEM_STATIC)
+
+
+def prep_inputs(cfg, att, graph, x: torch.Tensor) -> dict:
+    """The kernels' operands, as graphax's `_prep_inputs` (`:916-939`): q
+    through ``att.Q`` in f32, pre-scaled by 1/sqrt(d_k) for scaled_dot and
+    cast to x's dtype; Wk in x's dtype; bk and the reweight values in f32;
+    exp_kernel's two scalars. ``att`` is a
+    `graphax_torch.functions.transformer.TransformerAttention`."""
+    heads = cfg.heads
+    q = linear_apply(att.Q, x)                                 # f32
+    if cfg.attention_type == "scaled_dot":
+        q = q / torch.sqrt(torch.tensor(cfg.attention_dim // heads,
+                                        dtype=torch.float32, device=q.device))
+    ov2 = inv2l2 = 0.0
+    if cfg.attention_type == "exp_kernel":
+        ov2 = float(att.output_var ** 2)
+        inv2l2 = float(1.0 / (2.0 * att.lengthscale ** 2))
+    return dict(
+        q=q.to(x.dtype).contiguous(),
+        wk=att.K.weight.t().to(x.dtype).contiguous(),          # [D, A]
+        bk=att.K.bias.to(torch.float32).contiguous(),
+        edge_w=graph.edge_weight.float().contiguous()
+        if cfg.reweight_attention else None,
+        att_type=cfg.attention_type, heads=heads, ov2=ov2, inv2l2=inv2l2)
+
+
+def flash_attention_ax(cfg, att, graph, x: torch.Tensor) -> torch.Tensor:
+    """``A(x) x`` of the GRAND-nl RHS on a sparse graph, in x's dtype: the
+    operands of :func:`prep_inputs`, the K projection, the global shift
+    (squareplus only), the flash kernel, and one cast of its f32 output to
+    x's dtype."""
+    x = x.contiguous()
+    p = prep_inputs(cfg, att, graph, x)
+    scal = (p["att_type"], p["heads"], p["ov2"], p["inv2l2"])
+    kt = attention_kproj(x, p["wk"], p["bk"])
+    gshift = None
+    if cfg.square_plus:
+        gshift = attention_gmax(graph.csr, p["q"], kt, p["edge_w"], *scal)
+    out = flash_attention(graph.csr, p["q"], x, kt, p["edge_w"], gshift,
+                          *scal)
+    return out.to(x.dtype)

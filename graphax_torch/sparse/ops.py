@@ -48,6 +48,24 @@ def segment_softmax(scores, segment_ids, num_segments: int, mask=None):
     return e / (denom + EPS)
 
 
+def squareplus_norm(scores, segment_ids, num_segments: int, mask=None):
+    """Square-plus normalisation (`src/utils.py:129-140`): shift by the
+    GLOBAL max over real edges, map through (x + sqrt(x^2 + 4)) / 2, divide
+    by the segment sum + 1e-16. Masked edges get 0."""
+    neg = torch.tensor(-1e30, dtype=scores.dtype, device=scores.device)
+    s = scores if mask is None else torch.where(_expand(mask, scores),
+                                                scores, neg)
+    gmax = s.max() if s.numel() else torch.zeros((), dtype=s.dtype,
+                                                  device=s.device)
+    gmax = torch.where(torch.isfinite(gmax), gmax, torch.zeros_like(gmax))
+    out = s - gmax
+    out = (out + torch.sqrt(out * out + 4.0)) / 2.0
+    if mask is not None:
+        out = torch.where(_expand(mask, out), out, torch.zeros_like(out))
+    denom = segment_sum(out, segment_ids, num_segments)[segment_ids]
+    return out / (denom + EPS)
+
+
 def spmm(row, col, weight, x, num_nodes: int):
     """``y = A @ x`` with A in COO form; padded edges must carry weight 0."""
     gathered = x[col] * weight.to(x.dtype)[:, None]

@@ -8,7 +8,9 @@ threading a functional TrainState.
 
 Not ported here (ROADMAP): graphax's 3-jit `split_step` (a TPU compiler
 workaround with no output change), kNN/edge-sampling rewiring, checkpoints,
-the label trick, and the early-stop evaluation (`models/early.py`)."""
+the label trick, the early-stop evaluation (`models/early.py`), and
+training with the transformer RHS (GRAND-nl evaluates; its train step
+raises `NotImplementedError`)."""
 
 from __future__ import annotations
 
@@ -95,6 +97,7 @@ class Trainer:
         self.model = GNN(cfg, data.num_features, data.num_classes) \
             .to(self.device)
         self.fm, self.bm = Meter(), Meter()
+        self.last_eval = None
         self.init_state()
 
     def init_state(self, seed: Optional[int] = None) -> None:
@@ -135,10 +138,12 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self):
         """(train, val, test) accuracy with running batch-norm statistics
-        and all edges."""
+        and all edges. The solve's result (NFE, success) is kept as
+        ``last_eval``."""
         d = self.data
         self.model.eval()
-        logits, _ = self.model(d.graph, d.x, train=False)
+        logits, out = self.model(d.graph, d.x, train=False)
+        self.last_eval = out.result
         return tuple(float(masked_accuracy(logits, d.y, m))
                      for m in (d.train_mask, d.val_mask, d.test_mask))
 

@@ -3,8 +3,11 @@
 graphax keeps parameters in nested dicts with linear layers as
 ``{'w': [in, out], 'b': [out]}``; the port keeps them in ``nn.Module``s with
 ``nn.Linear`` weights ``[out, in]``. Every other leaf (scalars, batch-norm
-``scale``/``bias`` and its ``mean``/``var``/``count`` state) keeps its name
-and shape. Any missing or extra leaf, or a shape that disagrees, raises."""
+``scale``/``bias`` and its ``mean``/``var``/``count`` state, the transformer
+RHS's ``alpha_train``/``beta_train`` and exp_kernel's ``output_var``/
+``lengthscale``) keeps its name and shape, so ``block.func.att.{Q,K,V,Wout}``
+map onto `TransformerFunction.att`. Any missing or extra leaf, or a shape
+that disagrees, raises."""
 
 from __future__ import annotations
 

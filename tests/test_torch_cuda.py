@@ -10,13 +10,17 @@ Tolerances: f32 outputs 1e-5 (sums in another order); bf16 outputs one bf16
 ulp (2^-7 relative); the pin's f32 scores 2e-4 relative / 2e-5 absolute;
 the SDDMM's f32 dot products of D terms 1e-4 absolute; the windowed
 products' f32 outputs of up to W (or tile) terms 1e-5 relative / 1e-4
-absolute, and the densified blocks exactly."""
+absolute, and the densified blocks exactly; the flash kernel's f32 output
+2e-4 relative / 2e-5 absolute (graphax's own attention tolerance: f32 sums
+and exp in another order), its bf16 products one bf16 ulp apart at the
+margin (the rounded weight can land either side: 2e-2 / 2e-3)."""
 
 import numpy as np
 import pytest
 import torch
 
 from graphax_torch.kernels import attention_pin as pin_mod
+from graphax_torch.kernels import fused_attention as fa
 from graphax_torch.kernels import spmm as spmm_mod
 from graphax_torch.kernels import windowed_spmm as ws
 from graphax_torch.kernels.dispatch import attach_windows
@@ -206,3 +210,92 @@ def test_cuda_windowed_autograd_matches_plain(cuda, dtype):
                                atol=1e-4)
     # the addend's gradient is the cotangent itself
     torch.testing.assert_close(ar.grad, pc)
+
+
+# ----------------------------------------------------------------------
+# graph flash attention
+
+def _flash_inputs(g, dtype, d, a, seed):
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    n, tdt = g.num_nodes, getattr(torch, dtype)
+    q = (0.3 * torch.randn(n, a, generator=gen, device=g.device)).to(tdt)
+    x = torch.randn(n, d, generator=gen, device=g.device).to(tdt)
+    wk = (0.3 * torch.randn(d, a, generator=gen, device=g.device)).to(tdt)
+    bk = 0.1 * torch.randn(a, generator=gen, device=g.device)
+    return q, x, wk, bk
+
+
+def _one_edge_graph(device):
+    return Graph.from_edges(np.array([2]), np.array([4]), 6,
+                            edge_weight=np.array([0.7], np.float32),
+                            edge_buffer_size=3, device=device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("att_type", ["scaled_dot", "cosine_sim", "pearson",
+                                      "exp_kernel"])
+@pytest.mark.parametrize("square_plus", [False, True])
+def test_cuda_flash_and_gmax_match_plain(cuda, dtype, att_type, square_plus):
+    """Random graph (duplicate edges, the last 7 rows empty, padding) at
+    D = 162, A = 32, H = 2 and at an odd D = 300 > 256 (two column chunks),
+    A = 12, H = 3; reweight on and off."""
+    rows = [(_cuda_graph(cuda), 162, 32, 2), (_cuda_graph(cuda, seed=7), 300,
+                                              12, 3)]
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "float32" \
+        else dict(rtol=2e-2, atol=2e-3)
+    for i, (g, d, a, heads) in enumerate(rows):
+        q, x, wk, bk = _flash_inputs(g, dtype, d, a, seed=i)
+        kt = fa.attention_kproj(x, wk, bk)
+        torch.testing.assert_close(kt, fa.attention_kproj_plain(x, wk, bk),
+                                   rtol=1e-5, atol=1e-4)
+        for ew in (None, g.edge_weight):
+            scal = (att_type, heads, 1.3, 0.7)
+            gshift = None
+            if square_plus:
+                gshift = fa.attention_gmax(g.csr, q, kt, ew, *scal)
+                torch.testing.assert_close(
+                    gshift, fa.attention_gmax_plain(g.csr, q, kt, ew, *scal),
+                    rtol=1e-6, atol=1e-6)
+            got = fa.flash_attention(g.csr, q, x, kt, ew, gshift, *scal)
+            want = fa.flash_attention_plain(g.csr, q, x, kt, ew, gshift,
+                                            *scal)
+            torch.testing.assert_close(got, want, **tol)
+            assert torch.all(got[-7:] == 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_one_edge_and_empty_graph(cuda, dtype):
+    g = _one_edge_graph(cuda)
+    q, x, wk, bk = _flash_inputs(g, dtype, 5, 4, seed=3)
+    kt = fa.attention_kproj(x, wk, bk)
+    for gs in (None, fa.attention_gmax(g.csr, q, kt, g.edge_weight,
+                                       "scaled_dot", 2)):
+        got = fa.flash_attention(g.csr, q, x, kt, g.edge_weight, gs,
+                                 "scaled_dot", 2)
+        want = fa.flash_attention_plain(g.csr, q, x, kt, g.edge_weight, gs,
+                                        "scaled_dot", 2)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+        assert torch.count_nonzero(got.abs().sum(1)) == 1
+    empty = Graph.from_edges(np.zeros(0, np.int64), np.zeros(0, np.int64), 6,
+                             edge_buffer_size=2, device=cuda)
+    assert float(fa.attention_gmax(empty.csr, q, kt, None, "pearson", 2)) \
+        == 0.0
+    assert torch.equal(fa.flash_attention(empty.csr, q, x, kt, None, None,
+                                          "pearson", 2),
+                       torch.zeros(6, 5, device=cuda))
+
+
+def test_cuda_flash_counts_launches_and_refuses_gradients(cuda):
+    from graphax_torch.kernels import LAUNCHES
+
+    g = _cuda_graph(cuda)
+    q, x, wk, bk = _flash_inputs(g, "float32", 16, 8, seed=4)
+    LAUNCHES.clear()
+    kt = fa.attention_kproj(x, wk, bk)
+    gs = fa.attention_gmax(g.csr, q, kt, None, "scaled_dot", 2)
+    fa.flash_attention(g.csr, q, x, kt, None, gs, "scaled_dot", 2)
+    assert dict(LAUNCHES) == {"attention_kproj": 1, "attention_gmax": 1,
+                              "flash_attention": 1}
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        fa.flash_attention(g.csr, q, x.requires_grad_(True), kt, None, None,
+                           "scaled_dot", 2)
