@@ -18,10 +18,15 @@ and prints no result):
    the layout's residual edges, as the main path calls it; GRAND-nl's K
    projection, global max and flash kernels on the arxiv CSR with the
    model's own q, Wk and bk, and on a small graph with empty rows over every
-   score type, reweight and squareplus), in f32 and bf16, with its error
-   beside the stated tolerance, its median time, the plain version's time,
-   its bound and a PyTorch call as a yardstick where one computes the same
-   function; then one line naming every ported kernel;
+   score type, reweight and squareplus; GRAND-nl's training kernels, the
+   forward with residuals and the row-side and column-side backward, on the
+   arxiv CSR and CSC with the model's own q, Wk and bk and a cotangent from
+   a seed, and on a small graph with duplicate edges, a one-edge row and
+   empty rows; the training route's gradients against autograd through the
+   plain per-edge path), in f32 and bf16, with its error beside the stated
+   tolerance, its median time, the plain version's time, its bound and a
+   PyTorch call as a yardstick where one computes the same function; then
+   one line naming every ported kernel;
 5. slice: the main path, ``Trainer(best_config("ogbn-arxiv"),
    get_dataset("ogbn-arxiv")).fit(3 epochs)``, with the kernel launch
    counts of that run; then the earlier ``community_window=0`` path for as
@@ -30,14 +35,19 @@ and prints no result):
    community_window=0``, random Q/K): ``Trainer.evaluate()`` three times,
    each with its NFE, seconds, ms per NFE and launch counts (flash and the
    K projection once per NFE), one RHS evaluation timed alone, and one
-   evaluation of its squareplus variant (gmax once per NFE);
-6. breakdown: one more train step of the windowed path, and one GRAND-nl
-   evaluation, under torch.profiler, time by span and by kernel;
+   evaluation of its squareplus variant (gmax once per NFE); then GRAND-nl
+   trained, ``fit(3 epochs)`` (adjoint rk4; random Q/K drawn at every
+   ``init_state``), each step's launches (each training kernel once per
+   adjoint NFE, flash once per forward NFE), the gradients at Q and K;
+6. breakdown: one more train step of the windowed path, one GRAND-nl
+   evaluation and one GRAND-nl train step, under torch.profiler, time by
+   span (forward solve, adjoint, optimizer) and by kernel;
 7. reference: small graphs (sparse, and windowed) trained from the same
-   weights on the card and on the CPU must agree step by step, and small
-   GRAND-nl evaluations must give the same logits and NFE.
+   weights on the card and on the CPU must agree step by step, small
+   GRAND-nl evaluations must give the same logits and NFE, and a small
+   GRAND-nl trained 3 steps the same losses (and in f32 NFE).
 
-Then the kernels line (launches summed over both paths of phase 5), the
+Then the kernels line (launches summed over the paths of phase 5), the
 card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Needs
 one card; builds everything from the checkout; needs no network."""
 
@@ -80,6 +90,29 @@ TOL_FLASH = {"float32": (2e-5, 2e-4), "bfloat16": (2e-3, 2e-2)}
 # the small GRAND-nl evaluation on the card against the CPU: f32 logits,
 # and bf16 logits (rounded weights at the margin, through ~30 NFE)
 TOL_NL_REF = {"float32": 1e-4, "bfloat16": 2e-2}
+# GRAND-nl's training kernels: f32 tables, gradients and sums in another
+# order (graphax's attention tolerance), in either dtype since bf16 values
+# are exact in f32. Sums of products rounded to bf16 (the forward's output,
+# dxv): the weight rnd(mean alpha) is rounded from an alpha whose exp and
+# division differ from the plain version's by f32 rounding, so at the
+# margin it lands one bf16 ulp apart and moves one term rnd(x * w) by one
+# ulp of that term, whatever the size of the sum: 2e-2 relative plus two
+# bf16 ulps (2^-6) of the largest term's factor (x, or the cotangent)
+TOL_TRAIN = (2e-5, 2e-4)
+
+
+def tol_rounded(name: str, factor) -> tuple:
+    return TOL_TRAIN if name == "float32" else (
+        2.0 ** -6 * float(factor.float().abs().max()), 2e-2)
+
+# the autograd route's f32 gradients against autograd through the plain
+# per-edge path: sums over up to N nodes in another order, 2e-4 relative
+# plus 1e-4 of the largest gradient of that tensor (of a bias and its
+# weight together)
+GRAD_RTOL, GRAD_ATOL_OF_MAX = 2e-4, 1e-4
+# the small GRAND-nl training on the card against the CPU: losses over 3
+# steps, relative (bf16: rounded weights at the margin through each step)
+TOL_NL_TRAIN_REF = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def emit(obj) -> None:
@@ -148,10 +181,21 @@ def hold_to_plain(results: dict, row: dict, fn, plain, tol, nbytes: float,
     compare them within ``tol``; when ``timed``, add the median times, the
     ``lib`` yardstick ``(label, fn)`` and the bound, and keep the row in
     ``results`` under ``(kernel, dtype[, tag])``. ``row`` names the kernel,
-    the dtype and the case. Emits the row; fails on a disagreement."""
+    the dtype and the case. A kernel that returns a tuple is compared part
+    by part: ``tol`` then pairs each part with its label and tolerance, and
+    the row's ``max_abs_err`` is the largest over the parts. Emits the row;
+    fails on a disagreement."""
+    import torch
+
     got, want = fn(), plain()
-    c = compare(got, want, tol)
-    row.update(c)
+    if torch.is_tensor(got):
+        row.update(compare(got, want, tol))
+    else:
+        cs = {label: compare(a, b, t) for (label, t), a, b in zip(tol, got,
+                                                                  want)}
+        row.update(parts=cs,
+                   max_abs_err=max(c["max_abs_err"] for c in cs.values()),
+                   ok=all(c["ok"] for c in cs.values()))
     if timed:
         row["ms"] = time_ms(fn)
         row["plain_ms"] = time_ms(plain, reps=5)
@@ -167,8 +211,8 @@ def hold_to_plain(results: dict, row: dict, fn, plain, tol, nbytes: float,
         key = (row["kernel"], row["dtype"]) + (() if tag is None else (tag,))
         results.setdefault(key, row)
     emit({"phase": "kernels", **row})
-    check(c["ok"], f"{row['kernel']} {tag or ''} {row['dtype']} "
-          f"{row.get('layout', '')} disagrees with plain")
+    check(row["ok"], f"{row['kernel']} {tag or ''} {row['dtype']} "
+          f"{row.get('layout', row.get('graph', ''))} disagrees with plain")
     return got
 
 
@@ -564,6 +608,258 @@ def phase_flash_kernels(trainer, results: dict) -> None:
           "cases": 32, "max_abs_err": worst, "ok": True})
 
 
+def _nl_train_graph(device):
+    """300 nodes: duplicate edges, one row with one edge (292), the last 7
+    rows and columns without an edge, padded edge buffer."""
+    import numpy as np
+
+    from graphax_torch.sparse.graph import Graph
+
+    rng = np.random.RandomState(6)
+    n, e = 300, 2500
+    row, col = rng.randint(0, n - 8, e), rng.randint(0, n - 7, e)
+    row[:50], col[:50] = row[50:100], col[50:100]
+    row, col = np.r_[row, n - 8], np.r_[col, 3]
+    order = np.lexsort((col, row))
+    return Graph.from_edges(row[order], col[order], n,
+                            edge_buffer_size=e + 12, device=device)
+
+
+def train_kernel_checks(results: dict, graph, q, x, kt, cot, heads: int,
+                        name: str, timed: bool) -> tuple:
+    """The three training kernels against their plain versions on one
+    input set (the backward kernels on the kernel forward's residuals),
+    with the bound of each at these inputs. Returns the kernels' outputs
+    (out, dq, dk, dxv)."""
+    from graphax_torch.kernels import fused_attention as fa
+
+    n, d = x.shape
+    a, e = q.shape[1], graph.num_edges
+    b = x.element_size()
+    idx_bytes = 4 * e + 4 * (n + 1)
+    tabs = 4 * n * heads                      # one [N, H] f32 table
+    row = lambda k: dict(kernel=k, path="grand_nl_train", dtype=name,
+                         graph="slice" if timed else "small")
+    out, sc, shift, denom = hold_to_plain(
+        results, row("attention_fwd_res"),
+        lambda: fa.attention_fwd_res(graph.csr, q, x, kt, heads),
+        lambda: fa.attention_fwd_res_plain(graph.csr, q, x, kt, heads),
+        (("out", tol_rounded(name, x)), ("scores", TOL_TRAIN),
+         ("shift", TOL_TRAIN),
+         ("denom", TOL_TRAIN)),
+        # x, q, K, CSR in; out, scores, shift, denom out
+        2 * n * d * b + n * a * b + 4 * n * a + idx_bytes + 4 * e * heads
+        + 2 * tabs,
+        # per edge: scores (2A), exp and the head mean (~4H), x * w and
+        # its sum (2D)
+        e * (2.0 * a + 4.0 * heads + 2.0 * d), timed=timed)
+    dq, rho = hold_to_plain(
+        results, row("attention_bwd_rows"),
+        lambda: fa.attention_bwd_rows(graph.csr, sc, shift, denom, cot, x, kt,
+                                      heads),
+        lambda: fa.attention_bwd_rows_plain(graph.csr, sc, shift, denom, cot,
+                                            x, kt, heads),
+        (("dq", TOL_TRAIN), ("rho", TOL_TRAIN)),
+        # scores, shift, denom, g, x, K, CSR in; dq, rho out
+        4 * e * heads + 2 * tabs + 2 * n * d * b + 4 * n * a + idx_bytes
+        + 4 * n * a + tabs,
+        # per edge: da (2D), alpha and rho (~6H), ds and dq (~2H + 2A)
+        e * (2.0 * d + 8.0 * heads + 2.0 * a), timed=timed)
+    dk, dxv = hold_to_plain(
+        results, row("attention_bwd_cols"),
+        lambda: fa.attention_bwd_cols(graph.csc, q, cot, x, kt, shift, denom,
+                                      rho, heads),
+        lambda: fa.attention_bwd_cols_plain(graph.csc, q, cot, x, kt, shift,
+                                            denom, rho, heads),
+        (("dk", TOL_TRAIN), ("dxv", tol_rounded(name, cot))),
+        # q, g, x, K, shift, denom, rho, CSC in; dk, dxv out
+        n * a * b + 2 * n * d * b + 4 * n * a + 3 * tabs + idx_bytes
+        + 4 * n * a + 4 * n * d,
+        # per slot: s (2A), alpha (~4H), da and dxv (4D), dk (~2A)
+        e * (4.0 * a + 4.0 * heads + 4.0 * d), timed=timed)
+    return out, dq, dk, dxv
+
+
+def phase_train_kernels(trainer, results: dict) -> None:
+    """GRAND-nl's training kernels against their plain versions at the
+    slice's shapes: the arxiv CSR and CSC, the model's own q, Wk and bk on
+    its encoded state (random Q/K), a cotangent from a seed, f32 and bf16.
+    Then the autograd route's output and gradients of x, Q and K against
+    torch.autograd through the plain per-edge path (f32), and a small graph
+    with duplicate edges, a one-edge row and empty rows in both dtypes."""
+    import torch
+
+    from graphax_torch.functions.transformer import (
+        multiply_attention, transformer_attention_apply,
+    )
+    from graphax_torch.kernels import fused_attention as fa
+
+    g, cfg = trainer.data.graph, trainer.cfg
+    att = trainer.model.block.func.att
+    n, heads = g.num_nodes, cfg.heads
+    trainer.model.eval()
+    with torch.no_grad():
+        x_enc = trainer.model.encode(trainer.data.x, train=False)
+    d = x_enc.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cot = torch.randn(n, d, generator=gen, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        x = x_enc.to(dt).contiguous()
+        with torch.no_grad():
+            p = fa.prep_inputs(cfg, att, g, x)
+            kt = fa.attention_kproj(x, p["wk"], p["bk"])
+            train_kernel_checks(results, g, p["q"], x, kt,
+                                cot.to(dt).contiguous(), heads, name, True)
+        del x, kt, p
+        torch.cuda.empty_cache()
+
+    # the autograd route against autograd through the plain per-edge path
+    lin = (att.Q.weight, att.Q.bias, att.K.weight, att.K.bias)
+    probe = torch.randn(n, d, generator=gen, device="cuda")
+
+    def grads(fn):
+        xr = x_enc.float().clone().requires_grad_(True)
+        for t in lin:
+            t.grad = None
+        out = fn(xr)
+        (out * probe).sum().backward()
+        return [out.detach(), xr.grad] + [t.grad.clone() for t in lin]
+
+    got = grads(lambda xr: fa.fused_attention_ax(cfg, att, g, xr))
+
+    def plain(xr):
+        alpha, (v, _) = transformer_attention_apply(att, cfg, g, xr)
+        return multiply_attention(att, cfg, g, xr, alpha, v)
+
+    want = grads(plain)
+    for t in lin:
+        t.grad = None
+    # a bias's scale is its weight's: dKb is 0 but for rounding (the
+    # softmax does not see a shift of every score of a row)
+    top = [float(t.abs().max()) for t in want]
+    scale = top[:2] + [max(top[2:4])] * 2 + [max(top[4:])] * 2
+    cs = {label: compare(a_, b_, (GRAD_ATOL_OF_MAX * sc_, GRAD_RTOL))
+          for label, a_, b_, sc_ in zip(("out", "dx", "dQw", "dQb", "dKw",
+                                         "dKb"), got, want, scale)}
+    del got, want
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "fused_attention_ax (autograd)",
+          "path": "grand_nl_train", "dtype": "float32", "against":
+          "torch.autograd through transformer_attention_apply + "
+          "multiply_attention", **cs})
+    check(all(c["ok"] for c in cs.values()),
+          "the autograd route's gradients disagree with the plain path's")
+
+    # a small graph: duplicate edges, a one-edge row, empty rows
+    small = _nl_train_graph("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        mk = lambda *shape, s=1.0: (s * torch.randn(
+            *shape, generator=gen, device="cuda")).to(dt)
+        x, q, cot_s = mk(300, 162), mk(300, 32, s=0.3), mk(300, 162)
+        kt = 0.3 * torch.randn(300, 32, generator=gen, device="cuda")
+        outs = train_kernel_checks(results, small, q, x, kt, cot_s, 2, name,
+                                   False)
+        check(all(bool((t[-7:] == 0).all()) for t in outs),
+              f"training kernels small {name}: an empty row is not 0")
+        check(int((outs[0][292].float() != 0).sum()) > 0,
+              f"training kernels small {name}: the one-edge row is 0")
+
+
+def nl_trainer(cfg, data, qk_seed: int = 11, device=None):
+    """``Trainer(cfg, data)`` of GRAND-nl whose every ``init_state`` (fit
+    calls it first) draws random Q/K by :func:`randomize_attention`, and
+    which keeps each train step's kernel launches and each evaluation's
+    NFE."""
+    from graphax_torch import Trainer
+    from graphax_torch.kernels import _build
+
+    class SmokeTrainer(Trainer):
+        def init_state(self, seed=None):
+            super().init_state(seed)
+            randomize_attention(self.model.block.func.att, qk_seed)
+
+        def _step(self):
+            before = dict(_build.LAUNCHES)
+            out = super()._step()
+            self.step_launches.append(
+                {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                 if v != before.get(k, 0)})
+            return out
+
+        def evaluate(self):
+            accs = super().evaluate()
+            self.eval_nfe.append(self.last_eval.nfe)
+            return accs
+
+    tr = SmokeTrainer(cfg, data, device=device)
+    tr.step_launches, tr.eval_nfe = [], []
+    return tr
+
+
+def phase_grand_nl_train(trainer, epochs: int) -> dict:
+    """``trainer.fit(epochs)`` of GRAND-nl, the launch counts zeroed before
+    and read after: per train step the residual forward and both backward
+    kernels once per adjoint NFE, flash once per forward NFE; flash once
+    per NFE of each evaluation. Finite losses, solver success, nonzero
+    gradients at Q and K. Returns the launches."""
+    import torch
+
+    from graphax_torch.kernels import _build
+
+    trainer.step_launches.clear()
+    trainer.eval_nfe.clear()
+    _build.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit = trainer.fit(epochs=epochs, use_early_stop=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    hist = fit["history"]
+    for h, st, ev in zip(hist, trainer.step_launches, trainer.eval_nfe):
+        emit({"phase": "slice", "path": "grand_nl_train", **h,
+              "eval_nfe": ev, "step_launches": st})
+        check(math.isfinite(h["loss"]) and bool(h["success"]),
+              f"GRAND-nl epoch {h['epoch']}: loss {h['loss']}, success "
+              f"{h['success']}")
+        for k in ("attention_fwd_res", "attention_bwd_rows",
+                  "attention_bwd_cols"):
+            check(st.get(k, 0) == h["bwd_nfe"] > 0,
+                  f"GRAND-nl epoch {h['epoch']}: {k} launched "
+                  f"{st.get(k, 0)} times in a step of {h['bwd_nfe']} "
+                  "adjoint NFE")
+        check(st.get("flash_attention", 0) == h["nfe"],
+              f"GRAND-nl epoch {h['epoch']}: flash launched "
+              f"{st.get('flash_attention', 0)} times in a forward solve of "
+              f"{h['nfe']} NFE")
+    nfe = sum(h["nfe"] for h in hist)
+    bwd = sum(h["bwd_nfe"] for h in hist)
+    ev = sum(trainer.eval_nfe)
+    check(counts.get("flash_attention", 0) == nfe + ev,
+          f"GRAND-nl: flash launched {counts.get('flash_attention', 0)} "
+          f"times for {nfe} forward and {ev} evaluation NFE")
+    check(counts.get("attention_kproj", 0) == nfe + bwd + ev,
+          "GRAND-nl: attention_kproj launches are not the NFE")
+    att = trainer.model.block.func.att
+    gnorm = {f"{m}.{k}": float(getattr(getattr(att, m), k).grad.abs().max())
+             for m in ("Q", "K") for k in ("weight", "bias")}
+    check(gnorm["Q.weight"] > 0 and gnorm["K.weight"] > 0,
+          f"GRAND-nl: no gradient reached Q or K ({gnorm})")
+    times = [h["time"] for h in hist]
+    emit({"phase": "slice", "path": "grand_nl_train", "seconds": seconds,
+          "epoch_seconds": times,
+          "steady_epoch_seconds": min(times[1:]) if len(times) > 1
+          else times[0],
+          "forward_nfe": nfe, "adjoint_nfe": bwd, "eval_nfe": ev,
+          "launches": counts, "grad_abs_max_last_step": gnorm,
+          "best": fit["best"],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return counts
+
+
 def phase_grand_nl(trainer, label: str, evals: int) -> dict:
     """``Trainer.evaluate()`` of GRAND-nl ``evals`` times, the launch counts
     zeroed before each and read after it: flash and kproj once per forward
@@ -667,6 +963,46 @@ def phase_reference_nl() -> dict:
         check(got["cuda"][1] == got["cpu"][1],
               f"GRAND-nl reference {row}: NFE differ")
     return {"grand_nl": out}
+
+
+def phase_reference_nl_train() -> dict:
+    """A small graph trained 3 steps by GRAND-nl (constant block, adjoint
+    rk4, random Q/K) from the same weights on the card (kernels) and on the
+    CPU (plain versions): losses within TOL_NL_TRAIN_REF, and in f32 the
+    forward and backward NFE equal."""
+    import torch
+
+    from graphax_torch import Config, make_sbm_dataset
+
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = Config(dataset="smoke", block="constant", function="transformer",
+                     hidden_dim=32, heads=2, attention_dim=16, batch_norm=True,
+                     attention_type="scaled_dot", method="dopri5",
+                     tol_scale=11353.6, time=3.676, adjoint=True,
+                     adjoint_method="rk4", optimizer="rmsprop", lr=0.0055,
+                     decay=0.0, input_dropout=0.0, dropout=0.0, max_nfe=500,
+                     dtype=dtype)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            data = make_sbm_dataset(num_nodes=400, num_classes=4,
+                                    num_features=32, seed=0,
+                                    strategy="sparse", device=dev)
+            tr = nl_trainer(cfg, data, qk_seed=7, device=dev)
+            got[dev] = [(tr.train_step(), tr.fm.get_value(),
+                         tr.bm.get_value()) for _ in range(3)]
+        err = max(abs(c[0] - p[0]) / max(1.0, abs(p[0]))
+                  for c, p in zip(got["cuda"], got["cpu"]))
+        row = {"dtype": dtype, "cuda": got["cuda"], "cpu": got["cpu"],
+               "max_rel_loss_err": err, "tol": TOL_NL_TRAIN_REF[dtype]}
+        out.append(row)
+        check(all(math.isfinite(c[0]) for c in got["cuda"])
+              and err <= TOL_NL_TRAIN_REF[dtype],
+              f"GRAND-nl training reference {dtype}: losses disagree {row}")
+        if dtype == "float32":
+            check([c[1:] for c in got["cuda"]] == [p[1:] for p in got["cpu"]],
+                  f"GRAND-nl training reference: NFE differ {row}")
+    return {"grand_nl_train": out}
 
 
 def phase_breakdown(steps) -> dict:
@@ -811,20 +1147,23 @@ def main(argv=None) -> int:
     trainer0 = Trainer(cfg0, data)
     check(trainer0.data.graph.strategy == "sparse",
           "the community_window=0 graph is not sparse")
-    # GRAND-nl at the preset's widths, evaluation only (its training is not
-    # ported): constant block, transformer RHS, sparse strategy
+    # GRAND-nl at the preset's widths (constant block, transformer RHS,
+    # sparse strategy), one Trainer evaluated and one trained, both from
+    # the same random Q/K
     cfg_nl = best_config("ogbn-arxiv", block="constant",
                          function="transformer", community_window=0)
     trainer_nl = Trainer(cfg_nl, data)
     check(trainer_nl.data.graph.strategy == "sparse",
           "the GRAND-nl graph is not sparse")
     randomize_attention(trainer_nl.model.block.func.att, 11)
+    trainer_nlt = nl_trainer(cfg_nl, data)
 
     # 4. kernels against their plain versions
     results: dict = {}
     phase_kernels(trainer0.data.graph, results)
     phase_windowed_kernels(graph, results)
     phase_flash_kernels(trainer_nl, results)
+    phase_train_kernels(trainer_nl, results)
     emit({"phase": "kernels",
           "ported": list(dict.fromkeys(k[0] for k in results))})
 
@@ -876,6 +1215,9 @@ def main(argv=None) -> int:
         for k, v in phase_grand_nl(tr, label, evals).items():
             launches[k] = launches.get(k, 0) + v
     del trainer_sp
+    # GRAND-nl trained: fit, adjoint rk4 through the training kernels
+    for k, v in phase_grand_nl_train(trainer_nlt, args.epochs).items():
+        launches[k] = launches.get(k, 0) + v
 
     # 6. where the time goes, on the windowed path
     emit({"phase": "breakdown", "path": "windowed",
@@ -883,11 +1225,15 @@ def main(argv=None) -> int:
                              ("graphax_torch.evaluate", trainer.evaluate)])})
     emit({"phase": "breakdown", "path": "grand_nl",
           **phase_breakdown([("graphax_torch.evaluate", trainer_nl.evaluate)])})
+    emit({"phase": "breakdown", "path": "grand_nl_train",
+          **phase_breakdown([("graphax_torch.train_step",
+                              trainer_nlt.train_step)])})
 
     # 7. small references: the card against the CPU
     emit({"phase": "reference", **phase_reference()})
     emit({"phase": "reference", **phase_reference(window=64)})
     emit({"phase": "reference", **phase_reference_nl()})
+    emit({"phase": "reference", **phase_reference_nl_train()})
 
     # the kernels line: times from phase 4 at the main path's shapes and
     # dtype (bf16); spmm_csr's at the residual edges, with its whole-graph
@@ -922,7 +1268,16 @@ def main(argv=None) -> int:
               "graphax/kernels/pallas_attention.py:481"),
              ("attention_kproj", ("attention_kproj", "bfloat16"),
               "graphax_torch/kernels/csrc/fused_attention.cu",
-              "graphax/kernels/pallas_attention.py:382"))
+              "graphax/kernels/pallas_attention.py:382"),
+             ("attention_fwd_res", ("attention_fwd_res", "bfloat16"),
+              "graphax_torch/kernels/csrc/fused_attention.cu",
+              "graphax/kernels/pallas_attention.py:266"),
+             ("attention_bwd_rows", ("attention_bwd_rows", "bfloat16"),
+              "graphax_torch/kernels/csrc/fused_attention.cu",
+              "graphax/kernels/pallas_attention.py:576"),
+             ("attention_bwd_cols", ("attention_bwd_cols", "bfloat16"),
+              "graphax_torch/kernels/csrc/fused_attention.cu",
+              "graphax/kernels/pallas_attention.py:727"))
     for name, key, src, repl in specs:
         r = results[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -947,6 +1302,12 @@ def main(argv=None) -> int:
     kernels[9]["also_replaces"] = ("the K projection inside "
                                    "graphax/kernels/pallas_attention.py:481 "
                                    "(:496)")
+    kernels[10]["also_replaces"] = [
+        "graphax/kernels/pallas_attention.py:114",
+        "graphax/kernels/pallas_attention.py:197"]
+    kernels[10]["variant"] = ("K1 + K2 + K3 with residuals: the training "
+                              "forward, scores/shift/denominator kept")
+    kernels[11]["also_replaces"] = "graphax/kernels/pallas_attention.py:659"
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -9,7 +9,11 @@ import torch
 from torch.profiler import record_function
 
 from graphax_torch.functions.common import FuncState, prepare_scalars
-from graphax_torch.functions.laplacian import LaplacianFunction, laplacian_rhs
+from graphax_torch.functions.laplacian import laplacian_rhs
+from graphax_torch.functions.transformer import (
+    TransformerFunction, transformer_rhs,
+)
+from graphax_torch.kernels.fused_attention import train_supported
 from graphax_torch.kernels.spmm import transpose_values
 from graphax_torch.kernels.windowed_spmm import densify_windows
 from graphax_torch.ode import ODEResult, odeint, odeint_adjoint
@@ -46,15 +50,15 @@ def normalize_graph(cfg, graph: Graph) -> Graph:
 
 
 def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
-                train: bool) -> FuncState:
+                train: bool, cfg=None) -> FuncState:
     """The per-forward FuncState: edge values cast to the state dtype and
     permuted to the CSC order once here, not at every solver evaluation.
     On a windowed graph (`graphax/blocks/common.py:76-100`) the in-window
     values become the dense blocks here, and the residual values go in its
-    CSR and CSC slot orders. ``fast_attention`` is set for an evaluation
-    forward (``train=False``) on a sparse graph with a 2-D state
-    (`:116-131`; graphax also sets it for training where its Pallas backward
-    covers the config, which the port has not ported)."""
+    CSR and CSC slot orders. ``fast_attention`` is set on a sparse graph
+    with a 2-D state for an evaluation forward, and for a training forward
+    when ``cfg`` is one the hand-written attention backward covers
+    (`:116-131`, graphax's `pallas_bwd_supported`)."""
     values = graph.edge_weight if attention is None else attention
     pinned = attention is not None
     if graph.strategy == "windowed":
@@ -68,9 +72,11 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
     if graph.strategy != "sparse":
         raise NotImplementedError(f"strategy {graph.strategy!r} is not ported")
     wb = values.to(x.dtype).contiguous()
+    train_ok = train and cfg is not None and x.dim() == 2 \
+        and train_supported(cfg, x.shape[1])
     return FuncState(graph=graph, x0=x.detach(), wb=wb,
                      wb_t=transpose_values(graph, wb), pinned=pinned,
-                     fast_attention=not train and x.dim() == 2)
+                     fast_attention=(not train or train_ok) and x.dim() == 2)
 
 
 def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
@@ -88,40 +94,49 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
                   step_size=cfg.step_size, max_nfe=cfg.max_nfe)
     g = fstate.graph
     if cfg.adjoint and train:
-        if not isinstance(func, LaplacianFunction):
-            raise NotImplementedError(
-                f"the adjoint of the {cfg.function} RHS is not ported yet "
-                "(GRAND-nl training: ROADMAP Queue 2b, item 1)")
         adaptive = cfg.adjoint_method not in FIXED_STEP_METHODS
         if adaptive and g.strategy == "windowed":
             raise NotImplementedError(
                 "an adaptive adjoint on the windowed strategy: graphax "
                 "integrates the dense blocks' a_p in its error norm (ROADMAP "
                 "Queue 3); use a fixed-grid adjoint_method")
-        params = (alpha, beta, fstate.x0, fstate.wb, fstate.wb_t)
-        if fstate.dense is not None:
-            params += (fstate.dense,)
-
-        def f_adj(p, t, y):
-            return laplacian_rhs(cfg, g, *p[:5], y,
-                                 dense=p[5] if len(p) > 5 else None)
-
-        # graphax's adjoint state on this path (`_split_diff_state`, its
-        # XLA SpMM) holds the a_p of alpha_eff, beta_eff, x0 and the edge
-        # values, which the port integrates under an adaptive method even
-        # where it discards them; its leaves that stay zero are the RHS
-        # module's raw parameters (alpha_train and beta_train; the RHS
-        # reads them only as alpha and beta above) and, when a block pinned
-        # attention, the unused edge weights.
+        # graphax's adjoint state (`_split_diff_state`) holds the a_p of
+        # alpha_eff, beta_eff, x0, the edge weights and every parameter of
+        # the RHS, which the port integrates under an adaptive method even
+        # where it discards them; its leaves that stay zero are counted:
+        # the RHS module's parameters it does not track (alpha_train and
+        # beta_train, which the RHS reads only as alpha and beta above; the
+        # attention layer's V and Wout), and the edge weights where the RHS
+        # does not read them (pinned attention, the transformer).
         zero = sum(p.numel() for p in func.parameters())
-        zero += g.edge_buffer_size if fstate.pinned else 0
+        if isinstance(func, TransformerFunction):
+            func.check_route(fstate, x)
+            q, k = func.att.Q, func.att.K
+            params = (alpha, beta, fstate.x0, q.weight, q.bias, k.weight,
+                      k.bias)
+            track = (True,) * len(params)
+            zero += g.edge_buffer_size - sum(p.numel() for p in params[3:])
+
+            def f_adj(p, t, y):
+                return transformer_rhs(cfg, g, *p, y)
+        else:
+            params = (alpha, beta, fstate.x0, fstate.wb, fstate.wb_t)
+            if fstate.dense is not None:
+                params += (fstate.dense,)
+            track = (True, True, True, True, False, False)[:len(params)]
+            zero += g.edge_buffer_size if fstate.pinned else 0
+
+            def f_adj(p, t, y):
+                return laplacian_rhs(cfg, g, *p[:5], y,
+                                     dense=p[5] if len(p) > 5 else None)
+
         with record_function("graphax_torch.solve"):
             res = odeint_adjoint(
                 f_adj, params, x, 0.0, t_end,
                 adjoint_method=cfg.adjoint_method,
                 adjoint_rtol=cfg.rtol_adjoint, adjoint_atol=cfg.atol_adjoint,
                 adjoint_step_size=cfg.adjoint_step_size,
-                track=(True, True, True, True, False, False)[:len(params)],
+                track=track,
                 zero_leaves=zero, **common)
     else:
         with record_function("graphax_torch.solve"):

@@ -22,5 +22,5 @@ class ConstantBlock(nn.Module):
 
     def forward(self, graph, x, *, train: bool, t1=None) -> BlockOutput:
         g = normalize_graph(self.cfg, graph)
-        fstate = make_fstate(g, x, train=train)
+        fstate = make_fstate(g, x, train=train, cfg=self.cfg)
         return integrate(self.cfg, self.func, fstate, x, train=train, t1=t1)

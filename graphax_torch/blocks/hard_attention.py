@@ -71,5 +71,6 @@ class HardAttentionBlock(nn.Module):
             else:
                 edge_vals = torch.where(mask, mean_att,
                                         torch.zeros_like(mean_att))
-        fstate = make_fstate(g, x, attention=edge_vals, train=train)
+        fstate = make_fstate(g, x, attention=edge_vals, train=train,
+                             cfg=cfg)
         return integrate(cfg, self.func, fstate, x, train=train, t1=t1)

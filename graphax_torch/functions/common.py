@@ -28,9 +28,10 @@ class FuncState:
         ``[T, tile, W]`` blocks in the state dtype; else None.
       pinned: the values are attention a block pinned, not the graph's
         weights (graphax then keeps both as adjoint leaves).
-      fast_attention: the transformer RHS may run its flash kernels: an
-        evaluation forward on a sparse graph with a 2-D state (graphax's
-        flag, `graphax/blocks/common.py:116-131`).
+      fast_attention: the transformer RHS may run its kernels: on a sparse
+        graph with a 2-D state, an evaluation forward, or a training forward
+        whose config the hand-written backward covers (graphax's flag,
+        `graphax/blocks/common.py:116-131`).
     """
 
     graph: Graph

@@ -9,19 +9,23 @@
   run it; it is the oracle the tests hold the kernels to.
 - `attention_edge_means` (:162-189): the hard-attention block's per-edge
   pin, through the `attention_pin` kernel.
-- `TransformerFunction`, the twin of `make_transformer` (:259-314): its RHS
-  runs the evaluation forward through the graph flash-attention kernels
-  (`graphax_torch.kernels.fused_attention`).
+- `TransformerFunction`, the twin of `make_transformer` (:259-314), and
+  `transformer_rhs`, its RHS as a function of the Q/K tensors (the adjoint
+  hands it detached copies): the sparse strategy's route through
+  `graphax_torch.kernels.fused_attention.fused_attention_ax`, the flash
+  kernels for an evaluation and the training kernels (forward with
+  residuals, row-side and column-side backward) where a gradient is needed.
 
 The Q projection is a dense matmul here, as graphax leaves it to XLA. Not
-ported yet, and raising: training with this RHS (the attention backward
-kernels), column normalisation in the RHS (K1/K2/K3), the windowed
-attention RHS (K5) and Beltrami, mix_features and multi_modal (ROADMAP
-Queue 1 M6/M9, Queue 2b)."""
+ported yet, and raising: training configs outside the hand-written
+backward (graphax's XLA autodiff route), column normalisation in the RHS,
+the windowed attention RHS (K5), the dense strategy (K6), and Beltrami,
+mix_features and multi_modal (ROADMAP Queue 1 M6/M9, Queue 2b)."""
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -32,7 +36,7 @@ from graphax_torch.kernels.dispatch import (
     attention_spmm_auto, segment_softmax_auto, squareplus_auto,
 )
 from graphax_torch.kernels.fused_attention import (
-    flash_attention_ax, flash_supported, prep_inputs,
+    flash_supported, fused_attention_ax, prep_inputs,
 )
 from graphax_torch.utils.params import linear_apply, linear_init
 
@@ -167,9 +171,29 @@ def multiply_attention(att: TransformerAttention, cfg, graph, x, attention,
 # the RHS
 # ----------------------------------------------------------------------
 
-_UNPORTED_RHS = (
-    "GRAND-nl {}: not ported yet (ROADMAP Queue 2b; only the evaluation "
-    "forward on the sparse strategy runs)")
+_UNPORTED_RHS = "GRAND-nl {}: not ported yet (ROADMAP Queue 2b, item {})"
+
+
+class _Linear(NamedTuple):
+    weight: torch.Tensor
+    bias: torch.Tensor
+
+
+class _QK(NamedTuple):
+    """The attention layer's Q and K as plain tensors, for
+    `fused_attention_ax`."""
+    Q: _Linear
+    K: _Linear
+
+
+def transformer_rhs(cfg, graph, alpha, beta, x0, qw, qb, kw, kb, x):
+    """``alpha (A(x) x - x) [+ beta x0]`` with A from the Q/K weights
+    ``qw`` [A, D], ``qb`` [A], ``kw``, ``kb``: the RHS of the configs the
+    training kernels cover, as a function of its tensors (the adjoint
+    differentiates it with respect to each)."""
+    ax = fused_attention_ax(cfg, _QK(_Linear(qw, qb), _Linear(kw, kb)),
+                            graph, x)
+    return apply_alpha_beta(cfg, alpha, beta, ax, x, x0)
 
 
 class TransformerFunction(nn.Module):
@@ -193,30 +217,40 @@ class TransformerFunction(nn.Module):
         nn.init.zeros_(self.beta_train)
         self.att.reset_parameters(generator)
 
-    def rhs(self, alpha, beta, fstate, t, x):
-        """graphax's dispatch (`:270-313`) on the port's strategies: the
-        evaluation forward on a sparse graph runs the flash kernels (its
-        `fused_attention_ax_pallas` route with ``fast_attention``); every
-        other route raises."""
+    def check_route(self, fstate, x) -> None:
+        """Raise on the routes of graphax's dispatch (`:270-313`) that the
+        port has not ported: the sparse strategy with ``fast_attention``
+        (set for evaluation, and for training where the hand-written
+        backward covers the config) and row normalisation is the one."""
         cfg = self.cfg
         g = fstate.graph
         if g.strategy != "sparse":
             raise NotImplementedError(_UNPORTED_RHS.format(
                 "on the windowed strategy (the windowed attention kernel "
-                "K5, `pallas_winatt.py:43`)" if g.strategy == "windowed" else
-                f"on the {g.strategy} strategy (M7, the dense flash kernel "
-                "K6)"))
+                "K5, `pallas_winatt.py:43`)", 3)
+                if g.strategy == "windowed" else _UNPORTED_RHS.format(
+                    f"on the {g.strategy} strategy (M7, the dense flash "
+                    "kernel K6)", 4))
         if not fstate.fast_attention:
             raise NotImplementedError(_UNPORTED_RHS.format(
-                "training (the three-kernel forward K1/K2/K3, the backward "
-                "kernels B1/B2/B3 and the adjoint over the attention "
-                "parameters)"))
+                "training outside the hand-written backward's configs "
+                "(scaled_dot, row softmax, no squareplus, no reweight; "
+                "graphax's XLA fused_attention_ax autodiff)", 2))
         if cfg.attention_norm_idx != 0:
             raise NotImplementedError(_UNPORTED_RHS.format(
-                "with column normalisation (attention_norm_idx=1: K1/K2 and "
-                "the K3 attention SpMM)"))
+                "with column normalisation (attention_norm_idx=1: K1/K2 with "
+                "the global shift and the K3 per-edge-denominator form)", 1))
         if not flash_supported(cfg, x.shape[1]):
-            raise NotImplementedError(_UNPORTED_RHS.format(
-                "beyond the flash kernels' gate (flash_supported)"))
-        ax = flash_attention_ax(cfg, self.att, g, x)
-        return apply_alpha_beta(cfg, alpha, beta, ax, x, fstate.x0)
+            raise NotImplementedError(
+                "GRAND-nl beyond the flash kernels' gate (flash_supported: "
+                "shared memory for D and A): not ported yet (ROADMAP Queue "
+                "2b)")
+
+    def rhs(self, alpha, beta, fstate, t, x):
+        """graphax's fast-attention route on a sparse graph: the flash
+        kernels for an evaluation, the training kernels where a gradient is
+        needed (its `fused_attention_ax_pallas` with the Pallas backward);
+        every other route raises."""
+        self.check_route(fstate, x)
+        ax = fused_attention_ax(self.cfg, self.att, fstate.graph, x)
+        return apply_alpha_beta(self.cfg, alpha, beta, ax, x, fstate.x0)

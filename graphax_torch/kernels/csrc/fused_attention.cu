@@ -1,4 +1,5 @@
-// GRAND-nl's evaluation RHS: graph flash attention over the CSR layout.
+// GRAND-nl's attention RHS over the CSR layout: graph flash attention for
+// evaluation, and the training forward with its two backward kernels.
 //
 // Replaces graphax/kernels/pallas_attention.py:
 //   - `_make_flash_kernel` (:359, called by `_flash_call` :448): per row
@@ -7,9 +8,17 @@
 //     fixed global shift), the per-(row, head) denominators, the weighted
 //     value sums and their head mean, out = mean_h acc / (d + 1e-16);
 //   - `_make_gmax_kernel` (:481, called by `_gmax_call` :509): the global max
-//     of the scores, squareplus's shift, 0 when no edge is real.
+//     of the scores, squareplus's shift, 0 when no edge is real;
+//   - K1 `_make_scores_kernel` (:114), K2 `_make_norm_kernel` (:197) and K3
+//     `_make_attspmm_kernel` (:266, its row-denominator form) as the custom
+//     VJP's forward with residuals (`_make_fused`, :1206-1213, :1070-1109):
+//     fwd_res_kernel;
+//   - B1 `_bwd1_kernel` (:576) and B2 `_make_bwd2_kernel` (:659): the
+//     row-side backward, bwd_rows_kernel;
+//   - B3 `_make_bwd3_kernel` (:727, called at :1241-1260): the column-side
+//     backward, bwd_cols_kernel, over the CSC layout.
 //
-// Three kernels here:
+// Six kernels here:
 //   kproj_kernel  K[N, A] = x Wk + bk in f32, once per node. graphax projects
 //                 every gathered source row inside its kernels (E rows); the
 //                 per-node pass computes the same values (f32 sums of exact
@@ -31,6 +40,42 @@
 //                 graphax's rounding point (:435): e cast to the state dtype
 //                 and multiplied in it. No atomics; a row with no edge
 //                 writes 0.
+//   fwd_res_kernel  the training forward for the configs the backward
+//                 covers (scaled_dot, row softmax, no reweight): flash's
+//                 pass 1 (the shared row_scores), whose [E, H] f32 scores
+//                 are kept as a residual beside the per-(row, head) shift
+//                 (the row max, 0 for a row with no edge) and denominator
+//                 (f32 sum of unrounded e). Pass 2 takes graphax's K3
+//                 rounding points: alpha = e / (denom > 0 ? denom : 1)
+//                 (K3's zero-select, :287-290, not flash's +1e-16), w_e =
+//                 rnd(mean_h alpha), out = sum rnd(x[col] * w_e) in f32,
+//                 cast once to the state dtype. So it is not flash's
+//                 function: the head mean is taken before the rounding.
+//   bwd_rows_kernel B1 + B2, one warp per CSR row. alpha from the kept
+//                 scores; da_e = g_r . x[col_e] in f32 (g exact in f32, as
+//                 graphax's cast at :1219), a warp sum over D; rho_rh =
+//                 sum alpha_eh da_e / H; then ds_eh = alpha_eh (da_e / H -
+//                 rho_rh) and dq_r = sum ds_eh K[col_e] in f32. The warp
+//                 owns the row, so rho is complete before ds is needed and
+//                 B1 and B2 are one kernel (graphax measured that fusion
+//                 2.3x slower on its TPU grid; here no sum crosses blocks).
+//                 da is kept per edge in an [E] f32 scratch between the
+//                 row's two passes. Reads K[col] from the K projection's f32
+//                 table where graphax's B2 projects each gathered row: the
+//                 same f32 sums of exact products, in another order.
+//   bwd_cols_kernel B3, one warp per CSC column c, over the rows r of its
+//                 slots (the CSC idx: no slot permutation, as graphax's
+//                 node-table gathers, :1232-1240). Recomputes s from q[r]
+//                 and K[c] with the forward's score function, alpha from
+//                 shift[r] and denom[r], da = g[r] . x[c], ds; dk_c = sum
+//                 ds_h q[r]_h and dxv_c = sum rnd(g[r] * rnd(mean_h alpha)),
+//                 f32. graphax's B3 takes k = x Wk + bk computed in the
+//                 state dtype (:1242); this kernel takes the f32 K table, so
+//                 its alpha is the forward's alpha exactly (in bf16 graphax's
+//                 B3 alpha differs from its K1 alpha by k's rounding).
+//
+// None of the three uses atomics: every output row is written by the one
+// warp that owns it, so the results do not depend on the schedule.
 //
 // Semantics against graphax: the softmax shift is the row's final max (two
 // passes), where graphax's online recurrence shifts each 128-row tile's
@@ -43,7 +88,11 @@
 // 3.35 TB/s) against ~1 GFLOP; kproj reads x once and writes K (~77 MB)
 // against 1.76 GFLOP on CUDA cores. This simple version gathers K[col] and
 // x[col] per edge (L2-resident K, 22 MB) and walks each row serially per
-// warp; it is latency-bound on those gathers.
+// warp; it is latency-bound on those gathers. The training kernels are bound
+// the same way: the forward with residuals moves ~217 MB (0.065 ms), the row
+// backward ~185 MB (0.055 ms), the column backward ~284 MB (0.085 ms), each
+// against a few GFLOP; each walks its rows (columns) edge by edge with a
+// dependent gather of an x (g) row and a warp reduction per edge.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,6 +111,11 @@ constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
 
 // one rounding to the state dtype T
 template <typename T> __device__ __forceinline__ float rnd(float v);
@@ -184,6 +238,43 @@ gmax_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   }
 }
 
+// The row walk's first pass, shared by flash_kernel and fwd_res_kernel: the
+// scores of every (edge, head) pair of the row [beg, end) into sc (lanes over
+// pairs), then per head the shift (the row's max, or the global shift g
+// under squareplus) into ms[hh] and the f32 denominator of the unrounded
+// weights into ds[hh], each a warp reduction. The row's q is in qs (shared
+// memory); the caller syncs the warp before reading ms and ds.
+template <bool SQP>
+__device__ __forceinline__ void row_scores(
+    const float* qs, const float* __restrict__ kt, const int* __restrict__ idx,
+    const float* __restrict__ ew, float* __restrict__ sc, int beg, int end,
+    int a, int h, int att_type, float ov2, float inv2l2, float g, float* ms,
+    float* ds, int lane) {
+  const int dk = a / h;
+  const int pairs = (end - beg) * h;
+  for (int p = lane; p < pairs; p += 32) {
+    const int e = beg + p / h, hh = p % h;
+    sc[(size_t)e * h + hh] =
+        edge_score(qs, kt, idx, ew, e, hh, a, dk, att_type, ov2, inv2l2);
+  }
+  __syncwarp();
+  for (int hh = 0; hh < h; ++hh) {
+    float m = g;
+    if (!SQP) {
+      m = -INFINITY;
+      for (int e = beg + lane; e < end; e += 32) m = fmaxf(m, sc[(size_t)e * h + hh]);
+      m = warp_max(m);
+    }
+    float den = 0.f;
+    for (int e = beg + lane; e < end; e += 32) den += weight<SQP>(sc[(size_t)e * h + hh] - m);
+    den = warp_sum(den);
+    if (lane == 0) {
+      ms[hh] = m;
+      ds[hh] = den;
+    }
+  }
+}
+
 template <typename T, bool SQP>
 __global__ void __launch_bounds__(WPB * 32)
 flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
@@ -205,36 +296,15 @@ flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
     for (int i = lane; i < d; i += 32) orow[i] = 0.f;
     return;
   }
-  const int dk = a / h;
   for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
   __syncwarp();
 
-  // pass 1: scores of every (edge, head) pair of the row
-  const int pairs = (end - beg) * h;
-  for (int p = lane; p < pairs; p += 32) {
-    const int e = beg + p / h, hh = p % h;
-    sc[(size_t)e * h + hh] =
-        edge_score(qs, kt, idx, ew, e, hh, a, dk, att_type, ov2, inv2l2);
-  }
+  // pass 1: the scores, and per head the shift and the denominator (f32 e,
+  // not rounded), then the head's scale 1 / (H (d + EPS))
+  row_scores<SQP>(qs, kt, idx, ew, sc, beg, end, a, h, att_type, ov2, inv2l2,
+                  SQP ? *gshift : 0.f, ms, cs, lane);
   __syncwarp();
-
-  // per head: the shift and the denominator (f32 e, not rounded)
-  const float g = SQP ? *gshift : 0.f;
-  for (int hh = 0; hh < h; ++hh) {
-    float m = g;
-    if (!SQP) {
-      m = -INFINITY;
-      for (int e = beg + lane; e < end; e += 32) m = fmaxf(m, sc[(size_t)e * h + hh]);
-      m = warp_max(m);
-    }
-    float den = 0.f;
-    for (int e = beg + lane; e < end; e += 32) den += weight<SQP>(sc[(size_t)e * h + hh] - m);
-    den = warp_sum(den);
-    if (lane == 0) {
-      ms[hh] = m;
-      cs[hh] = 1.f / ((float)h * (den + EPS));
-    }
-  }
+  for (int hh = lane; hh < h; hh += 32) cs[hh] = 1.f / ((float)h * (cs[hh] + EPS));
   __syncwarp();
 
   // pass 2: the head mean of the normalised weighted sums, in edge order
@@ -263,6 +333,209 @@ flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
       if (i < d) orow[i] = acc[k];
     }
   }
+}
+
+// The training forward: softmax over scaled_dot scores, no reweighting.
+// Pass 1 as flash's; the shift and the denominator go to the residual
+// tables (0 and 0 for a row with no edge); pass 2 sums rnd(x[col] * w_e),
+// w_e = rnd(mean_h alpha_eh), alpha = e / (denom > 0 ? denom : 1), in f32
+// and casts the sum once to T.
+template <typename T>
+__global__ void __launch_bounds__(WPB * 32)
+fwd_res_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+               const T* __restrict__ q, const T* __restrict__ x,
+               const float* __restrict__ kt, float* __restrict__ sc,
+               float* __restrict__ shift, float* __restrict__ denom,
+               T* __restrict__ out, int n, int d, int a, int h) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* qs = smem + (size_t)w * (a + 2 * h);  // [a] q of the row
+  float* ms = qs + a;                          // [h] shift per head
+  float* ds = ms + h;                          // [h] denominator, zero-selected
+  const int r = blockIdx.x * WPB + w;
+  if (r >= n) return;
+  const int beg = ptr[r], end = ptr[r + 1];
+  T* orow = out + (size_t)r * d;
+  if (beg == end) {
+    for (int i = lane; i < d; i += 32) orow[i] = from_f<T>(0.f);
+    for (int hh = lane; hh < h; hh += 32) {
+      shift[(size_t)r * h + hh] = 0.f;
+      denom[(size_t)r * h + hh] = 0.f;
+    }
+    return;
+  }
+  for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
+  __syncwarp();
+  row_scores<false>(qs, kt, idx, nullptr, sc, beg, end, a, h, 0, 0.f, 0.f,
+                    0.f, ms, ds, lane);
+  __syncwarp();
+  for (int hh = lane; hh < h; hh += 32) {
+    shift[(size_t)r * h + hh] = ms[hh];
+    denom[(size_t)r * h + hh] = ds[hh];
+    if (!(ds[hh] > 0.f)) ds[hh] = 1.f;
+  }
+  __syncwarp();
+
+  for (int c0 = 0; c0 < d; c0 += 32 * CPL) {
+    float acc[CPL];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
+    for (int e = beg; e < end; ++e) {
+      float wsum = 0.f;
+      for (int hh = 0; hh < h; ++hh)
+        wsum += expf(sc[(size_t)e * h + hh] - ms[hh]) / ds[hh];
+      const float wt = rnd<T>(wsum / (float)h);
+      const T* xr = x + (size_t)idx[e] * d;
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        const int i = c0 + lane + 32 * k;
+        if (i < d) acc[k] += rnd<T>(to_f(xr[i]) * wt);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int i = c0 + lane + 32 * k;
+      if (i < d) orow[i] = from_f<T>(acc[k]);
+    }
+  }
+}
+
+// The row-side backward (B1 + B2). Pass A walks the row's edges: da_e =
+// g_r . x[col_e] in f32 (lanes over columns, a warp sum; kept in dab for
+// pass B), rho_h += alpha_eh * (da_e / H) (lanes over heads). Pass B:
+// ds_eh = alpha_eh (da_e / H - rho_h), dq_r += ds_eh * K[col_e] (lanes over
+// A; head = lane's column / dk). alpha is recomputed from the forward's
+// scores, shift and denominator.
+template <typename T>
+__global__ void __launch_bounds__(WPB * 32)
+bwd_rows_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+                const float* __restrict__ sc, const float* __restrict__ shift,
+                const float* __restrict__ denom, const T* __restrict__ g,
+                const T* __restrict__ x, const float* __restrict__ kt,
+                float* __restrict__ dab, float* __restrict__ dq,
+                float* __restrict__ rho, int n, int d, int a, int h) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* gs = smem + (size_t)w * (d + a + 3 * h);  // [d] g of the row
+  float* acc = gs + d;                             // [a] dq of the row
+  float* ms = acc + a;                             // [h] shift
+  float* ds = ms + h;                              // [h] denominator, zero-selected
+  float* rs = ds + h;                              // [h] rho
+  const int r = blockIdx.x * WPB + w;
+  if (r >= n) return;
+  const int beg = ptr[r], end = ptr[r + 1];
+  if (beg == end) {
+    for (int i = lane; i < a; i += 32) dq[(size_t)r * a + i] = 0.f;
+    for (int hh = lane; hh < h; hh += 32) rho[(size_t)r * h + hh] = 0.f;
+    return;
+  }
+  const int dk = a / h;
+  const float fh = (float)h;
+  for (int i = lane; i < d; i += 32) gs[i] = to_f(g[(size_t)r * d + i]);
+  for (int i = lane; i < a; i += 32) acc[i] = 0.f;
+  for (int hh = lane; hh < h; hh += 32) {
+    const float dn = denom[(size_t)r * h + hh];
+    ms[hh] = shift[(size_t)r * h + hh];
+    ds[hh] = dn > 0.f ? dn : 1.f;
+    rs[hh] = 0.f;
+  }
+  __syncwarp();
+
+  for (int e = beg; e < end; ++e) {
+    const T* xr = x + (size_t)idx[e] * d;
+    float p = 0.f;
+    for (int i = lane; i < d; i += 32) p += gs[i] * to_f(xr[i]);
+    const float da = warp_sum(p);
+    if (lane == 0) dab[e] = da;
+    for (int hh = lane; hh < h; hh += 32)
+      rs[hh] += expf(sc[(size_t)e * h + hh] - ms[hh]) / ds[hh] * (da / fh);
+  }
+  __syncwarp();
+  for (int hh = lane; hh < h; hh += 32) rho[(size_t)r * h + hh] = rs[hh];
+
+  for (int e = beg; e < end; ++e) {
+    const float da = dab[e];
+    const float* kr = kt + (size_t)idx[e] * a;
+    for (int i = lane; i < a; i += 32) {
+      const int hh = i / dk;
+      const float al = expf(sc[(size_t)e * h + hh] - ms[hh]) / ds[hh];
+      acc[i] += al * (da / fh - rs[hh]) * kr[i];
+    }
+  }
+  for (int i = lane; i < a; i += 32) dq[(size_t)r * a + i] = acc[i];
+}
+
+// The column-side backward (B3) over the CSC layout: a warp owns column c
+// (x[c] and K[c] staged in shared memory) and walks the rows r that gather
+// from it. Per slot: s from q[r] and K[c] (the forward's score function on
+// the same values), alpha from the row's shift and denominator, da = g[r] .
+// x[c], ds = alpha (da / H - rho[r]); dk_c += ds_h * q[r] (lanes over A),
+// dxv_c += rnd(g[r] * rnd(mean_h alpha)) (lanes over columns), f32 sums.
+template <typename T>
+__global__ void __launch_bounds__(WPB * 32)
+bwd_cols_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+                const T* __restrict__ q, const T* __restrict__ g,
+                const T* __restrict__ x, const float* __restrict__ kt,
+                const float* __restrict__ shift,
+                const float* __restrict__ denom,
+                const float* __restrict__ rho, float* __restrict__ dk,
+                float* __restrict__ dxv, int n, int d, int a, int h) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* xs = smem + (size_t)w * (2 * d + 3 * a + h);  // [d] x of the column
+  float* dx = xs + d;                                  // [d] dxv of the column
+  float* ks = dx + d;                                  // [a] K of the column
+  float* qs = ks + a;                                  // [a] q of the slot's row
+  float* kacc = qs + a;                                // [a] dk of the column
+  float* al = kacc + a;                                // [h] alpha of the slot
+  const int c = blockIdx.x * WPB + w;
+  if (c >= n) return;
+  const int beg = ptr[c], end = ptr[c + 1];
+  if (beg == end) {
+    for (int i = lane; i < a; i += 32) dk[(size_t)c * a + i] = 0.f;
+    for (int i = lane; i < d; i += 32) dxv[(size_t)c * d + i] = 0.f;
+    return;
+  }
+  const int dkh = a / h;
+  const float fh = (float)h;
+  for (int i = lane; i < d; i += 32) {
+    xs[i] = to_f(x[(size_t)c * d + i]);
+    dx[i] = 0.f;
+  }
+  for (int i = lane; i < a; i += 32) {
+    ks[i] = kt[(size_t)c * a + i];
+    kacc[i] = 0.f;
+  }
+  for (int j = beg; j < end; ++j) {
+    const int r = idx[j];
+    __syncwarp();  // every lane is done with the last slot's qs and al
+    for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
+    __syncwarp();
+    for (int hh = lane; hh < h; hh += 32) {
+      const float s = gx_att::score(qs + hh * dkh, ks + hh * dkh, dkh, 0, 0.f,
+                                    0.f);
+      const float dn = denom[(size_t)r * h + hh];
+      al[hh] = expf(s - shift[(size_t)r * h + hh]) / (dn > 0.f ? dn : 1.f);
+    }
+    __syncwarp();
+    float wsum = 0.f;
+    for (int hh = 0; hh < h; ++hh) wsum += al[hh];
+    const float wt = rnd<T>(wsum / fh);
+    const T* gr = g + (size_t)r * d;
+    float p = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float gv = to_f(gr[i]);
+      p += gv * xs[i];
+      dx[i] += rnd<T>(gv * wt);
+    }
+    const float da = warp_sum(p);
+    for (int i = lane; i < a; i += 32) {
+      const int hh = i / dkh;
+      kacc[i] += al[hh] * (da / fh - rho[(size_t)r * h + hh]) * qs[i];
+    }
+  }
+  for (int i = lane; i < a; i += 32) dk[(size_t)c * a + i] = kacc[i];
+  for (int i = lane; i < d; i += 32) dxv[(size_t)c * d + i] = dx[i];
 }
 
 int sm_count() {
@@ -316,6 +589,62 @@ cudaError_t run_flash(const void* ptr, const void* idx, const void* q,
       (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
       (const float*)kt, (const float*)ew, (const float*)gshift, (float*)sc,
       (float*)out, n, d, a, h, att_type, ov2, inv2l2);
+  return cudaGetLastError();
+}
+
+// a launch with `smem` bytes of dynamic shared memory, opted into above 48 KB
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <typename T>
+cudaError_t run_fwd_res(const void* ptr, const void* idx, const void* q,
+                        const void* x, const void* kt, void* sc, void* shift,
+                        void* denom, void* out, int n, int d, int a, int h,
+                        cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)WPB * (a + 2 * h);
+  cudaError_t err = allow_smem(fwd_res_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  fwd_res_kernel<T><<<(n + WPB - 1) / WPB, WPB * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
+      (const float*)kt, (float*)sc, (float*)shift, (float*)denom, (T*)out, n,
+      d, a, h);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_bwd_rows(const void* ptr, const void* idx, const void* sc,
+                         const void* shift, const void* denom, const void* g,
+                         const void* x, const void* kt, void* dab, void* dq,
+                         void* rho, int n, int d, int a, int h,
+                         cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)WPB * (d + a + 3 * h);
+  cudaError_t err = allow_smem(bwd_rows_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  bwd_rows_kernel<T><<<(n + WPB - 1) / WPB, WPB * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const float*)sc,
+      (const float*)shift, (const float*)denom, (const T*)g, (const T*)x,
+      (const float*)kt, (float*)dab, (float*)dq, (float*)rho, n, d, a, h);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_bwd_cols(const void* ptr, const void* idx, const void* q,
+                         const void* g, const void* x, const void* kt,
+                         const void* shift, const void* denom, const void* rho,
+                         void* dk, void* dxv, int n, int d, int a, int h,
+                         cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)WPB * (2 * d + 3 * a + h);
+  cudaError_t err = allow_smem(bwd_cols_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  bwd_cols_kernel<T><<<(n + WPB - 1) / WPB, WPB * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)g,
+      (const T*)x, (const float*)kt, (const float*)shift,
+      (const float*)denom, (const float*)rho, (float*)dk, (float*)dxv, n, d,
+      a, h);
   return cudaGetLastError();
 }
 
@@ -381,6 +710,64 @@ int gx_flash_attention(const void* ptr, const void* idx, const void* q,
         : (int)run_flash<__nv_bfloat16, false>(ptr, idx, q, x, kt, ewp,
                                                gshift, sc, out, n, d, a, h,
                                                att_type, ov2, inv2l2, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The training forward. q [n, a] (pre-scaled) and x [n, d] in one dtype; kt
+// [n, a] float32; sc [E, h] float32 out (the scores, a residual); shift and
+// denom [n, h] float32 out; out [n, d] in x's dtype.
+int gx_attention_fwd_res(const void* ptr, const void* idx, const void* q,
+                         const void* x, const void* kt, void* sc, void* shift,
+                         void* denom, void* out, int n, int d, int a, int h,
+                         int dtype, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)run_fwd_res<float>(ptr, idx, q, x, kt, sc, shift, denom, out,
+                                   n, d, a, h, s);
+  if (dtype == 1)
+    return (int)run_fwd_res<__nv_bfloat16>(ptr, idx, q, x, kt, sc, shift,
+                                           denom, out, n, d, a, h, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The row-side backward over the CSR layout. sc, shift, denom from
+// gx_attention_fwd_res; g and x [n, d] in one dtype; kt [n, a] float32; dab
+// [E] float32 scratch; dq [n, a] and rho [n, h] float32 out (dq not yet
+// scaled by 1/sqrt(dk)).
+int gx_attention_bwd_rows(const void* ptr, const void* idx, const void* sc,
+                          const void* shift, const void* denom, const void* g,
+                          const void* x, const void* kt, void* dab, void* dq,
+                          void* rho, int n, int d, int a, int h, int dtype,
+                          void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)run_bwd_rows<float>(ptr, idx, sc, shift, denom, g, x, kt, dab,
+                                    dq, rho, n, d, a, h, s);
+  if (dtype == 1)
+    return (int)run_bwd_rows<__nv_bfloat16>(ptr, idx, sc, shift, denom, g, x,
+                                            kt, dab, dq, rho, n, d, a, h, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The column-side backward over the CSC layout (ptr per column, idx the
+// rows). q, g and x in one dtype; kt [n, a] float32; shift, denom and rho
+// [n, h] float32 (per row); dk [n, a] and dxv [n, d] float32 out.
+int gx_attention_bwd_cols(const void* ptr, const void* idx, const void* q,
+                          const void* g, const void* x, const void* kt,
+                          const void* shift, const void* denom,
+                          const void* rho, void* dk, void* dxv, int n, int d,
+                          int a, int h, int dtype, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)run_bwd_cols<float>(ptr, idx, q, g, x, kt, shift, denom, rho,
+                                    dk, dxv, n, d, a, h, s);
+  if (dtype == 1)
+    return (int)run_bwd_cols<__nv_bfloat16>(ptr, idx, q, g, x, kt, shift,
+                                            denom, rho, dk, dxv, n, d, a, h,
+                                            s);
   return (int)cudaErrorInvalidValue;
 }
 

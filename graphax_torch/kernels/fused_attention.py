@@ -1,11 +1,13 @@
-"""Graph flash attention: GRAND-nl's evaluation RHS, ``A(x) x`` with A the
-head-mean of the row-normalised transformer attention over the CSR layout.
+"""GRAND-nl's attention RHS, ``A(x) x`` with A the head-mean of the
+row-normalised transformer attention over the CSR layout, and its gradient.
 
 Replaces graphax's `_make_flash_kernel` and `_make_gmax_kernel`
 (`graphax/kernels/pallas_attention.py:359, 481`) with the forward of
-`_make_fused` (`:1046-1112`, ``allow_flash=True``) around them; the CUDA
-source is `csrc/fused_attention.cu`. Three kernels, each with its plain
-PyTorch version beside it:
+`_make_fused` (`:1046-1112`, ``allow_flash=True``) around them, and the
+custom VJP of its Pallas-backward route (`:1200-1283`): K1/K2/K3 with
+residuals (`:114, 197, 266`), B1/B2 (`:576, 659`) and B3 (`:727`). The CUDA
+source is `csrc/fused_attention.cu`. Evaluation runs three kernels, each
+with its plain PyTorch version beside it:
 
 - ``attention_kproj``: the keys ``K = x Wk + bk [N, A]`` in f32, once per
   node (graphax projects each gathered source row inside its kernels; the
@@ -22,9 +24,20 @@ Softmax shifts by each row's final max: graphax's online recurrence over
 its 128-row tiles gives the same values to f32 rounding, and bf16 ``e``
 that differ by a bf16 rounding of their own.
 
-Not differentiable: the evaluation forward runs under no_grad. The wrappers
-take CUDA tensors to their kernels and CPU tensors to the plain versions and
-count their launches in ``_build.LAUNCHES``."""
+Training (scaled_dot, row softmax, no squareplus or reweight:
+:func:`train_supported`) runs three more:
+
+- ``attention_fwd_res``: the forward with K3's weights ``rnd(mean_h e /
+  (d or 1))`` (zero-select, the head mean before the rounding), keeping the
+  scores [E, H], the shift and the denominator [N, H] for the backward;
+- ``attention_bwd_rows``: B1 + B2 per CSR row, dq̃ and rho;
+- ``attention_bwd_cols``: B3 per CSC column, dk and the value term dxv.
+
+:func:`fused_attention_ax` is the one entry: flash when no gradient is
+needed, else the autograd Functions around the training kernels. Those
+kernels are not differentiable themselves. The wrappers take CUDA tensors
+to their kernels and CPU tensors to the plain versions and count their
+launches in ``_build.LAUNCHES``."""
 
 from __future__ import annotations
 
@@ -278,17 +291,23 @@ def flash_supported(cfg, d: int) -> bool:
             and 4 * _WPB * (a + 2 * cfg.heads) <= _SMEM_STATIC)
 
 
+def _query(cfg, att, x: torch.Tensor) -> torch.Tensor:
+    """q through ``att.Q`` in f32, pre-scaled by 1/sqrt(d_k) for
+    scaled_dot (graphax's `_prep_inputs`, `:917-920`)."""
+    q = linear_apply(att.Q, x)
+    if cfg.attention_type == "scaled_dot":
+        q = q / torch.sqrt(torch.tensor(cfg.attention_dim // cfg.heads,
+                                        dtype=torch.float32, device=q.device))
+    return q
+
+
 def prep_inputs(cfg, att, graph, x: torch.Tensor) -> dict:
     """The kernels' operands, as graphax's `_prep_inputs` (`:916-939`): q
-    through ``att.Q`` in f32, pre-scaled by 1/sqrt(d_k) for scaled_dot and
-    cast to x's dtype; Wk in x's dtype; bk and the reweight values in f32;
-    exp_kernel's two scalars. ``att`` is a
+    of :func:`_query` cast to x's dtype; Wk in x's dtype; bk and the
+    reweight values in f32; exp_kernel's two scalars. ``att`` is a
     `graphax_torch.functions.transformer.TransformerAttention`."""
     heads = cfg.heads
-    q = linear_apply(att.Q, x)                                 # f32
-    if cfg.attention_type == "scaled_dot":
-        q = q / torch.sqrt(torch.tensor(cfg.attention_dim // heads,
-                                        dtype=torch.float32, device=q.device))
+    q = _query(cfg, att, x)
     ov2 = inv2l2 = 0.0
     if cfg.attention_type == "exp_kernel":
         ov2 = float(att.output_var ** 2)
@@ -317,3 +336,265 @@ def flash_attention_ax(cfg, att, graph, x: torch.Tensor) -> torch.Tensor:
     out = flash_attention(graph.csr, p["q"], x, kt, p["edge_w"], gshift,
                           *scal)
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# training: the forward with residuals and the two backward kernels
+# ----------------------------------------------------------------------
+
+def train_supported(cfg, d: int) -> bool:
+    """The twin of graphax's `pallas_bwd_supported` (`:841-849`): the
+    configs whose RHS trains through the hand-written backward (scaled_dot,
+    row softmax, no squareplus, no reweight, no mix_features), within the
+    flash gate (the evaluation forward of the same solve) and one block's
+    shared memory for the backward kernels' staged rows."""
+    a, h = cfg.attention_dim, cfg.heads
+    return (cfg.attention_type == "scaled_dot"
+            and cfg.attention_norm_idx == 0
+            and not cfg.square_plus
+            and not cfg.mix_features
+            and not cfg.reweight_attention
+            and flash_supported(cfg, d)
+            and 4 * _WPB * (2 * d + 3 * a + h) <= _SMEM_LIMIT)
+
+
+def _check_train(what: str, layout: Layout, x, kt, heads: int, *tables):
+    """x [N, D] float32 or bfloat16, kt [N, A] f32, ``tables`` the [N, H]
+    f32 per-row tables, all contiguous on x's device."""
+    n = x.shape[0]
+    if x.dtype not in _DTYPES or x.dim() != 2:
+        raise TypeError(f"{what}: x must be [N, D] float32 or bfloat16")
+    if kt.dtype != torch.float32 or kt.dim() != 2 or kt.shape[0] != n:
+        raise ValueError(f"{what}: kt must be [N, A] f32")
+    if heads < 1 or kt.shape[1] % heads:
+        raise ValueError(f"{what}: heads must divide A")
+    _check_layout(what, layout, n, None)
+    for t in tables:
+        if t.dtype != torch.float32 or t.shape != (n, heads):
+            raise ValueError(f"{what}: per-row tables must be [N, H] f32")
+    _check_operands(what, x, layout.ptr, layout.idx, x, kt, *tables)
+
+
+def _zero_select(denom):
+    return torch.where(denom > 0, denom, torch.ones_like(denom))
+
+
+def attention_fwd_res_plain(layout: Layout, q, x, kt, heads: int):
+    """The training forward in plain PyTorch: (out [N, D] in x's dtype,
+    scores [E, H], shift [N, H], denom [N, H], all f32)."""
+    n, seg = layout.num_rows, layout.seg
+    s = edge_scores_plain(layout, q, kt, None, "scaled_dot", heads)
+    shift = segment_max(s, seg, n)
+    shift = torch.where(torch.isfinite(shift), shift, torch.zeros_like(shift))
+    ex = torch.exp(s - shift[seg])
+    den = segment_sum(ex, seg, n)
+    alpha = ex / _zero_select(den)[seg]
+    w = (alpha.sum(1) / heads).to(x.dtype)
+    out = torch.zeros((n, x.shape[1]), dtype=torch.float32, device=x.device)
+    out.index_add_(0, seg, (x[layout.idx.long()] * w[:, None]).float())
+    return out.to(x.dtype), s, shift, den
+
+
+def attention_fwd_res(layout: Layout, q: torch.Tensor, x: torch.Tensor,
+                      kt: torch.Tensor, heads: int):
+    """graphax's K1 + K2 + K3 with residuals (`_forward(...,
+    want_residuals=True)`, `:1070-1109`) for scaled_dot scores under a row
+    softmax: ``(out, scores, shift, denom)`` as the plain version. ``q [N,
+    A]`` (pre-scaled) and ``x [N, D]`` in one dtype, ``kt [N, A]`` f32.
+    The weights are K3's: ``rnd(mean_h e / (denom or 1))``, not flash's."""
+    _check_scores("attention_fwd_res", q, kt, heads, "scaled_dot")
+    _no_grad("attention_fwd_res", q, x, kt)
+    if not x.is_cuda:
+        return attention_fwd_res_plain(layout, q, x, kt, heads)
+    n, d = x.shape
+    if q.dtype != x.dtype or q.shape[0] != n:
+        raise ValueError("attention_fwd_res: q [N, A] and x [N, D] must share "
+                         "N and dtype")
+    _check_train("attention_fwd_res", layout, x, kt, heads)
+    _check_operands("attention_fwd_res", x, q)
+    sc = torch.empty((layout.num_slots, heads), dtype=torch.float32,
+                     device=x.device)
+    shift = torch.empty((n, heads), dtype=torch.float32, device=x.device)
+    denom = torch.empty_like(shift)
+    out = torch.empty_like(x)
+    lib = _build.library("fused_attention")
+    err = lib.gx_attention_fwd_res(
+        layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
+        x.data_ptr(), kt.data_ptr(), sc.data_ptr(), shift.data_ptr(),
+        denom.data_ptr(), out.data_ptr(), n, d, q.shape[1], heads,
+        _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(err, "attention_fwd_res")
+    _build.LAUNCHES["attention_fwd_res"] += 1
+    return out, sc, shift, denom
+
+
+def attention_bwd_rows_plain(layout: Layout, sc, shift, denom, g, x, kt,
+                             heads: int):
+    """B1 + B2 in plain PyTorch: (dq [N, A], rho [N, H]), f32; dq not yet
+    scaled by 1/sqrt(d_k)."""
+    n, seg, col = layout.num_rows, layout.seg, layout.idx.long()
+    e = layout.num_slots
+    alpha = torch.exp(sc - shift[seg]) / _zero_select(denom)[seg]
+    dah = ((g.float()[seg] * x.float()[col]).sum(1) / heads)[:, None]
+    rho = segment_sum(alpha * dah, seg, n)
+    ds = alpha * (dah - rho[seg])
+    a = kt.shape[1]
+    m = (kt[col].reshape(e, heads, a // heads) * ds[:, :, None]).reshape(e, a)
+    dq = torch.zeros((n, kt.shape[1]), dtype=torch.float32, device=x.device)
+    return dq.index_add_(0, seg, m), rho
+
+
+def attention_bwd_rows(layout: Layout, sc: torch.Tensor, shift: torch.Tensor,
+                       denom: torch.Tensor, g: torch.Tensor, x: torch.Tensor,
+                       kt: torch.Tensor, heads: int):
+    """graphax's B1 + B2 (`_bwd1_kernel` :576, `_make_bwd2_kernel` :659)
+    over the CSR ``layout``: ``(dq, rho)`` as the plain version. ``sc``,
+    ``shift``, ``denom`` from :func:`attention_fwd_res`; the cotangent ``g``
+    and ``x`` [N, D] in one dtype; ``kt`` [N, A] f32."""
+    _no_grad("attention_bwd_rows", g, x, kt)
+    if not x.is_cuda:
+        return attention_bwd_rows_plain(layout, sc, shift, denom, g, x, kt,
+                                        heads)
+    n, d = x.shape
+    _check_train("attention_bwd_rows", layout, x, kt, heads, shift, denom)
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError("attention_bwd_rows: g must match x")
+    if sc.dtype != torch.float32 or sc.shape != (layout.num_slots, heads):
+        raise ValueError("attention_bwd_rows: scores must be [E, H] f32")
+    _check_operands("attention_bwd_rows", x, g, sc)
+    dab = torch.empty(layout.num_slots, dtype=torch.float32, device=x.device)
+    dq = torch.empty_like(kt)
+    rho = torch.empty_like(shift)
+    lib = _build.library("fused_attention")
+    err = lib.gx_attention_bwd_rows(
+        layout.ptr.data_ptr(), layout.idx.data_ptr(), sc.data_ptr(),
+        shift.data_ptr(), denom.data_ptr(), g.data_ptr(), x.data_ptr(),
+        kt.data_ptr(), dab.data_ptr(), dq.data_ptr(), rho.data_ptr(), n, d,
+        kt.shape[1], heads, _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(err, "attention_bwd_rows")
+    _build.LAUNCHES["attention_bwd_rows"] += 1
+    return dq, rho
+
+
+def attention_bwd_cols_plain(layout: Layout, q, g, x, kt, shift, denom, rho,
+                             heads: int):
+    """B3 in plain PyTorch over the CSC ``layout`` (``seg`` the column,
+    ``idx`` the row of each slot): (dk [N, A], dxv [N, D]), f32."""
+    n, c, r = layout.num_rows, layout.seg, layout.idx.long()
+    e, dkh = layout.num_slots, kt.shape[1] // heads
+    qe = q.float()[r].reshape(e, heads, dkh)
+    s = score_math("scaled_dot", qe, kt[c].reshape(e, heads, dkh))
+    alpha = torch.exp(s - shift[r]) / _zero_select(denom)[r]
+    da = (g.float()[r] * x.float()[c]).sum(1)
+    ds = alpha * ((da / heads)[:, None] - rho[r])
+    dk = torch.zeros((n, kt.shape[1]), dtype=torch.float32, device=x.device)
+    dk.index_add_(0, c, (qe * ds[:, :, None]).reshape(e, kt.shape[1]))
+    w = (alpha.sum(1) / heads).to(g.dtype)
+    dxv = torch.zeros((n, x.shape[1]), dtype=torch.float32, device=x.device)
+    return dk, dxv.index_add_(0, c, (g[r] * w[:, None]).float())
+
+
+def attention_bwd_cols(layout: Layout, q: torch.Tensor, g: torch.Tensor,
+                       x: torch.Tensor, kt: torch.Tensor, shift: torch.Tensor,
+                       denom: torch.Tensor, rho: torch.Tensor, heads: int):
+    """graphax's B3 (`_make_bwd3_kernel` :727) over the CSC ``layout``:
+    ``(dk, dxv)`` as the plain version. ``q`` (pre-scaled), ``g`` and ``x``
+    in one dtype; ``kt`` [N, A] f32; ``shift``, ``denom``, ``rho`` the
+    [N, H] per-row tables of the forward and :func:`attention_bwd_rows`."""
+    _no_grad("attention_bwd_cols", q, g, x, kt)
+    if not x.is_cuda:
+        return attention_bwd_cols_plain(layout, q, g, x, kt, shift, denom,
+                                        rho, heads)
+    n, d = x.shape
+    _check_train("attention_bwd_cols", layout, x, kt, heads, shift, denom,
+                 rho)
+    if g.shape != x.shape or g.dtype != x.dtype or q.dtype != x.dtype \
+            or q.shape != kt.shape:
+        raise ValueError("attention_bwd_cols: q [N, A] and g [N, D] must "
+                         "share x's dtype")
+    _check_operands("attention_bwd_cols", x, q, g)
+    dk = torch.empty_like(kt)
+    dxv = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    lib = _build.library("fused_attention")
+    err = lib.gx_attention_bwd_cols(
+        layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
+        g.data_ptr(), x.data_ptr(), kt.data_ptr(), shift.data_ptr(),
+        denom.data_ptr(), rho.data_ptr(), dk.data_ptr(), dxv.data_ptr(), n, d,
+        kt.shape[1], heads, _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(err, "attention_bwd_cols")
+    _build.LAUNCHES["attention_bwd_cols"] += 1
+    return dk, dxv
+
+
+class _KProj(torch.autograd.Function):
+    """``K = x Wk + bk`` in f32 through :func:`attention_kproj` (Wk cast to
+    x's dtype, as graphax's kernels take it); its backward is graphax's
+    dense products (`:1264-1268`): ``dWk = dkᵀ x``, ``dbk = Σ dk``,
+    ``dx = dk Wk`` in f32 from the f32 weight."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return attention_kproj(x, weight.t().to(x.dtype).contiguous(),
+                               bias.float().contiguous())
+
+    @staticmethod
+    def backward(ctx, dk):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        return (dk @ weight.float() if need_x else None,
+                dk.t() @ x.float() if need_w else None,
+                dk.sum(0) if need_b else None)
+
+
+class _TrainAttention(torch.autograd.Function):
+    """graphax's custom VJP on the route its Pallas backward covers
+    (`_make_fused`, `:1200-1283`): the forward with residuals keeps the
+    scores, shift and denominator; the backward runs the row-side kernel
+    (dq, rho) and the column-side kernel over the CSC layout (dk, dxv).
+    Inputs: ``q`` [N, A] f32 (pre-scaled; cast to x's dtype for the
+    kernels, its gradient stays f32), ``x`` [N, D], ``kt`` [N, A] f32."""
+
+    @staticmethod
+    def forward(ctx, q, x, kt, graph, heads: int):
+        qs = q.to(x.dtype).contiguous()
+        out, sc, shift, denom = attention_fwd_res(graph.csr, qs, x, kt, heads)
+        ctx.save_for_backward(qs, x, kt, sc, shift, denom)
+        ctx.graph, ctx.heads = graph, heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qs, x, kt, sc, shift, denom = ctx.saved_tensors
+        graph, heads = ctx.graph, ctx.heads
+        g = g.to(x.dtype).contiguous()
+        dq, rho = attention_bwd_rows(graph.csr, sc, shift, denom, g, x, kt,
+                                     heads)
+        dk, dxv = attention_bwd_cols(graph.csc, qs, g, x, kt, shift, denom,
+                                     rho, heads)
+        return dq, dxv, dk, None, None
+
+
+def fused_attention_ax(cfg, att, graph, x: torch.Tensor) -> torch.Tensor:
+    """``A(x) x`` of the GRAND-nl RHS on a sparse graph, in x's dtype, as
+    graphax's `fused_attention_ax_pallas` with its Pallas backward
+    (`:1290-1329`): the flash kernels when no gradient is needed (jax
+    custom_vjp's ``f``), else the differentiable route (its ``fwd`` and
+    ``bwd``): the Q projection and its gradients as dense products, the K
+    projection through :class:`_KProj`, the attention through
+    :class:`_TrainAttention`. ``att`` carries ``Q`` and ``K`` (``weight``
+    [A, D], ``bias`` [A]), as the attention layer does."""
+    lin = (att.Q.weight, att.Q.bias, att.K.weight, att.K.bias)
+    if not (torch.is_grad_enabled()
+            and (x.requires_grad or any(t.requires_grad for t in lin))):
+        return flash_attention_ax(cfg, att, graph, x)
+    if not train_supported(cfg, x.shape[1]):
+        raise NotImplementedError(
+            "GRAND-nl gradients outside the hand-written backward's configs "
+            "(scaled_dot, row softmax, no squareplus, no reweight): graphax "
+            "takes them through its XLA fused_attention_ax autodiff (ROADMAP "
+            "Queue 2b, item 2)")
+    x = x.contiguous()
+    kt = _KProj.apply(x, att.K.weight, att.K.bias)
+    return _TrainAttention.apply(_query(cfg, att, x), x, kt, graph,
+                                 cfg.heads)

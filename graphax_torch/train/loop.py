@@ -8,9 +8,10 @@ threading a functional TrainState.
 
 Not ported here (ROADMAP): graphax's 3-jit `split_step` (a TPU compiler
 workaround with no output change), kNN/edge-sampling rewiring, checkpoints,
-the label trick, the early-stop evaluation (`models/early.py`), and
-training with the transformer RHS (GRAND-nl evaluates; its train step
-raises `NotImplementedError`)."""
+the label trick and the early-stop evaluation (`models/early.py`). GRAND-nl
+(the transformer RHS) trains where the hand-written attention backward
+covers its config (`kernels.fused_attention.train_supported`); other
+transformer configs raise `NotImplementedError` in the train step."""
 
 from __future__ import annotations
 

@@ -13,6 +13,13 @@ Here one train step of a small sparse-strategy model (graphax's tiled
 strategy on the CPU, i.e. its XLA SpMM), constant and hard-attention blocks,
 with an adaptive adjoint: the backward NFE must be equal and the gradients
 agree. SGD with lr 1 makes the parameter change the gradient itself.
+
+GRAND-nl (constant block, transformer RHS, random Q/K) takes the same step
+under an adaptive and a fixed-grid adjoint: graphax's CPU route is its XLA
+fused attention and its autodiff (which its own tests hold to its Pallas
+backward, tests/test_pallas_attention.py), the port's the plain versions of
+its training kernels. The adaptive case checks the zero-leaf count: the
+attention layer's V and Wout and the unread edge weights.
 Tolerance: 1e-4 relative / 1e-6 absolute (the f32 adjoint's error
 estimates are sums over thousands of terms in another order; the steps are
 the same, so the gradients agree to f32 accumulation noise)."""
@@ -44,8 +51,9 @@ BASE = dict(dataset="sbm", function="laplacian", hidden_dim=16, heads=2,
 SBM = dict(num_nodes=200, num_classes=4, num_features=16, seed=3)
 
 
-def _one_step(block, adjoint_method):
-    kw = dict(BASE, block=block, adjoint_method=adjoint_method)
+def _one_step(block, adjoint_method, function="laplacian"):
+    kw = dict(BASE, block=block, adjoint_method=adjoint_method,
+              function=function)
     gdata = gx_make_sbm(**SBM)
     gdata = dataclasses.replace(gdata, graph=dataclasses.replace(
         attach_tiles(gdata.graph), strategy="tiled"))
@@ -59,6 +67,14 @@ def _one_step(block, adjoint_method):
             w = params["block"]["att_layer"][name]["w"]
             params["block"]["att_layer"][name]["w"] = jax.numpy.asarray(
                 0.4 * rng.randn(*w.shape), jax.numpy.float32)
+    if function == "transformer":
+        # graphax's test scale: the constant 1e-5 init makes A uniform
+        rng = np.random.RandomState(8)
+        att = params["block"]["func"]["att"]
+        for name in ("Q", "K"):
+            att[name] = {k: jax.numpy.asarray(
+                s * rng.randn(*att[name][k].shape), jax.numpy.float32)
+                for k, s in (("w", 0.3), ("b", 0.1))}
     # a nonzero source term and diffusion rate exercise every a_p leaf
     fn = params["block"]["func"]
     fn["alpha_train"] = jax.numpy.asarray(0.3)
@@ -95,6 +111,25 @@ def test_adaptive_adjoint_steps_and_gradients_match_graphax(block,
     assert pt_bwd == gx_bwd, (pt_bwd, gx_bwd)
     assert pt_bwd > 12          # an adaptive backward solve with real steps
     assert set(pt_grad) <= set(gx_grad)
+    for k, g in pt_grad.items():
+        np.testing.assert_allclose(g, gx_grad[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("adjoint_method", ["adaptive_heun", "rk4"])
+def test_transformer_adjoint_steps_and_gradients_match_graphax(
+        adjoint_method):
+    (gx_loss, gx_nfe, gx_bwd, gx_grad,
+     pt_loss, pt_nfe, pt_bwd, pt_grad) = _one_step("constant", adjoint_method,
+                                                   function="transformer")
+    np.testing.assert_allclose(pt_loss, float(gx_loss), rtol=1e-6)
+    assert pt_nfe == gx_nfe
+    assert pt_bwd == gx_bwd, (pt_bwd, gx_bwd)
+    if adjoint_method == "adaptive_heun":
+        assert pt_bwd > 12
+    assert set(pt_grad) <= set(gx_grad)
+    for name in ("Q", "K"):
+        assert np.abs(pt_grad[f"block.func.att.{name}.weight"]).max() > 0
     for k, g in pt_grad.items():
         np.testing.assert_allclose(g, gx_grad[k], rtol=1e-4, atol=1e-6,
                                    err_msg=k)

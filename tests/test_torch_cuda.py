@@ -13,7 +13,10 @@ products' f32 outputs of up to W (or tile) terms 1e-5 relative / 1e-4
 absolute, and the densified blocks exactly; the flash kernel's f32 output
 2e-4 relative / 2e-5 absolute (graphax's own attention tolerance: f32 sums
 and exp in another order), its bf16 products one bf16 ulp apart at the
-margin (the rounded weight can land either side: 2e-2 / 2e-3)."""
+margin (the rounded weight can land either side: 2e-2 / 2e-3). The
+training kernels: their f32 tables and gradients at graphax's attention
+tolerance; their sums of products rounded to bf16 2e-2 relative plus two
+bf16 ulps of the largest factor (stated at `_check_train_kernels`)."""
 
 import numpy as np
 import pytest
@@ -299,3 +302,135 @@ def test_cuda_flash_counts_launches_and_refuses_gradients(cuda):
     with pytest.raises(RuntimeError, match="not differentiable"):
         fa.flash_attention(g.csr, q, x.requires_grad_(True), kt, None, None,
                            "scaled_dot", 2)
+
+
+# ----------------------------------------------------------------------
+# GRAND-nl training: the forward with residuals and the two backward kernels
+
+def _train_case(g, dtype, d, a, heads, seed):
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    n, tdt = g.num_nodes, getattr(torch, dtype)
+    q = (0.3 * torch.randn(n, a, generator=gen, device=g.device)).to(tdt)
+    x = torch.randn(n, d, generator=gen, device=g.device).to(tdt)
+    kt = 0.3 * torch.randn(n, a, generator=gen, device=g.device)
+    cot = torch.randn(n, d, generator=gen, device=g.device).to(tdt)
+    return q, x, kt, cot
+
+
+def _check_train_kernels(g, dtype, d, a, heads, seed):
+    """Each training kernel against its plain version on the same inputs
+    (the backward kernels on the kernel forward's residuals). f32 tables
+    and gradients: graphax's attention tolerance (f32 sums and exp in
+    another order), in either dtype since bf16 values are exact in f32.
+    Sums of products rounded to bf16 (the forward's output, dxv): a rounded
+    weight at the margin moves one term by one bf16 ulp of that term,
+    whatever the sum: 2e-2 relative plus two ulps (2^-6) of the largest
+    factor (x, or the cotangent)."""
+    q, x, kt, cot = _train_case(g, dtype, d, a, heads, seed)
+    f32 = dict(rtol=2e-4, atol=2e-5)
+
+    def rounded(factor):
+        return f32 if dtype == "float32" else dict(
+            rtol=2e-2, atol=2.0 ** -6 * float(factor.float().abs().max()))
+
+    out, sc, shift, denom = fa.attention_fwd_res(g.csr, q, x, kt, heads)
+    w_out, w_sc, w_shift, w_denom = fa.attention_fwd_res_plain(g.csr, q, x,
+                                                               kt, heads)
+    assert out.dtype == x.dtype
+    torch.testing.assert_close(out.float(), w_out.float(), **rounded(x))
+    for got, want in ((sc, w_sc), (shift, w_shift), (denom, w_denom)):
+        torch.testing.assert_close(got, want, **f32)
+    dq, rho = fa.attention_bwd_rows(g.csr, sc, shift, denom, cot, x, kt,
+                                    heads)
+    w_dq, w_rho = fa.attention_bwd_rows_plain(g.csr, sc, shift, denom, cot,
+                                              x, kt, heads)
+    torch.testing.assert_close(dq, w_dq, **f32)
+    torch.testing.assert_close(rho, w_rho, **f32)
+    dk, dxv = fa.attention_bwd_cols(g.csc, q, cot, x, kt, shift, denom, rho,
+                                    heads)
+    w_dk, w_dxv = fa.attention_bwd_cols_plain(g.csc, q, cot, x, kt, shift,
+                                              denom, rho, heads)
+    torch.testing.assert_close(dk, w_dk, **f32)
+    torch.testing.assert_close(dxv, w_dxv, **rounded(cot))
+    return out, dq, dk, dxv
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_train_kernels_match_plain(cuda, dtype):
+    """Random graph (duplicate edges, the last 7 rows and columns empty,
+    padding) at D = 162, A = 32, H = 2 and at an odd D = 300 > 256, A = 12,
+    H = 3."""
+    for i, (g, d, a, heads) in enumerate(((_cuda_graph(cuda), 162, 32, 2),
+                                          (_cuda_graph(cuda, seed=7), 300, 12,
+                                           3))):
+        out, dq, dk, dxv = _check_train_kernels(g, dtype, d, a, heads, i)
+        for t in (out, dq, dk, dxv):
+            assert torch.all(t[-7:] == 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_train_kernels_one_edge_and_empty_graph(cuda, dtype):
+    out, dq, dk, dxv = _check_train_kernels(_one_edge_graph(cuda), dtype, 5,
+                                            4, 2, 3)
+    assert torch.count_nonzero(out.float().abs().sum(1)) == 1
+    assert torch.count_nonzero(dxv.abs().sum(1)) == 1
+    empty = Graph.from_edges(np.zeros(0, np.int64), np.zeros(0, np.int64), 6,
+                             edge_buffer_size=2, device=cuda)
+    out, dq, dk, dxv = _check_train_kernels(empty, dtype, 5, 4, 2, 4)
+    assert not (out.any() or dq.any() or dk.any() or dxv.any())
+
+
+def test_cuda_train_function_matches_autograd_through_plain_path(cuda):
+    """The autograd route's output and the gradients of x, Q and K against
+    torch.autograd through the plain per-edge path (the attention's segment
+    softmax and the attention SpMM) in f32; each training kernel launched
+    once, flash not at all. Tolerance: f32 sums of up to N terms in another
+    order, 2e-4 relative plus 1e-4 of the tensor's largest value (a bias's
+    with its weight's: dK's bias is 0 but for rounding, as the softmax does
+    not see a shift of a row's every score)."""
+    from graphax_torch.functions.transformer import (
+        TransformerAttention, multiply_attention, transformer_attention_apply,
+    )
+    from graphax_torch.kernels import LAUNCHES
+    from graphax_torch.train import Config
+
+    g = _cuda_graph(cuda, seed=9)
+    cfg = Config(function="transformer", heads=2, attention_dim=32,
+                 hidden_dim=162)
+    gen = torch.Generator().manual_seed(10)
+    att = TransformerAttention(cfg, 162)
+    with torch.no_grad():
+        for lin in (att.Q, att.K):
+            lin.weight.copy_(0.3 * torch.randn(lin.weight.shape,
+                                               generator=gen))
+            lin.bias.copy_(0.1 * torch.randn(lin.bias.shape, generator=gen))
+    att = att.to(cuda)
+    x = torch.randn(g.num_nodes, 162, generator=gen).to(cuda)
+    probe = torch.randn(g.num_nodes, 162, generator=gen).to(cuda)
+    lin = (att.Q.weight, att.Q.bias, att.K.weight, att.K.bias)
+
+    def grads(fn):
+        xr = x.clone().requires_grad_(True)
+        for t in lin:
+            t.grad = None
+        out = fn(xr)
+        (out * probe).sum().backward()
+        return [out.detach(), xr.grad] + [t.grad.clone() for t in lin]
+
+    LAUNCHES.clear()
+    got = grads(lambda xr: fa.fused_attention_ax(cfg, att, g, xr))
+    assert dict(LAUNCHES) == {"attention_kproj": 1, "attention_fwd_res": 1,
+                              "attention_bwd_rows": 1,
+                              "attention_bwd_cols": 1}
+
+    def plain(xr):
+        alpha, (v, _) = transformer_attention_apply(att, cfg, g, xr)
+        return multiply_attention(att, cfg, g, xr, alpha, v)
+
+    want = grads(plain)
+    top = [float(t.abs().max()) for t in want]
+    scale = top[:2] + [max(top[2:4])] * 2 + [max(top[4:])] * 2
+    for name, a_, b_, sc_ in zip(("out", "x", "Qw", "Qb", "Kw", "Kb"), got,
+                                 want, scale):
+        torch.testing.assert_close(a_, b_, rtol=2e-4, atol=1e-4 * sc_,
+                                   msg=name)

@@ -1,4 +1,5 @@
-"""GRAND-nl's evaluation forward in the port against graphax, on the CPU.
+"""GRAND-nl's evaluation forward and its training in the port against
+graphax, on the CPU.
 
 The port's wrappers run their plain versions here; graphax runs its Pallas
 flash and gmax kernels in interpret mode (as tests/test_pallas_attention.py
@@ -17,7 +18,18 @@ Tolerances:
   (`graphax/kernels/fused_attention.py:145-224`), which rounds k to bf16
   and shifts by the global max; logits agree to 1e-2 absolute (3.0e-3
   seen on logits of size ~0.5), NFE within one dopri5 step (6; equal
-  seen) (ROADMAP Queue 3)."""
+  seen) (ROADMAP Queue 3).
+- Training, f32: the training forward, its residuals and the gradients of
+  x, Q and K against graphax's interpreted Pallas forward with residuals
+  and backward (B1/B2/B3) at rtol 2e-4 / atol 2e-5, graphax's own.
+- Training, bf16: outputs 2e-2 relative / 2e-2 absolute (a rounded weight
+  at the margin moves a sum by one bf16 ulp: 1.6e-2 seen on outputs of
+  size 2-4 over four seeds); gradients 5e-2 relative / 5e-2 absolute
+  (seen: x 3.1e-2 on values of size ~3, two bf16 ulps; K's weight 1.0e-2
+  of ~4, Q's 7e-7): graphax's B3 rounds k to bf16 (`:1242`) where the
+  port's column kernel reads the f32 K table, and the port rounds the x
+  cotangent's three terms to bf16 one by one where graphax sums two of
+  them first (ROADMAP Queue 3)."""
 
 import dataclasses
 
@@ -40,8 +52,10 @@ from graphax.functions.transformer import (
 from graphax.kernels import pallas_tiled
 from graphax.kernels.dispatch import attach_tiles
 from graphax.kernels.pallas_attention import (
-    _gmax_call, _prep_inputs, fused_attention_ax_pallas,
+    NEG, _gmax_call, _norm_call, _prep_inputs, _scores_call,
+    fused_attention_ax_pallas,
 )
+from graphax.kernels.pallas_tiled import presence_scale
 from graphax.models.gnn import make_gnn
 from graphax.sparse import Graph as GxGraph
 from graphax.train import Config as GxConfig
@@ -357,6 +371,157 @@ def test_eval_launch_count_is_the_nfe(monkeypatch):
 
 
 # ----------------------------------------------------------------------
+# training: the forward with residuals and the backward
+# ----------------------------------------------------------------------
+
+TRAIN_TOL = {"float32": F32, "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+GRAD_TOL = {"float32": F32, "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+
+def _pallas_residuals(gcfg, p, gx, xj):
+    """graphax's K1/K2 outputs as the custom VJP keeps them (`:1070-1085`),
+    in the port's layout: scores [E, H] in edge order, shift and denom
+    [N, H] per node."""
+    t = gx.tiles
+    q_tiles, xg, wk, bk, wb, scal = _prep_inputs(
+        gcfg, p, xj, xj, gx.edge_weight, t.edge_slot, t.slot_mask, t.col,
+        t.num_tiles, t.tile)
+    scores, rmax = _scores_call("scaled_dot", False, gcfg.heads, q_tiles, xg,
+                                wk, bk, wb, t.local_row, t.tile_idx, scal,
+                                t.num_tiles, t.tile)
+    present = presence_scale(t.tile_idx, t.num_tiles) > 0
+    rmax = jnp.where(present[:, None, None], rmax, NEG)
+    shift = jnp.where(rmax <= NEG / 2, 0.0, rmax)
+    _, denom = _norm_call(False, scores, shift, t.local_row, t.tile_idx,
+                          t.num_tiles, t.tile)
+    h, n = gcfg.heads, gx.num_nodes
+    node = lambda a: _np(jnp.transpose(a, (0, 2, 1)).reshape(-1, h))[:n]
+    flat = _np(jnp.moveaxis(scores, 1, 2).reshape(-1, h))
+    keep = np.asarray(t.slot_mask).reshape(-1)
+    sc = np.zeros((gx.num_edges, h), np.float32)
+    sc[np.asarray(t.edge_slot).reshape(-1)[keep]] = flat[keep]
+    return sc, node(shift), node(denom)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_forward_and_residuals_match_pallas(dtype):
+    """The residual forward's output against graphax's custom-VJP forward
+    (under jax.vjp: K1/K2/K3, not flash), its residuals against K1/K2's."""
+    gx, pt = make_graphs(seed=20)
+    d = 6
+    gcfg, cfg = _cfgs(hidden_dim=d)
+    p, att = random_attention(gcfg, cfg, d, seed=21)
+    x = np.random.RandomState(22).randn(gx.num_nodes, d).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.dtype(dtype))
+    want, _ = jax.vjp(lambda xx: fused_attention_ax_pallas(
+        gcfg, p, gx.tiles, xx, edge_weight=gx.edge_weight,
+        tiles_t=gx.tiles_t), xj)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    with torch.no_grad():
+        ops = fa.prep_inputs(cfg, att, pt, xt)
+        kt = fa.attention_kproj(xt, ops["wk"], ops["bk"])
+        got, sc, shift, denom = fa.attention_fwd_res(pt.csr, ops["q"], xt, kt,
+                                                     cfg.heads)
+    assert got.dtype == xt.dtype and got.shape == x.shape
+    np.testing.assert_allclose(got.float().numpy(), _np(want),
+                               **TRAIN_TOL[dtype])
+    assert np.all(got[-4:].float().numpy() == 0)
+    assert np.all(shift[-4:].numpy() == 0) and np.all(denom[-4:].numpy() == 0)
+    if dtype == "float32":
+        w_sc, w_shift, w_denom = _pallas_residuals(gcfg, p, gx, xj)
+        np.testing.assert_allclose(sc.numpy(), w_sc, **F32)
+        np.testing.assert_allclose(shift.numpy(), w_shift, **F32)
+        np.testing.assert_allclose(denom.numpy(), w_denom, **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_gradients_match_pallas_backward(dtype):
+    """The gradients of x, Q and K through the port's autograd Functions
+    against jax.grad through graphax's Pallas backward (B1/B2/B3)."""
+    gx, pt = make_graphs(seed=23)
+    d = 6
+    gcfg, cfg = _cfgs(hidden_dim=d)
+    p, att = random_attention(gcfg, cfg, d, seed=24)
+    rng = np.random.RandomState(25)
+    x = rng.randn(gx.num_nodes, d).astype(np.float32)
+    probe = rng.randn(gx.num_nodes, d).astype(np.float32)
+
+    def loss(pp, xx):
+        out = fused_attention_ax_pallas(gcfg, pp, gx.tiles, xx,
+                                        edge_weight=gx.edge_weight,
+                                        tiles_t=gx.tiles_t)
+        return jnp.sum(out.astype(jnp.float32) * probe)
+
+    gp, gxx = jax.grad(loss, argnums=(0, 1))(
+        p, jnp.asarray(x).astype(jnp.dtype(dtype)))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(True)
+    out = fa.fused_attention_ax(cfg, att, pt, xt)
+    (out.float() * torch.from_numpy(probe)).sum().backward()
+    tol = GRAD_TOL[dtype]
+    np.testing.assert_allclose(xt.grad.float().numpy(), _np(gxx), **tol)
+    for name in ("Q", "K"):
+        lin = getattr(att, name)
+        np.testing.assert_allclose(lin.weight.grad.numpy(),
+                                   _np(gp[name]["w"]).T, err_msg=name, **tol)
+        np.testing.assert_allclose(lin.bias.grad.numpy(), _np(gp[name]["b"]),
+                                   err_msg=name, **tol)
+    assert att.V.weight.grad is None and att.Wout.weight.grad is None
+
+
+def test_train_rhs_matches_graphax_train_route(monkeypatch):
+    """graphax's RHS under a train fstate with FORCE (fast_attention: its
+    Pallas forward with residuals and backward, interpreted) against the
+    port's training route: the value and the gradients of x, alpha, beta,
+    Q and K."""
+    monkeypatch.setattr(pallas_tiled, "FORCE", True)
+    gx, pt = make_graphs(seed=26)
+    d = 6
+    gcfg, cfg = _cfgs(hidden_dim=d, add_source=True)
+    f = gx_get_function(gcfg, d)
+    params = f.init(jax.random.PRNGKey(1))
+    params["att"], _ = random_attention(gcfg, cfg, d, seed=27)
+    params["alpha_train"] = jnp.asarray(0.4)
+    params["beta_train"] = jnp.asarray(-0.3)
+    rng = np.random.RandomState(28)
+    x = rng.randn(gx.num_nodes, d).astype(np.float32)
+    probe = rng.randn(gx.num_nodes, d).astype(np.float32)
+    fs = gx_make_fstate(gx, jnp.asarray(x), train=True, cfg=gcfg)
+    assert fs.fast_attention
+
+    def loss(pp, xx):
+        return jnp.sum(f.rhs(gx_prepare_scalars(pp, gcfg, jnp.float32), fs,
+                             0.0, xx) * probe)
+
+    want = f.rhs(gx_prepare_scalars(params, gcfg, jnp.float32), fs, 0.0,
+                 jnp.asarray(x))
+    gp, gxx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+
+    func = get_function(cfg, d)
+    load_graphax_params(func, jax.tree_util.tree_map(np.asarray, params))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    fst = make_fstate(pt, xt, train=True, cfg=cfg)
+    assert fst.fast_attention
+    assert not make_fstate(pt, xt, train=True,
+                           cfg=cfg.replace(square_plus=True)).fast_attention
+    alpha, beta = prepare_scalars(func, cfg, xt.dtype)
+    got = func.rhs(alpha, beta, fst, 0.0, xt)
+    (got * torch.from_numpy(probe)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), _np(want), **F32)
+    np.testing.assert_allclose(xt.grad.numpy(), _np(gxx), **F32)
+    for k in ("alpha_train", "beta_train"):
+        np.testing.assert_allclose(float(getattr(func, k).grad),
+                                   float(gp[k]), err_msg=k, **F32)
+    for name in ("Q", "K"):
+        lin = getattr(func.att, name)
+        np.testing.assert_allclose(lin.weight.grad.numpy(),
+                                   _np(gp["att"][name]["w"]).T, err_msg=name,
+                                   **F32)
+        np.testing.assert_allclose(lin.bias.grad.numpy(),
+                                   _np(gp["att"][name]["b"]), err_msg=name,
+                                   **F32)
+
+
+# ----------------------------------------------------------------------
 # what raises
 # ----------------------------------------------------------------------
 
@@ -367,12 +532,63 @@ def _small_trainer(**over):
     return Trainer(cfg, data, device="cpu")
 
 
+def _train_trainer(adjoint: bool, **over):
+    tr = _small_trainer(adjoint=adjoint, adjoint_method="rk4", lr=0.05,
+                        **over)
+    gen = torch.Generator().manual_seed(3)
+    att = tr.model.block.func.att
+    with torch.no_grad():
+        for lin in (att.Q, att.K):
+            lin.weight.copy_(0.3 * torch.randn(lin.weight.shape,
+                                               generator=gen))
+            lin.bias.copy_(0.1 * torch.randn(lin.bias.shape, generator=gen))
+    return tr
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_training_steps(monkeypatch, adjoint):
+    """Three train steps: finite, decreasing loss, gradients at Q and K;
+    under the adjoint each training kernel once per backward NFE (flash
+    serves the forward solve)."""
+    calls = {}
+    for name in ("attention_fwd_res", "attention_bwd_rows",
+                 "attention_bwd_cols", "flash_attention"):
+        real = getattr(fa, name)
+
+        def counting(*a, _real=real, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(fa, name, counting)
+    tr = _train_trainer(adjoint)
+    losses = []
+    for _ in range(3):
+        calls.clear()
+        losses.append(tr.train_step())
+        if adjoint:
+            nfe, bwd = tr.fm.get_value(), tr.bm.get_value()
+            assert calls == {"flash_attention": nfe, "attention_fwd_res": bwd,
+                             "attention_bwd_rows": bwd,
+                             "attention_bwd_cols": bwd}, calls
+    assert all(np.isfinite(losses)) and losses[0] > losses[1] > losses[2]
+    att = tr.model.block.func.att
+    for lin in (att.Q, att.K):
+        assert float(lin.weight.grad.abs().max()) > 0
+    assert att.V.weight.grad is None or not att.V.weight.grad.any()
+
+
 @pytest.mark.parametrize("adjoint", [False, True])
 def test_training_raises(adjoint):
-    tr = _small_trainer(adjoint=adjoint, adjoint_method="rk4")
-    assert all(0.0 <= a <= 1.0 for a in tr.evaluate())
-    with pytest.raises(NotImplementedError, match="Queue 2b"):
-        tr.train_step()
+    """Training configs outside the hand-written backward raise, naming
+    their ROADMAP item; their evaluation runs (but for column
+    normalisation, whose RHS is not ported)."""
+    for over in (dict(square_plus=True), dict(attention_type="cosine_sim"),
+                 dict(reweight_attention=True), dict(attention_norm_idx=1)):
+        tr = _small_trainer(adjoint=adjoint, adjoint_method="rk4", **over)
+        if "attention_norm_idx" not in over:
+            assert all(0.0 <= a <= 1.0 for a in tr.evaluate())
+        with pytest.raises(NotImplementedError, match="Queue 2b, item 2"):
+            tr.train_step()
 
 
 @pytest.mark.parametrize("over,err", [
