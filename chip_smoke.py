@@ -11,6 +11,8 @@ and prints no result):
 3. data: the synthetic ogbn-arxiv graph, and the Trainers of both paths:
    the preset as published (``community_window=512``: community reorder and
    the windowed layout, printed) and the earlier ``community_window=0``;
+   the Computers and Photo stand-ins (13,381 and 7,487 nodes, the dense
+   strategy) and their presets' Trainers;
 4. kernels: every kernel against its plain PyTorch version at the shapes
    its path gives it (the sparse graph for spmm_csr, sddmm and the pin; the
    windowed layout, T=1323, tile 128, W=512, Wn=331, D=162, and a small odd
@@ -23,7 +25,12 @@ and prints no result):
    arxiv CSR and CSC with the model's own q, Wk and bk and a cotangent from
    a seed, and on a small graph with duplicate edges, a one-edge row and
    empty rows; the training route's gradients against autograd through the
-   plain per-edge path), in f32 and bf16, with its error beside the stated
+   plain per-edge path; the dense strategy's masked flash kernel,
+   flash_dense, on the Computers stand-in's mask with GRAND-nl's own q and
+   k at Computers' widths, N = 13,381, H = 4, dk = 16, D = 128, beside PR 4's
+   CSR flash on the same graph and function, and on small graphs with
+   empty rows and an N off the tile), in f32 and bf16, with its error
+   beside the stated
    tolerance, its median time, the plain version's time, its bound and a
    PyTorch call as a yardstick where one computes the same function; then
    one line naming every ported kernel;
@@ -39,13 +46,23 @@ and prints no result):
    trained, ``fit(3 epochs)`` (adjoint rk4; random Q/K drawn at every
    ``init_state``), each step's launches (each training kernel once per
    adjoint NFE, flash once per forward NFE), the gradients at Q and K;
+   every ``fit`` with its defaults, so each epoch's evaluation is the
+   early-stop one (to ``earlystopxT * T``); then ``Trainer(best_config(
+   "Computers")).fit`` and the same for ``"Photo"`` on their stand-ins (the
+   dense strategy, the pin, the adjoint with the [N, N] operator's a_p for
+   Computers' dopri5), and GRAND-nl's dense evaluation
+   (``best_config("Computers", function="transformer", block="constant")``,
+   random Q/K) three times, flash_dense once per NFE;
 6. breakdown: one more train step of the windowed path, one GRAND-nl
-   evaluation and one GRAND-nl train step, under torch.profiler, time by
-   span (forward solve, adjoint, optimizer) and by kernel;
-7. reference: small graphs (sparse, and windowed) trained from the same
-   weights on the card and on the CPU must agree step by step, small
-   GRAND-nl evaluations must give the same logits and NFE, and a small
-   GRAND-nl trained 3 steps the same losses (and in f32 NFE).
+   evaluation and one GRAND-nl train step, one Computers train step and
+   early-stop evaluation, one GRAND-nl dense evaluation, under
+   torch.profiler, time by span (forward solve, adjoint, optimizer) and by
+   kernel;
+7. reference: small graphs (sparse, windowed and dense) trained from the
+   same weights on the card and on the CPU must agree step by step, small
+   GRAND-nl evaluations must give the same logits and NFE (on a dense
+   graph above K6's gate too), and a small GRAND-nl trained 3 steps the
+   same losses (and in f32 NFE).
 
 Then the kernels line (launches summed over the paths of phase 5), the
 card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Needs
@@ -87,6 +104,12 @@ TOL_EXACT = (0.0, 0.0)
 TOL_KPROJ = (1e-4, 1e-5)
 TOL_GMAX = (1e-6, 1e-6)
 TOL_FLASH = {"float32": (2e-5, 2e-4), "bfloat16": (2e-3, 2e-2)}
+# PR 4's CSR flash against the head mean of flash_dense on the same graph:
+# in f32 the same function to rounding; in bf16 the two round at different
+# points (rnd(x * rnd(e)) with the row's final max, against rnd(p) with a
+# running max and each head's output rounded before the mean)
+TOL_DENSE_VS_CSR = {"float32": TOL_FLASH["float32"],
+                    "bfloat16": (2e-2, 2e-2)}
 # the small GRAND-nl evaluation on the card against the CPU: f32 logits,
 # and bf16 logits (rounded weights at the margin, through ~30 NFE)
 TOL_NL_REF = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -771,8 +794,7 @@ def phase_train_kernels(trainer, results: dict) -> None:
 def nl_trainer(cfg, data, qk_seed: int = 11, device=None):
     """``Trainer(cfg, data)`` of GRAND-nl whose every ``init_state`` (fit
     calls it first) draws random Q/K by :func:`randomize_attention`, and
-    which keeps each train step's kernel launches and each evaluation's
-    NFE."""
+    which keeps each train step's kernel launches."""
     from graphax_torch import Trainer
     from graphax_torch.kernels import _build
 
@@ -789,55 +811,50 @@ def nl_trainer(cfg, data, qk_seed: int = 11, device=None):
                  if v != before.get(k, 0)})
             return out
 
-        def evaluate(self):
-            accs = super().evaluate()
-            self.eval_nfe.append(self.last_eval.nfe)
-            return accs
-
     tr = SmokeTrainer(cfg, data, device=device)
-    tr.step_launches, tr.eval_nfe = [], []
+    tr.step_launches = []
     return tr
 
 
 def phase_grand_nl_train(trainer, epochs: int) -> dict:
-    """``trainer.fit(epochs)`` of GRAND-nl, the launch counts zeroed before
-    and read after: per train step the residual forward and both backward
-    kernels once per adjoint NFE, flash once per forward NFE; flash once
-    per NFE of each evaluation. Finite losses, solver success, nonzero
-    gradients at Q and K. Returns the launches."""
+    """``trainer.fit(epochs)`` of GRAND-nl with fit's defaults (the
+    early-stop evaluation), the launch counts zeroed before and read after:
+    per train step the residual forward and both backward kernels once per
+    adjoint NFE, flash once per forward NFE; flash once per NFE of each
+    evaluation. Finite losses, solver success, nonzero gradients at Q and
+    K. Returns the launches."""
     import torch
 
     from graphax_torch.kernels import _build
 
     trainer.step_launches.clear()
-    trainer.eval_nfe.clear()
     _build.LAUNCHES.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fit = trainer.fit(epochs=epochs, use_early_stop=False)
+    fit = trainer.fit(epochs=epochs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(_build.LAUNCHES)
-    hist = fit["history"]
-    for h, st, ev in zip(hist, trainer.step_launches, trainer.eval_nfe):
-        emit({"phase": "slice", "path": "grand_nl_train", **h,
-              "eval_nfe": ev, "step_launches": st})
-        check(math.isfinite(h["loss"]) and bool(h["success"]),
+    hist, solver = fit["history"], fit["solver"]
+    for h, sv, st in zip(hist, solver, trainer.step_launches):
+        emit({"phase": "slice", "path": "grand_nl_train", **h, **sv,
+              "step_launches": st})
+        check(math.isfinite(h["loss"]) and bool(sv["success"]),
               f"GRAND-nl epoch {h['epoch']}: loss {h['loss']}, success "
-              f"{h['success']}")
+              f"{sv['success']}")
         for k in ("attention_fwd_res", "attention_bwd_rows",
                   "attention_bwd_cols"):
-            check(st.get(k, 0) == h["bwd_nfe"] > 0,
+            check(st.get(k, 0) == sv["bwd_nfe"] > 0,
                   f"GRAND-nl epoch {h['epoch']}: {k} launched "
-                  f"{st.get(k, 0)} times in a step of {h['bwd_nfe']} "
+                  f"{st.get(k, 0)} times in a step of {sv['bwd_nfe']} "
                   "adjoint NFE")
         check(st.get("flash_attention", 0) == h["nfe"],
               f"GRAND-nl epoch {h['epoch']}: flash launched "
               f"{st.get('flash_attention', 0)} times in a forward solve of "
               f"{h['nfe']} NFE")
     nfe = sum(h["nfe"] for h in hist)
-    bwd = sum(h["bwd_nfe"] for h in hist)
-    ev = sum(trainer.eval_nfe)
+    bwd = sum(sv["bwd_nfe"] for sv in solver)
+    ev = sum(sv["eval_nfe"] for sv in solver)
     check(counts.get("flash_attention", 0) == nfe + ev,
           f"GRAND-nl: flash launched {counts.get('flash_attention', 0)} "
           f"times for {nfe} forward and {ev} evaluation NFE")
@@ -860,11 +877,14 @@ def phase_grand_nl_train(trainer, epochs: int) -> dict:
     return counts
 
 
-def phase_grand_nl(trainer, label: str, evals: int) -> dict:
+def phase_grand_nl(trainer, label: str, evals: int,
+                   per_nfe=("flash_attention", "attention_kproj")) -> dict:
     """``Trainer.evaluate()`` of GRAND-nl ``evals`` times, the launch counts
-    zeroed before each and read after it: flash and kproj once per forward
-    NFE, gmax once per NFE with squareplus. Then one RHS evaluation timed
-    alone and the logits checked finite. Returns the launches summed."""
+    zeroed before each and read after it: each kernel of ``per_nfe`` once
+    per forward NFE (flash and kproj on a sparse graph, flash_dense on a
+    dense one), gmax once per NFE with squareplus. Then one RHS evaluation
+    timed alone and the logits checked finite. Returns the launches
+    summed."""
     import torch
 
     from graphax_torch.blocks.common import make_fstate
@@ -890,7 +910,7 @@ def phase_grand_nl(trainer, label: str, evals: int) -> dict:
         check(bool(res.success), f"{label} evaluation {i + 1}: solver failed")
         check(bool(torch.isfinite(res.y).all()),
               f"{label} evaluation {i + 1}: state not finite")
-        for k in ("flash_attention", "attention_kproj"):
+        for k in per_nfe:
             check(counts.get(k, 0) == res.nfe,
                   f"{label}: {k} launched {counts.get(k, 0)} times in an "
                   f"evaluation of {res.nfe} NFE")
@@ -905,7 +925,7 @@ def phase_grand_nl(trainer, label: str, evals: int) -> dict:
     with torch.no_grad():
         x0 = model.encode(trainer.data.x, train=False).to(
             getattr(torch, cfg.dtype))
-        fs = make_fstate(g, x0, train=False)
+        fs = make_fstate(g, x0, train=False, cfg=cfg)
         alpha, beta = prepare_scalars(model.block.func, cfg, x0.dtype)
         rhs_ms = time_ms(lambda: model.block.func.rhs(alpha, beta, fs, 0.0,
                                                       x0))
@@ -1003,6 +1023,218 @@ def phase_reference_nl_train() -> dict:
             check([c[1:] for c in got["cuda"]] == [p[1:] for p in got["cpu"]],
                   f"GRAND-nl training reference: NFE differ {row}")
     return {"grand_nl_train": out}
+
+
+def phase_dense_kernels(trainer, results: dict) -> None:
+    """GRAND-nl's masked flash kernel (K6) against its plain version at the
+    dense evaluation's shapes: the Computers stand-in's adjacency mask
+    (N = 13,381), the model's own q and k on its encoded state (random
+    Q/K, H = 4, dk = 16), x of D = 128, in f32 (the preset's dtype) and
+    bf16. Beside its time: the bound, the plain version's, one
+    ``scaled_dot_product_attention`` with the boolean mask (a library call
+    computing the same function here: the graph has self-loops, so no row
+    is empty; timed, never used by the port), and PR 4's CSR
+    ``flash_attention`` computing the head mean of the same function over
+    the same graph. Then a small graph with empty rows and an N off the
+    tile in both dtypes."""
+    import torch
+
+    from graphax_torch.functions.transformer import _split_heads
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels.dense_path import dense_adjacency_mask
+    from graphax_torch.kernels.flash_dense import (
+        flash_attention_multihead, flash_attention_multihead_plain,
+    )
+    from graphax_torch.utils.params import linear_apply
+
+    g, cfg = trainer.data.graph, trainer.cfg
+    att = trainer.model.block.func.att
+    n, heads = g.num_nodes, cfg.heads
+    trainer.model.eval()
+    with torch.no_grad():
+        x_enc = trainer.model.encode(trainer.data.x, train=False)
+        q = _split_heads(linear_apply(att.Q, x_enc), heads)
+        k = _split_heads(linear_apply(att.K, x_enc), heads).contiguous()
+    dk, d = q.shape[-1], x_enc.shape[1]
+    q = (q / math.sqrt(dk)).contiguous()
+    mask = dense_adjacency_mask(g)
+    live = int(mask.sum())            # the mask's set entries
+    emit({"phase": "kernels", "path": "grand_nl_dense", "N": n,
+          "E": g.num_edges, "live": live, "D": d, "H": heads, "dk": dk,
+          "mask_density": live / n ** 2})
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        b = torch.finfo(dt).bits // 8
+        x = x_enc.to(dt).contiguous()
+        # SDPA's inputs: q, k in x's dtype, x shared by the heads
+        q4, k4 = (t.transpose(0, 1)[None].to(dt) for t in (q, k))
+        v4 = x[None, None].expand(1, heads, n, d)
+        with torch.no_grad():
+            row = dict(kernel="flash_dense", path="grand_nl_dense",
+                       dtype=name)
+            hold_to_plain(
+                results, row,
+                lambda: flash_attention_multihead(q, k, x, mask),
+                lambda: flash_attention_multihead_plain(q, k, x, mask),
+                TOL_FLASH[name],
+                # the mask, q and k (f32), x, the [H, N, D] output; the
+                # function's operations are those of the set entries (q.k
+                # and p.x per head), not of the dense [N, N] the kernel walks
+                n * n + 2 * 4 * n * heads * dk + n * d * b
+                + heads * n * d * b,
+                heads * 2.0 * live * (dk + d),
+                ("torch.nn.functional.scaled_dot_product_attention with "
+                 "the boolean mask",
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q4, k4, v4, attn_mask=mask, scale=1.0)))
+            # PR 4's CSR flash kernel on the same graph: the head mean of
+            # the same attention, from the same q and keys
+            qc = q.reshape(n, heads * dk).to(dt).contiguous()
+            kc = k.reshape(n, heads * dk).contiguous()
+            got = fa.flash_attention(g.csr, qc, x, kc, None, None,
+                                     "scaled_dot", heads)
+            ref = flash_attention_multihead(q, k, x, mask).float().mean(0)
+            c = compare(got, ref, TOL_DENSE_VS_CSR[name])
+            row = results[("flash_dense", name)]
+            row["csr_flash_attention_ms"] = time_ms(
+                lambda: fa.flash_attention(g.csr, qc, x, kc, None, None,
+                                           "scaled_dot", heads))
+            row["csr_flash_attention_max_abs_err"] = c["max_abs_err"]
+            emit({"phase": "kernels", "kernel": "flash_attention (CSR)",
+                  "path": "grand_nl_dense", "dtype": name,
+                  "against": "flash_dense's head mean", **c,
+                  "ms": row["csr_flash_attention_ms"]})
+            check(c["ok"], f"CSR flash and flash_dense {name} disagree")
+        del x, q4, k4, v4, qc, kc
+        torch.cuda.empty_cache()
+
+    # a small graph: N off the 64-row tile, rows without an edge
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst = {}
+    for n_s, h_s, dk_s, d_s in ((300, 2, 4, 8), (1001, 4, 16, 128)):
+        mask_s = torch.rand(n_s, n_s, generator=gen, device="cuda") < 6 / n_s
+        mask_s.fill_diagonal_(True)
+        mask_s[-3:] = False
+        q_s, k_s = (0.5 * torch.randn(n_s, h_s, dk_s, generator=gen,
+                                      device="cuda") for _ in range(2))
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            x_s = torch.randn(n_s, d_s, generator=gen, device="cuda").to(dt)
+            with torch.no_grad():
+                got = flash_attention_multihead(q_s, k_s, x_s, mask_s)
+                c = compare(got, flash_attention_multihead_plain(
+                    q_s, k_s, x_s, mask_s), TOL_FLASH[name])
+            check(c["ok"] and bool((got[:, -3:] == 0).all()),
+                  f"flash_dense small N={n_s} {name} disagrees with plain")
+            worst[name] = max(worst.get(name, 0.0), c["max_abs_err"])
+    emit({"phase": "kernels", "kernel": "flash_dense", "graph": "small",
+          "cases": 4, "max_abs_err": worst, "ok": True})
+
+
+def phase_dense_fit(label: str, trainer, epochs: int) -> dict:
+    """``trainer.fit(epochs)`` of a dense-strategy preset with fit's
+    defaults (the early-stop evaluation), its launches zeroed before and
+    read after: per epoch the loss, seconds, NFE, backward NFE, the
+    early-stop evaluation's NFE and the best time; finite losses, solver
+    success, and the hard block's pin (attention_pin) launched in the train
+    and evaluation forwards. Returns the launches."""
+    import torch
+
+    from graphax_torch.kernels import _build
+
+    _build.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit = trainer.fit(epochs=epochs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    for h, sv in zip(fit["history"], fit["solver"]):
+        emit({"phase": "slice", "path": label, **h, **sv})
+        check(math.isfinite(h["loss"]) and bool(sv["success"]),
+              f"{label} epoch {h['epoch']}: loss {h['loss']}, success "
+              f"{sv['success']}")
+        check(sv["bwd_nfe"] > 0 and sv["eval_nfe"] > 0,
+              f"{label} epoch {h['epoch']}: no adjoint or evaluation NFE")
+    check(counts.get("attention_pin", 0) == 2 * epochs,
+          f"{label}: attention_pin launched {counts.get('attention_pin', 0)}"
+          f" times in {epochs} epochs (one train and one evaluation "
+          "forward each)")
+    times = [h["time"] for h in fit["history"]]
+    emit({"phase": "slice", "path": label, "strategy":
+          trainer.data.graph.strategy, "seconds": seconds,
+          "epoch_seconds": times,
+          "steady_epoch_seconds": min(times[1:]) if len(times) > 1
+          else times[0], "launches": counts, "best": fit["best"],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return counts
+
+
+def phase_reference_dense() -> dict:
+    """Small dense graphs from the same weights on the card and on the CPU:
+    the Computers preset at toy width (16 hidden, 2 heads of 4, no
+    dropout) trained 3 steps, losses within 1e-4; and GRAND-nl (the
+    Computers config as a constant block with the transformer RHS, 4 heads
+    of 4, tolerances of the arxiv preset) evaluated on a 4,200-node graph,
+    above K6's gate, so that the card runs flash_dense where the CPU runs
+    the materialised attention: f32 logits within TOL_NL_REF, NFE equal."""
+    import torch
+
+    from graphax_torch import Trainer, best_config, make_sbm_dataset
+    from graphax_torch.kernels import _build
+
+    out = {}
+    cfg = best_config("Computers", hidden_dim=16, heads=2, attention_dim=8,
+                      input_dropout=0.0, dropout=0.0)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        data = make_sbm_dataset(num_nodes=400, num_classes=4,
+                                num_features=32, seed=0, device=dev)
+        tr = Trainer(cfg, data, device=dev)
+        check(tr.data.graph.strategy == "dense", "reference graph not dense")
+        gen = torch.Generator().manual_seed(7)
+        with torch.no_grad():
+            for lin in (tr.model.block.att_layer.Q,
+                        tr.model.block.att_layer.K):
+                lin.weight.copy_(0.4 * torch.randn(lin.weight.shape,
+                                                   generator=gen))
+        got[dev] = [(tr.train_step(), tr.fm.get_value(), tr.bm.get_value())
+                    for _ in range(3)]
+    err = max(abs(c[0] - p[0]) / max(1.0, abs(p[0]))
+              for c, p in zip(got["cuda"], got["cpu"]))
+    out["computers"] = {"cuda": got["cuda"], "cpu": got["cpu"],
+                        "max_rel_loss_err": err, "tol": 1e-4}
+    check(all(math.isfinite(c[0]) for c in got["cuda"]) and err <= 1e-4,
+          f"dense reference: losses disagree {out['computers']}")
+
+    cfg = best_config("Computers", function="transformer", block="constant",
+                      hidden_dim=16, heads=4, attention_dim=16,
+                      input_dropout=0.0, dropout=0.0, tol_scale=11353.6)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        data = make_sbm_dataset(num_nodes=4200, num_classes=4,
+                                num_features=32, seed=0, device=dev)
+        tr = Trainer(cfg, data, device=dev)
+        randomize_attention(tr.model.block.func.att, 7)
+        tr.model.eval()
+        _build.LAUNCHES.clear()
+        with torch.no_grad():
+            logits, o = tr.model(tr.data.graph, tr.data.x, train=False)
+        got[dev] = (logits.float().cpu(), o.result.nfe,
+                    _build.LAUNCHES.get("flash_dense", 0))
+    err = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+    out["grand_nl_dense"] = {"N": 4200, "max_abs_err": err,
+                             "tol": TOL_NL_REF["float32"],
+                             "nfe_cuda": got["cuda"][1],
+                             "nfe_cpu": got["cpu"][1],
+                             "flash_dense_launches_cuda": got["cuda"][2]}
+    check(math.isfinite(err) and err <= TOL_NL_REF["float32"],
+          f"GRAND-nl dense reference: logits disagree {out}")
+    check(got["cuda"][1] == got["cpu"][1],
+          f"GRAND-nl dense reference: NFE differ {out}")
+    check(got["cuda"][2] == got["cuda"][1] and got["cpu"][2] == 0,
+          f"GRAND-nl dense reference: flash_dense launches {out}")
+    return out
 
 
 def phase_breakdown(steps) -> dict:
@@ -1157,6 +1389,27 @@ def main(argv=None) -> int:
           "the GRAND-nl graph is not sparse")
     randomize_attention(trainer_nl.model.block.func.att, 11)
     trainer_nlt = nl_trainer(cfg_nl, data)
+    # the dense strategy: Computers and Photo as published, and GRAND-nl
+    # evaluated at Computers' widths (constant block, transformer RHS)
+    dense = {}
+    for name in ("Computers", "Photo"):
+        t0 = time.perf_counter()
+        d_ = get_dataset(name)
+        tr_ = Trainer(best_config(name), d_)
+        torch.cuda.synchronize()
+        check(tr_.data.graph.strategy == "dense",
+              f"the {name} graph is {tr_.data.graph.strategy}, not dense")
+        emit({"phase": "data", "dataset": name, "seconds":
+              time.perf_counter() - t0, "num_nodes": d_.num_nodes,
+              "num_edges": d_.graph.num_edges,
+              "num_features": d_.num_features,
+              "num_classes": d_.num_classes,
+              "state_dim": tr_.model.state_dim, "dtype": tr_.cfg.dtype,
+              "strategy": "dense"})
+        dense[name] = (d_, tr_)
+    trainer_nld = Trainer(best_config("Computers", function="transformer",
+                                      block="constant"), dense["Computers"][0])
+    randomize_attention(trainer_nld.model.block.func.att, 11)
 
     # 4. kernels against their plain versions
     results: dict = {}
@@ -1164,6 +1417,7 @@ def main(argv=None) -> int:
     phase_windowed_kernels(graph, results)
     phase_flash_kernels(trainer_nl, results)
     phase_train_kernels(trainer_nl, results)
+    phase_dense_kernels(trainer_nld, results)
     emit({"phase": "kernels",
           "ported": list(dict.fromkeys(k[0] for k in results))})
 
@@ -1174,21 +1428,21 @@ def main(argv=None) -> int:
         _build.LAUNCHES.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        fit = tr.fit(epochs=args.epochs, use_early_stop=False)
+        fit = tr.fit(epochs=args.epochs)
         torch.cuda.synchronize()
         counts = dict(_build.LAUNCHES)
-        for h in fit["history"]:
-            emit({"phase": "slice", "path": label, **h})
+        for h, sv in zip(fit["history"], fit["solver"]):
+            emit({"phase": "slice", "path": label, **h, **sv})
         epoch_s[label] = [h["time"] for h in fit["history"]]
         emit({"phase": "slice", "path": label,
               "community_window": tr.cfg.community_window,
               "seconds": time.perf_counter() - t0, "launches": counts,
               "best": fit["best"],
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-        for h in fit["history"]:
+        for h, sv in zip(fit["history"], fit["solver"]):
             check(math.isfinite(h["loss"]),
                   f"{label} epoch {h['epoch']}: loss not finite")
-            check(bool(h["success"]),
+            check(bool(sv["success"]),
                   f"{label} epoch {h['epoch']}: solver failed")
             for k in ("train_acc", "val_acc", "test_acc"):
                 check(0.0 <= h[k] <= 1.0,
@@ -1218,6 +1472,14 @@ def main(argv=None) -> int:
     # GRAND-nl trained: fit, adjoint rk4 through the training kernels
     for k, v in phase_grand_nl_train(trainer_nlt, args.epochs).items():
         launches[k] = launches.get(k, 0) + v
+    # the dense strategy: Computers and Photo through fit's defaults, then
+    # GRAND-nl's dense evaluation through flash_dense
+    for name, (_, tr_) in dense.items():
+        for k, v in phase_dense_fit(name, tr_, args.epochs).items():
+            launches[k] = launches.get(k, 0) + v
+    for k, v in phase_grand_nl(trainer_nld, "grand_nl_dense", 3,
+                               per_nfe=("flash_dense",)).items():
+        launches[k] = launches.get(k, 0) + v
 
     # 6. where the time goes, on the windowed path
     emit({"phase": "breakdown", "path": "windowed",
@@ -1228,12 +1490,21 @@ def main(argv=None) -> int:
     emit({"phase": "breakdown", "path": "grand_nl_train",
           **phase_breakdown([("graphax_torch.train_step",
                               trainer_nlt.train_step)])})
+    tr_c = dense["Computers"][1]
+    emit({"phase": "breakdown", "path": "Computers",
+          **phase_breakdown([("graphax_torch.train_step", tr_c.train_step),
+                             ("graphax_torch.evaluate",
+                              tr_c.evaluate_early)])})
+    emit({"phase": "breakdown", "path": "grand_nl_dense",
+          **phase_breakdown([("graphax_torch.evaluate",
+                              trainer_nld.evaluate)])})
 
     # 7. small references: the card against the CPU
     emit({"phase": "reference", **phase_reference()})
     emit({"phase": "reference", **phase_reference(window=64)})
     emit({"phase": "reference", **phase_reference_nl()})
     emit({"phase": "reference", **phase_reference_nl_train()})
+    emit({"phase": "reference", **phase_reference_dense()})
 
     # the kernels line: times from phase 4 at the main path's shapes and
     # dtype (bf16); spmm_csr's at the residual edges, with its whole-graph
@@ -1277,7 +1548,10 @@ def main(argv=None) -> int:
               "graphax/kernels/pallas_attention.py:576"),
              ("attention_bwd_cols", ("attention_bwd_cols", "bfloat16"),
               "graphax_torch/kernels/csrc/fused_attention.cu",
-              "graphax/kernels/pallas_attention.py:727"))
+              "graphax/kernels/pallas_attention.py:727"),
+             ("flash_dense", ("flash_dense", "float32"),
+              "graphax_torch/kernels/csrc/flash_dense.cu",
+              "graphax/kernels/pallas_ops.py:27"))
     for name, key, src, repl in specs:
         r = results[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -1285,7 +1559,7 @@ def main(argv=None) -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "dtype": "bfloat16"})
+                        "library_ms": r["library_ms"], "dtype": key[1]})
     whole = results[("spmm_csr", "bfloat16", "A.x")]
     kernels[0]["community_window_0"] = {
         k: whole[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1308,6 +1582,15 @@ def main(argv=None) -> int:
     kernels[10]["variant"] = ("K1 + K2 + K3 with residuals: the training "
                               "forward, scores/shift/denominator kept")
     kernels[11]["also_replaces"] = "graphax/kernels/pallas_attention.py:659"
+    fd = results[("flash_dense", "bfloat16")]
+    kernels[13]["library"] = results[("flash_dense", "float32")].get(
+        "library")
+    kernels[13]["csr_flash_attention_ms"] = results[
+        ("flash_dense", "float32")]["csr_flash_attention_ms"]
+    kernels[13]["bfloat16"] = {
+        k: fd.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms",
+                               "csr_flash_attention_ms")}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

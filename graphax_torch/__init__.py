@@ -7,7 +7,7 @@ the card unless the caller passes ``device="cpu"``.
 
     from graphax_torch import Trainer, best_config, get_dataset
     cfg = best_config("ogbn-arxiv")
-    Trainer(cfg, get_dataset(cfg)).fit(epochs=3, use_early_stop=False)
+    Trainer(cfg, get_dataset(cfg)).fit(epochs=3)
 """
 
 from graphax_torch.data import GraphData, get_dataset, make_sbm_dataset

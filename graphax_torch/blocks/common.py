@@ -16,7 +16,8 @@ from graphax_torch.functions.transformer import (
 from graphax_torch.kernels.fused_attention import train_supported
 from graphax_torch.kernels.spmm import transpose_values
 from graphax_torch.kernels.windowed_spmm import densify_windows
-from graphax_torch.ode import ODEResult, odeint, odeint_adjoint
+from graphax_torch.kernels.dense_path import dense_adjacency_mask, densify
+from graphax_torch.ode import ODEResult, Observer, odeint, odeint_adjoint
 from graphax_torch.ode.solvers import FIXED_STEP_METHODS
 from graphax_torch.sparse.graph import Graph
 from graphax_torch.sparse.ops import gcn_norm_weights, rw_norm_weights
@@ -53,6 +54,9 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
                 train: bool, cfg=None) -> FuncState:
     """The per-forward FuncState: edge values cast to the state dtype and
     permuted to the CSC order once here, not at every solver evaluation.
+    On a dense graph the values become the ``[N, N]`` operator here, once
+    per forward (`graphax/blocks/common.py:64-68`), or for the transformer
+    RHS the adjacency mask.
     On a windowed graph (`graphax/blocks/common.py:76-100`) the in-window
     values become the dense blocks here, and the residual values go in its
     CSR and CSC slot orders. ``fast_attention`` is set on a sparse graph
@@ -61,6 +65,15 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
     (`:116-131`, graphax's `pallas_bwd_supported`)."""
     values = graph.edge_weight if attention is None else attention
     pinned = attention is not None
+    if graph.strategy == "dense":
+        if cfg is not None and cfg.function == "transformer":
+            # GRAND-nl reads the adjacency mask at every evaluation, not an
+            # operator (graphax densifies the weights here all the same)
+            return FuncState(graph=graph, x0=x.detach(), pinned=pinned,
+                             mask=dense_adjacency_mask(graph),
+                             fast_attention=not train)
+        return FuncState(graph=graph, x0=x.detach(),
+                         dense=densify(graph, values), pinned=pinned)
     if graph.strategy == "windowed":
         wl = graph.windows
         v = values.to(x.dtype)
@@ -69,8 +82,6 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
                          wb_t=v[wl.residual_t.perm].contiguous(),
                          dense=densify_windows(values, wl, x.dtype),
                          pinned=pinned)
-    if graph.strategy != "sparse":
-        raise NotImplementedError(f"strategy {graph.strategy!r} is not ported")
     wb = values.to(x.dtype).contiguous()
     train_ok = train and cfg is not None and x.dim() == 2 \
         and train_supported(cfg, x.shape[1])
@@ -80,18 +91,21 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
 
 
 def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
-              t1: Optional[float] = None) -> BlockOutput:
+              t1: Optional[float] = None, observer: Optional[Observer] = None,
+              max_steps: Optional[int] = None) -> BlockOutput:
     """Run the solve as the reference blocks invoke torchdiffeq
     (`src/block_constant.py:27-58`): the adjoint integrator when
     ``cfg.adjoint and train``, the plain one otherwise (autograd through the
-    accepted steps when gradients are enabled)."""
+    accepted steps when gradients are enabled). ``observer`` is seen on the
+    plain path only (the early-stop evaluation), as in graphax."""
     if train and cfg.reg_coeffs():
         raise NotImplementedError("regularised RHS are not ported yet "
                                   "(ROADMAP Queue 1, M8)")
     t_end = float(cfg.time if t1 is None else t1)
     alpha, beta = prepare_scalars(func, cfg, x.dtype)
     common = dict(method=cfg.method, rtol=cfg.rtol, atol=cfg.atol,
-                  step_size=cfg.step_size, max_nfe=cfg.max_nfe)
+                  step_size=cfg.step_size, max_nfe=cfg.max_nfe,
+                  max_steps=max_steps)
     g = fstate.graph
     if cfg.adjoint and train:
         adaptive = cfg.adjoint_method not in FIXED_STEP_METHODS
@@ -107,7 +121,10 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
         # the RHS module's parameters it does not track (alpha_train and
         # beta_train, which the RHS reads only as alpha and beta above; the
         # attention layer's V and Wout), and the edge weights where the RHS
-        # does not read them (pinned attention, the transformer).
+        # does not read them (pinned attention, the transformer). On a dense
+        # graph it holds dense_adj, the [N, N] operator, whose a_p the port
+        # integrates in f32 as well, and the edge weights and a pin's
+        # attention stay zero (the RHS reads only the operator).
         zero = sum(p.numel() for p in func.parameters())
         if isinstance(func, TransformerFunction):
             func.check_route(fstate, x)
@@ -119,6 +136,14 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
 
             def f_adj(p, t, y):
                 return transformer_rhs(cfg, g, *p, y)
+        elif g.strategy == "dense":
+            params = (alpha, beta, fstate.x0, fstate.dense)
+            track = (True,) * len(params)
+            zero += g.edge_buffer_size * (2 if fstate.pinned else 1)
+
+            def f_adj(p, t, y):
+                return laplacian_rhs(cfg, g, *p[:3], None, None, y,
+                                     dense=p[3])
         else:
             params = (alpha, beta, fstate.x0, fstate.wb, fstate.wb_t)
             if fstate.dense is not None:
@@ -141,5 +166,5 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
     else:
         with record_function("graphax_torch.solve"):
             res = odeint(lambda t, y: func.rhs(alpha, beta, fstate, t, y), x,
-                         0.0, t_end, **common)
+                         0.0, t_end, observer=observer, **common)
     return BlockOutput(z=res.y, result=res)

@@ -57,7 +57,8 @@ class HardAttentionBlock(nn.Module):
         sums = sums.to(att.dtype)[index]
         return torch.where(keep, kept / (sums + EPS), torch.zeros_like(att))
 
-    def forward(self, graph, x, *, train: bool, t1=None) -> BlockOutput:
+    def forward(self, graph, x, *, train: bool, t1=None, observer=None,
+                max_steps=None) -> BlockOutput:
         cfg = self.cfg
         g = normalize_graph(cfg, graph)
         mask = g.edge_mask
@@ -73,4 +74,5 @@ class HardAttentionBlock(nn.Module):
                                         torch.zeros_like(mean_att))
         fstate = make_fstate(g, x, attention=edge_vals, train=train,
                              cfg=cfg)
-        return integrate(cfg, self.func, fstate, x, train=train, t1=t1)
+        return integrate(cfg, self.func, fstate, x, train=train, t1=t1,
+                         observer=observer, max_steps=max_steps)

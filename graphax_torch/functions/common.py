@@ -23,22 +23,29 @@ class FuncState:
       wb: ``[E_pad]`` edge values in the state dtype (the graph's weights
         or the attention a block pinned), built once per forward. On a
         windowed graph: the residual edges' values in its CSR slot order.
+        None on a dense graph.
       wb_t: the same values in the CSC slot order (for ``A^T g``).
       dense: on a windowed graph, the in-window values as dense
-        ``[T, tile, W]`` blocks in the state dtype; else None.
+        ``[T, tile, W]`` blocks in the state dtype; on a dense graph the
+        ``[N, N]`` operator in the values' dtype (graphax's ``dense_adj``);
+        else None.
+      mask: on a dense graph under the transformer RHS, the ``[N, N]`` bool
+        adjacency, built once per forward; else None.
       pinned: the values are attention a block pinned, not the graph's
         weights (graphax then keeps both as adjoint leaves).
       fast_attention: the transformer RHS may run its kernels: on a sparse
         graph with a 2-D state, an evaluation forward, or a training forward
         whose config the hand-written backward covers (graphax's flag,
-        `graphax/blocks/common.py:116-131`).
+        `graphax/blocks/common.py:116-131`); on a dense graph, an
+        evaluation forward.
     """
 
     graph: Graph
     x0: torch.Tensor
-    wb: torch.Tensor
-    wb_t: torch.Tensor
+    wb: torch.Tensor | None = None
+    wb_t: torch.Tensor | None = None
     dense: torch.Tensor | None = None
+    mask: torch.Tensor | None = None
     pinned: bool = False
     fast_attention: bool = False
 

@@ -14,13 +14,18 @@
   hands it detached copies): the sparse strategy's route through
   `graphax_torch.kernels.fused_attention.fused_attention_ax`, the flash
   kernels for an evaluation and the training kernels (forward with
-  residuals, row-side and column-side backward) where a gradient is needed.
+  residuals, row-side and column-side backward) where a gradient is needed;
+  the dense strategy's evaluation through `dense_rhs_ax` (:201-243), the
+  masked flash kernel (K6, `graphax_torch.kernels.flash_dense`) on the
+  card where graphax's gate holds, else the materialised
+  `dense_transformer_attention`.
 
-The Q projection is a dense matmul here, as graphax leaves it to XLA. Not
-ported yet, and raising: training configs outside the hand-written
-backward (graphax's XLA autodiff route), column normalisation in the RHS,
-the windowed attention RHS (K5), the dense strategy (K6), and Beltrami,
-mix_features and multi_modal (ROADMAP Queue 1 M6/M9, Queue 2b)."""
+The Q and K projections are dense matmuls here, as graphax leaves them to
+XLA. Not ported yet, and raising: training configs outside the
+hand-written backward (graphax's XLA autodiff route), column normalisation
+in the sparse RHS, the windowed attention RHS (K5), training on the dense
+strategy (graphax has no gradient through K6), and Beltrami, mix_features
+and multi_modal (ROADMAP Queue 1 M6/M9, Queue 2, Queue 3)."""
 
 from __future__ import annotations
 
@@ -32,9 +37,14 @@ from torch import nn
 
 from graphax_torch.functions.common import apply_alpha_beta, init_alpha_beta
 from graphax_torch.kernels.attention_pin import COS_EPS, attention_pin
+from graphax_torch.kernels.dense_path import (
+    dense_adjacency_mask, dense_matmul, dense_transformer_attention,
+    use_dense_attention,
+)
 from graphax_torch.kernels.dispatch import (
     attention_spmm_auto, segment_softmax_auto, squareplus_auto,
 )
+from graphax_torch.kernels.flash_dense import flash_attention_multihead
 from graphax_torch.kernels.fused_attention import (
     flash_supported, fused_attention_ax, prep_inputs,
 )
@@ -83,14 +93,15 @@ def attention_edge_means(att: TransformerAttention, cfg, graph, x
     On the sparse strategy it follows graphax's kernel path: q, x and Wk in
     the state dtype, the result cast to it. graphax takes that path only on
     its tiled strategy (`graphax/functions/transformer.py:175-187`); on a
-    windowed graph it pins through XLA, where ``x @ w`` promotes a bf16 x to
-    f32, so there q, x and Wk go to the kernel in f32 and the result stays
-    f32."""
+    windowed or dense graph it pins through XLA, where ``x @ w`` promotes a
+    bf16 x to f32, so there q, x and Wk go to the kernel in f32 and the
+    result stays f32 (the kernel's scores against graphax's: f32 sums in
+    another order)."""
     if not attention_means_supported(cfg):
         raise NotImplementedError(
             "the pin covers row softmax only; column or squareplus "
             "normalisation is ROADMAP Queue 2, K2")
-    if graph.strategy == "windowed":
+    if graph.strategy != "sparse":
         x = x.to(torch.promote_types(x.dtype, torch.float32))
     x = x.detach().contiguous()
     p = prep_inputs(cfg, att, graph, x)
@@ -171,7 +182,7 @@ def multiply_attention(att: TransformerAttention, cfg, graph, x, attention,
 # the RHS
 # ----------------------------------------------------------------------
 
-_UNPORTED_RHS = "GRAND-nl {}: not ported yet (ROADMAP Queue 2b, item {})"
+_UNPORTED_RHS = "GRAND-nl {}: not ported yet (ROADMAP {})"
 
 
 class _Linear(NamedTuple):
@@ -184,6 +195,41 @@ class _QK(NamedTuple):
     `fused_attention_ax`."""
     Q: _Linear
     K: _Linear
+
+
+def flash_dense_gate(cfg, n: int) -> bool:
+    """graphax's gate for K6 (`:218-223`, with the card in place of its
+    TPU): scaled_dot, row softmax, no squareplus, mix_features or
+    reweight, and ``[H, N, N]`` f32 scores above 2^28 bytes."""
+    return (cfg.attention_type == "scaled_dot"
+            and cfg.attention_norm_idx == 0
+            and not cfg.square_plus and not cfg.mix_features
+            and not cfg.reweight_attention
+            and n * n * cfg.heads * 4 > (1 << 28))
+
+
+def dense_rhs_ax(att: TransformerAttention, cfg, graph, x, mask=None,
+                 use_flash=None) -> torch.Tensor:
+    """``A(x) x`` on a dense graph (graphax `dense_rhs_ax`, :201-243), in
+    x's dtype. Where ``use_flash`` (default: x on the card and
+    :func:`flash_dense_gate`), the masked flash kernel per head on q
+    pre-scaled by ``1 / sqrt(dk)`` (computed in x's dtype, as graphax), then
+    the head mean in f32; else the materialised ``[H, N, N]`` attention's
+    head mean times x, f32 sums. ``mask`` is the graph's adjacency mask if
+    the caller has it."""
+    q = _split_heads(linear_apply(att.Q, x), cfg.heads)
+    k = _split_heads(linear_apply(att.K, x), cfg.heads)
+    if use_flash is None:
+        use_flash = x.is_cuda and flash_dense_gate(cfg, graph.num_nodes)
+    if mask is None:
+        mask = dense_adjacency_mask(graph)
+    if use_flash:
+        d_k = cfg.attention_dim // cfg.heads
+        scale = 1.0 / torch.sqrt(torch.tensor(d_k, dtype=x.dtype))
+        out = flash_attention_multihead(q * scale, k, x, mask)  # [H, N, D]
+        return out.float().mean(0).to(x.dtype)
+    att_w, _ = dense_transformer_attention(att, cfg, graph, q, k, mask=mask)
+    return dense_matmul(att_w.mean(0), x)
 
 
 def transformer_rhs(cfg, graph, alpha, beta, x0, qw, qb, kw, kb, x):
@@ -219,38 +265,57 @@ class TransformerFunction(nn.Module):
 
     def check_route(self, fstate, x) -> None:
         """Raise on the routes of graphax's dispatch (`:270-313`) that the
-        port has not ported: the sparse strategy with ``fast_attention``
-        (set for evaluation, and for training where the hand-written
-        backward covers the config) and row normalisation is the one."""
+        port has not ported. Ported: the dense strategy's evaluation within
+        ``use_dense_attention``'s guard, and the sparse strategy with
+        ``fast_attention`` (set for evaluation, and for training where the
+        hand-written backward covers the config) and row normalisation."""
         cfg = self.cfg
         g = fstate.graph
+        if g.strategy == "dense":
+            if not fstate.fast_attention:
+                raise NotImplementedError(
+                    "GRAND-nl training on the dense strategy: graphax has no "
+                    "gradient through its dense flash kernel K6 (ROADMAP "
+                    "Queue 3, 'GRAND-nl training above K6's gate'); below "
+                    "the gate the materialised route trains with the "
+                    "attention block's slice (ROADMAP Queue 1, item 3)")
+            if not use_dense_attention(g, cfg.heads):
+                raise NotImplementedError(
+                    "GRAND-nl on a dense graph beyond use_dense_attention's "
+                    "memory guard (graphax's per-edge XLA route): not ported "
+                    "yet (ROADMAP Queue 1, item 6)")
+            return
         if g.strategy != "sparse":
             raise NotImplementedError(_UNPORTED_RHS.format(
                 "on the windowed strategy (the windowed attention kernel "
-                "K5, `pallas_winatt.py:43`)", 3)
-                if g.strategy == "windowed" else _UNPORTED_RHS.format(
-                    f"on the {g.strategy} strategy (M7, the dense flash "
-                    "kernel K6)", 4))
+                "K5, `pallas_winatt.py:43`)", "Queue 2, item 1"))
         if not fstate.fast_attention:
             raise NotImplementedError(_UNPORTED_RHS.format(
                 "training outside the hand-written backward's configs "
                 "(scaled_dot, row softmax, no squareplus, no reweight; "
-                "graphax's XLA fused_attention_ax autodiff)", 2))
+                "graphax's XLA fused_attention_ax autodiff)",
+                "Queue 1, item 6"))
         if cfg.attention_norm_idx != 0:
             raise NotImplementedError(_UNPORTED_RHS.format(
                 "with column normalisation (attention_norm_idx=1: K1/K2 with "
-                "the global shift and the K3 per-edge-denominator form)", 1))
+                "the global shift and the K3 per-edge-denominator form)",
+                "Queue 2, item 2"))
         if not flash_supported(cfg, x.shape[1]):
             raise NotImplementedError(
                 "GRAND-nl beyond the flash kernels' gate (flash_supported: "
                 "shared memory for D and A): not ported yet (ROADMAP Queue "
-                "2b)")
+                "2)")
 
     def rhs(self, alpha, beta, fstate, t, x):
-        """graphax's fast-attention route on a sparse graph: the flash
-        kernels for an evaluation, the training kernels where a gradient is
-        needed (its `fused_attention_ax_pallas` with the Pallas backward);
-        every other route raises."""
+        """graphax's dense route on a dense graph (:277-279), evaluation
+        only; its fast-attention route on a sparse graph: the flash kernels
+        for an evaluation, the training kernels where a gradient is needed
+        (its `fused_attention_ax_pallas` with the Pallas backward); every
+        other route raises."""
         self.check_route(fstate, x)
-        ax = fused_attention_ax(self.cfg, self.att, fstate.graph, x)
+        g = fstate.graph
+        if g.strategy == "dense":
+            ax = dense_rhs_ax(self.att, self.cfg, g, x, mask=fstate.mask)
+        else:
+            ax = fused_attention_ax(self.cfg, self.att, g, x)
         return apply_alpha_beta(self.cfg, alpha, beta, ax, x, fstate.x0)

@@ -3,9 +3,12 @@ PyTorch version. A wrapper launches its kernel for CUDA tensors and uses the
 plain version for CPU tensors; it never falls back from one to the other.
 
 Modules: `spmm` (CSR SpMM, its CSC transpose and the SDDMM, with the
-autograd Function of the laplacian RHS), `attention_pin`, and
+autograd Function of the laplacian RHS), `attention_pin`,
 `windowed_spmm` (densify and the three block products of the windowed
-layout, `windows`); `dispatch` attaches that layout to a graph."""
+layout, `windows`; `dispatch` attaches that layout to a graph),
+`fused_attention` (GRAND-nl's RHS over CSR), and `flash_dense` (GRAND-nl's
+masked flash attention on the dense strategy, whose other operators are
+plain PyTorch in `dense_path`)."""
 
 from graphax_torch.kernels._build import LAUNCHES, build_all
 

@@ -63,6 +63,9 @@ SIGNATURES = {
         "gx_attention_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P],
     },
+    "flash_dense": {
+        "gx_flash_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
     "windowed_spmm": {
         "gx_densify": [_P, _P, _P, _P, _I, _L, _I, _I, _P],
         "gx_win_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

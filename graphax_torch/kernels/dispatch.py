@@ -6,7 +6,7 @@ graphax routes its segment softmax, squareplus and attention SpMM between
 XLA segment ops and one-hot reductions over its TPU row tiles; neither is a
 Pallas kernel, and both give the same numbers, so the port runs the plain
 segment ops (`graphax_torch.sparse.ops`) on either device. The dense
-strategy's routing stays in ROADMAP Queue 1, M7."""
+strategy's operators are in `graphax_torch.kernels.dense_path`."""
 
 from __future__ import annotations
 

@@ -593,7 +593,7 @@ def fused_attention_ax(cfg, att, graph, x: torch.Tensor) -> torch.Tensor:
             "GRAND-nl gradients outside the hand-written backward's configs "
             "(scaled_dot, row softmax, no squareplus, no reweight): graphax "
             "takes them through its XLA fused_attention_ax autodiff (ROADMAP "
-            "Queue 2b, item 2)")
+            "Queue 1, item 6)")
     x = x.contiguous()
     kt = _KProj.apply(x, att.K.weight, att.K.bias)
     return _TrainAttention.apply(_query(cfg, att, x), x, kt, graph,

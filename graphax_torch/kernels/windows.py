@@ -23,7 +23,7 @@ are not carried over. The GPU layout is:
 No hub layout: graphax extracts hub columns from the residual with a cost
 model in TPU v5e constants (`graphax/kernels/hubs.py:65-73`), which the port
 does not carry over, and on the synthetic ogbn-arxiv graph that model picks
-no hubs (ROADMAP Queue 2b)."""
+no hubs (ROADMAP, "the hub layout")."""
 
 from __future__ import annotations
 

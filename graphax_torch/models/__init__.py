@@ -1,6 +1,11 @@
 """Node-classification models."""
 
+from graphax_torch.models.early import (
+    EarlyStopResult, evaluate_early_stop, make_accuracy_observer,
+    masked_accuracy,
+)
 from graphax_torch.models.gnn import GNN
 from graphax_torch.models.layers import BatchNorm, dropout
 
-__all__ = ["GNN", "BatchNorm", "dropout"]
+__all__ = ["GNN", "BatchNorm", "EarlyStopResult", "dropout",
+           "evaluate_early_stop", "make_accuracy_observer", "masked_accuracy"]

@@ -79,10 +79,13 @@ class GNN(nn.Module):
         z = dropout(z, cfg.dropout, train, generator)
         return linear_apply(self.m2, z)
 
-    def forward(self, graph, x, *, train: bool, generator=None):
-        """Returns (logits, BlockOutput)."""
+    def forward(self, graph, x, *, train: bool, generator=None, t1=None,
+                observer=None, max_steps=None):
+        """Returns (logits, BlockOutput). ``t1``, ``observer`` and
+        ``max_steps`` go to the solve (the early-stop evaluation's)."""
         x0 = self.encode(x, train=train, generator=generator)
         ode_dtype = getattr(torch, self.cfg.dtype)
-        out = self.block(graph, x0.to(ode_dtype), train=train)
+        out = self.block(graph, x0.to(ode_dtype), train=train, t1=t1,
+                         observer=observer, max_steps=max_steps)
         z = out.z.to(x0.dtype)
         return self.decode(z, train=train, generator=generator), out

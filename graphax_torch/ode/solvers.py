@@ -16,15 +16,18 @@ Numerics follow graphax:
   f32 (a bf16 state does not quantise the grid);
 - the controller scalars are f32 values computed on the host, so the
   accept/reject sequence, NFE and step counts match graphax's;
-- the ``max_nfe`` budget halts stepping and reports ``success=False``.
+- the ``max_nfe`` budget halts stepping and reports ``success=False``;
+- an :class:`Observer` sees every accepted step (`graphax/ode/solvers.py:
+  48`): after each step of the fixed grid, and in the adaptive loop at t0
+  and after every accepted step; ``max_steps`` caps the adaptive loop's
+  attempts (the early-stop evaluation's ``max_test_steps``).
 
-Explicit/implicit Adams and the early-stop observer are not ported yet
-(ROADMAP Queue 1, M2 and M6)."""
+Explicit/implicit Adams are not ported yet (ROADMAP Queue 1, M2)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,6 +40,15 @@ ADAPTIVE_METHODS = ("dopri5", "adaptive_heun", "bosh3")
 
 SAFETY, IFACTOR, DFACTOR = 0.9, 10.0, 0.2
 F32 = torch.float32
+
+
+class Observer(NamedTuple):
+    """Per-accepted-step observation hook: ``update(carry, t, y) -> carry``
+    with ``t`` an f32 scalar tensor and ``y`` the state in its own
+    structure and dtypes (graphax's `Observer`)."""
+
+    init: Any
+    update: Callable[[Any, torch.Tensor, Any], Any]
 
 
 @dataclasses.dataclass
@@ -52,8 +64,9 @@ class ODEResult:
     y: Any               # final state, same structure as y0
     nfe: int             # RHS evaluations
     steps: int           # accepted steps
-    success: bool        # False iff the max_nfe budget was exhausted
+    success: bool        # False iff the max_nfe or max_steps budget ran out
     adjoint: Optional[AdjointRecord] = None
+    observer: Any = None  # the observer's final carry (None without one)
 
 
 def _scalar(v) -> torch.Tensor:
@@ -193,12 +206,18 @@ def _fixed_grid(t0: float, t1: float, step_size: float) -> np.ndarray:
 def odeint(func: Callable, y0, t0: float, t1: float, *,
            method: str = "dopri5", rtol: float = 1e-9, atol: float = 1e-7,
            step_size: float = 1.0, max_nfe: int = 1000,
+           max_steps: Optional[int] = None,
+           observer: Optional[Observer] = None,
            norm_pad: int = 0) -> ODEResult:
     """Integrate ``dy/dt = func(t, y)`` from t0 to t1 (t1 > t0). ``y0`` is a
     tensor or a tuple of tensors; ``func`` returns the same structure.
-    ``norm_pad`` zeros join every error norm of the adaptive controller
-    (the adjoint's count of the reference's identically-zero leaves)."""
+    ``max_steps`` caps the adaptive loop's attempts (accepted and rejected;
+    default from ``max_nfe``, as graphax's). ``observer`` sees every
+    accepted step; its final carry is ``result.observer``. ``norm_pad``
+    zeros join every error norm of the adaptive controller (the adjoint's
+    count of the reference's identically-zero leaves)."""
     st = _State(y0)
+    obs = observer.init if observer is not None else None
 
     def call(t, carry):
         out = func(t, st.unravel(carry))
@@ -211,9 +230,11 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
         hs = torch.tensor(np.diff(ts), dtype=F32)
         for i in range(len(ts) - 1):
             y, _, _, _ = _rk_step(call, st, method, starts[i], y, hs[i])
+            if observer is not None:
+                obs = observer.update(obs, starts[i] + hs[i], st.unravel(y))
         n = len(ts) - 1
         return ODEResult(y=st.unravel(y), nfe=n * len(TABLEAUS[method].c),
-                         steps=n, success=True)
+                         steps=n, success=True, observer=obs)
     if method not in ADAPTIVE_METHODS:
         raise NotImplementedError(
             f"method {method!r} is not ported (explicit/implicit Adams: "
@@ -221,7 +242,8 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
     tab = TABLEAUS[method]
     order = tab.order
     nfe_per_step = len(tab.c) - (1 if tab.fsal else 0)
-    max_steps = max(int(max_nfe) // nfe_per_step + 1, 4)
+    if max_steps is None:
+        max_steps = max(int(max_nfe) // nfe_per_step + 1, 4)
     t = _scalar(t0)
     t1a = _scalar(t1)
     span = t1a - t
@@ -229,6 +251,8 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
     h = torch.minimum(_initial_step(call, st, t, y, f, order, rtol, atol,
                                     norm_pad), span)
     nfe = 2
+    if observer is not None:
+        obs = observer.update(obs, t, st.unravel(y))
     steps = attempts = 0
     done = bool(span <= 0)
     end = t1a - 1e-12 * torch.maximum(_scalar(1.0), t1a.abs())
@@ -245,12 +269,15 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
             y = y_prop
             if tab.fsal:
                 f = f_prop
+            if observer is not None:
+                obs = observer.update(obs, t, st.unravel(y))
         done = bool(t >= end)
         nfe += nfe_per_step
         steps += int(accept)
         attempts += 1
         h = h_next
-    return ODEResult(y=st.unravel(y), nfe=nfe, steps=steps, success=done)
+    return ODEResult(y=st.unravel(y), nfe=nfe, steps=steps, success=done,
+                     observer=obs)
 
 
 # ----------------------------------------------------------------------
@@ -331,7 +358,7 @@ class _Adjoint(torch.autograd.Function):
 def odeint_adjoint(func: Callable, params, y0: torch.Tensor, t0: float,
                    t1: float, *, method: str = "dopri5", rtol: float = 1e-9,
                    atol: float = 1e-7, step_size: float = 1.0,
-                   max_nfe: int = 1000,
+                   max_nfe: int = 1000, max_steps: Optional[int] = None,
                    adjoint_method: str = "adaptive_heun",
                    adjoint_rtol: float = 1e-9, adjoint_atol: float = 1e-7,
                    adjoint_step_size: float = 1.0, track=None,
@@ -355,7 +382,8 @@ def odeint_adjoint(func: Callable, params, y0: torch.Tensor, t0: float,
     spec = _AdjointSpec(
         func=func, t0=float(t0), t1=float(t1),
         solve_kwargs=dict(method=method, rtol=rtol, atol=atol,
-                          step_size=step_size, max_nfe=max_nfe),
+                          step_size=step_size, max_nfe=max_nfe,
+                          max_steps=max_steps),
         adj_kwargs=dict(method=adjoint_method, rtol=adjoint_rtol,
                         atol=adjoint_atol, step_size=adjoint_step_size,
                         max_nfe=max_nfe),

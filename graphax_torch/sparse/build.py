@@ -12,6 +12,7 @@ has the C++ twins; the numpy code is the semantics). Semantics:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -20,10 +21,6 @@ from graphax_torch.sparse.graph import Graph
 from graphax_torch.utils.device import resolve_device
 
 Edges = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (row, col, weight)
-
-DENSE_ROADMAP = ("the dense strategy (graphax/kernels/dense_path.py) is not "
-                 "ported yet: ROADMAP Queue 1, M7")
-
 
 def _as_edges(row, col, weight=None) -> Edges:
     row = np.asarray(row, dtype=np.int64)
@@ -86,16 +83,16 @@ def build_graph(row, col, num_nodes: int, edge_weight=None,
     to a bucket -> Graph on ``device`` (the card unless asked otherwise).
 
     ``strategy="auto"`` resolves as graphax does: dense when ``num_nodes <=
-    dense_threshold``, sparse otherwise. ``"windowed"`` attaches the
-    block-dense layout (`graphax/sparse/build.py:157-162`; node ids should be
-    community-ordered first). The dense strategy is not ported and
-    raises."""
+    dense_threshold`` (`graphax/sparse/build.py:155-156`), sparse otherwise.
+    A dense graph keeps its CSR and CSC layouts (the hard block's pin walks
+    them); each forward densifies its values once
+    (`graphax_torch.kernels.dense_path`). ``"windowed"`` attaches the
+    block-dense layout (`:157-162`; node ids should be community-ordered
+    first)."""
     dev = resolve_device(device)
     if strategy == "auto":
         strategy = "dense" if num_nodes <= dense_threshold else "sparse"
-    if strategy == "dense":
-        raise NotImplementedError(DENSE_ROADMAP)
-    if strategy not in ("sparse", "windowed"):
+    if strategy not in ("dense", "sparse", "windowed"):
         raise ValueError(f"unknown strategy {strategy!r}")
     if make_undirected:
         row, col = to_undirected(row, col, num_nodes)
@@ -113,4 +110,6 @@ def build_graph(row, col, num_nodes: int, edge_weight=None,
         from graphax_torch.kernels.dispatch import attach_windows
 
         g = attach_windows(g)
+    elif strategy == "dense":
+        g = dataclasses.replace(g, strategy="dense")
     return g

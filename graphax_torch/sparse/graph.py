@@ -18,7 +18,10 @@ Instead of graphax's TPU row tiles the GPU layout is:
 
 A graph of ``strategy="windowed"`` also carries the block-dense windowed
 layout (``windows``, `graphax_torch.kernels.windows.WindowLayout`), which
-the laplacian SpMM uses; every other op keeps the CSR and CSC layouts.
+the laplacian SpMM uses; every other op keeps the CSR and CSC layouts. On a
+graph of ``strategy="dense"`` the RHS works on ``[N, N]`` operators that
+each forward densifies (`graphax_torch.kernels.dense_path`); the hard
+block's pin still walks the CSR layout.
 """
 
 from __future__ import annotations
@@ -90,7 +93,8 @@ class Graph:
       num_edges: true number of edges.
       num_nodes: number of nodes.
       csr, csc: :class:`Layout` of the real edges.
-      strategy: ``"sparse"`` (CSR SpMM) or ``"windowed"`` (``windows``).
+      strategy: ``"sparse"`` (CSR SpMM), ``"windowed"`` (``windows``) or
+        ``"dense"`` (``[N, N]`` products).
       pre_normalized: the per-forward weight normalization has already been
         applied (the Trainer hoists it to init, as graphax does).
       windows: the windowed layout of a ``"windowed"`` graph, else None.

@@ -6,12 +6,17 @@ epoch train/val/test accuracy and best-val tracking. The Trainer owns the
 model, the optimizer and the dropout generator (PyTorch idiom) instead of
 threading a functional TrainState.
 
+``fit`` evaluates each epoch as graphax's does: by default (``no_early``
+False) with the early-stop evaluation (`graphax_torch.models.early`), whose
+observer keeps the best validation accuracy along a solve to
+``earlystopxT * T``, else with a plain evaluation at T.
+
 Not ported here (ROADMAP): graphax's 3-jit `split_step` (a TPU compiler
-workaround with no output change), kNN/edge-sampling rewiring, checkpoints,
-the label trick and the early-stop evaluation (`models/early.py`). GRAND-nl
-(the transformer RHS) trains where the hand-written attention backward
-covers its config (`kernels.fused_attention.train_supported`); other
-transformer configs raise `NotImplementedError` in the train step."""
+workaround with no output change), kNN/edge-sampling rewiring, checkpoints
+and the label trick. GRAND-nl (the transformer RHS) trains on a sparse
+graph where the hand-written attention backward covers its config
+(`kernels.fused_attention.train_supported`); other transformer configs,
+and any on a dense graph, raise `NotImplementedError` in the train step."""
 
 from __future__ import annotations
 
@@ -25,6 +30,9 @@ from torch.profiler import record_function
 from graphax_torch.blocks.common import normalize_graph
 from graphax_torch.data.container import GraphData
 from graphax_torch.data.reorder import community_reorder
+from graphax_torch.models.early import (
+    EarlyStopResult, evaluate_early_stop, masked_accuracy,
+)
 from graphax_torch.models.gnn import GNN
 from graphax_torch.train.optimizers import get_optimizer
 from graphax_torch.utils.device import resolve_device
@@ -55,11 +63,6 @@ def cross_entropy_loss(logits, labels, mask):
     per_node = -logp.gather(1, labels[:, None])[:, 0]
     per_node = torch.where(mask, per_node, torch.zeros_like(per_node))
     return per_node.sum() / torch.clamp(mask.sum(), min=1)
-
-
-def masked_accuracy(logits, labels, mask):
-    correct = (logits.argmax(-1) == labels) & mask
-    return correct.sum() / torch.clamp(mask.sum(), min=1)
 
 
 _UNPORTED = {
@@ -148,33 +151,75 @@ class Trainer:
         return tuple(float(masked_accuracy(logits, d.y, m))
                      for m in (d.train_mask, d.val_mask, d.test_mask))
 
-    def fit(self, epochs: Optional[int] = None,
-            use_early_stop: Optional[bool] = None) -> Dict[str, Any]:
-        """The reference epoch loop: train, evaluate, track best val/test.
-        The early-stop evaluation is not ported: ``use_early_stop`` must be
-        False (or ``cfg.no_early``)."""
+    def evaluate_early(self) -> EarlyStopResult:
+        """The early-stop evaluation (graphax's `evaluate_early`): the best
+        validation accuracy, with its train and test accuracy and time,
+        along a solve to ``earlystopxT * T``. The solve's result is kept as
+        ``last_eval``."""
+        d = self.data
+        res = evaluate_early_stop(self.cfg, self.model, d.graph, d.x, d.y,
+                                  d.train_mask, d.val_mask, d.test_mask)
+        self.last_eval = res.result
+        return res
+
+    def fit(self, epochs: Optional[int] = None, log_every: int = 0,
+            use_early_stop: Optional[bool] = None, seed: Optional[int] = None,
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every: Optional[int] = None) -> Dict[str, Any]:
+        """The reference epoch loop (`run_GNN.py:249-275`; graphax's `fit`,
+        `graphax/train/loop.py:355-425`): fresh weights from ``seed``, then
+        per epoch a train step and an evaluation, the early-stop one unless
+        ``use_early_stop`` is False (default: ``not cfg.no_early``), and the
+        best validation epoch. ``best`` and ``history`` carry graphax's
+        keys; ``best_time`` is ``cfg.time`` without early stopping, the
+        observer's time with it. ``solver`` holds per epoch the train
+        step's NFE, backward NFE and success and the evaluation's NFE and
+        success. It takes the place of graphax's ``state``: the Trainer
+        owns its weights, and ``fm``, ``bm`` and ``last_eval`` keep only the
+        last epoch's solve, so ``solver`` is the one record by which a
+        caller holds every epoch's solves to success without adding keys
+        to graphax's ``history``. Checkpoints are not ported (ROADMAP
+        Queue 1, item 5):
+        ``checkpoint_path`` or ``checkpoint_every`` raises."""
+        if checkpoint_path is not None or checkpoint_every is not None:
+            raise NotImplementedError("fit's checkpoint_path and "
+                                      "checkpoint_every: checkpoints are not "
+                                      "ported yet (ROADMAP Queue 1, item 5)")
         cfg = self.cfg
         epochs = cfg.epoch if epochs is None else epochs
         if use_early_stop is None:
             use_early_stop = not cfg.no_early
-        if use_early_stop:
-            raise NotImplementedError("early-stop evaluation (models/early.py) "
-                                      "is not ported yet (ROADMAP Queue 1, M6)")
-        self.init_state()
+        self.init_state(seed)
         best = {"val_acc": 0.0, "test_acc": 0.0, "train_acc": 0.0,
-                "epoch": 0}
-        history = []
+                "epoch": 0, "best_time": 0.0}
+        history, solver = [], []
         for epoch in range(1, epochs + 1):
             t0 = time.perf_counter()
             loss, aux = self._step()
-            train_acc, val_acc, test_acc = self.evaluate()
-            seconds = time.perf_counter() - t0
+            if use_early_stop:
+                res = self.evaluate_early()
+                train_acc, val_acc, test_acc, best_time = (
+                    float(v) for v in (res.best_train, res.best_val,
+                                       res.best_test, res.best_time))
+            else:
+                train_acc, val_acc, test_acc = self.evaluate()
+                best_time = cfg.time
             if val_acc > best["val_acc"]:
                 best.update(val_acc=val_acc, test_acc=test_acc,
-                            train_acc=train_acc, epoch=epoch)
+                            train_acc=train_acc, epoch=epoch,
+                            best_time=best_time)
             history.append(dict(epoch=epoch, loss=loss, train_acc=train_acc,
                                 val_acc=val_acc, test_acc=test_acc,
-                                time=seconds, nfe=aux["nfe"],
-                                bwd_nfe=aux["bwd_nfe"],
-                                success=aux["success"]))
-        return {"best": best, "history": history}
+                                time=time.perf_counter() - t0,
+                                nfe=aux["nfe"]))
+            solver.append(dict(nfe=aux["nfe"], bwd_nfe=aux["bwd_nfe"],
+                               success=aux["success"],
+                               eval_nfe=self.last_eval.nfe,
+                               eval_success=self.last_eval.success))
+            if log_every and epoch % log_every == 0:
+                h = history[-1]
+                print(f"Epoch {epoch:4d} | time {h['time']:.3f}s | loss "
+                      f"{loss:.4f} | nfe {h['nfe']} | train {train_acc:.4f} "
+                      f"| val {val_acc:.4f} | test {test_acc:.4f} | best "
+                      f"val {best['val_acc']:.4f}")
+        return {"best": best, "history": history, "solver": solver}

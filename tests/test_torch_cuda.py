@@ -434,3 +434,105 @@ def test_cuda_train_function_matches_autograd_through_plain_path(cuda):
                                  want, scale):
         torch.testing.assert_close(a_, b_, rtol=2e-4, atol=1e-4 * sc_,
                                    msg=name)
+
+
+# ----------------------------------------------------------------------
+# the dense strategy's masked flash attention (K6)
+
+def _dense_flash_inputs(device, n, heads, dk, d, seed):
+    """q, k, v and a mask with self-loops, a few random edges per row and
+    the last 3 rows empty, from a seeded generator."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = 0.5 * torch.randn(n, heads, dk, generator=gen, device=device)
+    k = 0.5 * torch.randn(n, heads, dk, generator=gen, device=device)
+    v = torch.randn(n, d, generator=gen, device=device)
+    mask = torch.rand(n, n, generator=gen, device=device) < 6.0 / n
+    mask.fill_diagonal_(True)
+    mask[-3:] = False
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,heads,dk,d", [(300, 2, 4, 8), (700, 3, 16, 100),
+                                          (1000, 4, 16, 128),
+                                          (97, 1, 64, 256)])
+def test_cuda_flash_dense_matches_plain(cuda, dtype, n, heads, dk, d):
+    """The kernel against its plain version (the same 64-key tiles of the
+    running max): f32 2e-5 absolute / 2e-4 relative (sums and exp in
+    another order); bf16 outputs one bf16 ulp apart at the margin (a p
+    rounded to bf16 at the edge of a rounding step moves one term), 2e-3 /
+    2e-2. Rows without an edge are exactly 0; N is off the 64-row tile."""
+    from graphax_torch.kernels import LAUNCHES
+    from graphax_torch.kernels import flash_dense as fd
+
+    q, k, v, mask = _dense_flash_inputs(cuda, n, heads, dk, d, seed=n)
+    v = v.to(getattr(torch, dtype))
+    LAUNCHES.clear()
+    got = fd.flash_attention_multihead(q, k, v, mask)
+    assert LAUNCHES["flash_dense"] == 1
+    want = fd.flash_attention_multihead_plain(q, k, v, mask)
+    assert got.dtype == v.dtype and got.shape == (heads, n, d)
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "float32" else \
+        dict(rtol=2e-2, atol=2e-3)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.all(got[:, -3:] == 0)
+    # int8 mask and bf16 q, k give the same function
+    got8 = fd.flash_attention_multihead(q.bfloat16(), k.bfloat16(), v,
+                                        mask.to(torch.int8))
+    want8 = fd.flash_attention_multihead_plain(q.bfloat16(), k.bfloat16(), v,
+                                               mask)
+    torch.testing.assert_close(got8.float(), want8.float(), **tol)
+
+
+def test_cuda_flash_dense_rejects_bad_operands(cuda):
+    from graphax_torch.kernels import flash_dense as fd
+
+    q, k, v, mask = _dense_flash_inputs(cuda, 50, 2, 4, 8, seed=1)
+    with pytest.raises(ValueError, match="not covered"):
+        fd.flash_attention_multihead(q, k, torch.randn(50, 300, device=cuda),
+                                     mask)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fd.flash_attention_multihead(q, k, v.half(), mask)
+    with pytest.raises(ValueError, match="mask"):
+        fd.flash_attention_multihead(q, k, v, mask[:49])
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        fd.flash_attention_multihead(q.requires_grad_(True), k, v, mask)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_dense_rhs_k6_route_matches_materialised(cuda, dtype):
+    """GRAND-nl's dense RHS on the card: the K6 route (one flash_dense
+    launch) against the materialised route on the same graph and weights:
+    f32 2e-4 / 2e-5 (the K6 route divides the summed products by max(l,
+    1e-16), the materialised one each weight by its denominator + 1e-16);
+    bf16 2e-2 / 2e-2 (p rounded to bf16 against a running max)."""
+    import dataclasses
+
+    from graphax_torch.functions.transformer import (
+        TransformerAttention, dense_rhs_ax,
+    )
+    from graphax_torch.kernels import LAUNCHES
+    from graphax_torch.train import Config
+
+    g = dataclasses.replace(_cuda_graph(cuda, seed=11), strategy="dense")
+    cfg = Config(function="transformer", heads=4, attention_dim=64,
+                 hidden_dim=128)
+    gen = torch.Generator().manual_seed(11)
+    att = TransformerAttention(cfg, 128)
+    with torch.no_grad():
+        for lin in (att.Q, att.K):
+            lin.weight.copy_(0.3 * torch.randn(lin.weight.shape,
+                                               generator=gen))
+            lin.bias.copy_(0.1 * torch.randn(lin.bias.shape, generator=gen))
+    att = att.to(cuda)
+    x = torch.randn(g.num_nodes, 128, generator=gen).to(cuda) \
+        .to(getattr(torch, dtype))
+    LAUNCHES.clear()
+    with torch.no_grad():
+        k6 = dense_rhs_ax(att, cfg, g, x, use_flash=True)
+        mat = dense_rhs_ax(att, cfg, g, x, use_flash=False)
+    assert dict(LAUNCHES) == {"flash_dense": 1}
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "float32" else \
+        dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(k6.float(), mat.float(), **tol)
+    assert torch.all(k6[-7:] == 0)                  # rows without an edge

@@ -587,7 +587,7 @@ def test_training_raises(adjoint):
         tr = _small_trainer(adjoint=adjoint, adjoint_method="rk4", **over)
         if "attention_norm_idx" not in over:
             assert all(0.0 <= a <= 1.0 for a in tr.evaluate())
-        with pytest.raises(NotImplementedError, match="Queue 2b, item 2"):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
             tr.train_step()
 
 

@@ -98,8 +98,9 @@ def test_from_edges_rejects_unsorted():
 
 def test_auto_strategy_resolves_like_graphax():
     row, col, w = random_edges()
-    with pytest.raises(NotImplementedError, match="M7"):
-        build.build_graph(row, col, 37, device=CPU)          # N <= 20k: dense
+    g = build.build_graph(row, col, 37, device=CPU)          # N <= 20k: dense
+    assert g.strategy == "dense"
+    assert g.csr.num_slots == g.num_edges == g.csc.num_slots
     g = build.build_graph(row, col, 37, strategy="auto", dense_threshold=10,
                           device=CPU)
     assert g.strategy == "sparse"

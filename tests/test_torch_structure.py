@@ -114,11 +114,17 @@ def test_community_window_trains_on_graphax_node_order():
 
 
 def test_early_stop_evaluation_is_not_ported():
-    tr = Trainer(Config(block="constant", hidden_dim=8), _small_data(),
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="early-stop"):
-        tr.fit(epochs=1)
-    assert tr.fit(epochs=1, use_early_stop=False)["history"][0]["success"]
+    """Once a refusal; the early-stop evaluation is ported now: fit runs it
+    by default (no_early False) and integrates to earlystopxT * T."""
+    cfg = Config(block="constant", hidden_dim=8)
+    tr = Trainer(cfg, _small_data(), device="cpu")
+    early = tr.fit(epochs=1)
+    plain = tr.fit(epochs=1, use_early_stop=False)
+    for fit in (early, plain):
+        assert fit["solver"][0]["success"] and fit["solver"][0]["eval_success"]
+    assert early["solver"][0]["eval_nfe"] > plain["solver"][0]["eval_nfe"]
+    best = plain["best"]
+    assert best["best_time"] == (cfg.time if best["epoch"] else 0.0)
 
 
 def test_get_dataset_refuses_real_files_it_cannot_parse(tmp_path):
