@@ -29,8 +29,13 @@ and prints no result):
    flash_dense, on the Computers stand-in's mask with GRAND-nl's own q and
    k at Computers' widths, N = 13,381, H = 4, dk = 16, D = 128, beside PR 4's
    CSR flash on the same graph and function, and on small graphs with
-   empty rows and an N off the tile), in f32 and bf16, with its error
-   beside the stated
+   empty rows and an N off the tile; the three-kernel form, attention_norm
+   and attention_attspmm, and the windowed attention kernel winatt (K5) on
+   the windowed layout's residual CSR and in-window cells and on the arxiv
+   CSR under column normalisation, with the models' own q, k and K table,
+   each route timed whole, and on a small community graph over every score
+   type, reweight and squareplus), in f32 and bf16, with its error beside
+   the stated
    tolerance, its median time, the plain version's time, its bound and a
    PyTorch call as a yardstick where one computes the same function; then
    one line naming every ported kernel;
@@ -52,17 +57,29 @@ and prints no result):
    dense strategy, the pin, the adjoint with the [N, N] operator's a_p for
    Computers' dopri5), and GRAND-nl's dense evaluation
    (``best_config("Computers", function="transformer", block="constant")``,
-   random Q/K) three times, flash_dense once per NFE;
+   random Q/K) three times, flash_dense once per NFE; then GRAND-nl on
+   the windowed strategy as published (``best_config("ogbn-arxiv",
+   block="constant", function="transformer")``, random Q/K): three
+   evaluations (K5, the K projection, gmax, attention_norm and
+   attention_attspmm once per NFE) and ``fit(3 epochs)`` (those once per
+   forward, adjoint and evaluation NFE; the replay's win_matmul,
+   win_bwd_dense and win_bwd_slab once per adjoint NFE); then with
+   ``community_window=0, attention_norm_idx=1``: a softmax and a squareplus
+   evaluation and ``fit(2 epochs)`` through the column route;
 6. breakdown: one more train step of the windowed path, one GRAND-nl
    evaluation and one GRAND-nl train step, one Computers train step and
-   early-stop evaluation, one GRAND-nl dense evaluation, under
+   early-stop evaluation, one GRAND-nl dense evaluation, one windowed
+   GRAND-nl train step and evaluation, one column-normalised train step,
+   under
    torch.profiler, time by span (forward solve, adjoint, optimizer) and by
    kernel;
 7. reference: small graphs (sparse, windowed and dense) trained from the
    same weights on the card and on the CPU must agree step by step, small
    GRAND-nl evaluations must give the same logits and NFE (on a dense
-   graph above K6's gate too), and a small GRAND-nl trained 3 steps the
-   same losses (and in f32 NFE).
+   graph above K6's gate too), a small GRAND-nl trained 3 steps the same
+   losses (and in f32 NFE), and a small community graph's GRAND-nl on the
+   windowed and column routes the same f32 logits and NFE, and over a
+   train step the same loss, NFE and gradients.
 
 Then the kernels line (launches summed over the paths of phase 5), the
 card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Needs
@@ -791,6 +808,181 @@ def phase_train_kernels(trainer, results: dict) -> None:
               f"training kernels small {name}: the one-edge row is 0")
 
 
+def _community_graph(device, n=300, window=32, tile=8, seed=0):
+    """Communities of one window (tile 8, W 32): tile 0 without a residual
+    edge, rows 20 and 21 without an in-window edge, the last 3 rows without
+    an edge, padded edge buffer."""
+    import numpy as np
+
+    from graphax_torch.kernels.dispatch import attach_windows
+    from graphax_torch.sparse.graph import Graph
+
+    rng = np.random.RandomState(seed)
+    comm = np.arange(n) // window
+    same = comm[:, None] == comm[None, :]
+    hit = rng.rand(n, n) < np.where(same, 0.3, 0.02)
+    hit[:tile] &= same[:tile]
+    hit[20:22] &= ~same[20:22]
+    hit[20, n - 9] = hit[21, 100] = True
+    hit[n - 3:] = False
+    row, col = np.nonzero(hit)
+    g = Graph.from_edges(row, col, n,
+                         edge_weight=rng.rand(len(row)).astype(np.float32)
+                         + 0.2, edge_buffer_size=len(row) + 5, device=device)
+    return attach_windows(g, window=window, tile=tile)
+
+
+def three_kernel_checks(results: dict, path: str, graph, x, q, q_s, k, kt,
+                        cfg, ew, name: str, timed: bool, ov2=1.3,
+                        inv2l2=0.7) -> None:
+    """The three kernels of the three-kernel form and K5 against their
+    plain versions on one input set, with the bound of each at these
+    inputs. ``path`` "windowed" (the residual CSR with r0, K5 on the
+    in-window cells, K3 against K5's row denominators) or "colnorm" (the
+    whole CSR under the global max, K3 per column)."""
+    import torch
+
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels import winatt as wa
+    from graphax_torch.kernels.attention3 import column_denominators
+
+    n, d = x.shape
+    a, heads = q.shape[1], cfg.heads
+    b = x.element_size()
+    scal = (cfg.attention_type, heads, ov2, inv2l2)
+    sqp = bool(cfg.square_plus) and path == "colnorm"
+    tabs = 4 * n * heads
+    row = lambda k, tag: dict(kernel=k, path=path, dtype=name, variant=tag,
+                              graph="slice" if timed else "small")
+    if path == "windowed":
+        wl = graph.windows
+        lay, win = wl.residual, wl.in_window
+        ew_res = None if ew is None else ew[lay.perm].contiguous()
+    else:
+        lay, ew_res = graph.csr, ew
+    e_l = lay.num_slots
+    idx_bytes = 4 * e_l + 4 * (n + 1)
+    g = fa.attention_gmax(lay, q_s, kt, ew_res, *scal)
+    e, den = hold_to_plain(
+        results, row("attention_norm", path),
+        lambda: fa.attention_norm(lay, q_s, kt, ew_res, g, *scal,
+                                  square_plus=sqp),
+        lambda: fa.attention_norm_plain(lay, q_s, kt, ew_res, g, *scal,
+                                        square_plus=sqp),
+        (("e", TOL_TRAIN), ("den", TOL_TRAIN)),
+        # q, K, CSR, shift in; e, den out
+        n * a * b + 4 * n * a + idx_bytes + 4 + 4 * e_l * heads + tabs,
+        # per slot and head: the score (2 dk) and e (~2)
+        e_l * (2.0 * a + 2.0 * heads), timed=timed, tag=path)
+    if path == "windowed":
+        e_w = win.num_slots
+        ew_win = None
+        if ew is not None:
+            ew_win = torch.rand(e_w, device=x.device) + 0.1
+        out_win, table = hold_to_plain(
+            results, row("winatt", "windowed"),
+            lambda: wa.winatt(win, q, k, x, den, g, ew_win, *scal),
+            lambda: wa.winatt_plain(win, q, k, x, den, g, ew_win, *scal),
+            (("out", tol_rounded(name, x)), ("den", TOL_TRAIN)),
+            # q, k, x, the cell CSR, d_res, r0 in; out, den out
+            2 * n * a * b + n * d * b + 4 * e_w + 4 * (n + 1) + tabs + 4
+            + (4 * e_w if ew_win is not None else 0) + 4 * n * d + tabs,
+            # per cell: the scores (2A), e and pbar (~4H), pbar x (2D)
+            e_w * (2.0 * a + 4.0 * heads + 2.0 * d), timed=timed)
+        per_col = False
+    else:
+        table = column_denominators(graph.csc, e)
+        per_col = True
+    tag = "per_column" if per_col else "row"
+    hold_to_plain(
+        results, row("attention_attspmm", tag),
+        lambda: fa.attention_attspmm(lay, e, table, x, per_column=per_col),
+        lambda: fa.attention_attspmm_plain(lay, e, table, x, per_col),
+        tol_rounded(name, x),
+        # e, the table, x, CSR in; out out
+        4 * e_l * heads + tabs + n * d * b + idx_bytes + 4 * n * d,
+        # per slot: the weight (~2H) and its product with x (2D)
+        e_l * (2.0 * heads + 2.0 * d), timed=timed, tag=tag)
+
+
+def phase_three_kernel_kernels(trainer_w, trainer_c, results: dict) -> None:
+    """The three-kernel form (attention_norm, attention_attspmm) and K5
+    (winatt) against their plain versions at their paths' shapes, f32 and
+    bf16: the windowed arxiv layout's residual CSR and in-window cells with
+    the windowed GRAND-nl model's own q, k and K table on its encoded state
+    (path A), the arxiv CSR with the column-normalised model's (path B);
+    then each route as the RHS calls it, timed whole; then a small
+    community graph (an empty residual tile, rows without an in-window
+    cell) over every score type and reweight."""
+    import torch
+
+    from graphax_torch.kernels import attention3 as a3
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels import winatt as wa
+    from graphax_torch.utils.params import linear_apply
+
+    for path, tr in (("windowed", trainer_w), ("colnorm", trainer_c)):
+        g, cfg = tr.data.graph, tr.cfg
+        att = tr.model.block.func.att
+        tr.model.eval()
+        with torch.no_grad():
+            x_enc = tr.model.encode(tr.data.x, train=False)
+        info = dict(phase="kernels", path=path, N=g.num_nodes,
+                    E=g.num_edges, D=x_enc.shape[1], A=cfg.attention_dim,
+                    H=cfg.heads)
+        if path == "windowed":
+            info.update(residual=g.windows.residual.num_slots,
+                        in_window_cells=g.windows.in_window.num_slots)
+        emit(info)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            x = x_enc.to(dt).contiguous()
+            with torch.no_grad():
+                p = fa.prep_inputs(cfg, att, g, x)
+                q = linear_apply(att.Q, x).to(dt).contiguous()
+                k = linear_apply(att.K, x).to(dt).contiguous()
+                q_s = p["q"] if path == "colnorm" else (
+                    q / torch.tensor(float(cfg.attention_dim // cfg.heads)
+                                     ).sqrt().to(dt)).contiguous()
+                kt = fa.attention_kproj(x, p["wk"], p["bk"])
+                three_kernel_checks(results, path, g, x, q, q_s, k, kt, cfg,
+                                    None, name, True)
+                fn = (wa.windowed_attention_ax_fast if path == "windowed"
+                      else a3.colnorm_attention_ax_fast)
+                ms = time_ms(lambda: fn(cfg, att, g, x))
+                key = ("winatt" if path == "windowed" else
+                       "attention_attspmm", name) + (
+                    () if path == "windowed" else ("per_column",))
+                results[key]["function_ms"] = ms
+                emit({"phase": "kernels", "kernel": fn.__name__,
+                      "path": path, "dtype": name, "ms": ms})
+            del x, q, k, q_s, kt, p
+            torch.cuda.empty_cache()
+
+    small = _community_graph("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n = small.num_nodes
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        mk = lambda *shape, s=1.0: (s * torch.randn(
+            *shape, generator=gen, device="cuda")).to(dt).contiguous()
+        x, q, k = mk(n, 162), mk(n, 32, s=0.5), mk(n, 32, s=0.5)
+        kt = 0.5 * torch.randn(n, 32, generator=gen, device="cuda")
+        for att_type in ("scaled_dot", "cosine_sim", "pearson",
+                         "exp_kernel"):
+            for ew in (None, small.edge_weight):
+                for path, sqp in (("windowed", False), ("colnorm", False),
+                                  ("colnorm", True)):
+                    cfg = trainer_w.cfg.replace(attention_type=att_type,
+                                                square_plus=sqp)
+                    with torch.no_grad():
+                        three_kernel_checks(results, path, small, x, q, q,
+                                            k, kt, cfg, ew, name, False)
+    emit({"phase": "kernels", "graph": "small community", "cases": 48,
+          "kernels": ["attention_norm", "winatt", "attention_attspmm"],
+          "ok": True})
+
+
 def nl_trainer(cfg, data, qk_seed: int = 11, device=None):
     """``Trainer(cfg, data)`` of GRAND-nl whose every ``init_state`` (fit
     calls it first) draws random Q/K by :func:`randomize_attention`, and
@@ -816,13 +1008,33 @@ def nl_trainer(cfg, data, qk_seed: int = 11, device=None):
     return tr
 
 
-def phase_grand_nl_train(trainer, epochs: int) -> dict:
+# GRAND-nl's training kernels on CSR: (once per forward and evaluation
+# NFE, once per adjoint NFE)
+TRAIN_CSR = {"flash_attention": (True, False),
+             "attention_kproj": (True, True),
+             "attention_fwd_res": (False, True),
+             "attention_bwd_rows": (False, True),
+             "attention_bwd_cols": (False, True)}
+# the windowed route: K5 and the three-kernel form at every RHS evaluation,
+# the replay's window products at every adjoint NFE
+TRAIN_WINDOWED = {k: (True, True) for k in (
+    "attention_kproj", "attention_gmax", "attention_norm", "winatt",
+    "attention_attspmm")}
+TRAIN_WINDOWED.update({k: (False, True) for k in (
+    "win_matmul", "win_bwd_dense", "win_bwd_slab")})
+TRAIN_COLNORM = {k: (True, True) for k in (
+    "attention_kproj", "attention_gmax", "attention_norm",
+    "attention_attspmm")}
+
+
+def phase_grand_nl_train(trainer, epochs: int, label: str = "grand_nl_train",
+                         per_nfe: dict = TRAIN_CSR) -> dict:
     """``trainer.fit(epochs)`` of GRAND-nl with fit's defaults (the
     early-stop evaluation), the launch counts zeroed before and read after:
-    per train step the residual forward and both backward kernels once per
-    adjoint NFE, flash once per forward NFE; flash once per NFE of each
-    evaluation. Finite losses, solver success, nonzero gradients at Q and
-    K. Returns the launches."""
+    per train step each kernel of ``per_nfe`` once per forward NFE and/or
+    once per adjoint NFE as its flags say, and over the run once more per
+    evaluation NFE where it runs in the forward. Finite losses, solver
+    success, nonzero gradients at Q and K. Returns the launches."""
     import torch
 
     from graphax_torch.kernels import _build
@@ -837,36 +1049,33 @@ def phase_grand_nl_train(trainer, epochs: int) -> dict:
     counts = dict(_build.LAUNCHES)
     hist, solver = fit["history"], fit["solver"]
     for h, sv, st in zip(hist, solver, trainer.step_launches):
-        emit({"phase": "slice", "path": "grand_nl_train", **h, **sv,
+        emit({"phase": "slice", "path": label, **h, **sv,
               "step_launches": st})
         check(math.isfinite(h["loss"]) and bool(sv["success"]),
-              f"GRAND-nl epoch {h['epoch']}: loss {h['loss']}, success "
+              f"{label} epoch {h['epoch']}: loss {h['loss']}, success "
               f"{sv['success']}")
-        for k in ("attention_fwd_res", "attention_bwd_rows",
-                  "attention_bwd_cols"):
-            check(st.get(k, 0) == sv["bwd_nfe"] > 0,
-                  f"GRAND-nl epoch {h['epoch']}: {k} launched "
-                  f"{st.get(k, 0)} times in a step of {sv['bwd_nfe']} "
-                  "adjoint NFE")
-        check(st.get("flash_attention", 0) == h["nfe"],
-              f"GRAND-nl epoch {h['epoch']}: flash launched "
-              f"{st.get('flash_attention', 0)} times in a forward solve of "
-              f"{h['nfe']} NFE")
+        check(sv["bwd_nfe"] > 0, f"{label} epoch {h['epoch']}: no adjoint")
+        for k, (fwd, bwd) in per_nfe.items():
+            want = fwd * h["nfe"] + bwd * sv["bwd_nfe"]
+            check(st.get(k, 0) == want,
+                  f"{label} epoch {h['epoch']}: {k} launched "
+                  f"{st.get(k, 0)} times in a step of {h['nfe']} forward "
+                  f"and {sv['bwd_nfe']} adjoint NFE (want {want})")
     nfe = sum(h["nfe"] for h in hist)
     bwd = sum(sv["bwd_nfe"] for sv in solver)
     ev = sum(sv["eval_nfe"] for sv in solver)
-    check(counts.get("flash_attention", 0) == nfe + ev,
-          f"GRAND-nl: flash launched {counts.get('flash_attention', 0)} "
-          f"times for {nfe} forward and {ev} evaluation NFE")
-    check(counts.get("attention_kproj", 0) == nfe + bwd + ev,
-          "GRAND-nl: attention_kproj launches are not the NFE")
+    for k, (fwd, bwd_) in per_nfe.items():
+        want = fwd * (nfe + ev) + bwd_ * bwd
+        check(counts.get(k, 0) == want,
+              f"{label}: {k} launched {counts.get(k, 0)} times for {nfe} "
+              f"forward, {bwd} adjoint and {ev} evaluation NFE")
     att = trainer.model.block.func.att
     gnorm = {f"{m}.{k}": float(getattr(getattr(att, m), k).grad.abs().max())
              for m in ("Q", "K") for k in ("weight", "bias")}
     check(gnorm["Q.weight"] > 0 and gnorm["K.weight"] > 0,
-          f"GRAND-nl: no gradient reached Q or K ({gnorm})")
+          f"{label}: no gradient reached Q or K ({gnorm})")
     times = [h["time"] for h in hist]
-    emit({"phase": "slice", "path": "grand_nl_train", "seconds": seconds,
+    emit({"phase": "slice", "path": label, "seconds": seconds,
           "epoch_seconds": times,
           "steady_epoch_seconds": min(times[1:]) if len(times) > 1
           else times[0],
@@ -882,7 +1091,9 @@ def phase_grand_nl(trainer, label: str, evals: int,
     """``Trainer.evaluate()`` of GRAND-nl ``evals`` times, the launch counts
     zeroed before each and read after it: each kernel of ``per_nfe`` once
     per forward NFE (flash and kproj on a sparse graph, flash_dense on a
-    dense one), gmax once per NFE with squareplus. Then one RHS evaluation
+    dense one, the three-kernel form and K5 on the windowed and column
+    routes), gmax once per NFE with squareplus where ``per_nfe`` does not
+    name it. Then one RHS evaluation
     timed alone and the logits checked finite. Returns the launches
     summed."""
     import torch
@@ -914,10 +1125,11 @@ def phase_grand_nl(trainer, label: str, evals: int,
             check(counts.get(k, 0) == res.nfe,
                   f"{label}: {k} launched {counts.get(k, 0)} times in an "
                   f"evaluation of {res.nfe} NFE")
-        check(counts.get("attention_gmax", 0)
-              == (res.nfe if cfg.square_plus else 0),
-              f"{label}: attention_gmax launched {counts.get('attention_gmax')}"
-              f" times in {res.nfe} NFE")
+        if "attention_gmax" not in per_nfe:
+            check(counts.get("attention_gmax", 0)
+                  == (res.nfe if cfg.square_plus else 0),
+                  f"{label}: attention_gmax launched "
+                  f"{counts.get('attention_gmax')} times in {res.nfe} NFE")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     # one RHS evaluation alone, at the evaluation's state and dtype
@@ -1023,6 +1235,87 @@ def phase_reference_nl_train() -> dict:
             check([c[1:] for c in got["cuda"]] == [p[1:] for p in got["cpu"]],
                   f"GRAND-nl training reference: NFE differ {row}")
     return {"grand_nl_train": out}
+
+
+def phase_reference_nl_routes() -> dict:
+    """GRAND-nl on a small community-structured graph from the same
+    weights on the card (kernels) and on the CPU (plain versions), f32: the
+    windowed route (``community_window=64``, K5) and the column route
+    (softmax and squareplus). The evaluation's logits within 1e-4 with NFE
+    equal (dopri5); then one train step's loss within 1e-4 and every
+    parameter's gradient within GRAD_RTOL plus GRAD_ATOL_OF_MAX of the
+    largest gradient of its module, forward and backward NFE equal.
+
+    The step solves with rk4 forward and backward: under dopri5 a
+    borderline step can flip between the two devices' summation orders
+    (ROADMAP Queue 3, the controller at the f32 noise floor). Gradients
+    are compared, not a second step's loss: RMSprop's first step moves
+    every parameter by the same size whatever its gradient, so the sign of
+    a gradient that is zero but for rounding (Q's bias under column
+    softmax, which the function does not see) decides a full step. The
+    column softmax's adjoint drives columns ~88 or more below the global
+    shift, whose weights are f32 subnormals: it holds the column
+    denominators' reduce to the CPU's there."""
+    import torch
+
+    from graphax_torch import Config, make_sbm_dataset
+
+    out = []
+    for over in (dict(community_window=64), dict(attention_norm_idx=1),
+                 dict(attention_norm_idx=1, square_plus=True)):
+        cfg = Config(dataset="smoke", block="constant", function="transformer",
+                     hidden_dim=32, heads=2, attention_dim=16, batch_norm=True,
+                     attention_type="scaled_dot", method="dopri5",
+                     tol_scale=11353.6, time=3.676, adjoint=True,
+                     adjoint_method="rk4", optimizer="rmsprop", lr=0.002,
+                     decay=0.0, input_dropout=0.0, dropout=0.0, max_nfe=500,
+                     dtype="float32").replace(**over)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            data = make_sbm_dataset(num_nodes=400, num_classes=4,
+                                    num_features=32, seed=0,
+                                    strategy="sparse", device=dev)
+            tr = nl_trainer(cfg, data, qk_seed=7, device=dev)
+            want = "windowed" if cfg.community_window else "sparse"
+            check(tr.data.graph.strategy == want,
+                  f"reference graph is {tr.data.graph.strategy}, not {want}")
+            tr.model.eval()
+            with torch.no_grad():
+                logits, o = tr.model(tr.data.graph, tr.data.x, train=False)
+            tr = nl_trainer(cfg.replace(method="rk4"), data,
+                            qk_seed=7, device=dev)
+            step = (tr.train_step(), tr.fm.get_value(), tr.bm.get_value())
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in tr.model.named_parameters()
+                     if p.grad is not None}
+            got[dev] = (logits.float().cpu(), o.result.nfe, step, grads)
+        err = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+        (lc, *nc), (lp, *np_) = got["cuda"][2], got["cpu"][2]
+        gc, gp = got["cuda"][3], got["cpu"][3]
+        check(set(gc) == set(gp), f"route reference {over}: gradients of "
+              f"different parameters {sorted(gc)} {sorted(gp)}")
+        top = {}
+        for n, t in gp.items():
+            mod = n.rsplit(".", 1)[0]
+            top[mod] = max(top.get(mod, 0.0), float(t.abs().max()))
+        gerr = {n: float(((gc[n] - t).abs() / (GRAD_RTOL * t.abs()
+                          + GRAD_ATOL_OF_MAX * top[n.rsplit(".", 1)[0]]
+                          + 1e-30)).max()) for n, t in gp.items()}
+        row = {**over, "max_abs_err": err,
+               "tol": TOL_NL_REF["float32"], "nfe_cuda": got["cuda"][1],
+               "nfe_cpu": got["cpu"][1], "step_cuda": got["cuda"][2],
+               "step_cpu": got["cpu"][2],
+               "grad_err_over_tol_max": max(gerr.values())}
+        out.append(row)
+        check(math.isfinite(err) and err <= TOL_NL_REF["float32"],
+              f"GRAND-nl route reference {over}: logits disagree {row}")
+        check(got["cuda"][1] == got["cpu"][1],
+              f"GRAND-nl route reference {over}: NFE differ {row}")
+        check(abs(lc - lp) <= TOL_NL_TRAIN_REF["float32"] * max(1.0, abs(lp))
+              and nc == np_ and all(v <= 1.0 for v in gerr.values()),
+              f"GRAND-nl route reference {over}: training disagrees {row} "
+              f"{gerr}")
+    return {"grand_nl_routes": out}
 
 
 def phase_dense_kernels(trainer, results: dict) -> None:
@@ -1389,6 +1682,18 @@ def main(argv=None) -> int:
           "the GRAND-nl graph is not sparse")
     randomize_attention(trainer_nl.model.block.func.att, 11)
     trainer_nlt = nl_trainer(cfg_nl, data)
+    # GRAND-nl on the preset's windowed strategy as published (K5's route),
+    # and with column normalisation on CSR (the three-kernel route)
+    cfg_nlw = best_config("ogbn-arxiv", block="constant",
+                          function="transformer")
+    check(cfg_nlw.community_window == 512, "the preset's window moved")
+    trainer_nlw = nl_trainer(cfg_nlw, data)
+    check(trainer_nlw.data.graph.strategy == "windowed",
+          "the windowed GRAND-nl graph is not windowed")
+    cfg_nlc = best_config("ogbn-arxiv", block="constant",
+                          function="transformer", community_window=0,
+                          attention_norm_idx=1)
+    trainer_nlc = nl_trainer(cfg_nlc, data)
     # the dense strategy: Computers and Photo as published, and GRAND-nl
     # evaluated at Computers' widths (constant block, transformer RHS)
     dense = {}
@@ -1417,6 +1722,7 @@ def main(argv=None) -> int:
     phase_windowed_kernels(graph, results)
     phase_flash_kernels(trainer_nl, results)
     phase_train_kernels(trainer_nl, results)
+    phase_three_kernel_kernels(trainer_nlw, trainer_nlc, results)
     phase_dense_kernels(trainer_nld, results)
     emit({"phase": "kernels",
           "ported": list(dict.fromkeys(k[0] for k in results))})
@@ -1472,6 +1778,29 @@ def main(argv=None) -> int:
     # GRAND-nl trained: fit, adjoint rk4 through the training kernels
     for k, v in phase_grand_nl_train(trainer_nlt, args.epochs).items():
         launches[k] = launches.get(k, 0) + v
+    # GRAND-nl on the windowed strategy: three evaluations, then fit (rk4
+    # adjoint through the replay of the plain twin)
+    per_w = ("attention_kproj", "attention_gmax", "attention_norm", "winatt",
+             "attention_attspmm")
+    for k, v in phase_grand_nl(trainer_nlw, "grand_nl_windowed", 3,
+                               per_nfe=per_w).items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in phase_grand_nl_train(trainer_nlw, args.epochs,
+                                     "grand_nl_windowed_train",
+                                     TRAIN_WINDOWED).items():
+        launches[k] = launches.get(k, 0) + v
+    # column normalisation: a softmax and a squareplus evaluation, then fit
+    per_c = ("attention_kproj", "attention_gmax", "attention_norm",
+             "attention_attspmm")
+    trainer_nlcs = nl_trainer(cfg_nlc.replace(square_plus=True), data)
+    for label, tr in (("grand_nl_colnorm", trainer_nlc),
+                      ("grand_nl_colnorm_squareplus", trainer_nlcs)):
+        for k, v in phase_grand_nl(tr, label, 1, per_nfe=per_c).items():
+            launches[k] = launches.get(k, 0) + v
+    del trainer_nlcs
+    for k, v in phase_grand_nl_train(trainer_nlc, 2, "grand_nl_colnorm_train",
+                                     TRAIN_COLNORM).items():
+        launches[k] = launches.get(k, 0) + v
     # the dense strategy: Computers and Photo through fit's defaults, then
     # GRAND-nl's dense evaluation through flash_dense
     for name, (_, tr_) in dense.items():
@@ -1490,6 +1819,14 @@ def main(argv=None) -> int:
     emit({"phase": "breakdown", "path": "grand_nl_train",
           **phase_breakdown([("graphax_torch.train_step",
                               trainer_nlt.train_step)])})
+    emit({"phase": "breakdown", "path": "grand_nl_windowed_train",
+          **phase_breakdown([("graphax_torch.train_step",
+                              trainer_nlw.train_step),
+                             ("graphax_torch.evaluate",
+                              trainer_nlw.evaluate)])})
+    emit({"phase": "breakdown", "path": "grand_nl_colnorm_train",
+          **phase_breakdown([("graphax_torch.train_step",
+                              trainer_nlc.train_step)])})
     tr_c = dense["Computers"][1]
     emit({"phase": "breakdown", "path": "Computers",
           **phase_breakdown([("graphax_torch.train_step", tr_c.train_step),
@@ -1505,6 +1842,7 @@ def main(argv=None) -> int:
     emit({"phase": "reference", **phase_reference_nl()})
     emit({"phase": "reference", **phase_reference_nl_train()})
     emit({"phase": "reference", **phase_reference_dense()})
+    emit({"phase": "reference", **phase_reference_nl_routes()})
 
     # the kernels line: times from phase 4 at the main path's shapes and
     # dtype (bf16); spmm_csr's at the residual edges, with its whole-graph
@@ -1551,7 +1889,16 @@ def main(argv=None) -> int:
               "graphax/kernels/pallas_attention.py:727"),
              ("flash_dense", ("flash_dense", "float32"),
               "graphax_torch/kernels/csrc/flash_dense.cu",
-              "graphax/kernels/pallas_ops.py:27"))
+              "graphax/kernels/pallas_ops.py:27"),
+             ("attention_norm", ("attention_norm", "bfloat16", "windowed"),
+              "graphax_torch/kernels/csrc/fused_attention.cu",
+              "graphax/kernels/pallas_attention.py:197"),
+             ("attention_attspmm", ("attention_attspmm", "bfloat16", "row"),
+              "graphax_torch/kernels/csrc/fused_attention.cu",
+              "graphax/kernels/pallas_attention.py:266"),
+             ("winatt", ("winatt", "bfloat16"),
+              "graphax_torch/kernels/csrc/winatt.cu",
+              "graphax/kernels/pallas_winatt.py:43"))
     for name, key, src, repl in specs:
         r = results[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -1591,6 +1938,20 @@ def main(argv=None) -> int:
         k: fd.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms",
                                "csr_flash_attention_ms")}
+    numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+    kernels[14]["also_replaces"] = "graphax/kernels/pallas_attention.py:114"
+    kernels[14]["variant"] = ("K1 + K2 under one shift for every row: the "
+                              "windowed residual under r0")
+    kernels[14]["colnorm"] = {k: results[("attention_norm", "bfloat16",
+                                          "colnorm")][k] for k in numbers}
+    kernels[15]["variant"] = ("K3 against K5's row denominators on the "
+                              "windowed residual")
+    pc = results[("attention_attspmm", "bfloat16", "per_column")]
+    kernels[15]["per_column"] = {k: pc[k] for k in numbers}
+    kernels[15]["per_column"]["function_ms"] = pc["function_ms"]
+    kernels[16]["function_ms"] = results[("winatt", "bfloat16")][
+        "function_ms"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -13,7 +13,9 @@ from graphax_torch.functions.laplacian import laplacian_rhs
 from graphax_torch.functions.transformer import (
     TransformerFunction, transformer_rhs,
 )
+from graphax_torch.kernels.attention3 import colnorm_supported
 from graphax_torch.kernels.fused_attention import train_supported
+from graphax_torch.kernels.winatt import winatt_supported
 from graphax_torch.kernels.spmm import transpose_values
 from graphax_torch.kernels.windowed_spmm import densify_windows
 from graphax_torch.kernels.dense_path import dense_adjacency_mask, densify
@@ -59,10 +61,15 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
     RHS the adjacency mask.
     On a windowed graph (`graphax/blocks/common.py:76-100`) the in-window
     values become the dense blocks here, and the residual values go in its
-    CSR and CSC slot orders. ``fast_attention`` is set on a sparse graph
+    CSR and CSC slot orders; for the transformer RHS only the blocks, and
+    only under reweight (graphax's ``fstate.wb[0]``, `graphax/functions/
+    transformer.py:287-288`). ``fast_attention`` is set on a sparse graph
     with a 2-D state for an evaluation forward, and for a training forward
     when ``cfg`` is one the hand-written attention backward covers
-    (`:116-131`, graphax's `pallas_bwd_supported`)."""
+    (`:116-131`, graphax's `pallas_bwd_supported`) or one of the column
+    route (`colnorm_supported`); on a windowed graph, for the transformer
+    RHS with a 2-D state in either mode where K5's route (or, under
+    squareplus, the plain twin) serves it."""
     values = graph.edge_weight if attention is None else attention
     pinned = attention is not None
     if graph.strategy == "dense":
@@ -76,6 +83,13 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
                          dense=densify(graph, values), pinned=pinned)
     if graph.strategy == "windowed":
         wl = graph.windows
+        if cfg is not None and cfg.function == "transformer":
+            ok = x.dim() == 2 and (cfg.square_plus
+                                   or winatt_supported(cfg, x.shape[1]))
+            dense = densify_windows(values, wl, x.dtype) \
+                if cfg.reweight_attention else None
+            return FuncState(graph=graph, x0=x.detach(), dense=dense,
+                             pinned=pinned, fast_attention=ok)
         v = values.to(x.dtype)
         return FuncState(graph=graph, x0=x.detach(),
                          wb=v[wl.residual.perm].contiguous(),
@@ -84,7 +98,8 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
                          pinned=pinned)
     wb = values.to(x.dtype).contiguous()
     train_ok = train and cfg is not None and x.dim() == 2 \
-        and train_supported(cfg, x.shape[1])
+        and (train_supported(cfg, x.shape[1])
+             or colnorm_supported(cfg, x.shape[1]))
     return FuncState(graph=graph, x0=x.detach(), wb=wb,
                      wb_t=transpose_values(graph, wb), pinned=pinned,
                      fast_attention=(not train or train_ok) and x.dim() == 2)
@@ -128,14 +143,15 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
         zero = sum(p.numel() for p in func.parameters())
         if isinstance(func, TransformerFunction):
             func.check_route(fstate, x)
-            q, k = func.att.Q, func.att.K
-            params = (alpha, beta, fstate.x0, q.weight, q.bias, k.weight,
-                      k.bias)
+            att = func.adjoint_tensors()
+            params = (alpha, beta, fstate.x0, *att)
+            if fstate.dense is not None:
+                params += (fstate.dense,)       # the windowed reweight
             track = (True,) * len(params)
-            zero += g.edge_buffer_size - sum(p.numel() for p in params[3:])
+            zero += g.edge_buffer_size - sum(p.numel() for p in att)
 
             def f_adj(p, t, y):
-                return transformer_rhs(cfg, g, *p, y)
+                return transformer_rhs(cfg, g, p, y)
         elif g.strategy == "dense":
             params = (alpha, beta, fstate.x0, fstate.dense)
             track = (True,) * len(params)

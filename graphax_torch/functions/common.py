@@ -26,7 +26,8 @@ class FuncState:
         None on a dense graph.
       wb_t: the same values in the CSC slot order (for ``A^T g``).
       dense: on a windowed graph, the in-window values as dense
-        ``[T, tile, W]`` blocks in the state dtype; on a dense graph the
+        ``[T, tile, W]`` blocks in the state dtype (for the transformer RHS
+        only under reweight); on a dense graph the
         ``[N, N]`` operator in the values' dtype (graphax's ``dense_adj``);
         else None.
       mask: on a dense graph under the transformer RHS, the ``[N, N]`` bool
@@ -35,8 +36,10 @@ class FuncState:
         weights (graphax then keeps both as adjoint leaves).
       fast_attention: the transformer RHS may run its kernels: on a sparse
         graph with a 2-D state, an evaluation forward, or a training forward
-        whose config the hand-written backward covers (graphax's flag,
-        `graphax/blocks/common.py:116-131`); on a dense graph, an
+        whose config the hand-written backward or the column route covers
+        (graphax's flag, `graphax/blocks/common.py:116-131`); on a windowed
+        graph with a 2-D state, either forward within K5's gate (or under
+        squareplus, the plain twin's route); on a dense graph, an
         evaluation forward.
     """
 

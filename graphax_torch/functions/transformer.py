@@ -5,27 +5,40 @@
   1e-5 weights, so Q = K and attention is uniform at init).
 - `transformer_attention_apply` (:112-155) and `multiply_attention`
   (:192-198): the plain per-edge path, every score type, row or column
-  normalisation, softmax or squareplus, reweighting. The port's RHS does not
-  run it; it is the oracle the tests hold the kernels to.
+  normalisation, softmax or squareplus, reweighting. It is the oracle the
+  tests hold the kernels to, and the replay behind the column route's
+  gradient.
 - `attention_edge_means` (:162-189): the hard-attention block's per-edge
   pin, through the `attention_pin` kernel.
 - `TransformerFunction`, the twin of `make_transformer` (:259-314), and
-  `transformer_rhs`, its RHS as a function of the Q/K tensors (the adjoint
-  hands it detached copies): the sparse strategy's route through
-  `graphax_torch.kernels.fused_attention.fused_attention_ax`, the flash
-  kernels for an evaluation and the training kernels (forward with
-  residuals, row-side and column-side backward) where a gradient is needed;
-  the dense strategy's evaluation through `dense_rhs_ax` (:201-243), the
-  masked flash kernel (K6, `graphax_torch.kernels.flash_dense`) on the
-  card where graphax's gate holds, else the materialised
-  `dense_transformer_attention`.
+  `transformer_rhs`, its RHS as a function of its tensors (the adjoint
+  hands it detached copies). Its routes, as graphax's dispatch
+  (:270-313), through :func:`attention_ax`:
+  - the dense strategy's evaluation through `dense_rhs_ax` (:201-243), the
+    masked flash kernel (K6, `graphax_torch.kernels.flash_dense`) on the
+    card where graphax's gate holds, else the materialised
+    `dense_transformer_attention`;
+  - the windowed strategy (row normalisation): softmax through the
+    windowed attention kernel K5 and the three-kernel form on the residual
+    (`graphax_torch.kernels.winatt`), its gradient the replay of the plain
+    twin of graphax's `windowed_attention_ax`
+    (`graphax_torch.kernels.windowed_attention`); squareplus through that
+    twin itself, as graphax takes its XLA function there;
+  - the sparse strategy with column normalisation: the three-kernel form
+    with the column denominators (`graphax_torch.kernels.attention3`), its
+    gradient the replay of the plain per-edge path;
+  - the sparse strategy with row normalisation through
+    `graphax_torch.kernels.fused_attention.fused_attention_ax`: the flash
+    kernels for an evaluation, the training kernels (forward with
+    residuals, row-side and column-side backward) where a gradient is
+    needed.
 
 The Q and K projections are dense matmuls here, as graphax leaves them to
-XLA. Not ported yet, and raising: training configs outside the
-hand-written backward (graphax's XLA autodiff route), column normalisation
-in the sparse RHS, the windowed attention RHS (K5), training on the dense
+XLA. Not ported yet, and raising: row-normalised training on CSR outside
+the hand-written backward (graphax's XLA fused_attention_ax autodiff),
+column normalisation on the windowed strategy, training on the dense
 strategy (graphax has no gradient through K6), and Beltrami, mix_features
-and multi_modal (ROADMAP Queue 1 M6/M9, Queue 2, Queue 3)."""
+and multi_modal (ROADMAP Queue 1 M6/M9, Queue 3)."""
 
 from __future__ import annotations
 
@@ -41,6 +54,9 @@ from graphax_torch.kernels.dense_path import (
     dense_adjacency_mask, dense_matmul, dense_transformer_attention,
     use_dense_attention,
 )
+from graphax_torch.kernels.attention3 import (
+    ReplayAttention, colnorm_attention_ax_fast, colnorm_supported,
+)
 from graphax_torch.kernels.dispatch import (
     attention_spmm_auto, segment_softmax_auto, squareplus_auto,
 )
@@ -48,6 +64,9 @@ from graphax_torch.kernels.flash_dense import flash_attention_multihead
 from graphax_torch.kernels.fused_attention import (
     flash_supported, fused_attention_ax, prep_inputs,
 )
+from graphax_torch.kernels.windowed_attention import \
+    windowed_attention_ax_plain
+from graphax_torch.kernels.winatt import windowed_attention_ax_fast
 from graphax_torch.utils.params import linear_apply, linear_init
 
 
@@ -99,8 +118,9 @@ def attention_edge_means(att: TransformerAttention, cfg, graph, x
     another order)."""
     if not attention_means_supported(cfg):
         raise NotImplementedError(
-            "the pin covers row softmax only; column or squareplus "
-            "normalisation is ROADMAP Queue 2, K2")
+            "the pin covers row softmax only; its column or squareplus "
+            "normalisation (K2's other forms in the pin) comes with the "
+            "attention block (ROADMAP Queue 1, item 3)")
     if graph.strategy != "sparse":
         x = x.to(torch.promote_types(x.dtype, torch.float32))
     x = x.detach().contiguous()
@@ -145,17 +165,16 @@ def _edge_scores(cfg, att, q_src, k_dst):
     raise ValueError(f"unknown attention_type {cfg.attention_type!r}")
 
 
-def transformer_attention_apply(att: TransformerAttention, cfg, graph, x):
+def edge_attention(att, cfg, graph, x):
     """(attention ``[E_pad, H]`` normalised over the real edges of each row
-    (``attention_norm_idx=0``) or column, (v ``[N, H, Dh]``, the raw scores
-    ``[E_pad, H]``))."""
+    (``attention_norm_idx=0``) or column, the raw scores ``[E_pad, H]``):
+    the part of `transformer_attention_apply` that reads only Q and K."""
     if cfg.multi_modal:
         raise NotImplementedError("multimodal cross-attention is not ported "
                                   "yet (ROADMAP Queue 1, M9)")
     heads = cfg.heads
     q = _split_heads(linear_apply(att.Q, x), heads)
     k = _split_heads(linear_apply(att.K, x), heads)
-    v = _split_heads(linear_apply(att.V, x), heads)
     prods = _edge_scores(cfg, att, q[graph.row], k[graph.col])
     if cfg.reweight_attention:
         prods = prods * graph.edge_weight[:, None]
@@ -165,6 +184,15 @@ def transformer_attention_apply(att: TransformerAttention, cfg, graph, x):
         attention = squareplus_auto(graph, prods, is_row, mask)
     else:
         attention = segment_softmax_auto(graph, prods, is_row, mask)
+    return attention, prods
+
+
+def transformer_attention_apply(att: TransformerAttention, cfg, graph, x):
+    """(attention ``[E_pad, H]`` normalised over the real edges of each row
+    (``attention_norm_idx=0``) or column, (v ``[N, H, Dh]``, the raw scores
+    ``[E_pad, H]``))."""
+    attention, prods = edge_attention(att, cfg, graph, x)
+    v = _split_heads(linear_apply(att.V, x), cfg.heads)
     return attention, (v, prods)
 
 
@@ -190,11 +218,34 @@ class _Linear(NamedTuple):
     bias: torch.Tensor
 
 
-class _QK(NamedTuple):
-    """The attention layer's Q and K as plain tensors, for
-    `fused_attention_ax`."""
+class _Att(NamedTuple):
+    """The attention layer's Q and K (and exp_kernel's output_var and
+    lengthscale) as plain tensors, for the routes of :func:`attention_ax`.
+    :meth:`flatten` and :meth:`from_flat` hold their one flat layout, that
+    of the adjoint's tensors and of :class:`ReplayAttention`'s: ``(Wq, bq,
+    Wk, bk[, output_var, lengthscale])``."""
     Q: _Linear
     K: _Linear
+    output_var: torch.Tensor | None = None
+    lengthscale: torch.Tensor | None = None
+
+    @staticmethod
+    def flatten(cfg, att) -> tuple:
+        """``att``'s tensors (of an `_Att` or the layer) in the flat
+        layout."""
+        out = (att.Q.weight, att.Q.bias, att.K.weight, att.K.bias)
+        if cfg.attention_type == "exp_kernel":
+            out += (att.output_var, att.lengthscale)
+        return out
+
+    @classmethod
+    def from_flat(cls, cfg, flat) -> tuple:
+        """(the `_Att` at the front of ``flat``, the tensors after it)."""
+        qw, qb, kw, kb, *rest = flat
+        ov = ls = None
+        if cfg.attention_type == "exp_kernel":
+            ov, ls, *rest = rest
+        return cls(_Linear(qw, qb), _Linear(kw, kb), ov, ls), tuple(rest)
 
 
 def flash_dense_gate(cfg, n: int) -> bool:
@@ -232,13 +283,62 @@ def dense_rhs_ax(att: TransformerAttention, cfg, graph, x, mask=None,
     return dense_matmul(att_w.mean(0), x)
 
 
-def transformer_rhs(cfg, graph, alpha, beta, x0, qw, qb, kw, kb, x):
-    """``alpha (A(x) x - x) [+ beta x0]`` with A from the Q/K weights
-    ``qw`` [A, D], ``qb`` [A], ``kw``, ``kb``: the RHS of the configs the
-    training kernels cover, as a function of its tensors (the adjoint
-    differentiates it with respect to each)."""
-    ax = fused_attention_ax(cfg, _QK(_Linear(qw, qb), _Linear(kw, kb)),
-                            graph, x)
+def colnorm_ax_plain(cfg, att, graph, x):
+    """``A(x) x`` under column normalisation through the plain per-edge
+    path (`edge_attention` + `multiply_attention`): the replay of the
+    column route's gradient."""
+    attention, _ = edge_attention(att, cfg, graph, x)
+    return multiply_attention(att, cfg, graph, x, attention, None)
+
+
+def _replayed(cfg, att, graph, x, fast, plain, **tensor_kw) -> torch.Tensor:
+    """``fast(cfg, att, graph, x, **tensor_kw)`` when no gradient is
+    needed, else the same through :class:`ReplayAttention`, whose backward
+    replays ``plain``'s vjp with respect to x, Q, K (and exp_kernel's two
+    scalars) and the tensors of ``tensor_kw`` (the windowed reweight's
+    dense weights)."""
+    tensors = (x, *_Att.flatten(cfg, att), *tensor_kw.values())
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
+        return fast(cfg, att, graph, x, **tensor_kw)
+
+    def bind(fn):
+        def call(x, *flat):
+            a, rest = _Att.from_flat(cfg, flat)
+            return fn(cfg, a, graph, x, **dict(zip(tensor_kw, rest)))
+        return call
+
+    return ReplayAttention.apply(bind(fast), bind(plain), *tensors)
+
+
+def attention_ax(cfg, att, graph, x, dense=None) -> torch.Tensor:
+    """``A(x) x`` of the GRAND-nl RHS on a sparse or windowed graph, in x's
+    dtype, by graphax's dispatch (:281-306): on the windowed strategy K5's
+    route (softmax) or the plain twin (squareplus); on the sparse strategy
+    the column route (``attention_norm_idx=1``) or `fused_attention_ax`.
+    ``dense``: the windowed graph's ``[T, tile, W]`` densified weights
+    (reweight only)."""
+    if graph.strategy == "windowed":
+        if cfg.square_plus:
+            return windowed_attention_ax_plain(cfg, att, graph, x, dense)
+        kw = {} if dense is None else {"dense_weight": dense}
+        return _replayed(cfg, att, graph, x, windowed_attention_ax_fast,
+                         windowed_attention_ax_plain, **kw)
+    if cfg.attention_norm_idx != 0:
+        return _replayed(cfg, att, graph, x, colnorm_attention_ax_fast,
+                         colnorm_ax_plain)
+    return fused_attention_ax(cfg, att, graph, x)
+
+
+def transformer_rhs(cfg, graph, p, x):
+    """``alpha (A(x) x - x) [+ beta x0]`` as a function of its tensors ``p
+    = (alpha, beta, x0, Wq, bq, Wk, bk[, output_var, lengthscale][,
+    dense])``: the Q/K weights (``[A, D]``, ``[A]``), exp_kernel's two
+    scalars, and the windowed graph's densified weights under reweight (the
+    adjoint differentiates it with respect to each)."""
+    alpha, beta, x0, *flat = p
+    att, rest = _Att.from_flat(cfg, flat)
+    ax = attention_ax(cfg, att, graph, x, rest[0] if rest else None)
     return apply_alpha_beta(cfg, alpha, beta, ax, x, x0)
 
 
@@ -263,12 +363,20 @@ class TransformerFunction(nn.Module):
         nn.init.zeros_(self.beta_train)
         self.att.reset_parameters(generator)
 
+    def adjoint_tensors(self) -> tuple:
+        """The attention tensors `transformer_rhs` reads after alpha, beta
+        and x0: Q's and K's weights and biases, and exp_kernel's
+        output_var and lengthscale."""
+        return _Att.flatten(self.cfg, self.att)
+
     def check_route(self, fstate, x) -> None:
         """Raise on the routes of graphax's dispatch (`:270-313`) that the
         port has not ported. Ported: the dense strategy's evaluation within
-        ``use_dense_attention``'s guard, and the sparse strategy with
-        ``fast_attention`` (set for evaluation, and for training where the
-        hand-written backward covers the config) and row normalisation."""
+        ``use_dense_attention``'s guard; the windowed strategy with row
+        normalisation (K5's route, or the plain twin under squareplus); the
+        sparse strategy with ``fast_attention`` (set for evaluation, and
+        for training where the hand-written backward covers the config or
+        the column route serves it)."""
         cfg = self.cfg
         g = fstate.graph
         if g.strategy == "dense":
@@ -285,10 +393,20 @@ class TransformerFunction(nn.Module):
                     "memory guard (graphax's per-edge XLA route): not ported "
                     "yet (ROADMAP Queue 1, item 6)")
             return
-        if g.strategy != "sparse":
-            raise NotImplementedError(_UNPORTED_RHS.format(
-                "on the windowed strategy (the windowed attention kernel "
-                "K5, `pallas_winatt.py:43`)", "Queue 2, item 1"))
+        if g.strategy == "windowed":
+            if cfg.attention_norm_idx != 0:
+                raise NotImplementedError(_UNPORTED_RHS.format(
+                    "with column normalisation on the windowed strategy "
+                    "(graphax leaves the windowed layout for its tiled "
+                    "fused path there)", "Queue 3, 'windowed GRAND-nl with "
+                    "column normalisation'"))
+            if not fstate.fast_attention:
+                raise NotImplementedError(_UNPORTED_RHS.format(
+                    "on the windowed strategy beyond the windowed attention "
+                    "kernel's gate (winatt_supported: the four score types, "
+                    "a 2-D state, shared memory for D and A)",
+                    "Queue 1, item 6"))
+            return
         if not fstate.fast_attention:
             raise NotImplementedError(_UNPORTED_RHS.format(
                 "training outside the hand-written backward's configs "
@@ -296,26 +414,26 @@ class TransformerFunction(nn.Module):
                 "graphax's XLA fused_attention_ax autodiff)",
                 "Queue 1, item 6"))
         if cfg.attention_norm_idx != 0:
-            raise NotImplementedError(_UNPORTED_RHS.format(
-                "with column normalisation (attention_norm_idx=1: K1/K2 with "
-                "the global shift and the K3 per-edge-denominator form)",
-                "Queue 2, item 2"))
+            if not colnorm_supported(cfg, x.shape[1]):
+                raise NotImplementedError(
+                    "GRAND-nl with column normalisation beyond the column "
+                    "route's gate (colnorm_supported: shared memory for D "
+                    "and A): not ported yet (ROADMAP Queue 1, item 6)")
+            return
         if not flash_supported(cfg, x.shape[1]):
             raise NotImplementedError(
                 "GRAND-nl beyond the flash kernels' gate (flash_supported: "
                 "shared memory for D and A): not ported yet (ROADMAP Queue "
-                "2)")
+                "1, item 6)")
 
     def rhs(self, alpha, beta, fstate, t, x):
         """graphax's dense route on a dense graph (:277-279), evaluation
-        only; its fast-attention route on a sparse graph: the flash kernels
-        for an evaluation, the training kernels where a gradient is needed
-        (its `fused_attention_ax_pallas` with the Pallas backward); every
-        other route raises."""
+        only; else :func:`attention_ax`'s routes; every other route
+        raises."""
         self.check_route(fstate, x)
         g = fstate.graph
         if g.strategy == "dense":
             ax = dense_rhs_ax(self.att, self.cfg, g, x, mask=fstate.mask)
         else:
-            ax = fused_attention_ax(self.cfg, self.att, g, x)
+            ax = attention_ax(self.cfg, self.att, g, x, fstate.dense)
         return apply_alpha_beta(self.cfg, alpha, beta, ax, x, fstate.x0)

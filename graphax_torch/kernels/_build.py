@@ -62,6 +62,14 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _I, _P],
         "gx_attention_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P],
+        "gx_attention_norm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _F, _F, _I, _P],
+        "gx_attention_attspmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _P],
+    },
+    "winatt": {
+        "gx_winatt": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _F, _F, _I, _P],
     },
     "flash_dense": {
         "gx_flash_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -16,9 +16,17 @@
 //   - B1 `_bwd1_kernel` (:576) and B2 `_make_bwd2_kernel` (:659): the
 //     row-side backward, bwd_rows_kernel;
 //   - B3 `_make_bwd3_kernel` (:727, called at :1241-1260): the column-side
-//     backward, bwd_cols_kernel, over the CSC layout.
+//     backward, bwd_cols_kernel, over the CSC layout;
+//   - K1 + K2 in their global-shift form (`_scores_call` + `_norm_call` with
+//     one shift for every row, :1078-1087 under column normalisation and
+//     graphax/kernels/pallas_winatt.py:199-207 on the windowed residual):
+//     norm_kernel;
+//   - K3 with denominators handed to it (`_attspmm_call`, :266), both forms:
+//     a row table (the windowed residual against K5's combined
+//     denominators, pallas_winatt.py:234-236) and, per edge, a column table
+//     read at col[e] (`per_edge_denom=True`, :1089-1108): attspmm_kernel.
 //
-// Six kernels here:
+// Eight kernels here:
 //   kproj_kernel  K[N, A] = x Wk + bk in f32, once per node. graphax projects
 //                 every gathered source row inside its kernels (E rows); the
 //                 per-node pass computes the same values (f32 sums of exact
@@ -74,8 +82,24 @@
 //                 its alpha is the forward's alpha exactly (in bf16 graphax's
 //                 B3 alpha differs from its K1 alpha by k's rounding).
 //
-// None of the three uses atomics: every output row is written by the one
-// warp that owns it, so the results do not depend on the schedule.
+//   norm_kernel   one warp per CSR row, lanes over its (edge, head) pairs:
+//                 the score of `_score_math` (q pre-scaled for scaled_dot,
+//                 the f32 K table, the optional reweight), then e = exp(s -
+//                 g) or squareplus(s - g) with g ONE f32 value for every row
+//                 (a 0-d device tensor, from gmax_kernel), written to e [E,
+//                 H] f32 unrounded as K2 writes it; then per head the row's
+//                 denominator sum e, a warp sum (0 for a row with no edge).
+//   attspmm_kernel one warp per CSR row, lanes over columns (8 per lane,
+//                 256-wide chunks of D), the row's edges in order: w_e =
+//                 rnd(mean_h e_eh / (den > 0 ? den : 1)) with K3's
+//                 zero-select (:287-293) and den from a per-row table [N, H]
+//                 (den[r]) or a per-node column table read at the edge's
+//                 column (den[col_e], the per-edge form without an [E, H]
+//                 copy); out = sum rnd(x[col] * w_e) in f32. A row with no
+//                 edge writes 0.
+//
+// None of them uses atomics: every output row is written by the one warp
+// that owns it, so the results do not depend on the schedule.
 //
 // Semantics against graphax: the softmax shift is the row's final max (two
 // passes), where graphax's online recurrence shifts each 128-row tile's
@@ -92,7 +116,12 @@
 // the same way: the forward with residuals moves ~217 MB (0.065 ms), the row
 // backward ~185 MB (0.055 ms), the column backward ~284 MB (0.085 ms), each
 // against a few GFLOP; each walks its rows (columns) edge by edge with a
-// dependent gather of an x (g) row and a warp reduction per edge.
+// dependent gather of an x (g) row and a warp reduction per edge. norm_kernel
+// must read q, K and the CSR once and write e [E, H] and the [N, H]
+// denominators (~47 MB over the whole arxiv CSR in bf16, 0.014 ms);
+// attspmm_kernel must read e, a denominator table, x and the CSR and write
+// the f32 output (~186 MB, 0.056 ms): both bytes-bound, both gathering per
+// edge as flash does.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -538,6 +567,83 @@ bwd_cols_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   for (int i = lane; i < d; i += 32) dxv[(size_t)c * d + i] = dx[i];
 }
 
+// K1 + K2 with one shift for every row. Lanes over the row's (edge, head)
+// pairs write e = weight(s - g) unrounded; then per head the f32 sum of the
+// row's e, a warp sum.
+template <typename T, bool SQP>
+__global__ void __launch_bounds__(WPB * 32)
+norm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+            const T* __restrict__ q, const float* __restrict__ kt,
+            const float* __restrict__ ew, const float* __restrict__ gshift,
+            float* __restrict__ eo, float* __restrict__ den, int n, int a,
+            int h, int att_type, float ov2, float inv2l2) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* qs = smem + (size_t)w * a;  // [a] q of the row
+  const int r = blockIdx.x * WPB + w;
+  if (r >= n) return;
+  const int beg = ptr[r], end = ptr[r + 1];
+  const float g = *gshift;
+  const int dk = a / h;
+  for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
+  __syncwarp();
+  const int pairs = (end - beg) * h;
+  for (int p = lane; p < pairs; p += 32) {
+    const int e = beg + p / h, hh = p % h;
+    const float s = edge_score(qs, kt, idx, ew, e, hh, a, dk, att_type, ov2,
+                               inv2l2);
+    eo[(size_t)e * h + hh] = weight<SQP>(s - g);
+  }
+  __syncwarp();
+  for (int hh = 0; hh < h; ++hh) {
+    float sum = 0.f;
+    for (int e = beg + lane; e < end; e += 32) sum += eo[(size_t)e * h + hh];
+    sum = warp_sum(sum);
+    if (lane == 0) den[(size_t)r * h + hh] = sum;
+  }
+}
+
+// K3 against denominators handed to it: den [N, H] read at the row
+// (PERCOL false) or at the edge's column (PERCOL true).
+template <typename T, bool PERCOL>
+__global__ void __launch_bounds__(WPB * 32)
+attspmm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+               const float* __restrict__ eo, const float* __restrict__ den,
+               const T* __restrict__ x, float* __restrict__ out, int n, int d,
+               int h) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * WPB + w;
+  if (r >= n) return;
+  const int beg = ptr[r], end = ptr[r + 1];
+  float* orow = out + (size_t)r * d;
+  for (int c0 = 0; c0 < d; c0 += 32 * CPL) {
+    float acc[CPL];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
+    for (int e = beg; e < end; ++e) {
+      const int c = idx[e];
+      const float* dn = den + (size_t)(PERCOL ? c : r) * h;
+      float wsum = 0.f;
+      for (int hh = 0; hh < h; ++hh) {
+        const float v = dn[hh];
+        wsum += eo[(size_t)e * h + hh] / (v > 0.f ? v : 1.f);
+      }
+      const float wt = rnd<T>(wsum / (float)h);
+      const T* xr = x + (size_t)c * d;
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) {
+        const int i = c0 + lane + 32 * k;
+        if (i < d) acc[k] += rnd<T>(to_f(xr[i]) * wt);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int i = c0 + lane + 32 * k;
+      if (i < d) orow[i] = acc[k];
+    }
+  }
+}
+
 int sm_count() {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -645,6 +751,31 @@ cudaError_t run_bwd_cols(const void* ptr, const void* idx, const void* q,
       (const T*)x, (const float*)kt, (const float*)shift,
       (const float*)denom, (const float*)rho, (float*)dk, (float*)dxv, n, d,
       a, h);
+  return cudaGetLastError();
+}
+
+template <typename T, bool SQP>
+cudaError_t run_norm(const void* ptr, const void* idx, const void* q,
+                     const void* kt, const void* ew, const void* gshift,
+                     void* eo, void* den, int n, int a, int h, int att_type,
+                     float ov2, float inv2l2, cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)WPB * a;
+  cudaError_t err = allow_smem(norm_kernel<T, SQP>, smem);
+  if (err != cudaSuccess) return err;
+  norm_kernel<T, SQP><<<(n + WPB - 1) / WPB, WPB * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
+      (const float*)ew, (const float*)gshift, (float*)eo, (float*)den, n, a,
+      h, att_type, ov2, inv2l2);
+  return cudaGetLastError();
+}
+
+template <typename T, bool PERCOL>
+cudaError_t run_attspmm(const void* ptr, const void* idx, const void* eo,
+                        const void* den, const void* x, void* out, int n,
+                        int d, int h, cudaStream_t s) {
+  attspmm_kernel<T, PERCOL><<<(n + WPB - 1) / WPB, WPB * 32, 0, s>>>(
+      (const int*)ptr, (const int*)idx, (const float*)eo, (const float*)den,
+      (const T*)x, (float*)out, n, d, h);
   return cudaGetLastError();
 }
 
@@ -768,6 +899,58 @@ int gx_attention_bwd_cols(const void* ptr, const void* idx, const void* q,
     return (int)run_bwd_cols<__nv_bfloat16>(ptr, idx, q, g, x, kt, shift,
                                             denom, rho, dk, dxv, n, d, a, h,
                                             s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 + K2 with one shift for every row. q [n, a] in the state dtype
+// (pre-scaled for scaled_dot); kt [n, a] float32; ew [E] float32 or null;
+// gshift [1] float32 (the shift, from gx_attention_gmax); eo [E, h] float32
+// out (e unrounded); den [n, h] float32 out (the row sums of e).
+int gx_attention_norm(const void* ptr, const void* idx, const void* q,
+                      const void* kt, const void* ew, const void* gshift,
+                      void* eo, void* den, int n, int a, int h, int att_type,
+                      int reweight, int square_plus, float ov2, float inv2l2,
+                      int dtype, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const void* ewp = reweight ? ew : nullptr;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return square_plus
+        ? (int)run_norm<float, true>(ptr, idx, q, kt, ewp, gshift, eo, den, n,
+                                     a, h, att_type, ov2, inv2l2, s)
+        : (int)run_norm<float, false>(ptr, idx, q, kt, ewp, gshift, eo, den,
+                                      n, a, h, att_type, ov2, inv2l2, s);
+  if (dtype == 1)
+    return square_plus
+        ? (int)run_norm<__nv_bfloat16, true>(ptr, idx, q, kt, ewp, gshift, eo,
+                                             den, n, a, h, att_type, ov2,
+                                             inv2l2, s)
+        : (int)run_norm<__nv_bfloat16, false>(ptr, idx, q, kt, ewp, gshift,
+                                              eo, den, n, a, h, att_type, ov2,
+                                              inv2l2, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3 against outside denominators. eo [E, h] float32 (from gx_attention_norm);
+// den [n, h] float32, read at the row (per_column 0) or at the edge's column
+// (per_column 1); x [n, d] in the state dtype; out [n, d] float32.
+int gx_attention_attspmm(const void* ptr, const void* idx, const void* eo,
+                         const void* den, const void* x, void* out, int n,
+                         int d, int h, int per_column, int dtype,
+                         void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return per_column
+        ? (int)run_attspmm<float, true>(ptr, idx, eo, den, x, out, n, d, h, s)
+        : (int)run_attspmm<float, false>(ptr, idx, eo, den, x, out, n, d, h,
+                                         s);
+  if (dtype == 1)
+    return per_column
+        ? (int)run_attspmm<__nv_bfloat16, true>(ptr, idx, eo, den, x, out, n,
+                                                d, h, s)
+        : (int)run_attspmm<__nv_bfloat16, false>(ptr, idx, eo, den, x, out,
+                                                 n, d, h, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -269,8 +269,117 @@ def flash_attention(layout: Layout, q: torch.Tensor, x: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
+# the three-kernel form: one global shift, denominators outside K3
+# ----------------------------------------------------------------------
+
+def attention_norm_plain(layout: Layout, q, kt, edge_w, shift,
+                         att_type: str, heads: int, ov2: float = 1.0,
+                         inv2l2: float = 0.5, square_plus: bool = False):
+    """K1 + K2 under one shift in plain PyTorch: (e [E, H] f32, unrounded;
+    the row sums of e [N, H] f32)."""
+    s = edge_scores_plain(layout, q, kt, edge_w, att_type, heads, ov2,
+                          inv2l2)
+    z = s - shift
+    e = (z + torch.sqrt(z * z + 4.0)) / 2.0 if square_plus else torch.exp(z)
+    return e, segment_sum(e, layout.seg, layout.num_rows)
+
+
+def attention_norm(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
+                   edge_w, shift: torch.Tensor, att_type: str, heads: int,
+                   ov2: float = 1.0, inv2l2: float = 0.5,
+                   square_plus: bool = False):
+    """graphax's K1 + K2 (`_scores_call`, `_norm_call`, `:114, 197`) with
+    ONE shift for every row, as its column-normalised route (`:1078-1087`)
+    and its windowed residual (`pallas_winatt.py:199-207`) run them: ``(e,
+    den)`` as the plain version. ``q [N, A]`` in the state dtype
+    (pre-scaled for scaled_dot), ``kt [N, A]`` f32, ``edge_w`` f32 per slot
+    of ``layout`` or None, ``shift`` a 0-d f32 tensor (from
+    :func:`attention_gmax`)."""
+    _check_scores("attention_norm", q, kt, heads, att_type)
+    _no_grad("attention_norm", q, kt, edge_w)
+    if not q.is_cuda:
+        return attention_norm_plain(layout, q, kt, edge_w, shift, att_type,
+                                    heads, ov2, inv2l2, square_plus)
+    n = q.shape[0]
+    _check_layout("attention_norm", layout, n, edge_w)
+    if shift.dtype != torch.float32 or shift.numel() != 1:
+        raise ValueError("attention_norm: shift must be one f32 value")
+    _check_operands("attention_norm", q, layout.ptr, layout.idx, q, kt,
+                    edge_w, shift)
+    e = torch.empty((layout.num_slots, heads), dtype=torch.float32,
+                    device=q.device)
+    den = torch.empty((n, heads), dtype=torch.float32, device=q.device)
+    lib = _build.library("fused_attention")
+    err = lib.gx_attention_norm(
+        layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
+        kt.data_ptr(), edge_w.data_ptr() if edge_w is not None else None,
+        shift.data_ptr(), e.data_ptr(), den.data_ptr(), n, q.shape[1], heads,
+        ATT_TYPES[att_type], int(edge_w is not None), int(square_plus),
+        float(ov2), float(inv2l2), _DTYPES[q.dtype], _build.stream_ptr(q))
+    _build.check(err, "attention_norm")
+    _build.LAUNCHES["attention_norm"] += 1
+    return e, den
+
+
+def attention_attspmm_plain(layout: Layout, e, den, x,
+                            per_column: bool = False):
+    """K3 against outside denominators in plain PyTorch: ``[N, D]`` f32,
+    ``sum rnd(x[col] * rnd(mean_h e / (den or 1)))`` with ``den`` read at
+    each slot's row, or at its column when ``per_column``."""
+    seg, col = layout.seg, layout.idx.long()
+    de = _zero_select(den)[col if per_column else seg]
+    w = (e / de).sum(1) / e.shape[1]
+    vals = (x[col] * w.to(x.dtype)[:, None]).float()
+    out = torch.zeros((layout.num_rows, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    return out.index_add_(0, seg, vals)
+
+
+def attention_attspmm(layout: Layout, e: torch.Tensor, den: torch.Tensor,
+                      x: torch.Tensor, per_column: bool = False
+                      ) -> torch.Tensor:
+    """graphax's K3 (`_make_attspmm_kernel`, `:266`) with its denominators
+    handed to it: ``[N, D]`` f32 as the plain version. ``e [E, H]`` f32
+    from :func:`attention_norm` in ``layout``'s slot order; ``den [N, H]``
+    f32, a row table (``per_column`` False: K3's row form, the windowed
+    residual against K5's combined denominators) or a column table read at
+    each edge's column (``per_column``: its ``per_edge_denom`` form under
+    column normalisation); ``x [N, D]`` in the state dtype."""
+    _no_grad("attention_attspmm", e, den, x)
+    if not x.is_cuda:
+        return attention_attspmm_plain(layout, e, den, x, per_column)
+    n, d = x.shape
+    if x.dtype not in _DTYPES:
+        raise TypeError("attention_attspmm: x must be float32 or bfloat16")
+    heads = den.shape[1] if den.dim() == 2 else 0
+    if (e.dtype != torch.float32 or den.dtype != torch.float32
+            or heads < 1 or den.shape[0] != n
+            or e.shape != (layout.num_slots, heads)):
+        raise ValueError("attention_attspmm: e [E, H] and den [N, H] f32 "
+                         "required")
+    _check_layout("attention_attspmm", layout, n, None)
+    _check_operands("attention_attspmm", x, layout.ptr, layout.idx, e, den,
+                    x)
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    lib = _build.library("fused_attention")
+    err = lib.gx_attention_attspmm(
+        layout.ptr.data_ptr(), layout.idx.data_ptr(), e.data_ptr(),
+        den.data_ptr(), x.data_ptr(), out.data_ptr(), n, d, heads,
+        int(per_column), _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(err, "attention_attspmm")
+    _build.LAUNCHES["attention_attspmm"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
 # the RHS's attention product
 # ----------------------------------------------------------------------
+
+def kproj_fits(d: int, a: int) -> bool:
+    """The K projection's f32 Wk [D, A] and staged rows fit one block's
+    shared memory."""
+    return 4 * (d * a + _WPB * _KROWS * d) <= _SMEM_LIMIT
+
 
 def flash_supported(cfg, d: int) -> bool:
     """The port's gate for the flash path (graphax's is
@@ -286,8 +395,7 @@ def flash_supported(cfg, d: int) -> bool:
             and cfg.attention_type in ATT_TYPES
             and not cfg.beltrami and not cfg.mix_features
             and not cfg.multi_modal
-            and a % cfg.heads == 0
-            and 4 * (d * a + _WPB * _KROWS * d) <= _SMEM_LIMIT
+            and a % cfg.heads == 0 and kproj_fits(d, a)
             and 4 * _WPB * (a + 2 * cfg.heads) <= _SMEM_STATIC)
 
 

@@ -18,7 +18,11 @@ are not carried over. The GPU layout is:
 - ``tile_win [T]``, each tile's window;
 - a window -> tiles CSR (``win_ptr``, ``win_tiles``) for `win_bwd_slab`;
 - a CSR and a CSC :class:`Layout` of the residual edges, whose ``perm``
-  holds each slot's edge position.
+  holds each slot's edge position;
+- built at first use and kept (GRAND-nl's windowed attention reads them):
+  the occupied cells as a CSR over rows (``in_window``, the cell lists the
+  windowed attention kernel walks) and as a ``[T, tile, W]`` bool mask
+  (``dense_mask``, graphax's ``WindowTiles.dense_mask``).
 
 No hub layout: graphax extracts hub columns from the residual with a cost
 model in TPU v5e constants (`graphax/kernels/hubs.py:65-73`), which the port
@@ -28,6 +32,7 @@ no hubs (ROADMAP, "the hub layout")."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -57,6 +62,30 @@ class WindowLayout:
     @property
     def block_shape(self) -> tuple:
         return (self.num_tiles, self.tile, self.window)
+
+    @functools.cached_property
+    def in_window(self) -> Layout:
+        """The occupied cells of the blocks as a CSR over rows, each cell
+        once in (row, column) order: ``idx`` its column (int32), ``seg`` its
+        row, ``perm`` the cell in the flattened ``[T, tile, W]`` blocks."""
+        w = self.window
+        cell = torch.unique(self.win_cell.long())          # sorted
+        row = cell // w
+        col = self.tile_win.long()[row // self.tile] * w + cell % w
+        counts = torch.bincount(row, minlength=self.num_nodes)
+        ptr = torch.zeros(self.num_nodes + 1, dtype=torch.int64,
+                          device=cell.device)
+        ptr[1:] = torch.cumsum(counts, 0)
+        return Layout(ptr=ptr.to(torch.int32), seg=row,
+                      idx=col.to(torch.int32), perm=cell)
+
+    @functools.cached_property
+    def dense_mask(self) -> torch.Tensor:
+        """``[T, tile, W]`` bool: the cells an in-window edge occupies."""
+        m = torch.zeros(self.num_tiles * self.tile * self.window,
+                        dtype=torch.bool, device=self.win_cell.device)
+        m[self.win_cell.long()] = True
+        return m.reshape(self.block_shape)
 
     def to(self, device) -> "WindowLayout":
         mv = lambda t: t.to(device)

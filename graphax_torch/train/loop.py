@@ -15,8 +15,10 @@ Not ported here (ROADMAP): graphax's 3-jit `split_step` (a TPU compiler
 workaround with no output change), kNN/edge-sampling rewiring, checkpoints
 and the label trick. GRAND-nl (the transformer RHS) trains on a sparse
 graph where the hand-written attention backward covers its config
-(`kernels.fused_attention.train_supported`); other transformer configs,
-and any on a dense graph, raise `NotImplementedError` in the train step."""
+(`kernels.fused_attention.train_supported`) or under column normalisation
+(`kernels.attention3`), and on a windowed graph with row normalisation
+(`kernels.winatt`); other transformer configs, and any on a dense graph,
+raise `NotImplementedError` in the train step."""
 
 from __future__ import annotations
 

@@ -16,7 +16,13 @@ and exp in another order), its bf16 products one bf16 ulp apart at the
 margin (the rounded weight can land either side: 2e-2 / 2e-3). The
 training kernels: their f32 tables and gradients at graphax's attention
 tolerance; their sums of products rounded to bf16 2e-2 relative plus two
-bf16 ulps of the largest factor (stated at `_check_train_kernels`)."""
+bf16 ulps of the largest factor (stated at `_check_train_kernels`). The
+three-kernel form (attention_norm, attention_attspmm) and the windowed
+attention kernel (winatt): f32 tables at graphax's attention tolerance,
+sums of rounded products as the training kernels' (stated at
+`_check_norm_attspmm` and `_check_winatt`); the routes' autograd Functions
+against autograd through their plain twins at the training route's
+tolerance."""
 
 import numpy as np
 import pytest
@@ -317,6 +323,14 @@ def _train_case(g, dtype, d, a, heads, seed):
     return q, x, kt, cot
 
 
+def _rounded(dtype, factor):
+    """f32: graphax's attention tolerance. bf16 sums of rounded products:
+    2e-2 relative plus two bf16 ulps (2^-6) of the largest factor (a
+    weight rounded at the margin moves one term by one ulp)."""
+    return dict(rtol=2e-4, atol=2e-5) if dtype == "float32" else dict(
+        rtol=2e-2, atol=2.0 ** -6 * float(factor.float().abs().max()))
+
+
 def _check_train_kernels(g, dtype, d, a, heads, seed):
     """Each training kernel against its plain version on the same inputs
     (the backward kernels on the kernel forward's residuals). f32 tables
@@ -328,11 +342,7 @@ def _check_train_kernels(g, dtype, d, a, heads, seed):
     factor (x, or the cotangent)."""
     q, x, kt, cot = _train_case(g, dtype, d, a, heads, seed)
     f32 = dict(rtol=2e-4, atol=2e-5)
-
-    def rounded(factor):
-        return f32 if dtype == "float32" else dict(
-            rtol=2e-2, atol=2.0 ** -6 * float(factor.float().abs().max()))
-
+    rounded = lambda factor: _rounded(dtype, factor)
     out, sc, shift, denom = fa.attention_fwd_res(g.csr, q, x, kt, heads)
     w_out, w_sc, w_shift, w_denom = fa.attention_fwd_res_plain(g.csr, q, x,
                                                                kt, heads)
@@ -428,6 +438,218 @@ def test_cuda_train_function_matches_autograd_through_plain_path(cuda):
         return multiply_attention(att, cfg, g, xr, alpha, v)
 
     want = grads(plain)
+    top = [float(t.abs().max()) for t in want]
+    scale = top[:2] + [max(top[2:4])] * 2 + [max(top[4:])] * 2
+    for name, a_, b_, sc_ in zip(("out", "x", "Qw", "Qb", "Kw", "Kb"), got,
+                                 want, scale):
+        torch.testing.assert_close(a_, b_, rtol=2e-4, atol=1e-4 * sc_,
+                                   msg=name)
+
+
+# ----------------------------------------------------------------------
+# the three-kernel form under one global shift, and the windowed kernel K5
+
+def _check_norm_attspmm(g, dtype, d, a, heads, att_type, ew, sqp, seed):
+    """attention_norm (e, row sums) and attention_attspmm in both forms
+    against their plain versions; e and the sums f32 at graphax's
+    attention tolerance."""
+    from graphax_torch.kernels.attention3 import column_denominators
+
+    q, x, kt, _ = _train_case(g, dtype, d, a, heads, seed)
+    f32 = dict(rtol=2e-4, atol=2e-5)
+    scal = (att_type, heads, 1.3, 0.7)
+    gs = fa.attention_gmax(g.csr, q, kt, ew, *scal)
+    e, den = fa.attention_norm(g.csr, q, kt, ew, gs, *scal, square_plus=sqp)
+    w_e, w_den = fa.attention_norm_plain(g.csr, q, kt, ew, gs, *scal,
+                                         square_plus=sqp)
+    torch.testing.assert_close(e, w_e, **f32)
+    torch.testing.assert_close(den, w_den, **f32)
+    col = column_denominators(g.csc, e)
+    outs = []
+    for table, per_col in ((den, False), (col, True)):
+        got = fa.attention_attspmm(g.csr, e, table, x, per_column=per_col)
+        want = fa.attention_attspmm_plain(g.csr, e, table, x, per_col)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, **_rounded(dtype, x))
+        outs.append(got)
+    return outs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("att_type", ["scaled_dot", "cosine_sim", "pearson",
+                                      "exp_kernel"])
+def test_cuda_norm_and_attspmm_match_plain(cuda, dtype, att_type):
+    """Random graph (the last 7 rows and columns empty, padding), softmax
+    and squareplus, reweight on and off, D = 162 and an odd D = 300."""
+    for i, (g, d, a, heads) in enumerate(((_cuda_graph(cuda), 162, 32, 2),
+                                          (_cuda_graph(cuda, seed=7), 300, 12,
+                                           3))):
+        for ew in (None, g.edge_weight):
+            for sqp in (False, True):
+                for out in _check_norm_attspmm(g, dtype, d, a, heads,
+                                               att_type, ew, sqp, i):
+                    assert torch.all(out[-7:] == 0)
+
+
+def test_cuda_norm_and_attspmm_one_edge_and_empty_graph(cuda):
+    outs = _check_norm_attspmm(_one_edge_graph(cuda), "float32", 5, 4, 2,
+                               "scaled_dot", None, False, 3)
+    assert all(torch.count_nonzero(o.abs().sum(1)) == 1 for o in outs)
+    empty = Graph.from_edges(np.zeros(0, np.int64), np.zeros(0, np.int64), 6,
+                             edge_buffer_size=2, device=cuda)
+    outs = _check_norm_attspmm(empty, "bfloat16", 5, 4, 2, "scaled_dot",
+                               None, True, 4)
+    assert not any(o.any() for o in outs)
+
+
+def test_cuda_norm_keeps_subnormal_weights(cuda):
+    """attention_norm's e for scores 95 and 100 below the shift: the f32
+    subnormals torch gives on the CPU, bit for bit (the column route's
+    weights at the far end of its one global shift)."""
+    g = Graph.from_edges(np.array([0, 0]), np.array([0, 1]), 2, device=cuda)
+    q = torch.tensor([[1.0, 0.0], [0.0, 0.0]], device=cuda)
+    kt = torch.tensor([[-95.0, 0.0], [-100.0, 0.0]], device=cuda)
+    e, _ = fa.attention_norm(g.csr, q, kt, None,
+                             torch.zeros((), device=cuda), "scaled_dot", 1)
+    want = torch.exp(torch.tensor([-95.0, -100.0]))
+    assert want.min() > 0 and torch.equal(e.flatten().cpu(), want)
+
+
+def test_cuda_column_denominators_keep_subnormal_sums(cuda):
+    """The column route's denominators of weights that are all f32
+    subnormals: the CPU's sums bit for bit (sums of subnormals are exact),
+    where an f32 atomic add on the card would flush them to 0 and K3's
+    zero-select would then drop the column's softmax."""
+    from graphax_torch.kernels.attention3 import column_denominators
+
+    row = np.array([0, 0, 1, 1, 2])
+    col = np.array([0, 1, 0, 1, 0])
+    e = torch.exp(-torch.tensor([[95.0, 96.0], [97.0, 98.0], [99.0, 100.0],
+                                 [101.0, 102.0], [0.0, 103.0]]))
+    g_cpu = Graph.from_edges(row, col, 3)
+    g_card = Graph.from_edges(row, col, 3, device=cuda)
+    want = column_denominators(g_cpu.csc, e)
+    got = column_denominators(g_card.csc, e.to(cuda)).cpu()
+    assert (want[1] > 0).all() and (want[1] < torch.finfo().tiny).all()
+    assert torch.equal(got, want)
+
+
+def _community_graph(device, n=200, window=32, tile=8, seed=0):
+    """Communities of one window; tile 0 without a residual edge, rows 20
+    and 21 without an in-window edge, the last 3 rows without an edge."""
+    rng = np.random.RandomState(seed)
+    comm = np.arange(n) // window
+    same = comm[:, None] == comm[None, :]
+    hit = rng.rand(n, n) < np.where(same, 0.3, 0.02)
+    hit[:tile] &= same[:tile]
+    hit[20:22] &= ~same[20:22]
+    hit[20, n - 9] = hit[21, 100] = True
+    hit[n - 3:] = False
+    row, col = np.nonzero(hit)
+    w = (rng.rand(len(row)) + 0.2).astype(np.float32)
+    g = Graph.from_edges(row, col, n, edge_weight=w,
+                         edge_buffer_size=len(row) + 5, device=device)
+    return attach_windows(g, window=window, tile=tile)
+
+
+def _check_winatt(wl, dtype, d, a, heads, att_type, ew, seed):
+    """K5 against its plain version: den (f32) at graphax's attention
+    tolerance, the f32 output of rounded weights times x as the training
+    kernels' sums."""
+    from graphax_torch.kernels import winatt as wa
+
+    n = wl.num_nodes
+    gen = torch.Generator(device=wl.tile_win.device).manual_seed(seed)
+    dev, tdt = wl.tile_win.device, getattr(torch, dtype)
+    q = (0.5 * torch.randn(n, a, generator=gen, device=dev)).to(tdt)
+    k = (0.5 * torch.randn(n, a, generator=gen, device=dev)).to(tdt)
+    x = torch.randn(n, d, generator=gen, device=dev).to(tdt)
+    d_res = torch.rand(n, heads, generator=gen, device=dev)
+    d_res[:8] = 0.0
+    r0 = torch.tensor(0.7, device=dev)
+    scal = (att_type, heads, 1.3, 0.7)
+    out, den = wa.winatt(wl.in_window, q, k, x, d_res, r0, ew, *scal)
+    w_out, w_den = wa.winatt_plain(wl.in_window, q, k, x, d_res, r0, ew,
+                                   *scal)
+    torch.testing.assert_close(den, w_den, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(out, w_out, **_rounded(dtype, x))
+    return out, den
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("att_type", ["scaled_dot", "cosine_sim", "pearson",
+                                      "exp_kernel"])
+def test_cuda_winatt_matches_plain(cuda, dtype, att_type):
+    """A windowed graph with an empty residual tile and rows without an
+    in-window cell, reweight on and off, D = 162 and D = 300, H = 2 and
+    3."""
+    g = _community_graph(cuda)
+    wl = g.windows
+    cell_w = g.edge_weight[:wl.in_window.num_slots].contiguous()
+    for i, (d, a, heads) in enumerate(((162, 32, 2), (300, 12, 3))):
+        for ew in (None, cell_w):
+            out, den = _check_winatt(wl, dtype, d, a, heads, att_type, ew, i)
+            for r in (20, 21, g.num_nodes - 1):
+                assert torch.all(out[r] == 0)
+
+
+def _grads(fn, x, params, probe):
+    xr = x.clone().requires_grad_(True)
+    for t in params:
+        t.grad = None
+    out = fn(xr)
+    (out.float() * probe).sum().backward()
+    return [out.detach().float(), xr.grad] + [t.grad.clone() for t in params]
+
+
+@pytest.mark.parametrize("route", ["windowed", "column"])
+def test_cuda_replay_functions_match_autograd_through_plain_twins(cuda,
+                                                                  route):
+    """The windowed route (K5 and the residual kernels forward, the plain
+    twin's replay backward through win_matmul's Function) and the column
+    route (the three-kernel forward, the per-edge replay) against
+    torch.autograd through their plain twins, f32: out and the gradients of
+    x, Q and K at the training route's tolerance. Each forward kernel is
+    launched once; the windowed replay launches win_matmul, win_bwd_dense
+    and win_bwd_slab once each."""
+    from graphax_torch.functions.transformer import (
+        TransformerAttention, attention_ax, colnorm_ax_plain,
+    )
+    from graphax_torch.kernels import LAUNCHES
+    from graphax_torch.kernels.windowed_attention import \
+        windowed_attention_ax_plain
+    from graphax_torch.train import Config
+
+    if route == "windowed":
+        g = _community_graph(cuda, seed=3)
+        cfg = Config(function="transformer", heads=2, attention_dim=32,
+                     hidden_dim=162)
+        plain = windowed_attention_ax_plain
+        launched = {"attention_kproj": 1, "attention_gmax": 1,
+                    "attention_norm": 1, "winatt": 1, "attention_attspmm": 1,
+                    "win_matmul": 1, "win_bwd_dense": 1, "win_bwd_slab": 1}
+    else:
+        g = _cuda_graph(cuda, seed=11)
+        cfg = Config(function="transformer", heads=2, attention_dim=32,
+                     hidden_dim=162, attention_norm_idx=1)
+        plain = colnorm_ax_plain
+        launched = {"attention_kproj": 1, "attention_gmax": 1,
+                    "attention_norm": 1, "attention_attspmm": 1}
+    gen = torch.Generator().manual_seed(12)
+    att = TransformerAttention(cfg, 162)
+    with torch.no_grad():
+        for lin in (att.Q, att.K):
+            lin.weight.copy_(0.3 * torch.randn(lin.weight.shape,
+                                               generator=gen))
+            lin.bias.copy_(0.1 * torch.randn(lin.bias.shape, generator=gen))
+    att = att.to(cuda)
+    x = torch.randn(g.num_nodes, 162, generator=gen).to(cuda)
+    probe = torch.randn(g.num_nodes, 162, generator=gen).to(cuda)
+    params = (att.Q.weight, att.Q.bias, att.K.weight, att.K.bias)
+    LAUNCHES.clear()
+    got = _grads(lambda xr: attention_ax(cfg, att, g, xr), x, params, probe)
+    assert dict(LAUNCHES) == launched, dict(LAUNCHES)
+    want = _grads(lambda xr: plain(cfg, att, g, xr), x, params, probe)
     top = [float(t.abs().max()) for t in want]
     scale = top[:2] + [max(top[2:4])] * 2 + [max(top[4:])] * 2
     for name, a_, b_, sc_ in zip(("out", "x", "Qw", "Qb", "Kw", "Kb"), got,

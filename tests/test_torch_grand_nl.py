@@ -579,26 +579,60 @@ def test_training_steps(monkeypatch, adjoint):
 
 @pytest.mark.parametrize("adjoint", [False, True])
 def test_training_raises(adjoint):
-    """Training configs outside the hand-written backward raise, naming
-    their ROADMAP item; their evaluation runs (but for column
-    normalisation, whose RHS is not ported)."""
+    """Row-normalised training configs on CSR outside the hand-written
+    backward raise, naming their ROADMAP item; their evaluation runs.
+    Column normalisation trains (its route's backward replays the plain
+    per-edge path, as graphax's custom VJP does)."""
     for over in (dict(square_plus=True), dict(attention_type="cosine_sim"),
-                 dict(reweight_attention=True), dict(attention_norm_idx=1)):
+                 dict(reweight_attention=True)):
         tr = _small_trainer(adjoint=adjoint, adjoint_method="rk4", **over)
-        if "attention_norm_idx" not in over:
-            assert all(0.0 <= a <= 1.0 for a in tr.evaluate())
+        assert all(0.0 <= a <= 1.0 for a in tr.evaluate())
         with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
             tr.train_step()
+    tr = _train_trainer(adjoint, attention_norm_idx=1)
+    losses = [tr.train_step() for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[0] > losses[2]
+    assert float(tr.model.block.func.att.K.weight.grad.abs().max()) > 0
 
 
 @pytest.mark.parametrize("over,err", [
     (dict(attention_norm_idx=1), "column normalisation"),
     (dict(community_window=16), "K5"),
 ])
-def test_unported_eval_routes_raise(over, err):
+def test_unported_eval_routes_raise(monkeypatch, over, err):
+    """The two routes this case once held to raising now evaluate: column
+    normalisation on CSR through its three-kernel route, the windowed
+    strategy through K5's route (``err`` names the route)."""
+    from graphax_torch.kernels import attention3, winatt
+
+    calls = []
+    mod, name = (attention3, "colnorm_attention_ax_fast") \
+        if err == "column normalisation" \
+        else (winatt, "windowed_attention_ax_fast")
+    real = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a, **k: calls.append(1)
+                        or real(*a, **k))
+    from graphax_torch.functions import transformer
+
+    monkeypatch.setattr(transformer, name, getattr(mod, name))
     tr = _small_trainer(**over)
+    assert tr.data.graph.strategy == ("windowed" if err == "K5"
+                                      else "sparse")
+    assert all(0.0 <= a <= 1.0 for a in tr.evaluate())
+    assert len(calls) == tr.last_eval.nfe > 0
+
+
+@pytest.mark.parametrize("over,err", [
+    (dict(community_window=16, attention_norm_idx=1), "Queue 3"),
+    (dict(community_window=16, beltrami=True,
+          attention_type="exp_kernel"), "Beltrami"),
+])
+def test_still_unported_routes_raise(over, err):
+    """Column normalisation on the windowed strategy (graphax leaves that
+    layout for its tiled route) and Beltrami raise, naming their ROADMAP
+    item."""
     with pytest.raises(NotImplementedError, match=err):
-        tr.evaluate()
+        _small_trainer(**over).evaluate()
 
 
 @pytest.mark.parametrize("over", [dict(mix_features=True),
