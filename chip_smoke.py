@@ -36,9 +36,14 @@ and prints no result):
    each route timed whole, and on a small community graph over every score
    type, reweight and squareplus), in f32 and bf16, with its error beside
    the stated
-   tolerance, its median time, the plain version's time, its bound and a
-   PyTorch call as a yardstick where one computes the same function; then
-   one line naming every ported kernel;
+   tolerance, its median device time, the plain version's time, its bound
+   and a PyTorch call as a yardstick where one computes the same function
+   (win_bwd_dense's and the K projection's: bf16 in, f32 out through
+   ``out_dtype``);
+   win_bwd_dense with both output dtypes, its bf16 output held to its f32
+   output cast, bit for bit, and the win_matmul Function's backward with
+   no cast of a [T, tile, W] block; then one line naming every ported
+   kernel;
 5. slice: the main path, ``Trainer(best_config("ogbn-arxiv"),
    get_dataset("ogbn-arxiv")).fit(3 epochs)``, with the kernel launch
    counts of that run; then the earlier ``community_window=0`` path for as
@@ -72,7 +77,8 @@ and prints no result):
    GRAND-nl train step and evaluation, one column-normalised train step,
    under
    torch.profiler, time by span (forward solve, adjoint, optimizer) and by
-   kernel;
+   kernel; on the windowed GRAND-nl step, win_bwd_dense's launches (one
+   per adjoint NFE) and the kernel that ran after each;
 7. reference: small graphs (sparse, windowed and dense) trained from the
    same weights on the card and on the CPU must agree step by step, small
    GRAND-nl evaluations must give the same logits and NFE (on a dense
@@ -98,6 +104,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+# the sleep ahead of each timed launch: ~0.5 ms at the H100's clocks,
+# longer than any wrapper's host time
+SLEEP_CYCLES = 1_000_000
 PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores
             "bfloat16": 989e12}    # bf16 tensor cores, dense
 # kernel against plain version, per output dtype: f32 sums in another order
@@ -176,8 +185,12 @@ def smi_line() -> str:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` launches, each timed by
-    CUDA events."""
+    """Median milliseconds of ``fn()`` on the device over ``reps`` launches,
+    each timed by CUDA events. A sleep kernel queued ahead of each start
+    event keeps the device busy while the host enqueues ``fn``'s work, so
+    the time is the device's, not the host's wrapper and launch overhead
+    (10-40 us a call, which single launches timed without the sleep
+    include)."""
     import torch
 
     for _ in range(warmup):
@@ -187,6 +200,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
@@ -254,6 +268,21 @@ def hold_to_plain(results: dict, row: dict, fn, plain, tol, nbytes: float,
     check(row["ok"], f"{row['kernel']} {tag or ''} {row['dtype']} "
           f"{row.get('layout', row.get('graph', ''))} disagrees with plain")
     return got
+
+
+def block_casts(fn, shape) -> int:
+    """The dtype casts (``aten::_to_copy``) of a tensor shaped ``shape``
+    while ``fn()`` runs, from torch.profiler's recorded shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events() if ev.name == "aten::_to_copy"
+               and ev.input_shapes
+               and list(ev.input_shapes[0]) == list(shape))
 
 
 def phase_kernels(graph, results: dict) -> None:
@@ -463,11 +492,30 @@ def phase_windowed_kernels(graph, results: dict) -> None:
                  lambda: torch.baddbmm(add_t, dense, slab_g)))
             del add_t
             g_t = ws._tiles(gr, wl)
-            run("win_bwd_dense", lambda: ws.win_bwd_dense(wl, gr, x),
+            # f32 output (graphax's), then bf16 (the path's: the blocks'
+            # dtype, one rounding of the same f32 sums, no cast pass)
+            f32_out = run(
+                "win_bwd_dense", lambda: ws.win_bwd_dense(wl, gr, x),
                 lambda: ws.win_bwd_dense_plain(wl, gr, x), TOL_WIN,
                 2 * n * d * b + cells * 4, flops,
-                ("torch.bmm on the pre-gathered slab",
-                 lambda: torch.bmm(g_t, slab_g.transpose(1, 2))))
+                ("torch.bmm out_dtype=float32 on the pre-gathered slab",
+                 lambda: torch.bmm(g_t, slab_g.transpose(1, 2),
+                                   out_dtype=torch.float32)))
+            b16_out = run(
+                "win_bwd_dense",
+                lambda: ws.win_bwd_dense(wl, gr, x, torch.bfloat16),
+                lambda: ws.win_bwd_dense_plain(wl, gr, x, torch.bfloat16),
+                TOL["bfloat16"], 2 * n * d * b + cells * 2, flops,
+                ("torch.bmm on the pre-gathered slab (f32 sums, bf16 "
+                 "output)", lambda: torch.bmm(g_t, slab_g.transpose(1, 2)))
+                if dt == torch.bfloat16 else None, product="bf16_out")
+            same = bool(torch.equal(b16_out, f32_out.to(torch.bfloat16)))
+            emit({"phase": "kernels", "kernel": "win_bwd_dense",
+                  "layout": shape, "dtype": name,
+                  "bf16_out_equals_f32_out_cast": same})
+            check(same, f"win_bwd_dense {shape} {name}: the bf16 output is "
+                  "not the f32 output cast")
+            del f32_out, b16_out
             run("win_bwd_slab", lambda: ws.win_bwd_slab(wl, dense, gr),
                 lambda: ws.win_bwd_slab_plain(wl, dense, gr), TOL_WIN,
                 cells * b + n * d * b + wn * w_ * d * 4, flops)
@@ -477,7 +525,11 @@ def phase_windowed_kernels(graph, results: dict) -> None:
             dr = dense.clone().requires_grad_(True)
             xr = x.clone().requires_grad_(True)
             probe = torch.randn(n, d, generator=gen, device="cuda")
-            ws._WinMatmul.apply(dr, xr, wl, addend).backward(probe.to(dt))
+            out_ = ws._WinMatmul.apply(dr, xr, wl, addend)
+            casts = block_casts(lambda: out_.backward(probe.to(dt)),
+                                wl.block_shape)
+            check(casts == 0, f"win_matmul backward {shape} {name}: "
+                  f"{casts} casts of a [T, tile, W] block")
             pc = probe.to(dt)
             tol = TOL_WIN if dt == torch.float32 else TOL["bfloat16"]
             cx = compare(xr.grad, ws.win_bwd_slab_plain(wl, dense, pc)[:n]
@@ -485,7 +537,8 @@ def phase_windowed_kernels(graph, results: dict) -> None:
             cd = compare(dr.grad, ws.win_bwd_dense_plain(wl, pc, x).to(dt),
                          tol)
             emit({"phase": "kernels", "kernel": "win_matmul (autograd)",
-                  "layout": shape, "dtype": name, "dx": cx, "d_dense": cd})
+                  "layout": shape, "dtype": name, "dx": cx, "d_dense": cd,
+                  "block_casts_in_backward": casts})
             check(cx["ok"] and cd["ok"],
                   f"win_matmul gradients {shape} {name} disagree")
             del x, gr, dense, dr, xr, probe, addend, res
@@ -561,14 +614,13 @@ def phase_flash_kernels(trainer, results: dict) -> None:
                                  lib, tag=variant)
 
         with torch.no_grad():
-            xf, wkf = x.float(), wk.float()
             kt = run("attention_kproj", lambda: fa.attention_kproj(x, wk, bk),
                      lambda: fa.attention_kproj_plain(x, wk, bk), TOL_KPROJ,
                      n * d * b + d * a * b + 4 * a + 4 * n * a,
                      2.0 * n * d * a,
-                     ("torch.addmm on f32 copies of x and Wk",
-                      lambda: torch.addmm(bk, xf, wkf)))
-            del xf, wkf
+                     ("torch.addmm out_dtype=float32",
+                      lambda: torch.addmm(bk, x, wk,
+                                          out_dtype=torch.float32)))
             # per edge: the scores (2A) and, per head, the weighted sum (2D)
             ops = e * (2.0 * a + 2.0 * heads * d)
             nbytes = (n * a * b + 4 * n * a + n * d * b + csr_bytes
@@ -1530,11 +1582,13 @@ def phase_reference_dense() -> dict:
     return out
 
 
-def phase_breakdown(steps) -> dict:
+def phase_breakdown(steps, after=None) -> dict:
     """``steps``, ``(span name, fn)`` pairs, run in order under
     torch.profiler: each labelled span's host-side and device-side duration
     in order, device time by kernel, and the device's idle share of the
-    window."""
+    window. With ``after`` (part of a kernel's name): that kernel's device
+    launches and, by name, the kernel that ran next on the device after
+    each."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1548,7 +1602,7 @@ def phase_breakdown(steps) -> dict:
                 fn()
                 torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, kernels = [], {}
+    spans, kernels, device = [], {}, []
     for ev in sorted(prof.events(), key=lambda e: e.time_range.start):
         ms = ev.time_range.elapsed_us() / 1e3
         if ev.name.startswith("graphax_torch."):
@@ -1556,15 +1610,24 @@ def phase_breakdown(steps) -> dict:
                           "side": "device" if ev.device_type == cuda_t
                           else "host"})
         elif ev.device_type == cuda_t:
+            device.append(ev.name)
             k = kernels.setdefault(ev.name[:90], {"ms": 0.0, "count": 0})
             k["ms"] += ms
             k["count"] += 1
     busy = sum(v["ms"] for v in kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:10])
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall_ms,
-            "kernel_launches": sum(v["count"] for v in kernels.values()),
-            "spans": spans, "device_kernels_top": top}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall_ms,
+           "kernel_launches": sum(v["count"] for v in kernels.values()),
+           "spans": spans, "device_kernels_top": top}
+    if after is not None:
+        hits = [i for i, name in enumerate(device) if after in name]
+        nxt: dict = {}
+        for i in hits:
+            name = device[i + 1][:100] if i + 1 < len(device) else None
+            nxt[name] = nxt.get(name, 0) + 1
+        out["after"] = {"kernel": after, "launches": len(hits), "next": nxt}
+    return out
 
 
 def phase_reference(window: int = 0) -> dict:
@@ -1819,11 +1882,19 @@ def main(argv=None) -> int:
     emit({"phase": "breakdown", "path": "grand_nl_train",
           **phase_breakdown([("graphax_torch.train_step",
                               trainer_nlt.train_step)])})
-    emit({"phase": "breakdown", "path": "grand_nl_windowed_train",
-          **phase_breakdown([("graphax_torch.train_step",
-                              trainer_nlw.train_step),
-                             ("graphax_torch.evaluate",
-                              trainer_nlw.evaluate)])})
+    # path A: win_bwd_dense once per adjoint NFE, its bf16 blocks handed
+    # on as they are (no cast kernel of its own after it)
+    _build.LAUNCHES.clear()
+    bd = phase_breakdown([("graphax_torch.train_step",
+                           trainer_nlw.train_step),
+                          ("graphax_torch.evaluate", trainer_nlw.evaluate)],
+                         after="win_bwd_dense")
+    bd["after"]["adjoint_nfe"] = trainer_nlw.bm.get_value()
+    emit({"phase": "breakdown", "path": "grand_nl_windowed_train", **bd})
+    check(bd["after"]["launches"] == _build.LAUNCHES["win_bwd_dense"]
+          == bd["after"]["adjoint_nfe"] > 0,
+          f"path A's profile: win_bwd_dense {bd['after']} against "
+          f"{_build.LAUNCHES['win_bwd_dense']} launches")
     emit({"phase": "breakdown", "path": "grand_nl_colnorm_train",
           **phase_breakdown([("graphax_torch.train_step",
                               trainer_nlc.train_step)])})
@@ -1863,7 +1934,7 @@ def main(argv=None) -> int:
              ("win_matmul", ("win_matmul", "bfloat16"),
               "graphax_torch/kernels/csrc/windowed_spmm.cu",
               "graphax/kernels/pallas_windows.py:185"),
-             ("win_bwd_dense", ("win_bwd_dense", "bfloat16"),
+             ("win_bwd_dense", ("win_bwd_dense", "bfloat16", "bf16_out"),
               "graphax_torch/kernels/csrc/windowed_spmm.cu",
               "graphax/kernels/pallas_windows.py:214"),
              ("win_bwd_slab", ("win_bwd_slab", "bfloat16"),
@@ -1906,12 +1977,19 @@ def main(argv=None) -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "dtype": key[1]})
+                        "library_ms": r["library_ms"],
+                        "library": r.get("library"), "dtype": key[1]})
     whole = results[("spmm_csr", "bfloat16", "A.x")]
     kernels[0]["community_window_0"] = {
         k: whole[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
     kernels[2]["also_replaces"] = "graphax/kernels/pallas_attention.py:197"
+    kernels[5]["variant"] = ("bf16 in, bf16 out (the blocks' dtype, as path "
+                             "A runs it); f32_out: graphax's f32 output")
+    kernels[5]["f32_out"] = {
+        k: results[("win_bwd_dense", "bfloat16")][k]
+        for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")}
     kernels[4]["variant"] = ("with the residual SpMM's result added in the "
                              "epilogue, as the main path calls it")
     flash = results[("flash_attention", "bfloat16")]

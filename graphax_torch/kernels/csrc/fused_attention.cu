@@ -31,7 +31,14 @@
 //                 every gathered source row inside its kernels (E rows); the
 //                 per-node pass computes the same values (f32 sums of exact
 //                 state-dtype products, in another order) from N rows:
-//                 2*N*D*A flops instead of 2*E*D*A.
+//                 2*N*D*A flops instead of 2*E*D*A. f32 (and bf16 shapes
+//                 whose x tile does not fit shared memory) on CUDA-core
+//                 FMAs; bf16 on the tensor cores, kproj_tc_kernel: bound
+//                 by bytes (55 MB of x in, 22 MB of f32 K out at the arxiv
+//                 shapes, 0.023 ms), so x streams in whole 128-row tiles by
+//                 16-byte cp.async and the products (1.76 GFLOP) go
+//                 through mma.sync, where the CUDA-core body was bound by
+//                 its shared-load issue (5 loads per 4 FMAs).
 //   gmax_kernel   one warp per CSR row scores its edges against K[col]; a
 //                 warp max, a block max, one atomicMax per block on an
 //                 order-preserving integer encoding (max is order-free, so
@@ -110,7 +117,7 @@
 // 1,354,429, D = 162, A = 32, H = 2, bf16): bytes. The flash kernel must read
 // x, q, K and the CSR once and write the f32 output (~200 MB, 0.06 ms at
 // 3.35 TB/s) against ~1 GFLOP; kproj reads x once and writes K (~77 MB)
-// against 1.76 GFLOP on CUDA cores. This simple version gathers K[col] and
+// against 1.76 GFLOP (on the tensor cores in bf16). This simple version gathers K[col] and
 // x[col] per edge (L2-resident K, 22 MB) and walks each row serially per
 // warp; it is latency-bound on those gathers. The training kernels are bound
 // the same way: the forward with residuals moves ~217 MB (0.065 ms), the row
@@ -129,6 +136,7 @@
 #include <stdint.h>
 
 #include "attention_score.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -223,6 +231,123 @@ kproj_kernel(const T* __restrict__ x, const T* __restrict__ wk,
         if (r < nr) kt[(size_t)(r0 + r) * a + c] = acc[r] + b;
     }
   }
+}
+
+// The bf16 K projection on the tensor cores: a persistent walk over
+// 128-row tiles of x, staged by 16-byte cp.async (a tile of 128 rows is
+// one contiguous 16-byte-aligned byte range of x whatever D; element
+// copies for odd D or a misaligned view) into a ring of KP_STAGES shared
+// buffers. Wk [D, A] is staged once per CTA, transposed, WkT [n][k]
+// zero-padded to a multiple of 16 in k and in n, with 16-byte-aligned rows
+// of 4 mod 8 words; B fragments come from it by ldmatrix, two at a time. Eight warps of 16 rows run mma.sync
+// m16n8k16 over up to 64 output columns (gridDim.y splits wider A). A
+// fragment's rows g and g+8 are staged rows 4 apart (warp pairs interleave
+// over 32 rows), so with D's odd pitch in words (D = 162: 81) its 32-bit
+// shared loads are free of bank conflicts. bk is added to the f32 sums in
+// the epilogue and K leaves as 16-byte stores. One stage, four CTAs per
+// SM, measured faster than two or three stages at fewer CTAs per SM: the
+// other CTAs' loads fill the wait (PERF.md).
+constexpr int KP_WARPS = 8, KP_ROWS = 16 * KP_WARPS, KP_NC = 64,
+              KP_STAGES = 1;
+
+__global__ void __launch_bounds__(KP_WARPS * 32)
+kproj_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ wk,
+                const float* __restrict__ bk, float* __restrict__ kt, int n,
+                int d, int a, int P, int PK, int vec) {
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_kp[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.y * KP_NC, nc = min(KP_NC, a - c0);
+  const int nf = (nc + 7) >> 3, nr = (nc + 15) & ~15, kp = (d + 15) & ~15;
+  bf* wt = reinterpret_cast<bf*>(smem_kp);  // [nr][PK]
+  bf* xs = wt + nr * PK;                     // [KP_STAGES][KP_ROWS][P] + 16
+  const int tiles = (n + KP_ROWS - 1) / KP_ROWS;
+  auto issue = [&](int it) {
+    const int tl = blockIdx.x + it * gridDim.x;
+    if (tl < tiles) {
+      const int r0 = tl * KP_ROWS;
+      gx_tc::stage_rows(xs + (it % KP_STAGES) * KP_ROWS * P,
+                        x + (size_t)r0 * d, min(KP_ROWS, n - r0), d, 0, d, P,
+                        vec, tid, KP_WARPS * 32);
+    }
+    gx_tc::cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < KP_STAGES - 1; ++s) issue(s);
+  // WkT, 8 loads per thread in flight at a time
+  const int nw = kp * nr;
+  for (int i0 = tid; i0 < nw; i0 += 8 * KP_WARPS * 32) {
+    bf v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * KP_WARPS * 32;
+      const int k = i / nr, j = i - k * nr;
+      v[u] = (i < nw && k < d && j < nc) ? wk[(size_t)k * a + c0 + j]
+                                         : gx_tc::bzero();
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * KP_WARPS * 32;
+      const int k = i / nr, j = i - k * nr;
+      if (i < nw) wt[j * PK + k] = v[u];
+    }
+  }
+  // this warp's fragment rows g, g+8: tile rows rw + 4g, rw + 4g + 1
+  const int rw = (warp >> 1) * 32 + (warp & 1) * 2;
+  const int g4 = 4 * (lane >> 2);
+  for (int it = 0; blockIdx.x + it * gridDim.x < tiles; ++it) {
+    issue(it + KP_STAGES - 1);
+    gx_tc::cp_async_wait<KP_STAGES - 1>();
+    __syncthreads();  // this tile (and, first time round, WkT) in place
+    const bf* xt = xs + (it % KP_STAGES) * KP_ROWS * P;
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < kp; kk += 16) {
+      uint32_t af[4];
+      gx_tc::load_a(af, xt, P, rw + g4, rw + g4 + 1, kk, d, lane);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        if (j < nf) {
+          uint32_t b[4];
+          gx_tc::load_b2(b, wt, PK, j * 8, kk, lane);
+          gx_tc::mma_bf16(acc[j], af, b[0], b[1]);
+          if (j + 1 < nf) gx_tc::mma_bf16(acc[j + 1], af, b[2], b[3]);
+        }
+      }
+    }
+    const int r0 = (blockIdx.x + it * gridDim.x) * KP_ROWS + rw;
+    const bool vec_out = (a & 3) == 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nf) {
+        float v[4];
+        int dr, dc;
+        gx_tc::quad(acc[j], lane, v, dr, dc);
+        // fragment row m = g + dr is tile row rw + 4 (m % 8) + m / 8
+        const int r = r0 + g4 + (dr >> 3), c = j * 8 + dc;
+        if (r < n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (c + e < nc) v[e] += bk[c0 + c + e];
+          float* p = kt + (size_t)r * a + c0 + c;
+          if (vec_out && c + 3 < nc) {
+            gx_tc::store4(p, v);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (c + e < nc) p[e] = v[e];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next issue() refills this tile's buffer
+  }
+  gx_tc::cp_async_wait<0>();
 }
 
 template <typename T>
@@ -667,6 +792,48 @@ cudaError_t run_kproj(const void* x, const void* wk, const void* bk, void* kt,
   return cudaGetLastError();
 }
 
+// the shared-memory bytes of kproj_tc_kernel: WkT and the ring
+size_t kproj_tc_smem(int d, int a, int* P, int* PK) {
+  const int nc = a < KP_NC ? a : KP_NC;
+  *P = d + (d & 1);
+  *PK = ((d + 15) & ~15) + 8;
+  return sizeof(__nv_bfloat16) *
+         ((size_t)((nc + 15) & ~15) * *PK + (size_t)KP_STAGES * KP_ROWS * *P +
+          16);
+}
+
+cudaError_t run_kproj_tc(const void* x, const void* wk, const void* bk,
+                         void* kt, int n, int d, int a, int vec,
+                         cudaStream_t s) {
+  int P, PK;
+  const size_t smem = kproj_tc_smem(d, a, &P, &PK);
+  static size_t smem_set = 0, grid_smem = 0;
+  static int resident = 0;
+  if (smem > smem_set) {  // the opt-in, once per size
+    cudaError_t err = cudaFuncSetAttribute(
+        kproj_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  if (smem != grid_smem) {  // CTAs resident on the card at this size
+    int per_sm = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kproj_tc_kernel, KP_WARPS * 32, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    resident = sm_count() * per_sm;
+    grid_smem = smem;
+  }
+  const int tiles = (n + KP_ROWS - 1) / KP_ROWS;
+  const int grid = resident < tiles ? resident : tiles;
+  const dim3 blocks(grid, (a + KP_NC - 1) / KP_NC);
+  kproj_tc_kernel<<<blocks, KP_WARPS * 32, smem, s>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)wk, (const float*)bk,
+      (float*)kt, n, d, a, P, PK, vec);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t run_gmax(const void* ptr, const void* idx, const void* q,
                      const void* kt, const void* ew, void* state, void* out,
@@ -792,6 +959,17 @@ int gx_attention_kproj(const void* x, const void* wk, const void* bk, void* kt,
   if (dtype == 0) return (int)run_kproj<float>(x, wk, bk, kt, n, d, a, s);
   if (dtype == 1) return (int)run_kproj<__nv_bfloat16>(x, wk, bk, kt, n, d, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// kt [n, a] float32 = x [n, d] wk [d, a] + bk [a] on the tensor cores; x
+// and wk bfloat16, bk float32; vec != 0 lets 16-byte-aligned tiles of even
+// d be staged by 16-byte copies.
+int gx_attention_kproj_tc(const void* x, const void* wk, const void* bk,
+                          void* kt, int n, int d, int a, int vec,
+                          void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  return (int)run_kproj_tc(x, wk, bk, kt, n, d, a, vec,
+                           (cudaStream_t)stream);
 }
 
 // q [n, a] in the state dtype (pre-scaled for scaled_dot); kt [n, a] float32

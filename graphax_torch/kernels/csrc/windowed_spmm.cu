@@ -5,7 +5,8 @@
 // Replaces graphax/kernels/pallas_windows.py:
 //   `_densify_kernel` (:57)       -> densify_kernel
 //   `_win_matmul_kernel` (:185)   -> win_matmul_kernel
-//   `_win_bwd_dense_kernel` (:214)-> win_bwd_dense_kernel
+//   `_win_bwd_dense_kernel` (:214)-> win_bwd_dense_tc_kernel (bf16),
+//                                    win_bwd_dense_kernel (f32)
 //   `_win_bwd_slab_kernel` (:243) -> win_bwd_slab_kernel
 //
 // Layout (graphax_torch/kernels/windows.py): node rows fall into T tiles of
@@ -42,15 +43,28 @@
 //   1-D grid puts the column chunks of one output block side by side, so
 //   they share its A operand in L2 instead of reading it from HBM again.
 //
-// Not yet done (later work): cp.async/TMA staging with a multi-stage ring,
-// wgmma, wider column chunks (D = 162 runs as 3 chunks of 64), and skipping
-// all-zero 32-column strips of the blocks (0.66 % of the cells are filled
-// at the arxiv shapes).
+// win_bwd_dense in bf16 (win_bwd_dense_tc_kernel below): bound by bytes,
+// 110 MB of g and x in and the [T, 128, W] output out, 347 MB in f32
+// (0.136 ms at 3.35 TB/s) or 173 MB in the blocks' bf16 (0.085 ms),
+// against 28 GFLOP (0.03 ms at the bf16 tensor-core peak). It takes the output dtype and rounds its f32 sums once in the
+// epilogue, so the autograd Function's separate cast pass over an f32
+// copy is gone. Design: whole 128 x 128 output blocks per CTA, both
+// operands staged at once by 16-byte cp.async of contiguous row ranges,
+// mma.sync from conflict-free 32-bit shared loads, 16-byte streaming
+// stores, two CTAs per SM (see the kernel's note; measurements and the
+// designs that measured slower in PERF.md).
+//
+// Not yet done (later work): cp.async/TMA staging with a multi-stage ring
+// and wgmma for win_matmul and win_bwd_slab, wider column chunks (D = 162
+// runs as 3 chunks of 64), and skipping all-zero 32-column strips of the
+// blocks (0.66 % of the cells are filled at the arxiv shapes).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 #include <type_traits>
 
@@ -347,13 +361,14 @@ win_matmul_kernel(const T* __restrict__ dense, const T* __restrict__ x,
   });
 }
 
-// d_dense[t, r, k] = g[t*tile + r, :] . slab[tile_win[t]][k, :]   (f32)
+// d_dense[t, r, k] = g[t*tile + r, :] . slab[tile_win[t]][k, :] summed in
+// f32, rounded once to TO: the f32 instantiation (CUDA-core FMAs, no TF32).
 // A [m][d] = g rows (runs of VA along D), B staged [n][d] = slab rows
 // (runs of VB along D)
-template <typename T, int VA, int VB>
+template <typename T, typename TO, int VA, int VB>
 __global__ void __launch_bounds__(THREADS)
 win_bwd_dense_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                     const int* __restrict__ tile_win, float* __restrict__ out,
+                     const int* __restrict__ tile_win, TO* __restrict__ out,
                      int tile, int W, int N, int D) {
   __shared__ __align__(128) unsigned char smem[SMEM];
   T* As = reinterpret_cast<T*>(smem);
@@ -378,8 +393,165 @@ win_bwd_dense_kernel(const T* __restrict__ g, const T* __restrict__ x,
       });
   epilogue(acc, reinterpret_cast<float*>(smem), [&](int m, int n, float v) {
     const int r = m0 + m, j = n0 + n;
-    if (r < tile && j < W) out[((size_t)t * tile + r) * W + j] = v;
+    if (r < tile && j < W) out[((size_t)t * tile + r) * W + j] = from_f<TO>(v);
   });
+}
+
+// The bf16 instantiation, on the tensor cores. Each CTA owns one
+// BM_TC x BN_TC block of d_dense[t]: the g rows of its tile part and the
+// slab rows of its column part are staged whole (D in one piece up to
+// KMAX_TC, in K chunks beyond), as the contiguous byte ranges they are in
+// device memory (16-byte cp.async; element copies for odd D, K chunks or a
+// misaligned view), so the shared rows keep D's pitch and mma.sync reads
+// k pairs with 32-bit loads. 8 warps (4 over rows, 2 over columns) of
+// 32 x 64, f32 accumulators. A fragment's 8 rows (and a B fragment's 8
+// columns) are staged rows 4 apart: with an odd pitch in words (D = 162:
+// 81) rows 4 apart start 4 banks apart, so every 32-bit shared load is
+// free of bank conflicts; and each lane then holds 8 consecutive output
+// columns of 4 rows, which leave as 16-byte streaming stores, rounded once
+// from the f32 sums. Two CTAs per SM overlap one's staging and products
+// with the other's stores; the column blocks of one tile are adjacent in
+// the grid, and the tiles of one window too, so a tile's g rows and a
+// window's slab rows are read from device memory about once and from L2
+// after. Rows past N (the last window's slab, the last tile) are staged as
+// zeros, so their outputs are the zero the plain version's padding gives.
+constexpr int BM_TC = 128, BN_TC = 128, THREADS_TC = 256;
+// the deepest K (a multiple of 16) whose two blocks fit the opt-in shared
+// memory of a CTA
+constexpr int KMAX_TC = ((232448 / 2 - 16) / (BM_TC + BN_TC)) & ~15;
+
+// CHUNKED: D > kc, staged and consumed in K chunks; else one piece (the
+// loop folds away, which keeps the accumulators within the register
+// budget of two CTAs per SM)
+template <typename TO, bool CHUNKED>
+__global__ void __launch_bounds__(THREADS_TC, 2)
+win_bwd_dense_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
+                        const int* __restrict__ tile_win,
+                        TO* __restrict__ out, int tile, int W, int N, int D,
+                        int kc, int P, int vec) {
+  constexpr int NJ = BN_TC / 16;  // B fragments per warp: 64 columns
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* As = reinterpret_cast<bf16*>(smem_tc);  // [BM_TC][P]
+  bf16* Bs = As + BM_TC * P;                     // [BN_TC][P] (+16 slack)
+  const int nchunks = (W + BN_TC - 1) / BN_TC;
+  const int mblocks = (tile + BM_TC - 1) / BM_TC;
+  const int n0 = (blockIdx.x % nchunks) * BN_TC;
+  const int m0 = ((blockIdx.x / nchunks) % mblocks) * BM_TC;
+  const int t = blockIdx.x / nchunks / mblocks;
+  const long long row0 = (long long)t * tile + m0;         // first g row
+  const long long base = (long long)tile_win[t] * W + n0;  // first slab row
+  const int m_out = min(BM_TC, tile - m0), n_out = min(BN_TC, W - n0);
+  const int ra = (int)max(0LL, min((long long)m_out, N - row0));
+  const int rb = (int)max(0LL, min((long long)n_out, N - base));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = 4 * (lane >> 2), q = lane & 3;
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * (BN_TC / 2);
+  float acc[2][NJ][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nk = CHUNKED ? (D + kc - 1) / kc : 1;
+  for (int ci = 0; ci < nk; ++ci) {
+    const int k0 = ci * kc, kcur = CHUNKED ? min(kc, D - k0) : D;
+    if (ci > 0) __syncthreads();  // the last K chunk's products are done
+    gx_tc::stage_rows(As, g + row0 * D, ra, D, k0, kcur, P, vec, tid,
+                      THREADS_TC);
+    gx_tc::stage_rows(Bs, x + base * D, rb, D, k0, kcur, P, vec, tid,
+                      THREADS_TC);
+    gx_tc::zero_rows(As, ra, BM_TC, P, tid, THREADS_TC);
+    gx_tc::zero_rows(Bs, rb, BN_TC, P, tid, THREADS_TC);
+    gx_tc::cp_async_commit();
+    gx_tc::cp_async_wait<0>();
+    __syncthreads();
+    // (warps whose rows or columns all lie past the block's edge multiply
+    // zeros and store nothing)
+#pragma unroll 2
+    for (int kk = 0; kk < kcur; kk += 16) {
+      // fragment i's rows g, g+8: staged rows wm + 4g + 2i (+1)
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        gx_tc::load_a(a[i], As, P, wm + g4 + 2 * i, wm + g4 + 2 * i + 1, kk,
+                      kcur, lane);
+      // fragment j's column g: staged row wn + 32 (j / 4) + 4g + j % 4
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t b0, b1;
+        gx_tc::load_b(b0, b1, Bs, P, wn + 32 * (j >> 2) + g4 + (j & 3), kk,
+                      kcur, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) gx_tc::mma_bf16(acc[i][j], a[i], b0, b1);
+      }
+    }
+  }
+  // this lane's rows wm + 4g + 2i + h, columns wn + 32 jg + 8q .. + 7
+  const bool vec_out = W % (16 / (int)sizeof(TO)) == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm + g4 + 2 * i + h;
+      if (r >= m_out) continue;
+#pragma unroll
+      for (int jg = 0; jg < NJ / 4; ++jg) {
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[e] = acc[i][4 * jg + e][2 * h];
+          v[4 + e] = acc[i][4 * jg + e][2 * h + 1];
+        }
+        const int c = wn + 32 * jg + 8 * q;
+        TO* p = out + ((size_t)t * tile + m0 + r) * W + n0 + c;
+        if (vec_out && c + 7 < n_out) {
+          gx_tc::store8(p, v);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (c + e < n_out) gx_tc::store1(p + e, v[e]);
+        }
+      }
+    }
+}
+
+template <typename TO, bool CHUNKED>
+cudaError_t bwd_dense_tc_run(const void* g, const void* x,
+                             const void* tile_win, void* out, int T, int tile,
+                             int W, int N, int D, int vec, cudaStream_t s) {
+  const int kc = D < KMAX_TC ? D : KMAX_TC;
+  const int P = kc + (kc & 1);
+  const int smem = ((BM_TC + BN_TC) * P + 16) * (int)sizeof(bf16);
+  static int smem_set = 0;
+  if (smem > smem_set) {  // the opt-in, once per size
+    cudaError_t err = cudaFuncSetAttribute(
+        win_bwd_dense_tc_kernel<TO, CHUNKED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  const long long blocks = (long long)T * ((tile + BM_TC - 1) / BM_TC) *
+                           ((W + BN_TC - 1) / BN_TC);
+  if (blocks <= 0) return cudaSuccess;
+  win_bwd_dense_tc_kernel<TO, CHUNKED>
+      <<<(unsigned)blocks, THREADS_TC, smem, s>>>(
+          (const bf16*)g, (const bf16*)x, (const int*)tile_win, (TO*)out,
+          tile, W, N, D, kc, P, vec);
+  return cudaGetLastError();
+}
+
+template <typename TO>
+cudaError_t bwd_dense_tc_launch(const void* g, const void* x,
+                                const void* tile_win, void* out, int T,
+                                int tile, int W, int N, int D, int vec,
+                                cudaStream_t s) {
+  if (D > KMAX_TC)
+    return bwd_dense_tc_run<TO, true>(g, x, tile_win, out, T, tile, W, N, D,
+                                      vec, s);
+  return bwd_dense_tc_run<TO, false>(g, x, tile_win, out, T, tile, W, N, D,
+                                     vec, s);
 }
 
 // d_slab[w, k, :] = sum over tiles t with tile_win[t] == w of
@@ -466,14 +638,16 @@ template <typename T, int VA, int VB> struct MatmulK {
         (T*)out, tile, W, N, D);
   }
 };
-template <typename T, int VA, int VB> struct BwdDenseK {
-  static void run(int blocks, cudaStream_t s, const void* g, const void* x,
-                  const void* tile_win, void* out, int tile, int W, int N,
-                  int D) {
-    win_bwd_dense_kernel<T, VA, VB><<<blocks, THREADS, 0, s>>>(
-        (const T*)g, (const T*)x, (const int*)tile_win, (float*)out, tile,
-        W, N, D);
-  }
+template <typename TO> struct BwdDense {
+  template <typename T, int VA, int VB> struct K {
+    static void run(int blocks, cudaStream_t s, const void* g, const void* x,
+                    const void* tile_win, void* out, int tile, int W, int N,
+                    int D) {
+      win_bwd_dense_kernel<T, TO, VA, VB><<<blocks, THREADS, 0, s>>>(
+          (const T*)g, (const T*)x, (const int*)tile_win, (TO*)out, tile,
+          W, N, D);
+    }
+  };
 };
 template <typename T, int VA, int VB> struct BwdSlabK {
   static void run(int blocks, cudaStream_t s, const void* dense,
@@ -536,13 +710,33 @@ int gx_win_matmul(const void* dense, const void* x, const void* tile_win,
                                       tile_win, addend, out, tile, W, N, D);
 }
 
-// out [T, tile, W] f32; g [N, D] and x [N, D] share dtype.
+// out [T, tile, W] in out_dtype, the f32 sums rounded once; g [N, D] and
+// x [N, D] share dtype. float32 inputs: va, vb the staged run lengths;
+// bfloat16 inputs (the tensor-core kernel): va != 0 lets 16-byte-aligned
+// row ranges of even D be staged by 16-byte copies.
 int gx_win_bwd_dense(const void* g, const void* x, const void* tile_win,
                      void* out, int T, int tile, int W, int N, int D,
-                     int dtype, int va, int vb, void* stream) {
+                     int dtype, int out_dtype, int va, int vb, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) {
+    if (out_dtype == 0)
+      return (int)bwd_dense_tc_launch<float>(g, x, tile_win, out, T, tile, W,
+                                             N, D, va, s);
+    if (out_dtype == 1)
+      return (int)bwd_dense_tc_launch<bf16>(g, x, tile_win, out, T, tile, W,
+                                            N, D, va, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const int blocks = T * ((tile + BM - 1) / BM) * ((W + BN - 1) / BN);
-  return dispatch_gemm<BwdDenseK, false>(dtype, blocks, va, vb, stream, g,
-                                         x, tile_win, out, tile, W, N, D);
+  if (blocks <= 0) return (int)cudaSuccess;
+  if (out_dtype == 0)
+    return (int)launch_gemm<BwdDense<float>::K, float, 2>(
+        blocks, va, vb, s, g, x, tile_win, out, tile, W, N, D);
+  if (out_dtype == 1)
+    return (int)launch_gemm<BwdDense<bf16>::K, float, 2>(
+        blocks, va, vb, s, g, x, tile_win, out, tile, W, N, D);
+  return (int)cudaErrorInvalidValue;
 }
 
 // out [Wn*W, D] f32; dense [T, tile, W] and g [N, D] share dtype;

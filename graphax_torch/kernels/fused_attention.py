@@ -11,7 +11,8 @@ with its plain PyTorch version beside it:
 
 - ``attention_kproj``: the keys ``K = x Wk + bk [N, A]`` in f32, once per
   node (graphax projects each gathered source row inside its kernels; the
-  values are the same f32 sums of exact state-dtype products);
+  values are the same f32 sums of exact state-dtype products), bf16 on the
+  tensor cores, f32 on CUDA-core FMAs (:func:`kproj_route`);
 - ``attention_gmax``: the global max of the scores, squareplus's shift
   (0 when no edge is real);
 - ``flash_attention``: per row and head the scores, the shift (the row's
@@ -107,10 +108,43 @@ def attention_kproj_plain(x, wk, bk):
     return x.float() @ wk.float() + bk.float()
 
 
+# kproj_tc_kernel's x tile rows, output column chunk and ring depth
+_KP_ROWS, _KP_NC, _KP_STAGES = 128, 64, 1
+
+
+def _kproj_tc_smem(d: int, a: int) -> int:
+    """Shared bytes of the tensor-core K projection (`kproj_tc_smem` in
+    the source): WkT and the ring of x tiles."""
+    nc = min(a, _KP_NC)
+    pk = (d + 15) // 16 * 16 + 8
+    return 2 * ((nc + 15) // 16 * 16 * pk
+                + _KP_STAGES * _KP_ROWS * (d + d % 2) + 16)
+
+
+def kproj_route(dtype: torch.dtype, d: int, a: int) -> str:
+    """The kernel that projects ``x [N, d]`` of ``dtype`` onto ``a`` keys:
+    ``"tensor_core"`` for bf16 where its shared memory fits, else
+    ``"cuda_core"`` (the f32 FMA kernel, which keeps f32 exact and takes
+    every shape :func:`kproj_fits` admits)."""
+    if dtype == torch.bfloat16 and _kproj_tc_smem(d, a) <= _SMEM_LIMIT:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def kproj_staging(x: torch.Tensor) -> str:
+    """How the tensor-core kernel stages x: ``"cp.async"`` (16-byte
+    copies of whole tiles) where x starts on 16 bytes and its rows hold an
+    even count of values, else ``"elements"`` (one value per copy: odd D,
+    or a view such as ``x[1:]`` that starts mid-row)."""
+    ok = x.shape[1] % 2 == 0 and x.data_ptr() % 16 == 0
+    return "cp.async" if ok else "elements"
+
+
 def attention_kproj(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
                     ) -> torch.Tensor:
     """``[N, A]`` float32 keys of every node: ``x [N, D]`` and ``wk
-    [D, A]`` in one dtype, ``bk [A]`` f32."""
+    [D, A]`` in one dtype, ``bk [A]`` f32. On the card, bf16 goes to the
+    tensor-core kernel and f32 to the CUDA-core one (:func:`kproj_route`)."""
     _no_grad("attention_kproj", x, wk, bk)
     if not x.is_cuda:
         return attention_kproj_plain(x, wk, bk)
@@ -122,16 +156,20 @@ def attention_kproj(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
     if wk.shape != (d, a) or bk.shape != (a,) or bk.dtype != torch.float32:
         raise ValueError("attention_kproj: shapes x [N, D], wk [D, A], bk [A] "
                          "f32 required")
-    smem = 4 * (d * a + _WPB * _KROWS * d)
-    if smem > _SMEM_LIMIT:
+    if not kproj_fits(d, a):
         raise ValueError(f"attention_kproj: D*A too large for shared memory "
-                         f"({smem} bytes)")
+                         f"(D={d}, A={a})")
     _check_operands("attention_kproj", x, x, wk, bk)
     kt = torch.empty((n, a), dtype=torch.float32, device=x.device)
     lib = _build.library("fused_attention")
-    err = lib.gx_attention_kproj(x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-                                 kt.data_ptr(), n, d, a, _DTYPES[x.dtype],
-                                 _build.stream_ptr(x))
+    if kproj_route(x.dtype, d, a) == "tensor_core":
+        err = lib.gx_attention_kproj_tc(
+            x.data_ptr(), wk.data_ptr(), bk.data_ptr(), kt.data_ptr(), n, d,
+            a, int(kproj_staging(x) == "cp.async"), _build.stream_ptr(x))
+    else:
+        err = lib.gx_attention_kproj(x.data_ptr(), wk.data_ptr(),
+                                     bk.data_ptr(), kt.data_ptr(), n, d, a,
+                                     _DTYPES[x.dtype], _build.stream_ptr(x))
     _build.check(err, "attention_kproj")
     _build.LAUNCHES["attention_kproj"] += 1
     return kt
@@ -376,8 +414,10 @@ def attention_attspmm(layout: Layout, e: torch.Tensor, den: torch.Tensor,
 # ----------------------------------------------------------------------
 
 def kproj_fits(d: int, a: int) -> bool:
-    """The K projection's f32 Wk [D, A] and staged rows fit one block's
-    shared memory."""
+    """The CUDA-core K projection's f32 Wk [D, A] and staged rows fit one
+    block's shared memory: the gate of every route that needs the K table.
+    Where it holds, one of the two kernels takes every dtype
+    (:func:`kproj_route`)."""
     return 4 * (d * a + _WPB * _KROWS * d) <= _SMEM_LIMIT
 
 

@@ -17,7 +17,9 @@ state dtype; the in-window product sums in f32 (bf16 products are exact in
 f32), then adds the residual SpMM's result (already in the state dtype)
 and rounds once to the state dtype, as graphax's `spmm_windowed` does
 (:366-374); the backward casts the cotangent to the state dtype before
-both products, returns ``d_dense`` in the blocks' dtype and ``dx`` in the
+both products, returns ``d_dense`` in the blocks' dtype (graphax's f32
+result cast, `:330-331`: `win_bwd_dense` rounds its f32 sums once to that
+dtype in its epilogue, with no pass over an f32 copy) and ``dx`` in the
 state dtype."""
 
 from __future__ import annotations
@@ -182,25 +184,48 @@ def win_matmul(wl: WindowLayout, dense: torch.Tensor, x: torch.Tensor,
 # win_bwd_dense: d_dense[t] = g[t] @ slab[tile_win[t]]^T
 # ----------------------------------------------------------------------
 
-def win_bwd_dense_plain(wl: WindowLayout, g, x) -> torch.Tensor:
+def win_bwd_dense_plain(wl: WindowLayout, g, x,
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
     slab = _slab(x.float(), wl)[wl.tile_win.long()]          # [T, W, D]
-    return torch.bmm(_tiles(g.float(), wl), slab.transpose(1, 2))
+    out = torch.bmm(_tiles(g.float(), wl), slab.transpose(1, 2))
+    return out.to(out_dtype)
 
 
-def win_bwd_dense(wl: WindowLayout, g: torch.Tensor,
-                  x: torch.Tensor) -> torch.Tensor:
-    """``[T, tile, W]`` f32: the gradient of the blocks."""
+def bwd_dense_staging(g: torch.Tensor, x: torch.Tensor) -> str:
+    """How the bf16 kernel stages its g and slab rows: ``"cp.async"``
+    (16-byte copies of each block's contiguous rows) where both start on
+    16 bytes and D is even, else ``"elements"`` (one value per copy: odd
+    D, or a view such as ``x[1:]`` that starts mid-row). Either gives the
+    same values."""
+    ok = (x.shape[1] % 2 == 0 and g.data_ptr() % 16 == 0
+          and x.data_ptr() % 16 == 0)
+    return "cp.async" if ok else "elements"
+
+
+def win_bwd_dense(wl: WindowLayout, g: torch.Tensor, x: torch.Tensor,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``[T, tile, W]`` in ``out_dtype``: the gradient of the blocks, f32
+    sums rounded once (bf16: to nearest even, the bits of the f32 result
+    cast). bf16 inputs run on the tensor cores, f32 inputs on CUDA-core
+    FMAs."""
     if not x.is_cuda:
-        return win_bwd_dense_plain(wl, g, x)
+        return win_bwd_dense_plain(wl, g, x, out_dtype)
     _check(wl, "win_bwd_dense", x, g)
     _check_rows(wl, "win_bwd_dense", x)
     _check_rows(wl, "win_bwd_dense", g)
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"win_bwd_dense: out_dtype {out_dtype} not supported")
     n, d = x.shape
-    out = torch.empty(wl.block_shape, dtype=torch.float32, device=x.device)
+    if x.dtype == torch.bfloat16:
+        va = vb = int(bwd_dense_staging(g, x) == "cp.async")
+    else:
+        va, vb = _run(g, d, 2), _run(x, d, 2)
+    out = torch.empty(wl.block_shape, dtype=out_dtype, device=x.device)
     err = _build.library("windowed_spmm").gx_win_bwd_dense(
         g.data_ptr(), x.data_ptr(), wl.tile_win.data_ptr(), out.data_ptr(),
         wl.num_tiles, wl.tile, wl.window, n, d, _DTYPES[x.dtype],
-        _run(g, d, 2), _run(x, d, 2), _build.stream_ptr(x))
+        _DTYPES[out_dtype], va, vb, _build.stream_ptr(x))
     _build.check(err, "win_bwd_dense")
     _build.LAUNCHES["win_bwd_dense"] += 1
     return out
@@ -266,7 +291,7 @@ class _WinMatmul(torch.autograd.Function):
             blocks = dense.to(x.dtype).contiguous()
             dx = win_bwd_slab(wl, blocks, g)[:wl.num_nodes].to(x.dtype)
         if ctx.needs_input_grad[0]:
-            d_dense = win_bwd_dense(wl, g, x).to(dense.dtype)
+            d_dense = win_bwd_dense(wl, g, x, dense.dtype)
         return d_dense, dx, None, g
 
 

@@ -1,0 +1,225 @@
+"""win_bwd_dense and attention_kproj on the card, at the ogbn-arxiv preset's
+shapes, for one or two checkouts of the repo.
+
+For each checkout (``--root``, default this one; ``--parent DIR`` adds a
+second, run in turns parent, this, this, parent, each in its own process):
+the windowed layout of the arxiv stand-in as published (T = 1323 tiles of
+128 rows, W = 512, D = 162) and GRAND-nl's K projection widths (N =
+169,343, D = 162, A = 32); each kernel's median ms over 20 launches (CUDA
+events), its largest error against its plain version, its bound (bytes
+over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
+``bound_ms``) and the same-function PyTorch call's ms:
+
+- win_bwd_dense, bf16 in: f32 out, and bf16 out (a checkout whose wrapper
+  has no ``out_dtype`` is timed with the f32 output and the ``.to`` cast
+  that its autograd Function ran after it); f32 in, f32 out;
+- attention_kproj, bf16 and f32;
+- path A's train step (GRAND-nl windowed, the arxiv preset as published):
+  host ms per step, its adjoint NFE, and from one profiled step the
+  device's busy ms, the adjoint span's device ms, win_bwd_dense's device
+  ms and the casts of a [T, tile, W] block per adjoint NFE.
+
+One JSON line per measurement, then the card's nvidia-smi line. Run from
+the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
+DIR]``; a parent is a ``git archive`` of another commit unpacked in a
+directory that ``.gitignore`` lists.
+"""
+
+import argparse
+import importlib.util
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """The median of single launches timed by CUDA events with the host's
+    enqueue inside (chip_smoke's time_ms without its sleep)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
+
+
+def measure(root: str) -> None:
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+
+    # this checkout's device timing (a sleep ahead of each start event),
+    # whichever checkout is measured
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels import windowed_spmm as ws
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    data = get_dataset("ogbn-arxiv")
+    tr = Trainer(best_config("ogbn-arxiv"), data)
+    wl = tr.data.graph.windows
+    n, d, a = wl.num_nodes, 162, 32
+    cells = wl.num_tiles * wl.tile * wl.window
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    has_out = "out_dtype" in inspect.signature(ws.win_bwd_dense).parameters
+
+    def emit(**row):
+        print(json.dumps({"root": root, **row}), flush=True)
+
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).replace("torch.", "")
+        b = torch.finfo(dt).bits // 8
+        x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        g = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        slab_g = ws._slab(x, wl)[wl.tile_win.long()].contiguous()
+        g_t = ws._tiles(g, wl)
+        outs = [torch.float32] + ([torch.bfloat16] if dt == torch.bfloat16
+                                  else [])
+        ref = ws.win_bwd_dense_plain(wl, g, x)
+        for od in outs:
+            oname = str(od).replace("torch.", "")
+            if has_out:
+                fn = lambda: ws.win_bwd_dense(wl, g, x, od)  # noqa: E731
+            else:
+                fn = lambda: ws.win_bwd_dense(wl, g, x).to(od)  # noqa: E731
+            got = fn()
+            err = float((got.float() - ref.to(od).float()).abs().max())
+            ob = torch.finfo(od).bits // 8
+            lib = ("bmm out_dtype=" + oname, lambda: torch.bmm(
+                g_t, slab_g.transpose(1, 2), out_dtype=od))
+            bms, by = cs.bound_ms(2 * n * d * b + cells * ob,
+                                  2.0 * cells * d, name)
+            emit(kernel="win_bwd_dense", dtype=name, out=oname,
+                 ms=here.time_ms(fn), ms_with_enqueue=host_ms(fn),
+                 max_abs_err=err, bound_ms=bms,
+                 bound_by=by, library=lib[0],
+                 library_ms=here.time_ms(lib[1], reps=10),
+                 with_cast=not has_out and od != torch.float32)
+            del got
+        del slab_g, g_t, ref
+        wk = (0.3 * torch.randn(d, a, generator=gen, device="cuda")).to(dt)
+        bk = 0.1 * torch.randn(a, generator=gen, device="cuda")
+        with torch.no_grad():
+            got = fa.attention_kproj(x, wk, bk)
+            err = float((got - fa.attention_kproj_plain(x, wk, bk))
+                        .abs().max())
+            lib = ("addmm out_dtype=float32", lambda: torch.addmm(
+                bk, x, wk, out_dtype=torch.float32))
+            bms, by = cs.bound_ms(n * d * b + d * a * b + 4 * a + 4 * n * a,
+                                  2.0 * n * d * a, name)
+            fn = lambda: fa.attention_kproj(x, wk, bk)  # noqa: E731
+            emit(kernel="attention_kproj", dtype=name,
+                 ms=here.time_ms(fn), ms_with_enqueue=host_ms(fn),
+                 max_abs_err=err, bound_ms=bms, bound_by=by, library=lib[0],
+                 library_ms=here.time_ms(lib[1], reps=10))
+        del x, g
+        torch.cuda.empty_cache()
+    del tr
+    train_steps(data, emit)
+
+
+def train_steps(data, emit) -> None:
+    """Path A (GRAND-nl on the windowed strategy as published, random Q/K
+    as chip_smoke draws them): after one warm-up step, two train steps
+    timed by the host clock around a device sync, then one under
+    torch.profiler: its device busy ms, win_bwd_dense's launches and
+    device ms, and the dtype casts (``aten::_to_copy``) of a [T, tile, W]
+    block, per adjoint NFE."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from graphax_torch import best_config
+
+    cfg = best_config("ogbn-arxiv", block="constant", function="transformer")
+    tr = cs.nl_trainer(cfg, data)
+    shape = list(tr.data.graph.windows.block_shape)
+    tr.train_step()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        tr.train_step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        tr.train_step()
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    busy = bwd_ms = adjoint_ms = 0.0
+    bwd_n = casts = 0
+    for ev in prof.events():
+        if ev.name == "graphax_torch.adjoint" and ev.device_type == cuda_t:
+            adjoint_ms += ev.time_range.elapsed_us() / 1e3
+        elif ev.device_type == cuda_t:
+            ms = ev.time_range.elapsed_us() / 1e3
+            busy += ms
+            if "win_bwd_dense" in ev.name:
+                bwd_ms += ms
+                bwd_n += 1
+        elif (ev.name == "aten::_to_copy" and ev.input_shapes
+              and list(ev.input_shapes[0]) == shape):
+            casts += 1
+    nfe = tr.bm.get_value()
+    emit(path="A", train_step_host_ms=host, forward_nfe=tr.fm.get_value(),
+         adjoint_nfe=nfe, profiled_device_busy_ms=busy,
+         adjoint_device_ms=adjoint_ms, adjoint_ms_per_nfe=adjoint_ms / nfe,
+         win_bwd_dense_launches=bwd_n, win_bwd_dense_device_ms=bwd_ms,
+         block_casts=casts, block_casts_per_adjoint_nfe=casts / nfe)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=None,
+                    help="measure this checkout in this process")
+    ap.add_argument("--parent", default=None,
+                    help="a second checkout, measured in turns")
+    args = ap.parse_args()
+    if args.root is not None:
+        measure(os.path.abspath(args.root))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    order = [HERE] if args.parent is None else [
+        os.path.abspath(args.parent), HERE, HERE,
+        os.path.abspath(args.parent)]
+    for root in order:
+        rc = subprocess.call([sys.executable, os.path.abspath(__file__),
+                              "--root", root], cwd=root)
+        if rc != 0:
+            return rc
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+
+    print(cs.smi_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -159,11 +159,14 @@ def _windowed_graph(device, n, tile, window, seed=3):
     return attach_windows(g, window=window, tile=tile)
 
 
-# (N, tile, W, D): the slice's tile, W and D; a small odd shape; and one
+# (N, tile, W, D): the slice's tile, W and D; a small odd shape; one
 # whose W and D take the kernels' one-value runs (W not a multiple of 16
-# bytes, D odd)
+# bytes, D odd); a wide one, D = 300 (two column chunks of the forward)
+# with N off the tile; and a deep one, D = 461 (the bf16 win_bwd_dense's
+# K chunks)
 SHAPES = {"small_odd": (301, 8, 16, 5), "slice": (3000, 128, 512, 162),
-          "unaligned": (203, 6, 18, 7)}
+          "unaligned": (203, 6, 18, 7), "wide": (1001, 128, 256, 300),
+          "deep": (301, 8, 16, 461)}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -219,6 +222,60 @@ def test_cuda_windowed_autograd_matches_plain(cuda, dtype):
                                atol=1e-4)
     # the addend's gradient is the cotangent itself
     torch.testing.assert_close(ar.grad, pc)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_cuda_win_bwd_dense_output_dtypes(cuda, dtype, shape):
+    """win_bwd_dense with each output dtype: the f32 output against the
+    plain version (sums in another order: the windowed products'
+    tolerance); the bf16 output the f32 output's bits cast, exactly (one
+    rounding, to nearest even, of the same f32 sums); a misaligned view
+    (``x[1:]``, ``g[1:]``: element staging) the same bits as the aligned
+    call."""
+    n, tile, window, d = SHAPES[shape]
+    g = _windowed_graph(cuda, n, tile, window, seed=9)
+    wl, tdt = g.windows, getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    xb = torch.randn(n + 1, d, generator=gen, device=cuda).to(tdt)
+    gb = torch.randn(n + 1, d, generator=gen, device=cuda).to(tdt)
+    x, gr = xb[:n].clone(), gb[:n].clone()
+    f32 = ws.win_bwd_dense(wl, gr, x)
+    assert f32.dtype == torch.float32
+    torch.testing.assert_close(f32, ws.win_bwd_dense_plain(wl, gr, x),
+                               rtol=1e-5, atol=1e-4)
+    b16 = ws.win_bwd_dense(wl, gr, x, torch.bfloat16)
+    assert b16.dtype == torch.bfloat16
+    assert torch.equal(b16, f32.to(torch.bfloat16))
+    xm, gm = xb[1:], gb[1:]
+    assert xm.is_contiguous() and xm.shape == x.shape
+    for od in (torch.float32, torch.bfloat16):
+        want = ws.win_bwd_dense(wl, gm.clone(), xm.clone(), od)
+        assert torch.equal(ws.win_bwd_dense(wl, gm, xm, od), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,a", [(7, 12), (128, 64), (162, 32), (300, 12),
+                                 (80, 128)])
+def test_cuda_kproj_shapes_and_views(cuda, dtype, d, a):
+    """attention_kproj at the widths of its paths and at odd ones (odd D,
+    A not a multiple of 8, A over one 64-column chunk), N = 1,037 (the last
+    64-row tile ragged): f32 sums of exact products in another order,
+    1e-5 relative / 1e-4 absolute; a misaligned view (``x[1:]``) the same
+    bits as the aligned call."""
+    tdt = getattr(torch, dtype)
+    n = 1037
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + a)
+    xb = torch.randn(n + 1, d, generator=gen, device=cuda).to(tdt)
+    wk = (0.3 * torch.randn(d, a, generator=gen, device=cuda)).to(tdt)
+    bk = 0.1 * torch.randn(a, generator=gen, device=cuda)
+    x = xb[:n].clone()
+    kt = fa.attention_kproj(x, wk, bk)
+    torch.testing.assert_close(kt, fa.attention_kproj_plain(x, wk, bk),
+                               rtol=1e-5, atol=1e-4)
+    xm = xb[1:]
+    assert torch.equal(fa.attention_kproj(xm, wk, bk),
+                       fa.attention_kproj(xm.clone(), wk, bk))
 
 
 # ----------------------------------------------------------------------
