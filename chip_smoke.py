@@ -29,17 +29,17 @@ and prints no result):
    flash_dense, on the Computers stand-in's mask with GRAND-nl's own q and
    k at Computers' widths, N = 13,381, H = 4, dk = 16, D = 128, beside PR 4's
    CSR flash on the same graph and function, and on small graphs with
-   empty rows and an N off the tile; the three-kernel form, attention_norm
-   and attention_attspmm, and the windowed attention kernel winatt (K5) on
-   the windowed layout's residual CSR and in-window cells and on the arxiv
-   CSR under column normalisation, with the models' own q, k and K table,
-   each route timed whole, and on a small community graph over every score
-   type, reweight and squareplus), in f32 and bf16, with its error beside
-   the stated
-   tolerance, its median device time, the plain version's time, its bound
-   and a PyTorch call as a yardstick where one computes the same function
-   (win_bwd_dense's and the K projection's: bf16 in, f32 out through
-   ``out_dtype``);
+   empty rows, a hub row and an N off the tile; the three-kernel form,
+   attention_norm and attention_attspmm, and the windowed attention kernel
+   winatt (K5) on the windowed layout's residual CSR and in-window cells
+   and on the arxiv CSR under column normalisation, with the models' own
+   q, k and K table, each route timed whole, and on a small community
+   graph over every score type, reweight and squareplus), in f32 and bf16,
+   with its error beside the stated tolerance, its median device time, the
+   plain version's time, its bound and a PyTorch call as a yardstick where
+   one computes the same function (win_bwd_dense's and the K projection's:
+   bf16 in, f32 out through ``out_dtype``; win_matmul's rows name its
+   staging route);
    win_bwd_dense with both output dtypes, its bf16 output held to its f32
    output cast, bit for bit, and the win_matmul Function's backward with
    no cast of a [T, tile, W] block; then one line naming every ported
@@ -447,8 +447,8 @@ def phase_windowed_kernels(graph, results: dict) -> None:
                               device="cuda")          # f32, as the pin's
 
             def run(kernel, fn, plain, tol, nbytes, ops, lib=None,
-                    product=None):
-                row = dict(kernel=kernel, layout=shape, dtype=name)
+                    product=None, **extra):
+                row = dict(kernel=kernel, layout=shape, dtype=name, **extra)
                 if product is not None:
                     row["product"] = product
                 return hold_to_plain(results, row, fn, plain, tol, nbytes,
@@ -489,7 +489,9 @@ def phase_windowed_kernels(graph, results: dict) -> None:
                 TOL_WIN if dt == torch.float32 else TOL["bfloat16"],
                 cells * b + 3 * n * d * b, flops,
                 ("torch.baddbmm on the pre-gathered slab",
-                 lambda: torch.baddbmm(add_t, dense, slab_g)))
+                 lambda: torch.baddbmm(add_t, dense, slab_g)),
+                staging=ws.matmul_staging(dense, x, addend)
+                if dt == torch.bfloat16 else "cuda_core")
             del add_t
             g_t = ws._tiles(gr, wl)
             # f32 output (graphax's), then bf16 (the path's: the blocks'
@@ -1380,8 +1382,8 @@ def phase_dense_kernels(trainer, results: dict) -> None:
     computing the same function here: the graph has self-loops, so no row
     is empty; timed, never used by the port), and PR 4's CSR
     ``flash_attention`` computing the head mean of the same function over
-    the same graph. Then a small graph with empty rows and an N off the
-    tile in both dtypes."""
+    the same graph. Then small graphs with empty rows, a hub row and an N
+    off the tile in both dtypes."""
     import torch
 
     from graphax_torch.functions.transformer import _split_heads
@@ -1424,7 +1426,7 @@ def phase_dense_kernels(trainer, results: dict) -> None:
                 TOL_FLASH[name],
                 # the mask, q and k (f32), x, the [H, N, D] output; the
                 # function's operations are those of the set entries (q.k
-                # and p.x per head), not of the dense [N, N] the kernel walks
+                # and p.x per head), the only ones the kernel does
                 n * n + 2 * 4 * n * heads * dk + n * d * b
                 + heads * n * d * b,
                 heads * 2.0 * live * (dk + d),
@@ -1453,12 +1455,14 @@ def phase_dense_kernels(trainer, results: dict) -> None:
         del x, q4, k4, v4, qc, kc
         torch.cuda.empty_cache()
 
-    # a small graph: N off the 64-row tile, rows without an edge
+    # small graphs: N off the 64-key group and 16 bytes, rows without an
+    # edge, a hub row with every key live (more than one list buffer)
     gen = torch.Generator(device="cuda").manual_seed(14)
     worst = {}
     for n_s, h_s, dk_s, d_s in ((300, 2, 4, 8), (1001, 4, 16, 128)):
         mask_s = torch.rand(n_s, n_s, generator=gen, device="cuda") < 6 / n_s
         mask_s.fill_diagonal_(True)
+        mask_s[1] = True
         mask_s[-3:] = False
         q_s, k_s = (0.5 * torch.randn(n_s, h_s, dk_s, generator=gen,
                                       device="cuda") for _ in range(2))

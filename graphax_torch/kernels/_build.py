@@ -73,7 +73,7 @@ SIGNATURES = {
                       _I, _I, _I, _F, _F, _I, _P],
     },
     "flash_dense": {
-        "gx_flash_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "gx_flash_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "windowed_spmm": {
         "gx_densify": [_P, _P, _P, _P, _I, _L, _I, _I, _P],

@@ -1,8 +1,9 @@
-// Building blocks of the bf16 tensor-core kernels (win_bwd_dense's and
-// attention_kproj's bf16 instantiations): asynchronous 16-byte copies into
-// shared memory, mma.sync m16n8k16 (bf16 in, f32 accumulators) from 32-bit
-// shared loads (or ldmatrix, where the staged rows are 16-byte aligned),
-// and streaming vector stores of the accumulators.
+// Building blocks of the bf16 tensor-core kernels (the bf16 instantiations
+// of win_matmul, win_bwd_dense and attention_kproj): asynchronous 16- and
+// 4-byte copies into shared memory, mma.sync m16n8k16 (bf16 in, f32
+// accumulators) from 32-bit shared loads (or ldmatrix, where the staged
+// rows are 16-byte aligned), and streaming vector stores of the
+// accumulators.
 //
 // Why mma.sync and not wgmma: the staged rows keep their device-memory
 // layout (D = 162 bf16 rows are 324 bytes, not a multiple of 16, so
@@ -41,6 +42,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
+}
+// 16 (or 4) bytes, or zeros where !ok (src is then not read)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -128,19 +142,34 @@ __device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
   }
 }
 
-// Two B fragments at once from S [.][P] with 16-byte-aligned rows (P a
-// multiple of 8): columns n0 .. n0+15 of k16 at kk, b[0], b[1] of columns
-// n0.., b[2], b[3] of columns n0+8.. (ldmatrix: lane l gives row
-// n0 + (l & 7) + 8 (l >> 4), k kk + 8 ((l >> 3) & 1)).
-__device__ __forceinline__ void load_b2(uint32_t (&b)[4], const bf16* S, int P,
-                                        int n0, int kk, int lane) {
-  const bf16* p =
-      S + (n0 + (lane & 7) + 8 * (lane >> 4)) * P + kk + 8 * ((lane >> 3) & 1);
+// Four 8 x 8 b16 matrices from shared memory, lane l giving the address of
+// row l & 7 of matrix l >> 3 (16-byte-aligned rows of 8 values). Plain:
+// lane (g, q) gets row g, columns 2q, 2q+1 of each; trans: rows 2q, 2q+1
+// of column g.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(p);
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Two B fragments at once from S [.][P] with 16-byte-aligned rows (P a
+// multiple of 8): columns n0 .. n0+15 of k16 at kk, b[0], b[1] of columns
+// n0.., b[2], b[3] of columns n0+8.. (lane l gives row
+// n0 + (l & 7) + 8 (l >> 4), k kk + 8 ((l >> 3) & 1)).
+__device__ __forceinline__ void load_b2(uint32_t (&b)[4], const bf16* S, int P,
+                                        int n0, int kk, int lane) {
+  ldmatrix_x4(b, S + (n0 + (lane & 7) + 8 * (lane >> 4)) * P + kk +
+                     8 * ((lane >> 3) & 1));
 }
 
 // The accumulator c (rows g, g+8; columns 2q, 2q+1) regrouped between lane

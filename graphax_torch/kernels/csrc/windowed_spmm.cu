@@ -4,7 +4,8 @@
 //
 // Replaces graphax/kernels/pallas_windows.py:
 //   `_densify_kernel` (:57)       -> densify_kernel
-//   `_win_matmul_kernel` (:185)   -> win_matmul_kernel
+//   `_win_matmul_kernel` (:185)   -> win_matmul_tc_kernel (bf16),
+//                                    win_matmul_kernel (f32)
 //   `_win_bwd_dense_kernel` (:214)-> win_bwd_dense_tc_kernel (bf16),
 //                                    win_bwd_dense_kernel (f32)
 //   `_win_bwd_slab_kernel` (:243) -> win_bwd_slab_kernel
@@ -43,6 +44,24 @@
 //   1-D grid puts the column chunks of one output block side by side, so
 //   they share its A operand in L2 instead of reading it from HBM again.
 //
+// win_matmul in bf16 (win_matmul_tc_kernel below): bound by bytes, the
+// [T, 128, W] blocks once (173 MB at the arxiv shapes) and x, the addend
+// and the output (55 MB each), 0.101 ms at 3.35 TB/s, against 28 GFLOP
+// (0.03 ms at the bf16 tensor-core peak). Design: one CTA per 128-row tile
+// covers the whole D (up to 176 columns, 22 n8 fragments; wider D takes
+// more CTAs), so each block is read from device memory once. A (the block,
+// 1024-byte rows) streams in K chunks of 32 columns by 16-byte cp.async, B
+// (the slab rows of the same chunk) by 4-byte cp.async of its column
+// pairs, straight into rows of a 16-byte multiple pitch (D = 162: 324
+// bytes a row in device memory, 368 in shared memory), through a ring of 3
+// stages with one barrier a step; mma.sync m16n8k16 reads A by ldmatrix
+// and B by ldmatrix.trans (the contraction runs along slab rows). The
+// addend's rows are copied into shared memory with the first chunk; the
+// epilogue adds them to the f32 sums, rounds once to bf16 in place and
+// writes the tile's rows out whole. Two CTAs per SM overlap one tile's
+// epilogue with the other's stream. The 4-byte copies of B cost the most
+// of the staging (PERF.md: the designs that measured slower).
+//
 // win_bwd_dense in bf16 (win_bwd_dense_tc_kernel below): bound by bytes,
 // 110 MB of g and x in and the [T, 128, W] output out, 347 MB in f32
 // (0.136 ms at 3.35 TB/s) or 173 MB in the blocks' bf16 (0.085 ms),
@@ -54,10 +73,10 @@
 // stores, two CTAs per SM (see the kernel's note; measurements and the
 // designs that measured slower in PERF.md).
 //
-// Not yet done (later work): cp.async/TMA staging with a multi-stage ring
-// and wgmma for win_matmul and win_bwd_slab, wider column chunks (D = 162
-// runs as 3 chunks of 64), and skipping all-zero 32-column strips of the
-// blocks (0.66 % of the cells are filled at the arxiv shapes).
+// Not yet done (later work): a tensor-core body with a cp.async ring for
+// win_bwd_slab (D = 162 runs as 3 chunks of 64 there), wgmma/TMA, and
+// skipping all-zero 32-column strips of the blocks (0.66 % of the cells
+// are filled at the arxiv shapes).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -324,8 +343,9 @@ __device__ __forceinline__ void cta_coords(int nchunks, int mblocks, int& b,
 // out[t*tile + r, :] = dense[t, r, :] @ slab[tile_win[t]] summed in f32,
 // plus addend[t*tile + r, :], rounded once to T (the windowed SpMM's
 // residual, added in the epilogue instead of three elementwise passes over
-// [N, D]). A [m][k] = dense[t] rows (runs of VA along W), B [k][n] = slab
-// rows (runs of VB along D).
+// [N, D]): the f32 instantiation (CUDA-core FMAs, no TF32; bf16 runs
+// win_matmul_tc_kernel). A [m][k] = dense[t] rows (runs of VA along W),
+// B [k][n] = slab rows (runs of VB along D).
 template <typename T, int VA, int VB>
 __global__ void __launch_bounds__(THREADS)
 win_matmul_kernel(const T* __restrict__ dense, const T* __restrict__ x,
@@ -359,6 +379,207 @@ win_matmul_kernel(const T* __restrict__ dense, const T* __restrict__ x,
     if (m0 + m < tile && row < N && c < D)
       out[row * D + c] = from_f<T>(v + to_f(addend[row * D + c]));
   });
+}
+
+// The bf16 instantiation, on the tensor cores (see the note at the top).
+// One CTA per work item (tile, 128-row block, 176-column chunk). 8 warps:
+// 4 over rows (32 each, two m16 fragments) x 2 over columns (11 n8
+// fragments each), 88 f32 accumulators a thread. Shared memory:
+// - a ring of MM_STAGES K chunks, each A [128][40] (80-byte rows:
+//   ldmatrix's 8 rows fall in 8 different 16-byte bank groups) and B
+//   [32][184] (368-byte rows, the same for ldmatrix.trans), B's slab rows
+//   staged by 4-byte copies of their column pairs (D = 162 rows are 324
+//   bytes, so in device memory most start off 16 bytes, and 16-byte copies
+//   cannot place them in 16-byte-aligned ldmatrix rows);
+// - C [128][184], the item's addend rows, copied in at the start (in the
+//   first chunk's cp.async group) and overwritten in place by the rounded
+//   outputs, which leave row by row (each warp a row, each lane a column
+//   pair: whole 128-byte lines).
+// Rows past the tile or past N, slab rows past W or N and block columns
+// past W are staged as zeros (cp.async's zero fill); B columns past D are
+// never written and only reach outputs that are not stored.
+constexpr int MM_BM = 128, MM_BK = 32, MM_STAGES = 3, MM_THREADS = 256;
+constexpr int MM_NFW = 11;                 // n8 fragments per warp
+constexpr int MM_BN = 2 * 8 * MM_NFW;      // 176 output columns per CTA
+constexpr int MM_PA = MM_BK + 8, MM_PB = MM_BN + 8;
+constexpr int MM_STAGE = MM_BM * MM_PA + MM_BK * MM_PB;  // elements
+constexpr int MM_SMEM =
+    (MM_STAGES * MM_STAGE + MM_BM * MM_PB) * (int)sizeof(bf16);
+
+// ASYNC: the "cp.async" route (W % 8 == 0, D even, the blocks on 16 bytes,
+// x and the addend on 4); else the "elements" route, one value per copy
+template <bool ASYNC>
+__global__ void __launch_bounds__(MM_THREADS, 2)
+win_matmul_tc_kernel(const bf16* __restrict__ dense, const bf16* __restrict__ x,
+                     const int* __restrict__ tile_win,
+                     const bf16* __restrict__ addend, bf16* __restrict__ out,
+                     int tile, int W, int N, int D) {
+  extern __shared__ __align__(16) unsigned char smem_mm[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_mm);
+  bf16* Cs = ring + MM_STAGES * MM_STAGE;  // [MM_BM][MM_PB]
+  const int nchunks = (D + MM_BN - 1) / MM_BN;
+  const int mblocks = (tile + MM_BM - 1) / MM_BM;
+  const int c0 = (blockIdx.x % nchunks) * MM_BN;
+  const int m0 = ((blockIdx.x / nchunks) % mblocks) * MM_BM;
+  const int t = blockIdx.x / nchunks / mblocks;
+  const int ncol = min(MM_BN, D - c0);
+  const int mrows = min(MM_BM, tile - m0);
+  const long long node0 = (long long)t * tile + m0;  // first output row
+  const int mout = (int)max(0LL, min((long long)mrows, N - node0));
+  const bf16* A = dense + ((size_t)t * tile + m0) * W;
+  const long long base = (long long)tile_win[t] * W;  // first slab row
+  const int nk = (W + MM_BK - 1) / MM_BK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp & 3) * 32, fw = (warp >> 2) * MM_NFW;
+
+  // rows [0, rows) of a row-major [., D] matrix from row r0 on, columns
+  // c0 .. c0 + ncol, into S [.][MM_PB]: a warp per row, a pair per lane;
+  // rows past `valid` as zeros
+  auto stage_pairs = [&](bf16* S, const bf16* M, long long r0, int rows,
+                         int valid) {
+    for (int r = warp; r < rows; r += MM_THREADS / 32) {
+      const bool ok = r < valid;
+      const bf16* src = M + (ok ? (r0 + r) * D + c0 : 0);
+      bf16* dst = S + r * MM_PB;
+      for (int c = 2 * lane; c < ncol; c += 64) {
+        if (ASYNC) {
+          gx_tc::cp_async4_zfill(dst + c, src + c, ok);
+        } else {
+          dst[c] = ok ? src[c] : gx_tc::bzero();
+          dst[c + 1] = ok && c + 1 < ncol ? src[c + 1] : gx_tc::bzero();
+        }
+      }
+    }
+  };
+
+  // K chunk kc into its ring slot
+  auto stage = [&](int kc) {
+    if (kc >= nk) return;
+    bf16* As = ring + (kc % MM_STAGES) * MM_STAGE;
+    bf16* Bs = As + MM_BM * MM_PA;
+    const int k0 = kc * MM_BK;
+    for (int i = tid; i < MM_BM * (MM_BK / 8); i += MM_THREADS) {
+      const int r = i / (MM_BK / 8), c = k0 + 8 * (i % (MM_BK / 8));
+      bf16* dst = As + r * MM_PA + (c - k0);
+      if (ASYNC) {
+        const bool ok = r < mrows && c < W;
+        gx_tc::cp_async16_zfill(dst, ok ? A + (size_t)r * W + c : A, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = r < mrows && c + e < W ? A[(size_t)r * W + c + e]
+                                          : gx_tc::bzero();
+      }
+    }
+    const long long first = base + k0;  // slab rows past W or N are zeros
+    stage_pairs(Bs, x, first, MM_BK,
+                (int)max(0LL, min((long long)(W - k0), N - first)));
+  };
+
+  float acc[2][MM_NFW][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int f = 0; f < MM_NFW; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][f][e] = 0.f;
+
+  stage_pairs(Cs, addend, node0, mout, mout);  // (with the first chunk)
+#pragma unroll
+  for (int s = 0; s < MM_STAGES - 1; ++s) {
+    stage(s);
+    gx_tc::cp_async_commit();
+  }
+  // ldmatrix addresses: A rows wm + 16 i + (lane & 7) + 8 ((lane >> 3) & 1),
+  // columns 8 (lane >> 4); B (k rows) (lane & 7) + 8 ((lane >> 3) & 1),
+  // columns 8 (lane >> 4) of each fragment pair
+  const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
+  for (int kc = 0; kc < nk; ++kc) {
+    gx_tc::cp_async_wait<MM_STAGES - 2>();
+    __syncthreads();  // chunk kc is in; chunk kc - 1's slot is free
+    stage(kc + MM_STAGES - 1);
+    gx_tc::cp_async_commit();
+    const bf16* As = ring + (kc % MM_STAGES) * MM_STAGE;
+    const bf16* Bs = As + MM_BM * MM_PA;
+#pragma unroll
+    for (int kk = 0; kk < MM_BK; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        gx_tc::ldmatrix_x4(a[i], As + (wm + 16 * i + lr) * MM_PA + kk + lc);
+#pragma unroll
+      for (int p = 0; p < (MM_NFW + 1) / 2; ++p) {
+        const int n0 = (fw + 2 * p) * 8;
+        if (n0 >= ncol) break;  // fragments wholly past D
+        uint32_t b[4];
+        gx_tc::ldmatrix_x4_trans(b, Bs + (kk + lr) * MM_PB + n0 + lc);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          gx_tc::mma_bf16(acc[i][2 * p], a[i], b[0], b[1]);
+          if (2 * p + 1 < MM_NFW)
+            gx_tc::mma_bf16(acc[i][2 * p + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  gx_tc::cp_async_wait<0>();
+  __syncthreads();  // the addend is in C
+
+  // C = rnd(acc + C) in place: this lane's rows wm + 16 i + g (+8),
+  // columns 2q, 2q+1 of each fragment (C's 92-word pitch puts a
+  // fragment's 8 rows x 4 pairs in 32 different banks)
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      bf16* crow = Cs + (wm + 16 * i + g + 8 * hf) * MM_PB;
+#pragma unroll
+      for (int f = 0; f < MM_NFW; ++f) {
+        const int c = (fw + f) * 8 + q2;
+        if (c >= ncol) break;
+        __nv_bfloat162* cp = reinterpret_cast<__nv_bfloat162*>(crow + c);
+        const __nv_bfloat162 ad = *cp;
+        *cp = __floats2bfloat162_rn(acc[i][f][2 * hf] + __low2float(ad),
+                                    acc[i][f][2 * hf + 1] + __high2float(ad));
+      }
+    }
+  __syncthreads();
+  for (int r = warp; r < mout; r += MM_THREADS / 32) {
+    const bf16* src = Cs + r * MM_PB;
+    bf16* dst = out + (node0 + r) * D + c0;
+    for (int c = 2 * lane; c < ncol; c += 64) {
+      if (ASYNC) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+            *reinterpret_cast<const __nv_bfloat162*>(src + c);
+      } else {
+        dst[c] = src[c];
+        if (c + 1 < ncol) dst[c + 1] = src[c + 1];
+      }
+    }
+  }
+}
+
+template <bool ASYNC>
+cudaError_t win_matmul_tc_run(const void* dense, const void* x,
+                              const void* tile_win, const void* addend,
+                              void* out, int T, int tile, int W, int N, int D,
+                              cudaStream_t s) {
+  static bool smem_set = false;
+  if (!smem_set) {  // the opt-in above 48 KB, once
+    cudaError_t err = cudaFuncSetAttribute(
+        win_matmul_tc_kernel<ASYNC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, MM_SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const long long blocks = (long long)T * ((tile + MM_BM - 1) / MM_BM) *
+                           ((D + MM_BN - 1) / MM_BN);
+  if (blocks <= 0) return cudaSuccess;
+  win_matmul_tc_kernel<ASYNC><<<(unsigned)blocks, MM_THREADS, MM_SMEM, s>>>(
+      (const bf16*)dense, (const bf16*)x, (const int*)tile_win,
+      (const bf16*)addend, (bf16*)out, tile, W, N, D);
+  return cudaGetLastError();
 }
 
 // d_dense[t, r, k] = g[t*tile + r, :] . slab[tile_win[t]][k, :] summed in
@@ -702,12 +923,26 @@ int gx_densify(const void* edge_id, const void* cell, const void* values,
 
 // out [N, D] = dense @ slab + addend, rounded once to the shared dtype of
 // dense [T, tile, W], x [N, D], addend [N, D] and out; tile_win [T] int32.
+// float32: va, vb the staged run lengths; bfloat16 (the tensor-core
+// kernel): va != 0 takes the cp.async route (W % 8 == 0, D even, dense on
+// 16 bytes, x and addend on 4), else the element route.
 int gx_win_matmul(const void* dense, const void* x, const void* tile_win,
                   const void* addend, void* out, int T, int tile, int W,
                   int N, int D, int dtype, int va, int vb, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) {
+    if (va)
+      return (int)win_matmul_tc_run<true>(dense, x, tile_win, addend, out, T,
+                                          tile, W, N, D, s);
+    return (int)win_matmul_tc_run<false>(dense, x, tile_win, addend, out, T,
+                                         tile, W, N, D, s);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const int blocks = T * ((tile + BM - 1) / BM) * ((D + BN - 1) / BN);
-  return dispatch_gemm<MatmulK, true>(dtype, blocks, va, vb, stream, dense, x,
-                                      tile_win, addend, out, tile, W, N, D);
+  if (blocks <= 0) return (int)cudaSuccess;
+  return (int)launch_gemm<MatmulK, float, 4>(blocks, va, vb, s, dense, x,
+                                             tile_win, addend, out, tile, W,
+                                             N, D);
 }
 
 // out [T, tile, W] in out_dtype, the f32 sums rounded once; g [N, D] and

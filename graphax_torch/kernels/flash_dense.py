@@ -4,9 +4,10 @@
 Replaces graphax's K6, `_flash_kernel` (`graphax/kernels/pallas_ops.py:27`)
 with its entry points `flash_masked_attention` (:60) and
 `flash_attention_multihead` (:111). The CUDA source is
-`csrc/flash_dense.cu`: one launch over (64-row tiles x heads), 64-key tiles
-of k, v and the int8 mask streamed through shared memory, each warp owning
-8 rows with their running max, denominator and accumulator in registers.
+`csrc/flash_dense.cu`: one warp per query row and group of up to 4 heads
+streams the row's int8 mask once, compacts its live keys, and does the
+arithmetic for those keys only, with the running max, denominator and
+accumulator of every head in registers.
 
 The function, as graphax's: q, k ``[N, H, dk]`` (q pre-scaled by
 1/sqrt(dk)), v ``[N, D]`` shared by every head, mask ``[N, N]`` (nonzero =
@@ -15,9 +16,11 @@ denominator ``l`` are f32; each key tile updates them once (``m' = max(m,
 tile max)``, ``p = exp(s - m')``, ``l = l exp(m - m') + sum p``), ``p`` is
 rounded to v's dtype before the product (:50-51), the products are summed
 in f32, and ``out = acc / max(l, 1e-16)`` (:56-57). A row without an edge
-gives exactly 0. graphax's key blocks hold 512 keys, the kernel's 64: in
-f32 the two agree to rounding, in bf16 a ``p`` rounded against another
-running max can land one bf16 ulp apart.
+gives exactly 0. graphax's key blocks hold 512 keys, the kernel's 64 (a
+block without a live key leaves the state exactly as it was, so the kernel
+visits only blocks with live keys): in f32 the two agree to rounding, in
+bf16 a ``p`` rounded against another running max can land one bf16 ulp
+apart.
 
 :func:`flash_attention_multihead` takes CUDA tensors to the kernel and CPU
 tensors to :func:`flash_attention_multihead_plain`, and counts its
@@ -31,7 +34,7 @@ import torch
 from graphax_torch.kernels import _build
 
 NEG = -1e30
-KEY_TILE = 64        # keys per tile in csrc/flash_dense.cu
+KEY_TILE = 64        # keys per group of the running max in csrc/flash_dense.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DK = 64
 _MAX_D = 256
@@ -61,6 +64,16 @@ def flash_attention_multihead_plain(q, k, v, mask, block_k: int = KEY_TILE):
         acc = acc * alpha + p.to(v.dtype).float() @ v[j0:j1].float()
         m = m_new
     return (acc / torch.clamp(l, min=1e-16)).to(v.dtype)
+
+
+def key_loads(q: torch.Tensor, k: torch.Tensor) -> str:
+    """How the kernel reads the f32 q and k rows it scores: ``"float4"``
+    where dk is a multiple of 4 and both tables start on 16 bytes, else
+    ``"scalar"`` (dk = 1, 2, 3, 5, ..., or a view that starts mid-vector).
+    Either gives the same values."""
+    ok = (q.shape[-1] % 4 == 0 and q.data_ptr() % 16 == 0
+          and k.data_ptr() % 16 == 0)
+    return "float4" if ok else "scalar"
 
 
 def flash_attention_multihead(q: torch.Tensor, k: torch.Tensor,
@@ -99,11 +112,12 @@ def flash_attention_multihead(q: torch.Tensor, k: torch.Tensor,
             raise ValueError("flash_attention_multihead: operands must be on "
                              f"{v.device}")
     out = torch.empty((h, n, d), dtype=v.dtype, device=v.device)
+    vec4 = int(key_loads(qf, kf) == "float4")
     lib = _build.library("flash_dense")
     err = lib.gx_flash_dense(qf.data_ptr(), kf.data_ptr(), v.data_ptr(),
                              mask.view(torch.uint8).data_ptr(),
                              out.data_ptr(), n, h, dk, d, _DTYPES[v.dtype],
-                             _build.stream_ptr(v))
+                             vec4, _build.stream_ptr(v))
     _build.check(err, "flash_dense")
     _build.LAUNCHES["flash_dense"] += 1
     return out

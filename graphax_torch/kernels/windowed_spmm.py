@@ -155,11 +155,28 @@ def win_matmul_plain(wl: WindowLayout, dense, x, addend):
     return (out + addend.float()).to(x.dtype)
 
 
+def matmul_staging(dense: torch.Tensor, x: torch.Tensor,
+                   addend: torch.Tensor) -> str:
+    """How the bf16 kernel stages its operands: ``"cp.async"`` (16-byte
+    copies of the blocks' rows, 4-byte copies of the column pairs of x's
+    and the addend's rows, the output written in pairs) where W is a
+    multiple of 8, D is even, the blocks start on 16 bytes and x and the
+    addend on 4; else ``"elements"`` (one value per copy: odd D, W off 8,
+    or a view such as ``x.view(-1)[1:]`` that starts mid-pair). Either
+    gives the same values."""
+    ok = (dense.shape[-1] % 8 == 0 and x.shape[1] % 2 == 0
+          and dense.data_ptr() % 16 == 0 and x.data_ptr() % 4 == 0
+          and addend.data_ptr() % 4 == 0)
+    return "cp.async" if ok else "elements"
+
+
 def win_matmul(wl: WindowLayout, dense: torch.Tensor, x: torch.Tensor,
                addend: torch.Tensor) -> torch.Tensor:
     """``[N, D]`` in x's dtype: the in-window product of the blocks with x,
     summed in f32, plus ``addend`` (``[N, D]`` in x's dtype), rounded once
-    to x's dtype (the kernel adds it in its epilogue)."""
+    to x's dtype (the kernel adds it in its epilogue). bf16 runs on the
+    tensor cores (:func:`matmul_staging` names how it stages), f32 on
+    CUDA-core FMAs."""
     if not x.is_cuda:
         return win_matmul_plain(wl, dense, x, addend)
     _check(wl, "win_matmul", x, dense, addend)
@@ -169,11 +186,14 @@ def win_matmul(wl: WindowLayout, dense: torch.Tensor, x: torch.Tensor,
     if addend.shape != x.shape:
         raise ValueError("win_matmul: addend must be shaped like x")
     out = torch.empty((n, d), device=x.device, dtype=x.dtype)
+    if x.dtype == torch.bfloat16:
+        va, vb = int(matmul_staging(dense, x, addend) == "cp.async"), 0
+    else:
+        va, vb = _run(dense, wl.window, _wide(dense)), _run(x, d, 2)
     err = _build.library("windowed_spmm").gx_win_matmul(
         dense.data_ptr(), x.data_ptr(), wl.tile_win.data_ptr(),
         addend.data_ptr(), out.data_ptr(),
-        wl.num_tiles, wl.tile, wl.window, n, d, _DTYPES[x.dtype],
-        _run(dense, wl.window, _wide(dense)), _run(x, d, 2),
+        wl.num_tiles, wl.tile, wl.window, n, d, _DTYPES[x.dtype], va, vb,
         _build.stream_ptr(x))
     _build.check(err, "win_matmul")
     _build.LAUNCHES["win_matmul"] += 1

@@ -1,11 +1,14 @@
-"""win_bwd_dense and attention_kproj on the card, at the ogbn-arxiv preset's
-shapes, for one or two checkouts of the repo.
+"""The redesigned kernels on the card, at their main paths' shapes, for one
+or two checkouts of the repo: win_bwd_dense, attention_kproj and win_matmul
+at the ogbn-arxiv preset's, flash_dense at Computers'.
 
 For each checkout (``--root``, default this one; ``--parent DIR`` adds a
 second, run in turns parent, this, this, parent, each in its own process):
 the windowed layout of the arxiv stand-in as published (T = 1323 tiles of
-128 rows, W = 512, D = 162) and GRAND-nl's K projection widths (N =
-169,343, D = 162, A = 32); each kernel's median ms over 20 launches (CUDA
+128 rows, W = 512, D = 162), GRAND-nl's K projection widths (N =
+169,343, D = 162, A = 32) and GRAND-nl's dense evaluation at Computers'
+widths (the stand-in's mask, N = 13,381, H = 4, dk = 16, D = 128, the
+model's own q and k); each kernel's median ms over 20 launches (CUDA
 events), its largest error against its plain version, its bound (bytes
 over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
 ``bound_ms``) and the same-function PyTorch call's ms:
@@ -14,10 +17,18 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   has no ``out_dtype`` is timed with the f32 output and the ``.to`` cast
   that its autograd Function ran after it); f32 in, f32 out;
 - attention_kproj, bf16 and f32;
+- win_matmul with the addend, bf16 and f32 (``baddbmm`` on the
+  pre-gathered slab beside it);
+- the windowed arxiv preset's steady epoch (the fastest of 3 after the
+  first, ``fit`` with its defaults);
 - path A's train step (GRAND-nl windowed, the arxiv preset as published):
   host ms per step, its adjoint NFE, and from one profiled step the
   device's busy ms, the adjoint span's device ms, win_bwd_dense's device
-  ms and the casts of a [T, tile, W] block per adjoint NFE.
+  ms and the casts of a [T, tile, W] block per adjoint NFE;
+- flash_dense, f32 and bf16 (``scaled_dot_product_attention`` with the
+  boolean mask beside it), and GRAND-nl's dense evaluation (Computers'
+  preset with ``function="transformer", block="constant"``, random Q/K):
+  three evaluations, their NFE and ms per NFE.
 
 One JSON line per measurement, then the card's nvidia-smi line. Run from
 the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
@@ -56,18 +67,25 @@ def host_ms(fn, reps: int = 20) -> float:
     return sorted(times)[reps // 2]
 
 
+def this_chip_smoke():
+    """This checkout's chip_smoke module, for its device timing (a sleep
+    ahead of each start event) whichever checkout is measured."""
+    if "chip_smoke_here" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["chip_smoke_here"] = mod
+    return sys.modules["chip_smoke_here"]
+
+
 def measure(root: str) -> None:
     sys.path.insert(0, root)
     import torch
 
     import chip_smoke as cs
 
-    # this checkout's device timing (a sleep ahead of each start event),
-    # whichever checkout is measured
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
-    here = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(here)
+    here = this_chip_smoke()
     from graphax_torch import Trainer, best_config, get_dataset
     from graphax_torch.kernels import _build
     from graphax_torch.kernels import fused_attention as fa
@@ -132,10 +150,35 @@ def measure(root: str) -> None:
                  ms=here.time_ms(fn), ms_with_enqueue=host_ms(fn),
                  max_abs_err=err, bound_ms=bms, bound_by=by, library=lib[0],
                  library_ms=here.time_ms(lib[1], reps=10))
-        del x, g
+        # win_matmul with the addend, as the windowed path calls it
+        vals = torch.rand(tr.data.graph.edge_buffer_size, generator=gen,
+                          device="cuda")
+        dense = ws.densify(wl, vals, dt)
+        add = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        fn = lambda: ws.win_matmul(wl, dense, x, add)  # noqa: E731
+        err = float((fn().float() - ws.win_matmul_plain(wl, dense, x, add)
+                     .float()).abs().max())
+        slab_g = ws._slab(x, wl)[wl.tile_win.long()].contiguous()
+        add_t = ws._tiles(add, wl)
+        bms, by = cs.bound_ms(cells * b + 3 * n * d * b, 2.0 * cells * d,
+                              name)
+        emit(kernel="win_matmul", dtype=name, ms=here.time_ms(fn),
+             ms_with_enqueue=host_ms(fn), max_abs_err=err, bound_ms=bms,
+             bound_by=by, library="baddbmm on the pre-gathered slab",
+             library_ms=here.time_ms(
+                 lambda: torch.baddbmm(add_t, dense, slab_g), reps=10))
+        del x, g, dense, add, slab_g, add_t
         torch.cuda.empty_cache()
+    fit = tr.fit(epochs=3)
+    torch.cuda.synchronize()
+    times = [h["time"] for h in fit["history"]]
+    emit(path="windowed arxiv", epoch_seconds=times,
+         steady_epoch_seconds=min(times[1:]))
     del tr
     train_steps(data, emit)
+    del data
+    torch.cuda.empty_cache()
+    dense_nl(emit)
 
 
 def train_steps(data, emit) -> None:
@@ -189,6 +232,73 @@ def train_steps(data, emit) -> None:
          adjoint_device_ms=adjoint_ms, adjoint_ms_per_nfe=adjoint_ms / nfe,
          win_bwd_dense_launches=bwd_n, win_bwd_dense_device_ms=bwd_ms,
          block_casts=casts, block_casts_per_adjoint_nfe=casts / nfe)
+
+
+def dense_nl(emit) -> None:
+    """flash_dense at Computers' widths (the stand-in's mask, GRAND-nl's own
+    q and k on the encoded state, as chip_smoke's dense kernel phase), then
+    GRAND-nl's dense evaluation three times: NFE, seconds, ms per NFE (host
+    clock around a device sync) and flash_dense's launches."""
+    import math
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.functions.transformer import _split_heads
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels.dense_path import dense_adjacency_mask
+    from graphax_torch.kernels.flash_dense import (
+        flash_attention_multihead, flash_attention_multihead_plain,
+    )
+    from graphax_torch.utils.params import linear_apply
+
+    here = this_chip_smoke()
+    tr = Trainer(best_config("Computers", function="transformer",
+                             block="constant"), get_dataset("Computers"))
+    cs.randomize_attention(tr.model.block.func.att, 11)
+    g, att, heads = tr.data.graph, tr.model.block.func.att, tr.cfg.heads
+    tr.model.eval()
+    with torch.no_grad():
+        x_enc = tr.model.encode(tr.data.x, train=False)
+        q = _split_heads(linear_apply(att.Q, x_enc), heads)
+        k = _split_heads(linear_apply(att.K, x_enc), heads).contiguous()
+        dk, n, d = q.shape[-1], g.num_nodes, x_enc.shape[1]
+        q = (q / math.sqrt(dk)).contiguous()
+        mask = dense_adjacency_mask(g)
+        live = int(mask.sum())
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            b = torch.finfo(dt).bits // 8
+            x = x_enc.to(dt).contiguous()
+            fn = lambda: flash_attention_multihead(q, k, x, mask)  # noqa
+            err = float((fn().float() - flash_attention_multihead_plain(
+                q, k, x, mask).float()).abs().max())
+            q4, k4 = (t.transpose(0, 1)[None].to(dt) for t in (q, k))
+            v4 = x[None, None].expand(1, heads, n, d)
+            bms, by = cs.bound_ms(n * n + 2 * 4 * n * heads * dk + n * d * b
+                                  + heads * n * d * b,
+                                  heads * 2.0 * live * (dk + d), name)
+            emit(kernel="flash_dense", dtype=name, N=n, live=live,
+                 ms=here.time_ms(fn), ms_with_enqueue=host_ms(fn),
+                 max_abs_err=err, bound_ms=bms, bound_by=by,
+                 library="scaled_dot_product_attention, boolean mask",
+                 library_ms=here.time_ms(
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         q4, k4, v4, attn_mask=mask, scale=1.0), reps=10))
+            del x, q4, k4, v4
+    for i in range(3):
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.evaluate()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        nfe = tr.last_eval.nfe
+        emit(path="GRAND-nl dense evaluation", eval=i + 1, nfe=nfe,
+             seconds=sec, ms_per_nfe=sec * 1e3 / nfe,
+             flash_dense_launches=_build.LAUNCHES["flash_dense"])
 
 
 def main() -> int:

@@ -815,3 +815,141 @@ def test_cuda_dense_rhs_k6_route_matches_materialised(cuda, dtype):
         dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(k6.float(), mat.float(), **tol)
     assert torch.all(k6[-7:] == 0)                  # rows without an edge
+
+
+# ----------------------------------------------------------------------
+# flash_dense walks only the mask's live keys: hub rows, rows longer than
+# one list buffer (576 keys), empty rows, every width it covers
+
+def _walk_mask(device, n, seed):
+    """Self-loops and ~6 random keys a row; row 1 a hub (every key live),
+    row 2 every other key, row 3 a run of keys across the first span's end
+    (columns 480-600: a 64-key group split between two spans); the last 3
+    rows empty where n leaves room."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mask = torch.rand(n, n, generator=gen, device=device) < 6.0 / n
+    mask.fill_diagonal_(True)
+    if n > 7:
+        mask[1] = True
+        mask[2, ::2] = True
+        mask[3, 480:600] = True
+        mask[-3:] = False
+    return mask
+
+
+def _check_flash_dense(q, k, v, mask, route):
+    """The kernel (one launch) against its plain version: f32 2e-5 / 2e-4
+    (sums and exp in another order), bf16 2e-3 / 2e-2 (a p rounded to
+    bf16 at the edge of a rounding step moves one term); rows without a
+    live key exactly 0."""
+    from graphax_torch.kernels import LAUNCHES
+    from graphax_torch.kernels import flash_dense as fd
+
+    assert fd.key_loads(q, k) == route
+    LAUNCHES.clear()
+    got = fd.flash_attention_multihead(q, k, v, mask)
+    assert LAUNCHES["flash_dense"] == 1
+    want = fd.flash_attention_multihead_plain(q, k, v, mask)
+    assert got.dtype == v.dtype and got.shape == want.shape
+    tol = dict(rtol=2e-4, atol=2e-5) if v.dtype == torch.float32 else \
+        dict(rtol=2e-2, atol=2e-3)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    empty = ~mask.any(1)
+    assert torch.all(got[:, empty] == 0)
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("dk", [1, 16, 64])
+@pytest.mark.parametrize("d", [1, 128, 256])
+def test_cuda_flash_dense_widths(cuda, dtype, heads, dk, d):
+    """Every width the kernel covers, on N = 1001 (off every tile, rows
+    off 16 bytes) with a hub row of 1001 live keys (more than one list
+    buffer), a row of 501, a run across a span's end and empty rows."""
+    gen = torch.Generator(device=cuda).manual_seed(dk * d + heads)
+    n = 1001
+    q, k = (0.5 * torch.randn(n, heads, dk, generator=gen, device=cuda)
+            for _ in range(2))
+    v = torch.randn(n, d, generator=gen, device=cuda).to(getattr(torch,
+                                                                 dtype))
+    mask = _walk_mask(cuda, n, seed=dk + d)
+    _check_flash_dense(q, k, v, mask, "float4" if dk % 4 == 0 else "scalar")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 63, 1001, 3001])
+def test_cuda_flash_dense_sizes_and_views(cuda, dtype, n):
+    """N = 1 (one live key, then none), 63, 1001, 3001 (rows of 1500 and
+    3001 live keys, several list buffers each) at Computers' widths; q and
+    k as views that start mid-vector read as scalars, with the same bits."""
+    from graphax_torch.kernels import flash_dense as fd
+
+    heads, dk, d = 4, 16, 128
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    qb, kb = (0.5 * torch.randn(n * heads * dk + 1, generator=gen,
+                                device=cuda) for _ in range(2))
+    q, k = (t[:-1].view(n, heads, dk) for t in (qb, kb))
+    v = torch.randn(n, d, generator=gen, device=cuda).to(getattr(torch,
+                                                                 dtype))
+    mask = _walk_mask(cuda, n, seed=n)
+    got = _check_flash_dense(q, k, v, mask, "float4")
+    qm, km = (torch.empty(n * heads * dk + 1, device=cuda)[1:]
+              .view(n, heads, dk) for _ in range(2))
+    qm.copy_(q)
+    km.copy_(k)
+    with torch.no_grad():
+        assert fd.key_loads(qm, km) == "scalar"
+        assert torch.equal(fd.flash_attention_multihead(qm, km, v, mask),
+                           got)
+    if n == 1:
+        assert torch.all(_check_flash_dense(
+            q, k, v, torch.zeros_like(mask), "float4") == 0)
+
+
+# ----------------------------------------------------------------------
+# win_matmul in bf16 on the tensor cores: its staging routes
+
+# (N, tile, W, D, route): the slice's tile, W and D; D = 8; odd D (the
+# element route); D = 256 (two CTAs of 176 columns); tile 64; tile 8 with
+# W = 16. Every N is off the tile and the last window runs past N.
+MATMUL = {"slice": (3000, 128, 512, 162, "cp.async"),
+          "d8": (1001, 128, 256, 8, "cp.async"),
+          "odd": (1001, 128, 256, 7, "elements"),
+          "d256": (1001, 128, 256, 256, "cp.async"),
+          "tile64": (1001, 64, 256, 162, "cp.async"),
+          "tile8": (301, 8, 16, 162, "cp.async")}
+
+
+@pytest.mark.parametrize("shape", sorted(MATMUL))
+def test_cuda_win_matmul_bf16_routes(cuda, shape):
+    """Small integers (exact in bf16, every product and f32 sum exact): the
+    output is the exact sum plus the addend rounded once, the plain
+    version's bits. Random values: within one bf16 ulp. A view of x that
+    starts mid-pair takes the element route and gives the same bits."""
+    n, tile, window, d, route = MATMUL[shape]
+    g = _windowed_graph(cuda, n, tile, window, seed=12)
+    wl, bf = g.windows, torch.bfloat16
+    assert n % tile and wl.num_windows * window > n
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    vals = torch.randint(-4, 5, (g.edge_buffer_size,), generator=gen,
+                         device=cuda).float()
+    dense = ws.densify(wl, vals, bf)
+    x = torch.randint(-8, 9, (n, d), generator=gen, device=cuda).to(bf)
+    add = torch.randint(-64, 65, (n, d), generator=gen, device=cuda).to(bf)
+    assert ws.matmul_staging(dense, x, add) == route
+    got = ws.win_matmul(wl, dense, x, add)
+    assert got.dtype == bf and torch.equal(
+        got, ws.win_matmul_plain(wl, dense, x, add))
+    xb = torch.empty(n * d + 1, dtype=bf, device=cuda)
+    xm = xb[1:].view(n, d)
+    xm.copy_(x)
+    assert ws.matmul_staging(dense, xm, add) == "elements"
+    assert torch.equal(ws.win_matmul(wl, dense, xm, add), got)
+    dense = ws.densify(wl, g.edge_weight, bf)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(bf)
+    add = torch.randn(n, d, generator=gen, device=cuda).to(bf)
+    torch.testing.assert_close(
+        ws.win_matmul(wl, dense, x, add).float(),
+        ws.win_matmul_plain(wl, dense, x, add).float(), rtol=BF16_RTOL,
+        atol=1e-2)
