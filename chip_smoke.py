@@ -34,12 +34,19 @@ and prints no result):
    winatt (K5) on the windowed layout's residual CSR and in-window cells
    and on the arxiv CSR under column normalisation, with the models' own
    q, k and K table, each route timed whole, and on a small community
-   graph over every score type, reweight and squareplus), in f32 and bf16,
+   graph over every score type, reweight and squareplus; the CSR flash
+   and attention_attspmm on a hub graph at arxiv's N and E with hub
+   rows of up to 13,000 edges, with the GRAND-nl model's own operands),
+   in f32 and bf16,
    with its error beside the stated tolerance, its median device time, the
    plain version's time, its bound and a PyTorch call as a yardstick where
    one computes the same function (win_bwd_dense's and the K projection's:
    bf16 in, f32 out through ``out_dtype``; win_matmul's rows name its
-   staging route);
+   staging route; the CSR flash and attention_attspmm, which gather x per
+   edge, also their all-miss count: every gathered row from device
+   memory); flash's bf16 output and attention_attspmm's output in x's
+   dtype (after K5's f32 half on the windowed route) as the routes ask for
+   them, each bit for bit its f32 output (plus the addend) cast once;
    win_bwd_dense with both output dtypes, its bf16 output held to its f32
    output cast, bit for bit, and the win_matmul Function's backward with
    no cast of a [T, tile, W] block; then one line naming every ported
@@ -218,9 +225,11 @@ def compare(got, want, tol) -> dict:
     check(bool(torch.isfinite(got).all()), "kernel output not finite")
     err = (got - want).abs()
     rel = float((err / want.abs().clamp(min=1e-30)).max())
+    ok = bool((err <= atol + rtol * want.abs()).all())
+    if torch.is_tensor(atol):   # an atol per row: its largest
+        atol = float(atol.max())
     return {"max_abs_err": float(err.max()), "max_rel_err": rel,
-            "atol": atol, "rtol": rtol,
-            "ok": bool((err <= atol + rtol * want.abs()).all())}
+            "atol": atol, "rtol": rtol, "ok": ok}
 
 
 def bound_ms(nbytes: float, ops: float, dtype_name: str) -> tuple:
@@ -230,15 +239,18 @@ def bound_ms(nbytes: float, ops: float, dtype_name: str) -> tuple:
 
 
 def hold_to_plain(results: dict, row: dict, fn, plain, tol, nbytes: float,
-                  ops: float, lib=None, timed: bool = True, tag=None):
+                  ops: float, lib=None, timed: bool = True, tag=None,
+                  miss_bytes=None):
     """Run a kernel ``fn`` and its ``plain`` version on the same inputs and
     compare them within ``tol``; when ``timed``, add the median times, the
     ``lib`` yardstick ``(label, fn)`` and the bound, and keep the row in
     ``results`` under ``(kernel, dtype[, tag])``. ``row`` names the kernel,
     the dtype and the case. A kernel that returns a tuple is compared part
     by part: ``tol`` then pairs each part with its label and tolerance, and
-    the row's ``max_abs_err`` is the largest over the parts. Emits the row;
-    fails on a disagreement."""
+    the row's ``max_abs_err`` is the largest over the parts. ``miss_bytes``
+    (the gathering kernels): the bytes with every gathered row read from
+    device memory, printed as ``all_miss_ms`` beside the bound. Emits the
+    row; fails on a disagreement."""
     import torch
 
     got, want = fn(), plain()
@@ -262,6 +274,8 @@ def hold_to_plain(results: dict, row: dict, fn, plain, tol, nbytes: float,
                 row["library_error"] = str(exc).splitlines()[0][:120]
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, row["dtype"])
         row["bytes"], row["ops"] = nbytes, ops
+        if miss_bytes is not None:
+            row["all_miss_ms"] = miss_bytes / HBM_BYTES_PER_S * 1e3
         key = (row["kernel"], row["dtype"]) + (() if tag is None else (tag,))
         results.setdefault(key, row)
     emit({"phase": "kernels", **row})
@@ -608,12 +622,13 @@ def phase_flash_kernels(trainer, results: dict) -> None:
         scal = (cfg.attention_type, heads, p["ov2"], p["inv2l2"])
         csr_bytes = 4 * e + 4 * (n + 1)
 
-        def run(kernel, fn, plain, tol, nbytes, ops, lib=None, variant=None):
+        def run(kernel, fn, plain, tol, nbytes, ops, lib=None, variant=None,
+                miss_bytes=None):
             row = dict(kernel=kernel, path="grand_nl", dtype=name)
             if variant is not None:
                 row["variant"] = variant
             return hold_to_plain(results, row, fn, plain, tol, nbytes, ops,
-                                 lib, tag=variant)
+                                 lib, tag=variant, miss_bytes=miss_bytes)
 
         with torch.no_grad():
             kt = run("attention_kproj", lambda: fa.attention_kproj(x, wk, bk),
@@ -627,10 +642,13 @@ def phase_flash_kernels(trainer, results: dict) -> None:
             ops = e * (2.0 * a + 2.0 * heads * d)
             nbytes = (n * a * b + 4 * n * a + n * d * b + csr_bytes
                       + 4 * n * d)
-            fn_bytes = (n * d * b + n * a * b + csr_bytes + 4 * n * d
+            fn_bytes = (n * d * b + n * a * b + csr_bytes + n * d * b
                         + d * a * b + 4 * a)
             fn_ops = 2.0 * n * d * a + ops
-            variants = [None] if dt == torch.float32 else [None, "squareplus"]
+            # the all-miss count: x gathered once per edge
+            miss = nbytes - n * d * b + e * d * b
+            variants = [None] if dt == torch.float32 else [
+                None, "squareplus", "bf16_out"]
             for variant in variants:
                 gshift = None
                 if variant == "squareplus":
@@ -641,12 +659,25 @@ def phase_flash_kernels(trainer, results: dict) -> None:
                                                         *scal),
                         TOL_GMAX, n * a * b + 4 * n * a + csr_bytes + 4,
                         e * 2.0 * a)
-                run("flash_attention",
-                    lambda: fa.flash_attention(g.csr, q, x, kt, None, gshift,
-                                               *scal),
-                    lambda: fa.flash_attention_plain(g.csr, q, x, kt, None,
-                                                     gshift, *scal),
-                    TOL_FLASH[name], nbytes, ops, variant=variant)
+                # bf16_out: the output in x's dtype, as flash_attention_ax
+                # asks for it (2 bytes a value written instead of 4)
+                od = dt if variant == "bf16_out" else torch.float32
+                less = (4 - od.itemsize) * n * d
+                got = run("flash_attention",
+                          lambda: fa.flash_attention(g.csr, q, x, kt, None,
+                                                     gshift, *scal,
+                                                     out_dtype=od),
+                          lambda: fa.flash_attention_plain(
+                              g.csr, q, x, kt, None, gshift, *scal,
+                              out_dtype=od),
+                          TOL_FLASH[name], nbytes - less, ops,
+                          variant=variant, miss_bytes=miss - less)
+                if variant == "bf16_out":
+                    f32 = fa.flash_attention(g.csr, q, x, kt, None, None,
+                                             *scal)
+                    check(torch.equal(got, f32.to(dt)),
+                          "flash_attention: the bf16 output is not its f32 "
+                          "output cast once")
             # the whole operator as the RHS calls it (kproj + flash, the
             # softmax config), beside the bound of that function
             fcfg = cfg.replace(square_plus=False)
@@ -886,6 +917,67 @@ def _community_graph(device, n=300, window=32, tile=8, seed=0):
     return attach_windows(g, window=window, tile=tile)
 
 
+def hub_graph(device, n=169_343, e=1_354_429,
+              hubs=(13_000, 9_000, 6_000, 4_000, 3_000, 2_500, 2_000, 2_000),
+              seed=3):
+    """A graph at ogbn-arxiv's N and about its E with a few rows of
+    thousands of edges and the rest short, built from a seed: ``hubs`` rows
+    at random positions, every other row one edge or more (geometric, with
+    the mean that makes up E, about 8), columns uniform. Its degrees are
+    not a power law: about 2,100 rows have more than 32 edges, and the
+    share of rows and edges above the row walk's cutovers is printed with
+    it (that of the real ogbn-arxiv is not known to the repo)."""
+    import numpy as np
+
+    from graphax_torch.sparse.graph import Graph
+
+    rng = np.random.RandomState(seed)
+    mean = (e - sum(hubs)) / (n - len(hubs))
+    deg = rng.geometric(1.0 / mean, n)
+    deg[rng.choice(n, len(hubs), replace=False)] = hubs
+    row = np.repeat(np.arange(n), deg)
+    col = rng.randint(0, n, row.size)
+    order = np.lexsort((col, row))
+    return Graph.from_edges(row[order], col[order], n, device=device)
+
+
+def squareplus_slack(layout, q, x, kt, gshift, scal):
+    """``[N, 1]``: how far squareplus's cancellation lets a row of flash's
+    f32 output move. Its weight (z + sqrt(z^2 + 4)) / 2, z = s - gshift,
+    cancels for z << 0: each side's roundings move a weight by up to about
+    u sqrt(z^2 + 4) (u = 2^-24) whatever the last bits of z, which the
+    kernels and the plain version compute in another order, so the two
+    weights differ by up to |dw_e| = 2u sqrt(z^2 + 4); a row's output, a
+    weighted mean, then moves by up to 2 max|x| sum_e |dw_e| / sum_e w_e,
+    averaged over the heads (from the plain version's scores)."""
+    import torch
+
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.sparse.ops import EPS, segment_max, segment_sum
+
+    n, seg = layout.num_rows, layout.seg
+    z = fa.edge_scores_plain(layout, q, kt, None, *scal) - gshift
+    root = torch.sqrt(z * z + 4.0)
+    ratio = segment_sum(root, seg, n) / (
+        segment_sum((z + root) / 2.0, seg, n) + EPS)
+    xmax = segment_max(x[layout.idx.long()].float().abs().amax(1), seg,
+                       n).clamp(min=0.0)
+    return (2.0 * 2.0 ** -24 * 2.0 * xmax * ratio.mean(1))[:, None]
+
+
+def degree_shares(ptr, cuts) -> dict:
+    """The largest degree of a CSR ``ptr`` and, for each cutover c, the
+    rows of more than c edges and their shares of the rows and edges."""
+    deg = (ptr[1:] - ptr[:-1]).long().cpu()
+    out = {"max_degree": int(deg.max())}
+    for c in cuts:
+        over = deg > c
+        out[f"rows_over_{c}"] = int(over.sum())
+        out[f"row_share_over_{c}"] = float(over.float().mean())
+        out[f"edge_share_over_{c}"] = float(deg[over].sum() / deg.sum())
+    return out
+
+
 def three_kernel_checks(results: dict, path: str, graph, x, q, q_s, k, kt,
                         cfg, ew, name: str, timed: bool, ov2=1.3,
                         inv2l2=0.7) -> None:
@@ -948,15 +1040,34 @@ def three_kernel_checks(results: dict, path: str, graph, x, q, q_s, k, kt,
         table = column_denominators(graph.csc, e)
         per_col = True
     tag = "per_column" if per_col else "row"
-    hold_to_plain(
+    # e, the table, x, CSR in; out out; the all-miss count gathers x per slot
+    nbytes = 4 * e_l * heads + tabs + n * d * b + idx_bytes + 4 * n * d
+    miss = nbytes - n * d * b + e_l * d * b
+    # per slot: the weight (~2H) and its product with x (2D)
+    ops = e_l * (2.0 * heads + 2.0 * d)
+    f32 = hold_to_plain(
         results, row("attention_attspmm", tag),
         lambda: fa.attention_attspmm(lay, e, table, x, per_column=per_col),
         lambda: fa.attention_attspmm_plain(lay, e, table, x, per_col),
-        tol_rounded(name, x),
-        # e, the table, x, CSR in; out out
-        4 * e_l * heads + tabs + n * d * b + idx_bytes + 4 * n * d,
-        # per slot: the weight (~2H) and its product with x (2D)
-        e_l * (2.0 * heads + 2.0 * d), timed=timed, tag=tag)
+        tol_rounded(name, x), nbytes, ops, timed=timed, tag=tag,
+        miss_bytes=miss)
+    # as the routes call it: in x's dtype, on the windowed route after K5's
+    # f32 half (the addend); bit for bit the f32 sum cast once, after the
+    # same f32 add
+    add = out_win if path == "windowed" else None
+    extra = (4 - b) * n * d - (0 if add is None else 4 * n * d)
+    got = hold_to_plain(
+        results, row("attention_attspmm", tag + " route"),
+        lambda: fa.attention_attspmm(lay, e, table, x, per_column=per_col,
+                                     addend=add, out_dtype=x.dtype),
+        lambda: fa.attention_attspmm_plain(lay, e, table, x, per_col, add,
+                                           x.dtype),
+        tol_rounded(name, x), nbytes - extra, ops, timed=timed,
+        tag=tag + " route", miss_bytes=miss - extra)
+    want = f32 if add is None else add + f32
+    check(torch.equal(got, want.to(x.dtype)),
+          f"attention_attspmm {tag} {name}: the route's output is not the "
+          "f32 composite cast once")
 
 
 def phase_three_kernel_kernels(trainer_w, trainer_c, results: dict) -> None:
@@ -1035,6 +1146,90 @@ def phase_three_kernel_kernels(trainer_w, trainer_c, results: dict) -> None:
     emit({"phase": "kernels", "graph": "small community", "cases": 48,
           "kernels": ["attention_norm", "winatt", "attention_attspmm"],
           "ok": True})
+
+
+def phase_hub_kernels(trainer, results: dict) -> None:
+    """flash_attention (softmax and squareplus) and attention_attspmm (row
+    and column forms) on :func:`hub_graph`, whose hub rows of thousands of
+    edges the kernels walk in segments of ``ROW_SPLIT`` edges, with the
+    inputs of the arxiv checks (the GRAND-nl model's own q, Wk and bk on its
+    encoded state: the graph has arxiv's N), against their plain versions
+    at the tolerances of the arxiv shapes (TOL_FLASH; attspmm's
+    tol_rounded), in f32 and bf16, each timed beside its bound and all-miss
+    count. Squareplus's weights cancel far below the global shift, which
+    this graph's scores reach: its f32 output is held to TOL_FLASH plus
+    :func:`squareplus_slack`, its bf16 output to tol_rounded (two bf16 ulps
+    of the largest x, since a weight that moves rounds to another bf16
+    value); the parent's kernel reads the same errors (PERF.md)."""
+    import torch
+
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels.attention3 import column_denominators
+
+    cfg, att = trainer.cfg, trainer.model.block.func.att
+    trainer.model.eval()
+    with torch.no_grad():
+        x_enc = trainer.model.encode(trainer.data.x, train=False)
+    g = hub_graph("cuda")
+    n, e = g.num_nodes, g.num_edges
+    emit({"phase": "kernels", "graph": "hub", "N": n, "E": e,
+          **degree_shares(g.csr.ptr, (32, fa.ROW_SPLIT))})
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    d, a, heads = x_enc.shape[1], cfg.attention_dim, cfg.heads
+    csr_bytes = 4 * e + 4 * (n + 1)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        b = dt.itemsize
+        x = x_enc.to(dt).contiguous()
+        row = lambda k, tag: dict(kernel=k, graph="hub", dtype=name,
+                                  variant=tag)
+        with torch.no_grad():
+            p = fa.prep_inputs(cfg, att, g, x)
+            q = p["q"]
+            kt = fa.attention_kproj(x, p["wk"], p["bk"])
+            scal = (cfg.attention_type, heads, p["ov2"], p["inv2l2"])
+            nbytes = (n * a * b + 4 * n * a + n * d * b + csr_bytes
+                      + 4 * n * d)
+            for sqp in (False, True):
+                gs = fa.attention_gmax(g.csr, q, kt, None, *scal) \
+                    if sqp else None
+                tag = "hub squareplus" if sqp else "hub"
+                tol = TOL_FLASH[name]
+                if sqp:
+                    tol = tol_rounded(name, x) if dt == torch.bfloat16 else (
+                        tol[0] + squareplus_slack(g.csr, q, x, kt, gs, scal),
+                        tol[1])
+                hold_to_plain(
+                    results, row("flash_attention", tag),
+                    lambda: fa.flash_attention(g.csr, q, x, kt, None, gs,
+                                               *scal),
+                    lambda: fa.flash_attention_plain(g.csr, q, x, kt, None,
+                                                     gs, *scal),
+                    tol, nbytes, e * (2.0 * a + 2.0 * heads * d),
+                    tag=tag, miss_bytes=nbytes - n * d * b + e * d * b)
+            gs = fa.attention_gmax(g.csr, q, kt, None, *scal)
+            ev, den = fa.attention_norm(g.csr, q, kt, None, gs, *scal)
+            add = torch.randn(n, d, generator=gen, device="cuda")
+            nbytes = (4 * e * heads + 4 * n * heads + n * d * b + csr_bytes
+                      + 4 * n * d)
+            for table, per_col in ((den, False),
+                                   (column_denominators(g.csc, ev), True)):
+                tag = "hub " + ("per_column" if per_col else "row")
+                f32 = hold_to_plain(
+                    results, row("attention_attspmm", tag),
+                    lambda: fa.attention_attspmm(g.csr, ev, table, x,
+                                                 per_col),
+                    lambda: fa.attention_attspmm_plain(g.csr, ev, table, x,
+                                                       per_col),
+                    tol_rounded(name, x), nbytes, e * (2.0 * heads + 2.0 * d),
+                    tag=tag, miss_bytes=nbytes - n * d * b + e * d * b)
+                got = fa.attention_attspmm(g.csr, ev, table, x, per_col,
+                                           addend=add, out_dtype=dt)
+                check(torch.equal(got, (add + f32).to(dt)),
+                      f"attention_attspmm {tag} {name}: the addend output is "
+                      "not the f32 composite cast once")
+        del x, q, kt, ev, den, add
+    torch.cuda.empty_cache()
 
 
 def nl_trainer(cfg, data, qk_seed: int = 11, device=None):
@@ -1790,6 +1985,7 @@ def main(argv=None) -> int:
     phase_flash_kernels(trainer_nl, results)
     phase_train_kernels(trainer_nl, results)
     phase_three_kernel_kernels(trainer_nlw, trainer_nlc, results)
+    phase_hub_kernels(trainer_nl, results)
     phase_dense_kernels(trainer_nld, results)
     emit({"phase": "kernels",
           "ported": list(dict.fromkeys(k[0] for k in results))})
@@ -1997,11 +2193,17 @@ def main(argv=None) -> int:
     kernels[4]["variant"] = ("with the residual SpMM's result added in the "
                              "epilogue, as the main path calls it")
     flash = results[("flash_attention", "bfloat16")]
+    kernels[7]["all_miss_ms"] = flash["all_miss_ms"]
     kernels[7]["function_ms"] = flash["function_ms"]
     kernels[7]["function_bound_ms"] = flash["function_bound_ms"]
-    kernels[7]["squareplus"] = {
-        k: results[("flash_attention", "bfloat16", "squareplus")][k]
-        for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+    walked = ("max_abs_err", "ms", "plain_ms", "bound_ms", "all_miss_ms")
+    for tag in ("squareplus", "bf16_out", "hub", "hub squareplus"):
+        kernels[7][tag.replace(" ", "_")] = {
+            k: results[("flash_attention", "bfloat16", tag)].get(k)
+            for k in walked}
+    kernels[7]["launches_count"] = (
+        "wrapper calls: each runs flash_kernel, and where a row has more "
+        "than 32 edges flash_seg_stats, flash_seg_sum and seg_combine")
     kernels[9]["also_replaces"] = ("the K projection inside "
                                    "graphax/kernels/pallas_attention.py:481 "
                                    "(:496)")
@@ -2029,9 +2231,19 @@ def main(argv=None) -> int:
                                           "colnorm")][k] for k in numbers}
     kernels[15]["variant"] = ("K3 against K5's row denominators on the "
                               "windowed residual")
+    kernels[15]["all_miss_ms"] = results[
+        ("attention_attspmm", "bfloat16", "row")]["all_miss_ms"]
     pc = results[("attention_attspmm", "bfloat16", "per_column")]
-    kernels[15]["per_column"] = {k: pc[k] for k in numbers}
+    kernels[15]["per_column"] = {k: pc[k] for k in numbers + ("all_miss_ms",)}
     kernels[15]["per_column"]["function_ms"] = pc["function_ms"]
+    for tag in ("row route", "per_column route", "hub row",
+                "hub per_column"):
+        kernels[15][tag.replace(" ", "_")] = {
+            k: results[("attention_attspmm", "bfloat16", tag)].get(k)
+            for k in walked}
+    kernels[15]["launches_count"] = (
+        "wrapper calls: each runs attspmm_kernel, and where a row has more "
+        "than ROW_SPLIT edges attspmm_seg_sum and seg_combine")
     kernels[16]["function_ms"] = results[("winatt", "bfloat16")][
         "function_ms"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -55,8 +55,9 @@ SIGNATURES = {
         "gx_attention_kproj_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "gx_attention_gmax": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _F, _F, _I, _P],
-        "gx_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _I, _F, _F, _I, _P],
+        "gx_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _P],
         "gx_attention_fwd_res": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _P],
         "gx_attention_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -65,8 +66,8 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _I, _P],
         "gx_attention_norm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _F, _F, _I, _P],
-        "gx_attention_attspmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _P],
+        "gx_attention_attspmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "winatt": {
         "gx_winatt": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -15,8 +15,8 @@ column's sum while it streams rows, so it keeps K1, K2 and K3:
    over the CSC layout in plain PyTorch on either device (graphax has no
    Pallas kernel there);
 4. K3 per edge against its column's denominators, read at ``col[e]``
-   (`attention_attspmm` with ``per_column``), and one cast of the f32 sum
-   to the state dtype.
+   (`attention_attspmm` with ``per_column``), its f32 sum rounded once to
+   the state dtype by the kernel.
 
 Its backward is graphax's: the custom VJP replays the plain per-edge
 attention (`:1135-1146`); :class:`ReplayAttention` carries that for this
@@ -69,8 +69,8 @@ def colnorm_attention_ax_fast(cfg, att, graph,
     e, _ = fa.attention_norm(graph.csr, p["q"], kt, p["edge_w"], g, *scal,
                              square_plus=bool(cfg.square_plus))
     den = column_denominators(graph.csc, e)
-    return fa.attention_attspmm(graph.csr, e, den, x,
-                                per_column=True).to(x.dtype)
+    return fa.attention_attspmm(graph.csr, e, den, x, per_column=True,
+                                out_dtype=x.dtype)
 
 
 class ReplayAttention(torch.autograd.Function):

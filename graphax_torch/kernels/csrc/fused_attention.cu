@@ -44,20 +44,21 @@
 //                 order-preserving integer encoding (max is order-free, so
 //                 the result does not depend on the schedule); the last block
 //                 to finish decodes it and applies graphax's NEG/2 rule.
-//   flash_kernel  one warp per CSR row, two passes over the row's edges:
-//                 pass 1 scores every (edge, head) pair (lanes over pairs)
-//                 into an [E, H] f32 scratch; then per head the row max
-//                 (softmax; squareplus takes the global shift) and the
-//                 denominator d, each a warp reduction; pass 2 walks the
-//                 edges in order, lanes over columns (8 per lane, 256-wide
-//                 chunks of D), and sums c_h * rnd(x[col] * rnd(e_h)) with
-//                 c_h = 1 / (H (d_h + 1e-16)) into f32 registers. rnd() is
-//                 graphax's rounding point (:435): e cast to the state dtype
-//                 and multiplied in it. No atomics; a row with no edge
-//                 writes 0.
+//   flash_kernel  one warp per CSR row, the row walk below (batches of 32
+//                 edges, one per lane: indices, scores and weights first,
+//                 then the gather with several x rows in flight): per head
+//                 the shift (the row's max, or the global shift g under
+//                 squareplus) and the f32 denominator d of the unrounded
+//                 weights, then out = sum_e sum_h c_h rnd(x[col] rnd(e_h))
+//                 with c_h = 1 / (H (d_h + 1e-16)), in f32, leaving as f32
+//                 or bf16 with one rounding. rnd() is graphax's rounding
+//                 point (:435): e cast to the state dtype and multiplied in
+//                 it. No atomics; a row with no edge writes 0. Rows of
+//                 more than 32 edges go to flash_seg_stats, flash_seg_sum
+//                 and seg_combine.
 //   fwd_res_kernel  the training forward for the configs the backward
-//                 covers (scaled_dot, row softmax, no reweight): flash's
-//                 pass 1 (the shared row_scores), whose [E, H] f32 scores
+//                 covers (scaled_dot, row softmax, no reweight): a first
+//                 pass (row_scores), whose [E, H] f32 scores
 //                 are kept as a residual beside the per-(row, head) shift
 //                 (the row max, 0 for a row with no edge) and denominator
 //                 (f32 sum of unrounded e). Pass 2 takes graphax's K3
@@ -96,31 +97,37 @@
 //                 (a 0-d device tensor, from gmax_kernel), written to e [E,
 //                 H] f32 unrounded as K2 writes it; then per head the row's
 //                 denominator sum e, a warp sum (0 for a row with no edge).
-//   attspmm_kernel one warp per CSR row, lanes over columns (8 per lane,
-//                 256-wide chunks of D), the row's edges in order: w_e =
-//                 rnd(mean_h e_eh / (den > 0 ? den : 1)) with K3's
-//                 zero-select (:287-293) and den from a per-row table [N, H]
-//                 (den[r]) or a per-node column table read at the edge's
-//                 column (den[col_e], the per-edge form without an [E, H]
-//                 copy); out = sum rnd(x[col] * w_e) in f32. A row with no
-//                 edge writes 0.
+//   attspmm_kernel one warp per CSR row, the row walk below: lane j of a
+//                 batch computes edge j's w_e = rnd(mean_h e_eh / (den > 0 ?
+//                 den : 1)) with K3's zero-select (:287-293), den from a
+//                 per-row table [N, H] (den[r]) or a per-node column table
+//                 read at the edge's column (den[col_e], the per-edge form
+//                 without an [E, H] copy); out = (add + sum rnd(x[col] w_e))
+//                 in f32, an optional f32 addend (the windowed route's K5
+//                 half), leaving as f32 or bf16 with one rounding. A row
+//                 with no edge writes the addend (or 0). Rows longer than the
+//                 host's split go to attspmm_seg_sum and seg_combine.
 //
-// None of them uses atomics: every output row is written by the one warp
-// that owns it, so the results do not depend on the schedule.
+// None of them uses atomics on floats: every output row is written by the
+// one warp that owns it (a long row's segments are summed in order by one
+// warp), so the results do not depend on the schedule.
 //
-// Semantics against graphax: the softmax shift is the row's final max (two
-// passes), where graphax's online recurrence shifts each 128-row tile's
-// block of edges by the running max and rescales; in f32 the two agree to
-// rounding, in bf16 the rounded e differ by a bf16 rounding of their own.
+// Semantics against graphax: the softmax shift is the row's final max, where
+// graphax's online recurrence shifts each 128-row tile's block of edges by
+// the running max and rescales; in f32 the two agree to rounding, in bf16 the
+// rounded e differ by a bf16 rounding of their own.
 //
 // What bounds them on an H100 at the slice's shapes (N = 169,343, E =
 // 1,354,429, D = 162, A = 32, H = 2, bf16): bytes. The flash kernel must read
-// x, q, K and the CSR once and write the f32 output (~200 MB, 0.06 ms at
-// 3.35 TB/s) against ~1 GFLOP; kproj reads x once and writes K (~77 MB)
-// against 1.76 GFLOP (on the tensor cores in bf16). This simple version gathers K[col] and
-// x[col] per edge (L2-resident K, 22 MB) and walks each row serially per
-// warp; it is latency-bound on those gathers. The training kernels are bound
-// the same way: the forward with residuals moves ~217 MB (0.065 ms), the row
+// x, q, K and the CSR once and write the output (~200 MB with an f32 output,
+// 0.06 ms at 3.35 TB/s) against ~1 GFLOP; gathered per edge, x is 439 MB
+// (55 MB of x against a 50 MB L2, so some gathers miss), ~0.15 ms. The row
+// walk keeps no [E, H] scratch, reads K[col] (L2-resident, 22 MB) by 16-byte
+// loads and keeps several x rows in flight per warp, so it is bound by the
+// gathers' bytes rather than by the latency of one row at a time; attspmm
+// walks the same way. kproj reads x once and writes K (~77 MB) against 1.76
+// GFLOP (on the tensor cores in bf16). The training kernels walk each row
+// serially and are bound by that latency: the forward with residuals moves ~217 MB (0.065 ms), the row
 // backward ~185 MB (0.055 ms), the column backward ~284 MB (0.085 ms), each
 // against a few GFLOP; each walks its rows (columns) edge by edge with a
 // dependent gather of an x (g) row and a warp reduction per edge. norm_kernel
@@ -128,12 +135,14 @@
 // denominators (~47 MB over the whole arxiv CSR in bf16, 0.014 ms);
 // attspmm_kernel must read e, a denominator table, x and the CSR and write
 // the f32 output (~186 MB, 0.056 ms): both bytes-bound, both gathering per
-// edge as flash does.
+// edge.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_score.cuh"
 #include "tensor_core.cuh"
@@ -392,7 +401,7 @@ gmax_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   }
 }
 
-// The row walk's first pass, shared by flash_kernel and fwd_res_kernel: the
+// The first pass of fwd_res_kernel's row walk: the
 // scores of every (edge, head) pair of the row [beg, end) into sc (lanes over
 // pairs), then per head the shift (the row's max, or the global shift g
 // under squareplus) into ms[hh] and the f32 denominator of the unrounded
@@ -425,66 +434,6 @@ __device__ __forceinline__ void row_scores(
     if (lane == 0) {
       ms[hh] = m;
       ds[hh] = den;
-    }
-  }
-}
-
-template <typename T, bool SQP>
-__global__ void __launch_bounds__(WPB * 32)
-flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
-             const T* __restrict__ q, const T* __restrict__ x,
-             const float* __restrict__ kt, const float* __restrict__ ew,
-             const float* __restrict__ gshift, float* __restrict__ sc,
-             float* __restrict__ out, int n, int d, int a, int h,
-             int att_type, float ov2, float inv2l2) {
-  extern __shared__ float smem[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qs = smem + (size_t)w * (a + 2 * h);  // [a] q of the row
-  float* ms = qs + a;                          // [h] shift per head
-  float* cs = ms + h;                          // [h] 1 / (H (d + EPS))
-  const int r = blockIdx.x * WPB + w;
-  if (r >= n) return;
-  const int beg = ptr[r], end = ptr[r + 1];
-  float* orow = out + (size_t)r * d;
-  if (beg == end) {
-    for (int i = lane; i < d; i += 32) orow[i] = 0.f;
-    return;
-  }
-  for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
-  __syncwarp();
-
-  // pass 1: the scores, and per head the shift and the denominator (f32 e,
-  // not rounded), then the head's scale 1 / (H (d + EPS))
-  row_scores<SQP>(qs, kt, idx, ew, sc, beg, end, a, h, att_type, ov2, inv2l2,
-                  SQP ? *gshift : 0.f, ms, cs, lane);
-  __syncwarp();
-  for (int hh = lane; hh < h; hh += 32) cs[hh] = 1.f / ((float)h * (cs[hh] + EPS));
-  __syncwarp();
-
-  // pass 2: the head mean of the normalised weighted sums, in edge order
-  for (int c0 = 0; c0 < d; c0 += 32 * CPL) {
-    float acc[CPL];
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
-    for (int e = beg; e < end; ++e) {
-      const T* xr = x + (size_t)idx[e] * d;
-      float xv[CPL];
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) {
-        const int i = c0 + lane + 32 * k;
-        xv[k] = i < d ? to_f(xr[i]) : 0.f;
-      }
-      for (int hh = 0; hh < h; ++hh) {
-        const float wt = rnd<T>(weight<SQP>(sc[(size_t)e * h + hh] - ms[hh]));
-        const float c = cs[hh];
-#pragma unroll
-        for (int k = 0; k < CPL; ++k) acc[k] += c * rnd<T>(xv[k] * wt);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-      const int i = c0 + lane + 32 * k;
-      if (i < d) orow[i] = acc[k];
     }
   }
 }
@@ -728,45 +677,649 @@ norm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   }
 }
 
-// K3 against denominators handed to it: den [N, H] read at the row
-// (PERCOL false) or at the edge's column (PERCOL true).
-template <typename T, bool PERCOL>
-__global__ void __launch_bounds__(WPB * 32)
-attspmm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
-               const float* __restrict__ eo, const float* __restrict__ den,
-               const T* __restrict__ x, float* __restrict__ out, int n, int d,
-               int h) {
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * WPB + w;
-  if (r >= n) return;
-  const int beg = ptr[r], end = ptr[r + 1];
-  float* orow = out + (size_t)r * d;
-  for (int c0 = 0; c0 < d; c0 += 32 * CPL) {
-    float acc[CPL];
+// ---------------------------------------------------------------------
+// The row walk of flash_kernel and attspmm_kernel
+// ---------------------------------------------------------------------
+//
+// One warp owns a CSR row and takes its edges in batches of BATCH = 32, one
+// edge per lane: lane j loads idx[e0 + j] and computes edge j's weight (in
+// attspmm rnd(mean_h e / (den or 1)); in flash the lanes take the batch's
+// (edge, head) pairs, each score from the row's q in shared memory and
+// K[col] by 16-byte loads of the f32 K table). The
+// gather then walks the batch U edges at a time, each column index and
+// weight handed to the warp by __shfl_sync (flash's per-(edge, head)
+// weights by a broadcast read of the warp's shared batch), so each warp has
+// U independent x[col] rows in flight, loaded VB bytes at a time (the
+// widest load that every row and the view allow: the host's gather_width).
+// Lanes hold VPL vectors of a column chunk each; D up to 32 * VPL vectors is
+// one chunk. bf16 products rnd(x w) are rounded two at a time by one
+// bf16x2 multiply. Each column's f32 sum runs over the row's edges in order
+// (and over the heads within an edge), whichever lane holds it, so the
+// result does not depend on VB. The output leaves in f32 or bf16, optionally
+// after an f32 addend, with one rounding.
+//
+// Flash's shift and denominators come before its gather. flash_kernel
+// takes the rows of at most 32 edges, one batch each (the scores of the
+// batch's (edge, head) pairs one per lane, then the per-head max and sum as
+// warp reductions, the weights kept in shared memory for the gather: one
+// walk). The weight is graphax's rnd(e) against the row's final max, c_h =
+// 1 / (H (d_h + 1e-16)) folds the head mean into one f32 sum per column:
+// out = sum_e sum_h c_h rnd(x[col] rnd(e_h)).
+//
+// Longer rows go to the segment kernels, planned by the host (`plan`:
+// long_rows [nlong], long_ptr [nlong + 1] over the segments, seg_long
+// [nseg]), one warp per segment of `seg` edges, so no row's serial walk
+// sets the launch's length (a hub of a power-law graph): flash_seg_stats
+// writes each segment's running (max, sum) per head over its batches, the
+// sum rescaled by exp(old - new max); flash_seg_sum recombines its row's in
+// segment order and recomputes each batch's scores (K is L2-resident) for
+// its f32 partial sums, so x rows are still read once; seg_combine adds a
+// row's partials in segment order (no float atomics: the result does not
+// depend on the schedule). attspmm's rows longer than `split` edges take
+// the same segments (attspmm_seg_sum, seg_combine). Keeping the multi-batch
+// walk out of the one-batch kernel keeps that kernel within 64 registers.
+
+constexpr int BATCH = 32;   // edges a warp holds at once, one per lane
+constexpr int VPL = 3;      // x vectors per lane in one column chunk
+// blocks per SM the walk kernels' registers allow: more rows in flight on
+// each SM measured faster than more x rows in flight per warp. The
+// one-batch flash kernel fits 48 registers a thread (5 blocks); attspmm's
+// walk spills there and keeps 64 (4 blocks).
+constexpr int FLASH_MIN_BLOCKS = 5;
+constexpr int MIN_BLOCKS = 4;
+constexpr unsigned FULL = 0xffffffffu;
+
+// a load of VB bytes of T: E values in W 32-bit words; U edges in flight
+template <typename T, int VB>
+struct Vec {
+  static constexpr int E = VB / (int)sizeof(T);
+  static constexpr int W = VB < 4 ? 1 : VB / 4;
+  static constexpr int U = VB <= 4 ? 4 : 2;
+};
+
+template <int VB>
+__device__ __forceinline__ void ldv(const void* p, uint32_t* w) {
+  if constexpr (VB == 2) {
+    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else if constexpr (VB == 4) {
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+  }
+}
+
+template <typename T, int VB>
+__device__ __forceinline__ void unpack(const uint32_t* w, float* f) {
+  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
-    for (int e = beg; e < end; ++e) {
-      const int c = idx[e];
-      const float* dn = den + (size_t)(PERCOL ? c : r) * h;
-      float wsum = 0.f;
-      for (int hh = 0; hh < h; ++hh) {
-        const float v = dn[hh];
-        wsum += eo[(size_t)e * h + hh] / (v > 0.f ? v : 1.f);
-      }
-      const float wt = rnd<T>(wsum / (float)h);
-      const T* xr = x + (size_t)c * d;
+    for (int i = 0; i < Vec<T, VB>::W; ++i) f[i] = __uint_as_float(w[i]);
+  } else if constexpr (VB == 2) {
+    f[0] = __uint_as_float(w[0] << 16);
+  } else {
 #pragma unroll
-      for (int k = 0; k < CPL; ++k) {
-        const int i = c0 + lane + 32 * k;
-        if (i < d) acc[k] += rnd<T>(to_f(xr[i]) * wt);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-      const int i = c0 + lane + 32 * k;
-      if (i < d) orow[i] = acc[k];
+    for (int i = 0; i < Vec<T, VB>::W; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
+}
+
+// rnd(x * wt) for the E values of one gathered vector, wt a value of T:
+// bf16 two at a time by one bf16x2 multiply (round to nearest even, so
+// rnd of the exact f32 product of two bf16 values)
+template <typename T, int VB>
+__device__ __forceinline__ void products(const uint32_t* raw, float wt,
+                                         float* p) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && VB >= 4) {
+    const __nv_bfloat162 w2 = __float2bfloat162_rn(wt);
+#pragma unroll
+    for (int i = 0; i < Vec<T, VB>::W; ++i) {
+      const __nv_bfloat162 pr =
+          __hmul2(*reinterpret_cast<const __nv_bfloat162*>(raw + i), w2);
+      p[2 * i] = __low2float(pr);
+      p[2 * i + 1] = __high2float(pr);
+    }
+  } else {
+    unpack<T, VB>(raw, p);
+#pragma unroll
+    for (int k = 0; k < Vec<T, VB>::E; ++k) p[k] = rnd<T>(p[k] * wt);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+// E output values at element offset `off`: (add[off..] + v) in f32, then
+// stored as f32 (otype 0) or bf16 (otype 1)
+template <int E>
+__device__ __forceinline__ void store_vec(void* out, int otype,
+                                          const float* __restrict__ add,
+                                          size_t off, float* v) {
+  if (add != nullptr) {
+    float a[E];
+    if constexpr (E == 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(add + off));
+      a[0] = t.x; a[1] = t.y; a[2] = t.z; a[3] = t.w;
+    } else if constexpr (E == 2) {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(add + off));
+      a[0] = t.x; a[1] = t.y;
+    } else {
+      a[0] = __ldg(add + off);
+    }
+#pragma unroll
+    for (int k = 0; k < E; ++k) v[k] = a[k] + v[k];
+  }
+  if (otype == 0) {
+    float* p = reinterpret_cast<float*>(out) + off;
+    if constexpr (E == 4) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else if constexpr (E == 2) {
+      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+    } else {
+      *p = v[0];
+    }
+  } else {
+    __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(out) + off;
+    if constexpr (E == 4) {
+      *reinterpret_cast<uint2*>(p) =
+          make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+    } else if constexpr (E == 2) {
+      *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v[0], v[1]);
+    } else {
+      *p = __float2bfloat16(v[0]);
+    }
+  }
+}
+
+// the chunk [v0, v0 + 32 VPL) of vectors of one output row (element offset
+// `row`)
+template <typename T, int VB>
+__device__ __forceinline__ void store_chunk(
+    float (&acc)[VPL][Vec<T, VB>::E], void* out, int otype,
+    const float* __restrict__ add, size_t row, int v0, int nvec, int lane) {
+  constexpr int E = Vec<T, VB>::E;
+#pragma unroll
+  for (int v = 0; v < VPL; ++v) {
+    const int vi = v0 + v * 32 + lane;
+    if (vi < nvec) store_vec<E>(out, otype, add, row + (size_t)vi * E, acc[v]);
+  }
+}
+
+// U gathered rows of the batch at a time: raw[u] holds edge e0 + u's
+// vectors of the chunk
+template <typename T, int VB>
+__device__ __forceinline__ void load_rows(
+    uint32_t (&raw)[Vec<T, VB>::U][VPL][Vec<T, VB>::W],
+    const T* __restrict__ x, int col, int e0, int cnt, int d, int v0,
+    int nvec, int lane) {
+  using V = Vec<T, VB>;
+#pragma unroll
+  for (int u = 0; u < V::U; ++u) {
+    const int c = __shfl_sync(FULL, col, (e0 + u) & 31);
+    if (e0 + u < cnt) {
+      const T* xr = x + (size_t)c * d;
+#pragma unroll
+      for (int v = 0; v < VPL; ++v) {
+        const int vi = v0 + v * 32 + lane;
+        if (vi < nvec) ldv<VB>(xr + (size_t)vi * V::E, raw[u][v]);
+      }
+    }
+  }
+}
+
+// the head's score of one edge: q in shared memory, the K row in device
+// memory, read for scaled_dot with kvec (dk % 4 == 0, the table on 16
+// bytes) by 16-byte loads, four in flight before their products, in the
+// order of gx_att::score
+__device__ __forceinline__ float score_head(const float* qs, const float* kr,
+                                            int dk, int att_type, float ov2,
+                                            float inv2l2, int kvec) {
+  if (att_type == 0 && kvec) {
+    float s = 0.f;
+    for (int i0 = 0; i0 < dk; i0 += 16) {
+      float4 k[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (i0 + 4 * t < dk)
+          k[t] = __ldg(reinterpret_cast<const float4*>(kr + i0 + 4 * t));
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int i = i0 + 4 * t;
+        if (i < dk) {
+          s += qs[i] * k[t].x;
+          s += qs[i + 1] * k[t].y;
+          s += qs[i + 2] * k[t].z;
+          s += qs[i + 3] * k[t].w;
+        }
+      }
+    }
+    return s;
+  }
+  return gx_att::score(qs, kr, dk, att_type, ov2, inv2l2);
+}
+
+// flash: the batch's edges e0 + j, j < cnt, one per lane: lane j loads
+// edge j's column (or takes `pre`, loaded ahead by the caller, when pre >=
+// 0) and returns it; then lanes over the batch's (edge, head) pairs write
+// the scores (times the reweight value) to ws[j * h + hh]
+__device__ __forceinline__ int batch_scores(
+    const float* qs, const float* __restrict__ kt, const int* __restrict__ idx,
+    const float* __restrict__ ew, int e0, int cnt, int a, int h, int att_type,
+    float ov2, float inv2l2, int kvec, float* ws, int lane, int pre = -1) {
+  __syncwarp();  // every lane is done with the last batch's ws
+  int col = 0;
+  if (lane < cnt) col = pre >= 0 ? pre : idx[e0 + lane];
+  const int dk = a / h, pairs = cnt * h;
+  for (int p0 = 0; p0 < pairs; p0 += 32) {
+    const int p = p0 + lane, j = p / h, hh = p - j * h;
+    const int c = __shfl_sync(FULL, col, j & 31);
+    if (p < pairs) {
+      float s = score_head(qs + hh * dk, kt + (size_t)c * a + hh * dk, dk,
+                           att_type, ov2, inv2l2, kvec);
+      if (ew != nullptr) s *= ew[e0 + j];
+      ws[p] = s;
+    }
+  }
+  __syncwarp();
+  return col;
+}
+
+// flash: the batch's scores into the running per-head shift ms (the max;
+// squareplus: the global shift g) and sum ds of weight(s - shift), the sum
+// rescaled by exp(old - new max); with `keep` (the row's only batch) the
+// rounded weights rnd(e) replace the scores
+template <typename T, bool SQP>
+__device__ __forceinline__ void batch_stats(float* ws, float* ms, float* ds,
+                                            int cnt, int h, float g,
+                                            bool first, bool keep, int lane) {
+  for (int hh = 0; hh < h; ++hh) {
+    const float s = lane < cnt ? ws[lane * h + hh] : -INFINITY;
+    const float m_old = first ? -INFINITY : ms[hh];
+    const float m = SQP ? g : fmaxf(m_old, warp_max(s));
+    const float e = lane < cnt ? weight<SQP>(s - m) : 0.f;
+    const float sum = warp_sum(e);
+    const float den =
+        first ? sum : (SQP ? ds[hh] : ds[hh] * expf(m_old - m)) + sum;
+    __syncwarp();  // every lane has read ms[hh] and ds[hh]
+    if (lane == 0) {
+      ms[hh] = m;
+      ds[hh] = den;
+    }
+    if (keep && lane < cnt) ws[lane * h + hh] = rnd<T>(e);
+  }
+  __syncwarp();
+}
+
+// flash: the batch's rounded weights from its scores and the row's shift
+template <typename T, bool SQP>
+__device__ __forceinline__ void batch_weights(float* ws, const float* ms,
+                                              int cnt, int h, int lane) {
+  if (lane < cnt)
+    for (int hh = 0; hh < h; ++hh)
+      ws[lane * h + hh] = rnd<T>(weight<SQP>(ws[lane * h + hh] - ms[hh]));
+  __syncwarp();
+}
+
+// flash: the denominators ds become the head scales 1 / (H (d + EPS))
+__device__ __forceinline__ void head_scales(float* cs, int h, int lane) {
+  for (int hh = lane; hh < h; hh += 32)
+    cs[hh] = 1.f / ((float)h * (cs[hh] + EPS));
+  __syncwarp();
+}
+
+// flash: acc += c_h rnd(x[col] w_eh) over the batch's edges and heads
+template <typename T, int VB>
+__device__ __forceinline__ void gather_flash(
+    float (&acc)[VPL][Vec<T, VB>::E], const T* __restrict__ x, int col,
+    int cnt, const float* ws, const float* cs, int h, int d, int v0,
+    int nvec, int lane) {
+  using V = Vec<T, VB>;
+  for (int e0 = 0; e0 < cnt; e0 += V::U) {
+    uint32_t raw[V::U][VPL][V::W];
+    load_rows<T, VB>(raw, x, col, e0, cnt, d, v0, nvec, lane);
+#pragma unroll
+    for (int u = 0; u < V::U; ++u) {
+      if (e0 + u < cnt) {
+        const float* we = ws + (e0 + u) * h;
+        for (int hh = 0; hh < h; ++hh) {
+          const float wt = we[hh], c = cs[hh];
+#pragma unroll
+          for (int v = 0; v < VPL; ++v) {
+            float p[V::E];
+            products<T, VB>(raw[u][v], wt, p);
+#pragma unroll
+            for (int k = 0; k < V::E; ++k) acc[v][k] += c * p[k];
+          }
+        }
+      }
+    }
+  }
+}
+
+// floats of one warp's shared memory in the flash kernels: q [a], shift
+// [h], scale [h], the batch's scores [BATCH, h]
+__host__ __device__ __forceinline__ int flash_warp_floats(int a, int h) {
+  return a + 2 * h + BATCH * h;
+}
+
+// the segment j of a long row: its row r, edges [sb, se) (`seg` edges
+// each, the last one the rest), the long row's index i in the plan
+__device__ __forceinline__ void segment(const int* __restrict__ ptr,
+                                        const int* __restrict__ plan,
+                                        int nlong, int seg, int j, int& r,
+                                        int& sb, int& se, int& i) {
+  i = plan[2 * nlong + 1 + j];
+  r = plan[i];
+  sb = ptr[r] + (j - plan[nlong + i]) * seg;
+  se = ptr[r + 1] - sb > seg ? sb + seg : ptr[r + 1];
+}
+
+// the rows of at most BATCH edges, one batch each: the scores, the shift
+// and the denominators, then the gather of the weights kept in shared
+// memory; longer rows are the segment kernels'. One row per warp: walking
+// rows r, r + stride, ... with the next row's bounds and columns loaded
+// ahead measured slower here than at the attspmm kernel (PERF.md).
+template <typename T, int VB, bool SQP>
+__global__ void __launch_bounds__(WPB * 32, FLASH_MIN_BLOCKS)
+flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+             const T* __restrict__ q, const T* __restrict__ x,
+             const float* __restrict__ kt, const float* __restrict__ ew,
+             const float* __restrict__ gshift, void* __restrict__ out,
+             int otype, int n, int d, int a, int h, int att_type, float ov2,
+             float inv2l2, int kvec) {
+  using V = Vec<T, VB>;
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + w;
+  if (r >= n) return;
+  const int beg = ptr[r], len = ptr[r + 1] - beg;
+  if (len > BATCH) return;
+  float* qs = smem + (size_t)w * flash_warp_floats(a, h);
+  float* ms = qs + a;
+  float* cs = ms + h;
+  float* ws = cs + h;
+  // the columns, loaded while q comes in
+  const int col = lane < len ? idx[beg + lane] : 0;
+  if (len > 0) {
+    for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
+    __syncwarp();
+    batch_scores(qs, kt, idx, ew, beg, len, a, h, att_type, ov2, inv2l2, kvec,
+                 ws, lane, col);
+    batch_stats<T, SQP>(ws, ms, cs, len, h, SQP ? *gshift : 0.f, true, true,
+                        lane);
+    head_scales(cs, h, lane);
+  }
+  const int nvec = d / V::E;
+  for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
+    float acc[VPL][V::E];
+#pragma unroll
+    for (int v = 0; v < VPL; ++v)
+#pragma unroll
+      for (int k = 0; k < V::E; ++k) acc[v][k] = 0.f;
+    gather_flash<T, VB>(acc, x, col, len, ws, cs, h, d, v0, nvec, lane);
+    store_chunk<T, VB>(acc, out, otype, nullptr, (size_t)r * d, v0, nvec,
+                       lane);
+  }
+}
+
+// a long row's segment j: its running (max, sum) per head into st [nseg,
+// 2h]
+template <typename T, bool SQP>
+__global__ void __launch_bounds__(WPB * 32)
+flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
+                const T* __restrict__ q, const float* __restrict__ kt,
+                const float* __restrict__ ew, const float* __restrict__ gshift,
+                const int* __restrict__ plan, float* __restrict__ st,
+                int nlong, int nseg, int a, int h, int att_type, float ov2,
+                float inv2l2, int kvec, int seg) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + w;
+  if (j >= nseg) return;
+  int r, sb, se, i;
+  segment(ptr, plan, nlong, seg, j, r, sb, se, i);
+  float* qs = smem + (size_t)w * flash_warp_floats(a, h);
+  float* ms = qs + a;
+  float* ds = ms + h;
+  float* ws = ds + h;
+  for (int t = lane; t < a; t += 32) qs[t] = to_f(q[(size_t)r * a + t]);
+  __syncwarp();
+  const float g = SQP ? *gshift : 0.f;
+  for (int b0 = sb; b0 < se; b0 += BATCH) {
+    const int cnt = min(BATCH, se - b0);
+    batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, ov2, inv2l2, kvec,
+                 ws, lane);
+    batch_stats<T, SQP>(ws, ms, ds, cnt, h, g, b0 == sb, false, lane);
+  }
+  for (int hh = lane; hh < h; hh += 32) {
+    st[(size_t)j * 2 * h + hh] = ms[hh];
+    st[(size_t)j * 2 * h + h + hh] = ds[hh];
+  }
+}
+
+// a long row's segment j: the row's shift and denominators from its
+// segments' (max, sum) in segment order, then the segment's f32 partial
+// sums into part [nseg, d], each batch's scores recomputed for its weights
+template <typename T, int VB, bool SQP>
+__global__ void __launch_bounds__(WPB * 32)
+flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
+              const T* __restrict__ q, const T* __restrict__ x,
+              const float* __restrict__ kt, const float* __restrict__ ew,
+              const float* __restrict__ gshift, const int* __restrict__ plan,
+              const float* __restrict__ st, float* __restrict__ part,
+              int nlong, int nseg, int d, int a, int h, int att_type,
+              float ov2, float inv2l2, int kvec, int seg) {
+  using V = Vec<T, VB>;
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + w;
+  if (j >= nseg) return;
+  int r, sb, se, i;
+  segment(ptr, plan, nlong, seg, j, r, sb, se, i);
+  float* qs = smem + (size_t)w * flash_warp_floats(a, h);
+  float* ms = qs + a;
+  float* cs = ms + h;
+  float* ws = cs + h;
+  for (int t = lane; t < a; t += 32) qs[t] = to_f(q[(size_t)r * a + t]);
+  const int p0 = plan[nlong + i], p1 = plan[nlong + i + 1];
+  for (int hh = lane; hh < h; hh += 32) {
+    float m = SQP ? *gshift : -INFINITY;
+    if (!SQP)
+      for (int s = p0; s < p1; ++s) m = fmaxf(m, st[(size_t)s * 2 * h + hh]);
+    float den = 0.f;
+    for (int s = p0; s < p1; ++s) {
+      const float ds = st[(size_t)s * 2 * h + h + hh];
+      den += SQP ? ds : ds * expf(st[(size_t)s * 2 * h + hh] - m);
+    }
+    ms[hh] = m;
+    cs[hh] = den;
+  }
+  __syncwarp();
+  head_scales(cs, h, lane);
+  const int nvec = d / V::E;
+  for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
+    float acc[VPL][V::E];
+#pragma unroll
+    for (int v = 0; v < VPL; ++v)
+#pragma unroll
+      for (int k = 0; k < V::E; ++k) acc[v][k] = 0.f;
+    for (int b0 = sb; b0 < se; b0 += BATCH) {
+      const int cnt = min(BATCH, se - b0);
+      const int col = batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type,
+                                   ov2, inv2l2, kvec, ws, lane);
+      batch_weights<T, SQP>(ws, ms, cnt, h, lane);
+      gather_flash<T, VB>(acc, x, col, cnt, ws, cs, h, d, v0, nvec, lane);
+    }
+    store_chunk<T, VB>(acc, part, 0, nullptr, (size_t)j * d, v0, nvec, lane);
+  }
+}
+
+// each long row: the sum of its segments' partials in segment order, after
+// the addend, into out (f32 or bf16); lanes over columns
+__global__ void __launch_bounds__(WPB * 32)
+seg_combine(const int* __restrict__ plan, const float* __restrict__ part,
+            const float* __restrict__ add, void* __restrict__ out, int otype,
+            int nlong, int d) {
+  const int i = blockIdx.x * WPB + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= nlong) return;
+  const int r = plan[i], p0 = plan[nlong + i], p1 = plan[nlong + i + 1];
+  for (int c = lane; c < d; c += 32) {
+    float s = 0.f;
+    for (int j = p0; j < p1; ++j) s += part[(size_t)j * d + c];
+    store_vec<1>(out, otype, add, (size_t)r * d + c, &s);
+  }
+}
+
+// attspmm's weight of edge e (column col, row r): rnd(mean_h e / (den or
+// 1)), den at the row or at the edge's column
+template <typename T, bool PERCOL>
+__device__ __forceinline__ float attspmm_weight(const float* __restrict__ eo,
+                                                const float* __restrict__ den,
+                                                int e, int col, int r,
+                                                int h) {
+  const float* dn = den + (size_t)(PERCOL ? col : r) * h;
+  float wsum = 0.f;
+  for (int hh = 0; hh < h; ++hh) {
+    const float v = dn[hh];
+    wsum += eo[(size_t)e * h + hh] / (v > 0.f ? v : 1.f);
+  }
+  return rnd<T>(wsum / (float)h);
+}
+
+// attspmm: acc += rnd(x[col] w_e) over the batch's edges, lane j holding
+// edge j's column and weight
+template <typename T, int VB>
+__device__ __forceinline__ void gather_attspmm(
+    float (&acc)[VPL][Vec<T, VB>::E], const T* __restrict__ x, int col,
+    float wl, int cnt, int d, int v0, int nvec, int lane) {
+  using V = Vec<T, VB>;
+  for (int e0 = 0; e0 < cnt; e0 += V::U) {
+    uint32_t raw[V::U][VPL][V::W];
+    load_rows<T, VB>(raw, x, col, e0, cnt, d, v0, nvec, lane);
+#pragma unroll
+    for (int u = 0; u < V::U; ++u) {
+      const float wt = __shfl_sync(FULL, wl, (e0 + u) & 31);
+      if (e0 + u < cnt) {
+#pragma unroll
+        for (int v = 0; v < VPL; ++v) {
+          float p[V::E];
+          products<T, VB>(raw[u][v], wt, p);
+#pragma unroll
+          for (int k = 0; k < V::E; ++k) acc[v][k] += p[k];
+        }
+      }
+    }
+  }
+}
+
+// attspmm over the edges [sb, se) of row r: the chunk sums into out at
+// element offset `row`, after the addend `add`, as f32 or bf16
+template <typename T, int VB, bool PERCOL>
+__device__ __forceinline__ void attspmm_range(
+    const int* __restrict__ idx, const float* __restrict__ eo,
+    const float* __restrict__ den, const T* __restrict__ x, int r, int sb,
+    int se, void* out, int otype, const float* __restrict__ add, size_t row,
+    int d, int h, int lane) {
+  using V = Vec<T, VB>;
+  const int nvec = d / V::E;
+  for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
+    float acc[VPL][V::E];
+#pragma unroll
+    for (int v = 0; v < VPL; ++v)
+#pragma unroll
+      for (int k = 0; k < V::E; ++k) acc[v][k] = 0.f;
+    for (int b0 = sb; b0 < se; b0 += BATCH) {
+      const int cnt = min(BATCH, se - b0);
+      int col = 0;
+      float wl = 0.f;
+      if (lane < cnt) {
+        col = idx[b0 + lane];
+        wl = attspmm_weight<T, PERCOL>(eo, den, b0 + lane, col, r, h);
+      }
+      gather_attspmm<T, VB>(acc, x, col, wl, cnt, d, v0, nvec, lane);
+    }
+    store_chunk<T, VB>(acc, out, otype, add, row, v0, nvec, lane);
+  }
+}
+
+// the rows of at most `split` edges, walked
+// as flash_kernel walks its rows: the next row's bounds load while this
+// row's first weights do, and its first columns while this row's x rows do
+template <typename T, int VB, bool PERCOL>
+__global__ void __launch_bounds__(WPB * 32, MIN_BLOCKS)
+attspmm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+               const float* __restrict__ eo, const float* __restrict__ den,
+               const T* __restrict__ x, const float* __restrict__ add,
+               void* __restrict__ out, int otype, int n, int d, int h,
+               int split) {
+  using V = Vec<T, VB>;
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * WPB;
+  const int nvec = d / V::E;
+  int r = blockIdx.x * WPB + (threadIdx.x >> 5);
+  int beg = 0, len = 0, col = 0;
+  if (r < n) {
+    beg = ptr[r];
+    len = ptr[r + 1] - beg;
+    col = lane < min(len, BATCH) ? idx[beg + lane] : 0;
+  }
+  for (; r < n; r += stride) {
+    const int rn = r + stride;
+    int nbeg = 0, nlen = 0;
+    if (rn < n) {
+      nbeg = ptr[rn];
+      nlen = ptr[rn + 1] - nbeg;
+    }
+    const bool mine = len <= split;
+    int ncol = 0;
+    for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
+      float acc[VPL][V::E];
+#pragma unroll
+      for (int v = 0; v < VPL; ++v)
+#pragma unroll
+        for (int k = 0; k < V::E; ++k) acc[v][k] = 0.f;
+      for (int b0 = beg; mine && b0 < beg + len; b0 += BATCH) {
+        const int cnt = min(BATCH, beg + len - b0);
+        const int c = b0 == beg ? col : lane < cnt ? idx[b0 + lane] : 0;
+        const float wl =
+            lane < cnt ? attspmm_weight<T, PERCOL>(eo, den, b0 + lane, c, r, h)
+                       : 0.f;
+        if (b0 == beg && v0 == 0)
+          ncol = lane < min(nlen, BATCH) ? idx[nbeg + lane] : 0;
+        gather_attspmm<T, VB>(acc, x, c, wl, cnt, d, v0, nvec, lane);
+      }
+      if (mine)
+        store_chunk<T, VB>(acc, out, otype, add, (size_t)r * d, v0, nvec,
+                           lane);
+    }
+    if (len == 0 || !mine)  // no batch loaded the next row's columns
+      ncol = lane < min(nlen, BATCH) ? idx[nbeg + lane] : 0;
+    beg = nbeg;
+    len = nlen;
+    col = ncol;
+  }
+}
+
+// a long row's segment j: its f32 partial sums into part [nseg, d]
+template <typename T, int VB, bool PERCOL>
+__global__ void __launch_bounds__(WPB * 32)
+attspmm_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
+                const float* __restrict__ eo, const float* __restrict__ den,
+                const T* __restrict__ x, const int* __restrict__ plan,
+                float* __restrict__ part, int nlong, int nseg, int d, int h,
+                int split) {
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * WPB + (threadIdx.x >> 5);
+  if (j >= nseg) return;
+  int r, sb, se, i;
+  segment(ptr, plan, nlong, split, j, r, sb, se, i);
+  attspmm_range<T, VB, PERCOL>(idx, eo, den, x, r, sb, se, part, 0, nullptr,
+                               (size_t)j * d, d, h, lane);
 }
 
 int sm_count() {
@@ -850,21 +1403,6 @@ cudaError_t run_gmax(const void* ptr, const void* idx, const void* q,
   return cudaGetLastError();
 }
 
-template <typename T, bool SQP>
-cudaError_t run_flash(const void* ptr, const void* idx, const void* q,
-                      const void* x, const void* kt, const void* ew,
-                      const void* gshift, void* sc, void* out, int n, int d,
-                      int a, int h, int att_type, float ov2, float inv2l2,
-                      cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)WPB * (a + 2 * h);
-  const int grid = (n + WPB - 1) / WPB;
-  flash_kernel<T, SQP><<<grid, WPB * 32, smem, s>>>(
-      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
-      (const float*)kt, (const float*)ew, (const float*)gshift, (float*)sc,
-      (float*)out, n, d, a, h, att_type, ov2, inv2l2);
-  return cudaGetLastError();
-}
-
 // a launch with `smem` bytes of dynamic shared memory, opted into above 48 KB
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
@@ -936,13 +1474,99 @@ cudaError_t run_norm(const void* ptr, const void* idx, const void* q,
   return cudaGetLastError();
 }
 
-template <typename T, bool PERCOL>
+// T and VB (bytes per gathered load) of a walk launch: float with 4 or 8,
+// bfloat16 with 2, 4 or 8; f(T*, integral_constant<VB>)
+template <typename F>
+cudaError_t by_width(int dtype, int vb, F&& f) {
+  using I2 = std::integral_constant<int, 2>;
+  using I4 = std::integral_constant<int, 4>;
+  using I8 = std::integral_constant<int, 8>;
+  if (dtype == 0) {
+    if (vb == 4) return f((float*)nullptr, I4{});
+    if (vb == 8) return f((float*)nullptr, I8{});
+  } else if (dtype == 1) {
+    using B = __nv_bfloat16;
+    if (vb == 2) return f((B*)nullptr, I2{});
+    if (vb == 4) return f((B*)nullptr, I4{});
+    if (vb == 8) return f((B*)nullptr, I8{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// blocks of `threads` threads with `smem` bytes the card holds at once
+template <typename K>
+int resident_blocks(K kernel, int threads, size_t smem) {
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess ||
+      per_sm < 1)
+    per_sm = 1;
+  return per_sm * sm_count();
+}
+
+template <typename T, int VB, bool SQP>
+cudaError_t run_flash(const void* ptr, const void* idx, const void* q,
+                      const void* x, const void* kt, const void* ew,
+                      const void* gshift, const void* plan, void* st,
+                      void* part, void* out, int otype, int n, int d, int a,
+                      int h, int att_type, float ov2, float inv2l2, int kvec,
+                      int wpb, int seg, int nlong, int nseg,
+                      cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)wpb * flash_warp_floats(a, h);
+  cudaError_t err = allow_smem(flash_kernel<T, VB, SQP>, smem);
+  if (err != cudaSuccess) return err;
+  flash_kernel<T, VB, SQP><<<(n + wpb - 1) / wpb, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
+      (const float*)kt, (const float*)ew, (const float*)gshift, out, otype, n,
+      d, a, h, att_type, ov2, inv2l2, kvec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nseg == 0) return err;
+  const int grid = (nseg + wpb - 1) / wpb;
+  if ((err = allow_smem(flash_seg_stats<T, SQP>, smem)) != cudaSuccess)
+    return err;
+  flash_seg_stats<T, SQP><<<grid, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
+      (const float*)ew, (const float*)gshift, (const int*)plan, (float*)st,
+      nlong, nseg, a, h, att_type, ov2, inv2l2, kvec, seg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(flash_seg_sum<T, VB, SQP>, smem)) != cudaSuccess)
+    return err;
+  flash_seg_sum<T, VB, SQP><<<grid, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
+      (const float*)kt, (const float*)ew, (const float*)gshift,
+      (const int*)plan, (const float*)st, (float*)part, nlong, nseg, d, a, h,
+      att_type, ov2, inv2l2, kvec, seg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  seg_combine<<<(nlong + WPB - 1) / WPB, WPB * 32, 0, s>>>(
+      (const int*)plan, (const float*)part, nullptr, out, otype, nlong, d);
+  return cudaGetLastError();
+}
+
+template <typename T, int VB, bool PERCOL>
 cudaError_t run_attspmm(const void* ptr, const void* idx, const void* eo,
-                        const void* den, const void* x, void* out, int n,
-                        int d, int h, cudaStream_t s) {
-  attspmm_kernel<T, PERCOL><<<(n + WPB - 1) / WPB, WPB * 32, 0, s>>>(
-      (const int*)ptr, (const int*)idx, (const float*)eo, (const float*)den,
-      (const T*)x, (float*)out, n, d, h);
+                        const void* den, const void* x, const void* add,
+                        const void* plan, void* part, void* out, int otype,
+                        int n, int d, int h, int split, int nlong, int nseg,
+                        cudaStream_t s) {
+  static const int resident =
+      resident_blocks(attspmm_kernel<T, VB, PERCOL>, WPB * 32, 0);
+  const int rows = (n + WPB - 1) / WPB;
+  attspmm_kernel<T, VB, PERCOL>
+      <<<rows < resident ? rows : resident, WPB * 32, 0, s>>>(
+          (const int*)ptr, (const int*)idx, (const float*)eo,
+          (const float*)den, (const T*)x, (const float*)add, out, otype, n, d,
+          h, split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nseg == 0) return err;
+  attspmm_seg_sum<T, VB, PERCOL>
+      <<<(nseg + WPB - 1) / WPB, WPB * 32, 0, s>>>(
+          (const int*)ptr, (const int*)idx, (const float*)eo,
+          (const float*)den, (const T*)x, (const int*)plan, (float*)part,
+          nlong, nseg, d, h, split);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  seg_combine<<<(nlong + WPB - 1) / WPB, WPB * 32, 0, s>>>(
+      (const int*)plan, (const float*)part, (const float*)add, out, otype,
+      nlong, d);
   return cudaGetLastError();
 }
 
@@ -993,33 +1617,38 @@ int gx_attention_gmax(const void* ptr, const void* idx, const void* q,
 }
 
 // q [n, a] and x [n, d] in one dtype; kt [n, a] float32; ew as above;
-// gshift [1] float32 (squareplus only, from gx_attention_gmax); sc [E, h]
-// float32 scratch; out [n, d] float32.
+// gshift [1] float32 (squareplus only, from gx_attention_gmax); out [n, d]
+// float32 (out_dtype 0) or bfloat16 (1). vec_bytes: the bytes of one x load
+// (float: 4 or 8; bfloat16: 2, 4 or 8, dividing a row's bytes and x's
+// offset); kvec: K rows by 16-byte loads (dk % 4 == 0, kt on 16 bytes); wpb
+// warps per block. Rows of more than 32 edges go through the segment
+// kernels, in segments of `seg` edges: plan [2 nlong + 1 + nseg] int32
+// (long rows, their segment offsets, each segment's long row), st [nseg,
+// 2h] and part [nseg, d] float32 scratch.
 int gx_flash_attention(const void* ptr, const void* idx, const void* q,
                        const void* x, const void* kt, const void* ew,
-                       const void* gshift, void* sc, void* out, int n, int d,
-                       int a, int h, int att_type, int reweight,
-                       int square_plus, float ov2, float inv2l2, int dtype,
+                       const void* gshift, const void* plan, void* st,
+                       void* part, void* out, int n, int d, int a, int h,
+                       int att_type, int reweight, int square_plus, float ov2,
+                       float inv2l2, int dtype, int out_dtype, int vec_bytes,
+                       int kvec, int wpb, int seg, int nlong, int nseg,
                        void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (wpb < 1 || wpb > WPB) return (int)cudaErrorInvalidValue;
   const void* ewp = reweight ? ew : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
+  return (int)by_width(dtype, vec_bytes, [&](auto t, auto vb) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    constexpr int VB = decltype(vb)::value;
     return square_plus
-        ? (int)run_flash<float, true>(ptr, idx, q, x, kt, ewp, gshift, sc, out,
-                                      n, d, a, h, att_type, ov2, inv2l2, s)
-        : (int)run_flash<float, false>(ptr, idx, q, x, kt, ewp, gshift, sc,
-                                       out, n, d, a, h, att_type, ov2, inv2l2,
-                                       s);
-  if (dtype == 1)
-    return square_plus
-        ? (int)run_flash<__nv_bfloat16, true>(ptr, idx, q, x, kt, ewp, gshift,
-                                              sc, out, n, d, a, h, att_type,
-                                              ov2, inv2l2, s)
-        : (int)run_flash<__nv_bfloat16, false>(ptr, idx, q, x, kt, ewp,
-                                               gshift, sc, out, n, d, a, h,
-                                               att_type, ov2, inv2l2, s);
-  return (int)cudaErrorInvalidValue;
+        ? run_flash<T, VB, true>(ptr, idx, q, x, kt, ewp, gshift, plan, st,
+                                 part, out, out_dtype, n, d, a, h, att_type,
+                                 ov2, inv2l2, kvec, wpb, seg, nlong, nseg, s)
+        : run_flash<T, VB, false>(ptr, idx, q, x, kt, ewp, gshift, plan, st,
+                                  part, out, out_dtype, n, d, a, h, att_type,
+                                  ov2, inv2l2, kvec, wpb, seg, nlong, nseg,
+                                  s);
+  });
 }
 
 // The training forward. q [n, a] (pre-scaled) and x [n, d] in one dtype; kt
@@ -1111,25 +1740,29 @@ int gx_attention_norm(const void* ptr, const void* idx, const void* q,
 
 // K3 against outside denominators. eo [E, h] float32 (from gx_attention_norm);
 // den [n, h] float32, read at the row (per_column 0) or at the edge's column
-// (per_column 1); x [n, d] in the state dtype; out [n, d] float32.
+// (per_column 1); x [n, d] in the state dtype; add [n, d] float32 or null;
+// out [n, d] = (add + sum) as float32 (out_dtype 0) or bfloat16 (1).
+// vec_bytes as gx_flash_attention's; rows of more than `split` edges go
+// through the segment kernels, in segments of `split` edges (plan and part
+// as gx_flash_attention's).
 int gx_attention_attspmm(const void* ptr, const void* idx, const void* eo,
-                         const void* den, const void* x, void* out, int n,
+                         const void* den, const void* x, const void* add,
+                         const void* plan, void* part, void* out, int n,
                          int d, int h, int per_column, int dtype,
-                         void* stream) {
+                         int out_dtype, int vec_bytes, int split, int nlong,
+                         int nseg, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
+  return (int)by_width(dtype, vec_bytes, [&](auto t, auto vb) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    constexpr int VB = decltype(vb)::value;
     return per_column
-        ? (int)run_attspmm<float, true>(ptr, idx, eo, den, x, out, n, d, h, s)
-        : (int)run_attspmm<float, false>(ptr, idx, eo, den, x, out, n, d, h,
-                                         s);
-  if (dtype == 1)
-    return per_column
-        ? (int)run_attspmm<__nv_bfloat16, true>(ptr, idx, eo, den, x, out, n,
-                                                d, h, s)
-        : (int)run_attspmm<__nv_bfloat16, false>(ptr, idx, eo, den, x, out,
-                                                 n, d, h, s);
-  return (int)cudaErrorInvalidValue;
+        ? run_attspmm<T, VB, true>(ptr, idx, eo, den, x, add, plan, part, out,
+                                   out_dtype, n, d, h, split, nlong, nseg, s)
+        : run_attspmm<T, VB, false>(ptr, idx, eo, den, x, add, plan, part,
+                                    out, out_dtype, n, d, h, split, nlong,
+                                    nseg, s);
+  });
 }
 
 }  // extern "C"

@@ -19,7 +19,17 @@ with its plain PyTorch version beside it:
   max for softmax, the global one for squareplus), ``e``, the denominator
   ``d`` in f32, ``acc = sum rnd(x[col] * rnd(e))`` with ``rnd`` the state
   dtype's rounding (`:435`), and ``out = mean_h acc / (d + 1e-16)`` in f32
-  (`:442`, ``+EPS``, not K3's zero-select). A row with no edge gives 0.
+  (`:442`, ``+EPS``, not K3's zero-select), rounded once to the output
+  dtype the caller asks for. A row with no edge gives 0.
+
+The flash kernel and ``attention_attspmm`` walk a CSR row the same way
+(`csrc/fused_attention.cu`): a warp per row, batches of 32 edges with
+their indices and weights first, then several gathered x rows in flight
+per warp, loaded :func:`gather_width` bytes at a time. Long rows are
+walked in segments of ``ROW_SPLIT`` edges by a warp each and summed in
+segment order (:func:`row_split_plan`), so a hub row does not set the
+launch's length: flash's rows of more than one batch, attspmm's of more
+than ``ROW_SPLIT`` edges.
 
 Softmax shifts by each row's final max: graphax's online recurrence over
 its 128-row tiles gives the same values to f32 rounding, and bf16 ``e``
@@ -42,6 +52,9 @@ launches in ``_build.LAUNCHES``."""
 
 from __future__ import annotations
 
+import weakref
+
+import numpy as np
 import torch
 
 from graphax_torch.kernels import _build
@@ -53,6 +66,9 @@ from graphax_torch.utils.params import linear_apply
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WPB = 8            # warps per block in every kernel of fused_attention.cu
+_BATCH = 32         # edges a warp of the row walk holds at once
+ROW_SPLIT = 128     # the row walk's segment length: longer rows go in
+                    # segments of it
 _KROWS = 4          # rows per warp at a time in the K projection
 _SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into
 _SMEM_STATIC = 49_152     # without opting in (the flash kernel's q, shifts)
@@ -239,11 +255,74 @@ def attention_gmax(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
 # flash
 # ----------------------------------------------------------------------
 
+def gather_width(x: torch.Tensor, *f32_views) -> int:
+    """Bytes of one load of an ``x [N, D]`` row in the row walk: the widest
+    of 8 and 4 bytes that divides a row's bytes and x's offset, and for
+    which every f32 tensor of ``f32_views`` (the addend; None is skipped)
+    starts on as many values; else one value (bf16 rows of odd D, views
+    that start mid-word)."""
+    elem = x.element_size()
+    row = x.shape[1] * elem
+    for vb in (8, 4):
+        if vb >= elem and row % vb == 0 and x.data_ptr() % vb == 0 and all(
+                t.data_ptr() % (4 * vb // elem) == 0
+                for t in f32_views if t is not None):
+            return vb
+    return elem
+
+
+def flash_warps(a: int, heads: int) -> int:
+    """Warps per block of the flash kernels: up to 8, each with q, the
+    per-head shift and scale and a batch's 32 x H scores in shared memory
+    within one block's limit; 0 where not even one fits."""
+    return min(_WPB, _SMEM_LIMIT // (4 * (a + 2 * heads + _BATCH * heads)))
+
+
+def row_split_plan(ptr: np.ndarray, longer_than: int, seg: int) -> tuple:
+    """The segments of the rows of more than ``longer_than`` edges, as
+    the kernels read them: ``(plan, nlong, nseg)`` with
+    ``plan`` int32 ``[long rows (nlong) | each one's first segment, then
+    nseg (nlong + 1) | each segment's long row (nseg)]``; a long row's
+    segments cover its edges in order, ``seg`` each, the last one the
+    rest."""
+    deg = np.diff(np.asarray(ptr, np.int64))
+    rows = np.nonzero(deg > longer_than)[0]
+    count = (deg[rows] + seg - 1) // seg
+    first = np.concatenate([[0], np.cumsum(count)])
+    plan = np.concatenate([rows, first, np.repeat(np.arange(rows.size), count)])
+    return plan.astype(np.int32), int(rows.size), int(first[-1])
+
+
+_PLANS: dict = {}
+
+
+def _row_plan(layout: Layout, longer_than: int, seg: int) -> tuple:
+    """:func:`row_split_plan` of ``layout`` on its device, made once per
+    layout and arguments (one copy of ``ptr`` to the host) and kept while
+    ``layout.ptr`` lives."""
+    key = (id(layout.ptr), longer_than, seg)
+    hit = _PLANS.get(key)
+    if hit is not None and hit[0]() is layout.ptr:
+        return hit[1]
+    plan, nlong, nseg = row_split_plan(layout.ptr.cpu().numpy(), longer_than,
+                                       seg)
+    found = (torch.as_tensor(plan, device=layout.ptr.device), nlong, nseg)
+    _PLANS[key] = (weakref.ref(layout.ptr,
+                               lambda _, k=key: _PLANS.pop(k, None)), found)
+    return found
+
+
+def _out_dtype(what: str, x: torch.Tensor, out_dtype) -> None:
+    if out_dtype not in (torch.float32, x.dtype):
+        raise ValueError(f"{what}: out_dtype must be float32 or x's dtype")
+
+
 def flash_attention_plain(layout: Layout, q, x, kt, edge_w, gshift,
                           att_type: str, heads: int, ov2: float = 1.0,
-                          inv2l2: float = 0.5):
-    """The flash kernel's function in plain PyTorch: ``[N, D]`` f32.
-    ``gshift`` None: row softmax; else squareplus shifted by it."""
+                          inv2l2: float = 0.5, out_dtype=torch.float32):
+    """The flash kernel's function in plain PyTorch: ``[N, D]`` f32, cast
+    once to ``out_dtype``. ``gshift`` None: row softmax; else squareplus
+    shifted by it."""
     n = layout.num_rows
     seg = layout.seg
     s = edge_scores_plain(layout, q, kt, edge_w, att_type, heads, ov2,
@@ -261,23 +340,25 @@ def flash_attention_plain(layout: Layout, q, x, kt, edge_w, gshift,
         acc = torch.zeros_like(out).index_add_(
             0, seg, (xs * wt[:, h:h + 1]).float())
         out += acc / (den[:, h:h + 1] + EPS)
-    return out / heads
+    return (out / heads).to(out_dtype)
 
 
 def flash_attention(layout: Layout, q: torch.Tensor, x: torch.Tensor,
                     kt: torch.Tensor, edge_w, gshift, att_type: str,
-                    heads: int, ov2: float = 1.0, inv2l2: float = 0.5
-                    ) -> torch.Tensor:
-    """``[N, D]`` float32 head-mean attention aggregation over ``layout``.
+                    heads: int, ov2: float = 1.0, inv2l2: float = 0.5,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """``[N, D]`` head-mean attention aggregation over ``layout``, summed
+    in f32 and rounded once to ``out_dtype`` (float32 or x's dtype).
 
     ``q [N, A]`` (pre-scaled for scaled_dot) and ``x [N, D]`` in one dtype;
     ``kt [N, A]`` f32 keys; ``edge_w [>= E]`` f32 or None; ``gshift`` a 0-d
     f32 tensor (squareplus) or None (row softmax)."""
     _check_scores("flash_attention", q, kt, heads, att_type)
     _no_grad("flash_attention", q, x, kt, edge_w)
+    _out_dtype("flash_attention", x, out_dtype)
     if not x.is_cuda:
         return flash_attention_plain(layout, q, x, kt, edge_w, gshift,
-                                     att_type, heads, ov2, inv2l2)
+                                     att_type, heads, ov2, inv2l2, out_dtype)
     n, d = x.shape
     a = q.shape[1]
     if x.dtype != q.dtype or q.shape[0] != n:
@@ -289,18 +370,27 @@ def flash_attention(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         raise ValueError("flash_attention: gshift must be one f32 value")
     _check_operands("flash_attention", x, layout.ptr, layout.idx, q, x, kt,
                     edge_w, gshift)
-    scores = torch.empty((layout.num_slots, heads), dtype=torch.float32,
-                         device=x.device)
-    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    wpb = flash_warps(a, heads)
+    if wpb < 1:
+        raise ValueError(f"flash_attention: A={a}, H={heads} exceed one "
+                         "block's shared memory")
+    # rows of more than one batch of edges are walked in segments
+    plan, nlong, nseg = _row_plan(layout, _BATCH, ROW_SPLIT)
+    st = torch.empty((nseg, 2 * heads), dtype=torch.float32, device=x.device)
+    part = torch.empty((nseg, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, d), dtype=out_dtype, device=x.device)
+    kvec = int((a // heads) % 4 == 0 and kt.data_ptr() % 16 == 0)
     lib = _build.library("fused_attention")
     err = lib.gx_flash_attention(
         layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
         x.data_ptr(), kt.data_ptr(),
         edge_w.data_ptr() if edge_w is not None else None,
-        gshift.data_ptr() if gshift is not None else None,
-        scores.data_ptr(), out.data_ptr(), n, d, a, heads,
+        gshift.data_ptr() if gshift is not None else None, plan.data_ptr(),
+        st.data_ptr(), part.data_ptr(), out.data_ptr(), n, d, a, heads,
         ATT_TYPES[att_type], int(edge_w is not None), int(gshift is not None),
-        float(ov2), float(inv2l2), _DTYPES[x.dtype], _build.stream_ptr(x))
+        float(ov2), float(inv2l2), _DTYPES[x.dtype], _DTYPES[out_dtype],
+        gather_width(x), kvec, wpb, ROW_SPLIT, nlong, nseg,
+        _build.stream_ptr(x))
     _build.check(err, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
     return out
@@ -360,32 +450,40 @@ def attention_norm(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
 
 
 def attention_attspmm_plain(layout: Layout, e, den, x,
-                            per_column: bool = False):
-    """K3 against outside denominators in plain PyTorch: ``[N, D]`` f32,
-    ``sum rnd(x[col] * rnd(mean_h e / (den or 1)))`` with ``den`` read at
-    each slot's row, or at its column when ``per_column``."""
+                            per_column: bool = False, addend=None,
+                            out_dtype=torch.float32):
+    """K3 against outside denominators in plain PyTorch: ``[N, D]``, ``(addend
+    + sum rnd(x[col] * rnd(mean_h e / (den or 1))))`` in f32 with ``den``
+    read at each slot's row, or at its column when ``per_column``, cast once
+    to ``out_dtype``."""
     seg, col = layout.seg, layout.idx.long()
     de = _zero_select(den)[col if per_column else seg]
     w = (e / de).sum(1) / e.shape[1]
     vals = (x[col] * w.to(x.dtype)[:, None]).float()
     out = torch.zeros((layout.num_rows, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    return out.index_add_(0, seg, vals)
+                      device=x.device).index_add_(0, seg, vals)
+    if addend is not None:
+        out = addend + out
+    return out.to(out_dtype)
 
 
 def attention_attspmm(layout: Layout, e: torch.Tensor, den: torch.Tensor,
-                      x: torch.Tensor, per_column: bool = False
-                      ) -> torch.Tensor:
+                      x: torch.Tensor, per_column: bool = False,
+                      addend=None, out_dtype=torch.float32) -> torch.Tensor:
     """graphax's K3 (`_make_attspmm_kernel`, `:266`) with its denominators
-    handed to it: ``[N, D]`` f32 as the plain version. ``e [E, H]`` f32
-    from :func:`attention_norm` in ``layout``'s slot order; ``den [N, H]``
-    f32, a row table (``per_column`` False: K3's row form, the windowed
-    residual against K5's combined denominators) or a column table read at
-    each edge's column (``per_column``: its ``per_edge_denom`` form under
-    column normalisation); ``x [N, D]`` in the state dtype."""
-    _no_grad("attention_attspmm", e, den, x)
+    handed to it: ``[N, D]`` as the plain version. ``e [E, H]`` f32 from
+    :func:`attention_norm` in ``layout``'s slot order; ``den [N, H]`` f32, a
+    row table (``per_column`` False: K3's row form, the windowed residual
+    against K5's combined denominators) or a column table read at each
+    edge's column (``per_column``: its ``per_edge_denom`` form under column
+    normalisation); ``x [N, D]`` in the state dtype; ``addend [N, D]`` f32
+    or None, added to the f32 sum before its one rounding to ``out_dtype``
+    (float32 or x's dtype)."""
+    _no_grad("attention_attspmm", e, den, x, addend)
+    _out_dtype("attention_attspmm", x, out_dtype)
     if not x.is_cuda:
-        return attention_attspmm_plain(layout, e, den, x, per_column)
+        return attention_attspmm_plain(layout, e, den, x, per_column, addend,
+                                       out_dtype)
     n, d = x.shape
     if x.dtype not in _DTYPES:
         raise TypeError("attention_attspmm: x must be float32 or bfloat16")
@@ -395,15 +493,23 @@ def attention_attspmm(layout: Layout, e: torch.Tensor, den: torch.Tensor,
             or e.shape != (layout.num_slots, heads)):
         raise ValueError("attention_attspmm: e [E, H] and den [N, H] f32 "
                          "required")
+    if addend is not None and (addend.dtype != torch.float32
+                               or addend.shape != (n, d)):
+        raise ValueError("attention_attspmm: addend must be [N, D] f32")
     _check_layout("attention_attspmm", layout, n, None)
     _check_operands("attention_attspmm", x, layout.ptr, layout.idx, e, den,
-                    x)
-    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+                    x, addend)
+    plan, nlong, nseg = _row_plan(layout, ROW_SPLIT, ROW_SPLIT)
+    part = torch.empty((nseg, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, d), dtype=out_dtype, device=x.device)
     lib = _build.library("fused_attention")
     err = lib.gx_attention_attspmm(
         layout.ptr.data_ptr(), layout.idx.data_ptr(), e.data_ptr(),
-        den.data_ptr(), x.data_ptr(), out.data_ptr(), n, d, heads,
-        int(per_column), _DTYPES[x.dtype], _build.stream_ptr(x))
+        den.data_ptr(), x.data_ptr(),
+        addend.data_ptr() if addend is not None else None, plan.data_ptr(),
+        part.data_ptr(), out.data_ptr(), n, d, heads, int(per_column),
+        _DTYPES[x.dtype], _DTYPES[out_dtype], gather_width(x, addend),
+        ROW_SPLIT, nlong, nseg, _build.stream_ptr(x))
     _build.check(err, "attention_attspmm")
     _build.LAUNCHES["attention_attspmm"] += 1
     return out
@@ -472,8 +578,7 @@ def prep_inputs(cfg, att, graph, x: torch.Tensor) -> dict:
 def flash_attention_ax(cfg, att, graph, x: torch.Tensor) -> torch.Tensor:
     """``A(x) x`` of the GRAND-nl RHS on a sparse graph, in x's dtype: the
     operands of :func:`prep_inputs`, the K projection, the global shift
-    (squareplus only), the flash kernel, and one cast of its f32 output to
-    x's dtype."""
+    (squareplus only) and the flash kernel, which writes x's dtype."""
     x = x.contiguous()
     p = prep_inputs(cfg, att, graph, x)
     scal = (p["att_type"], p["heads"], p["ov2"], p["inv2l2"])
@@ -481,9 +586,8 @@ def flash_attention_ax(cfg, att, graph, x: torch.Tensor) -> torch.Tensor:
     gshift = None
     if cfg.square_plus:
         gshift = attention_gmax(graph.csr, p["q"], kt, p["edge_w"], *scal)
-    out = flash_attention(graph.csr, p["q"], x, kt, p["edge_w"], gshift,
-                          *scal)
-    return out.to(x.dtype)
+    return flash_attention(graph.csr, p["q"], x, kt, p["edge_w"], gshift,
+                           *scal, out_dtype=x.dtype)
 
 
 # ----------------------------------------------------------------------

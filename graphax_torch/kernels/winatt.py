@@ -20,8 +20,8 @@ counterpart of `windowed_attention_ax_pallas` (`:273`):
 5. K5 (:func:`winatt`) on the occupied cells of each row, with r0 and
    ``d_res``: the in-window aggregate and the combined denominators;
 6. the residual aggregate against those denominators (`attention_attspmm`
-   in its row form, `:234-236`);
-7. the sum of the two f32 halves, rounded to the state dtype.
+   in its row form, `:234-236`), with K5's f32 half as its addend: the sum
+   of the two f32 halves, rounded once to the state dtype by the kernel.
 
 So the two halves of one row see different k and q in bf16, as graphax's:
 K5 reads k rounded to the state dtype from the f32 weight and the
@@ -190,5 +190,5 @@ def windowed_attention_ax_fast(cfg, att, graph, x: torch.Tensor,
     r0 = fa.attention_gmax(res, q_s, kt, ew_res, *scal)
     e_res, d_res = fa.attention_norm(res, q_s, kt, ew_res, r0, *scal)
     out_win, den = winatt(win, q, k, x, d_res, r0, ew_win, *scal)
-    out_res = fa.attention_attspmm(res, e_res, den, x)
-    return (out_win + out_res).to(dt)
+    return fa.attention_attspmm(res, e_res, den, x, addend=out_win,
+                                out_dtype=dt)

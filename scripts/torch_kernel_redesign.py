@@ -1,6 +1,8 @@
 """The redesigned kernels on the card, at their main paths' shapes, for one
 or two checkouts of the repo: win_bwd_dense, attention_kproj and win_matmul
-at the ogbn-arxiv preset's, flash_dense at Computers'.
+at the ogbn-arxiv preset's, flash_dense at Computers'; the CSR
+flash_attention and attention_attspmm at GRAND-nl's arxiv shapes, on a
+hub graph and on a power-law graph.
 
 For each checkout (``--root``, default this one; ``--parent DIR`` adds a
 second, run in turns parent, this, this, parent, each in its own process):
@@ -28,12 +30,36 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
 - flash_dense, f32 and bf16 (``scaled_dot_product_attention`` with the
   boolean mask beside it), and GRAND-nl's dense evaluation (Computers'
   preset with ``function="transformer", block="constant"``, random Q/K):
-  three evaluations, their NFE and ms per NFE.
+  three evaluations, their NFE and ms per NFE;
+- (``attention``) GRAND-nl at the arxiv preset's widths (random Q/K as
+  chip_smoke draws them, the encoded state in bf16): flash_attention on
+  the CSR, softmax and squareplus, f32 and bf16 out; attention_attspmm in
+  its row form on the windowed residual (path A's inputs: K5's
+  denominators, its f32 half as the addend) and per column on the CSR
+  (path B's), without and with an addend, f32 and bf16 out; the same on
+  ``chip_smoke.hub_graph`` (rows of up to 13,000 edges) and on
+  :func:`pareto_graph` (degrees of a power law), with the CSR GRAND-nl
+  model's own operands as chip_smoke takes them, each graph's (and the
+  arxiv CSR's) shares of rows and edges over 32 and over ``ROW_SPLIT``
+  edges, and in a checkout
+  with ``ROW_SPLIT`` set to segment lengths of 64 to 512 edges; a
+  checkout whose wrappers have no ``out_dtype`` is timed with the cast
+  (and the add) its routes ran after the kernel. Each with its bound and
+  the all-miss count (x read once per edge instead of once). On both
+  graphs, flash's f32 output (softmax and squareplus, f32 and bf16 x)
+  against flash_attention_plain: the largest error, the largest ratio of
+  error to chip_smoke's TOL_FLASH (and for squareplus to TOL_FLASH plus
+  ``chip_smoke.squareplus_slack``), and the degree of the row where it
+  lies. Then flash_attention_ax and the column and windowed routes whole,
+  three GRAND-nl evaluations each on CSR, path A and path B (NFE, ms per
+  NFE), and one profiled GRAND-nl train step on CSR (device busy ms, the
+  flash kernels' device ms, and the device ms of each kernel of the row
+  walk by name).
 
 One JSON line per measurement, then the card's nvidia-smi line. Run from
 the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
-DIR]``; a parent is a ``git archive`` of another commit unpacked in a
-directory that ``.gitignore`` lists.
+DIR] [--only windowed|attention]``; a parent is a ``git archive`` of
+another commit unpacked in a directory that ``.gitignore`` lists.
 """
 
 import argparse
@@ -79,8 +105,38 @@ def this_chip_smoke():
     return sys.modules["chip_smoke_here"]
 
 
-def measure(root: str) -> None:
+def pareto_graph(device, n=169_343, alpha=2.5, kmin=3, seed=4):
+    """A graph at ogbn-arxiv's N whose degrees follow a power law, P(deg >
+    k) = (k / kmin)^-(alpha - 1), floored (mean about 8.5, the largest
+    thousands of edges), columns uniform, built from a seed. The exponent
+    is a choice, not a fit to ogbn-arxiv."""
+    import numpy as np
+
+    from graphax_torch.sparse.graph import Graph
+
+    rng = np.random.RandomState(seed)
+    deg = np.minimum(np.floor(kmin * rng.random_sample(n) ** (
+        -1.0 / (alpha - 1.0))), n - 1).astype(np.int64)
+    row = np.repeat(np.arange(n), deg)
+    col = rng.randint(0, n, row.size)
+    order = np.lexsort((col, row))
+    return Graph.from_edges(row[order], col[order], n, device=device)
+
+
+def measure(root: str, only=None) -> None:
     sys.path.insert(0, root)
+
+    def emit(**row):
+        print(json.dumps({"root": root, **row}), flush=True)
+
+    if only in (None, "windowed"):
+        windowed(emit)
+    if only in (None, "attention"):
+        attention(emit)
+
+
+def windowed(emit) -> None:
+    """The measurements of the module's docstring before ``attention``."""
     import torch
 
     import chip_smoke as cs
@@ -100,10 +156,6 @@ def measure(root: str) -> None:
     cells = wl.num_tiles * wl.tile * wl.window
     gen = torch.Generator(device="cuda").manual_seed(0)
     has_out = "out_dtype" in inspect.signature(ws.win_bwd_dense).parameters
-
-    def emit(**row):
-        print(json.dumps({"root": root, **row}), flush=True)
-
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).replace("torch.", "")
         b = torch.finfo(dt).bits // 8
@@ -301,15 +353,276 @@ def dense_nl(emit) -> None:
              flash_dense_launches=_build.LAUNCHES["flash_dense"])
 
 
+def attention(emit) -> None:
+    """The ``attention`` measurements of the module's docstring."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from graphax_torch import best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import attention3 as a3
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels import winatt as wa
+    from graphax_torch.utils.params import linear_apply
+
+    here = this_chip_smoke()
+    new = "out_dtype" in inspect.signature(fa.flash_attention).parameters
+    bf = torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    data = get_dataset("ogbn-arxiv")
+    base = dict(block="constant", function="transformer")
+    trs = {"CSR": dict(community_window=0), "A": {},
+           "B": dict(community_window=0, attention_norm_idx=1)}
+    trs = {k: cs.nl_trainer(best_config("ogbn-arxiv", **base, **kw), data)
+           for k, kw in trs.items()}
+
+    def timed(kernel, fn, want, nbytes, miss_bytes, **row):
+        err = float((fn().float() - want.float()).abs().max())
+        emit(kernel=kernel, ms=here.time_ms(fn), max_abs_err=err,
+             bound_ms=nbytes / here.HBM_BYTES_PER_S * 1e3,
+             all_miss_ms=miss_bytes / here.HBM_BYTES_PER_S * 1e3, **row)
+
+    def flash_cases(label, lay, q, x, kt, scal):
+        n, d = x.shape
+        e, a = lay.num_slots, q.shape[1]
+        for variant in ("softmax", "squareplus"):
+            gs = fa.attention_gmax(lay, q, kt, None, *scal) \
+                if variant == "squareplus" else None
+            ref = fa.flash_attention_plain(lay, q, x, kt, None, gs, *scal)
+            for od in (torch.float32, bf):
+                if new:
+                    fn = lambda od=od: fa.flash_attention(  # noqa: E731
+                        lay, q, x, kt, None, gs, *scal, out_dtype=od)
+                else:
+                    fn = lambda od=od: fa.flash_attention(  # noqa: E731
+                        lay, q, x, kt, None, gs, *scal).to(od)
+                # q, K, the CSR and the output, and x once or per edge
+                tables = (2 * n * a + 4 * n * a + 4 * e + 4 * (n + 1)
+                          + n * d * od.itemsize)
+                timed("flash_attention", fn, ref.to(od), tables + 2 * n * d,
+                      tables + 2 * e * d, graph=label, variant=variant,
+                      out=str(od)[6:],
+                      row_split=fa.ROW_SPLIT if new else None,
+                      with_cast=not new and od != torch.float32)
+
+    def attspmm_cases(label, lay, e, den, x, per_col, add):
+        n, d = x.shape
+        es, h = lay.num_slots, den.shape[1]
+        ref = fa.attention_attspmm_plain(lay, e, den, x, per_col)
+        for addend, od in ((None, torch.float32), (None, bf), (add, bf)):
+            if new:
+                fn = lambda a=addend, od=od: fa.attention_attspmm(  # noqa
+                    lay, e, den, x, per_col, addend=a, out_dtype=od)
+            elif addend is None:
+                fn = lambda od=od: fa.attention_attspmm(  # noqa: E731
+                    lay, e, den, x, per_col).to(od)
+            else:
+                fn = lambda a=addend, od=od: (a + fa.attention_attspmm(  # noqa
+                    lay, e, den, x, per_col)).to(od)
+            want = (ref if addend is None else addend + ref).to(od)
+            # e, the table, the CSR, the addend and the output, and x once
+            # or per edge
+            tables = (4 * es * h + 4 * n * h + 4 * es + 4 * (n + 1)
+                      + n * d * od.itemsize
+                      + (4 * n * d if addend is not None else 0))
+            timed("attention_attspmm", fn, want, tables + 2 * n * d,
+                  tables + 2 * es * d, graph=label,
+                  form="per_column" if per_col else "row",
+                  addend=addend is not None, out=str(od)[6:],
+                  row_split=fa.ROW_SPLIT if new else None,
+                  with_cast=not new and (od != torch.float32
+                                         or addend is not None))
+
+    def accuracy(label, gr, cfg, att, x_enc):
+        """flash's f32 output against the plain version on chip_smoke's
+        operands, beside TOL_FLASH."""
+        lay = gr.csr
+        deg = (lay.ptr[1:] - lay.ptr[:-1]).cpu()
+        for dt in (torch.float32, bf):
+            name = str(dt)[6:]
+            atol, rtol = here.TOL_FLASH[name]
+            x = x_enc.to(dt).contiguous()
+            p = fa.prep_inputs(cfg, att, gr, x)
+            kt = fa.attention_kproj(x, p["wk"], p["bk"])
+            scal = (cfg.attention_type, cfg.heads, p["ov2"], p["inv2l2"])
+            for variant in ("softmax", "squareplus"):
+                gs = fa.attention_gmax(lay, p["q"], kt, None, *scal) \
+                    if variant == "squareplus" else None
+                got = fa.flash_attention(lay, p["q"], x, kt, None, gs, *scal)
+                want = fa.flash_attention_plain(lay, p["q"], x, kt, None, gs,
+                                                *scal)
+                err = (got - want).abs()
+                ratio = err / (atol + rtol * want.abs())
+                worst = int(ratio.argmax()) // want.shape[1]
+                slack = here.squareplus_slack(lay, p["q"], x, kt, gs, scal) \
+                    if variant == "squareplus" else 0.0
+                held = err / (atol + slack + rtol * want.abs())
+                emit(kernel="flash_attention", graph=label, check="accuracy",
+                     x=name, variant=variant, max_abs_err=float(err.max()),
+                     tol_flash=[atol, rtol], tol_ratio=float(ratio.max()),
+                     worst_row_degree=int(deg[worst]),
+                     rows_over_tol=int((ratio > 1).any(1).sum()),
+                     tol_ratio_with_slack=float(held.max()),
+                     slack_max=float(torch.as_tensor(slack).max()),
+                     out_abs_median=float(want.abs().median()),
+                     out_abs_max=float(want.abs().max()),
+                     rounded_atol=2.0 ** -6 * float(x.float().abs().max()))
+
+    routes = {}
+    with torch.no_grad():
+        # the CSR flash at the arxiv shapes (the CSR GRAND-nl model's q, Wk)
+        tr = trs["CSR"]
+        g, cfg, att = tr.data.graph, tr.cfg, tr.model.block.func.att
+        tr.model.eval()
+        x = tr.model.encode(tr.data.x, train=False).to(bf).contiguous()
+        p = fa.prep_inputs(cfg, att, g, x)
+        kt = fa.attention_kproj(x, p["wk"], p["bk"])
+        scal = (cfg.attention_type, cfg.heads, p["ov2"], p["inv2l2"])
+        cuts = (32, getattr(fa, "ROW_SPLIT", 128))
+        emit(graph="arxiv CSR", N=g.num_nodes, E=g.csr.num_slots,
+             **here.degree_shares(g.csr.ptr, cuts))
+        flash_cases("arxiv CSR", g.csr, p["q"], x, kt, scal)
+        routes["flash_attention_ax"] = (fa.flash_attention_ax, cfg, att, g, x)
+        # the row form on path A's windowed residual, K5's half the addend
+        tr = trs["A"]
+        g, cfg, att = tr.data.graph, tr.cfg, tr.model.block.func.att
+        tr.model.eval()
+        x = tr.model.encode(tr.data.x, train=False).to(bf).contiguous()
+        wl = g.windows
+        q = linear_apply(att.Q, x).to(bf).contiguous()
+        k = linear_apply(att.K, x).to(bf).contiguous()
+        dk = cfg.attention_dim // cfg.heads
+        q_s = (q / torch.sqrt(torch.tensor(dk, dtype=torch.float32)).to(bf)
+               ).contiguous()
+        kt = fa.attention_kproj(x, att.K.weight.t().to(bf).contiguous(),
+                                att.K.bias.float().contiguous())
+        scal = (cfg.attention_type, cfg.heads, 0.0, 0.0)
+        r0 = fa.attention_gmax(wl.residual, q_s, kt, None, *scal)
+        e, d_res = fa.attention_norm(wl.residual, q_s, kt, None, r0, *scal)
+        out_win, den = wa.winatt(wl.in_window, q, k, x, d_res, r0, None,
+                                 *scal)
+        attspmm_cases("windowed residual", wl.residual, e, den, x, False,
+                      out_win)
+        routes["windowed_attention_ax_fast"] = (
+            wa.windowed_attention_ax_fast, cfg, att, g, x)
+        # per column on path B's CSR
+        tr = trs["B"]
+        g, cfg, att = tr.data.graph, tr.cfg, tr.model.block.func.att
+        tr.model.eval()
+        x = tr.model.encode(tr.data.x, train=False).to(bf).contiguous()
+        p = fa.prep_inputs(cfg, att, g, x)
+        kt = fa.attention_kproj(x, p["wk"], p["bk"])
+        scal = (cfg.attention_type, cfg.heads, p["ov2"], p["inv2l2"])
+        gs = fa.attention_gmax(g.csr, p["q"], kt, None, *scal)
+        e, _ = fa.attention_norm(g.csr, p["q"], kt, None, gs, *scal)
+        attspmm_cases("arxiv CSR", g.csr, e,
+                      a3.column_denominators(g.csc, e), x, True,
+                      torch.randn(x.shape, device="cuda"))
+        routes["colnorm_attention_ax_fast"] = (
+            a3.colnorm_attention_ax_fast, cfg, att, g, x)
+        for name, (fn, *args) in routes.items():
+            emit(route=name, ms=here.time_ms(lambda: fn(*args)))
+        del routes, x, q, k, q_s, kt, e, den, out_win, d_res
+        # the hub graph and the power-law graph, with the CSR GRAND-nl
+        # model's own operands on its encoded state (chip_smoke's)
+        tr = trs["CSR"]
+        cfg, att = tr.cfg, tr.model.block.func.att
+        tr.model.eval()
+        x_enc = tr.model.encode(tr.data.x, train=False)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        for label, gr in (("hub", here.hub_graph("cuda")),
+                          ("pareto", pareto_graph("cuda"))):
+            emit(graph=label, N=gr.num_nodes, E=gr.num_edges,
+                 **here.degree_shares(gr.csr.ptr, cuts))
+            accuracy(label, gr, cfg, att, x_enc)
+            x = x_enc.to(bf).contiguous()
+            p = fa.prep_inputs(cfg, att, gr, x)
+            kt = fa.attention_kproj(x, p["wk"], p["bk"])
+            scal = (cfg.attention_type, cfg.heads, p["ov2"], p["inv2l2"])
+            flash_cases(label, gr.csr, p["q"], x, kt, scal)
+            gs = fa.attention_gmax(gr.csr, p["q"], kt, None, *scal)
+            e, den = fa.attention_norm(gr.csr, p["q"], kt, None, gs, *scal)
+            add = torch.randn(x.shape, generator=gen, device="cuda")
+            dc = a3.column_denominators(gr.csc, e)
+            attspmm_cases(label, gr.csr, e, den, x, False, add)
+            attspmm_cases(label, gr.csr, e, dc, x, True, add)
+            if new and label == "hub":  # the segment length
+                for split in (64, 128, 256, 512):
+                    fa.ROW_SPLIT = split
+                    emit(graph=label, row_split=split, out="bfloat16",
+                         flash_ms=here.time_ms(lambda: fa.flash_attention(
+                             gr.csr, p["q"], x, kt, None, None, *scal,
+                             out_dtype=bf)),
+                         attspmm_row_ms=here.time_ms(
+                             lambda: fa.attention_attspmm(
+                                 gr.csr, e, den, x, out_dtype=bf)),
+                         attspmm_per_column_ms=here.time_ms(
+                             lambda: fa.attention_attspmm(
+                                 gr.csr, e, dc, x, True, out_dtype=bf)))
+                fa.ROW_SPLIT = cuts[1]
+            del gr, x, p, kt, e, den, dc, add
+    torch.cuda.empty_cache()
+    # GRAND-nl's evaluation per NFE on the three routes
+    for lab, tr in trs.items():
+        tr.evaluate()
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.evaluate()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            nfe = tr.last_eval.nfe
+            emit(path=f"GRAND-nl evaluation, {lab}", eval=i + 1, nfe=nfe,
+                 seconds=sec, ms_per_nfe=sec * 1e3 / nfe)
+    # one GRAND-nl train step on CSR, profiled
+    tr = trs["CSR"]
+    tr.train_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    cuda_t = torch.autograd.DeviceType.CUDA
+    busy = flash_ms = 0.0
+    flash_n = 0
+    walk = {}   # the row walk's kernels by name: [launches, device ms]
+    for ev in prof.events():
+        if ev.device_type == cuda_t and not ev.name.startswith(
+                "graphax_torch."):
+            ms = ev.time_range.elapsed_us() / 1e3
+            busy += ms
+            if "flash" in ev.name or "seg_" in ev.name:
+                flash_ms += ms
+                flash_n += 1
+            for k in ("flash_kernel", "flash_seg_stats", "flash_seg_sum",
+                      "seg_combine", "attspmm_kernel", "attspmm_seg_sum"):
+                if k in ev.name:
+                    walk.setdefault(k, [0, 0.0])
+                    walk[k][0] += 1
+                    walk[k][1] += ms
+    emit(path="GRAND-nl train step, CSR", host_ms=host,
+         forward_nfe=tr.fm.get_value(), adjoint_nfe=tr.bm.get_value(),
+         device_busy_ms=busy, flash_device_ms=flash_ms,
+         flash_launches=flash_n, walk_kernels=walk)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None,
                     help="measure this checkout in this process")
     ap.add_argument("--parent", default=None,
                     help="a second checkout, measured in turns")
+    ap.add_argument("--only", choices=("windowed", "attention"),
+                    default=None, help="one group of measurements")
     args = ap.parse_args()
     if args.root is not None:
-        measure(os.path.abspath(args.root))
+        measure(os.path.abspath(args.root), args.only)
         return 0
     import torch
 
@@ -319,9 +632,10 @@ def main() -> int:
     order = [HERE] if args.parent is None else [
         os.path.abspath(args.parent), HERE, HERE,
         os.path.abspath(args.parent)]
+    only = [] if args.only is None else ["--only", args.only]
     for root in order:
         rc = subprocess.call([sys.executable, os.path.abspath(__file__),
-                              "--root", root], cwd=root)
+                              "--root", root] + only, cwd=root)
         if rc != 0:
             return rc
     sys.path.insert(0, HERE)

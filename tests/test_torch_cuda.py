@@ -953,3 +953,114 @@ def test_cuda_win_matmul_bf16_routes(cuda, shape):
         ws.win_matmul(wl, dense, x, add).float(),
         ws.win_matmul_plain(wl, dense, x, add).float(), rtol=BF16_RTOL,
         atol=1e-2)
+
+
+# ----------------------------------------------------------------------
+# the row walk of flash_attention and attention_attspmm: output dtypes,
+# the addend, load widths, long rows
+
+def _walk_graph(device, n=400, seed=11):
+    """Rows of 0, 1, 31, 32, 33, 700 and 3,000 edges (the last two walked
+    in segments of ROW_SPLIT), the rest 0-8 edges, duplicate edges, the
+    last 3 rows empty, padding."""
+    rng = np.random.RandomState(seed)
+    deg = np.r_[0, 1, 31, 32, 33, 700, 3000, rng.randint(0, 9, n - 10), 0,
+                0, 0]
+    row = np.repeat(np.arange(n), deg)
+    col = rng.randint(0, n - 3, row.size)
+    order = np.lexsort((col, row))
+    w = (rng.rand(row.size) + 0.1).astype(np.float32)
+    return Graph.from_edges(row[order], col[order], n, edge_weight=w,
+                            edge_buffer_size=row.size + 9, device=device)
+
+
+def _off_word(x):
+    """A contiguous copy of ``x`` that starts one value past its storage's
+    start (off every vector size of the walk's loads)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [162, 7, 64, 300])
+def test_cuda_flash_walk_outputs_widths_and_long_rows(cuda, dtype, d):
+    """Flash on a graph with hub rows, softmax and squareplus, reweight:
+    within the flash tolerance of the plain version; the output in x's
+    dtype bit for bit its own f32 output cast once; an x view off its
+    vector size (another load width) bit for bit the aligned result."""
+    from graphax_torch.kernels import LAUNCHES
+
+    g = _walk_graph(cuda)
+    tdt = getattr(torch, dtype)
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "float32" \
+        else dict(rtol=2e-2, atol=2e-3)
+    q, x, wk, bk = _flash_inputs(g, dtype, d, 32, seed=d)
+    kt = fa.attention_kproj(x, wk, bk)
+    xo = _off_word(x)
+    assert fa.gather_width(xo) == x.element_size()
+    assert d % 2 or fa.gather_width(x) > x.element_size()
+    for att_type, sqp in (("scaled_dot", False), ("pearson", True),
+                          ("exp_kernel", False)):
+        scal = (att_type, 2, 1.3, 0.7)
+        gs = fa.attention_gmax(g.csr, q, kt, g.edge_weight, *scal) \
+            if sqp else None
+        LAUNCHES.clear()
+        got = fa.flash_attention(g.csr, q, x, kt, g.edge_weight, gs, *scal)
+        assert LAUNCHES["flash_attention"] == 1
+        want = fa.flash_attention_plain(g.csr, q, x, kt, g.edge_weight, gs,
+                                        *scal)
+        torch.testing.assert_close(got, want, **tol)
+        assert torch.all(got[[0, -3, -2, -1]] == 0)
+        low = fa.flash_attention(g.csr, q, x, kt, g.edge_weight, gs, *scal,
+                                 out_dtype=tdt)
+        assert low.dtype == tdt and torch.equal(low, got.to(tdt))
+        assert torch.equal(fa.flash_attention(g.csr, q, xo, kt,
+                                              g.edge_weight, gs, *scal), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [162, 7, 300])
+def test_cuda_attspmm_walk_addend_outputs_and_long_rows(cuda, dtype, d):
+    """attention_attspmm, row and column forms, on a graph with hub rows:
+    within its tolerance of the plain version; the output in x's dtype bit
+    for bit its f32 output cast once; with an f32 addend bit for bit
+    ``(addend + f32 output).to(dtype)`` (an empty row gives the addend),
+    with the addend or x off their vector size too."""
+    from graphax_torch.kernels.attention3 import column_denominators
+
+    g = _walk_graph(cuda, seed=12)
+    tdt = getattr(torch, dtype)
+    q, x, kt, _ = _train_case(g, dtype, d, 32, 2, seed=d)
+    gs = fa.attention_gmax(g.csr, q, kt, None, "scaled_dot", 2)
+    e, den = fa.attention_norm(g.csr, q, kt, None, gs, "scaled_dot", 2)
+    add = torch.randn(g.num_nodes, d, device=cuda)
+    for table, per_col in ((den, False),
+                           (column_denominators(g.csc, e), True)):
+        got = fa.attention_attspmm(g.csr, e, table, x, per_col)
+        want = fa.attention_attspmm_plain(g.csr, e, table, x, per_col)
+        torch.testing.assert_close(got, want, **_rounded(dtype, x))
+        low = fa.attention_attspmm(g.csr, e, table, x, per_col,
+                                   out_dtype=tdt)
+        assert low.dtype == tdt and torch.equal(low, got.to(tdt))
+        for xs, adds in ((x, add), (_off_word(x), add), (x, _off_word(add))):
+            summed = fa.attention_attspmm(g.csr, e, table, xs, per_col,
+                                          addend=adds, out_dtype=tdt)
+            assert torch.equal(summed, (add + got).to(tdt))
+        assert torch.equal(summed[-3:], add[-3:].to(tdt))
+
+
+def test_cuda_walk_rejects_bad_outputs(cuda):
+    g = _walk_graph(cuda)
+    q, x, kt, _ = _train_case(g, "bfloat16", 16, 8, 2, seed=1)
+    gs = fa.attention_gmax(g.csr, q, kt, None, "scaled_dot", 2)
+    e, den = fa.attention_norm(g.csr, q, kt, None, gs, "scaled_dot", 2)
+    with pytest.raises(ValueError, match="out_dtype"):
+        fa.flash_attention(g.csr, q, x, kt, None, None, "scaled_dot", 2,
+                           out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="addend"):
+        fa.attention_attspmm(g.csr, e, den, x,
+                             addend=torch.zeros(g.num_nodes, 16,
+                                                dtype=torch.bfloat16,
+                                                device=cuda))
