@@ -14,7 +14,10 @@ and prints no result):
    the Computers and Photo stand-ins (13,381 and 7,487 nodes, the dense
    strategy) and their presets' Trainers;
 4. kernels: every kernel against its plain PyTorch version at the shapes
-   its path gives it (the sparse graph for spmm_csr, sddmm and the pin; the
+   its path gives it (the sparse graph for spmm_csr, sddmm and the pin,
+   spmm_csr also on a view one value past its load boundary and the pin
+   also on a small graph with empty rows, over every score type and
+   reweight; the
    windowed layout, T=1323, tile 128, W=512, Wn=331, D=162, and a small odd
    shape, tile 8, W 16, D 5, for the windowed kernels and for spmm_csr on
    the layout's residual edges, as the main path calls it; GRAND-nl's K
@@ -34,17 +37,19 @@ and prints no result):
    winatt (K5) on the windowed layout's residual CSR and in-window cells
    and on the arxiv CSR under column normalisation, with the models' own
    q, k and K table, each route timed whole, and on a small community
-   graph over every score type, reweight and squareplus; the CSR flash
-   and attention_attspmm on a hub graph at arxiv's N and E with hub
-   rows of up to 13,000 edges, with the GRAND-nl model's own operands),
+   graph over every score type, reweight and squareplus; spmm_csr (A x
+   and A^T g) and the pin on a hub graph at arxiv's N and E with hub rows
+   of up to 13,000 edges, and the CSR flash and attention_attspmm on it
+   with the GRAND-nl model's own operands),
    in f32 and bf16,
    with its error beside the stated tolerance, its median device time, the
    plain version's time, its bound and a PyTorch call as a yardstick where
    one computes the same function (win_bwd_dense's and the K projection's:
    bf16 in, f32 out through ``out_dtype``; win_matmul's rows name its
-   staging route; the CSR flash and attention_attspmm, which gather x per
-   edge, also their all-miss count: every gathered row from device
-   memory); flash's bf16 output and attention_attspmm's output in x's
+   staging route; spmm_csr's rows its load width; the
+   kernels that gather a row per edge, spmm_csr, the pin (K rows), the
+   CSR flash and attention_attspmm, also their all-miss count: every
+   gathered row from device memory); flash's bf16 output and attention_attspmm's output in x's
    dtype (after K5's f32 half on the windowed route) as the routes ask for
    them, each bit for bit its f32 output (plus the addend) cast once;
    win_bwd_dense with both output dtypes, its bf16 output held to its f32
@@ -299,15 +304,106 @@ def block_casts(fn, shape) -> int:
                and list(ev.input_shapes[0]) == list(shape))
 
 
+def spmm_shape(x) -> dict:
+    """How spmm_csr takes ``x``: its gathered load's bytes."""
+    from graphax_torch.kernels import fused_attention as fa
+
+    return {"gather_width": fa.gather_width(x)}
+
+
+def spmm_check(results: dict, row: dict, lay, vals, x, n: int, lib=None,
+               timed: bool = True, long_rows: bool = False):
+    """spmm_csr over ``lay`` against its plain version within TOL, with its
+    bound (x, the CSR and its values read once, the output written once)
+    and its all-miss count (``gather_bytes``: x read once per edge) when
+    ``timed``. ``long_rows`` (rows of thousands of edges, whose f32 sums
+    the kernel takes in segments and the plain version's index_add_ in its
+    atomics' order): TOL's atol plus, per entry, 2 sqrt(deg) 2^-24
+    sum|w x|. The rounding errors of a serial f32 sum of deg terms add up
+    as a random walk, with a standard deviation of at most
+    sqrt(deg / 9) 2^-24 sum|w x| (terms of one sign); the kernel's
+    segments of 128 make its own about ten times smaller on rows of
+    thousands, so the bound is about 6 of the plain sum's (the
+    deterministic worst case, deg 2^-24 sum|w x|, is sqrt(deg) times
+    looser). Printed: ``order_bound_max``, the largest such term, and
+    ``exact_err``, the kernel's largest distance from the same rounded
+    products summed in f64. Returns the kernel's output."""
+    import torch
+
+    from graphax_torch.kernels import spmm as spmm_mod
+
+    name, e, d = row["dtype"], lay.num_slots, x.shape[1]
+    b = x.element_size()
+    row["gather_bytes"] = e * (d * b + 8) + n * d * b
+    tol = TOL[name]
+    if long_rows:
+        deg = (lay.ptr[1:] - lay.ptr[:-1]).double()[:, None]
+        prod = (x[lay.idx.long()] * vals[:e, None]).double()
+        mag = torch.zeros(n, d, dtype=torch.float64, device=x.device)
+        mag.index_add_(0, lay.seg, prod.abs())
+        bound = 2 * deg.sqrt() * 2.0 ** -24 * mag
+        exact = torch.zeros_like(mag).index_add_(0, lay.seg, prod)
+        row["order_bound_max"] = float(bound.max())
+        row["exact_err"] = float((spmm_mod.spmm_csr(lay, vals, x, n).double()
+                                  - exact).abs().max())
+        tol = (tol[0] + bound.float(), tol[1])
+        del deg, prod, mag, bound, exact
+        torch.cuda.empty_cache()
+    return hold_to_plain(
+        results, row, lambda: spmm_mod.spmm_csr(lay, vals, x, n),
+        lambda: spmm_mod.spmm_csr_plain(lay, vals, x, n), tol,
+        2 * n * d * b + e * (b + 4) + 4 * (n + 1), 2.0 * e * d, lib,
+        timed=timed, tag=row["product"], miss_bytes=row["gather_bytes"])
+
+
+def pin_checks(results: dict, label: str, graph, gen, dt,
+               timed: bool = True) -> None:
+    """attention_pin against its plain version within TOL_PIN over every
+    score type, reweight off and on, on ``graph``'s CSR at the arxiv
+    preset's widths (D 162, A 32, 2 heads; random q, x, Wk, bk); the
+    scaled_dot case without reweight timed when ``timed``, beside its bound
+    (q, x, Wk, the CSR read once, one f32 written per edge) and its
+    all-miss count (the K table written and one K row read per edge from
+    device memory)."""
+    import torch
+
+    from graphax_torch.kernels import attention_pin as pin_mod
+
+    n, e = graph.num_nodes, graph.num_edges
+    d, heads, a = 162, 2, 32
+    name = str(dt).replace("torch.", "")
+    b = dt.itemsize
+    q = torch.randn(n, a, generator=gen, device="cuda").mul(0.3).to(dt)
+    xs = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+    wk = torch.randn(d, a, generator=gen, device="cuda").mul(0.1).to(dt)
+    bk = torch.randn(a, generator=gen, device="cuda").mul(0.1)
+    ew = graph.edge_weight.float().contiguous()
+    nbytes = (n * d * b + n * a * b + d * a * b + 4 * a + e * 4 + 4 * (n + 1)
+              + e * 4)
+    ops = 2.0 * n * d * a + e * (2.0 * a + 6 * heads)
+    for att in ("scaled_dot", "cosine_sim", "pearson", "exp_kernel"):
+        for rw in (False, True):
+            args = (graph.csr, q, xs, wk, bk, ew if rw else None, att, heads,
+                    1.0, 0.5)
+            # f32 scores in either dtype (bf16 products are exact in f32)
+            hold_to_plain(
+                results, dict(kernel="attention_pin", graph=label,
+                              dtype=name, att_type=att, reweight=rw),
+                lambda: pin_mod.attention_pin(*args),
+                lambda: pin_mod.attention_pin_plain(*args), TOL_PIN, nbytes,
+                ops, timed=timed and att == "scaled_dot" and not rw,
+                tag=None if label == "arxiv CSR" else label,
+                miss_bytes=nbytes + 4 * n * a + 4 * e * a)
+
+
 def phase_kernels(graph, results: dict) -> None:
     """Hold every kernel to its plain version at the slice's shapes."""
     import torch
 
-    from graphax_torch.kernels import attention_pin as pin_mod
     from graphax_torch.kernels import spmm as spmm_mod
 
     n, e = graph.num_nodes, graph.num_edges
-    d, heads, a = 162, 2, 32
+    d = 162
     gen = torch.Generator(device="cuda").manual_seed(0)
     csr, csc = graph.csr, graph.csc
     for dt in (torch.float32, torch.bfloat16):
@@ -320,30 +416,27 @@ def phase_kernels(graph, results: dict) -> None:
 
         # spmm_csr: A x and A^T g
         for label, lay, vals, inp in (("A.x", csr, w, x), ("AT.g", csc, w_t, g)):
-            got = spmm_mod.spmm_csr(lay, vals, inp, n)
-            want = spmm_mod.spmm_csr_plain(lay, vals, inp, n)
-            c = compare(got, want, TOL[name])
-            ms = time_ms(lambda: spmm_mod.spmm_csr(lay, vals, inp, n))
-            plain = time_ms(lambda: spmm_mod.spmm_csr_plain(lay, vals, inp, n),
-                            reps=5)
             lib = None
             try:
                 sp = torch.sparse_csr_tensor(lay.ptr.long(), lay.idx.long(),
                                              vals[:e], size=(n, n))
-                lib = time_ms(lambda: torch.sparse.mm(sp, inp), reps=10)
+                lib = ("torch.sparse.mm", lambda: torch.sparse.mm(sp, inp))
             except (RuntimeError, NotImplementedError) as exc:
                 lib_err = str(exc).splitlines()[0][:120]
-            nbytes = 2 * n * d * b + e * (b + 4) + 4 * (n + 1)
-            bms, by = bound_ms(nbytes, 2.0 * e * d, name)
-            row = dict(kernel="spmm_csr", product=label, dtype=name, **c,
-                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                       bound_by=by, bytes=nbytes,
-                       gather_bytes=e * (d * b + 8) + n * d * b)
+            row = dict(kernel="spmm_csr", product=label, dtype=name,
+                       **spmm_shape(inp))
             if lib is None:
                 row["library_error"] = lib_err
-            emit({"phase": "kernels", **row})
-            check(c["ok"], f"spmm_csr {label} {name} disagrees with plain")
-            results.setdefault(("spmm_csr", name, label), row)
+            spmm_check(results, row, lay, vals, inp, n, lib)
+
+        # a view that starts one value past a load boundary: one value per
+        # gathered load
+        xv = torch.empty(n * d + 1, dtype=dt, device="cuda")[1:].view(n, d)
+        xv.copy_(x)
+        spmm_check(results, dict(kernel="spmm_csr", product="A.x view",
+                                 dtype=name, **spmm_shape(xv)),
+                   csr, w, xv, n, timed=False)
+        del xv
 
         # spmm autograd: the Function's backward (A^T g on CSC, dw by the
         # SDDMM) against the plain versions of the same products
@@ -387,37 +480,12 @@ def phase_kernels(graph, results: dict) -> None:
         check(c["ok"], f"sddmm {name} disagrees with plain")
         results.setdefault(("sddmm", name), row)
 
-        # attention_pin: every score type, reweight on and off
-        q = torch.randn(n, a, generator=gen, device="cuda").mul(0.3).to(dt)
-        xs = torch.randn(n, d, generator=gen, device="cuda").to(dt)
-        wk = torch.randn(d, a, generator=gen, device="cuda").mul(0.1).to(dt)
-        bk = torch.randn(a, generator=gen, device="cuda").mul(0.1)
-        ew = graph.edge_weight.float().contiguous()
-        for att in ("scaled_dot", "cosine_sim", "pearson", "exp_kernel"):
-            for rw in (False, True):
-                args = (csr, q, xs, wk, bk, ew if rw else None, att, heads,
-                        1.0, 0.5)
-                got = pin_mod.attention_pin(*args)
-                want = pin_mod.attention_pin_plain(*args)
-                # f32 scores in either dtype (bf16 products are exact in f32)
-                c = compare(got, want, TOL_PIN)
-                row = dict(kernel="attention_pin", dtype=name, att_type=att,
-                           reweight=rw, **c)
-                if att == "scaled_dot" and not rw:
-                    row["ms"] = time_ms(lambda: pin_mod.attention_pin(*args))
-                    row["plain_ms"] = time_ms(
-                        lambda: pin_mod.attention_pin_plain(*args), reps=5)
-                    row["library_ms"] = None
-                    nbytes = (n * d * b + n * a * b + d * a * b + 4 * a
-                              + e * 4 + 4 * (n + 1) + e * 4)
-                    ops = 2.0 * n * d * a + e * (2.0 * a + 6 * heads)
-                    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops,
-                                                                name)
-                    row["bytes"] = nbytes
-                    results.setdefault(("attention_pin", name), row)
-                emit({"phase": "kernels", **row})
-                check(c["ok"], f"attention_pin {att} rw={rw} {name} disagrees")
-        del x, g, xs, q
+        # attention_pin: every score type, reweight on and off, on the
+        # arxiv CSR and on a small graph with empty rows
+        pin_checks(results, "arxiv CSR", graph, gen, dt)
+        pin_checks(results, "small", _nl_small_graph("cuda"), gen, dt,
+                   timed=False)
+        del x, g
         torch.cuda.empty_cache()
 
 
@@ -475,16 +543,15 @@ def phase_windowed_kernels(graph, results: dict) -> None:
             for label, lay, inp in (("residual A.x", wl.residual, x),
                                     ("residual AT.g", wl.residual_t, gr)):
                 rv = vt[lay.perm].contiguous()
-                er = lay.num_slots
                 sp = torch.sparse_csr_tensor(lay.ptr.long(), lay.idx.long(),
                                              rv, size=(n, n))
-                res[label] = run(
-                    "spmm_csr", lambda: spmm_mod.spmm_csr(lay, rv, inp, n),
-                    lambda: spmm_mod.spmm_csr_plain(lay, rv, inp, n),
-                    TOL[name], 2 * n * d * b + er * (b + 4) + 4 * (n + 1),
-                    2.0 * er * d, ("torch.sparse.mm",
-                                   lambda: torch.sparse.mm(sp, inp)),
-                    product=label)
+                res[label] = spmm_check(
+                    results, dict(kernel="spmm_csr", layout=shape,
+                                  dtype=name, product=label,
+                                  **spmm_shape(inp)),
+                    lay, rv, inp, n, ("torch.sparse.mm",
+                                      lambda: torch.sparse.mm(sp, inp)),
+                    timed=timed)
                 del sp
 
             dense = run("windowed_densify",
@@ -1149,9 +1216,14 @@ def phase_three_kernel_kernels(trainer_w, trainer_c, results: dict) -> None:
 
 
 def phase_hub_kernels(trainer, results: dict) -> None:
-    """flash_attention (softmax and squareplus) and attention_attspmm (row
-    and column forms) on :func:`hub_graph`, whose hub rows of thousands of
-    edges the kernels walk in segments of ``ROW_SPLIT`` edges, with the
+    """spmm_csr (A x over the hub rows, A^T g over the hub columns; TOL
+    plus the bound of a long row's f32 sum in another order, see
+    :func:`spmm_check`) and the pin (every score type and reweight,
+    TOL_PIN) on :func:`hub_graph`, each timed beside its bound and all-miss
+    count; then flash_attention
+    (softmax and squareplus) and attention_attspmm (row and column forms)
+    on it. The kernels walk its hub rows of thousands of edges in segments
+    of ``ROW_SPLIT`` edges; flash and attspmm take the
     inputs of the arxiv checks (the GRAND-nl model's own q, Wk and bk on its
     encoded state: the graph has arxiv's N), against their plain versions
     at the tolerances of the arxiv shapes (TOL_FLASH; attspmm's
@@ -1183,6 +1255,15 @@ def phase_hub_kernels(trainer, results: dict) -> None:
         x = x_enc.to(dt).contiguous()
         row = lambda k, tag: dict(kernel=k, graph="hub", dtype=name,
                                   variant=tag)
+        # spmm_csr: the hub rows in A x, the hub columns in A^T g
+        w = (torch.rand(e, generator=gen, device="cuda") + 0.1).to(dt)
+        for label, lay, vals in (("hub A.x", g.csr, w),
+                                 ("hub AT.g", g.csc, w[g.csc.perm])):
+            spmm_check(results, dict(kernel="spmm_csr", graph="hub",
+                                     dtype=name, product=label,
+                                     **spmm_shape(x)),
+                       lay, vals.contiguous(), x, n, long_rows=True)
+        pin_checks(results, "hub", g, gen, dt)
         with torch.no_grad():
             p = fa.prep_inputs(cfg, att, g, x)
             q = p["q"]
@@ -1680,8 +1761,9 @@ def phase_dense_fit(label: str, trainer, epochs: int) -> dict:
     defaults (the early-stop evaluation), its launches zeroed before and
     read after: per epoch the loss, seconds, NFE, backward NFE, the
     early-stop evaluation's NFE and the best time; finite losses, solver
-    success, and the hard block's pin (attention_pin) launched in the train
-    and evaluation forwards. Returns the launches."""
+    success, and the hard block's pin (attention_pin, with its K table by
+    attention_kproj) launched in the train and evaluation forwards.
+    Returns the launches."""
     import torch
 
     from graphax_torch.kernels import _build
@@ -1700,10 +1782,12 @@ def phase_dense_fit(label: str, trainer, epochs: int) -> dict:
               f"{sv['success']}")
         check(sv["bwd_nfe"] > 0 and sv["eval_nfe"] > 0,
               f"{label} epoch {h['epoch']}: no adjoint or evaluation NFE")
-    check(counts.get("attention_pin", 0) == 2 * epochs,
+    check(counts.get("attention_pin", 0) == 2 * epochs
+          == counts.get("attention_kproj", 0),
           f"{label}: attention_pin launched {counts.get('attention_pin', 0)}"
-          f" times in {epochs} epochs (one train and one evaluation "
-          "forward each)")
+          f" times (attention_kproj {counts.get('attention_kproj', 0)}) in "
+          f"{epochs} epochs (one train and one evaluation forward each, the "
+          "K table once in each)")
     times = [h["time"] for h in fit["history"]]
     emit({"phase": "slice", "path": label, "strategy":
           trainer.data.graph.strategy, "seconds": seconds,
@@ -2022,6 +2106,10 @@ def main(argv=None) -> int:
         for k in need:
             check(counts.get(k, 0) > 0,
                   f"{k} never launched on the {label} path")
+        check(counts.get("attention_kproj", 0) == counts["attention_pin"],
+              f"{label}: the pin launched attention_kproj "
+              f"{counts.get('attention_kproj', 0)} times in "
+              f"{counts['attention_pin']} calls")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     steady = {k: min(v[1:]) if len(v) > 1 else v[0]
@@ -2117,7 +2205,9 @@ def main(argv=None) -> int:
 
     # the kernels line: times from phase 4 at the main path's shapes and
     # dtype (bf16); spmm_csr's at the residual edges, with its whole-graph
-    # numbers (the community_window=0 path) beside them
+    # numbers (the community_window=0 path), the hub graph's and f32's
+    # beside them; the pin's f32 (the windowed and dense strategies') and
+    # hub graph's beside its bf16 (CSR)
     kernels = []
     specs = (("spmm_csr", ("spmm_csr", "bfloat16", "residual A.x"),
               "graphax_torch/kernels/csrc/spmm.cu",
@@ -2179,11 +2269,34 @@ def main(argv=None) -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library": r.get("library"), "dtype": key[1]})
-    whole = results[("spmm_csr", "bfloat16", "A.x")]
-    kernels[0]["community_window_0"] = {
-        k: whole[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms")}
-    kernels[2]["also_replaces"] = "graphax/kernels/pallas_attention.py:197"
+    walked = ("max_abs_err", "ms", "plain_ms", "bound_ms", "all_miss_ms")
+    spmm = kernels[0]
+    spmm["all_miss_ms"] = results[("spmm_csr", "bfloat16",
+                                   "residual A.x")]["all_miss_ms"]
+    for tag in ("residual AT.g", "A.x", "AT.g", "hub A.x", "hub AT.g"):
+        r = results[("spmm_csr", "bfloat16", tag)]
+        spmm[tag.replace(" ", "_").replace(".", "")] = {
+            k: r.get(k) for k in walked + ("library_ms",)}
+    spmm["float32"] = {
+        tag.replace(" ", "_").replace(".", ""): {
+            k: results[("spmm_csr", "float32", tag)].get(k)
+            for k in walked}
+        for tag in ("residual A.x", "A.x", "hub A.x")}
+    spmm["launches_count"] = (
+        "wrapper calls: each runs spmm_walk, and where a row has more than "
+        "ROW_SPLIT edges spmm_seg_sum and seg_combine")
+    pin = kernels[2]
+    pin["also_replaces"] = "graphax/kernels/pallas_attention.py:197"
+    pin["all_miss_ms"] = results[("attention_pin", "bfloat16")]["all_miss_ms"]
+    pin["float32"] = {k: results[("attention_pin", "float32")].get(k)
+                      for k in walked}
+    pin["hub"] = {k: results[("attention_pin", "bfloat16", "hub")].get(k)
+                  for k in walked}
+    pin["launches_count"] = (
+        "wrapper calls: each runs attention_kproj (kproj_tc_kernel in bf16, "
+        "kproj_kernel in f32; counted under attention_kproj too) and "
+        "pin_kernel, and where a row has more than 32 edges pin_seg_stats "
+        "and pin_seg_write")
     kernels[5]["variant"] = ("bf16 in, bf16 out (the blocks' dtype, as path "
                              "A runs it); f32_out: graphax's f32 output")
     kernels[5]["f32_out"] = {
@@ -2196,7 +2309,6 @@ def main(argv=None) -> int:
     kernels[7]["all_miss_ms"] = flash["all_miss_ms"]
     kernels[7]["function_ms"] = flash["function_ms"]
     kernels[7]["function_bound_ms"] = flash["function_bound_ms"]
-    walked = ("max_abs_err", "ms", "plain_ms", "bound_ms", "all_miss_ms")
     for tag in ("squareplus", "bf16_out", "hub", "hub squareplus"):
         kernels[7][tag.replace(" ", "_")] = {
             k: results[("flash_attention", "bfloat16", tag)].get(k)

@@ -49,7 +49,7 @@ import torch
 from torch import nn
 
 from graphax_torch.functions.common import apply_alpha_beta, init_alpha_beta
-from graphax_torch.kernels.attention_pin import COS_EPS, attention_pin
+from graphax_torch.kernels.attention_pin import attention_pin
 from graphax_torch.kernels.dense_path import (
     dense_adjacency_mask, dense_matmul, dense_transformer_attention,
     use_dense_attention,
@@ -62,7 +62,7 @@ from graphax_torch.kernels.dispatch import (
 )
 from graphax_torch.kernels.flash_dense import flash_attention_multihead
 from graphax_torch.kernels.fused_attention import (
-    flash_supported, fused_attention_ax, prep_inputs,
+    COS_EPS, flash_supported, fused_attention_ax, prep_inputs,
 )
 from graphax_torch.kernels.windowed_attention import \
     windowed_attention_ax_plain

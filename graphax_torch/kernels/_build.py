@@ -43,12 +43,13 @@ _L = ctypes.c_int64
 # the cudaError_t of the launch)
 SIGNATURES = {
     "spmm": {
-        "gx_spmm_csr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "gx_spmm_csr": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
         "gx_sddmm_csr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "attention_pin": {
-        "gx_attention_pin": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _F, _F, _I, _P],
+        "gx_attention_pin": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _F, _F, _I, _I, _I, _I, _I, _I, _P],
     },
     "fused_attention": {
         "gx_attention_kproj": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from graphax_torch.kernels import fused_attention as fa
-from graphax_torch.kernels.attention_pin import ATT_TYPES
+from graphax_torch.kernels.fused_attention import ATT_TYPES
 from graphax_torch.sparse.graph import Layout
 
 

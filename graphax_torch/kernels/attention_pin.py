@@ -8,40 +8,27 @@ exp_kernel, with reweight on or off, row softmax without squareplus (the
 gate of `attention_means_supported`, :994-997). Not differentiable: the
 hard-attention block calls it under no_grad.
 
+On the card it runs two kernels: the K table ``K = x Wk + bk [N, A]`` in
+f32, once per node, through :func:`fused_attention.attention_kproj`
+(graphax's K1 projects each gathered source row: the same f32 sums of
+exact state-dtype products, in another order), then the pin's row walk
+over the CSR, which gathers K rows (A values per edge, not D). Rows of
+more than 32 edges go to segments of ``fused_attention.ROW_SPLIT`` edges
+(:func:`fused_attention.row_split_plan`), whose per-head (max, sum) are
+combined in segment order before the write pass.
+
 dtype steps as graphax's kernel path: q and Wk in the state dtype, bk and
-every score in f32; k = x[col] Wk + bk is accumulated in f32; the output is
-f32 (the caller casts it to the state dtype)."""
+every score in f32; the output is f32 (the caller casts it to the state
+dtype)."""
 
 from __future__ import annotations
 
 import torch
 
 from graphax_torch.kernels import _build
+from graphax_torch.kernels import fused_attention as fa
 from graphax_torch.sparse.graph import Layout
 from graphax_torch.sparse.ops import segment_max, segment_sum
-
-ATT_TYPES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3}
-COS_EPS = 1e-5
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 232_448
-_WPB = 8
-
-
-def score_math(att_type: str, q, k, ov2: float = 1.0, inv2l2: float = 0.5):
-    """``q, k [E, H, Dh]`` f32 -> ``[E, H]`` scores."""
-    if att_type == "scaled_dot":
-        return (q * k).sum(-1)
-    if att_type in ("cosine_sim", "pearson"):
-        if att_type == "pearson":
-            q = q - q.mean(-1, keepdim=True)
-            k = k - k.mean(-1, keepdim=True)
-        qn = torch.clamp(torch.sqrt((q * q).sum(-1)), min=COS_EPS)
-        kn = torch.clamp(torch.sqrt((k * k).sum(-1)), min=COS_EPS)
-        return (q * k).sum(-1) / (qn * kn)
-    if att_type == "exp_kernel":
-        sq = ((q - k) ** 2).sum(-1)
-        return ov2 * torch.exp(-sq * inv2l2)
-    raise ValueError(f"attention_pin: unsupported att_type {att_type!r}")
 
 
 def attention_pin_plain(layout: Layout, q, x, wk, bk, edge_w, att_type: str,
@@ -52,7 +39,7 @@ def attention_pin_plain(layout: Layout, q, x, wk, bk, edge_w, att_type: str,
     k_nodes = x.float() @ wk.float() + bk.float()         # [N, A] f32
     qe = q.float()[seg].reshape(e, heads, -1)
     ke = k_nodes[col].reshape(e, heads, -1)
-    s = score_math(att_type, qe, ke, ov2, inv2l2)          # [E, H]
+    s = fa.score_math(att_type, qe, ke, ov2, inv2l2)       # [E, H]
     if edge_w is not None:
         s = s * edge_w[:e, None].float()
     shift = segment_max(s, seg, n)
@@ -71,7 +58,7 @@ def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
     ``q [N, A]`` (pre-scaled for scaled_dot) and ``x [N, D]``, ``wk [D, A]``
     in one dtype; ``bk [A]`` f32; ``edge_w [>= E]`` f32 reweight values or
     None."""
-    if att_type not in ATT_TYPES:
+    if att_type not in fa.ATT_TYPES:
         raise ValueError(f"attention_pin: unsupported att_type {att_type!r} "
                          "(beltrami_exp is not covered)")
     if torch.is_grad_enabled() and any(
@@ -83,7 +70,8 @@ def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
                                    heads, ov2, inv2l2)
     n, d = x.shape
     a = q.shape[1]
-    if x.dtype not in _DTYPES or q.dtype != x.dtype or wk.dtype != x.dtype:
+    if x.dtype not in fa._DTYPES or q.dtype != x.dtype \
+            or wk.dtype != x.dtype:
         raise TypeError("attention_pin: q, x and wk must share a float32 or "
                         "bfloat16 dtype")
     if q.shape[0] != n or wk.shape != (d, a) or bk.shape != (a,) \
@@ -94,10 +82,10 @@ def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         raise ValueError("attention_pin: heads must divide A and be <= 32")
     if layout.num_rows != n:
         raise ValueError("attention_pin: layout and x disagree on N")
-    smem = 4 * (d * a + a + _WPB * (d + 2 * a + 2 * heads))
-    if smem > _SMEM_LIMIT:
+    wpb = fa.flash_warps(a, heads)
+    if not fa.kproj_supported(x.dtype, d, a) or wpb < 1:
         raise ValueError(f"attention_pin: D*A too large for shared memory "
-                         f"({smem} bytes)")
+                         f"(D={d}, A={a}, H={heads})")
     tensors = [layout.ptr, layout.idx, q, x, wk, bk]
     if edge_w is not None:
         if edge_w.dtype != torch.float32 or edge_w.shape[0] < layout.num_slots:
@@ -108,17 +96,18 @@ def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("attention_pin: operands must be contiguous and "
                              f"on {x.device}")
-    e = layout.num_slots
-    scores = torch.empty((e, heads), dtype=torch.float32, device=x.device)
-    out = torch.empty(e, dtype=torch.float32, device=x.device)
+    kt = fa.attention_kproj(x, wk, bk)
+    plan, nlong, nseg = fa._row_plan(layout, fa._BATCH, fa.ROW_SPLIT)
+    st = torch.empty((nseg, 2 * heads), dtype=torch.float32, device=x.device)
+    out = torch.empty(layout.num_slots, dtype=torch.float32, device=x.device)
+    kvec = int((a // heads) % 4 == 0 and kt.data_ptr() % 16 == 0)
     lib = _build.library("attention_pin")
     err = lib.gx_attention_pin(
         layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
-        x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-        edge_w.data_ptr() if edge_w is not None else None,
-        scores.data_ptr(), out.data_ptr(), n, d, a, heads,
-        ATT_TYPES[att_type], int(edge_w is not None), float(ov2),
-        float(inv2l2), _DTYPES[x.dtype], _build.stream_ptr(x))
+        kt.data_ptr(), edge_w.data_ptr() if edge_w is not None else None,
+        plan.data_ptr(), st.data_ptr(), out.data_ptr(), n, a, heads,
+        fa.ATT_TYPES[att_type], float(ov2), float(inv2l2), fa._DTYPES[x.dtype],
+        kvec, wpb, fa.ROW_SPLIT, nlong, nseg, _build.stream_ptr(x))
     _build.check(err, "attention_pin")
     _build.LAUNCHES["attention_pin"] += 1
     return out

@@ -8,29 +8,31 @@
 // denominators) and the normalise-and-mean of `attention_edge_means_pallas`
 // (:976-991: att = e / where(d > 0, d, 1), mean over heads).
 //
-// What bounds it on an H100: neither side by much at the slice's shapes.
-// Per edge it gathers one source row (D values), projects it through Wk
-// (2*D*A flops: 10.4 kflop at D=162, A=32) and writes one f32 value, so it
-// does ~30 flops per byte of device memory, below the ~300 needed to be
-// compute-bound on tensor cores but above what the CUDA cores (67 TFLOP/s
-// f32) sustain per byte at 3.35 TB/s (~20). This simple version runs the
-// projection on the CUDA cores in f32, so it is bound by f32 operations.
+// The K projection is not here: the wrapper computes K = x Wk + bk [N, A]
+// in f32 once per node through fused_attention.cu's attention_kproj (bf16
+// on the tensor cores), where graphax projects every gathered source row
+// (E/N, about 8, times the work). This file walks the CSR against that
+// table.
 //
-// Design: one warp per destination row walks the row's CSR segment, so the
-// row max and the denominators need no atomics and no second kernel:
-//   pass 1 (per edge): the warp stages x[col] in shared memory, each lane
-//     computes k[a] for its attention columns against Wk held in shared
-//     memory for the whole block (loaded once per block; the grid strides
-//     over rows), one lane per head scores the edge, stores the score in
-//     an [E, H] f32 scratch and keeps the running max;
-//   pass 2 (per head lane): sum exp(s - max) over the row in edge order;
-//   pass 3 (lanes over edges): mean_h exp(s - max_h) / where(d_h > 0, d_h, 1).
-// The scratch round trip is E*H*8 bytes, small beside the row gathers.
-// The Q projection stays a dense matmul outside (graphax leaves it to XLA).
+// What bounds it on an H100: bytes. The pin must read x, q, Wk and the CSR
+// once and write one f32 per edge: at the arxiv shapes (N = 169,343, E =
+// 1,354,429, D = 162, A = 32, H = 2, bf16) about 77 MB, 0.023 ms. This
+// walk reads q, K [N, A] f32 and the CSR and writes the output; it gathers
+// one K row (A*4 bytes) per edge, and K (22 MB) stays in L2.
 //
-// Not yet done (later work): the projection on tensor cores (mma.sync /
-// wgmma over a tile of gathered rows), or computing K = x Wk once per node
-// and gathering K rows (A values instead of D per edge).
+// Design: the row walk of fused_attention.cu's flash kernel, without the x
+// gather. One warp owns a CSR row of at most 32 edges (pin_kernel): lane j
+// loads edge j's column while the row's q comes into shared memory, then
+// lanes over the batch's (edge, head) pairs score it (batch_scores, K rows
+// by 16-byte loads), the per-head max and denominator are warp reductions,
+// and lane j writes mean_h exp(s_h - m_h) / where(d_h > 0, d_h, 1) for its
+// edge. No [E, H] scratch and no second pass over device memory. Longer
+// rows go to segments of `seg` edges, a warp each (the host's plan,
+// row_walk.cuh): pin_seg_stats writes each segment's running per-head
+// (max, sum) over its batches, the sum rescaled by exp(old - new max);
+// pin_seg_write combines its row's segments in order into the row's max
+// and denominator and recomputes its batches' scores (K rows hit L2) for
+// the write. No atomics: the result does not depend on the schedule.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -38,102 +40,201 @@
 #include <stdint.h>
 
 #include "attention_score.cuh"
+#include "row_walk.cuh"
 
 namespace {
 
-constexpr int WPB = 8;  // warps (rows in flight) per block
+// blocks of pin_kernel per SM (48 registers a thread): faster on the arxiv
+// graph than 64 or 32 registers (PERF.md)
+constexpr int MIN_BLOCKS = 5;
 
-using gx_att::score;
+using gx_att::batch_scores;
+using gx_att::warp_max;
+using gx_att::warp_sum;
+using gx_rows::BATCH;
+using gx_rows::segment;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T>
-__global__ void __launch_bounds__(WPB * 32)
-pin_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
-           const T* __restrict__ q, const T* __restrict__ x,
-           const T* __restrict__ wk, const float* __restrict__ bk,
-           const float* __restrict__ ew, float* __restrict__ scores,
-           float* __restrict__ out, int n, int d, int a_dim, int h_dim,
-           int att_type, float ov2, float inv2l2) {
-  extern __shared__ float smem[];
-  float* wk_s = smem;                       // [d, a]
-  float* bk_s = wk_s + (size_t)d * a_dim;   // [a]
-  const int per_warp = d + 2 * a_dim + 2 * h_dim;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* xs = bk_s + a_dim + w * per_warp;  // [d] gathered source row
-  float* qs = xs + d;                       // [a] q of the row
-  float* ks = qs + a_dim;                   // [a] k of the edge
-  float* ms = ks + a_dim;                   // [h] row max per head
-  float* ds = ms + h_dim;                   // [h] denominator per head
-
-  for (int i = threadIdx.x; i < d * a_dim; i += blockDim.x) wk_s[i] = to_f(wk[i]);
-  for (int i = threadIdx.x; i < a_dim; i += blockDim.x) bk_s[i] = bk[i];
-  __syncthreads();
-
-  const int dk = a_dim / h_dim;
-  for (int r = blockIdx.x * WPB + w; r < n; r += gridDim.x * WPB) {
-    const int beg = ptr[r], end = ptr[r + 1];
-    if (beg == end) continue;
-    for (int i = lane; i < a_dim; i += 32) qs[i] = to_f(q[(size_t)r * a_dim + i]);
-    float m = -INFINITY;
-    for (int e = beg; e < end; ++e) {
-      const T* xr = x + (size_t)idx[e] * d;
-      __syncwarp();
-      for (int i = lane; i < d; i += 32) xs[i] = to_f(xr[i]);
-      __syncwarp();
-      for (int i = lane; i < a_dim; i += 32) {
-        float acc = 0.f;
-        for (int j = 0; j < d; ++j) acc += xs[j] * wk_s[j * a_dim + i];
-        ks[i] = acc + bk_s[i];
-      }
-      __syncwarp();
-      if (lane < h_dim) {
-        float s = score(qs + lane * dk, ks + lane * dk, dk, att_type, ov2, inv2l2);
-        if (ew != nullptr) s *= ew[e];
-        scores[(size_t)e * h_dim + lane] = s;
-        m = fmaxf(m, s);
-      }
-    }
-    if (lane < h_dim) {
-      float den = 0.f;
-      for (int e = beg; e < end; ++e) den += expf(scores[(size_t)e * h_dim + lane] - m);
-      ms[lane] = m;
-      ds[lane] = den;
-    }
-    __syncwarp();
-    for (int e = beg + lane; e < end; e += 32) {
-      float sum = 0.f;
-      for (int h = 0; h < h_dim; ++h) {
-        const float den = ds[h];
-        sum += expf(scores[(size_t)e * h_dim + h] - ms[h]) / (den > 0.f ? den : 1.f);
-      }
-      out[e] = sum / (float)h_dim;
-    }
-    __syncwarp();
-  }
+// floats of one warp's shared memory: q [a], the per-head max and
+// denominator [h] each, the batch's scores [BATCH, h]
+__host__ __device__ __forceinline__ int warp_floats(int a, int h) {
+  return a + 2 * h + BATCH * h;
 }
 
 template <typename T>
-cudaError_t run(const void* ptr, const void* idx, const void* q, const void* x,
-                const void* wk, const void* bk, const void* ew, void* scores,
-                void* out, int n, int d, int a_dim, int h_dim, int att_type,
-                float ov2, float inv2l2, cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * ((size_t)d * a_dim + a_dim + (size_t)WPB * (d + 2 * a_dim + 2 * h_dim));
-  cudaError_t err = cudaFuncSetAttribute(
-      pin_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__device__ __forceinline__ void stage_q(const T* __restrict__ q, int r,
+                                        int a, float* qs, int lane) {
+  for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
+  __syncwarp();
+}
+
+// lane j < cnt: edge j's mean_h exp(s_h - m_h) / where(d_h > 0, d_h, 1)
+// from the batch's scores ws and the row's max ms and denominators ds
+__device__ __forceinline__ float edge_mean(const float* ws, const float* ms,
+                                           const float* ds, int h, int lane) {
+  float sum = 0.f;
+  for (int hh = 0; hh < h; ++hh) {
+    const float den = ds[hh];
+    sum += expf(ws[lane * h + hh] - ms[hh]) / (den > 0.f ? den : 1.f);
+  }
+  return sum / (float)h;
+}
+
+// the rows of at most BATCH edges, one batch each; longer rows are the
+// segment kernels'
+template <typename T>
+__global__ void __launch_bounds__(256, MIN_BLOCKS)
+pin_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+           const T* __restrict__ q, const float* __restrict__ kt,
+           const float* __restrict__ ew, float* __restrict__ out, int n,
+           int a, int h, int att_type, float ov2, float inv2l2, int kvec) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + w;
+  if (r >= n) return;
+  const int beg = ptr[r], len = ptr[r + 1] - beg;
+  if (len == 0 || len > BATCH) return;
+  float* qs = smem + (size_t)w * warp_floats(a, h);
+  float* ms = qs + a;
+  float* ds = ms + h;
+  float* ws = ds + h;
+  // the columns, loaded while q comes in
+  const int col = lane < len ? idx[beg + lane] : 0;
+  stage_q(q, r, a, qs, lane);
+  batch_scores(qs, kt, idx, ew, beg, len, a, h, att_type, ov2, inv2l2, kvec,
+               ws, lane, col);
+  for (int hh = 0; hh < h; ++hh) {
+    const float s = lane < len ? ws[lane * h + hh] : -INFINITY;
+    const float m = warp_max(s);
+    const float den = warp_sum(lane < len ? expf(s - m) : 0.f);
+    if (lane == 0) {
+      ms[hh] = m;
+      ds[hh] = den;
+    }
+  }
+  __syncwarp();
+  if (lane < len) out[beg + lane] = edge_mean(ws, ms, ds, h, lane);
+}
+
+// a long row's segment j: its running (max, sum) per head into st [nseg,
+// 2h]
+template <typename T>
+__global__ void __launch_bounds__(256)
+pin_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
+              const T* __restrict__ q, const float* __restrict__ kt,
+              const float* __restrict__ ew, const int* __restrict__ plan,
+              float* __restrict__ st, int nlong, int nseg, int a, int h,
+              int att_type, float ov2, float inv2l2, int kvec, int seg) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + w;
+  if (j >= nseg) return;
+  int r, sb, se, i;
+  segment(ptr, plan, nlong, seg, j, r, sb, se, i);
+  float* qs = smem + (size_t)w * warp_floats(a, h);
+  float* ms = qs + a;
+  float* ds = ms + h;
+  float* ws = ds + h;
+  stage_q(q, r, a, qs, lane);
+  for (int b0 = sb; b0 < se; b0 += BATCH) {
+    const int cnt = min(BATCH, se - b0);
+    batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, ov2, inv2l2, kvec,
+                 ws, lane);
+    for (int hh = 0; hh < h; ++hh) {
+      const float s = lane < cnt ? ws[lane * h + hh] : -INFINITY;
+      const float m_old = b0 == sb ? -INFINITY : ms[hh];
+      const float m = fmaxf(m_old, warp_max(s));
+      const float sum = warp_sum(lane < cnt ? expf(s - m) : 0.f);
+      const float den = b0 == sb ? sum : ds[hh] * expf(m_old - m) + sum;
+      __syncwarp();  // every lane has read ms[hh] and ds[hh]
+      if (lane == 0) {
+        ms[hh] = m;
+        ds[hh] = den;
+      }
+      __syncwarp();
+    }
+  }
+  for (int hh = lane; hh < h; hh += 32) {
+    st[(size_t)j * 2 * h + hh] = ms[hh];
+    st[(size_t)j * 2 * h + h + hh] = ds[hh];
+  }
+}
+
+// a long row's segment j: the row's max and denominators from its
+// segments' (max, sum) in segment order, then its edges' means, each
+// batch's scores recomputed
+template <typename T>
+__global__ void __launch_bounds__(256)
+pin_seg_write(const int* __restrict__ ptr, const int* __restrict__ idx,
+              const T* __restrict__ q, const float* __restrict__ kt,
+              const float* __restrict__ ew, const int* __restrict__ plan,
+              const float* __restrict__ st, float* __restrict__ out,
+              int nlong, int nseg, int a, int h, int att_type, float ov2,
+              float inv2l2, int kvec, int seg) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + w;
+  if (j >= nseg) return;
+  int r, sb, se, i;
+  segment(ptr, plan, nlong, seg, j, r, sb, se, i);
+  float* qs = smem + (size_t)w * warp_floats(a, h);
+  float* ms = qs + a;
+  float* ds = ms + h;
+  float* ws = ds + h;
+  const int p0 = plan[nlong + i], p1 = plan[nlong + i + 1];
+  for (int hh = lane; hh < h; hh += 32) {
+    float m = -INFINITY;
+    for (int s = p0; s < p1; ++s) m = fmaxf(m, st[(size_t)s * 2 * h + hh]);
+    float den = 0.f;
+    for (int s = p0; s < p1; ++s)
+      den += st[(size_t)s * 2 * h + h + hh] *
+             expf(st[(size_t)s * 2 * h + hh] - m);
+    ms[hh] = m;
+    ds[hh] = den;
+  }
+  stage_q(q, r, a, qs, lane);
+  for (int b0 = sb; b0 < se; b0 += BATCH) {
+    const int cnt = min(BATCH, se - b0);
+    batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, ov2, inv2l2, kvec,
+                 ws, lane);
+    if (lane < cnt) out[b0 + lane] = edge_mean(ws, ms, ds, h, lane);
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T>
+cudaError_t run(const void* ptr, const void* idx, const void* q,
+                const void* kt, const void* ew, const void* plan, void* st,
+                void* out, int n, int a, int h, int att_type, float ov2,
+                float inv2l2, int kvec, int wpb, int seg, int nlong, int nseg,
+                cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)wpb * warp_floats(a, h);
+  cudaError_t err = allow_smem(pin_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int grid = (n + WPB - 1) / WPB;
-  const int cap = sms > 0 ? sms * 8 : 1024;
-  if (grid > cap) grid = cap;
-  pin_kernel<T><<<grid, WPB * 32, smem, s>>>(
-      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x, (const T*)wk,
-      (const float*)bk, (const float*)ew, (float*)scores, (float*)out, n, d,
-      a_dim, h_dim, att_type, ov2, inv2l2);
+  pin_kernel<T><<<(n + wpb - 1) / wpb, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
+      (const float*)ew, (float*)out, n, a, h, att_type, ov2, inv2l2, kvec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nseg == 0) return err;
+  const int grid = (nseg + wpb - 1) / wpb;
+  if ((err = allow_smem(pin_seg_stats<T>, smem)) != cudaSuccess) return err;
+  pin_seg_stats<T><<<grid, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
+      (const float*)ew, (const int*)plan, (float*)st, nlong, nseg, a, h,
+      att_type, ov2, inv2l2, kvec, seg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(pin_seg_write<T>, smem)) != cudaSuccess) return err;
+  pin_seg_write<T><<<grid, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
+      (const float*)ew, (const int*)plan, (const float*)st, (float*)out,
+      nlong, nseg, a, h, att_type, ov2, inv2l2, kvec, seg);
   return cudaGetLastError();
 }
 
@@ -141,24 +242,27 @@ cudaError_t run(const void* ptr, const void* idx, const void* q, const void* x,
 
 extern "C" {
 
-// q [n, a], x [n, d], wk [d, a] share dtype (0 float32, 1 bfloat16); bk [a]
-// float32; ew [E] float32 reweight values or null; scores [E, h] float32
-// scratch; out [E] float32 head-mean attention per CSR slot. Rows with no
-// edge are skipped. Returns the cudaError_t of the launch.
+// q [n, a] in dtype (0 float32, 1 bfloat16); kt [n, a] float32 keys (the
+// K projection's); ew [E] float32 reweight values or null; out [E] float32
+// head-mean attention per CSR slot. kvec: dk % 4 == 0 and kt on 16 bytes;
+// wpb warps per block; rows of more than 32 edges in the nseg segments of
+// `seg` edges of `plan` (nlong rows), their (max, sum) in st [nseg, 2h].
+// Returns the cudaError_t of the launch.
 int gx_attention_pin(const void* ptr, const void* idx, const void* q,
-                     const void* x, const void* wk, const void* bk,
-                     const void* ew, void* scores, void* out, int n, int d,
-                     int a_dim, int h_dim, int att_type, int reweight,
-                     float ov2, float inv2l2, int dtype, void* stream) {
+                     const void* kt, const void* ew, const void* plan,
+                     void* st, void* out, int n, int a, int h, int att_type,
+                     float ov2, float inv2l2, int dtype, int kvec, int wpb,
+                     int seg, int nlong, int nseg, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const void* ewp = reweight ? ew : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)run<float>(ptr, idx, q, x, wk, bk, ewp, scores, out, n, d,
-                           a_dim, h_dim, att_type, ov2, inv2l2, s);
+    return (int)run<float>(ptr, idx, q, kt, ew, plan, st, out, n, a, h,
+                           att_type, ov2, inv2l2, kvec, wpb, seg, nlong, nseg,
+                           s);
   if (dtype == 1)
-    return (int)run<__nv_bfloat16>(ptr, idx, q, x, wk, bk, ewp, scores, out, n,
-                                   d, a_dim, h_dim, att_type, ov2, inv2l2, s);
+    return (int)run<__nv_bfloat16>(ptr, idx, q, kt, ew, plan, st, out, n, a,
+                                   h, att_type, ov2, inv2l2, kvec, wpb, seg,
+                                   nlong, nseg, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,9 @@
 // The per-edge, per-head attention score shared by the attention kernels
-// (attention_pin.cu, fused_attention.cu): graphax's `_score_math`
-// (graphax/kernels/pallas_attention.py:73-107) for one edge and one head, in
-// f32, from the head's q and k slices of dk values each.
+// (attention_pin.cu, fused_attention.cu, winatt.cu): graphax's
+// `_score_math` (graphax/kernels/pallas_attention.py:73-107) for one edge
+// and one head, in f32, from the head's q and k slices of dk values each;
+// and the row walk's scoring of a batch of edges against the f32 K table
+// (the pin and the CSR flash kernels).
 //
 // att_type: 0 scaled_dot (q pre-scaled by 1/sqrt(dk) by the caller),
 // 1 cosine_sim, 2 pearson, 3 exp_kernel (ov2 * exp(-|q - k|^2 * inv2l2)).
@@ -44,6 +46,74 @@ __device__ __forceinline__ float score(const float* q, const float* k, int dk,
   }
   const float qn = fmaxf(sqrtf(qq), COS_EPS), kn = fmaxf(sqrtf(kk), COS_EPS);
   return dot / (qn * kn);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// the head's score of one edge: q in shared memory, the K row in device
+// memory, read for scaled_dot with kvec (dk % 4 == 0, the table on 16
+// bytes) by 16-byte loads, four in flight before their products, in the
+// order of score()
+__device__ __forceinline__ float score_head(const float* qs, const float* kr,
+                                            int dk, int att_type, float ov2,
+                                            float inv2l2, int kvec) {
+  if (att_type == 0 && kvec) {
+    float s = 0.f;
+    for (int i0 = 0; i0 < dk; i0 += 16) {
+      float4 k[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (i0 + 4 * t < dk)
+          k[t] = __ldg(reinterpret_cast<const float4*>(kr + i0 + 4 * t));
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int i = i0 + 4 * t;
+        if (i < dk) {
+          s += qs[i] * k[t].x;
+          s += qs[i + 1] * k[t].y;
+          s += qs[i + 2] * k[t].z;
+          s += qs[i + 3] * k[t].w;
+        }
+      }
+    }
+    return s;
+  }
+  return score(qs, kr, dk, att_type, ov2, inv2l2);
+}
+
+// the batch's edges e0 + j, j < cnt, one per lane: lane j loads edge j's
+// column (or takes `pre`, loaded ahead by the caller, when pre >= 0) and
+// returns it; then lanes over the batch's (edge, head) pairs write the
+// scores against the row's q in shared memory (times the reweight value)
+// to ws[j * h + hh]
+__device__ __forceinline__ int batch_scores(
+    const float* qs, const float* __restrict__ kt, const int* __restrict__ idx,
+    const float* __restrict__ ew, int e0, int cnt, int a, int h, int att_type,
+    float ov2, float inv2l2, int kvec, float* ws, int lane, int pre = -1) {
+  __syncwarp();  // every lane is done with the last batch's ws
+  int col = 0;
+  if (lane < cnt) col = pre >= 0 ? pre : idx[e0 + lane];
+  const int dk = a / h, pairs = cnt * h;
+  for (int p0 = 0; p0 < pairs; p0 += 32) {
+    const int p = p0 + lane, j = p / h, hh = p - j * h;
+    const int c = __shfl_sync(0xffffffffu, col, j & 31);
+    if (p < pairs) {
+      float s = score_head(qs + hh * dk, kt + (size_t)c * a + hh * dk, dk,
+                           att_type, ov2, inv2l2, kvec);
+      if (ew != nullptr) s *= ew[e0 + j];
+      ws[p] = s;
+    }
+  }
+  __syncwarp();
+  return col;
 }
 
 }  // namespace gx_att

@@ -145,6 +145,7 @@
 #include <type_traits>
 
 #include "attention_score.cuh"
+#include "row_walk.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -163,22 +164,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-// one rounding to the state dtype T
-template <typename T> __device__ __forceinline__ float rnd(float v);
-template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using gx_att::batch_scores;
+using gx_att::warp_max;
+using gx_att::warp_sum;
+using gx_rows::BATCH;
+using gx_rows::FULL;
+using gx_rows::clear;
+using gx_rows::gather;
+using gx_rows::load_rows;
+using gx_rows::products;
+using gx_rows::rnd;
+using gx_rows::seg_combine;
+using gx_rows::segment;
+using gx_rows::store_chunk;
+using gx_rows::store_vec;
+using gx_rows::Vec;
 
 // softmax: exp(z); squareplus: (z + sqrt(z^2 + 4)) / 2
 template <bool SQP>
@@ -681,22 +681,17 @@ norm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
 // The row walk of flash_kernel and attspmm_kernel
 // ---------------------------------------------------------------------
 //
-// One warp owns a CSR row and takes its edges in batches of BATCH = 32, one
-// edge per lane: lane j loads idx[e0 + j] and computes edge j's weight (in
-// attspmm rnd(mean_h e / (den or 1)); in flash the lanes take the batch's
-// (edge, head) pairs, each score from the row's q in shared memory and
-// K[col] by 16-byte loads of the f32 K table). The
-// gather then walks the batch U edges at a time, each column index and
-// weight handed to the warp by __shfl_sync (flash's per-(edge, head)
-// weights by a broadcast read of the warp's shared batch), so each warp has
-// U independent x[col] rows in flight, loaded VB bytes at a time (the
-// widest load that every row and the view allow: the host's gather_width).
-// Lanes hold VPL vectors of a column chunk each; D up to 32 * VPL vectors is
-// one chunk. bf16 products rnd(x w) are rounded two at a time by one
-// bf16x2 multiply. Each column's f32 sum runs over the row's edges in order
-// (and over the heads within an edge), whichever lane holds it, so the
-// result does not depend on VB. The output leaves in f32 or bf16, optionally
-// after an f32 addend, with one rounding.
+// The walk itself (batches of 32 edges, U gathered x rows in flight per
+// warp, loads of the host's gather_width, products rounded once, each
+// column's f32 sum in edge order, segments of long rows and seg_combine) is
+// row_walk.cuh's, shared with spmm.cu. Here lane j of a batch computes edge
+// j's weight: in attspmm rnd(mean_h e / (den or 1)); in flash the lanes
+// take the batch's (edge, head) pairs, each score from the row's q in
+// shared memory and K[col] by 16-byte loads of the f32 K table, and the
+// gather reads the per-(edge, head) weights by a broadcast read of the
+// warp's shared batch. Lanes hold VPL vectors of a column chunk each; D up
+// to 32 * VPL vectors is one chunk. The output leaves in f32 or bf16,
+// optionally after an f32 addend, with one rounding.
 //
 // Flash's shift and denominators come before its gather. flash_kernel
 // takes the rows of at most 32 edges, one batch each (the scores of the
@@ -719,214 +714,15 @@ norm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
 // the same segments (attspmm_seg_sum, seg_combine). Keeping the multi-batch
 // walk out of the one-batch kernel keeps that kernel within 64 registers.
 
-constexpr int BATCH = 32;   // edges a warp holds at once, one per lane
 constexpr int VPL = 3;      // x vectors per lane in one column chunk
+// x rows in flight per warp: U edges' loads of VPL vectors of VB bytes
+template <int VB> constexpr int U = VB <= 4 ? 4 : 2;
 // blocks per SM the walk kernels' registers allow: more rows in flight on
 // each SM measured faster than more x rows in flight per warp. The
 // one-batch flash kernel fits 48 registers a thread (5 blocks); attspmm's
 // walk spills there and keeps 64 (4 blocks).
 constexpr int FLASH_MIN_BLOCKS = 5;
 constexpr int MIN_BLOCKS = 4;
-constexpr unsigned FULL = 0xffffffffu;
-
-// a load of VB bytes of T: E values in W 32-bit words; U edges in flight
-template <typename T, int VB>
-struct Vec {
-  static constexpr int E = VB / (int)sizeof(T);
-  static constexpr int W = VB < 4 ? 1 : VB / 4;
-  static constexpr int U = VB <= 4 ? 4 : 2;
-};
-
-template <int VB>
-__device__ __forceinline__ void ldv(const void* p, uint32_t* w) {
-  if constexpr (VB == 2) {
-    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
-  } else if constexpr (VB == 4) {
-    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
-  } else {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-  }
-}
-
-template <typename T, int VB>
-__device__ __forceinline__ void unpack(const uint32_t* w, float* f) {
-  if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-    for (int i = 0; i < Vec<T, VB>::W; ++i) f[i] = __uint_as_float(w[i]);
-  } else if constexpr (VB == 2) {
-    f[0] = __uint_as_float(w[0] << 16);
-  } else {
-#pragma unroll
-    for (int i = 0; i < Vec<T, VB>::W; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-}
-
-// rnd(x * wt) for the E values of one gathered vector, wt a value of T:
-// bf16 two at a time by one bf16x2 multiply (round to nearest even, so
-// rnd of the exact f32 product of two bf16 values)
-template <typename T, int VB>
-__device__ __forceinline__ void products(const uint32_t* raw, float wt,
-                                         float* p) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && VB >= 4) {
-    const __nv_bfloat162 w2 = __float2bfloat162_rn(wt);
-#pragma unroll
-    for (int i = 0; i < Vec<T, VB>::W; ++i) {
-      const __nv_bfloat162 pr =
-          __hmul2(*reinterpret_cast<const __nv_bfloat162*>(raw + i), w2);
-      p[2 * i] = __low2float(pr);
-      p[2 * i + 1] = __high2float(pr);
-    }
-  } else {
-    unpack<T, VB>(raw, p);
-#pragma unroll
-    for (int k = 0; k < Vec<T, VB>::E; ++k) p[k] = rnd<T>(p[k] * wt);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
-}
-
-// E output values at element offset `off`: (add[off..] + v) in f32, then
-// stored as f32 (otype 0) or bf16 (otype 1)
-template <int E>
-__device__ __forceinline__ void store_vec(void* out, int otype,
-                                          const float* __restrict__ add,
-                                          size_t off, float* v) {
-  if (add != nullptr) {
-    float a[E];
-    if constexpr (E == 4) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(add + off));
-      a[0] = t.x; a[1] = t.y; a[2] = t.z; a[3] = t.w;
-    } else if constexpr (E == 2) {
-      const float2 t = __ldg(reinterpret_cast<const float2*>(add + off));
-      a[0] = t.x; a[1] = t.y;
-    } else {
-      a[0] = __ldg(add + off);
-    }
-#pragma unroll
-    for (int k = 0; k < E; ++k) v[k] = a[k] + v[k];
-  }
-  if (otype == 0) {
-    float* p = reinterpret_cast<float*>(out) + off;
-    if constexpr (E == 4) {
-      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    } else if constexpr (E == 2) {
-      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-    } else {
-      *p = v[0];
-    }
-  } else {
-    __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(out) + off;
-    if constexpr (E == 4) {
-      *reinterpret_cast<uint2*>(p) =
-          make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
-    } else if constexpr (E == 2) {
-      *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v[0], v[1]);
-    } else {
-      *p = __float2bfloat16(v[0]);
-    }
-  }
-}
-
-// the chunk [v0, v0 + 32 VPL) of vectors of one output row (element offset
-// `row`)
-template <typename T, int VB>
-__device__ __forceinline__ void store_chunk(
-    float (&acc)[VPL][Vec<T, VB>::E], void* out, int otype,
-    const float* __restrict__ add, size_t row, int v0, int nvec, int lane) {
-  constexpr int E = Vec<T, VB>::E;
-#pragma unroll
-  for (int v = 0; v < VPL; ++v) {
-    const int vi = v0 + v * 32 + lane;
-    if (vi < nvec) store_vec<E>(out, otype, add, row + (size_t)vi * E, acc[v]);
-  }
-}
-
-// U gathered rows of the batch at a time: raw[u] holds edge e0 + u's
-// vectors of the chunk
-template <typename T, int VB>
-__device__ __forceinline__ void load_rows(
-    uint32_t (&raw)[Vec<T, VB>::U][VPL][Vec<T, VB>::W],
-    const T* __restrict__ x, int col, int e0, int cnt, int d, int v0,
-    int nvec, int lane) {
-  using V = Vec<T, VB>;
-#pragma unroll
-  for (int u = 0; u < V::U; ++u) {
-    const int c = __shfl_sync(FULL, col, (e0 + u) & 31);
-    if (e0 + u < cnt) {
-      const T* xr = x + (size_t)c * d;
-#pragma unroll
-      for (int v = 0; v < VPL; ++v) {
-        const int vi = v0 + v * 32 + lane;
-        if (vi < nvec) ldv<VB>(xr + (size_t)vi * V::E, raw[u][v]);
-      }
-    }
-  }
-}
-
-// the head's score of one edge: q in shared memory, the K row in device
-// memory, read for scaled_dot with kvec (dk % 4 == 0, the table on 16
-// bytes) by 16-byte loads, four in flight before their products, in the
-// order of gx_att::score
-__device__ __forceinline__ float score_head(const float* qs, const float* kr,
-                                            int dk, int att_type, float ov2,
-                                            float inv2l2, int kvec) {
-  if (att_type == 0 && kvec) {
-    float s = 0.f;
-    for (int i0 = 0; i0 < dk; i0 += 16) {
-      float4 k[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        if (i0 + 4 * t < dk)
-          k[t] = __ldg(reinterpret_cast<const float4*>(kr + i0 + 4 * t));
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int i = i0 + 4 * t;
-        if (i < dk) {
-          s += qs[i] * k[t].x;
-          s += qs[i + 1] * k[t].y;
-          s += qs[i + 2] * k[t].z;
-          s += qs[i + 3] * k[t].w;
-        }
-      }
-    }
-    return s;
-  }
-  return gx_att::score(qs, kr, dk, att_type, ov2, inv2l2);
-}
-
-// flash: the batch's edges e0 + j, j < cnt, one per lane: lane j loads
-// edge j's column (or takes `pre`, loaded ahead by the caller, when pre >=
-// 0) and returns it; then lanes over the batch's (edge, head) pairs write
-// the scores (times the reweight value) to ws[j * h + hh]
-__device__ __forceinline__ int batch_scores(
-    const float* qs, const float* __restrict__ kt, const int* __restrict__ idx,
-    const float* __restrict__ ew, int e0, int cnt, int a, int h, int att_type,
-    float ov2, float inv2l2, int kvec, float* ws, int lane, int pre = -1) {
-  __syncwarp();  // every lane is done with the last batch's ws
-  int col = 0;
-  if (lane < cnt) col = pre >= 0 ? pre : idx[e0 + lane];
-  const int dk = a / h, pairs = cnt * h;
-  for (int p0 = 0; p0 < pairs; p0 += 32) {
-    const int p = p0 + lane, j = p / h, hh = p - j * h;
-    const int c = __shfl_sync(FULL, col, j & 31);
-    if (p < pairs) {
-      float s = score_head(qs + hh * dk, kt + (size_t)c * a + hh * dk, dk,
-                           att_type, ov2, inv2l2, kvec);
-      if (ew != nullptr) s *= ew[e0 + j];
-      ws[p] = s;
-    }
-  }
-  __syncwarp();
-  return col;
-}
 
 // flash: the batch's scores into the running per-head shift ms (the max;
 // squareplus: the global shift g) and sum ds of weight(s - shift), the sum
@@ -978,11 +774,11 @@ __device__ __forceinline__ void gather_flash(
     int cnt, const float* ws, const float* cs, int h, int d, int v0,
     int nvec, int lane) {
   using V = Vec<T, VB>;
-  for (int e0 = 0; e0 < cnt; e0 += V::U) {
-    uint32_t raw[V::U][VPL][V::W];
-    load_rows<T, VB>(raw, x, col, e0, cnt, d, v0, nvec, lane);
+  for (int e0 = 0; e0 < cnt; e0 += U<VB>) {
+    uint32_t raw[U<VB>][VPL][V::W];
+    load_rows<T, VB, VPL, U<VB>>(raw, x, col, e0, cnt, d, v0, nvec, lane);
 #pragma unroll
-    for (int u = 0; u < V::U; ++u) {
+    for (int u = 0; u < U<VB>; ++u) {
       if (e0 + u < cnt) {
         const float* we = ws + (e0 + u) * h;
         for (int hh = 0; hh < h; ++hh) {
@@ -1004,18 +800,6 @@ __device__ __forceinline__ void gather_flash(
 // [h], scale [h], the batch's scores [BATCH, h]
 __host__ __device__ __forceinline__ int flash_warp_floats(int a, int h) {
   return a + 2 * h + BATCH * h;
-}
-
-// the segment j of a long row: its row r, edges [sb, se) (`seg` edges
-// each, the last one the rest), the long row's index i in the plan
-__device__ __forceinline__ void segment(const int* __restrict__ ptr,
-                                        const int* __restrict__ plan,
-                                        int nlong, int seg, int j, int& r,
-                                        int& sb, int& se, int& i) {
-  i = plan[2 * nlong + 1 + j];
-  r = plan[i];
-  sb = ptr[r] + (j - plan[nlong + i]) * seg;
-  se = ptr[r + 1] - sb > seg ? sb + seg : ptr[r + 1];
 }
 
 // the rows of at most BATCH edges, one batch each: the scores, the shift
@@ -1056,12 +840,9 @@ flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   const int nvec = d / V::E;
   for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
     float acc[VPL][V::E];
-#pragma unroll
-    for (int v = 0; v < VPL; ++v)
-#pragma unroll
-      for (int k = 0; k < V::E; ++k) acc[v][k] = 0.f;
+    clear(acc);
     gather_flash<T, VB>(acc, x, col, len, ws, cs, h, d, v0, nvec, lane);
-    store_chunk<T, VB>(acc, out, otype, nullptr, (size_t)r * d, v0, nvec,
+    store_chunk<T, VB, VPL>(acc, out, otype, nullptr, (size_t)r * d, v0, nvec,
                        lane);
   }
 }
@@ -1143,10 +924,7 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
   const int nvec = d / V::E;
   for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
     float acc[VPL][V::E];
-#pragma unroll
-    for (int v = 0; v < VPL; ++v)
-#pragma unroll
-      for (int k = 0; k < V::E; ++k) acc[v][k] = 0.f;
+    clear(acc);
     for (int b0 = sb; b0 < se; b0 += BATCH) {
       const int cnt = min(BATCH, se - b0);
       const int col = batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type,
@@ -1154,24 +932,7 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
       batch_weights<T, SQP>(ws, ms, cnt, h, lane);
       gather_flash<T, VB>(acc, x, col, cnt, ws, cs, h, d, v0, nvec, lane);
     }
-    store_chunk<T, VB>(acc, part, 0, nullptr, (size_t)j * d, v0, nvec, lane);
-  }
-}
-
-// each long row: the sum of its segments' partials in segment order, after
-// the addend, into out (f32 or bf16); lanes over columns
-__global__ void __launch_bounds__(WPB * 32)
-seg_combine(const int* __restrict__ plan, const float* __restrict__ part,
-            const float* __restrict__ add, void* __restrict__ out, int otype,
-            int nlong, int d) {
-  const int i = blockIdx.x * WPB + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= nlong) return;
-  const int r = plan[i], p0 = plan[nlong + i], p1 = plan[nlong + i + 1];
-  for (int c = lane; c < d; c += 32) {
-    float s = 0.f;
-    for (int j = p0; j < p1; ++j) s += part[(size_t)j * d + c];
-    store_vec<1>(out, otype, add, (size_t)r * d + c, &s);
+    store_chunk<T, VB, VPL>(acc, part, 0, nullptr, (size_t)j * d, v0, nvec, lane);
   }
 }
 
@@ -1191,32 +952,6 @@ __device__ __forceinline__ float attspmm_weight(const float* __restrict__ eo,
   return rnd<T>(wsum / (float)h);
 }
 
-// attspmm: acc += rnd(x[col] w_e) over the batch's edges, lane j holding
-// edge j's column and weight
-template <typename T, int VB>
-__device__ __forceinline__ void gather_attspmm(
-    float (&acc)[VPL][Vec<T, VB>::E], const T* __restrict__ x, int col,
-    float wl, int cnt, int d, int v0, int nvec, int lane) {
-  using V = Vec<T, VB>;
-  for (int e0 = 0; e0 < cnt; e0 += V::U) {
-    uint32_t raw[V::U][VPL][V::W];
-    load_rows<T, VB>(raw, x, col, e0, cnt, d, v0, nvec, lane);
-#pragma unroll
-    for (int u = 0; u < V::U; ++u) {
-      const float wt = __shfl_sync(FULL, wl, (e0 + u) & 31);
-      if (e0 + u < cnt) {
-#pragma unroll
-        for (int v = 0; v < VPL; ++v) {
-          float p[V::E];
-          products<T, VB>(raw[u][v], wt, p);
-#pragma unroll
-          for (int k = 0; k < V::E; ++k) acc[v][k] += p[k];
-        }
-      }
-    }
-  }
-}
-
 // attspmm over the edges [sb, se) of row r: the chunk sums into out at
 // element offset `row`, after the addend `add`, as f32 or bf16
 template <typename T, int VB, bool PERCOL>
@@ -1229,10 +964,7 @@ __device__ __forceinline__ void attspmm_range(
   const int nvec = d / V::E;
   for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
     float acc[VPL][V::E];
-#pragma unroll
-    for (int v = 0; v < VPL; ++v)
-#pragma unroll
-      for (int k = 0; k < V::E; ++k) acc[v][k] = 0.f;
+    clear(acc);
     for (int b0 = sb; b0 < se; b0 += BATCH) {
       const int cnt = min(BATCH, se - b0);
       int col = 0;
@@ -1241,9 +973,9 @@ __device__ __forceinline__ void attspmm_range(
         col = idx[b0 + lane];
         wl = attspmm_weight<T, PERCOL>(eo, den, b0 + lane, col, r, h);
       }
-      gather_attspmm<T, VB>(acc, x, col, wl, cnt, d, v0, nvec, lane);
+      gather<T, VB, VPL, U<VB>>(acc, x, col, wl, cnt, d, v0, nvec, lane);
     }
-    store_chunk<T, VB>(acc, out, otype, add, row, v0, nvec, lane);
+    store_chunk<T, VB, VPL>(acc, out, otype, add, row, v0, nvec, lane);
   }
 }
 
@@ -1279,10 +1011,7 @@ attspmm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
     int ncol = 0;
     for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
       float acc[VPL][V::E];
-#pragma unroll
-      for (int v = 0; v < VPL; ++v)
-#pragma unroll
-        for (int k = 0; k < V::E; ++k) acc[v][k] = 0.f;
+      clear(acc);
       for (int b0 = beg; mine && b0 < beg + len; b0 += BATCH) {
         const int cnt = min(BATCH, beg + len - b0);
         const int c = b0 == beg ? col : lane < cnt ? idx[b0 + lane] : 0;
@@ -1291,10 +1020,10 @@ attspmm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
                        : 0.f;
         if (b0 == beg && v0 == 0)
           ncol = lane < min(nlen, BATCH) ? idx[nbeg + lane] : 0;
-        gather_attspmm<T, VB>(acc, x, c, wl, cnt, d, v0, nvec, lane);
+        gather<T, VB, VPL, U<VB>>(acc, x, c, wl, cnt, d, v0, nvec, lane);
       }
       if (mine)
-        store_chunk<T, VB>(acc, out, otype, add, (size_t)r * d, v0, nvec,
+        store_chunk<T, VB, VPL>(acc, out, otype, add, (size_t)r * d, v0, nvec,
                            lane);
     }
     if (len == 0 || !mine)  // no batch loaded the next row's columns

@@ -58,11 +58,12 @@ import numpy as np
 import torch
 
 from graphax_torch.kernels import _build
-from graphax_torch.kernels.attention_pin import ATT_TYPES, score_math
 from graphax_torch.sparse.graph import Layout
 from graphax_torch.sparse.ops import EPS, segment_max, segment_sum
 from graphax_torch.utils.params import linear_apply
 
+ATT_TYPES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3}
+COS_EPS = 1e-5
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WPB = 8            # warps per block in every kernel of fused_attention.cu
@@ -72,6 +73,24 @@ ROW_SPLIT = 128     # the row walk's segment length: longer rows go in
 _KROWS = 4          # rows per warp at a time in the K projection
 _SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into
 _SMEM_STATIC = 49_152     # without opting in (the flash kernel's q, shifts)
+
+
+def score_math(att_type: str, q, k, ov2: float = 1.0, inv2l2: float = 0.5):
+    """graphax's `_score_math` (`:73-107`): ``q, k [E, H, Dh]`` f32 ->
+    ``[E, H]`` scores, as ``csrc/attention_score.cuh`` computes them."""
+    if att_type == "scaled_dot":
+        return (q * k).sum(-1)
+    if att_type in ("cosine_sim", "pearson"):
+        if att_type == "pearson":
+            q = q - q.mean(-1, keepdim=True)
+            k = k - k.mean(-1, keepdim=True)
+        qn = torch.clamp(torch.sqrt((q * q).sum(-1)), min=COS_EPS)
+        kn = torch.clamp(torch.sqrt((k * k).sum(-1)), min=COS_EPS)
+        return (q * k).sum(-1) / (qn * kn)
+    if att_type == "exp_kernel":
+        sq = ((q - k) ** 2).sum(-1)
+        return ov2 * torch.exp(-sq * inv2l2)
+    raise ValueError(f"unsupported att_type {att_type!r}")
 
 
 def _no_grad(what: str, *ts) -> None:
@@ -147,6 +166,13 @@ def kproj_route(dtype: torch.dtype, d: int, a: int) -> str:
     return "cuda_core"
 
 
+def kproj_supported(dtype: torch.dtype, d: int, a: int) -> bool:
+    """One of the two K projections takes ``x [N, d]`` of ``dtype`` onto
+    ``a`` keys: the tensor-core kernel where :func:`kproj_route` sends it,
+    else the CUDA-core one where :func:`kproj_fits`."""
+    return kproj_route(dtype, d, a) == "tensor_core" or kproj_fits(d, a)
+
+
 def kproj_staging(x: torch.Tensor) -> str:
     """How the tensor-core kernel stages x: ``"cp.async"`` (16-byte
     copies of whole tiles) where x starts on 16 bytes and its rows hold an
@@ -172,7 +198,7 @@ def attention_kproj(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
     if wk.shape != (d, a) or bk.shape != (a,) or bk.dtype != torch.float32:
         raise ValueError("attention_kproj: shapes x [N, D], wk [D, A], bk [A] "
                          "f32 required")
-    if not kproj_fits(d, a):
+    if not kproj_supported(x.dtype, d, a):
         raise ValueError(f"attention_kproj: D*A too large for shared memory "
                          f"(D={d}, A={a})")
     _check_operands("attention_kproj", x, x, wk, bk)

@@ -10,6 +10,11 @@ sources are `csrc/spmm.cu`. Each wrapper:
   does not take;
 - counts its launches in ``_build.LAUNCHES``.
 
+The SpMM kernel walks the CSR as `fused_attention`'s row walk does (a warp
+per row, batches of 32 edges, several gathered rows in flight, rows of
+more than ``fused_attention.ROW_SPLIT`` edges in segments of that many,
+summed in order), all of D in one pass.
+
 Numerics (both versions): each product ``w_e * x[idx_e]`` is rounded to the
 state dtype, sums accumulate in f32 and are cast once to the state dtype;
 rows with no edge give 0; the SDDMM accumulates in f32 and returns f32."""
@@ -19,13 +24,15 @@ from __future__ import annotations
 import torch
 
 from graphax_torch.kernels import _build
+from graphax_torch.kernels import fused_attention as fa
 from graphax_torch.sparse.graph import Graph, Layout
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _vec(x: torch.Tensor) -> int:
-    """Values per load: pairs when every row starts on a pair boundary."""
+    """The SDDMM's values per load: pairs when every row starts on a pair
+    boundary."""
     d = x.shape[1]
     return 2 if d % 2 == 0 and x.data_ptr() % (2 * x.element_size()) == 0 \
         else 1
@@ -67,12 +74,16 @@ def spmm_csr(layout: Layout, values: torch.Tensor, x: torch.Tensor,
                          "entry per slot")
     if layout.num_rows != num_rows:
         raise ValueError("spmm_csr: layout and num_rows disagree")
-    y = torch.empty((num_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    d = x.shape[1]
+    y = torch.empty((num_rows, d), dtype=x.dtype, device=x.device)
+    plan, nlong, nseg = fa._row_plan(layout, fa.ROW_SPLIT, fa.ROW_SPLIT)
+    part = torch.empty((nseg, d), dtype=torch.float32, device=x.device)
     lib = _build.library("spmm")
     err = lib.gx_spmm_csr(layout.ptr.data_ptr(), layout.idx.data_ptr(),
                           values.data_ptr(), x.data_ptr(), y.data_ptr(),
-                          num_rows, x.shape[1], _DTYPES[x.dtype], _vec(x),
-                          _build.stream_ptr(x))
+                          plan.data_ptr(), part.data_ptr(), num_rows, d,
+                          _DTYPES[x.dtype], fa.gather_width(x),
+                          fa.ROW_SPLIT, nlong, nseg, _build.stream_ptr(x))
     _build.check(err, "spmm_csr")
     _build.LAUNCHES["spmm_csr"] += 1
     return y

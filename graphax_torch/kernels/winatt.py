@@ -46,7 +46,7 @@ import torch
 
 from graphax_torch.kernels import _build
 from graphax_torch.kernels import fused_attention as fa
-from graphax_torch.kernels.attention_pin import ATT_TYPES, score_math
+from graphax_torch.kernels.fused_attention import ATT_TYPES, score_math
 from graphax_torch.sparse.graph import Layout
 from graphax_torch.sparse.ops import segment_max, segment_sum
 from graphax_torch.utils.params import linear_apply

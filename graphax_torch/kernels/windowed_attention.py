@@ -50,8 +50,7 @@ import math
 
 import torch
 
-from graphax_torch.kernels.attention_pin import COS_EPS
-from graphax_torch.kernels.fused_attention import NEG
+from graphax_torch.kernels.fused_attention import COS_EPS, NEG
 from graphax_torch.kernels.windowed_spmm import _WinMatmul, _slab, _tiles
 from graphax_torch.sparse.ops import segment_max, segment_sum
 from graphax_torch.utils.params import linear_apply

@@ -54,12 +54,27 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   three GRAND-nl evaluations each on CSR, path A and path B (NFE, ms per
   NFE), and one profiled GRAND-nl train step on CSR (device busy ms, the
   flash kernels' device ms, and the device ms of each kernel of the row
-  walk by name).
+  walk by name);
+- (``spmm``) spmm_csr, A x and A^T g, bf16 and f32, on the arxiv CSR
+  (the ``community_window=0`` preset's graph), the windowed preset's
+  residual, ``chip_smoke.hub_graph`` and :func:`pareto_graph`, each with
+  its bound, all-miss count (x read once per edge) and, on the arxiv CSR,
+  ``torch.sparse.mm``; then the steady epochs of the arxiv preset on both
+  layouts (``fit`` with its defaults, the fastest of 3 after the first);
+- (``pin``) the pin at the arxiv preset's widths (random q, x, Wk as
+  chip_smoke draws them; bf16 as on CSR, f32 as on the windowed layout)
+  on the arxiv CSR, the hub graph and the power-law graph, and at
+  Computers' and Photo's widths in f32 on their stand-ins' graphs, each
+  with its largest error against its plain version, its bound and
+  all-miss count (K written, one K row read per edge) and the K
+  projection's time alone (which this checkout's pin runs); then the
+  steady epochs of Computers and Photo.
 
 One JSON line per measurement, then the card's nvidia-smi line. Run from
 the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
-DIR] [--only windowed|attention]``; a parent is a ``git archive`` of
-another commit unpacked in a directory that ``.gitignore`` lists.
+DIR] [--only windowed|attention|spmm|pin]``; a parent is a ``git
+archive`` of another commit unpacked in a directory that ``.gitignore``
+lists.
 """
 
 import argparse
@@ -133,6 +148,10 @@ def measure(root: str, only=None) -> None:
         windowed(emit)
     if only in (None, "attention"):
         attention(emit)
+    if only in (None, "spmm"):
+        spmm(emit)
+    if only in (None, "pin"):
+        pin(emit)
 
 
 def windowed(emit) -> None:
@@ -612,13 +631,150 @@ def attention(emit) -> None:
          flash_launches=flash_n, walk_kernels=walk)
 
 
+def steady_epochs(emit, label, trainer) -> None:
+    """``trainer.fit(3)`` with its defaults: each epoch's seconds and the
+    fastest after the first."""
+    import torch
+
+    fit = trainer.fit(epochs=3)
+    torch.cuda.synchronize()
+    times = [h["time"] for h in fit["history"]]
+    emit(path=label, epoch_seconds=times, steady_epoch_seconds=min(times[1:]))
+
+
+def spmm(emit) -> None:
+    """The ``spmm`` measurements of the module's docstring."""
+    import torch
+
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import spmm as spmm_mod
+
+    here = this_chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    data = get_dataset("ogbn-arxiv")
+    trs = {"windowed": Trainer(best_config("ogbn-arxiv"), data),
+           "CSR": Trainer(best_config("ogbn-arxiv", community_window=0),
+                          data)}
+    g = trs["CSR"].data.graph
+    gw = trs["windowed"].data.graph
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # (label, CSR, CSC, f32 values per position of the edge buffer that
+    # the layouts' perms index; a CSR without a perm holds its prefix)
+    graphs = [("arxiv CSR", g.csr, g.csc, g.edge_weight),
+              ("windowed residual", gw.windows.residual,
+               gw.windows.residual_t,
+               torch.rand(gw.edge_buffer_size, generator=gen, device="cuda")
+               + 0.1)]
+    for label, gr in (("hub", here.hub_graph("cuda")),
+                      ("pareto", pareto_graph("cuda"))):
+        graphs.append((label, gr.csr, gr.csc,
+                       torch.rand(gr.edge_buffer_size, generator=gen,
+                                  device="cuda") + 0.1))
+    n, d = g.num_nodes, 162
+    for dt in (torch.bfloat16, torch.float32):
+        name, b = str(dt)[6:], dt.itemsize
+        x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        for label, csr, csc, w in graphs:
+            w = w.to(dt)
+            vals = (w[:csr.num_slots] if csr.perm is None
+                    else w[csr.perm]).contiguous()
+            vals_t = w[csc.perm].contiguous()
+            e = csr.num_slots
+            for prod, lay, v in (("A.x", csr, vals), ("AT.g", csc, vals_t)):
+                fn = lambda lay=lay, v=v: spmm_mod.spmm_csr(  # noqa: E731
+                    lay, v, x, n)
+                want = spmm_mod.spmm_csr_plain(lay, v, x, n)
+                err = float((fn().float() - want.float()).abs().max())
+                nbytes = 2 * n * d * b + e * (b + 4) + 4 * (n + 1)
+                miss = e * (d * b + 8) + n * d * b
+                row = dict(kernel="spmm_csr", graph=label, product=prod,
+                           dtype=name, E=e, ms=here.time_ms(fn),
+                           max_abs_err=err,
+                           bound_ms=nbytes / here.HBM_BYTES_PER_S * 1e3,
+                           all_miss_ms=miss / here.HBM_BYTES_PER_S * 1e3)
+                if label == "arxiv CSR":
+                    sp = torch.sparse_csr_tensor(lay.ptr.long(),
+                                                 lay.idx.long(), v[:e],
+                                                 size=(n, n))
+                    row["library"] = "torch.sparse.mm"
+                    row["library_ms"] = here.time_ms(
+                        lambda: torch.sparse.mm(sp, x), reps=10)
+                    del sp
+                emit(**row)
+        del x
+        torch.cuda.empty_cache()
+    for label, tr in trs.items():
+        steady_epochs(emit, f"arxiv {label}", tr)
+
+
+def pin(emit) -> None:
+    """The ``pin`` measurements of the module's docstring."""
+    import torch
+
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import attention_pin as pin_mod
+    from graphax_torch.kernels import fused_attention as fa
+
+    here = this_chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def case(label, graph, dt, d, a, heads):
+        n, e = graph.num_nodes, graph.num_edges
+        b, name = dt.itemsize, str(dt)[6:]
+        q = torch.randn(n, a, generator=gen, device="cuda").mul(0.3).to(dt)
+        x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        wk = torch.randn(d, a, generator=gen, device="cuda").mul(0.1).to(dt)
+        bk = torch.randn(a, generator=gen, device="cuda").mul(0.1)
+        args = (graph.csr, q, x, wk, bk, None, "scaled_dot", heads)
+        with torch.no_grad():
+            fn = lambda: pin_mod.attention_pin(*args)  # noqa: E731
+            err = float((fn() - pin_mod.attention_pin_plain(*args))
+                        .abs().max())
+            nbytes = (n * d * b + n * a * b + d * a * b + 4 * a + 4 * e
+                      + 4 * (n + 1) + 4 * e)
+            bms, by = here.bound_ms(nbytes, 2.0 * n * d * a
+                                    + e * (2.0 * a + 6 * heads), name)
+            emit(kernel="attention_pin", graph=label, dtype=name, N=n, E=e,
+                 D=d, A=a, H=heads, ms=here.time_ms(fn), max_abs_err=err,
+                 bound_ms=bms, bound_by=by,
+                 all_miss_ms=(nbytes + 4 * n * a + 4 * e * a)
+                 / here.HBM_BYTES_PER_S * 1e3,
+                 kproj_ms=here.time_ms(
+                     lambda: fa.attention_kproj(x, wk, bk)))
+
+    data = get_dataset("ogbn-arxiv")
+    g = Trainer(best_config("ogbn-arxiv", community_window=0),
+                data).data.graph
+    for dt in (torch.bfloat16, torch.float32):
+        case("arxiv CSR", g, dt, 162, 32, 2)
+    for label, gr in (("hub", here.hub_graph("cuda")),
+                      ("pareto", pareto_graph("cuda"))):
+        case(label, gr, torch.bfloat16, 162, 32, 2)
+    del data, g
+    torch.cuda.empty_cache()
+    for ds in ("Computers", "Photo"):
+        cfg = best_config(ds)
+        tr = Trainer(cfg, get_dataset(ds))
+        case(ds, tr.data.graph, torch.float32, cfg.hidden_dim,
+             cfg.attention_dim, cfg.heads)
+        steady_epochs(emit, ds, tr)
+        del tr
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None,
                     help="measure this checkout in this process")
     ap.add_argument("--parent", default=None,
                     help="a second checkout, measured in turns")
-    ap.add_argument("--only", choices=("windowed", "attention"),
+    ap.add_argument("--only", choices=("windowed", "attention", "spmm",
+                                       "pin"),
                     default=None, help="one group of measurements")
     args = ap.parse_args()
     if args.root is not None:

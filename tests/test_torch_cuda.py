@@ -1064,3 +1064,96 @@ def test_cuda_walk_rejects_bad_outputs(cuda):
                              addend=torch.zeros(g.num_nodes, 16,
                                                 dtype=torch.bfloat16,
                                                 device=cuda))
+
+
+# ----------------------------------------------------------------------
+# spmm_csr's row walk and segments, the pin's row walk
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [162, 5, 64, 300])
+def test_cuda_spmm_widths_views_and_long_rows(cuda, dtype, d):
+    """spmm_csr on a graph with rows and columns over ROW_SPLIT, empty rows
+    and duplicate edges, A x and A^T g: within its tolerance of the plain
+    version, and bit for bit the same result whatever the load width (a
+    view one value in takes single values; each column's f32 sum runs over
+    the same edges in the same order). Tolerance: one rounding of the
+    output (1e-5 f32, 2^-7 bf16, relative) plus, per entry, two f32 sums of
+    deg terms in different orders (the kernel's segments, index_add_'s
+    atomics), 2 sqrt(deg) 2^-24 sum|w x| (rows of 700 and 3,000 terms
+    with cancellation)."""
+    from graphax_torch.kernels import LAUNCHES
+
+    g = _walk_graph(cuda, seed=13)
+    n, tdt = g.num_nodes, getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+    w = g.edge_weight.to(tdt)
+    rtol = 1e-5 if dtype == "float32" else BF16_RTOL
+    xo = _off_word(x)
+    assert fa.gather_width(xo) == x.element_size()
+    for lay, vals in ((g.csr, w), (g.csc, spmm_mod.transpose_values(g, w))):
+        want = spmm_mod.spmm_csr_plain(lay, vals, x, n).float()
+        deg = (lay.ptr[1:] - lay.ptr[:-1]).float()[:, None]
+        tol = rtol * want.abs() + 2 * deg.sqrt() * 2.0 ** -24 \
+            * spmm_mod.spmm_csr_plain(lay, vals.abs(), x.abs(), n).float()
+        LAUNCHES.clear()
+        got = spmm_mod.spmm_csr(lay, vals, x, n)
+        assert LAUNCHES["spmm_csr"] == 1
+        assert bool(((got.float() - want).abs() <= tol).all())
+        assert torch.all(got[-3:] == 0)
+        assert torch.equal(spmm_mod.spmm_csr(lay, vals, xo, n), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("att_type", ["scaled_dot", "cosine_sim", "pearson",
+                                      "exp_kernel"])
+def test_cuda_pin_long_rows_and_empty_rows(cuda, dtype, att_type):
+    """The pin on a graph with rows of 0, 1, 31, 32, 33, 700 and 3,000
+    edges (those over 32 in segments), reweight off and on, at Computers'
+    widths (D 128, A 64, 4 heads): within the pin's tolerance of the plain
+    version; one wrapper call, one K projection."""
+    from graphax_torch.kernels import LAUNCHES
+
+    g = _walk_graph(cuda, seed=14)
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n, d, a = g.num_nodes, 128, 64
+    q = (0.3 * torch.randn(n, a, generator=gen, device=cuda)).to(tdt)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+    wk = (0.1 * torch.randn(d, a, generator=gen, device=cuda)).to(tdt)
+    bk = 0.1 * torch.randn(a, generator=gen, device=cuda)
+    for ew in (None, g.edge_weight):
+        args = (g.csr, q, x, wk, bk, ew, att_type, 4, 1.3, 0.7)
+        LAUNCHES.clear()
+        got = pin_mod.attention_pin(*args)
+        assert LAUNCHES["attention_pin"] == LAUNCHES["attention_kproj"] == 1
+        torch.testing.assert_close(got, pin_mod.attention_pin_plain(*args),
+                                   rtol=2e-4, atol=2e-5)
+
+
+def test_cuda_pin_wide_rows_follow_the_k_projection(cuda):
+    """The pin at D 400, A 120, 4 heads: bf16 runs (its K table on the
+    tensor cores) within the pin's tolerance of the plain version; f32
+    raises (the CUDA-core projection's f32 Wk and staged rows exceed a
+    block's shared memory) before any launch."""
+    from graphax_torch.kernels import LAUNCHES
+
+    g = _walk_graph(cuda, seed=15)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n, d, a = g.num_nodes, 400, 120
+    for tdt in (torch.bfloat16, torch.float32):
+        q = (0.3 * torch.randn(n, a, generator=gen, device=cuda)).to(tdt)
+        x = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+        wk = (0.05 * torch.randn(d, a, generator=gen, device=cuda)).to(tdt)
+        bk = 0.1 * torch.randn(a, generator=gen, device=cuda)
+        args = (g.csr, q, x, wk, bk, g.edge_weight, "scaled_dot", 4)
+        LAUNCHES.clear()
+        if tdt == torch.float32:
+            with pytest.raises(ValueError, match="shared memory"):
+                pin_mod.attention_pin(*args)
+            assert not LAUNCHES
+            continue
+        got = pin_mod.attention_pin(*args)
+        assert LAUNCHES["attention_pin"] == LAUNCHES["attention_kproj"] == 1
+        torch.testing.assert_close(got, pin_mod.attention_pin_plain(*args),
+                                   rtol=2e-4, atol=2e-5)
