@@ -54,8 +54,16 @@ and prints no result):
    them, each bit for bit its f32 output (plus the addend) cast once;
    win_bwd_dense with both output dtypes, its bf16 output held to its f32
    output cast, bit for bit, and the win_matmul Function's backward with
-   no cast of a [T, tile, W] block; then one line naming every ported
-   kernel;
+   no cast of a [T, tile, W] block; win_bwd_slab (the layout's tiles per
+   window printed) with both output dtypes, its bf16 output the f32
+   output cast, bit for bit, beside ``bmm`` + ``index_add_`` (two calls),
+   on a layout whose window 1 no tile maps (its rows read zero), and the
+   win_matmul Function's backward with no cast of a [Wn W, D] slab or its
+   [N, D] rows; the f32 K projection (the pin's on the windowed and
+   dense strategies) on random operands at the arxiv widths, Computers',
+   Photo's and D 400, A 120, each beside ``addmm(out_dtype=float32)``,
+   and at odd D, a view one value in and N = 1,001; the f32 pin at D 400,
+   A 120 on the arxiv CSR; then one line naming every ported kernel;
 5. slice: the main path, ``Trainer(best_config("ogbn-arxiv"),
    get_dataset("ogbn-arxiv")).fit(3 epochs)``, with the kernel launch
    counts of that run; then the earlier ``community_window=0`` path for as
@@ -83,7 +91,8 @@ and prints no result):
    win_bwd_dense and win_bwd_slab once per adjoint NFE); then with
    ``community_window=0, attention_norm_idx=1``: a softmax and a squareplus
    evaluation and ``fit(2 epochs)`` through the column route;
-6. breakdown: one more train step of the windowed path, one GRAND-nl
+6. breakdown: one more train step of the windowed path (win_bwd_slab
+   once per adjoint NFE), one GRAND-nl
    evaluation and one GRAND-nl train step, one Computers train step and
    early-stop evaluation, one GRAND-nl dense evaluation, one windowed
    GRAND-nl train step and evaluation, one column-normalised train step,
@@ -289,9 +298,10 @@ def hold_to_plain(results: dict, row: dict, fn, plain, tol, nbytes: float,
     return got
 
 
-def block_casts(fn, shape) -> int:
-    """The dtype casts (``aten::_to_copy``) of a tensor shaped ``shape``
-    while ``fn()`` runs, from torch.profiler's recorded shapes."""
+def block_casts(fn, *shapes) -> list:
+    """The dtype casts (``aten::_to_copy``) of a tensor shaped like each of
+    ``shapes`` while ``fn()`` runs, from torch.profiler's recorded shapes:
+    one count per shape."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -299,9 +309,9 @@ def block_casts(fn, shape) -> int:
                  record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for ev in prof.events() if ev.name == "aten::_to_copy"
-               and ev.input_shapes
-               and list(ev.input_shapes[0]) == list(shape))
+    seen = [list(ev.input_shapes[0]) for ev in prof.events()
+            if ev.name == "aten::_to_copy" and ev.input_shapes]
+    return [seen.count(list(shape)) for shape in shapes]
 
 
 def spmm_shape(x) -> dict:
@@ -357,20 +367,21 @@ def spmm_check(results: dict, row: dict, lay, vals, x, n: int, lib=None,
 
 
 def pin_checks(results: dict, label: str, graph, gen, dt,
-               timed: bool = True) -> None:
-    """attention_pin against its plain version within TOL_PIN over every
-    score type, reweight off and on, on ``graph``'s CSR at the arxiv
-    preset's widths (D 162, A 32, 2 heads; random q, x, Wk, bk); the
-    scaled_dot case without reweight timed when ``timed``, beside its bound
-    (q, x, Wk, the CSR read once, one f32 written per edge) and its
-    all-miss count (the K table written and one K row read per edge from
-    device memory)."""
+               timed: bool = True, d: int = 162, a: int = 32,
+               heads: int = 2, att_types=("scaled_dot", "cosine_sim",
+                                          "pearson", "exp_kernel")) -> None:
+    """attention_pin against its plain version within TOL_PIN over
+    ``att_types``, reweight off and on, on ``graph``'s CSR at the arxiv
+    preset's widths (D 162, A 32, 2 heads; random q, x, Wk, bk) unless
+    others are given; the scaled_dot case without reweight timed when
+    ``timed``, beside its bound (q, x, Wk, the CSR read once, one f32
+    written per edge) and its all-miss count (the K table written and one
+    K row read per edge from device memory)."""
     import torch
 
     from graphax_torch.kernels import attention_pin as pin_mod
 
     n, e = graph.num_nodes, graph.num_edges
-    d, heads, a = 162, 2, 32
     name = str(dt).replace("torch.", "")
     b = dt.itemsize
     q = torch.randn(n, a, generator=gen, device="cuda").mul(0.3).to(dt)
@@ -381,14 +392,15 @@ def pin_checks(results: dict, label: str, graph, gen, dt,
     nbytes = (n * d * b + n * a * b + d * a * b + 4 * a + e * 4 + 4 * (n + 1)
               + e * 4)
     ops = 2.0 * n * d * a + e * (2.0 * a + 6 * heads)
-    for att in ("scaled_dot", "cosine_sim", "pearson", "exp_kernel"):
+    for att in att_types:
         for rw in (False, True):
             args = (graph.csr, q, xs, wk, bk, ew if rw else None, att, heads,
                     1.0, 0.5)
             # f32 scores in either dtype (bf16 products are exact in f32)
             hold_to_plain(
                 results, dict(kernel="attention_pin", graph=label,
-                              dtype=name, att_type=att, reweight=rw),
+                              dtype=name, att_type=att, reweight=rw, D=d,
+                              A=a, H=heads),
                 lambda: pin_mod.attention_pin(*args),
                 lambda: pin_mod.attention_pin_plain(*args), TOL_PIN, nbytes,
                 ops, timed=timed and att == "scaled_dot" and not rw,
@@ -485,6 +497,9 @@ def phase_kernels(graph, results: dict) -> None:
         pin_checks(results, "arxiv CSR", graph, gen, dt)
         pin_checks(results, "small", _nl_small_graph("cuda"), gen, dt,
                    timed=False)
+        if dt == torch.float32:   # wide rows: the f32 K projection's range
+            pin_checks(results, "D400 A120", graph, gen, dt, d=400, a=120,
+                       heads=4, att_types=("scaled_dot",))
         del x, g
         torch.cuda.empty_cache()
 
@@ -516,9 +531,12 @@ def phase_windowed_kernels(graph, results: dict) -> None:
         n = g.num_nodes
         t_, tile, w_, wn = wl.num_tiles, wl.tile, wl.window, wl.num_windows
         cells = t_ * tile * w_
+        per_win = (wl.win_ptr[1:] - wl.win_ptr[:-1]).float()
         emit({"phase": "kernels", "layout": shape, "T": t_, "tile": tile,
               "W": w_, "Wn": wn, "D": d, "in_window": wl.in_window_edges,
-              "residual": wl.residual.num_slots})
+              "residual": wl.residual.num_slots,
+              "tiles_per_window_max": int(per_win.max()),
+              "tiles_per_window_mean": float(per_win.mean())})
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).replace("torch.", "")
             b = torch.finfo(dt).bits // 8
@@ -599,33 +617,104 @@ def phase_windowed_kernels(graph, results: dict) -> None:
             check(same, f"win_bwd_dense {shape} {name}: the bf16 output is "
                   "not the f32 output cast")
             del f32_out, b16_out
-            run("win_bwd_slab", lambda: ws.win_bwd_slab(wl, dense, gr),
-                lambda: ws.win_bwd_slab_plain(wl, dense, gr), TOL_WIN,
-                cells * b + n * d * b + wn * w_ * d * 4, flops)
-            del slab_g, g_t
+            # f32 output, then the output in x's dtype (the path's: the
+            # first N slab rows rounded once, no f32 slab, no cast pass)
+            f32_out = run("win_bwd_slab",
+                          lambda: ws.win_bwd_slab(wl, dense, gr),
+                          lambda: ws.win_bwd_slab_plain(wl, dense, gr),
+                          TOL_WIN, cells * b + n * d * b + n * d * 4, flops,
+                          staging=ws.slab_staging(dense, gr)
+                          if dt == torch.bfloat16 else "cuda_core")
+            if dt == torch.bfloat16:
+                b16_out = run(
+                    "win_bwd_slab",
+                    lambda: ws.win_bwd_slab(wl, dense, gr, dt),
+                    lambda: ws.win_bwd_slab_plain(wl, dense, gr, dt),
+                    TOL["bfloat16"], cells * b + 2 * n * d * b, flops,
+                    product="bf16_out")
+                same = bool(torch.equal(b16_out, f32_out.to(dt)))
+                emit({"phase": "kernels", "kernel": "win_bwd_slab",
+                      "layout": shape, "dtype": name,
+                      "bf16_out_equals_f32_out_cast": same})
+                check(same, f"win_bwd_slab {shape} {name}: the bf16 output "
+                      "is not the f32 output cast")
+                del b16_out
+            if timed:   # the same function in two PyTorch calls
+                tw = wl.tile_win.long()
+                row_ = results[("win_bwd_slab", name)]
+                row_["two_calls"] = "torch.bmm + index_add_ (f32 slab)"
+                row_["two_calls_ms"] = time_ms(
+                    lambda: torch.zeros(wn, w_, d, device="cuda").index_add_(
+                        0, tw, torch.bmm(dense.transpose(1, 2), g_t,
+                                         out_dtype=torch.float32)), reps=5)
+            del f32_out, slab_g, g_t
 
             # the Function's dx and d_dense against the plain products
             dr = dense.clone().requires_grad_(True)
             xr = x.clone().requires_grad_(True)
             probe = torch.randn(n, d, generator=gen, device="cuda")
+            pc = probe.to(dt)
             out_ = ws._WinMatmul.apply(dr, xr, wl, addend)
-            casts = block_casts(lambda: out_.backward(probe.to(dt)),
-                                wl.block_shape)
+            casts, slab_casts, rows_casts = block_casts(
+                lambda: out_.backward(pc), wl.block_shape, (wn * w_, d),
+                (n, d))
             check(casts == 0, f"win_matmul backward {shape} {name}: "
                   f"{casts} casts of a [T, tile, W] block")
-            pc = probe.to(dt)
+            check(slab_casts == rows_casts == 0,
+                  f"win_matmul backward {shape} {name}: {slab_casts} casts "
+                  f"of a [Wn W, D] slab, {rows_casts} of its [N, D] rows")
             tol = TOL_WIN if dt == torch.float32 else TOL["bfloat16"]
-            cx = compare(xr.grad, ws.win_bwd_slab_plain(wl, dense, pc)[:n]
-                         .to(dt), tol)
+            cx = compare(xr.grad, ws.win_bwd_slab_plain(wl, dense, pc, dt),
+                         tol)
             cd = compare(dr.grad, ws.win_bwd_dense_plain(wl, pc, x).to(dt),
                          tol)
             emit({"phase": "kernels", "kernel": "win_matmul (autograd)",
                   "layout": shape, "dtype": name, "dx": cx, "d_dense": cd,
-                  "block_casts_in_backward": casts})
+                  "block_casts_in_backward": casts,
+                  "slab_casts_in_backward": slab_casts + rows_casts})
             check(cx["ok"] and cd["ok"],
                   f"win_matmul gradients {shape} {name} disagree")
             del x, gr, dense, dr, xr, probe, addend, res
             torch.cuda.empty_cache()
+
+    # a window that no tile maps: its slab rows read zero, in both outputs
+    wl = _empty_window_graph("cuda").windows
+    n, w_ = wl.num_nodes, wl.window
+    check(1 not in set(wl.tile_win.tolist()), "window 1 has a tile")
+    vals = torch.rand(n * 12, generator=gen, device="cuda") + 0.1
+    for dt in (torch.float32, torch.bfloat16):
+        dense = ws.densify(wl, vals, dt)
+        gr = torch.randn(n, 162, generator=gen, device="cuda").to(dt)
+        f32_out = ws.win_bwd_slab(wl, dense, gr)
+        c = compare(f32_out, ws.win_bwd_slab_plain(wl, dense, gr), TOL_WIN)
+        out_dt = ws.win_bwd_slab(wl, dense, gr, dt)
+        zero = not (f32_out[w_:2 * w_].any() or out_dt[w_:2 * w_].any())
+        same = bool(torch.equal(out_dt, f32_out.to(dt)))
+        emit({"phase": "kernels", "kernel": "win_bwd_slab",
+              "layout": "empty window", "dtype": str(dt)[6:], **c,
+              "empty_window_zero": zero, "x_dtype_out_equals_f32_cast": same})
+        check(c["ok"] and zero and same,
+              f"win_bwd_slab on a layout with an empty window, {dt}")
+
+
+def _empty_window_graph(device, n=301, tile=8, window=32, seed=6):
+    """Communities of one window each plus random edges, except that the
+    rows of window 1 take their columns from window 0: no tile maps
+    window 1. N off the tile; windowed layout of tile 8, W 32."""
+    import numpy as np
+
+    from graphax_torch.kernels.dispatch import attach_windows
+    from graphax_torch.sparse.graph import Graph
+
+    rng = np.random.RandomState(seed)
+    e = 10 * n
+    row = rng.randint(0, n, e)
+    home = np.where(row // window == 1, 0, row // window)
+    col = np.clip(home * window + rng.randint(0, window, e), 0, n - 1)
+    key = np.unique(row * n + col)
+    return attach_windows(Graph.from_edges(
+        key // n, key % n, n, rng.rand(len(key)) + 0.1,
+        edge_buffer_size=n * 12, device=device), window=window, tile=tile)
 
 
 def randomize_attention(att, seed: int) -> None:
@@ -640,6 +729,54 @@ def randomize_attention(att, seed: int) -> None:
             lin.weight.copy_(0.3 * torch.randn(lin.weight.shape,
                                                generator=gen))
             lin.bias.copy_(0.1 * torch.randn(lin.bias.shape, generator=gen))
+
+
+def phase_kproj_kernels(dense: dict, results: dict) -> None:
+    """The f32 K projection (the pin's on the windowed arxiv preset and on
+    Computers and Photo) against its plain version within TOL_KPROJ on
+    random x, Wk, bk from a seed: at the arxiv widths (N 169,343, D 162, A
+    32), Computers' and Photo's (their stand-ins' N, the presets' hidden
+    and attention widths), D 400, A 120 at arxiv's N (operations-bound),
+    each timed beside its bound and ``addmm(out_dtype=float32)``; then
+    untimed odd D (161), a view of x one value in, and N = 1,001 (off the
+    128-row tile), each with the copy bytes it stages by."""
+    import torch
+
+    from graphax_torch.kernels import fused_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    n_ax = 169_343
+    shapes = [("arxiv", n_ax, 162, 32, True)]
+    for name, (d_, tr_) in dense.items():
+        shapes.append((name, d_.num_nodes, tr_.cfg.hidden_dim,
+                       tr_.cfg.attention_dim, True))
+    shapes += [("D400 A120", n_ax, 400, 120, True),
+               ("odd D", n_ax, 161, 32, False),
+               ("view", n_ax, 162, 32, False),
+               ("N 1001", 1001, 162, 32, False)]
+    with torch.no_grad():
+        for tag, n, d, a, timed in shapes:
+            x = torch.randn(n, d, generator=gen, device="cuda")
+            if tag == "view":
+                buf = torch.empty(n * d + 1, device="cuda")
+                buf[1:].copy_(x.view(-1))
+                x = buf[1:].view(n, d)
+            wk = torch.randn(d, a, generator=gen, device="cuda") / d ** 0.5
+            bk = 0.1 * torch.randn(a, generator=gen, device="cuda")
+            hold_to_plain(
+                results, dict(kernel="attention_kproj", dtype="float32",
+                              shape=tag, N=n, D=d, A=a,
+                              route=fa.kproj_route(x.dtype, d, a),
+                              copy_bytes=[fa.kproj_copy_bytes(x),
+                                          fa.kproj_copy_bytes(wk)]),
+                lambda: fa.attention_kproj(x, wk, bk),
+                lambda: fa.attention_kproj_plain(x, wk, bk), TOL_KPROJ,
+                4 * (n * d + d * a + a + n * a), 2.0 * n * d * a,
+                ("torch.addmm out_dtype=float32",
+                 lambda: torch.addmm(bk, x, wk, out_dtype=torch.float32)),
+                timed=timed, tag=tag)
+            del x, wk, bk
+    torch.cuda.empty_cache()
 
 
 def _nl_small_graph(device):
@@ -2067,6 +2204,7 @@ def main(argv=None) -> int:
     phase_kernels(trainer0.data.graph, results)
     phase_windowed_kernels(graph, results)
     phase_flash_kernels(trainer_nl, results)
+    phase_kproj_kernels(dense, results)
     phase_train_kernels(trainer_nl, results)
     phase_three_kernel_kernels(trainer_nlw, trainer_nlc, results)
     phase_hub_kernels(trainer_nl, results)
@@ -2161,10 +2299,18 @@ def main(argv=None) -> int:
                                per_nfe=("flash_dense",)).items():
         launches[k] = launches.get(k, 0) + v
 
-    # 6. where the time goes, on the windowed path
-    emit({"phase": "breakdown", "path": "windowed",
-          **phase_breakdown([("graphax_torch.train_step", trainer.train_step),
-                             ("graphax_torch.evaluate", trainer.evaluate)])})
+    # 6. where the time goes, on the windowed path: win_bwd_slab once per
+    # adjoint NFE, dx in x's dtype straight from it
+    _build.LAUNCHES.clear()
+    bd = phase_breakdown([("graphax_torch.train_step", trainer.train_step),
+                          ("graphax_torch.evaluate", trainer.evaluate)],
+                         after="win_bwd_slab")
+    bd["after"]["adjoint_nfe"] = trainer.bm.get_value()
+    emit({"phase": "breakdown", "path": "windowed", **bd})
+    check(bd["after"]["launches"] == _build.LAUNCHES["win_bwd_slab"]
+          == bd["after"]["adjoint_nfe"] > 0,
+          f"the windowed profile: win_bwd_slab {bd['after']} against "
+          f"{_build.LAUNCHES['win_bwd_slab']} launches")
     emit({"phase": "breakdown", "path": "grand_nl",
           **phase_breakdown([("graphax_torch.evaluate", trainer_nl.evaluate)])})
     emit({"phase": "breakdown", "path": "grand_nl_train",
@@ -2227,7 +2373,7 @@ def main(argv=None) -> int:
              ("win_bwd_dense", ("win_bwd_dense", "bfloat16", "bf16_out"),
               "graphax_torch/kernels/csrc/windowed_spmm.cu",
               "graphax/kernels/pallas_windows.py:214"),
-             ("win_bwd_slab", ("win_bwd_slab", "bfloat16"),
+             ("win_bwd_slab", ("win_bwd_slab", "bfloat16", "bf16_out"),
               "graphax_torch/kernels/csrc/windowed_spmm.cu",
               "graphax/kernels/pallas_windows.py:243"),
              ("flash_attention", ("flash_attention", "bfloat16"),
@@ -2270,6 +2416,8 @@ def main(argv=None) -> int:
                         "library_ms": r["library_ms"],
                         "library": r.get("library"), "dtype": key[1]})
     walked = ("max_abs_err", "ms", "plain_ms", "bound_ms", "all_miss_ms")
+    numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
     spmm = kernels[0]
     spmm["all_miss_ms"] = results[("spmm_csr", "bfloat16",
                                    "residual A.x")]["all_miss_ms"]
@@ -2305,6 +2453,22 @@ def main(argv=None) -> int:
                   "library_ms")}
     kernels[4]["variant"] = ("with the residual SpMM's result added in the "
                              "epilogue, as the main path calls it")
+    slab = results[("win_bwd_slab", "bfloat16")]
+    kernels[6]["variant"] = ("bf16 in, bf16 out (x's dtype, as the main path "
+                             "runs it); f32_out: graphax's f32 sums")
+    kernels[6]["f32_out"] = {k: slab[k] for k in numbers}
+    kernels[6]["two_calls"] = slab["two_calls"]
+    kernels[6]["two_calls_ms"] = slab["two_calls_ms"]
+    kproj = kernels[9]
+    for tag in ("arxiv", "Computers", "Photo", "D400 A120"):
+        r = results[("attention_kproj", "float32", tag)]
+        kproj["float32 " + tag] = {k: r[k] for k in numbers}
+    kproj["float32_launches"] = (
+        "the pin's: once per attention_pin call (f32 on the windowed arxiv "
+        "preset, Computers and Photo), counted under attention_kproj")
+    pin["float32 D400 A120"] = {
+        k: results[("attention_pin", "float32", "D400 A120")].get(k)
+        for k in walked}
     flash = results[("flash_attention", "bfloat16")]
     kernels[7]["all_miss_ms"] = flash["all_miss_ms"]
     kernels[7]["function_ms"] = flash["function_ms"]
@@ -2334,8 +2498,6 @@ def main(argv=None) -> int:
         k: fd.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms",
                                "csr_flash_attention_ms")}
-    numbers = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms")
     kernels[14]["also_replaces"] = "graphax/kernels/pallas_attention.py:114"
     kernels[14]["variant"] = ("K1 + K2 under one shift for every row: the "
                               "windowed residual under r0")

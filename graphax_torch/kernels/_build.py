@@ -52,7 +52,8 @@ SIGNATURES = {
                              _F, _F, _I, _I, _I, _I, _I, _I, _P],
     },
     "fused_attention": {
-        "gx_attention_kproj": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "gx_attention_kproj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P],
         "gx_attention_kproj_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "gx_attention_gmax": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _F, _F, _I, _P],
@@ -84,7 +85,7 @@ SIGNATURES = {
         "gx_win_bwd_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
         "gx_win_bwd_slab": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _P],
+                            _I, _I, _P],
     },
 }
 

@@ -84,7 +84,7 @@ def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         raise ValueError("attention_pin: layout and x disagree on N")
     wpb = fa.flash_warps(a, heads)
     if not fa.kproj_supported(x.dtype, d, a) or wpb < 1:
-        raise ValueError(f"attention_pin: D*A too large for shared memory "
+        raise ValueError(f"attention_pin: A too large for shared memory "
                          f"(D={d}, A={a}, H={heads})")
     tensors = [layout.ptr, layout.idx, q, x, wk, bk]
     if edge_w is not None:

@@ -33,12 +33,25 @@
 //                 state-dtype products, in another order) from N rows:
 //                 2*N*D*A flops instead of 2*E*D*A. f32 (and bf16 shapes
 //                 whose x tile does not fit shared memory) on CUDA-core
-//                 FMAs; bf16 on the tensor cores, kproj_tc_kernel: bound
+//                 FMAs, no TF32: at the arxiv widths in f32 its bytes (110
+//                 MB of x in, 22 MB of K out, 0.039 ms at 3.35 TB/s) and its
+//                 1.76 GFLOP (0.026 ms at 67 TFLOP/s) lie close, so x must
+//                 stream at full rate while the FMA pipes stay busy. The
+//                 first body (a lane per output column, x staged by scalar
+//                 loads, two shared loads per FMA, all of Wk in shared
+//                 memory: the D*A limit) took 0.168 ms on the H100; this one
+//                 is a register-tiled GEMM for a skinny output, x and Wk
+//                 streamed together in chunks of 32 along D through a
+//                 3-stage cp.async ring (no D*A limit), 4 x 4 or 4 x 8
+//                 outputs a thread from 16-byte shared loads, persistent
+//                 over 128-row tiles: 0.099 ms there (PERF.md: its products
+//                 wait on shared memory about as long as its staging waits
+//                 on device memory). bf16 on the tensor cores,
+//                 kproj_tc_kernel: bound
 //                 by bytes (55 MB of x in, 22 MB of f32 K out at the arxiv
 //                 shapes, 0.023 ms), so x streams in whole 128-row tiles by
 //                 16-byte cp.async and the products (1.76 GFLOP) go
-//                 through mma.sync, where the CUDA-core body was bound by
-//                 its shared-load issue (5 loads per 4 FMAs).
+//                 through mma.sync.
 //   gmax_kernel   one warp per CSR row scores its edges against K[col]; a
 //                 warp max, a block max, one atomicMax per block on an
 //                 order-preserving integer encoding (max is order-free, so
@@ -152,7 +165,6 @@ namespace {
 
 constexpr int WPB = 8;     // warps (rows in flight) per block
 constexpr int CPL = 8;     // columns per lane in one pass-2 chunk (256 wide)
-constexpr int KROWS = 4;   // rows per warp at a time in the K projection
 constexpr float EPS = 1e-16f;
 constexpr float NEG = -1e30f;
 
@@ -207,39 +219,193 @@ __device__ __forceinline__ float edge_score(const float* qs, const float* kt,
   return s;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(WPB * 32)
+// The CUDA-core K projection (f32, and bf16 shapes whose x tile the
+// tensor-core kernel cannot hold): a register-tiled GEMM for a skinny
+// output. A CTA of 256 threads walks 128-row tiles of x (persistent over
+// them) for KC_BN = 8 TN output columns (gridDim.y splits wider A); thread
+// (ty, tx) of 32 x 8 holds rows ty + 32 i (i < 4) by columns 32 j + 4 tx ..
+// + 3 (j < TN / 4): 4 TN f32 accumulators. x and Wk stream together in
+// chunks of KC_BK = 32 along D, one chunk's x rows [128][KC_BK] and Wk rows
+// [KC_BK][KC_BN] a stage, through a ring of KC_STAGES stages that the next
+// tile's first chunks enter while this tile's last ones are multiplied.
+// Copies are cp.async of vx (vw) bytes, 16, 8 or 4, the widest that divides
+// a row's bytes and the operand's start (zero-filled past D, N or A), or
+// one value at a time (0: odd D or A in bf16, a view that starts
+// mid-pair). Each step of 4 along D reads 4 x vectors and TN Wk vectors of
+// 4 values (16- or 8-byte shared loads: x's pitch of KC_BK + 16 bytes puts
+// a warp's 4 rows in distinct banks, and its 8 column groups read 128
+// contiguous bytes of Wk) for 16 TN FMAs. Each output is the f32 sum of
+// the exact products in D's order (no TF32), bk added last; rows leave as
+// 16-byte stores, a warp's 8 column groups one 128-byte row segment.
+constexpr int KC_THREADS = 256, KC_TM = 4, KC_BM = 32 * KC_TM, KC_BK = 32,
+              KC_STAGES = 3;
+
+__host__ __device__ constexpr int ilog2(int v) {
+  return v <= 1 ? 0 : 1 + ilog2(v / 2);
+}
+// x's shared row pitch (KC_BK values + 16 bytes) and a stage's values
+template <typename T> __host__ __device__ constexpr int kc_px() {
+  return KC_BK + 16 / (int)sizeof(T);
+}
+template <typename T, int BN> __host__ __device__ constexpr int kc_stage() {
+  return KC_BM * kc_px<T>() + KC_BK * BN;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float comp(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// S [R][P] (R x C, C a power of two) = src[r * ld + c] for r < rows and c <
+// cols, else 0: cp.async of vb bytes (16, 8 or 4; cols and C divide by its
+// values), or one value per plain copy where vb == 0
+template <typename T, int R, int C>
+__device__ __forceinline__ void kc_stage_rows(T* S, int P, const T* src,
+                                              size_t ld, int rows, int cols,
+                                              int vb, int tid) {
+  constexpr int LC = ilog2(C);
+  if (vb == 0) {
+    for (int i = tid; i < R * C; i += KC_THREADS) {
+      const int r = i >> LC, c = i & (C - 1);
+      S[r * P + c] = r < rows && c < cols ? src[r * ld + c] : from_f<T>(0.f);
+    }
+    return;
+  }
+  const int lp = __ffs(vb) - 1 - (sizeof(T) == 4 ? 2 : 1);  // log2 values a copy
+  const int lcpr = LC - lp;
+  for (int i = tid; i < (R << lcpr); i += KC_THREADS) {
+    const int r = i >> lcpr, c = (i & ((1 << lcpr) - 1)) << lp;
+    const bool ok = r < rows && c < cols;
+    T* dst = S + r * P + c;
+    const T* s = ok ? src + r * ld + c : src;
+    if (vb == 16)
+      gx_tc::cp_async16_zfill(dst, s, ok);
+    else if (vb == 8)
+      gx_tc::cp_async8_zfill(dst, s, ok);
+    else
+      gx_tc::cp_async4_zfill(dst, s, ok);
+  }
+}
+
+template <typename T, int TN>
+__global__ void __launch_bounds__(KC_THREADS)
 kproj_kernel(const T* __restrict__ x, const T* __restrict__ wk,
              const float* __restrict__ bk, float* __restrict__ kt, int n,
-             int d, int a) {
-  extern __shared__ float smem[];
-  float* wk_s = smem;                                    // [d, a]
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* xs = wk_s + (size_t)d * a + (size_t)w * KROWS * d;  // [KROWS, d]
-  for (int i = threadIdx.x; i < d * a; i += blockDim.x) wk_s[i] = to_f(wk[i]);
-  __syncthreads();
-  const int stride = gridDim.x * WPB * KROWS;
-  for (int r0 = (blockIdx.x * WPB + w) * KROWS; r0 < n; r0 += stride) {
-    const int nr = min(KROWS, n - r0);
-    __syncwarp();
-    for (int i = lane; i < nr * d; i += 32) xs[i] = to_f(x[(size_t)r0 * d + i]);
-    __syncwarp();
-    for (int c = lane; c < a; c += 32) {
-      float acc[KROWS];
-#pragma unroll
-      for (int r = 0; r < KROWS; ++r) acc[r] = 0.f;
-      for (int j = 0; j < d; ++j) {
-        const float wv = wk_s[j * a + c];
-#pragma unroll
-        for (int r = 0; r < KROWS; ++r)
-          if (r < nr) acc[r] += xs[r * d + j] * wv;
+             int d, int a, int vx, int vw) {
+  constexpr int BN = 8 * TN, PX = kc_px<T>(), STAGE = kc_stage<T, BN>();
+  extern __shared__ __align__(16) unsigned char smem_kc[];
+  T* ring = reinterpret_cast<T*>(smem_kc);
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int c0 = blockIdx.y * BN, nc = min(BN, a - c0);
+  const int tiles = (n + KC_BM - 1) / KC_BM, nkc = (d + KC_BK - 1) / KC_BK;
+  const int mine = (int)blockIdx.x < tiles
+                       ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int total = mine * nkc;
+  // the stage of step f (the CTA's tiles in turn, each chunk by chunk)
+  int it = 0, ik = 0;  // tile (of this CTA's) and chunk of the next issue
+  auto issue = [&](int f) {
+    if (f < total) {
+      T* xs = ring + (f % KC_STAGES) * STAGE;
+      const int r0 = ((int)blockIdx.x + it * (int)gridDim.x) * KC_BM;
+      const int k0 = ik * KC_BK, kw = min(KC_BK, d - k0);
+      kc_stage_rows<T, KC_BM, KC_BK>(xs, PX, x + (size_t)r0 * d + k0, d,
+                                     min(KC_BM, n - r0), kw, vx, tid);
+      kc_stage_rows<T, KC_BK, BN>(xs + KC_BM * PX, BN,
+                                  wk + (size_t)k0 * a + c0, a, kw, nc, vw,
+                                  tid);
+      if (++ik == nkc) {
+        ik = 0;
+        ++it;
       }
-      const float b = bk[c];
+    }
+    gx_tc::cp_async_commit();
+  };
 #pragma unroll
-      for (int r = 0; r < KROWS; ++r)
-        if (r < nr) kt[(size_t)(r0 + r) * a + c] = acc[r] + b;
+  for (int s = 0; s < KC_STAGES - 1; ++s) issue(s);
+  float bkr[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int c = 32 * (j >> 2) + 4 * tx + (j & 3);
+    bkr[j] = c < nc ? bk[c0 + c] : 0.f;
+  }
+  float acc[KC_TM][TN];
+#pragma unroll
+  for (int i = 0; i < KC_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  int kc = 0, tl = blockIdx.x;  // chunk and tile of step f
+  for (int f = 0; f < total; ++f) {
+    gx_tc::cp_async_wait<KC_STAGES - 2>();
+    __syncthreads();  // step f is in; step f - 1's stage is free
+    issue(f + KC_STAGES - 1);
+    const T* xs = ring + (f % KC_STAGES) * STAGE;
+    const T* ws = xs + KC_BM * PX;
+    const int kend = min(KC_BK, d - kc * KC_BK);
+#pragma unroll
+    for (int k = 0; k < KC_BK; k += 4) {
+      if (k < kend) {  // columns past D are zeros on both sides
+        float4 xv[KC_TM];
+#pragma unroll
+        for (int i = 0; i < KC_TM; ++i) xv[i] = ld4(xs + (ty + 32 * i) * PX + k);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float4 wv[TN / 4];
+#pragma unroll
+          for (int g = 0; g < TN / 4; ++g)
+            wv[g] = ld4(ws + (k + kk) * BN + 32 * g + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < KC_TM; ++i) {
+            const float xk = comp(xv[i], kk);
+#pragma unroll
+            for (int g = 0; g < TN / 4; ++g) {
+              acc[i][4 * g] = fmaf(xk, wv[g].x, acc[i][4 * g]);
+              acc[i][4 * g + 1] = fmaf(xk, wv[g].y, acc[i][4 * g + 1]);
+              acc[i][4 * g + 2] = fmaf(xk, wv[g].z, acc[i][4 * g + 2]);
+              acc[i][4 * g + 3] = fmaf(xk, wv[g].w, acc[i][4 * g + 3]);
+            }
+          }
+        }
+      }
+    }
+    if (++kc == nkc) {  // the tile's last chunk: K rows out, sums reset
+      const int r0 = tl * KC_BM;
+#pragma unroll
+      for (int i = 0; i < KC_TM; ++i) {
+        const int r = r0 + ty + 32 * i;
+#pragma unroll
+        for (int g = 0; g < TN / 4; ++g) {
+          const int c = 32 * g + 4 * tx;
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            v[e] = acc[i][4 * g + e] + bkr[4 * g + e];
+            acc[i][4 * g + e] = 0.f;
+          }
+          if (r >= n || c >= nc) continue;
+          float* p = kt + (size_t)r * a + c0 + c;
+          if ((a & 3) == 0 && c + 3 < nc) {
+            *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (c + e < nc) p[e] = v[e];
+          }
+        }
+      }
+      kc = 0;
+      tl += gridDim.x;
     }
   }
+  gx_tc::cp_async_wait<0>();
 }
 
 // The bf16 K projection on the tensor cores: a persistent walk over
@@ -1058,20 +1224,40 @@ int sm_count() {
   return sms > 0 ? sms : 132;
 }
 
+template <typename T, int TN>
+cudaError_t run_kproj(const void* x, const void* wk, const void* bk, void* kt,
+                      int n, int d, int a, int vx, int vw, cudaStream_t s) {
+  const int smem = KC_STAGES * kc_stage<T, 8 * TN>() * (int)sizeof(T);
+  static int resident = 0;  // CTAs resident on the card, once
+  if (resident == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kproj_kernel<T, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kproj_kernel<T, TN>, KC_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    resident = sm_count() * per_sm;
+  }
+  const int gy = (a + 8 * TN - 1) / (8 * TN);
+  const int tiles = (n + KC_BM - 1) / KC_BM;
+  int gx = resident / gy;
+  if (gx < 1) gx = 1;
+  if (gx > tiles) gx = tiles;
+  kproj_kernel<T, TN><<<dim3(gx, gy), KC_THREADS, smem, s>>>(
+      (const T*)x, (const T*)wk, (const float*)bk, (float*)kt, n, d, a, vx,
+      vw);
+  return cudaGetLastError();
+}
+
+// 4 output columns a thread up to 32 keys, 8 beyond (64 a CTA)
 template <typename T>
 cudaError_t run_kproj(const void* x, const void* wk, const void* bk, void* kt,
-                      int n, int d, int a, cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((size_t)d * a + (size_t)WPB * KROWS * d);
-  cudaError_t err = cudaFuncSetAttribute(
-      kproj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int grid = (n + WPB * KROWS - 1) / (WPB * KROWS);
-  const int cap = sm_count() * 8;
-  if (grid > cap) grid = cap;
-  kproj_kernel<T><<<grid, WPB * 32, smem, s>>>((const T*)x, (const T*)wk,
-                                               (const float*)bk, (float*)kt, n,
-                                               d, a);
-  return cudaGetLastError();
+                      int n, int d, int a, int vx, int vw, cudaStream_t s) {
+  if (a <= 32) return run_kproj<T, 4>(x, wk, bk, kt, n, d, a, vx, vw, s);
+  return run_kproj<T, 8>(x, wk, bk, kt, n, d, a, vx, vw, s);
 }
 
 // the shared-memory bytes of kproj_tc_kernel: WkT and the ring
@@ -1304,13 +1490,18 @@ cudaError_t run_attspmm(const void* ptr, const void* idx, const void* eo,
 extern "C" {
 
 // x [n, d] and wk [d, a] share dtype (0 float32, 1 bfloat16); bk [a] float32;
-// kt [n, a] float32 out.
+// kt [n, a] float32 out, on CUDA-core FMAs. vx, vw: the bytes of x's and
+// wk's staged copies (16, 8 or 4: a row's bytes and the operand's start
+// divide by it), or 0 for one value per copy.
 int gx_attention_kproj(const void* x, const void* wk, const void* bk, void* kt,
-                       int n, int d, int a, int dtype, void* stream) {
+                       int n, int d, int a, int dtype, int vx, int vw,
+                       void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)run_kproj<float>(x, wk, bk, kt, n, d, a, s);
-  if (dtype == 1) return (int)run_kproj<__nv_bfloat16>(x, wk, bk, kt, n, d, a, s);
+  if (dtype == 0)
+    return (int)run_kproj<float>(x, wk, bk, kt, n, d, a, vx, vw, s);
+  if (dtype == 1)
+    return (int)run_kproj<__nv_bfloat16>(x, wk, bk, kt, n, d, a, vx, vw, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // Building blocks of the bf16 tensor-core kernels (the bf16 instantiations
-// of win_matmul, win_bwd_dense and attention_kproj): asynchronous 16- and
-// 4-byte copies into shared memory, mma.sync m16n8k16 (bf16 in, f32
+// of win_matmul, win_bwd_dense, win_bwd_slab and attention_kproj):
+// asynchronous 16-, 8- and 4-byte copies into shared memory (the 8-byte one
+// also stages the CUDA-core K projection), mma.sync m16n8k16 (bf16 in, f32
 // accumulators) from 32-bit shared loads (or ldmatrix, where the staged
 // rows are 16-byte aligned), and streaming vector stores of the
 // accumulators.
@@ -43,12 +44,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
 }
-// 16 (or 4) bytes, or zeros where !ok (src is then not read)
+// 16 (8, 4) bytes, or zeros where !ok (src is then not read)
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                                                  bool ok) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src,
+                                                bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 8 : 0));
 }
 __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
                                                 bool ok) {
@@ -217,6 +224,13 @@ __device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
     w[e] = *reinterpret_cast<const uint32_t*>(&h);
   }
   __stcs(reinterpret_cast<uint4*>(p), u);
+}
+// two consecutive outputs: 8 bytes of f32 or 4 of bf16
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(bf16* p, float v) {

@@ -8,7 +8,8 @@
 //                                    win_matmul_kernel (f32)
 //   `_win_bwd_dense_kernel` (:214)-> win_bwd_dense_tc_kernel (bf16),
 //                                    win_bwd_dense_kernel (f32)
-//   `_win_bwd_slab_kernel` (:243) -> win_bwd_slab_kernel
+//   `_win_bwd_slab_kernel` (:243) -> win_bwd_slab_tc_kernel (bf16),
+//                                    win_bwd_slab_kernel (f32)
 //
 // Layout (graphax_torch/kernels/windows.py): node rows fall into T tiles of
 // `tile` rows; tile t reads window w = tile_win[t], the `W` consecutive
@@ -20,9 +21,10 @@
 // 2*T*tile*W*D = 28 GFLOP is 0.03 ms at the bf16 tensor-core peak against
 // 0.1 ms to read the blocks once. The three products are one tiled GEMM
 // each, with A and B staged through shared memory; bf16 inputs go through
-// the tensor cores (WMMA 16x16x16, bf16 in, f32 accumulators: bf16 products
-// are exact in f32, as on the MXU), f32 inputs through CUDA-core FMAs (the
-// TPU's f32 MXU passes keep f32 precision; TF32 would not).
+// the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulators: bf16
+// products are exact in f32, as on the MXU; the kernels below), f32 inputs
+// through CUDA-core FMAs (the TPU's f32 MXU passes keep f32 precision;
+// TF32 would not), the generic bodies below.
 //
 // Design, against the TPU kernels:
 // - No sequential grid: the TPU densify accumulates one-hot products into a
@@ -36,10 +38,10 @@
 //   guarded (rows past tile or N, columns past W or D read as zero) and
 //   every store is guarded, so D = 162 (not a multiple of 16) and small test
 //   shapes need no padding in device memory.
-// - Staging: each operand is copied in runs along its contiguous axis (16
-//   bytes of the blocks, 2 values of a state row) into shared memory laid
-//   out the same way, and the WMMA fragment layout (row or column major)
-//   absorbs the transposes of the two backward products. The next step's
+// - Staging (the f32 bodies): each operand is copied in runs along its
+//   contiguous axis (16 bytes of the blocks, 2 values of a state row) into
+//   shared memory laid out the same way, and the staged layout (row or
+//   column major) absorbs the transposes of the two backward products. The next step's
 //   loads are issued into registers before this step's products, and the
 //   1-D grid puts the column chunks of one output block side by side, so
 //   they share its A operand in L2 instead of reading it from HBM again.
@@ -73,24 +75,37 @@
 // stores, two CTAs per SM (see the kernel's note; measurements and the
 // designs that measured slower in PERF.md).
 //
-// Not yet done (later work): a tensor-core body with a cp.async ring for
-// win_bwd_slab (D = 162 runs as 3 chunks of 64 there), wgmma/TMA, and
-// skipping all-zero 32-column strips of the blocks (0.66 % of the cells
-// are filled at the arxiv shapes).
+// win_bwd_slab in bf16 (win_bwd_slab_tc_kernel below): bound by bytes,
+// the [T, 128, W] blocks once (173 MB at the arxiv shapes), g (55 MB) and
+// dx in x's dtype (55 MB of bf16), 0.0845 ms at 3.35 TB/s, against 28
+// GFLOP (0.03 ms at the bf16 tensor-core peak). The generic body gave
+// each CTA 64 columns of D, so D = 162 read every block 3 times (519 MB),
+// wrote an f32 [Wn W, D] slab through a shared-memory epilogue, and the
+// autograd Function sliced and cast it in a pass of its own. Design:
+// win_matmul_tc_kernel's with the block transposed: one CTA per (window,
+// 128 slab rows) covers the whole D (176 columns; wider D takes more
+// CTAs), so each block is read once; it walks the window's tiles (4 of
+// them at every window of the arxiv stand-in: the longest window does not
+// set the launch's length) in chunks of 32 tile rows through a 3-stage
+// cp.async ring, A = the block's rows by 16-byte copies and ldmatrix.trans,
+// B = g's rows as win_matmul's slab rows; it takes the output dtype and
+// writes only slab rows < N, rounded once (bf16 rows leave whole from
+// shared memory, as win_matmul's), so the caller gets dx itself. The
+// 4-byte copies of g cost the most of what is left (PERF.md).
+//
+// Not yet done (later work): wgmma/TMA, and skipping all-zero 32-column
+// strips of the blocks (0.66 % of the cells are filled at the arxiv
+// shapes).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "tensor_core.cuh"
 
-#include <type_traits>
-
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr int BM = 128;        // output rows per CTA
 constexpr int BN = 64;         // output columns per CTA
@@ -182,61 +197,11 @@ __device__ __forceinline__ void fetch_or_zero(bool ok, const T* p, T* v) {
   }
 }
 
-// Per-thread share of the CTA's BM x BN f32 accumulator. mma() adds
-// A[BM x BK] @ B[BK x BN] from shared memory, A staged [m][k] (A_MK) or
-// [k][m], B staged [k][n] (B_KN) or [n][k].
+// Per-thread share of the CTA's BM x BN f32 accumulator of the f32
+// products (CUDA-core FMAs; the bf16 products run the tensor-core kernels).
+// mma() adds A[BM x BK] @ B[BK x BN] from shared memory, A staged [m][k]
+// (A_MK) or [k][m], B staged [k][n] (B_KN) or [n][k].
 template <typename T> struct Accum;
-
-template <> struct Accum<bf16> {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[2][2];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(f[i][j], 0.f);
-  }
-  template <bool A_MK, bool B_KN>
-  __device__ __forceinline__ void mma(const bf16* As, const bf16* Bs) {
-    using LA = typename std::conditional<A_MK, wmma::row_major,
-                                         wmma::col_major>::type;
-    using LB = typename std::conditional<B_KN, wmma::row_major,
-                                         wmma::col_major>::type;
-    constexpr int lda = A_MK ? BK + PAD : BM + PAD;
-    constexpr int ldb = B_KN ? BN + PAD : BK + PAD;
-    const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = wm * 32 + i * 16;
-        wmma::load_matrix_sync(a[i], As + (A_MK ? m * lda + kk : kk * lda + m),
-                               lda);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = wn * 32 + j * 16;
-        wmma::load_matrix_sync(b[j], Bs + (B_KN ? kk * ldb + n : n * ldb + kk),
-                               ldb);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(f[i][j], a[i], b[j], f[i][j]);
-    }
-  }
-  __device__ __forceinline__ void store(float* Cs) {
-    const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                                f[i][j], LDC, wmma::mem_row_major);
-  }
-};
 
 template <> struct Accum<float> {
   float r[8][4];  // rows ty*8 + i, columns tx*4 + j
@@ -406,6 +371,29 @@ constexpr int MM_STAGE = MM_BM * MM_PA + MM_BK * MM_PB;  // elements
 constexpr int MM_SMEM =
     (MM_STAGES * MM_STAGE + MM_BM * MM_PB) * (int)sizeof(bf16);
 
+// Rows [0, rows) of a row-major [., D] bf16 matrix from row r0 on, columns
+// c0 .. c0 + ncol, into S [.][MM_PB]: a warp per row, a pair per lane (4-byte
+// cp.async where ASYNC, else one value per copy); rows past `valid` as zeros.
+template <bool ASYNC>
+__device__ __forceinline__ void stage_pairs(bf16* S, const bf16* M,
+                                            long long r0, int rows, int valid,
+                                            int c0, int ncol, int D, int warp,
+                                            int lane) {
+  for (int r = warp; r < rows; r += MM_THREADS / 32) {
+    const bool ok = r < valid;
+    const bf16* src = M + (ok ? (r0 + r) * D + c0 : 0);
+    bf16* dst = S + r * MM_PB;
+    for (int c = 2 * lane; c < ncol; c += 64) {
+      if (ASYNC) {
+        gx_tc::cp_async4_zfill(dst + c, src + c, ok);
+      } else {
+        dst[c] = ok ? src[c] : gx_tc::bzero();
+        dst[c + 1] = ok && c + 1 < ncol ? src[c + 1] : gx_tc::bzero();
+      }
+    }
+  }
+}
+
 // ASYNC: the "cp.async" route (W % 8 == 0, D even, the blocks on 16 bytes,
 // x and the addend on 4); else the "elements" route, one value per copy
 template <bool ASYNC>
@@ -432,26 +420,6 @@ win_matmul_tc_kernel(const bf16* __restrict__ dense, const bf16* __restrict__ x,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp & 3) * 32, fw = (warp >> 2) * MM_NFW;
 
-  // rows [0, rows) of a row-major [., D] matrix from row r0 on, columns
-  // c0 .. c0 + ncol, into S [.][MM_PB]: a warp per row, a pair per lane;
-  // rows past `valid` as zeros
-  auto stage_pairs = [&](bf16* S, const bf16* M, long long r0, int rows,
-                         int valid) {
-    for (int r = warp; r < rows; r += MM_THREADS / 32) {
-      const bool ok = r < valid;
-      const bf16* src = M + (ok ? (r0 + r) * D + c0 : 0);
-      bf16* dst = S + r * MM_PB;
-      for (int c = 2 * lane; c < ncol; c += 64) {
-        if (ASYNC) {
-          gx_tc::cp_async4_zfill(dst + c, src + c, ok);
-        } else {
-          dst[c] = ok ? src[c] : gx_tc::bzero();
-          dst[c + 1] = ok && c + 1 < ncol ? src[c + 1] : gx_tc::bzero();
-        }
-      }
-    }
-  };
-
   // K chunk kc into its ring slot
   auto stage = [&](int kc) {
     if (kc >= nk) return;
@@ -472,8 +440,9 @@ win_matmul_tc_kernel(const bf16* __restrict__ dense, const bf16* __restrict__ x,
       }
     }
     const long long first = base + k0;  // slab rows past W or N are zeros
-    stage_pairs(Bs, x, first, MM_BK,
-                (int)max(0LL, min((long long)(W - k0), N - first)));
+    stage_pairs<ASYNC>(Bs, x, first, MM_BK,
+                       (int)max(0LL, min((long long)(W - k0), N - first)),
+                       c0, ncol, D, warp, lane);
   };
 
   float acc[2][MM_NFW][4];
@@ -484,7 +453,8 @@ win_matmul_tc_kernel(const bf16* __restrict__ dense, const bf16* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][f][e] = 0.f;
 
-  stage_pairs(Cs, addend, node0, mout, mout);  // (with the first chunk)
+  stage_pairs<ASYNC>(Cs, addend, node0, mout, mout, c0, ncol, D, warp,
+                     lane);  // (with the first chunk)
 #pragma unroll
   for (int s = 0; s < MM_STAGES - 1; ++s) {
     stage(s);
@@ -775,17 +745,19 @@ cudaError_t bwd_dense_tc_launch(const void* g, const void* x,
                                      vec, s);
 }
 
-// d_slab[w, k, :] = sum over tiles t with tile_win[t] == w of
-//                   sum_r dense[t, r, k] * g[t*tile + r, :]   (f32)
+// dx[w*W + k, :] = sum over tiles t with tile_win[t] == w of
+//                  sum_r dense[t, r, k] * g[t*tile + r, :]   (f32 sums)
+// for the slab rows w*W + k < N, rounded once to TO: the f32
+// instantiation (CUDA-core FMAs, no TF32; bf16 runs win_bwd_slab_tc_kernel).
 // A staged [r][k] = dense[t] rows (runs of VA along W), B [r][n] = g rows
 // (runs of VB along D). The steps walk the window's tiles from the
 // window -> tiles CSR, tile rows in BK chunks within each.
-template <typename T, int VA, int VB>
+template <typename T, typename TO, int VA, int VB>
 __global__ void __launch_bounds__(THREADS)
 win_bwd_slab_kernel(const T* __restrict__ dense, const T* __restrict__ g,
                     const int* __restrict__ win_ptr,
                     const int* __restrict__ win_tiles,
-                    float* __restrict__ out, int tile, int W, int N, int D) {
+                    TO* __restrict__ out, int tile, int W, int N, int D) {
   __shared__ __align__(128) unsigned char smem[SMEM];
   T* As = reinterpret_cast<T*>(smem);
   T* Bs = As + A_ELEMS;
@@ -811,8 +783,207 @@ win_bwd_slab_kernel(const T* __restrict__ dense, const T* __restrict__ g,
       });
   epilogue(acc, reinterpret_cast<float*>(smem), [&](int m, int n, float v) {
     const int k = m0 + m, c = n0 + n;
-    if (k < W && c < D) out[((size_t)w * W + k) * D + c] = v;
+    const long long row = (long long)w * W + k;
+    if (k < W && row < N && c < D) out[row * D + c] = from_f<TO>(v);
   });
+}
+
+// The bf16 instantiation, on the tensor cores (see the note at the top):
+// win_matmul_tc_kernel's machinery with the block transposed. One CTA per
+// (window, 128 slab rows, 176 columns of D) walks the window's tiles from
+// the window -> tiles CSR, each in chunks of MM_BK = 32 tile rows, through
+// a ring of MM_STAGES stages: A = dense[t]^T, staged as the block's rows
+// [32][128 slab rows] (256 bytes a row, 16-byte cp.async; 272-byte rows in
+// shared memory, so ldmatrix.trans's 8 rows fall in 8 bank groups), and B
+// = the tile's g rows [32][176] by 4-byte copies of column pairs (as
+// win_matmul's slab rows), both read by ldmatrix.trans. Each block is read
+// from device memory once; a window's g rows by its 4 CTAs (W = 512) side
+// by side in the grid, so from L2 after the first. The f32 sums leave
+// rounded once to TO (bf16 through shared memory in whole rows), only for
+// slab rows < N: dx itself, with no [Wn W, D] f32 slab and no cast pass.
+// A window that no tile maps writes zeros.
+// (A persistent grid whose ring runs on across a CTA's windows, with 4
+// stages, measured slower: PERF.md.)
+constexpr int SB_PA = MM_BM + 8;
+constexpr int SB_STAGE = MM_BK * SB_PA + MM_BK * MM_PB;  // elements
+constexpr int SB_SMEM = MM_STAGES * SB_STAGE * (int)sizeof(bf16);
+static_assert(MM_BM * MM_PB <= MM_STAGES * SB_STAGE,
+              "the bf16 output tile must fit the ring");
+
+// ASYNC: the "cp.async" route (W % 8 == 0, D even, the blocks on 16 bytes,
+// g on 4); else the "elements" route, one value per copy
+template <typename TO, bool ASYNC>
+__global__ void __launch_bounds__(MM_THREADS, 2)
+win_bwd_slab_tc_kernel(const bf16* __restrict__ dense,
+                       const bf16* __restrict__ g,
+                       const int* __restrict__ win_ptr,
+                       const int* __restrict__ win_tiles,
+                       TO* __restrict__ out, int tile, int W, int N, int D) {
+  extern __shared__ __align__(16) unsigned char smem_sb[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_sb);
+  const int nchunks = (D + MM_BN - 1) / MM_BN;
+  const int mblocks = (W + MM_BM - 1) / MM_BM;
+  const int c0 = (blockIdx.x % nchunks) * MM_BN;
+  const int m0 = ((blockIdx.x / nchunks) % mblocks) * MM_BM;
+  const int w = blockIdx.x / nchunks / mblocks;
+  const int ncol = min(MM_BN, D - c0);
+  const int mcols = min(MM_BM, W - m0);  // slab rows of this CTA
+  const int beg = win_ptr[w];
+  const int kpt = (tile + MM_BK - 1) / MM_BK;  // chunks a tile
+  const int nk = (win_ptr[w + 1] - beg) * kpt;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp & 3) * 32, fw = (warp >> 2) * MM_NFW;
+
+  // chunk kc (tile kc / kpt of the window, its rows from (kc % kpt) * 32)
+  // into its ring slot; rows past the tile and g rows past N as zeros
+  auto stage = [&](int kc) {
+    if (kc >= nk) return;
+    bf16* As = ring + (kc % MM_STAGES) * SB_STAGE;
+    bf16* Bs = As + MM_BK * SB_PA;
+    const long long t = win_tiles[beg + kc / kpt];
+    const int r0 = (kc % kpt) * MM_BK, rows = min(MM_BK, tile - r0);
+    const bf16* A = dense + (t * tile + r0) * W + m0;
+    for (int i = tid; i < MM_BK * (MM_BM / 8); i += MM_THREADS) {
+      const int r = i / (MM_BM / 8), c = 8 * (i % (MM_BM / 8));
+      bf16* dst = As + r * SB_PA + c;
+      if (ASYNC) {
+        const bool ok = r < rows && c < mcols;
+        gx_tc::cp_async16_zfill(dst, ok ? A + (size_t)r * W + c : dense, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = r < rows && c + e < mcols ? A[(size_t)r * W + c + e]
+                                             : gx_tc::bzero();
+      }
+    }
+    const long long first = t * tile + r0;
+    stage_pairs<ASYNC>(Bs, g, first, MM_BK,
+                       (int)max(0LL, min((long long)rows, N - first)), c0,
+                       ncol, D, warp, lane);
+  };
+
+  float acc[2][MM_NFW][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int f = 0; f < MM_NFW; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][f][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < MM_STAGES - 1; ++s) {
+    stage(s);
+    gx_tc::cp_async_commit();
+  }
+  // ldmatrix.trans addresses: A (tile rows k, slab rows m) k = (lane & 7) +
+  // 8 (lane >> 4), m = 8 ((lane >> 3) & 1) of each m16 fragment; B (tile
+  // rows k, columns n) as win_matmul's
+  const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
+  const int ak = (lane & 7) + lc, am = 8 * ((lane >> 3) & 1);
+  for (int kc = 0; kc < nk; ++kc) {
+    gx_tc::cp_async_wait<MM_STAGES - 2>();
+    __syncthreads();  // chunk kc is in; chunk kc - 1's slot is free
+    stage(kc + MM_STAGES - 1);
+    gx_tc::cp_async_commit();
+    const bf16* As = ring + (kc % MM_STAGES) * SB_STAGE;
+    const bf16* Bs = As + MM_BK * SB_PA;
+#pragma unroll
+    for (int kk = 0; kk < MM_BK; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        gx_tc::ldmatrix_x4_trans(a[i],
+                                 As + (kk + ak) * SB_PA + wm + 16 * i + am);
+#pragma unroll
+      for (int p = 0; p < (MM_NFW + 1) / 2; ++p) {
+        const int n0 = (fw + 2 * p) * 8;
+        if (n0 >= ncol) break;  // fragments wholly past D
+        uint32_t b[4];
+        gx_tc::ldmatrix_x4_trans(b, Bs + (kk + lr) * MM_PB + n0 + lc);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          gx_tc::mma_bf16(acc[i][2 * p], a[i], b[0], b[1]);
+          if (2 * p + 1 < MM_NFW)
+            gx_tc::mma_bf16(acc[i][2 * p + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+  gx_tc::cp_async_wait<0>();
+
+  // this lane's slab rows wm + 16 i + g (+8), columns 2q, 2q+1 of each
+  // fragment. bf16: rounded into C [128][MM_PB] in the ring's memory (92
+  // words a row: a fragment's 8 rows x 4 pairs in 32 banks), then out a
+  // warp per row, a pair per lane, whole 128-byte lines (with the rest of
+  // the kernel switched off, the fragments' 16-byte row pieces stored
+  // straight took 0.097 ms on the H100 at the arxiv shapes, these 0.036:
+  // PERF.md). f32 (off every path; C would not fit): straight.
+  const int g8 = lane >> 2, q2 = 2 * (lane & 3);
+  const long long row0 = (long long)w * W + m0;  // first slab row
+  const int mout = (int)max(0LL, min((long long)mcols, N - row0));
+  bf16* Cs = ring;
+  if (sizeof(TO) == 2) __syncthreads();  // every warp is done with the ring
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = wm + 16 * i + g8 + 8 * hf;
+      if (m >= mout) continue;
+      TO* orow = out + (row0 + m) * D + c0;
+#pragma unroll
+      for (int f = 0; f < MM_NFW; ++f) {
+        const int c = (fw + f) * 8 + q2;
+        if (c >= ncol) break;
+        const float v0 = acc[i][f][2 * hf], v1 = acc[i][f][2 * hf + 1];
+        if (sizeof(TO) == 2) {
+          *reinterpret_cast<__nv_bfloat162*>(Cs + m * MM_PB + c) =
+              __floats2bfloat162_rn(v0, v1);
+        } else if (ASYNC) {
+          gx_tc::store2(orow + c, v0, v1);
+        } else {
+          gx_tc::store1(orow + c, v0);
+          if (c + 1 < ncol) gx_tc::store1(orow + c + 1, v1);
+        }
+      }
+    }
+  if (sizeof(TO) != 2) return;
+  __syncthreads();
+  for (int r = warp; r < mout; r += MM_THREADS / 32) {
+    const bf16* src = Cs + r * MM_PB;
+    bf16* dst = reinterpret_cast<bf16*>(out) + (row0 + r) * D + c0;
+    for (int c = 2 * lane; c < ncol; c += 64) {
+      if (ASYNC) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+            *reinterpret_cast<const __nv_bfloat162*>(src + c);
+      } else {
+        dst[c] = src[c];
+        if (c + 1 < ncol) dst[c + 1] = src[c + 1];
+      }
+    }
+  }
+}
+
+template <typename TO, bool ASYNC>
+cudaError_t win_bwd_slab_tc_run(const void* dense, const void* g,
+                                const void* win_ptr, const void* win_tiles,
+                                void* out, int Wn, int tile, int W, int N,
+                                int D, cudaStream_t s) {
+  static bool smem_set = false;
+  if (!smem_set) {  // the opt-in above 48 KB, once
+    cudaError_t err = cudaFuncSetAttribute(
+        win_bwd_slab_tc_kernel<TO, ASYNC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SB_SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const long long blocks = (long long)Wn * ((W + MM_BM - 1) / MM_BM) *
+                           ((D + MM_BN - 1) / MM_BN);
+  if (blocks <= 0) return cudaSuccess;
+  win_bwd_slab_tc_kernel<TO, ASYNC><<<(unsigned)blocks, MM_THREADS, SB_SMEM,
+                                      s>>>(
+      (const bf16*)dense, (const bf16*)g, (const int*)win_ptr,
+      (const int*)win_tiles, (TO*)out, tile, W, N, D);
+  return cudaGetLastError();
 }
 
 template <typename TI, typename TO>
@@ -870,31 +1041,18 @@ template <typename TO> struct BwdDense {
     }
   };
 };
-template <typename T, int VA, int VB> struct BwdSlabK {
-  static void run(int blocks, cudaStream_t s, const void* dense,
-                  const void* g, const void* win_ptr, const void* win_tiles,
-                  void* out, int tile, int W, int N, int D) {
-    win_bwd_slab_kernel<T, VA, VB><<<blocks, THREADS, 0, s>>>(
-        (const T*)dense, (const T*)g, (const int*)win_ptr,
-        (const int*)win_tiles, (float*)out, tile, W, N, D);
-  }
+template <typename TO> struct BwdSlab {
+  template <typename T, int VA, int VB> struct K {
+    static void run(int blocks, cudaStream_t s, const void* dense,
+                    const void* g, const void* win_ptr,
+                    const void* win_tiles, void* out, int tile, int W, int N,
+                    int D) {
+      win_bwd_slab_kernel<T, TO, VA, VB><<<blocks, THREADS, 0, s>>>(
+          (const T*)dense, (const T*)g, (const int*)win_ptr,
+          (const int*)win_tiles, (TO*)out, tile, W, N, D);
+    }
+  };
 };
-
-// A_ALONG_W: A's runs lie along W (16-byte runs), else along D (pairs)
-template <template <typename, int, int> class K, bool A_ALONG_W,
-          typename... Args>
-int dispatch_gemm(int dtype, int blocks, int va, int vb, void* stream,
-                  Args... args) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (blocks <= 0) return (int)cudaSuccess;
-  if (dtype == 0)
-    return (int)launch_gemm<K, float, A_ALONG_W ? 4 : 2>(blocks, va, vb, s,
-                                                         args...);
-  if (dtype == 1)
-    return (int)launch_gemm<K, bf16, A_ALONG_W ? 8 : 2>(blocks, va, vb, s,
-                                                        args...);
-  return (int)cudaErrorInvalidValue;
-}
 
 }  // namespace
 
@@ -974,15 +1132,44 @@ int gx_win_bwd_dense(const void* g, const void* x, const void* tile_win,
   return (int)cudaErrorInvalidValue;
 }
 
-// out [Wn*W, D] f32; dense [T, tile, W] and g [N, D] share dtype;
+// out [N, D] in out_dtype: the slab's gradient at its first N rows, the
+// f32 sums rounded once; dense [T, tile, W] and g [N, D] share dtype;
 // win_ptr [Wn+1] and win_tiles [T] int32 (the window -> tiles CSR).
+// float32 inputs: va, vb the staged run lengths; bfloat16 inputs (the
+// tensor-core kernel): va != 0 takes the cp.async route (W % 8 == 0, D
+// even, dense on 16 bytes, g on 4), else the element route.
 int gx_win_bwd_slab(const void* dense, const void* g, const void* win_ptr,
                     const void* win_tiles, void* out, int Wn, int tile, int W,
-                    int N, int D, int dtype, int va, int vb, void* stream) {
+                    int N, int D, int dtype, int out_dtype, int va, int vb,
+                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) {
+    if (out_dtype == 0)
+      return (int)(va ? win_bwd_slab_tc_run<float, true>(
+                            dense, g, win_ptr, win_tiles, out, Wn, tile, W, N,
+                            D, s)
+                      : win_bwd_slab_tc_run<float, false>(
+                            dense, g, win_ptr, win_tiles, out, Wn, tile, W, N,
+                            D, s));
+    if (out_dtype == 1)
+      return (int)(va ? win_bwd_slab_tc_run<bf16, true>(
+                            dense, g, win_ptr, win_tiles, out, Wn, tile, W, N,
+                            D, s)
+                      : win_bwd_slab_tc_run<bf16, false>(
+                            dense, g, win_ptr, win_tiles, out, Wn, tile, W, N,
+                            D, s));
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const int blocks = Wn * ((W + BM - 1) / BM) * ((D + BN - 1) / BN);
-  return dispatch_gemm<BwdSlabK, true>(dtype, blocks, va, vb, stream, dense,
-                                       g, win_ptr, win_tiles, out, tile, W,
-                                       N, D);
+  if (blocks <= 0) return (int)cudaSuccess;
+  if (out_dtype == 0)
+    return (int)launch_gemm<BwdSlab<float>::K, float, 4>(
+        blocks, va, vb, s, dense, g, win_ptr, win_tiles, out, tile, W, N, D);
+  if (out_dtype == 1)
+    return (int)launch_gemm<BwdSlab<bf16>::K, float, 4>(
+        blocks, va, vb, s, dense, g, win_ptr, win_tiles, out, tile, W, N, D);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -70,7 +70,6 @@ _WPB = 8            # warps per block in every kernel of fused_attention.cu
 _BATCH = 32         # edges a warp of the row walk holds at once
 ROW_SPLIT = 128     # the row walk's segment length: longer rows go in
                     # segments of it
-_KROWS = 4          # rows per warp at a time in the K projection
 _SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into
 _SMEM_STATIC = 49_152     # without opting in (the flash kernel's q, shifts)
 
@@ -159,25 +158,37 @@ def _kproj_tc_smem(d: int, a: int) -> int:
 def kproj_route(dtype: torch.dtype, d: int, a: int) -> str:
     """The kernel that projects ``x [N, d]`` of ``dtype`` onto ``a`` keys:
     ``"tensor_core"`` for bf16 where its shared memory fits, else
-    ``"cuda_core"`` (the f32 FMA kernel, which keeps f32 exact and takes
-    every shape :func:`kproj_fits` admits)."""
+    ``"cuda_core"`` (the FMA kernel, which keeps f32 exact and streams Wk
+    with x along D, so it takes every shape)."""
     if dtype == torch.bfloat16 and _kproj_tc_smem(d, a) <= _SMEM_LIMIT:
         return "tensor_core"
     return "cuda_core"
 
 
 def kproj_supported(dtype: torch.dtype, d: int, a: int) -> bool:
-    """One of the two K projections takes ``x [N, d]`` of ``dtype`` onto
-    ``a`` keys: the tensor-core kernel where :func:`kproj_route` sends it,
-    else the CUDA-core one where :func:`kproj_fits`."""
-    return kproj_route(dtype, d, a) == "tensor_core" or kproj_fits(d, a)
+    """A K projection takes ``x [N, d]`` of ``dtype`` onto ``a`` keys: every
+    ``d, a >= 1`` in either dtype (:func:`kproj_route` names the kernel)."""
+    return dtype in _DTYPES and d >= 1 and a >= 1
+
+
+def kproj_copy_bytes(t: torch.Tensor) -> int:
+    """The bytes of each cp.async copy with which the CUDA-core K
+    projection stages ``t`` (x or Wk) chunk by chunk: the widest of 16, 8
+    and 4 that divides a row's bytes and t's start, else 0 (one value per
+    copy: a bf16 row of odd width, or a view that starts mid-pair)."""
+    row = t.shape[1] * t.element_size()
+    for vb in (16, 8, 4):
+        if row % vb == 0 and t.data_ptr() % vb == 0:
+            return vb
+    return 0
 
 
 def kproj_staging(x: torch.Tensor) -> str:
     """How the tensor-core kernel stages x: ``"cp.async"`` (16-byte
     copies of whole tiles) where x starts on 16 bytes and its rows hold an
     even count of values, else ``"elements"`` (one value per copy: odd D,
-    or a view such as ``x[1:]`` that starts mid-row)."""
+    or a view such as ``x[1:]`` that starts mid-row). The CUDA-core kernel
+    stages by :func:`kproj_copy_bytes`."""
     ok = x.shape[1] % 2 == 0 and x.data_ptr() % 16 == 0
     return "cp.async" if ok else "elements"
 
@@ -186,7 +197,8 @@ def attention_kproj(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
                     ) -> torch.Tensor:
     """``[N, A]`` float32 keys of every node: ``x [N, D]`` and ``wk
     [D, A]`` in one dtype, ``bk [A]`` f32. On the card, bf16 goes to the
-    tensor-core kernel and f32 to the CUDA-core one (:func:`kproj_route`)."""
+    tensor-core kernel where it fits and f32 to the CUDA-core one
+    (:func:`kproj_route`)."""
     _no_grad("attention_kproj", x, wk, bk)
     if not x.is_cuda:
         return attention_kproj_plain(x, wk, bk)
@@ -198,9 +210,8 @@ def attention_kproj(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
     if wk.shape != (d, a) or bk.shape != (a,) or bk.dtype != torch.float32:
         raise ValueError("attention_kproj: shapes x [N, D], wk [D, A], bk [A] "
                          "f32 required")
-    if not kproj_supported(x.dtype, d, a):
-        raise ValueError(f"attention_kproj: D*A too large for shared memory "
-                         f"(D={d}, A={a})")
+    if d < 1 or a < 1:
+        raise ValueError("attention_kproj: D and A must be at least 1")
     _check_operands("attention_kproj", x, x, wk, bk)
     kt = torch.empty((n, a), dtype=torch.float32, device=x.device)
     lib = _build.library("fused_attention")
@@ -209,9 +220,10 @@ def attention_kproj(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
             x.data_ptr(), wk.data_ptr(), bk.data_ptr(), kt.data_ptr(), n, d,
             a, int(kproj_staging(x) == "cp.async"), _build.stream_ptr(x))
     else:
-        err = lib.gx_attention_kproj(x.data_ptr(), wk.data_ptr(),
-                                     bk.data_ptr(), kt.data_ptr(), n, d, a,
-                                     _DTYPES[x.dtype], _build.stream_ptr(x))
+        err = lib.gx_attention_kproj(
+            x.data_ptr(), wk.data_ptr(), bk.data_ptr(), kt.data_ptr(), n, d,
+            a, _DTYPES[x.dtype], kproj_copy_bytes(x), kproj_copy_bytes(wk),
+            _build.stream_ptr(x))
     _build.check(err, "attention_kproj")
     _build.LAUNCHES["attention_kproj"] += 1
     return kt
@@ -546,19 +558,21 @@ def attention_attspmm(layout: Layout, e: torch.Tensor, den: torch.Tensor,
 # ----------------------------------------------------------------------
 
 def kproj_fits(d: int, a: int) -> bool:
-    """The CUDA-core K projection's f32 Wk [D, A] and staged rows fit one
-    block's shared memory: the gate of every route that needs the K table.
-    Where it holds, one of the two kernels takes every dtype
-    (:func:`kproj_route`)."""
-    return 4 * (d * a + _WPB * _KROWS * d) <= _SMEM_LIMIT
+    """The shape gate of the flash, windowed (K5) and column routes:
+    ``4 (D A + 32 D)`` bytes within one block's shared memory, the bound of
+    the K projection those routes were first held to graphax under (its
+    first CUDA-core body kept f32 Wk and 32 staged rows in shared memory).
+    The projection itself now takes every shape (:func:`kproj_supported`),
+    so the gate can widen, route by route, with parity tests of its own."""
+    return 4 * (d * a + 32 * d) <= _SMEM_LIMIT
 
 
 def flash_supported(cfg, d: int) -> bool:
     """The port's gate for the flash path (graphax's is
     `flash_applicable`, `:542-553`, a VMEM estimate): row normalisation, the
-    four `_score_math` types, head-mean aggregation, and a K projection
-    whose f32 Wk and staged rows fit one block's shared memory (and the
-    flash kernel's q rows and per-head shifts the default 48 KB). The flash
+    four `_score_math` types, head-mean aggregation, widths within
+    :func:`kproj_fits` (and the flash kernel's q rows and per-head shifts
+    within the default 48 KB). The flash
     kernel keeps no per-head accumulators (each head's weight folds into
     one f32 sum per column), so any head count that divides attention_dim
     runs."""

@@ -20,7 +20,9 @@ and rounds once to the state dtype, as graphax's `spmm_windowed` does
 both products, returns ``d_dense`` in the blocks' dtype (graphax's f32
 result cast, `:330-331`: `win_bwd_dense` rounds its f32 sums once to that
 dtype in its epilogue, with no pass over an f32 copy) and ``dx`` in the
-state dtype."""
+state dtype (graphax's ``d_slab[:N].astype``, `:343-344`: `win_bwd_slab`
+writes the first N slab rows rounded once, with no f32 slab and no cast
+pass)."""
 
 from __future__ import annotations
 
@@ -255,35 +257,59 @@ def win_bwd_dense(wl: WindowLayout, g: torch.Tensor, x: torch.Tensor,
 # win_bwd_slab: d_slab[w] = sum over tiles t of window w of dense[t]^T g[t]
 # ----------------------------------------------------------------------
 
-def win_bwd_slab_plain(wl: WindowLayout, dense, g) -> torch.Tensor:
+def win_bwd_slab_plain(wl: WindowLayout, dense, g,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """graphax's ``d_slab[:N].astype(out_dtype)``: the per-tile products
+    summed into their windows in f32, the first N slab rows, one
+    rounding."""
     per_tile = torch.bmm(dense.float().transpose(1, 2),
                          _tiles(g.float(), wl))                # [T, W, D]
     out = torch.zeros((wl.num_windows, wl.window, g.shape[1]),
                       dtype=torch.float32, device=g.device)
     out.index_add_(0, wl.tile_win.long(), per_tile)
-    return out.reshape(wl.num_windows * wl.window, -1)
+    return out.reshape(wl.num_windows * wl.window, -1)[:wl.num_nodes] \
+        .to(out_dtype)
 
 
-def win_bwd_slab(wl: WindowLayout, dense: torch.Tensor,
-                 g: torch.Tensor) -> torch.Tensor:
-    """``[Wn * W, D]`` f32: the gradient of the slab (rows past N are the
-    zero padding's)."""
+def slab_staging(dense: torch.Tensor, g: torch.Tensor) -> str:
+    """How the bf16 kernel stages its operands: ``"cp.async"`` (16-byte
+    copies of the blocks' rows, 4-byte copies of the column pairs of g's
+    rows, the output written in pairs) where W is a multiple of 8, D is
+    even, the blocks start on 16 bytes and g on 4; else ``"elements"``
+    (one value per copy: odd D, W off 8, or a view that starts mid-pair).
+    The rule of :func:`matmul_staging`, g in x's place. Either gives the
+    same values."""
+    return matmul_staging(dense, g, g)
+
+
+def win_bwd_slab(wl: WindowLayout, dense: torch.Tensor, g: torch.Tensor,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``[N, D]`` in ``out_dtype``: the gradient of the slab at its first N
+    rows (the nodes), f32 sums rounded once (bf16: to nearest even, the
+    bits of the f32 result cast). A window that no tile maps gives zeros.
+    bf16 runs on the tensor cores (:func:`slab_staging` names how it
+    stages), f32 on CUDA-core FMAs."""
     if not g.is_cuda:
-        return win_bwd_slab_plain(wl, dense, g)
+        return win_bwd_slab_plain(wl, dense, g, out_dtype)
     _check(wl, "win_bwd_slab", g, dense)
     _check_rows(wl, "win_bwd_slab", g)
     _check_blocks(wl, "win_bwd_slab", dense)
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"win_bwd_slab: out_dtype {out_dtype} not supported")
     for t in (wl.win_ptr, wl.win_tiles):
         if t.device != g.device:
             raise ValueError(f"win_bwd_slab: layout must be on {g.device}")
     n, d = g.shape
-    out = torch.empty((wl.num_windows * wl.window, d), dtype=torch.float32,
-                      device=g.device)
+    if g.dtype == torch.bfloat16:
+        va, vb = int(slab_staging(dense, g) == "cp.async"), 0
+    else:
+        va, vb = _run(dense, wl.window, _wide(dense)), _run(g, d, 2)
+    out = torch.empty((n, d), dtype=out_dtype, device=g.device)
     err = _build.library("windowed_spmm").gx_win_bwd_slab(
         dense.data_ptr(), g.data_ptr(), wl.win_ptr.data_ptr(),
         wl.win_tiles.data_ptr(), out.data_ptr(), wl.num_windows, wl.tile,
-        wl.window, n, d, _DTYPES[g.dtype],
-        _run(dense, wl.window, _wide(dense)), _run(g, d, 2),
+        wl.window, n, d, _DTYPES[g.dtype], _DTYPES[out_dtype], va, vb,
         _build.stream_ptr(g))
     _build.check(err, "win_bwd_slab")
     _build.LAUNCHES["win_bwd_slab"] += 1
@@ -309,7 +335,7 @@ class _WinMatmul(torch.autograd.Function):
         d_dense = dx = None
         if ctx.needs_input_grad[1]:
             blocks = dense.to(x.dtype).contiguous()
-            dx = win_bwd_slab(wl, blocks, g)[:wl.num_nodes].to(x.dtype)
+            dx = win_bwd_slab(wl, blocks, g, x.dtype)
         if ctx.needs_input_grad[0]:
             d_dense = win_bwd_dense(wl, g, x, dense.dtype)
         return d_dense, dx, None, g

@@ -68,11 +68,27 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   with its largest error against its plain version, its bound and
   all-miss count (K written, one K row read per edge) and the K
   projection's time alone (which this checkout's pin runs); then the
-  steady epochs of Computers and Photo.
+  steady epochs of Computers and Photo;
+- (``kproj``) the f32 attention_kproj (the pin's on the windowed arxiv
+  preset, Computers and Photo) on random x, Wk, bk from a seed at the
+  arxiv widths (N 169,343, D 162, A 32), Computers' and Photo's (their
+  stand-ins' N, the presets' widths) and D 400, A 120 at arxiv's N (a
+  checkout whose projection refuses that shape says so), each with its
+  error against the plain version, its bound and
+  ``addmm(out_dtype=float32)``; the f32 pin on the arxiv CSR; then the
+  steady epochs of Computers and Photo (6 epochs each, with their NFE);
+- (``slab``) win_bwd_slab with bf16 blocks and g at the windowed arxiv
+  shapes: the f32 output and the output in x's dtype as the win_matmul
+  Function's backward asks for it (a checkout whose wrapper has no
+  ``out_dtype`` is timed with the ``[:N].to`` slice and cast its Function
+  ran after it), each with its bound, beside ``bmm`` + ``index_add_``
+  (two calls, the plain version's); the tiles per window; then the steady
+  epochs of the arxiv preset on both layouts and path A's train step.
 
 One JSON line per measurement, then the card's nvidia-smi line. Run from
 the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
-DIR] [--only windowed|attention|spmm|pin]``; a parent is a ``git
+DIR] [--only windowed|attention|spmm|pin|kproj|slab]``; a parent is a
+``git
 archive`` of another commit unpacked in a directory that ``.gitignore``
 lists.
 """
@@ -152,6 +168,10 @@ def measure(root: str, only=None) -> None:
         spmm(emit)
     if only in (None, "pin"):
         pin(emit)
+    if only in (None, "kproj"):
+        kproj(emit)
+    if only in (None, "slab"):
+        slab(emit)
 
 
 def windowed(emit) -> None:
@@ -256,9 +276,9 @@ def train_steps(data, emit) -> None:
     """Path A (GRAND-nl on the windowed strategy as published, random Q/K
     as chip_smoke draws them): after one warm-up step, two train steps
     timed by the host clock around a device sync, then one under
-    torch.profiler: its device busy ms, win_bwd_dense's launches and
-    device ms, and the dtype casts (``aten::_to_copy``) of a [T, tile, W]
-    block, per adjoint NFE."""
+    torch.profiler: its device busy ms, win_bwd_dense's and win_bwd_slab's
+    launches and device ms, and the dtype casts (``aten::_to_copy``) of a
+    [T, tile, W] block, per adjoint NFE."""
     import time
 
     import torch
@@ -283,8 +303,8 @@ def train_steps(data, emit) -> None:
         tr.train_step()
         torch.cuda.synchronize()
     cuda_t = torch.autograd.DeviceType.CUDA
-    busy = bwd_ms = adjoint_ms = 0.0
-    bwd_n = casts = 0
+    busy = bwd_ms = slab_ms = adjoint_ms = 0.0
+    bwd_n = slab_n = casts = 0
     for ev in prof.events():
         if ev.name == "graphax_torch.adjoint" and ev.device_type == cuda_t:
             adjoint_ms += ev.time_range.elapsed_us() / 1e3
@@ -294,6 +314,9 @@ def train_steps(data, emit) -> None:
             if "win_bwd_dense" in ev.name:
                 bwd_ms += ms
                 bwd_n += 1
+            if "win_bwd_slab" in ev.name:
+                slab_ms += ms
+                slab_n += 1
         elif (ev.name == "aten::_to_copy" and ev.input_shapes
               and list(ev.input_shapes[0]) == shape):
             casts += 1
@@ -302,6 +325,7 @@ def train_steps(data, emit) -> None:
          adjoint_nfe=nfe, profiled_device_busy_ms=busy,
          adjoint_device_ms=adjoint_ms, adjoint_ms_per_nfe=adjoint_ms / nfe,
          win_bwd_dense_launches=bwd_n, win_bwd_dense_device_ms=bwd_ms,
+         win_bwd_slab_launches=slab_n, win_bwd_slab_device_ms=slab_ms,
          block_casts=casts, block_casts_per_adjoint_nfe=casts / nfe)
 
 
@@ -631,15 +655,18 @@ def attention(emit) -> None:
          flash_launches=flash_n, walk_kernels=walk)
 
 
-def steady_epochs(emit, label, trainer) -> None:
-    """``trainer.fit(3)`` with its defaults: each epoch's seconds and the
-    fastest after the first."""
+def steady_epochs(emit, label, trainer, epochs: int = 3) -> None:
+    """``trainer.fit(epochs)`` with its defaults: each epoch's seconds and
+    forward, adjoint and evaluation NFE, and the fastest epoch after the
+    first."""
     import torch
 
-    fit = trainer.fit(epochs=3)
+    fit = trainer.fit(epochs=epochs)
     torch.cuda.synchronize()
     times = [h["time"] for h in fit["history"]]
-    emit(path=label, epoch_seconds=times, steady_epoch_seconds=min(times[1:]))
+    emit(path=label, epoch_seconds=times, steady_epoch_seconds=min(times[1:]),
+         nfe=[[sv.get(k) for k in ("nfe", "bwd_nfe", "eval_nfe")]
+              for sv in fit["solver"]])
 
 
 def spmm(emit) -> None:
@@ -767,6 +794,127 @@ def pin(emit) -> None:
         torch.cuda.empty_cache()
 
 
+def kproj(emit) -> None:
+    """The ``kproj`` measurements of the module's docstring."""
+    import torch
+
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import attention_pin as pin_mod
+    from graphax_torch.kernels import fused_attention as fa
+
+    here = this_chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    trs = {ds: Trainer(best_config(ds), get_dataset(ds))
+           for ds in ("Computers", "Photo")}
+    shapes = [("arxiv", 169_343, 162, 32)] + [
+        (ds, tr.data.num_nodes, tr.cfg.hidden_dim, tr.cfg.attention_dim)
+        for ds, tr in trs.items()] + [("D400 A120", 169_343, 400, 120)]
+    with torch.no_grad():
+        for label, n, d, a in shapes:
+            x = torch.randn(n, d, generator=gen, device="cuda")
+            wk = torch.randn(d, a, generator=gen, device="cuda") / d ** 0.5
+            bk = 0.1 * torch.randn(a, generator=gen, device="cuda")
+            bms, by = here.bound_ms(4 * (n * d + d * a + a + n * a),
+                                    2.0 * n * d * a, "float32")
+            row = dict(kernel="attention_kproj", dtype="float32",
+                       shape=label, N=n, D=d, A=a, bound_ms=bms, bound_by=by,
+                       library="addmm out_dtype=float32",
+                       library_ms=here.time_ms(lambda: torch.addmm(
+                           bk, x, wk, out_dtype=torch.float32), reps=10))
+            fn = lambda: fa.attention_kproj(x, wk, bk)  # noqa: E731
+            try:
+                got = fn()
+            except ValueError as exc:   # the parent's shared-memory gate
+                emit(**row, refused=str(exc))
+                continue
+            emit(**row, ms=here.time_ms(fn), max_abs_err=float(
+                (got - fa.attention_kproj_plain(x, wk, bk)).abs().max()))
+            del x, wk, bk, got
+        g = Trainer(best_config("ogbn-arxiv", community_window=0),
+                    get_dataset("ogbn-arxiv")).data.graph
+        n, e, d, a, heads = g.num_nodes, g.num_edges, 162, 32, 2
+        q = torch.randn(n, a, generator=gen, device="cuda").mul(0.3)
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        wk = torch.randn(d, a, generator=gen, device="cuda").mul(0.1)
+        bk = torch.randn(a, generator=gen, device="cuda").mul(0.1)
+        args = (g.csr, q, x, wk, bk, None, "scaled_dot", heads)
+        fn = lambda: pin_mod.attention_pin(*args)  # noqa: E731
+        emit(kernel="attention_pin", graph="arxiv CSR", dtype="float32",
+             ms=here.time_ms(fn), max_abs_err=float(
+                 (fn() - pin_mod.attention_pin_plain(*args)).abs().max()),
+             kproj_ms=here.time_ms(lambda: fa.attention_kproj(x, wk, bk)))
+        del g, q, x, wk, bk
+    torch.cuda.empty_cache()
+    for ds, tr in trs.items():
+        steady_epochs(emit, ds, tr, epochs=6)
+
+
+def slab(emit) -> None:
+    """The ``slab`` measurements of the module's docstring."""
+    import torch
+
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import windowed_spmm as ws
+
+    here = this_chip_smoke()
+    new = "out_dtype" in inspect.signature(ws.win_bwd_slab).parameters
+    bf = torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    data = get_dataset("ogbn-arxiv")
+    trs = {"windowed": Trainer(best_config("ogbn-arxiv"), data),
+           "CSR": Trainer(best_config("ogbn-arxiv", community_window=0),
+                          data)}
+    wl = trs["windowed"].data.graph.windows
+    n, d, wn, w = wl.num_nodes, 162, wl.num_windows, wl.window
+    cells = wl.num_tiles * wl.tile * w
+    per_win = (wl.win_ptr[1:] - wl.win_ptr[:-1]).float()
+    emit(layout="windowed arxiv", T=wl.num_tiles, Wn=wn, W=w,
+         tiles_per_window_max=int(per_win.max()),
+         tiles_per_window_mean=float(per_win.mean()))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vals = torch.rand(trs["windowed"].data.graph.edge_buffer_size,
+                      generator=gen, device="cuda")
+    dense = ws.densify(wl, vals, bf)
+    g = torch.randn(n, d, generator=gen, device="cuda").to(bf)
+    ref = ws._tiles(g.float(), wl)
+    want = torch.zeros(wn, w, d, device="cuda").index_add_(
+        0, wl.tile_win.long(), torch.bmm(dense.float().transpose(1, 2), ref)
+    ).reshape(wn * w, d)[:n]
+    del ref
+    g_t = ws._tiles(g, wl)
+    tw = wl.tile_win.long()
+    for od in (torch.float32, bf):
+        if new:
+            fn = lambda od=od: ws.win_bwd_slab(wl, dense, g, od)  # noqa
+        elif od == torch.float32:
+            fn = lambda: ws.win_bwd_slab(wl, dense, g)[:n]  # noqa: E731
+        else:
+            fn = lambda: ws.win_bwd_slab(wl, dense, g)[:n].to(bf)  # noqa
+        err = float((fn().float() - want.to(od).float()).abs().max())
+        bms, by = here.bound_ms(cells * 2 + n * d * 2 + n * d * od.itemsize,
+                                2.0 * cells * d, "bfloat16")
+        emit(kernel="win_bwd_slab", dtype="bfloat16", out=str(od)[6:],
+             ms=here.time_ms(fn), max_abs_err=err, bound_ms=bms, bound_by=by,
+             with_cast=not new and od != torch.float32,
+             two_calls="bmm out_dtype=float32 + index_add_",
+             two_calls_ms=here.time_ms(
+                 lambda: torch.zeros(wn, w, d, device="cuda").index_add_(
+                     0, tw, torch.bmm(dense.transpose(1, 2), g_t,
+                                      out_dtype=torch.float32)), reps=5))
+    del dense, g, g_t, want
+    torch.cuda.empty_cache()
+    for label, tr in trs.items():
+        steady_epochs(emit, f"arxiv {label}", tr)
+    del trs
+    torch.cuda.empty_cache()
+    train_steps(data, emit)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None,
@@ -774,7 +922,7 @@ def main() -> int:
     ap.add_argument("--parent", default=None,
                     help="a second checkout, measured in turns")
     ap.add_argument("--only", choices=("windowed", "attention", "spmm",
-                                       "pin"),
+                                       "pin", "kproj", "slab"),
                     default=None, help="one group of measurements")
     args = ap.parse_args()
     if args.root is not None:

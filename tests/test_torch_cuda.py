@@ -1132,10 +1132,10 @@ def test_cuda_pin_long_rows_and_empty_rows(cuda, dtype, att_type):
 
 
 def test_cuda_pin_wide_rows_follow_the_k_projection(cuda):
-    """The pin at D 400, A 120, 4 heads: bf16 runs (its K table on the
-    tensor cores) within the pin's tolerance of the plain version; f32
-    raises (the CUDA-core projection's f32 Wk and staged rows exceed a
-    block's shared memory) before any launch."""
+    """The pin at D 400, A 120, 4 heads, in both dtypes (bf16's K table on
+    the tensor cores, f32's on the CUDA-core projection, which streams Wk
+    with x along D): within the pin's tolerance of the plain version, one
+    wrapper call, one K projection."""
     from graphax_torch.kernels import LAUNCHES
 
     g = _walk_graph(cuda, seed=15)
@@ -1148,12 +1148,156 @@ def test_cuda_pin_wide_rows_follow_the_k_projection(cuda):
         bk = 0.1 * torch.randn(a, generator=gen, device=cuda)
         args = (g.csr, q, x, wk, bk, g.edge_weight, "scaled_dot", 4)
         LAUNCHES.clear()
-        if tdt == torch.float32:
-            with pytest.raises(ValueError, match="shared memory"):
-                pin_mod.attention_pin(*args)
-            assert not LAUNCHES
-            continue
         got = pin_mod.attention_pin(*args)
         assert LAUNCHES["attention_pin"] == LAUNCHES["attention_kproj"] == 1
         torch.testing.assert_close(got, pin_mod.attention_pin_plain(*args),
                                    rtol=2e-4, atol=2e-5)
+
+
+# ----------------------------------------------------------------------
+# the CUDA-core K projection (f32, and bf16 where the tensor-core kernel
+# does not fit)
+
+def _kproj_cuda_core(x, wk, bk):
+    """The CUDA-core kernel whatever the route (the wrapper sends bf16
+    there only where the tensor-core kernel does not fit)."""
+    from graphax_torch.kernels import _build
+
+    n, d = x.shape
+    kt = torch.empty((n, wk.shape[1]), dtype=torch.float32, device=x.device)
+    err = _build.library("fused_attention").gx_attention_kproj(
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), kt.data_ptr(), n, d,
+        wk.shape[1], fa._DTYPES[x.dtype], fa.kproj_copy_bytes(x),
+        fa.kproj_copy_bytes(wk), _build.stream_ptr(x))
+    _build.check(err, "attention_kproj")
+    return kt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1, 7, 162, 400, 1000])
+@pytest.mark.parametrize("a", [1, 32, 64, 120, 512])
+def test_cuda_kproj_cuda_core_widths_sizes_and_views(cuda, dtype, d, a):
+    """The CUDA-core K projection at N = 1, 127 (one ragged tile) and 1001
+    (several tiles over few CTAs' turns): f32 sums of exact products in
+    D's order, within TOL_KPROJ (1e-5 relative, 1e-4 absolute) of the
+    plain version; a view of x one value in (8-byte copies in f32, element
+    copies in bf16) and a view of Wk one value in give the same bits as
+    the aligned call. Through the wrapper where it routes there (every f32
+    shape), the same bits as the kernel called directly."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + a)
+    wk = (torch.randn(d, a, generator=gen, device=cuda)
+          / d ** 0.5).to(tdt)
+    bk = 0.1 * torch.randn(a, generator=gen, device=cuda)
+    for n in (1, 127, 1001):
+        x = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+        kt = _kproj_cuda_core(x, wk, bk)
+        torch.testing.assert_close(kt, fa.attention_kproj_plain(x, wk, bk),
+                                   rtol=1e-5, atol=1e-4)
+        xm, wm = _off_word(x), _off_word(wk)
+        assert torch.equal(_kproj_cuda_core(xm, wm, bk), kt)
+        if fa.kproj_route(tdt, d, a) == "cuda_core":
+            with torch.no_grad():
+                assert torch.equal(fa.attention_kproj(xm, wm, bk), kt)
+
+
+# ----------------------------------------------------------------------
+# win_bwd_slab in bf16 on the tensor cores: output dtypes, routes, empty
+# windows
+
+def _slab_graph(device, n, tile, window, seed):
+    """Communities of one window each plus random edges, except that the
+    rows of window 1 take their columns from window 0, so every tile of
+    window 1 maps window 0 and no tile maps window 1; n off the tile."""
+    rng = np.random.RandomState(seed)
+    e = 10 * n
+    row = rng.randint(0, n, e)
+    home = np.where(row // window == 1, 0, row // window)
+    col = np.clip(home * window + rng.randint(0, window, e), 0, n - 1)
+    far = rng.rand(e) < 0.2
+    col[far] = rng.randint(0, n, far.sum())
+    key = np.unique(row * n + col)
+    row, col = key // n, key % n
+    w = rng.rand(len(row)).astype(np.float32) + 0.1
+    g = Graph.from_edges(row, col, n, edge_weight=w,
+                         edge_buffer_size=len(row) + 5, device=device)
+    return attach_windows(g, window=window, tile=tile)
+
+
+# (N, tile, W, D, route): the slice's tile and D over W = 256, D = 8, odd
+# D (the element route), D = 256 (two CTAs of 176 columns), tile 64, tile
+# 8 with W = 32 (one chunk of 32 rows holds a whole tile); every N off the
+# tile
+SLAB = {"d162": (1001, 128, 256, 162, "cp.async"),
+        "d8": (1001, 128, 256, 8, "cp.async"),
+        "odd": (1001, 128, 256, 7, "elements"),
+        "d256": (1001, 128, 256, 256, "cp.async"),
+        "tile64": (1001, 64, 128, 162, "cp.async"),
+        "tile8": (301, 8, 32, 162, "cp.async")}
+
+
+@pytest.mark.parametrize("shape", sorted(SLAB))
+def test_cuda_win_bwd_slab_bf16_outputs_routes_and_empty_windows(cuda,
+                                                                 shape):
+    """bf16 win_bwd_slab: its f32 output within the windowed products'
+    tolerance (1e-5 relative, 1e-4 absolute: f32 sums of up to 4 tiles'
+    rows in another order) of the plain version; its bf16 output the f32
+    output's bits cast, exactly (one rounding of the same f32 sums), and
+    within one bf16 ulp of the plain bf16 output; zeros for the rows of
+    the window that no tile maps; a view of g or of the blocks that
+    starts mid-pair takes the element route and gives the same bits."""
+    n, tile, window, d, route = SLAB[shape]
+    g = _slab_graph(cuda, n, tile, window, seed=16)
+    wl, bf = g.windows, torch.bfloat16
+    assert 1 not in set(wl.tile_win.tolist()) and n % tile
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    dense = ws.densify(wl, g.edge_weight, bf)
+    gr = torch.randn(n, d, generator=gen, device=cuda).to(bf)
+    assert ws.slab_staging(dense, gr) == route
+    f32 = ws.win_bwd_slab(wl, dense, gr)
+    assert f32.dtype == torch.float32 and f32.shape == (n, d)
+    torch.testing.assert_close(f32, ws.win_bwd_slab_plain(wl, dense, gr),
+                               rtol=1e-5, atol=1e-4)
+    b16 = ws.win_bwd_slab(wl, dense, gr, bf)
+    assert b16.dtype == bf and torch.equal(b16, f32.to(bf))
+    torch.testing.assert_close(
+        b16.float(), ws.win_bwd_slab_plain(wl, dense, gr, bf).float(),
+        rtol=BF16_RTOL, atol=1e-4)
+    assert not f32[window:2 * window].any()
+    gm, dm = _off_word(gr), _off_word(dense)
+    assert ws.slab_staging(dense, gm) == "elements"
+    assert ws.slab_staging(dm, gr) == "elements"
+    for od, want in ((torch.float32, f32), (bf, b16)):
+        assert torch.equal(ws.win_bwd_slab(wl, dense, gm, od), want)
+        assert torch.equal(ws.win_bwd_slab(wl, dm, gr, od), want)
+
+
+def test_cuda_win_matmul_backward_makes_dx_in_x_dtype(cuda):
+    """The win_matmul Function's backward on bf16: dx comes from one
+    win_bwd_slab launch in x's dtype, the bits of win_bwd_slab's bf16
+    output; no cast kernel of an [N, D] or [Wn W, D] tensor runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from graphax_torch.kernels import LAUNCHES
+
+    n, tile, window, d, _ = SLAB["d162"]
+    g = _slab_graph(cuda, n, tile, window, seed=18)
+    wl, bf = g.windows, torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    dense = ws.densify(wl, g.edge_weight, bf)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(bf)
+    add = torch.randn(n, d, generator=gen, device=cuda).to(bf)
+    probe = torch.randn(n, d, generator=gen, device=cuda).to(bf)
+    xr = x.clone().requires_grad_(True)
+    out = ws._WinMatmul.apply(dense, xr, wl, add)
+    LAUNCHES.clear()
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        out.backward(probe)
+        torch.cuda.synchronize()
+    assert LAUNCHES["win_bwd_slab"] == 1
+    shapes = ([n, d], [wl.num_windows * window, d])
+    assert not [ev for ev in prof.events() if ev.name == "aten::_to_copy"
+                and ev.input_shapes and list(ev.input_shapes[0]) in shapes]
+    assert xr.grad.dtype == bf
+    assert torch.equal(xr.grad, ws.win_bwd_slab(wl, dense, probe, bf))

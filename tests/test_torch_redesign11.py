@@ -108,12 +108,14 @@ def test_spmm_loads_cover_the_row_aligned(dtype, d, width):
 
 def test_pin_gate_follows_the_k_projection():
     """The pin runs where its K projection does: bf16 at D 400, A 120 on
-    the tensor cores (whose shared memory holds Wk in bf16); f32 there
-    raises, since the CUDA-core projection's f32 Wk and staged rows
-    (4 (D A + 32 D) bytes) exceed a block's shared memory. Every preset
-    width runs in both dtypes."""
+    the tensor cores (whose shared memory holds Wk in bf16), and f32 there
+    too, on the CUDA-core projection, which streams Wk with x along D. The
+    flash, windowed and column routes keep their gate, `kproj_fits`
+    (4 (D A + 32 D) bytes within a block's shared memory), which D 400,
+    A 120 exceeds. Every preset width runs in both dtypes."""
     assert fa.kproj_supported(torch.bfloat16, 400, 120)
-    assert not fa.kproj_supported(torch.float32, 400, 120)
+    assert fa.kproj_supported(torch.float32, 400, 120)
+    assert fa.kproj_route(torch.float32, 400, 120) == "cuda_core"
     assert not fa.kproj_fits(400, 120)
     for d, a in ((162, 32), (128, 64), (64, 16)):
         for dt in (torch.float32, torch.bfloat16):
