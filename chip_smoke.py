@@ -33,14 +33,18 @@ and prints no result):
    k at Computers' widths, N = 13,381, H = 4, dk = 16, D = 128, beside PR 4's
    CSR flash on the same graph and function, and on small graphs with
    empty rows, a hub row and an N off the tile; the three-kernel form,
-   attention_norm and attention_attspmm, and the windowed attention kernel
-   winatt (K5) on the windowed layout's residual CSR and in-window cells
-   and on the arxiv CSR under column normalisation, with the models' own
-   q, k and K table, each route timed whole, and on a small community
-   graph over every score type, reweight and squareplus; spmm_csr (A x
-   and A^T g) and the pin on a hub graph at arxiv's N and E with hub rows
-   of up to 13,000 edges, and the CSR flash and attention_attspmm on it
-   with the GRAND-nl model's own operands),
+   attention_norm and attention_attspmm, with attention_gmax before
+   them, and the windowed attention kernel winatt (K5) on the windowed
+   layout's residual CSR and in-window cells and on the arxiv CSR under
+   column normalisation, with the models' own q, k and K table, each
+   route timed whole, and on a small community graph over every score
+   type, reweight and squareplus and a windowed graph with in-window rows
+   of 33, 200 and 512 cells over every score type and reweight; spmm_csr
+   (A x and A^T g) and the pin on a hub graph at arxiv's N and E with hub
+   rows of up to 13,000 edges, and the CSR flash, attention_gmax and
+   attention_attspmm on it with the GRAND-nl model's own operands; K5,
+   with gmax and attention_norm on the residual, on a windowed layout at
+   arxiv's N whose in-window rows reach a whole window),
    in f32 and bf16,
    with its error beside the stated tolerance, its median device time, the
    plain version's time, its bound and a PyTorch call as a yardstick where
@@ -48,7 +52,8 @@ and prints no result):
    bf16 in, f32 out through ``out_dtype``; win_matmul's rows name its
    staging route; spmm_csr's rows its load width; the
    kernels that gather a row per edge, spmm_csr, the pin (K rows), the
-   CSR flash and attention_attspmm, also their all-miss count: every
+   CSR flash, attention_attspmm, attention_gmax (K rows) and K5, also
+   their all-miss count: every
    gathered row from device memory); flash's bf16 output and attention_attspmm's output in x's
    dtype (after K5's f32 half on the windowed route) as the routes ask for
    them, each bit for bit its f32 output (plus the addend) cast once;
@@ -1121,6 +1126,63 @@ def _community_graph(device, n=300, window=32, tile=8, seed=0):
     return attach_windows(g, window=window, tile=tile)
 
 
+def _long_row_graph(device, n=1100, window=512, tile=8, seed=20):
+    """Communities of one window of 512 (the last one short), tiles of 8:
+    in-window rows of 33, 200 and 512 cells (row 7 its whole window), rows
+    30 and 31 with out-of-window edges only, the last 5 rows without an
+    edge, about 5 cells on the other rows; padded edge buffer."""
+    import numpy as np
+
+    from graphax_torch.kernels.dispatch import attach_windows
+    from graphax_torch.sparse.graph import Graph
+
+    rng = np.random.RandomState(seed)
+    comm = np.arange(n) // window
+    same = comm[:, None] == comm[None, :]
+    hit = rng.rand(n, n) < np.where(same, 5.0 / window, 0.002)
+    for r, cells in ((3, 33), (600, 200), (7, window)):
+        hit[r] &= ~same[r]
+        hit[r, comm[r] * window + rng.choice(window, cells, replace=False)] \
+            = True
+    hit[30:32] &= ~same[30:32]
+    hit[30, 900] = hit[31, 1000] = True
+    hit[n - 5:] = False
+    row, col = np.nonzero(hit)
+    g = Graph.from_edges(row, col, n,
+                         edge_weight=rng.rand(len(row)).astype(np.float32)
+                         + 0.2, edge_buffer_size=len(row) + 9, device=device)
+    return attach_windows(g, window=window, tile=tile)
+
+
+def long_row_windows(device, n=169_343, e=1_354_429,
+                     cells=(512, 400, 300, 200, 129, 100, 64, 33), seed=7):
+    """A windowed layout at ogbn-arxiv's N (windows of 512, tiles of 128,
+    as the preset) whose in-window rows reach a whole window: rows of
+    ``cells`` columns drawn inside their own window at random positions,
+    every other row about 8 edges (geometric) to uniform columns, so it
+    holds few in-window cells besides; built from a seed."""
+    import numpy as np
+
+    from graphax_torch.kernels.dispatch import attach_windows
+    from graphax_torch.sparse.graph import Graph
+
+    rng = np.random.RandomState(seed)
+    deg = rng.geometric((n - len(cells)) / (e - sum(cells)), n)
+    rows = rng.choice(n, len(cells), replace=False)
+    deg[rows] = 0
+    row = [np.repeat(np.arange(n), deg)]
+    col = [rng.randint(0, n, row[0].size)]
+    for r, c in zip(rows, cells):
+        w0 = r // 512 * 512
+        width = min(512, n - w0)
+        row.append(np.full(min(c, width), r))
+        col.append(w0 + rng.choice(width, min(c, width), replace=False))
+    row, col = np.concatenate(row), np.concatenate(col)
+    order = np.lexsort((col, row))
+    g = Graph.from_edges(row[order], col[order], n, device=device)
+    return attach_windows(g, window=512, tile=128)
+
+
 def hub_graph(device, n=169_343, e=1_354_429,
               hubs=(13_000, 9_000, 6_000, 4_000, 3_000, 2_500, 2_000, 2_000),
               seed=3):
@@ -1212,7 +1274,15 @@ def three_kernel_checks(results: dict, path: str, graph, x, q, q_s, k, kt,
         lay, ew_res = graph.csr, ew
     e_l = lay.num_slots
     idx_bytes = 4 * e_l + 4 * (n + 1)
-    g = fa.attention_gmax(lay, q_s, kt, ew_res, *scal)
+    # q, K, CSR (and weights) in, the max out; all-miss: K per slot
+    gm_bytes = (n * a * b + 4 * n * a + idx_bytes + 4
+                + (4 * e_l if ew_res is not None else 0))
+    g = hold_to_plain(
+        results, row("attention_gmax", path),
+        lambda: fa.attention_gmax(lay, q_s, kt, ew_res, *scal),
+        lambda: fa.attention_gmax_plain(lay, q_s, kt, ew_res, *scal),
+        TOL_GMAX, gm_bytes, e_l * 2.0 * a, timed=timed, tag=path,
+        miss_bytes=gm_bytes - 4 * n * a + 4 * e_l * a)
     e, den = hold_to_plain(
         results, row("attention_norm", path),
         lambda: fa.attention_norm(lay, q_s, kt, ew_res, g, *scal,
@@ -1328,28 +1398,33 @@ def phase_three_kernel_kernels(trainer_w, trainer_c, results: dict) -> None:
             del x, q, k, q_s, kt, p
             torch.cuda.empty_cache()
 
-    small = _community_graph("cuda")
     gen = torch.Generator(device="cuda").manual_seed(14)
-    n = small.num_nodes
-    for dt in (torch.float32, torch.bfloat16):
-        name = str(dt).replace("torch.", "")
-        mk = lambda *shape, s=1.0: (s * torch.randn(
-            *shape, generator=gen, device="cuda")).to(dt).contiguous()
-        x, q, k = mk(n, 162), mk(n, 32, s=0.5), mk(n, 32, s=0.5)
-        kt = 0.5 * torch.randn(n, 32, generator=gen, device="cuda")
-        for att_type in ("scaled_dot", "cosine_sim", "pearson",
-                         "exp_kernel"):
-            for ew in (None, small.edge_weight):
-                for path, sqp in (("windowed", False), ("colnorm", False),
-                                  ("colnorm", True)):
-                    cfg = trainer_w.cfg.replace(attention_type=att_type,
-                                                square_plus=sqp)
-                    with torch.no_grad():
-                        three_kernel_checks(results, path, small, x, q, q,
-                                            k, kt, cfg, ew, name, False)
-    emit({"phase": "kernels", "graph": "small community", "cases": 48,
-          "kernels": ["attention_norm", "winatt", "attention_attspmm"],
-          "ok": True})
+    for label, small, paths in (
+            ("small community", _community_graph("cuda"),
+             (("windowed", False), ("colnorm", False), ("colnorm", True))),
+            ("long in-window rows", _long_row_graph("cuda"),
+             (("windowed", False),))):
+        n = small.num_nodes
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            mk = lambda *shape, s=1.0: (s * torch.randn(  # noqa: E731
+                *shape, generator=gen, device="cuda")).to(dt).contiguous()
+            x, q, k = mk(n, 162), mk(n, 32, s=0.5), mk(n, 32, s=0.5)
+            kt = 0.5 * torch.randn(n, 32, generator=gen, device="cuda")
+            for att_type in ("scaled_dot", "cosine_sim", "pearson",
+                             "exp_kernel"):
+                for ew in (None, small.edge_weight):
+                    for path, sqp in paths:
+                        cfg = trainer_w.cfg.replace(attention_type=att_type,
+                                                    square_plus=sqp)
+                        with torch.no_grad():
+                            three_kernel_checks(results, path, small, x, q,
+                                                q, k, kt, cfg, ew, name,
+                                                False)
+        emit({"phase": "kernels", "graph": label,
+              "cases": 16 * len(paths),
+              "kernels": ["attention_gmax", "attention_norm", "winatt",
+                          "attention_attspmm"], "ok": True})
 
 
 def phase_hub_kernels(trainer, results: dict) -> None:
@@ -1358,8 +1433,9 @@ def phase_hub_kernels(trainer, results: dict) -> None:
     :func:`spmm_check`) and the pin (every score type and reweight,
     TOL_PIN) on :func:`hub_graph`, each timed beside its bound and all-miss
     count; then flash_attention
-    (softmax and squareplus) and attention_attspmm (row and column forms)
-    on it. The kernels walk its hub rows of thousands of edges in segments
+    (softmax and squareplus), attention_gmax (TOL_GMAX) and
+    attention_attspmm (row and column forms) on it; then
+    :func:`long_row_kernels`. The kernels walk its hub rows of thousands of edges in segments
     of ``ROW_SPLIT`` edges; flash and attspmm take the
     inputs of the arxiv checks (the GRAND-nl model's own q, Wk and bk on its
     encoded state: the graph has arxiv's N), against their plain versions
@@ -1425,7 +1501,14 @@ def phase_hub_kernels(trainer, results: dict) -> None:
                                                      gs, *scal),
                     tol, nbytes, e * (2.0 * a + 2.0 * heads * d),
                     tag=tag, miss_bytes=nbytes - n * d * b + e * d * b)
-            gs = fa.attention_gmax(g.csr, q, kt, None, *scal)
+            # gmax over the hub rows' slots: q, K, CSR in; K per slot
+            gm_bytes = n * a * b + 4 * n * a + csr_bytes + 4
+            gs = hold_to_plain(
+                results, row("attention_gmax", "hub"),
+                lambda: fa.attention_gmax(g.csr, q, kt, None, *scal),
+                lambda: fa.attention_gmax_plain(g.csr, q, kt, None, *scal),
+                TOL_GMAX, gm_bytes, e * 2.0 * a, tag="hub",
+                miss_bytes=gm_bytes - 4 * n * a + 4 * e * a)
             ev, den = fa.attention_norm(g.csr, q, kt, None, gs, *scal)
             add = torch.randn(n, d, generator=gen, device="cuda")
             nbytes = (4 * e * heads + 4 * n * heads + n * d * b + csr_bytes
@@ -1447,6 +1530,75 @@ def phase_hub_kernels(trainer, results: dict) -> None:
                       f"attention_attspmm {tag} {name}: the addend output is "
                       "not the f32 composite cast once")
         del x, q, kt, ev, den, add
+    del g
+    torch.cuda.empty_cache()
+    long_row_kernels(trainer, x_enc, results)
+
+
+def long_row_kernels(trainer, x_enc, results: dict) -> None:
+    """K5 (winatt) on :func:`long_row_windows` (in-window rows of up to a
+    whole window of 512 cells at arxiv's N), with gmax and attention_norm
+    on its residual before it, as the windowed route runs them: the
+    GRAND-nl model's own q, k and K table on its encoded state, f32 and
+    bf16, against the plain versions (K5's out to tol_rounded, den and the
+    residual's tables to TOL_TRAIN, gmax to TOL_GMAX), each timed beside
+    its bound and all-miss count."""
+    import torch
+
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels import winatt as wa
+    from graphax_torch.utils.params import linear_apply
+
+    cfg, att = trainer.cfg, trainer.model.block.func.att
+    g = long_row_windows("cuda")
+    wl = g.windows
+    win, res = wl.in_window, wl.residual
+    emit({"phase": "kernels", "graph": "long in-window rows",
+          "N": g.num_nodes, "E": g.num_edges, "in_window_cells":
+          win.num_slots, "residual": res.num_slots, "row_lanes":
+          wa.LANES, **degree_shares(win.ptr, (wa.LANES, 128))})
+    n, d = x_enc.shape
+    a, heads = cfg.attention_dim, cfg.heads
+    dk = a // heads
+    scal = (cfg.attention_type, heads, 0.0, 0.0)
+    e_r, e_w, tabs = res.num_slots, win.num_slots, 4 * n * heads
+    for dt in (torch.float32, torch.bfloat16):
+        name, b = str(dt).replace("torch.", ""), dt.itemsize
+        row = lambda k, tag: dict(kernel=k, graph="long rows",  # noqa
+                                  dtype=name, variant=tag)
+        with torch.no_grad():
+            x = x_enc.to(dt).contiguous()
+            q = linear_apply(att.Q, x).to(dt).contiguous()
+            k = linear_apply(att.K, x).to(dt).contiguous()
+            q_s = (q / torch.sqrt(torch.tensor(dk, dtype=torch.float32))
+                   .to(dt)).contiguous()
+            kt = fa.attention_kproj(x, att.K.weight.t().to(dt).contiguous(),
+                                    att.K.bias.float().contiguous())
+            res_bytes = n * a * b + 4 * n * a + 4 * e_r + 4 * (n + 1) + 4
+            r0 = hold_to_plain(
+                results, row("attention_gmax", "long rows residual"),
+                lambda: fa.attention_gmax(res, q_s, kt, None, *scal),
+                lambda: fa.attention_gmax_plain(res, q_s, kt, None, *scal),
+                TOL_GMAX, res_bytes, e_r * 2.0 * a,
+                tag="long rows residual",
+                miss_bytes=res_bytes - 4 * n * a + 4 * e_r * a)
+            _, d_res = fa.attention_norm(res, q_s, kt, None, r0, *scal)
+            # q, k, x, the cell CSR, d_res, r0 in; out, den out; all-miss:
+            # k and x gathered per cell
+            nbytes = (2 * n * a * b + n * d * b + 4 * e_w + 4 * (n + 1)
+                      + tabs + 4 + 4 * n * d + tabs)
+            hold_to_plain(
+                results, row("winatt", "long rows"),
+                lambda: wa.winatt(win, q, k, x, d_res, r0, None, *scal),
+                lambda: wa.winatt_plain(win, q, k, x, d_res, r0, None,
+                                        *scal),
+                (("out", tol_rounded(name, x)), ("den", TOL_TRAIN)),
+                nbytes, e_w * (2.0 * a + 4.0 * heads + 2.0 * d),
+                tag="long rows",
+                miss_bytes=nbytes - n * a * b - n * d * b
+                + e_w * (a * b + d * b))
+        del x, q, k, q_s, kt, r0, d_res
+    del g
     torch.cuda.empty_cache()
 
 
@@ -2520,6 +2672,13 @@ def main(argv=None) -> int:
         "than ROW_SPLIT edges attspmm_seg_sum and seg_combine")
     kernels[16]["function_ms"] = results[("winatt", "bfloat16")][
         "function_ms"]
+    kernels[16]["long_rows"] = {k: results[
+        ("winatt", "bfloat16", "long rows")].get(k) for k in walked}
+    kernels[8]["variant"] = "the whole arxiv CSR (squareplus's shift)"
+    for tag in ("windowed", "colnorm", "hub", "long rows residual"):
+        kernels[8][tag.replace(" ", "_")] = {
+            k: results[("attention_gmax", "bfloat16", tag)].get(k)
+            for k in walked}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

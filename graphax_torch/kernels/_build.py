@@ -55,8 +55,8 @@ SIGNATURES = {
         "gx_attention_kproj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P],
         "gx_attention_kproj_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "gx_attention_gmax": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _F, _F, _I, _P],
+        "gx_attention_gmax": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                              _I, _F, _F, _I, _I, _P],
         "gx_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P],
@@ -72,8 +72,8 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "winatt": {
-        "gx_winatt": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _I, _I, _F, _F, _I, _P],
+        "gx_winatt": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P],
     },
     "flash_dense": {
         "gx_flash_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -10,36 +10,47 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "row_walk.cuh"
 
 namespace gx_att {
 
 constexpr float COS_EPS = 1e-5f;
 
-__device__ __forceinline__ float score(const float* q, const float* k, int dk,
+__device__ __forceinline__ float val(float v) { return v; }
+__device__ __forceinline__ float val(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// q's head slice in f32 or the state dtype (its values are exact in f32)
+template <typename Q>
+__device__ __forceinline__ float score(const Q* q, const float* k, int dk,
                                        int att_type, float ov2, float inv2l2) {
   if (att_type == 0) {
     float s = 0.f;
-    for (int i = 0; i < dk; ++i) s += q[i] * k[i];
+    for (int i = 0; i < dk; ++i) s += val(q[i]) * k[i];
     return s;
   }
   if (att_type == 3) {
     float sq = 0.f;
     for (int i = 0; i < dk; ++i) {
-      const float t = q[i] - k[i];
+      const float t = val(q[i]) - k[i];
       sq += t * t;
     }
     return ov2 * expf(-sq * inv2l2);
   }
   float qm = 0.f, km = 0.f;
   if (att_type == 2) {
-    for (int i = 0; i < dk; ++i) { qm += q[i]; km += k[i]; }
+    for (int i = 0; i < dk; ++i) { qm += val(q[i]); km += k[i]; }
     qm /= (float)dk;
     km /= (float)dk;
   }
   float dot = 0.f, qq = 0.f, kk = 0.f;
   for (int i = 0; i < dk; ++i) {
-    const float a = q[i] - qm, b = k[i] - km;
+    const float a = val(q[i]) - qm, b = k[i] - km;
     dot += a * b;
     qq += a * a;
     kk += b * b;
@@ -48,45 +59,74 @@ __device__ __forceinline__ float score(const float* q, const float* k, int dk,
   return dot / (qn * kn);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+// max and sum over groups of G lanes (xor butterflies of width G)
+template <int G>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o, G));
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o, G);
   return v;
 }
 
-// the head's score of one edge: q in shared memory, the K row in device
-// memory, read for scaled_dot with kvec (dk % 4 == 0, the table on 16
-// bytes) by 16-byte loads, four in flight before their products, in the
-// order of score()
-__device__ __forceinline__ float score_head(const float* qs, const float* kr,
+__device__ __forceinline__ float warp_max(float v) { return group_max<32>(v); }
+__device__ __forceinline__ float warp_sum(float v) { return group_sum<32>(v); }
+
+// the head's score of one edge: q's head slice (in f32 shared memory, or
+// the state dtype in device memory with QV), the K row in device memory,
+// read for scaled_dot with kvec (dk % 4 == 0, the table on 16 bytes; with
+// QV also q's slice) by 16-byte loads, four of K (and with QV 16 values of
+// q) in flight before their products, in the order of score()
+template <typename Q = float, bool QV = false>
+__device__ __forceinline__ float score_head(const Q* q, const float* kr,
                                             int dk, int att_type, float ov2,
                                             float inv2l2, int kvec) {
   if (att_type == 0 && kvec) {
+    constexpr int QE = 16 / (int)sizeof(Q);   // q values in 16 bytes
     float s = 0.f;
     for (int i0 = 0; i0 < dk; i0 += 16) {
       float4 k[4];
+      float qf[16];
 #pragma unroll
       for (int t = 0; t < 4; ++t)
         if (i0 + 4 * t < dk)
           k[t] = __ldg(reinterpret_cast<const float4*>(kr + i0 + 4 * t));
+      if constexpr (QV) {
+#pragma unroll
+        for (int t = 0; t < 16 / QE; ++t)
+          if (i0 + QE * t < dk) {
+            const uint4 v =
+                __ldg(reinterpret_cast<const uint4*>(q + i0 + QE * t));
+            const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+            gx_rows::unpack<Q, 16>(w, qf + QE * t);
+          }
+      }
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const int i = i0 + 4 * t;
         if (i < dk) {
-          s += qs[i] * k[t].x;
-          s += qs[i + 1] * k[t].y;
-          s += qs[i + 2] * k[t].z;
-          s += qs[i + 3] * k[t].w;
+          float qv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if constexpr (QV) qv[c] = qf[4 * t + c];
+            else qv[c] = val(q[i + c]);
+          }
+          s += qv[0] * k[t].x;
+          s += qv[1] * k[t].y;
+          s += qv[2] * k[t].z;
+          s += qv[3] * k[t].w;
         }
       }
     }
     return s;
   }
-  return score(qs, kr, dk, att_type, ov2, inv2l2);
+  return score(q, kr, dk, att_type, ov2, inv2l2);
 }
 
 // the batch's edges e0 + j, j < cnt, one per lane: lane j loads edge j's

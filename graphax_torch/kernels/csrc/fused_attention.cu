@@ -52,11 +52,20 @@
 //                 shapes, 0.023 ms), so x streams in whole 128-row tiles by
 //                 16-byte cp.async and the products (1.76 GFLOP) go
 //                 through mma.sync.
-//   gmax_kernel   one warp per CSR row scores its edges against K[col]; a
-//                 warp max, a block max, one atomicMax per block on an
-//                 order-preserving integer encoding (max is order-free, so
-//                 the result does not depend on the schedule); the last block
-//                 to finish decodes it and applies graphax's NEG/2 rule.
+//   gmax_kernel   flat over the layout's (slot, head) pairs, not rows (a
+//                 max is order-free): each thread scores its pairs against
+//                 K[col] by 16-byte loads of q and K, its slot's row from the
+//                 layout's seg; a warp max, a block max, one atomicMax per
+//                 block on an order-preserving integer encoding (the result
+//                 does not depend on the schedule); the last block to finish
+//                 decodes it, applies graphax's NEG/2 rule and resets the
+//                 state. It must read q, K and the layout once (0.0115 ms on
+//                 the arxiv windowed residual, 778,808 slots, bf16), and
+//                 gathers K's 128 bytes a slot, mostly from L2 (100 MB,
+//                 0.034 ms were all of it from device memory). The first
+//                 body, a warp per row with q staged in shared memory and
+//                 the row's (edge, head) pairs over the lanes (9 of 32 busy
+//                 at 4.6 edges a row), took 0.114 ms there.
 //   flash_kernel  one warp per CSR row, the row walk below (batches of 32
 //                 edges, one per lane: indices, scores and weights first,
 //                 then the gather with several x rows in flight): per head
@@ -525,44 +534,58 @@ kproj_tc_kernel(const __nv_bfloat16* __restrict__ x,
   gx_tc::cp_async_wait<0>();
 }
 
+// The global max of the scores, flat over the layout's (slot, head) pairs
+// (a max is order-free, so nothing ties it to rows): thread p takes pairs
+// p, p + stride, ..., its slot's row from seg (int64) and column from idx,
+// each score by gx_att::score_head from q's head slice (state dtype) and
+// the K table's (f32), by 16-byte loads of both where qvec, in
+// gx_att::score's arithmetic. A thread max, a warp max, a block max, one
+// atomicMax a block on the order-preserving encoding; the last block to
+// finish decodes it, applies graphax's NEG/2 rule and resets the state
+// (state [2]: the encoded max, the blocks done) to zeros for the next call
+// (the host keeps one state per stream, so no two launches share one).
+constexpr int GM_THREADS = 256;
+constexpr int GM_MIN_BLOCKS = 4;   // blocks an SM the registers allow (64
+                                   // a thread)
+
 template <typename T>
-__global__ void __launch_bounds__(WPB * 32)
-gmax_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+__global__ void __launch_bounds__(GM_THREADS, GM_MIN_BLOCKS)
+gmax_kernel(const long long* __restrict__ seg, const int* __restrict__ idx,
             const T* __restrict__ q, const float* __restrict__ kt,
             const float* __restrict__ ew, unsigned* __restrict__ state,
-            float* __restrict__ out, int n, int a, int h, int att_type,
-            float ov2, float inv2l2) {
-  extern __shared__ float smem[];
-  __shared__ unsigned bmax;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qs = smem + (size_t)w * a;
-  if (threadIdx.x == 0) bmax = 0u;
-  __syncthreads();
+            float* __restrict__ out, long long pairs, int a, int h,
+            int att_type, float ov2, float inv2l2, int qvec) {
+  __shared__ float wmax[GM_THREADS / 32];
   const int dk = a / h;
   float m = -INFINITY;
-  for (int r = blockIdx.x * WPB + w; r < n; r += gridDim.x * WPB) {
-    const int beg = ptr[r], end = ptr[r + 1];
-    if (beg == end) continue;
-    __syncwarp();
-    for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
-    __syncwarp();
-    const int pairs = (end - beg) * h;
-    for (int p = lane; p < pairs; p += 32) {
-      const int e = beg + p / h, hh = p % h;
-      m = fmaxf(m, edge_score(qs, kt, idx, ew, e, hh, a, dk, att_type, ov2,
-                              inv2l2));
-    }
+  const long long stride = (long long)gridDim.x * GM_THREADS;
+  for (long long p = (long long)blockIdx.x * GM_THREADS + threadIdx.x;
+       p < pairs; p += stride) {
+    const long long e = p / h;
+    const int hh = (int)(p - e * h);
+    const T* qh = q + (size_t)__ldg(seg + e) * a + hh * dk;
+    const float* kh = kt + (size_t)__ldg(idx + e) * a + hh * dk;
+    float s = gx_att::score_head<T, true>(qh, kh, dk, att_type, ov2, inv2l2,
+                                          qvec);
+    if (ew != nullptr) s *= __ldg(ew + e);
+    m = fmaxf(m, s);
   }
   m = warp_max(m);
-  if (lane == 0 && m > -INFINITY) atomicMax(&bmax, enc(m));
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) wmax[w] = m;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    if (bmax != 0u) atomicMax(&state[0], bmax);
-    __threadfence();
-    if (atomicAdd(&state[1], 1u) == gridDim.x - 1) {
-      const unsigned v = atomicAdd(&state[0], 0u);
-      const float g = v != 0u ? dec(v) : 0.f;
-      *out = g <= NEG * 0.5f ? 0.f : g;
+  if (w == 0) {
+    m = lane < GM_THREADS / 32 ? wmax[lane] : -INFINITY;
+    m = warp_max(m);
+    if (lane == 0) {
+      if (m > -INFINITY) atomicMax(&state[0], enc(m));
+      __threadfence();
+      if (atomicAdd(&state[1], 1u) == gridDim.x - 1) {
+        const unsigned v = atomicExch(&state[0], 0u);
+        atomicExch(&state[1], 0u);
+        const float g = v != 0u ? dec(v) : 0.f;
+        *out = g <= NEG * 0.5f ? 0.f : g;
+      }
     }
   }
 }
@@ -1302,22 +1325,6 @@ cudaError_t run_kproj_tc(const void* x, const void* wk, const void* bk,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t run_gmax(const void* ptr, const void* idx, const void* q,
-                     const void* kt, const void* ew, void* state, void* out,
-                     int n, int a, int h, int att_type, float ov2,
-                     float inv2l2, cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)WPB * a;
-  int grid = (n + WPB - 1) / WPB;
-  const int cap = sm_count() * 8;
-  if (grid > cap) grid = cap;
-  gmax_kernel<T><<<grid, WPB * 32, smem, s>>>(
-      (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
-      (const float*)ew, (unsigned*)state, (float*)out, n, a, h, att_type, ov2,
-      inv2l2);
-  return cudaGetLastError();
-}
-
 // a launch with `smem` bytes of dynamic shared memory, opted into above 48 KB
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
@@ -1419,6 +1426,23 @@ int resident_blocks(K kernel, int threads, size_t smem) {
   return per_sm * sm_count();
 }
 
+template <typename T>
+cudaError_t run_gmax(const void* seg, const void* idx, const void* q,
+                     const void* kt, const void* ew, void* state, void* out,
+                     long long e, int a, int h, int att_type, float ov2,
+                     float inv2l2, int qvec, cudaStream_t s) {
+  const long long pairs = e * h;
+  static const int resident = resident_blocks(gmax_kernel<T>, GM_THREADS, 0);
+  long long grid = (pairs + GM_THREADS - 1) / GM_THREADS;
+  if (grid > resident) grid = resident;
+  if (grid < 1) grid = 1;   // the last block writes the result
+  gmax_kernel<T><<<(int)grid, GM_THREADS, 0, s>>>(
+      (const long long*)seg, (const int*)idx, (const T*)q, (const float*)kt,
+      (const float*)ew, (unsigned*)state, (float*)out, pairs, a, h, att_type,
+      ov2, inv2l2, qvec);
+  return cudaGetLastError();
+}
+
 template <typename T, int VB, bool SQP>
 cudaError_t run_flash(const void* ptr, const void* idx, const void* q,
                       const void* x, const void* kt, const void* ew,
@@ -1516,23 +1540,26 @@ int gx_attention_kproj_tc(const void* x, const void* wk, const void* bk,
                            (cudaStream_t)stream);
 }
 
-// q [n, a] in the state dtype (pre-scaled for scaled_dot); kt [n, a] float32
-// from gx_attention_kproj; ew [E] float32 reweight values or null; state [2]
-// uint32 scratch, zeroed by the caller; out [1] float32: the max score over
-// every edge and head, 0 when no row has an edge.
-int gx_attention_gmax(const void* ptr, const void* idx, const void* q,
+// seg [e] int64 and idx [e] int32: each slot's row and column; q [n, a] in
+// the state dtype (pre-scaled for scaled_dot); kt [n, a] float32 from
+// gx_attention_kproj; ew [e] float32 reweight values or null; state [2]
+// uint32, zeros, left as zeros by the launch; out [1] float32: the max score
+// over every slot and head, 0 when there is none; qvec: scaled_dot's q and K
+// head slices on 16 bytes (16-byte loads).
+int gx_attention_gmax(const void* seg, const void* idx, const void* q,
                       const void* kt, const void* ew, void* state, void* out,
-                      int n, int a, int h, int att_type, int reweight,
-                      float ov2, float inv2l2, int dtype, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+                      long long e, int a, int h, int att_type, int reweight,
+                      float ov2, float inv2l2, int dtype, int qvec,
+                      void* stream) {
+  if (e < 0) return (int)cudaErrorInvalidValue;
   const void* ewp = reweight ? ew : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)run_gmax<float>(ptr, idx, q, kt, ewp, state, out, n, a, h,
-                                att_type, ov2, inv2l2, s);
+    return (int)run_gmax<float>(seg, idx, q, kt, ewp, state, out, e, a, h,
+                                att_type, ov2, inv2l2, qvec, s);
   if (dtype == 1)
-    return (int)run_gmax<__nv_bfloat16>(ptr, idx, q, kt, ewp, state, out, n,
-                                        a, h, att_type, ov2, inv2l2, s);
+    return (int)run_gmax<__nv_bfloat16>(seg, idx, q, kt, ewp, state, out, e,
+                                        a, h, att_type, ov2, inv2l2, qvec, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -258,6 +258,34 @@ def attention_gmax_plain(layout: Layout, q, kt, edge_w, att_type: str,
     return torch.where(g <= NEG / 2, torch.zeros_like(g), g)
 
 
+def score_vec(q: torch.Tensor, k: torch.Tensor, heads: int,
+              att_type: str) -> int:
+    """1 where attention_gmax and K5 read scaled_dot's q and k head slices
+    (k in q's dtype or the f32 K table) by 16-byte loads: a head slice's
+    bytes of q a multiple of 16 (so of its row and of an f32 slice too) and
+    both tensors on 16 bytes; else 0 (one value at a time)."""
+    dk = q.shape[1] // heads
+    return int(att_type == "scaled_dot" and (dk * q.element_size()) % 16 == 0
+               and q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0)
+
+
+_GMAX_STATE: dict = {}
+
+
+def _gmax_state(device, stream: int) -> torch.Tensor:
+    """The gmax kernel's two-word state for launches on ``stream`` (a CUDA
+    stream handle) of ``device``: zeros, made once on that stream; each
+    launch leaves it as zeros again (its last block resets it), so no fill
+    runs per call. Launches on one stream run one after another, so no two
+    share a state; launches on two streams each have their own."""
+    key = (device, stream)
+    st = _GMAX_STATE.get(key)
+    if st is None:
+        st = torch.zeros(2, dtype=torch.int32, device=device)
+        _GMAX_STATE[key] = st
+    return st
+
+
 def attention_gmax(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
                    edge_w, att_type: str, heads: int, ov2: float = 1.0,
                    inv2l2: float = 0.5) -> torch.Tensor:
@@ -273,17 +301,20 @@ def attention_gmax(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
     if n == 0:
         raise ValueError("attention_gmax: empty graph")
     _check_layout("attention_gmax", layout, n, edge_w)
-    _check_operands("attention_gmax", q, layout.ptr, layout.idx, q, kt,
+    if layout.seg.dtype != torch.int64:
+        raise TypeError("attention_gmax: layout.seg must be int64")
+    _check_operands("attention_gmax", q, layout.seg, layout.idx, q, kt,
                     edge_w)
-    state = torch.zeros(2, dtype=torch.int32, device=q.device)
     out = torch.empty((), dtype=torch.float32, device=q.device)
     lib = _build.library("fused_attention")
+    stream = _build.stream_ptr(q)
     err = lib.gx_attention_gmax(
-        layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
+        layout.seg.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
         kt.data_ptr(), edge_w.data_ptr() if edge_w is not None else None,
-        state.data_ptr(), out.data_ptr(), n, a, heads, ATT_TYPES[att_type],
+        _gmax_state(q.device, stream).data_ptr(), out.data_ptr(),
+        layout.num_slots, a, heads, ATT_TYPES[att_type],
         int(edge_w is not None), float(ov2), float(inv2l2), _DTYPES[q.dtype],
-        _build.stream_ptr(q))
+        score_vec(q, kt, heads, att_type), stream)
     _build.check(err, "attention_gmax")
     _build.LAUNCHES["attention_gmax"] += 1
     return out

@@ -32,7 +32,14 @@ are the same values to rounding.
 K5 walks each row's occupied cells (`WindowLayout.in_window`, each cell
 once) where graphax's kernel walks each 128-row tile's dense ``[128, W]``
 block: the same function (graphax's masked cells add zeros to every sum),
-at 0.66 % of the dense work on ogbn-arxiv.
+at 0.66 % of the dense work on ogbn-arxiv. It is the CSR row walk of the
+flash kernel with K5's arithmetic: a group of ``LANES`` lanes owns a row
+of at most as many cells, one cell a lane, the scores in registers,
+the x rows gathered by :func:`~graphax_torch.kernels.fused_attention.
+gather_width`'s loads; a row of more cells goes in segments of 32 cells to
+two more kernels, a warp a segment, summed in segment order
+(:func:`~graphax_torch.kernels.fused_attention.row_split_plan`, made once
+per layout), as the flash kernel's long rows.
 
 Softmax only (graphax's `pallas_winatt_ok`); the squareplus route is the
 plain twin (`graphax_torch.kernels.windowed_attention`). None of these is
@@ -51,19 +58,21 @@ from graphax_torch.sparse.graph import Layout
 from graphax_torch.sparse.ops import segment_max, segment_sum
 from graphax_torch.utils.params import linear_apply
 
-_WPB = 8            # warps (rows) per block in winatt.cu
+# lanes that own a row in winatt.cu (its LANES; two rows a warp; rows of
+# more cells go to its segment kernels), chosen by measurement on the card
+# (PERF.md)
+LANES = 16
 
 
 def winatt_supported(cfg, d: int) -> bool:
     """graphax's `pallas_winatt_ok` (`:290-295`) with the card in place of
     its TPU: softmax, the four `_score_math` types, not Beltrami, within
-    the shared memory of the K projection and of K5's staged q row."""
+    the shared memory of the K projection (K5 itself uses none)."""
     a = cfg.attention_dim
     return (not cfg.square_plus and not cfg.beltrami
             and not cfg.mix_features and not cfg.multi_modal
             and cfg.attention_type in ATT_TYPES and a % cfg.heads == 0
-            and fa.kproj_fits(d, a)
-            and 4 * _WPB * (a + 2 * cfg.heads) <= fa._SMEM_STATIC)
+            and fa.kproj_fits(d, a))
 
 
 def _sqrt_dk(dk: int) -> float:
@@ -143,17 +152,21 @@ def winatt(win: Layout, q: torch.Tensor, k: torch.Tensor, x: torch.Tensor,
         raise ValueError("winatt: edge_w must be f32, one value per cell")
     fa._check_operands("winatt", x, win.ptr, win.idx, q, k, x, d_res, r0,
                        edge_w)
-    sc = torch.empty((win.num_slots, heads), dtype=torch.float32,
-                     device=x.device)
+    # rows of more than LANES cells: segments of one batch each
+    plan, nlong, nseg = fa._row_plan(win, LANES, fa._BATCH)
+    st = torch.empty((nseg, 2 * heads), dtype=torch.float32, device=x.device)
+    part = torch.empty((nseg, d), dtype=torch.float32, device=x.device)
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     den = torch.empty((n, heads), dtype=torch.float32, device=x.device)
     err = _build.library("winatt").gx_winatt(
         win.ptr.data_ptr(), win.idx.data_ptr(), q.data_ptr(), k.data_ptr(),
         x.data_ptr(), edge_w.data_ptr() if edge_w is not None else None,
-        d_res.data_ptr(), r0.data_ptr(), sc.data_ptr(), out.data_ptr(),
-        den.data_ptr(), n, d, a, heads, ATT_TYPES[att_type],
-        int(edge_w is not None), float(ov2), float(inv2l2),
-        fa._DTYPES[x.dtype], _build.stream_ptr(x))
+        d_res.data_ptr(), r0.data_ptr(), plan.data_ptr(), st.data_ptr(),
+        part.data_ptr(), out.data_ptr(), den.data_ptr(), n, d, a, heads,
+        ATT_TYPES[att_type], int(edge_w is not None), float(ov2),
+        float(inv2l2), fa._DTYPES[x.dtype], fa.gather_width(x),
+        fa.score_vec(q, k, heads, att_type), nlong, nseg,
+        _build.stream_ptr(x))
     _build.check(err, "winatt")
     _build.LAUNCHES["winatt"] += 1
     return out, den

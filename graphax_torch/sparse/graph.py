@@ -62,9 +62,11 @@ def _ptr(keys: np.ndarray, n: int) -> np.ndarray:
 def build_layouts(row: np.ndarray, col: np.ndarray, num_nodes: int,
                   device) -> tuple:
     """CSR and CSC layouts of the real edges ``row``/``col`` (sorted by
-    (row, col))."""
-    row = np.asarray(row, np.int64)
-    col = np.asarray(col, np.int64)
+    (row, col)); every tensor contiguous, whatever the strides of ``row``
+    and ``col`` (``np.nonzero`` of a matrix gives strided views), since
+    the kernels read ``seg`` and ``idx`` as flat arrays."""
+    row = np.ascontiguousarray(row, np.int64)
+    col = np.ascontiguousarray(col, np.int64)
     if row.size > 1:
         key = row * max(num_nodes, 1) + col
         if np.any(key[1:] < key[:-1]):

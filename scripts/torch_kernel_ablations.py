@@ -1,7 +1,32 @@
-"""Where the time of the two kernels redesigned last goes, on the card: the
-CUDA-core ``attention_kproj`` (f32) and bf16 ``win_bwd_slab``, each built
-again from this checkout's source with parts of its loop switched off, and
-timed beside the intact kernel at the ogbn-arxiv preset's shapes.
+"""Where the time of the redesigned kernels goes, on the card: each built
+again from this checkout's source with parts of its loop switched off (or
+a compile-time constant changed), and timed beside the intact kernel at
+the ogbn-arxiv preset's shapes.
+
+``--only winatt_gmax`` (the default runs both groups):
+
+- ``winatt_kernel`` (K5) on path A's inputs (the windowed GRAND-nl model's
+  own q, k and x, r0 and d_res from the residual; bf16): intact; without
+  the x gathers; without the score loads of q and k; without the output
+  stores (the aggregate then compiles away: the score phase and den
+  alone); with both loads off (the stores, the cell lists and the
+  shuffles alone); each at 32, 16 and 8 lanes a row (the kernel's
+  ``LANES``, 16 intact; the host's plan sends the rows of more cells to
+  the segment kernels); and at 16 lanes, builds with 2, 3, 5 or 6 blocks
+  an SM (``MIN_BLOCKS``, 4 intact: the register cap) and with 24 words of
+  x rows in flight a lane (``WORDS``, 12 intact); and on chip_smoke's
+  ``long_row_windows`` (in-window rows of up to 512 cells, their segments
+  in the segment kernels) intact, without the x gathers, without the
+  score loads and without the output stores.
+- ``gmax_kernel`` on the windowed residual and on the whole arxiv CSR
+  (bf16 q, f32 K): intact; without the slot-to-row reads (every slot
+  scored against row 0's q: what the 8-byte seg costs); without the K
+  loads; blocks of 128 and 512 threads (``GM_THREADS``, 256 intact);
+  the grid one pair a thread instead of capped at the resident blocks;
+  no register cap, or one of 8 blocks an SM (``GM_MIN_BLOCKS``, 4
+  intact).
+
+``--only kproj_slab``: the CUDA-core K projection and bf16 win_bwd_slab:
 
 - ``kproj_kernel`` at the arxiv widths (N 169,343, D 162, A 32: 8-byte
   copies of x) and at D 160 (16-byte copies): intact; without its FMAs
@@ -15,12 +40,14 @@ timed beside the intact kernel at the ogbn-arxiv preset's shapes.
 
 A switched-off part leaves the results wrong: only the intact builds are
 checked (against the plain versions). Each ablated build is a copy of the
-source with guards on the switched-off statements, compiled by ``nvcc``
-into ``results/ablations/`` (ignored by git) and called through the same C
-interface as the port. One JSON line per measurement (device ms as
-chip_smoke's ``time_ms`` takes them), then the card's nvidia-smi line. Run
-from the root of the repo on the card:
-``python3 scripts/torch_kernel_ablations.py``.
+source with guards on the switched-off statements and the case's
+constants substituted by text, compiled by ``nvcc`` into
+``results/ablations/`` (ignored by git) with the flag set to the case's
+bits, and called through the same C interface as the port. One JSON
+line per measurement (device ms as chip_smoke's ``time_ms`` takes them),
+then the card's nvidia-smi line. Run from the root of the repo on the
+card: ``python3 scripts/torch_kernel_ablations.py [--only
+winatt_gmax|kproj_slab]``.
 """
 
 import ctypes
@@ -34,8 +61,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 OUT = os.path.join(HERE, "results", "ablations")
 
-# (source, flag, [(statement, guarded statement)]): the guard drops the
-# statement where the flag's bit is set
+# (source, flag, [(statement, guarded statement)], headers): the guard
+# drops the statement where the flag's bit is set; the headers are copied
+# into the source first, so their statements can be guarded too
 KPROJ = ("fused_attention", "KPROJ_OFF", [
     ("      kc_stage_rows<T, KC_BM, KC_BK>(",
      "      if (!(KPROJ_OFF & 2)) kc_stage_rows<T, KC_BM, KC_BK>("),
@@ -43,7 +71,7 @@ KPROJ = ("fused_attention", "KPROJ_OFF", [
      "      if (!(KPROJ_OFF & 2)) kc_stage_rows<T, KC_BK, BN>("),
     ("      if (k < kend) {  // columns past D are zeros on both sides",
      "      if (!(KPROJ_OFF & 1) && k < kend) {"),
-])
+], ())
 SLAB = ("windowed_spmm", "SLAB_OFF", [
     ("    for (int i = tid; i < MM_BK * (MM_BM / 8); i += MM_THREADS) {",
      "    for (int i = tid; i < (SLAB_OFF & 2 ? 0 : MM_BK * (MM_BM / 8));"
@@ -60,31 +88,97 @@ SLAB = ("windowed_spmm", "SLAB_OFF", [
      "#pragma unroll\n"
      "      for (int i = 0; i < 2; ++i)\n"
      "        gx_tc::ldmatrix_x4_trans("),
-])
-# the parts switched off: bit 1 the products, 2 (and 4) the staging
+], ())
+WINATT = ("winatt", "WINATT_OFF", [
+    ("          if (v0 + v * G + l < nvec) ldv<VB>(xr + v * G * V::E, "
+     "raw[u][v]);",
+     "          if (!(WINATT_OFF & 1) && v0 + v * G + l < nvec) "
+     "ldv<VB>(xr + v * G * V::E, raw[u][v]);"),
+    ("          if (t < nh && i0 + u * EV < dk) {\n"
+     "            qv[t][u] = __ldg(",
+     "          if (!(WINATT_OFF & 2) && t < nh && i0 + u * EV < dk) {\n"
+     "            qv[t][u] = __ldg("),
+    ("    if (vi < nvec) store_vec<E>(out, 0, nullptr,",
+     "    if (!(WINATT_OFF & 4) && vi < nvec) store_vec<E>(out, 0, nullptr,"),
+], ())
+GMAX = ("fused_attention", "GMAX_OFF", [
+    ("    const T* qh = q + (size_t)__ldg(seg + e) * a + hh * dk;",
+     "    const T* qh = q + (GMAX_OFF & 1 ? (size_t)0 : (size_t)__ldg(seg + e))"
+     " * a + hh * dk;"),
+    ("        if (i0 + 4 * t < dk)\n"
+     "          k[t] = __ldg(reinterpret_cast<const float4*>(kr + i0 + 4 * t));",
+     "        if (!(GMAX_OFF & 2) && i0 + 4 * t < dk)\n"
+     "          k[t] = __ldg(reinterpret_cast<const float4*>(kr + i0 + 4 * t));"),
+    ("  if (grid > resident) grid = resident;",
+     "  if (!(GMAX_OFF & 4) && grid > resident) grid = resident;"),
+], ("attention_score.cuh",))
+
+
+def const(name: str, old: int, new: int) -> tuple:
+    """The substitution that sets the source's ``constexpr int name``
+    from ``old`` to ``new``."""
+    return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
+
+
+# each case: the bits of the parts switched off (kproj: 1 the products, 2
+# the staging; slab: 1 the MMAs, 2 the blocks' staging, 4 g's; winatt: 1
+# the x gathers, 2 the score loads, 4 the output stores; gmax: 1 the
+# slot-to-row reads, 2 the K loads, 4 the grid's cap), or the bits and the
+# constants substituted
 KPROJ_CASES = {"intact": 0, "no_fma": 1, "no_staging": 2}
 SLAB_CASES = {"intact": 0, "no_mma": 1, "no_block_staging": 2,
               "no_g_staging": 4, "barriers_and_stores": 7}
+K5_PARTS = {"intact": 0, "no_x_gather": 1, "no_score_loads": 2,
+            "no_out_stores": 4, "stores_and_lists": 3}
+K5_LANES = (32, 16, 8)
+WINATT_CASES = {
+    **{(part, g): (bits, [const("LANES", 16, g)] if g != 16 else [])
+       for part, bits in K5_PARTS.items() for g in K5_LANES},
+    **{(f"min_blocks_{m}", 16): (0, [const("MIN_BLOCKS", 4, m)])
+       for m in (2, 3, 5, 6)},
+    ("words_24", 16): (0, [const("WORDS", 12, 24)])}
+GMAX_CASES = {"intact": 0, "no_seg": 1, "no_k_loads": 2,
+              "threads_128": (0, [const("GM_THREADS", 256, 128)]),
+              "threads_512": (0, [const("GM_THREADS", 256, 512)]),
+              "uncapped_grid": 4,
+              "no_register_cap": (0, [const("GM_MIN_BLOCKS", 4, 1)]),
+              "min_blocks_8": (0, [const("GM_MIN_BLOCKS", 4, 8)])}
+
+
+def substitute(text: str, subs, what: str) -> str:
+    """``text`` with each (old, new) of ``subs`` replaced, each ``old``
+    found exactly once."""
+    for old, new in subs:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{what}: the text to change moved: "
+                               f"{old.splitlines()[0]!r}")
+        text = text.replace(old, new)
+    return text
 
 
 def build(spec, cases) -> dict:
-    """One library per case, from a guarded copy of the source."""
+    """One library per case, from a guarded copy of the source (its
+    headers copied in): the case's constants substituted, the flag set to
+    the case's bits."""
     from graphax_torch.kernels import _build
 
-    name, flag, guards = spec
+    name, flag, guards, headers = spec
     text = open(os.path.join(_build.CSRC, name + ".cu")).read()
-    for old, new in guards:
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}.cu: the statement to guard moved: "
-                               f"{old.splitlines()[0]!r}")
-        text = text.replace(old, new)
-    src = os.path.join(OUT, name + "_ablated.cu")
-    with open(src, "w") as f:
-        f.write(text.replace('#include "', f'#include "{_build.CSRC}/'))
+    for h in headers:
+        inc = f'#include "{h}"'
+        text = substitute(text, [(inc, open(os.path.join(
+            _build.CSRC, h)).read().replace("#pragma once\n", ""))], name)
+    text = substitute(text, guards, name + ".cu")
 
     def one(item):
-        case, bits = item
-        so = os.path.join(OUT, f"lib{name}_{case}.so")
+        case, spec_ = item
+        bits, subs = spec_ if isinstance(spec_, tuple) else (spec_, [])
+        tag = "_".join(map(str, case)) if isinstance(case, tuple) else case
+        src = os.path.join(OUT, f"{name}_{flag}_{tag}.cu")
+        with open(src, "w") as f:
+            f.write(substitute(text, subs, name).replace(
+                '#include "', f'#include "{_build.CSRC}/'))
+        so = os.path.join(OUT, f"lib{name}_{flag}_{tag}.so")
         proc = subprocess.run(
             [_build._nvcc(), _build.ARCH, "-std=c++17", "-O3", "-shared",
              "-Xcompiler", "-fPIC", f"-D{flag}={bits}", "-o", so, src],
@@ -100,21 +194,128 @@ def build(spec, cases) -> dict:
         return dict(ex.map(one, cases.items()))
 
 
-def main() -> int:
+def winatt_gmax() -> None:
+    """The ``winatt_gmax`` group of the module's docstring."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 2
+    import chip_smoke as cs
+    from graphax_torch import best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels import winatt as wa
+    from graphax_torch.utils.params import linear_apply
+
+    with ThreadPoolExecutor(2) as ex:
+        k5 = ex.submit(build, WINATT, WINATT_CASES)
+        gm = ex.submit(build, GMAX, GMAX_CASES)
+        k5_libs, gm_libs = k5.result(), gm.result()
+    s = _build.stream_ptr
+    data = get_dataset("ogbn-arxiv")
+    base = dict(block="constant", function="transformer")
+    tr = cs.nl_trainer(best_config("ogbn-arxiv", **base), data)
+    g, cfg, att = tr.data.graph, tr.cfg, tr.model.block.func.att
+    csr = cs.nl_trainer(best_config("ogbn-arxiv", community_window=0,
+                                    **base), data).data.graph.csr
+    win, res = g.windows.in_window, g.windows.residual
+    bf = torch.bfloat16
+    with torch.no_grad():
+        tr.model.eval()
+        x = tr.model.encode(tr.data.x, train=False).to(bf).contiguous()
+        q = linear_apply(att.Q, x).to(bf).contiguous()
+        k = linear_apply(att.K, x).to(bf).contiguous()
+        dk = cfg.attention_dim // cfg.heads
+        q_s = (q / torch.sqrt(torch.tensor(dk, dtype=torch.float32)).to(bf)
+               ).contiguous()
+        kt = fa.attention_kproj(x, att.K.weight.t().to(bf).contiguous(),
+                                att.K.bias.float().contiguous())
+        scal = (cfg.attention_type, cfg.heads, 0.0, 0.0)
+        r0 = fa.attention_gmax(res, q_s, kt, None, *scal)
+        _, d_res = fa.attention_norm(res, q_s, kt, None, r0, *scal)
+        want = wa.winatt_plain(win, q, k, x, d_res, r0, None, *scal)
+    n, d = x.shape
+    a, heads = q.shape[1], cfg.heads
+    out = torch.empty(n, d, device="cuda")
+    den = torch.empty(n, heads, device="cuda")
+
+    def k5_args(lay, dr, rr, lanes):
+        """gx_winatt's arguments on ``lay`` with the plan of its rows of
+        more than ``lanes`` cells and its scratch (kept alive on the
+        function)."""
+        plan, nlong, nseg = fa._row_plan(lay, lanes, fa._BATCH)
+        k5_args.keep = (torch.empty(nseg, 2 * heads, device="cuda"),
+                        torch.empty(nseg, d, device="cuda"))
+        return (lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
+                k.data_ptr(), x.data_ptr(), None, dr.data_ptr(),
+                rr.data_ptr(), plan.data_ptr(), k5_args.keep[0].data_ptr(),
+                k5_args.keep[1].data_ptr(), out.data_ptr(), den.data_ptr(),
+                n, d, a, heads, fa.ATT_TYPES[scal[0]], 0, 0.0, 0.0, 1,
+                fa.gather_width(x), fa.score_vec(q, k, heads, scal[0]),
+                nlong, nseg, s(x))
+
+    for lanes in K5_LANES:
+        args = k5_args(win, d_res, r0, lanes)
+        row = dict(kernel="winatt", dtype="bfloat16", lanes=lanes,
+                   cells=win.num_slots)
+        for (case, g), lib in k5_libs.items():
+            if g != lanes:
+                continue
+            _build.check(lib.gx_winatt(*args), case)
+            torch.cuda.synchronize()
+            if case == "intact":
+                row["intact_max_abs_err"] = max(
+                    float((out - want[0]).abs().max()),
+                    float((den - want[1]).abs().max()))
+            row[case + "_ms"] = cs.time_ms(lambda: lib.gx_winatt(*args))
+        print(json.dumps(row), flush=True)
+    # the long rows' walks: a windowed layout whose in-window rows reach
+    # 512 cells, at the wrapper's lanes
+    lg = cs.long_row_windows("cuda")
+    lwin, lres = lg.windows.in_window, lg.windows.residual
+    with torch.no_grad():
+        lr0 = fa.attention_gmax(lres, q_s, kt, None, *scal)
+        _, ld_res = fa.attention_norm(lres, q_s, kt, None, lr0, *scal)
+    args = k5_args(lwin, ld_res, lr0, wa.LANES)
+    row = dict(kernel="winatt", dtype="bfloat16", graph="long rows",
+               lanes=wa.LANES, cells=lwin.num_slots)
+    for case in ("intact", "no_x_gather", "no_score_loads",
+                 "no_out_stores"):
+        lib = k5_libs[case, wa.LANES]
+        _build.check(lib.gx_winatt(*args), case)
+        row[case + "_ms"] = cs.time_ms(lambda: lib.gx_winatt(*args))
+    print(json.dumps(row), flush=True)
+    with torch.no_grad():
+        ops = fa.prep_inputs(tr.cfg, att, g, x)
+    res_out = torch.empty((), device="cuda")
+    state = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for label, lay, qq in (("windowed residual", res, q_s),
+                           ("arxiv CSR", csr, ops["q"])):
+        args = (lay.seg.data_ptr(), lay.idx.data_ptr(), qq.data_ptr(),
+                kt.data_ptr(), None, state.data_ptr(), res_out.data_ptr(),
+                lay.num_slots, a, heads, fa.ATT_TYPES[scal[0]], 0, 0.0, 0.0,
+                1, fa.score_vec(qq, kt, heads, scal[0]), s(x))
+        row = dict(kernel="attention_gmax", dtype="bfloat16", graph=label,
+                   E=lay.num_slots)
+        want = fa.attention_gmax_plain(lay, qq, kt, None, *scal)
+        for case, lib in gm_libs.items():
+            _build.check(lib.gx_attention_gmax(*args), case)
+            torch.cuda.synchronize()
+            if case == "intact":
+                row["intact_abs_err"] = float((res_out - want).abs())
+            row[case + "_ms"] = cs.time_ms(
+                lambda: lib.gx_attention_gmax(*args))
+        print(json.dumps(row), flush=True)
+
+
+def kproj_slab() -> None:
+    """The ``kproj_slab`` group of the module's docstring."""
+    import torch
+
     import chip_smoke as cs
     from graphax_torch import Trainer, best_config, get_dataset
     from graphax_torch.kernels import _build
     from graphax_torch.kernels import fused_attention as fa
     from graphax_torch.kernels import windowed_spmm as ws
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    os.makedirs(OUT, exist_ok=True)
-    _build.build_all()
     kp_libs = build(KPROJ, KPROJ_CASES)
     slab_libs = build(SLAB, SLAB_CASES)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -171,6 +372,30 @@ def main() -> int:
                 (out.float() - want.float()).abs().max())
         row[case + "_ms"] = cs.time_ms(lambda: lib.gx_win_bwd_slab(*args))
     print(json.dumps(row), flush=True)
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("winatt_gmax", "kproj_slab"),
+                    default=None, help="one group of ablations")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from graphax_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(OUT, exist_ok=True)
+    _build.build_all()
+    if args.only in (None, "winatt_gmax"):
+        winatt_gmax()
+    if args.only in (None, "kproj_slab"):
+        kproj_slab()
     print(cs.smi_line(), flush=True)
     return 0
 

@@ -2,7 +2,8 @@
 or two checkouts of the repo: win_bwd_dense, attention_kproj and win_matmul
 at the ogbn-arxiv preset's, flash_dense at Computers'; the CSR
 flash_attention and attention_attspmm at GRAND-nl's arxiv shapes, on a
-hub graph and on a power-law graph.
+hub graph and on a power-law graph; spmm_csr, the pin, win_bwd_slab; K5
+(winatt) and attention_gmax at path A's shapes.
 
 For each checkout (``--root``, default this one; ``--parent DIR`` adds a
 second, run in turns parent, this, this, parent, each in its own process):
@@ -85,9 +86,32 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   (two calls, the plain version's); the tiles per window; then the steady
   epochs of the arxiv preset on both layouts and path A's train step.
 
+- (``winatt``) K5 on path A's inputs at the arxiv preset's shapes (the
+  windowed GRAND-nl model's own q, k and x in bf16 and f32, r0 and d_res
+  from the residual), with its error against the plain version and its
+  ratio to chip_smoke's tolerances, its bound and all-miss count (k and x
+  gathered per cell);
+  the in-window cells' degree shares; path A's RHS alone
+  (``windowed_attention_ax_fast``, device and host ms); three path A
+  evaluations per NFE; K5 on chip_smoke's ``long_row_windows`` (in-window
+  rows of up to 512 cells), with the parent's kernel on the same inputs
+  when ``--against`` is given;
+- (``gmax``) attention_gmax on the windowed residual (path A's pre-scaled
+  q and K table), the arxiv CSR, the hub and the power-law graphs (the
+  CSR model's operands), bf16 and f32: its value, error against the plain
+  version, bound and all-miss count (K gathered per slot), beside the
+  same kernel with a fresh zeroed state each call; three squareplus (gmax
+  once per NFE) and three softmax CSR evaluations per NFE.
+
+With ``--parent``, this checkout's ``winatt`` and ``gmax`` runs also call
+the parent's kernels (built by the parent's ``_build``) on the same
+inputs: whether K5's out and den and gmax's value are equal bit for bit,
+the largest difference, the rows that differ and the shortest of them.
+
 One JSON line per measurement, then the card's nvidia-smi line. Run from
 the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
-DIR] [--only windowed|attention|spmm|pin|kproj|slab]``; a parent is a
+DIR] [--only windowed|attention|spmm|pin|kproj|slab|winatt|gmax]``; a
+parent is a
 ``git
 archive`` of another commit unpacked in a directory that ``.gitignore``
 lists.
@@ -154,7 +178,7 @@ def pareto_graph(device, n=169_343, alpha=2.5, kmin=3, seed=4):
     return Graph.from_edges(row[order], col[order], n, device=device)
 
 
-def measure(root: str, only=None) -> None:
+def measure(root: str, only=None, against=None) -> None:
     sys.path.insert(0, root)
 
     def emit(**row):
@@ -172,6 +196,10 @@ def measure(root: str, only=None) -> None:
         kproj(emit)
     if only in (None, "slab"):
         slab(emit)
+    if only in (None, "winatt"):
+        winatt(emit, against)
+    if only in (None, "gmax"):
+        gmax(emit, against)
 
 
 def windowed(emit) -> None:
@@ -915,6 +943,300 @@ def slab(emit) -> None:
     train_steps(data, emit)
 
 
+def parent_library(parent: str, name: str):
+    """The parent checkout's library ``csrc/<name>.cu``, built by its own
+    ``_build`` into its own build directory and loaded with its own C
+    signatures, for calls beside this checkout's kernel on the same
+    inputs."""
+    key = "parent_build"
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            key, os.path.join(parent, "graphax_torch", "kernels", "_build.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[key] = mod
+    return sys.modules[key].library(name)
+
+
+def path_a_inputs(tr, dt):
+    """Path A's operands of K5 and of the residual as
+    ``windowed_attention_ax_fast`` makes them, from the windowed GRAND-nl
+    model's encoded state in ``dt``."""
+    import torch
+
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.utils.params import linear_apply
+
+    g, cfg, att = tr.data.graph, tr.cfg, tr.model.block.func.att
+    tr.model.eval()
+    with torch.no_grad():
+        x = tr.model.encode(tr.data.x, train=False).to(dt).contiguous()
+        q = linear_apply(att.Q, x).to(dt).contiguous()
+        k = linear_apply(att.K, x).to(dt).contiguous()
+        dk = cfg.attention_dim // cfg.heads
+        q_s = (q / torch.sqrt(torch.tensor(dk, dtype=torch.float32)).to(dt)
+               ).contiguous()
+        kt = fa.attention_kproj(x, att.K.weight.t().to(dt).contiguous(),
+                                att.K.bias.float().contiguous())
+    return dict(g=g, cfg=cfg, att=att, x=x, q=q, k=k, q_s=q_s, kt=kt,
+                scal=(cfg.attention_type, cfg.heads, 0.0, 0.0))
+
+
+def winatt(emit, parent=None) -> None:
+    """The ``winatt`` measurements of the module's docstring."""
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels import winatt as wa
+
+    here = this_chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    data = get_dataset("ogbn-arxiv")
+    tr = cs.nl_trainer(best_config("ogbn-arxiv", block="constant",
+                                   function="transformer"), data)
+    win = tr.data.graph.windows.in_window
+    res = tr.data.graph.windows.residual
+    emit(layout="in-window cells", N=win.num_rows, E=win.num_slots,
+         **here.degree_shares(win.ptr, (8, 16, 32, 128)))
+    long_g = here.long_row_windows("cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        name, b = str(dt)[6:], dt.itemsize
+        p = path_a_inputs(tr, dt)
+        x, q, k, scal = p["x"], p["q"], p["k"], p["scal"]
+        long_rows(emit, here, parent, long_g, p, dt)
+        n, d = x.shape
+        a, heads = q.shape[1], scal[1]
+        with torch.no_grad():
+            r0 = fa.attention_gmax(res, p["q_s"], p["kt"], None, *scal)
+            _, d_res = fa.attention_norm(res, p["q_s"], p["kt"], None, r0,
+                                         *scal)
+            ref_out, ref_den = wa.winatt_plain(win, q, k, x, d_res, r0, None,
+                                               *scal)
+            old = None
+            if parent is not None:   # the parent's kernel, same inputs
+                lib = parent_library(parent, "winatt")
+                sc = torch.empty(win.num_slots, heads, device="cuda")
+                old = (torch.empty(n, d, device="cuda"),
+                       torch.empty(n, heads, device="cuda"))
+                _build.check(lib.gx_winatt(
+                    win.ptr.data_ptr(), win.idx.data_ptr(), q.data_ptr(),
+                    k.data_ptr(), x.data_ptr(), None, d_res.data_ptr(),
+                    r0.data_ptr(), sc.data_ptr(), old[0].data_ptr(),
+                    old[1].data_ptr(), n, d, a, heads, fa.ATT_TYPES[scal[0]],
+                    0, scal[2], scal[3], fa._DTYPES[dt],
+                    _build.stream_ptr(x)), "parent winatt")
+                del sc
+            e_w = win.num_slots
+            tabs = 4 * n * heads
+            nbytes = (2 * n * a * b + n * d * b + 4 * e_w + 4 * (n + 1)
+                      + tabs + 4 + 4 * n * d + tabs)
+            miss = nbytes - n * a * b - n * d * b + e_w * (a * b + d * b)
+            bms, by = here.bound_ms(nbytes, e_w * (2.0 * a + 4.0 * heads
+                                                  + 2.0 * d), name)
+            atol, rtol = here.tol_rounded(name, x)
+            fn = lambda: wa.winatt(win, q, k, x, d_res, r0,  # noqa
+                                   None, *scal)
+            out, den = fn()
+            row = dict(kernel="winatt", dtype=name,
+                       lanes=getattr(wa, "LANES", None),
+                       ms=here.time_ms(fn), bound_ms=bms, bound_by=by,
+                       all_miss_ms=miss / here.HBM_BYTES_PER_S * 1e3,
+                       max_abs_err=max(
+                           float((out - ref_out).abs().max()),
+                           float((den - ref_den).abs().max())),
+                       out_tol_ratio=float(((out - ref_out).abs() / (
+                           atol + rtol * ref_out.abs())).max()),
+                       den_tol_ratio=float(((den - ref_den).abs() / (
+                           2e-5 + 2e-4 * ref_den.abs())).max()))
+            if old is not None:
+                deg = (win.ptr[1:] - win.ptr[:-1]).long()
+                rows = ((out != old[0]).any(1) | (den != old[1]).any(1))
+                row.update(
+                    parent_out_equal=bool(torch.equal(out, old[0])),
+                    parent_den_equal=bool(torch.equal(den, old[1])),
+                    parent_max_abs_diff=max(
+                        float((out - old[0]).abs().max()),
+                        float((den - old[1]).abs().max())),
+                    parent_rows_differing=int(rows.sum()),
+                    parent_shortest_differing_row=int(
+                        deg[rows].min()) if bool(rows.any()) else None)
+            emit(**row)
+            # the route as the RHS calls it: path A's RHS alone
+            emit(route="windowed_attention_ax_fast", dtype=name,
+                 ms=here.time_ms(lambda: wa.windowed_attention_ax_fast(
+                     p["cfg"], p["att"], p["g"], x)),
+                 host_ms=host_ms(lambda: wa.windowed_attention_ax_fast(
+                     p["cfg"], p["att"], p["g"], x)))
+        del p, x, q, k, r0, d_res, ref_out, ref_den, old
+        torch.cuda.empty_cache()
+    # path A's evaluation per NFE
+    tr.evaluate()
+    for i in range(3):
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.evaluate()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        emit(path="GRAND-nl evaluation, A", eval=i + 1,
+             nfe=tr.last_eval.nfe, seconds=sec,
+             ms_per_nfe=sec * 1e3 / tr.last_eval.nfe,
+             winatt_launches=_build.LAUNCHES["winatt"])
+
+
+def long_rows(emit, here, parent, g, p, dt) -> None:
+    """K5 on chip_smoke's ``long_row_windows`` (in-window rows of up to a
+    whole window of 512 cells at arxiv's N) with path A's q, k and x, r0
+    and d_res from its residual; with ``parent``, the parent's kernel on
+    the same inputs."""
+    import torch
+
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels import winatt as wa
+
+    win, res = g.windows.in_window, g.windows.residual
+    x, q, k, scal = p["x"], p["q"], p["k"], p["scal"]
+    n, d = x.shape
+    a, heads = q.shape[1], scal[1]
+    with torch.no_grad():
+        r0 = fa.attention_gmax(res, p["q_s"], p["kt"], None, *scal)
+        _, d_res = fa.attention_norm(res, p["q_s"], p["kt"], None, r0, *scal)
+        fn = lambda: wa.winatt(win, q, k, x, d_res, r0, None,  # noqa: E731
+                               *scal)
+        out, den = fn()
+        want = wa.winatt_plain(win, q, k, x, d_res, r0, None, *scal)
+        row = dict(kernel="winatt", graph="long rows", dtype=str(dt)[6:],
+                   E=win.num_slots, ms=here.time_ms(fn),
+                   plain_ms=here.time_ms(lambda: wa.winatt_plain(
+                       win, q, k, x, d_res, r0, None, *scal), reps=5),
+                   max_abs_err=max(float((out - want[0]).abs().max()),
+                                   float((den - want[1]).abs().max())))
+        if parent is not None:
+            lib = parent_library(parent, "winatt")
+            sc = torch.empty(win.num_slots, heads, device="cuda")
+            old = (torch.empty(n, d, device="cuda"),
+                   torch.empty(n, heads, device="cuda"))
+            args = (win.ptr.data_ptr(), win.idx.data_ptr(), q.data_ptr(),
+                    k.data_ptr(), x.data_ptr(), None, d_res.data_ptr(),
+                    r0.data_ptr(), sc.data_ptr(), old[0].data_ptr(),
+                    old[1].data_ptr(), n, d, a, heads,
+                    fa.ATT_TYPES[scal[0]], 0, scal[2], scal[3],
+                    fa._DTYPES[dt], _build.stream_ptr(x))
+            _build.check(lib.gx_winatt(*args), "parent winatt")
+            row.update(parent_ms=here.time_ms(lambda: lib.gx_winatt(*args)),
+                       parent_max_abs_diff=max(
+                           float((out - old[0]).abs().max()),
+                           float((den - old[1]).abs().max())))
+        emit(**row)
+
+
+def gmax(emit, parent=None) -> None:
+    """The ``gmax`` measurements of the module's docstring."""
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    here = this_chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    new = hasattr(fa, "score_vec")
+    data = get_dataset("ogbn-arxiv")
+    base = dict(block="constant", function="transformer")
+    tr_a = cs.nl_trainer(best_config("ogbn-arxiv", **base), data)
+    tr_c = cs.nl_trainer(best_config("ogbn-arxiv", community_window=0,
+                                     **base), data)
+    plib = parent_library(parent, "fused_attention") if parent else None
+
+    def case(label, lay, q, kt, scal, dt):
+        n, a = q.shape
+        e, heads, b = lay.num_slots, scal[1], dt.itemsize
+        fn = lambda: fa.attention_gmax(lay, q, kt, None, *scal)  # noqa
+        got = fn()
+        want = fa.attention_gmax_plain(lay, q, kt, None, *scal)
+        nbytes = n * a * b + 4 * n * a + 4 * e + 4 * (n + 1)
+        bms, by = here.bound_ms(nbytes, e * 2.0 * a, str(dt)[6:])
+        row = dict(kernel="attention_gmax", graph=label, dtype=str(dt)[6:],
+                   E=e, ms=here.time_ms(fn), value=float(got),
+                   max_abs_err=float((got - want).abs()), bound_ms=bms,
+                   bound_by=by, all_miss_ms=(nbytes - 4 * n * a + 4 * e * a)
+                   / here.HBM_BYTES_PER_S * 1e3)
+        if new:   # the same kernel with a fresh zeroed state each call
+            out = torch.empty((), device="cuda")
+            lib = _build.library("fused_attention")
+
+            def fresh():
+                st = torch.zeros(2, dtype=torch.int32, device="cuda")
+                lib.gx_attention_gmax(
+                    lay.seg.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
+                    kt.data_ptr(), None, st.data_ptr(), out.data_ptr(), e,
+                    a, heads, fa.ATT_TYPES[scal[0]], 0, scal[2], scal[3],
+                    fa._DTYPES[dt], fa.score_vec(q, kt, heads, scal[0]),
+                    _build.stream_ptr(q))
+            row["fresh_state_ms"] = here.time_ms(fresh)
+        if plib is not None:
+            old = torch.empty((), device="cuda")
+            st = torch.zeros(2, dtype=torch.int32, device="cuda")
+            _build.check(plib.gx_attention_gmax(
+                lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
+                kt.data_ptr(), None, st.data_ptr(), old.data_ptr(), n, a,
+                heads, fa.ATT_TYPES[scal[0]], 0, scal[2], scal[3],
+                fa._DTYPES[dt], _build.stream_ptr(q)), "parent gmax")
+            row.update(parent_value=float(old),
+                       parent_equal=bool(torch.equal(got, old)))
+        emit(**row)
+
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            p = path_a_inputs(tr_a, dt)
+            case("windowed residual", p["g"].windows.residual, p["q_s"],
+                 p["kt"], p["scal"], dt)
+            del p
+            # the CSR model's operands, as chip_smoke takes them
+            cfg, att = tr_c.cfg, tr_c.model.block.func.att
+            tr_c.model.eval()
+            x_enc = tr_c.model.encode(tr_c.data.x, train=False)
+            for label, gr in (("arxiv CSR", tr_c.data.graph),
+                              ("hub", here.hub_graph("cuda")),
+                              ("pareto", pareto_graph("cuda"))):
+                x = x_enc.to(dt).contiguous()
+                ops = fa.prep_inputs(cfg, att, gr, x)
+                kt = fa.attention_kproj(x, ops["wk"], ops["bk"])
+                case(label, gr.csr, ops["q"], kt,
+                     (cfg.attention_type, cfg.heads, ops["ov2"],
+                      ops["inv2l2"]), dt)
+                del gr, x, ops, kt
+            torch.cuda.empty_cache()
+    # a squareplus evaluation on CSR (gmax once per NFE) and the softmax
+    # one (no gmax), per NFE
+    sq = cs.nl_trainer(best_config("ogbn-arxiv", community_window=0,
+                                   square_plus=True, **base), data)
+    for label, t in (("GRAND-nl squareplus evaluation, CSR", sq),
+                     ("GRAND-nl evaluation, CSR", tr_c)):
+        t.evaluate()
+        for i in range(3):
+            _build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.evaluate()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            emit(path=label, eval=i + 1, nfe=t.last_eval.nfe, seconds=sec,
+                 ms_per_nfe=sec * 1e3 / t.last_eval.nfe,
+                 gmax_launches=_build.LAUNCHES["attention_gmax"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None,
@@ -922,11 +1244,17 @@ def main() -> int:
     ap.add_argument("--parent", default=None,
                     help="a second checkout, measured in turns")
     ap.add_argument("--only", choices=("windowed", "attention", "spmm",
-                                       "pin", "kproj", "slab"),
+                                       "pin", "kproj", "slab", "winatt",
+                                       "gmax"),
                     default=None, help="one group of measurements")
+    ap.add_argument("--against", default=None,
+                    help="a parent checkout whose kernels run beside this "
+                    "one's on the same inputs (winatt, gmax)")
     args = ap.parse_args()
     if args.root is not None:
-        measure(os.path.abspath(args.root), args.only)
+        measure(os.path.abspath(args.root), args.only,
+                None if args.against is None
+                else os.path.abspath(args.against))
         return 0
     import torch
 
@@ -938,8 +1266,10 @@ def main() -> int:
         os.path.abspath(args.parent)]
     only = [] if args.only is None else ["--only", args.only]
     for root in order:
+        against = [] if args.parent is None or root != HERE else [
+            "--against", os.path.abspath(args.parent)]
         rc = subprocess.call([sys.executable, os.path.abspath(__file__),
-                              "--root", root] + only, cwd=root)
+                              "--root", root] + only + against, cwd=root)
         if rc != 0:
             return rc
     sys.path.insert(0, HERE)

@@ -1301,3 +1301,169 @@ def test_cuda_win_matmul_backward_makes_dx_in_x_dtype(cuda):
                 and ev.input_shapes and list(ev.input_shapes[0]) in shapes]
     assert xr.grad.dtype == bf
     assert torch.equal(xr.grad, ws.win_bwd_slab(wl, dense, probe, bf))
+
+
+# ----------------------------------------------------------------------
+# K5 (winatt) and attention_gmax as redesigned: K5's row groups and long
+# rows, gmax's flat walk over (slot, head) pairs
+
+def _long_row_graph(device, n=1100, window=512, tile=8, seed=20):
+    """Communities of one window of 512 (the last one short), tiles of 8:
+    in-window rows of 33, 200 and 512 cells (row 7 its whole window), rows
+    30 and 31 with out-of-window edges only, the last 5 rows without an
+    edge; about 5 cells on the other rows."""
+    rng = np.random.RandomState(seed)
+    comm = np.arange(n) // window
+    same = comm[:, None] == comm[None, :]
+    hit = rng.rand(n, n) < np.where(same, 5.0 / window, 0.002)
+    for r, cells in ((3, 33), (600, 200), (7, window)):
+        hit[r] &= ~same[r]
+        hit[r, comm[r] * window + rng.choice(window, cells, replace=False)] \
+            = True
+    hit[30:32] &= ~same[30:32]
+    hit[30, 900] = hit[31, 1000] = True
+    hit[n - 5:] = False
+    row, col = np.nonzero(hit)
+    w = (rng.rand(len(row)) + 0.2).astype(np.float32)
+    g = Graph.from_edges(row, col, n, edge_weight=w,
+                         edge_buffer_size=len(row) + 9, device=device)
+    g = attach_windows(g, window=window, tile=tile)
+    deg = (g.windows.in_window.ptr[1:] - g.windows.in_window.ptr[:-1]).cpu()
+    assert (int(deg[3]), int(deg[600]), int(deg[7])) == (33, 200, window)
+    assert int(deg[30]) == int(deg[31]) == 0 and not bool(deg[-5:].any())
+    return g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_winatt_long_rows_empty_rows_and_widths(cuda, dtype):
+    """K5 against its plain version (den at graphax's attention tolerance,
+    out as the training kernels' sums, `_check_winatt`) on in-window rows
+    of 33, 200 and 512 cells (past the kernel's 16 lanes a row: its
+    segment kernels) and on empty rows, at D = 162 and at odd D = 97 (bf16:
+    2-byte loads), A = 32, H = 2 (16-byte score loads) and A = 12, H = 3,
+    reweight on and off; one launch a call."""
+    from graphax_torch.kernels import LAUNCHES
+
+    g = _long_row_graph(cuda)
+    wl = g.windows
+    cell_w = (torch.rand(wl.in_window.num_slots, device=cuda,
+                         generator=torch.Generator(device=cuda)
+                         .manual_seed(21)) + 0.2)
+    for i, (d, a, heads) in enumerate(((162, 32, 2), (97, 12, 3))):
+        for ew in (None, cell_w):
+            LAUNCHES.clear()
+            out, _ = _check_winatt(wl, dtype, d, a, heads, "scaled_dot", ew,
+                                   30 + i)
+            assert LAUNCHES["winatt"] == 1
+            for r in (30, 31, g.num_nodes - 1):
+                assert torch.all(out[r] == 0)
+    out, den = _check_winatt(wl, dtype, 162, 32, 2, "exp_kernel", cell_w, 33)
+
+
+def _gmax_operands(g, dtype, a, seed, sign=None):
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    n, tdt = g.num_nodes, getattr(torch, dtype)
+    q = 0.3 * torch.randn(n, a, generator=gen, device=g.device)
+    kt = 0.3 * torch.randn(n, a, generator=gen, device=g.device)
+    if sign is not None:        # every scaled_dot score below zero
+        q, kt = q.abs() + 0.01, -(kt.abs() + 0.01)
+    return q.to(tdt), kt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_gmax_max_at_the_last_slot_and_block_and_negative(cuda, dtype):
+    """The flat walk against the plain version on N = 301 rows (pairs not a
+    multiple of the 256-thread block): the largest score planted at the
+    last (slot, head) pair, at the first pair of the last block and at
+    pair 0; every score negative (the max is returned, not 0); reweight on
+    and off; A = 32, H = 2 (16-byte loads) and A = 12, H = 3. One launch a
+    call; a call after a larger max is not held by it (the kernel leaves
+    its state as zeros)."""
+    from graphax_torch.kernels import LAUNCHES
+
+    g = _cuda_graph(cuda, n=301, e=2499, seed=22)
+    lay, e = g.csr, g.csr.num_slots
+    for a, heads in ((32, 2), (12, 3)):
+        dk, pairs = a // heads, e * heads
+        assert pairs % 256
+        for p in (pairs - 1, 256 * ((pairs - 1) // 256), 0):
+            q, kt = _gmax_operands(g, dtype, a, seed=p)
+            slot, hh = p // heads, p % heads
+            r, c = int(lay.seg[slot]), int(lay.idx[slot])
+            q[r, hh * dk:(hh + 1) * dk] = 2.0
+            kt[c, hh * dk:(hh + 1) * dk] = 2.0
+            planted = g.edge_weight.clone()
+            planted[slot] = 2.0         # above every other weight
+            for ew in (None, planted):
+                scal = ("scaled_dot", heads)
+                s = fa.edge_scores_plain(lay, q, kt, ew, *scal).reshape(-1)
+                assert s[p] == s.max()
+                LAUNCHES.clear()
+                got = fa.attention_gmax(lay, q, kt, ew, *scal)
+                assert LAUNCHES["attention_gmax"] == 1
+                torch.testing.assert_close(
+                    got, fa.attention_gmax_plain(lay, q, kt, ew, *scal),
+                    rtol=1e-6, atol=1e-6)
+        q, kt = _gmax_operands(g, dtype, a, seed=23, sign=-1)
+        got = fa.attention_gmax(lay, q, kt, None, "scaled_dot", heads)
+        want = fa.attention_gmax_plain(lay, q, kt, None, "scaled_dot", heads)
+        assert float(want) < 0
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_cuda_gmax_every_slot_padded_and_the_state_after_a_call(cuda):
+    """A graph whose edge buffer holds padding only (no slot): 0, in either
+    dtype and type; and each call's result is its own after calls with
+    larger maxima (the reused state is left as zeros)."""
+    empty = Graph.from_edges(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                             301, edge_buffer_size=7, device=cuda)
+    g = _cuda_graph(cuda, seed=24)
+    for dtype in ("float32", "bfloat16"):
+        q, kt = _gmax_operands(empty, dtype, 32, seed=25)
+        for att_type in ("scaled_dot", "exp_kernel"):
+            assert float(fa.attention_gmax(empty.csr, q, kt, None, att_type,
+                                           2)) == 0.0
+        q, kt = _gmax_operands(g, dtype, 32, seed=26)
+        seen = []
+        for scale in (4.0, 1.0, 0.25, 2.0):
+            got = fa.attention_gmax(g.csr, q, kt * scale, None, "scaled_dot",
+                                    2)
+            want = fa.attention_gmax_plain(g.csr, q, kt * scale, None,
+                                           "scaled_dot", 2)
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+            seen.append(float(got))
+        assert seen[0] > seen[3] > seen[1] > seen[2] > 0
+
+
+def test_cuda_gmax_on_two_streams_at_once(cuda):
+    """Launches on two streams, each queued behind work that keeps it in
+    flight while the other runs: each stream's result is its own (each
+    stream has its own state), and calls after them on either stream and
+    on the default stream are right (every state left as zeros)."""
+    g = _cuda_graph(cuda, seed=27)
+    q, kt = _gmax_operands(g, "bfloat16", 32, seed=28)
+    scal = ("scaled_dot", 2)
+    want = [fa.attention_gmax_plain(g.csr, q, kt * s, None, *scal)
+            for s in (4.0, 0.25)]
+    ops = [kt * 4.0, kt * 0.25]
+    busy = [torch.randn(2048, 2048, device=cuda) / 2048 ** 0.25
+            for _ in range(2)]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        got = []
+        for st, k2, b in zip(streams, ops, busy):
+            with torch.cuda.stream(st):
+                for _ in range(4):
+                    b = b @ b
+                got.append(fa.attention_gmax(g.csr, q, k2, None, *scal))
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    for st, k2, b in zip(streams + [torch.cuda.current_stream(cuda)],
+                         ops + [kt], want + [fa.attention_gmax_plain(
+                             g.csr, q, kt, None, *scal)]):
+        with torch.cuda.stream(st):
+            got = fa.attention_gmax(g.csr, q, k2, None, *scal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, b, rtol=1e-6, atol=1e-6)
