@@ -960,10 +960,14 @@ def _nl_train_graph(device):
 
 
 def train_kernel_checks(results: dict, graph, q, x, kt, cot, heads: int,
-                        name: str, timed: bool) -> tuple:
+                        name: str, timed: bool, label=None) -> tuple:
     """The three training kernels against their plain versions on one
     input set (the backward kernels on the kernel forward's residuals),
-    with the bound of each at these inputs. Returns the kernels' outputs
+    with the bound of each at these inputs (and B3's all-miss count: g, q
+    and the row tables gathered per slot). ``label`` names a graph other
+    than the slice's, one with columns of thousands of slots: its timed
+    rows are kept under that tag, and B3's tolerances add
+    :func:`b3_order_bound` to their atol. Returns the kernels' outputs
     (out, dq, dk, dxv)."""
     from graphax_torch.kernels import fused_attention as fa
 
@@ -973,7 +977,7 @@ def train_kernel_checks(results: dict, graph, q, x, kt, cot, heads: int,
     idx_bytes = 4 * e + 4 * (n + 1)
     tabs = 4 * n * heads                      # one [N, H] f32 table
     row = lambda k: dict(kernel=k, path="grand_nl_train", dtype=name,
-                         graph="slice" if timed else "small")
+                         graph=label or ("slice" if timed else "small"))
     out, sc, shift, denom = hold_to_plain(
         results, row("attention_fwd_res"),
         lambda: fa.attention_fwd_res(graph.csr, q, x, kt, heads),
@@ -986,7 +990,7 @@ def train_kernel_checks(results: dict, graph, q, x, kt, cot, heads: int,
         + 2 * tabs,
         # per edge: scores (2A), exp and the head mean (~4H), x * w and
         # its sum (2D)
-        e * (2.0 * a + 4.0 * heads + 2.0 * d), timed=timed)
+        e * (2.0 * a + 4.0 * heads + 2.0 * d), timed=timed, tag=label)
     dq, rho = hold_to_plain(
         results, row("attention_bwd_rows"),
         lambda: fa.attention_bwd_rows(graph.csr, sc, shift, denom, cot, x, kt,
@@ -998,20 +1002,56 @@ def train_kernel_checks(results: dict, graph, q, x, kt, cot, heads: int,
         4 * e * heads + 2 * tabs + 2 * n * d * b + 4 * n * a + idx_bytes
         + 4 * n * a + tabs,
         # per edge: da (2D), alpha and rho (~6H), ds and dq (~2H + 2A)
-        e * (2.0 * d + 8.0 * heads + 2.0 * a), timed=timed)
+        e * (2.0 * d + 8.0 * heads + 2.0 * a), timed=timed, tag=label)
+    # q, g, x, K, shift, denom, rho, CSC in; dk, dxv out
+    b3_bytes = (n * a * b + 2 * n * d * b + 4 * n * a + 3 * tabs + idx_bytes
+                + 4 * n * a + 4 * n * d)
+    tk, tv = TOL_TRAIN, tol_rounded(name, cot)
+    if label is not None:   # columns of thousands of slots
+        bk, bv = b3_order_bound(graph.csc, q, cot, x, kt, shift, denom, rho,
+                                heads)
+        tk, tv = (tk[0] + bk, tk[1]), (tv[0] + bv, tv[1])
     dk, dxv = hold_to_plain(
         results, row("attention_bwd_cols"),
         lambda: fa.attention_bwd_cols(graph.csc, q, cot, x, kt, shift, denom,
                                       rho, heads),
         lambda: fa.attention_bwd_cols_plain(graph.csc, q, cot, x, kt, shift,
                                             denom, rho, heads),
-        (("dk", TOL_TRAIN), ("dxv", tol_rounded(name, cot))),
-        # q, g, x, K, shift, denom, rho, CSC in; dk, dxv out
-        n * a * b + 2 * n * d * b + 4 * n * a + 3 * tabs + idx_bytes
-        + 4 * n * a + 4 * n * d,
+        (("dk", tk), ("dxv", tv)), b3_bytes,
         # per slot: s (2A), alpha (~4H), da and dxv (4D), dk (~2A)
-        e * (4.0 * a + 4.0 * heads + 4.0 * d), timed=timed)
+        e * (4.0 * a + 4.0 * heads + 4.0 * d), timed=timed, tag=label,
+        miss_bytes=b3_bytes - n * d * b - n * a * b - 3 * tabs
+        + e * (d * b + a * b + 12 * heads))
     return out, dq, dk, dxv
+
+
+def b3_order_bound(csc, q, g, x, kt, shift, denom, rho, heads: int):
+    """``(dk, dxv)`` bounds [N, A], [N, D] of how far B3's f32 column sums
+    may move with their order, as spmm_check's long rows: per entry 2
+    sqrt(deg) 2^-24 sum|term| over the column's slots (terms ds_h q[r]_h
+    and rnd(g[r] w), from the plain version's alpha). The kernel sums a
+    long column in segments of 32, the plain version's index_add_ in its
+    atomics' order."""
+    import torch
+
+    from graphax_torch.kernels import fused_attention as fa
+
+    n, a, d = x.shape[0], kt.shape[1], x.shape[1]
+    c, r = csc.seg, csc.idx.long()
+    e, dkh = csc.num_slots, a // heads
+    qe = q.float()[r].reshape(e, heads, dkh)
+    s = fa.score_math("scaled_dot", qe, kt[c].reshape(e, heads, dkh))
+    alpha = torch.exp(s - shift[r]) / torch.where(denom[r] > 0, denom[r],
+                                                  torch.ones_like(denom[r]))
+    da = (g.float()[r] * x.float()[c]).sum(1)
+    ds = alpha * ((da / heads)[:, None] - rho[r])
+    mk = torch.zeros(n, a, device=x.device).index_add_(
+        0, c, (qe * ds[:, :, None]).abs().reshape(e, a))
+    w = (alpha.sum(1) / heads).to(g.dtype)
+    mv = torch.zeros(n, d, device=x.device).index_add_(
+        0, c, (g[r] * w[:, None]).float().abs())
+    scale = 2.0 * 2.0 ** -24 * (csc.ptr[1:] - csc.ptr[:-1]).float().sqrt()
+    return scale[:, None] * mk, scale[:, None] * mv
 
 
 def phase_train_kernels(trainer, results: dict) -> None:
@@ -1037,6 +1077,9 @@ def phase_train_kernels(trainer, results: dict) -> None:
     d = x_enc.shape[1]
     gen = torch.Generator(device="cuda").manual_seed(12)
     cot = torch.randn(n, d, generator=gen, device="cuda")
+    hub_t = hub_graph("cuda", transpose=True)
+    emit({"phase": "kernels", "graph": "hub transposed", "columns":
+          degree_shares(hub_t.csc.ptr, (fa._BATCH,))})
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
         x = x_enc.to(dt).contiguous()
@@ -1045,8 +1088,14 @@ def phase_train_kernels(trainer, results: dict) -> None:
             kt = fa.attention_kproj(x, p["wk"], p["bk"])
             train_kernel_checks(results, g, p["q"], x, kt,
                                 cot.to(dt).contiguous(), heads, name, True)
+            # the transposed hub graph: its CSC holds columns of 2,000 to
+            # 13,000 slots, which B3 walks in segments
+            train_kernel_checks(results, hub_t, p["q"], x, kt,
+                                cot.to(dt).contiguous(), heads, name, True,
+                                label="hub transposed")
         del x, kt, p
         torch.cuda.empty_cache()
+    del hub_t
 
     # the autograd route against autograd through the plain per-edge path
     lin = (att.Q.weight, att.Q.bias, att.K.weight, att.K.bias)
@@ -1185,14 +1234,15 @@ def long_row_windows(device, n=169_343, e=1_354_429,
 
 def hub_graph(device, n=169_343, e=1_354_429,
               hubs=(13_000, 9_000, 6_000, 4_000, 3_000, 2_500, 2_000, 2_000),
-              seed=3):
+              seed=3, transpose=False):
     """A graph at ogbn-arxiv's N and about its E with a few rows of
     thousands of edges and the rest short, built from a seed: ``hubs`` rows
     at random positions, every other row one edge or more (geometric, with
     the mean that makes up E, about 8), columns uniform. Its degrees are
     not a power law: about 2,100 rows have more than 32 edges, and the
     share of rows and edges above the row walk's cutovers is printed with
-    it (that of the real ogbn-arxiv is not known to the repo)."""
+    it (that of the real ogbn-arxiv is not known to the repo). With
+    ``transpose``, its transpose: the hub rows become hub columns."""
     import numpy as np
 
     from graphax_torch.sparse.graph import Graph
@@ -1203,6 +1253,8 @@ def hub_graph(device, n=169_343, e=1_354_429,
     deg[rng.choice(n, len(hubs), replace=False)] = hubs
     row = np.repeat(np.arange(n), deg)
     col = rng.randint(0, n, row.size)
+    if transpose:
+        row, col = col, row
     order = np.lexsort((col, row))
     return Graph.from_edges(row[order], col[order], n, device=device)
 
@@ -1290,10 +1342,12 @@ def three_kernel_checks(results: dict, path: str, graph, x, q, q_s, k, kt,
         lambda: fa.attention_norm_plain(lay, q_s, kt, ew_res, g, *scal,
                                         square_plus=sqp),
         (("e", TOL_TRAIN), ("den", TOL_TRAIN)),
-        # q, K, CSR, shift in; e, den out
+        # q, K, CSR, shift in; e, den out; all-miss: K per slot
         n * a * b + 4 * n * a + idx_bytes + 4 + 4 * e_l * heads + tabs,
         # per slot and head: the score (2 dk) and e (~2)
-        e_l * (2.0 * a + 2.0 * heads), timed=timed, tag=path)
+        e_l * (2.0 * a + 2.0 * heads), timed=timed, tag=path,
+        miss_bytes=n * a * b + 4 * e_l * a + idx_bytes + 4
+        + 4 * e_l * heads + tabs)
     if path == "windowed":
         e_w = win.num_slots
         ew_win = None
@@ -1433,8 +1487,8 @@ def phase_hub_kernels(trainer, results: dict) -> None:
     :func:`spmm_check`) and the pin (every score type and reweight,
     TOL_PIN) on :func:`hub_graph`, each timed beside its bound and all-miss
     count; then flash_attention
-    (softmax and squareplus), attention_gmax (TOL_GMAX) and
-    attention_attspmm (row and column forms) on it; then
+    (softmax and squareplus), attention_gmax (TOL_GMAX), attention_norm
+    (TOL_TRAIN) and attention_attspmm (row and column forms) on it; then
     :func:`long_row_kernels`. The kernels walk its hub rows of thousands of edges in segments
     of ``ROW_SPLIT`` edges; flash and attspmm take the
     inputs of the arxiv checks (the GRAND-nl model's own q, Wk and bk on its
@@ -1509,7 +1563,18 @@ def phase_hub_kernels(trainer, results: dict) -> None:
                 lambda: fa.attention_gmax_plain(g.csr, q, kt, None, *scal),
                 TOL_GMAX, gm_bytes, e * 2.0 * a, tag="hub",
                 miss_bytes=gm_bytes - 4 * n * a + 4 * e * a)
-            ev, den = fa.attention_norm(g.csr, q, kt, None, gs, *scal)
+            # the norm over the hub rows' slots: q, K, CSR, shift in; e,
+            # den out; all-miss: K per slot
+            nm_bytes = (n * a * b + csr_bytes + 4 + 4 * e * heads
+                        + 4 * n * heads)
+            ev, den = hold_to_plain(
+                results, row("attention_norm", "hub"),
+                lambda: fa.attention_norm(g.csr, q, kt, None, gs, *scal),
+                lambda: fa.attention_norm_plain(g.csr, q, kt, None, gs,
+                                                *scal),
+                (("e", TOL_TRAIN), ("den", TOL_TRAIN)),
+                nm_bytes + 4 * n * a, e * (2.0 * a + 2.0 * heads),
+                tag="hub", miss_bytes=nm_bytes + 4 * e * a)
             add = torch.randn(n, d, generator=gen, device="cuda")
             nbytes = (4 * e * heads + 4 * n * heads + n * d * b + csr_bytes
                       + 4 * n * d)
@@ -2641,6 +2706,16 @@ def main(argv=None) -> int:
     kernels[10]["variant"] = ("K1 + K2 + K3 with residuals: the training "
                               "forward, scores/shift/denominator kept")
     kernels[11]["also_replaces"] = "graphax/kernels/pallas_attention.py:659"
+    kernels[12]["all_miss_ms"] = results[
+        ("attention_bwd_cols", "bfloat16")]["all_miss_ms"]
+    kernels[12]["float32"] = {k: results[("attention_bwd_cols",
+                                          "float32")].get(k) for k in walked}
+    kernels[12]["hub_transposed"] = {
+        k: results[("attention_bwd_cols", "bfloat16", "hub transposed")].get(k)
+        for k in walked}
+    kernels[12]["launches_count"] = (
+        "wrapper calls: each runs bwd_cols_kernel, and where a column has "
+        "more than 32 slots seg_combine for dk and for dxv")
     fd = results[("flash_dense", "bfloat16")]
     kernels[13]["library"] = results[("flash_dense", "float32")].get(
         "library")
@@ -2653,8 +2728,15 @@ def main(argv=None) -> int:
     kernels[14]["also_replaces"] = "graphax/kernels/pallas_attention.py:114"
     kernels[14]["variant"] = ("K1 + K2 under one shift for every row: the "
                               "windowed residual under r0")
+    kernels[14]["all_miss_ms"] = results[
+        ("attention_norm", "bfloat16", "windowed")]["all_miss_ms"]
     kernels[14]["colnorm"] = {k: results[("attention_norm", "bfloat16",
                                           "colnorm")][k] for k in numbers}
+    kernels[14]["hub"] = {k: results[("attention_norm", "bfloat16",
+                                      "hub")].get(k) for k in walked}
+    kernels[14]["launches_count"] = (
+        "wrapper calls: each runs norm_kernel, and where a row has more "
+        "than NORM_CUT slots seg_combine")
     kernels[15]["variant"] = ("K3 against K5's row denominators on the "
                               "windowed residual")
     kernels[15]["all_miss_ms"] = results[

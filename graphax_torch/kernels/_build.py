@@ -65,9 +65,10 @@ SIGNATURES = {
         "gx_attention_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P],
         "gx_attention_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _P],
-        "gx_attention_norm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _F, _F, _I, _P],
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _P],
+        "gx_attention_norm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
         "gx_attention_attspmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },

@@ -101,24 +101,35 @@
 //                 row's two passes. Reads K[col] from the K projection's f32
 //                 table where graphax's B2 projects each gathered row: the
 //                 same f32 sums of exact products, in another order.
-//   bwd_cols_kernel B3, one warp per CSC column c, over the rows r of its
-//                 slots (the CSC idx: no slot permutation, as graphax's
-//                 node-table gathers, :1232-1240). Recomputes s from q[r]
-//                 and K[c] with the forward's score function, alpha from
-//                 shift[r] and denom[r], da = g[r] . x[c], ds; dk_c = sum
-//                 ds_h q[r]_h and dxv_c = sum rnd(g[r] * rnd(mean_h alpha)),
-//                 f32. graphax's B3 takes k = x Wk + bk computed in the
-//                 state dtype (:1242); this kernel takes the f32 K table, so
-//                 its alpha is the forward's alpha exactly (in bf16 graphax's
-//                 B3 alpha differs from its K1 alpha by k's rounding).
-//
-//   norm_kernel   one warp per CSR row, lanes over its (edge, head) pairs:
-//                 the score of `_score_math` (q pre-scaled for scaled_dot,
-//                 the f32 K table, the optional reweight), then e = exp(s -
-//                 g) or squareplus(s - g) with g ONE f32 value for every row
-//                 (a 0-d device tensor, from gmax_kernel), written to e [E,
-//                 H] f32 unrounded as K2 writes it; then per head the row's
-//                 denominator sum e, a warp sum (0 for a row with no edge).
+//   bwd_cols_kernel B3 over the CSC layout (the rows r of column c's slots:
+//                 no slot permutation, as graphax's node-table gathers,
+//                 :1232-1240), on the row walk: a warp per column of at most
+//                 32 slots (longer ones in segments of 32, summed in order),
+//                 one slot a lane. Recomputes s from q[r] and K[c] with the
+//                 forward's score function, alpha from shift[r] and
+//                 denom[r], then gathers the g rows several at a time: dxv_c
+//                 = sum rnd(g[r] * rnd(mean_h alpha)) and da = g[r] . x[c];
+//                 ds = alpha (da / H - rho[r]), dk_c = sum ds_h q[r]_h, f32.
+//                 graphax's B3 takes k = x Wk + bk computed in the state
+//                 dtype (:1242); this kernel takes the f32 K table, so its
+//                 alpha is the forward's alpha exactly (in bf16 graphax's
+//                 B3 alpha differs from its K1 alpha by k's rounding). The
+//                 first body (a warp walking its column a slot at a time, q
+//                 staged in shared memory, the scores on min(H, 32) lanes)
+//                 took 1.17 ms in bf16 at the arxiv stand-in's shapes on
+//                 the H100 (PERF.md).
+//   norm_kernel   a group of 8 lanes a CSR row (longer rows in segments),
+//                 one slot a lane: the score of `_score_math` from q[r] and
+//                 K[col] in registers (q pre-scaled for scaled_dot, the f32
+//                 K table, the optional reweight), then e = exp(s - g) or
+//                 squareplus(s - g) with g ONE f32 value for every row (a
+//                 0-d device tensor, from gmax_kernel), written to e [E, H]
+//                 f32 unrounded as K2 writes it; per head the row's
+//                 denominator sum e by a butterfly of width 8 (0 for a row
+//                 with no edge). The first body (a warp a row, q staged in
+//                 shared memory, lanes over the row's (edge, head) pairs, e
+//                 read back for the sums) took 0.101 ms on the windowed
+//                 residual (PERF.md).
 //   attspmm_kernel one warp per CSR row, the row walk below: lane j of a
 //                 batch computes edge j's w_e = rnd(mean_h e_eh / (den > 0 ?
 //                 den : 1)) with K3's zero-select (:287-293), den from a
@@ -151,10 +162,11 @@
 // GFLOP (on the tensor cores in bf16). The training kernels walk each row
 // serially and are bound by that latency: the forward with residuals moves ~217 MB (0.065 ms), the row
 // backward ~185 MB (0.055 ms), the column backward ~284 MB (0.085 ms), each
-// against a few GFLOP; each walks its rows (columns) edge by edge with a
-// dependent gather of an x (g) row and a warp reduction per edge. norm_kernel
-// must read q, K and the CSR once and write e [E, H] and the [N, H]
-// denominators (~47 MB over the whole arxiv CSR in bf16, 0.014 ms);
+// against a few GFLOP; the first two walk their rows edge by edge with a
+// dependent gather of an x row and a warp reduction per edge (the column
+// backward: a batch of 32 slots at a time, several g rows in flight).
+// norm_kernel must read q, K and the CSR once and write e [E, H] and the
+// [N, H] denominators (~47 MB over the whole arxiv CSR in bf16, 0.014 ms);
 // attspmm_kernel must read e, a denominator table, x and the CSR and write
 // the f32 output (~186 MB, 0.056 ms): both bytes-bound, both gathering per
 // edge.
@@ -757,115 +769,6 @@ bwd_rows_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   for (int i = lane; i < a; i += 32) dq[(size_t)r * a + i] = acc[i];
 }
 
-// The column-side backward (B3) over the CSC layout: a warp owns column c
-// (x[c] and K[c] staged in shared memory) and walks the rows r that gather
-// from it. Per slot: s from q[r] and K[c] (the forward's score function on
-// the same values), alpha from the row's shift and denominator, da = g[r] .
-// x[c], ds = alpha (da / H - rho[r]); dk_c += ds_h * q[r] (lanes over A),
-// dxv_c += rnd(g[r] * rnd(mean_h alpha)) (lanes over columns), f32 sums.
-template <typename T>
-__global__ void __launch_bounds__(WPB * 32)
-bwd_cols_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
-                const T* __restrict__ q, const T* __restrict__ g,
-                const T* __restrict__ x, const float* __restrict__ kt,
-                const float* __restrict__ shift,
-                const float* __restrict__ denom,
-                const float* __restrict__ rho, float* __restrict__ dk,
-                float* __restrict__ dxv, int n, int d, int a, int h) {
-  extern __shared__ float smem[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* xs = smem + (size_t)w * (2 * d + 3 * a + h);  // [d] x of the column
-  float* dx = xs + d;                                  // [d] dxv of the column
-  float* ks = dx + d;                                  // [a] K of the column
-  float* qs = ks + a;                                  // [a] q of the slot's row
-  float* kacc = qs + a;                                // [a] dk of the column
-  float* al = kacc + a;                                // [h] alpha of the slot
-  const int c = blockIdx.x * WPB + w;
-  if (c >= n) return;
-  const int beg = ptr[c], end = ptr[c + 1];
-  if (beg == end) {
-    for (int i = lane; i < a; i += 32) dk[(size_t)c * a + i] = 0.f;
-    for (int i = lane; i < d; i += 32) dxv[(size_t)c * d + i] = 0.f;
-    return;
-  }
-  const int dkh = a / h;
-  const float fh = (float)h;
-  for (int i = lane; i < d; i += 32) {
-    xs[i] = to_f(x[(size_t)c * d + i]);
-    dx[i] = 0.f;
-  }
-  for (int i = lane; i < a; i += 32) {
-    ks[i] = kt[(size_t)c * a + i];
-    kacc[i] = 0.f;
-  }
-  for (int j = beg; j < end; ++j) {
-    const int r = idx[j];
-    __syncwarp();  // every lane is done with the last slot's qs and al
-    for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
-    __syncwarp();
-    for (int hh = lane; hh < h; hh += 32) {
-      const float s = gx_att::score(qs + hh * dkh, ks + hh * dkh, dkh, 0, 0.f,
-                                    0.f);
-      const float dn = denom[(size_t)r * h + hh];
-      al[hh] = expf(s - shift[(size_t)r * h + hh]) / (dn > 0.f ? dn : 1.f);
-    }
-    __syncwarp();
-    float wsum = 0.f;
-    for (int hh = 0; hh < h; ++hh) wsum += al[hh];
-    const float wt = rnd<T>(wsum / fh);
-    const T* gr = g + (size_t)r * d;
-    float p = 0.f;
-    for (int i = lane; i < d; i += 32) {
-      const float gv = to_f(gr[i]);
-      p += gv * xs[i];
-      dx[i] += rnd<T>(gv * wt);
-    }
-    const float da = warp_sum(p);
-    for (int i = lane; i < a; i += 32) {
-      const int hh = i / dkh;
-      kacc[i] += al[hh] * (da / fh - rho[(size_t)r * h + hh]) * qs[i];
-    }
-  }
-  for (int i = lane; i < a; i += 32) dk[(size_t)c * a + i] = kacc[i];
-  for (int i = lane; i < d; i += 32) dxv[(size_t)c * d + i] = dx[i];
-}
-
-// K1 + K2 with one shift for every row. Lanes over the row's (edge, head)
-// pairs write e = weight(s - g) unrounded; then per head the f32 sum of the
-// row's e, a warp sum.
-template <typename T, bool SQP>
-__global__ void __launch_bounds__(WPB * 32)
-norm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
-            const T* __restrict__ q, const float* __restrict__ kt,
-            const float* __restrict__ ew, const float* __restrict__ gshift,
-            float* __restrict__ eo, float* __restrict__ den, int n, int a,
-            int h, int att_type, float ov2, float inv2l2) {
-  extern __shared__ float smem[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qs = smem + (size_t)w * a;  // [a] q of the row
-  const int r = blockIdx.x * WPB + w;
-  if (r >= n) return;
-  const int beg = ptr[r], end = ptr[r + 1];
-  const float g = *gshift;
-  const int dk = a / h;
-  for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
-  __syncwarp();
-  const int pairs = (end - beg) * h;
-  for (int p = lane; p < pairs; p += 32) {
-    const int e = beg + p / h, hh = p % h;
-    const float s = edge_score(qs, kt, idx, ew, e, hh, a, dk, att_type, ov2,
-                               inv2l2);
-    eo[(size_t)e * h + hh] = weight<SQP>(s - g);
-  }
-  __syncwarp();
-  for (int hh = 0; hh < h; ++hh) {
-    float sum = 0.f;
-    for (int e = beg + lane; e < end; e += 32) sum += eo[(size_t)e * h + hh];
-    sum = warp_sum(sum);
-    if (lane == 0) den[(size_t)r * h + hh] = sum;
-  }
-}
-
 // ---------------------------------------------------------------------
 // The row walk of flash_kernel and attspmm_kernel
 // ---------------------------------------------------------------------
@@ -1125,6 +1028,277 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
   }
 }
 
+// ---------------------------------------------------------------------
+// B3 (bwd_cols_kernel) and K1 + K2 under one shift (norm_kernel) on the
+// row walk
+// ---------------------------------------------------------------------
+//
+// bwd_cols_kernel takes work items, a warp each: the CSC columns of at
+// most BATCH slots, then the segments of BATCH slots of the longer columns
+// (the host's row_split_plan on the CSC ptr), whose f32 partials pk [nseg,
+// a] and pv [nseg, d] seg_combine adds in segment order. Each item is one
+// batch, lane j holding slot j: its row r, per head alpha = exp(s -
+// shift[r]) / (denom[r] or 1) with s scored from q[r] (16-byte loads of
+// the state dtype) and the column's K row (one address for the whole warp:
+// an L1 broadcast), in gx_att::score's order, so alpha and w = rnd(mean_h
+// alpha) are the forward's. Then the g rows of the batch are gathered U at
+// a time (row_walk.cuh's load_rows over the column chunk, x[c]'s chunk in
+// registers): each adds rnd(g[r] w) to dxv's f32 sums in slot order and
+// its partial of da = g[r] . x[c], finished by a warp sum per slot (lane j
+// keeps slot j's). Last ds_h = alpha_h (da / H - rho[r, h]) goes to the
+// warp's shared batch [BATCH, h], and lanes over A sum ds_h q[r]_h over
+// the batch's slots in order into dk.
+//
+// norm_kernel gives a group of NM_LANES lanes each work item: the rows of
+// at most NM_CUT slots, then the segments of NM_SEG slots of the longer
+// rows (their per-head partial sums [nseg, h] added in order by
+// seg_combine). The group walks the item's slots a batch of NM_LANES at a
+// time, one slot a lane, each score from q[r] and K[col] in registers
+// (gx_att::score_head, 16-byte loads where kvec), e = weight(s - g)
+// written unrounded, and per head the sum of e by a butterfly of width
+// NM_LANES. A row of at most 2 NM_LANES slots sums as the first body's
+// warp a row did (lane l: e_l + e_(l + NM_LANES), its butterfly's step at
+// NM_LANES, then the same steps below it; its lanes past the row added
+// zeros), so den is that kernel's bit for bit there. Fewer lanes a row
+// measured faster (more rows in flight, fewer idle lanes: PERF.md).
+
+// blocks an SM the registers allow (64 a thread at 4)
+constexpr int B3_MIN_BLOCKS = 4;
+constexpr int B3_WORDS = 12;   // 32-bit words of g rows in flight a lane
+
+// one B3 item: the slots [sb, sb + cnt) (cnt <= BATCH) of column c, their
+// dk into dk_out [a] and dxv into dxv_out [d] (the column's rows, or a
+// segment's partials); ws the warp's [BATCH, h] floats. KV: the scores by
+// 16-byte loads (the host's kvec)
+template <typename T, int VB, bool KV>
+__device__ __forceinline__ void bwd_cols_batch(
+    const int* __restrict__ idx, const T* __restrict__ q,
+    const T* __restrict__ g, const T* __restrict__ x,
+    const float* __restrict__ kt, const float* __restrict__ shift,
+    const float* __restrict__ denom, const float* __restrict__ rho, int c,
+    int sb, int cnt, float* __restrict__ dk_out, float* __restrict__ dxv_out,
+    int d, int a, int h, float* ws, int lane) {
+  using V = Vec<T, VB>;
+  // g rows in flight: B3_WORDS words a lane
+  constexpr int U = B3_WORDS / (VPL * V::W) > 0 ? B3_WORDS / (VPL * V::W) : 1;
+  const int dkh = a / h;
+  const float fh = (float)h;
+  const int nvec = d / V::E;
+  const int r = lane < cnt ? idx[sb + lane] : 0;
+  // lane j's slot: alpha per head (into ws) and w
+  float w = 0.f;
+  if (lane < cnt) {
+    const T* qr = q + (size_t)r * a;
+    const float* kc = kt + (size_t)c * a;
+    float wsum = 0.f;
+    for (int hh = 0; hh < h; ++hh) {
+      const float s = gx_att::score_head<T, true>(
+          qr + hh * dkh, kc + hh * dkh, dkh, 0, 0.f, 0.f, KV ? 1 : 0);
+      const float dn = __ldg(denom + (size_t)r * h + hh);
+      const float al =
+          expf(s - __ldg(shift + (size_t)r * h + hh)) / (dn > 0.f ? dn : 1.f);
+      ws[lane * h + hh] = al;
+      wsum += al;
+    }
+    w = rnd<T>(wsum / fh);
+  }
+  // the gather: dxv's sums and lane j's da
+  float da = 0.f;
+  const T* xc = x + (size_t)c * d;
+  for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
+    float xs[VPL][V::E];
+#pragma unroll
+    for (int v = 0; v < VPL; ++v) {
+      const int vi = v0 + v * 32 + lane;
+      uint32_t raw[V::W];
+      if (vi < nvec) {
+        gx_rows::ldv<VB>(xc + (size_t)vi * V::E, raw);
+        gx_rows::unpack<T, VB>(raw, xs[v]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V::E; ++k) xs[v][k] = 0.f;
+      }
+    }
+    float acc[VPL][V::E];
+    clear(acc);
+    // U gathered rows from e0: dxv's products, each row's da partial
+    auto rows = [&](uint32_t (&raw)[U][VPL][V::W], int e0) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float wt = __shfl_sync(FULL, w, (e0 + u) & 31);
+        if (e0 + u < cnt) {   // the same for the whole warp
+          float p = 0.f;
+#pragma unroll
+          for (int v = 0; v < VPL; ++v) {
+            if (v0 + v * 32 + lane < nvec) {
+              float pr[V::E], f[V::E];
+              products<T, VB>(raw[u][v], wt, pr);
+              gx_rows::unpack<T, VB>(raw[u][v], f);
+#pragma unroll
+              for (int k = 0; k < V::E; ++k) {
+                acc[v][k] += pr[k];
+                p += f[k] * xs[v][k];
+              }
+            }
+          }
+          p = warp_sum(p);
+          if (lane == e0 + u) da += p;
+        }
+      }
+    };
+    for (int e0 = 0; e0 < cnt; e0 += U) {
+      uint32_t raw[U][VPL][V::W];
+      load_rows<T, VB, VPL, U>(raw, g, r, e0, cnt, d, v0, nvec, lane);
+      rows(raw, e0);
+    }
+    store_chunk<T, VB, VPL>(acc, dxv_out, 0, nullptr, 0, v0, nvec, lane);
+  }
+  // ds per head into ws, then dk: lanes over A, the slots in order
+  if (lane < cnt)
+    for (int hh = 0; hh < h; ++hh)
+      ws[lane * h + hh] *= da / fh - __ldg(rho + (size_t)r * h + hh);
+  __syncwarp();
+  constexpr int UQ = 8;   // q rows in flight
+  for (int i0 = 0; i0 < a; i0 += 32) {
+    const int i = i0 + lane;
+    const float* wi = ws + (i < a ? i / dkh : 0);
+    float s = 0.f;
+    for (int j0 = 0; j0 < cnt; j0 += UQ) {
+      float qv[UQ];
+#pragma unroll
+      for (int u = 0; u < UQ; ++u) {
+        const int rj = __shfl_sync(FULL, r, (j0 + u) & 31);
+        qv[u] = j0 + u < cnt && i < a ? to_f(q[(size_t)rj * a + i]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < UQ; ++u)
+        if (j0 + u < cnt) s += wi[(j0 + u) * h] * qv[u];
+    }
+    if (i < a) dk_out[i] = s;
+  }
+}
+
+// B3's items, a warp each: the columns of at most BATCH slots (item c <
+// n; a longer column's item returns), then the segments of BATCH slots of
+// the longer ones (item n + j) into the partials pk and pv
+template <typename T, int VB, bool KV>
+__global__ void __launch_bounds__(WPB * 32, B3_MIN_BLOCKS)
+bwd_cols_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+                const T* __restrict__ q, const T* __restrict__ g,
+                const T* __restrict__ x, const float* __restrict__ kt,
+                const float* __restrict__ shift,
+                const float* __restrict__ denom,
+                const float* __restrict__ rho, const int* __restrict__ plan,
+                float* __restrict__ pk, float* __restrict__ pv,
+                float* __restrict__ dk, float* __restrict__ dxv, int n,
+                int d, int a, int h, int nlong, int nseg) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int item = blockIdx.x * (blockDim.x >> 5) + w;
+  float* ws = smem + (size_t)w * BATCH * h;
+  if (item < n) {
+    const int beg = ptr[item], len = ptr[item + 1] - beg;
+    if (len > BATCH) return;   // the segments'
+    bwd_cols_batch<T, VB, KV>(idx, q, g, x, kt, shift, denom, rho, item, beg,
+                              len, dk + (size_t)item * a,
+                              dxv + (size_t)item * d, d, a, h, ws, lane);
+  } else if (item < n + nseg) {
+    const int j = item - n;
+    int c, sb, se, i;
+    segment(ptr, plan, nlong, BATCH, j, c, sb, se, i);
+    bwd_cols_batch<T, VB, KV>(idx, q, g, x, kt, shift, denom, rho, c, sb,
+                              se - sb, pk + (size_t)j * a, pv + (size_t)j * d,
+                              d, a, h, ws, lane);
+  }
+}
+
+constexpr int NM_LANES = 8;    // lanes a work item (four a warp)
+constexpr int NM_CUT = 32;     // rows of more slots go to segments; the
+                               // host's fused_attention.NORM_CUT
+constexpr int NM_SEG = 32;     // their segments' slots; NORM_SEG
+constexpr int NM_MIN_BLOCKS = 4;   // blocks an SM the registers allow
+
+// one norm item: the slots [sb, se) of row r walked by a group of G lanes
+// (lane l holding slot sb + l of each batch), e into eo, and per head the
+// sum of the item's e into dst [h] (when dst is given). KV: scaled_dot's
+// scores by 16-byte loads (the host's kvec); else any score type
+template <typename T, bool SQP, bool KV, int G>
+__device__ __forceinline__ void norm_range(
+    const int* __restrict__ idx, const T* __restrict__ q,
+    const float* __restrict__ kt, const float* __restrict__ ew, float g,
+    float* __restrict__ eo, int r, int sb, int se, float* __restrict__ dst,
+    int a, int h, int att_type, float ov2, float inv2l2, int l) {
+  const int dk = a / h;
+  const T* qr = q + (size_t)r * a;
+  // the first batch's column and weight, read once for every head
+  int c1 = 0;
+  float w1 = 1.f;
+  if (sb + l < se) {
+    c1 = idx[sb + l];
+    if (ew != nullptr) w1 = ew[sb + l];
+  }
+  for (int hh = 0; hh < h; ++hh) {
+    float part = 0.f;
+    for (int b0 = sb; b0 < se; b0 += G) {
+      const int e = b0 + l;
+      float v = 0.f;
+      if (e < se) {
+        int c = c1;
+        float cw = w1;
+        if (b0 != sb) {
+          c = idx[e];
+          if (ew != nullptr) cw = ew[e];
+        }
+        const float* kh = kt + (size_t)c * a + hh * dk;
+        float s = KV ? gx_att::score_head<T, true>(qr + hh * dk, kh, dk, 0,
+                                                   0.f, 0.f, 1)
+                     : gx_att::score_head<T, true>(qr + hh * dk, kh, dk,
+                                                   att_type, ov2, inv2l2, 0);
+        if (ew != nullptr) s *= cw;
+        v = weight<SQP>(s - g);
+        eo[(size_t)e * h + hh] = v;
+      }
+      part += v;
+    }
+    part = gx_att::group_sum<G>(part);
+    if (dst != nullptr && l == 0) dst[hh] = part;
+  }
+}
+
+// K1 + K2 with one shift g for every row: the rows of at most NM_CUT slots
+// (item r < n; a longer row's item walks nothing), then the segments of
+// NM_SEG slots of the longer ones (item n + j) into part [nseg, h]
+template <typename T, bool SQP, bool KV>
+__global__ void __launch_bounds__(WPB * 32, NM_MIN_BLOCKS)
+norm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+            const T* __restrict__ q, const float* __restrict__ kt,
+            const float* __restrict__ ew, const float* __restrict__ gshift,
+            const int* __restrict__ plan, float* __restrict__ part,
+            float* __restrict__ eo, float* __restrict__ den, int n, int a,
+            int h, int att_type, float ov2, float inv2l2, int nlong,
+            int nseg) {
+  constexpr int G = NM_LANES;
+  const int lane = threadIdx.x & 31, l = lane & (G - 1);
+  const int first = (blockIdx.x * WPB + (threadIdx.x >> 5)) * (32 / G);
+  if (first >= n + nseg) return;   // the whole warp
+  const int item = first + lane / G;
+  int r = 0, sb = 0, se = 0;
+  float* dst = nullptr;
+  if (item < n) {
+    r = item;
+    sb = ptr[r];
+    se = ptr[r + 1];
+    if (se - sb > NM_CUT) se = sb;   // the segments'
+    else dst = den + (size_t)r * h;
+  } else if (item < n + nseg) {
+    int i;
+    segment(ptr, plan, nlong, NM_SEG, item - n, r, sb, se, i);
+    dst = part + (size_t)(item - n) * h;
+  }
+  norm_range<T, SQP, KV, G>(idx, q, kt, ew, __ldg(gshift), eo, r, sb, se, dst,
+                            a, h, att_type, ov2, inv2l2, l);
+}
+
 // attspmm's weight of edge e (column col, row r): rnd(mean_h e / (den or
 // 1)), den at the row or at the edge's column
 template <typename T, bool PERCOL>
@@ -1364,38 +1538,6 @@ cudaError_t run_bwd_rows(const void* ptr, const void* idx, const void* sc,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t run_bwd_cols(const void* ptr, const void* idx, const void* q,
-                         const void* g, const void* x, const void* kt,
-                         const void* shift, const void* denom, const void* rho,
-                         void* dk, void* dxv, int n, int d, int a, int h,
-                         cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)WPB * (2 * d + 3 * a + h);
-  cudaError_t err = allow_smem(bwd_cols_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  bwd_cols_kernel<T><<<(n + WPB - 1) / WPB, WPB * 32, smem, s>>>(
-      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)g,
-      (const T*)x, (const float*)kt, (const float*)shift,
-      (const float*)denom, (const float*)rho, (float*)dk, (float*)dxv, n, d,
-      a, h);
-  return cudaGetLastError();
-}
-
-template <typename T, bool SQP>
-cudaError_t run_norm(const void* ptr, const void* idx, const void* q,
-                     const void* kt, const void* ew, const void* gshift,
-                     void* eo, void* den, int n, int a, int h, int att_type,
-                     float ov2, float inv2l2, cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)WPB * a;
-  cudaError_t err = allow_smem(norm_kernel<T, SQP>, smem);
-  if (err != cudaSuccess) return err;
-  norm_kernel<T, SQP><<<(n + WPB - 1) / WPB, WPB * 32, smem, s>>>(
-      (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
-      (const float*)ew, (const float*)gshift, (float*)eo, (float*)den, n, a,
-      h, att_type, ov2, inv2l2);
-  return cudaGetLastError();
-}
-
 // T and VB (bytes per gathered load) of a walk launch: float with 4 or 8,
 // bfloat16 with 2, 4 or 8; f(T*, integral_constant<VB>)
 template <typename F>
@@ -1424,6 +1566,52 @@ int resident_blocks(K kernel, int threads, size_t smem) {
       per_sm < 1)
     per_sm = 1;
   return per_sm * sm_count();
+}
+
+template <typename T, int VB, bool KV>
+cudaError_t run_bwd_cols(const void* ptr, const void* idx, const void* q,
+                         const void* g, const void* x, const void* kt,
+                         const void* shift, const void* denom, const void* rho,
+                         const void* plan, void* pk, void* pv, void* dk,
+                         void* dxv, int n, int d, int a, int h, int wpb,
+                         int nlong, int nseg, cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)wpb * BATCH * h;
+  cudaError_t err = allow_smem(bwd_cols_kernel<T, VB, KV>, smem);
+  if (err != cudaSuccess) return err;
+  const int items = n + nseg;
+  bwd_cols_kernel<T, VB, KV><<<(items + wpb - 1) / wpb, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)g,
+      (const T*)x, (const float*)kt, (const float*)shift,
+      (const float*)denom, (const float*)rho, (const int*)plan, (float*)pk,
+      (float*)pv, (float*)dk, (float*)dxv, n, d, a, h, nlong, nseg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nseg == 0) return err;
+  const int grid = (nlong + WPB - 1) / WPB;
+  seg_combine<<<grid, WPB * 32, 0, s>>>((const int*)plan, (const float*)pk,
+                                        nullptr, dk, 0, nlong, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  seg_combine<<<grid, WPB * 32, 0, s>>>((const int*)plan, (const float*)pv,
+                                        nullptr, dxv, 0, nlong, d);
+  return cudaGetLastError();
+}
+
+template <typename T, bool SQP, bool KV>
+cudaError_t run_norm(const void* ptr, const void* idx, const void* q,
+                     const void* kt, const void* ew, const void* gshift,
+                     const void* plan, void* part, void* eo, void* den, int n,
+                     int a, int h, int att_type, float ov2, float inv2l2,
+                     int nlong, int nseg, cudaStream_t s) {
+  const int items = n + nseg, per_block = WPB * (32 / NM_LANES);
+  norm_kernel<T, SQP, KV><<<(items + per_block - 1) / per_block, WPB * 32,
+                            0, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
+      (const float*)ew, (const float*)gshift, (const int*)plan, (float*)part,
+      (float*)eo, (float*)den, n, a, h, att_type, ov2, inv2l2, nlong, nseg);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nseg == 0) return err;
+  seg_combine<<<(nlong + WPB - 1) / WPB, WPB * 32, 0, s>>>(
+      (const int*)plan, (const float*)part, nullptr, den, 0, nlong, h);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -1638,50 +1826,65 @@ int gx_attention_bwd_rows(const void* ptr, const void* idx, const void* sc,
 
 // The column-side backward over the CSC layout (ptr per column, idx the
 // rows). q, g and x in one dtype; kt [n, a] float32; shift, denom and rho
-// [n, h] float32 (per row); dk [n, a] and dxv [n, d] float32 out.
+// [n, h] float32 (per row); dk [n, a] and dxv [n, d] float32 out. vec_bytes:
+// the bytes of one g and x load (as gx_flash_attention's, for both); kvec:
+// q's and K's head slices by 16-byte loads (dk % 4 == 0 and the slices on
+// 16 bytes); wpb warps per block, each with BATCH * h floats of shared
+// memory. Columns of more than BATCH slots go in segments of BATCH: plan
+// (the long columns, their segment offsets, each segment's column; the
+// host's row_split_plan), pk [nseg, a] and pv [nseg, d] float32 scratch.
 int gx_attention_bwd_cols(const void* ptr, const void* idx, const void* q,
                           const void* g, const void* x, const void* kt,
                           const void* shift, const void* denom,
-                          const void* rho, void* dk, void* dxv, int n, int d,
-                          int a, int h, int dtype, void* stream) {
+                          const void* rho, const void* plan, void* pk,
+                          void* pv, void* dk, void* dxv, int n, int d, int a,
+                          int h, int dtype, int vec_bytes, int kvec, int wpb,
+                          int nlong, int nseg, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (wpb < 1 || wpb > WPB) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)run_bwd_cols<float>(ptr, idx, q, g, x, kt, shift, denom, rho,
-                                    dk, dxv, n, d, a, h, s);
-  if (dtype == 1)
-    return (int)run_bwd_cols<__nv_bfloat16>(ptr, idx, q, g, x, kt, shift,
-                                            denom, rho, dk, dxv, n, d, a, h,
-                                            s);
-  return (int)cudaErrorInvalidValue;
+  return (int)by_width(dtype, vec_bytes, [&](auto t, auto vb) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    constexpr int VB = decltype(vb)::value;
+    return kvec ? run_bwd_cols<T, VB, true>(ptr, idx, q, g, x, kt, shift,
+                                            denom, rho, plan, pk, pv, dk, dxv,
+                                            n, d, a, h, wpb, nlong, nseg, s)
+                : run_bwd_cols<T, VB, false>(ptr, idx, q, g, x, kt, shift,
+                                             denom, rho, plan, pk, pv, dk,
+                                             dxv, n, d, a, h, wpb, nlong,
+                                             nseg, s);
+  });
 }
 
 // K1 + K2 with one shift for every row. q [n, a] in the state dtype
 // (pre-scaled for scaled_dot); kt [n, a] float32; ew [E] float32 or null;
 // gshift [1] float32 (the shift, from gx_attention_gmax); eo [E, h] float32
-// out (e unrounded); den [n, h] float32 out (the row sums of e).
+// out (e unrounded); den [n, h] float32 out (the row sums of e). kvec as
+// gx_attention_bwd_cols's (scaled_dot only). Rows of more than NM_CUT slots
+// go in segments of NM_SEG: plan as gx_attention_bwd_cols's, part [nseg, h]
+// float32 scratch.
 int gx_attention_norm(const void* ptr, const void* idx, const void* q,
                       const void* kt, const void* ew, const void* gshift,
-                      void* eo, void* den, int n, int a, int h, int att_type,
-                      int reweight, int square_plus, float ov2, float inv2l2,
-                      int dtype, void* stream) {
+                      const void* plan, void* part, void* eo, void* den,
+                      int n, int a, int h, int att_type, int reweight,
+                      int square_plus, float ov2, float inv2l2, int dtype,
+                      int kvec, int nlong, int nseg, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const void* ewp = reweight ? ew : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
+#define GX_NORM(T, SQP, KV)                                                  \
+  run_norm<T, SQP, KV>(ptr, idx, q, kt, ewp, gshift, plan, part, eo, den, n, \
+                       a, h, att_type, ov2, inv2l2, nlong, nseg, s)
+#define GX_NORM_KV(T, SQP) \
+  (kvec ? GX_NORM(T, SQP, true) : GX_NORM(T, SQP, false))
   if (dtype == 0)
-    return square_plus
-        ? (int)run_norm<float, true>(ptr, idx, q, kt, ewp, gshift, eo, den, n,
-                                     a, h, att_type, ov2, inv2l2, s)
-        : (int)run_norm<float, false>(ptr, idx, q, kt, ewp, gshift, eo, den,
-                                      n, a, h, att_type, ov2, inv2l2, s);
+    return (int)(square_plus ? GX_NORM_KV(float, true)
+                             : GX_NORM_KV(float, false));
   if (dtype == 1)
-    return square_plus
-        ? (int)run_norm<__nv_bfloat16, true>(ptr, idx, q, kt, ewp, gshift, eo,
-                                             den, n, a, h, att_type, ov2,
-                                             inv2l2, s)
-        : (int)run_norm<__nv_bfloat16, false>(ptr, idx, q, kt, ewp, gshift,
-                                              eo, den, n, a, h, att_type, ov2,
-                                              inv2l2, s);
+    return (int)(square_plus ? GX_NORM_KV(__nv_bfloat16, true)
+                             : GX_NORM_KV(__nv_bfloat16, false));
+#undef GX_NORM_KV
+#undef GX_NORM
   return (int)cudaErrorInvalidValue;
 }
 

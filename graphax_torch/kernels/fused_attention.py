@@ -29,7 +29,9 @@ per warp, loaded :func:`gather_width` bytes at a time. Long rows are
 walked in segments of ``ROW_SPLIT`` edges by a warp each and summed in
 segment order (:func:`row_split_plan`), so a hub row does not set the
 launch's length: flash's rows of more than one batch, attspmm's of more
-than ``ROW_SPLIT`` edges.
+than ``ROW_SPLIT`` edges. ``attention_bwd_cols`` walks a CSC column so
+(the g rows gathered, longer columns in segments of one batch), and
+``attention_norm`` a row with a group of 8 lanes.
 
 Softmax shifts by each row's final max: graphax's online recurrence over
 its 128-row tiles gives the same values to f32 rounding, and bf16 ``e``
@@ -70,6 +72,8 @@ _WPB = 8            # warps per block in every kernel of fused_attention.cu
 _BATCH = 32         # edges a warp of the row walk holds at once
 ROW_SPLIT = 128     # the row walk's segment length: longer rows go in
                     # segments of it
+NORM_CUT = 32       # attention_norm's rows of more slots go to segments of
+NORM_SEG = 32       # NORM_SEG slots (the source's NM_CUT and NM_SEG)
 _SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into
 _SMEM_STATIC = 49_152     # without opting in (the flash kernel's q, shifts)
 
@@ -347,6 +351,13 @@ def flash_warps(a: int, heads: int) -> int:
     return min(_WPB, _SMEM_LIMIT // (4 * (a + 2 * heads + _BATCH * heads)))
 
 
+def bwd_cols_warps(heads: int) -> int:
+    """Warps per block of the column backward: up to 8, each with a
+    batch's 32 x H weights in shared memory within one block's limit; 0
+    where not even one fits."""
+    return min(_WPB, _SMEM_LIMIT // (4 * _BATCH * heads))
+
+
 def row_split_plan(ptr: np.ndarray, longer_than: int, seg: int) -> tuple:
     """The segments of the rows of more than ``longer_than`` edges, as
     the kernels read them: ``(plan, nlong, nseg)`` with
@@ -491,7 +502,9 @@ def attention_norm(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
     den)`` as the plain version. ``q [N, A]`` in the state dtype
     (pre-scaled for scaled_dot), ``kt [N, A]`` f32, ``edge_w`` f32 per slot
     of ``layout`` or None, ``shift`` a 0-d f32 tensor (from
-    :func:`attention_gmax`)."""
+    :func:`attention_gmax`). The kernel gives each row a group of 8 lanes,
+    one slot a lane; rows of more than ``NORM_CUT`` slots go in segments of
+    ``NORM_SEG`` (:func:`row_split_plan`), their sums added in order."""
     _check_scores("attention_norm", q, kt, heads, att_type)
     _no_grad("attention_norm", q, kt, edge_w)
     if not q.is_cuda:
@@ -506,13 +519,17 @@ def attention_norm(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
     e = torch.empty((layout.num_slots, heads), dtype=torch.float32,
                     device=q.device)
     den = torch.empty((n, heads), dtype=torch.float32, device=q.device)
+    plan, nlong, nseg = _row_plan(layout, NORM_CUT, NORM_SEG)
+    part = torch.empty((nseg, heads), dtype=torch.float32, device=q.device)
     lib = _build.library("fused_attention")
     err = lib.gx_attention_norm(
         layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
         kt.data_ptr(), edge_w.data_ptr() if edge_w is not None else None,
-        shift.data_ptr(), e.data_ptr(), den.data_ptr(), n, q.shape[1], heads,
-        ATT_TYPES[att_type], int(edge_w is not None), int(square_plus),
-        float(ov2), float(inv2l2), _DTYPES[q.dtype], _build.stream_ptr(q))
+        shift.data_ptr(), plan.data_ptr(), part.data_ptr(), e.data_ptr(),
+        den.data_ptr(), n, q.shape[1], heads, ATT_TYPES[att_type],
+        int(edge_w is not None), int(square_plus), float(ov2), float(inv2l2),
+        _DTYPES[q.dtype], score_vec(q, kt, heads, att_type), nlong, nseg,
+        _build.stream_ptr(q))
     _build.check(err, "attention_norm")
     _build.LAUNCHES["attention_norm"] += 1
     return e, den
@@ -823,7 +840,10 @@ def attention_bwd_cols(layout: Layout, q: torch.Tensor, g: torch.Tensor,
     """graphax's B3 (`_make_bwd3_kernel` :727) over the CSC ``layout``:
     ``(dk, dxv)`` as the plain version. ``q`` (pre-scaled), ``g`` and ``x``
     in one dtype; ``kt`` [N, A] f32; ``shift``, ``denom``, ``rho`` the
-    [N, H] per-row tables of the forward and :func:`attention_bwd_rows`."""
+    [N, H] per-row tables of the forward and :func:`attention_bwd_rows`.
+    The kernel walks a column's slots as the row walk does, a batch of 32,
+    one a lane; longer columns go in segments of 32
+    (:func:`row_split_plan`), their f32 partials added in order."""
     _no_grad("attention_bwd_cols", q, g, x, kt)
     if not x.is_cuda:
         return attention_bwd_cols_plain(layout, q, g, x, kt, shift, denom,
@@ -836,14 +856,26 @@ def attention_bwd_cols(layout: Layout, q: torch.Tensor, g: torch.Tensor,
         raise ValueError("attention_bwd_cols: q [N, A] and g [N, D] must "
                          "share x's dtype")
     _check_operands("attention_bwd_cols", x, q, g)
+    wpb = bwd_cols_warps(heads)
+    if wpb < 1:
+        raise ValueError(f"attention_bwd_cols: H={heads} exceeds one "
+                         "block's shared memory")
+    a = kt.shape[1]
+    # columns of more than one batch of slots are walked in segments of one
+    plan, nlong, nseg = _row_plan(layout, _BATCH, _BATCH)
+    pk = torch.empty((nseg, a), dtype=torch.float32, device=x.device)
+    pv = torch.empty((nseg, d), dtype=torch.float32, device=x.device)
     dk = torch.empty_like(kt)
     dxv = torch.empty((n, d), dtype=torch.float32, device=x.device)
     lib = _build.library("fused_attention")
     err = lib.gx_attention_bwd_cols(
         layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
         g.data_ptr(), x.data_ptr(), kt.data_ptr(), shift.data_ptr(),
-        denom.data_ptr(), rho.data_ptr(), dk.data_ptr(), dxv.data_ptr(), n, d,
-        kt.shape[1], heads, _DTYPES[x.dtype], _build.stream_ptr(x))
+        denom.data_ptr(), rho.data_ptr(), plan.data_ptr(), pk.data_ptr(),
+        pv.data_ptr(), dk.data_ptr(), dxv.data_ptr(), n, d, a, heads,
+        _DTYPES[x.dtype], min(gather_width(g), gather_width(x)),
+        score_vec(q, kt, heads, "scaled_dot"), wpb, nlong, nseg,
+        _build.stream_ptr(x))
     _build.check(err, "attention_bwd_cols")
     _build.LAUNCHES["attention_bwd_cols"] += 1
     return dk, dxv

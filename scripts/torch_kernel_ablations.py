@@ -3,7 +3,7 @@ again from this checkout's source with parts of its loop switched off (or
 a compile-time constant changed), and timed beside the intact kernel at
 the ogbn-arxiv preset's shapes.
 
-``--only winatt_gmax`` (the default runs both groups):
+``--only winatt_gmax`` (the default runs every group):
 
 - ``winatt_kernel`` (K5) on path A's inputs (the windowed GRAND-nl model's
   own q, k and x, r0 and d_res from the residual; bf16): intact; without
@@ -24,6 +24,27 @@ the ogbn-arxiv preset's shapes.
   loads; blocks of 128 and 512 threads (``GM_THREADS``, 256 intact);
   the grid one pair a thread instead of capped at the resident blocks;
   no register cap, or one of 8 blocks an SM (``GM_MIN_BLOCKS``, 4
+  intact).
+
+``--only bwd_cols_norm``: the column backward (B3) and attention_norm,
+bf16:
+
+- ``bwd_cols_kernel`` on the CSR GRAND-nl model's operands (its encoded
+  state, q, the K table, the training forward's tables and rho, a
+  cotangent from a seed) over the arxiv CSC: intact; without the g
+  gathers; without the scores (alpha from a score of 0); without the dk
+  sums; without the dk and dxv stores; with 6, 9 or 24 words of g rows
+  in flight a lane (``B3_WORDS``, 12 intact: 2, 3 and 8 rows at the bf16
+  arxiv width against 4); with 3 or 5 blocks an SM (``B3_MIN_BLOCKS``, 4
+  intact: the register cap); with 4 q rows in flight in the dk sums
+  (``UQ``, 8 intact); and intact on the transposed
+  ``chip_smoke.hub_graph`` (hub columns in segments).
+- ``norm_kernel`` on the windowed residual (path A's operands, r0) and
+  the whole arxiv CSR (the CSR model's): intact; without the score loads;
+  without the e stores; without both; at 16 and 32 lanes a row
+  (``NM_LANES``, 8 intact); with the cutover and segment length at 16
+  and 64 slots (``NM_CUT`` and ``NM_SEG``, 32 intact; the host's plan
+  made to match); with 3 or 5 blocks an SM (``NM_MIN_BLOCKS``, 4
   intact).
 
 ``--only kproj_slab``: the CUDA-core K projection and bf16 win_bwd_slab:
@@ -47,7 +68,7 @@ bits, and called through the same C interface as the port. One JSON
 line per measurement (device ms as chip_smoke's ``time_ms`` takes them),
 then the card's nvidia-smi line. Run from the root of the repo on the
 card: ``python3 scripts/torch_kernel_ablations.py [--only
-winatt_gmax|kproj_slab]``.
+winatt_gmax|kproj_slab|bwd_cols_norm]``.
 """
 
 import ctypes
@@ -113,6 +134,28 @@ GMAX = ("fused_attention", "GMAX_OFF", [
      "  if (!(GMAX_OFF & 4) && grid > resident) grid = resident;"),
 ], ("attention_score.cuh",))
 
+B3 = ("fused_attention", "B3_OFF", [
+    ("      load_rows<T, VB, VPL, U>(raw, g, r, e0, cnt, d, v0, nvec, lane);",
+     "      if (!(B3_OFF & 1)) load_rows<T, VB, VPL, U>(raw, g, r, e0, cnt, "
+     "d, v0, nvec, lane);"),
+    ("      const float s = gx_att::score_head<T, true>(",
+     "      const float s = (B3_OFF & 2) ? 0.f : gx_att::score_head<T, true>("),
+    ("    for (int j0 = 0; j0 < cnt; j0 += UQ) {",
+     "    for (int j0 = 0; j0 < (B3_OFF & 4 ? 0 : cnt); j0 += UQ) {"),
+    ("    if (i < a) dk_out[i] = s;",
+     "    if (!(B3_OFF & 8) && i < a) dk_out[i] = s;"),
+    ("    store_chunk<T, VB, VPL>(acc, dxv_out, 0, nullptr, 0, v0, nvec, "
+     "lane);",
+     "    if (!(B3_OFF & 8)) store_chunk<T, VB, VPL>(acc, dxv_out, 0, "
+     "nullptr, 0, v0, nvec, lane);"),
+], ())
+NORM = ("fused_attention", "NORM_OFF", [
+    ("        float s = KV ? gx_att::score_head<T, true>(",
+     "        float s = (NORM_OFF & 1) ? 0.f : KV ? gx_att::score_head<T, "
+     "true>("),
+    ("        eo[(size_t)e * h + hh] = v;",
+     "        if (!(NORM_OFF & 2)) eo[(size_t)e * h + hh] = v;"),
+], ())
 
 def const(name: str, old: int, new: int) -> tuple:
     """The substitution that sets the source's ``constexpr int name``
@@ -123,8 +166,9 @@ def const(name: str, old: int, new: int) -> tuple:
 # each case: the bits of the parts switched off (kproj: 1 the products, 2
 # the staging; slab: 1 the MMAs, 2 the blocks' staging, 4 g's; winatt: 1
 # the x gathers, 2 the score loads, 4 the output stores; gmax: 1 the
-# slot-to-row reads, 2 the K loads, 4 the grid's cap), or the bits and the
-# constants substituted
+# slot-to-row reads, 2 the K loads, 4 the grid's cap; B3: 1 the g
+# gathers, 2 the scores, 4 the dk sums, 8 the stores; norm: 1 the score
+# loads, 2 the e stores), or the bits and the constants substituted
 KPROJ_CASES = {"intact": 0, "no_fma": 1, "no_staging": 2}
 SLAB_CASES = {"intact": 0, "no_mma": 1, "no_block_staging": 2,
               "no_g_staging": 4, "barriers_and_stores": 7}
@@ -144,6 +188,23 @@ GMAX_CASES = {"intact": 0, "no_seg": 1, "no_k_loads": 2,
               "no_register_cap": (0, [const("GM_MIN_BLOCKS", 4, 1)]),
               "min_blocks_8": (0, [const("GM_MIN_BLOCKS", 4, 8)])}
 
+B3_CASES = {"intact": 0, "no_g_gather": 1, "no_scores": 2,
+            "no_dk_sums": 4, "no_stores": 8,
+            **{f"words_{w}": (0, [const("B3_WORDS", 12, w)])
+               for w in (6, 9, 24)},
+            **{f"min_blocks_{m}": (0, [const("B3_MIN_BLOCKS", 4, m)])
+               for m in (3, 5)},
+            "q_rows_4": (0, [const("UQ", 8, 4)])}
+# the norm's cutover (and segment length) of each case that changes it
+NORM_CUTS = {f"cut_{c}": c for c in (16, 64)}
+NORM_CASES = {"intact": 0, "no_scores": 1, "no_e_stores": 2,
+              "no_scores_or_stores": 3,
+              **{f"lanes_{g}": (0, [const("NM_LANES", 8, g)])
+                 for g in (16, 32)},
+              **{k: (0, [const("NM_CUT", 32, c), const("NM_SEG", 32, c)])
+                 for k, c in NORM_CUTS.items()},
+              **{f"min_blocks_{m}": (0, [const("NM_MIN_BLOCKS", 4, m)])
+                 for m in (3, 5)}}
 
 def substitute(text: str, subs, what: str) -> str:
     """``text`` with each (old, new) of ``subs`` replaced, each ``old``
@@ -306,6 +367,110 @@ def winatt_gmax() -> None:
         print(json.dumps(row), flush=True)
 
 
+def bwd_cols_norm() -> None:
+    """The ``bwd_cols_norm`` group of the module's docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    with ThreadPoolExecutor(2) as ex:
+        b3 = ex.submit(build, B3, B3_CASES)
+        nm = ex.submit(build, NORM, NORM_CASES)
+        b3_libs, nm_libs = b3.result(), nm.result()
+    s = _build.stream_ptr
+    data = get_dataset("ogbn-arxiv")
+    base = dict(block="constant", function="transformer")
+    tr = cs.nl_trainer(best_config("ogbn-arxiv", community_window=0, **base),
+                       data)
+    tr_a = cs.nl_trainer(best_config("ogbn-arxiv", **base), data)
+    g, cfg, att = tr.data.graph, tr.cfg, tr.model.block.func.att
+    heads, bf = cfg.heads, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    with torch.no_grad():
+        tr.model.eval()
+        x = tr.model.encode(tr.data.x, train=False).to(bf).contiguous()
+        n, d = x.shape
+        c = torch.randn(n, d, generator=gen, device="cuda").to(bf)
+        p = fa.prep_inputs(cfg, att, g, x)
+        q = p["q"]
+        kt = fa.attention_kproj(x, p["wk"], p["bk"])
+        a = q.shape[1]
+        _, sc, shift, denom = fa.attention_fwd_res(g.csr, q, x, kt, heads)
+        _, rho = fa.attention_bwd_rows(g.csr, sc, shift, denom, c, x, kt,
+                                       heads)
+        want = fa.attention_bwd_cols_plain(g.csc, q, c, x, kt, shift, denom,
+                                           rho, heads)
+    hub = cs.hub_graph("cuda")
+    for label, lay in (("arxiv CSC", g.csc), ("hub transposed", hub.csr)):
+        plan, nlong, nseg = fa._row_plan(lay, fa._BATCH, fa._BATCH)
+        pk = torch.empty(nseg, a, device="cuda")
+        pv = torch.empty(nseg, d, device="cuda")
+        dk = torch.empty(n, a, device="cuda")
+        dxv = torch.empty(n, d, device="cuda")
+        args = (lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
+                c.data_ptr(), x.data_ptr(), kt.data_ptr(), shift.data_ptr(),
+                denom.data_ptr(), rho.data_ptr(), plan.data_ptr(),
+                pk.data_ptr(), pv.data_ptr(), dk.data_ptr(), dxv.data_ptr(),
+                n, d, a, heads, 1, fa.gather_width(x),
+                fa.score_vec(q, kt, heads, "scaled_dot"),
+                fa.bwd_cols_warps(heads), nlong, nseg, s(x))
+        row = dict(kernel="attention_bwd_cols", dtype="bfloat16",
+                   graph=label, E=lay.num_slots)
+        for case, lib in b3_libs.items():
+            if label != "arxiv CSC" and case != "intact":
+                continue
+            _build.check(lib.gx_attention_bwd_cols(*args), case)
+            torch.cuda.synchronize()
+            if case == "intact" and label == "arxiv CSC":
+                row["intact_max_abs_err"] = max(
+                    float((dk - want[0]).abs().max()),
+                    float((dxv - want[1]).abs().max()))
+            row[case + "_ms"] = cs.time_ms(
+                lambda: lib.gx_attention_bwd_cols(*args))
+        print(json.dumps(row), flush=True)
+    del hub, sc, shift, denom, rho, want
+    # the norm on the windowed residual and the whole CSR
+    with torch.no_grad():
+        tr_a.model.eval()
+        xa = tr_a.model.encode(tr_a.data.x, train=False).to(bf).contiguous()
+        pa = fa.prep_inputs(tr_a.cfg, tr_a.model.block.func.att,
+                            tr_a.data.graph, xa)
+        kta = fa.attention_kproj(xa, pa["wk"], pa["bk"])
+    scal = (cfg.attention_type, heads, 0.0, 0.0)
+    for label, lay, qq, kk in (
+            ("windowed residual", tr_a.data.graph.windows.residual, pa["q"],
+             kta),
+            ("arxiv CSR", g.csr, q, kt)):
+        with torch.no_grad():
+            gs = fa.attention_gmax(lay, qq, kk, None, *scal)
+            want = fa.attention_norm_plain(lay, qq, kk, None, gs, *scal)
+        e = torch.empty(lay.num_slots, heads, device="cuda")
+        den = torch.empty(n, heads, device="cuda")
+        row = dict(kernel="attention_norm", dtype="bfloat16", graph=label,
+                   E=lay.num_slots)
+        for case, lib in nm_libs.items():
+            cut = NORM_CUTS.get(case, fa.NORM_CUT)
+            plan, nlong, nseg = fa._row_plan(lay, cut, cut)
+            part = torch.empty(nseg, heads, device="cuda")
+            args = (lay.ptr.data_ptr(), lay.idx.data_ptr(), qq.data_ptr(),
+                    kk.data_ptr(), None, gs.data_ptr(), plan.data_ptr(),
+                    part.data_ptr(), e.data_ptr(), den.data_ptr(), n, a,
+                    heads, fa.ATT_TYPES[scal[0]], 0, 0, 0.0, 0.0, 1,
+                    fa.score_vec(qq, kk, heads, scal[0]), nlong, nseg, s(x))
+            _build.check(lib.gx_attention_norm(*args), case)
+            torch.cuda.synchronize()
+            if case == "intact":
+                row["intact_max_abs_err"] = max(
+                    float((e - want[0]).abs().max()),
+                    float((den - want[1]).abs().max()))
+            row[case + "_ms"] = cs.time_ms(
+                lambda: lib.gx_attention_norm(*args))
+        print(json.dumps(row), flush=True)
+
+
 def kproj_slab() -> None:
     """The ``kproj_slab`` group of the module's docstring."""
     import torch
@@ -380,7 +545,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("winatt_gmax", "kproj_slab"),
+    ap.add_argument("--only", choices=("winatt_gmax", "kproj_slab",
+                                       "bwd_cols_norm"),
                     default=None, help="one group of ablations")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -396,6 +562,8 @@ def main() -> int:
         winatt_gmax()
     if args.only in (None, "kproj_slab"):
         kproj_slab()
+    if args.only in (None, "bwd_cols_norm"):
+        bwd_cols_norm()
     print(cs.smi_line(), flush=True)
     return 0
 

@@ -3,7 +3,8 @@ or two checkouts of the repo: win_bwd_dense, attention_kproj and win_matmul
 at the ogbn-arxiv preset's, flash_dense at Computers'; the CSR
 flash_attention and attention_attspmm at GRAND-nl's arxiv shapes, on a
 hub graph and on a power-law graph; spmm_csr, the pin, win_bwd_slab; K5
-(winatt) and attention_gmax at path A's shapes.
+(winatt) and attention_gmax at path A's shapes; attention_bwd_cols and
+attention_norm at GRAND-nl's.
 
 For each checkout (``--root``, default this one; ``--parent DIR`` adds a
 second, run in turns parent, this, this, parent, each in its own process):
@@ -103,15 +104,33 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   same kernel with a fresh zeroed state each call; three squareplus (gmax
   once per NFE) and three softmax CSR evaluations per NFE.
 
-With ``--parent``, this checkout's ``winatt`` and ``gmax`` runs also call
-the parent's kernels (built by the parent's ``_build``) on the same
-inputs: whether K5's out and den and gmax's value are equal bit for bit,
-the largest difference, the rows that differ and the shortest of them.
+- (``bwd_cols``) attention_bwd_cols (B3) on the CSR GRAND-nl model's own
+  operands (its encoded state, q, the K table, the training forward's
+  tables and rho from attention_bwd_rows, a cotangent from a seed), bf16
+  and f32: on the arxiv CSC, and on the transposes of
+  ``chip_smoke.hub_graph`` and :func:`pareto_graph` (their hub rows become
+  hub columns), each with its errors against the plain version and their
+  ratios to chip_smoke's tolerances, its bound and all-miss count (g, q
+  and the row tables gathered per slot); then one profiled CSR GRAND-nl
+  train step (its adjoint's device ms, B3's launches and device ms);
+- (``norm``) attention_norm on the windowed residual (path A's pre-scaled
+  q and K table under r0), the arxiv CSR (the column-normalised model's
+  operands, softmax and squareplus) and the hub graph, bf16 and f32, each
+  with its errors, bound and all-miss count (K gathered per slot); path
+  A's and path B's RHS alone (``windowed_attention_ax_fast``,
+  ``colnorm_attention_ax_fast``; device and host ms); three evaluations of
+  each path per NFE.
+
+With ``--parent``, this checkout's ``winatt``, ``gmax``, ``bwd_cols`` and
+``norm`` runs also call the parent's kernels (built by the parent's
+``_build``) on the same inputs: whether K5's out and den, gmax's value,
+B3's dk and dxv and the norm's e and den are equal bit for bit, the
+largest difference, the rows that differ and the shortest of them.
 
 One JSON line per measurement, then the card's nvidia-smi line. Run from
 the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
-DIR] [--only windowed|attention|spmm|pin|kproj|slab|winatt|gmax]``; a
-parent is a
+DIR] [--only windowed|attention|spmm|pin|kproj|slab|winatt|gmax|bwd_cols|
+norm]``; a parent is a
 ``git
 archive`` of another commit unpacked in a directory that ``.gitignore``
 lists.
@@ -200,6 +219,10 @@ def measure(root: str, only=None, against=None) -> None:
         winatt(emit, against)
     if only in (None, "gmax"):
         gmax(emit, against)
+    if only in (None, "bwd_cols"):
+        bwd_cols(emit, against)
+    if only in (None, "norm"):
+        norm(emit, against)
 
 
 def windowed(emit) -> None:
@@ -1237,6 +1260,288 @@ def gmax(emit, parent=None) -> None:
                  gmax_launches=_build.LAUNCHES["attention_gmax"])
 
 
+def profiled_train_step(emit, tr, label, kernels) -> None:
+    """One ``tr.train_step()`` after a warm-up one, under torch.profiler:
+    the host ms, forward and adjoint NFE, the device's busy ms, the
+    adjoint span's device ms, and the launches and device ms of each of
+    ``kernels`` (parts of kernel names)."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tr.train_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    cuda_t = torch.autograd.DeviceType.CUDA
+    busy = adjoint_ms = 0.0
+    by = {k: [0, 0.0] for k in kernels}
+    for ev in prof.events():
+        if ev.device_type != cuda_t:
+            continue
+        ms = ev.time_range.elapsed_us() / 1e3
+        if ev.name == "graphax_torch.adjoint":
+            adjoint_ms += ms
+        elif not ev.name.startswith("graphax_torch."):
+            busy += ms
+            for k in kernels:
+                if k in ev.name:
+                    by[k][0] += 1
+                    by[k][1] += ms
+    emit(path=label, host_ms=host, forward_nfe=tr.fm.get_value(),
+         adjoint_nfe=tr.bm.get_value(), device_busy_ms=busy,
+         adjoint_device_ms=adjoint_ms, kernels=by)
+
+
+def evaluations(emit, tr, label, evals: int = 3) -> None:
+    """``evals`` evaluations of ``tr`` after a warm-up one: NFE, seconds
+    and ms per NFE (host clock around a device sync)."""
+    import time
+
+    import torch
+
+    tr.evaluate()
+    for i in range(evals):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.evaluate()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        emit(path=label, eval=i + 1, nfe=tr.last_eval.nfe, seconds=sec,
+             ms_per_nfe=sec * 1e3 / tr.last_eval.nfe)
+
+
+def differ(got, old, lengths) -> dict:
+    """How ``got`` and the parent's ``old`` (per-node rows) differ: equal
+    bit for bit, the largest difference, the rows that differ and the
+    shortest of them (``lengths``: each row's slots)."""
+    import torch
+
+    rows = (got != old).reshape(got.shape[0], -1).any(1)
+    return dict(equal=bool(torch.equal(got, old)),
+                max_abs_diff=float((got - old).abs().max()),
+                rows_differing=int(rows.sum()),
+                shortest_differing=int(lengths[rows].min())
+                if bool(rows.any()) else None)
+
+
+def bwd_cols(emit, parent=None) -> None:
+    """The ``bwd_cols`` measurements of the module's docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    here = this_chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    data = get_dataset("ogbn-arxiv")
+    tr = cs.nl_trainer(best_config("ogbn-arxiv", community_window=0,
+                                   block="constant", function="transformer"),
+                       data)
+    plib = parent_library(parent, "fused_attention") if parent else None
+    cfg, att, g = tr.cfg, tr.model.block.func.att, tr.data.graph
+    heads = cfg.heads
+    tr.model.eval()
+    with torch.no_grad():
+        x_enc = tr.model.encode(tr.data.x, train=False)
+    n, d = x_enc.shape
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cot = torch.randn(n, d, generator=gen, device="cuda")
+    # (label, the rows' CSR, the columns' CSC): the transposed graphs' CSC
+    # is the graph's CSR, so their hub rows become hub columns
+    hub, par = here.hub_graph("cuda"), pareto_graph("cuda")
+    cases = (("arxiv CSR", g.csr, g.csc), ("hub transposed", hub.csc, hub.csr),
+             ("pareto transposed", par.csc, par.csr))
+    for label, rows, cols in cases[1:]:
+        emit(graph=label, N=cols.num_rows, E=cols.num_slots,
+             columns=here.degree_shares(cols.ptr, (32, 128)))
+    for dt in (torch.bfloat16, torch.float32):
+        name, b = str(dt)[6:], dt.itemsize
+        x = x_enc.to(dt).contiguous()
+        c = cot.to(dt).contiguous()
+        with torch.no_grad():
+            p = fa.prep_inputs(cfg, att, g, x)
+            q = p["q"]
+            kt = fa.attention_kproj(x, p["wk"], p["bk"])
+            a = q.shape[1]
+            for label, rows, cols in cases:
+                _, sc, shift, denom = fa.attention_fwd_res(rows, q, x, kt,
+                                                           heads)
+                _, rho = fa.attention_bwd_rows(rows, sc, shift, denom, c, x,
+                                               kt, heads)
+                del sc
+                args = (cols, q, c, x, kt, shift, denom, rho, heads)
+                fn = lambda: fa.attention_bwd_cols(*args)  # noqa: E731
+                dk, dxv = fn()
+                w_dk, w_dxv = fa.attention_bwd_cols_plain(*args)
+                e = cols.num_slots
+                tabs = 4 * n * heads
+                nbytes = (n * a * b + 2 * n * d * b + 4 * n * a + 3 * tabs
+                          + 4 * e + 4 * (n + 1) + 4 * n * a + 4 * n * d)
+                # g, q and the three tables gathered per slot
+                miss = (nbytes - n * d * b - n * a * b - 3 * tabs
+                        + e * (d * b + a * b + 12 * heads))
+                bms, by = here.bound_ms(nbytes, e * (4.0 * a + 4.0 * heads
+                                                     + 4.0 * d), name)
+                tk, tv = here.TOL_TRAIN, here.tol_rounded(name, c)
+                row = dict(
+                    kernel="attention_bwd_cols", graph=label, dtype=name,
+                    E=e, ms=here.time_ms(fn),
+                    plain_ms=here.time_ms(
+                        lambda: fa.attention_bwd_cols_plain(*args), reps=5),
+                    bound_ms=bms, bound_by=by,
+                    all_miss_ms=miss / here.HBM_BYTES_PER_S * 1e3,
+                    dk_max_abs_err=float((dk - w_dk).abs().max()),
+                    dxv_max_abs_err=float((dxv - w_dxv).abs().max()),
+                    dk_tol_ratio=float(((dk - w_dk).abs() / (
+                        tk[0] + tk[1] * w_dk.abs())).max()),
+                    dxv_tol_ratio=float(((dxv - w_dxv).abs() / (
+                        tv[0] + tv[1] * w_dxv.abs())).max()))
+                if plib is not None:   # the parent's kernel, same inputs
+                    old = (torch.empty_like(dk), torch.empty_like(dxv))
+                    pargs = (cols.ptr.data_ptr(), cols.idx.data_ptr(),
+                             q.data_ptr(), c.data_ptr(), x.data_ptr(),
+                             kt.data_ptr(), shift.data_ptr(),
+                             denom.data_ptr(), rho.data_ptr(),
+                             old[0].data_ptr(), old[1].data_ptr(), n, d, a,
+                             heads, fa._DTYPES[dt], _build.stream_ptr(x))
+                    _build.check(plib.gx_attention_bwd_cols(*pargs),
+                                 "parent attention_bwd_cols")
+                    deg = (cols.ptr[1:] - cols.ptr[:-1]).long()
+                    row.update(
+                        parent_ms=here.time_ms(
+                            lambda: plib.gx_attention_bwd_cols(*pargs)),
+                        parent_dxv=differ(dxv, old[1], deg),
+                        parent_dk=differ(dk, old[0], deg),
+                        parent_dk_tol_ratio=float(((dk - old[0]).abs() / (
+                            tk[0] + tk[1] * old[0].abs())).max()))
+                    del old
+                emit(**row)
+                del shift, denom, rho, dk, dxv, w_dk, w_dxv
+            del x, c, p, q, kt
+        torch.cuda.empty_cache()
+    del hub, par
+    torch.cuda.empty_cache()
+    # the CSR GRAND-nl train step: its adjoint runs B3 once per NFE
+    profiled_train_step(emit, tr, "GRAND-nl train step, CSR",
+                        ("bwd_cols_kernel", "bwd_rows_kernel",
+                         "fwd_res_kernel", "seg_combine"))
+
+
+def norm(emit, parent=None) -> None:
+    """The ``norm`` measurements of the module's docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import attention3 as a3
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels import winatt as wa
+
+    here = this_chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    data = get_dataset("ogbn-arxiv")
+    base = dict(block="constant", function="transformer")
+    tr_a = cs.nl_trainer(best_config("ogbn-arxiv", **base), data)
+    tr_b = cs.nl_trainer(best_config("ogbn-arxiv", community_window=0,
+                                     attention_norm_idx=1, **base), data)
+    plib = parent_library(parent, "fused_attention") if parent else None
+
+    def case(label, lay, q, kt, scal, dt, sqp=False):
+        n, a = q.shape
+        e, heads, b = lay.num_slots, scal[1], dt.itemsize
+        gs = fa.attention_gmax(lay, q, kt, None, *scal)
+        args = (lay, q, kt, None, gs, *scal)
+        fn = lambda: fa.attention_norm(*args, square_plus=sqp)  # noqa
+        ev, den = fn()
+        w_e, w_den = fa.attention_norm_plain(*args, square_plus=sqp)
+        # q, K, CSR, shift in; e, den out; all-miss: K per slot
+        nbytes = (n * a * b + 4 * n * a + 4 * e + 4 * (n + 1) + 4
+                  + 4 * e * heads + 4 * n * heads)
+        bms, by = here.bound_ms(nbytes, e * (2.0 * a + 2.0 * heads),
+                                str(dt)[6:])
+        tol = here.TOL_TRAIN
+        row = dict(kernel="attention_norm", graph=label, dtype=str(dt)[6:],
+                   squareplus=sqp, E=e, ms=here.time_ms(fn),
+                   plain_ms=here.time_ms(lambda: fa.attention_norm_plain(
+                       *args, square_plus=sqp), reps=5),
+                   bound_ms=bms, bound_by=by,
+                   all_miss_ms=(nbytes - 4 * n * a + 4 * e * a)
+                   / here.HBM_BYTES_PER_S * 1e3,
+                   e_max_abs_err=float((ev - w_e).abs().max()),
+                   den_max_abs_err=float((den - w_den).abs().max()),
+                   den_tol_ratio=float(((den - w_den).abs() / (
+                       tol[0] + tol[1] * w_den.abs())).max()))
+        if plib is not None:   # the parent's kernel, same inputs
+            old = (torch.empty_like(ev), torch.empty_like(den))
+            pargs = (lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
+                     kt.data_ptr(), None, gs.data_ptr(), old[0].data_ptr(),
+                     old[1].data_ptr(), n, a, heads, fa.ATT_TYPES[scal[0]],
+                     0, int(sqp), scal[2], scal[3], fa._DTYPES[dt],
+                     _build.stream_ptr(q))
+            _build.check(plib.gx_attention_norm(*pargs),
+                         "parent attention_norm")
+            deg = (lay.ptr[1:] - lay.ptr[:-1]).long()
+            row.update(parent_ms=here.time_ms(
+                lambda: plib.gx_attention_norm(*pargs)),
+                parent_e_equal=bool(torch.equal(ev, old[0])),
+                parent_e_max_abs_diff=float((ev - old[0]).abs().max()),
+                parent_den=differ(den, old[1], deg))
+        emit(**row)
+
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float32):
+            p = path_a_inputs(tr_a, dt)
+            res = p["g"].windows.residual
+            emit(layout="windowed residual", N=res.num_rows, E=res.num_slots,
+                 **here.degree_shares(res.ptr, (16, 32)))
+            case("windowed residual", res, p["q_s"], p["kt"], p["scal"], dt)
+            del p
+            # the CSR model's operands, as chip_smoke takes them
+            cfg, att = tr_b.cfg, tr_b.model.block.func.att
+            tr_b.model.eval()
+            x_enc = tr_b.model.encode(tr_b.data.x, train=False)
+            for label, gr in (("arxiv CSR", tr_b.data.graph),
+                              ("hub", here.hub_graph("cuda"))):
+                if dt == torch.bfloat16:
+                    emit(layout=label, N=gr.num_nodes, E=gr.num_edges,
+                         **here.degree_shares(gr.csr.ptr, (16, 32)))
+                x = x_enc.to(dt).contiguous()
+                ops = fa.prep_inputs(cfg, att, gr, x)
+                kt = fa.attention_kproj(x, ops["wk"], ops["bk"])
+                scal = (cfg.attention_type, cfg.heads, ops["ov2"],
+                        ops["inv2l2"])
+                case(label, gr.csr, ops["q"], kt, scal, dt)
+                if label == "arxiv CSR":
+                    case(label, gr.csr, ops["q"], kt, scal, dt, sqp=True)
+                del gr, x, ops, kt
+            torch.cuda.empty_cache()
+        # the routes that run the norm once per RHS, alone
+        for path, tr, fn in (("A", tr_a, wa.windowed_attention_ax_fast),
+                             ("B", tr_b, a3.colnorm_attention_ax_fast)):
+            g, cfg, att = tr.data.graph, tr.cfg, tr.model.block.func.att
+            tr.model.eval()
+            for dt in (torch.bfloat16, torch.float32):
+                x = tr.model.encode(tr.data.x, train=False).to(dt)
+                x = x.contiguous()
+                emit(route=fn.__name__, path=path, dtype=str(dt)[6:],
+                     ms=here.time_ms(lambda: fn(cfg, att, g, x)),
+                     host_ms=host_ms(lambda: fn(cfg, att, g, x)))
+                del x
+    for path, tr in (("A", tr_a), ("B", tr_b)):
+        evaluations(emit, tr, f"GRAND-nl evaluation, {path}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None,
@@ -1245,11 +1550,12 @@ def main() -> int:
                     help="a second checkout, measured in turns")
     ap.add_argument("--only", choices=("windowed", "attention", "spmm",
                                        "pin", "kproj", "slab", "winatt",
-                                       "gmax"),
+                                       "gmax", "bwd_cols", "norm"),
                     default=None, help="one group of measurements")
     ap.add_argument("--against", default=None,
                     help="a parent checkout whose kernels run beside this "
-                    "one's on the same inputs (winatt, gmax)")
+                    "one's on the same inputs (winatt, gmax, bwd_cols, "
+                    "norm)")
     args = ap.parse_args()
     if args.root is not None:
         measure(os.path.abspath(args.root), args.only,

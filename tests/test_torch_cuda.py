@@ -572,6 +572,76 @@ def test_cuda_norm_keeps_subnormal_weights(cuda):
     assert want.min() > 0 and torch.equal(e.flatten().cpu(), want)
 
 
+def _long_graph(device, n=400, seed=11):
+    """Columns 3 and 4 of 32 and 33 slots (B3's cutover: one batch, two
+    segments) and column 5 of 300 (ten segments); rows 6 and 7 of NORM_CUT
+    and NORM_CUT + 1 slots, row 8 of 500 and row 9 of one slot; the rest
+    random; the last 5 nodes without an edge either way; padding."""
+    rng = np.random.RandomState(seed)
+    free = np.setdiff1d(np.arange(n - 5), np.arange(3, 10))
+    row, col = [rng.choice(free, 2000)], [rng.choice(free, 2000)]
+    for c, cnt in ((3, 32), (4, 33), (5, 300)):
+        row.append(rng.choice(free, cnt))
+        col.append(np.full(cnt, c))
+    for r, cnt in ((6, fa.NORM_CUT), (7, fa.NORM_CUT + 1), (8, 500), (9, 1)):
+        row.append(np.full(cnt, r))
+        col.append(rng.choice(free, cnt))
+    row, col = np.concatenate(row), np.concatenate(col)
+    order = np.lexsort((col, row))
+    w = rng.rand(row.size).astype(np.float32) + 0.1
+    return Graph.from_edges(row[order], col[order], n, edge_weight=w[order],
+                            edge_buffer_size=row.size + 9, device=device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bwd_cols_long_and_empty_columns(cuda, dtype):
+    """B3 on columns of 32 slots (one batch), 33 and 300 (segments of 32,
+    summed in order) and of none, at D = 162, A = 32, H = 2 and at D = 300,
+    A = 12, H = 3, on the kernel forward's residuals and rho: dk at
+    graphax's attention tolerance, dxv at the rounded products' (as
+    `_check_train_kernels`)."""
+    g = _long_graph(cuda)
+    deg = (g.csc.ptr[1:] - g.csc.ptr[:-1]).cpu()
+    assert deg[3:6].tolist() == [32, 33, 300] and not deg[-5:].any()
+    for i, (d, a, heads) in enumerate(((162, 32, 2), (300, 12, 3))):
+        q, x, kt, cot = _train_case(g, dtype, d, a, heads, 20 + i)
+        _, sc, shift, denom = fa.attention_fwd_res(g.csr, q, x, kt, heads)
+        _, rho = fa.attention_bwd_rows(g.csr, sc, shift, denom, cot, x, kt,
+                                       heads)
+        args = (g.csc, q, cot, x, kt, shift, denom, rho, heads)
+        dk, dxv = fa.attention_bwd_cols(*args)
+        w_dk, w_dxv = fa.attention_bwd_cols_plain(*args)
+        torch.testing.assert_close(dk, w_dk, rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(dxv, w_dxv, **_rounded(dtype, cot))
+        assert not (dk[-5:].any() or dxv[-5:].any())
+        assert dk[5].abs().sum() > 0 and dxv[5].abs().sum() > 0
+
+
+@pytest.mark.parametrize("att_type", ["scaled_dot", "cosine_sim", "pearson",
+                                      "exp_kernel"])
+def test_cuda_norm_long_rows_and_a_one_slot_row(cuda, att_type):
+    """attention_norm on rows of NORM_CUT slots (walked by their group),
+    NORM_CUT + 1 and 500 (segments, summed in order), one slot (den is its
+    e) and none, with and without reweight, softmax and squareplus, f32
+    and bf16: e and den at graphax's attention tolerance."""
+    g = _long_graph(cuda)
+    slot9 = int(g.csr.ptr[9])
+    for dtype in ("float32", "bfloat16"):
+        q, _, kt, _ = _train_case(g, dtype, 8, 32, 2, 30)
+        for ew in (None, g.edge_weight):
+            for sqp in (False, True):
+                scal = (att_type, 2, 1.3, 0.7)
+                gs = fa.attention_gmax(g.csr, q, kt, ew, *scal)
+                e, den = fa.attention_norm(g.csr, q, kt, ew, gs, *scal,
+                                           square_plus=sqp)
+                w_e, w_den = fa.attention_norm_plain(g.csr, q, kt, ew, gs,
+                                                     *scal, square_plus=sqp)
+                torch.testing.assert_close(e, w_e, rtol=2e-4, atol=2e-5)
+                torch.testing.assert_close(den, w_den, rtol=2e-4, atol=2e-5)
+                assert torch.equal(den[9], e[slot9])
+                assert not den[-5:].any()
+
+
 def test_cuda_column_denominators_keep_subnormal_sums(cuda):
     """The column route's denominators of weights that are all f32
     subnormals: the CPU's sums bit for bit (sums of subnormals are exact),
