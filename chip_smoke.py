@@ -26,7 +26,10 @@ and prints no result):
    score type, reweight and squareplus; GRAND-nl's training kernels, the
    forward with residuals and the row-side and column-side backward, on the
    arxiv CSR and CSC with the model's own q, Wk and bk and a cotangent from
-   a seed, and on a small graph with duplicate edges, a one-edge row and
+   a seed, on the hub graph below (its CSR rows, which the forward and the
+   row backward walk in segments, and its transpose's hub columns, which
+   the column backward walks in segments), and on a small graph with
+   duplicate edges, a one-edge row and
    empty rows; the training route's gradients against autograd through the
    plain per-edge path; the dense strategy's masked flash kernel,
    flash_dense, on the Computers stand-in's mask with GRAND-nl's own q and
@@ -52,8 +55,8 @@ and prints no result):
    bf16 in, f32 out through ``out_dtype``; win_matmul's rows name its
    staging route; spmm_csr's rows its load width; the
    kernels that gather a row per edge, spmm_csr, the pin (K rows), the
-   CSR flash, attention_attspmm, attention_gmax (K rows) and K5, also
-   their all-miss count: every
+   CSR flash, attention_attspmm, attention_gmax (K rows), K5 and the
+   three training kernels, also their all-miss count: every
    gathered row from device memory); flash's bf16 output and attention_attspmm's output in x's
    dtype (after K5's f32 half on the windowed route) as the routes ask for
    them, each bit for bit its f32 output (plus the addend) cast once;
@@ -963,12 +966,15 @@ def train_kernel_checks(results: dict, graph, q, x, kt, cot, heads: int,
                         name: str, timed: bool, label=None) -> tuple:
     """The three training kernels against their plain versions on one
     input set (the backward kernels on the kernel forward's residuals),
-    with the bound of each at these inputs (and B3's all-miss count: g, q
-    and the row tables gathered per slot). ``label`` names a graph other
-    than the slice's, one with columns of thousands of slots: its timed
-    rows are kept under that tag, and B3's tolerances add
-    :func:`b3_order_bound` to their atol. Returns the kernels' outputs
-    (out, dq, dk, dxv)."""
+    with the bound of each at these inputs and its all-miss count (the row
+    kernels: x and K gathered per edge; B3: g, q and the row tables
+    gathered per slot). ``label`` names a graph other than the slice's, one
+    with rows or columns of thousands of edges: its timed rows are kept
+    under that tag, and B3's tolerances add :func:`b3_order_bound` to their
+    atol. On the ``hub`` graph, whose CSR rows hold thousands of edges,
+    the row backward's add :func:`rows_order_bound`; on every other graph
+    it keeps TOL_TRAIN (the forward keeps TOL_TRAIN and tol_rounded
+    everywhere). Returns the kernels' outputs (out, dq, dk, dxv)."""
     from graphax_torch.kernels import fused_attention as fa
 
     n, d = x.shape
@@ -976,8 +982,12 @@ def train_kernel_checks(results: dict, graph, q, x, kt, cot, heads: int,
     b = x.element_size()
     idx_bytes = 4 * e + 4 * (n + 1)
     tabs = 4 * n * heads                      # one [N, H] f32 table
+    # x and K gathered once per edge instead of once
+    row_miss = e * (d * b + 4 * a) - n * d * b - 4 * n * a
     row = lambda k: dict(kernel=k, path="grand_nl_train", dtype=name,
                          graph=label or ("slice" if timed else "small"))
+    fr_bytes = (2 * n * d * b + n * a * b + 4 * n * a + idx_bytes
+                + 4 * e * heads + 2 * tabs)
     out, sc, shift, denom = hold_to_plain(
         results, row("attention_fwd_res"),
         lambda: fa.attention_fwd_res(graph.csr, q, x, kt, heads),
@@ -986,23 +996,29 @@ def train_kernel_checks(results: dict, graph, q, x, kt, cot, heads: int,
          ("shift", TOL_TRAIN),
          ("denom", TOL_TRAIN)),
         # x, q, K, CSR in; out, scores, shift, denom out
-        2 * n * d * b + n * a * b + 4 * n * a + idx_bytes + 4 * e * heads
-        + 2 * tabs,
+        fr_bytes,
         # per edge: scores (2A), exp and the head mean (~4H), x * w and
         # its sum (2D)
-        e * (2.0 * a + 4.0 * heads + 2.0 * d), timed=timed, tag=label)
+        e * (2.0 * a + 4.0 * heads + 2.0 * d), timed=timed, tag=label,
+        miss_bytes=fr_bytes + row_miss)
+    # scores, shift, denom, g, x, K, CSR in; dq, rho out
+    br_bytes = (4 * e * heads + 2 * tabs + 2 * n * d * b + 4 * n * a
+                + idx_bytes + 4 * n * a + tabs)
+    tq, tr = TOL_TRAIN, TOL_TRAIN
+    if label == "hub":   # CSR rows of thousands of edges
+        bq, br = rows_order_bound(graph.csr, sc, shift, denom, cot, x, kt,
+                                  heads)
+        tq, tr = (tq[0] + bq, tq[1]), (tr[0] + br, tr[1])
     dq, rho = hold_to_plain(
         results, row("attention_bwd_rows"),
         lambda: fa.attention_bwd_rows(graph.csr, sc, shift, denom, cot, x, kt,
                                       heads),
         lambda: fa.attention_bwd_rows_plain(graph.csr, sc, shift, denom, cot,
                                             x, kt, heads),
-        (("dq", TOL_TRAIN), ("rho", TOL_TRAIN)),
-        # scores, shift, denom, g, x, K, CSR in; dq, rho out
-        4 * e * heads + 2 * tabs + 2 * n * d * b + 4 * n * a + idx_bytes
-        + 4 * n * a + tabs,
+        (("dq", tq), ("rho", tr)), br_bytes,
         # per edge: da (2D), alpha and rho (~6H), ds and dq (~2H + 2A)
-        e * (2.0 * d + 8.0 * heads + 2.0 * a), timed=timed, tag=label)
+        e * (2.0 * d + 8.0 * heads + 2.0 * a), timed=timed, tag=label,
+        miss_bytes=br_bytes + row_miss)
     # q, g, x, K, shift, denom, rho, CSC in; dk, dxv out
     b3_bytes = (n * a * b + 2 * n * d * b + 4 * n * a + 3 * tabs + idx_bytes
                 + 4 * n * a + 4 * n * d)
@@ -1023,6 +1039,36 @@ def train_kernel_checks(results: dict, graph, q, x, kt, cot, heads: int,
         miss_bytes=b3_bytes - n * d * b - n * a * b - 3 * tabs
         + e * (d * b + a * b + 12 * heads))
     return out, dq, dk, dxv
+
+
+def rows_order_bound(csr, sc, shift, denom, g, x, kt, heads: int):
+    """``(dq, rho)`` bounds [N, A], [N, H] of how far the row backward's
+    f32 row sums may move with their order, as :func:`b3_order_bound`'s:
+    per entry 2 sqrt(deg) 2^-24 sum|term| over the row's edges (rho's
+    terms alpha da / H, dq's ds_h K), and for dq also rho's bound carried
+    by ds = alpha (da / H - rho), times sum alpha |K| (from the plain
+    version's alpha, da and rho). The kernel sums a long row in segments
+    of 32, the plain version's index_add_ in its atomics' order."""
+    import torch
+
+    n, seg, col = csr.num_rows, csr.seg, csr.idx.long()
+    e, a = csr.num_slots, kt.shape[1]
+    dn = denom[seg]
+    alpha = torch.exp(sc - shift[seg]) / torch.where(dn > 0, dn,
+                                                     torch.ones_like(dn))
+    dah = ((g.float()[seg] * x.float()[col]).sum(1) / heads)[:, None]
+    scale = (2.0 * 2.0 ** -24
+             * (csr.ptr[1:] - csr.ptr[:-1]).float().sqrt()[:, None])
+    rows = lambda t: torch.zeros(  # noqa: E731
+        (n,) + t.shape[1:], device=x.device).index_add_(0, seg, t)
+    rho = rows(alpha * dah)
+    b_rho = scale * rows((alpha * dah).abs())
+    kh = kt[col].reshape(e, heads, a // heads)
+    ds = alpha * (dah - rho[seg])
+    b_dq = (scale * rows((kh * ds[:, :, None]).abs().reshape(e, a))
+            + rows((kh.abs() * alpha[:, :, None]).reshape(e, a))
+            * b_rho.repeat_interleave(a // heads, 1))
+    return b_dq, b_rho
 
 
 def b3_order_bound(csc, q, g, x, kt, shift, denom, rho, heads: int):
@@ -1057,7 +1103,9 @@ def b3_order_bound(csc, q, g, x, kt, shift, denom, rho, heads: int):
 def phase_train_kernels(trainer, results: dict) -> None:
     """GRAND-nl's training kernels against their plain versions at the
     slice's shapes: the arxiv CSR and CSC, the model's own q, Wk and bk on
-    its encoded state (random Q/K), a cotangent from a seed, f32 and bf16.
+    its encoded state (random Q/K), a cotangent from a seed, f32 and bf16;
+    the same on :func:`hub_graph` (rows of thousands of edges) and on its
+    transpose (columns of thousands of slots), each under its tag.
     Then the autograd route's output and gradients of x, Q and K against
     torch.autograd through the plain per-edge path (f32), and a small graph
     with duplicate edges, a one-edge row and empty rows in both dtypes."""
@@ -1080,6 +1128,9 @@ def phase_train_kernels(trainer, results: dict) -> None:
     hub_t = hub_graph("cuda", transpose=True)
     emit({"phase": "kernels", "graph": "hub transposed", "columns":
           degree_shares(hub_t.csc.ptr, (fa._BATCH,))})
+    hub = hub_graph("cuda")
+    emit({"phase": "kernels", "graph": "hub", "rows":
+          degree_shares(hub.csr.ptr, (fa._BATCH, fa.ROW_SPLIT))})
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
         x = x_enc.to(dt).contiguous()
@@ -1089,13 +1140,16 @@ def phase_train_kernels(trainer, results: dict) -> None:
             train_kernel_checks(results, g, p["q"], x, kt,
                                 cot.to(dt).contiguous(), heads, name, True)
             # the transposed hub graph: its CSC holds columns of 2,000 to
-            # 13,000 slots, which B3 walks in segments
-            train_kernel_checks(results, hub_t, p["q"], x, kt,
-                                cot.to(dt).contiguous(), heads, name, True,
-                                label="hub transposed")
+            # 13,000 slots, which B3 walks in segments; the hub graph
+            # itself: its CSR holds rows of as many edges, which the
+            # forward and the row backward walk in segments
+            for gg, tag in ((hub_t, "hub transposed"), (hub, "hub")):
+                train_kernel_checks(results, gg, p["q"], x, kt,
+                                    cot.to(dt).contiguous(), heads, name,
+                                    True, label=tag)
         del x, kt, p
         torch.cuda.empty_cache()
-    del hub_t
+    del hub_t, hub
 
     # the autograd route against autograd through the plain per-edge path
     lin = (att.Q.weight, att.Q.bias, att.K.weight, att.K.bias)
@@ -2706,6 +2760,19 @@ def main(argv=None) -> int:
     kernels[10]["variant"] = ("K1 + K2 + K3 with residuals: the training "
                               "forward, scores/shift/denominator kept")
     kernels[11]["also_replaces"] = "graphax/kernels/pallas_attention.py:659"
+    for i, k in ((10, "attention_fwd_res"), (11, "attention_bwd_rows")):
+        kernels[i]["all_miss_ms"] = results[(k, "bfloat16")]["all_miss_ms"]
+        kernels[i]["float32"] = {
+            t: results[(k, "float32")].get(t) for t in walked}
+        for tag in ("hub", "hub transposed"):
+            kernels[i][tag.replace(" ", "_")] = {
+                t: results[(k, "bfloat16", tag)].get(t) for t in walked}
+    kernels[10]["launches_count"] = (
+        "wrapper calls: each runs fwd_res_kernel, and where a row has more "
+        "than 32 edges flash_seg_stats, flash_seg_sum and seg_combine")
+    kernels[11]["launches_count"] = (
+        "wrapper calls: each runs bwd_rows_kernel, and where a row has more "
+        "than 32 edges bwd_rows_seg_dq and seg_combine")
     kernels[12]["all_miss_ms"] = results[
         ("attention_bwd_cols", "bfloat16")]["all_miss_ms"]
     kernels[12]["float32"] = {k: results[("attention_bwd_cols",

@@ -60,10 +60,12 @@ SIGNATURES = {
         "gx_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P],
-        "gx_attention_fwd_res": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _I, _P],
+        "gx_attention_fwd_res": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _P],
         "gx_attention_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _P],
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _P],
         "gx_attention_bwd_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _P],

@@ -79,28 +79,42 @@
 //                 more than 32 edges go to flash_seg_stats, flash_seg_sum
 //                 and seg_combine.
 //   fwd_res_kernel  the training forward for the configs the backward
-//                 covers (scaled_dot, row softmax, no reweight): a first
-//                 pass (row_scores), whose [E, H] f32 scores
-//                 are kept as a residual beside the per-(row, head) shift
-//                 (the row max, 0 for a row with no edge) and denominator
-//                 (f32 sum of unrounded e). Pass 2 takes graphax's K3
-//                 rounding points: alpha = e / (denom > 0 ? denom : 1)
-//                 (K3's zero-select, :287-290, not flash's +1e-16), w_e =
+//                 covers (scaled_dot, row softmax, no reweight), on the
+//                 row walk: a warp per CSR row of at most 32 edges, one
+//                 edge a lane, the scores of the row's (edge, head) pairs
+//                 as flash takes them, kept as the [E, H] f32 residual
+//                 beside the per-(row, head) shift (the row max, 0 for a
+//                 row with no edge) and denominator (f32 sum of unrounded
+//                 e), both by warp reductions. Then graphax's K3 rounding
+//                 points: alpha = e / (denom > 0 ? denom : 1) (K3's
+//                 zero-select, :287-290, not flash's +1e-16), w_e =
 //                 rnd(mean_h alpha), out = sum rnd(x[col] * w_e) in f32,
 //                 cast once to the state dtype. So it is not flash's
 //                 function: the head mean is taken before the rounding.
-//   bwd_rows_kernel B1 + B2, one warp per CSR row. alpha from the kept
-//                 scores; da_e = g_r . x[col_e] in f32 (g exact in f32, as
-//                 graphax's cast at :1219), a warp sum over D; rho_rh =
-//                 sum alpha_eh da_e / H; then ds_eh = alpha_eh (da_e / H -
-//                 rho_rh) and dq_r = sum ds_eh K[col_e] in f32. The warp
-//                 owns the row, so rho is complete before ds is needed and
-//                 B1 and B2 are one kernel (graphax measured that fusion
-//                 2.3x slower on its TPU grid; here no sum crosses blocks).
-//                 da is kept per edge in an [E] f32 scratch between the
-//                 row's two passes. Reads K[col] from the K projection's f32
-//                 table where graphax's B2 projects each gathered row: the
-//                 same f32 sums of exact products, in another order.
+//                 Longer rows go to flash's segment kernels in their
+//                 residual form and seg_combine. The first body (the
+//                 scores written and read back for the max and the sum,
+//                 then the row walked an edge at a time, each weight
+//                 recomputed and one x row in flight a warp) took 0.661 ms in bf16 at the arxiv stand-in's
+//                 shapes on the H100 (PERF.md).
+//   bwd_rows_kernel B1 + B2 on the row walk: a warp per CSR row of at most
+//                 32 edges (longer ones in segments of 32), one edge a
+//                 lane. alpha from the kept scores; da_e = g_r . x[col_e]
+//                 in f32 (g exact in f32, as graphax's cast at :1219), the
+//                 x rows gathered two at a time against g_r in registers
+//                 and each lane's partials finished by a warp sum an edge;
+//                 rho_rh = sum alpha_eh da_e / H; then ds_eh =
+//                 alpha_eh (da_e / H - rho_rh) and dq_r = sum ds_eh K[col_e]
+//                 in f32. The warp owns the row (a long row's segments add
+//                 their rho partials in segment order before ds), so B1 and
+//                 B2 are one kernel (graphax measured that fusion 2.3x
+//                 slower on its TPU grid; here no sum crosses blocks).
+//                 Reads K[col] from the K projection's f32 table where
+//                 graphax's B2 projects each gathered row: the same f32
+//                 sums of exact products, in another order. The first body
+//                 (the row walked an edge at a time, a warp sum an edge, da
+//                 kept in an [E] scratch, exp recomputed per column) took
+//                 0.795 ms (PERF.md).
 //   bwd_cols_kernel B3 over the CSC layout (the rows r of column c's slots:
 //                 no slot permutation, as graphax's node-table gathers,
 //                 :1232-1240), on the row walk: a warp per column of at most
@@ -159,12 +173,12 @@
 // loads and keeps several x rows in flight per warp, so it is bound by the
 // gathers' bytes rather than by the latency of one row at a time; attspmm
 // walks the same way. kproj reads x once and writes K (~77 MB) against 1.76
-// GFLOP (on the tensor cores in bf16). The training kernels walk each row
-// serially and are bound by that latency: the forward with residuals moves ~217 MB (0.065 ms), the row
-// backward ~185 MB (0.055 ms), the column backward ~284 MB (0.085 ms), each
-// against a few GFLOP; the first two walk their rows edge by edge with a
-// dependent gather of an x row and a warp reduction per edge (the column
-// backward: a batch of 32 slots at a time, several g rows in flight).
+// GFLOP (on the tensor cores in bf16). The training kernels: the forward
+// with residuals must move ~162 MB (0.048 ms), the row backward ~175 MB
+// (0.052 ms), the column backward ~284 MB (0.085 ms), each against a few
+// GFLOP; all three walk a batch of 32 edges (slots) at a time with several
+// gathered rows in flight, so they wait on the latency of each row's chain
+// of loads (ptr, indices, scores, the gathers) rather than on bytes.
 // norm_kernel must read q, K and the CSR once and write e [E, H] and the
 // [N, H] denominators (~47 MB over the whole arxiv CSR in bf16, 0.014 ms);
 // attspmm_kernel must read e, a denominator table, x and the CSR and write
@@ -185,7 +199,6 @@
 namespace {
 
 constexpr int WPB = 8;     // warps (rows in flight) per block
-constexpr int CPL = 8;     // columns per lane in one pass-2 chunk (256 wide)
 constexpr float EPS = 1e-16f;
 constexpr float NEG = -1e30f;
 
@@ -226,18 +239,6 @@ __device__ __forceinline__ unsigned enc(float f) {
 }
 __device__ __forceinline__ float dec(unsigned v) {
   return __uint_as_float((v & 0x80000000u) ? (v & 0x7fffffffu) : ~v);
-}
-
-// the score of edge e, head hh, against the row's q in shared memory
-__device__ __forceinline__ float edge_score(const float* qs, const float* kt,
-                                            const int* idx, const float* ew,
-                                            int e, int hh, int a, int dk,
-                                            int att_type, float ov2,
-                                            float inv2l2) {
-  float s = gx_att::score(qs + hh * dk, kt + (size_t)idx[e] * a + hh * dk, dk,
-                          att_type, ov2, inv2l2);
-  if (ew != nullptr) s *= ew[e];
-  return s;
 }
 
 // The CUDA-core K projection (f32, and bf16 shapes whose x tile the
@@ -602,173 +603,6 @@ gmax_kernel(const long long* __restrict__ seg, const int* __restrict__ idx,
   }
 }
 
-// The first pass of fwd_res_kernel's row walk: the
-// scores of every (edge, head) pair of the row [beg, end) into sc (lanes over
-// pairs), then per head the shift (the row's max, or the global shift g
-// under squareplus) into ms[hh] and the f32 denominator of the unrounded
-// weights into ds[hh], each a warp reduction. The row's q is in qs (shared
-// memory); the caller syncs the warp before reading ms and ds.
-template <bool SQP>
-__device__ __forceinline__ void row_scores(
-    const float* qs, const float* __restrict__ kt, const int* __restrict__ idx,
-    const float* __restrict__ ew, float* __restrict__ sc, int beg, int end,
-    int a, int h, int att_type, float ov2, float inv2l2, float g, float* ms,
-    float* ds, int lane) {
-  const int dk = a / h;
-  const int pairs = (end - beg) * h;
-  for (int p = lane; p < pairs; p += 32) {
-    const int e = beg + p / h, hh = p % h;
-    sc[(size_t)e * h + hh] =
-        edge_score(qs, kt, idx, ew, e, hh, a, dk, att_type, ov2, inv2l2);
-  }
-  __syncwarp();
-  for (int hh = 0; hh < h; ++hh) {
-    float m = g;
-    if (!SQP) {
-      m = -INFINITY;
-      for (int e = beg + lane; e < end; e += 32) m = fmaxf(m, sc[(size_t)e * h + hh]);
-      m = warp_max(m);
-    }
-    float den = 0.f;
-    for (int e = beg + lane; e < end; e += 32) den += weight<SQP>(sc[(size_t)e * h + hh] - m);
-    den = warp_sum(den);
-    if (lane == 0) {
-      ms[hh] = m;
-      ds[hh] = den;
-    }
-  }
-}
-
-// The training forward: softmax over scaled_dot scores, no reweighting.
-// Pass 1 as flash's; the shift and the denominator go to the residual
-// tables (0 and 0 for a row with no edge); pass 2 sums rnd(x[col] * w_e),
-// w_e = rnd(mean_h alpha_eh), alpha = e / (denom > 0 ? denom : 1), in f32
-// and casts the sum once to T.
-template <typename T>
-__global__ void __launch_bounds__(WPB * 32)
-fwd_res_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
-               const T* __restrict__ q, const T* __restrict__ x,
-               const float* __restrict__ kt, float* __restrict__ sc,
-               float* __restrict__ shift, float* __restrict__ denom,
-               T* __restrict__ out, int n, int d, int a, int h) {
-  extern __shared__ float smem[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qs = smem + (size_t)w * (a + 2 * h);  // [a] q of the row
-  float* ms = qs + a;                          // [h] shift per head
-  float* ds = ms + h;                          // [h] denominator, zero-selected
-  const int r = blockIdx.x * WPB + w;
-  if (r >= n) return;
-  const int beg = ptr[r], end = ptr[r + 1];
-  T* orow = out + (size_t)r * d;
-  if (beg == end) {
-    for (int i = lane; i < d; i += 32) orow[i] = from_f<T>(0.f);
-    for (int hh = lane; hh < h; hh += 32) {
-      shift[(size_t)r * h + hh] = 0.f;
-      denom[(size_t)r * h + hh] = 0.f;
-    }
-    return;
-  }
-  for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
-  __syncwarp();
-  row_scores<false>(qs, kt, idx, nullptr, sc, beg, end, a, h, 0, 0.f, 0.f,
-                    0.f, ms, ds, lane);
-  __syncwarp();
-  for (int hh = lane; hh < h; hh += 32) {
-    shift[(size_t)r * h + hh] = ms[hh];
-    denom[(size_t)r * h + hh] = ds[hh];
-    if (!(ds[hh] > 0.f)) ds[hh] = 1.f;
-  }
-  __syncwarp();
-
-  for (int c0 = 0; c0 < d; c0 += 32 * CPL) {
-    float acc[CPL];
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
-    for (int e = beg; e < end; ++e) {
-      float wsum = 0.f;
-      for (int hh = 0; hh < h; ++hh)
-        wsum += expf(sc[(size_t)e * h + hh] - ms[hh]) / ds[hh];
-      const float wt = rnd<T>(wsum / (float)h);
-      const T* xr = x + (size_t)idx[e] * d;
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) {
-        const int i = c0 + lane + 32 * k;
-        if (i < d) acc[k] += rnd<T>(to_f(xr[i]) * wt);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-      const int i = c0 + lane + 32 * k;
-      if (i < d) orow[i] = from_f<T>(acc[k]);
-    }
-  }
-}
-
-// The row-side backward (B1 + B2). Pass A walks the row's edges: da_e =
-// g_r . x[col_e] in f32 (lanes over columns, a warp sum; kept in dab for
-// pass B), rho_h += alpha_eh * (da_e / H) (lanes over heads). Pass B:
-// ds_eh = alpha_eh (da_e / H - rho_h), dq_r += ds_eh * K[col_e] (lanes over
-// A; head = lane's column / dk). alpha is recomputed from the forward's
-// scores, shift and denominator.
-template <typename T>
-__global__ void __launch_bounds__(WPB * 32)
-bwd_rows_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
-                const float* __restrict__ sc, const float* __restrict__ shift,
-                const float* __restrict__ denom, const T* __restrict__ g,
-                const T* __restrict__ x, const float* __restrict__ kt,
-                float* __restrict__ dab, float* __restrict__ dq,
-                float* __restrict__ rho, int n, int d, int a, int h) {
-  extern __shared__ float smem[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* gs = smem + (size_t)w * (d + a + 3 * h);  // [d] g of the row
-  float* acc = gs + d;                             // [a] dq of the row
-  float* ms = acc + a;                             // [h] shift
-  float* ds = ms + h;                              // [h] denominator, zero-selected
-  float* rs = ds + h;                              // [h] rho
-  const int r = blockIdx.x * WPB + w;
-  if (r >= n) return;
-  const int beg = ptr[r], end = ptr[r + 1];
-  if (beg == end) {
-    for (int i = lane; i < a; i += 32) dq[(size_t)r * a + i] = 0.f;
-    for (int hh = lane; hh < h; hh += 32) rho[(size_t)r * h + hh] = 0.f;
-    return;
-  }
-  const int dk = a / h;
-  const float fh = (float)h;
-  for (int i = lane; i < d; i += 32) gs[i] = to_f(g[(size_t)r * d + i]);
-  for (int i = lane; i < a; i += 32) acc[i] = 0.f;
-  for (int hh = lane; hh < h; hh += 32) {
-    const float dn = denom[(size_t)r * h + hh];
-    ms[hh] = shift[(size_t)r * h + hh];
-    ds[hh] = dn > 0.f ? dn : 1.f;
-    rs[hh] = 0.f;
-  }
-  __syncwarp();
-
-  for (int e = beg; e < end; ++e) {
-    const T* xr = x + (size_t)idx[e] * d;
-    float p = 0.f;
-    for (int i = lane; i < d; i += 32) p += gs[i] * to_f(xr[i]);
-    const float da = warp_sum(p);
-    if (lane == 0) dab[e] = da;
-    for (int hh = lane; hh < h; hh += 32)
-      rs[hh] += expf(sc[(size_t)e * h + hh] - ms[hh]) / ds[hh] * (da / fh);
-  }
-  __syncwarp();
-  for (int hh = lane; hh < h; hh += 32) rho[(size_t)r * h + hh] = rs[hh];
-
-  for (int e = beg; e < end; ++e) {
-    const float da = dab[e];
-    const float* kr = kt + (size_t)idx[e] * a;
-    for (int i = lane; i < a; i += 32) {
-      const int hh = i / dk;
-      const float al = expf(sc[(size_t)e * h + hh] - ms[hh]) / ds[hh];
-      acc[i] += al * (da / fh - rs[hh]) * kr[i];
-    }
-  }
-  for (int i = lane; i < a; i += 32) dq[(size_t)r * a + i] = acc[i];
-}
-
 // ---------------------------------------------------------------------
 // The row walk of flash_kernel and attspmm_kernel
 // ---------------------------------------------------------------------
@@ -940,15 +774,15 @@ flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
 }
 
 // a long row's segment j: its running (max, sum) per head into st [nseg,
-// 2h]
-template <typename T, bool SQP>
+// 2h]; with RES (the training forward) also its scores into sc [E, h]
+template <typename T, bool SQP, bool RES>
 __global__ void __launch_bounds__(WPB * 32)
 flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
                 const T* __restrict__ q, const float* __restrict__ kt,
                 const float* __restrict__ ew, const float* __restrict__ gshift,
                 const int* __restrict__ plan, float* __restrict__ st,
-                int nlong, int nseg, int a, int h, int att_type, float ov2,
-                float inv2l2, int kvec, int seg) {
+                float* __restrict__ sc, int nlong, int nseg, int a, int h,
+                int att_type, float ov2, float inv2l2, int kvec, int seg) {
   extern __shared__ float smem[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = blockIdx.x * (blockDim.x >> 5) + w;
@@ -966,6 +800,8 @@ flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
     const int cnt = min(BATCH, se - b0);
     batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, ov2, inv2l2, kvec,
                  ws, lane);
+    if (RES)
+      for (int p = lane; p < cnt * h; p += 32) sc[(size_t)b0 * h + p] = ws[p];
     batch_stats<T, SQP>(ws, ms, ds, cnt, h, g, b0 == sb, false, lane);
   }
   for (int hh = lane; hh < h; hh += 32) {
@@ -976,16 +812,21 @@ flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
 
 // a long row's segment j: the row's shift and denominators from its
 // segments' (max, sum) in segment order, then the segment's f32 partial
-// sums into part [nseg, d], each batch's scores recomputed for its weights
-template <typename T, int VB, bool SQP>
+// sums into part [nseg, d], each batch's scores recomputed for its
+// weights. With RES (the training forward) the row's first segment writes
+// shift and denom [n, h], and the weights are K3's, rnd(mean_h exp(s -
+// shift) / (den or 1)), from the scores kept in sc
+template <typename T, int VB, bool SQP, bool RES>
 __global__ void __launch_bounds__(WPB * 32)
 flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
               const T* __restrict__ q, const T* __restrict__ x,
               const float* __restrict__ kt, const float* __restrict__ ew,
               const float* __restrict__ gshift, const int* __restrict__ plan,
-              const float* __restrict__ st, float* __restrict__ part,
-              int nlong, int nseg, int d, int a, int h, int att_type,
-              float ov2, float inv2l2, int kvec, int seg) {
+              const float* __restrict__ st, const float* __restrict__ sc,
+              float* __restrict__ shift, float* __restrict__ denom,
+              float* __restrict__ part, int nlong, int nseg, int d, int a,
+              int h, int att_type, float ov2, float inv2l2, int kvec,
+              int seg) {
   using V = Vec<T, VB>;
   extern __shared__ float smem[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -997,7 +838,8 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
   float* ms = qs + a;
   float* cs = ms + h;
   float* ws = cs + h;
-  for (int t = lane; t < a; t += 32) qs[t] = to_f(q[(size_t)r * a + t]);
+  if (!RES)
+    for (int t = lane; t < a; t += 32) qs[t] = to_f(q[(size_t)r * a + t]);
   const int p0 = plan[nlong + i], p1 = plan[nlong + i + 1];
   for (int hh = lane; hh < h; hh += 32) {
     float m = SQP ? *gshift : -INFINITY;
@@ -1008,24 +850,347 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
       const float ds = st[(size_t)s * 2 * h + h + hh];
       den += SQP ? ds : ds * expf(st[(size_t)s * 2 * h + hh] - m);
     }
+    if (RES && j == p0) {
+      shift[(size_t)r * h + hh] = m;
+      denom[(size_t)r * h + hh] = den;
+    }
     ms[hh] = m;
-    cs[hh] = den;
+    cs[hh] = RES && !(den > 0.f) ? 1.f : den;
   }
   __syncwarp();
-  head_scales(cs, h, lane);
+  if (!RES) head_scales(cs, h, lane);
   const int nvec = d / V::E;
   for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
     float acc[VPL][V::E];
     clear(acc);
     for (int b0 = sb; b0 < se; b0 += BATCH) {
       const int cnt = min(BATCH, se - b0);
-      const int col = batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type,
-                                   ov2, inv2l2, kvec, ws, lane);
-      batch_weights<T, SQP>(ws, ms, cnt, h, lane);
-      gather_flash<T, VB>(acc, x, col, cnt, ws, cs, h, d, v0, nvec, lane);
+      if constexpr (RES) {
+        int col = 0;
+        float wl = 0.f;
+        if (lane < cnt) {
+          col = idx[b0 + lane];
+          float wsum = 0.f;
+          for (int hh = 0; hh < h; ++hh)
+            wsum += expf(sc[(size_t)(b0 + lane) * h + hh] - ms[hh]) / cs[hh];
+          wl = rnd<T>(wsum / (float)h);
+        }
+        gather<T, VB, VPL, U<VB>>(acc, x, col, wl, cnt, d, v0, nvec, lane);
+      } else {
+        const int col = batch_scores(qs, kt, idx, ew, b0, cnt, a, h,
+                                     att_type, ov2, inv2l2, kvec, ws, lane);
+        batch_weights<T, SQP>(ws, ms, cnt, h, lane);
+        gather_flash<T, VB>(acc, x, col, cnt, ws, cs, h, d, v0, nvec, lane);
+      }
     }
     store_chunk<T, VB, VPL>(acc, part, 0, nullptr, (size_t)j * d, v0, nvec, lane);
   }
+}
+
+// ---------------------------------------------------------------------
+// K1 + K2 + K3 with residuals (fwd_res_kernel) and B1 + B2
+// (bwd_rows_kernel) on the row walk
+// ---------------------------------------------------------------------
+//
+// fwd_res_kernel gives a warp each CSR row of at most BATCH edges, one
+// edge a lane: the lane loads its column; lanes over the batch's (edge,
+// head) pairs score them as flash does (batch_scores: q in the warp's
+// shared memory, K[col] by 16-byte loads where KV, in score()'s order),
+// into the warp's shared batch and from there to sc; per head the shift m
+// (warp_max; 0 for a row with no edge) and den = sum exp(s - m)
+// (warp_sum), then lane j's K3 weight w_j = rnd((sum_h exp(s_jh - m_h) /
+// (den_h or 1)) / H), the heads summed in order, divided by H and rounded
+// once (graphax's order, pallas_attention.py:287-293). The gather is
+// attspmm's (row_walk.cuh's gather: U x rows in flight, products rounded
+// once, f32 sums in edge order, cast once to T). So on such rows sc, shift,
+// den and the bf16 out are the first body's bit for bit. The longer rows
+// go in segments of `seg` edges through flash's segment kernels with RES:
+// flash_seg_stats (a warp a segment, its batches scored as above and
+// written to sc, its running max and sum of exp(s - max) per head),
+// flash_seg_sum (the row's shift, its max over the segments, and den, the
+// segments' sums rescaled to it in segment order, both written by the
+// row's first segment; sc read back for K3's weights; f32 partials) and
+// seg_combine.
+//
+// bwd_rows_kernel takes work items, a warp each: the CSR rows of at most
+// BATCH edges, then the BATCH-edge segments of the longer rows. Lane j
+// holds edge j: its column, and alpha_jh = exp(s - shift) / (denom or 1)
+// per head in the warp's shared batch [BATCH, h]. g_r's chunk sits in
+// registers while the batch's x rows are gathered BR_ROWS at a time
+// (row_walk.cuh's load_rows); each lane's partials of those dot products
+// go through row_dots, after which lane j holds da_j = g_r . x[col_j] in
+// f32. rho_h = sum_j alpha_jh da_j / H is a warp sum; ds_jh = alpha_jh
+// (da_j / H - rho_h) replaces alpha in the batch, and dq_r = sum_j ds_jh
+// K[col_j] goes by lanes over A (lane_sums, UQ K rows in flight), the
+// edges in order. A segment's item writes its da (dab) and its rho
+// partial (pr) instead; bwd_rows_seg_dq (a warp a segment) adds the row's
+// rho partials in segment order (the row's first segment writes rho[r]),
+// forms ds from the kept da and writes its dq partial, which seg_combine
+// adds in segment order.
+
+// blocks an SM the registers allow: 64 registers a thread for the
+// forward, 40 for the row backward (more rows in flight measured faster
+// there than more registers: PERF.md). ptxas -v on the H100's toolkit:
+// fwd_res_kernel 46-56 registers, no spills; the residual form of
+// flash_seg_stats 64, none, of flash_seg_sum 48-64, 4 bytes of spill
+// stores and loads at bf16's 2-byte and f32's 4-byte loads;
+// bwd_rows_kernel 40, 8 bytes of spill stores and loads at bf16's 4-byte
+// loads (the arxiv width) and at 2 and f32's 4, 12/12 at f32's 8-byte
+// ones (the arxiv width in f32), 36/72 at bf16's 8-byte ones;
+// bwd_rows_seg_dq 48, none
+constexpr int FR_MIN_BLOCKS = 4;
+constexpr int BR_MIN_BLOCKS = 6;
+constexpr int BR_ROWS = 2;   // x rows in flight in the row backward
+constexpr int UQ = 8;        // table rows in flight in lane_sums
+
+// out[i] = sum_j ws[j h + i / (a / h)] tab[row_j a + i] over the cnt slots
+// j of a batch in order (lane j holding row_j), lanes over the a columns,
+// UQ table rows (q in T, or the f32 K table) in flight: B3's dk and the
+// row backward's dq
+template <typename Q>
+__device__ __forceinline__ void lane_sums(const float* ws,
+                                          const Q* __restrict__ tab, int row,
+                                          int cnt, int a, int h,
+                                          float* __restrict__ out, int lane) {
+  const int dkh = a / h;
+  for (int i0 = 0; i0 < a; i0 += 32) {
+    const int i = i0 + lane;
+    const float* wi = ws + (i < a ? i / dkh : 0);
+    float s = 0.f;
+    for (int j0 = 0; j0 < cnt; j0 += UQ) {
+      float qv[UQ];
+#pragma unroll
+      for (int u = 0; u < UQ; ++u) {
+        const int rj = __shfl_sync(FULL, row, (j0 + u) & 31);
+        qv[u] = j0 + u < cnt && i < a ? to_f(tab[(size_t)rj * a + i]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < UQ; ++u)
+        if (j0 + u < cnt) s += wi[(j0 + u) * h] * qv[u];
+    }
+    if (i < a) out[i] = s;
+  }
+}
+
+// the rows of at most BATCH edges, one batch each (a longer row's warp
+// returns: the segment kernels'): the scores (flash's batch_scores: lanes
+// over the batch's (edge, head) pairs, q in the warp's shared memory), the
+// residuals, the weights, the gather; out in T (otype 0 f32, 1 bf16). Each
+// warp's shared memory holds the batch's scores [BATCH, h] and q [a]
+template <typename T, int VB, bool KV>
+__global__ void __launch_bounds__(WPB * 32, FR_MIN_BLOCKS)
+fwd_res_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+               const T* __restrict__ q, const T* __restrict__ x,
+               const float* __restrict__ kt, float* __restrict__ sc,
+               float* __restrict__ shift, float* __restrict__ denom,
+               void* __restrict__ out, int otype, int n, int d, int a,
+               int h) {
+  using V = Vec<T, VB>;
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + w;
+  if (r >= n) return;
+  const int beg = ptr[r], len = ptr[r + 1] - beg;
+  if (len > BATCH) return;
+  const int col = lane < len ? idx[beg + lane] : 0;
+  float* ws = smem + (size_t)w * (BATCH * h + a);
+  if (len > 0) {
+    float* qs = ws + BATCH * h;
+    for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
+    __syncwarp();
+    batch_scores(qs, kt, idx, nullptr, beg, len, a, h, 0, 0.f, 0.f,
+                 KV ? 1 : 0, ws, lane, col);
+    for (int p = lane; p < len * h; p += 32) sc[(size_t)beg * h + p] = ws[p];
+  }
+  float wsum = 0.f;
+  for (int hh = 0; hh < h; ++hh) {
+    const float s = lane < len ? ws[lane * h + hh] : -INFINITY;
+    const float m = len > 0 ? warp_max(s) : 0.f;
+    const float e = lane < len ? expf(s - m) : 0.f;
+    const float den = warp_sum(e);
+    if (lane == 0) {
+      shift[(size_t)r * h + hh] = m;
+      denom[(size_t)r * h + hh] = den;
+    }
+    wsum += e / (den > 0.f ? den : 1.f);
+  }
+  const float wt = rnd<T>(wsum / (float)h);
+  const int nvec = d / V::E;
+  for (int v0 = 0; v0 < nvec; v0 += 32 * VPL) {
+    float acc[VPL][V::E];
+    clear(acc);
+    gather<T, VB, VPL, U<VB>>(acc, x, col, wt, len, d, v0, nvec, lane);
+    store_chunk<T, VB, VPL>(acc, out, otype, nullptr, (size_t)r * d, v0, nvec,
+                            lane);
+  }
+}
+
+// alpha of edge e's head hh in row r: exp(s - shift) / (denom or 1)
+__device__ __forceinline__ float alpha_of(const float* __restrict__ sc,
+                                          const float* __restrict__ shift,
+                                          const float* __restrict__ denom,
+                                          int e, int r, int hh, int h) {
+  const float dn = __ldg(denom + (size_t)r * h + hh);
+  return expf(__ldg(sc + (size_t)e * h + hh) -
+              __ldg(shift + (size_t)r * h + hh)) /
+         (dn > 0.f ? dn : 1.f);
+}
+
+// the U dot products of the x rows e0 .. e0 + U - 1 of a batch, from each
+// lane's partials p: a warp sum of each (as B3's da), lane e0 + u keeping
+// row u's; 0 on the other lanes (a transposed butterfly, U - 1 fewer
+// shuffles, measured no faster: PERF.md)
+template <int U>
+__device__ __forceinline__ float row_dots(const float (&p)[U], int e0,
+                                          int lane) {
+  float mine = 0.f;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const float t = warp_sum(p[u]);
+    if (lane == e0 + u) mine = t;
+  }
+  return mine;
+}
+
+// one row-backward batch: the edges [sb, sb + cnt) (cnt <= BATCH) of row
+// r, lane j holding edge j and its column col: alpha_jh into ws [BATCH,
+// h], and returned da_j = g_r . x[col_j] in f32 (g exact in f32)
+template <typename T, int VB>
+__device__ __forceinline__ float rows_batch(
+    const float* __restrict__ sc, const float* __restrict__ shift,
+    const float* __restrict__ denom, const T* __restrict__ g,
+    const T* __restrict__ x, int r, int sb, int cnt, int d, int h,
+    float* ws, int col, int lane) {
+  using V = Vec<T, VB>;
+  constexpr int U = BR_ROWS;
+  if (lane < cnt)
+    for (int hh = 0; hh < h; ++hh)
+      ws[lane * h + hh] = alpha_of(sc, shift, denom, sb + lane, r, hh, h);
+  float da = 0.f;
+  const int nvec = d / V::E;
+  const T* gr = g + (size_t)r * d;
+  for (int v0 = 0; cnt > 0 && v0 < nvec; v0 += 32 * VPL) {
+    float gs[VPL][V::E];
+#pragma unroll
+    for (int v = 0; v < VPL; ++v) {
+      const int vi = v0 + v * 32 + lane;
+      uint32_t raw[V::W];
+      if (vi < nvec) {
+        gx_rows::ldv<VB>(gr + (size_t)vi * V::E, raw);
+        gx_rows::unpack<T, VB>(raw, gs[v]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V::E; ++k) gs[v][k] = 0.f;
+      }
+    }
+    for (int e0 = 0; e0 < cnt; e0 += U) {
+      uint32_t raw[U][VPL][V::W];
+      load_rows<T, VB, VPL, U>(raw, x, col, e0, cnt, d, v0, nvec, lane);
+      float p[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p[u] = 0.f;
+        if (e0 + u < cnt) {   // the same for the whole warp
+#pragma unroll
+          for (int v = 0; v < VPL; ++v) {
+            if (v0 + v * 32 + lane < nvec) {
+              float f[V::E];
+              gx_rows::unpack<T, VB>(raw[u][v], f);
+#pragma unroll
+              for (int k = 0; k < V::E; ++k) p[u] += f[k] * gs[v][k];
+            }
+          }
+        }
+      }
+      da += row_dots<U>(p, e0, lane);
+    }
+  }
+  return da;
+}
+
+// the row backward's items, a warp each: the rows of at most BATCH edges
+// (item r < n; a longer row's item returns), then the BATCH-edge segments
+// of the longer ones (item n + j: its da into dab [nseg, BATCH], its rho
+// partial into pr [nseg, h])
+template <typename T, int VB>
+__global__ void __launch_bounds__(WPB * 32, BR_MIN_BLOCKS)
+bwd_rows_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+                const float* __restrict__ sc, const float* __restrict__ shift,
+                const float* __restrict__ denom, const T* __restrict__ g,
+                const T* __restrict__ x, const float* __restrict__ kt,
+                const int* __restrict__ plan, float* __restrict__ dab,
+                float* __restrict__ pr, float* __restrict__ dq,
+                float* __restrict__ rho, int n, int d, int a, int h,
+                int nlong, int nseg) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int item = blockIdx.x * (blockDim.x >> 5) + w;
+  float* ws = smem + (size_t)w * BATCH * h;
+  int r, sb, cnt, j = -1;
+  if (item < n) {
+    r = item;
+    sb = ptr[r];
+    cnt = ptr[r + 1] - sb;
+    if (cnt > BATCH) return;   // the segments'
+  } else if (item < n + nseg) {
+    int se, i;
+    j = item - n;
+    segment(ptr, plan, nlong, BATCH, j, r, sb, se, i);
+    cnt = se - sb;
+  } else {
+    return;
+  }
+  const int col = lane < cnt ? idx[sb + lane] : 0;
+  const float da = rows_batch<T, VB>(sc, shift, denom, g, x, r, sb, cnt, d,
+                                     h, ws, col, lane);
+  const float dah = da / (float)h;
+  for (int hh = 0; hh < h; ++hh) {
+    const float t = warp_sum(lane < cnt ? ws[lane * h + hh] * dah : 0.f);
+    if (lane == 0) {
+      if (j >= 0) pr[(size_t)j * h + hh] = t;
+      else rho[(size_t)r * h + hh] = t;
+    }
+    if (j < 0 && lane < cnt) ws[lane * h + hh] *= dah - t;
+  }
+  if (j >= 0) {
+    if (lane < cnt) dab[(size_t)j * BATCH + lane] = da;
+    return;
+  }
+  __syncwarp();
+  lane_sums(ws, kt, col, cnt, a, h, dq + (size_t)r * a, lane);
+}
+
+// a long row's segment j: rho from the row's partials in segment order
+// (the first segment writes rho[r]), ds from the kept da, the segment's dq
+// partial into pq [nseg, a]
+__global__ void __launch_bounds__(WPB * 32)
+bwd_rows_seg_dq(const int* __restrict__ ptr, const int* __restrict__ idx,
+                const float* __restrict__ sc, const float* __restrict__ shift,
+                const float* __restrict__ denom, const float* __restrict__ kt,
+                const int* __restrict__ plan, const float* __restrict__ dab,
+                const float* __restrict__ pr, float* __restrict__ pq,
+                float* __restrict__ rho, int nlong, int nseg, int a, int h) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + w;
+  if (j >= nseg) return;
+  float* ws = smem + (size_t)w * BATCH * h;
+  int r, sb, se, i;
+  segment(ptr, plan, nlong, BATCH, j, r, sb, se, i);
+  const int cnt = se - sb, p0 = plan[nlong + i], p1 = plan[nlong + i + 1];
+  const int col = lane < cnt ? idx[sb + lane] : 0;
+  const float dah = lane < cnt ? dab[(size_t)j * BATCH + lane] / (float)h
+                               : 0.f;
+  for (int hh = 0; hh < h; ++hh) {
+    float t = 0.f;
+    for (int s = p0; s < p1; ++s) t += pr[(size_t)s * h + hh];
+    if (j == p0 && lane == 0) rho[(size_t)r * h + hh] = t;
+    if (lane < cnt)
+      ws[lane * h + hh] =
+          alpha_of(sc, shift, denom, sb + lane, r, hh, h) * (dah - t);
+  }
+  __syncwarp();
+  lane_sums(ws, kt, col, cnt, a, h, pq + (size_t)j * a, lane);
 }
 
 // ---------------------------------------------------------------------
@@ -1158,24 +1323,7 @@ __device__ __forceinline__ void bwd_cols_batch(
     for (int hh = 0; hh < h; ++hh)
       ws[lane * h + hh] *= da / fh - __ldg(rho + (size_t)r * h + hh);
   __syncwarp();
-  constexpr int UQ = 8;   // q rows in flight
-  for (int i0 = 0; i0 < a; i0 += 32) {
-    const int i = i0 + lane;
-    const float* wi = ws + (i < a ? i / dkh : 0);
-    float s = 0.f;
-    for (int j0 = 0; j0 < cnt; j0 += UQ) {
-      float qv[UQ];
-#pragma unroll
-      for (int u = 0; u < UQ; ++u) {
-        const int rj = __shfl_sync(FULL, r, (j0 + u) & 31);
-        qv[u] = j0 + u < cnt && i < a ? to_f(q[(size_t)rj * a + i]) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < UQ; ++u)
-        if (j0 + u < cnt) s += wi[(j0 + u) * h] * qv[u];
-    }
-    if (i < a) dk_out[i] = s;
-  }
+  lane_sums(ws, q, r, cnt, a, h, dk_out, lane);
 }
 
 // B3's items, a warp each: the columns of at most BATCH slots (item c <
@@ -1507,37 +1655,6 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <typename T>
-cudaError_t run_fwd_res(const void* ptr, const void* idx, const void* q,
-                        const void* x, const void* kt, void* sc, void* shift,
-                        void* denom, void* out, int n, int d, int a, int h,
-                        cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)WPB * (a + 2 * h);
-  cudaError_t err = allow_smem(fwd_res_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  fwd_res_kernel<T><<<(n + WPB - 1) / WPB, WPB * 32, smem, s>>>(
-      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
-      (const float*)kt, (float*)sc, (float*)shift, (float*)denom, (T*)out, n,
-      d, a, h);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t run_bwd_rows(const void* ptr, const void* idx, const void* sc,
-                         const void* shift, const void* denom, const void* g,
-                         const void* x, const void* kt, void* dab, void* dq,
-                         void* rho, int n, int d, int a, int h,
-                         cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)WPB * (d + a + 3 * h);
-  cudaError_t err = allow_smem(bwd_rows_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  bwd_rows_kernel<T><<<(n + WPB - 1) / WPB, WPB * 32, smem, s>>>(
-      (const int*)ptr, (const int*)idx, (const float*)sc,
-      (const float*)shift, (const float*)denom, (const T*)g, (const T*)x,
-      (const float*)kt, (float*)dab, (float*)dq, (float*)rho, n, d, a, h);
-  return cudaGetLastError();
-}
-
 // T and VB (bytes per gathered load) of a walk launch: float with 4 or 8,
 // bfloat16 with 2, 4 or 8; f(T*, integral_constant<VB>)
 template <typename F>
@@ -1566,6 +1683,93 @@ int resident_blocks(K kernel, int threads, size_t smem) {
       per_sm < 1)
     per_sm = 1;
   return per_sm * sm_count();
+}
+
+// the rows of more than BATCH edges of a flash or (RES) training-forward
+// launch, in segments of `seg` edges: flash_seg_stats, flash_seg_sum and
+// seg_combine
+template <typename T, int VB, bool SQP, bool RES>
+cudaError_t run_flash_segs(const void* ptr, const void* idx, const void* q,
+                           const void* x, const void* kt, const void* ew,
+                           const void* gshift, const void* plan, void* st,
+                           void* part, void* sc, void* shift, void* denom,
+                           void* out, int otype, int d, int a, int h,
+                           int att_type, float ov2, float inv2l2, int kvec,
+                           int wpb, int seg, int nlong, int nseg,
+                           cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)wpb * flash_warp_floats(a, h);
+  const int grid = (nseg + wpb - 1) / wpb;
+  cudaError_t err = allow_smem(flash_seg_stats<T, SQP, RES>, smem);
+  if (err != cudaSuccess) return err;
+  flash_seg_stats<T, SQP, RES><<<grid, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
+      (const float*)ew, (const float*)gshift, (const int*)plan, (float*)st,
+      (float*)sc, nlong, nseg, a, h, att_type, ov2, inv2l2, kvec, seg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(flash_seg_sum<T, VB, SQP, RES>, smem)) != cudaSuccess)
+    return err;
+  flash_seg_sum<T, VB, SQP, RES><<<grid, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
+      (const float*)kt, (const float*)ew, (const float*)gshift,
+      (const int*)plan, (const float*)st, (const float*)sc, (float*)shift,
+      (float*)denom, (float*)part, nlong, nseg, d, a, h, att_type, ov2,
+      inv2l2, kvec, seg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  seg_combine<<<(nlong + WPB - 1) / WPB, WPB * 32, 0, s>>>(
+      (const int*)plan, (const float*)part, nullptr, out, otype, nlong, d);
+  return cudaGetLastError();
+}
+
+template <typename T, int VB, bool KV>
+cudaError_t run_fwd_res(const void* ptr, const void* idx, const void* q,
+                        const void* x, const void* kt, const void* plan,
+                        void* st, void* part, void* sc, void* shift,
+                        void* denom, void* out, int n, int d, int a, int h,
+                        int wpb, int seg, int nlong, int nseg,
+                        cudaStream_t s) {
+  const int otype = std::is_same<T, float>::value ? 0 : 1;
+  const size_t fsmem = sizeof(float) * (size_t)wpb * (BATCH * h + a);
+  cudaError_t err = allow_smem(fwd_res_kernel<T, VB, KV>, fsmem);
+  if (err != cudaSuccess) return err;
+  fwd_res_kernel<T, VB, KV><<<(n + wpb - 1) / wpb, wpb * 32, fsmem, s>>>(
+      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
+      (const float*)kt, (float*)sc, (float*)shift, (float*)denom, out, otype,
+      n, d, a, h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nseg == 0) return err;
+  return run_flash_segs<T, VB, false, true>(
+      ptr, idx, q, x, kt, nullptr, nullptr, plan, st, part, sc, shift, denom,
+      out, otype, d, a, h, 0, 0.f, 0.f, KV ? 1 : 0, wpb, seg, nlong, nseg, s);
+}
+
+template <typename T, int VB>
+cudaError_t run_bwd_rows(const void* ptr, const void* idx, const void* sc,
+                         const void* shift, const void* denom, const void* g,
+                         const void* x, const void* kt, const void* plan,
+                         void* dab, void* pr, void* pq, void* dq, void* rho,
+                         int n, int d, int a, int h, int wpb, int nlong,
+                         int nseg, cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)wpb * BATCH * h;
+  cudaError_t err = allow_smem(bwd_rows_kernel<T, VB>, smem);
+  if (err != cudaSuccess) return err;
+  const int items = n + nseg;
+  bwd_rows_kernel<T, VB><<<(items + wpb - 1) / wpb, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const float*)sc,
+      (const float*)shift, (const float*)denom, (const T*)g, (const T*)x,
+      (const float*)kt, (const int*)plan, (float*)dab, (float*)pr,
+      (float*)dq, (float*)rho, n, d, a, h, nlong, nseg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nseg == 0) return err;
+  if ((err = allow_smem(bwd_rows_seg_dq, smem)) != cudaSuccess) return err;
+  bwd_rows_seg_dq<<<(nseg + wpb - 1) / wpb, wpb * 32, smem, s>>>(
+      (const int*)ptr, (const int*)idx, (const float*)sc,
+      (const float*)shift, (const float*)denom, (const float*)kt,
+      (const int*)plan, (const float*)dab, (const float*)pr, (float*)pq,
+      (float*)rho, nlong, nseg, a, h);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  seg_combine<<<(nlong + WPB - 1) / WPB, WPB * 32, 0, s>>>(
+      (const int*)plan, (const float*)pq, nullptr, dq, 0, nlong, a);
+  return cudaGetLastError();
 }
 
 template <typename T, int VB, bool KV>
@@ -1648,25 +1852,10 @@ cudaError_t run_flash(const void* ptr, const void* idx, const void* q,
       d, a, h, att_type, ov2, inv2l2, kvec);
   err = cudaGetLastError();
   if (err != cudaSuccess || nseg == 0) return err;
-  const int grid = (nseg + wpb - 1) / wpb;
-  if ((err = allow_smem(flash_seg_stats<T, SQP>, smem)) != cudaSuccess)
-    return err;
-  flash_seg_stats<T, SQP><<<grid, wpb * 32, smem, s>>>(
-      (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
-      (const float*)ew, (const float*)gshift, (const int*)plan, (float*)st,
-      nlong, nseg, a, h, att_type, ov2, inv2l2, kvec, seg);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = allow_smem(flash_seg_sum<T, VB, SQP>, smem)) != cudaSuccess)
-    return err;
-  flash_seg_sum<T, VB, SQP><<<grid, wpb * 32, smem, s>>>(
-      (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
-      (const float*)kt, (const float*)ew, (const float*)gshift,
-      (const int*)plan, (const float*)st, (float*)part, nlong, nseg, d, a, h,
-      att_type, ov2, inv2l2, kvec, seg);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  seg_combine<<<(nlong + WPB - 1) / WPB, WPB * 32, 0, s>>>(
-      (const int*)plan, (const float*)part, nullptr, out, otype, nlong, d);
-  return cudaGetLastError();
+  return run_flash_segs<T, VB, SQP, false>(
+      ptr, idx, q, x, kt, ew, gshift, plan, st, part, nullptr, nullptr,
+      nullptr, out, otype, d, a, h, att_type, ov2, inv2l2, kvec, wpb, seg,
+      nlong, nseg, s);
 }
 
 template <typename T, int VB, bool PERCOL>
@@ -1788,40 +1977,57 @@ int gx_flash_attention(const void* ptr, const void* idx, const void* q,
 
 // The training forward. q [n, a] (pre-scaled) and x [n, d] in one dtype; kt
 // [n, a] float32; sc [E, h] float32 out (the scores, a residual); shift and
-// denom [n, h] float32 out; out [n, d] in x's dtype.
+// denom [n, h] float32 out; out [n, d] in x's dtype. vec_bytes as
+// gx_flash_attention's; kvec as gx_attention_bwd_cols's; wpb warps per
+// block, each with (BATCH h + a) floats of shared memory. Rows of more than
+// 32 edges go in segments of `seg` edges: plan as gx_flash_attention's, st
+// [nseg, 2h] and part [nseg, d] float32 scratch.
 int gx_attention_fwd_res(const void* ptr, const void* idx, const void* q,
-                         const void* x, const void* kt, void* sc, void* shift,
+                         const void* x, const void* kt, const void* plan,
+                         void* st, void* part, void* sc, void* shift,
                          void* denom, void* out, int n, int d, int a, int h,
-                         int dtype, void* stream) {
+                         int dtype, int vec_bytes, int kvec, int wpb, int seg,
+                         int nlong, int nseg, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (wpb < 1 || wpb > WPB) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)run_fwd_res<float>(ptr, idx, q, x, kt, sc, shift, denom, out,
-                                   n, d, a, h, s);
-  if (dtype == 1)
-    return (int)run_fwd_res<__nv_bfloat16>(ptr, idx, q, x, kt, sc, shift,
-                                           denom, out, n, d, a, h, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)by_width(dtype, vec_bytes, [&](auto t, auto vb) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    constexpr int VB = decltype(vb)::value;
+    return kvec ? run_fwd_res<T, VB, true>(ptr, idx, q, x, kt, plan, st, part,
+                                           sc, shift, denom, out, n, d, a, h,
+                                           wpb, seg, nlong, nseg, s)
+                : run_fwd_res<T, VB, false>(ptr, idx, q, x, kt, plan, st,
+                                            part, sc, shift, denom, out, n, d,
+                                            a, h, wpb, seg, nlong, nseg, s);
+  });
 }
 
 // The row-side backward over the CSR layout. sc, shift, denom from
-// gx_attention_fwd_res; g and x [n, d] in one dtype; kt [n, a] float32; dab
-// [E] float32 scratch; dq [n, a] and rho [n, h] float32 out (dq not yet
-// scaled by 1/sqrt(dk)).
+// gx_attention_fwd_res; g and x [n, d] in one dtype; kt [n, a] float32; dq
+// [n, a] and rho [n, h] float32 out (dq not yet scaled by 1/sqrt(dk)).
+// vec_bytes: the bytes of one g and x load (as gx_flash_attention's, for
+// both); wpb warps per block, each with BATCH * h floats of shared memory.
+// Rows of more than BATCH edges go in segments of BATCH: plan as
+// gx_attention_bwd_cols's, dab [nseg, BATCH], pr [nseg, h] and pq [nseg,
+// a] float32 scratch.
 int gx_attention_bwd_rows(const void* ptr, const void* idx, const void* sc,
                           const void* shift, const void* denom, const void* g,
-                          const void* x, const void* kt, void* dab, void* dq,
-                          void* rho, int n, int d, int a, int h, int dtype,
+                          const void* x, const void* kt, const void* plan,
+                          void* dab, void* pr, void* pq, void* dq, void* rho,
+                          int n, int d, int a, int h, int dtype,
+                          int vec_bytes, int wpb, int nlong, int nseg,
                           void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (wpb < 1 || wpb > WPB) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)run_bwd_rows<float>(ptr, idx, sc, shift, denom, g, x, kt, dab,
-                                    dq, rho, n, d, a, h, s);
-  if (dtype == 1)
-    return (int)run_bwd_rows<__nv_bfloat16>(ptr, idx, sc, shift, denom, g, x,
-                                            kt, dab, dq, rho, n, d, a, h, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)by_width(dtype, vec_bytes, [&](auto t, auto vb) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    constexpr int VB = decltype(vb)::value;
+    return run_bwd_rows<T, VB>(ptr, idx, sc, shift, denom, g, x, kt, plan,
+                               dab, pr, pq, dq, rho, n, d, a, h, wpb, nlong,
+                               nseg, s);
+  });
 }
 
 // The column-side backward over the CSC layout (ptr per column, idx the

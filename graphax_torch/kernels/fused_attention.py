@@ -29,9 +29,12 @@ per warp, loaded :func:`gather_width` bytes at a time. Long rows are
 walked in segments of ``ROW_SPLIT`` edges by a warp each and summed in
 segment order (:func:`row_split_plan`), so a hub row does not set the
 launch's length: flash's rows of more than one batch, attspmm's of more
-than ``ROW_SPLIT`` edges. ``attention_bwd_cols`` walks a CSC column so
-(the g rows gathered, longer columns in segments of one batch), and
-``attention_norm`` a row with a group of 8 lanes.
+than ``ROW_SPLIT`` edges. The training forward walks a row as flash
+does (rows over one batch in segments of ``ROW_SPLIT``), the row backward
+as attspmm does (rows over one batch in segments of one batch),
+``attention_bwd_cols`` a CSC column so (the g rows gathered, longer
+columns in segments of one batch), and ``attention_norm`` a row with a
+group of 8 lanes.
 
 Softmax shifts by each row's final max: graphax's online recurrence over
 its 128-row tiles gives the same values to f32 rounding, and bf16 ``e``
@@ -351,8 +354,8 @@ def flash_warps(a: int, heads: int) -> int:
     return min(_WPB, _SMEM_LIMIT // (4 * (a + 2 * heads + _BATCH * heads)))
 
 
-def bwd_cols_warps(heads: int) -> int:
-    """Warps per block of the column backward: up to 8, each with a
+def batch_warps(heads: int) -> int:
+    """Warps per block of the two backward kernels: up to 8, each with a
     batch's 32 x H weights in shared memory within one block's limit; 0
     where not even one fits."""
     return min(_WPB, _SMEM_LIMIT // (4 * _BATCH * heads))
@@ -686,8 +689,11 @@ def train_supported(cfg, d: int) -> bool:
     """The twin of graphax's `pallas_bwd_supported` (`:841-849`): the
     configs whose RHS trains through the hand-written backward (scaled_dot,
     row softmax, no squareplus, no reweight, no mix_features), within the
-    flash gate (the evaluation forward of the same solve) and one block's
-    shared memory for the backward kernels' staged rows."""
+    flash gate (the evaluation forward of the same solve) and the bound
+    that the first backward kernels' staged rows set, ``4 WPB (2 D + 3 A +
+    H)`` bytes within one block's shared memory. The kernels now stage
+    only a batch's weights (:func:`batch_warps`), so the gate can widen
+    with parity tests of its own (ROADMAP Queue 1, item 6)."""
     a, h = cfg.attention_dim, cfg.heads
     return (cfg.attention_type == "scaled_dot"
             and cfg.attention_norm_idx == 0
@@ -741,7 +747,12 @@ def attention_fwd_res(layout: Layout, q: torch.Tensor, x: torch.Tensor,
     want_residuals=True)`, `:1070-1109`) for scaled_dot scores under a row
     softmax: ``(out, scores, shift, denom)`` as the plain version. ``q [N,
     A]`` (pre-scaled) and ``x [N, D]`` in one dtype, ``kt [N, A]`` f32.
-    The weights are K3's: ``rnd(mean_h e / (denom or 1))``, not flash's."""
+    The weights are K3's: ``rnd(mean_h e / (denom or 1))``, not flash's.
+    The kernel gives a warp each row of at most 32 edges, one edge a lane,
+    the scores as flash takes them; longer rows go in segments of
+    ``ROW_SPLIT`` edges through flash's segment kernels
+    (:func:`row_split_plan`: each one's scores, max and sum, then its
+    partial sums, added in order)."""
     _check_scores("attention_fwd_res", q, kt, heads, "scaled_dot")
     _no_grad("attention_fwd_res", q, x, kt)
     if not x.is_cuda:
@@ -752,17 +763,28 @@ def attention_fwd_res(layout: Layout, q: torch.Tensor, x: torch.Tensor,
                          "N and dtype")
     _check_train("attention_fwd_res", layout, x, kt, heads)
     _check_operands("attention_fwd_res", x, q)
+    a = q.shape[1]
+    wpb = flash_warps(a, heads)
+    if wpb < 1:
+        raise ValueError(f"attention_fwd_res: A={a}, H={heads} exceed one "
+                         "block's shared memory")
     sc = torch.empty((layout.num_slots, heads), dtype=torch.float32,
                      device=x.device)
     shift = torch.empty((n, heads), dtype=torch.float32, device=x.device)
     denom = torch.empty_like(shift)
     out = torch.empty_like(x)
+    # rows of more than one batch of edges are walked in segments
+    plan, nlong, nseg = _row_plan(layout, _BATCH, ROW_SPLIT)
+    st = torch.empty((nseg, 2 * heads), dtype=torch.float32, device=x.device)
+    part = torch.empty((nseg, d), dtype=torch.float32, device=x.device)
     lib = _build.library("fused_attention")
     err = lib.gx_attention_fwd_res(
         layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
-        x.data_ptr(), kt.data_ptr(), sc.data_ptr(), shift.data_ptr(),
-        denom.data_ptr(), out.data_ptr(), n, d, q.shape[1], heads,
-        _DTYPES[x.dtype], _build.stream_ptr(x))
+        x.data_ptr(), kt.data_ptr(), plan.data_ptr(), st.data_ptr(),
+        part.data_ptr(), sc.data_ptr(), shift.data_ptr(), denom.data_ptr(),
+        out.data_ptr(), n, d, a, heads, _DTYPES[x.dtype], gather_width(x),
+        score_vec(q, kt, heads, "scaled_dot"), wpb, ROW_SPLIT, nlong, nseg,
+        _build.stream_ptr(x))
     _build.check(err, "attention_fwd_res")
     _build.LAUNCHES["attention_fwd_res"] += 1
     return out, sc, shift, denom
@@ -790,7 +812,11 @@ def attention_bwd_rows(layout: Layout, sc: torch.Tensor, shift: torch.Tensor,
     """graphax's B1 + B2 (`_bwd1_kernel` :576, `_make_bwd2_kernel` :659)
     over the CSR ``layout``: ``(dq, rho)`` as the plain version. ``sc``,
     ``shift``, ``denom`` from :func:`attention_fwd_res`; the cotangent ``g``
-    and ``x`` [N, D] in one dtype; ``kt`` [N, A] f32."""
+    and ``x`` [N, D] in one dtype; ``kt`` [N, A] f32. The kernel gives a
+    warp each row of at most 32 edges, one edge a lane (the x rows
+    gathered two at a time, da by a warp sum an edge); longer rows go
+    in segments of 32 (:func:`row_split_plan`: da and the rho partials,
+    then ds and the dq partials, added in order)."""
     _no_grad("attention_bwd_rows", g, x, kt)
     if not x.is_cuda:
         return attention_bwd_rows_plain(layout, sc, shift, denom, g, x, kt,
@@ -802,15 +828,26 @@ def attention_bwd_rows(layout: Layout, sc: torch.Tensor, shift: torch.Tensor,
     if sc.dtype != torch.float32 or sc.shape != (layout.num_slots, heads):
         raise ValueError("attention_bwd_rows: scores must be [E, H] f32")
     _check_operands("attention_bwd_rows", x, g, sc)
-    dab = torch.empty(layout.num_slots, dtype=torch.float32, device=x.device)
+    wpb = batch_warps(heads)
+    if wpb < 1:
+        raise ValueError(f"attention_bwd_rows: H={heads} exceeds one "
+                         "block's shared memory")
+    a = kt.shape[1]
+    # rows of more than one batch of edges are walked in segments of one
+    plan, nlong, nseg = _row_plan(layout, _BATCH, _BATCH)
+    dab = torch.empty((nseg, _BATCH), dtype=torch.float32, device=x.device)
+    pr = torch.empty((nseg, heads), dtype=torch.float32, device=x.device)
+    pq = torch.empty((nseg, a), dtype=torch.float32, device=x.device)
     dq = torch.empty_like(kt)
     rho = torch.empty_like(shift)
     lib = _build.library("fused_attention")
     err = lib.gx_attention_bwd_rows(
         layout.ptr.data_ptr(), layout.idx.data_ptr(), sc.data_ptr(),
         shift.data_ptr(), denom.data_ptr(), g.data_ptr(), x.data_ptr(),
-        kt.data_ptr(), dab.data_ptr(), dq.data_ptr(), rho.data_ptr(), n, d,
-        kt.shape[1], heads, _DTYPES[x.dtype], _build.stream_ptr(x))
+        kt.data_ptr(), plan.data_ptr(), dab.data_ptr(), pr.data_ptr(),
+        pq.data_ptr(), dq.data_ptr(), rho.data_ptr(), n, d, a, heads,
+        _DTYPES[x.dtype], min(gather_width(g), gather_width(x)), wpb, nlong,
+        nseg, _build.stream_ptr(x))
     _build.check(err, "attention_bwd_rows")
     _build.LAUNCHES["attention_bwd_rows"] += 1
     return dq, rho
@@ -856,7 +893,7 @@ def attention_bwd_cols(layout: Layout, q: torch.Tensor, g: torch.Tensor,
         raise ValueError("attention_bwd_cols: q [N, A] and g [N, D] must "
                          "share x's dtype")
     _check_operands("attention_bwd_cols", x, q, g)
-    wpb = bwd_cols_warps(heads)
+    wpb = batch_warps(heads)
     if wpb < 1:
         raise ValueError(f"attention_bwd_cols: H={heads} exceeds one "
                          "block's shared memory")

@@ -47,6 +47,21 @@ bf16:
   made to match); with 3 or 5 blocks an SM (``NM_MIN_BLOCKS``, 4
   intact).
 
+``--only fwd_res_bwd_rows``: the training forward (attention_fwd_res)
+and the row backward (attention_bwd_rows), bf16, on the CSR GRAND-nl
+model's operands (its encoded state, q, the K table, a cotangent from a
+seed; the backward on the plain forward's residuals) over the arxiv CSR:
+intact; without the x gathers (both kernels); without the forward's
+scores (alpha from a score of 0); without both; without the backward's
+dq sums; the forward with 2 and 8 x rows in flight (the
+walk's ``U``, 4 intact) and 3 and 5 blocks an SM (``FR_MIN_BLOCKS``, 4
+intact); the backward with 1 and 4 x rows in flight (``BR_ROWS``, 2
+intact) and 4, 5 and 8 blocks an SM (``BR_MIN_BLOCKS``, 6 intact), and
+with 4 rows and 4 blocks (the first build's); and on
+``chip_smoke.hub_graph``'s CSR (hub rows in segments) intact, the
+forward with segments of 32, 64, 128 and 256 edges (``ROW_SPLIT`` 128
+intact; the backward's are one batch of 32).
+
 ``--only kproj_slab``: the CUDA-core K projection and bf16 win_bwd_slab:
 
 - ``kproj_kernel`` at the arxiv widths (N 169,343, D 162, A 32: 8-byte
@@ -68,7 +83,7 @@ bits, and called through the same C interface as the port. One JSON
 line per measurement (device ms as chip_smoke's ``time_ms`` takes them),
 then the card's nvidia-smi line. Run from the root of the repo on the
 card: ``python3 scripts/torch_kernel_ablations.py [--only
-winatt_gmax|kproj_slab|bwd_cols_norm]``.
+winatt_gmax|kproj_slab|bwd_cols_norm|fwd_res_bwd_rows]``.
 """
 
 import ctypes
@@ -142,8 +157,8 @@ B3 = ("fused_attention", "B3_OFF", [
      "      const float s = (B3_OFF & 2) ? 0.f : gx_att::score_head<T, true>("),
     ("    for (int j0 = 0; j0 < cnt; j0 += UQ) {",
      "    for (int j0 = 0; j0 < (B3_OFF & 4 ? 0 : cnt); j0 += UQ) {"),
-    ("    if (i < a) dk_out[i] = s;",
-     "    if (!(B3_OFF & 8) && i < a) dk_out[i] = s;"),
+    ("    if (i < a) out[i] = s;",
+     "    if (!(B3_OFF & 8) && i < a) out[i] = s;"),
     ("    store_chunk<T, VB, VPL>(acc, dxv_out, 0, nullptr, 0, v0, nvec, "
      "lane);",
      "    if (!(B3_OFF & 8)) store_chunk<T, VB, VPL>(acc, dxv_out, 0, "
@@ -156,6 +171,24 @@ NORM = ("fused_attention", "NORM_OFF", [
     ("        eo[(size_t)e * h + hh] = v;",
      "        if (!(NORM_OFF & 2)) eo[(size_t)e * h + hh] = v;"),
 ], ())
+
+# the training forward and the row backward: 1 the forward's x gathers, 2
+# its scores, 4 the backward's x gathers, 8 its dq sums
+FRBR = ("fused_attention", "FRBR_OFF", [
+    ("    gather<T, VB, VPL, U<VB>>(acc, x, col, wt, len, d, v0, nvec, lane);",
+     "    if (!(FRBR_OFF & 1)) gather<T, VB, VPL, U<VB>>(acc, x, col, wt, len, "
+     "d, v0, nvec, lane);"),
+    ("    batch_scores(qs, kt, idx, nullptr, beg, len, a, h, 0, 0.f, 0.f,",
+     "    if (!(FRBR_OFF & 2)) batch_scores(qs, kt, idx, nullptr, beg, len, "
+     "a, h, 0, 0.f, 0.f,"),
+    ("      load_rows<T, VB, VPL, U>(raw, x, col, e0, cnt, d, v0, nvec, lane);",
+     "      if (!(FRBR_OFF & 4)) load_rows<T, VB, VPL, U>(raw, x, col, e0, "
+     "cnt, d, v0, nvec, lane);"),
+    ("  lane_sums(ws, kt, col, cnt, a, h, dq + (size_t)r * a, lane);",
+     "  if (!(FRBR_OFF & 8)) lane_sums(ws, kt, col, cnt, a, h, "
+     "dq + (size_t)r * a, lane);"),
+], ())
+
 
 def const(name: str, old: int, new: int) -> tuple:
     """The substitution that sets the source's ``constexpr int name``
@@ -205,6 +238,26 @@ NORM_CASES = {"intact": 0, "no_scores": 1, "no_e_stores": 2,
                  for k, c in NORM_CUTS.items()},
               **{f"min_blocks_{m}": (0, [const("NM_MIN_BLOCKS", 4, m)])
                  for m in (3, 5)}}
+
+# x rows in flight in the forward's gather (the walk's U, shared with
+# flash and attspmm: only the forward is timed with it changed)
+FR_ROWS = "template <int VB> constexpr int U = VB <= 4 ? 4 : 2;"
+FRBR_CASES = {
+    "intact": 0, "no_x_gather": 1 | 4, "no_scores": 2,
+    "no_scores_or_gather": 3, "no_dq_sums": 8,
+    **{f"fr_rows_{u}": (0, [(FR_ROWS, FR_ROWS.replace("4 ? 4 : 2", v))])
+       for u, v in ((2, "4 ? 2 : 1"), (8, "4 ? 8 : 4"))},
+    **{f"fr_min_blocks_{m}": (0, [const("FR_MIN_BLOCKS", 4, m)])
+       for m in (3, 5)},
+    **{f"br_rows_{u}": (0, [const("BR_ROWS", 2, u)]) for u in (1, 4)},
+    **{f"br_min_blocks_{m}": (0, [const("BR_MIN_BLOCKS", 6, m)])
+       for m in (4, 5, 8)},
+    "br_rows_4_min_blocks_4": (0, [const("BR_ROWS", 2, 4),
+                                   const("BR_MIN_BLOCKS", 6, 4)])}
+# the forward's segment lengths tried on the hub graph (the host's plan
+# made to match; ROW_SPLIT intact)
+FR_SEGS = (32, 64, 128, 256)
+
 
 def substitute(text: str, subs, what: str) -> str:
     """``text`` with each (old, new) of ``subs`` replaced, each ``old``
@@ -416,7 +469,7 @@ def bwd_cols_norm() -> None:
                 pk.data_ptr(), pv.data_ptr(), dk.data_ptr(), dxv.data_ptr(),
                 n, d, a, heads, 1, fa.gather_width(x),
                 fa.score_vec(q, kt, heads, "scaled_dot"),
-                fa.bwd_cols_warps(heads), nlong, nseg, s(x))
+                fa.batch_warps(heads), nlong, nseg, s(x))
         row = dict(kernel="attention_bwd_cols", dtype="bfloat16",
                    graph=label, E=lay.num_slots)
         for case, lib in b3_libs.items():
@@ -469,6 +522,93 @@ def bwd_cols_norm() -> None:
             row[case + "_ms"] = cs.time_ms(
                 lambda: lib.gx_attention_norm(*args))
         print(json.dumps(row), flush=True)
+
+
+def fwd_res_bwd_rows() -> None:
+    """The ``fwd_res_bwd_rows`` group of the module's docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    libs = build(FRBR, FRBR_CASES)
+    s = _build.stream_ptr
+    data = get_dataset("ogbn-arxiv")
+    tr = cs.nl_trainer(best_config("ogbn-arxiv", community_window=0,
+                                   block="constant", function="transformer"),
+                       data)
+    g, cfg, att = tr.data.graph, tr.cfg, tr.model.block.func.att
+    heads, bf = cfg.heads, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    with torch.no_grad():
+        tr.model.eval()
+        x = tr.model.encode(tr.data.x, train=False).to(bf).contiguous()
+        n, d = x.shape
+        c = torch.randn(n, d, generator=gen, device="cuda").to(bf)
+        p = fa.prep_inputs(cfg, att, g, x)
+        q = p["q"]
+        kt = fa.attention_kproj(x, p["wk"], p["bk"])
+    a = q.shape[1]
+    kvec = fa.score_vec(q, kt, heads, "scaled_dot")
+    hub = cs.hub_graph("cuda")
+    for label, lay in (("arxiv CSR", g.csr), ("hub CSR", hub.csr)):
+        with torch.no_grad():
+            want = fa.attention_fwd_res_plain(lay, q, x, kt, heads)
+            _, sc, shift, denom = want
+            want_b = fa.attention_bwd_rows_plain(lay, sc, shift, denom, c, x,
+                                                 kt, heads)
+        got = [torch.empty_like(t) for t in want]
+        dq, rho = torch.empty_like(kt), torch.empty_like(shift)
+        fwd = dict(kernel="attention_fwd_res", dtype="bfloat16", graph=label,
+                   E=lay.num_slots)
+        bwd = dict(kernel="attention_bwd_rows", dtype="bfloat16",
+                   graph=label, E=lay.num_slots)
+        segs = FR_SEGS if label == "hub CSR" else (fa.ROW_SPLIT,)
+        for case, lib in libs.items():
+            if label != "arxiv CSR" and case != "intact":
+                continue
+            for seg in segs:
+                plan, nlong, nseg = fa._row_plan(lay, fa._BATCH, seg)
+                st = torch.empty(nseg, 2 * heads, device="cuda")
+                part = torch.empty(nseg, d, device="cuda")
+                fargs = (lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
+                         x.data_ptr(), kt.data_ptr(), plan.data_ptr(),
+                         st.data_ptr(), part.data_ptr(), got[1].data_ptr(),
+                         got[2].data_ptr(), got[3].data_ptr(),
+                         got[0].data_ptr(), n, d, a, heads, 1,
+                         fa.gather_width(x), kvec, fa.flash_warps(a, heads),
+                         seg, nlong, nseg, s(x))
+                _build.check(lib.gx_attention_fwd_res(*fargs), case)
+                torch.cuda.synchronize()
+                tag = case if seg == fa.ROW_SPLIT else f"seg_{seg}"
+                if case == "intact":
+                    fwd[tag + "_max_abs_err"] = max(
+                        float((u.float() - v.float()).abs().max())
+                        for u, v in zip(got, want))
+                fwd[tag + "_ms"] = cs.time_ms(
+                    lambda: lib.gx_attention_fwd_res(*fargs))
+            plan, nlong, nseg = fa._row_plan(lay, fa._BATCH, fa._BATCH)
+            scratch = [torch.empty(nseg, k, device="cuda")
+                       for k in (fa._BATCH, heads, a)]
+            bargs = (lay.ptr.data_ptr(), lay.idx.data_ptr(), sc.data_ptr(),
+                     shift.data_ptr(), denom.data_ptr(), c.data_ptr(),
+                     x.data_ptr(), kt.data_ptr(), plan.data_ptr(),
+                     *(t.data_ptr() for t in scratch), dq.data_ptr(),
+                     rho.data_ptr(), n, d, a, heads, 1,
+                     min(fa.gather_width(c), fa.gather_width(x)),
+                     fa.batch_warps(heads), nlong, nseg, s(x))
+            _build.check(lib.gx_attention_bwd_rows(*bargs), case)
+            torch.cuda.synchronize()
+            if case == "intact":
+                bwd["intact_max_abs_err"] = max(
+                    float((dq - want_b[0]).abs().max()),
+                    float((rho - want_b[1]).abs().max()))
+            bwd[case + "_ms"] = cs.time_ms(
+                lambda: lib.gx_attention_bwd_rows(*bargs))
+        print(json.dumps(fwd), flush=True)
+        print(json.dumps(bwd), flush=True)
 
 
 def kproj_slab() -> None:
@@ -546,7 +686,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("winatt_gmax", "kproj_slab",
-                                       "bwd_cols_norm"),
+                                       "bwd_cols_norm", "fwd_res_bwd_rows"),
                     default=None, help="one group of ablations")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -564,6 +704,8 @@ def main() -> int:
         kproj_slab()
     if args.only in (None, "bwd_cols_norm"):
         bwd_cols_norm()
+    if args.only in (None, "fwd_res_bwd_rows"):
+        fwd_res_bwd_rows()
     print(cs.smi_line(), flush=True)
     return 0
 

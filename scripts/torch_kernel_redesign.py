@@ -3,8 +3,8 @@ or two checkouts of the repo: win_bwd_dense, attention_kproj and win_matmul
 at the ogbn-arxiv preset's, flash_dense at Computers'; the CSR
 flash_attention and attention_attspmm at GRAND-nl's arxiv shapes, on a
 hub graph and on a power-law graph; spmm_csr, the pin, win_bwd_slab; K5
-(winatt) and attention_gmax at path A's shapes; attention_bwd_cols and
-attention_norm at GRAND-nl's.
+(winatt) and attention_gmax at path A's shapes; attention_bwd_cols,
+attention_norm, attention_fwd_res and attention_bwd_rows at GRAND-nl's.
 
 For each checkout (``--root``, default this one; ``--parent DIR`` adds a
 second, run in turns parent, this, this, parent, each in its own process):
@@ -121,16 +121,30 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   ``colnorm_attention_ax_fast``; device and host ms); three evaluations of
   each path per NFE.
 
-With ``--parent``, this checkout's ``winatt``, ``gmax``, ``bwd_cols`` and
-``norm`` runs also call the parent's kernels (built by the parent's
-``_build``) on the same inputs: whether K5's out and den, gmax's value,
-B3's dk and dxv and the norm's e and den are equal bit for bit, the
-largest difference, the rows that differ and the shortest of them.
+- (``fwd_res``, ``bwd_rows``) attention_fwd_res, or attention_bwd_rows on
+  its residuals, on the CSR GRAND-nl model's own operands (its encoded
+  state, q, the K table, a cotangent from a seed), bf16 and f32: on the
+  arxiv CSR, ``chip_smoke.hub_graph``'s CSR and :func:`pareto_graph`'s
+  (their hub rows walked in segments), each graph's shares of rows and
+  edges over 32 and 128 edges, each with its errors against the plain
+  version and their ratios to chip_smoke's tolerances (fwd_res: whether
+  the shift is the plain version's exactly), its bound and all-miss count
+  (x and K gathered per edge); then one profiled CSR GRAND-nl train step
+  (its adjoint's device ms, and the launches and device ms of the
+  training kernels).
+
+With ``--parent``, this checkout's ``winatt``, ``gmax``, ``bwd_cols``,
+``norm``, ``fwd_res`` and ``bwd_rows`` runs also call the parent's
+kernels (built by the parent's ``_build``) on the same inputs: whether
+K5's out and den, gmax's value, B3's dk and dxv, the norm's e and den,
+fwd_res's out, scores, shift and denom and bwd_rows' dq and rho are equal
+bit for bit, the largest difference, the rows that differ and the
+shortest of them (of a score: its row's length).
 
 One JSON line per measurement, then the card's nvidia-smi line. Run from
 the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
 DIR] [--only windowed|attention|spmm|pin|kproj|slab|winatt|gmax|bwd_cols|
-norm]``; a parent is a
+norm|fwd_res|bwd_rows]``; a parent is a
 ``git
 archive`` of another commit unpacked in a directory that ``.gitignore``
 lists.
@@ -223,6 +237,9 @@ def measure(root: str, only=None, against=None) -> None:
         bwd_cols(emit, against)
     if only in (None, "norm"):
         norm(emit, against)
+    for which in ("fwd_res", "bwd_rows"):
+        if only in (None, which):
+            row_kernels(emit, which, against)
 
 
 def windowed(emit) -> None:
@@ -1436,6 +1453,145 @@ def bwd_cols(emit, parent=None) -> None:
                          "fwd_res_kernel", "seg_combine"))
 
 
+def row_kernels(emit, which: str, parent=None) -> None:
+    """The ``fwd_res`` or ``bwd_rows`` measurements of the module's
+    docstring (``which``)."""
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    here = this_chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    data = get_dataset("ogbn-arxiv")
+    tr = cs.nl_trainer(best_config("ogbn-arxiv", community_window=0,
+                                   block="constant", function="transformer"),
+                       data)
+    plib = parent_library(parent, "fused_attention") if parent else None
+    cfg, att, g = tr.cfg, tr.model.block.func.att, tr.data.graph
+    heads = cfg.heads
+    tr.model.eval()
+    with torch.no_grad():
+        x_enc = tr.model.encode(tr.data.x, train=False)
+    n, d = x_enc.shape
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cot = torch.randn(n, d, generator=gen, device="cuda")
+    hub, par = here.hub_graph("cuda"), pareto_graph("cuda")
+    cases = (("arxiv CSR", g.csr), ("hub CSR", hub.csr),
+             ("pareto CSR", par.csr))
+    for label, lay in cases:
+        emit(graph=label, N=lay.num_rows, E=lay.num_slots,
+             rows=here.degree_shares(lay.ptr, (32, 128)))
+    tt = here.TOL_TRAIN
+
+    def ratio(got, want, tol):
+        return float(((got.float() - want.float()).abs() / (
+            tol[0] + tol[1] * want.float().abs())).max())
+
+    for dt in (torch.bfloat16, torch.float32):
+        name, b = str(dt)[6:], dt.itemsize
+        x = x_enc.to(dt).contiguous()
+        c = cot.to(dt).contiguous()
+        with torch.no_grad():
+            p = fa.prep_inputs(cfg, att, g, x)
+            q = p["q"]
+            kt = fa.attention_kproj(x, p["wk"], p["bk"])
+            a = q.shape[1]
+            to = here.tol_rounded(name, x)
+            for label, lay in cases:
+                e, tabs = lay.num_slots, 4 * n * heads
+                idx_bytes = 4 * e + 4 * (n + 1)
+                deg = (lay.ptr[1:] - lay.ptr[:-1]).long()
+                # x and K gathered once per edge instead of once
+                miss = e * (d * b + 4 * a) - n * d * b - 4 * n * a
+                res = fa.attention_fwd_res(lay, q, x, kt, heads)
+                out, sc, shift, denom = res
+                if which == "fwd_res":
+                    fn = lambda: fa.attention_fwd_res(  # noqa: E731
+                        lay, q, x, kt, heads)
+                    plain = lambda: fa.attention_fwd_res_plain(  # noqa
+                        lay, q, x, kt, heads)
+                    want = plain()
+                    nbytes = (2 * n * d * b + n * a * b + 4 * n * a
+                              + idx_bytes + 4 * e * heads + 2 * tabs)
+                    ops = e * (2.0 * a + 4.0 * heads + 2.0 * d)
+                    errs = dict(
+                        out_max_abs_err=float(
+                            (out.float() - want[0].float()).abs().max()),
+                        out_tol_ratio=ratio(out, want[0], to),
+                        table_tol_ratio=max(ratio(u, v, tt) for u, v in zip(
+                            res[1:], want[1:])),
+                        shift_equal=bool(torch.equal(shift, want[2])))
+                else:
+                    args = (lay, sc, shift, denom, c, x, kt, heads)
+                    fn = lambda: fa.attention_bwd_rows(*args)  # noqa: E731
+                    plain = lambda: fa.attention_bwd_rows_plain(  # noqa
+                        *args)
+                    got, want = fn(), plain()
+                    nbytes = (4 * e * heads + 2 * tabs + 2 * n * d * b
+                              + 4 * n * a + idx_bytes + 4 * n * a + tabs)
+                    ops = e * (2.0 * d + 8.0 * heads + 2.0 * a)
+                    errs = dict(
+                        dq_max_abs_err=float((got[0] - want[0]).abs().max()),
+                        dq_tol_ratio=ratio(got[0], want[0], tt),
+                        rho_tol_ratio=ratio(got[1], want[1], tt))
+                bms, by = here.bound_ms(nbytes, ops, name)
+                row = dict(kernel="attention_" + which, graph=label,
+                           dtype=name, E=e, ms=here.time_ms(fn),
+                           plain_ms=here.time_ms(plain, reps=5),
+                           bound_ms=bms, bound_by=by,
+                           all_miss_ms=(nbytes + miss)
+                           / here.HBM_BYTES_PER_S * 1e3, **errs)
+                if plib is not None and which == "fwd_res":
+                    old = [torch.empty_like(t) for t in res]
+                    pargs = (lay.ptr.data_ptr(), lay.idx.data_ptr(),
+                             q.data_ptr(), x.data_ptr(), kt.data_ptr(),
+                             old[1].data_ptr(), old[2].data_ptr(),
+                             old[3].data_ptr(), old[0].data_ptr(), n, d, a,
+                             heads, fa._DTYPES[dt], _build.stream_ptr(x))
+                    _build.check(plib.gx_attention_fwd_res(*pargs),
+                                 "parent attention_fwd_res")
+                    row.update(parent_ms=here.time_ms(
+                        lambda: plib.gx_attention_fwd_res(*pargs)))
+                    for k, nm in enumerate(("out", "sc", "shift", "denom")):
+                        row["parent_" + nm] = differ(
+                            res[k], old[k], deg[lay.seg] if nm == "sc"
+                            else deg)
+                elif plib is not None:
+                    old = (torch.empty_like(got[0]), torch.empty_like(got[1]))
+                    dab = torch.empty(e, device="cuda")
+                    pargs = (lay.ptr.data_ptr(), lay.idx.data_ptr(),
+                             sc.data_ptr(), shift.data_ptr(),
+                             denom.data_ptr(), c.data_ptr(), x.data_ptr(),
+                             kt.data_ptr(), dab.data_ptr(), old[0].data_ptr(),
+                             old[1].data_ptr(), n, d, a, heads,
+                             fa._DTYPES[dt], _build.stream_ptr(x))
+                    _build.check(plib.gx_attention_bwd_rows(*pargs),
+                                 "parent attention_bwd_rows")
+                    row.update(
+                        parent_ms=here.time_ms(
+                            lambda: plib.gx_attention_bwd_rows(*pargs)),
+                        parent_dq=differ(got[0], old[0], deg),
+                        parent_rho=differ(got[1], old[1], deg),
+                        parent_dq_tol_ratio=ratio(got[0], old[0], tt),
+                        parent_rho_tol_ratio=ratio(got[1], old[1], tt))
+                    del dab
+                emit(**row)
+                del res, out, sc, shift, denom, want
+            del x, c, p, q, kt
+        torch.cuda.empty_cache()
+    del hub, par
+    torch.cuda.empty_cache()
+    # the CSR GRAND-nl train step: its adjoint runs both kernels once per
+    # NFE
+    profiled_train_step(emit, tr, "GRAND-nl train step, CSR",
+                        ("fwd_res_kernel", "flash_seg", "bwd_rows_kernel",
+                         "bwd_rows_seg", "bwd_cols_kernel", "seg_combine"))
+
+
 def norm(emit, parent=None) -> None:
     """The ``norm`` measurements of the module's docstring."""
     import torch
@@ -1550,12 +1706,13 @@ def main() -> int:
                     help="a second checkout, measured in turns")
     ap.add_argument("--only", choices=("windowed", "attention", "spmm",
                                        "pin", "kproj", "slab", "winatt",
-                                       "gmax", "bwd_cols", "norm"),
+                                       "gmax", "bwd_cols", "norm", "fwd_res",
+                                       "bwd_rows"),
                     default=None, help="one group of measurements")
     ap.add_argument("--against", default=None,
                     help="a parent checkout whose kernels run beside this "
                     "one's on the same inputs (winatt, gmax, bwd_cols, "
-                    "norm)")
+                    "norm, fwd_res, bwd_rows)")
     args = ap.parse_args()
     if args.root is not None:
         measure(os.path.abspath(args.root), args.only,

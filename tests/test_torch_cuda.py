@@ -617,6 +617,50 @@ def test_cuda_bwd_cols_long_and_empty_columns(cuda, dtype):
         assert dk[5].abs().sum() > 0 and dxv[5].abs().sum() > 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_train_row_kernels_long_rows_empty_rows_and_views(cuda, dtype):
+    """attention_fwd_res and attention_bwd_rows on rows of 0, 1, 31, 32
+    (one batch), 33, 700 and 3,000 edges (segments: ROW_SPLIT edges in the
+    forward, 32 in the backward), at D = 162, A = 32, H = 2, at D = 300,
+    A = 12, H = 3, at D = 7, A = 4, H = 1, and on x and g views that start
+    off their vector size: against the plain versions at
+    `_check_train_kernels`' tolerances, the forward's shift exactly the
+    row's max of its scores (0 for a row with no edge) however the row is
+    walked."""
+    from graphax_torch.sparse.ops import segment_max
+
+    g = _walk_graph(cuda)
+    deg = (g.csr.ptr[1:] - g.csr.ptr[:-1]).cpu()
+    assert deg[:7].tolist() == [0, 1, 31, 32, 33, 700, 3000]
+    f32 = dict(rtol=2e-4, atol=2e-5)
+    for i, (d, a, heads, view) in enumerate(((162, 32, 2, False),
+                                             (300, 12, 3, False),
+                                             (7, 4, 1, False),
+                                             (162, 32, 2, True))):
+        q, x, kt, cot = _train_case(g, dtype, d, a, heads, 30 + i)
+        if view:
+            x, cot = _off_word(x), _off_word(cot)
+        out, sc, shift, denom = fa.attention_fwd_res(g.csr, q, x, kt, heads)
+        w_out, w_sc, w_shift, w_denom = fa.attention_fwd_res_plain(
+            g.csr, q, x, kt, heads)
+        torch.testing.assert_close(out.float(), w_out.float(),
+                                   **_rounded(dtype, x))
+        torch.testing.assert_close(sc, w_sc, **f32)
+        torch.testing.assert_close(denom, w_denom, **f32)
+        m = segment_max(sc, g.csr.seg, g.num_nodes)
+        assert torch.equal(shift, torch.where(torch.isfinite(m), m,
+                                              torch.zeros_like(m)))
+        torch.testing.assert_close(shift, w_shift, **f32)
+        args = (g.csr, sc, shift, denom, cot, x, kt, heads)
+        dq, rho = fa.attention_bwd_rows(*args)
+        w_dq, w_rho = fa.attention_bwd_rows_plain(*args)
+        torch.testing.assert_close(dq, w_dq, **f32)
+        torch.testing.assert_close(rho, w_rho, **f32)
+        for t in (out, dq, rho, shift, denom):
+            assert not (t[0].any() or t[-3:].any())
+        assert dq[6].abs().sum() > 0 and out[6].float().abs().sum() > 0
+
+
 @pytest.mark.parametrize("att_type", ["scaled_dot", "cosine_sim", "pearson",
                                       "exp_kernel"])
 def test_cuda_norm_long_rows_and_a_one_slot_row(cuda, att_type):
