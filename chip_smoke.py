@@ -98,13 +98,22 @@ and prints no result):
    forward, adjoint and evaluation NFE; the replay's win_matmul,
    win_bwd_dense and win_bwd_slab once per adjoint NFE); then with
    ``community_window=0, attention_norm_idx=1``: a softmax and a squareplus
-   evaluation and ``fit(2 epochs)`` through the column route;
+   evaluation and ``fit(2 epochs)`` through the column route; then the
+   attention block: ``Trainer(best_config(ds), get_dataset(ds)).fit`` for
+   Cora, Citeseer, Pubmed and CoauthorCS on their stand-ins (the dense
+   strategy, the per-edge pin with autograd; per epoch the loss, seconds,
+   NFE, backward NFE, evaluation NFE, best time and peak device memory),
+   then ``best_config("ogbn-arxiv", block="attention")`` on CSR
+   (``community_window=0``, 3 epochs) and on the windowed layout (1
+   epoch): sddmm once per adjoint NFE (and win_bwd_dense on the windowed
+   layout), the pin kernel once per evaluation, sddmm held to its plain
+   version on the windowed residual;
 6. breakdown: one more train step of the windowed path (win_bwd_slab
    once per adjoint NFE), one GRAND-nl
    evaluation and one GRAND-nl train step, one Computers train step and
    early-stop evaluation, one GRAND-nl dense evaluation, one windowed
    GRAND-nl train step and evaluation, one column-normalised train step,
-   under
+   one Pubmed train step and early-stop evaluation, under
    torch.profiler, time by span (forward solve, adjoint, optimizer) and by
    kernel; on the windowed GRAND-nl step, win_bwd_dense's launches (one
    per adjoint NFE) and the kernel that ran after each;
@@ -114,7 +123,8 @@ and prints no result):
    graph above K6's gate too), a small GRAND-nl trained 3 steps the same
    losses (and in f32 NFE), and a small community graph's GRAND-nl on the
    windowed and column routes the same f32 logits and NFE, and over a
-   train step the same loss, NFE and gradients.
+   train step the same loss, NFE and gradients; the Cora and Pubmed presets
+   at toy width, 3 train steps, the same losses, NFE and Q gradients.
 
 Then the kernels line (launches summed over the paths of phase 5), the
 card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Needs
@@ -2164,46 +2174,210 @@ def phase_dense_kernels(trainer, results: dict) -> None:
           "cases": 4, "max_abs_err": worst, "ok": True})
 
 
-def phase_dense_fit(label: str, trainer, epochs: int) -> dict:
+def phase_dense_fit(label: str, trainer, epochs: int,
+                    pin_per_epoch: int = 2) -> dict:
     """``trainer.fit(epochs)`` of a dense-strategy preset with fit's
     defaults (the early-stop evaluation), its launches zeroed before and
     read after: per epoch the loss, seconds, NFE, backward NFE, the
-    early-stop evaluation's NFE and the best time; finite losses, solver
-    success, and the hard block's pin (attention_pin, with its K table by
-    attention_kproj) launched in the train and evaluation forwards.
-    Returns the launches."""
+    early-stop evaluation's NFE, its best time and the epoch's peak device
+    memory (the process's: what earlier phases left allocated,
+    ``live_before_fit_gib``, is in it); finite losses, solver success, evaluation NFE, and a backward
+    NFE as graphax's meter gives it (the adjoint's own NFE, above 0; without
+    the adjoint the forward's NFE again, as graphax counts the
+    rematerialised steps); and the pin kernel (attention_pin, with its K
+    table by attention_kproj) launched ``pin_per_epoch`` times an epoch:
+    twice for the hard block (its train and evaluation forwards), none for
+    a squareplus config (the per-edge route). Returns the launches."""
     import torch
 
     from graphax_torch.kernels import _build
 
+    check(trainer.data.graph.strategy == "dense",
+          f"{label}: the graph is {trainer.data.graph.strategy}, not dense")
+    early, peaks = [], []
+    evaluate_early = trainer.evaluate_early
+
+    def recorded():
+        res = evaluate_early()
+        torch.cuda.synchronize()
+        early.append(float(res.best_time))
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        return res
+
+    trainer.evaluate_early = recorded
     _build.LAUNCHES.clear()
+    base = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fit = trainer.fit(epochs=epochs)
+    try:
+        fit = trainer.fit(epochs=epochs)
+    finally:
+        del trainer.evaluate_early
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(_build.LAUNCHES)
-    for h, sv in zip(fit["history"], fit["solver"]):
-        emit({"phase": "slice", "path": label, **h, **sv})
-        check(math.isfinite(h["loss"]) and bool(sv["success"]),
+    adjoint = trainer.cfg.adjoint
+    for h, sv, bt, pk in zip(fit["history"], fit["solver"], early, peaks):
+        emit({"phase": "slice", "path": label, **h, **sv, "best_time": bt,
+              "peak_mem_gib": pk})
+        check(math.isfinite(h["loss"]) and bool(sv["success"])
+              and bool(sv["eval_success"]),
               f"{label} epoch {h['epoch']}: loss {h['loss']}, success "
-              f"{sv['success']}")
-        check(sv["bwd_nfe"] > 0 and sv["eval_nfe"] > 0,
-              f"{label} epoch {h['epoch']}: no adjoint or evaluation NFE")
-    check(counts.get("attention_pin", 0) == 2 * epochs
+              f"{sv['success']}, evaluation {sv['eval_success']}")
+        check(sv["eval_nfe"] > 0, f"{label} epoch {h['epoch']}: no "
+              "evaluation NFE")
+        check(sv["bwd_nfe"] > 0 if adjoint else sv["bwd_nfe"] == sv["nfe"],
+              f"{label} epoch {h['epoch']}: backward NFE {sv['bwd_nfe']} "
+              f"(forward {sv['nfe']}, adjoint {adjoint})")
+    want = pin_per_epoch * epochs
+    check(counts.get("attention_pin", 0) == want
           == counts.get("attention_kproj", 0),
           f"{label}: attention_pin launched {counts.get('attention_pin', 0)}"
           f" times (attention_kproj {counts.get('attention_kproj', 0)}) in "
-          f"{epochs} epochs (one train and one evaluation forward each, the "
-          "K table once in each)")
+          f"{epochs} epochs, not {want} ({pin_per_epoch} an epoch, the K "
+          "table once in each)")
     times = [h["time"] for h in fit["history"]]
     emit({"phase": "slice", "path": label, "strategy":
-          trainer.data.graph.strategy, "seconds": seconds,
-          "epoch_seconds": times,
+          trainer.data.graph.strategy, "num_nodes": trainer.data.num_nodes,
+          "seconds": seconds, "epoch_seconds": times,
           "steady_epoch_seconds": min(times[1:]) if len(times) > 1
           else times[0], "launches": counts, "best": fit["best"],
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+          "peak_mem_gib": max(peaks), "live_before_fit_gib": base})
     return counts
+
+
+ATTENTION_PRESETS = ("Cora", "Citeseer", "Pubmed", "CoauthorCS")
+
+
+def phase_attention_presets(epochs: int, keep: str = "Pubmed") -> tuple:
+    """The four presets of the attention block, each ``Trainer(best_config(
+    ds), get_dataset(ds)).fit(epochs)`` with fit's defaults on its stand-in
+    at the preset's full width (the dense strategy; squareplus, so the pin
+    is the per-edge route and attention_pin never runs), through
+    :func:`phase_dense_fit`: Cora and Citeseer train by autograd through
+    the accepted steps, Pubmed and CoauthorCS through the adaptive adjoint
+    with the [N, N] operator's a_p. Returns the launches and the Trainer
+    of ``keep`` (for the breakdown)."""
+    import torch
+
+    from graphax_torch import Trainer, best_config, get_dataset
+
+    launches: dict = {}
+    kept = None
+    for name in ATTENTION_PRESETS:
+        t0 = time.perf_counter()
+        data = get_dataset(name)
+        cfg = best_config(name)
+        check(cfg.block == "attention" and cfg.square_plus,
+              f"the {name} preset moved")
+        tr = Trainer(cfg, data)
+        torch.cuda.synchronize()
+        emit({"phase": "data", "dataset": name, "seconds":
+              time.perf_counter() - t0, "num_nodes": data.num_nodes,
+              "num_edges": data.graph.num_edges,
+              "num_features": data.num_features,
+              "num_classes": data.num_classes,
+              "state_dim": tr.model.state_dim, "dtype": cfg.dtype,
+              "strategy": tr.data.graph.strategy, "adjoint": cfg.adjoint,
+              "adjoint_method": cfg.adjoint_method})
+        for k, v in phase_dense_fit(name, tr, epochs,
+                                    pin_per_epoch=0).items():
+            launches[k] = launches.get(k, 0) + v
+        if name == keep:
+            kept = tr
+        del tr, data
+        torch.cuda.empty_cache()
+    return launches, kept
+
+
+def phase_attention_block_csr(data, results: dict, epochs: int) -> dict:
+    """The attention block at the arxiv preset's widths (bf16 state, dopri5,
+    rk4 adjoint) on the arxiv stand-in: ``community_window=0`` (CSR) for
+    ``epochs`` epochs and the preset's windowed layout for one, each
+    ``fit`` with its defaults. The pin trains through the per-edge route,
+    so the values' gradient leaves each adjoint NFE through sddmm (on the
+    CSR, or on the windowed residual, beside win_bwd_dense for the blocks);
+    in evaluation the pin kernel runs once. Checks finite losses and
+    success, sddmm launched once per adjoint NFE of the train steps on both
+    routes, win_bwd_dense too on the windowed one, attention_pin once per
+    evaluation; holds sddmm to its plain version on the windowed residual
+    at this path's D (TOL_DOT, as the kernels phase). Returns the
+    launches."""
+    import torch
+
+    from graphax_torch import Trainer, best_config
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import spmm as spmm_mod
+
+    launches: dict = {}
+    for label, over, n_ep in (
+            ("attention_block_csr", dict(community_window=0), epochs),
+            ("attention_block_windowed", {}, 1)):
+        cfg = best_config("ogbn-arxiv", block="attention", **over)
+        tr = Trainer(cfg, data)
+        want = "windowed" if cfg.community_window else "sparse"
+        check(tr.data.graph.strategy == want,
+              f"{label}: the graph is {tr.data.graph.strategy}, not {want}")
+        _build.LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fit = tr.fit(epochs=n_ep)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        for h, sv in zip(fit["history"], fit["solver"]):
+            emit({"phase": "slice", "path": label, **h, **sv})
+            check(math.isfinite(h["loss"]) and bool(sv["success"])
+                  and bool(sv["eval_success"]) and sv["bwd_nfe"] > 0,
+                  f"{label} epoch {h['epoch']}: loss {h['loss']}, {sv}")
+        adjoint_nfe = sum(sv["bwd_nfe"] for sv in fit["solver"])
+        emit({"phase": "slice", "path": label, "strategy": want,
+              "seconds": seconds,
+              "epoch_seconds": [h["time"] for h in fit["history"]],
+              "adjoint_nfe": adjoint_nfe, "launches": counts,
+              "best": fit["best"],
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        check(counts.get("sddmm", 0) == adjoint_nfe,
+              f"{label}: sddmm launched {counts.get('sddmm', 0)} times in "
+              f"{adjoint_nfe} adjoint NFE")
+        check(counts.get("attention_pin", 0) == n_ep
+              == counts.get("attention_kproj", 0),
+              f"{label}: attention_pin {counts.get('attention_pin', 0)} "
+              f"(attention_kproj {counts.get('attention_kproj', 0)}) in "
+              f"{n_ep} evaluations")
+        need = ("spmm_csr",) + (("windowed_densify", "win_matmul",
+                                 "win_bwd_slab") if cfg.community_window
+                                else ())
+        for k in need:
+            check(counts.get(k, 0) > 0, f"{label}: {k} never launched")
+        if cfg.community_window:
+            check(counts.get("win_bwd_dense", 0) == adjoint_nfe,
+                  f"{label}: win_bwd_dense launched "
+                  f"{counts.get('win_bwd_dense', 0)} times in {adjoint_nfe} "
+                  "adjoint NFE")
+            # sddmm at the windowed residual, this path's D and dtype
+            wl = tr.data.graph.windows
+            lay, n = wl.residual, tr.data.num_nodes
+            d = tr.model.state_dim
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            g = torch.randn(n, d, generator=gen, device="cuda") \
+                .to(torch.bfloat16)
+            x = torch.randn(n, d, generator=gen, device="cuda") \
+                .to(torch.bfloat16)
+            e = lay.num_slots
+            hold_to_plain(
+                results, dict(kernel="sddmm", dtype="bfloat16",
+                              layout="windowed residual", E=e, D=d),
+                lambda: spmm_mod.sddmm(lay, g, x),
+                lambda: spmm_mod.sddmm_plain(lay, g, x), TOL_DOT,
+                2 * n * d * 2 + e * 4 + 4 * (n + 1) + e * 4, 2.0 * e * d,
+                tag="windowed residual")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        del tr
+        torch.cuda.empty_cache()
+    return launches
 
 
 def phase_reference_dense() -> dict:
@@ -2270,6 +2444,77 @@ def phase_reference_dense() -> dict:
           f"GRAND-nl dense reference: NFE differ {out}")
     check(got["cuda"][2] == got["cuda"][1] and got["cpu"][2] == 0,
           f"GRAND-nl dense reference: flash_dense launches {out}")
+    return out
+
+
+def phase_reference_attention() -> dict:
+    """The attention block's presets at toy width (16 hidden, 2 heads of 4,
+    no dropout; the preset's optimizer) on a 400-node SBM (the dense
+    strategy), Q and K drawn from a seed, trained 3 steps on the card and
+    on the CPU from the same weights: Cora (autograd through the accepted
+    steps) and Pubmed (the adaptive adjoint). Per step the losses agree
+    within 1e-4 relative, the forward and backward NFE are equal, and
+    ``att_layer.Q.weight``'s gradient agrees within 1e-4 of its largest
+    entry (plus 1e-6). Pubmed's adjoint runs its diffusion back over T =
+    12.9, which amplifies the rounding of y(T): there the CPU's own
+    gradient moves when m1's weights are scaled by 1 + 2^-23 (one ulp),
+    and twice that spread joins the gradient's tolerance, as in
+    tests/test_torch_attention_block.py."""
+    import torch
+
+    from graphax_torch import Trainer, best_config, make_sbm_dataset
+
+    def run(cfg, dev, m1_scale=1.0):
+        data = make_sbm_dataset(num_nodes=400, num_classes=4,
+                                num_features=32, seed=0, device=dev)
+        tr = Trainer(cfg, data, device=dev)
+        check(tr.data.graph.strategy == "dense", "reference graph not dense")
+        gen = torch.Generator().manual_seed(7)
+        with torch.no_grad():
+            for lin in (tr.model.block.att_layer.Q,
+                        tr.model.block.att_layer.K):
+                lin.weight.copy_(0.4 * torch.randn(lin.weight.shape,
+                                                   generator=gen))
+            tr.model.m1.weight.mul_(m1_scale)
+        steps = []
+        for _ in range(3):
+            loss = tr.train_step()
+            steps.append((loss, tr.fm.get_value(), tr.bm.get_value(),
+                          tr.model.block.att_layer.Q.weight.grad
+                          .detach().cpu().clone()))
+        return steps
+
+    out = {}
+    for name in ("Cora", "Pubmed"):
+        cfg = best_config(name, hidden_dim=16, heads=2, attention_dim=8,
+                          input_dropout=0.0, dropout=0.0)
+        got = {dev: run(cfg, dev) for dev in ("cuda", "cpu")}
+        spread = [0.0] * 3
+        if cfg.adjoint:
+            nudged = run(cfg, "cpu", 1.0 + 2.0 ** -23)
+            spread = [float((a[3] - b[3]).abs().max())
+                      for a, b in zip(got["cpu"], nudged)]
+        rows = []
+        for i, (c, p) in enumerate(zip(got["cuda"], got["cpu"])):
+            gmax = float(p[3].abs().max())
+            tol = 1e-4 * gmax + 1e-6 + 2 * spread[i]
+            rows.append({"loss_cuda": c[0], "loss_cpu": p[0],
+                         "rel_loss_err": abs(c[0] - p[0]) / max(1.0,
+                                                                abs(p[0])),
+                         "nfe": (c[1], p[1]), "bwd_nfe": (c[2], p[2]),
+                         "q_grad_max": gmax,
+                         "q_grad_err": float((c[3] - p[3]).abs().max()),
+                         "one_ulp_spread": spread[i], "q_grad_tol": tol})
+        out[name] = {"adjoint": cfg.adjoint, "steps": rows,
+                     "loss_tol": 1e-4}
+        for i, r in enumerate(rows):
+            check(math.isfinite(r["loss_cuda"]) and r["rel_loss_err"] <= 1e-4,
+                  f"attention reference {name} step {i}: losses {r}")
+            check(r["nfe"][0] == r["nfe"][1]
+                  and r["bwd_nfe"][0] == r["bwd_nfe"][1],
+                  f"attention reference {name} step {i}: NFE {r}")
+            check(r["q_grad_err"] <= r["q_grad_tol"],
+                  f"attention reference {name} step {i}: Q gradient {r}")
     return out
 
 
@@ -2569,6 +2814,15 @@ def main(argv=None) -> int:
     for k, v in phase_grand_nl(trainer_nld, "grand_nl_dense", 3,
                                per_nfe=("flash_dense",)).items():
         launches[k] = launches.get(k, 0) + v
+    # the attention block: the four presets on their stand-ins (dense),
+    # then at the arxiv widths on CSR and on the windowed layout (sddmm
+    # once per adjoint NFE)
+    counts, trainer_pub = phase_attention_presets(args.epochs)
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in phase_attention_block_csr(data, results,
+                                          args.epochs).items():
+        launches[k] = launches.get(k, 0) + v
 
     # 6. where the time goes, on the windowed path: win_bwd_slab once per
     # adjoint NFE, dx in x's dtype straight from it
@@ -2611,6 +2865,12 @@ def main(argv=None) -> int:
     emit({"phase": "breakdown", "path": "grand_nl_dense",
           **phase_breakdown([("graphax_torch.evaluate",
                               trainer_nld.evaluate)])})
+    emit({"phase": "breakdown", "path": "Pubmed",
+          **phase_breakdown([("graphax_torch.train_step",
+                              trainer_pub.train_step),
+                             ("graphax_torch.evaluate",
+                              trainer_pub.evaluate_early)])})
+    del trainer_pub
 
     # 7. small references: the card against the CPU
     emit({"phase": "reference", **phase_reference()})
@@ -2618,6 +2878,8 @@ def main(argv=None) -> int:
     emit({"phase": "reference", **phase_reference_nl()})
     emit({"phase": "reference", **phase_reference_nl_train()})
     emit({"phase": "reference", **phase_reference_dense()})
+    emit({"phase": "reference", "block": "attention",
+          **phase_reference_attention()})
     emit({"phase": "reference", **phase_reference_nl_routes()})
 
     # the kernels line: times from phase 4 at the main path's shapes and
@@ -2704,6 +2966,13 @@ def main(argv=None) -> int:
     spmm["launches_count"] = (
         "wrapper calls: each runs spmm_walk, and where a row has more than "
         "ROW_SPLIT edges spmm_seg_sum and seg_combine")
+    kernels[1]["windowed_residual"] = {
+        k: results[("sddmm", "bfloat16", "windowed residual")].get(k)
+        for k in numbers}
+    kernels[1]["launches_count"] = (
+        "wrapper calls: one per adjoint NFE of the attention block's train "
+        "steps (the pinned values' gradient) on the CSR and the windowed "
+        "residual")
     pin = kernels[2]
     pin["also_replaces"] = "graphax/kernels/pallas_attention.py:197"
     pin["all_miss_ms"] = results[("attention_pin", "bfloat16")]["all_miss_ms"]

@@ -69,7 +69,16 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
     (`:116-131`, graphax's `pallas_bwd_supported`) or one of the column
     route (`colnorm_supported`); on a windowed graph, for the transformer
     RHS with a 2-D state in either mode where K5's route (or, under
-    squareplus, the plain twin) serves it."""
+    squareplus, the plain twin) serves it.
+
+    A pin that carries a gradient (the attention and mixed blocks in
+    training) passes it on through the operator: `densify`'s index_put on
+    a dense graph, the windowed blocks' `densify_windows` and the residual
+    values on a windowed one, ``wb`` on a sparse one. The transposed
+    values ``wb_t`` feed only the product's backward (``dx = A^T g``), so
+    they are detached: the values' gradient is the SDDMM's, and the
+    adjoint carries no a_p for them (graphax's state off its tiled layout
+    has no such leaf)."""
     values = graph.edge_weight if attention is None else attention
     pinned = attention is not None
     if graph.strategy == "dense":
@@ -93,7 +102,7 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
         v = values.to(x.dtype)
         return FuncState(graph=graph, x0=x.detach(),
                          wb=v[wl.residual.perm].contiguous(),
-                         wb_t=v[wl.residual_t.perm].contiguous(),
+                         wb_t=v.detach()[wl.residual_t.perm].contiguous(),
                          dense=densify_windows(values, wl, x.dtype),
                          pinned=pinned)
     wb = values.to(x.dtype).contiguous()
@@ -101,7 +110,7 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
         and (train_supported(cfg, x.shape[1])
              or colnorm_supported(cfg, x.shape[1]))
     return FuncState(graph=graph, x0=x.detach(), wb=wb,
-                     wb_t=transpose_values(graph, wb), pinned=pinned,
+                     wb_t=transpose_values(graph, wb.detach()), pinned=pinned,
                      fast_attention=(not train or train_ok) and x.dim() == 2)
 
 

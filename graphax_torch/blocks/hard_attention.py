@@ -3,8 +3,10 @@
 `src/block_transformer_hard_attention.py`).
 
 Train path: the head-mean attention per edge is pinned once per forward
-(the `attention_pin` kernel); edges above the ``1 - att_samp_pct`` quantile are
-kept and renormalised over rows (+1e-16); the solve runs on that operator.
+(the `attention_pin` kernel where it covers the config, else the plain
+per-edge path); edges above the ``1 - att_samp_pct`` quantile are kept and
+renormalised over rows, or columns under ``attention_norm_idx=1`` (+1e-16);
+the solve runs on that operator.
 The whole selection runs under no_grad, as in the reference. Eval path: all
 edges with the head-mean attention. Dropped edges keep their slot with value
 0, as in graphax."""
@@ -45,12 +47,11 @@ class HardAttentionBlock(nn.Module):
         self.func.reset_parameters(generator)
         self.att_layer.reset_parameters(generator)
 
-    @staticmethod
-    def _renormalise(graph, att, keep):
-        """Kept attention over its row sum (+1e-16; the pin covers row
-        normalisation only); the sum accumulates in f32 and is cast to the
+    def _renormalise(self, graph, att, keep):
+        """Kept attention over its sum by the norm index, the row or the
+        column (+1e-16); the sum accumulates in f32 and is cast to the
         values' dtype."""
-        index = graph.row
+        index = graph.row if self.cfg.attention_norm_idx == 0 else graph.col
         kept = torch.where(keep, att, torch.zeros_like(att))
         sums = torch.zeros(graph.num_nodes, dtype=torch.float32,
                            device=att.device).index_add_(0, index, kept.float())
@@ -63,7 +64,8 @@ class HardAttentionBlock(nn.Module):
         g = normalize_graph(cfg, graph)
         mask = g.edge_mask
         with torch.no_grad(), record_function("graphax_torch.pin"):
-            mean_att = attention_edge_means(self.att_layer, cfg, g, x)
+            mean_att = attention_edge_means(self.att_layer, cfg, g, x,
+                                            differentiable=False)
             if train:
                 thresh = refined_masked_quantile(mean_att, mask,
                                                  1.0 - cfg.att_samp_pct)

@@ -8,8 +8,9 @@
   normalisation, softmax or squareplus, reweighting. It is the oracle the
   tests hold the kernels to, and the replay behind the column route's
   gradient.
-- `attention_edge_means` (:162-189): the hard-attention block's per-edge
-  pin, through the `attention_pin` kernel.
+- `attention_edge_means` (:162-189): the blocks' per-edge pin, through
+  the `attention_pin` kernel where no gradient is needed and the kernel
+  covers the config, else through the plain per-edge path with autograd.
 - `TransformerFunction`, the twin of `make_transformer` (:259-314), and
   `transformer_rhs`, its RHS as a function of its tensors (the adjoint
   hands it detached copies). Its routes, as graphax's dispatch
@@ -37,7 +38,8 @@ The Q and K projections are dense matmuls here, as graphax leaves them to
 XLA. Not ported yet, and raising: row-normalised training on CSR outside
 the hand-written backward (graphax's XLA fused_attention_ax autodiff),
 column normalisation on the windowed strategy, training on the dense
-strategy (graphax has no gradient through K6), and Beltrami, mix_features
+strategy (below K6's gate the materialised route, ROADMAP Queue 1 item 3b;
+above it graphax has no gradient through K6), and Beltrami, mix_features
 and multi_modal (ROADMAP Queue 1 M6/M9, Queue 3)."""
 
 from __future__ import annotations
@@ -104,32 +106,39 @@ def attention_means_supported(cfg) -> bool:
             and not cfg.beltrami)
 
 
-def attention_edge_means(att: TransformerAttention, cfg, graph, x
-                         ) -> torch.Tensor:
-    """Head-mean normalised attention per edge, ``[E_pad]`` (0 on padding).
-    Not differentiable: callers run it under no_grad.
+def attention_edge_means(att: TransformerAttention, cfg, graph, x, *,
+                         differentiable: bool) -> torch.Tensor:
+    """Head-mean normalised attention per edge, ``[E_pad]`` (0 on padding):
+    the blocks' pin (graphax `attention_edge_means`, :162-189).
 
-    On the sparse strategy it follows graphax's kernel path: q, x and Wk in
-    the state dtype, the result cast to it. graphax takes that path only on
-    its tiled strategy (`graphax/functions/transformer.py:175-187`); on a
-    windowed or dense graph it pins through XLA, where ``x @ w`` promotes a
-    bf16 x to f32, so there q, x and Wk go to the kernel in f32 and the
-    result stays f32 (the kernel's scores against graphax's: f32 sums in
-    another order)."""
-    if not attention_means_supported(cfg):
-        raise NotImplementedError(
-            "the pin covers row softmax only; its column or squareplus "
-            "normalisation (K2's other forms in the pin) comes with the "
-            "attention block (ROADMAP Queue 1, item 3)")
+    Without ``differentiable``, for a config that
+    :func:`attention_means_supported` covers, the `attention_pin` kernel,
+    outside autograd. On the sparse strategy it follows graphax's kernel
+    path: q, x and Wk in the state dtype, the result cast to it. graphax
+    takes that path only on its tiled strategy (:175-187); on a windowed or
+    dense graph it pins through XLA, where ``x @ w`` promotes a bf16 x to
+    f32, so there q, x and Wk go to the kernel in f32 and the result stays
+    f32 (the kernel's scores against graphax's: f32 sums in another order).
+
+    Otherwise graphax's per-edge route (:188-189): ``edge_attention``'s
+    head mean, with autograd, in the dtype the projections promote x to
+    (f32 for a bf16 state). The attention and mixed blocks take it for
+    training, where the gradient reaches their attention layer through the
+    pinned operator, and every config outside the kernel's gate (column
+    normalisation, squareplus) takes it in evaluation too."""
+    if differentiable or not attention_means_supported(cfg):
+        return edge_attention(att, cfg, graph, x)[0].mean(1)
     if graph.strategy != "sparse":
         x = x.to(torch.promote_types(x.dtype, torch.float32))
-    x = x.detach().contiguous()
-    p = prep_inputs(cfg, att, graph, x)
-    mean = attention_pin(graph.csr, p["q"], x, p["wk"], p["bk"], p["edge_w"],
-                         p["att_type"], p["heads"], p["ov2"], p["inv2l2"])
-    out = torch.zeros(graph.edge_buffer_size, dtype=torch.float32,
-                      device=x.device)
-    out[:graph.num_edges] = mean
+    with torch.no_grad():
+        x = x.detach().contiguous()
+        p = prep_inputs(cfg, att, graph, x)
+        mean = attention_pin(graph.csr, p["q"], x, p["wk"], p["bk"],
+                             p["edge_w"], p["att_type"], p["heads"],
+                             p["ov2"], p["inv2l2"])
+        out = torch.zeros(graph.edge_buffer_size, dtype=torch.float32,
+                          device=x.device)
+        out[:graph.num_edges] = mean
     return out.to(x.dtype)
 
 
@@ -382,11 +391,12 @@ class TransformerFunction(nn.Module):
         if g.strategy == "dense":
             if not fstate.fast_attention:
                 raise NotImplementedError(
-                    "GRAND-nl training on the dense strategy: graphax has no "
-                    "gradient through its dense flash kernel K6 (ROADMAP "
-                    "Queue 3, 'GRAND-nl training above K6's gate'); below "
-                    "the gate the materialised route trains with the "
-                    "attention block's slice (ROADMAP Queue 1, item 3)")
+                    "GRAND-nl training on the dense strategy: below K6's "
+                    "gate through the differentiable materialised "
+                    "attention (ROADMAP Queue 1, item 3b); above it graphax "
+                    "has no gradient through its dense flash kernel K6 "
+                    "(ROADMAP Queue 3, 'GRAND-nl training above K6's "
+                    "gate')")
             if not use_dense_attention(g, cfg.heads):
                 raise NotImplementedError(
                     "GRAND-nl on a dense graph beyond use_dense_attention's "

@@ -26,7 +26,10 @@ import torch
 from graphax.blocks.common import make_fstate as gx_make_fstate
 from graphax.functions import get_function as gx_get_function
 from graphax.functions.common import prepare_scalars as gx_prepare_scalars
-from graphax.functions.transformer import transformer_attention_init
+from graphax.functions.transformer import (
+    attention_edge_means as gx_attention_edge_means,
+    transformer_attention_init,
+)
 from graphax.kernels import pallas_tiled
 from graphax.kernels.dispatch import attach_tiles
 from graphax.kernels.pallas_attention import attention_edge_means_pallas
@@ -202,7 +205,8 @@ def test_pin_matches_pallas(att_type, reweight):
                                        int(gx.edge_buffer_size),
                                        edge_weight=gx.edge_weight)
     with torch.no_grad():
-        got = attention_edge_means(att, cfg, pt, torch.from_numpy(x))
+        got = attention_edge_means(att, cfg, pt, torch.from_numpy(x),
+                                   differentiable=False)
     assert got.shape == (pt.edge_buffer_size,)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=2e-4, atol=2e-5)
     assert np.all(got[pt.num_edges:].numpy() == 0)
@@ -220,14 +224,18 @@ def test_pin_bf16_matches_pallas(att_type):
         .astype(jnp.bfloat16)
     with torch.no_grad():
         got = attention_edge_means(att, cfg, pt,
-                                   torch.from_numpy(x).to(torch.bfloat16))
+                                   torch.from_numpy(x).to(torch.bfloat16),
+                                   differentiable=False)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), _np(want),
                                rtol=BF16_RTOL, atol=1e-6)
 
 
 def test_pin_refuses_gradients_and_unsupported_configs():
-    _, pt, _, cfg, _, att, x = pin_setup("scaled_dot", False)
+    """The kernel refuses gradients and beltrami; the configs outside its
+    gate (squareplus, column normalisation) take graphax's per-edge route
+    in `attention_edge_means`, and match graphax's pin there."""
+    gx, pt, gcfg, cfg, p, att, x = pin_setup("scaled_dot", False)
     xt = torch.from_numpy(x)
     with pytest.raises(RuntimeError, match="not differentiable"):
         pin_mod.attention_pin(pt.csr, xt.requires_grad_(True)[:, :8], xt,
@@ -236,6 +244,12 @@ def test_pin_refuses_gradients_and_unsupported_configs():
     with pytest.raises(ValueError, match="beltrami"):
         pin_mod.attention_pin(pt.csr, xt[:, :8], xt, torch.zeros(6, 8),
                               torch.zeros(8), None, "beltrami_exp", 2)
-    for bad in (dict(square_plus=True), dict(attention_norm_idx=1)):
-        with pytest.raises(NotImplementedError, match="K2"), torch.no_grad():
-            attention_edge_means(att, cfg.replace(**bad), pt, xt.detach())
+    for other in (dict(square_plus=True), dict(attention_norm_idx=1)):
+        want = gx_attention_edge_means(p, gcfg.replace(**other), gx,
+                                       jnp.asarray(x), differentiable=False)
+        with torch.no_grad():
+            got = attention_edge_means(att, cfg.replace(**other), pt,
+                                       xt.detach(), differentiable=False)
+        assert got.shape == (pt.edge_buffer_size,)
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=2e-4,
+                                   atol=2e-5)

@@ -288,6 +288,7 @@ def test_pin_matches_pallas_on_hubs(att_type):
                                        int(gx.edge_buffer_size),
                                        edge_weight=gx.edge_weight)
     with torch.no_grad():
-        got = attention_edge_means(att, cfg, pt, torch.from_numpy(x))
+        got = attention_edge_means(att, cfg, pt, torch.from_numpy(x),
+                                   differentiable=False)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=2e-4, atol=2e-5)
     assert np.all(got[pt.num_edges:].numpy() == 0)

@@ -75,7 +75,7 @@ def test_graph_and_data_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("overrides,err", [
-    (dict(block="attention"), "M6"),
+    (dict(block="rewire_attention"), "M8"),
     (dict(use_labels=True), "label"),
     (dict(function="transformer"), "M6"),
 ])
