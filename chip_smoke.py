@@ -60,6 +60,8 @@ and prints no result):
    gathered row from device memory); flash's bf16 output and attention_attspmm's output in x's
    dtype (after K5's f32 half on the windowed route) as the routes ask for
    them, each bit for bit its f32 output (plus the addend) cast once;
+   the windowed products' rows name their staging (the f32 bodies' copy
+   bytes of A and B);
    win_bwd_dense with both output dtypes, its bf16 output held to its f32
    output cast, bit for bit, and the win_matmul Function's backward with
    no cast of a [T, tile, W] block; win_bwd_slab (the layout's tiles per
@@ -107,16 +109,26 @@ and prints no result):
    (``community_window=0``, 3 epochs) and on the windowed layout (1
    epoch): sddmm once per adjoint NFE (and win_bwd_dense on the windowed
    layout), the pin kernel once per evaluation, sddmm held to its plain
-   version on the windowed residual;
+   version on the windowed residual; then the arxiv preset at the
+   reference's f32 (``best_config("ogbn-arxiv", dtype="float32")``, the
+   windowed layout as published: the f32 bodies of win_matmul and
+   win_bwd_slab) for as many epochs, and the attention block in f32 on
+   the same layout for one (win_bwd_dense's f32 body once per adjoint
+   NFE), each with its first and steady epoch seconds, NFE, peak memory
+   and launches as the NFE say;
 6. breakdown: one more train step of the windowed path (win_bwd_slab
    once per adjoint NFE), one GRAND-nl
    evaluation and one GRAND-nl train step, one Computers train step and
    early-stop evaluation, one GRAND-nl dense evaluation, one windowed
    GRAND-nl train step and evaluation, one column-normalised train step,
-   one Pubmed train step and early-stop evaluation, under
+   one Pubmed train step and early-stop evaluation, one f32 windowed
+   train step and evaluation and one f32 attention-block step, under
    torch.profiler, time by span (forward solve, adjoint, optimizer) and by
    kernel; on the windowed GRAND-nl step, win_bwd_dense's launches (one
-   per adjoint NFE) and the kernel that ran after each;
+   per adjoint NFE) and the kernel that ran after each; on the f32 steps
+   the device ms and launches of the three f32 bodies, every win_matmul
+   (and in the attention block's step every win_bwd_dense) launch the
+   f32 body's;
 7. reference: small graphs (sparse, windowed and dense) trained from the
    same weights on the card and on the CPU must agree step by step, small
    GRAND-nl evaluations must give the same logits and NFE (on a dense
@@ -607,8 +619,7 @@ def phase_windowed_kernels(graph, results: dict) -> None:
                 cells * b + 3 * n * d * b, flops,
                 ("torch.baddbmm on the pre-gathered slab",
                  lambda: torch.baddbmm(add_t, dense, slab_g)),
-                staging=ws.matmul_staging(dense, x, addend)
-                if dt == torch.bfloat16 else "cuda_core")
+                staging=ws.matmul_staging(dense, x, addend))
             del add_t
             g_t = ws._tiles(gr, wl)
             # f32 output (graphax's), then bf16 (the path's: the blocks'
@@ -619,7 +630,8 @@ def phase_windowed_kernels(graph, results: dict) -> None:
                 2 * n * d * b + cells * 4, flops,
                 ("torch.bmm out_dtype=float32 on the pre-gathered slab",
                  lambda: torch.bmm(g_t, slab_g.transpose(1, 2),
-                                   out_dtype=torch.float32)))
+                                   out_dtype=torch.float32)),
+                staging=ws.bwd_dense_staging(gr, x))
             b16_out = run(
                 "win_bwd_dense",
                 lambda: ws.win_bwd_dense(wl, gr, x, torch.bfloat16),
@@ -627,7 +639,8 @@ def phase_windowed_kernels(graph, results: dict) -> None:
                 TOL["bfloat16"], 2 * n * d * b + cells * 2, flops,
                 ("torch.bmm on the pre-gathered slab (f32 sums, bf16 "
                  "output)", lambda: torch.bmm(g_t, slab_g.transpose(1, 2)))
-                if dt == torch.bfloat16 else None, product="bf16_out")
+                if dt == torch.bfloat16 else None, product="bf16_out",
+                staging=ws.bwd_dense_staging(gr, x))
             same = bool(torch.equal(b16_out, f32_out.to(torch.bfloat16)))
             emit({"phase": "kernels", "kernel": "win_bwd_dense",
                   "layout": shape, "dtype": name,
@@ -641,8 +654,7 @@ def phase_windowed_kernels(graph, results: dict) -> None:
                           lambda: ws.win_bwd_slab(wl, dense, gr),
                           lambda: ws.win_bwd_slab_plain(wl, dense, gr),
                           TOL_WIN, cells * b + n * d * b + n * d * 4, flops,
-                          staging=ws.slab_staging(dense, gr)
-                          if dt == torch.bfloat16 else "cuda_core")
+                          staging=ws.slab_staging(dense, gr))
             if dt == torch.bfloat16:
                 b16_out = run(
                     "win_bwd_slab",
@@ -1731,17 +1743,19 @@ def long_row_kernels(trainer, x_enc, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def nl_trainer(cfg, data, qk_seed: int = 11, device=None):
+def nl_trainer(cfg, data, qk_seed=11, device=None):
     """``Trainer(cfg, data)`` of GRAND-nl whose every ``init_state`` (fit
-    calls it first) draws random Q/K by :func:`randomize_attention`, and
-    which keeps each train step's kernel launches."""
+    calls it first) draws random Q/K by :func:`randomize_attention` (none
+    with ``qk_seed=None``: any block), and which keeps each train step's
+    kernel launches."""
     from graphax_torch import Trainer
     from graphax_torch.kernels import _build
 
     class SmokeTrainer(Trainer):
         def init_state(self, seed=None):
             super().init_state(seed)
-            randomize_attention(self.model.block.func.att, qk_seed)
+            if qk_seed is not None:
+                randomize_attention(self.model.block.func.att, qk_seed)
 
         def _step(self):
             before = dict(_build.LAUNCHES)
@@ -2380,6 +2394,87 @@ def phase_attention_block_csr(data, results: dict, epochs: int) -> dict:
     return launches
 
 
+# the f32 windowed path: (once per forward and evaluation NFE, once per
+# adjoint NFE); the attention block adds the blocks' gradient
+F32_WINDOWED = {"win_matmul": (True, True), "win_bwd_slab": (False, True)}
+F32_WINDOWED_ATTENTION = {**F32_WINDOWED, "win_bwd_dense": (False, True),
+                          "sddmm": (False, True)}
+
+
+def phase_f32_windowed(data, epochs: int) -> tuple:
+    """The ogbn-arxiv preset at the reference's f32 on its windowed layout
+    as published (``best_config("ogbn-arxiv", dtype="float32")``: the f32
+    bodies of win_matmul and win_bwd_slab) for ``epochs`` epochs, then
+    the attention block in f32 on the same layout (``block="attention"``:
+    win_bwd_dense's f32 body for the blocks' gradient) for one, each
+    ``fit`` with its defaults: per epoch the loss, seconds, forward,
+    adjoint and evaluation NFE, the first and steady epoch seconds, the
+    peak device memory. Checks finite losses and solver success, and the
+    launches: per train step each kernel of ``F32_WINDOWED`` (and
+    ``F32_WINDOWED_ATTENTION``) once per forward and/or adjoint NFE as its
+    flags say, over the run once more per evaluation NFE where it runs in
+    the forward. Returns the launches and both Trainers."""
+    import torch
+
+    from graphax_torch import best_config
+    from graphax_torch.kernels import _build
+
+    launches: dict = {}
+    trainers = []
+    for label, over, n_ep, per_nfe in (
+            ("f32_windowed", {}, epochs, F32_WINDOWED),
+            ("f32_windowed_attention", dict(block="attention"), 1,
+             F32_WINDOWED_ATTENTION)):
+        cfg = best_config("ogbn-arxiv", dtype="float32", **over)
+        check(cfg.community_window == 512 and cfg.dtype == "float32",
+              f"{label}: the config moved")
+        tr = nl_trainer(cfg, data, qk_seed=None)
+        check(tr.data.graph.strategy == "windowed",
+              f"{label}: the graph is {tr.data.graph.strategy}")
+        _build.LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fit = tr.fit(epochs=n_ep)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        hist, solver = fit["history"], fit["solver"]
+        for h, sv, st in zip(hist, solver, tr.step_launches):
+            emit({"phase": "slice", "path": label, **h, **sv,
+                  "step_launches": st})
+            check(math.isfinite(h["loss"]) and bool(sv["success"])
+                  and bool(sv["eval_success"]) and sv["bwd_nfe"] > 0,
+                  f"{label} epoch {h['epoch']}: loss {h['loss']}, {sv}")
+            for k, (fwd, bwd) in per_nfe.items():
+                want = fwd * h["nfe"] + bwd * sv["bwd_nfe"]
+                check(st.get(k, 0) == want,
+                      f"{label} epoch {h['epoch']}: {k} launched "
+                      f"{st.get(k, 0)} times in a step of {h['nfe']} "
+                      f"forward and {sv['bwd_nfe']} adjoint NFE (want "
+                      f"{want})")
+        nfe = sum(h["nfe"] for h in hist)
+        bwd = sum(sv["bwd_nfe"] for sv in solver)
+        ev = sum(sv["eval_nfe"] for sv in solver)
+        for k, (fwd, bwd_) in per_nfe.items():
+            want = fwd * (nfe + ev) + bwd_ * bwd
+            check(counts.get(k, 0) == want,
+                  f"{label}: {k} launched {counts.get(k, 0)} times for "
+                  f"{nfe} forward, {bwd} adjoint and {ev} evaluation NFE")
+        times = [h["time"] for h in hist]
+        emit({"phase": "slice", "path": label, "dtype": cfg.dtype,
+              "seconds": seconds, "epoch_seconds": times,
+              "first_epoch_seconds": times[0],
+              "steady_epoch_seconds": min(times[1:]) if len(times) > 1
+              else None,
+              "forward_nfe": nfe, "adjoint_nfe": bwd, "eval_nfe": ev,
+              "launches": counts, "best": fit["best"],
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        trainers.append(tr)
+    return launches, trainers
+
+
 def phase_reference_dense() -> dict:
     """Small dense graphs from the same weights on the card and on the CPU:
     the Computers preset at toy width (16 hidden, 2 heads of 4, no
@@ -2518,13 +2613,14 @@ def phase_reference_attention() -> dict:
     return out
 
 
-def phase_breakdown(steps, after=None) -> dict:
+def phase_breakdown(steps, after=None, sums=()) -> dict:
     """``steps``, ``(span name, fn)`` pairs, run in order under
     torch.profiler: each labelled span's host-side and device-side duration
     in order, device time by kernel, and the device's idle share of the
     window. With ``after`` (part of a kernel's name): that kernel's device
     launches and, by name, the kernel that ran next on the device after
-    each."""
+    each. ``sums``: parts of kernel names, each with the device ms and
+    launches of the kernels whose names hold it."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2556,6 +2652,10 @@ def phase_breakdown(steps, after=None) -> dict:
            "device_idle_share": 1.0 - busy / wall_ms,
            "kernel_launches": sum(v["count"] for v in kernels.values()),
            "spans": spans, "device_kernels_top": top}
+    out["sums"] = {part: {
+        "ms": sum(v["ms"] for k, v in kernels.items() if part in k),
+        "count": sum(v["count"] for k, v in kernels.items() if part in k)}
+        for part in sums}
     if after is not None:
         hits = [i for i, name in enumerate(device) if after in name]
         nxt: dict = {}
@@ -2823,6 +2923,11 @@ def main(argv=None) -> int:
     for k, v in phase_attention_block_csr(data, results,
                                           args.epochs).items():
         launches[k] = launches.get(k, 0) + v
+    # the preset at the reference's f32 on its windowed layout, and the
+    # attention block in f32 there: the f32 bodies of the windowed products
+    f32_launches, (tr_f32, tr_f32a) = phase_f32_windowed(data, args.epochs)
+    for k, v in f32_launches.items():
+        launches[k] = launches.get(k, 0) + v
 
     # 6. where the time goes, on the windowed path: win_bwd_slab once per
     # adjoint NFE, dx in x's dtype straight from it
@@ -2871,6 +2976,25 @@ def main(argv=None) -> int:
                              ("graphax_torch.evaluate",
                               trainer_pub.evaluate_early)])})
     del trainer_pub
+    # the f32 windowed path: the f32 bodies' device ms, each launch of
+    # win_matmul (and in the attention block's step, of win_bwd_dense) the
+    # f32 body's
+    f32_bodies = ("win_matmul_f32", "win_bwd_dense_f32", "win_bwd_slab_f32")
+    for label, tr_, steps, kernel in (
+            ("f32_windowed", tr_f32,
+             [("graphax_torch.train_step", tr_f32.train_step),
+              ("graphax_torch.evaluate", tr_f32.evaluate)], "win_matmul"),
+            ("f32_windowed_attention", tr_f32a,
+             [("graphax_torch.train_step", tr_f32a.train_step)],
+             "win_bwd_dense")):
+        _build.LAUNCHES.clear()
+        bd = phase_breakdown(steps, after=kernel + "_f32", sums=f32_bodies)
+        bd["after"]["adjoint_nfe"] = tr_.bm.get_value()
+        emit({"phase": "breakdown", "path": label, **bd})
+        check(bd["after"]["launches"] == _build.LAUNCHES[kernel] > 0,
+              f"the {label} profile: {kernel}'s f32 body {bd['after']} "
+              f"against {_build.LAUNCHES[kernel]} launches")
+    del tr_f32, tr_f32a, tr_
 
     # 7. small references: the card against the CPU
     emit({"phase": "reference", **phase_reference()})
@@ -2993,6 +3117,18 @@ def main(argv=None) -> int:
                   "library_ms")}
     kernels[4]["variant"] = ("with the residual SpMM's result added in the "
                              "epilogue, as the main path calls it")
+    # the f32 bodies (the preset at the reference's f32, and the attention
+    # block's blocks' gradient in f32): their numbers and their launches
+    # on that path
+    for i, name, tags in ((4, "win_matmul", ((), )),
+                          (5, "win_bwd_dense", ((), ("bf16_out",))),
+                          (6, "win_bwd_slab", ((), ))):
+        kernels[i]["float32"] = {
+            "_".join(("f32_in",) + tag) if tag else "f32_in": {
+                k: results[(name, "float32") + tag].get(k)
+                for k in numbers + ("staging",)}
+            for tag in tags}
+        kernels[i]["float32_launches"] = f32_launches.get(name, 0)
     slab = results[("win_bwd_slab", "bfloat16")]
     kernels[6]["variant"] = ("bf16 in, bf16 out (x's dtype, as the main path "
                              "runs it); f32_out: graphax's f32 sums")

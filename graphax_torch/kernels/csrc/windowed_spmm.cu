@@ -5,26 +5,28 @@
 // Replaces graphax/kernels/pallas_windows.py:
 //   `_densify_kernel` (:57)       -> densify_kernel
 //   `_win_matmul_kernel` (:185)   -> win_matmul_tc_kernel (bf16),
-//                                    win_matmul_kernel (f32)
+//                                    win_matmul_f32_kernel (f32)
 //   `_win_bwd_dense_kernel` (:214)-> win_bwd_dense_tc_kernel (bf16),
-//                                    win_bwd_dense_kernel (f32)
+//                                    win_bwd_dense_f32_kernel (f32)
 //   `_win_bwd_slab_kernel` (:243) -> win_bwd_slab_tc_kernel (bf16),
-//                                    win_bwd_slab_kernel (f32)
+//                                    win_bwd_slab_f32_kernel (f32)
 //
 // Layout (graphax_torch/kernels/windows.py): node rows fall into T tiles of
 // `tile` rows; tile t reads window w = tile_win[t], the `W` consecutive
 // nodes w*W .. w*W+W-1 (the "slab"; slab rows past N read as zero). The
 // in-window edges of tile t form the dense block dense[t] in [tile, W].
 //
-// What bounds them on an H100: bytes. At the ogbn-arxiv shapes (T = 1323,
-// tile 128, W 512, D 162, bf16) the blocks alone are 173 MB per pass, while
-// 2*T*tile*W*D = 28 GFLOP is 0.03 ms at the bf16 tensor-core peak against
-// 0.1 ms to read the blocks once. The three products are one tiled GEMM
-// each, with A and B staged through shared memory; bf16 inputs go through
-// the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulators: bf16
-// products are exact in f32, as on the MXU; the kernels below), f32 inputs
-// through CUDA-core FMAs (the TPU's f32 MXU passes keep f32 precision;
-// TF32 would not), the generic bodies below.
+// What bounds them on an H100 depends on the dtype. At the ogbn-arxiv
+// shapes (T = 1323, tile 128, W 512, D 162) each product is 2*T*tile*W*D =
+// 28 GFLOP. In bf16 that is 0.03 ms at the tensor-core peak against 0.1 ms
+// to read the 173 MB of blocks once: bytes. In f32 it is 0.419 ms at the
+// 67 TFLOP/s of CUDA-core FMAs against 0.17-0.20 ms of bytes: operations.
+// The three products are one tiled GEMM each, with A and B staged through
+// shared memory; bf16 inputs go through the tensor cores (mma.sync
+// m16n8k16, bf16 in, f32 accumulators: bf16 products are exact in f32, as
+// on the MXU; the *_tc_kernels below), f32 inputs through CUDA-core FMAs
+// (the TPU's f32 MXU passes keep f32 precision; TF32 would not), the f32
+// core below.
 //
 // Design, against the TPU kernels:
 // - No sequential grid: the TPU densify accumulates one-hot products into a
@@ -38,13 +40,38 @@
 //   guarded (rows past tile or N, columns past W or D read as zero) and
 //   every store is guarded, so D = 162 (not a multiple of 16) and small test
 //   shapes need no padding in device memory.
-// - Staging (the f32 bodies): each operand is copied in runs along its
-//   contiguous axis (16 bytes of the blocks, 2 values of a state row) into
-//   shared memory laid out the same way, and the staged layout (row or
-//   column major) absorbs the transposes of the two backward products. The next step's
-//   loads are issued into registers before this step's products, and the
-//   1-D grid puts the column chunks of one output block side by side, so
-//   they share its A operand in L2 instead of reading it from HBM again.
+//
+// The f32 bodies (win_matmul_f32_kernel, win_bwd_dense_f32_kernel,
+// win_bwd_slab_f32_kernel) share one GEMM core (f_gemm below), bound by
+// operations (0.419 ms each at the arxiv shapes). What it does about that:
+// - Register tiles of 8 x 12 outputs a thread in win_matmul and
+//   win_bwd_slab (a CTA covers 192 columns of D, so each block is read
+//   from device memory once) and 8 x 8 in win_bwd_dense; each k's A and B
+//   values come by 16-byte shared loads. An SM does 128 f32 FMAs a clock
+//   but moves 128 bytes a clock from shared memory into registers: 8 x 8
+//   needs just that rate (64 bytes for 64 FMAs), 8 x 12 80 for 96.
+// - Two CTAs an SM (128 registers a thread): one CTA's barriers, copies
+//   and stores overlap the other's FMAs. One CTA an SM with 8 x 16 tiles
+//   measured slower (PERF.md).
+// - k-major staging: both operands land as [k][rows] in shared memory, the
+//   transposes absorbed by the copies. Operands whose rows run along k (the
+//   blocks in win_matmul, g and x in win_bwd_dense) go by 4-byte cp.async
+//   of one value, a warp 8 k x 4 rows; the others (the slab rows in
+//   win_matmul, the blocks and g in win_bwd_slab) by 16-, 8- or 4-byte
+//   cp.async along their rows (the wrapper's copy width). A row pitch of 4
+//   words mod 32 keeps the transposing stores and every 16-byte load free
+//   of bank conflicts. Each thread copies from one base address, so a full
+//   step's copies need no address arithmetic and no guards.
+// - A ring of 2 cp.async steps (32 k in win_matmul and win_bwd_slab, 16 in
+//   win_bwd_dense), one barrier a step; a K loop bounded by the real depth
+//   (no FMAs on k past D, W or a tile).
+// - win_bwd_dense writes its [T, 128, W] output by 16-byte streaming
+//   stores straight from registers.
+// - Summation order: each output is one running f32 sum from +0, one fmaf
+//   a k in K order, no split of K; win_matmul then adds its addend,
+//   rounded once. A zero term (k past D, W or a tile, rows past N) never
+//   changes a sum begun at +0 (such a sum is never -0), so skipping those
+//   terms gives the bits of the same chain over zero-padded K.
 //
 // win_matmul in bf16 (win_matmul_tc_kernel below): bound by bytes, the
 // [T, 128, W] blocks once (173 MB at the arxiv shapes) and x, the addend
@@ -78,10 +105,7 @@
 // win_bwd_slab in bf16 (win_bwd_slab_tc_kernel below): bound by bytes,
 // the [T, 128, W] blocks once (173 MB at the arxiv shapes), g (55 MB) and
 // dx in x's dtype (55 MB of bf16), 0.0845 ms at 3.35 TB/s, against 28
-// GFLOP (0.03 ms at the bf16 tensor-core peak). The generic body gave
-// each CTA 64 columns of D, so D = 162 read every block 3 times (519 MB),
-// wrote an f32 [Wn W, D] slab through a shared-memory epilogue, and the
-// autograd Function sliced and cast it in a pass of its own. Design:
+// GFLOP (0.03 ms at the bf16 tensor-core peak). Design:
 // win_matmul_tc_kernel's with the block transposed: one CTA per (window,
 // 128 slab rows) covers the whole D (176 columns; wider D takes more
 // CTAs), so each block is read once; it walks the window's tiles (4 of
@@ -95,7 +119,7 @@
 //
 // Not yet done (later work): wgmma/TMA, and skipping all-zero 32-column
 // strips of the blocks (0.66 % of the cells are filled at the arxiv
-// shapes).
+// shapes, but 97.9 % of the 32-column strips hold one: PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,22 +131,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BM = 128;        // output rows per CTA
-constexpr int BN = 64;         // output columns per CTA
-constexpr int BK = 32;         // reduction depth per staged step
-constexpr int THREADS = 256;   // 8 warps: 4 (rows) x 2 (columns) of 32x32
-constexpr int PAD = 8;         // shared pitch padding (elements)
-constexpr int LDC = BN + 4;    // shared row pitch of the f32 epilogue
-// A is staged [BM][BK] or [BK][BM], B [BK][BN] or [BN][BK], whichever
-// keeps each operand's contiguous axis contiguous in shared memory
-constexpr int A_ELEMS = (BM * (BK + PAD)) > (BK * (BM + PAD))
-                            ? BM * (BK + PAD) : BK * (BM + PAD);
-constexpr int B_ELEMS = (BK * (BN + PAD)) > (BN * (BK + PAD))
-                            ? BK * (BN + PAD) : BN * (BK + PAD);
-constexpr int SMEM_AB_F32 = (A_ELEMS + B_ELEMS) * 4;
-constexpr int SMEM_C = BM * LDC * 4;
-constexpr int SMEM = SMEM_C > SMEM_AB_F32 ? SMEM_C : SMEM_AB_F32;
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
@@ -130,132 +138,6 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// Copy VEC consecutive elements in one load or store where VEC elements
-// make 4, 8 or 16 bytes (both pointers aligned to that size).
-template <typename T, int VEC>
-__device__ __forceinline__ void copy_vec(T* dst, const T* src) {
-  constexpr int BYTES = VEC * sizeof(T);
-  if constexpr (BYTES == 16) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-  } else if constexpr (BYTES == 8) {
-    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
-  } else if constexpr (BYTES == 4) {
-    *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(src);
-  } else {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) dst[j] = src[j];
-  }
-}
-
-// One SR x SC operand tile on its way from device memory to shared memory
-// (S[r * (SC + PAD) + c]), held in registers in between so that the next
-// step's loads are in flight while this step's products run. Each thread
-// moves NV runs of VEC elements along c, contiguous in device memory and in
-// shared memory. fetch(step, r, c, v) fills the run at (r, c) or zeros
-// when it lies outside the operand (a run never straddles the operand's
-// edge: the wrapper takes VEC > 1 only where the extent divides by it).
-template <typename T, int VEC, int SR, int SC>
-struct Staged {
-  static constexpr int NV = SR * SC / VEC / THREADS;
-  static_assert(NV * VEC * THREADS == SR * SC, "tile must split evenly");
-  T buf[NV][VEC];
-
-  __device__ __forceinline__ static void pos(int p, int& r, int& c) {
-    const int i = threadIdx.x + p * THREADS;
-    r = i / (SC / VEC);
-    c = (i % (SC / VEC)) * VEC;
-  }
-  template <typename F>
-  __device__ __forceinline__ void load(F fetch, int step) {
-#pragma unroll
-    for (int p = 0; p < NV; ++p) {
-      int r, c;
-      pos(p, r, c);
-      fetch(step, r, c, buf[p]);
-    }
-  }
-  __device__ __forceinline__ void store(T* S) const {
-#pragma unroll
-    for (int p = 0; p < NV; ++p) {
-      int r, c;
-      pos(p, r, c);
-      copy_vec<T, VEC>(S + r * (SC + PAD) + c, buf[p]);
-    }
-  }
-};
-
-// fetch helper: VEC values at p, or zeros
-template <typename T, int VEC>
-__device__ __forceinline__ void fetch_or_zero(bool ok, const T* p, T* v) {
-  if (ok) {
-    copy_vec<T, VEC>(v, p);
-  } else {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = from_f<T>(0.f);
-  }
-}
-
-// Per-thread share of the CTA's BM x BN f32 accumulator of the f32
-// products (CUDA-core FMAs; the bf16 products run the tensor-core kernels).
-// mma() adds A[BM x BK] @ B[BK x BN] from shared memory, A staged [m][k]
-// (A_MK) or [k][m], B staged [k][n] (B_KN) or [n][k].
-template <typename T> struct Accum;
-
-template <> struct Accum<float> {
-  float r[8][4];  // rows ty*8 + i, columns tx*4 + j
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) r[i][j] = 0.f;
-  }
-  template <bool A_MK, bool B_KN>
-  __device__ __forceinline__ void mma(const float* As, const float* Bs) {
-    constexpr int lda = A_MK ? BK + PAD : BM + PAD;
-    constexpr int ldb = B_KN ? BN + PAD : BK + PAD;
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = ty * 8 + i;
-        a[i] = As[A_MK ? m * lda + k : k * lda + m];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = tx * 4 + j;
-        b[j] = Bs[B_KN ? k * ldb + n : n * ldb + k];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) r[i][j] = fmaf(a[i], b[j], r[i][j]);
-    }
-  }
-  __device__ __forceinline__ void store(float* Cs) {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[(ty * 8 + i) * LDC + tx * 4 + j] = r[i][j];
-  }
-};
-
-// The CTA's accumulator through shared memory to out[row(m), col(n)] for
-// m < m_lim, n < n_lim (put(m, n, v) does the guarded store).
-template <typename T, typename P>
-__device__ __forceinline__ void epilogue(Accum<T>& acc, float* Cs, P put) {
-  __syncthreads();  // the last staged tiles share Cs's memory
-  acc.store(Cs);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-    const int m = i / BN, n = i % BN;
-    put(m, n, Cs[m * LDC + n]);
-  }
 }
 
 // dense[cell[i]] = values[edge_id[i]] (after a zero fill of dense)
@@ -268,82 +150,394 @@ __global__ void densify_kernel(const int* __restrict__ edge_id,
   if (i < n) dense[cell[i]] = from_f<TO>(to_f(values[edge_id[i]]));
 }
 
-// The staged GEMM of one CTA: acc += A @ B over `steps` steps of BK, the
-// operands staged by fa / fb (SA, SB: their Staged tiles, laid out as
-// A_MK / B_KN say), the next step's loads issued before this step's
-// products.
-template <typename T, bool A_MK, bool B_KN, int VA, int VB, typename FA,
-          typename FB>
-__device__ __forceinline__ void gemm_steps(Accum<T>& acc, T* As, T* Bs,
-                                           int steps, FA fa, FB fb) {
-  Staged<T, VA, A_MK ? BM : BK, A_MK ? BK : BM> sa;
-  Staged<T, VB, B_KN ? BK : BN, B_KN ? BN : BK> sb;
-  if (steps > 0) {
-    sa.load(fa, 0);
-    sb.load(fb, 0);
+// ---------------------------------------------------------------------------
+// The f32 core (see the note at the top). A CTA owns F_BM output rows and
+// 64 * NR output columns, 8 warps: 4 over rows (32 each) x 2 over columns
+// (32 * NR each). Lane (tm = lane / 8, tn = lane % 8) of a warp owns rows
+// ra + i and ra + 16 + i (i < 4) and columns cb + 32 r + j (r < NR, j < 4),
+// ra = its warp's first row + 4 tm, cb = its warp's first column + 4 tn: an
+// 8 x 4 NR register tile whose k-th A values are two 16-byte runs of the
+// staged row k of A, and whose B values are NR 16-byte runs of row k of B.
+// The 4 distinct A runs and 8 distinct B runs a warp reads per load lie in
+// one 64- or 128-byte span of one staged row: no bank conflicts.
+constexpr int F_BM = 128;       // output rows a CTA
+constexpr int F_THREADS = 256;  // 8 warps
+constexpr int F_PA = F_BM + 4;  // A's staged row pitch: 4 words mod 32
+// win_matmul and win_bwd_slab: 192 columns of D a CTA (NR = 3), steps of
+// 32 k, a ring of 2, 2 CTAs an SM (the register cap: 128 a thread)
+constexpr int F_NR_MM = 3;
+constexpr int F_BK_MM = 32;
+constexpr int F_ST_MM = 2;
+constexpr int F_CTAS_MM = 2;
+// win_bwd_dense: 128 slab rows a CTA (NR = 2), steps of 16 k, a ring of 2,
+// 2 CTAs an SM
+constexpr int F_NR_BD = 2;
+constexpr int F_BK_BD = 16;
+constexpr int F_ST_BD = 2;
+constexpr int F_CTAS_BD = 2;
+
+// a body's CTA: 64 * NR_ columns, steps of BK_ k, a ring of ST_ steps
+template <int NR_, int BK_, int ST_> struct FShape {
+  static constexpr int NR = NR_, BK = BK_, ST = ST_;
+  static constexpr int BN = 64 * NR;                   // columns a CTA
+  static constexpr int PB = BN + 4;                    // B's row pitch
+  static constexpr int STAGE = BK * (F_PA + PB);       // floats a step
+  static constexpr int SMEM = ST * STAGE * (int)sizeof(float);
+};
+
+// this thread's first row ra and first column cb in the CTA's tile
+template <int NR>
+__device__ __forceinline__ void f_coords(int& ra, int& cb) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ra = 32 * (warp & 3) + 4 * (lane >> 3);
+  cb = 32 * NR * (warp >> 2) + 4 * (lane & 7);
+}
+
+// acc[i][j] = fmaf(a_i, b_j, acc[i][j]) for one k: a = A's staged row k
+// from ra, b = B's staged row k from cb
+template <int NR>
+__device__ __forceinline__ void f_fma(float (&acc)[8][4 * NR],
+                                      const float* a, const float* b) {
+  const float4 a0 = *reinterpret_cast<const float4*>(a);
+  const float4 a1 = *reinterpret_cast<const float4*>(a + 16);
+  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  float bv[4 * NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const float4 v = *reinterpret_cast<const float4*>(b + 32 * r);
+    bv[4 * r] = v.x;
+    bv[4 * r + 1] = v.y;
+    bv[4 * r + 2] = v.z;
+    bv[4 * r + 3] = v.w;
   }
-  for (int s = 0; s < steps; ++s) {
-    sa.store(As);
-    sb.store(Bs);
-    __syncthreads();
-    if (s + 1 < steps) {
-      sa.load(fa, s + 1);
-      sb.load(fb, s + 1);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NR; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+}
+
+// S[k][r] (pitch P) = src[r * ld + k] for r < rows and k < kn, zeros for
+// the other r < R, k < BK: 4-byte cp.async of one value each (src is
+// not read where !ok: `safe` stands in). A warp copies 8 k of 4 rows (32
+// bytes of each row; with P = 4 mod 32 its stores hit 32 banks), rows 32
+// apart and the next 8 k from the same thread's base, so that a full
+// step's copies need no address arithmetic of their own and no guards.
+template <int R, int BK>
+__device__ __forceinline__ void stage_t(float* S, int P, const float* src,
+                                        long long ld, int rows, int kn,
+                                        const float* safe) {
+  constexpr int RP = R / 32, NP = R * BK / F_THREADS;
+  const int tid = threadIdx.x;
+  const int r0 = 4 * (tid >> 5) + ((tid >> 3) & 3), k0 = tid & 7;
+  float* s = S + k0 * P + r0;
+  const float* g = src + r0 * ld + k0;
+  const long long ld32 = 32 * ld;
+  const bool full = rows >= R && kn >= BK;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const int dr = 32 * (p % RP), dk = 8 * (p / RP);
+    const bool ok = full || (r0 + dr < rows && k0 + dk < kn);
+    gx_tc::cp_async4_zfill(s + dk * P + dr,
+                           ok ? g + (p % RP) * ld32 + dk : safe, ok);
+  }
+}
+
+// S[k][c] (pitch P) = src[k * ld + c] for k < rows and c < cols, zeros for
+// the other k < BK, c < C: cp.async of V values (16, 8 or 4 bytes; ld,
+// cols and src's alignment divide by V), F_THREADS / BK threads a row
+template <int C, int V, int BK>
+__device__ __forceinline__ void stage_dv(float* S, int P, const float* src,
+                                         long long ld, int rows, int cols,
+                                         const float* safe) {
+  constexpr int TR = F_THREADS / BK, NC = C / V / TR;
+  static_assert(NC * V * TR == C, "a row must split evenly");
+  const int k = threadIdx.x / TR, c0 = (threadIdx.x % TR) * V;
+  float* s = S + k * P + c0;
+  const float* g = src + k * ld + c0;
+  const bool full = rows >= BK && cols >= C;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int dc = j * TR * V;
+    const bool ok = full || (k < rows && c0 + dc < cols);
+    const float* from = ok ? g + dc : safe;
+    if (V == 4)
+      gx_tc::cp_async16_zfill(s + dc, from, ok);
+    else if (V == 2)
+      gx_tc::cp_async8_zfill(s + dc, from, ok);
+    else
+      gx_tc::cp_async4_zfill(s + dc, from, ok);
+  }
+}
+
+template <int C, int BK>
+__device__ __forceinline__ void stage_d(float* S, int P, const float* src,
+                                        long long ld, int rows, int cols,
+                                        int vw, const float* safe) {
+  if (vw == 4)
+    stage_dv<C, 4, BK>(S, P, src, ld, rows, cols, safe);
+  else if (vw == 2)
+    stage_dv<C, 2, BK>(S, P, src, ld, rows, cols, safe);
+  else
+    stage_dv<C, 1, BK>(S, P, src, ld, rows, cols, safe);
+}
+
+// The K loop of one CTA of shape S: acc = A B over nsteps steps from +0
+// in K order, stage(s, As, Bs) filling step s's ring slot (A [BK][F_PA],
+// B [BK][PB]) and klen(s) giving its real depth (<= BK); ST - 1 steps in
+// flight, one barrier a step. A full step's k loop is unrolled (its
+// shared offsets immediates); a short one runs only its k.
+template <typename S, typename Stage, typename KLen>
+__device__ __forceinline__ void f_gemm(float (&acc)[8][4 * S::NR],
+                                       float* ring, int nsteps, Stage stage,
+                                       KLen klen) {
+  int ra, cb;
+  f_coords<S::NR>(ra, cb);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * S::NR; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S::ST - 1; ++s) {
+    float* slot = ring + s * S::STAGE;
+    if (s < nsteps) stage(s, slot, slot + S::BK * F_PA);
+    gx_tc::cp_async_commit();
+  }
+  for (int s = 0; s < nsteps; ++s) {
+    gx_tc::cp_async_wait<S::ST - 2>();
+    __syncthreads();  // step s is in; step s - 1's slot is free
+    const int sn = s + S::ST - 1;
+    if (sn < nsteps) {
+      float* slot = ring + (sn % S::ST) * S::STAGE;
+      stage(sn, slot, slot + S::BK * F_PA);
     }
-    acc.template mma<A_MK, B_KN>(As, Bs);
-    __syncthreads();
+    gx_tc::cp_async_commit();
+    const float* a = ring + (s % S::ST) * S::STAGE + ra;
+    const float* b = ring + (s % S::ST) * S::STAGE + S::BK * F_PA + cb;
+    const int kn = klen(s);
+    if (kn == S::BK) {
+#pragma unroll
+      for (int k = 0; k < S::BK; ++k)
+        f_fma<S::NR>(acc, a + k * F_PA, b + k * S::PB);
+    } else {
+#pragma unroll 1
+      for (int k = 0; k < kn; ++k)
+        f_fma<S::NR>(acc, a + k * F_PA, b + k * S::PB);
+    }
+  }
+  gx_tc::cp_async_wait<0>();
+}
+
+// n <= 4 consecutive outputs v (f32 sums) to p in TO, by vw-value stores
+// (4: one 16-byte f32 or 8-byte bf16 streaming store; 2: pairs; 1: single
+// values), each rounded once
+template <typename TO>
+__device__ __forceinline__ void f_put(TO* p, const float (&v)[4], int n,
+                                      int vw) {
+  if (vw == 4 && n == 4) {
+    gx_tc::store4(p, v);
+  } else if (vw >= 2) {
+    gx_tc::store2(p, v[0], v[1]);
+    if (n > 2) gx_tc::store2(p + 2, v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) gx_tc::store1(p + e, v[e]);
   }
 }
 
-// The CTA of a flat 1-D grid: column chunk fastest, so the chunks of one
-// output row block run side by side and share its A operand in L2.
-__device__ __forceinline__ void cta_coords(int nchunks, int mblocks, int& b,
-                                           int& m0, int& n0) {
-  const int i = blockIdx.x;
-  n0 = (i % nchunks) * BN;
-  m0 = ((i / nchunks) % mblocks) * BM;
-  b = i / nchunks / mblocks;
+// v += the n <= 4 addend values at a (vw-value loads, as f_put)
+__device__ __forceinline__ void f_add(float (&v)[4], const float* a, int n,
+                                      int vw) {
+  if (vw == 4 && n == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(a);
+    v[0] += t.x; v[1] += t.y; v[2] += t.z; v[3] += t.w;
+  } else if (vw >= 2) {
+    const float2 t = *reinterpret_cast<const float2*>(a);
+    v[0] += t.x; v[1] += t.y;
+    if (n > 2) {
+      const float2 u = *reinterpret_cast<const float2*>(a + 2);
+      v[2] += u.x; v[3] += u.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) v[e] += a[e];
+  }
 }
 
-// out[t*tile + r, :] = dense[t, r, :] @ slab[tile_win[t]] summed in f32,
-// plus addend[t*tile + r, :], rounded once to T (the windowed SpMM's
-// residual, added in the epilogue instead of three elementwise passes over
-// [N, D]): the f32 instantiation (CUDA-core FMAs, no TF32; bf16 runs
-// win_matmul_tc_kernel). A [m][k] = dense[t] rows (runs of VA along W),
-// B [k][n] = slab rows (runs of VB along D).
-template <typename T, int VA, int VB>
-__global__ void __launch_bounds__(THREADS)
-win_matmul_kernel(const T* __restrict__ dense, const T* __restrict__ x,
-                  const int* __restrict__ tile_win,
-                  const T* __restrict__ addend, T* __restrict__ out,
-                  int tile, int W, int N, int D) {
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + A_ELEMS;
-  int t, m0, n0;
-  cta_coords((D + BN - 1) / BN, (tile + BM - 1) / BM, t, m0, n0);
+// The CTA's outputs: row m < m_out of its tile to rowp(m) (nullptr: not
+// stored), columns c < n_out, through put(p, v, n) for each run of n <= 4
+template <int NR, typename RowP, typename Put>
+__device__ __forceinline__ void f_epilogue(const float (&acc)[8][4 * NR],
+                                           int m_out, int n_out, RowP rowp,
+                                           Put put) {
+  int ra, cb;
+  f_coords<NR>(ra, cb);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = ra + (i & 3) + 16 * (i >> 2);
+    if (m >= m_out) continue;
+    auto p = rowp(m);
+    if (p == nullptr) continue;
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int c = cb + 32 * r;
+      if (c >= n_out) continue;
+      float v[4] = {acc[i][4 * r], acc[i][4 * r + 1], acc[i][4 * r + 2],
+                    acc[i][4 * r + 3]};
+      put(p + c, v, min(4, n_out - c));
+    }
+  }
+}
+
+// out[t*tile + m, c] = rnd(dense[t, m, :] . slab[tile_win[t]][:, c] +
+// addend[t*tile + m, c]) in f32 (win_matmul_tc_kernel runs bf16): one CTA
+// a (tile, 128 rows, 192 columns of D), so each block is read once.
+// A = the block's rows [m][k], staged k-major by 4-byte copies; B = the
+// slab rows [k][c], by vb-value copies along D (vb also sizes the
+// epilogue's addend loads and stores: x and the addend start on vb values;
+// read a value at a time, the addend measured slower: PERF.md). Slab
+// rows past W or N are zeros; K is W (the last step W % BK deep).
+__global__ void __launch_bounds__(F_THREADS, F_CTAS_MM)
+win_matmul_f32_kernel(const float* __restrict__ dense,
+                      const float* __restrict__ x,
+                      const int* __restrict__ tile_win,
+                      const float* __restrict__ addend,
+                      float* __restrict__ out, int tile, int W, int N, int D,
+                      int vb) {
+  using S = FShape<F_NR_MM, F_BK_MM, F_ST_MM>;
+  extern __shared__ __align__(16) unsigned char smem_f[];
+  float* ring = reinterpret_cast<float*>(smem_f);
+  const int nchunks = (D + S::BN - 1) / S::BN;
+  const int mblocks = (tile + F_BM - 1) / F_BM;
+  const int c0 = (blockIdx.x % nchunks) * S::BN;
+  const int m0 = ((blockIdx.x / nchunks) % mblocks) * F_BM;
+  const int t = blockIdx.x / nchunks / mblocks;
+  const int mrows = min(F_BM, tile - m0), ncol = min(S::BN, D - c0);
+  const long long node0 = (long long)t * tile + m0;  // first output row
   const long long base = (long long)tile_win[t] * W;  // first slab row
-  const T* A = dense + (size_t)t * tile * W;
-  Accum<T> acc;
-  acc.zero();
-  gemm_steps<T, true, true, VA, VB>(
-      acc, As, Bs, (W + BK - 1) / BK,
-      [&](int s, int m, int k, T* v) {
-        const int r = m0 + m, c = s * BK + k;
-        fetch_or_zero<T, VA>(r < tile && c < W, A + (size_t)r * W + c, v);
+  const float* A = dense + (size_t)node0 * W;
+  float acc[8][4 * F_NR_MM];
+  f_gemm<S>(
+      acc, ring, (W + S::BK - 1) / S::BK,
+      [&](int s, float* As, float* Bs) {
+        const int k0 = s * S::BK;
+        stage_t<F_BM, S::BK>(As, F_PA, A + k0, W, mrows, W - k0, dense);
+        const long long first = base + k0;
+        const int rows = (int)max(0LL, min((long long)(W - k0), N - first));
+        stage_d<S::BN, S::BK>(Bs, S::PB, rows > 0 ? x + first * D + c0 : x,
+                              D, rows, ncol, vb, x);
       },
-      [&](int s, int k, int n, T* v) {
-        const long long node = base + s * BK + k;
-        const int c = n0 + n;
-        fetch_or_zero<T, VB>(s * BK + k < W && node < N && c < D,
-                             x + node * D + c, v);
+      [&](int s) { return min(S::BK, W - s * S::BK); });
+  f_epilogue<F_NR_MM>(
+      acc, mrows, ncol,
+      [&](int m) -> float* {
+        return node0 + m < N ? out + (node0 + m) * D + c0 : nullptr;
+      },
+      [&](float* p, float (&v)[4], int n) {
+        f_add(v, addend + (p - out), n, vb);
+        f_put(p, v, n, vb);
       });
-  epilogue(acc, reinterpret_cast<float*>(smem), [&](int m, int n, float v) {
-    const long long row = (long long)t * tile + m0 + m;
-    const int c = n0 + n;
-    if (m0 + m < tile && row < N && c < D)
-      out[row * D + c] = from_f<T>(v + to_f(addend[row * D + c]));
-  });
+}
+
+// d_dense[t, m, n] = g[t*tile + m, :] . slab[tile_win[t]][n, :] in f32,
+// rounded once to TO (win_bwd_dense_tc_kernel runs bf16 inputs): one CTA a
+// (tile, 128 rows, 128 slab rows). A = g rows and B = slab rows,
+// both [.][k] in device memory, staged k-major by 4-byte copies; K is D,
+// BK a step (the last step D % BK deep). Rows past N (of the last
+// tile, of the last window's slab) are zeros, so their outputs are the
+// zeros the plain version's padding gives. 16-byte (f32) or 8-byte (bf16)
+// streaming stores where W % 4 == 0.
+template <typename TO>
+__global__ void __launch_bounds__(F_THREADS, F_CTAS_BD)
+win_bwd_dense_f32_kernel(const float* __restrict__ g,
+                         const float* __restrict__ x,
+                         const int* __restrict__ tile_win,
+                         TO* __restrict__ out, int tile, int W, int N,
+                         int D) {
+  using S = FShape<F_NR_BD, F_BK_BD, F_ST_BD>;
+  extern __shared__ __align__(16) unsigned char smem_f[];
+  float* ring = reinterpret_cast<float*>(smem_f);
+  const int nchunks = (W + S::BN - 1) / S::BN;
+  const int mblocks = (tile + F_BM - 1) / F_BM;
+  const int vw = (W & 3) == 0 ? 4 : 1;
+  const int n0 = (blockIdx.x % nchunks) * S::BN;
+  const int m0 = ((blockIdx.x / nchunks) % mblocks) * F_BM;
+  const int t = blockIdx.x / nchunks / mblocks;
+  const long long row0 = (long long)t * tile + m0;         // first g row
+  const long long base = (long long)tile_win[t] * W + n0;  // first slab row
+  const int m_out = min(F_BM, tile - m0), n_out = min(S::BN, W - n0);
+  // g rows and slab rows below N (the others are staged as zeros)
+  const int grows = (int)max(0LL, min((long long)m_out, N - row0));
+  const int xrows = (int)max(0LL, min((long long)n_out, N - base));
+  const float* ga = grows > 0 ? g + row0 * D : g;
+  const float* xb = xrows > 0 ? x + base * D : x;
+  float acc[8][4 * F_NR_BD];
+  f_gemm<S>(
+      acc, ring, (D + S::BK - 1) / S::BK,
+      [&](int s, float* As, float* Bs) {
+        const int k0 = s * S::BK;
+        stage_t<F_BM, S::BK>(As, F_PA, ga + k0, D, grows, D - k0, g);
+        stage_t<S::BN, S::BK>(Bs, S::PB, xb + k0, D, xrows, D - k0, x);
+      },
+      [&](int s) { return min(S::BK, D - s * S::BK); });
+  f_epilogue<F_NR_BD>(
+      acc, m_out, n_out,
+      [&](int m) -> TO* {
+        return out + ((size_t)t * tile + m0 + m) * W + n0;
+      },
+      [&](TO* p, float (&v)[4], int n) { f_put(p, v, n, vw); });
+}
+
+// dx[w*W + m, c] = sum over the tiles t of window w (the window -> tiles
+// CSR's order) of sum_r dense[t, r, m] g[t*tile + r, c], in f32, rounded
+// once to TO, for the slab rows w*W + m < N (win_bwd_slab_tc_kernel runs
+// bf16): one CTA a (window, 128 slab rows, 192 columns of D), so each
+// block is read once. A = the block's rows [r][m], B = g's rows [r][c]:
+// both k-major already, staged by va- and vb-value copies along their rows
+// (vb also sizes the stores). K walks the window's tiles, each in steps of
+// BK rows (the last tile % BK deep); g rows past N are zeros. A window
+// that no tile maps writes zeros.
+template <typename TO>
+__global__ void __launch_bounds__(F_THREADS, F_CTAS_MM)
+win_bwd_slab_f32_kernel(const float* __restrict__ dense,
+                        const float* __restrict__ g,
+                        const int* __restrict__ win_ptr,
+                        const int* __restrict__ win_tiles,
+                        TO* __restrict__ out, int tile, int W, int N, int D,
+                        int va, int vb) {
+  using S = FShape<F_NR_MM, F_BK_MM, F_ST_MM>;
+  extern __shared__ __align__(16) unsigned char smem_f[];
+  float* ring = reinterpret_cast<float*>(smem_f);
+  const int nchunks = (D + S::BN - 1) / S::BN;
+  const int mblocks = (W + F_BM - 1) / F_BM;
+  const int kpt = (tile + S::BK - 1) / S::BK;  // steps a tile
+  const int c0 = (blockIdx.x % nchunks) * S::BN;
+  const int m0 = ((blockIdx.x / nchunks) % mblocks) * F_BM;
+  const int w = blockIdx.x / nchunks / mblocks;
+  const int ncol = min(S::BN, D - c0), mcols = min(F_BM, W - m0);
+  const int beg = win_ptr[w];
+  float acc[8][4 * F_NR_MM];
+  f_gemm<S>(
+      acc, ring, (win_ptr[w + 1] - beg) * kpt,
+      [&](int s, float* As, float* Bs) {
+        const long long t = win_tiles[beg + s / kpt];
+        const int r0 = (s % kpt) * S::BK, rows = min(S::BK, tile - r0);
+        stage_d<F_BM, S::BK>(As, F_PA, dense + (t * tile + r0) * W + m0, W,
+                             rows, mcols, va, dense);
+        const long long first = t * tile + r0;
+        const int grows = (int)max(0LL, min((long long)rows, N - first));
+        stage_d<S::BN, S::BK>(Bs, S::PB, grows > 0 ? g + first * D + c0 : g,
+                              D, grows, ncol, vb, g);
+      },
+      [&](int s) { return min(S::BK, tile - (s % kpt) * S::BK); });
+  const long long row0 = (long long)w * W + m0;  // first slab row
+  f_epilogue<F_NR_MM>(
+      acc, mcols, ncol,
+      [&](int m) -> TO* {
+        return row0 + m < N ? out + (row0 + m) * D + c0 : nullptr;
+      },
+      [&](TO* p, float (&v)[4], int n) { f_put(p, v, n, vb); });
 }
 
 // The bf16 instantiation, on the tensor cores (see the note at the top).
@@ -552,42 +746,6 @@ cudaError_t win_matmul_tc_run(const void* dense, const void* x,
   return cudaGetLastError();
 }
 
-// d_dense[t, r, k] = g[t*tile + r, :] . slab[tile_win[t]][k, :] summed in
-// f32, rounded once to TO: the f32 instantiation (CUDA-core FMAs, no TF32).
-// A [m][d] = g rows (runs of VA along D), B staged [n][d] = slab rows
-// (runs of VB along D)
-template <typename T, typename TO, int VA, int VB>
-__global__ void __launch_bounds__(THREADS)
-win_bwd_dense_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                     const int* __restrict__ tile_win, TO* __restrict__ out,
-                     int tile, int W, int N, int D) {
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + A_ELEMS;
-  int t, m0, n0;
-  cta_coords((W + BN - 1) / BN, (tile + BM - 1) / BM, t, m0, n0);
-  const long long row0 = (long long)t * tile;         // first node of tile t
-  const long long base = (long long)tile_win[t] * W;  // first slab row
-  Accum<T> acc;
-  acc.zero();
-  gemm_steps<T, true, false, VA, VB>(
-      acc, As, Bs, (D + BK - 1) / BK,
-      [&](int s, int m, int k, T* v) {
-        const int r = m0 + m, c = s * BK + k;
-        fetch_or_zero<T, VA>(r < tile && row0 + r < N && c < D,
-                             g + (row0 + r) * D + c, v);
-      },
-      [&](int s, int n, int k, T* v) {
-        const int j = n0 + n, c = s * BK + k;
-        fetch_or_zero<T, VB>(j < W && base + j < N && c < D,
-                             x + (base + j) * D + c, v);
-      });
-  epilogue(acc, reinterpret_cast<float*>(smem), [&](int m, int n, float v) {
-    const int r = m0 + m, j = n0 + n;
-    if (r < tile && j < W) out[((size_t)t * tile + r) * W + j] = from_f<TO>(v);
-  });
-}
-
 // The bf16 instantiation, on the tensor cores. Each CTA owns one
 // BM_TC x BN_TC block of d_dense[t]: the g rows of its tile part and the
 // slab rows of its column part are staged whole (D in one piece up to
@@ -743,49 +901,6 @@ cudaError_t bwd_dense_tc_launch(const void* g, const void* x,
                                       vec, s);
   return bwd_dense_tc_run<TO, false>(g, x, tile_win, out, T, tile, W, N, D,
                                      vec, s);
-}
-
-// dx[w*W + k, :] = sum over tiles t with tile_win[t] == w of
-//                  sum_r dense[t, r, k] * g[t*tile + r, :]   (f32 sums)
-// for the slab rows w*W + k < N, rounded once to TO: the f32
-// instantiation (CUDA-core FMAs, no TF32; bf16 runs win_bwd_slab_tc_kernel).
-// A staged [r][k] = dense[t] rows (runs of VA along W), B [r][n] = g rows
-// (runs of VB along D). The steps walk the window's tiles from the
-// window -> tiles CSR, tile rows in BK chunks within each.
-template <typename T, typename TO, int VA, int VB>
-__global__ void __launch_bounds__(THREADS)
-win_bwd_slab_kernel(const T* __restrict__ dense, const T* __restrict__ g,
-                    const int* __restrict__ win_ptr,
-                    const int* __restrict__ win_tiles,
-                    TO* __restrict__ out, int tile, int W, int N, int D) {
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + A_ELEMS;
-  int w, m0, n0;
-  cta_coords((D + BN - 1) / BN, (W + BM - 1) / BM, w, m0, n0);
-  const int beg = win_ptr[w];
-  const int ksteps = (tile + BK - 1) / BK;
-  Accum<T> acc;
-  acc.zero();
-  gemm_steps<T, false, true, VA, VB>(
-      acc, As, Bs, (win_ptr[w + 1] - beg) * ksteps,
-      [&](int s, int k, int m, T* v) {
-        const int t = win_tiles[beg + s / ksteps];
-        const int r = (s % ksteps) * BK + k, c = m0 + m;
-        fetch_or_zero<T, VA>(r < tile && c < W,
-                             dense + ((size_t)t * tile + r) * W + c, v);
-      },
-      [&](int s, int k, int n, T* v) {
-        const long long t = win_tiles[beg + s / ksteps];
-        const int r = (s % ksteps) * BK + k, c = n0 + n;
-        fetch_or_zero<T, VB>(r < tile && t * tile + r < N && c < D,
-                             g + (t * tile + r) * D + c, v);
-      });
-  epilogue(acc, reinterpret_cast<float*>(smem), [&](int m, int n, float v) {
-    const int k = m0 + m, c = n0 + n;
-    const long long row = (long long)w * W + k;
-    if (k < W && row < N && c < D) out[row * D + c] = from_f<TO>(v);
-  });
 }
 
 // The bf16 instantiation, on the tensor cores (see the note at the top):
@@ -998,61 +1113,67 @@ cudaError_t densify_launch(const void* edge_id, const void* cell,
   return cudaGetLastError();
 }
 
-// The three products take va, vb: the run length of A's and B's staged
-// loads. A runs along W (the blocks) take 16 bytes or 1 value; A runs
-// along D (g in win_bwd_dense) and every B run (along D) take 2 values or
-// 1. The wrapper picks the longer run where the extent divides by it and
-// the pointer is aligned to it.
-
-template <template <typename, int, int> class K, typename T, int VAW,
-          typename... Args>
-cudaError_t launch_gemm(int blocks, int va, int vb, cudaStream_t s,
-                        Args... args) {
-  if (va == VAW && vb == 2)
-    K<T, VAW, 2>::run(blocks, s, args...);
-  else if (va == VAW && vb == 1)
-    K<T, VAW, 1>::run(blocks, s, args...);
-  else if (va == 1 && vb == 2)
-    K<T, 1, 2>::run(blocks, s, args...);
-  else if (va == 1 && vb == 1)
-    K<T, 1, 1>::run(blocks, s, args...);
-  else
-    return cudaErrorInvalidValue;
+// One CTA a work item of an f32 body's `kernel`, its shared memory opted
+// in above 48 KB at the first launch (`set`, one per kernel)
+template <typename... P, typename... A>
+cudaError_t f_launch(void (*kernel)(P...), bool& set, int smem,
+                     long long items, cudaStream_t s, A... args) {
+  if (!set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    set = true;
+  }
+  if (items <= 0) return cudaSuccess;
+  kernel<<<(unsigned)items, F_THREADS, smem, s>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename T, int VA, int VB> struct MatmulK {
-  static void run(int blocks, cudaStream_t s, const void* dense,
-                  const void* x, const void* tile_win, const void* addend,
-                  void* out, int tile, int W, int N, int D) {
-    win_matmul_kernel<T, VA, VB><<<blocks, THREADS, 0, s>>>(
-        (const T*)dense, (const T*)x, (const int*)tile_win, (const T*)addend,
-        (T*)out, tile, W, N, D);
-  }
-};
-template <typename TO> struct BwdDense {
-  template <typename T, int VA, int VB> struct K {
-    static void run(int blocks, cudaStream_t s, const void* g, const void* x,
-                    const void* tile_win, void* out, int tile, int W, int N,
-                    int D) {
-      win_bwd_dense_kernel<T, TO, VA, VB><<<blocks, THREADS, 0, s>>>(
-          (const T*)g, (const T*)x, (const int*)tile_win, (TO*)out, tile,
-          W, N, D);
-    }
-  };
-};
-template <typename TO> struct BwdSlab {
-  template <typename T, int VA, int VB> struct K {
-    static void run(int blocks, cudaStream_t s, const void* dense,
-                    const void* g, const void* win_ptr,
-                    const void* win_tiles, void* out, int tile, int W, int N,
-                    int D) {
-      win_bwd_slab_kernel<T, TO, VA, VB><<<blocks, THREADS, 0, s>>>(
-          (const T*)dense, (const T*)g, (const int*)win_ptr,
-          (const int*)win_tiles, (TO*)out, tile, W, N, D);
-    }
-  };
-};
+bool f_width(int v) { return v == 1 || v == 2 || v == 4; }
+
+cudaError_t win_matmul_f32_run(const void* dense, const void* x,
+                               const void* tile_win, const void* addend,
+                               void* out, int T, int tile, int W, int N,
+                               int D, int vb, cudaStream_t s) {
+  using S = FShape<F_NR_MM, F_BK_MM, F_ST_MM>;
+  static bool set = false;
+  if (!f_width(vb)) return cudaErrorInvalidValue;
+  return f_launch(win_matmul_f32_kernel, set, S::SMEM,
+                  (long long)T * ((tile + F_BM - 1) / F_BM) *
+                      ((D + S::BN - 1) / S::BN),
+                  s, (const float*)dense, (const float*)x,
+                  (const int*)tile_win, (const float*)addend, (float*)out,
+                  tile, W, N, D, vb);
+}
+
+template <typename TO>
+cudaError_t bwd_dense_f32_run(const void* g, const void* x,
+                              const void* tile_win, void* out, int T,
+                              int tile, int W, int N, int D, cudaStream_t s) {
+  using S = FShape<F_NR_BD, F_BK_BD, F_ST_BD>;
+  static bool set = false;
+  return f_launch(win_bwd_dense_f32_kernel<TO>, set, S::SMEM,
+                  (long long)T * ((tile + F_BM - 1) / F_BM) *
+                      ((W + S::BN - 1) / S::BN),
+                  s, (const float*)g, (const float*)x, (const int*)tile_win,
+                  (TO*)out, tile, W, N, D);
+}
+
+template <typename TO>
+cudaError_t bwd_slab_f32_run(const void* dense, const void* g,
+                             const void* win_ptr, const void* win_tiles,
+                             void* out, int Wn, int tile, int W, int N, int D,
+                             int va, int vb, cudaStream_t s) {
+  using S = FShape<F_NR_MM, F_BK_MM, F_ST_MM>;
+  static bool set = false;
+  if (!f_width(va) || !f_width(vb)) return cudaErrorInvalidValue;
+  return f_launch(win_bwd_slab_f32_kernel<TO>, set, S::SMEM,
+                  (long long)Wn * ((W + F_BM - 1) / F_BM) *
+                      ((D + S::BN - 1) / S::BN),
+                  s, (const float*)dense, (const float*)g,
+                  (const int*)win_ptr, (const int*)win_tiles, (TO*)out, tile,
+                  W, N, D, va, vb);
+}
 
 }  // namespace
 
@@ -1081,9 +1202,11 @@ int gx_densify(const void* edge_id, const void* cell, const void* values,
 
 // out [N, D] = dense @ slab + addend, rounded once to the shared dtype of
 // dense [T, tile, W], x [N, D], addend [N, D] and out; tile_win [T] int32.
-// float32: va, vb the staged run lengths; bfloat16 (the tensor-core
-// kernel): va != 0 takes the cp.async route (W % 8 == 0, D even, dense on
-// 16 bytes, x and addend on 4), else the element route.
+// float32: vb the values per copy of x's rows and per access of the
+// addend's and out's (4, 2 or 1: D and both pointers divide by it; va is
+// not read); bfloat16 (the tensor-core kernel): va != 0 takes the cp.async
+// route (W % 8 == 0, D even, dense on 16 bytes, x and addend on 4), else
+// the element route.
 int gx_win_matmul(const void* dense, const void* x, const void* tile_win,
                   const void* addend, void* out, int T, int tile, int W,
                   int N, int D, int dtype, int va, int vb, void* stream) {
@@ -1096,17 +1219,14 @@ int gx_win_matmul(const void* dense, const void* x, const void* tile_win,
                                          tile, W, N, D, s);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const int blocks = T * ((tile + BM - 1) / BM) * ((D + BN - 1) / BN);
-  if (blocks <= 0) return (int)cudaSuccess;
-  return (int)launch_gemm<MatmulK, float, 4>(blocks, va, vb, s, dense, x,
-                                             tile_win, addend, out, tile, W,
-                                             N, D);
+  return (int)win_matmul_f32_run(dense, x, tile_win, addend, out, T, tile, W,
+                                 N, D, vb, s);
 }
 
 // out [T, tile, W] in out_dtype, the f32 sums rounded once; g [N, D] and
-// x [N, D] share dtype. float32 inputs: va, vb the staged run lengths;
-// bfloat16 inputs (the tensor-core kernel): va != 0 lets 16-byte-aligned
-// row ranges of even D be staged by 16-byte copies.
+// x [N, D] share dtype. float32 inputs: va, vb are not read (both operands
+// go by 4-byte copies); bfloat16 inputs (the tensor-core kernel): va != 0
+// lets 16-byte-aligned row ranges of even D be staged by 16-byte copies.
 int gx_win_bwd_dense(const void* g, const void* x, const void* tile_win,
                      void* out, int T, int tile, int W, int N, int D,
                      int dtype, int out_dtype, int va, int vb, void* stream) {
@@ -1121,23 +1241,23 @@ int gx_win_bwd_dense(const void* g, const void* x, const void* tile_win,
     return (int)cudaErrorInvalidValue;
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const int blocks = T * ((tile + BM - 1) / BM) * ((W + BN - 1) / BN);
-  if (blocks <= 0) return (int)cudaSuccess;
   if (out_dtype == 0)
-    return (int)launch_gemm<BwdDense<float>::K, float, 2>(
-        blocks, va, vb, s, g, x, tile_win, out, tile, W, N, D);
+    return (int)bwd_dense_f32_run<float>(g, x, tile_win, out, T, tile, W, N,
+                                         D, s);
   if (out_dtype == 1)
-    return (int)launch_gemm<BwdDense<bf16>::K, float, 2>(
-        blocks, va, vb, s, g, x, tile_win, out, tile, W, N, D);
+    return (int)bwd_dense_f32_run<bf16>(g, x, tile_win, out, T, tile, W, N,
+                                        D, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // out [N, D] in out_dtype: the slab's gradient at its first N rows, the
 // f32 sums rounded once; dense [T, tile, W] and g [N, D] share dtype;
 // win_ptr [Wn+1] and win_tiles [T] int32 (the window -> tiles CSR).
-// float32 inputs: va, vb the staged run lengths; bfloat16 inputs (the
-// tensor-core kernel): va != 0 takes the cp.async route (W % 8 == 0, D
-// even, dense on 16 bytes, g on 4), else the element route.
+// float32 inputs: va, vb the values per copy of the blocks' rows and of
+// g's (and per store of out's) rows (4, 2 or 1: W, resp. D, and the
+// pointers divide by it); bfloat16 inputs (the tensor-core kernel): va != 0
+// takes the cp.async route (W % 8 == 0, D even, dense on 16 bytes, g on
+// 4), else the element route.
 int gx_win_bwd_slab(const void* dense, const void* g, const void* win_ptr,
                     const void* win_tiles, void* out, int Wn, int tile, int W,
                     int N, int D, int dtype, int out_dtype, int va, int vb,
@@ -1161,14 +1281,12 @@ int gx_win_bwd_slab(const void* dense, const void* g, const void* win_ptr,
     return (int)cudaErrorInvalidValue;
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const int blocks = Wn * ((W + BM - 1) / BM) * ((D + BN - 1) / BN);
-  if (blocks <= 0) return (int)cudaSuccess;
   if (out_dtype == 0)
-    return (int)launch_gemm<BwdSlab<float>::K, float, 4>(
-        blocks, va, vb, s, dense, g, win_ptr, win_tiles, out, tile, W, N, D);
+    return (int)bwd_slab_f32_run<float>(dense, g, win_ptr, win_tiles, out, Wn,
+                                        tile, W, N, D, va, vb, s);
   if (out_dtype == 1)
-    return (int)launch_gemm<BwdSlab<bf16>::K, float, 4>(
-        blocks, va, vb, s, dense, g, win_ptr, win_tiles, out, tile, W, N, D);
+    return (int)bwd_slab_f32_run<bf16>(dense, g, win_ptr, win_tiles, out, Wn,
+                                       tile, W, N, D, va, vb, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -68,17 +68,21 @@ def _check_rows(wl: WindowLayout, what: str, t: torch.Tensor):
                          f"got {tuple(t.shape)}")
 
 
-def _run(t: torch.Tensor, extent: int, run: int) -> int:
-    """The staged load's run length along a contiguous axis of ``extent``
-    values: ``run`` where the extent divides by it and ``t`` is aligned to
-    it, else 1."""
-    ok = extent % run == 0 and t.data_ptr() % (run * t.element_size()) == 0
-    return run if ok else 1
+def f32_copy_values(extent: int, *ts: torch.Tensor) -> int:
+    """How many f32 values one copy (or access) of the f32 kernels moves
+    along rows of ``extent`` values of ``ts``: 4 (16 bytes) where the
+    extent divides by 4 and every tensor starts on 16 bytes, 2 (8 bytes)
+    where it is even and they start on 8, else 1."""
+    for v in (4, 2):
+        if extent % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in ts):
+            return v
+    return 1
 
 
-def _wide(t: torch.Tensor) -> int:
-    """16 bytes of ``t``'s dtype."""
-    return 16 // t.element_size()
+def _f32_staging(va: int, vb: int) -> str:
+    """The f32 route's name: CUDA-core FMAs, and the bytes a cp.async
+    copy of A and of B moves."""
+    return f"fma cp.async {4 * va}/{4 * vb}"
 
 
 def _check_blocks(wl: WindowLayout, what: str, dense: torch.Tensor):
@@ -159,13 +163,19 @@ def win_matmul_plain(wl: WindowLayout, dense, x, addend):
 
 def matmul_staging(dense: torch.Tensor, x: torch.Tensor,
                    addend: torch.Tensor) -> str:
-    """How the bf16 kernel stages its operands: ``"cp.async"`` (16-byte
+    """How the kernel stages its operands. bf16: ``"cp.async"`` (16-byte
     copies of the blocks' rows, 4-byte copies of the column pairs of x's
     and the addend's rows, the output written in pairs) where W is a
     multiple of 8, D is even, the blocks start on 16 bytes and x and the
     addend on 4; else ``"elements"`` (one value per copy: odd D, W off 8,
-    or a view such as ``x.view(-1)[1:]`` that starts mid-pair). Either
-    gives the same values."""
+    or a view such as ``x.view(-1)[1:]`` that starts mid-pair). f32:
+    ``"fma cp.async 4/<b>"``, the blocks by 4-byte copies of one value
+    (transposed into k-major rows), x's rows by ``b`` = 16, 8 or 4 bytes
+    (:func:`f32_copy_values` of x and the addend, which also sizes the
+    epilogue's addend loads and output stores). Every route gives the same
+    values."""
+    if x.dtype == torch.float32:
+        return _f32_staging(1, f32_copy_values(x.shape[1], x, addend))
     ok = (dense.shape[-1] % 8 == 0 and x.shape[1] % 2 == 0
           and dense.data_ptr() % 16 == 0 and x.data_ptr() % 4 == 0
           and addend.data_ptr() % 4 == 0)
@@ -177,8 +187,8 @@ def win_matmul(wl: WindowLayout, dense: torch.Tensor, x: torch.Tensor,
     """``[N, D]`` in x's dtype: the in-window product of the blocks with x,
     summed in f32, plus ``addend`` (``[N, D]`` in x's dtype), rounded once
     to x's dtype (the kernel adds it in its epilogue). bf16 runs on the
-    tensor cores (:func:`matmul_staging` names how it stages), f32 on
-    CUDA-core FMAs."""
+    tensor cores, f32 on CUDA-core FMAs (:func:`matmul_staging` names how
+    either stages)."""
     if not x.is_cuda:
         return win_matmul_plain(wl, dense, x, addend)
     _check(wl, "win_matmul", x, dense, addend)
@@ -191,7 +201,7 @@ def win_matmul(wl: WindowLayout, dense: torch.Tensor, x: torch.Tensor,
     if x.dtype == torch.bfloat16:
         va, vb = int(matmul_staging(dense, x, addend) == "cp.async"), 0
     else:
-        va, vb = _run(dense, wl.window, _wide(dense)), _run(x, d, 2)
+        va, vb = 1, f32_copy_values(d, x, addend)
     err = _build.library("windowed_spmm").gx_win_matmul(
         dense.data_ptr(), x.data_ptr(), wl.tile_win.data_ptr(),
         addend.data_ptr(), out.data_ptr(),
@@ -215,11 +225,14 @@ def win_bwd_dense_plain(wl: WindowLayout, g, x,
 
 
 def bwd_dense_staging(g: torch.Tensor, x: torch.Tensor) -> str:
-    """How the bf16 kernel stages its g and slab rows: ``"cp.async"``
+    """How the kernel stages its g and slab rows. bf16: ``"cp.async"``
     (16-byte copies of each block's contiguous rows) where both start on
     16 bytes and D is even, else ``"elements"`` (one value per copy: odd
-    D, or a view such as ``x[1:]`` that starts mid-row). Either gives the
-    same values."""
+    D, or a view such as ``x[1:]`` that starts mid-row). f32: ``"fma
+    cp.async 4/4"`` at every shape: both by 4-byte copies of one value,
+    transposed into k-major rows. Every route gives the same values."""
+    if x.dtype == torch.float32:
+        return _f32_staging(1, 1)
     ok = (x.shape[1] % 2 == 0 and g.data_ptr() % 16 == 0
           and x.data_ptr() % 16 == 0)
     return "cp.async" if ok else "elements"
@@ -230,7 +243,7 @@ def win_bwd_dense(wl: WindowLayout, g: torch.Tensor, x: torch.Tensor,
     """``[T, tile, W]`` in ``out_dtype``: the gradient of the blocks, f32
     sums rounded once (bf16: to nearest even, the bits of the f32 result
     cast). bf16 inputs run on the tensor cores, f32 inputs on CUDA-core
-    FMAs."""
+    FMAs (:func:`bwd_dense_staging` names how either stages)."""
     if not x.is_cuda:
         return win_bwd_dense_plain(wl, g, x, out_dtype)
     _check(wl, "win_bwd_dense", x, g)
@@ -239,10 +252,7 @@ def win_bwd_dense(wl: WindowLayout, g: torch.Tensor, x: torch.Tensor,
     if out_dtype not in _DTYPES:
         raise TypeError(f"win_bwd_dense: out_dtype {out_dtype} not supported")
     n, d = x.shape
-    if x.dtype == torch.bfloat16:
-        va = vb = int(bwd_dense_staging(g, x) == "cp.async")
-    else:
-        va, vb = _run(g, d, 2), _run(x, d, 2)
+    va = vb = int(bwd_dense_staging(g, x) == "cp.async")
     out = torch.empty(wl.block_shape, dtype=out_dtype, device=x.device)
     err = _build.library("windowed_spmm").gx_win_bwd_dense(
         g.data_ptr(), x.data_ptr(), wl.tile_win.data_ptr(), out.data_ptr(),
@@ -273,13 +283,19 @@ def win_bwd_slab_plain(wl: WindowLayout, dense, g,
 
 
 def slab_staging(dense: torch.Tensor, g: torch.Tensor) -> str:
-    """How the bf16 kernel stages its operands: ``"cp.async"`` (16-byte
+    """How the kernel stages its operands. bf16: ``"cp.async"`` (16-byte
     copies of the blocks' rows, 4-byte copies of the column pairs of g's
     rows, the output written in pairs) where W is a multiple of 8, D is
     even, the blocks start on 16 bytes and g on 4; else ``"elements"``
-    (one value per copy: odd D, W off 8, or a view that starts mid-pair).
-    The rule of :func:`matmul_staging`, g in x's place. Either gives the
-    same values."""
+    (one value per copy: odd D, W off 8, or a view that starts mid-pair):
+    the rule of :func:`matmul_staging`, g in x's place. f32: ``"fma
+    cp.async <a>/<b>"``, the blocks' rows and g's rows (both k-major as
+    they are) by ``a`` and ``b`` = 16, 8 or 4 bytes
+    (:func:`f32_copy_values` along W and D; ``b`` also sizes the output
+    stores). Every route gives the same values."""
+    if g.dtype == torch.float32:
+        return _f32_staging(f32_copy_values(dense.shape[-1], dense),
+                            f32_copy_values(g.shape[1], g))
     return matmul_staging(dense, g, g)
 
 
@@ -288,8 +304,8 @@ def win_bwd_slab(wl: WindowLayout, dense: torch.Tensor, g: torch.Tensor,
     """``[N, D]`` in ``out_dtype``: the gradient of the slab at its first N
     rows (the nodes), f32 sums rounded once (bf16: to nearest even, the
     bits of the f32 result cast). A window that no tile maps gives zeros.
-    bf16 runs on the tensor cores (:func:`slab_staging` names how it
-    stages), f32 on CUDA-core FMAs."""
+    bf16 runs on the tensor cores, f32 on CUDA-core FMAs
+    (:func:`slab_staging` names how either stages)."""
     if not g.is_cuda:
         return win_bwd_slab_plain(wl, dense, g, out_dtype)
     _check(wl, "win_bwd_slab", g, dense)
@@ -304,7 +320,8 @@ def win_bwd_slab(wl: WindowLayout, dense: torch.Tensor, g: torch.Tensor,
     if g.dtype == torch.bfloat16:
         va, vb = int(slab_staging(dense, g) == "cp.async"), 0
     else:
-        va, vb = _run(dense, wl.window, _wide(dense)), _run(g, d, 2)
+        va = f32_copy_values(wl.window, dense)
+        vb = f32_copy_values(d, g)
     out = torch.empty((n, d), dtype=out_dtype, device=g.device)
     err = _build.library("windowed_spmm").gx_win_bwd_slab(
         dense.data_ptr(), g.data_ptr(), wl.win_ptr.data_ptr(),

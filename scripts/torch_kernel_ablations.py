@@ -74,6 +74,22 @@ intact; the backward's are one batch of 32).
   g's (its 4-byte copies); without the MMAs; with only the loop's
   barriers and the stores left.
 
+``--only f32_core``: the f32 bodies of win_matmul, win_bwd_dense and
+win_bwd_slab (their shared FMA core) at the windowed arxiv shapes (f32
+blocks, x, g and addend from a seed; win_bwd_dense with f32 and bf16
+output): intact; without the FMAs (the staging, barriers and stores
+alone); without the staging (the FMAs on whatever the ring holds); with
+one CTA an SM, the registers uncapped (``F_CTAS_MM``, ``F_CTAS_BD``, 2
+intact); win_matmul and win_bwd_slab with steps of 16 k and a ring of 3
+(``F_BK_MM`` 32, ``F_ST_MM`` 2 intact), with a ring of 3 (one CTA an SM
+then fits), and with 8 x 8 register tiles (128 columns of D a CTA, two
+CTAs over D = 162: ``F_NR_MM`` 2, 3 intact); win_bwd_dense with steps
+of 32 k (``F_BK_BD``, 16 intact), with rings of 3 and 4 (``F_ST_BD``, 2
+intact), and with 8 x 16 tiles and one CTA an SM (256 columns a CTA:
+``F_NR_BD`` 4, 2 intact); win_matmul reading its addend a value at a time
+(16- or 8-byte loads intact); each beside ``bmm`` / ``baddbmm`` on the
+pre-gathered slab.
+
 A switched-off part leaves the results wrong: only the intact builds are
 checked (against the plain versions). Each ablated build is a copy of the
 source with guards on the switched-off statements and the case's
@@ -83,7 +99,7 @@ bits, and called through the same C interface as the port. One JSON
 line per measurement (device ms as chip_smoke's ``time_ms`` takes them),
 then the card's nvidia-smi line. Run from the root of the repo on the
 card: ``python3 scripts/torch_kernel_ablations.py [--only
-winatt_gmax|kproj_slab|bwd_cols_norm|fwd_res_bwd_rows]``.
+winatt_gmax|kproj_slab|bwd_cols_norm|fwd_res_bwd_rows|f32_core]``.
 """
 
 import ctypes
@@ -189,6 +205,17 @@ FRBR = ("fused_attention", "FRBR_OFF", [
      "dq + (size_t)r * a, lane);"),
 ], ())
 
+# the f32 core: 1 the FMAs, 2 the staging
+F32 = ("windowed_spmm", "F32_OFF", [
+    ("    const int kn = klen(s);",
+     "    const int kn = (F32_OFF & 1) ? 0 : klen(s);"),
+    ("    if (s < nsteps) stage(s, slot, slot + S::BK * F_PA);",
+     "    if (!(F32_OFF & 2) && s < nsteps) stage(s, slot, slot + S::BK * "
+     "F_PA);"),
+    ("    if (sn < nsteps) {\n      float* slot",
+     "    if (!(F32_OFF & 2) && sn < nsteps) {\n      float* slot"),
+], ())
+
 
 def const(name: str, old: int, new: int) -> tuple:
     """The substitution that sets the source's ``constexpr int name``
@@ -238,6 +265,22 @@ NORM_CASES = {"intact": 0, "no_scores": 1, "no_e_stores": 2,
                  for k, c in NORM_CUTS.items()},
               **{f"min_blocks_{m}": (0, [const("NM_MIN_BLOCKS", 4, m)])
                  for m in (3, 5)}}
+
+F32_CASES = {"intact": 0, "no_fma": 1, "no_staging": 2,
+             "one_cta_an_sm": (0, [const("F_CTAS_MM", 2, 1),
+                                   const("F_CTAS_BD", 2, 1)]),
+             "matmul_slab_steps_16_ring_3": (
+                 0, [const("F_BK_MM", 32, 16), const("F_ST_MM", 2, 3)]),
+             "matmul_slab_ring_3": (0, [const("F_ST_MM", 2, 3)]),
+             "matmul_slab_tile_8x8": (0, [const("F_NR_MM", 3, 2)]),
+             "dense_steps_32": (0, [const("F_BK_BD", 16, 32)]),
+             **{f"dense_ring_{n}": (0, [const("F_ST_BD", 2, n)])
+                for n in (3, 4)},
+             "dense_tile_8x16_one_cta_an_sm": (
+                 0, [const("F_NR_BD", 2, 4), const("F_CTAS_BD", 2, 1)]),
+             "matmul_addend_by_value": (
+                 0, [("f_add(v, addend + (p - out), n, vb);",
+                      "f_add(v, addend + (p - out), n, 1);")])}
 
 # x rows in flight in the forward's gather (the walk's U, shared with
 # flash and attspmm: only the forward is timed with it changed)
@@ -679,6 +722,73 @@ def kproj_slab() -> None:
     print(json.dumps(row), flush=True)
 
 
+def f32_core() -> None:
+    """The ``f32_core`` group of the module's docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import windowed_spmm as ws
+
+    libs = build(F32, F32_CASES)
+    tr = Trainer(best_config("ogbn-arxiv"), get_dataset("ogbn-arxiv"))
+    wl = tr.data.graph.windows
+    n, d, t_, tile, w = wl.num_nodes, 162, wl.num_tiles, wl.tile, wl.window
+    cells = t_ * tile * w
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vals = torch.rand(tr.data.graph.edge_buffer_size, generator=gen,
+                      device="cuda")
+    dense = ws.densify(wl, vals, torch.float32)
+    x, g, add = (torch.randn(n, d, generator=gen, device="cuda")
+                 for _ in range(3))
+    slab_g = ws._slab(x, wl)[wl.tile_win.long()].contiguous()
+    g_t, add_t = ws._tiles(g, wl), ws._tiles(add, wl)
+    s = _build.stream_ptr(x)
+    flops = 2.0 * cells * d
+    vb = ws.f32_copy_values(d, x, add)
+    va_s, vb_s = ws.f32_copy_values(w, dense), ws.f32_copy_values(d, g)
+    for kernel, od, nbytes, want, lib_ms, call in (
+            ("win_matmul", torch.float32, cells * 4 + 3 * n * d * 4,
+             lambda: ws.win_matmul_plain(wl, dense, x, add),
+             lambda: torch.baddbmm(add_t, dense, slab_g),
+             lambda lib, out: lib.gx_win_matmul(
+                 dense.data_ptr(), x.data_ptr(), wl.tile_win.data_ptr(),
+                 add.data_ptr(), out.data_ptr(), t_, tile, w, n, d, 0, 1, vb,
+                 s)),
+            *(("win_bwd_dense", od, 2 * n * d * 4 + cells * od.itemsize,
+               lambda od=od: ws.win_bwd_dense_plain(wl, g, x, od),
+               (lambda: torch.bmm(g_t, slab_g.transpose(1, 2)))
+               if od == torch.float32 else None,
+               lambda lib, out, od=od: lib.gx_win_bwd_dense(
+                   g.data_ptr(), x.data_ptr(), wl.tile_win.data_ptr(),
+                   out.data_ptr(), t_, tile, w, n, d, 0,
+                   int(od == torch.bfloat16), 0, 0, s))
+              for od in (torch.float32, torch.bfloat16)),
+            ("win_bwd_slab", torch.float32, cells * 4 + 2 * n * d * 4,
+             lambda: ws.win_bwd_slab_plain(wl, dense, g),
+             None,
+             lambda lib, out: lib.gx_win_bwd_slab(
+                 dense.data_ptr(), g.data_ptr(), wl.win_ptr.data_ptr(),
+                 wl.win_tiles.data_ptr(), out.data_ptr(), wl.num_windows,
+                 tile, w, n, d, 0, 0, va_s, vb_s, s))):
+        ref = want()
+        row = dict(kernel=kernel, dtype="float32", out=str(od)[6:],
+                   bound_ms=cs.bound_ms(nbytes, flops, "float32")[0],
+                   library_ms=None if lib_ms is None
+                   else cs.time_ms(lib_ms, reps=10))
+        for case, lib in libs.items():
+            out = torch.empty(ref.shape, dtype=od, device="cuda")
+            _build.check(call(lib, out), f"{kernel} {case}")
+            torch.cuda.synchronize()
+            if case == "intact":
+                row["intact_max_abs_err"] = float(
+                    (out.float() - ref.float()).abs().max())
+            row[case + "_ms"] = cs.time_ms(lambda: call(lib, out))
+        print(json.dumps(row), flush=True)
+        del ref
+
+
 def main() -> int:
     import argparse
 
@@ -686,7 +796,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("winatt_gmax", "kproj_slab",
-                                       "bwd_cols_norm", "fwd_res_bwd_rows"),
+                                       "bwd_cols_norm", "fwd_res_bwd_rows",
+                                       "f32_core"),
                     default=None, help="one group of ablations")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -706,6 +817,8 @@ def main() -> int:
         bwd_cols_norm()
     if args.only in (None, "fwd_res_bwd_rows"):
         fwd_res_bwd_rows()
+    if args.only in (None, "f32_core"):
+        f32_core()
     print(cs.smi_line(), flush=True)
     return 0
 

@@ -17,14 +17,21 @@ events), its largest error against its plain version, its bound (bytes
 over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
 ``bound_ms``) and the same-function PyTorch call's ms:
 
-- win_bwd_dense, bf16 in: f32 out, and bf16 out (a checkout whose wrapper
-  has no ``out_dtype`` is timed with the f32 output and the ``.to`` cast
-  that its autograd Function ran after it); f32 in, f32 out;
+- win_bwd_dense, bf16 in and f32 in: f32 out, and bf16 out (a checkout
+  whose wrapper has no ``out_dtype`` is timed with the f32 output and the
+  ``.to`` cast that its autograd Function ran after it);
 - attention_kproj, bf16 and f32;
 - win_matmul with the addend, bf16 and f32 (``baddbmm`` on the
   pre-gathered slab beside it);
+- win_bwd_slab's f32 body, f32 and bf16 out (its bf16 body: ``slab``);
 - the windowed arxiv preset's steady epoch (the fastest of 3 after the
-  first, ``fit`` with its defaults);
+  first, ``fit`` with its defaults), the same preset in f32
+  (``dtype="float32"``: the f32 bodies of win_matmul and win_bwd_slab) with
+  each epoch's NFE, and the attention block in f32 on the windowed layout
+  (``block="attention", dtype="float32"``: win_bwd_dense's f32 body once
+  per adjoint NFE): three train steps by the host clock, then one
+  profiled (device busy ms, adjoint ms, and the launches and device ms
+  of win_bwd_dense, win_matmul, win_bwd_slab and sddmm);
 - path A's train step (GRAND-nl windowed, the arxiv preset as published):
   host ms per step, its adjoint NFE, and from one profiled step the
   device's busy ms, the adjoint span's device ms, win_bwd_dense's device
@@ -133,13 +140,15 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   (its adjoint's device ms, and the launches and device ms of the
   training kernels).
 
-With ``--parent``, this checkout's ``winatt``, ``gmax``, ``bwd_cols``,
-``norm``, ``fwd_res`` and ``bwd_rows`` runs also call the parent's
-kernels (built by the parent's ``_build``) on the same inputs: whether
-K5's out and den, gmax's value, B3's dk and dxv, the norm's e and den,
-fwd_res's out, scores, shift and denom and bwd_rows' dq and rho are equal
-bit for bit, the largest difference, the rows that differ and the
-shortest of them (of a score: its row's length).
+With ``--parent``, this checkout's ``windowed``, ``winatt``, ``gmax``,
+``bwd_cols``, ``norm``, ``fwd_res`` and ``bwd_rows`` runs also call the
+parent's kernels (built by the parent's ``_build``) on the same inputs:
+whether the f32 bodies' outputs (win_matmul, win_bwd_dense and
+win_bwd_slab with both outputs; ``parent_equal``, ``parent_ms``), K5's out
+and den, gmax's value, B3's dk and dxv, the norm's e and den, fwd_res's
+out, scores, shift and denom and bwd_rows' dq and rho are equal bit for
+bit, the largest difference, the rows that differ and the shortest of
+them (of a score: its row's length).
 
 One JSON line per measurement, then the card's nvidia-smi line. Run from
 the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
@@ -218,7 +227,7 @@ def measure(root: str, only=None, against=None) -> None:
         print(json.dumps({"root": root, **row}), flush=True)
 
     if only in (None, "windowed"):
-        windowed(emit)
+        windowed(emit, against)
     if only in (None, "attention"):
         attention(emit)
     if only in (None, "spmm"):
@@ -242,8 +251,20 @@ def measure(root: str, only=None, against=None) -> None:
             row_kernels(emit, which, against)
 
 
-def windowed(emit) -> None:
-    """The measurements of the module's docstring before ``attention``."""
+def parent_f32_runs(t, extent: int, run: int) -> int:
+    """The run length that a checkout from before the f32 FMA core gives
+    its f32 bodies' staged loads along rows of ``extent`` values of ``t``
+    (its wrappers' ``_run``): ``run`` where the extent divides by it and
+    ``t`` starts on ``run`` values, else 1. At the arxiv shapes these are
+    also the copy widths a checkout on the core would choose."""
+    ok = extent % run == 0 and t.data_ptr() % (4 * run) == 0
+    return run if ok else 1
+
+
+def windowed(emit, against=None) -> None:
+    """The measurements of the module's docstring before ``attention``;
+    with ``against`` (a parent checkout), its f32 win_matmul,
+    win_bwd_dense and win_bwd_slab on the same inputs."""
     import torch
 
     import chip_smoke as cs
@@ -256,24 +277,39 @@ def windowed(emit) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
+    plib = None if against is None else parent_library(against,
+                                                       "windowed_spmm")
     data = get_dataset("ogbn-arxiv")
     tr = Trainer(best_config("ogbn-arxiv"), data)
     wl = tr.data.graph.windows
     n, d, a = wl.num_nodes, 162, 32
-    cells = wl.num_tiles * wl.tile * wl.window
+    t_, tile, w = wl.block_shape
+    cells = t_ * tile * w
     gen = torch.Generator(device="cuda").manual_seed(0)
     has_out = "out_dtype" in inspect.signature(ws.win_bwd_dense).parameters
+    s = _build.stream_ptr
+
+    def against_parent(row, got, call):
+        """The parent's f32 body on the same inputs: whether its output is
+        this one's bit for bit, the largest difference, its time."""
+        old = torch.empty_like(got)
+        _build.check(call(old), "parent " + row["kernel"])
+        torch.cuda.synchronize()
+        row.update(parent_equal=bool(torch.equal(got, old)),
+                   parent_max_abs_diff=float(
+                       (got.float() - old.float()).abs().max()),
+                   parent_ms=here.time_ms(lambda: call(old)))
+
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).replace("torch.", "")
         b = torch.finfo(dt).bits // 8
+        with_parent = dt == torch.float32 and plib is not None
         x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
         g = torch.randn(n, d, generator=gen, device="cuda").to(dt)
         slab_g = ws._slab(x, wl)[wl.tile_win.long()].contiguous()
         g_t = ws._tiles(g, wl)
-        outs = [torch.float32] + ([torch.bfloat16] if dt == torch.bfloat16
-                                  else [])
         ref = ws.win_bwd_dense_plain(wl, g, x)
-        for od in outs:
+        for od in (torch.float32, torch.bfloat16):
             oname = str(od).replace("torch.", "")
             if has_out:
                 fn = lambda: ws.win_bwd_dense(wl, g, x, od)  # noqa: E731
@@ -282,16 +318,27 @@ def windowed(emit) -> None:
             got = fn()
             err = float((got.float() - ref.to(od).float()).abs().max())
             ob = torch.finfo(od).bits // 8
-            lib = ("bmm out_dtype=" + oname, lambda: torch.bmm(
-                g_t, slab_g.transpose(1, 2), out_dtype=od))
+            lib = None
+            if dt == torch.bfloat16 or od == torch.float32:
+                lib = ("bmm out_dtype=" + oname, lambda: torch.bmm(
+                    g_t, slab_g.transpose(1, 2), out_dtype=od))
             bms, by = cs.bound_ms(2 * n * d * b + cells * ob,
                                   2.0 * cells * d, name)
-            emit(kernel="win_bwd_dense", dtype=name, out=oname,
-                 ms=here.time_ms(fn), ms_with_enqueue=host_ms(fn),
-                 max_abs_err=err, bound_ms=bms,
-                 bound_by=by, library=lib[0],
-                 library_ms=here.time_ms(lib[1], reps=10),
-                 with_cast=not has_out and od != torch.float32)
+            row = dict(kernel="win_bwd_dense", dtype=name, out=oname,
+                       ms=here.time_ms(fn), ms_with_enqueue=host_ms(fn),
+                       max_abs_err=err, bound_ms=bms, bound_by=by,
+                       library=lib and lib[0],
+                       library_ms=lib and here.time_ms(lib[1], reps=10),
+                       with_cast=not has_out and od != torch.float32)
+            if with_parent:
+                against_parent(row, got, lambda out, od=od: (
+                    plib.gx_win_bwd_dense(
+                        g.data_ptr(), x.data_ptr(), wl.tile_win.data_ptr(),
+                        out.data_ptr(), t_, tile, w, n, d, 0,
+                        int(od == torch.bfloat16),
+                        parent_f32_runs(g, d, 2), parent_f32_runs(x, d, 2),
+                        s(x))))
+            emit(**row)
             del got
         del slab_g, g_t, ref
         wk = (0.3 * torch.randn(d, a, generator=gen, device="cuda")).to(dt)
@@ -315,18 +362,54 @@ def windowed(emit) -> None:
         dense = ws.densify(wl, vals, dt)
         add = torch.randn(n, d, generator=gen, device="cuda").to(dt)
         fn = lambda: ws.win_matmul(wl, dense, x, add)  # noqa: E731
-        err = float((fn().float() - ws.win_matmul_plain(wl, dense, x, add)
+        got = fn()
+        err = float((got.float() - ws.win_matmul_plain(wl, dense, x, add)
                      .float()).abs().max())
         slab_g = ws._slab(x, wl)[wl.tile_win.long()].contiguous()
         add_t = ws._tiles(add, wl)
         bms, by = cs.bound_ms(cells * b + 3 * n * d * b, 2.0 * cells * d,
                               name)
-        emit(kernel="win_matmul", dtype=name, ms=here.time_ms(fn),
-             ms_with_enqueue=host_ms(fn), max_abs_err=err, bound_ms=bms,
-             bound_by=by, library="baddbmm on the pre-gathered slab",
-             library_ms=here.time_ms(
-                 lambda: torch.baddbmm(add_t, dense, slab_g), reps=10))
-        del x, g, dense, add, slab_g, add_t
+        row = dict(kernel="win_matmul", dtype=name, ms=here.time_ms(fn),
+                   ms_with_enqueue=host_ms(fn), max_abs_err=err,
+                   bound_ms=bms, bound_by=by,
+                   library="baddbmm on the pre-gathered slab",
+                   library_ms=here.time_ms(
+                       lambda: torch.baddbmm(add_t, dense, slab_g), reps=10))
+        if with_parent:
+            against_parent(row, got, lambda out: plib.gx_win_matmul(
+                dense.data_ptr(), x.data_ptr(), wl.tile_win.data_ptr(),
+                add.data_ptr(), out.data_ptr(), t_, tile, w, n, d, 0,
+                parent_f32_runs(dense, w, 4), parent_f32_runs(x, d, 2),
+                s(x)))
+        emit(**row)
+        del got, add, slab_g, add_t
+        if dt == torch.float32:
+            # win_bwd_slab's f32 body (the bf16 one: ``slab``)
+            want = ws.win_bwd_slab_plain(wl, dense, g)
+            for od in (torch.float32, torch.bfloat16):
+                fn = lambda od=od: ws.win_bwd_slab(  # noqa: E731
+                    wl, dense, g, od)
+                got = fn()
+                row = dict(kernel="win_bwd_slab", dtype=name,
+                           out=str(od)[6:], ms=here.time_ms(fn),
+                           max_abs_err=float((got.float() - want.to(od)
+                                              .float()).abs().max()),
+                           bound_ms=cs.bound_ms(
+                               cells * 4 + n * d * 4 + n * d * od.itemsize,
+                               2.0 * cells * d, name)[0])
+                if with_parent:
+                    against_parent(row, got, lambda out, od=od: (
+                        plib.gx_win_bwd_slab(
+                            dense.data_ptr(), g.data_ptr(),
+                            wl.win_ptr.data_ptr(), wl.win_tiles.data_ptr(),
+                            out.data_ptr(), wl.num_windows, tile, w, n, d,
+                            0, int(od == torch.bfloat16),
+                            parent_f32_runs(dense, w, 4),
+                            parent_f32_runs(g, d, 2), s(g))))
+                emit(**row)
+                del got
+            del want
+        del x, g, dense
         torch.cuda.empty_cache()
     fit = tr.fit(epochs=3)
     torch.cuda.synchronize()
@@ -334,10 +417,42 @@ def windowed(emit) -> None:
     emit(path="windowed arxiv", epoch_seconds=times,
          steady_epoch_seconds=min(times[1:]))
     del tr
+    # the preset at the reference's f32 (win_matmul and win_bwd_slab's f32
+    # bodies), then the attention block in f32 on the windowed layout
+    # (win_bwd_dense's f32 body once per adjoint NFE)
+    tr = Trainer(best_config("ogbn-arxiv", dtype="float32"), data)
+    steady_epochs(emit, "windowed arxiv f32", tr)
+    del tr
+    tr = Trainer(best_config("ogbn-arxiv", block="attention",
+                             dtype="float32"), data)
+    timed_steps(emit, tr, "attention block f32 windowed")
+    profiled_train_step(emit, tr, "attention block f32 windowed",
+                        ("win_bwd_dense", "win_matmul", "win_bwd_slab",
+                         "sddmm"))
+    del tr
+    torch.cuda.empty_cache()
     train_steps(data, emit)
     del data
     torch.cuda.empty_cache()
     dense_nl(emit)
+
+
+def timed_steps(emit, tr, label, steps: int = 3) -> None:
+    """``steps`` train steps after a warm-up one, each timed by the host
+    clock around a device sync, with its forward and adjoint NFE."""
+    import time
+
+    import torch
+
+    tr.train_step()
+    torch.cuda.synchronize()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        tr.train_step()
+        torch.cuda.synchronize()
+        emit(path=label, step=i + 1,
+             ms=(time.perf_counter() - t0) * 1e3,
+             forward_nfe=tr.fm.get_value(), adjoint_nfe=tr.bm.get_value())
 
 
 def train_steps(data, emit) -> None:
@@ -1711,8 +1826,8 @@ def main() -> int:
                     default=None, help="one group of measurements")
     ap.add_argument("--against", default=None,
                     help="a parent checkout whose kernels run beside this "
-                    "one's on the same inputs (winatt, gmax, bwd_cols, "
-                    "norm, fwd_res, bwd_rows)")
+                    "one's on the same inputs (windowed, winatt, gmax, "
+                    "bwd_cols, norm, fwd_res, bwd_rows)")
     args = ap.parse_args()
     if args.root is not None:
         measure(os.path.abspath(args.root), args.only,

@@ -254,6 +254,76 @@ def test_cuda_win_bwd_dense_output_dtypes(cuda, dtype, shape):
         assert torch.equal(ws.win_bwd_dense(wl, gm, xm, od), want)
 
 
+# ----------------------------------------------------------------------
+# the f32 bodies on their FMA core: exact sums, copy widths, views
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_cuda_f32_bodies_exact_on_small_integers(cuda, shape):
+    """Small integers, so that every product and every f32 sum is exact
+    in any order: each f32 body gives the plain version's bits, which are
+    those of the f32 core's walk (modelled in plain PyTorch by
+    tests/test_torch_redesign17.py): win_matmul with its addend,
+    win_bwd_dense and win_bwd_slab with f32 and bf16 outputs (one
+    rounding of the exact sum)."""
+    n, tile, window, d = SHAPES[shape]
+    g = _windowed_graph(cuda, n, tile, window, seed=21)
+    wl = g.windows
+    gen = torch.Generator(device=cuda).manual_seed(22)
+
+    def ints(bound, *size):
+        return torch.randint(-bound, bound + 1, size, generator=gen,
+                             device=cuda).float()
+
+    dense = ws.densify(wl, ints(4, g.edge_buffer_size), torch.float32)
+    x, gr, add = ints(8, n, d), ints(8, n, d), ints(64, n, d)
+    assert torch.equal(ws.win_matmul(wl, dense, x, add),
+                       ws.win_matmul_plain(wl, dense, x, add))
+    for od in (torch.float32, torch.bfloat16):
+        got = ws.win_bwd_dense(wl, gr, x, od)
+        assert got.dtype == od
+        assert torch.equal(got, ws.win_bwd_dense_plain(wl, gr, x, od))
+        got = ws.win_bwd_slab(wl, dense, gr, od)
+        assert got.dtype == od
+        assert torch.equal(got, ws.win_bwd_slab_plain(wl, dense, gr, od))
+
+
+@pytest.mark.parametrize("d", [160, 162, 7])
+def test_cuda_f32_bodies_copy_widths_and_views(cuda, d):
+    """The f32 bodies' copy widths (16 bytes of x's and g's rows at D 160,
+    8 at 162, 4 at odd D) and views whose rows start one value past their
+    storage (4-byte copies; for the blocks of win_bwd_slab too) give the
+    same bits, on random values, and agree with the plain versions within
+    the windowed products' tolerance."""
+    n, tile, window = 1001, 128, 256
+    g = _windowed_graph(cuda, n, tile, window, seed=23)
+    wl = g.windows
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    dense = ws.densify(wl, g.edge_weight, torch.float32)
+    x, gr, add = (torch.randn(n, d, generator=gen, device=cuda)
+                  for _ in range(3))
+    v = 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    assert ws.matmul_staging(dense, x, add) == f"fma cp.async 4/{4 * v}"
+    assert ws.slab_staging(dense, gr) == f"fma cp.async 16/{4 * v}"
+    assert ws.bwd_dense_staging(gr, x) == "fma cp.async 4/4"
+    tol = dict(rtol=1e-5, atol=1e-4)
+    out = ws.win_matmul(wl, dense, x, add)
+    torch.testing.assert_close(out, ws.win_matmul_plain(wl, dense, x, add),
+                               **tol)
+    slab = ws.win_bwd_slab(wl, dense, gr)
+    torch.testing.assert_close(slab, ws.win_bwd_slab_plain(wl, dense, gr),
+                               **tol)
+    bd = ws.win_bwd_dense(wl, gr, x)
+    xm, gm, am, dm = (_off_word(t) for t in (x, gr, add, dense))
+    assert ws.matmul_staging(dense, xm, add) == "fma cp.async 4/4"
+    assert ws.matmul_staging(dense, x, am) == "fma cp.async 4/4"
+    assert ws.slab_staging(dm, gm) == "fma cp.async 4/4"
+    assert torch.equal(ws.win_matmul(wl, dense, xm, add), out)
+    assert torch.equal(ws.win_matmul(wl, dense, x, am), out)
+    assert torch.equal(ws.win_bwd_slab(wl, dm, gr), slab)
+    assert torch.equal(ws.win_bwd_slab(wl, dense, gm), slab)
+    assert torch.equal(ws.win_bwd_dense(wl, gm, xm), bd)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d,a", [(7, 12), (128, 64), (162, 32), (300, 12),
                                  (80, 128)])
