@@ -15,6 +15,7 @@ and prints no result):
    strategy) and their presets' Trainers;
 4. kernels: every kernel against its plain PyTorch version at the shapes
    its path gives it (the sparse graph for spmm_csr, sddmm and the pin,
+   sddmm also with its output in the state dtype over a padded length,
    spmm_csr also on a view one value past its load boundary and the pin
    also on a small graph with empty rows, over every score type and
    reweight; the
@@ -43,9 +44,10 @@ and prints no result):
    route timed whole, and on a small community graph over every score
    type, reweight and squareplus and a windowed graph with in-window rows
    of 33, 200 and 512 cells over every score type and reweight; spmm_csr
-   (A x and A^T g) and the pin on a hub graph at arxiv's N and E with hub
-   rows of up to 13,000 edges, and the CSR flash, attention_gmax and
-   attention_attspmm on it with the GRAND-nl model's own operands; K5,
+   (A x and A^T g), sddmm (its CSR and its transpose, f32 output and the
+   output in the state dtype) and the pin on a hub graph at arxiv's N and
+   E with hub rows of up to 13,000 edges, and the CSR flash,
+   attention_gmax and attention_attspmm on it with the GRAND-nl model's own operands; K5,
    with gmax and attention_norm on the residual, on a windowed layout at
    arxiv's N whose in-window rows reach a whole window),
    in f32 and bf16,
@@ -396,6 +398,44 @@ def spmm_check(results: dict, row: dict, lay, vals, x, n: int, lib=None,
         timed=timed, tag=row["product"], miss_bytes=row["gather_bytes"])
 
 
+def sddmm_check(results: dict, lay, g, x, lib=None, tag=None,
+                timed: bool = True):
+    """sddmm over ``lay`` against its plain version within TOL_DOT, timed
+    beside its bound (g and x read once, the CSR read and one f32 value a
+    slot written once) and all-miss count (x read once per slot) when
+    ``timed``; then its output in x's dtype over a padded length (the
+    Function's values buffer): the f32 output cast once, zeros past the
+    slots, and within TOL_DOT plus one ulp of x's dtype (the two f32 sums
+    can round to neighbours) of the plain version cast once."""
+    import torch
+
+    from graphax_torch.kernels import spmm as spmm_mod
+
+    n, d = x.shape
+    e, b, dt = lay.num_slots, x.element_size(), x.dtype
+    name = str(dt).replace("torch.", "")
+    nbytes = 2 * n * d * b + 8 * e + 4 * (n + 1)
+    width = min(spmm_shape(t)["gather_width"] for t in (g, x))
+    got = hold_to_plain(
+        results, dict(kernel="sddmm", dtype=name, graph=tag or "arxiv CSR",
+                      E=e, D=d, gather_width=width),
+        lambda: spmm_mod.sddmm(lay, g, x),
+        lambda: spmm_mod.sddmm_plain(lay, g, x), TOL_DOT, nbytes,
+        2.0 * e * d, lib, timed=timed, tag=tag,
+        miss_bytes=nbytes - n * d * b + e * d * b)
+    size = e + 13
+    low = spmm_mod.sddmm(lay, g, x, dt, size)
+    c = compare(low[:e], spmm_mod.sddmm_plain(lay, g, x, dt),
+                (TOL_DOT[0], TOL_DOT[1] + torch.finfo(dt).eps))
+    c["cast_once"] = bool(torch.equal(low[:e], got.to(dt)))
+    c["tail_zero"] = not bool(low[e:].any())
+    emit({"phase": "kernels", "kernel": "sddmm", "dtype": name,
+          "graph": tag or "arxiv CSR", "output": name, **c})
+    check(c["ok"] and c["cast_once"] and c["tail_zero"],
+          f"sddmm {tag or ''} {name}: the output in {name} {c}")
+    return got
+
+
 def pin_checks(results: dict, label: str, graph, gen, dt,
                timed: bool = True, d: int = 162, a: int = 32,
                heads: int = 2, att_types=("scaled_dot", "cosine_sim",
@@ -450,7 +490,6 @@ def phase_kernels(graph, results: dict) -> None:
     csr, csc = graph.csr, graph.csc
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
-        b = torch.finfo(dt).bits // 8
         x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
         g = torch.randn(n, d, generator=gen, device="cuda").to(dt)
         w = graph.edge_weight.to(dt).contiguous()
@@ -496,31 +535,19 @@ def phase_kernels(graph, results: dict) -> None:
               "dx": cx, "dw": cw})
         check(cx["ok"] and cw["ok"], f"spmm gradients {name} disagree")
 
-        # sddmm
-        got = spmm_mod.sddmm(csr, g, x)
-        want = spmm_mod.sddmm_plain(csr, g, x)
-        c = compare(got, want, TOL_DOT)
-        ms = time_ms(lambda: spmm_mod.sddmm(csr, g, x))
-        plain = time_ms(lambda: spmm_mod.sddmm_plain(csr, g, x), reps=5)
+        # sddmm, beside the sampled product of the same slots
         lib = None
         try:
             mask = torch.sparse_csr_tensor(csr.ptr.long(), csr.idx.long(),
                                            torch.zeros(e, dtype=dt,
                                                        device="cuda"),
                                            size=(n, n))
-            lib = time_ms(lambda: torch.sparse.sampled_addmm(
-                mask, g, x.t(), beta=0.0), reps=10)
-        except (RuntimeError, NotImplementedError) as exc:
-            lib_err = str(exc).splitlines()[0][:120]
-        nbytes = 2 * n * d * b + e * 4 + 4 * (n + 1) + e * 4
-        bms, by = bound_ms(nbytes, 2.0 * e * d, name)
-        row = dict(kernel="sddmm", dtype=name, **c, ms=ms, plain_ms=plain,
-                   library_ms=lib, bound_ms=bms, bound_by=by, bytes=nbytes)
-        if lib is None:
-            row["library_error"] = lib_err
-        emit({"phase": "kernels", **row})
-        check(c["ok"], f"sddmm {name} disagrees with plain")
-        results.setdefault(("sddmm", name), row)
+            lib = ("torch.sparse.sampled_addmm",
+                   lambda: torch.sparse.sampled_addmm(mask, g, x.t(),
+                                                      beta=0.0))
+        except (RuntimeError, NotImplementedError):
+            pass
+        sddmm_check(results, csr, g, x, lib=lib)
 
         # attention_pin: every score type, reweight on and off, on the
         # arxiv CSR and on a small graph with empty rows
@@ -1560,7 +1587,10 @@ def phase_three_kernel_kernels(trainer_w, trainer_c, results: dict) -> None:
 def phase_hub_kernels(trainer, results: dict) -> None:
     """spmm_csr (A x over the hub rows, A^T g over the hub columns; TOL
     plus the bound of a long row's f32 sum in another order, see
-    :func:`spmm_check`) and the pin (every score type and reweight,
+    :func:`spmm_check`), sddmm on its CSR (hub rows in 32-edge segments;
+    the graph's rows of exactly 32 and 33 edges, its item cutover,
+    counted and required) and on its transpose (:func:`sddmm_check`) and
+    the pin (every score type and reweight,
     TOL_PIN) on :func:`hub_graph`, each timed beside its bound and all-miss
     count; then flash_attention
     (softmax and squareplus), attention_gmax (TOL_GMAX), attention_norm
@@ -1587,8 +1617,12 @@ def phase_hub_kernels(trainer, results: dict) -> None:
         x_enc = trainer.model.encode(trainer.data.x, train=False)
     g = hub_graph("cuda")
     n, e = g.num_nodes, g.num_edges
-    emit({"phase": "kernels", "graph": "hub", "N": n, "E": e,
+    deg = g.csr.ptr[1:] - g.csr.ptr[:-1]
+    cut = {f"rows_of_{k}": int((deg == k).sum()) for k in (32, 33)}
+    emit({"phase": "kernels", "graph": "hub", "N": n, "E": e, **cut,
           **degree_shares(g.csr.ptr, (32, fa.ROW_SPLIT))})
+    check(min(cut.values()) > 0,
+          f"hub graph: no row at sddmm's cutover {cut}")
     gen = torch.Generator(device="cuda").manual_seed(21)
     d, a, heads = x_enc.shape[1], cfg.attention_dim, cfg.heads
     csr_bytes = 4 * e + 4 * (n + 1)
@@ -1606,6 +1640,12 @@ def phase_hub_kernels(trainer, results: dict) -> None:
                                      dtype=name, product=label,
                                      **spmm_shape(x)),
                        lay, vals.contiguous(), x, n, long_rows=True)
+        # sddmm: the hub rows in 32-edge segments; on the transpose (the
+        # CSC) hub x rows gathered by thousands of slots
+        cot = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        for tag, lay in (("hub", g.csr), ("hub transposed", g.csc)):
+            sddmm_check(results, lay, cot, x, tag=tag)
+        del cot
         pin_checks(results, "hub", g, gen, dt)
         with torch.no_grad():
             p = fa.prep_inputs(cfg, att, g, x)
@@ -2322,7 +2362,6 @@ def phase_attention_block_csr(data, results: dict, epochs: int) -> dict:
 
     from graphax_torch import Trainer, best_config
     from graphax_torch.kernels import _build
-    from graphax_torch.kernels import spmm as spmm_mod
 
     launches: dict = {}
     for label, over, n_ep in (
@@ -2371,22 +2410,14 @@ def phase_attention_block_csr(data, results: dict, epochs: int) -> dict:
                   f"{counts.get('win_bwd_dense', 0)} times in {adjoint_nfe} "
                   "adjoint NFE")
             # sddmm at the windowed residual, this path's D and dtype
-            wl = tr.data.graph.windows
-            lay, n = wl.residual, tr.data.num_nodes
-            d = tr.model.state_dim
+            n, d = tr.data.num_nodes, tr.model.state_dim
             gen = torch.Generator(device="cuda").manual_seed(3)
             g = torch.randn(n, d, generator=gen, device="cuda") \
                 .to(torch.bfloat16)
             x = torch.randn(n, d, generator=gen, device="cuda") \
                 .to(torch.bfloat16)
-            e = lay.num_slots
-            hold_to_plain(
-                results, dict(kernel="sddmm", dtype="bfloat16",
-                              layout="windowed residual", E=e, D=d),
-                lambda: spmm_mod.sddmm(lay, g, x),
-                lambda: spmm_mod.sddmm_plain(lay, g, x), TOL_DOT,
-                2 * n * d * 2 + e * 4 + 4 * (n + 1) + e * 4, 2.0 * e * d,
-                tag="windowed residual")
+            sddmm_check(results, tr.data.graph.windows.residual, g, x,
+                        tag="windowed residual")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         del tr
@@ -3090,10 +3121,17 @@ def main(argv=None) -> int:
     spmm["launches_count"] = (
         "wrapper calls: each runs spmm_walk, and where a row has more than "
         "ROW_SPLIT edges spmm_seg_sum and seg_combine")
-    kernels[1]["windowed_residual"] = {
+    sd = kernels[1]
+    sd["all_miss_ms"] = results[("sddmm", "bfloat16")]["all_miss_ms"]
+    sd["windowed_residual"] = {
         k: results[("sddmm", "bfloat16", "windowed residual")].get(k)
         for k in numbers}
-    kernels[1]["launches_count"] = (
+    for tag in ("hub", "hub transposed"):
+        sd[tag.replace(" ", "_")] = {
+            k: results[("sddmm", "bfloat16", tag)].get(k) for k in walked}
+    sd["float32"] = {k: results[("sddmm", "float32")].get(k)
+                     for k in walked + ("library_ms",)}
+    sd["launches_count"] = (
         "wrapper calls: one per adjoint NFE of the attention block's train "
         "steps (the pinned values' gradient) on the CSR and the windowed "
         "residual")

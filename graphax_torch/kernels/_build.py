@@ -45,7 +45,8 @@ SIGNATURES = {
     "spmm": {
         "gx_spmm_csr": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P],
-        "gx_sddmm_csr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "gx_sddmm_csr": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P],
     },
     "attention_pin": {
         "gx_attention_pin": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

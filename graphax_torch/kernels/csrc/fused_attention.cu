@@ -917,9 +917,10 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
 // holds edge j: its column, and alpha_jh = exp(s - shift) / (denom or 1)
 // per head in the warp's shared batch [BATCH, h]. g_r's chunk sits in
 // registers while the batch's x rows are gathered BR_ROWS at a time
-// (row_walk.cuh's load_rows); each lane's partials of those dot products
-// go through row_dots, after which lane j holds da_j = g_r . x[col_j] in
-// f32. rho_h = sum_j alpha_jh da_j / H is a warp sum; ds_jh = alpha_jh
+// (row_walk.cuh's batch_dots, shared with spmm.cu's SDDMM: load_rows, then
+// each lane's partials of those dot products through row_dots), after
+// which lane j holds da_j = g_r . x[col_j] in f32. rho_h = sum_j alpha_jh
+// da_j / H is a warp sum; ds_jh = alpha_jh
 // (da_j / H - rho_h) replaces alpha in the batch, and dq_r = sum_j ds_jh
 // K[col_j] goes by lanes over A (lane_sums, UQ K rows in flight), the
 // edges in order. A segment's item writes its da (dab) and its rho
@@ -1036,22 +1037,6 @@ __device__ __forceinline__ float alpha_of(const float* __restrict__ sc,
          (dn > 0.f ? dn : 1.f);
 }
 
-// the U dot products of the x rows e0 .. e0 + U - 1 of a batch, from each
-// lane's partials p: a warp sum of each (as B3's da), lane e0 + u keeping
-// row u's; 0 on the other lanes (a transposed butterfly, U - 1 fewer
-// shuffles, measured no faster: PERF.md)
-template <int U>
-__device__ __forceinline__ float row_dots(const float (&p)[U], int e0,
-                                          int lane) {
-  float mine = 0.f;
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const float t = warp_sum(p[u]);
-    if (lane == e0 + u) mine = t;
-  }
-  return mine;
-}
-
 // one row-backward batch: the edges [sb, sb + cnt) (cnt <= BATCH) of row
 // r, lane j holding edge j and its column col: alpha_jh into ws [BATCH,
 // h], and returned da_j = g_r . x[col_j] in f32 (g exact in f32)
@@ -1061,51 +1046,11 @@ __device__ __forceinline__ float rows_batch(
     const float* __restrict__ denom, const T* __restrict__ g,
     const T* __restrict__ x, int r, int sb, int cnt, int d, int h,
     float* ws, int col, int lane) {
-  using V = Vec<T, VB>;
-  constexpr int U = BR_ROWS;
   if (lane < cnt)
     for (int hh = 0; hh < h; ++hh)
       ws[lane * h + hh] = alpha_of(sc, shift, denom, sb + lane, r, hh, h);
-  float da = 0.f;
-  const int nvec = d / V::E;
-  const T* gr = g + (size_t)r * d;
-  for (int v0 = 0; cnt > 0 && v0 < nvec; v0 += 32 * VPL) {
-    float gs[VPL][V::E];
-#pragma unroll
-    for (int v = 0; v < VPL; ++v) {
-      const int vi = v0 + v * 32 + lane;
-      uint32_t raw[V::W];
-      if (vi < nvec) {
-        gx_rows::ldv<VB>(gr + (size_t)vi * V::E, raw);
-        gx_rows::unpack<T, VB>(raw, gs[v]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < V::E; ++k) gs[v][k] = 0.f;
-      }
-    }
-    for (int e0 = 0; e0 < cnt; e0 += U) {
-      uint32_t raw[U][VPL][V::W];
-      load_rows<T, VB, VPL, U>(raw, x, col, e0, cnt, d, v0, nvec, lane);
-      float p[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        p[u] = 0.f;
-        if (e0 + u < cnt) {   // the same for the whole warp
-#pragma unroll
-          for (int v = 0; v < VPL; ++v) {
-            if (v0 + v * 32 + lane < nvec) {
-              float f[V::E];
-              gx_rows::unpack<T, VB>(raw[u][v], f);
-#pragma unroll
-              for (int k = 0; k < V::E; ++k) p[u] += f[k] * gs[v][k];
-            }
-          }
-        }
-      }
-      da += row_dots<U>(p, e0, lane);
-    }
-  }
-  return da;
+  return gx_rows::batch_dots<T, VB, VPL, BR_ROWS>(g + (size_t)r * d, x, col,
+                                                cnt, d, lane);
 }
 
 // the row backward's items, a warp each: the rows of at most BATCH edges

@@ -1,6 +1,7 @@
-// The CSR row walk shared by the gathering kernels: spmm.cu (spmm_walk),
-// fused_attention.cu (the flash and attspmm walks) and, for its segments
-// of long rows, attention_pin.cu.
+// The CSR row walk shared by the gathering kernels: spmm.cu (spmm_walk;
+// sddmm_kernel's batch dot products), fused_attention.cu (the flash and
+// attspmm walks; bwd_rows_kernel's batch dot products) and, for its
+// segments of long rows, attention_pin.cu.
 //
 // A warp owns a row (or a segment of a long row) and takes its edges in
 // batches of BATCH, each lane loading one edge's column (and weight) in one
@@ -213,6 +214,75 @@ __device__ __forceinline__ void gather(float (&acc)[VPL][Vec<T, VB>::E],
       }
     }
   }
+}
+
+// the U dot products of the x rows e0 .. e0 + U - 1 of a batch, from each
+// lane's partials p: a warp sum of each (xor butterfly), lane e0 + u
+// keeping row u's; 0 on the other lanes (a transposed butterfly, U - 1
+// fewer shuffles, measured no faster: PERF.md)
+template <int U>
+__device__ __forceinline__ float row_dots(const float (&p)[U], int e0,
+                                          int lane) {
+  float mine = 0.f;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float t = p[u];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(FULL, t, o);
+    if (lane == e0 + u) mine = t;
+  }
+  return mine;
+}
+
+// lane j's g_r . x[col_j] in f32 over the cnt (<= BATCH) edges of a batch
+// (lane j holding edge j's column; 0 on lanes past cnt): g_r's chunk of
+// VPL vectors a lane in registers, the batch's x rows gathered U at a time
+// (load_rows), each lane's partials over its vectors, row_dots per U rows;
+// D past one chunk adds up in the lane's register
+template <typename T, int VB, int VPL, int U>
+__device__ __forceinline__ float batch_dots(const T* __restrict__ gr,
+                                            const T* __restrict__ x, int col,
+                                            int cnt, int d, int lane) {
+  using V = Vec<T, VB>;
+  float dot = 0.f;
+  const int nvec = d / V::E;
+  for (int v0 = 0; cnt > 0 && v0 < nvec; v0 += 32 * VPL) {
+    float gs[VPL][V::E];
+#pragma unroll
+    for (int v = 0; v < VPL; ++v) {
+      const int vi = v0 + v * 32 + lane;
+      uint32_t raw[V::W];
+      if (vi < nvec) {
+        ldv<VB>(gr + (size_t)vi * V::E, raw);
+        unpack<T, VB>(raw, gs[v]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V::E; ++k) gs[v][k] = 0.f;
+      }
+    }
+    for (int e0 = 0; e0 < cnt; e0 += U) {
+      uint32_t raw[U][VPL][V::W];
+      load_rows<T, VB, VPL, U>(raw, x, col, e0, cnt, d, v0, nvec, lane);
+      float p[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p[u] = 0.f;
+        if (e0 + u < cnt) {   // the same for the whole warp
+#pragma unroll
+          for (int v = 0; v < VPL; ++v) {
+            if (v0 + v * 32 + lane < nvec) {
+              float f[V::E];
+              unpack<T, VB>(raw[u][v], f);
+#pragma unroll
+              for (int k = 0; k < V::E; ++k) p[u] += f[k] * gs[v][k];
+            }
+          }
+        }
+      }
+      dot += row_dots<U>(p, e0, lane);
+    }
+  }
+  return dot;
 }
 
 // the segment j of a long row: its row r, edges [sb, se), the long row's

@@ -38,10 +38,24 @@
 // segment in edge order, the segments in order) and the sum rounded once to
 // T. A row with no edge gives 0.
 //
-// The SDDMM (no launch on any path: the pin needs no value gradient) keeps
-// g[row] in registers for the whole segment, so g is read once per row and
-// x once per edge, and reduces each dot product across the warp with
-// shuffles.
+// The SDDMM (the pinned values' gradient in _SpMM's backward, once per
+// adjoint NFE of the attention block) must read g and x once, the CSR
+// once and write one value a slot: 2*N*D*b + 8*E bytes with an f32 output
+// (0.036 ms on the arxiv graph in bf16), and gathers an x row per slot as
+// the SpMM does. It takes work items, a warp each, as bwd_rows_kernel in
+// fused_attention.cu does: the rows of at most 32 edges, then the 32-edge
+// segments of the longer rows (the host's row_split_plan(ptr, 32, 32)),
+// so no hub row's serial walk sets the launch's length; a segment writes
+// its own slots, so nothing is combined. Lane j holds edge j's column from
+// one coalesced load; g_r's chunk sits in registers at the host's
+// gather_width; the batch's x rows are gathered SD_ROWS at a time
+// (row_walk.cuh's batch_dots, shared with bwd_rows_kernel), each lane's
+// partials over its vectors and a warp sum per edge leave dw_j in lane j,
+// D past one chunk adds up in that register, and the batch's values leave
+// in one coalesced store, rounded once to the output type (graphax's
+// `.astype(wb.dtype)`). The first body (a warp per whole row, its edges one
+// at a time, one x row in flight, a read-modify-write of out per pass
+// over D) took 0.1696 ms in bf16 there (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -52,10 +66,10 @@
 namespace {
 
 constexpr int WARPS_PER_BLOCK = 8;
-constexpr int CHUNK = 4;  // the SDDMM's vectors of V values per lane per pass
-// blocks of the walk per SM: rows in flight per SM, not bytes, set a row
-// walk's pace (fused_attention.cu). Measured on the arxiv graph (PERF.md):
-// bf16 fastest at 8 (32 registers a thread), f32 at 6 (40)
+// blocks of the walk (and of the SDDMM) per SM: rows in flight per SM, not
+// bytes, set a row walk's pace (fused_attention.cu). Measured on the arxiv
+// graph (PERF.md): bf16 fastest at 8 (32 registers a thread), f32 at 6
+// (40), in both kernels
 template <typename T>
 constexpr int min_blocks() { return sizeof(T) == 2 ? 8 : 6; }
 // gathered rows in flight per warp with VPL load vectors a lane
@@ -64,11 +78,13 @@ template <int VPL> constexpr int U = 6 / VPL;
 template <typename T> constexpr int OTYPE = sizeof(T) == 2 ? 1 : 0;
 
 using gx_rows::BATCH;
+using gx_rows::batch_dots;
 using gx_rows::clear;
 using gx_rows::gather;
 using gx_rows::seg_combine;
 using gx_rows::segment;
 using gx_rows::store_chunk;
+using gx_rows::store_vec;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -186,74 +202,75 @@ cudaError_t run_spmm(const void* ptr, const void* idx, const void* val,
 // the SDDMM
 // ---------------------------------------------------------------------
 
-template <typename T, int V> struct Vec;
-template <typename T> struct Vec<T, 1> {
-  T v[1];
-  __device__ __forceinline__ void load(const T* p) { v[0] = p[0]; }
-};
-template <> struct Vec<float, 2> {
-  float v[2];
-  __device__ __forceinline__ void load(const float* p) {
-    float2 t = *reinterpret_cast<const float2*>(p); v[0] = t.x; v[1] = t.y;
-  }
-};
-template <> struct Vec<__nv_bfloat16, 2> {
-  __nv_bfloat16 v[2];
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(p);
-    v[0] = t.x; v[1] = t.y;
-  }
-};
+// x rows in flight per warp in the batch dot products: 2 measured fastest
+// with min_blocks<T>() in bf16 and f32 on the arxiv graph (PERF.md; 4 rows
+// spill in f32). ptxas at the arxiv width: 32 registers in bf16, 40 in
+// f32, no spills (bf16's 8-byte loads at 3 vectors a lane spill 60 bytes)
+constexpr int SD_ROWS = 2;
 
-// out[j] = g[r, :] . x[idx[j], :] in f32, for every slot j of row r
-template <typename T, int V>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-sddmm_csr_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
-                 const T* __restrict__ g, const T* __restrict__ x,
-                 float* __restrict__ out, int n_rows, int d) {
+// dw[j] = g[r] . x[idx[j]] in f32 for every slot j of row r, rounded once
+// to the output type (otype 0 f32, 1 bf16). Items, a warp each: the rows
+// of at most BATCH edges (item r < n; an empty row or a longer one
+// returns), the BATCH-edge segments of the longer rows (item n + j), then
+// the output's tail past the slots (item n + nseg + t: BATCH zeros each)
+template <typename T, int VB, int VPL>
+__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32, min_blocks<T>())
+sddmm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
+             const T* __restrict__ g, const T* __restrict__ x,
+             const int* __restrict__ plan, void* __restrict__ out, int otype,
+             int n, int d, int nlong, int nseg, int slots, int length) {
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (r >= n_rows) return;
-  const int beg = ptr[r], end = ptr[r + 1];
-  const int nv = d / V;
-  for (int v0 = 0; v0 < nv; v0 += 32 * CHUNK) {
-    float gr[CHUNK][V];
-#pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      const int v = v0 + j * 32 + lane;
-      Vec<T, V> gv;
-      if (v < nv) gv.load(g + (size_t)r * d + v * V);
-#pragma unroll
-      for (int k = 0; k < V; ++k) gr[j][k] = v < nv ? to_f(gv.v[k]) : 0.f;
-    }
-    for (int e = beg; e < end; ++e) {
-      const T* xr = x + (size_t)idx[e] * d;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < CHUNK; ++j) {
-        const int v = v0 + j * 32 + lane;
-        if (v < nv) {
-          Vec<T, V> xv;
-          xv.load(xr + v * V);
-#pragma unroll
-          for (int k = 0; k < V; ++k) part += gr[j][k] * to_f(xv.v[k]);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (lane == 0) out[e] = (v0 == 0) ? part : out[e] + part;
-    }
+  const int item = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  int r, sb, cnt;
+  if (item < n) {
+    r = item;
+    sb = ptr[r];
+    cnt = ptr[r + 1] - sb;
+    if (cnt == 0 || cnt > BATCH) return;   // nothing, or the segments'
+  } else if (item < n + nseg) {
+    int se, i;
+    segment(ptr, plan, nlong, BATCH, item - n, r, sb, se, i);
+    cnt = se - sb;
+  } else {
+    const int t = slots + (item - n - nseg) * BATCH + lane;
+    float zero = 0.f;
+    if (t < length) store_vec<1>(out, otype, nullptr, (size_t)t, &zero);
+    return;
   }
+  const int col = lane < cnt ? idx[sb + lane] : 0;
+  float dw = batch_dots<T, VB, VPL, SD_ROWS>(g + (size_t)r * d, x, col, cnt,
+                                             d, lane);
+  if (lane < cnt) store_vec<1>(out, otype, nullptr, (size_t)sb + lane, &dw);
 }
 
-template <typename T, int V>
-void run_sddmm(const void* ptr, const void* idx, const void* g, const void* x,
-               void* out, int n_rows, int d, cudaStream_t s) {
-  const dim3 grid((n_rows + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
-  sddmm_csr_kernel<T, V><<<grid, WARPS_PER_BLOCK * 32, 0, s>>>(
-      (const int*)ptr, (const int*)idx, (const T*)g, (const T*)x,
-      (float*)out, n_rows, d);
+// the kernel whose VPL vectors a lane cover a row's nvec vectors in one
+// chunk (at most 3: wider rows take several chunks of 96 vectors)
+template <typename T, int VB>
+cudaError_t run_sddmm(const void* ptr, const void* idx, const void* g,
+                      const void* x, const void* plan, void* out, int otype,
+                      int n, int d, int nlong, int nseg, int slots,
+                      int length, cudaStream_t s) {
+  const int nvec = d / gx_rows::Vec<T, VB>::E;
+  const long long items =
+      (long long)n + nseg + (length - slots + BATCH - 1) / BATCH;
+  const dim3 grid((unsigned)((items + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK));
+  const dim3 block(WARPS_PER_BLOCK * 32);
+  const int* p = (const int*)ptr;
+  const int* ix = (const int*)idx;
+  const int* pl = (const int*)plan;
+  if (nvec <= 32)
+    sddmm_kernel<T, VB, 1><<<grid, block, 0, s>>>(
+        p, ix, (const T*)g, (const T*)x, pl, out, otype, n, d, nlong, nseg,
+        slots, length);
+  else if (nvec <= 64)
+    sddmm_kernel<T, VB, 2><<<grid, block, 0, s>>>(
+        p, ix, (const T*)g, (const T*)x, pl, out, otype, n, d, nlong, nseg,
+        slots, length);
+  else
+    sddmm_kernel<T, VB, 3><<<grid, block, 0, s>>>(
+        p, ix, (const T*)g, (const T*)x, pl, out, otype, n, d, nlong, nseg,
+        slots, length);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -294,24 +311,40 @@ int gx_spmm_csr(const void* ptr, const void* idx, const void* val,
   return (int)cudaErrorInvalidValue;
 }
 
-// g and x share dtype; out is float32 with one value per CSR slot. vec: 1
-// or 2 values per load.
+// dw [length] = g[row_j] . x[idx[j]] per CSR slot j < slots (= ptr[n]),
+// 0 past them: g and x share dtype (0 float32, 1 bfloat16), out f32
+// (otype 0) or bf16 (otype 1); vb: bytes per load of a g or x row (as
+// gx_spmm_csr's); rows of more than 32 edges in the nseg 32-edge segments
+// of `plan` (nlong rows). Returns the cudaError_t of the launch.
 int gx_sddmm_csr(const void* ptr, const void* idx, const void* g,
-                 const void* x, void* out, int n_rows, int d, int dtype,
-                 int vec, void* stream) {
-  if (n_rows <= 0) return (int)cudaSuccess;
+                 const void* x, const void* plan, void* out, int n_rows,
+                 int d, int dtype, int vb, int otype, int nlong, int nseg,
+                 int slots, int length, void* stream) {
+  if (otype != 0 && otype != 1) return (int)cudaErrorInvalidValue;
+  if (length <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    if (vec == 2) run_sddmm<float, 2>(ptr, idx, g, x, out, n_rows, d, s);
-    else run_sddmm<float, 1>(ptr, idx, g, x, out, n_rows, d, s);
+    if (vb == 4)
+      return (int)run_sddmm<float, 4>(ptr, idx, g, x, plan, out, otype,
+                                      n_rows, d, nlong, nseg, slots, length,
+                                      s);
+    if (vb == 8)
+      return (int)run_sddmm<float, 8>(ptr, idx, g, x, plan, out, otype,
+                                      n_rows, d, nlong, nseg, slots, length,
+                                      s);
   } else if (dtype == 1) {
     using B = __nv_bfloat16;
-    if (vec == 2) run_sddmm<B, 2>(ptr, idx, g, x, out, n_rows, d, s);
-    else run_sddmm<B, 1>(ptr, idx, g, x, out, n_rows, d, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    if (vb == 2)
+      return (int)run_sddmm<B, 2>(ptr, idx, g, x, plan, out, otype, n_rows,
+                                  d, nlong, nseg, slots, length, s);
+    if (vb == 4)
+      return (int)run_sddmm<B, 4>(ptr, idx, g, x, plan, out, otype, n_rows,
+                                  d, nlong, nseg, slots, length, s);
+    if (vb == 8)
+      return (int)run_sddmm<B, 8>(ptr, idx, g, x, plan, out, otype, n_rows,
+                                  d, nlong, nseg, slots, length, s);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

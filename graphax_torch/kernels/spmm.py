@@ -15,9 +15,16 @@ per row, batches of 32 edges, several gathered rows in flight, rows of
 more than ``fused_attention.ROW_SPLIT`` edges in segments of that many,
 summed in order), all of D in one pass.
 
+The SDDMM kernel takes the rows of at most 32 edges and the 32-edge
+segments of the longer rows, a warp each, several gathered x rows in
+flight against g's row in registers, and writes a batch's 32 values in one
+store.
+
 Numerics (both versions): each product ``w_e * x[idx_e]`` is rounded to the
 state dtype, sums accumulate in f32 and are cast once to the state dtype;
-rows with no edge give 0; the SDDMM accumulates in f32 and returns f32."""
+rows with no edge give 0; the SDDMM accumulates in f32 and rounds once to
+its output dtype (f32 unless asked; the Function's backward asks for the
+values' dtype, graphax's ``.astype(wb.dtype)``)."""
 
 from __future__ import annotations
 
@@ -28,14 +35,6 @@ from graphax_torch.kernels import fused_attention as fa
 from graphax_torch.sparse.graph import Graph, Layout
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _vec(x: torch.Tensor) -> int:
-    """The SDDMM's values per load: pairs when every row starts on a pair
-    boundary."""
-    d = x.shape[1]
-    return 2 if d % 2 == 0 and x.data_ptr() % (2 * x.element_size()) == 0 \
-        else 1
 
 
 def _check(layout: Layout, a: torch.Tensor, x: torch.Tensor, what: str):
@@ -89,24 +88,43 @@ def spmm_csr(layout: Layout, values: torch.Tensor, x: torch.Tensor,
     return y
 
 
-def sddmm_plain(layout: Layout, g, x):
-    """out[j] = g[seg[j]] . x[idx[j]] in f32, one value per slot."""
-    return (g[layout.seg].float() * x[layout.idx.long()].float()).sum(-1)
+def sddmm_plain(layout: Layout, g, x, out_dtype=torch.float32,
+                length: int | None = None):
+    """out[j] = g[seg[j]] . x[idx[j]] in f32, one value per slot, cast once
+    to ``out_dtype``; ``length`` entries with zeros past the slots."""
+    dw = (g[layout.seg].float() * x[layout.idx.long()].float()).sum(-1)
+    n = layout.num_slots
+    return torch.nn.functional.pad(dw.to(out_dtype),
+                                   (0, (n if length is None else length) - n))
 
 
-def sddmm(layout: Layout, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``[layout.num_slots]`` float32 per-slot dot products."""
+def sddmm(layout: Layout, g: torch.Tensor, x: torch.Tensor,
+          out_dtype=torch.float32, length: int | None = None) -> torch.Tensor:
+    """``[length]`` per-slot dot products ``g[row] . x[col]`` (``length``
+    at least ``layout.num_slots``, its default; 0 past the slots): f32
+    sums rounded once to ``out_dtype``, float32 or x's dtype. The kernel
+    takes the rows of at most 32 edges a warp each, the longer ones in
+    32-edge segments (``fused_attention.row_split_plan``)."""
+    n = layout.num_slots
+    length = n if length is None else length
+    if length < n:
+        raise ValueError(f"sddmm: length {length} < {n} slots")
+    fa._out_dtype("sddmm", x, out_dtype)
     if not x.is_cuda:
-        return sddmm_plain(layout, g, x)
+        return sddmm_plain(layout, g, x, out_dtype, length)
     _check(layout, g, x, "sddmm")
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError("sddmm: g and x must share shape and dtype")
-    out = torch.empty(layout.num_slots, dtype=torch.float32, device=x.device)
+    out = torch.empty(length, dtype=out_dtype, device=x.device)
+    plan, nlong, nseg = fa._row_plan(layout, fa._BATCH, fa._BATCH)
     lib = _build.library("spmm")
     err = lib.gx_sddmm_csr(layout.ptr.data_ptr(), layout.idx.data_ptr(),
-                           g.data_ptr(), x.data_ptr(), out.data_ptr(),
-                           layout.num_rows, x.shape[1], _DTYPES[x.dtype],
-                           min(_vec(x), _vec(g)), _build.stream_ptr(x))
+                           g.data_ptr(), x.data_ptr(), plan.data_ptr(),
+                           out.data_ptr(), layout.num_rows, x.shape[1],
+                           _DTYPES[x.dtype],
+                           min(fa.gather_width(g), fa.gather_width(x)),
+                           int(out_dtype == torch.bfloat16), nlong, nseg, n,
+                           length, _build.stream_ptr(x))
     _build.check(err, "sddmm")
     _build.LAUNCHES["sddmm"] += 1
     return out
@@ -133,8 +151,7 @@ class _SpMM(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             dx = spmm_csr(csc, wb_t, g, csc.num_rows)
         if ctx.needs_input_grad[0]:
-            dwb = torch.zeros_like(wb)
-            dwb[:csr.num_slots] = sddmm(csr, g, x).to(wb.dtype)
+            dwb = sddmm(csr, g, x, wb.dtype, wb.shape[0])
         return dwb, None, dx, None, None
 
 

@@ -90,6 +90,13 @@ intact), and with 8 x 16 tiles and one CTA an SM (256 columns a CTA:
 (16- or 8-byte loads intact); each beside ``bmm`` / ``baddbmm`` on the
 pre-gathered slab.
 
+``--only sddmm``: the SDDMM (g and x from a seed, D 162, f32 output) on
+the arxiv CSR, the windowed residual and ``chip_smoke.hub_graph``, bf16
+and f32: intact; without the x gathers (row_walk.cuh's ``batch_dots``);
+with 1 and 4 x rows in flight (``SD_ROWS``, 2 intact); with 6 blocks an
+SM in bf16 and 4 in f32, and with 8 in both (``min_blocks``, shared with
+the SpMM walk: 8 and 6 intact).
+
 A switched-off part leaves the results wrong: only the intact builds are
 checked (against the plain versions). Each ablated build is a copy of the
 source with guards on the switched-off statements and the case's
@@ -99,7 +106,7 @@ bits, and called through the same C interface as the port. One JSON
 line per measurement (device ms as chip_smoke's ``time_ms`` takes them),
 then the card's nvidia-smi line. Run from the root of the repo on the
 card: ``python3 scripts/torch_kernel_ablations.py [--only
-winatt_gmax|kproj_slab|bwd_cols_norm|fwd_res_bwd_rows|f32_core]``.
+winatt_gmax|kproj_slab|bwd_cols_norm|fwd_res_bwd_rows|f32_core|sddmm]``.
 """
 
 import ctypes
@@ -188,6 +195,11 @@ NORM = ("fused_attention", "NORM_OFF", [
      "        if (!(NORM_OFF & 2)) eo[(size_t)e * h + hh] = v;"),
 ], ())
 
+# row_walk.cuh's batch_dots (the row backward's and the SDDMM's dot
+# products): its gather of the batch's x rows
+BATCH_LOADS = ("      load_rows<T, VB, VPL, U>(raw, x, col, e0, cnt, d, v0, "
+               "nvec, lane);")
+
 # the training forward and the row backward: 1 the forward's x gathers, 2
 # its scores, 4 the backward's x gathers, 8 its dq sums
 FRBR = ("fused_attention", "FRBR_OFF", [
@@ -197,13 +209,18 @@ FRBR = ("fused_attention", "FRBR_OFF", [
     ("    batch_scores(qs, kt, idx, nullptr, beg, len, a, h, 0, 0.f, 0.f,",
      "    if (!(FRBR_OFF & 2)) batch_scores(qs, kt, idx, nullptr, beg, len, "
      "a, h, 0, 0.f, 0.f,"),
-    ("      load_rows<T, VB, VPL, U>(raw, x, col, e0, cnt, d, v0, nvec, lane);",
-     "      if (!(FRBR_OFF & 4)) load_rows<T, VB, VPL, U>(raw, x, col, e0, "
-     "cnt, d, v0, nvec, lane);"),
+    (BATCH_LOADS, BATCH_LOADS.replace(
+        "      load_rows", "      if (!(FRBR_OFF & 4)) load_rows")),
     ("  lane_sums(ws, kt, col, cnt, a, h, dq + (size_t)r * a, lane);",
      "  if (!(FRBR_OFF & 8)) lane_sums(ws, kt, col, cnt, a, h, "
      "dq + (size_t)r * a, lane);"),
-], ())
+], ("attention_score.cuh", "row_walk.cuh"))
+
+# the SDDMM: 1 the x gathers
+SDDMM = ("spmm", "SD_OFF", [
+    (BATCH_LOADS, BATCH_LOADS.replace(
+        "      load_rows", "      if (!(SD_OFF & 1)) load_rows")),
+], ("row_walk.cuh",))
 
 # the f32 core: 1 the FMAs, 2 the staging
 F32 = ("windowed_spmm", "F32_OFF", [
@@ -301,6 +318,14 @@ FRBR_CASES = {
 # made to match; ROW_SPLIT intact)
 FR_SEGS = (32, 64, 128, 256)
 
+# the SDDMM's blocks an SM (spmm.cu's min_blocks, bf16 : f32)
+SD_BLOCKS = "constexpr int min_blocks() { return sizeof(T) == 2 ? 8 : 6; }"
+SD_CASES = {"intact": 0, "no_x_gather": 1,
+            **{f"rows_{u}": (0, [const("SD_ROWS", 2, u)]) for u in (1, 4)},
+            **{f"min_blocks_{b}": (0, [(SD_BLOCKS, SD_BLOCKS.replace(
+                "8 : 6", b.replace("_", " : ")))])
+               for b in ("6_4", "8_8")}}
+
 
 def substitute(text: str, subs, what: str) -> str:
     """``text`` with each (old, new) of ``subs`` replaced, each ``old``
@@ -321,10 +346,13 @@ def build(spec, cases) -> dict:
 
     name, flag, guards, headers = spec
     text = open(os.path.join(_build.CSRC, name + ".cu")).read()
-    for h in headers:
+    for h in headers:   # in place of its first include, the others dropped
         inc = f'#include "{h}"'
-        text = substitute(text, [(inc, open(os.path.join(
-            _build.CSRC, h)).read().replace("#pragma once\n", ""))], name)
+        if inc not in text:
+            raise RuntimeError(f"{name}: {inc} moved")
+        head, _, tail = text.partition(inc)
+        text = head + open(os.path.join(_build.CSRC, h)).read().replace(
+            "#pragma once\n", "") + tail.replace(inc, "")
     text = substitute(text, guards, name + ".cu")
 
     def one(item):
@@ -654,6 +682,53 @@ def fwd_res_bwd_rows() -> None:
         print(json.dumps(bwd), flush=True)
 
 
+def sddmm() -> None:
+    """The ``sddmm`` group of the module's docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+    from graphax_torch.kernels import spmm as spmm_mod
+
+    libs = build(SDDMM, SD_CASES)
+    data = get_dataset("ogbn-arxiv")
+    g0 = Trainer(best_config("ogbn-arxiv", community_window=0),
+                 data).data.graph
+    res = Trainer(best_config("ogbn-arxiv"), data).data.graph.windows.residual
+    hub = cs.hub_graph("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    n, d = g0.num_nodes, 162
+    for dt in (torch.bfloat16, torch.float32):
+        g = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        for label, lay in (("arxiv CSR", g0.csr), ("windowed residual", res),
+                           ("hub", hub.csr)):
+            e = lay.num_slots
+            plan, nlong, nseg = fa._row_plan(lay, fa._BATCH, fa._BATCH)
+            out = torch.empty(e, device="cuda")
+            args = (lay.ptr.data_ptr(), lay.idx.data_ptr(), g.data_ptr(),
+                    x.data_ptr(), plan.data_ptr(), out.data_ptr(),
+                    lay.num_rows, d, spmm_mod._DTYPES[dt],
+                    min(fa.gather_width(g), fa.gather_width(x)), 0, nlong,
+                    nseg, e, e, _build.stream_ptr(x))
+            row = dict(kernel="sddmm", dtype=str(dt)[6:], graph=label, E=e)
+            for case, lib in libs.items():
+                _build.check(lib.gx_sddmm_csr(*args), case)
+                torch.cuda.synchronize()
+                if case == "intact":
+                    want = spmm_mod.sddmm_plain(lay, g, x)
+                    row["intact_max_abs_err"] = float(
+                        (out - want).abs().max())
+                row[case + "_ms"] = cs.time_ms(
+                    lambda: lib.gx_sddmm_csr(*args))
+            print(json.dumps(row), flush=True)
+            del out
+        del g, x
+        torch.cuda.empty_cache()
+
+
 def kproj_slab() -> None:
     """The ``kproj_slab`` group of the module's docstring."""
     import torch
@@ -797,7 +872,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("winatt_gmax", "kproj_slab",
                                        "bwd_cols_norm", "fwd_res_bwd_rows",
-                                       "f32_core"),
+                                       "f32_core", "sddmm"),
                     default=None, help="one group of ablations")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -819,6 +894,8 @@ def main() -> int:
         fwd_res_bwd_rows()
     if args.only in (None, "f32_core"):
         f32_core()
+    if args.only in (None, "sddmm"):
+        sddmm()
     print(cs.smi_line(), flush=True)
     return 0
 

@@ -4,7 +4,8 @@ at the ogbn-arxiv preset's, flash_dense at Computers'; the CSR
 flash_attention and attention_attspmm at GRAND-nl's arxiv shapes, on a
 hub graph and on a power-law graph; spmm_csr, the pin, win_bwd_slab; K5
 (winatt) and attention_gmax at path A's shapes; attention_bwd_cols,
-attention_norm, attention_fwd_res and attention_bwd_rows at GRAND-nl's.
+attention_norm, attention_fwd_res and attention_bwd_rows at GRAND-nl's;
+sddmm at the attention block's.
 
 For each checkout (``--root``, default this one; ``--parent DIR`` adds a
 second, run in turns parent, this, this, parent, each in its own process):
@@ -140,20 +141,37 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   (its adjoint's device ms, and the launches and device ms of the
   training kernels).
 
+- (``sddmm``) sddmm on g and x from a seed at the attention block's
+  arxiv width (D 162), bf16 and f32: on the arxiv CSR, the windowed
+  residual, ``chip_smoke.hub_graph``, its transpose (hub columns: hub x
+  rows gathered thousands of times) and :func:`pareto_graph`, each
+  graph's share of rows and edges over 32 edges; each case's f32 output
+  and its output in the values' dtype at the length of the Function's
+  values buffer (a checkout whose wrapper has no ``out_dtype`` is timed
+  with the zeros, cast and slice copy its Function ran), its error
+  against the plain version and its ratio to chip_smoke's TOL_DOT, its
+  bound and all-miss count (x gathered per slot), and on the arxiv CSR
+  ``torch.sparse.sampled_addmm``; then the attention block's train steps
+  at arxiv widths on CSR and windowed (bf16) and windowed in f32: three
+  by the host clock with their NFE, then one profiled (device busy ms,
+  the adjoint's device ms, and the launches and device ms of sddmm,
+  spmm_walk, win_bwd_dense and win_matmul).
+
 With ``--parent``, this checkout's ``windowed``, ``winatt``, ``gmax``,
-``bwd_cols``, ``norm``, ``fwd_res`` and ``bwd_rows`` runs also call the
-parent's kernels (built by the parent's ``_build``) on the same inputs:
+``bwd_cols``, ``norm``, ``fwd_res``, ``bwd_rows`` and ``sddmm`` runs also
+call the parent's kernels (built by the parent's ``_build``) on the same inputs:
 whether the f32 bodies' outputs (win_matmul, win_bwd_dense and
 win_bwd_slab with both outputs; ``parent_equal``, ``parent_ms``), K5's out
 and den, gmax's value, B3's dk and dxv, the norm's e and den, fwd_res's
 out, scores, shift and denom and bwd_rows' dq and rho are equal bit for
 bit, the largest difference, the rows that differ and the shortest of
-them (of a score: its row's length).
+them (of a score: its row's length); sddmm's largest difference and the
+parent kernel's ms.
 
 One JSON line per measurement, then the card's nvidia-smi line. Run from
 the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
 DIR] [--only windowed|attention|spmm|pin|kproj|slab|winatt|gmax|bwd_cols|
-norm|fwd_res|bwd_rows]``; a parent is a
+norm|fwd_res|bwd_rows|sddmm]``; a parent is a
 ``git
 archive`` of another commit unpacked in a directory that ``.gitignore``
 lists.
@@ -249,6 +267,8 @@ def measure(root: str, only=None, against=None) -> None:
     for which in ("fwd_res", "bwd_rows"):
         if only in (None, which):
             row_kernels(emit, which, against)
+    if only in (None, "sddmm"):
+        sddmm(emit, against)
 
 
 def parent_f32_runs(t, extent: int, run: int) -> int:
@@ -1660,13 +1680,24 @@ def row_kernels(emit, which: str, parent=None) -> None:
                            bound_ms=bms, bound_by=by,
                            all_miss_ms=(nbytes + miss)
                            / here.HBM_BYTES_PER_S * 1e3, **errs)
+                # the parent's kernels through the C interface of PR 15's
+                # bodies, with the scratch and plans this checkout's
+                # wrappers give them
                 if plib is not None and which == "fwd_res":
                     old = [torch.empty_like(t) for t in res]
+                    plan, nlong, nseg = fa._row_plan(lay, fa._BATCH,
+                                                     fa.ROW_SPLIT)
+                    st = torch.empty(nseg, 2 * heads, device="cuda")
+                    part = torch.empty(nseg, d, device="cuda")
                     pargs = (lay.ptr.data_ptr(), lay.idx.data_ptr(),
                              q.data_ptr(), x.data_ptr(), kt.data_ptr(),
+                             plan.data_ptr(), st.data_ptr(), part.data_ptr(),
                              old[1].data_ptr(), old[2].data_ptr(),
                              old[3].data_ptr(), old[0].data_ptr(), n, d, a,
-                             heads, fa._DTYPES[dt], _build.stream_ptr(x))
+                             heads, fa._DTYPES[dt], fa.gather_width(x),
+                             fa.score_vec(q, kt, heads, "scaled_dot"),
+                             fa.flash_warps(a, heads), fa.ROW_SPLIT, nlong,
+                             nseg, _build.stream_ptr(x))
                     _build.check(plib.gx_attention_fwd_res(*pargs),
                                  "parent attention_fwd_res")
                     row.update(parent_ms=here.time_ms(
@@ -1677,13 +1708,20 @@ def row_kernels(emit, which: str, parent=None) -> None:
                             else deg)
                 elif plib is not None:
                     old = (torch.empty_like(got[0]), torch.empty_like(got[1]))
-                    dab = torch.empty(e, device="cuda")
+                    plan, nlong, nseg = fa._row_plan(lay, fa._BATCH,
+                                                     fa._BATCH)
+                    scratch = [torch.empty(nseg, k, device="cuda")
+                               for k in (fa._BATCH, heads, a)]
                     pargs = (lay.ptr.data_ptr(), lay.idx.data_ptr(),
                              sc.data_ptr(), shift.data_ptr(),
                              denom.data_ptr(), c.data_ptr(), x.data_ptr(),
-                             kt.data_ptr(), dab.data_ptr(), old[0].data_ptr(),
-                             old[1].data_ptr(), n, d, a, heads,
-                             fa._DTYPES[dt], _build.stream_ptr(x))
+                             kt.data_ptr(), plan.data_ptr(),
+                             *(t.data_ptr() for t in scratch),
+                             old[0].data_ptr(), old[1].data_ptr(), n, d, a,
+                             heads, fa._DTYPES[dt],
+                             min(fa.gather_width(c), fa.gather_width(x)),
+                             fa.batch_warps(heads), nlong, nseg,
+                             _build.stream_ptr(x))
                     _build.check(plib.gx_attention_bwd_rows(*pargs),
                                  "parent attention_bwd_rows")
                     row.update(
@@ -1693,7 +1731,7 @@ def row_kernels(emit, which: str, parent=None) -> None:
                         parent_rho=differ(got[1], old[1], deg),
                         parent_dq_tol_ratio=ratio(got[0], old[0], tt),
                         parent_rho_tol_ratio=ratio(got[1], old[1], tt))
-                    del dab
+                    del scratch
                 emit(**row)
                 del res, out, sc, shift, denom, want
             del x, c, p, q, kt
@@ -1705,6 +1743,120 @@ def row_kernels(emit, which: str, parent=None) -> None:
     profiled_train_step(emit, tr, "GRAND-nl train step, CSR",
                         ("fwd_res_kernel", "flash_seg", "bwd_rows_kernel",
                          "bwd_rows_seg", "bwd_cols_kernel", "seg_combine"))
+
+
+def sddmm(emit, parent=None) -> None:
+    """The ``sddmm`` measurements of the module's docstring."""
+    import inspect
+
+    import torch
+
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import spmm as spmm_mod
+
+    here = this_chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    plib = parent_library(parent, "spmm") if parent else None
+    has_out = "out_dtype" in inspect.signature(spmm_mod.sddmm).parameters
+    data = get_dataset("ogbn-arxiv")
+    trs = {"CSR": Trainer(best_config("ogbn-arxiv", block="attention",
+                                      community_window=0), data),
+           "windowed": Trainer(best_config("ogbn-arxiv", block="attention"),
+                               data)}
+    g0, gw = trs["CSR"].data.graph, trs["windowed"].data.graph
+    n, d = g0.num_nodes, trs["CSR"].model.state_dim
+    hub, hub_t = here.hub_graph("cuda"), here.hub_graph("cuda",
+                                                       transpose=True)
+    par = pareto_graph("cuda")
+    # (label, layout, the length of the values' buffer the Function's
+    # backward fills)
+    cases = (("arxiv CSR", g0.csr, g0.edge_buffer_size),
+             ("windowed residual", gw.windows.residual,
+              gw.windows.residual.num_slots),
+             ("hub", hub.csr, hub.edge_buffer_size),
+             ("hub transposed", hub_t.csr, hub_t.edge_buffer_size),
+             ("pareto", par.csr, par.edge_buffer_size))
+    for label, lay, _ in cases:
+        emit(graph=label, N=lay.num_rows, E=lay.num_slots,
+             rows=here.degree_shares(lay.ptr, (32,)))
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    tol = here.TOL_DOT
+    for dt in (torch.bfloat16, torch.float32):
+        name, b = str(dt)[6:], dt.itemsize
+        g = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        for label, lay, length in cases:
+            e = lay.num_slots
+            fn = lambda lay=lay: spmm_mod.sddmm(lay, g, x)  # noqa: E731
+            if has_out:
+                low = lambda lay=lay, ln=length: spmm_mod.sddmm(  # noqa
+                    lay, g, x, dt, ln)
+            else:   # the parent Function's zeros, cast and slice copy
+                def low(lay=lay, ln=length):
+                    out = torch.zeros(ln, dtype=dt, device="cuda")
+                    out[:lay.num_slots] = spmm_mod.sddmm(lay, g, x).to(dt)
+                    return out
+            got = fn()
+            want = spmm_mod.sddmm_plain(lay, g, x)
+            c = here.compare(got, want, tol)
+            nbytes = 2 * n * d * b + 4 * e + 4 * (n + 1) + 4 * e
+            bms, by = here.bound_ms(nbytes, 2.0 * e * d, name)
+            row = dict(kernel="sddmm", graph=label, dtype=name, E=e, D=d,
+                       ms=here.time_ms(fn), values_dtype_ms=here.time_ms(low),
+                       plain_ms=here.time_ms(lambda: spmm_mod.sddmm_plain(
+                           lay, g, x), reps=5),
+                       max_abs_err=c["max_abs_err"], ok=c["ok"],
+                       tol_ratio=float(((got - want).abs() / (
+                           tol[0] + tol[1] * want.abs())).max()),
+                       bound_ms=bms, bound_by=by,
+                       all_miss_ms=(nbytes - n * d * b + e * d * b)
+                       / here.HBM_BYTES_PER_S * 1e3)
+            if label == "arxiv CSR":
+                mask = torch.sparse_csr_tensor(
+                    lay.ptr.long(), lay.idx.long(),
+                    torch.zeros(e, dtype=dt, device="cuda"), size=(n, n))
+                row["library"] = "torch.sparse.sampled_addmm"
+                try:
+                    row["library_ms"] = here.time_ms(
+                        lambda: torch.sparse.sampled_addmm(
+                            mask, g, x.t(), beta=0.0), reps=10)
+                except (RuntimeError, NotImplementedError) as exc:
+                    row["library_error"] = str(exc).splitlines()[0][:120]
+                del mask
+            if plib is not None:
+                old = torch.empty(e, device="cuda")
+                vec = 2 if d % 2 == 0 and all(
+                    t.data_ptr() % (2 * b) == 0 for t in (g, x)) else 1
+                pargs = (lay.ptr.data_ptr(), lay.idx.data_ptr(),
+                         g.data_ptr(), x.data_ptr(), old.data_ptr(),
+                         lay.num_rows, d, spmm_mod._DTYPES[dt], vec,
+                         _build.stream_ptr(x))
+                _build.check(plib.gx_sddmm_csr(*pargs), "parent sddmm")
+                row.update(parent_ms=here.time_ms(
+                    lambda: plib.gx_sddmm_csr(*pargs)),
+                    parent_max_abs_diff=float((got - old).abs().max()))
+                del old
+            emit(**row)
+            del got, want
+        del g, x
+        torch.cuda.empty_cache()
+    del hub, hub_t, par
+    torch.cuda.empty_cache()
+    # the attention block's train steps at arxiv widths: sddmm once per
+    # adjoint NFE (and win_bwd_dense on the windowed layout), then the same
+    # block in f32 on the windowed layout
+    kernels = ("sddmm", "spmm_walk", "win_bwd_dense", "win_matmul")
+    for label, tr in trs.items():
+        timed_steps(emit, tr, f"attention block {label}")
+        profiled_train_step(emit, tr, f"attention block {label}", kernels)
+    del trs
+    torch.cuda.empty_cache()
+    tr = Trainer(best_config("ogbn-arxiv", block="attention",
+                             dtype="float32"), data)
+    timed_steps(emit, tr, "attention block f32 windowed")
+    profiled_train_step(emit, tr, "attention block f32 windowed", kernels)
 
 
 def norm(emit, parent=None) -> None:
@@ -1822,12 +1974,12 @@ def main() -> int:
     ap.add_argument("--only", choices=("windowed", "attention", "spmm",
                                        "pin", "kproj", "slab", "winatt",
                                        "gmax", "bwd_cols", "norm", "fwd_res",
-                                       "bwd_rows"),
+                                       "bwd_rows", "sddmm"),
                     default=None, help="one group of measurements")
     ap.add_argument("--against", default=None,
                     help="a parent checkout whose kernels run beside this "
                     "one's on the same inputs (windowed, winatt, gmax, "
-                    "bwd_cols, norm, fwd_res, bwd_rows)")
+                    "bwd_cols, norm, fwd_res, bwd_rows, sddmm)")
     args = ap.parse_args()
     if args.root is not None:
         measure(os.path.abspath(args.root), args.only,

@@ -1339,6 +1339,70 @@ def test_cuda_pin_wide_rows_follow_the_k_projection(cuda):
 
 
 # ----------------------------------------------------------------------
+# the SDDMM's work items (rows of at most 32 edges, 32-edge segments of
+# the longer ones), load widths and output dtype
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [162, 1, 7, 300])
+def test_cuda_sddmm_long_rows_views_and_out_dtype(cuda, dtype, d):
+    """sddmm on a graph with rows of 0, 1, 31, 32, 33, 700 and 3,000 edges
+    and padding: within TOL_DOT (1e-4 absolute, 1e-5 relative: f32 dot
+    products of D terms in another order) of the plain version, one launch
+    a call; g and x views one value in (loads of one value) within it too;
+    the output in the state dtype with a padded length the f32 result cast
+    once, zeros past the slots."""
+    from graphax_torch.kernels import LAUNCHES
+
+    gr = _walk_graph(cuda, seed=16)
+    lay, e, n = gr.csr, gr.num_edges, gr.num_nodes
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    g = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(tdt)
+    want = spmm_mod.sddmm_plain(lay, g, x)
+    LAUNCHES.clear()
+    got = spmm_mod.sddmm(lay, g, x)
+    assert LAUNCHES["sddmm"] == 1 and got.shape == (e,)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    go, xo = _off_word(g), _off_word(x)
+    assert fa.gather_width(xo) == x.element_size()
+    torch.testing.assert_close(spmm_mod.sddmm(lay, go, xo), want, rtol=1e-5,
+                               atol=1e-4)
+    size = gr.edge_buffer_size
+    low = spmm_mod.sddmm(lay, g, x, tdt, size)
+    assert low.dtype == tdt and low.shape == (size,)
+    assert torch.equal(low[:e], got.to(tdt))
+    assert torch.equal(low[e:], torch.zeros(size - e, dtype=tdt,
+                                            device=cuda))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_sddmm_autograd_dw_in_values_dtype(cuda, dtype):
+    """The autograd Function's value gradient on the graph with hub rows:
+    in wb's dtype, zero on the edge buffer's padding, the plain SDDMM of
+    the same cotangent cast once (one bf16 ulp apart at the margin), one
+    SDDMM launch."""
+    from graphax_torch.kernels import LAUNCHES
+
+    gr = _walk_graph(cuda, seed=17)
+    n, e, tdt = gr.num_nodes, gr.num_edges, getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(n, 162, generator=gen, device=cuda).to(tdt)
+    probe = torch.randn(n, 162, generator=gen, device=cuda).to(tdt)
+    wr = gr.edge_weight.to(tdt).requires_grad_(True)
+    y = spmm_mod.spmm(gr, wr, spmm_mod.transpose_values(gr, wr.detach()), x)
+    LAUNCHES.clear()
+    y.backward(probe)
+    assert LAUNCHES["sddmm"] == 1
+    assert wr.grad.dtype == tdt and wr.grad.shape == (gr.edge_buffer_size,)
+    assert torch.all(wr.grad[e:] == 0)
+    want = spmm_mod.sddmm_plain(gr.csr, probe, x)
+    rtol = 1e-5 if dtype == "float32" else BF16_RTOL
+    torch.testing.assert_close(wr.grad[:e].float(), want.to(tdt).float(),
+                               rtol=rtol, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
 # the CUDA-core K projection (f32, and bf16 where the tensor-core kernel
 # does not fit)
 
