@@ -121,8 +121,10 @@ and prints no result):
 6. breakdown: one more train step of the windowed path (win_bwd_slab
    once per adjoint NFE), one GRAND-nl
    evaluation and one GRAND-nl train step, one Computers train step and
-   early-stop evaluation, one GRAND-nl dense evaluation, one windowed
-   GRAND-nl train step and evaluation, one column-normalised train step,
+   early-stop evaluation, one GRAND-nl dense evaluation, one GRAND-nl
+   dense train step and early-stop evaluation (flash_dense's device ms),
+   one windowed GRAND-nl train step and evaluation, one
+   column-normalised train step,
    one Pubmed train step and early-stop evaluation, one f32 windowed
    train step and evaluation and one f32 attention-block step, under
    torch.profiler, time by span (forward solve, adjoint, optimizer) and by
@@ -136,8 +138,10 @@ and prints no result):
    GRAND-nl evaluations must give the same logits and NFE (on a dense
    graph above K6's gate too), a small GRAND-nl trained 3 steps the same
    losses (and in f32 NFE), and a small community graph's GRAND-nl on the
-   windowed and column routes the same f32 logits and NFE, and over a
-   train step the same loss, NFE and gradients; the Cora and Pubmed presets
+   windowed and column routes (also the column route on the windowed
+   graph), the CSR flash with its replayed gradient (squareplus),
+   mix_features and the dense route the same f32 logits and NFE, and over
+   a train step the same loss, NFE and gradients; the Cora and Pubmed presets
    at toy width, 3 train steps, the same losses, NFE and Q gradients.
 
 Then the kernels line (launches summed over the paths of phase 5), the
@@ -1827,22 +1831,35 @@ TRAIN_WINDOWED.update({k: (False, True) for k in (
 TRAIN_COLNORM = {k: (True, True) for k in (
     "attention_kproj", "attention_gmax", "attention_norm",
     "attention_attspmm")}
+# the dense route: K6 at every RHS evaluation without a gradient (the
+# adjoint's forward solve, the evaluation), none in the adjoint's backward
+# (the materialised route's vjp)
+TRAIN_DENSE = {"flash_dense": (True, False)}
+# the CSR flash forward whose gradient replays the per-edge path
+# (squareplus: its shift by attention_gmax)
+TRAIN_FLASH_REPLAY = {k: (True, True) for k in (
+    "flash_attention", "attention_kproj", "attention_gmax")}
 
 
 def phase_grand_nl_train(trainer, epochs: int, label: str = "grand_nl_train",
-                         per_nfe: dict = TRAIN_CSR) -> dict:
+                         per_nfe: dict = TRAIN_CSR,
+                         exclusive: bool = False) -> dict:
     """``trainer.fit(epochs)`` of GRAND-nl with fit's defaults (the
     early-stop evaluation), the launch counts zeroed before and read after:
     per train step each kernel of ``per_nfe`` once per forward NFE and/or
     once per adjoint NFE as its flags say, and over the run once more per
-    evaluation NFE where it runs in the forward. Finite losses, solver
-    success, nonzero gradients at Q and K. Returns the launches."""
+    evaluation NFE where it runs in the forward; with ``exclusive``, no
+    other kernel. Finite losses, solver success, nonzero gradients at Q
+    and K; the run's peak device memory beside what was allocated before
+    it. Returns the launches."""
     import torch
 
     from graphax_torch.kernels import _build
 
     trainer.step_launches.clear()
     _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fit = trainer.fit(epochs=epochs)
@@ -1871,6 +1888,9 @@ def phase_grand_nl_train(trainer, epochs: int, label: str = "grand_nl_train",
         check(counts.get(k, 0) == want,
               f"{label}: {k} launched {counts.get(k, 0)} times for {nfe} "
               f"forward, {bwd} adjoint and {ev} evaluation NFE")
+    if exclusive:
+        check(set(counts) <= set(per_nfe),
+              f"{label}: launched {counts}, outside its route {per_nfe}")
     att = trainer.model.block.func.att
     gnorm = {f"{m}.{k}": float(getattr(getattr(att, m), k).grad.abs().max())
              for m in ("Q", "K") for k in ("weight", "bias")}
@@ -1884,8 +1904,86 @@ def phase_grand_nl_train(trainer, epochs: int, label: str = "grand_nl_train",
           "forward_nfe": nfe, "adjoint_nfe": bwd, "eval_nfe": ev,
           "launches": counts, "grad_abs_max_last_step": gnorm,
           "best": fit["best"],
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "live_before_fit_gib": base})
     return counts
+
+
+def phase_grand_nl_routes_train(data, computers, epochs: int) -> tuple:
+    """GRAND-nl trained on the routes outside the hand-written backward,
+    each ``fit`` with its defaults through :func:`phase_grand_nl_train`
+    (random Q/K at every ``init_state``), its route checked first and no
+    kernel outside it launched:
+
+    - ``grand_nl_dense_train``: ``best_config("Computers",
+      function="transformer", block="constant")`` on its stand-in, ``epochs``
+      epochs: the dopri5 adjoint at 13,381 nodes, 4 heads, hidden 128;
+      flash_dense (K6, above its gate) once per forward and evaluation NFE
+      and never in the adjoint's backward (the materialised route's vjp);
+    - ``grand_nl_cora_train``: Cora's preset so (column softmax under
+      squareplus, below K6's gate, autograd through the dopri5 steps), 2
+      epochs: no kernel, each step's replay keeping only its inputs;
+    - ``grand_nl_coauthor_train``: CoauthorCS's, 1 epoch: its [4, N, N]
+      scores past ``use_dense_attention``'s guard, so the column route over
+      the dense graph's CSR and CSC through the dopri5 adjoint;
+    - ``grand_nl_csr_squareplus_train``: the arxiv widths on CSR under
+      squareplus, 1 epoch: flash, its K table and shift once per forward,
+      evaluation and adjoint NFE (the replay's forward), the per-edge vjp;
+    - ``grand_nl_windowed_colnorm_train``: arxiv as published (windowed)
+      with column normalisation, 1 epoch: the column route over the
+      windowed graph's CSR and CSC.
+
+    Returns (the launches, the Computers Trainer for the breakdown)."""
+    import torch
+
+    from graphax_torch import best_config, get_dataset
+    from graphax_torch.functions.transformer import (
+        attention_route, flash_dense_gate,
+    )
+
+    nl = dict(function="transformer", block="constant")
+    runs = (
+        ("grand_nl_dense_train", best_config("Computers", **nl),
+         lambda: computers, epochs, "dense", "dense", TRAIN_DENSE),
+        ("grand_nl_cora_train", best_config("Cora", **nl),
+         lambda: get_dataset("Cora"), 2, "dense", "dense", {}),
+        ("grand_nl_coauthor_train", best_config("CoauthorCS", **nl),
+         lambda: get_dataset("CoauthorCS"), 1, "dense", "column",
+         TRAIN_COLNORM),
+        ("grand_nl_csr_squareplus_train",
+         best_config("ogbn-arxiv", community_window=0, square_plus=True,
+                     **nl), lambda: data, 1, "sparse", "flash_replay",
+         TRAIN_FLASH_REPLAY),
+        ("grand_nl_windowed_colnorm_train",
+         best_config("ogbn-arxiv", attention_norm_idx=1, **nl),
+         lambda: data, 1, "windowed", "column", TRAIN_COLNORM))
+    launches: dict = {}
+    kept = None
+    for label, cfg, get_data, ep, strategy, route, per_nfe in runs:
+        tr = nl_trainer(cfg, get_data())
+        g = tr.data.graph
+        got = attention_route(cfg, g, tr.model.state_dim)
+        emit({"phase": "data", "path": label, "dataset": cfg.dataset,
+              "num_nodes": g.num_nodes, "num_edges": g.num_edges,
+              "strategy": g.strategy, "route": got,
+              "state_dim": tr.model.state_dim, "heads": cfg.heads,
+              "attention_dim": cfg.attention_dim, "dtype": cfg.dtype,
+              "adjoint": cfg.adjoint, "adjoint_method": cfg.adjoint_method,
+              "k6_gate": flash_dense_gate(cfg, g.num_nodes)})
+        check(g.strategy == strategy and got == route,
+              f"{label}: route {got} on a {g.strategy} graph, not {route} "
+              f"on a {strategy} one")
+        if label == "grand_nl_dense_train":
+            check(flash_dense_gate(cfg, g.num_nodes),
+                  f"{label}: below K6's gate")
+        for k, v in phase_grand_nl_train(tr, ep, label, per_nfe,
+                                         exclusive=True).items():
+            launches[k] = launches.get(k, 0) + v
+        if label == "grand_nl_dense_train":
+            kept = tr
+        del tr, g
+        torch.cuda.empty_cache()
+    return launches, kept
 
 
 def phase_grand_nl(trainer, label: str, evals: int,
@@ -2042,11 +2140,15 @@ def phase_reference_nl_train() -> dict:
 def phase_reference_nl_routes() -> dict:
     """GRAND-nl on a small community-structured graph from the same
     weights on the card (kernels) and on the CPU (plain versions), f32: the
-    windowed route (``community_window=64``, K5) and the column route
-    (softmax and squareplus). The evaluation's logits within 1e-4 with NFE
-    equal (dopri5); then one train step's loss within 1e-4 and every
-    parameter's gradient within GRAD_RTOL plus GRAD_ATOL_OF_MAX of the
-    largest gradient of its module, forward and backward NFE equal.
+    windowed route (``community_window=64``, K5), the column route
+    (softmax and squareplus, and over the windowed graph's CSR and CSC),
+    the CSR flash forward with the per-edge gradient replayed
+    (squareplus), mix_features (the per-edge path, no kernel) and the
+    dense route below K6's gate (the materialised attention, its replay).
+    The evaluation's logits within 1e-4 with NFE equal (dopri5); then one
+    train step's loss within 1e-4 and every parameter's gradient within
+    GRAD_RTOL plus GRAD_ATOL_OF_MAX of the largest gradient of its module,
+    forward and backward NFE equal.
 
     The step solves with rk4 forward and backward: under dopri5 a
     borderline step can flip between the two devices' summation orders
@@ -2063,8 +2165,14 @@ def phase_reference_nl_routes() -> dict:
     from graphax_torch import Config, make_sbm_dataset
 
     out = []
-    for over in (dict(community_window=64), dict(attention_norm_idx=1),
-                 dict(attention_norm_idx=1, square_plus=True)):
+    for over, strategy in (
+            (dict(community_window=64), "sparse"),
+            (dict(attention_norm_idx=1), "sparse"),
+            (dict(attention_norm_idx=1, square_plus=True), "sparse"),
+            (dict(square_plus=True), "sparse"),
+            (dict(community_window=64, attention_norm_idx=1), "sparse"),
+            (dict(mix_features=True), "sparse"),
+            ({}, "auto")):
         cfg = Config(dataset="smoke", block="constant", function="transformer",
                      hidden_dim=32, heads=2, attention_dim=16, batch_norm=True,
                      attention_type="scaled_dot", method="dopri5",
@@ -2076,9 +2184,10 @@ def phase_reference_nl_routes() -> dict:
         for dev in ("cuda", "cpu"):
             data = make_sbm_dataset(num_nodes=400, num_classes=4,
                                     num_features=32, seed=0,
-                                    strategy="sparse", device=dev)
+                                    strategy=strategy, device=dev)
             tr = nl_trainer(cfg, data, qk_seed=7, device=dev)
-            want = "windowed" if cfg.community_window else "sparse"
+            want = "windowed" if cfg.community_window else \
+                "dense" if strategy == "auto" else "sparse"
             check(tr.data.graph.strategy == want,
                   f"reference graph is {tr.data.graph.strategy}, not {want}")
             tr.model.eval()
@@ -2103,7 +2212,7 @@ def phase_reference_nl_routes() -> dict:
         gerr = {n: float(((gc[n] - t).abs() / (GRAD_RTOL * t.abs()
                           + GRAD_ATOL_OF_MAX * top[n.rsplit(".", 1)[0]]
                           + 1e-30)).max()) for n, t in gp.items()}
-        row = {**over, "max_abs_err": err,
+        row = {**over, "strategy": want, "max_abs_err": err,
                "tol": TOL_NL_REF["float32"], "nfe_cuda": got["cuda"][1],
                "nfe_cpu": got["cpu"][1], "step_cuda": got["cuda"][2],
                "step_cpu": got["cpu"][2],
@@ -2945,6 +3054,14 @@ def main(argv=None) -> int:
     for k, v in phase_grand_nl(trainer_nld, "grand_nl_dense", 3,
                                per_nfe=("flash_dense",)).items():
         launches[k] = launches.get(k, 0) + v
+    # GRAND-nl trained outside the hand-written backward: the dense route
+    # (K6 in the forward solve and the evaluation), Cora's autograd
+    # through the steps, CoauthorCS past the dense guard, squareplus on CSR
+    # and column normalisation on the windowed graph
+    routes_launches, trainer_nldt = phase_grand_nl_routes_train(
+        data, dense["Computers"][0], args.epochs)
+    for k, v in routes_launches.items():
+        launches[k] = launches.get(k, 0) + v
     # the attention block: the four presets on their stand-ins (dense),
     # then at the arxiv widths on CSR and on the windowed layout (sddmm
     # once per adjoint NFE)
@@ -3001,6 +3118,13 @@ def main(argv=None) -> int:
     emit({"phase": "breakdown", "path": "grand_nl_dense",
           **phase_breakdown([("graphax_torch.evaluate",
                               trainer_nld.evaluate)])})
+    emit({"phase": "breakdown", "path": "grand_nl_dense_train",
+          **phase_breakdown([("graphax_torch.train_step",
+                              trainer_nldt.train_step),
+                             ("graphax_torch.evaluate",
+                              trainer_nldt.evaluate_early)],
+                            sums=("flash_dense",))})
+    del trainer_nldt
     emit({"phase": "breakdown", "path": "Pubmed",
           **phase_breakdown([("graphax_torch.train_step",
                               trainer_pub.train_step),

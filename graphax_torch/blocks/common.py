@@ -13,12 +13,11 @@ from graphax_torch.functions.laplacian import laplacian_rhs
 from graphax_torch.functions.transformer import (
     TransformerFunction, transformer_rhs,
 )
-from graphax_torch.kernels.attention3 import colnorm_supported
-from graphax_torch.kernels.fused_attention import train_supported
-from graphax_torch.kernels.winatt import winatt_supported
 from graphax_torch.kernels.spmm import transpose_values
 from graphax_torch.kernels.windowed_spmm import densify_windows
-from graphax_torch.kernels.dense_path import dense_adjacency_mask, densify
+from graphax_torch.kernels.dense_path import (
+    dense_adjacency_mask, densify, use_dense_attention,
+)
 from graphax_torch.ode import ODEResult, Observer, odeint, odeint_adjoint
 from graphax_torch.ode.solvers import FIXED_STEP_METHODS
 from graphax_torch.sparse.graph import Graph
@@ -58,18 +57,15 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
     permuted to the CSC order once here, not at every solver evaluation.
     On a dense graph the values become the ``[N, N]`` operator here, once
     per forward (`graphax/blocks/common.py:64-68`), or for the transformer
-    RHS the adjacency mask.
+    RHS the adjacency mask (where its dense route runs).
     On a windowed graph (`graphax/blocks/common.py:76-100`) the in-window
     values become the dense blocks here, and the residual values go in its
     CSR and CSC slot orders; for the transformer RHS only the blocks, and
-    only under reweight (graphax's ``fstate.wb[0]``, `graphax/functions/
-    transformer.py:287-288`). ``fast_attention`` is set on a sparse graph
-    with a 2-D state for an evaluation forward, and for a training forward
-    when ``cfg`` is one the hand-written attention backward covers
-    (`:116-131`, graphax's `pallas_bwd_supported`) or one of the column
-    route (`colnorm_supported`); on a windowed graph, for the transformer
-    RHS with a 2-D state in either mode where K5's route (or, under
-    squareplus, the plain twin) serves it.
+    only where K5's route or the windowed twin reweights with them
+    (graphax's ``fstate.wb[0]``, `graphax/functions/transformer.py:
+    287-288`). ``train`` is graphax's argument; the transformer RHS takes
+    the same route in either mode (`graphax_torch.functions.transformer.
+    attention_route`).
 
     A pin that carries a gradient (the attention and mixed blocks in
     training) passes it on through the operator: `densify`'s index_put on
@@ -81,24 +77,25 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
     has no such leaf)."""
     values = graph.edge_weight if attention is None else attention
     pinned = attention is not None
+    nl = cfg is not None and cfg.function == "transformer"
     if graph.strategy == "dense":
-        if cfg is not None and cfg.function == "transformer":
+        if nl:
             # GRAND-nl reads the adjacency mask at every evaluation, not an
             # operator (graphax densifies the weights here all the same)
+            mask = dense_adjacency_mask(graph) \
+                if use_dense_attention(graph, cfg.heads) else None
             return FuncState(graph=graph, x0=x.detach(), pinned=pinned,
-                             mask=dense_adjacency_mask(graph),
-                             fast_attention=not train)
+                             mask=mask)
         return FuncState(graph=graph, x0=x.detach(),
                          dense=densify(graph, values), pinned=pinned)
     if graph.strategy == "windowed":
         wl = graph.windows
-        if cfg is not None and cfg.function == "transformer":
-            ok = x.dim() == 2 and (cfg.square_plus
-                                   or winatt_supported(cfg, x.shape[1]))
+        if nl:
+            windowed = cfg.attention_norm_idx == 0 and not cfg.mix_features
             dense = densify_windows(values, wl, x.dtype) \
-                if cfg.reweight_attention else None
+                if cfg.reweight_attention and windowed else None
             return FuncState(graph=graph, x0=x.detach(), dense=dense,
-                             pinned=pinned, fast_attention=ok)
+                             pinned=pinned)
         v = values.to(x.dtype)
         return FuncState(graph=graph, x0=x.detach(),
                          wb=v[wl.residual.perm].contiguous(),
@@ -106,12 +103,8 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
                          dense=densify_windows(values, wl, x.dtype),
                          pinned=pinned)
     wb = values.to(x.dtype).contiguous()
-    train_ok = train and cfg is not None and x.dim() == 2 \
-        and (train_supported(cfg, x.shape[1])
-             or colnorm_supported(cfg, x.shape[1]))
     return FuncState(graph=graph, x0=x.detach(), wb=wb,
-                     wb_t=transpose_values(graph, wb.detach()), pinned=pinned,
-                     fast_attention=(not train or train_ok) and x.dim() == 2)
+                     wb_t=transpose_values(graph, wb.detach()), pinned=pinned)
 
 
 def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
@@ -144,23 +137,25 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
         # where it discards them; its leaves that stay zero are counted:
         # the RHS module's parameters it does not track (alpha_train and
         # beta_train, which the RHS reads only as alpha and beta above; the
-        # attention layer's V and Wout), and the edge weights where the RHS
-        # does not read them (pinned attention, the transformer). On a dense
-        # graph it holds dense_adj, the [N, N] operator, whose a_p the port
-        # integrates in f32 as well, and the edge weights and a pin's
-        # attention stay zero (the RHS reads only the operator).
+        # attention layer's V and Wout outside mix_features), and the edge
+        # weights where the RHS does not read them (pinned attention, the
+        # transformer). On a dense graph it holds dense_adj, the [N, N]
+        # operator: the Laplacian RHS reads it (the port integrates its a_p
+        # in f32 as well, and the edge weights and a pin's attention stay
+        # zero); the transformer RHS does not, so its N^2 leaves stay zero.
         zero = sum(p.numel() for p in func.parameters())
         if isinstance(func, TransformerFunction):
-            func.check_route(fstate, x)
             att = func.adjoint_tensors()
             params = (alpha, beta, fstate.x0, *att)
             if fstate.dense is not None:
                 params += (fstate.dense,)       # the windowed reweight
             track = (True,) * len(params)
             zero += g.edge_buffer_size - sum(p.numel() for p in att)
+            if g.strategy == "dense":
+                zero += g.num_nodes ** 2        # graphax's dense_adj
 
             def f_adj(p, t, y):
-                return transformer_rhs(cfg, g, p, y)
+                return transformer_rhs(cfg, g, p, y, mask=fstate.mask)
         elif g.strategy == "dense":
             params = (alpha, beta, fstate.x0, fstate.dense)
             track = (True,) * len(params)

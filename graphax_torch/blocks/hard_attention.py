@@ -35,10 +35,11 @@ class HardAttentionBlock(nn.Module):
             raise ValueError("attention sampling threshold must be in (0,1]")
         if cfg.use_flux:
             raise NotImplementedError("use_flux is not ported yet "
-                                      "(ROADMAP Queue 1, M6)")
+                                      "(ROADMAP Queue 1, item 6, M6)")
         if cfg.function != "laplacian":
             raise NotImplementedError("the hard block with a transformer/GAT "
-                                      "function is not ported yet (ROADMAP M6)")
+                                      "function is not ported yet (ROADMAP "
+                                      "Queue 1, item 6, M6)")
         self.cfg = cfg
         self.func = get_function(cfg, in_dim)
         self.att_layer = TransformerAttention(cfg, in_dim)

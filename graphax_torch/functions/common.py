@@ -30,17 +30,10 @@ class FuncState:
         only under reweight); on a dense graph the
         ``[N, N]`` operator in the values' dtype (graphax's ``dense_adj``);
         else None.
-      mask: on a dense graph under the transformer RHS, the ``[N, N]`` bool
-        adjacency, built once per forward; else None.
+      mask: on a dense graph under the transformer RHS's dense route, the
+        ``[N, N]`` bool adjacency, built once per forward; else None.
       pinned: the values are attention a block pinned, not the graph's
         weights (graphax then keeps both as adjoint leaves).
-      fast_attention: the transformer RHS may run its kernels: on a sparse
-        graph with a 2-D state, an evaluation forward, or a training forward
-        whose config the hand-written backward or the column route covers
-        (graphax's flag, `graphax/blocks/common.py:116-131`); on a windowed
-        graph with a 2-D state, either forward within K5's gate (or under
-        squareplus, the plain twin's route); on a dense graph, an
-        evaluation forward.
     """
 
     graph: Graph
@@ -50,7 +43,6 @@ class FuncState:
     dense: torch.Tensor | None = None
     mask: torch.Tensor | None = None
     pinned: bool = False
-    fast_attention: bool = False
 
 
 def init_alpha_beta(module: nn.Module) -> None:

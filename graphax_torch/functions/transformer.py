@@ -13,34 +13,36 @@
   covers the config, else through the plain per-edge path with autograd.
 - `TransformerFunction`, the twin of `make_transformer` (:259-314), and
   `transformer_rhs`, its RHS as a function of its tensors (the adjoint
-  hands it detached copies). Its routes, as graphax's dispatch
-  (:270-313), through :func:`attention_ax`:
-  - the dense strategy's evaluation through `dense_rhs_ax` (:201-243), the
-    masked flash kernel (K6, `graphax_torch.kernels.flash_dense`) on the
-    card where graphax's gate holds, else the materialised
-    `dense_transformer_attention`;
-  - the windowed strategy (row normalisation): softmax through the
+  hands it detached copies). :func:`attention_ax` takes graphax's dispatch
+  (:270-311) on the route :func:`attention_route` names from the config,
+  the graph and the state's width, in evaluation and training alike:
+  - a dense graph within ``use_dense_attention``'s guard: `dense_rhs_ax`
+    (:201-243), the masked flash kernel (K6,
+    `graphax_torch.kernels.flash_dense`) on the card where graphax's gate
+    holds, else the materialised `dense_transformer_attention`; its
+    gradient the materialised route's, as graphax differentiates it on
+    every backend but the TPU (K6 serves the evaluations without one);
+  - the windowed strategy with row normalisation: softmax through the
     windowed attention kernel K5 and the three-kernel form on the residual
     (`graphax_torch.kernels.winatt`), its gradient the replay of the plain
     twin of graphax's `windowed_attention_ax`
-    (`graphax_torch.kernels.windowed_attention`); squareplus through that
-    twin itself, as graphax takes its XLA function there;
-  - the sparse strategy with column normalisation: the three-kernel form
-    with the column denominators (`graphax_torch.kernels.attention3`), its
-    gradient the replay of the plain per-edge path;
-  - the sparse strategy with row normalisation through
-    `graphax_torch.kernels.fused_attention.fused_attention_ax`: the flash
-    kernels for an evaluation, the training kernels (forward with
-    residuals, row-side and column-side backward) where a gradient is
-    needed.
+    (`graphax_torch.kernels.windowed_attention`); squareplus, and shapes
+    past K5's gate, through that twin itself;
+  - column normalisation on any other graph (the windowed graph's and a
+    dense graph's CSR and CSC too): the three-kernel form with the column
+    denominators (`graphax_torch.kernels.attention3`), its gradient the
+    replay of the plain per-edge path;
+  - row normalisation over CSR: the configs of the hand-written backward
+    through `graphax_torch.kernels.fused_attention.fused_attention_ax`
+    (the flash kernels without a gradient, the training kernels with
+    one); the others' flash forward with the per-edge path's gradient
+    replayed (graphax's XLA `fused_attention_ax` autodiff);
+  - everything past the kernels' gates, and mix_features: the plain
+    per-edge path with autograd, graphax's own route there.
 
-The Q and K projections are dense matmuls here, as graphax leaves them to
-XLA. Not ported yet, and raising: row-normalised training on CSR outside
-the hand-written backward (graphax's XLA fused_attention_ax autodiff),
-column normalisation on the windowed strategy, training on the dense
-strategy (below K6's gate the materialised route, ROADMAP Queue 1 item 3b;
-above it graphax has no gradient through K6), and Beltrami, mix_features
-and multi_modal (ROADMAP Queue 1 M6/M9, Queue 3)."""
+The Q, K and V projections are dense matmuls here, as graphax leaves them
+to XLA. Not ported yet, and raising: Beltrami (ROADMAP Queue 1, item 9)
+and multi_modal (item 10)."""
 
 from __future__ import annotations
 
@@ -60,15 +62,19 @@ from graphax_torch.kernels.attention3 import (
     ReplayAttention, colnorm_attention_ax_fast, colnorm_supported,
 )
 from graphax_torch.kernels.dispatch import (
-    attention_spmm_auto, segment_softmax_auto, squareplus_auto,
+    attention_spmm_auto, segment_softmax_auto, spmm_multihead_auto,
+    squareplus_auto,
 )
 from graphax_torch.kernels.flash_dense import flash_attention_multihead
 from graphax_torch.kernels.fused_attention import (
-    COS_EPS, flash_supported, fused_attention_ax, prep_inputs,
+    COS_EPS, flash_attention_ax, flash_supported, fused_attention_ax,
+    prep_inputs, train_supported,
 )
 from graphax_torch.kernels.windowed_attention import \
     windowed_attention_ax_plain
-from graphax_torch.kernels.winatt import windowed_attention_ax_fast
+from graphax_torch.kernels.winatt import (
+    windowed_attention_ax_fast, winatt_supported,
+)
 from graphax_torch.utils.params import linear_apply, linear_init
 
 
@@ -79,8 +85,9 @@ class TransformerAttention(nn.Module):
     def __init__(self, cfg, in_dim: int):
         super().__init__()
         if cfg.beltrami:
-            raise NotImplementedError("Beltrami attention is not ported yet "
-                                      "(ROADMAP Queue 1, M6)")
+            raise NotImplementedError(
+                "Beltrami attention is not ported yet: it reads the DeepWalk "
+                "positional encodings (ROADMAP Queue 1, item 9)")
         att = cfg.attention_dim
         self.cfg = cfg
         self.Q = nn.Linear(in_dim, att)
@@ -146,6 +153,9 @@ def attention_edge_means(att: TransformerAttention, cfg, graph, x, *,
 # the plain per-edge path
 # ----------------------------------------------------------------------
 
+_MULTI_MODAL = ("multimodal cross-attention is not ported yet (ROADMAP Queue "
+                "1, item 10: M9)")
+
 def _split_heads(z, heads: int):
     """``[N, A] -> [N, H, A / H]``, head-major (`:78-82`)."""
     return z.reshape(z.shape[0], heads, z.shape[1] // heads)
@@ -179,8 +189,7 @@ def edge_attention(att, cfg, graph, x):
     (``attention_norm_idx=0``) or column, the raw scores ``[E_pad, H]``):
     the part of `transformer_attention_apply` that reads only Q and K."""
     if cfg.multi_modal:
-        raise NotImplementedError("multimodal cross-attention is not ported "
-                                  "yet (ROADMAP Queue 1, M9)")
+        raise NotImplementedError(_MULTI_MODAL)
     heads = cfg.heads
     q = _split_heads(linear_apply(att.Q, x), heads)
     k = _split_heads(linear_apply(att.K, x), heads)
@@ -207,11 +216,13 @@ def transformer_attention_apply(att: TransformerAttention, cfg, graph, x):
 
 def multiply_attention(att: TransformerAttention, cfg, graph, x, attention,
                        v):
-    """`ODEFuncTransformerAtt.multiply_attention` without mix_features:
-    ``A x`` with the head-mean attention as A's values."""
+    """`ODEFuncTransformerAtt.multiply_attention` (graphax :192-198): ``A
+    x`` with the head-mean attention as A's values; under mix_features
+    each head's ``A_h v_h``, their mean over heads through Wout."""
     if cfg.mix_features:
-        raise NotImplementedError("mix_features is not ported yet (ROADMAP "
-                                  "Queue 1, M6)")
+        vx = spmm_multihead_auto(graph, attention * graph.edge_mask[:, None],
+                                 v).mean(1)                      # [N, Dh]
+        return linear_apply(att.Wout, vx)
     return attention_spmm_auto(graph, attention, x, mask=graph.edge_mask)
 
 
@@ -219,24 +230,24 @@ def multiply_attention(att: TransformerAttention, cfg, graph, x, attention,
 # the RHS
 # ----------------------------------------------------------------------
 
-_UNPORTED_RHS = "GRAND-nl {}: not ported yet (ROADMAP {})"
-
-
 class _Linear(NamedTuple):
     weight: torch.Tensor
     bias: torch.Tensor
 
 
 class _Att(NamedTuple):
-    """The attention layer's Q and K (and exp_kernel's output_var and
-    lengthscale) as plain tensors, for the routes of :func:`attention_ax`.
+    """The attention layer's tensors that the RHS reads, as plain tensors,
+    for the routes of :func:`attention_ax`: Q and K, exp_kernel's
+    output_var and lengthscale, and under mix_features V and Wout.
     :meth:`flatten` and :meth:`from_flat` hold their one flat layout, that
     of the adjoint's tensors and of :class:`ReplayAttention`'s: ``(Wq, bq,
-    Wk, bk[, output_var, lengthscale])``."""
+    Wk, bk[, output_var, lengthscale][, Wv, bv, Wout, bout])``."""
     Q: _Linear
     K: _Linear
     output_var: torch.Tensor | None = None
     lengthscale: torch.Tensor | None = None
+    V: _Linear | None = None
+    Wout: _Linear | None = None
 
     @staticmethod
     def flatten(cfg, att) -> tuple:
@@ -245,16 +256,22 @@ class _Att(NamedTuple):
         out = (att.Q.weight, att.Q.bias, att.K.weight, att.K.bias)
         if cfg.attention_type == "exp_kernel":
             out += (att.output_var, att.lengthscale)
+        if cfg.mix_features:
+            out += (att.V.weight, att.V.bias, att.Wout.weight, att.Wout.bias)
         return out
 
     @classmethod
     def from_flat(cls, cfg, flat) -> tuple:
         """(the `_Att` at the front of ``flat``, the tensors after it)."""
         qw, qb, kw, kb, *rest = flat
-        ov = ls = None
+        ov = ls = v = wout = None
         if cfg.attention_type == "exp_kernel":
             ov, ls, *rest = rest
-        return cls(_Linear(qw, qb), _Linear(kw, kb), ov, ls), tuple(rest)
+        if cfg.mix_features:
+            vw, vb, ow, ob, *rest = rest
+            v, wout = _Linear(vw, vb), _Linear(ow, ob)
+        return (cls(_Linear(qw, qb), _Linear(kw, kb), ov, ls, v, wout),
+                tuple(rest))
 
 
 def flash_dense_gate(cfg, n: int) -> bool:
@@ -275,8 +292,9 @@ def dense_rhs_ax(att: TransformerAttention, cfg, graph, x, mask=None,
     :func:`flash_dense_gate`), the masked flash kernel per head on q
     pre-scaled by ``1 / sqrt(dk)`` (computed in x's dtype, as graphax), then
     the head mean in f32; else the materialised ``[H, N, N]`` attention's
-    head mean times x, f32 sums. ``mask`` is the graph's adjacency mask if
-    the caller has it."""
+    head mean times x, f32 sums, or under mix_features its heads times v's
+    (f32 sums, the head mean in x's dtype) through Wout. ``mask`` is the
+    graph's adjacency mask if the caller has it."""
     q = _split_heads(linear_apply(att.Q, x), cfg.heads)
     k = _split_heads(linear_apply(att.K, x), cfg.heads)
     if use_flash is None:
@@ -289,27 +307,46 @@ def dense_rhs_ax(att: TransformerAttention, cfg, graph, x, mask=None,
         out = flash_attention_multihead(q * scale, k, x, mask)  # [H, N, D]
         return out.float().mean(0).to(x.dtype)
     att_w, _ = dense_transformer_attention(att, cfg, graph, q, k, mask=mask)
+    if cfg.mix_features:
+        v = _split_heads(linear_apply(att.V, x), cfg.heads).transpose(0, 1)
+        vx = torch.einsum("hnm,hmd->hnd", att_w.float(), v.float())
+        return linear_apply(att.Wout, vx.mean(0).to(x.dtype))
     return dense_matmul(att_w.mean(0), x)
 
 
-def colnorm_ax_plain(cfg, att, graph, x):
-    """``A(x) x`` under column normalisation through the plain per-edge
-    path (`edge_attention` + `multiply_attention`): the replay of the
-    column route's gradient."""
+def _dense_ax(cfg, att, graph, x, mask):
+    return dense_rhs_ax(att, cfg, graph, x, mask=mask)
+
+
+def _dense_ax_plain(cfg, att, graph, x, mask):
+    return dense_rhs_ax(att, cfg, graph, x, mask=mask, use_flash=False)
+
+
+def edge_ax_plain(cfg, att, graph, x):
+    """``A(x) x`` through the plain per-edge path (`edge_attention` +
+    `multiply_attention`, v under mix_features), with autograd: graphax's
+    route past the kernels' gates, and the replay behind the gradient of
+    the column route and of the CSR flash forward."""
     attention, _ = edge_attention(att, cfg, graph, x)
-    return multiply_attention(att, cfg, graph, x, attention, None)
+    v = _split_heads(linear_apply(att.V, x), cfg.heads) \
+        if cfg.mix_features else None
+    return multiply_attention(att, cfg, graph, x, attention, v)
 
 
-def _replayed(cfg, att, graph, x, fast, plain, **tensor_kw) -> torch.Tensor:
+def _replayed(cfg, att, graph, x, fast, plain, replay=True,
+              **tensor_kw) -> torch.Tensor:
     """``fast(cfg, att, graph, x, **tensor_kw)`` when no gradient is
     needed, else the same through :class:`ReplayAttention`, whose backward
-    replays ``plain``'s vjp with respect to x, Q, K (and exp_kernel's two
-    scalars) and the tensors of ``tensor_kw`` (the windowed reweight's
-    dense weights)."""
+    replays ``plain``'s vjp with respect to x, the `_Att` tensors and the
+    tensors of ``tensor_kw`` (the windowed reweight's dense weights, the
+    dense graph's mask); without ``replay``, ``plain`` itself with
+    autograd."""
     tensors = (x, *_Att.flatten(cfg, att), *tensor_kw.values())
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in tensors)):
         return fast(cfg, att, graph, x, **tensor_kw)
+    if not replay:
+        return plain(cfg, att, graph, x, **tensor_kw)
 
     def bind(fn):
         def call(x, *flat):
@@ -320,34 +357,71 @@ def _replayed(cfg, att, graph, x, fast, plain, **tensor_kw) -> torch.Tensor:
     return ReplayAttention.apply(bind(fast), bind(plain), *tensors)
 
 
-def attention_ax(cfg, att, graph, x, dense=None) -> torch.Tensor:
-    """``A(x) x`` of the GRAND-nl RHS on a sparse or windowed graph, in x's
-    dtype, by graphax's dispatch (:281-306): on the windowed strategy K5's
-    route (softmax) or the plain twin (squareplus); on the sparse strategy
-    the column route (``attention_norm_idx=1``) or `fused_attention_ax`.
-    ``dense``: the windowed graph's ``[T, tile, W]`` densified weights
-    (reweight only)."""
-    if graph.strategy == "windowed":
-        if cfg.square_plus:
-            return windowed_attention_ax_plain(cfg, att, graph, x, dense)
+def attention_route(cfg, graph, d: int) -> str:
+    """The route of :func:`attention_ax` for ``cfg`` on ``graph`` with a
+    ``[N, d]`` state, graphax's dispatch (:276-311) with the port's kernel
+    gates: ``"dense"``, ``"windowed"`` (K5's route), ``"windowed_plain"``
+    (the windowed twin with autograd), ``"column"`` (the three-kernel
+    column route), ``"flash"`` (the flash kernels, the hand-written
+    backward), ``"flash_replay"`` (the flash kernels, the per-edge path's
+    gradient replayed) or ``"edge"`` (the per-edge path with autograd)."""
+    if use_dense_attention(graph, cfg.heads):
+        return "dense"
+    row_norm = cfg.attention_norm_idx == 0
+    if graph.strategy == "windowed" and row_norm and not cfg.mix_features:
+        return "windowed" if winatt_supported(cfg, d) else "windowed_plain"
+    if not row_norm:
+        return "column" if colnorm_supported(cfg, d) else "edge"
+    if not flash_supported(cfg, d):
+        return "edge"
+    return "flash" if train_supported(cfg, d) else "flash_replay"
+
+
+def attention_ax(cfg, att, graph, x, dense=None, mask=None, *,
+                 vjp_now: bool = False) -> torch.Tensor:
+    """``A(x) x`` of the GRAND-nl RHS, in x's dtype, on the route of
+    :func:`attention_route`. ``dense``: the windowed graph's ``[T, tile,
+    W]`` densified weights (K5's route under reweight); ``mask``: a dense
+    graph's adjacency mask, if the caller has it. ``vjp_now``: the caller
+    takes the vjp at once (the adjoint's backward), so the dense route
+    differentiates its materialised route directly rather than computing
+    the value first (K6 included) and replaying it; the kernel routes keep
+    their backward, as graphax's custom VJPs run their forward there
+    too."""
+    route = attention_route(cfg, graph, x.shape[1])
+    if route == "dense":
+        if mask is None:
+            mask = dense_adjacency_mask(graph)
+        return _replayed(cfg, att, graph, x, _dense_ax, _dense_ax_plain,
+                         replay=not vjp_now, mask=mask)
+    if route == "windowed":
         kw = {} if dense is None else {"dense_weight": dense}
         return _replayed(cfg, att, graph, x, windowed_attention_ax_fast,
                          windowed_attention_ax_plain, **kw)
-    if cfg.attention_norm_idx != 0:
+    if route == "windowed_plain":
+        return windowed_attention_ax_plain(cfg, att, graph, x, dense)
+    if route == "column":
         return _replayed(cfg, att, graph, x, colnorm_attention_ax_fast,
-                         colnorm_ax_plain)
-    return fused_attention_ax(cfg, att, graph, x)
+                         edge_ax_plain)
+    if route == "flash":
+        return fused_attention_ax(cfg, att, graph, x)
+    if route == "flash_replay":
+        return _replayed(cfg, att, graph, x, flash_attention_ax,
+                         edge_ax_plain)
+    return edge_ax_plain(cfg, att, graph, x)
 
 
-def transformer_rhs(cfg, graph, p, x):
+def transformer_rhs(cfg, graph, p, x, mask=None):
     """``alpha (A(x) x - x) [+ beta x0]`` as a function of its tensors ``p
-    = (alpha, beta, x0, Wq, bq, Wk, bk[, output_var, lengthscale][,
-    dense])``: the Q/K weights (``[A, D]``, ``[A]``), exp_kernel's two
+    = (alpha, beta, x0, <the `_Att` flat layout>[, dense])``: the Q/K (and
+    under mix_features V/Wout) weights and biases, exp_kernel's two
     scalars, and the windowed graph's densified weights under reweight (the
-    adjoint differentiates it with respect to each)."""
+    adjoint differentiates it with respect to each); ``mask``, a dense
+    graph's adjacency mask."""
     alpha, beta, x0, *flat = p
     att, rest = _Att.from_flat(cfg, flat)
-    ax = attention_ax(cfg, att, graph, x, rest[0] if rest else None)
+    ax = attention_ax(cfg, att, graph, x, rest[0] if rest else None, mask,
+                      vjp_now=True)
     return apply_alpha_beta(cfg, alpha, beta, ax, x, x0)
 
 
@@ -360,9 +434,8 @@ class TransformerFunction(nn.Module):
 
     def __init__(self, cfg, in_dim: int):
         super().__init__()
-        if cfg.mix_features or cfg.multi_modal:
-            raise NotImplementedError("mix_features and multi_modal are not "
-                                      "ported yet (ROADMAP Queue 1, M6/M9)")
+        if cfg.multi_modal:
+            raise NotImplementedError(_MULTI_MODAL)
         self.cfg = cfg
         init_alpha_beta(self)
         self.att = TransformerAttention(cfg, in_dim)
@@ -374,76 +447,10 @@ class TransformerFunction(nn.Module):
 
     def adjoint_tensors(self) -> tuple:
         """The attention tensors `transformer_rhs` reads after alpha, beta
-        and x0: Q's and K's weights and biases, and exp_kernel's
-        output_var and lengthscale."""
+        and x0, in the `_Att` flat layout."""
         return _Att.flatten(self.cfg, self.att)
 
-    def check_route(self, fstate, x) -> None:
-        """Raise on the routes of graphax's dispatch (`:270-313`) that the
-        port has not ported. Ported: the dense strategy's evaluation within
-        ``use_dense_attention``'s guard; the windowed strategy with row
-        normalisation (K5's route, or the plain twin under squareplus); the
-        sparse strategy with ``fast_attention`` (set for evaluation, and
-        for training where the hand-written backward covers the config or
-        the column route serves it)."""
-        cfg = self.cfg
-        g = fstate.graph
-        if g.strategy == "dense":
-            if not fstate.fast_attention:
-                raise NotImplementedError(
-                    "GRAND-nl training on the dense strategy: below K6's "
-                    "gate through the differentiable materialised "
-                    "attention (ROADMAP Queue 1, item 3b); above it graphax "
-                    "has no gradient through its dense flash kernel K6 "
-                    "(ROADMAP Queue 3, 'GRAND-nl training above K6's "
-                    "gate')")
-            if not use_dense_attention(g, cfg.heads):
-                raise NotImplementedError(
-                    "GRAND-nl on a dense graph beyond use_dense_attention's "
-                    "memory guard (graphax's per-edge XLA route): not ported "
-                    "yet (ROADMAP Queue 1, item 6)")
-            return
-        if g.strategy == "windowed":
-            if cfg.attention_norm_idx != 0:
-                raise NotImplementedError(_UNPORTED_RHS.format(
-                    "with column normalisation on the windowed strategy "
-                    "(graphax leaves the windowed layout for its tiled "
-                    "fused path there)", "Queue 3, 'windowed GRAND-nl with "
-                    "column normalisation'"))
-            if not fstate.fast_attention:
-                raise NotImplementedError(_UNPORTED_RHS.format(
-                    "on the windowed strategy beyond the windowed attention "
-                    "kernel's gate (winatt_supported: the four score types, "
-                    "a 2-D state, shared memory for D and A)",
-                    "Queue 1, item 6"))
-            return
-        if not fstate.fast_attention:
-            raise NotImplementedError(_UNPORTED_RHS.format(
-                "training outside the hand-written backward's configs "
-                "(scaled_dot, row softmax, no squareplus, no reweight; "
-                "graphax's XLA fused_attention_ax autodiff)",
-                "Queue 1, item 6"))
-        if cfg.attention_norm_idx != 0:
-            if not colnorm_supported(cfg, x.shape[1]):
-                raise NotImplementedError(
-                    "GRAND-nl with column normalisation beyond the column "
-                    "route's gate (colnorm_supported: shared memory for D "
-                    "and A): not ported yet (ROADMAP Queue 1, item 6)")
-            return
-        if not flash_supported(cfg, x.shape[1]):
-            raise NotImplementedError(
-                "GRAND-nl beyond the flash kernels' gate (flash_supported: "
-                "shared memory for D and A): not ported yet (ROADMAP Queue "
-                "1, item 6)")
-
     def rhs(self, alpha, beta, fstate, t, x):
-        """graphax's dense route on a dense graph (:277-279), evaluation
-        only; else :func:`attention_ax`'s routes; every other route
-        raises."""
-        self.check_route(fstate, x)
-        g = fstate.graph
-        if g.strategy == "dense":
-            ax = dense_rhs_ax(self.att, self.cfg, g, x, mask=fstate.mask)
-        else:
-            ax = attention_ax(self.cfg, self.att, g, x, fstate.dense)
+        ax = attention_ax(self.cfg, self.att, fstate.graph, x, fstate.dense,
+                          fstate.mask)
         return apply_alpha_beta(self.cfg, alpha, beta, ax, x, fstate.x0)

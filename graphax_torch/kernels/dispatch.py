@@ -1,6 +1,6 @@
 """Attaching the windowed layout to a graph (port of `attach_windows`,
 `graphax/kernels/dispatch.py:65-87`), and the per-edge attention ops of the
-plain transformer path (`:98-136`).
+plain transformer path (`:98-143`).
 
 graphax routes its segment softmax, squareplus and attention SpMM between
 XLA segment ops and one-hot reductions over its TPU row tiles; neither is a
@@ -48,3 +48,10 @@ def attention_spmm_auto(graph, attention, x, mask=None):
     if mask is not None:
         mean_att = torch.where(mask, mean_att, torch.zeros_like(mean_att))
     return ops.spmm(graph.row, graph.col, mean_att, x, graph.num_nodes)
+
+
+def spmm_multihead_auto(graph, attention, v):
+    """``[N, H, Dh]``: each head's ``A_h v_h`` with ``attention [E_pad, H]``
+    as the heads' values (0 on padding)."""
+    return ops.spmm_multihead(graph.row, graph.col, attention, v,
+                              graph.num_nodes)

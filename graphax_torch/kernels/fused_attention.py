@@ -49,9 +49,12 @@ Training (scaled_dot, row softmax, no squareplus or reweight:
 - ``attention_bwd_rows``: B1 + B2 per CSR row, dq̃ and rho;
 - ``attention_bwd_cols``: B3 per CSC column, dk and the value term dxv.
 
-:func:`fused_attention_ax` is the one entry: flash when no gradient is
-needed, else the autograd Functions around the training kernels. Those
-kernels are not differentiable themselves. The wrappers take CUDA tensors
+:func:`fused_attention_ax` is the entry of the configs the training
+kernels cover: flash when no gradient is needed, else the autograd
+Functions around the training kernels. The other row-normalised configs
+take :func:`flash_attention_ax` with the per-edge path's gradient replayed
+(`graphax_torch.functions.transformer.attention_ax`). No kernel is
+differentiable itself. The wrappers take CUDA tensors
 to their kernels and CPU tensors to the plain versions and count their
 launches in ``_build.LAUNCHES``."""
 
@@ -981,11 +984,10 @@ def fused_attention_ax(cfg, att, graph, x: torch.Tensor) -> torch.Tensor:
             and (x.requires_grad or any(t.requires_grad for t in lin))):
         return flash_attention_ax(cfg, att, graph, x)
     if not train_supported(cfg, x.shape[1]):
-        raise NotImplementedError(
-            "GRAND-nl gradients outside the hand-written backward's configs "
-            "(scaled_dot, row softmax, no squareplus, no reweight): graphax "
-            "takes them through its XLA fused_attention_ax autodiff (ROADMAP "
-            "Queue 1, item 6)")
+        raise ValueError(
+            "fused_attention_ax: gradients only for the hand-written "
+            "backward's configs (train_supported); attention_ax routes the "
+            "others")
     x = x.contiguous()
     kt = _KProj.apply(x, att.K.weight, att.K.bias)
     return _TrainAttention.apply(_query(cfg, att, x), x, kt, graph,

@@ -25,8 +25,9 @@ class GNN(nn.Module):
     def __init__(self, cfg, num_features: int, num_classes: int):
         super().__init__()
         if cfg.beltrami or cfg.use_labels:
-            raise NotImplementedError("Beltrami and the label trick are not "
-                                      "ported yet (ROADMAP Queue 1, M6)")
+            raise NotImplementedError(
+                "Beltrami (DeepWalk's positional encodings, ROADMAP Queue 1, "
+                "item 9) and the label trick (item 5) are not ported yet")
         self.cfg = cfg
         self.num_classes = num_classes
         self.state_dim = cfg.state_dim(num_features, num_classes)

@@ -72,6 +72,14 @@ def spmm(row, col, weight, x, num_nodes: int):
     return segment_sum(gathered, row, num_nodes)
 
 
+def spmm_multihead(row, col, att, v, num_nodes: int):
+    """Per-head SpMM: ``att [E, H]``, ``v [N, H, Dh] -> [N, H, Dh]``, the
+    mix_features path of the reference's `multiply_attention`; padded edges
+    must carry weight 0."""
+    gathered = v[col] * att[:, :, None]
+    return segment_sum(gathered, row, num_nodes)
+
+
 def sddmm_dot(row, col, q, k):
     """Per-edge per-head dot products: ``q, k [N, H, Dh] -> [E, H]``."""
     return (q[row] * k[col]).sum(-1)

@@ -54,9 +54,8 @@ from graphax.train import Config as GxConfig
 from graphax.train.loop import Trainer as GxTrainer
 
 from graphax_torch import Trainer, make_sbm_dataset
-from graphax_torch.blocks.common import make_fstate
 from graphax_torch.functions.transformer import (
-    TransformerAttention, attention_ax,
+    TransformerAttention, attention_ax, attention_route,
 )
 from graphax_torch.kernels import attention3 as a3
 from graphax_torch.kernels import fused_attention as fa
@@ -295,12 +294,24 @@ def test_column_route_gradients_match_graphax(att_type, square_plus,
     assert att.V.weight.grad is None and att.Wout.weight.grad is None
 
 
-def test_column_route_is_fast_in_training_too():
+def test_column_route_is_fast_in_training_too(monkeypatch):
+    """The column route (its kernels forward, the replay backward) serves
+    evaluation and training alike: one RHS with and without a gradient
+    runs attention_attspmm once."""
     _, pt = make_graphs()
-    _, cfg = _cfgs()
-    x = torch.randn(pt.num_nodes, 6)
-    for train in (False, True):
-        assert make_fstate(pt, x, train=train, cfg=cfg).fast_attention
+    gcfg, cfg = _cfgs()
+    assert attention_route(cfg, pt, 6) == "column"
+    _, att = random_attention(gcfg, cfg, 6)
+    calls = []
+    real = fa.attention_attspmm
+    monkeypatch.setattr(fa, "attention_attspmm",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    for grad in (False, True):
+        x = torch.randn(pt.num_nodes, 6, requires_grad=grad)
+        calls.clear()
+        with torch.set_grad_enabled(grad):
+            out = attention_ax(cfg, att, pt, x)
+        assert len(calls) == 1 and out.requires_grad == grad
 
 
 # ----------------------------------------------------------------------

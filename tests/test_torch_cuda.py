@@ -854,7 +854,7 @@ def test_cuda_replay_functions_match_autograd_through_plain_twins(cuda,
     launched once; the windowed replay launches win_matmul, win_bwd_dense
     and win_bwd_slab once each."""
     from graphax_torch.functions.transformer import (
-        TransformerAttention, attention_ax, colnorm_ax_plain,
+        TransformerAttention, attention_ax, edge_ax_plain,
     )
     from graphax_torch.kernels import LAUNCHES
     from graphax_torch.kernels.windowed_attention import \
@@ -873,7 +873,7 @@ def test_cuda_replay_functions_match_autograd_through_plain_twins(cuda,
         g = _cuda_graph(cuda, seed=11)
         cfg = Config(function="transformer", heads=2, attention_dim=32,
                      hidden_dim=162, attention_norm_idx=1)
-        plain = colnorm_ax_plain
+        plain = edge_ax_plain
         launched = {"attention_kproj": 1, "attention_gmax": 1,
                     "attention_norm": 1, "attention_attspmm": 1}
     gen = torch.Generator().manual_seed(12)
@@ -897,6 +897,110 @@ def test_cuda_replay_functions_match_autograd_through_plain_twins(cuda,
                                  want, scale):
         torch.testing.assert_close(a_, b_, rtol=2e-4, atol=1e-4 * sc_,
                                    msg=name)
+
+
+# GRAND-nl's training routes outside the hand-written backward: (the
+# graph's maker, its strategy, the config's overrides, the route, the
+# kernels its forward launches once)
+NL_ROUTES = {
+    "dense_k6": ("cuda", "dense", {}, "dense", {"flash_dense": 1}),
+    "dense_k6_vjp_now": ("cuda", "dense", {}, "dense", {}),
+    "csr_squareplus": ("cuda", "sparse", dict(square_plus=True),
+                       "flash_replay", {"attention_kproj": 1,
+                                        "attention_gmax": 1,
+                                        "flash_attention": 1}),
+    "csr_cosine_reweight": ("cuda", "sparse",
+                            dict(attention_type="cosine_sim",
+                                 reweight_attention=True),
+                            "flash_replay", {"attention_kproj": 1,
+                                             "flash_attention": 1}),
+    "windowed_column": ("community", "windowed",
+                        dict(attention_norm_idx=1), "column",
+                        {"attention_kproj": 1, "attention_gmax": 1,
+                         "attention_norm": 1, "attention_attspmm": 1}),
+    "dense_past_guard_column": ("cuda", "dense",
+                                dict(attention_norm_idx=1, square_plus=True),
+                                "column",
+                                {"attention_kproj": 1, "attention_gmax": 1,
+                                 "attention_norm": 1,
+                                 "attention_attspmm": 1}),
+    "mix_features": ("cuda", "sparse", dict(mix_features=True), "edge", {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NL_ROUTES))
+def test_cuda_grand_nl_training_routes_match_cpu(cuda, monkeypatch, name):
+    """GRAND-nl's RHS with a gradient on the card against the same route on
+    the CPU (the kernels' plain versions), f32, from the same weights: out
+    and the gradients of x and every attention tensor at the training
+    route's tolerance (2e-4 relative plus 1e-4 of the largest entry of
+    its kind), under squareplus plus its cancellation's bound (below).
+    The dense route's forward runs K6 (its gate forced at this size) and
+    its backward the materialised route's vjp; with ``vjp_now`` (the
+    adjoint's backward) only the materialised route runs. Past the dense
+    guard (forced) a dense graph takes the column route over its CSR and
+    CSC.
+
+    Squareplus's weight (z + sqrt(z^2 + 4)) / 2, z the score less the
+    global max, cancels for z << 0 (ROADMAP Queue 3): scores that differ
+    in their last bits (sums in another order on each device) move each
+    side's rounding of the weight by up to 2u sqrt(z^2 + 4), u = 2^-24,
+    and so every output and gradient by up to ``sp`` = max over the edges
+    of 2u sqrt(z^2 + 4) / w relative (4.5e-4 here, at z = -61); its
+    derivative cancels alike."""
+    import dataclasses
+
+    from graphax_torch.functions import transformer as tf
+    from graphax_torch.kernels import LAUNCHES
+    from graphax_torch.train import Config
+
+    maker, strategy, over, route, launched = NL_ROUTES[name]
+    if name.startswith("dense_k6"):
+        monkeypatch.setattr(tf, "flash_dense_gate", lambda *a: True)
+    if name == "dense_past_guard_column":
+        monkeypatch.setattr(tf, "use_dense_attention", lambda *a: False)
+    cfg = Config(function="transformer", heads=2, attention_dim=32,
+                 hidden_dim=64, **over)
+    got, sp = {}, 0.0
+    for dev in (cuda, torch.device("cpu")):
+        g = _community_graph(dev, seed=3) if maker == "community" \
+            else _cuda_graph(dev, seed=11)
+        g = dataclasses.replace(g, strategy=strategy)
+        assert tf.attention_route(cfg, g, 64) == route
+        gen = torch.Generator().manual_seed(12)
+        att = tf.TransformerAttention(cfg, 64)
+        with torch.no_grad():
+            for lin in (att.Q, att.K, att.V, att.Wout):
+                lin.weight.copy_(0.3 * torch.randn(lin.weight.shape,
+                                                   generator=gen))
+                lin.bias.copy_(0.1 * torch.randn(lin.bias.shape,
+                                                 generator=gen))
+        att = att.to(dev)
+        x = torch.randn(g.num_nodes, 64, generator=gen).to(dev)
+        probe = torch.randn(g.num_nodes, 64, generator=gen).to(dev)
+        params = tf._Att.flatten(cfg, att)
+        if cfg.square_plus and dev.type == "cpu":
+            with torch.no_grad():
+                s_ = tf.edge_attention(att, cfg, g, x)[1][:g.num_edges]
+            z = s_ - s_.max()
+            root = torch.sqrt(z * z + 4.0)
+            sp = float((2.0 ** -23 * root / ((z + root) / 2.0)).max())
+        LAUNCHES.clear()
+        got[dev.type] = _grads(
+            lambda xr: tf.attention_ax(cfg, att, g, xr,
+                                       vjp_now=name.endswith("vjp_now")),
+            x, params, probe)
+        if dev.type == "cuda":
+            assert dict(LAUNCHES) == launched, dict(LAUNCHES)
+    # a weight and its bias share a scale: a bias the function does not
+    # see (K's under row softmax) has a gradient of rounding noise
+    top = [float(t.abs().max()) for t in got["cpu"]]
+    scale = top[:2] + [max(top[i & ~1], top[i | 1])
+                       for i in range(2, len(top))]
+    for i, (a_, b_) in enumerate(zip(got["cuda"], got["cpu"])):
+        torch.testing.assert_close(a_.cpu(), b_, rtol=2e-4 + sp,
+                                   atol=(1e-4 + sp) * scale[i],
+                                   msg=f"{name}: tensor {i} (sp {sp})")
 
 
 # ----------------------------------------------------------------------

@@ -24,7 +24,8 @@ weights through `load_graphax_params`:
   2e-4 / 2e-5, bf16 2e-2 / 2e-2 (the K6 route divides the summed products
   by max(l, 1e-16) where the materialised one divides each weight by its
   denominator + 1e-16, and takes a running max where it takes the row's);
-- a GRAND-nl dense evaluation: logits 1e-4 with equal NFE."""
+- a GRAND-nl dense evaluation: logits 1e-4 with equal NFE; then a train
+  step: loss 1e-4 relative, NFE equal."""
 
 import dataclasses
 
@@ -434,5 +435,10 @@ def test_grand_nl_dense_evaluation_matches_graphax():
     assert out.result.nfe == int(aux["nfe"]) > 8
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tr.train_step()
+    # a train step, which raised here before the dense route's gradient
+    # was ported: graphax's loss (1e-4 relative) and NFE
+    state, gx_loss = gtr.train_step(state)
+    loss = tr.train_step()
+    np.testing.assert_allclose(loss, float(gx_loss), rtol=1e-4)
+    assert (tr.fm.get_value(), tr.bm.get_value()) \
+        == (gtr.fm.get_value(), gtr.bm.get_value())

@@ -65,7 +65,8 @@ from graphax_torch.blocks.common import make_fstate
 from graphax_torch.functions import get_function
 from graphax_torch.functions.common import prepare_scalars
 from graphax_torch.functions.transformer import (
-    TransformerAttention, multiply_attention, transformer_attention_apply,
+    TransformerAttention, attention_route, multiply_attention,
+    transformer_attention_apply,
 )
 from graphax_torch.kernels import fused_attention as fa
 from graphax_torch.models import GNN
@@ -286,9 +287,10 @@ def test_rhs_matches_graphax_fast_route(monkeypatch, att_type, square_plus,
     func = get_function(cfg, d)
     load_graphax_params(func, jax.tree_util.tree_map(np.asarray, params))
     xt = torch.from_numpy(x)
+    assert attention_route(cfg, pt, d) == ("flash" if att_type == "scaled_dot"
+                                           else "flash_replay")
     with torch.no_grad():
         fst = make_fstate(pt, xt, train=False)
-        assert fst.fast_attention
         alpha, beta = prepare_scalars(func, cfg, xt.dtype)
         got = func.rhs(alpha, beta, fst, 0.0, xt)
     np.testing.assert_allclose(got.numpy(), _np(want), **F32)
@@ -500,9 +502,9 @@ def test_train_rhs_matches_graphax_train_route(monkeypatch):
     load_graphax_params(func, jax.tree_util.tree_map(np.asarray, params))
     xt = torch.from_numpy(x).requires_grad_(True)
     fst = make_fstate(pt, xt, train=True, cfg=cfg)
-    assert fst.fast_attention
-    assert not make_fstate(pt, xt, train=True,
-                           cfg=cfg.replace(square_plus=True)).fast_attention
+    assert attention_route(cfg, pt, d) == "flash"
+    assert attention_route(cfg.replace(square_plus=True), pt,
+                           d) == "flash_replay"
     alpha, beta = prepare_scalars(func, cfg, xt.dtype)
     got = func.rhs(alpha, beta, fst, 0.0, xt)
     (got * torch.from_numpy(probe)).sum().backward()
@@ -522,7 +524,7 @@ def test_train_rhs_matches_graphax_train_route(monkeypatch):
 
 
 # ----------------------------------------------------------------------
-# what raises
+# training, and what raises
 # ----------------------------------------------------------------------
 
 def _small_trainer(**over):
@@ -578,17 +580,34 @@ def test_training_steps(monkeypatch, adjoint):
 
 
 @pytest.mark.parametrize("adjoint", [False, True])
-def test_training_raises(adjoint):
+def test_training_raises(monkeypatch, adjoint):
     """Row-normalised training configs on CSR outside the hand-written
-    backward raise, naming their ROADMAP item; their evaluation runs.
-    Column normalisation trains (its route's backward replays the plain
-    per-edge path, as graphax's custom VJP does)."""
+    backward once raised here; they now train and match graphax's step
+    (with batch norm; tests/test_torch_grand_nl_train.py holds the rest),
+    through the flash kernel once per forward NFE, and once per adjoint
+    NFE under the adjoint (the replay's forward), with no training
+    kernel. Column normalisation trains (its route's backward replays
+    the plain per-edge path, as graphax's custom VJP does)."""
+    from test_torch_grand_nl_train import one_step
+
+    calls = {}
+    for name in ("flash_attention", "attention_fwd_res"):
+        real = getattr(fa, name)
+
+        def counting(*a, _real=real, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(fa, name, counting)
     for over in (dict(square_plus=True), dict(attention_type="cosine_sim"),
                  dict(reweight_attention=True)):
-        tr = _small_trainer(adjoint=adjoint, adjoint_method="rk4", **over)
-        assert all(0.0 <= a <= 1.0 for a in tr.evaluate())
-        with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-            tr.train_step()
+        calls.clear()
+        tr = one_step("sparse", "flash_replay", adjoint=adjoint,
+                      batch_norm=True, **over)
+        want = tr.fm.get_value() + (tr.bm.get_value() if adjoint else 0)
+        evals = calls.pop("flash_attention") - want
+        assert calls == {} and evals == (0 if adjoint
+                                         else tr.last_eval.nfe), calls
     tr = _train_trainer(adjoint, attention_norm_idx=1)
     losses = [tr.train_step() for _ in range(3)]
     assert all(np.isfinite(losses)) and losses[0] > losses[2]
@@ -628,18 +647,34 @@ def test_unported_eval_routes_raise(monkeypatch, over, err):
           attention_type="exp_kernel"), "Beltrami"),
 ])
 def test_still_unported_routes_raise(over, err):
-    """Column normalisation on the windowed strategy (graphax leaves that
-    layout for its tiled route) and Beltrami raise, naming their ROADMAP
-    item."""
-    with pytest.raises(NotImplementedError, match=err):
-        _small_trainer(**over).evaluate()
+    """Beltrami raises, naming its ROADMAP item. Column normalisation on
+    the windowed strategy (once ROADMAP Queue 3's open entry) now takes
+    the column route over the windowed graph's CSR and CSC, and trains to
+    graphax's step."""
+    if err == "Beltrami":
+        with pytest.raises(NotImplementedError, match=err):
+            _small_trainer(**over).evaluate()
+        return
+    from test_torch_grand_nl_train import one_step
+
+    tr = one_step("sparse", "column", batch_norm=True, **over)
+    assert tr.data.graph.strategy == "windowed"
 
 
 @pytest.mark.parametrize("over", [dict(mix_features=True),
                                   dict(multi_modal=True)])
 def test_unported_transformer_options_raise(over):
-    with pytest.raises(NotImplementedError, match="M6"):
-        _small_trainer(**over)
+    """multi_modal raises, naming its ROADMAP item; mix_features (once
+    raising here) trains to graphax's step on CSR, V and Wout with their
+    gradients."""
+    if over.get("multi_modal"):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            _small_trainer(**over)
+        return
+    from test_torch_grand_nl_train import one_step
+
+    tr = one_step("sparse", "edge", batch_norm=True, **over)
+    assert float(tr.model.block.func.att.Wout.weight.grad.abs().max()) > 0
 
 
 def test_transplant_carries_the_transformer_tree():
