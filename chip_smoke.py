@@ -142,9 +142,22 @@ and prints no result):
    graph), the CSR flash with its replayed gradient (squareplus),
    mix_features and the dense route the same f32 logits and NFE, and over
    a train step the same loss, NFE and gradients; the Cora and Pubmed presets
-   at toy width, 3 train steps, the same losses, NFE and Q gradients.
+   at toy width, 3 train steps, the same losses, NFE and Q gradients;
+8. real_formats: Cora as Planetoid ``ind.*`` pickles (2,708 nodes),
+   Computers as the shchur npz (13,752) and ogbn-arxiv as its
+   ``processed_graphax.npz`` cache (169,343, OGB's time split), written
+   full-size to a temporary directory from a seed (the stand-in's SBM
+   recipe at the LCC's size plus components of 1-3 nodes), loaded by
+   ``get_dataset(best_config(ds), data_dir=..., synthetic_fallback=False)``
+   (parse, LCC and build seconds; the LCC must keep 2,485 and 13,381
+   nodes) and trained: Cora 2 epochs; Computers 3 epochs, then 2 with a
+   checkpoint and, on a fresh Trainer, resumed to 3 (epoch 3's NFE equal,
+   its loss within TOL_RESUME); ogbn-arxiv with ``use_labels=True`` (state
+   width 202) 2 epochs on the windowed layout, after the layout's kernels
+   at that width are held to their plain versions; every line with the
+   card's nvidia-smi line.
 
-Then the kernels line (launches summed over the paths of phase 5), the
+Then the kernels line (launches summed over the paths of phases 5 and 8), the
 card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Needs
 one card; builds everything from the checkout; needs no network."""
 
@@ -2338,7 +2351,8 @@ def phase_dense_kernels(trainer, results: dict) -> None:
 
 
 def phase_dense_fit(label: str, trainer, epochs: int,
-                    pin_per_epoch: int = 2) -> dict:
+                    pin_per_epoch: int = 2, out: dict = None,
+                    smi: str = None) -> dict:
     """``trainer.fit(epochs)`` of a dense-strategy preset with fit's
     defaults (the early-stop evaluation), its launches zeroed before and
     read after: per epoch the loss, seconds, NFE, backward NFE, the
@@ -2350,7 +2364,9 @@ def phase_dense_fit(label: str, trainer, epochs: int,
     rematerialised steps); and the pin kernel (attention_pin, with its K
     table by attention_kproj) launched ``pin_per_epoch`` times an epoch:
     twice for the hard block (its train and evaluation forwards), none for
-    a squareplus config (the per-edge route). Returns the launches."""
+    a squareplus config (the per-edge route). Returns the launches; the
+    fit's result goes to ``out["fit"]`` where ``out`` is given, and each
+    line carries ``smi`` (the card's nvidia-smi line) where it is given."""
     import torch
 
     from graphax_torch.kernels import _build
@@ -2383,7 +2399,7 @@ def phase_dense_fit(label: str, trainer, epochs: int,
     adjoint = trainer.cfg.adjoint
     for h, sv, bt, pk in zip(fit["history"], fit["solver"], early, peaks):
         emit({"phase": "slice", "path": label, **h, **sv, "best_time": bt,
-              "peak_mem_gib": pk})
+              "peak_mem_gib": pk, **({"nvidia_smi": smi} if smi else {})})
         check(math.isfinite(h["loss"]) and bool(sv["success"])
               and bool(sv["eval_success"]),
               f"{label} epoch {h['epoch']}: loss {h['loss']}, success "
@@ -2406,7 +2422,10 @@ def phase_dense_fit(label: str, trainer, epochs: int,
           "seconds": seconds, "epoch_seconds": times,
           "steady_epoch_seconds": min(times[1:]) if len(times) > 1
           else times[0], "launches": counts, "best": fit["best"],
-          "peak_mem_gib": max(peaks), "live_before_fit_gib": base})
+          "peak_mem_gib": max(peaks), "live_before_fit_gib": base,
+          **({"nvidia_smi": smi} if smi else {})})
+    if out is not None:
+        out["fit"] = fit
     return counts
 
 
@@ -2845,6 +2864,395 @@ def phase_reference(window: int = 0) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# 8. real_formats: full-size files in the datasets' own layouts
+# ----------------------------------------------------------------------
+
+# (nodes in the file, nodes in its largest connected component)
+REAL_SIZES = {"Cora": (2708, 2485), "Computers": (13_752, 13_381)}
+ARXIV_SPLIT = (90_941, 29_799, 48_603)    # OGB's time split
+# the resumed Computers run against the unbroken one at epoch 3: equal NFE,
+# the loss within this relative distance. Not 0: the hard block's
+# renormalisation sums each row's kept values by the plain index_add_,
+# whose f32 atomics add in no fixed order on the card, so two runs of one
+# step can differ in the last bits of the edge values (the CPU test holds
+# the two runs bit for bit)
+TOL_RESUME = 1e-4
+
+
+def sbm_with_strays(n_total: int, n_lcc: int, num_classes: int,
+                    num_features: int, seed: int):
+    """A graph of ``n_total`` nodes whose largest connected component holds
+    exactly ``n_lcc``: the stand-in's SBM recipe (`get_dataset`'s
+    fallback) at ``n_lcc`` nodes, each of its stray components joined to
+    its largest by one edge, and ``n_total - n_lcc`` more nodes in
+    components of 1, 2 and 3 nodes; node ids shuffled. Returns (row, col,
+    x float32, y, keep), ``keep`` the sorted ids of the component."""
+    import numpy as np
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from graphax_torch.data.synthetic import sbm_arrays
+
+    rng = np.random.RandomState(seed)
+    c, n = num_classes, n_lcc
+    noise = max(1.0, float(np.sqrt(num_features)) / 2.1)
+    row, col, x, y = sbm_arrays(rng, n, c, num_features,
+                                min(3.0 * c / n, 0.5),
+                                1.0 * c / (n * max(c - 1, 1)), noise)
+    _, lab = connected_components(
+        coo_matrix((np.ones(len(row)), (row, col)), shape=(n, n)),
+        directed=True, connection="weak")
+    big = np.bincount(lab).argmax()
+    main = np.flatnonzero(lab == big)
+    _, first = np.unique(lab, return_index=True)
+    first = first[lab[first] != big]
+    rows = [row, first]
+    cols = [col, main[rng.randint(0, len(main), len(first))]]
+    start, k = n, 0
+    while start < n_total:
+        size = min(1 + k % 3, n_total - start)
+        rows.append(np.arange(start, start + size - 1))
+        cols.append(np.arange(start + 1, start + size))
+        start, k = start + size, k + 1
+    m = n_total - n
+    x = np.concatenate([x, rng.randn(m, num_features)])
+    y = np.concatenate([y, rng.randint(0, c, m)])
+    perm = rng.permutation(n_total)                 # perm[old] = new
+    row = perm[np.concatenate(rows)]
+    col = perm[np.concatenate(cols)]
+    xs = np.empty((n_total, num_features), np.float32)
+    ys = np.empty(n_total, np.int64)
+    xs[perm], ys[perm] = x, y
+    return row, col, xs, ys, np.sort(perm[:n])
+
+
+def write_planetoid(root: str, name: str, row, col, x, y, num_classes: int,
+                    num_test: int, seed: int) -> str:
+    """The eight Planetoid files ``ind.<name>.*`` under ``root/name/raw``:
+    ``allx``/``ally`` the first N - num_test nodes, ``tx``/``ty`` the
+    rest in the order of ``test.index`` (a shuffle of their ids), ``x``/
+    ``y`` the first 20 per class of ``allx``'s count, features as scipy
+    CSR, labels one-hot, ``graph`` a dict of adjacency lists."""
+    import pickle
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    raw = os.path.join(root, name, "raw")
+    os.makedirs(raw, exist_ok=True)
+    n = len(y)
+    n_all = n - num_test
+    test_idx = np.random.RandomState(seed).permutation(np.arange(n_all, n))
+    onehot = np.eye(num_classes, dtype=np.int64)[y]
+    n_lab = min(20 * num_classes, n_all)
+    adj = {i: [] for i in range(n)}
+    for a, b in sorted(set(zip(row.tolist(), col.tolist()))
+                       | set(zip(col.tolist(), row.tolist()))):
+        adj[a].append(b)
+    objs = {"x": sp.csr_matrix(x[:n_lab]), "y": onehot[:n_lab],
+            "allx": sp.csr_matrix(x[:n_all]), "ally": onehot[:n_all],
+            "tx": sp.csr_matrix(x[test_idx]), "ty": onehot[test_idx],
+            "graph": adj}
+    lname = name.lower()
+    for ext, obj in objs.items():
+        with open(os.path.join(raw, f"ind.{lname}.{ext}"), "wb") as f:
+            pickle.dump(obj, f)
+    with open(os.path.join(raw, f"ind.{lname}.test.index"), "w") as f:
+        f.write("".join(f"{i}\n" for i in test_idx))
+    return raw
+
+
+def write_shchur_npz(root: str, name: str, row, col, x, y) -> str:
+    """The shchur npz (``adj_*`` and ``attr_*`` CSR parts, ``labels``) at
+    ``root/name/raw/<file>``, the adjacency symmetric as in the published
+    files."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from graphax_torch.data.loaders import NPZ_FILES
+
+    n = len(y)
+    r, c = np.concatenate([row, col]), np.concatenate([col, row])
+    adj = sp.csr_matrix((np.ones(len(r), np.float32), (r, c)), shape=(n, n))
+    adj.data[:] = 1.0
+    attr = sp.csr_matrix(x)
+    raw = os.path.join(root, name, "raw")
+    os.makedirs(raw, exist_ok=True)
+    path = os.path.join(raw, NPZ_FILES[name])
+    np.savez(path, adj_data=adj.data, adj_indices=adj.indices,
+             adj_indptr=adj.indptr, adj_shape=np.array(adj.shape),
+             attr_data=attr.data, attr_indices=attr.indices,
+             attr_indptr=attr.indptr, attr_shape=np.array(attr.shape),
+             labels=y)
+    return path
+
+
+def write_arxiv_cache(root: str, row, col, x, y, split, seed: int) -> str:
+    """ogbn-arxiv as the ``processed_graphax.npz`` cache both packages
+    write after their first csv.gz parse (graphax's keys), the time split
+    ``split`` (train, valid, test counts) drawn as a shuffle."""
+    import numpy as np
+
+    from graphax_torch.data.loaders import ARXIV_CACHE
+
+    n = len(y)
+    order = np.random.RandomState(seed).permutation(n)
+    masks = []
+    for lo, hi in ((0, split[0]), (split[0], split[0] + split[1]),
+                   (split[0] + split[1], n)):
+        m = np.zeros(n, bool)
+        m[order[lo:hi]] = True
+        masks.append(m)
+    base = os.path.join(root, "ogbn_arxiv")
+    os.makedirs(base, exist_ok=True)
+    path = os.path.join(base, ARXIV_CACHE)
+    np.savez(path, row=row, col=col, x=x, y=y, train_mask=masks[0],
+             valid_mask=masks[1], test_mask=masks[2])
+    return path
+
+
+def width_checks(graph, d: int, smi: str) -> None:
+    """The windowed path's kernels at the label trick's state width ``d``
+    (hidden 162 + 40 classes) on the real-format arxiv's layout, against
+    their plain versions: spmm_csr on the residual edges (A x and A^T g),
+    windowed_densify, win_matmul with the residual's sum as its addend and
+    win_bwd_slab in bf16 (the preset's state), the pin with its
+    attention_kproj in both dtypes (the pin runs f32 on the windowed
+    strategy). Not timed: these launches stay out of every count."""
+    import torch
+
+    from graphax_torch.kernels import windowed_spmm as ws
+
+    wl = graph.windows
+    n = graph.num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt = torch.bfloat16
+    x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+    gr = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+    vals = torch.rand(graph.edge_buffer_size, generator=gen, device="cuda")
+    tag = dict(layout="real arxiv", dtype="bfloat16", D=d, nvidia_smi=smi)
+    res = {}
+    for label, lay, inp in (("residual A.x", wl.residual, x),
+                            ("residual AT.g", wl.residual_t, gr)):
+        rv = vals.to(dt)[lay.perm].contiguous()
+        res[label] = spmm_check({}, dict(kernel="spmm_csr", product=label,
+                                         **tag, **spmm_shape(inp)),
+                                lay, rv, inp, n, timed=False)
+    dense = hold_to_plain({}, dict(kernel="windowed_densify", **tag),
+                          lambda: ws.densify(wl, vals, dt),
+                          lambda: ws.densify_plain(wl, vals, dt), TOL_EXACT,
+                          0, 0, timed=False)
+    addend = res["residual A.x"]
+    hold_to_plain({}, dict(kernel="win_matmul", **tag,
+                           staging=ws.matmul_staging(dense, x, addend)),
+                  lambda: ws.win_matmul(wl, dense, x, addend),
+                  lambda: ws.win_matmul_plain(wl, dense, x, addend),
+                  TOL["bfloat16"], 0, 0, timed=False)
+    hold_to_plain({}, dict(kernel="win_bwd_slab", **tag,
+                           staging=ws.slab_staging(dense, gr)),
+                  lambda: ws.win_bwd_slab(wl, dense, gr, dt),
+                  lambda: ws.win_bwd_slab_plain(wl, dense, gr, dt),
+                  TOL["bfloat16"], 0, 0, timed=False)
+    for pdt in (torch.float32, torch.bfloat16):
+        pin_checks({}, "real arxiv D202", graph, gen, pdt, timed=False, d=d,
+                   att_types=("scaled_dot",))
+    del x, gr, vals, dense, addend, res
+    torch.cuda.empty_cache()
+
+
+def phase_real_formats(smi: str) -> dict:
+    """Cora (Planetoid ``ind.*`` pickles), Computers (the shchur npz) and
+    ogbn-arxiv (its ``processed_graphax.npz`` cache: the card has no
+    pandas, and ``np.loadtxt`` over the full csv.gz would take minutes),
+    written at full size to a temporary directory, each graph
+    :func:`sbm_with_strays` at the file's size. Each is loaded with
+    ``get_dataset(best_config(ds), data_dir=..., synthetic_fallback=False)``
+    (its parse, LCC and build seconds printed; Cora and Computers must
+    keep 2,485 and 13,381 nodes) and trained: Cora's preset 2 epochs;
+    Computers' 3 epochs straight, then ``fit(2, checkpoint_path=p)`` and,
+    on a fresh Trainer, ``fit(3, checkpoint_path=p)``, whose one epoch
+    must give the straight run's epoch-3 NFE and loss within TOL_RESUME;
+    ogbn-arxiv's preset with ``use_labels=True`` (state width 202) 2
+    epochs on the windowed layout, after the layout's kernels at that
+    width are held to their plain versions. Per dataset the seconds an
+    epoch, NFE, peak memory and launches, and the phase's seconds, each
+    line with the card's nvidia-smi line. Returns the launches of the three training runs
+    (each zeroed before and read after its fit)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.data import loaders
+    from graphax_torch.data.lcc import largest_connected_component
+    from graphax_torch.kernels import _build
+
+    launches: dict = {}
+    t_phase = time.perf_counter()
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="graphax_real_") as tmp:
+        t0 = time.perf_counter()
+        shapes = loaders.SHAPES
+        n, n_lcc = REAL_SIZES["Cora"]
+        s = shapes["Cora"]
+        row, col, x, y, keep_cora = sbm_with_strays(
+            n, n_lcc, s["num_classes"], s["num_features"], 20)
+        write_planetoid(tmp, "Cora", row, col, x, y, s["num_classes"], 1000,
+                        21)
+        n, n_lcc = REAL_SIZES["Computers"]
+        s = shapes["Computers"]
+        row, col, x, y, keep_comp = sbm_with_strays(
+            n, n_lcc, s["num_classes"], s["num_features"], 22)
+        write_shchur_npz(tmp, "Computers", row, col, x, y)
+        s = shapes["ogbn-arxiv"]
+        from graphax_torch.data.synthetic import sbm_arrays
+        c, n = s["num_classes"], s["num_nodes"]
+        row, col, x, y = sbm_arrays(
+            np.random.RandomState(23), n, c, s["num_features"],
+            min(3.0 * c / n, 0.5), 1.0 * c / (n * max(c - 1, 1)),
+            max(1.0, float(np.sqrt(s["num_features"])) / 2.1))
+        write_arxiv_cache(tmp, row, col, x.astype(np.float32), y,
+                          ARXIV_SPLIT, 24)
+        del row, col, x, y
+        emit({"phase": "real_formats", "write_seconds":
+              time.perf_counter() - t0, "nvidia_smi": smi})
+
+        parse = {"Cora": lambda: loaders.load_planetoid("Cora", tmp),
+                 "Computers": lambda: loaders.load_npz_dataset("Computers",
+                                                               tmp),
+                 "ogbn-arxiv": lambda: loaders.load_ogbn_arxiv(tmp)}
+        trainers = {}
+        for ds in ("Cora", "Computers", "ogbn-arxiv"):
+            cfg = best_config(ds, **({"use_labels": True}
+                                     if ds == "ogbn-arxiv" else {}))
+            t0 = time.perf_counter()
+            arrays = parse[ds]()
+            parse_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            keep = None
+            if ds != "ogbn-arxiv":
+                keep, _, _ = largest_connected_component(
+                    arrays[0], arrays[1], arrays[2].shape[0])
+            lcc_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            data = get_dataset(cfg, data_dir=tmp, synthetic_fallback=False)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tr = Trainer(cfg, data)
+            torch.cuda.synchronize()
+            row = {"phase": "real_formats", "dataset": ds,
+                   "file_nodes": int(arrays[2].shape[0]),
+                   "num_nodes": data.num_nodes,
+                   "num_edges": data.graph.num_edges,
+                   "num_features": data.num_features,
+                   "num_classes": data.num_classes,
+                   "train_val_test": [int(m.sum()) for m in (
+                       data.train_mask, data.val_mask, data.test_mask)],
+                   "strategy": tr.data.graph.strategy,
+                   "state_dim": tr.model.state_dim,
+                   "parse_seconds": parse_s, "lcc_seconds": lcc_s,
+                   "get_dataset_seconds": total_s,
+                   "build_seconds": total_s - parse_s - lcc_s,
+                   "trainer_seconds": time.perf_counter() - t0,
+                   "nvidia_smi": smi}
+            emit(row)
+            if keep is not None:
+                want = {"Cora": keep_cora, "Computers": keep_comp}[ds]
+                check(data.num_nodes == REAL_SIZES[ds][1]
+                      and np.array_equal(keep, want),
+                      f"real {ds}: LCC kept {data.num_nodes} nodes, not "
+                      f"{REAL_SIZES[ds][1]}")
+            else:
+                check(data.num_nodes == 169_343 and row["train_val_test"]
+                      == list(ARXIV_SPLIT), f"real arxiv: {row}")
+            del arrays
+            trainers[ds] = (cfg, data, tr)
+
+        # Cora: the attention block, squareplus (the per-edge pin)
+        _, _, tr = trainers.pop("Cora")
+        add(phase_dense_fit("real_Cora", tr, 2, pin_per_epoch=0, smi=smi))
+        del tr
+
+        # Computers: straight, then broken by a checkpoint and resumed
+        cfg, data, tr = trainers.pop("Computers")
+        out: dict = {}
+        add(phase_dense_fit("real_Computers", tr, 3, out=out, smi=smi))
+        straight = out["fit"]["history"][2]
+        p = os.path.join(tmp, "computers_ckpt")
+        t0 = time.perf_counter()
+        Trainer(cfg, data).fit(epochs=2, checkpoint_path=p)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed_tr = Trainer(cfg, data)
+        resumed = resumed_tr.fit(epochs=3, checkpoint_path=p)["history"]
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        check(len(resumed) == 1 and resumed[0]["epoch"] == 3,
+              f"real Computers: the resumed fit ran {resumed}")
+        res = resumed[0]
+        rel = abs(res["loss"] - straight["loss"]) / abs(straight["loss"])
+        emit({"phase": "real_formats", "dataset": "Computers",
+              "checkpoint": p + ".npz",
+              "checkpoint_mib": os.path.getsize(p + ".npz") / 2 ** 20,
+              "straight_epoch3": {k: straight[k] for k in
+                                  ("loss", "nfe", "val_acc")},
+              "resumed_epoch3": {k: res[k] for k in
+                                 ("loss", "nfe", "val_acc")},
+              "loss_rel_diff": rel, "tol": TOL_RESUME,
+              "fit2_seconds": first_s, "resume_fit_seconds": resume_s,
+              "nvidia_smi": smi})
+        check(res["nfe"] == straight["nfe"] and rel <= TOL_RESUME,
+              f"real Computers: the resumed epoch 3 {res} against the "
+              f"straight run's {straight}")
+        del tr, resumed_tr, data
+
+        # ogbn-arxiv with the label trick: the windowed kernels at D 202
+        cfg, data, tr = trainers.pop("ogbn-arxiv")
+        graph = tr.data.graph
+        check(graph.strategy == "windowed" and tr.model.state_dim == 202,
+              f"real arxiv: {graph.strategy}, state {tr.model.state_dim}")
+        width_checks(graph, tr.model.state_dim, smi)
+        _build.LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fit = tr.fit(epochs=2)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        for h, sv in zip(fit["history"], fit["solver"]):
+            emit({"phase": "real_formats", "dataset": "ogbn-arxiv", **h,
+                  **sv, "nvidia_smi": smi})
+            check(math.isfinite(h["loss"]) and bool(sv["success"])
+                  and bool(sv["eval_success"]),
+                  f"real arxiv epoch {h['epoch']}: {h} {sv}")
+        emit({"phase": "real_formats", "dataset": "ogbn-arxiv",
+              "use_labels": True, "label_rate": cfg.label_rate,
+              "seconds": time.perf_counter() - t0,
+              "epoch_seconds": [h["time"] for h in fit["history"]],
+              "launches": counts, "best": fit["best"],
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "nvidia_smi": smi})
+        for k in ("windowed_densify", "win_matmul", "win_bwd_slab",
+                  "spmm_csr", "attention_pin"):
+            check(counts.get(k, 0) > 0,
+                  f"{k} never launched on the real arxiv path")
+        check(counts.get("attention_kproj", 0) == counts["attention_pin"],
+              "real arxiv: attention_kproj against attention_pin "
+              f"{counts}")
+        add(counts)
+        del tr, data, fit
+        torch.cuda.empty_cache()
+    emit({"phase": "real_formats", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=3,
@@ -3161,7 +3569,13 @@ def main(argv=None) -> int:
           **phase_reference_attention()})
     emit({"phase": "reference", **phase_reference_nl_routes()})
 
-    # the kernels line: times from phase 4 at the main path's shapes and
+    # 8. the real dataset formats: Cora, Computers and ogbn-arxiv from
+    # full-size files, a checkpoint resumed, the label trick at D 202
+    for k, v in phase_real_formats(smi).items():
+        launches[k] = launches.get(k, 0) + v
+
+    # the kernels line (launches summed over the paths of phases 5 and 8):
+    # times from phase 4 at the main path's shapes and
     # dtype (bf16); spmm_csr's at the residual edges, with its whole-graph
     # numbers (the community_window=0 path), the hub graph's and f32's
     # beside them; the pin's f32 (the windowed and dense strategies') and

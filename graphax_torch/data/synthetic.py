@@ -15,15 +15,11 @@ from graphax_torch.sparse.build import build_graph
 from graphax_torch.utils.device import resolve_device
 
 
-def make_sbm_dataset(num_nodes: int = 400, num_classes: int = 4,
-                     num_features: int = 32, p_in: float = 0.04,
-                     p_out: float = 0.002, feature_noise: float = 1.0,
-                     seed: int = 0, self_loop_weight: float = 1.0,
-                     num_development: int = None, num_per_class: int = 20,
-                     pad_multiple: int = 128, strategy: str = "auto",
-                     device=None) -> GraphData:
-    dev = resolve_device(device)
-    rng = np.random.RandomState(seed)
+def sbm_arrays(rng: np.random.RandomState, num_nodes: int, num_classes: int,
+               num_features: int, p_in: float, p_out: float,
+               feature_noise: float):
+    """The SBM's labels, edges and features as numpy arrays (row, col, x,
+    y), drawn from ``rng`` in graphax's order."""
     y = rng.randint(0, num_classes, num_nodes)
 
     # undirected SBM edges sampled block-wise without an N^2 matrix
@@ -46,6 +42,20 @@ def make_sbm_dataset(num_nodes: int = 400, num_classes: int = 4,
     prototypes = rng.randn(num_classes, num_features)
     x = prototypes[y] + feature_noise * rng.randn(num_nodes, num_features)
     x = x / np.sqrt(1.0 + feature_noise ** 2)
+    return row, col, x, y
+
+
+def make_sbm_dataset(num_nodes: int = 400, num_classes: int = 4,
+                     num_features: int = 32, p_in: float = 0.04,
+                     p_out: float = 0.002, feature_noise: float = 1.0,
+                     seed: int = 0, self_loop_weight: float = 1.0,
+                     num_development: int = None, num_per_class: int = 20,
+                     pad_multiple: int = 128, strategy: str = "auto",
+                     device=None) -> GraphData:
+    dev = resolve_device(device)
+    row, col, x, y = sbm_arrays(np.random.RandomState(seed), num_nodes,
+                                num_classes, num_features, p_in, p_out,
+                                feature_noise)
 
     graph = build_graph(row, col, num_nodes, make_undirected=True,
                         self_loop_weight=self_loop_weight,

@@ -1,8 +1,9 @@
 """The GRAND node classifier: encoder -> ODE block -> decoder (port of
 `graphax/models/gnn.py`).
 
-encode: dropout -> m1 -> [residual MLP m11/m12] -> [batch-norm] ->
-        [ANODE augmentation: append zeros]
+encode: [strip labels] -> dropout -> m1 -> [residual MLP m11/m12] ->
+        [re-append labels] -> [batch-norm] -> [ANODE augmentation: append
+        zeros]
 solve:  block over [0, T] with the state in ``cfg.dtype`` (bf16 halves the
         solver's memory traffic; the encoder and decoder stay f32)
 decode: [truncate augmentation] -> relu -> [fc -> relu] -> dropout -> m2
@@ -24,10 +25,10 @@ from graphax_torch.utils.params import linear_apply, linear_init
 class GNN(nn.Module):
     def __init__(self, cfg, num_features: int, num_classes: int):
         super().__init__()
-        if cfg.beltrami or cfg.use_labels:
+        if cfg.beltrami:
             raise NotImplementedError(
                 "Beltrami (DeepWalk's positional encodings, ROADMAP Queue 1, "
-                "item 9) and the label trick (item 5) are not ported yet")
+                "item 9) is not ported yet")
         self.cfg = cfg
         self.num_classes = num_classes
         self.state_dim = cfg.state_dim(num_features, num_classes)
@@ -55,7 +56,13 @@ class GNN(nn.Module):
         self.block.reset_parameters(generator)
 
     def encode(self, x, *, train: bool, generator=None):
+        """``x``: the features, and under ``use_labels`` the label columns
+        last (`graphax_torch.train.loop.add_labels`), which skip the input
+        dropout and the MLP and join the state before the batch-norm."""
         cfg = self.cfg
+        if cfg.use_labels:
+            labels = x[..., -self.num_classes:]
+            x = x[..., :-self.num_classes]
         x = dropout(x, cfg.input_dropout, train, generator)
         x = linear_apply(self.m1, x)
         if cfg.use_mlp:
@@ -64,6 +71,8 @@ class GNN(nn.Module):
                         cfg.dropout, train, generator)
             x = dropout(x + linear_apply(self.m12, torch.relu(x)),
                         cfg.dropout, train, generator)
+        if cfg.use_labels:
+            x = torch.cat([x, labels], dim=-1)
         if cfg.batch_norm:
             x = self.bn_in(x, train)
         if cfg.augment:

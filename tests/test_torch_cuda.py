@@ -1819,3 +1819,118 @@ def test_cuda_gmax_on_two_streams_at_once(cuda):
             got = fa.attention_gmax(g.csr, q, k2, None, *scal)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, b, rtol=1e-6, atol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# the label trick's state width: hidden 162 + 40 classes on ogbn-arxiv
+
+LABEL_D = 202
+LABEL_KERNELS = ("spmm_csr", "windowed_densify", "win_matmul",
+                 "win_bwd_slab", "attention_kproj", "attention_pin")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", LABEL_KERNELS)
+def test_cuda_label_width_kernels_match_plain(cuda, dtype, kernel):
+    """The arxiv preset's kernels at D = 202 (``use_labels=True``), on a
+    windowed layout at the preset's tile and W, against their plain
+    versions at the tolerances above: spmm_csr on the residual edges (A x
+    and A^T g), the blocks exactly, win_matmul with the residual's sum as
+    its addend, win_bwd_slab with its output in the state dtype, the K
+    projection on its route at A = 32 and the pin over it, each counted
+    once per call."""
+    from graphax_torch.kernels import LAUNCHES
+
+    g = _windowed_graph(cuda, 3000, 128, 512)
+    wl, n, tdt = g.windows, g.num_nodes, getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(202)
+    x = torch.randn(n, LABEL_D, generator=gen, device=cuda).to(tdt)
+    gr = torch.randn(n, LABEL_D, generator=gen, device=cuda).to(tdt)
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == "float32" \
+        else dict(rtol=BF16_RTOL, atol=1e-2)
+    dense = ws.densify_plain(wl, g.edge_weight, tdt)
+    addend = spmm_mod.spmm_csr_plain(
+        wl.residual, g.edge_weight.to(tdt)[wl.residual.perm].contiguous(),
+        x, n)
+    LAUNCHES.clear()
+    if kernel == "spmm_csr":
+        for lay, inp in ((wl.residual, x), (wl.residual_t, gr)):
+            vals = g.edge_weight.to(tdt)[lay.perm].contiguous()
+            torch.testing.assert_close(
+                spmm_mod.spmm_csr(lay, vals, inp, n).float(),
+                spmm_mod.spmm_csr_plain(lay, vals, inp, n).float(), **tol)
+        want = 2
+    elif kernel == "windowed_densify":
+        assert torch.equal(ws.densify(wl, g.edge_weight, tdt), dense)
+        want = 1
+    elif kernel == "win_matmul":
+        got = ws.win_matmul(wl, dense, x, addend)
+        assert got.dtype == tdt
+        torch.testing.assert_close(
+            got.float(), ws.win_matmul_plain(wl, dense, x, addend).float(),
+            **tol)
+        want = 1
+    elif kernel == "win_bwd_slab":
+        got = ws.win_bwd_slab(wl, dense, gr, tdt)
+        assert got.dtype == tdt and got.shape == (n, LABEL_D)
+        torch.testing.assert_close(
+            got.float(), ws.win_bwd_slab_plain(wl, dense, gr, tdt).float(),
+            **tol)
+        want = 1
+    else:
+        a = 32
+        wk = (0.1 * torch.randn(LABEL_D, a, generator=gen,
+                                device=cuda)).to(tdt)
+        bk = 0.1 * torch.randn(a, generator=gen, device=cuda)
+        if kernel == "attention_kproj":
+            torch.testing.assert_close(fa.attention_kproj(x, wk, bk),
+                                       fa.attention_kproj_plain(x, wk, bk),
+                                       rtol=1e-5, atol=1e-4)
+        else:
+            q = (0.3 * torch.randn(n, a, generator=gen, device=cuda)).to(tdt)
+            args = (g.csr, q, x, wk, bk, g.edge_weight, "scaled_dot", 2,
+                    1.0, 0.5)
+            torch.testing.assert_close(pin_mod.attention_pin(*args),
+                                       pin_mod.attention_pin_plain(*args),
+                                       rtol=2e-4, atol=2e-5)
+        want = 1
+    assert LAUNCHES[kernel] == want
+
+
+def test_cuda_checkpoint_round_trip(cuda, tmp_path):
+    """``fit(3)`` against ``fit(1, checkpoint_path=p)`` and, on a fresh
+    Trainer, ``fit(3, checkpoint_path=p)`` on the card, with the label
+    trick, dropout, batch-norm and adam: the optimizer's state and the
+    batch-norm statistics come back on the device, the dropout generator
+    is the card's with its state restored, and the two runs' epochs agree
+    (NFE equal, losses and weights 1e-6 relative: the same launches on
+    the same inputs)."""
+    from graphax_torch import Trainer, make_sbm_dataset
+    from graphax_torch.train import Config
+
+    cfg = Config(block="constant", hidden_dim=16, use_labels=True,
+                 batch_norm=True, use_mlp=True, dropout=0.3,
+                 input_dropout=0.2, method="rk4", step_size=0.5, time=1.5,
+                 no_early=True, optimizer="adam", lr=0.01)
+    data = make_sbm_dataset(num_nodes=300, num_classes=4, num_features=16,
+                            seed=2, device=cuda)
+    straight_tr = Trainer(cfg, data, device=cuda)
+    straight = straight_tr.fit(epochs=3)["history"]
+    p = str(tmp_path / "ck")
+    Trainer(cfg, data, device=cuda).fit(epochs=1, checkpoint_path=p)
+    tr = Trainer(cfg, data, device=cuda)
+    info = tr.load_checkpoint(p)
+    assert info["epoch"] == 1
+    assert tr.generator.device.type == "cuda"
+    for prm in tr.model.parameters():
+        st = tr.optimizer.state[prm]
+        assert st["mu"].device == prm.device == st["nu"].device
+        assert st["count"] == 1
+    assert all(b.device.type == "cuda" for b in tr.model.buffers())
+    resumed = Trainer(cfg, data, device=cuda).fit(epochs=3,
+                                                  checkpoint_path=p)
+    got = resumed["history"]
+    assert [h["epoch"] for h in got] == [2, 3]
+    assert [h["nfe"] for h in got] == [h["nfe"] for h in straight[1:]]
+    np.testing.assert_allclose([h["loss"] for h in got],
+                               [h["loss"] for h in straight[1:]], rtol=1e-6)

@@ -13,7 +13,7 @@
   the best time 1e-4 relative (dopri5's step sizes, stated at the test),
   NFE equal.
 - `Trainer.fit`: the keys of ``best`` and ``history`` equal graphax's for
-  the same call; the checkpoint arguments raise (not ported)."""
+  the same call (checkpoints: tests/test_torch_labels_checkpoint.py)."""
 
 import numpy as np
 import pytest
@@ -157,9 +157,3 @@ def test_fit_keys_match_graphax(use_early_stop):
     assert [s["eval_nfe"] > 0 and s["success"] for s in got["solver"]] == \
         [True, True]
 
-
-def test_fit_checkpoint_arguments_raise():
-    _, _, tr = _pair("constant", "rk4")
-    for kw in (dict(checkpoint_path="ckpt.npz"), dict(checkpoint_every=5)):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            tr.fit(epochs=1, **kw)

@@ -76,7 +76,6 @@ def test_graph_and_data_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("overrides,err", [
     (dict(block="rewire_attention"), "M8"),
-    (dict(use_labels=True), "label"),
     (dict(function="transformer"), "M6"),
 ])
 def test_unported_configs_raise(overrides, err):
@@ -128,10 +127,13 @@ def test_early_stop_evaluation_is_not_ported():
 
 
 def test_get_dataset_refuses_real_files_it_cannot_parse(tmp_path):
+    """A raw file that is there but cannot be parsed (an empty edge.csv.gz
+    and no other file) raises, as graphax's parser does, rather than
+    quietly training on the synthetic stand-in."""
     raw = tmp_path / "ogbn_arxiv" / "raw"
     raw.mkdir(parents=True)
     (raw / "edge.csv.gz").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="M4"):
+    with pytest.raises((ValueError, OSError)):
         get_dataset("ogbn-arxiv", data_dir=str(tmp_path), device="cpu")
 
 
