@@ -155,11 +155,31 @@ and prints no result):
    its loss within TOL_RESUME); ogbn-arxiv with ``use_labels=True`` (state
    width 202) 2 epochs on the windowed layout, after the layout's kernels
    at that width are held to their plain versions; every line with the
-   card's nvidia-smi line.
+   card's nvidia-smi line;
+9. blend: BLEND at the arxiv preset's widths (features 64 + positional
+   98 = 162) in graphax's driver order: DeepWalk's DW64 encodings of the
+   stand-in by ``apply_beltrami`` (the skip-gram on the card; seconds,
+   probe accuracy, the cache read back); the four kernels of the Beltrami
+   paths in ``beltrami_exp`` (attention_pin, attention_kproj,
+   flash_attention, attention_gmax under squareplus) against their plain
+   versions at the paths' shapes, timed beside their bounds; then fitted
+   with fit's defaults: (a) ``best_config("ogbn-arxiv", beltrami=True,
+   attention_type="exp_kernel")`` (windowed, the pin in beltrami_exp),
+   (b) the same as GRAND-nl on CSR (flash in beltrami_exp, the per-edge
+   gradient replayed; one evaluation under squareplus, gmax's path),
+   (c) (a) on CSR with ``rewire_KNN=True, rewire_KNN_epoch=2`` (the 64
+   nearest neighbours of the encoder's output, spmm_csr then held to its
+   plain version on that graph), edge sampling at epoch 2 on the
+   Computers stand-in, and GAT
+   (``function="GAT", block="constant", community_window=0``) on the
+   arxiv CSR for 2 epochs (spmm_csr at every NFE, sddmm in the adjoint);
+   per epoch the loss, seconds, NFE and peak memory, per path the
+   launches.
 
-Then the kernels line (launches summed over the paths of phases 5 and 8), the
-card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Needs
-one card; builds everything from the checkout; needs no network."""
+Then the kernels line (launches summed over the paths of phases 5, 8 and
+9), the card's nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``. Needs one card; builds everything from the checkout; needs no
+network."""
 
 from __future__ import annotations
 
@@ -3253,6 +3273,338 @@ def phase_real_formats(smi: str) -> dict:
     return launches
 
 
+# the Beltrami kernels' random weights: a scale for which the Gaussian
+# kernels' exponents spread over a few units at the arxiv widths (0.3
+# randn weights underflow every score to 0, which checks nothing), and
+# scalars away from 1
+BELTRAMI_SCALARS = {"output_var_x": 1.2, "lengthscale_x": 1.5,
+                    "output_var_p": 0.9, "lengthscale_p": 1.1}
+
+
+def randomize_beltrami(att, seed: int) -> None:
+    """Random Qx/Kx/Qp/Kp (randn / sqrt(in) / 2 weights, 0.1 randn biases)
+    and the kernels' scalars of :data:`BELTRAMI_SCALARS`, from a seeded CPU
+    generator."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name in ("Qx", "Kx", "Qp", "Kp"):
+            lin = getattr(att, name)
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen)
+                             / (2.0 * lin.in_features ** 0.5))
+            lin.bias.copy_(0.1 * torch.randn(lin.bias.shape, generator=gen))
+        for name, v in BELTRAMI_SCALARS.items():
+            getattr(att, name).fill_(v)
+
+
+def blend_kernel_checks(tr_a, tr_b, results: dict) -> None:
+    """The four kernels of the Beltrami paths in ``beltrami_exp`` against
+    their plain versions, at the paths' shapes (arxiv's N and E, D 162, the
+    K table 2 x 32 wide, 2 heads), each timed beside its bound: the pin on
+    path (a)'s graph with its hard block's attention layer (random weights)
+    in f32 (the windowed strategy's, as the path runs it) and bf16 (the
+    CSR strategy's, path (c)), within TOL_PIN; the K projection at [162,
+    64] in both dtypes within TOL_KPROJ; flash on path (b)'s CSR with its
+    RHS's attention layer (random weights) in both dtypes within
+    TOL_FLASH, and under squareplus attention_gmax (TOL_GMAX) then flash
+    with its shift, in bf16."""
+    import torch
+
+    from graphax_torch.kernels import attention_pin as pin_mod
+    from graphax_torch.kernels import fused_attention as fa
+
+    for label, tr, att in (("a", tr_a, tr_a.model.block.att_layer),
+                           ("b", tr_b, tr_b.model.block.func.att)):
+        randomize_beltrami(att, 31)
+        g, cfg = tr.data.graph, tr.cfg
+        n, e = g.num_nodes, g.num_edges
+        tr.model.eval()
+        with torch.no_grad():
+            x_enc = tr.model.encode(tr.data.x, train=False,
+                                    pos_encoding=tr.data.pos_encoding)
+        d, heads = x_enc.shape[1], cfg.heads
+        a = fa.score_width(cfg)
+        csr_bytes = 4 * e + 4 * (n + 1)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            b = dt.itemsize
+            x = x_enc.to(dt).contiguous()
+            with torch.no_grad():
+                p = fa.prep_inputs(cfg, att, g, x)
+                scal, bel = fa.score_args(p)
+                check(scal[0] == "beltrami_exp" and p["q"].shape == (n, a),
+                      f"blend {label}: operands {scal} {tuple(p['q'].shape)}")
+                q, wk, bk = p["q"], p["wk"], p["bk"]
+
+                def row(kernel, **kw):
+                    return dict(kernel=kernel, path=f"blend {label}",
+                                dtype=name, att_type="beltrami_exp", N=n, E=e,
+                                D=d, A=a, H=heads, **bel, **kw)
+
+                kt = hold_to_plain(
+                    results, row("attention_kproj",
+                                 route=fa.kproj_route(dt, d, a)),
+                    lambda: fa.attention_kproj(x, wk, bk),
+                    lambda: fa.attention_kproj_plain(x, wk, bk), TOL_KPROJ,
+                    n * d * b + d * a * b + 4 * a + 4 * n * a,
+                    2.0 * n * d * a,
+                    ("torch.addmm out_dtype=float32",
+                     lambda: torch.addmm(bk, x, wk, out_dtype=torch.float32)),
+                    tag=f"beltrami {label}")
+                # per edge the two squared distances (3 operations a value
+                # of 2A) and two exps a head
+                score_ops = e * (3.0 * a + 8 * heads)
+                if label == "a":
+                    args = (g.csr, q, x, wk, bk, None, *scal)
+                    nbytes = (n * d * b + n * a * b + d * a * b + 4 * a
+                              + csr_bytes + 4 * e)
+                    hold_to_plain(
+                        results, row("attention_pin"),
+                        lambda: pin_mod.attention_pin(*args, **bel),
+                        lambda: pin_mod.attention_pin_plain(*args, **bel),
+                        TOL_PIN, nbytes, 2.0 * n * d * a + score_ops,
+                        tag="beltrami",
+                        miss_bytes=nbytes + 4 * n * a + 4 * e * a)
+                    continue
+                ops = score_ops + e * 2.0 * heads * d
+                nbytes = (n * a * b + 4 * n * a + n * d * b + csr_bytes
+                          + 4 * n * d)
+                miss = nbytes - n * d * b + e * d * b
+                hold_to_plain(
+                    results, row("flash_attention"),
+                    lambda: fa.flash_attention(g.csr, q, x, kt, None, None,
+                                               *scal, **bel),
+                    lambda: fa.flash_attention_plain(g.csr, q, x, kt, None,
+                                                     None, *scal, **bel),
+                    TOL_FLASH[name], nbytes, ops, tag="beltrami",
+                    miss_bytes=miss)
+                if dt == torch.bfloat16:
+                    gshift = hold_to_plain(
+                        results, row("attention_gmax", square_plus=True),
+                        lambda: fa.attention_gmax(g.csr, q, kt, None, *scal,
+                                                  **bel),
+                        lambda: fa.attention_gmax_plain(g.csr, q, kt, None,
+                                                        *scal, **bel),
+                        TOL_GMAX, n * a * b + 4 * n * a + csr_bytes + 4,
+                        score_ops, tag="beltrami",
+                        miss_bytes=n * a * b + 4 * e * a + csr_bytes)
+                    hold_to_plain(
+                        results, row("flash_attention", square_plus=True),
+                        lambda: fa.flash_attention(g.csr, q, x, kt, None,
+                                                   gshift, *scal, **bel),
+                        lambda: fa.flash_attention_plain(
+                            g.csr, q, x, kt, None, gshift, *scal, **bel),
+                        TOL_FLASH[name], nbytes, ops,
+                        tag="beltrami squareplus", miss_bytes=miss)
+                del kt
+            del x, q, wk, bk
+        torch.cuda.empty_cache()
+
+
+def blend_fit(label: str, tr, epochs: int, need, smi: str) -> dict:
+    """``tr.fit(epochs)`` with fit's defaults, the launches zeroed before
+    and read after: per epoch the loss, seconds, NFE, backward and
+    evaluation NFE and the epoch's peak device memory; finite losses,
+    solver success, and every kernel of ``need`` launched. Returns
+    (the launches, the fit)."""
+    import torch
+
+    from graphax_torch.kernels import _build
+
+    peaks = []
+    step = tr._step
+
+    def recorded():
+        out = step()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    tr._step = recorded
+    _build.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        fit = tr.fit(epochs=epochs)
+    finally:
+        del tr._step
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    for h, sv, pk in zip(fit["history"], fit["solver"], peaks):
+        emit({"phase": "blend", "path": label, **h, **sv,
+              "peak_mem_gib_step": pk})
+        check(math.isfinite(h["loss"]) and bool(sv["success"])
+              and bool(sv["eval_success"]),
+              f"blend {label} epoch {h['epoch']}: loss {h['loss']}, "
+              f"success {sv['success']}, evaluation {sv['eval_success']}")
+    times = [h["time"] for h in fit["history"]]
+    emit({"phase": "blend", "path": label, "seconds":
+          time.perf_counter() - t0, "epoch_seconds": times,
+          "strategy": tr.data.graph.strategy,
+          "num_edges": tr.data.graph.num_edges, "launches": counts,
+          "best": fit["best"], "peak_mem_gib": max(peaks),
+          "nvidia_smi": smi})
+    for k in need:
+        check(counts.get(k, 0) > 0, f"{k} never launched on the blend "
+              f"{label} path ({counts})")
+    return counts, fit
+
+
+def phase_blend(data, smi: str, results: dict, epochs: int) -> dict:
+    """BLEND at the ogbn-arxiv preset's widths (``feat_hidden_dim`` 64 +
+    ``pos_enc_hidden_dim`` 98 = the state's 162), graphax's driver order:
+    DeepWalk's DW64 encodings of the stand-in (``apply_beltrami``: the
+    walks, the skip-gram on the card, the probe; its seconds and accuracy,
+    then the cache read back), then
+
+    (a) ``best_config("ogbn-arxiv", beltrami=True,
+        attention_type="exp_kernel")``: the windowed layout, the pin in
+        ``beltrami_exp``;
+    (b) the same as GRAND-nl (``function="transformer",
+        block="constant", community_window=0``): the CSR flash in
+        ``beltrami_exp``, its gradient replayed; then one evaluation of
+        it under squareplus (attention_gmax in ``beltrami_exp`` once per
+        NFE);
+    (c) (a) with ``community_window=0, rewire_KNN=True,
+        rewire_KNN_epoch=2``: the graph rebuilt at epoch 2 from the
+        encoder's 64 nearest neighbours, spmm_csr then held to its plain
+        version on it;
+
+    each after the four kernels' checks (:func:`blend_kernel_checks`),
+    fitted ``epochs`` epochs; then edge sampling at epoch 2 on the
+    Computers stand-in, and GAT on the arxiv CSR for 2 epochs. Returns the
+    launches of the fits."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.functions.transformer import attention_route
+    from graphax_torch.kernels import _build
+    from graphax_torch.rewiring import apply_beltrami
+
+    launches: dict = {}
+    t_phase = time.perf_counter()
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    cfg_a = best_config("ogbn-arxiv", beltrami=True,
+                        attention_type="exp_kernel")
+    with tempfile.TemporaryDirectory(prefix="graphax_blend_") as tmp:
+        t0 = time.perf_counter()
+        enc = apply_beltrami(data, cfg_a, cache_dir=tmp)
+        dw_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "pos_encodings", "ogbn-arxiv_DW64.pkl")
+        with open(path, "rb") as f:
+            acc = pickle.load(f)["acc"]
+        t0 = time.perf_counter()
+        again = apply_beltrami(data, cfg_a, cache_dir=tmp)
+        cache_s = time.perf_counter() - t0
+    emit({"phase": "blend", "step": "DW64", "seconds": dw_s,
+          "probe_accuracy": acc, "cache_read_seconds": cache_s,
+          "shape": list(enc.shape), "nvidia_smi": smi})
+    check(enc.shape == (data.num_nodes, 64) and bool(np.isfinite(enc).all())
+          and 0.0 <= acc <= 1.0 and np.array_equal(enc, again),
+          f"DW64: shape {enc.shape}, accuracy {acc}")
+    cfg_a = cfg_a.replace(pos_enc_dim=int(enc.shape[1]))
+    data_p = data.with_pos_encoding(enc)
+    cfg_b = cfg_a.replace(function="transformer", block="constant",
+                          community_window=0)
+    cfg_c = cfg_a.replace(community_window=0, rewire_KNN=True,
+                          rewire_KNN_epoch=2)
+
+    tr_a = Trainer(cfg_a, data_p)
+    tr_b = Trainer(cfg_b, data_p)
+    check(tr_a.data.graph.strategy == "windowed"
+          and tr_a.model.state_dim == 162
+          and tr_b.data.graph.strategy == "sparse"
+          and attention_route(cfg_b, tr_b.data.graph, 162) == "flash_replay",
+          "blend: the paths' layouts or routes moved")
+    blend_kernel_checks(tr_a, tr_b, results)
+
+    counts, _ = blend_fit("a pinned", tr_a, epochs,
+                          ("attention_pin", "attention_kproj", "spmm_csr",
+                           "win_matmul", "win_bwd_slab", "windowed_densify"),
+                          smi)
+    check(counts["attention_kproj"] == counts["attention_pin"],
+          f"blend a: attention_kproj against attention_pin {counts}")
+    add(counts)
+    del tr_a
+    counts, _ = blend_fit("b GRAND-nl", tr_b, epochs,
+                          ("flash_attention", "attention_kproj"), smi)
+    add(counts)
+    del tr_b
+    # (b) under squareplus, one evaluation: its shift by attention_gmax in
+    # beltrami_exp once per NFE
+    tr_sp = Trainer(cfg_b.replace(square_plus=True), data_p)
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    accs = tr_sp.evaluate()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    nfe = tr_sp.last_eval.nfe
+    emit({"phase": "blend", "path": "b GRAND-nl squareplus evaluation",
+          "seconds": time.perf_counter() - t0, "accuracies": accs,
+          "nfe": nfe, "success": bool(tr_sp.last_eval.success),
+          "launches": counts})
+    check(counts.get("attention_gmax", 0) == counts.get("flash_attention", 0)
+          == nfe > 0 and bool(tr_sp.last_eval.success),
+          f"blend b squareplus: {counts}, {nfe} NFE")
+    add(counts)
+    del tr_sp
+    torch.cuda.empty_cache()
+
+    tr_c = Trainer(cfg_c, data_p)
+    e0 = tr_c.data.graph.num_edges
+    counts, _ = blend_fit("c kNN", tr_c, epochs,
+                          ("attention_pin", "spmm_csr"), smi)
+    add(counts)
+    g = tr_c.data.graph
+    n = g.num_nodes
+    emit({"phase": "blend", "path": "c kNN", "edges_before": e0,
+          "edges_after": g.num_edges,
+          "knn_edges": n * cfg_c.rewire_KNN_k})
+    check(g.num_edges != e0 and g.num_edges >= n * cfg_c.rewire_KNN_k // 2,
+          f"blend c: {e0} -> {g.num_edges} edges")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.randn(n, 162, generator=gen, device="cuda").bfloat16()
+    vals = g.edge_weight.bfloat16().contiguous()
+    spmm_check(results, dict(kernel="spmm_csr", product="kNN A.x",
+                             dtype="bfloat16", graph="kNN",
+                             E=g.num_edges, **spmm_shape(x)),
+               g.csr, vals, x, n)
+    del tr_c, g, x, vals
+    torch.cuda.empty_cache()
+
+    comp = get_dataset("Computers")
+    tr_s = Trainer(best_config("Computers", edge_sampling=True,
+                               edge_sampling_epoch=2), comp)
+    e0 = tr_s.data.graph.num_edges
+    counts, _ = blend_fit("edge sampling Computers", tr_s, epochs,
+                          ("attention_pin",), smi)
+    add(counts)
+    emit({"phase": "blend", "path": "edge sampling Computers",
+          "edges_before": e0, "edges_after": tr_s.data.graph.num_edges})
+    check(tr_s.data.graph.num_edges != e0, "edge sampling left the graph")
+    del tr_s, comp
+
+    tr_g = Trainer(best_config("ogbn-arxiv", function="GAT",
+                               block="constant", community_window=0), data)
+    counts, _ = blend_fit("GAT", tr_g, 2, ("spmm_csr", "sddmm"), smi)
+    add(counts)
+    del tr_g
+    torch.cuda.empty_cache()
+    emit({"phase": "blend", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=3,
@@ -3574,6 +3926,12 @@ def main(argv=None) -> int:
     for k, v in phase_real_formats(smi).items():
         launches[k] = launches.get(k, 0) + v
 
+    # 9. BLEND: DeepWalk's encodings, the Beltrami pin and flash, kNN and
+    # edge-sampling rewiring, GAT
+    blend_launches = phase_blend(data, smi, results, args.epochs)
+    for k, v in blend_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
     # the kernels line (launches summed over the paths of phases 5 and 8):
     # times from phase 4 at the main path's shapes and
     # dtype (bf16); spmm_csr's at the residual edges, with its whole-graph
@@ -3809,6 +4167,25 @@ def main(argv=None) -> int:
         kernels[8][tag.replace(" ", "_")] = {
             k: results[("attention_gmax", "bfloat16", tag)].get(k)
             for k in walked}
+    # beltrami_exp (phase 9): the pin, flash, gmax and the K projection at
+    # the Beltrami paths' shapes, and their launches there
+    for i, kernel, tags in ((2, "attention_pin", ("beltrami",)),
+                            (7, "flash_attention",
+                             ("beltrami", "beltrami squareplus")),
+                            (8, "attention_gmax", ("beltrami",)),
+                            (9, "attention_kproj",
+                             ("beltrami a", "beltrami b"))):
+        for tag in tags:
+            for dt in ("bfloat16", "float32"):
+                r = results.get((kernel, dt, tag))
+                if r is not None:
+                    kernels[i][f"{tag.replace(' ', '_')}_{dt}"] = {
+                        k: r.get(k) for k in numbers + ("all_miss_ms",)}
+        kernels[i]["blend_launches"] = blend_launches.get(kernel, 0)
+    kernels[0]["kNN"] = {k: results[("spmm_csr", "bfloat16", "kNN A.x")].get(k)
+                         for k in walked + ("library_ms",)}
+    kernels[0]["blend_launches"] = blend_launches.get("spmm_csr", 0)
+    kernels[1]["blend_launches"] = blend_launches.get("sddmm", 0)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

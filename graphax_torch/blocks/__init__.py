@@ -14,6 +14,13 @@ _MAKERS = {"constant": ConstantBlock, "attention": AttentionBlock,
 _UNPORTED = {"rewire_attention": "ROADMAP Queue 1, item 9 (M8)"}
 
 
+def make_higher_order_block(cfg, in_dim: int):
+    """graphax's `make_higher_order_block` (`graphax/blocks/higher_order.py`),
+    which no config selects: not ported yet."""
+    raise NotImplementedError("the higher-order block is not ported yet "
+                              "(ROADMAP Queue 1, item 9 (M8))")
+
+
 def get_block(cfg, in_dim: int):
     """Factory keyed on cfg.block (graphax `get_block`)."""
     if cfg.block in _UNPORTED:
@@ -26,4 +33,4 @@ def get_block(cfg, in_dim: int):
 
 __all__ = ["AttentionBlock", "BlockOutput", "ConstantBlock",
            "HardAttentionBlock", "MixedBlock", "get_block", "integrate",
-           "make_fstate", "normalize_graph"]
+           "make_fstate", "make_higher_order_block", "normalize_graph"]

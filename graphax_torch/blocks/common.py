@@ -3,12 +3,14 @@ and the solver harness (port of `graphax/blocks/common.py`)."""
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
 
 from graphax_torch.functions.common import FuncState, prepare_scalars
+from graphax_torch.functions.gat import GATFunction, gat_rhs
 from graphax_torch.functions.laplacian import laplacian_rhs
 from graphax_torch.functions.transformer import (
     TransformerFunction, transformer_rhs,
@@ -77,6 +79,10 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
     has no such leaf)."""
     values = graph.edge_weight if attention is None else attention
     pinned = attention is not None
+    if cfg is not None and cfg.function == "GAT":
+        # GAT reads the graph alone: its attention is recomputed at every
+        # evaluation
+        return FuncState(graph=graph, x0=x.detach(), pinned=pinned)
     nl = cfg is not None and cfg.function == "transformer"
     if graph.strategy == "dense":
         if nl:
@@ -117,7 +123,8 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
     plain path only (the early-stop evaluation), as in graphax."""
     if train and cfg.reg_coeffs():
         raise NotImplementedError("regularised RHS are not ported yet "
-                                  "(ROADMAP Queue 1, M8)")
+                                  "(ROADMAP Queue 1, item 9 (M8): "
+                                  "functions/regularizers.py)")
     t_end = float(cfg.time if t1 is None else t1)
     alpha, beta = prepare_scalars(func, cfg, x.dtype)
     common = dict(method=cfg.method, rtol=cfg.rtol, atol=cfg.atol,
@@ -137,14 +144,15 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
         # where it discards them; its leaves that stay zero are counted:
         # the RHS module's parameters it does not track (alpha_train and
         # beta_train, which the RHS reads only as alpha and beta above; the
-        # attention layer's V and Wout outside mix_features), and the edge
-        # weights where the RHS does not read them (pinned attention, the
-        # transformer). On a dense graph it holds dense_adj, the [N, N]
-        # operator: the Laplacian RHS reads it (the port integrates its a_p
-        # in f32 as well, and the edge weights and a pin's attention stay
-        # zero); the transformer RHS does not, so its N^2 leaves stay zero.
+        # attention layer's V and Wout outside mix_features, GAT's Wout
+        # likewise), and the edge weights where the RHS does not read them
+        # (pinned attention, the transformer, GAT). On a dense graph it
+        # holds dense_adj, the [N, N] operator: the Laplacian RHS reads it
+        # (the port integrates its a_p in f32 as well, and the edge weights
+        # and a pin's attention stay zero); the transformer and GAT RHS do
+        # not, so its N^2 leaves stay zero.
         zero = sum(p.numel() for p in func.parameters())
-        if isinstance(func, TransformerFunction):
+        if isinstance(func, (TransformerFunction, GATFunction)):
             att = func.adjoint_tensors()
             params = (alpha, beta, fstate.x0, *att)
             if fstate.dense is not None:
@@ -153,9 +161,11 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
             zero += g.edge_buffer_size - sum(p.numel() for p in att)
             if g.strategy == "dense":
                 zero += g.num_nodes ** 2        # graphax's dense_adj
+            rhs = gat_rhs if isinstance(func, GATFunction) else \
+                functools.partial(transformer_rhs, mask=fstate.mask)
 
             def f_adj(p, t, y):
-                return transformer_rhs(cfg, g, p, y, mask=fstate.mask)
+                return rhs(cfg, g, p, y)
         elif g.strategy == "dense":
             params = (alpha, beta, fstate.x0, fstate.dense)
             track = (True,) * len(params)

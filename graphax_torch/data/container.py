@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -19,6 +20,7 @@ class GraphData:
     val_mask: torch.Tensor
     test_mask: torch.Tensor
     num_classes: int
+    pos_encoding: Optional[torch.Tensor] = None   # [N, P] f32 (Beltrami)
 
     @property
     def num_nodes(self) -> int:
@@ -33,4 +35,16 @@ class GraphData:
             self, graph=self.graph.to(device), x=self.x.to(device),
             y=self.y.to(device), train_mask=self.train_mask.to(device),
             val_mask=self.val_mask.to(device),
-            test_mask=self.test_mask.to(device))
+            test_mask=self.test_mask.to(device),
+            pos_encoding=None if self.pos_encoding is None
+            else self.pos_encoding.to(device))
+
+    def with_graph(self, graph: Graph) -> "GraphData":
+        return dataclasses.replace(self, graph=graph)
+
+    def with_pos_encoding(self, pos_encoding) -> "GraphData":
+        """``pos_encoding [N, P]`` (numpy or tensor) as f32 on the
+        features' device (`graphax/data/container.py:47-48`)."""
+        pe = torch.as_tensor(pos_encoding, dtype=torch.float32,
+                             device=self.x.device)
+        return dataclasses.replace(self, pos_encoding=pe)

@@ -6,7 +6,8 @@ native region-growing partition, capacity ``window``) occupy a contiguous
 id range, rebuilds the graph on the new ids and attaches the windowed
 layout (`graphax_torch.kernels.windows`). The reordered dataset is the same
 task up to a node permutation: features, labels and split masks follow the
-edge endpoints. Host-side, once per dataset."""
+edge endpoints, and so do Beltrami's positional encodings
+(`graphax/data/reorder.py:91`). Host-side, once per dataset."""
 
 from __future__ import annotations
 
@@ -52,4 +53,6 @@ def community_reorder(data: GraphData, window: int = 512, tile: int = 128,
     return dataclasses.replace(
         data, graph=graph, x=data.x[inv], y=data.y[inv],
         train_mask=data.train_mask[inv], val_mask=data.val_mask[inv],
-        test_mask=data.test_mask[inv])
+        test_mask=data.test_mask[inv],
+        pos_encoding=None if data.pos_encoding is None
+        else data.pos_encoding[inv.to(data.pos_encoding.device)])

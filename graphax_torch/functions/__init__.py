@@ -1,5 +1,6 @@
 """Diffusion right-hand sides f(t, x) = dx/dt."""
 
+from graphax_torch.functions.gat import GATFunction, gat_attention_apply
 from graphax_torch.functions.common import (
     FuncState, apply_alpha_beta, init_alpha_beta, prepare_scalars,
 )
@@ -17,14 +18,15 @@ def get_function(cfg, in_dim: int):
         return LaplacianFunction(cfg, in_dim)
     if cfg.function == "transformer":
         return TransformerFunction(cfg, in_dim)
-    raise NotImplementedError(
-        f"function {cfg.function!r} is not ported yet (ROADMAP Queue 1, M8)")
+    if cfg.function == "GAT":
+        return GATFunction(cfg, in_dim)
+    raise ValueError(f"unknown function {cfg.function!r}")
 
 
 __all__ = [
-    "FuncState", "LaplacianFunction", "TransformerAttention",
+    "FuncState", "GATFunction", "LaplacianFunction", "TransformerAttention",
     "TransformerFunction", "apply_alpha_beta", "attention_edge_means",
-    "attention_means_supported", "get_function", "init_alpha_beta",
-    "laplacian_rhs", "multiply_attention", "prepare_scalars",
+    "attention_means_supported", "gat_attention_apply", "get_function",
+    "init_alpha_beta", "laplacian_rhs", "multiply_attention", "prepare_scalars",
     "transformer_attention_apply",
 ]

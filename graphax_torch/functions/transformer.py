@@ -40,9 +40,18 @@
   - everything past the kernels' gates, and mix_features: the plain
     per-edge path with autograd, graphax's own route there.
 
+Beltrami with exp_kernel (`fused_attention.beltrami_exp`) splits the state
+into its features and its positional encodings, each with its own Q/K/V
+projections and Gaussian kernel, the score their product (graphax
+:45-60, 118-137). It takes graphax's routes: never the dense route
+(:276-279; the per-edge path on a dense graph), the windowed twin on the
+windowed strategy (graphax's winatt kernel gates it out), the flash kernel
+in ``beltrami_exp`` mode on CSR with the per-edge gradient replayed
+(``pallas_bwd_supported`` excludes it). Beltrami on the column route
+raises (ROADMAP Queue 1, item 9).
+
 The Q, K and V projections are dense matmuls here, as graphax leaves them
-to XLA. Not ported yet, and raising: Beltrami (ROADMAP Queue 1, item 9)
-and multi_modal (item 10)."""
+to XLA. Not ported yet, and raising: multi_modal (item 10)."""
 
 from __future__ import annotations
 
@@ -67,8 +76,9 @@ from graphax_torch.kernels.dispatch import (
 )
 from graphax_torch.kernels.flash_dense import flash_attention_multihead
 from graphax_torch.kernels.fused_attention import (
-    COS_EPS, flash_attention_ax, flash_supported, fused_attention_ax,
-    prep_inputs, train_supported,
+    COS_EPS, beltrami_exp, beltrami_kernels, beltrami_split,
+    flash_attention_ax, flash_supported, fused_attention_ax, prep_inputs,
+    score_args, train_supported,
 )
 from graphax_torch.kernels.windowed_attention import \
     windowed_attention_ax_plain
@@ -78,39 +88,50 @@ from graphax_torch.kernels.winatt import (
 from graphax_torch.utils.params import linear_apply, linear_init
 
 
+_BELTRAMI_SCALARS = ("output_var_x", "lengthscale_x", "output_var_p",
+                     "lengthscale_p")
+
+
 class TransformerAttention(nn.Module):
     """Q/K/V projections into ``attention_dim`` over ``heads``, plus Wout and
-    (exp_kernel) the Gaussian kernel's output_var and lengthscale."""
+    (exp_kernel) the Gaussian kernel's output_var and lengthscale. Under
+    :func:`beltrami_exp`, Qx/Kx/Vx on the features (the state less its
+    ``pos_enc_hidden_dim`` positional columns), Qp/Kp/Vp on the positional
+    columns, and each kernel's output_var and lengthscale (graphax
+    :45-60)."""
 
     def __init__(self, cfg, in_dim: int):
         super().__init__()
-        if cfg.beltrami:
-            raise NotImplementedError(
-                "Beltrami attention is not ported yet: it reads the DeepWalk "
-                "positional encodings (ROADMAP Queue 1, item 9)")
         att = cfg.attention_dim
         self.cfg = cfg
-        self.Q = nn.Linear(in_dim, att)
-        self.K = nn.Linear(in_dim, att)
-        self.V = nn.Linear(in_dim, att)
-        if cfg.attention_type == "exp_kernel":
-            self.output_var = nn.Parameter(torch.ones(()))
-            self.lengthscale = nn.Parameter(torch.ones(()))
+        if beltrami_exp(cfg):
+            feat_in = in_dim - cfg.pos_enc_hidden_dim
+            for name in ("Qx", "Kx", "Vx"):
+                setattr(self, name, nn.Linear(feat_in, att))
+            for name in ("Qp", "Kp", "Vp"):
+                setattr(self, name, nn.Linear(cfg.pos_enc_hidden_dim, att))
+            for name in _BELTRAMI_SCALARS:
+                setattr(self, name, nn.Parameter(torch.ones(())))
+        else:
+            self.Q = nn.Linear(in_dim, att)
+            self.K = nn.Linear(in_dim, att)
+            self.V = nn.Linear(in_dim, att)
+            if cfg.attention_type == "exp_kernel":
+                self.output_var = nn.Parameter(torch.ones(()))
+                self.lengthscale = nn.Parameter(torch.ones(()))
         self.Wout = nn.Linear(att // cfg.heads, in_dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for layer in (self.Q, self.K, self.V, self.Wout):
+        for layer in self.children():
             linear_init(layer, generator, "const", 1e-5)
-        if self.cfg.attention_type == "exp_kernel":
-            nn.init.ones_(self.output_var)
-            nn.init.ones_(self.lengthscale)
+        for p in self.parameters(recurse=False):
+            nn.init.ones_(p)
 
 
 def attention_means_supported(cfg) -> bool:
     """Configs the pin covers (graphax `attention_means_supported`)."""
     return (cfg.attention_norm_idx == 0 and not cfg.square_plus
-            and not cfg.mix_features and not cfg.multi_modal
-            and not cfg.beltrami)
+            and not cfg.mix_features and not cfg.multi_modal)
 
 
 def attention_edge_means(att: TransformerAttention, cfg, graph, x, *,
@@ -140,9 +161,9 @@ def attention_edge_means(att: TransformerAttention, cfg, graph, x, *,
     with torch.no_grad():
         x = x.detach().contiguous()
         p = prep_inputs(cfg, att, graph, x)
+        scal, bel = score_args(p)
         mean = attention_pin(graph.csr, p["q"], x, p["wk"], p["bk"],
-                             p["edge_w"], p["att_type"], p["heads"],
-                             p["ov2"], p["inv2l2"])
+                             p["edge_w"], *scal, **bel)
         out = torch.zeros(graph.edge_buffer_size, dtype=torch.float32,
                           device=x.device)
         out[:graph.num_edges] = mean
@@ -184,6 +205,21 @@ def _edge_scores(cfg, att, q_src, k_dst):
     raise ValueError(f"unknown attention_type {cfg.attention_type!r}")
 
 
+def _beltrami_edge_scores(cfg, att, graph, x):
+    """``[E_pad, H]`` Beltrami scores (graphax :118-137): the product of
+    the feature and positional Gaussian kernels of each edge."""
+    heads = cfg.heads
+    feat, pos = beltrami_split(cfg, x)
+
+    def sq(lq, lk, z):
+        q = _split_heads(linear_apply(lq, z), heads)
+        k = _split_heads(linear_apply(lk, z), heads)
+        return ((q[graph.row] - k[graph.col]) ** 2).sum(-1)
+
+    return beltrami_kernels(att, sq(att.Qx, att.Kx, feat),
+                            sq(att.Qp, att.Kp, pos))
+
+
 def edge_attention(att, cfg, graph, x):
     """(attention ``[E_pad, H]`` normalised over the real edges of each row
     (``attention_norm_idx=0``) or column, the raw scores ``[E_pad, H]``):
@@ -191,9 +227,12 @@ def edge_attention(att, cfg, graph, x):
     if cfg.multi_modal:
         raise NotImplementedError(_MULTI_MODAL)
     heads = cfg.heads
-    q = _split_heads(linear_apply(att.Q, x), heads)
-    k = _split_heads(linear_apply(att.K, x), heads)
-    prods = _edge_scores(cfg, att, q[graph.row], k[graph.col])
+    if beltrami_exp(cfg):
+        prods = _beltrami_edge_scores(cfg, att, graph, x)
+    else:
+        q = _split_heads(linear_apply(att.Q, x), heads)
+        k = _split_heads(linear_apply(att.K, x), heads)
+        prods = _edge_scores(cfg, att, q[graph.row], k[graph.col])
     if cfg.reweight_attention:
         prods = prods * graph.edge_weight[:, None]
     is_row = cfg.attention_norm_idx == 0
@@ -208,9 +247,10 @@ def edge_attention(att, cfg, graph, x):
 def transformer_attention_apply(att: TransformerAttention, cfg, graph, x):
     """(attention ``[E_pad, H]`` normalised over the real edges of each row
     (``attention_norm_idx=0``) or column, (v ``[N, H, Dh]``, the raw scores
-    ``[E_pad, H]``))."""
+    ``[E_pad, H]``)); v is None under Beltrami, as graphax's."""
     attention, prods = edge_attention(att, cfg, graph, x)
-    v = _split_heads(linear_apply(att.V, x), cfg.heads)
+    v = None if beltrami_exp(cfg) else \
+        _split_heads(linear_apply(att.V, x), cfg.heads)
     return attention, (v, prods)
 
 
@@ -272,6 +312,39 @@ class _Att(NamedTuple):
             v, wout = _Linear(vw, vb), _Linear(ow, ob)
         return (cls(_Linear(qw, qb), _Linear(kw, kb), ov, ls, v, wout),
                 tuple(rest))
+
+
+class _BeltramiAtt(NamedTuple):
+    """`_Att`'s counterpart under :func:`beltrami_exp`: the tensors its
+    scores read, in the flat layout ``(Wqx, bqx, Wkx, bkx, Wqp, bqp, Wkp,
+    bkp, output_var_x, lengthscale_x, output_var_p, lengthscale_p)``."""
+    Qx: _Linear
+    Kx: _Linear
+    Qp: _Linear
+    Kp: _Linear
+    output_var_x: torch.Tensor
+    lengthscale_x: torch.Tensor
+    output_var_p: torch.Tensor
+    lengthscale_p: torch.Tensor
+
+    @staticmethod
+    def flatten(cfg, att) -> tuple:
+        out = ()
+        for name in ("Qx", "Kx", "Qp", "Kp"):
+            layer = getattr(att, name)
+            out += (layer.weight, layer.bias)
+        return out + tuple(getattr(att, n) for n in _BELTRAMI_SCALARS)
+
+    @classmethod
+    def from_flat(cls, cfg, flat) -> tuple:
+        lin = [_Linear(flat[i], flat[i + 1]) for i in range(0, 8, 2)]
+        return cls(*lin, *flat[8:12]), tuple(flat[12:])
+
+
+def _att_tensors(cfg):
+    """The flat layout of ``cfg``'s attention tensors: `_Att` or
+    `_BeltramiAtt`."""
+    return _BeltramiAtt if beltrami_exp(cfg) else _Att
 
 
 def flash_dense_gate(cfg, n: int) -> bool:
@@ -341,7 +414,8 @@ def _replayed(cfg, att, graph, x, fast, plain, replay=True,
     tensors of ``tensor_kw`` (the windowed reweight's dense weights, the
     dense graph's mask); without ``replay``, ``plain`` itself with
     autograd."""
-    tensors = (x, *_Att.flatten(cfg, att), *tensor_kw.values())
+    tensors = (x, *_att_tensors(cfg).flatten(cfg, att),
+               *tensor_kw.values())
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in tensors)):
         return fast(cfg, att, graph, x, **tensor_kw)
@@ -350,7 +424,7 @@ def _replayed(cfg, att, graph, x, fast, plain, replay=True,
 
     def bind(fn):
         def call(x, *flat):
-            a, rest = _Att.from_flat(cfg, flat)
+            a, rest = _att_tensors(cfg).from_flat(cfg, flat)
             return fn(cfg, a, graph, x, **dict(zip(tensor_kw, rest)))
         return call
 
@@ -364,13 +438,22 @@ def attention_route(cfg, graph, d: int) -> str:
     (the windowed twin with autograd), ``"column"`` (the three-kernel
     column route), ``"flash"`` (the flash kernels, the hand-written
     backward), ``"flash_replay"`` (the flash kernels, the per-edge path's
-    gradient replayed) or ``"edge"`` (the per-edge path with autograd)."""
+    gradient replayed) or ``"edge"`` (the per-edge path with autograd).
+    Beltrami's split score never takes the dense route: on a dense graph
+    within its guard it takes the per-edge path, as graphax's (:276-279);
+    under column normalisation elsewhere it raises."""
+    bel = beltrami_exp(cfg)
     if use_dense_attention(graph, cfg.heads):
-        return "dense"
+        return "edge" if bel else "dense"
     row_norm = cfg.attention_norm_idx == 0
     if graph.strategy == "windowed" and row_norm and not cfg.mix_features:
         return "windowed" if winatt_supported(cfg, d) else "windowed_plain"
     if not row_norm:
+        if bel:
+            raise NotImplementedError(
+                "Beltrami on the column route (attention_norm_idx=1: K3 and "
+                "the column norm in beltrami_exp) is not ported yet (ROADMAP "
+                "Queue 1, item 9)")
         return "column" if colnorm_supported(cfg, d) else "edge"
     if not flash_supported(cfg, d):
         return "edge"
@@ -419,7 +502,7 @@ def transformer_rhs(cfg, graph, p, x, mask=None):
     adjoint differentiates it with respect to each); ``mask``, a dense
     graph's adjacency mask."""
     alpha, beta, x0, *flat = p
-    att, rest = _Att.from_flat(cfg, flat)
+    att, rest = _att_tensors(cfg).from_flat(cfg, flat)
     ax = attention_ax(cfg, att, graph, x, rest[0] if rest else None, mask,
                       vjp_now=True)
     return apply_alpha_beta(cfg, alpha, beta, ax, x, x0)
@@ -448,7 +531,7 @@ class TransformerFunction(nn.Module):
     def adjoint_tensors(self) -> tuple:
         """The attention tensors `transformer_rhs` reads after alpha, beta
         and x0, in the `_Att` flat layout."""
-        return _Att.flatten(self.cfg, self.att)
+        return _att_tensors(self.cfg).flatten(self.cfg, self.att)
 
     def rhs(self, alpha, beta, fstate, t, x):
         ax = attention_ax(self.cfg, self.att, fstate.graph, x, fstate.dense,

@@ -50,17 +50,17 @@ SIGNATURES = {
     },
     "attention_pin": {
         "gx_attention_pin": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _F, _F, _I, _I, _I, _I, _I, _I, _P],
+                             _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P],
     },
     "fused_attention": {
         "gx_attention_kproj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P],
         "gx_attention_kproj_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "gx_attention_gmax": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
-                              _I, _F, _F, _I, _I, _P],
+                              _I, _F, _F, _F, _F, _I, _I, _P],
         "gx_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "gx_attention_fwd_res": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _P],

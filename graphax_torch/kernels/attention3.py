@@ -37,7 +37,7 @@ def colnorm_supported(cfg, d: int) -> bool:
     the score kernels' staged rows within one block's shared memory."""
     a = cfg.attention_dim
     return (cfg.attention_norm_idx != 0 and cfg.attention_type in ATT_TYPES
-            and not cfg.beltrami and not cfg.mix_features
+            and not fa.beltrami_exp(cfg) and not cfg.mix_features
             and not cfg.multi_modal and a % cfg.heads == 0
             and fa.kproj_fits(d, a) and 4 * fa._WPB * a <= fa._SMEM_STATIC)
 

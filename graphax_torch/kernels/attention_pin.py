@@ -3,10 +3,11 @@
 Replaces graphax's K1 + K2 + `attention_edge_means_pallas`
 (`graphax/kernels/pallas_attention.py:114, 197, 944-991`); the CUDA source
 is `csrc/attention_pin.cu`. Covered: the `_score_math` score types
-scaled_dot (q pre-scaled by the caller), cosine_sim, pearson and
-exp_kernel, with reweight on or off, row softmax without squareplus (the
-gate of `attention_means_supported`, :994-997). Not differentiable: the
-hard-attention block calls it under no_grad.
+scaled_dot (q pre-scaled by the caller), cosine_sim, pearson, exp_kernel
+and Beltrami's beltrami_exp (q and the K weight in the layout of
+`fused_attention.beltrami_columns`), with reweight on or off, row softmax
+without squareplus (the gate of `attention_means_supported`, :994-997).
+Not differentiable: the hard-attention block calls it under no_grad.
 
 On the card it runs two kernels: the K table ``K = x Wk + bk [N, A]`` in
 f32, once per node, through :func:`fused_attention.attention_kproj`
@@ -32,14 +33,16 @@ from graphax_torch.sparse.ops import segment_max, segment_sum
 
 
 def attention_pin_plain(layout: Layout, q, x, wk, bk, edge_w, att_type: str,
-                        heads: int, ov2: float = 1.0, inv2l2: float = 0.5):
+                        heads: int, ov2: float = 1.0, inv2l2: float = 0.5, *,
+                        ov2p: float = 1.0, inv2l2p: float = 0.5):
     """The pin in plain PyTorch: ``[layout.num_slots]`` f32."""
     e, n = layout.num_slots, layout.num_rows
     seg, col = layout.seg, layout.idx.long()
     k_nodes = x.float() @ wk.float() + bk.float()         # [N, A] f32
     qe = q.float()[seg].reshape(e, heads, -1)
     ke = k_nodes[col].reshape(e, heads, -1)
-    s = fa.score_math(att_type, qe, ke, ov2, inv2l2)       # [E, H]
+    s = fa.score_math(att_type, qe, ke, ov2, inv2l2, ov2p=ov2p,
+                      inv2l2p=inv2l2p)                     # [E, H]
     if edge_w is not None:
         s = s * edge_w[:e, None].float()
     shift = segment_max(s, seg, n)
@@ -51,23 +54,26 @@ def attention_pin_plain(layout: Layout, q, x, wk, bk, edge_w, att_type: str,
 
 def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
                   wk: torch.Tensor, bk: torch.Tensor, edge_w, att_type: str,
-                  heads: int, ov2: float = 1.0, inv2l2: float = 0.5
-                  ) -> torch.Tensor:
+                  heads: int, ov2: float = 1.0, inv2l2: float = 0.5, *,
+                  ov2p: float = 1.0, inv2l2p: float = 0.5) -> torch.Tensor:
     """Head-mean attention per CSR slot, ``[layout.num_slots]`` f32.
 
     ``q [N, A]`` (pre-scaled for scaled_dot) and ``x [N, D]``, ``wk [D, A]``
     in one dtype; ``bk [A]`` f32; ``edge_w [>= E]`` f32 reweight values or
-    None."""
+    None; ``ov2p`` and ``inv2l2p``: beltrami_exp's positional pair."""
     if att_type not in fa.ATT_TYPES:
-        raise ValueError(f"attention_pin: unsupported att_type {att_type!r} "
-                         "(beltrami_exp is not covered)")
+        raise ValueError(f"attention_pin: unsupported att_type {att_type!r}")
+    if att_type == "beltrami_exp" and (q.shape[1] // heads) % 2:
+        raise ValueError("attention_pin: beltrami_exp needs an even head "
+                         "slice")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, x, wk, bk, edge_w)):
         raise RuntimeError("attention_pin is not differentiable; call it "
                            "under torch.no_grad()")
     if not x.is_cuda:
         return attention_pin_plain(layout, q, x, wk, bk, edge_w, att_type,
-                                   heads, ov2, inv2l2)
+                                   heads, ov2, inv2l2, ov2p=ov2p,
+                                   inv2l2p=inv2l2p)
     n, d = x.shape
     a = q.shape[1]
     if x.dtype not in fa._DTYPES or q.dtype != x.dtype \
@@ -106,7 +112,8 @@ def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),
         kt.data_ptr(), edge_w.data_ptr() if edge_w is not None else None,
         plan.data_ptr(), st.data_ptr(), out.data_ptr(), n, a, heads,
-        fa.ATT_TYPES[att_type], float(ov2), float(inv2l2), fa._DTYPES[x.dtype],
+        fa.ATT_TYPES[att_type], float(ov2), float(inv2l2), float(ov2p),
+        float(inv2l2p), fa._DTYPES[x.dtype],
         kvec, wpb, fa.ROW_SPLIT, nlong, nseg, _build.stream_ptr(x))
     _build.check(err, "attention_pin")
     _build.LAUNCHES["attention_pin"] += 1

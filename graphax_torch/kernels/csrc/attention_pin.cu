@@ -6,7 +6,8 @@
 // and the per-(row, head) max), `_make_norm_kernel` (K2, :197, called by
 // `_norm_call` :235, softmax mode: exp(s - rowmax) and the per-(row, head)
 // denominators) and the normalise-and-mean of `attention_edge_means_pallas`
-// (:976-991: att = e / where(d > 0, d, 1), mean over heads).
+// (:976-991: att = e / where(d > 0, d, 1), mean over heads), Beltrami's
+// `beltrami_exp` scores included (attention_score.cuh).
 //
 // The K projection is not here: the wrapper computes K = x Wk + bk [N, A]
 // in f32 once per node through fused_attention.cu's attention_kproj (bf16
@@ -89,7 +90,7 @@ __global__ void __launch_bounds__(256, MIN_BLOCKS)
 pin_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
            const T* __restrict__ q, const float* __restrict__ kt,
            const float* __restrict__ ew, float* __restrict__ out, int n,
-           int a, int h, int att_type, float ov2, float inv2l2, int kvec) {
+           int a, int h, int att_type, gx_att::Scal scal, int kvec) {
   extern __shared__ float smem[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * (blockDim.x >> 5) + w;
@@ -103,7 +104,7 @@ pin_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   // the columns, loaded while q comes in
   const int col = lane < len ? idx[beg + lane] : 0;
   stage_q(q, r, a, qs, lane);
-  batch_scores(qs, kt, idx, ew, beg, len, a, h, att_type, ov2, inv2l2, kvec,
+  batch_scores(qs, kt, idx, ew, beg, len, a, h, att_type, scal, kvec,
                ws, lane, col);
   for (int hh = 0; hh < h; ++hh) {
     const float s = lane < len ? ws[lane * h + hh] : -INFINITY;
@@ -126,7 +127,7 @@ pin_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
               const T* __restrict__ q, const float* __restrict__ kt,
               const float* __restrict__ ew, const int* __restrict__ plan,
               float* __restrict__ st, int nlong, int nseg, int a, int h,
-              int att_type, float ov2, float inv2l2, int kvec, int seg) {
+              int att_type, gx_att::Scal scal, int kvec, int seg) {
   extern __shared__ float smem[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = blockIdx.x * (blockDim.x >> 5) + w;
@@ -140,7 +141,7 @@ pin_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
   stage_q(q, r, a, qs, lane);
   for (int b0 = sb; b0 < se; b0 += BATCH) {
     const int cnt = min(BATCH, se - b0);
-    batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, ov2, inv2l2, kvec,
+    batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, scal, kvec,
                  ws, lane);
     for (int hh = 0; hh < h; ++hh) {
       const float s = lane < cnt ? ws[lane * h + hh] : -INFINITY;
@@ -171,8 +172,8 @@ pin_seg_write(const int* __restrict__ ptr, const int* __restrict__ idx,
               const T* __restrict__ q, const float* __restrict__ kt,
               const float* __restrict__ ew, const int* __restrict__ plan,
               const float* __restrict__ st, float* __restrict__ out,
-              int nlong, int nseg, int a, int h, int att_type, float ov2,
-              float inv2l2, int kvec, int seg) {
+              int nlong, int nseg, int a, int h, int att_type,
+              gx_att::Scal scal, int kvec, int seg) {
   extern __shared__ float smem[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = blockIdx.x * (blockDim.x >> 5) + w;
@@ -197,7 +198,7 @@ pin_seg_write(const int* __restrict__ ptr, const int* __restrict__ idx,
   stage_q(q, r, a, qs, lane);
   for (int b0 = sb; b0 < se; b0 += BATCH) {
     const int cnt = min(BATCH, se - b0);
-    batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, ov2, inv2l2, kvec,
+    batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, scal, kvec,
                  ws, lane);
     if (lane < cnt) out[b0 + lane] = edge_mean(ws, ms, ds, h, lane);
   }
@@ -212,15 +213,15 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 template <typename T>
 cudaError_t run(const void* ptr, const void* idx, const void* q,
                 const void* kt, const void* ew, const void* plan, void* st,
-                void* out, int n, int a, int h, int att_type, float ov2,
-                float inv2l2, int kvec, int wpb, int seg, int nlong, int nseg,
-                cudaStream_t s) {
+                void* out, int n, int a, int h, int att_type,
+                gx_att::Scal scal, int kvec, int wpb, int seg, int nlong,
+                int nseg, cudaStream_t s) {
   const size_t smem = sizeof(float) * (size_t)wpb * warp_floats(a, h);
   cudaError_t err = allow_smem(pin_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   pin_kernel<T><<<(n + wpb - 1) / wpb, wpb * 32, smem, s>>>(
       (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
-      (const float*)ew, (float*)out, n, a, h, att_type, ov2, inv2l2, kvec);
+      (const float*)ew, (float*)out, n, a, h, att_type, scal, kvec);
   err = cudaGetLastError();
   if (err != cudaSuccess || nseg == 0) return err;
   const int grid = (nseg + wpb - 1) / wpb;
@@ -228,13 +229,13 @@ cudaError_t run(const void* ptr, const void* idx, const void* q,
   pin_seg_stats<T><<<grid, wpb * 32, smem, s>>>(
       (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
       (const float*)ew, (const int*)plan, (float*)st, nlong, nseg, a, h,
-      att_type, ov2, inv2l2, kvec, seg);
+      att_type, scal, kvec, seg);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = allow_smem(pin_seg_write<T>, smem)) != cudaSuccess) return err;
   pin_seg_write<T><<<grid, wpb * 32, smem, s>>>(
       (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
       (const float*)ew, (const int*)plan, (const float*)st, (float*)out,
-      nlong, nseg, a, h, att_type, ov2, inv2l2, kvec, seg);
+      nlong, nseg, a, h, att_type, scal, kvec, seg);
   return cudaGetLastError();
 }
 
@@ -244,24 +245,29 @@ extern "C" {
 
 // q [n, a] in dtype (0 float32, 1 bfloat16); kt [n, a] float32 keys (the
 // K projection's); ew [E] float32 reweight values or null; out [E] float32
-// head-mean attention per CSR slot. kvec: dk % 4 == 0 and kt on 16 bytes;
-// wpb warps per block; rows of more than 32 edges in the nseg segments of
-// `seg` edges of `plan` (nlong rows), their (max, sum) in st [nseg, 2h].
+// head-mean attention per CSR slot; ov2, inv2l2 (exp_kernel's and
+// beltrami_exp's feature kernel) and ov2p, inv2l2p (beltrami_exp's
+// positional kernel). kvec: dk % 4 == 0 and kt on 16 bytes (scaled_dot's
+// 16-byte loads); wpb warps per block; rows of more than 32 edges in the nseg
+// segments of `seg` edges of `plan` (nlong rows), their (max, sum) in st
+// [nseg, 2h].
 // Returns the cudaError_t of the launch.
 int gx_attention_pin(const void* ptr, const void* idx, const void* q,
                      const void* kt, const void* ew, const void* plan,
                      void* st, void* out, int n, int a, int h, int att_type,
-                     float ov2, float inv2l2, int dtype, int kvec, int wpb,
-                     int seg, int nlong, int nseg, void* stream) {
+                     float ov2, float inv2l2, float ov2p, float inv2l2p,
+                     int dtype, int kvec, int wpb, int seg, int nlong,
+                     int nseg, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  const gx_att::Scal scal{ov2, inv2l2, ov2p, inv2l2p};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)run<float>(ptr, idx, q, kt, ew, plan, st, out, n, a, h,
-                           att_type, ov2, inv2l2, kvec, wpb, seg, nlong, nseg,
+                           att_type, scal, kvec, wpb, seg, nlong, nseg,
                            s);
   if (dtype == 1)
     return (int)run<__nv_bfloat16>(ptr, idx, q, kt, ew, plan, st, out, n, a,
-                                   h, att_type, ov2, inv2l2, kvec, wpb, seg,
+                                   h, att_type, scal, kvec, wpb, seg,
                                    nlong, nseg, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,13 @@
 // (the pin and the CSR flash kernels).
 //
 // att_type: 0 scaled_dot (q pre-scaled by 1/sqrt(dk) by the caller),
-// 1 cosine_sim, 2 pearson, 3 exp_kernel (ov2 * exp(-|q - k|^2 * inv2l2)).
+// 1 cosine_sim, 2 pearson, 3 exp_kernel (ov2 * exp(-|q - k|^2 * inv2l2)),
+// 4 beltrami_exp: Beltrami's product of two Gaussian kernels, the head's
+// slice of 2 * (dk / 2) values its feature half then its positional half
+// (the host interleaves graphax's [feature A | positional A] layout per
+// head), ov2 * exp(-|qx - kx|^2 * inv2l2) * ov2p * exp(-|qp - kp|^2 *
+// inv2l2p) (graphax's combined-weight trick,
+// graphax/kernels/pallas_attention.py:80-91, 893-915).
 
 #pragma once
 
@@ -20,15 +26,44 @@ namespace gx_att {
 
 constexpr float COS_EPS = 1e-5f;
 
+// the score's scalars: exp_kernel's (ov2, inv2l2), and beltrami_exp's
+// positional pair (ov2p, inv2l2p) beside them
+struct Scal {
+  float ov2, inv2l2, ov2p, inv2l2p;
+};
+
 __device__ __forceinline__ float val(float v) { return v; }
 __device__ __forceinline__ float val(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// beltrami_exp: exp_kernel's arithmetic on each half of the head's slice,
+// the product in graphax's order. Not inlined: inlined, its second loop
+// and scalars raised the register count of every kernel that scores (the
+// pin kernel spilled at its 48-register bound), whatever its score type.
+// Reading K here by 16-byte loads slowed the other score types' kernels by
+// 10-22 % (PERF.md), so the loop reads one value at a time
+template <typename Q>
+__device__ __noinline__ float beltrami(const Q* q, const float* k, int dk,
+                                       float ov2, float inv2l2, float ov2p,
+                                       float inv2l2p) {
+  const int hk = dk >> 1;
+  float sx = 0.f, sp = 0.f;
+  for (int i = 0; i < hk; ++i) {
+    const float t = val(q[i]) - k[i];
+    sx += t * t;
+  }
+  for (int i = hk; i < dk; ++i) {
+    const float t = val(q[i]) - k[i];
+    sp += t * t;
+  }
+  return ov2 * expf(-sx * inv2l2) * ov2p * expf(-sp * inv2l2p);
+}
+
 // q's head slice in f32 or the state dtype (its values are exact in f32)
 template <typename Q>
 __device__ __forceinline__ float score(const Q* q, const float* k, int dk,
-                                       int att_type, float ov2, float inv2l2) {
+                                       int att_type, Scal scal) {
   if (att_type == 0) {
     float s = 0.f;
     for (int i = 0; i < dk; ++i) s += val(q[i]) * k[i];
@@ -40,8 +75,10 @@ __device__ __forceinline__ float score(const Q* q, const float* k, int dk,
       const float t = val(q[i]) - k[i];
       sq += t * t;
     }
-    return ov2 * expf(-sq * inv2l2);
+    return scal.ov2 * expf(-sq * scal.inv2l2);
   }
+  if (att_type == 4)
+    return beltrami(q, k, dk, scal.ov2, scal.inv2l2, scal.ov2p, scal.inv2l2p);
   float qm = 0.f, km = 0.f;
   if (att_type == 2) {
     for (int i = 0; i < dk; ++i) { qm += val(q[i]); km += k[i]; }
@@ -85,8 +122,8 @@ __device__ __forceinline__ float warp_sum(float v) { return group_sum<32>(v); }
 // q) in flight before their products, in the order of score()
 template <typename Q = float, bool QV = false>
 __device__ __forceinline__ float score_head(const Q* q, const float* kr,
-                                            int dk, int att_type, float ov2,
-                                            float inv2l2, int kvec) {
+                                            int dk, int att_type,
+                                            Scal scal, int kvec) {
   if (att_type == 0 && kvec) {
     constexpr int QE = 16 / (int)sizeof(Q);   // q values in 16 bytes
     float s = 0.f;
@@ -126,7 +163,7 @@ __device__ __forceinline__ float score_head(const Q* q, const float* kr,
     }
     return s;
   }
-  return score(q, kr, dk, att_type, ov2, inv2l2);
+  return score(q, kr, dk, att_type, scal);
 }
 
 // the batch's edges e0 + j, j < cnt, one per lane: lane j loads edge j's
@@ -137,7 +174,7 @@ __device__ __forceinline__ float score_head(const Q* q, const float* kr,
 __device__ __forceinline__ int batch_scores(
     const float* qs, const float* __restrict__ kt, const int* __restrict__ idx,
     const float* __restrict__ ew, int e0, int cnt, int a, int h, int att_type,
-    float ov2, float inv2l2, int kvec, float* ws, int lane, int pre = -1) {
+    Scal scal, int kvec, float* ws, int lane, int pre = -1) {
   __syncwarp();  // every lane is done with the last batch's ws
   int col = 0;
   if (lane < cnt) col = pre >= 0 ? pre : idx[e0 + lane];
@@ -147,7 +184,7 @@ __device__ __forceinline__ int batch_scores(
     const int c = __shfl_sync(0xffffffffu, col, j & 31);
     if (p < pairs) {
       float s = score_head(qs + hh * dk, kt + (size_t)c * a + hh * dk, dk,
-                           att_type, ov2, inv2l2, kvec);
+                           att_type, scal, kvec);
       if (ew != nullptr) s *= ew[e0 + j];
       ws[p] = s;
     }

@@ -26,6 +26,12 @@
 //     denominators, pallas_winatt.py:234-236) and, per edge, a column table
 //     read at col[e] (`per_edge_denom=True`, :1089-1108): attspmm_kernel.
 //
+// The scores are `_score_math`'s (attention_score.cuh), Beltrami's
+// `beltrami_exp` among them (:80-91: q and the K table 2A wide, each head's
+// slice its feature half then its positional half), which the flash and
+// gmax kernels take as graphax's do (`fused_path_applicable`, the pin's
+// `attention_means_supported`); the training kernels score scaled_dot only.
+//
 // Eight kernels here:
 //   kproj_kernel  K[N, A] = x Wk + bk in f32, once per node. graphax projects
 //                 every gathered source row inside its kernels (E rows); the
@@ -567,7 +573,7 @@ gmax_kernel(const long long* __restrict__ seg, const int* __restrict__ idx,
             const T* __restrict__ q, const float* __restrict__ kt,
             const float* __restrict__ ew, unsigned* __restrict__ state,
             float* __restrict__ out, long long pairs, int a, int h,
-            int att_type, float ov2, float inv2l2, int qvec) {
+            int att_type, gx_att::Scal scal, int qvec) {
   __shared__ float wmax[GM_THREADS / 32];
   const int dk = a / h;
   float m = -INFINITY;
@@ -578,7 +584,7 @@ gmax_kernel(const long long* __restrict__ seg, const int* __restrict__ idx,
     const int hh = (int)(p - e * h);
     const T* qh = q + (size_t)__ldg(seg + e) * a + hh * dk;
     const float* kh = kt + (size_t)__ldg(idx + e) * a + hh * dk;
-    float s = gx_att::score_head<T, true>(qh, kh, dk, att_type, ov2, inv2l2,
+    float s = gx_att::score_head<T, true>(qh, kh, dk, att_type, scal,
                                           qvec);
     if (ew != nullptr) s *= __ldg(ew + e);
     m = fmaxf(m, s);
@@ -739,8 +745,8 @@ flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
              const T* __restrict__ q, const T* __restrict__ x,
              const float* __restrict__ kt, const float* __restrict__ ew,
              const float* __restrict__ gshift, void* __restrict__ out,
-             int otype, int n, int d, int a, int h, int att_type, float ov2,
-             float inv2l2, int kvec) {
+             int otype, int n, int d, int a, int h, int att_type,
+             gx_att::Scal scal, int kvec) {
   using V = Vec<T, VB>;
   extern __shared__ float smem[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -757,7 +763,7 @@ flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   if (len > 0) {
     for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
     __syncwarp();
-    batch_scores(qs, kt, idx, ew, beg, len, a, h, att_type, ov2, inv2l2, kvec,
+    batch_scores(qs, kt, idx, ew, beg, len, a, h, att_type, scal, kvec,
                  ws, lane, col);
     batch_stats<T, SQP>(ws, ms, cs, len, h, SQP ? *gshift : 0.f, true, true,
                         lane);
@@ -782,7 +788,7 @@ flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
                 const float* __restrict__ ew, const float* __restrict__ gshift,
                 const int* __restrict__ plan, float* __restrict__ st,
                 float* __restrict__ sc, int nlong, int nseg, int a, int h,
-                int att_type, float ov2, float inv2l2, int kvec, int seg) {
+                int att_type, gx_att::Scal scal, int kvec, int seg) {
   extern __shared__ float smem[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = blockIdx.x * (blockDim.x >> 5) + w;
@@ -798,7 +804,7 @@ flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
   const float g = SQP ? *gshift : 0.f;
   for (int b0 = sb; b0 < se; b0 += BATCH) {
     const int cnt = min(BATCH, se - b0);
-    batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, ov2, inv2l2, kvec,
+    batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, scal, kvec,
                  ws, lane);
     if (RES)
       for (int p = lane; p < cnt * h; p += 32) sc[(size_t)b0 * h + p] = ws[p];
@@ -825,7 +831,7 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
               const float* __restrict__ st, const float* __restrict__ sc,
               float* __restrict__ shift, float* __restrict__ denom,
               float* __restrict__ part, int nlong, int nseg, int d, int a,
-              int h, int att_type, float ov2, float inv2l2, int kvec,
+              int h, int att_type, gx_att::Scal scal, int kvec,
               int seg) {
   using V = Vec<T, VB>;
   extern __shared__ float smem[];
@@ -878,7 +884,7 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
         gather<T, VB, VPL, U<VB>>(acc, x, col, wl, cnt, d, v0, nvec, lane);
       } else {
         const int col = batch_scores(qs, kt, idx, ew, b0, cnt, a, h,
-                                     att_type, ov2, inv2l2, kvec, ws, lane);
+                                     att_type, scal, kvec, ws, lane);
         batch_weights<T, SQP>(ws, ms, cnt, h, lane);
         gather_flash<T, VB>(acc, x, col, cnt, ws, cs, h, d, v0, nvec, lane);
       }
@@ -999,7 +1005,7 @@ fwd_res_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
     float* qs = ws + BATCH * h;
     for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
     __syncwarp();
-    batch_scores(qs, kt, idx, nullptr, beg, len, a, h, 0, 0.f, 0.f,
+    batch_scores(qs, kt, idx, nullptr, beg, len, a, h, 0, gx_att::Scal{},
                  KV ? 1 : 0, ws, lane, col);
     for (int p = lane; p < len * h; p += 32) sc[(size_t)beg * h + p] = ws[p];
   }
@@ -1203,7 +1209,7 @@ __device__ __forceinline__ void bwd_cols_batch(
     float wsum = 0.f;
     for (int hh = 0; hh < h; ++hh) {
       const float s = gx_att::score_head<T, true>(
-          qr + hh * dkh, kc + hh * dkh, dkh, 0, 0.f, 0.f, KV ? 1 : 0);
+          qr + hh * dkh, kc + hh * dkh, dkh, 0, gx_att::Scal{}, KV ? 1 : 0);
       const float dn = __ldg(denom + (size_t)r * h + hh);
       const float al =
           expf(s - __ldg(shift + (size_t)r * h + hh)) / (dn > 0.f ? dn : 1.f);
@@ -1320,7 +1326,7 @@ __device__ __forceinline__ void norm_range(
     const int* __restrict__ idx, const T* __restrict__ q,
     const float* __restrict__ kt, const float* __restrict__ ew, float g,
     float* __restrict__ eo, int r, int sb, int se, float* __restrict__ dst,
-    int a, int h, int att_type, float ov2, float inv2l2, int l) {
+    int a, int h, int att_type, gx_att::Scal scal, int l) {
   const int dk = a / h;
   const T* qr = q + (size_t)r * a;
   // the first batch's column and weight, read once for every head
@@ -1344,9 +1350,9 @@ __device__ __forceinline__ void norm_range(
         }
         const float* kh = kt + (size_t)c * a + hh * dk;
         float s = KV ? gx_att::score_head<T, true>(qr + hh * dk, kh, dk, 0,
-                                                   0.f, 0.f, 1)
+                                                   scal, 1)
                      : gx_att::score_head<T, true>(qr + hh * dk, kh, dk,
-                                                   att_type, ov2, inv2l2, 0);
+                                                   att_type, scal, 0);
         if (ew != nullptr) s *= cw;
         v = weight<SQP>(s - g);
         eo[(size_t)e * h + hh] = v;
@@ -1368,7 +1374,7 @@ norm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
             const float* __restrict__ ew, const float* __restrict__ gshift,
             const int* __restrict__ plan, float* __restrict__ part,
             float* __restrict__ eo, float* __restrict__ den, int n, int a,
-            int h, int att_type, float ov2, float inv2l2, int nlong,
+            int h, int att_type, gx_att::Scal scal, int nlong,
             int nseg) {
   constexpr int G = NM_LANES;
   const int lane = threadIdx.x & 31, l = lane & (G - 1);
@@ -1389,7 +1395,7 @@ norm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
     dst = part + (size_t)(item - n) * h;
   }
   norm_range<T, SQP, KV, G>(idx, q, kt, ew, __ldg(gshift), eo, r, sb, se, dst,
-                            a, h, att_type, ov2, inv2l2, l);
+                            a, h, att_type, scal, l);
 }
 
 // attspmm's weight of edge e (column col, row r): rnd(mean_h e / (den or
@@ -1639,7 +1645,7 @@ cudaError_t run_flash_segs(const void* ptr, const void* idx, const void* q,
                            const void* gshift, const void* plan, void* st,
                            void* part, void* sc, void* shift, void* denom,
                            void* out, int otype, int d, int a, int h,
-                           int att_type, float ov2, float inv2l2, int kvec,
+                           int att_type, gx_att::Scal scal, int kvec,
                            int wpb, int seg, int nlong, int nseg,
                            cudaStream_t s) {
   const size_t smem = sizeof(float) * (size_t)wpb * flash_warp_floats(a, h);
@@ -1649,7 +1655,7 @@ cudaError_t run_flash_segs(const void* ptr, const void* idx, const void* q,
   flash_seg_stats<T, SQP, RES><<<grid, wpb * 32, smem, s>>>(
       (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
       (const float*)ew, (const float*)gshift, (const int*)plan, (float*)st,
-      (float*)sc, nlong, nseg, a, h, att_type, ov2, inv2l2, kvec, seg);
+      (float*)sc, nlong, nseg, a, h, att_type, scal, kvec, seg);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = allow_smem(flash_seg_sum<T, VB, SQP, RES>, smem)) != cudaSuccess)
     return err;
@@ -1657,8 +1663,8 @@ cudaError_t run_flash_segs(const void* ptr, const void* idx, const void* q,
       (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
       (const float*)kt, (const float*)ew, (const float*)gshift,
       (const int*)plan, (const float*)st, (const float*)sc, (float*)shift,
-      (float*)denom, (float*)part, nlong, nseg, d, a, h, att_type, ov2,
-      inv2l2, kvec, seg);
+      (float*)denom, (float*)part, nlong, nseg, d, a, h, att_type, scal, kvec,
+      seg);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   seg_combine<<<(nlong + WPB - 1) / WPB, WPB * 32, 0, s>>>(
       (const int*)plan, (const float*)part, nullptr, out, otype, nlong, d);
@@ -1684,7 +1690,8 @@ cudaError_t run_fwd_res(const void* ptr, const void* idx, const void* q,
   if (err != cudaSuccess || nseg == 0) return err;
   return run_flash_segs<T, VB, false, true>(
       ptr, idx, q, x, kt, nullptr, nullptr, plan, st, part, sc, shift, denom,
-      out, otype, d, a, h, 0, 0.f, 0.f, KV ? 1 : 0, wpb, seg, nlong, nseg, s);
+      out, otype, d, a, h, 0, gx_att::Scal{}, KV ? 1 : 0, wpb, seg, nlong,
+      nseg, s);
 }
 
 template <typename T, int VB>
@@ -1748,14 +1755,14 @@ template <typename T, bool SQP, bool KV>
 cudaError_t run_norm(const void* ptr, const void* idx, const void* q,
                      const void* kt, const void* ew, const void* gshift,
                      const void* plan, void* part, void* eo, void* den, int n,
-                     int a, int h, int att_type, float ov2, float inv2l2,
+                     int a, int h, int att_type, gx_att::Scal scal,
                      int nlong, int nseg, cudaStream_t s) {
   const int items = n + nseg, per_block = WPB * (32 / NM_LANES);
   norm_kernel<T, SQP, KV><<<(items + per_block - 1) / per_block, WPB * 32,
                             0, s>>>(
       (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
       (const float*)ew, (const float*)gshift, (const int*)plan, (float*)part,
-      (float*)eo, (float*)den, n, a, h, att_type, ov2, inv2l2, nlong, nseg);
+      (float*)eo, (float*)den, n, a, h, att_type, scal, nlong, nseg);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nseg == 0) return err;
   seg_combine<<<(nlong + WPB - 1) / WPB, WPB * 32, 0, s>>>(
@@ -1766,8 +1773,8 @@ cudaError_t run_norm(const void* ptr, const void* idx, const void* q,
 template <typename T>
 cudaError_t run_gmax(const void* seg, const void* idx, const void* q,
                      const void* kt, const void* ew, void* state, void* out,
-                     long long e, int a, int h, int att_type, float ov2,
-                     float inv2l2, int qvec, cudaStream_t s) {
+                     long long e, int a, int h, int att_type,
+                     gx_att::Scal scal, int qvec, cudaStream_t s) {
   const long long pairs = e * h;
   static const int resident = resident_blocks(gmax_kernel<T>, GM_THREADS, 0);
   long long grid = (pairs + GM_THREADS - 1) / GM_THREADS;
@@ -1776,7 +1783,7 @@ cudaError_t run_gmax(const void* seg, const void* idx, const void* q,
   gmax_kernel<T><<<(int)grid, GM_THREADS, 0, s>>>(
       (const long long*)seg, (const int*)idx, (const T*)q, (const float*)kt,
       (const float*)ew, (unsigned*)state, (float*)out, pairs, a, h, att_type,
-      ov2, inv2l2, qvec);
+      scal, qvec);
   return cudaGetLastError();
 }
 
@@ -1785,7 +1792,7 @@ cudaError_t run_flash(const void* ptr, const void* idx, const void* q,
                       const void* x, const void* kt, const void* ew,
                       const void* gshift, const void* plan, void* st,
                       void* part, void* out, int otype, int n, int d, int a,
-                      int h, int att_type, float ov2, float inv2l2, int kvec,
+                      int h, int att_type, gx_att::Scal scal, int kvec,
                       int wpb, int seg, int nlong, int nseg,
                       cudaStream_t s) {
   const size_t smem = sizeof(float) * (size_t)wpb * flash_warp_floats(a, h);
@@ -1794,12 +1801,12 @@ cudaError_t run_flash(const void* ptr, const void* idx, const void* q,
   flash_kernel<T, VB, SQP><<<(n + wpb - 1) / wpb, wpb * 32, smem, s>>>(
       (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
       (const float*)kt, (const float*)ew, (const float*)gshift, out, otype, n,
-      d, a, h, att_type, ov2, inv2l2, kvec);
+      d, a, h, att_type, scal, kvec);
   err = cudaGetLastError();
   if (err != cudaSuccess || nseg == 0) return err;
   return run_flash_segs<T, VB, SQP, false>(
       ptr, idx, q, x, kt, ew, gshift, plan, st, part, nullptr, nullptr,
-      nullptr, out, otype, d, a, h, att_type, ov2, inv2l2, kvec, wpb, seg,
+      nullptr, out, otype, d, a, h, att_type, scal, kvec, wpb, seg,
       nlong, nseg, s);
 }
 
@@ -1871,17 +1878,18 @@ int gx_attention_kproj_tc(const void* x, const void* wk, const void* bk,
 int gx_attention_gmax(const void* seg, const void* idx, const void* q,
                       const void* kt, const void* ew, void* state, void* out,
                       long long e, int a, int h, int att_type, int reweight,
-                      float ov2, float inv2l2, int dtype, int qvec,
-                      void* stream) {
+                      float ov2, float inv2l2, float ov2p, float inv2l2p,
+                      int dtype, int qvec, void* stream) {
   if (e < 0) return (int)cudaErrorInvalidValue;
+  const gx_att::Scal scal{ov2, inv2l2, ov2p, inv2l2p};
   const void* ewp = reweight ? ew : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)run_gmax<float>(seg, idx, q, kt, ewp, state, out, e, a, h,
-                                att_type, ov2, inv2l2, qvec, s);
+                                att_type, scal, qvec, s);
   if (dtype == 1)
     return (int)run_gmax<__nv_bfloat16>(seg, idx, q, kt, ewp, state, out, e,
-                                        a, h, att_type, ov2, inv2l2, qvec, s);
+                                        a, h, att_type, scal, qvec, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1889,7 +1897,8 @@ int gx_attention_gmax(const void* seg, const void* idx, const void* q,
 // gshift [1] float32 (squareplus only, from gx_attention_gmax); out [n, d]
 // float32 (out_dtype 0) or bfloat16 (1). vec_bytes: the bytes of one x load
 // (float: 4 or 8; bfloat16: 2, 4 or 8, dividing a row's bytes and x's
-// offset); kvec: K rows by 16-byte loads (dk % 4 == 0, kt on 16 bytes); wpb
+// offset); kvec: scaled_dot's K rows by 16-byte loads (dk % 4 == 0, kt on
+// 16 bytes); ov2p, inv2l2p: beltrami_exp's; wpb
 // warps per block. Rows of more than 32 edges go through the segment
 // kernels, in segments of `seg` edges: plan [2 nlong + 1 + nseg] int32
 // (long rows, their segment offsets, each segment's long row), st [nseg,
@@ -1898,11 +1907,12 @@ int gx_flash_attention(const void* ptr, const void* idx, const void* q,
                        const void* x, const void* kt, const void* ew,
                        const void* gshift, const void* plan, void* st,
                        void* part, void* out, int n, int d, int a, int h,
-                       int att_type, int reweight, int square_plus, float ov2,
-                       float inv2l2, int dtype, int out_dtype, int vec_bytes,
-                       int kvec, int wpb, int seg, int nlong, int nseg,
-                       void* stream) {
+                       int att_type, int reweight, int square_plus,
+                       float ov2, float inv2l2, float ov2p, float inv2l2p,
+                       int dtype, int out_dtype, int vec_bytes, int kvec,
+                       int wpb, int seg, int nlong, int nseg, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  const gx_att::Scal scal{ov2, inv2l2, ov2p, inv2l2p};
   if (wpb < 1 || wpb > WPB) return (int)cudaErrorInvalidValue;
   const void* ewp = reweight ? ew : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1912,10 +1922,10 @@ int gx_flash_attention(const void* ptr, const void* idx, const void* q,
     return square_plus
         ? run_flash<T, VB, true>(ptr, idx, q, x, kt, ewp, gshift, plan, st,
                                  part, out, out_dtype, n, d, a, h, att_type,
-                                 ov2, inv2l2, kvec, wpb, seg, nlong, nseg, s)
+                                 scal, kvec, wpb, seg, nlong, nseg, s)
         : run_flash<T, VB, false>(ptr, idx, q, x, kt, ewp, gshift, plan, st,
                                   part, out, out_dtype, n, d, a, h, att_type,
-                                  ov2, inv2l2, kvec, wpb, seg, nlong, nseg,
+                                  scal, kvec, wpb, seg, nlong, nseg,
                                   s);
   });
 }
@@ -2021,11 +2031,12 @@ int gx_attention_norm(const void* ptr, const void* idx, const void* q,
                       int square_plus, float ov2, float inv2l2, int dtype,
                       int kvec, int nlong, int nseg, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  const gx_att::Scal scal{ov2, inv2l2, 1.f, 0.5f};
   const void* ewp = reweight ? ew : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
 #define GX_NORM(T, SQP, KV)                                                  \
   run_norm<T, SQP, KV>(ptr, idx, q, kt, ewp, gshift, plan, part, eo, den, n, \
-                       a, h, att_type, ov2, inv2l2, nlong, nseg, s)
+                       a, h, att_type, scal, nlong, nseg, s)
 #define GX_NORM_KV(T, SQP) \
   (kvec ? GX_NORM(T, SQP, true) : GX_NORM(T, SQP, false))
   if (dtype == 0)

@@ -70,7 +70,8 @@ from graphax_torch.sparse.graph import Layout
 from graphax_torch.sparse.ops import EPS, segment_max, segment_sum
 from graphax_torch.utils.params import linear_apply
 
-ATT_TYPES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3}
+ATT_TYPES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3,
+             "beltrami_exp": 4}
 COS_EPS = 1e-5
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -84,9 +85,38 @@ _SMEM_LIMIT = 232_448     # dynamic shared memory a block may opt into
 _SMEM_STATIC = 49_152     # without opting in (the flash kernel's q, shifts)
 
 
-def score_math(att_type: str, q, k, ov2: float = 1.0, inv2l2: float = 0.5):
+def beltrami_exp(cfg) -> bool:
+    """Beltrami's split score: graphax's ``beltrami_exp`` mode of
+    `_score_math`, which only ``attention_type="exp_kernel"`` takes
+    (Beltrami with another score type projects the whole state)."""
+    return bool(cfg.beltrami) and cfg.attention_type == "exp_kernel"
+
+
+def score_width(cfg) -> int:
+    """The width of q and of the K table the kernels read: attention_dim,
+    or twice it under :func:`beltrami_exp` (a feature and a positional
+    projection)."""
+    return cfg.attention_dim * (2 if beltrami_exp(cfg) else 1)
+
+
+def beltrami_columns(a: int, heads: int) -> torch.Tensor:
+    """The column order of the kernels' Beltrami layout from graphax's
+    ``[feature A | positional A]``: head h's feature slice, then its
+    positional slice, so each head reads one contiguous slice of ``2 A /
+    heads`` values."""
+    dk = a // heads
+    return torch.cat([torch.cat([torch.arange(h * dk, (h + 1) * dk),
+                                 a + torch.arange(h * dk, (h + 1) * dk)])
+                      for h in range(heads)])
+
+
+def score_math(att_type: str, q, k, ov2: float = 1.0, inv2l2: float = 0.5,
+               *, ov2p: float = 1.0, inv2l2p: float = 0.5):
     """graphax's `_score_math` (`:73-107`): ``q, k [E, H, Dh]`` f32 ->
-    ``[E, H]`` scores, as ``csrc/attention_score.cuh`` computes them."""
+    ``[E, H]`` scores, as ``csrc/attention_score.cuh`` computes them.
+    ``beltrami_exp``: each head's slice holds its feature half, then its
+    positional half (:func:`beltrami_columns`); ``ov2 exp(-|qx - kx|^2
+    inv2l2) ov2p exp(-|qp - kp|^2 inv2l2p)``, graphax's order."""
     if att_type == "scaled_dot":
         return (q * k).sum(-1)
     if att_type in ("cosine_sim", "pearson"):
@@ -99,6 +129,11 @@ def score_math(att_type: str, q, k, ov2: float = 1.0, inv2l2: float = 0.5):
     if att_type == "exp_kernel":
         sq = ((q - k) ** 2).sum(-1)
         return ov2 * torch.exp(-sq * inv2l2)
+    if att_type == "beltrami_exp":
+        hk = q.shape[-1] // 2
+        sx = ((q[..., :hk] - k[..., :hk]) ** 2).sum(-1)
+        sp = ((q[..., hk:] - k[..., hk:]) ** 2).sum(-1)
+        return ov2 * torch.exp(-sx * inv2l2) * ov2p * torch.exp(-sp * inv2l2p)
     raise ValueError(f"unsupported att_type {att_type!r}")
 
 
@@ -133,14 +168,15 @@ def _check_layout(what: str, layout: Layout, n: int, edge_w) -> None:
 
 def _check_scores(what: str, q, kt, heads: int, att_type: str) -> None:
     if att_type not in ATT_TYPES:
-        raise ValueError(f"{what}: unsupported att_type {att_type!r} "
-                         "(beltrami_exp is not covered)")
+        raise ValueError(f"{what}: unsupported att_type {att_type!r}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: q must be float32 or bfloat16")
     if q.dim() != 2 or kt.shape != q.shape or kt.dtype != torch.float32:
         raise ValueError(f"{what}: q [N, A] and kt [N, A] f32 required")
     if heads < 1 or q.shape[1] % heads:
         raise ValueError(f"{what}: heads must divide A")
+    if att_type == "beltrami_exp" and (q.shape[1] // heads) % 2:
+        raise ValueError(f"{what}: beltrami_exp needs an even head slice")
 
 
 # ----------------------------------------------------------------------
@@ -244,24 +280,26 @@ def attention_kproj(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
 # ----------------------------------------------------------------------
 
 def edge_scores_plain(layout: Layout, q, kt, edge_w, att_type: str,
-                      heads: int, ov2: float = 1.0, inv2l2: float = 0.5):
+                      heads: int, ov2: float = 1.0, inv2l2: float = 0.5, *,
+                      ov2p: float = 1.0, inv2l2p: float = 0.5):
     """``[layout.num_slots, H]`` f32 scores of ``_score_math``, times the
     slot's reweight value when ``edge_w`` is given."""
     e, dk = layout.num_slots, q.shape[1] // heads
     qe = q.float()[layout.seg].reshape(e, heads, dk)
     ke = kt[layout.idx.long()].reshape(e, heads, dk)
-    s = score_math(att_type, qe, ke, ov2, inv2l2)
+    s = score_math(att_type, qe, ke, ov2, inv2l2, ov2p=ov2p, inv2l2p=inv2l2p)
     if edge_w is not None:
         s = s * edge_w[:e, None]
     return s
 
 
 def attention_gmax_plain(layout: Layout, q, kt, edge_w, att_type: str,
-                         heads: int, ov2: float = 1.0, inv2l2: float = 0.5):
+                         heads: int, ov2: float = 1.0, inv2l2: float = 0.5,
+                         *, ov2p: float = 1.0, inv2l2p: float = 0.5):
     """The max score over every slot and head, 0 when there is none (or
     when it is at or below NEG/2, graphax's rule, `:533-534`)."""
     s = edge_scores_plain(layout, q, kt, edge_w, att_type, heads, ov2,
-                          inv2l2)
+                          inv2l2, ov2p=ov2p, inv2l2p=inv2l2p)
     if s.numel() == 0:
         return torch.zeros((), dtype=torch.float32, device=q.device)
     g = s.max()
@@ -298,15 +336,17 @@ def _gmax_state(device, stream: int) -> torch.Tensor:
 
 def attention_gmax(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
                    edge_w, att_type: str, heads: int, ov2: float = 1.0,
-                   inv2l2: float = 0.5) -> torch.Tensor:
+                   inv2l2: float = 0.5, *, ov2p: float = 1.0,
+                   inv2l2p: float = 0.5) -> torch.Tensor:
     """0-d float32 global max of the scores. ``q [N, A]`` in the state
     dtype (pre-scaled for scaled_dot), ``kt [N, A]`` f32 from
-    :func:`attention_kproj`, ``edge_w [>= E]`` f32 or None."""
+    :func:`attention_kproj`, ``edge_w [>= E]`` f32 or None; ``ov2p`` and
+    ``inv2l2p``: beltrami_exp's positional pair."""
     _check_scores("attention_gmax", q, kt, heads, att_type)
     _no_grad("attention_gmax", q, kt, edge_w)
     if not q.is_cuda:
         return attention_gmax_plain(layout, q, kt, edge_w, att_type, heads,
-                                    ov2, inv2l2)
+                                    ov2, inv2l2, ov2p=ov2p, inv2l2p=inv2l2p)
     n, a = q.shape
     if n == 0:
         raise ValueError("attention_gmax: empty graph")
@@ -323,8 +363,9 @@ def attention_gmax(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
         kt.data_ptr(), edge_w.data_ptr() if edge_w is not None else None,
         _gmax_state(q.device, stream).data_ptr(), out.data_ptr(),
         layout.num_slots, a, heads, ATT_TYPES[att_type],
-        int(edge_w is not None), float(ov2), float(inv2l2), _DTYPES[q.dtype],
-        score_vec(q, kt, heads, att_type), stream)
+        int(edge_w is not None), float(ov2), float(inv2l2), float(ov2p),
+        float(inv2l2p), _DTYPES[q.dtype], score_vec(q, kt, heads, att_type),
+        stream)
     _build.check(err, "attention_gmax")
     _build.LAUNCHES["attention_gmax"] += 1
     return out
@@ -405,14 +446,15 @@ def _out_dtype(what: str, x: torch.Tensor, out_dtype) -> None:
 
 def flash_attention_plain(layout: Layout, q, x, kt, edge_w, gshift,
                           att_type: str, heads: int, ov2: float = 1.0,
-                          inv2l2: float = 0.5, out_dtype=torch.float32):
+                          inv2l2: float = 0.5, out_dtype=torch.float32, *,
+                          ov2p: float = 1.0, inv2l2p: float = 0.5):
     """The flash kernel's function in plain PyTorch: ``[N, D]`` f32, cast
     once to ``out_dtype``. ``gshift`` None: row softmax; else squareplus
     shifted by it."""
     n = layout.num_rows
     seg = layout.seg
     s = edge_scores_plain(layout, q, kt, edge_w, att_type, heads, ov2,
-                          inv2l2)                              # [E, H]
+                          inv2l2, ov2p=ov2p, inv2l2p=inv2l2p)  # [E, H]
     if gshift is None:
         ex = torch.exp(s - segment_max(s, seg, n)[seg])
     else:
@@ -432,19 +474,22 @@ def flash_attention_plain(layout: Layout, q, x, kt, edge_w, gshift,
 def flash_attention(layout: Layout, q: torch.Tensor, x: torch.Tensor,
                     kt: torch.Tensor, edge_w, gshift, att_type: str,
                     heads: int, ov2: float = 1.0, inv2l2: float = 0.5,
-                    out_dtype=torch.float32) -> torch.Tensor:
+                    out_dtype=torch.float32, *, ov2p: float = 1.0,
+                    inv2l2p: float = 0.5) -> torch.Tensor:
     """``[N, D]`` head-mean attention aggregation over ``layout``, summed
     in f32 and rounded once to ``out_dtype`` (float32 or x's dtype).
 
     ``q [N, A]`` (pre-scaled for scaled_dot) and ``x [N, D]`` in one dtype;
     ``kt [N, A]`` f32 keys; ``edge_w [>= E]`` f32 or None; ``gshift`` a 0-d
-    f32 tensor (squareplus) or None (row softmax)."""
+    f32 tensor (squareplus) or None (row softmax); ``ov2p`` and
+    ``inv2l2p``: beltrami_exp's positional pair."""
     _check_scores("flash_attention", q, kt, heads, att_type)
     _no_grad("flash_attention", q, x, kt, edge_w)
     _out_dtype("flash_attention", x, out_dtype)
     if not x.is_cuda:
         return flash_attention_plain(layout, q, x, kt, edge_w, gshift,
-                                     att_type, heads, ov2, inv2l2, out_dtype)
+                                     att_type, heads, ov2, inv2l2, out_dtype,
+                                     ov2p=ov2p, inv2l2p=inv2l2p)
     n, d = x.shape
     a = q.shape[1]
     if x.dtype != q.dtype or q.shape[0] != n:
@@ -474,7 +519,8 @@ def flash_attention(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         gshift.data_ptr() if gshift is not None else None, plan.data_ptr(),
         st.data_ptr(), part.data_ptr(), out.data_ptr(), n, d, a, heads,
         ATT_TYPES[att_type], int(edge_w is not None), int(gshift is not None),
-        float(ov2), float(inv2l2), _DTYPES[x.dtype], _DTYPES[out_dtype],
+        float(ov2), float(inv2l2), float(ov2p), float(inv2l2p),
+        _DTYPES[x.dtype], _DTYPES[out_dtype],
         gather_width(x), kvec, wpb, ROW_SPLIT, nlong, nseg,
         _build.stream_ptr(x))
     _build.check(err, "flash_attention")
@@ -512,6 +558,10 @@ def attention_norm(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
     one slot a lane; rows of more than ``NORM_CUT`` slots go in segments of
     ``NORM_SEG`` (:func:`row_split_plan`), their sums added in order."""
     _check_scores("attention_norm", q, kt, heads, att_type)
+    if att_type == "beltrami_exp":
+        raise NotImplementedError("attention_norm: beltrami_exp, Beltrami "
+                                  "on the column route, is not ported yet "
+                                  "(ROADMAP Queue 1, item 9)")
     _no_grad("attention_norm", q, kt, edge_w)
     if not q.is_cuda:
         return attention_norm_plain(layout, q, kt, edge_w, shift, att_type,
@@ -624,18 +674,18 @@ def kproj_fits(d: int, a: int) -> bool:
 def flash_supported(cfg, d: int) -> bool:
     """The port's gate for the flash path (graphax's is
     `flash_applicable`, `:542-553`, a VMEM estimate): row normalisation, the
-    four `_score_math` types, head-mean aggregation, widths within
-    :func:`kproj_fits` (and the flash kernel's q rows and per-head shifts
-    within the default 48 KB). The flash
+    four `_score_math` types and Beltrami's ``beltrami_exp``, head-mean
+    aggregation, widths within :func:`kproj_fits` (and the flash kernel's q
+    rows and per-head shifts within the default 48 KB), both at the K
+    table's width (:func:`score_width`). The flash
     kernel keeps no per-head accumulators (each head's weight folds into
     one f32 sum per column), so any head count that divides attention_dim
     runs."""
-    a = cfg.attention_dim
+    a = score_width(cfg)
     return (cfg.attention_norm_idx == 0
             and cfg.attention_type in ATT_TYPES
-            and not cfg.beltrami and not cfg.mix_features
-            and not cfg.multi_modal
-            and a % cfg.heads == 0 and kproj_fits(d, a)
+            and not cfg.mix_features and not cfg.multi_modal
+            and cfg.attention_dim % cfg.heads == 0 and kproj_fits(d, a)
             and 4 * _WPB * (a + 2 * cfg.heads) <= _SMEM_STATIC)
 
 
@@ -649,24 +699,81 @@ def _query(cfg, att, x: torch.Tensor) -> torch.Tensor:
     return q
 
 
+def beltrami_split(cfg, z: torch.Tensor) -> tuple:
+    """(features, positional) of a state laid out ``[features | positional
+    | labels]``: the labels join the features (`graphax/kernels/
+    fused_attention.py:67-72`)."""
+    fh, ph = cfg.feat_hidden_dim, cfg.pos_enc_hidden_dim
+    return torch.cat([z[..., :fh], z[..., fh + ph:]], -1), z[..., fh:fh + ph]
+
+
+def beltrami_kernels(att, sq_x, sq_p):
+    """Beltrami's score from each half's squared distances: the product of
+    the feature and positional Gaussian kernels in graphax's order
+    (`graphax/functions/transformer.py:133-137`); ``att`` carries
+    ``output_var_x``, ``lengthscale_x``, ``output_var_p`` and
+    ``lengthscale_p``."""
+    return (att.output_var_x ** 2
+            * torch.exp(-sq_x / (2 * att.lengthscale_x ** 2))
+            * att.output_var_p ** 2
+            * torch.exp(-sq_p / (2 * att.lengthscale_p ** 2)))
+
+
+def _beltrami_inputs(cfg, att, x: torch.Tensor) -> dict:
+    """graphax's combined-weight trick (`:893-915`) in the kernels'
+    layout (:func:`beltrami_columns`): q ``[feat Qx | pos Qp]`` projected
+    in f32, one ``[D, 2A]`` K weight with Kx on the feature rows and Kp on
+    the positional rows (in x's dtype), the bias ``[bKx | bKp]`` in f32,
+    and the four scalars ov2, 1/(2 l^2) of each kernel."""
+    a, heads, (n, d) = cfg.attention_dim, cfg.heads, x.shape
+    fh, ph = cfg.feat_hidden_dim, cfg.pos_enc_hidden_dim
+    feat, pos = beltrami_split(cfg, x)
+    qx = linear_apply(att.Qx, feat).reshape(n, heads, a // heads)
+    qp = linear_apply(att.Qp, pos).reshape(n, heads, a // heads)
+    q = torch.cat([qx, qp], -1).reshape(n, 2 * a)
+    wkx = att.Kx.weight.t().to(x.dtype)
+    wk = torch.zeros((d, 2 * a), dtype=x.dtype, device=x.device)
+    wk[:fh, :a] = wkx[:fh]
+    wk[fh + ph:, :a] = wkx[fh:]
+    wk[fh:fh + ph, a:] = att.Kp.weight.t().to(x.dtype)
+    cols = beltrami_columns(a, heads).to(x.device)
+    bk = torch.cat([att.Kx.bias, att.Kp.bias]).float()
+    ovx, lx = att.output_var_x, att.lengthscale_x
+    ovp, lp = att.output_var_p, att.lengthscale_p
+    return dict(q=q, wk=wk[:, cols], bk=bk[cols], att_type="beltrami_exp",
+                ov2=float(ovx ** 2), inv2l2=float(1.0 / (2.0 * lx ** 2)),
+                ov2p=float(ovp ** 2), inv2l2p=float(1.0 / (2.0 * lp ** 2)))
+
+
 def prep_inputs(cfg, att, graph, x: torch.Tensor) -> dict:
-    """The kernels' operands, as graphax's `_prep_inputs` (`:916-939`): q
+    """The kernels' operands, as graphax's `_prep_inputs` (`:887-939`): q
     of :func:`_query` cast to x's dtype; Wk in x's dtype; bk and the
-    reweight values in f32; exp_kernel's two scalars. ``att`` is a
+    reweight values in f32; exp_kernel's two scalars (``ov2p`` and
+    ``inv2l2p`` unused), or under :func:`beltrami_exp` the operands of
+    ``beltrami_exp`` (:func:`_beltrami_inputs`). ``att`` is a
     `graphax_torch.functions.transformer.TransformerAttention`."""
-    heads = cfg.heads
-    q = _query(cfg, att, x)
-    ov2 = inv2l2 = 0.0
-    if cfg.attention_type == "exp_kernel":
-        ov2 = float(att.output_var ** 2)
-        inv2l2 = float(1.0 / (2.0 * att.lengthscale ** 2))
-    return dict(
-        q=q.to(x.dtype).contiguous(),
-        wk=att.K.weight.t().to(x.dtype).contiguous(),          # [D, A]
-        bk=att.K.bias.to(torch.float32).contiguous(),
-        edge_w=graph.edge_weight.float().contiguous()
-        if cfg.reweight_attention else None,
-        att_type=cfg.attention_type, heads=heads, ov2=ov2, inv2l2=inv2l2)
+    if beltrami_exp(cfg):
+        p = _beltrami_inputs(cfg, att, x)
+    else:
+        ov2 = inv2l2 = 0.0
+        if cfg.attention_type == "exp_kernel":
+            ov2 = float(att.output_var ** 2)
+            inv2l2 = float(1.0 / (2.0 * att.lengthscale ** 2))
+        p = dict(q=_query(cfg, att, x), wk=att.K.weight.t().to(x.dtype),
+                 bk=att.K.bias.to(torch.float32), att_type=cfg.attention_type,
+                 ov2=ov2, inv2l2=inv2l2, ov2p=1.0, inv2l2p=0.5)
+    p.update(q=p["q"].to(x.dtype).contiguous(), wk=p["wk"].contiguous(),
+             bk=p["bk"].contiguous(), heads=cfg.heads,
+             edge_w=graph.edge_weight.float().contiguous()
+             if cfg.reweight_attention else None)
+    return p
+
+
+def score_args(p: dict) -> tuple:
+    """(the positional score arguments ``(att_type, heads, ov2, inv2l2)``,
+    the keywords ``ov2p``, ``inv2l2p``) of the operands ``p``."""
+    return ((p["att_type"], p["heads"], p["ov2"], p["inv2l2"]),
+            dict(ov2p=p["ov2p"], inv2l2p=p["inv2l2p"]))
 
 
 def flash_attention_ax(cfg, att, graph, x: torch.Tensor) -> torch.Tensor:
@@ -675,13 +782,14 @@ def flash_attention_ax(cfg, att, graph, x: torch.Tensor) -> torch.Tensor:
     (squareplus only) and the flash kernel, which writes x's dtype."""
     x = x.contiguous()
     p = prep_inputs(cfg, att, graph, x)
-    scal = (p["att_type"], p["heads"], p["ov2"], p["inv2l2"])
+    scal, bel = score_args(p)
     kt = attention_kproj(x, p["wk"], p["bk"])
     gshift = None
     if cfg.square_plus:
-        gshift = attention_gmax(graph.csr, p["q"], kt, p["edge_w"], *scal)
+        gshift = attention_gmax(graph.csr, p["q"], kt, p["edge_w"], *scal,
+                                **bel)
     return flash_attention(graph.csr, p["q"], x, kt, p["edge_w"], gshift,
-                           *scal, out_dtype=x.dtype)
+                           *scal, out_dtype=x.dtype, **bel)
 
 
 # ----------------------------------------------------------------------

@@ -66,10 +66,11 @@ LANES = 16
 
 def winatt_supported(cfg, d: int) -> bool:
     """graphax's `pallas_winatt_ok` (`:290-295`) with the card in place of
-    its TPU: softmax, the four `_score_math` types, not Beltrami, within
-    the shared memory of the K projection (K5 itself uses none)."""
+    its TPU: softmax, the four `_score_math` types, not Beltrami's split
+    score, within the shared memory of the K projection (K5 itself uses
+    none)."""
     a = cfg.attention_dim
-    return (not cfg.square_plus and not cfg.beltrami
+    return (not cfg.square_plus and not fa.beltrami_exp(cfg)
             and not cfg.mix_features and not cfg.multi_modal
             and cfg.attention_type in ATT_TYPES and a % cfg.heads == 0
             and fa.kproj_fits(d, a))

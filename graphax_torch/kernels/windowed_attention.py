@@ -50,7 +50,9 @@ import math
 
 import torch
 
-from graphax_torch.kernels.fused_attention import COS_EPS, NEG
+from graphax_torch.kernels.fused_attention import (
+    COS_EPS, NEG, beltrami_exp, beltrami_kernels, beltrami_split,
+)
 from graphax_torch.kernels.windowed_spmm import _WinMatmul, _slab, _tiles
 from graphax_torch.sparse.ops import segment_max, segment_sum
 from graphax_torch.utils.params import linear_apply
@@ -69,6 +71,12 @@ def _unit(z):
 
 def _exp_kernel(att, sq):
     return att.output_var ** 2 * torch.exp(-sq / (2 * att.lengthscale ** 2))
+
+
+def _sq_dense(q_h, k_h):
+    qf, kf = q_h.float(), k_h.float()
+    return ((qf * qf).sum(-1)[:, :, None] + (kf * kf).sum(-1)[:, None, :]
+            - 2.0 * torch.bmm(qf, kf.transpose(1, 2)))
 
 
 def _pair_scores(cfg, att, q_h, k_h):
@@ -99,11 +107,33 @@ def _dense_scores(cfg, att, q_h, k_h):
             q_h, k_h = _center(q_h), _center(k_h)
         return torch.bmm(_unit(q_h), _unit(k_h).transpose(1, 2))
     if t == "exp_kernel":
-        qf, kf = q_h.float(), k_h.float()
-        sq = ((qf * qf).sum(-1)[:, :, None] + (kf * kf).sum(-1)[:, None, :]
-              - 2.0 * torch.bmm(qf, kf.transpose(1, 2)))
-        return _exp_kernel(att, sq)
+        return _exp_kernel(att, _sq_dense(q_h, k_h))
     raise ValueError(f"unknown attention_type {t!r}")
+
+
+def _projections(cfg, att, x):
+    """(q, k, the residual's per-node k) in x's dtype, each ``[N, A]``, or
+    under Beltrami ``[N, 2A]`` laid out ``[feature A | positional A]``
+    (graphax's `windowed_attention_ax`, `:184-191`, and
+    `_beltrami_scores`): q and k projected in f32 and rounded; the
+    residual's k of each row projected in f32 from the weight in x's
+    dtype, rounded, plus the bias in x's dtype."""
+    dt = x.dtype
+
+    def res_k(layer, z):
+        return (z.float() @ layer.weight.t().to(dt).float()).to(dt) \
+            + layer.bias.to(dt)
+
+    if beltrami_exp(cfg):
+        feat, pos = beltrami_split(cfg, x)
+        q = torch.cat([linear_apply(att.Qx, feat),
+                       linear_apply(att.Qp, pos)], -1).to(dt)
+        k = torch.cat([linear_apply(att.Kx, feat),
+                       linear_apply(att.Kp, pos)], -1).to(dt)
+        k_nodes = torch.cat([res_k(att.Kx, feat), res_k(att.Kp, pos)], -1)
+        return q, k, k_nodes
+    return (linear_apply(att.Q, x).to(dt), linear_apply(att.K, x).to(dt),
+            res_k(att.K, x))
 
 
 def _transform(z, square_plus: bool):
@@ -116,27 +146,35 @@ def windowed_attention_ax_plain(cfg, att, graph, x: torch.Tensor,
     """``mean_h(softmax_row(scores)) x`` (or squareplus) on the windowed
     layout of ``graph``, in x's dtype, as graphax's `windowed_attention_ax`.
     ``att`` carries ``Q`` and ``K`` (``weight [A, D]``, ``bias``) and, for
-    exp_kernel, ``output_var`` and ``lengthscale``; ``dense_weight`` the
+    exp_kernel, ``output_var`` and ``lengthscale``; under Beltrami ``Qx``,
+    ``Kx``, ``Qp``, ``Kp`` and each kernel's two scalars (graphax's
+    Beltrami branch, `:85-94, 125-130, 184-191`); ``dense_weight`` the
     ``[T, tile, W]`` densified edge weights, read only with
     ``reweight_attention``."""
     wl = graph.windows
     heads, dt, n = cfg.heads, x.dtype, x.shape[0]
-    dk = cfg.attention_dim // heads
+    a = cfg.attention_dim
+    dk = a // heads
     sqp = bool(cfg.square_plus)
-    q = linear_apply(att.Q, x).to(dt)                         # [N, A]
-    k = linear_apply(att.K, x).to(dt)
+    bel = beltrami_exp(cfg)
+    q, k, k_nodes = _projections(cfg, att, x)                 # [N, A(+A)]
     qt = _tiles(q, wl)                                        # [T, tile, A]
     kt = _slab(k, wl)[wl.tile_win.long()]                     # [T, W, A]
 
-    # the residual edges' scores: each gathered row's k projected in f32
-    # from the weight in x's dtype, rounded, plus the bias in x's dtype
+    # the residual edges' scores
     res = wl.residual
     seg, col = res.seg, res.idx.long()
     e_r = res.num_slots
-    k_nodes = (x.float() @ att.K.weight.t().to(dt).float()).to(dt) \
-        + att.K.bias.to(dt)
-    s_res = _pair_scores(cfg, att, q[seg].reshape(e_r, heads, dk),
-                         k_nodes[col].reshape(e_r, heads, dk))  # [E_r, H]
+    if bel:
+        def sq_half(lo):
+            qh = q[seg, lo:lo + a].reshape(e_r, heads, dk).float()
+            kh = k_nodes[col, lo:lo + a].reshape(e_r, heads, dk).float()
+            return ((qh - kh) ** 2).sum(-1)
+
+        s_res = beltrami_kernels(att, sq_half(0), sq_half(a))
+    else:
+        s_res = _pair_scores(cfg, att, q[seg].reshape(e_r, heads, dk),
+                             k_nodes[col].reshape(e_r, heads, dk))  # [E_r, H]
     if cfg.reweight_attention:
         s_res = s_res * graph.edge_weight[res.perm][:, None]
     dmask = wl.dense_mask
@@ -148,6 +186,11 @@ def windowed_attention_ax_plain(cfg, att, graph, x: torch.Tensor,
 
     def scores(h):
         sl = slice(h * dk, (h + 1) * dk)
+        if bel:
+            sp = slice(a + h * dk, a + (h + 1) * dk)
+            return masked(beltrami_kernels(
+                att, _sq_dense(qt[..., sl], kt[..., sl]),
+                _sq_dense(qt[..., sp], kt[..., sp])))
         return masked(_dense_scores(cfg, att, qt[..., sl], kt[..., sl]))
 
     pbar = torch.zeros(wl.block_shape, dtype=torch.float32, device=x.device)

@@ -64,18 +64,20 @@ class EarlyStopResult(NamedTuple):
 
 @torch.no_grad()
 def evaluate_early_stop(cfg, model, graph, x, labels, train_mask, val_mask,
-                        test_mask) -> EarlyStopResult:
+                        test_mask, *, pos_encoding=None) -> EarlyStopResult:
     """The `GNNEarly` evaluation forward (graphax `:78-96`): integrate to
     ``earlystopxT * T`` with the accuracy observer, the adaptive loop's
     attempts capped at ``max_test_steps`` (`src/early_stop_solver.py:78,
-    253`)."""
+    253`). ``pos_encoding``: Beltrami's, as the model's forward takes
+    it."""
     base_dim = model.state_dim // 2 if cfg.augment else model.state_dim
     observer = make_accuracy_observer(cfg, model.m2, labels, train_mask,
                                       val_mask, test_mask, base_dim)
     model.eval()
     logits, out = model(graph, x, train=False,
                         t1=cfg.earlystopxT * cfg.time, observer=observer,
-                        max_steps=cfg.max_test_steps)
+                        max_steps=cfg.max_test_steps,
+                        pos_encoding=pos_encoding)
     best = out.result.observer
     return EarlyStopResult(
         logits=logits, best_train=best["best_train"],

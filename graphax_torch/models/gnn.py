@@ -1,9 +1,11 @@
-"""The GRAND node classifier: encoder -> ODE block -> decoder (port of
-`graphax/models/gnn.py`).
+"""The GRAND/BLEND node classifier: encoder -> ODE block -> decoder (port
+of `graphax/models/gnn.py`).
 
-encode: [strip labels] -> dropout -> m1 -> [residual MLP m11/m12] ->
-        [re-append labels] -> [batch-norm] -> [ANODE augmentation: append
-        zeros]
+encode: [strip labels] -> dropout -> m1 (or, Beltrami, mx on the features
+        and mp on the positional encodings, each after its own dropout,
+        concatenated ``[features | positional]``) -> [residual MLP m11/m12]
+        -> [re-append labels] -> [batch-norm] -> [ANODE augmentation:
+        append zeros]
 solve:  block over [0, T] with the state in ``cfg.dtype`` (bf16 halves the
         solver's memory traffic; the encoder and decoder stay f32)
 decode: [truncate augmentation] -> relu -> [fc -> relu] -> dropout -> m2
@@ -25,16 +27,20 @@ from graphax_torch.utils.params import linear_apply, linear_init
 class GNN(nn.Module):
     def __init__(self, cfg, num_features: int, num_classes: int):
         super().__init__()
-        if cfg.beltrami:
-            raise NotImplementedError(
-                "Beltrami (DeepWalk's positional encodings, ROADMAP Queue 1, "
-                "item 9) is not ported yet")
         self.cfg = cfg
         self.num_classes = num_classes
         self.state_dim = cfg.state_dim(num_features, num_classes)
         base = self.state_dim // 2 if cfg.augment else self.state_dim
-        hidden = cfg.hidden_dim
-        self.m1 = nn.Linear(num_features, hidden)
+        if cfg.beltrami:
+            if cfg.pos_enc_dim <= 0:
+                raise ValueError("beltrami requires cfg.pos_enc_dim (the "
+                                 "positional encodings' width)")
+            self.mx = nn.Linear(num_features, cfg.feat_hidden_dim)
+            self.mp = nn.Linear(cfg.pos_enc_dim, cfg.pos_enc_hidden_dim)
+            hidden = cfg.feat_hidden_dim + cfg.pos_enc_hidden_dim
+        else:
+            hidden = cfg.hidden_dim
+            self.m1 = nn.Linear(num_features, hidden)
         if cfg.use_mlp:
             self.m11 = nn.Linear(hidden, hidden)
             self.m12 = nn.Linear(hidden, hidden)
@@ -47,7 +53,7 @@ class GNN(nn.Module):
         self.block = get_block(cfg, self.state_dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for name in ("m1", "m11", "m12", "fc", "m2"):
+        for name in ("m1", "mx", "mp", "m11", "m12", "fc", "m2"):
             if hasattr(self, name):
                 linear_init(getattr(self, name), generator)
         for name in ("bn_in", "bn_out"):
@@ -55,16 +61,28 @@ class GNN(nn.Module):
                 getattr(self, name).reset_parameters()
         self.block.reset_parameters(generator)
 
-    def encode(self, x, *, train: bool, generator=None):
+    def encode(self, x, *, train: bool, generator=None, pos_encoding=None):
         """``x``: the features, and under ``use_labels`` the label columns
         last (`graphax_torch.train.loop.add_labels`), which skip the input
-        dropout and the MLP and join the state before the batch-norm."""
+        dropout and the MLP and join the state before the batch-norm.
+        ``pos_encoding [N, P]``: Beltrami's positional encodings."""
         cfg = self.cfg
         if cfg.use_labels:
             labels = x[..., -self.num_classes:]
             x = x[..., :-self.num_classes]
-        x = dropout(x, cfg.input_dropout, train, generator)
-        x = linear_apply(self.m1, x)
+        if cfg.beltrami:
+            if pos_encoding is None:
+                raise ValueError("beltrami needs the positional encodings "
+                                 "(data.pos_encoding)")
+            x = linear_apply(self.mx, dropout(x, cfg.input_dropout, train,
+                                              generator))
+            p = linear_apply(self.mp, dropout(pos_encoding,
+                                              cfg.input_dropout, train,
+                                              generator))
+            x = torch.cat([x, p], dim=-1)
+        else:
+            x = dropout(x, cfg.input_dropout, train, generator)
+            x = linear_apply(self.m1, x)
         if cfg.use_mlp:
             x = dropout(x, cfg.dropout, train, generator)
             x = dropout(x + linear_apply(self.m11, torch.relu(x)),
@@ -89,13 +107,23 @@ class GNN(nn.Module):
         z = dropout(z, cfg.dropout, train, generator)
         return linear_apply(self.m2, z)
 
-    def forward(self, graph, x, *, train: bool, generator=None, t1=None,
-                observer=None, max_steps=None):
-        """Returns (logits, BlockOutput). ``t1``, ``observer`` and
-        ``max_steps`` go to the solve (the early-stop evaluation's)."""
-        x0 = self.encode(x, train=train, generator=generator)
+    def forward_ode(self, graph, x, *, train: bool, generator=None, t1=None,
+                    observer=None, max_steps=None, pos_encoding=None):
+        """Encode and solve, no decode (graphax's `forward_ode`). Returns
+        (z in the encoder's dtype, BlockOutput)."""
+        x0 = self.encode(x, train=train, generator=generator,
+                         pos_encoding=pos_encoding)
         ode_dtype = getattr(torch, self.cfg.dtype)
         out = self.block(graph, x0.to(ode_dtype), train=train, t1=t1,
                          observer=observer, max_steps=max_steps)
-        z = out.z.to(x0.dtype)
+        return out.z.to(x0.dtype), out
+
+    def forward(self, graph, x, *, train: bool, generator=None, t1=None,
+                observer=None, max_steps=None, pos_encoding=None):
+        """Returns (logits, BlockOutput). ``t1``, ``observer`` and
+        ``max_steps`` go to the solve (the early-stop evaluation's)."""
+        z, out = self.forward_ode(graph, x, train=train, generator=generator,
+                                  t1=t1, observer=observer,
+                                  max_steps=max_steps,
+                                  pos_encoding=pos_encoding)
         return self.decode(z, train=train, generator=generator), out

@@ -71,6 +71,26 @@ def to_undirected(row, col, num_nodes: Optional[int] = None
     return (key // n).astype(np.int64), (key % n).astype(np.int64)
 
 
+def full_adjacency(num_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """All N^2 (row, col) pairs (`graphax/sparse/build.py:105`)."""
+    row = np.repeat(np.arange(num_nodes, dtype=np.int64), num_nodes)
+    col = np.tile(np.arange(num_nodes, dtype=np.int64), num_nodes)
+    return row, col
+
+
+def two_hop(row, col, num_nodes: Optional[int] = None
+            ) -> Tuple[np.ndarray, np.ndarray]:
+    """The edge set of A + A^2, deduplicated, no weights
+    (`graphax/sparse/build.py:112`, PyG's `TwoHop`)."""
+    import scipy.sparse as sp
+
+    row, col, w = _as_edges(row, col, None)
+    n = _num_nodes(num_nodes, row, col)
+    a = sp.coo_matrix((np.ones_like(w), (row, col)), shape=(n, n)).tocsr()
+    a2 = ((a + a @ a) > 0).tocoo()
+    return a2.row.astype(np.int64), a2.col.astype(np.int64)
+
+
 def round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
 

@@ -13,12 +13,23 @@ False) with the early-stop evaluation (`graphax_torch.models.early`), whose
 observer keeps the best validation accuracy along a solve to
 ``earlystopxT * T``, else with a plain evaluation at T.
 
+kNN and edge-sampling rewiring run at the start of every
+``rewire_KNN_epoch``-th / ``edge_sampling_epoch``-th epoch, as graphax's
+(`graphax/train/loop.py:381-384`): the new topology is normalised again and
+its CSR/CSC layouts are built with it (:meth:`Trainer._swap_graph`).
+``cfg.rewiring`` (two-hop, GDC) is not read here, as in graphax: it is
+applied to the dataset before the Trainer is built
+(`graphax_torch.rewiring.apply_gdc_rewiring`,
+`apply_two_hop_rewiring`), like Beltrami's positional encodings
+(`graphax_torch.rewiring.apply_beltrami`, then
+``data.with_pos_encoding``), which the model reads from
+``data.pos_encoding``.
+
 Not ported here (ROADMAP): graphax's 3-jit `split_step` (a TPU compiler
-workaround with no output change) and kNN/edge-sampling rewiring, which
-raise at construction. GRAND-nl (the transformer RHS) trains on every
-graph graphax trains it on, by the route
-`graphax_torch.functions.transformer.attention_route` names; Beltrami
-raises in the model."""
+workaround with no output change) and the CGNN baseline (``cfg.cgnn``),
+which raises. GRAND-nl (the transformer RHS) trains on every graph graphax
+trains it on, by the route
+`graphax_torch.functions.transformer.attention_route` names."""
 
 from __future__ import annotations
 
@@ -38,6 +49,8 @@ from graphax_torch.models.early import (
     EarlyStopResult, evaluate_early_stop, masked_accuracy,
 )
 from graphax_torch.models.gnn import GNN
+from graphax_torch.models.gnn_knn import GNNKNN
+from graphax_torch.rewiring import apply_edge_sampling, apply_knn
 from graphax_torch.train import checkpoint as ckpt
 from graphax_torch.train.optimizers import get_optimizer
 from graphax_torch.utils.device import resolve_device
@@ -91,10 +104,7 @@ def cross_entropy_loss(logits, labels, mask):
 
 
 _UNPORTED = {
-    "rewire_KNN": "kNN rewiring (ROADMAP Queue 1, M8)",
-    "fa_layer": "the fa-layer model (ROADMAP Queue 1, M8)",
-    "edge_sampling": "edge-sampling rewiring (ROADMAP Queue 1, M8)",
-    "rewiring": "graph rewiring (ROADMAP Queue 1, M8)",
+    "cgnn": "the CGNN baseline (models/cgnn.py, ROADMAP Queue 1, item 9)",
 }
 
 # optax's state of each optimizer (`graphax/train/optimizers.py:12-26`):
@@ -127,10 +137,12 @@ class Trainer:
             self.reorder_seconds = time.perf_counter() - t0
         # the per-forward weight normalisation hoisted to init: weights are
         # static between topology changes
-        graph = dataclasses.replace(normalize_graph(cfg, data.graph),
-                                    pre_normalized=True)
-        self.data = dataclasses.replace(data, graph=graph)
-        self.model = GNN(cfg, data.num_features, data.num_classes) \
+        self.data = data
+        self._swap_graph(data.graph)
+        # the kNN/fa-layer model where those flags are set, as graphax
+        # (`graphax/train/loop.py:117-119`)
+        maker = GNNKNN if (cfg.rewire_KNN or cfg.fa_layer) else GNN
+        self.model = maker(cfg, data.num_features, data.num_classes) \
             .to(self.device)
         self.fm, self.bm = Meter(), Meter()
         self.last_eval = None
@@ -163,6 +175,26 @@ class Trainer:
             feat = add_labels(feat, d.y, label_mask, d.num_classes)
         return feat, d.train_mask
 
+    def _swap_graph(self, graph) -> None:
+        """Put ``graph`` in the dataset with the per-forward weight
+        normalisation hoisted (graphax's `_swap_graph`): the weights are
+        static between topology changes. A rewired graph comes with its
+        CSR/CSC layouts built (`rewire_graph_with_edges`)."""
+        graph = dataclasses.replace(normalize_graph(self.cfg, graph),
+                                    pre_normalized=True)
+        self.data = dataclasses.replace(self.data, graph=graph)
+
+    def rewire_knn(self) -> None:
+        """kNN-rewire the dataset's graph from the current weights
+        (`graphax_torch.rewiring.apply_knn`)."""
+        self._swap_graph(apply_knn(self.cfg, self.model, self.data))
+
+    def rewire_edge_sampling(self) -> None:
+        """Edge-sampling rewiring from the current weights
+        (`graphax_torch.rewiring.apply_edge_sampling`)."""
+        self._swap_graph(apply_edge_sampling(self.cfg, self.model,
+                                             self.data))
+
     def train_step(self) -> float:
         """One optimizer step; returns the loss and updates the NFE meters."""
         return self._step()[0]
@@ -173,7 +205,8 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         feat, loss_mask = self._prepare_features(train=True)
         logits, out = self.model(d.graph, feat, train=True,
-                                 generator=self.generator)
+                                 generator=self.generator,
+                                 pos_encoding=d.pos_encoding)
         loss = cross_entropy_loss(logits, d.y, loss_mask)
         loss.backward()
         with record_function("graphax_torch.optimizer"):
@@ -196,7 +229,7 @@ class Trainer:
         d = self.data
         self.model.eval()
         logits, out = self.model(d.graph, self._prepare_features(False)[0],
-                                 train=False)
+                                 train=False, pos_encoding=d.pos_encoding)
         self.last_eval = out.result
         return tuple(float(masked_accuracy(logits, d.y, m))
                      for m in (d.train_mask, d.val_mask, d.test_mask))
@@ -209,7 +242,8 @@ class Trainer:
         d = self.data
         res = evaluate_early_stop(self.cfg, self.model, d.graph,
                                   self._prepare_features(False)[0], d.y,
-                                  d.train_mask, d.val_mask, d.test_mask)
+                                  d.train_mask, d.val_mask, d.test_mask,
+                                  pos_encoding=d.pos_encoding)
         self.last_eval = res.result
         return res
 
@@ -253,6 +287,10 @@ class Trainer:
         history, solver = [], []
         for epoch in range(start_epoch, epochs + 1):
             t0 = time.perf_counter()
+            if cfg.rewire_KNN and epoch % cfg.rewire_KNN_epoch == 0:
+                self.rewire_knn()
+            if cfg.edge_sampling and epoch % cfg.edge_sampling_epoch == 0:
+                self.rewire_edge_sampling()
             loss, aux = self._step()
             if use_early_stop:
                 res = self.evaluate_early()

@@ -477,7 +477,7 @@ def winatt_gmax() -> None:
         args = (lay.seg.data_ptr(), lay.idx.data_ptr(), qq.data_ptr(),
                 kt.data_ptr(), None, state.data_ptr(), res_out.data_ptr(),
                 lay.num_slots, a, heads, fa.ATT_TYPES[scal[0]], 0, 0.0, 0.0,
-                1, fa.score_vec(qq, kt, heads, scal[0]), s(x))
+                1.0, 0.5, 1, fa.score_vec(qq, kt, heads, scal[0]), s(x))
         row = dict(kernel="attention_gmax", dtype="bfloat16", graph=label,
                    E=lay.num_slots)
         want = fa.attention_gmax_plain(lay, qq, kt, None, *scal)

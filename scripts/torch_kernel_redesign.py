@@ -1133,6 +1133,29 @@ def parent_library(parent: str, name: str):
     return sys.modules[key].library(name)
 
 
+def gmax_call(fn, lay, q, kt, state, out, heads, scal, dt):
+    """``gx_attention_gmax`` of a checkout's library on ``lay`` without
+    reweight, by the C signature it has: PR 12's (16 arguments: the row
+    pointer and N), PR 13's (17: each slot's row and E) or PR 21's (19:
+    beltrami_exp's two scalars after exp_kernel's)."""
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    n, a = q.shape
+    att, ov2, inv2l2 = fa.ATT_TYPES[scal[0]], scal[2], scal[3]
+    stream = _build.stream_ptr(q)
+    ptrs = (q.data_ptr(), kt.data_ptr(), None, state.data_ptr(),
+            out.data_ptr())
+    if len(fn.argtypes) == 16:
+        return fn(lay.ptr.data_ptr(), lay.idx.data_ptr(), *ptrs, n, a, heads,
+                  att, 0, ov2, inv2l2, fa._DTYPES[dt], stream)
+    extra = (1.0, 0.5) if len(fn.argtypes) == 19 else ()
+    qvec = fa.score_vec(q, kt, heads, scal[0])
+    return fn(lay.seg.data_ptr(), lay.idx.data_ptr(), *ptrs, lay.num_slots,
+              a, heads, att, 0, ov2, inv2l2, *extra,
+              fa._DTYPES[dt], qvec, stream)
+
+
 def path_a_inputs(tr, dt):
     """Path A's operands of K5 and of the residual as
     ``windowed_attention_ax_fast`` makes them, from the windowed GRAND-nl
@@ -1353,21 +1376,14 @@ def gmax(emit, parent=None) -> None:
 
             def fresh():
                 st = torch.zeros(2, dtype=torch.int32, device="cuda")
-                lib.gx_attention_gmax(
-                    lay.seg.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
-                    kt.data_ptr(), None, st.data_ptr(), out.data_ptr(), e,
-                    a, heads, fa.ATT_TYPES[scal[0]], 0, scal[2], scal[3],
-                    fa._DTYPES[dt], fa.score_vec(q, kt, heads, scal[0]),
-                    _build.stream_ptr(q))
+                gmax_call(lib.gx_attention_gmax, lay, q, kt, st, out, heads,
+                          scal, dt)
             row["fresh_state_ms"] = here.time_ms(fresh)
         if plib is not None:
             old = torch.empty((), device="cuda")
             st = torch.zeros(2, dtype=torch.int32, device="cuda")
-            _build.check(plib.gx_attention_gmax(
-                lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
-                kt.data_ptr(), None, st.data_ptr(), old.data_ptr(), n, a,
-                heads, fa.ATT_TYPES[scal[0]], 0, scal[2], scal[3],
-                fa._DTYPES[dt], _build.stream_ptr(q)), "parent gmax")
+            _build.check(gmax_call(plib.gx_attention_gmax, lay, q, kt, st,
+                                   old, heads, scal, dt), "parent gmax")
             row.update(parent_value=float(old),
                        parent_equal=bool(torch.equal(got, old)))
         emit(**row)

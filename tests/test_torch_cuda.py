@@ -1934,3 +1934,162 @@ def test_cuda_checkpoint_round_trip(cuda, tmp_path):
     assert [h["nfe"] for h in got] == [h["nfe"] for h in straight[1:]]
     np.testing.assert_allclose([h["loss"] for h in got],
                                [h["loss"] for h in straight[1:]], rtol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# BLEND: the beltrami_exp score in the pin, flash and gmax kernels, the
+# kNN sweep and the GAT RHS
+
+def _beltrami_inputs(g, dtype, d, a, heads, seed):
+    """q [N, 2A] and the K weight [D, 2A] in the kernels' Beltrami layout
+    (head h's feature slice, then its positional slice), at a scale whose
+    squared distances spread over a few units (0.3 randn weights would
+    underflow every score)."""
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    n, tdt = g.num_nodes, getattr(torch, dtype)
+    x = torch.randn(n, d, generator=gen, device=g.device).to(tdt)
+    q = (0.3 * torch.randn(n, 2 * a, generator=gen,
+                           device=g.device)).to(tdt)
+    wk = (0.3 / d ** 0.5 * torch.randn(d, 2 * a, generator=gen,
+                                       device=g.device)).to(tdt)
+    bk = 0.1 * torch.randn(2 * a, generator=gen, device=g.device)
+    return q, x, wk, bk
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,a,heads", [(162, 32, 2), (64, 8, 4)])
+def test_cuda_beltrami_kernels_match_plain(cuda, dtype, d, a, heads):
+    """attention_kproj, attention_pin, attention_gmax and flash_attention
+    in beltrami_exp against their plain versions on a graph with rows of
+    0, 1, 31-33, 700 and 3,000 edges (over one batch and over ROW_SPLIT),
+    reweight on and off, softmax and squareplus: the pin within its f32
+    tolerance, gmax within 1e-6, flash within its tolerance in each
+    dtype."""
+    from graphax_torch.kernels import LAUNCHES
+
+    g = _walk_graph(cuda)
+    deg = (g.csr.ptr[1:] - g.csr.ptr[:-1]).max()
+    assert int(deg) > fa.ROW_SPLIT
+    q, x, wk, bk = _beltrami_inputs(g, dtype, d, a, heads, seed=d)
+    kt = fa.attention_kproj(x, wk, bk)
+    torch.testing.assert_close(kt, fa.attention_kproj_plain(x, wk, bk),
+                               rtol=1e-5, atol=1e-4)
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "float32" \
+        else dict(rtol=2e-2, atol=2e-3)
+    scal = ("beltrami_exp", heads, 1.3, 0.7)
+    bel = dict(ov2p=0.8, inv2l2p=0.4)
+    for ew in (None, g.edge_weight):
+        args = (g.csr, q, x, wk, bk, ew) + scal
+        LAUNCHES.clear()
+        got = pin_mod.attention_pin(*args, **bel)
+        assert LAUNCHES["attention_pin"] == 1
+        torch.testing.assert_close(
+            got, pin_mod.attention_pin_plain(*args, **bel), rtol=2e-4,
+            atol=2e-5)
+        for sqp in (False, True):
+            gs = None
+            if sqp:
+                gs = fa.attention_gmax(g.csr, q, kt, ew, *scal, **bel)
+                torch.testing.assert_close(
+                    gs, fa.attention_gmax_plain(g.csr, q, kt, ew, *scal,
+                                                **bel), rtol=1e-6, atol=1e-6)
+            got = fa.flash_attention(g.csr, q, x, kt, ew, gs, *scal, **bel)
+            want = fa.flash_attention_plain(g.csr, q, x, kt, ew, gs, *scal,
+                                            **bel)
+            torch.testing.assert_close(got, want, **tol)
+            assert torch.all(got[[0, -3, -2, -1]] == 0)
+
+
+def test_cuda_beltrami_scalars_reach_the_kernels(cuda):
+    """Each of the four scalars moves the kernels' scores as it moves the
+    plain version's (none is dropped on the way to the device)."""
+    g = _cuda_graph(cuda)
+    q, x, wk, bk = _beltrami_inputs(g, "float32", 40, 8, 2, seed=3)
+    kt = fa.attention_kproj(x, wk, bk)
+    base = dict(ov2=1.3, inv2l2=0.7, ov2p=0.8, inv2l2p=0.4)
+    for key in base:
+        s = dict(base, **{key: base[key] * 1.7})
+        pos = ("beltrami_exp", 2, s["ov2"], s["inv2l2"])
+        kw = dict(ov2p=s["ov2p"], inv2l2p=s["inv2l2p"])
+        got = fa.attention_gmax(g.csr, q, kt, None, *pos, **kw)
+        torch.testing.assert_close(
+            got, fa.attention_gmax_plain(g.csr, q, kt, None, *pos, **kw),
+            rtol=1e-6, atol=1e-6)
+        args = (g.csr, q, x, wk, bk, None) + pos
+        torch.testing.assert_close(pin_mod.attention_pin(*args, **kw),
+                                   pin_mod.attention_pin_plain(*args, **kw),
+                                   rtol=2e-4, atol=2e-5)
+
+
+def _knn_rows_agree(d_got, i_got, d_want, i_want, d_all, k):
+    """The chosen distances within f32 rounding on every row, and the
+    neighbour sets equal on the rows whose k-th and (k+1)-th distances are
+    apart by more than that rounding."""
+    np.testing.assert_allclose(d_got, d_want, rtol=1e-4, atol=1e-3)
+    srt = np.sort(d_all, axis=1)
+    gap = srt[:, k] - srt[:, k - 1] > 1e-3 + 1e-4 * np.abs(srt[:, k])
+    assert gap.mean() > 0.5
+    for r in np.nonzero(gap)[0]:
+        assert set(i_got[r]) == set(i_want[r])
+
+
+def test_cuda_knn_graph_matches_cpu(cuda):
+    """`knn_distances` on the card against the CPU on 700 rows of 24
+    features (a zero row among them), in blocks of 256 rows: the distances
+    each row keeps, and its neighbour set where no tie straddles the k-th
+    place."""
+    from graphax_torch.rewiring.knn import knn_distances, knn_graph
+
+    rng = np.random.RandomState(4)
+    x = rng.randn(700, 24).astype(np.float32)
+    x[9] = 0.0
+    k = 12
+    dc, ic = knn_distances(torch.from_numpy(x), k, block_size=256)
+    dg, ig = knn_distances(torch.from_numpy(x).to(cuda), k, block_size=256)
+    xt = torch.from_numpy(x)
+    d_all = ((xt[:, None] - xt[None]) ** 2).sum(-1).numpy()
+    d_all[9, :] = np.inf
+    d_all[:, 9] = np.inf
+    live = np.ones(700, bool)
+    live[9] = False
+    _knn_rows_agree(dg.cpu().numpy()[live], ig.cpu().numpy()[live],
+                    dc.numpy()[live], ic.numpy()[live], d_all[live], k)
+    row, col = knn_graph(torch.from_numpy(x).to(cuda), k)
+    assert row.shape == col.shape == (700 * k,)
+    assert 9 not in set(col[row != 9].tolist())
+
+
+@pytest.mark.parametrize("mix", [False, True])
+def test_cuda_gat_rhs_matches_cpu(cuda, mix):
+    """The GAT RHS (its A x through spmm_csr) and its gradients on the card
+    against the CPU from the same weights, f32: the value and the gradients
+    of x, W, a and Wout within 1e-4 plus 1e-3 relative (sums in another
+    order)."""
+    from graphax_torch.functions.gat import GATFunction
+    from graphax_torch.functions.common import FuncState, prepare_scalars
+    from graphax_torch.kernels import LAUNCHES
+    from graphax_torch.train import Config
+
+    cfg = Config(function="GAT", heads=2, attention_dim=8,
+                 mix_features=mix, add_source=True)
+    outs = {}
+    for dev in ("cpu", cuda):
+        g = _cuda_graph(dev)
+        f = GATFunction(cfg, 12).to(dev)
+        f.reset_parameters(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            f.alpha_train.fill_(0.3)
+        x = torch.randn(g.num_nodes, 12,
+                        generator=torch.Generator().manual_seed(1)) \
+            .to(dev).requires_grad_(True)
+        alpha, beta = prepare_scalars(f, cfg, x.dtype)
+        LAUNCHES.clear()
+        y = f.rhs(alpha, beta, FuncState(graph=g, x0=x.detach()), 0.0, x)
+        y.square().sum().backward()
+        if dev != "cpu" and not mix:
+            assert LAUNCHES["spmm_csr"] >= 2 and LAUNCHES["sddmm"] == 1
+        outs[str(dev)] = [t.detach().cpu() for t in (
+            y, x.grad, f.att.W.grad, f.att.a.grad, f.att.Wout.grad
+            if mix else torch.zeros(()))]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)

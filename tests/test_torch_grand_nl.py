@@ -643,17 +643,22 @@ def test_unported_eval_routes_raise(monkeypatch, over, err):
 
 @pytest.mark.parametrize("over,err", [
     (dict(community_window=16, attention_norm_idx=1), "Queue 3"),
-    (dict(community_window=16, beltrami=True,
-          attention_type="exp_kernel"), "Beltrami"),
+    (dict(attention_norm_idx=1, beltrami=True, attention_type="exp_kernel",
+          feat_hidden_dim=6, pos_enc_hidden_dim=4, pos_enc_dim=3),
+     "Beltrami"),
 ])
 def test_still_unported_routes_raise(over, err):
-    """Beltrami raises, naming its ROADMAP item. Column normalisation on
-    the windowed strategy (once ROADMAP Queue 3's open entry) now takes
+    """Beltrami on the column route raises, naming its ROADMAP item (its
+    row routes run since the port's Beltrami slice). Column normalisation
+    on the windowed strategy (once ROADMAP Queue 3's open entry) now takes
     the column route over the windowed graph's CSR and CSC, and trains to
     graphax's step."""
     if err == "Beltrami":
-        with pytest.raises(NotImplementedError, match=err):
-            _small_trainer(**over).evaluate()
+        tr = _small_trainer(**over)
+        tr.data = tr.data.with_pos_encoding(
+            np.random.RandomState(0).randn(60, 3))
+        with pytest.raises(NotImplementedError, match="item 9"):
+            tr.evaluate()
         return
     from test_torch_grand_nl_train import one_step
 

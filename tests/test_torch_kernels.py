@@ -232,7 +232,8 @@ def test_pin_bf16_matches_pallas(att_type):
 
 
 def test_pin_refuses_gradients_and_unsupported_configs():
-    """The kernel refuses gradients and beltrami; the configs outside its
+    """The kernel refuses gradients and a beltrami_exp head slice of odd
+    width (its feature and positional halves); the configs outside its
     gate (squareplus, column normalisation) take graphax's per-edge route
     in `attention_edge_means`, and match graphax's pin there."""
     gx, pt, gcfg, cfg, p, att, x = pin_setup("scaled_dot", False)
@@ -242,8 +243,8 @@ def test_pin_refuses_gradients_and_unsupported_configs():
                               torch.zeros(6, 8), torch.zeros(8), None,
                               "scaled_dot", 2)
     with pytest.raises(ValueError, match="beltrami"):
-        pin_mod.attention_pin(pt.csr, xt[:, :8], xt, torch.zeros(6, 8),
-                              torch.zeros(8), None, "beltrami_exp", 2)
+        pin_mod.attention_pin(pt.csr, xt[:, :6], xt, torch.zeros(6, 6),
+                              torch.zeros(6), None, "beltrami_exp", 2)
     for other in (dict(square_plus=True), dict(attention_norm_idx=1)):
         want = gx_attention_edge_means(p, gcfg.replace(**other), gx,
                                        jnp.asarray(x), differentiable=False)
