@@ -162,7 +162,9 @@ and prints no result):
    probe accuracy, the cache read back); the four kernels of the Beltrami
    paths in ``beltrami_exp`` (attention_pin, attention_kproj,
    flash_attention, attention_gmax under squareplus) against their plain
-   versions at the paths' shapes, timed beside their bounds; then fitted
+   versions at the paths' shapes, timed beside their bounds, flash and
+   gmax also on the hub graph with path (b)'s operands (their segment
+   kernels' beltrami_exp instances); then fitted
    with fit's defaults: (a) ``best_config("ogbn-arxiv", beltrami=True,
    attention_type="exp_kernel")`` (windowed, the pin in beltrami_exp),
    (b) the same as GRAND-nl on CSR (flash in beltrami_exp, the per-edge
@@ -3308,12 +3310,15 @@ def blend_kernel_checks(tr_a, tr_b, results: dict) -> None:
     64] in both dtypes within TOL_KPROJ; flash on path (b)'s CSR with its
     RHS's attention layer (random weights) in both dtypes within
     TOL_FLASH, and under squareplus attention_gmax (TOL_GMAX) then flash
-    with its shift, in bf16."""
+    with its shift, in bf16; then flash and gmax the same on
+    :func:`hub_graph` with path (b)'s operands (rows of up to 13,000
+    edges: the segment kernels' beltrami_exp instances)."""
     import torch
 
     from graphax_torch.kernels import attention_pin as pin_mod
     from graphax_torch.kernels import fused_attention as fa
 
+    hub = None
     for label, tr, att in (("a", tr_a, tr_a.model.block.att_layer),
                            ("b", tr_b, tr_b.model.block.func.att)):
         randomize_beltrami(att, 31)
@@ -3326,6 +3331,8 @@ def blend_kernel_checks(tr_a, tr_b, results: dict) -> None:
         d, heads = x_enc.shape[1], cfg.heads
         a = fa.score_width(cfg)
         csr_bytes = 4 * e + 4 * (n + 1)
+        if label == "b":
+            hub = hub_graph(x_enc.device)
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).replace("torch.", "")
             b = dt.itemsize
@@ -3338,9 +3345,10 @@ def blend_kernel_checks(tr_a, tr_b, results: dict) -> None:
                 q, wk, bk = p["q"], p["wk"], p["bk"]
 
                 def row(kernel, **kw):
-                    return dict(kernel=kernel, path=f"blend {label}",
-                                dtype=name, att_type="beltrami_exp", N=n, E=e,
-                                D=d, A=a, H=heads, **bel, **kw)
+                    return dict(dict(kernel=kernel, path=f"blend {label}",
+                                     dtype=name, att_type="beltrami_exp",
+                                     N=n, E=e, D=d, A=a, H=heads, **bel),
+                                **kw)
 
                 kt = hold_to_plain(
                     results, row("attention_kproj",
@@ -3367,39 +3375,50 @@ def blend_kernel_checks(tr_a, tr_b, results: dict) -> None:
                         tag="beltrami",
                         miss_bytes=nbytes + 4 * n * a + 4 * e * a)
                     continue
-                ops = score_ops + e * 2.0 * heads * d
-                nbytes = (n * a * b + 4 * n * a + n * d * b + csr_bytes
-                          + 4 * n * d)
-                miss = nbytes - n * d * b + e * d * b
-                hold_to_plain(
-                    results, row("flash_attention"),
-                    lambda: fa.flash_attention(g.csr, q, x, kt, None, None,
-                                               *scal, **bel),
-                    lambda: fa.flash_attention_plain(g.csr, q, x, kt, None,
-                                                     None, *scal, **bel),
-                    TOL_FLASH[name], nbytes, ops, tag="beltrami",
-                    miss_bytes=miss)
-                if dt == torch.bfloat16:
-                    gshift = hold_to_plain(
-                        results, row("attention_gmax", square_plus=True),
-                        lambda: fa.attention_gmax(g.csr, q, kt, None, *scal,
-                                                  **bel),
-                        lambda: fa.attention_gmax_plain(g.csr, q, kt, None,
-                                                        *scal, **bel),
-                        TOL_GMAX, n * a * b + 4 * n * a + csr_bytes + 4,
-                        score_ops, tag="beltrami",
-                        miss_bytes=n * a * b + 4 * e * a + csr_bytes)
+                # path (b)'s CSR, then the hub graph with the same operands
+                # (its long rows in the segment kernels' instances)
+                for lay, tag in ((g.csr, "beltrami"),
+                                 (hub.csr, "beltrami hub")):
+                    ge = lay.num_slots
+                    lay_bytes = 4 * ge + 4 * (n + 1)
+                    score_ops = ge * (3.0 * a + 8 * heads)
+                    ops = score_ops + ge * 2.0 * heads * d
+                    nbytes = (n * a * b + 4 * n * a + n * d * b + lay_bytes
+                              + 4 * n * d)
+                    miss = nbytes - n * d * b + ge * d * b
                     hold_to_plain(
-                        results, row("flash_attention", square_plus=True),
-                        lambda: fa.flash_attention(g.csr, q, x, kt, None,
+                        results, row("flash_attention", graph=tag, E=ge),
+                        lambda: fa.flash_attention(lay, q, x, kt, None, None,
+                                                   *scal, **bel),
+                        lambda: fa.flash_attention_plain(lay, q, x, kt, None,
+                                                         None, *scal, **bel),
+                        TOL_FLASH[name], nbytes, ops, tag=tag,
+                        miss_bytes=miss)
+                    if dt != torch.bfloat16:
+                        continue
+                    gshift = hold_to_plain(
+                        results, row("attention_gmax", square_plus=True,
+                                     graph=tag, E=ge),
+                        lambda: fa.attention_gmax(lay, q, kt, None, *scal,
+                                                  **bel),
+                        lambda: fa.attention_gmax_plain(lay, q, kt, None,
+                                                        *scal, **bel),
+                        TOL_GMAX, n * a * b + 4 * n * a + lay_bytes + 4,
+                        score_ops, tag=tag,
+                        miss_bytes=n * a * b + 4 * ge * a + lay_bytes)
+                    hold_to_plain(
+                        results, row("flash_attention", square_plus=True,
+                                     graph=tag, E=ge),
+                        lambda: fa.flash_attention(lay, q, x, kt, None,
                                                    gshift, *scal, **bel),
                         lambda: fa.flash_attention_plain(
-                            g.csr, q, x, kt, None, gshift, *scal, **bel),
+                            lay, q, x, kt, None, gshift, *scal, **bel),
                         TOL_FLASH[name], nbytes, ops,
-                        tag="beltrami squareplus", miss_bytes=miss)
+                        tag=tag + " squareplus", miss_bytes=miss)
                 del kt
             del x, q, wk, bk
         torch.cuda.empty_cache()
+    del hub
 
 
 def blend_fit(label: str, tr, epochs: int, need, smi: str) -> dict:
@@ -4171,8 +4190,10 @@ def main(argv=None) -> int:
     # the Beltrami paths' shapes, and their launches there
     for i, kernel, tags in ((2, "attention_pin", ("beltrami",)),
                             (7, "flash_attention",
-                             ("beltrami", "beltrami squareplus")),
-                            (8, "attention_gmax", ("beltrami",)),
+                             ("beltrami", "beltrami squareplus",
+                              "beltrami hub", "beltrami hub squareplus")),
+                            (8, "attention_gmax", ("beltrami",
+                                                   "beltrami hub")),
                             (9, "attention_kproj",
                              ("beltrami a", "beltrami b"))):
         for tag in tags:

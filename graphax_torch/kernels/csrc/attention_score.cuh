@@ -37,12 +37,15 @@ __device__ __forceinline__ float val(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// beltrami_exp: exp_kernel's arithmetic on each half of the head's slice,
-// the product in graphax's order. Not inlined: inlined, its second loop
-// and scalars raised the register count of every kernel that scores (the
-// pin kernel spilled at its 48-register bound), whatever its score type.
-// Reading K here by 16-byte loads slowed the other score types' kernels by
-// 10-22 % (PERF.md), so the loop reads one value at a time
+// beltrami_exp in the pin's kernels (score()): exp_kernel's arithmetic on
+// each half of the head's slice, the product in graphax's order. Not
+// inlined: inlined, its second loop and scalars raised the register count
+// of every kernel that scores (the pin kernel spilled at its 48-register
+// bound), whatever its score type. Reading K here by 16-byte loads slowed
+// the other score types' kernels by 10-22 % (PERF.md), so the loop reads
+// one value at a time. The flash and gmax kernels have beltrami_exp
+// instances of their own (a template flag) that score by bel_sum below
+// instead
 template <typename Q>
 __device__ __noinline__ float beltrami(const Q* q, const float* k, int dk,
                                        float ov2, float inv2l2, float ov2p,
@@ -166,11 +169,98 @@ __device__ __forceinline__ float score_head(const Q* q, const float* kr,
   return score(q, kr, dk, att_type, scal);
 }
 
+// ---------------------------------------------------------------------
+// beltrami_exp in the flash and gmax kernels' instances (BEL)
+// ---------------------------------------------------------------------
+//
+// The same arithmetic as beltrami() (each half's squared distance summed
+// in index order, t = q - k, s += t * t; the product ov2 exp(-sx inv2l2)
+// ov2p exp(-sp inv2l2p) left to right), so the scores are beltrami()'s
+// bit for bit, but inlined into kernels that score nothing else and, on
+// the vector route, with a half's K values read by 16-byte loads, all of
+// them issued before its arithmetic.
+
+// the sum over hk values of (q - k)^2 in index order: one half of a head's
+// slice, q and k at the half's first value. vec: hk % 4 == 0 and the half
+// of k and q on 16 bytes, 16-byte loads: four float4 of K for 16 values,
+// issued before any arithmetic; q f32 in shared memory read by float4
+// where it is used, or with QV in the state dtype in device memory by
+// uint4, loaded beside K (which needs hk values of q to fill whole 16-byte
+// words). Else one value at a time, as beltrami() reads them
+template <typename Q, bool QV>
+__device__ __forceinline__ float bel_sum(const Q* q, const float* k, int hk,
+                                         int vec) {
+  static_assert(QV || std::is_same<Q, float>::value,
+                "q in shared memory is f32");
+  float s = 0.f;
+  if (!vec) {
+    for (int i = 0; i < hk; ++i) {
+      const float d = val(q[i]) - k[i];
+      s += d * d;
+    }
+    return s;
+  }
+  constexpr int QE = 16 / (int)sizeof(Q);   // q values in 16 bytes
+  for (int j0 = 0; j0 < hk; j0 += 16) {
+    float4 kv[4];
+    float qf[QV ? 16 : 1];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (j0 + 4 * u < hk)
+        kv[u] = __ldg(reinterpret_cast<const float4*>(k + j0 + 4 * u));
+    if constexpr (QV) {
+#pragma unroll
+      for (int u = 0; u < 16 / QE; ++u)
+        if (j0 + QE * u < hk) {
+          const uint4 v =
+              __ldg(reinterpret_cast<const uint4*>(q + j0 + QE * u));
+          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+          gx_rows::unpack<Q, 16>(w, qf + QE * u);
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (j0 + 4 * u < hk) {
+        float qq[4];
+        if constexpr (QV) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) qq[c] = qf[4 * u + c];
+        } else {
+          const float4 v = *reinterpret_cast<const float4*>(q + j0 + 4 * u);
+          qq[0] = v.x; qq[1] = v.y; qq[2] = v.z; qq[3] = v.w;
+        }
+        const float kk[4] = {kv[u].x, kv[u].y, kv[u].z, kv[u].w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float d = qq[c] - kk[c];
+          s += d * d;
+        }
+      }
+  }
+  return s;
+}
+
+// the score of a (edge, head) pair held by two neighbouring lanes, each
+// with its half's squared distance sq (half 0 the feature half): the even
+// lane's ov2 exp(-sx inv2l2) times ov2p times the odd lane's exp(-sp
+// inv2l2p), beltrami()'s product in its order; valid on the even lane.
+// Every lane of the warp calls it (one shuffle)
+__device__ __forceinline__ float bel_lanes_score(float sq, int half,
+                                                 Scal scal) {
+  const float u = half ? expf(-sq * scal.inv2l2p)
+                       : scal.ov2 * expf(-sq * scal.inv2l2);
+  return u * scal.ov2p * __shfl_xor_sync(0xffffffffu, u, 1);
+}
+
 // the batch's edges e0 + j, j < cnt, one per lane: lane j loads edge j's
 // column (or takes `pre`, loaded ahead by the caller, when pre >= 0) and
 // returns it; then lanes over the batch's (edge, head) pairs write the
 // scores against the row's q in shared memory (times the reweight value)
-// to ws[j * h + hh]
+// to ws[j * h + hh]. BEL: beltrami_exp's instance, two lanes a pair (lane
+// 2p the feature half of pair p, 2p + 1 its positional half; kvec:
+// bel_sum's vector route, which needs q's row in shared memory on 16
+// bytes)
+template <bool BEL = false>
 __device__ __forceinline__ int batch_scores(
     const float* qs, const float* __restrict__ kt, const int* __restrict__ idx,
     const float* __restrict__ ew, int e0, int cnt, int a, int h, int att_type,
@@ -179,14 +269,33 @@ __device__ __forceinline__ int batch_scores(
   int col = 0;
   if (lane < cnt) col = pre >= 0 ? pre : idx[e0 + lane];
   const int dk = a / h, pairs = cnt * h;
-  for (int p0 = 0; p0 < pairs; p0 += 32) {
-    const int p = p0 + lane, j = p / h, hh = p - j * h;
-    const int c = __shfl_sync(0xffffffffu, col, j & 31);
-    if (p < pairs) {
-      float s = score_head(qs + hh * dk, kt + (size_t)c * a + hh * dk, dk,
-                           att_type, scal, kvec);
-      if (ew != nullptr) s *= ew[e0 + j];
-      ws[p] = s;
+  if constexpr (BEL) {
+    const int hk = dk >> 1;
+    for (int p0 = 0; p0 < 2 * pairs; p0 += 32) {
+      const int hp = p0 + lane, p = hp >> 1, half = hp & 1;
+      const int j = p / h, hh = p - j * h;
+      const int c = __shfl_sync(0xffffffffu, col, j & 31);
+      float sq = 0.f;
+      if (p < pairs) {
+        const int o = hh * dk + half * hk;
+        sq = bel_sum<float, false>(qs + o, kt + (size_t)c * a + o, hk, kvec);
+      }
+      float s = bel_lanes_score(sq, half, scal);
+      if (p < pairs && !half) {
+        if (ew != nullptr) s *= ew[e0 + j];
+        ws[p] = s;
+      }
+    }
+  } else {
+    for (int p0 = 0; p0 < pairs; p0 += 32) {
+      const int p = p0 + lane, j = p / h, hh = p - j * h;
+      const int c = __shfl_sync(0xffffffffu, col, j & 31);
+      if (p < pairs) {
+        float s = score_head(qs + hh * dk, kt + (size_t)c * a + hh * dk, dk,
+                             att_type, scal, kvec);
+        if (ew != nullptr) s *= ew[e0 + j];
+        ws[p] = s;
+      }
     }
   }
   __syncwarp();

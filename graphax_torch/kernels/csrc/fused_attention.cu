@@ -160,6 +160,24 @@
 //                 half), leaving as f32 or bf16 with one rounding. A row
 //                 with no edge writes the addend (or 0). Rows longer than the
 //                 host's split go to attspmm_seg_sum and seg_combine.
+//   The beltrami_exp instances (the template flag BEL of flash_kernel, its
+//                 two segment kernels and gmax_kernel; att_type 4 reaches
+//                 only them, and the other types' instances compile from
+//                 the same code as before them): Beltrami's split score
+//                 over a head slice of 2 hk values, 2 x 32 wide at BLEND's
+//                 arxiv shapes, so 128 bytes of the f32 K table (43 MB,
+//                 mostly L2-resident) a (edge, head) pair. Two lanes take
+//                 a pair, one half each, its four float4 of K in flight
+//                 (q by float4 from the warp's shared row in flash, by
+//                 uint4 of the state dtype in gmax); each half summed in
+//                 index order as the pin's beltrami() sums it, the product
+//                 formed across the lane pair by one shuffle, so the
+//                 scores are the pin's bit for bit. One lane a pair, its
+//                 eight float4 in flight, spilled at flash's 48 and gmax's
+//                 64 registers and measured slower. The first form (the
+//                 pin's __noinline__ helper, K a value at a time) took
+//                 0.555 ms (flash, bf16) and 0.379 ms (gmax) on the H100
+//                 (PERF.md).
 //
 // None of them uses atomics on floats: every output row is written by the
 // one warp that owns it (a long row's segments are summed in order by one
@@ -563,11 +581,18 @@ kproj_tc_kernel(const __nv_bfloat16* __restrict__ x,
 // finish decodes it, applies graphax's NEG/2 rule and resets the state
 // (state [2]: the encoded max, the blocks done) to zeros for the next call
 // (the host keeps one state per stream, so no two launches share one).
+// BEL: beltrami_exp's instance, by 16-byte loads of q and K where qvec
+// (gx_att::bel_sum), two threads a pair: the flat index over half-pairs
+// (thread 2p the feature half of pair p, 2p + 1 its positional half,
+// gx_att::bel_lanes_score), each warp's loop uniform so the pair's
+// shuffle sees both lanes; att_type 4 takes it and no other instance
+// scores beltrami_exp.
 constexpr int GM_THREADS = 256;
 constexpr int GM_MIN_BLOCKS = 4;   // blocks an SM the registers allow (64
-                                   // a thread)
+                                   // a thread; the beltrami_exp instance
+                                   // measured fastest here too, PERF.md)
 
-template <typename T>
+template <typename T, bool BEL>
 __global__ void __launch_bounds__(GM_THREADS, GM_MIN_BLOCKS)
 gmax_kernel(const long long* __restrict__ seg, const int* __restrict__ idx,
             const T* __restrict__ q, const float* __restrict__ kt,
@@ -578,16 +603,41 @@ gmax_kernel(const long long* __restrict__ seg, const int* __restrict__ idx,
   const int dk = a / h;
   float m = -INFINITY;
   const long long stride = (long long)gridDim.x * GM_THREADS;
-  for (long long p = (long long)blockIdx.x * GM_THREADS + threadIdx.x;
-       p < pairs; p += stride) {
-    const long long e = p / h;
-    const int hh = (int)(p - e * h);
-    const T* qh = q + (size_t)__ldg(seg + e) * a + hh * dk;
-    const float* kh = kt + (size_t)__ldg(idx + e) * a + hh * dk;
-    float s = gx_att::score_head<T, true>(qh, kh, dk, att_type, scal,
-                                          qvec);
-    if (ew != nullptr) s *= __ldg(ew + e);
-    m = fmaxf(m, s);
+  if constexpr (BEL) {
+    const int hk = dk >> 1, lane = threadIdx.x & 31;
+    for (long long w0 = (long long)blockIdx.x * GM_THREADS +
+                        (threadIdx.x & ~31);
+         w0 < 2 * pairs; w0 += stride) {
+      const long long hp = w0 + lane, p = hp >> 1;
+      const int half = (int)(hp & 1);
+      const bool live = hp < 2 * pairs;
+      long long e = 0;
+      float sq = 0.f;
+      if (live) {
+        e = p / h;
+        const int o = (int)(p - e * h) * dk + half * hk;
+        sq = gx_att::bel_sum<T, true>(q + (size_t)__ldg(seg + e) * a + o,
+                                      kt + (size_t)__ldg(idx + e) * a + o, hk,
+                                      qvec);
+      }
+      float s = gx_att::bel_lanes_score(sq, half, scal);
+      if (live && !half) {
+        if (ew != nullptr) s *= __ldg(ew + e);
+        m = fmaxf(m, s);
+      }
+    }
+  } else {
+    for (long long p = (long long)blockIdx.x * GM_THREADS + threadIdx.x;
+         p < pairs; p += stride) {
+      const long long e = p / h;
+      const int hh = (int)(p - e * h);
+      const T* qh = q + (size_t)__ldg(seg + e) * a + hh * dk;
+      const float* kh = kt + (size_t)__ldg(idx + e) * a + hh * dk;
+      float s = gx_att::score_head<T, true>(qh, kh, dk, att_type, scal,
+                                            qvec);
+      if (ew != nullptr) s *= __ldg(ew + e);
+      m = fmaxf(m, s);
+    }
   }
   m = warp_max(m);
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -651,8 +701,9 @@ constexpr int VPL = 3;      // x vectors per lane in one column chunk
 template <int VB> constexpr int U = VB <= 4 ? 4 : 2;
 // blocks per SM the walk kernels' registers allow: more rows in flight on
 // each SM measured faster than more x rows in flight per warp. The
-// one-batch flash kernel fits 48 registers a thread (5 blocks); attspmm's
-// walk spills there and keeps 64 (4 blocks).
+// one-batch flash kernel fits 48 registers a thread (5 blocks; its
+// beltrami_exp instance spills at 6 and measured slower there, PERF.md);
+// attspmm's walk spills there and keeps 64 (4 blocks).
 constexpr int FLASH_MIN_BLOCKS = 5;
 constexpr int MIN_BLOCKS = 4;
 
@@ -734,12 +785,22 @@ __host__ __device__ __forceinline__ int flash_warp_floats(int a, int h) {
   return a + 2 * h + BATCH * h;
 }
 
+// a warp's floats in an instance of the flash kernels: the beltrami_exp
+// instances (BEL) round flash_warp_floats up to 4, so every warp's q
+// starts on 16 bytes for bel_sum's float4 reads; the others keep it
+__host__ __device__ __forceinline__ int flash_stride(int a, int h, bool bel) {
+  return bel ? (flash_warp_floats(a, h) + 3) & ~3 : flash_warp_floats(a, h);
+}
+
 // the rows of at most BATCH edges, one batch each: the scores, the shift
 // and the denominators, then the gather of the weights kept in shared
 // memory; longer rows are the segment kernels'. One row per warp: walking
 // rows r, r + stride, ... with the next row's bounds and columns loaded
-// ahead measured slower here than at the attspmm kernel (PERF.md).
-template <typename T, int VB, bool SQP>
+// ahead measured slower here than at the attspmm kernel (PERF.md). BEL:
+// beltrami_exp's instance (batch_scores<true>, the warp stride of
+// flash_stride); att_type 4 takes it and no other instance scores
+// beltrami_exp, so the others compile from the same code as before it.
+template <typename T, int VB, bool SQP, bool BEL>
 __global__ void __launch_bounds__(WPB * 32, FLASH_MIN_BLOCKS)
 flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
              const T* __restrict__ q, const T* __restrict__ x,
@@ -754,7 +815,7 @@ flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   if (r >= n) return;
   const int beg = ptr[r], len = ptr[r + 1] - beg;
   if (len > BATCH) return;
-  float* qs = smem + (size_t)w * flash_warp_floats(a, h);
+  float* qs = smem + (size_t)w * flash_stride(a, h, BEL);
   float* ms = qs + a;
   float* cs = ms + h;
   float* ws = cs + h;
@@ -763,8 +824,8 @@ flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   if (len > 0) {
     for (int i = lane; i < a; i += 32) qs[i] = to_f(q[(size_t)r * a + i]);
     __syncwarp();
-    batch_scores(qs, kt, idx, ew, beg, len, a, h, att_type, scal, kvec,
-                 ws, lane, col);
+    batch_scores<BEL>(qs, kt, idx, ew, beg, len, a, h, att_type, scal, kvec,
+                      ws, lane, col);
     batch_stats<T, SQP>(ws, ms, cs, len, h, SQP ? *gshift : 0.f, true, true,
                         lane);
     head_scales(cs, h, lane);
@@ -780,8 +841,10 @@ flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
 }
 
 // a long row's segment j: its running (max, sum) per head into st [nseg,
-// 2h]; with RES (the training forward) also its scores into sc [E, h]
-template <typename T, bool SQP, bool RES>
+// 2h]; with RES (the training forward) also its scores into sc [E, h];
+// BEL as flash_kernel's (never with RES: the training kernels score
+// scaled_dot only)
+template <typename T, bool SQP, bool RES, bool BEL>
 __global__ void __launch_bounds__(WPB * 32)
 flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
                 const T* __restrict__ q, const float* __restrict__ kt,
@@ -795,7 +858,7 @@ flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
   if (j >= nseg) return;
   int r, sb, se, i;
   segment(ptr, plan, nlong, seg, j, r, sb, se, i);
-  float* qs = smem + (size_t)w * flash_warp_floats(a, h);
+  float* qs = smem + (size_t)w * flash_stride(a, h, BEL);
   float* ms = qs + a;
   float* ds = ms + h;
   float* ws = ds + h;
@@ -804,8 +867,8 @@ flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
   const float g = SQP ? *gshift : 0.f;
   for (int b0 = sb; b0 < se; b0 += BATCH) {
     const int cnt = min(BATCH, se - b0);
-    batch_scores(qs, kt, idx, ew, b0, cnt, a, h, att_type, scal, kvec,
-                 ws, lane);
+    batch_scores<BEL>(qs, kt, idx, ew, b0, cnt, a, h, att_type, scal, kvec,
+                      ws, lane);
     if (RES)
       for (int p = lane; p < cnt * h; p += 32) sc[(size_t)b0 * h + p] = ws[p];
     batch_stats<T, SQP>(ws, ms, ds, cnt, h, g, b0 == sb, false, lane);
@@ -821,8 +884,9 @@ flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
 // sums into part [nseg, d], each batch's scores recomputed for its
 // weights. With RES (the training forward) the row's first segment writes
 // shift and denom [n, h], and the weights are K3's, rnd(mean_h exp(s -
-// shift) / (den or 1)), from the scores kept in sc
-template <typename T, int VB, bool SQP, bool RES>
+// shift) / (den or 1)), from the scores kept in sc. BEL as
+// flash_seg_stats's
+template <typename T, int VB, bool SQP, bool RES, bool BEL>
 __global__ void __launch_bounds__(WPB * 32)
 flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
               const T* __restrict__ q, const T* __restrict__ x,
@@ -840,7 +904,7 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
   if (j >= nseg) return;
   int r, sb, se, i;
   segment(ptr, plan, nlong, seg, j, r, sb, se, i);
-  float* qs = smem + (size_t)w * flash_warp_floats(a, h);
+  float* qs = smem + (size_t)w * flash_stride(a, h, BEL);
   float* ms = qs + a;
   float* cs = ms + h;
   float* ws = cs + h;
@@ -883,8 +947,8 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
         }
         gather<T, VB, VPL, U<VB>>(acc, x, col, wl, cnt, d, v0, nvec, lane);
       } else {
-        const int col = batch_scores(qs, kt, idx, ew, b0, cnt, a, h,
-                                     att_type, scal, kvec, ws, lane);
+        const int col = batch_scores<BEL>(qs, kt, idx, ew, b0, cnt, a, h,
+                                          att_type, scal, kvec, ws, lane);
         batch_weights<T, SQP>(ws, ms, cnt, h, lane);
         gather_flash<T, VB>(acc, x, col, cnt, ws, cs, h, d, v0, nvec, lane);
       }
@@ -1638,8 +1702,8 @@ int resident_blocks(K kernel, int threads, size_t smem) {
 
 // the rows of more than BATCH edges of a flash or (RES) training-forward
 // launch, in segments of `seg` edges: flash_seg_stats, flash_seg_sum and
-// seg_combine
-template <typename T, int VB, bool SQP, bool RES>
+// seg_combine; BEL the beltrami_exp instances
+template <typename T, int VB, bool SQP, bool RES, bool BEL>
 cudaError_t run_flash_segs(const void* ptr, const void* idx, const void* q,
                            const void* x, const void* kt, const void* ew,
                            const void* gshift, const void* plan, void* st,
@@ -1648,18 +1712,19 @@ cudaError_t run_flash_segs(const void* ptr, const void* idx, const void* q,
                            int att_type, gx_att::Scal scal, int kvec,
                            int wpb, int seg, int nlong, int nseg,
                            cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)wpb * flash_warp_floats(a, h);
+  const size_t smem = sizeof(float) * (size_t)wpb * flash_stride(a, h, BEL);
   const int grid = (nseg + wpb - 1) / wpb;
-  cudaError_t err = allow_smem(flash_seg_stats<T, SQP, RES>, smem);
+  cudaError_t err = allow_smem(flash_seg_stats<T, SQP, RES, BEL>, smem);
   if (err != cudaSuccess) return err;
-  flash_seg_stats<T, SQP, RES><<<grid, wpb * 32, smem, s>>>(
+  flash_seg_stats<T, SQP, RES, BEL><<<grid, wpb * 32, smem, s>>>(
       (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
       (const float*)ew, (const float*)gshift, (const int*)plan, (float*)st,
       (float*)sc, nlong, nseg, a, h, att_type, scal, kvec, seg);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = allow_smem(flash_seg_sum<T, VB, SQP, RES>, smem)) != cudaSuccess)
+  if ((err = allow_smem(flash_seg_sum<T, VB, SQP, RES, BEL>, smem)) !=
+      cudaSuccess)
     return err;
-  flash_seg_sum<T, VB, SQP, RES><<<grid, wpb * 32, smem, s>>>(
+  flash_seg_sum<T, VB, SQP, RES, BEL><<<grid, wpb * 32, smem, s>>>(
       (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
       (const float*)kt, (const float*)ew, (const float*)gshift,
       (const int*)plan, (const float*)st, (const float*)sc, (float*)shift,
@@ -1688,7 +1753,7 @@ cudaError_t run_fwd_res(const void* ptr, const void* idx, const void* q,
       n, d, a, h);
   err = cudaGetLastError();
   if (err != cudaSuccess || nseg == 0) return err;
-  return run_flash_segs<T, VB, false, true>(
+  return run_flash_segs<T, VB, false, true, false>(
       ptr, idx, q, x, kt, nullptr, nullptr, plan, st, part, sc, shift, denom,
       out, otype, d, a, h, 0, gx_att::Scal{}, KV ? 1 : 0, wpb, seg, nlong,
       nseg, s);
@@ -1770,24 +1835,26 @@ cudaError_t run_norm(const void* ptr, const void* idx, const void* q,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool BEL>
 cudaError_t run_gmax(const void* seg, const void* idx, const void* q,
                      const void* kt, const void* ew, void* state, void* out,
                      long long e, int a, int h, int att_type,
                      gx_att::Scal scal, int qvec, cudaStream_t s) {
   const long long pairs = e * h;
-  static const int resident = resident_blocks(gmax_kernel<T>, GM_THREADS, 0);
-  long long grid = (pairs + GM_THREADS - 1) / GM_THREADS;
+  static const int resident =
+      resident_blocks(gmax_kernel<T, BEL>, GM_THREADS, 0);
+  const long long items = BEL ? 2 * pairs : pairs;
+  long long grid = (items + GM_THREADS - 1) / GM_THREADS;
   if (grid > resident) grid = resident;
   if (grid < 1) grid = 1;   // the last block writes the result
-  gmax_kernel<T><<<(int)grid, GM_THREADS, 0, s>>>(
+  gmax_kernel<T, BEL><<<(int)grid, GM_THREADS, 0, s>>>(
       (const long long*)seg, (const int*)idx, (const T*)q, (const float*)kt,
       (const float*)ew, (unsigned*)state, (float*)out, pairs, a, h, att_type,
       scal, qvec);
   return cudaGetLastError();
 }
 
-template <typename T, int VB, bool SQP>
+template <typename T, int VB, bool SQP, bool BEL>
 cudaError_t run_flash(const void* ptr, const void* idx, const void* q,
                       const void* x, const void* kt, const void* ew,
                       const void* gshift, const void* plan, void* st,
@@ -1795,16 +1862,16 @@ cudaError_t run_flash(const void* ptr, const void* idx, const void* q,
                       int h, int att_type, gx_att::Scal scal, int kvec,
                       int wpb, int seg, int nlong, int nseg,
                       cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)wpb * flash_warp_floats(a, h);
-  cudaError_t err = allow_smem(flash_kernel<T, VB, SQP>, smem);
+  const size_t smem = sizeof(float) * (size_t)wpb * flash_stride(a, h, BEL);
+  cudaError_t err = allow_smem(flash_kernel<T, VB, SQP, BEL>, smem);
   if (err != cudaSuccess) return err;
-  flash_kernel<T, VB, SQP><<<(n + wpb - 1) / wpb, wpb * 32, smem, s>>>(
+  flash_kernel<T, VB, SQP, BEL><<<(n + wpb - 1) / wpb, wpb * 32, smem, s>>>(
       (const int*)ptr, (const int*)idx, (const T*)q, (const T*)x,
       (const float*)kt, (const float*)ew, (const float*)gshift, out, otype, n,
       d, a, h, att_type, scal, kvec);
   err = cudaGetLastError();
   if (err != cudaSuccess || nseg == 0) return err;
-  return run_flash_segs<T, VB, SQP, false>(
+  return run_flash_segs<T, VB, SQP, false, BEL>(
       ptr, idx, q, x, kt, ew, gshift, plan, st, part, nullptr, nullptr,
       nullptr, out, otype, d, a, h, att_type, scal, kvec, wpb, seg,
       nlong, nseg, s);
@@ -1873,8 +1940,9 @@ int gx_attention_kproj_tc(const void* x, const void* wk, const void* bk,
 // the state dtype (pre-scaled for scaled_dot); kt [n, a] float32 from
 // gx_attention_kproj; ew [e] float32 reweight values or null; state [2]
 // uint32, zeros, left as zeros by the launch; out [1] float32: the max score
-// over every slot and head, 0 when there is none; qvec: scaled_dot's q and K
-// head slices on 16 bytes (16-byte loads).
+// over every slot and head, 0 when there is none; qvec: 16-byte loads of
+// q's and K's head slices (scaled_dot), or of each half of them
+// (beltrami_exp, att_type 4, which takes gmax_kernel's BEL instance).
 int gx_attention_gmax(const void* seg, const void* idx, const void* q,
                       const void* kt, const void* ew, void* state, void* out,
                       long long e, int a, int h, int att_type, int reweight,
@@ -1884,12 +1952,16 @@ int gx_attention_gmax(const void* seg, const void* idx, const void* q,
   const gx_att::Scal scal{ov2, inv2l2, ov2p, inv2l2p};
   const void* ewp = reweight ? ew : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
+  const bool bel = att_type == 4;
   if (dtype == 0)
-    return (int)run_gmax<float>(seg, idx, q, kt, ewp, state, out, e, a, h,
-                                att_type, scal, qvec, s);
+    return (int)(bel ? &run_gmax<float, true>
+                     : &run_gmax<float, false>)(seg, idx, q, kt, ewp, state,
+                                                out, e, a, h, att_type, scal,
+                                                qvec, s);
   if (dtype == 1)
-    return (int)run_gmax<__nv_bfloat16>(seg, idx, q, kt, ewp, state, out, e,
-                                        a, h, att_type, scal, qvec, s);
+    return (int)(bel ? &run_gmax<__nv_bfloat16, true>
+                     : &run_gmax<__nv_bfloat16, false>)(
+        seg, idx, q, kt, ewp, state, out, e, a, h, att_type, scal, qvec, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1898,7 +1970,9 @@ int gx_attention_gmax(const void* seg, const void* idx, const void* q,
 // float32 (out_dtype 0) or bfloat16 (1). vec_bytes: the bytes of one x load
 // (float: 4 or 8; bfloat16: 2, 4 or 8, dividing a row's bytes and x's
 // offset); kvec: scaled_dot's K rows by 16-byte loads (dk % 4 == 0, kt on
-// 16 bytes); ov2p, inv2l2p: beltrami_exp's; wpb
+// 16 bytes), or beltrami_exp's halves (dk / 2 % 4 == 0, kt on 16 bytes;
+// att_type 4 takes the flash kernels' BEL instances); ov2p, inv2l2p:
+// beltrami_exp's; wpb
 // warps per block. Rows of more than 32 edges go through the segment
 // kernels, in segments of `seg` edges: plan [2 nlong + 1 + nseg] int32
 // (long rows, their segment offsets, each segment's long row), st [nseg,
@@ -1919,14 +1993,13 @@ int gx_flash_attention(const void* ptr, const void* idx, const void* q,
   return (int)by_width(dtype, vec_bytes, [&](auto t, auto vb) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int VB = decltype(vb)::value;
-    return square_plus
-        ? run_flash<T, VB, true>(ptr, idx, q, x, kt, ewp, gshift, plan, st,
-                                 part, out, out_dtype, n, d, a, h, att_type,
-                                 scal, kvec, wpb, seg, nlong, nseg, s)
-        : run_flash<T, VB, false>(ptr, idx, q, x, kt, ewp, gshift, plan, st,
-                                  part, out, out_dtype, n, d, a, h, att_type,
-                                  scal, kvec, wpb, seg, nlong, nseg,
-                                  s);
+    auto run = square_plus ? (att_type == 4 ? &run_flash<T, VB, true, true>
+                                            : &run_flash<T, VB, true, false>)
+                           : (att_type == 4 ? &run_flash<T, VB, false, true>
+                                            : &run_flash<T, VB, false, false>);
+    return run(ptr, idx, q, x, kt, ewp, gshift, plan, st, part, out,
+               out_dtype, n, d, a, h, att_type, scal, kvec, wpb, seg, nlong,
+               nseg, s);
   });
 }
 
@@ -2021,7 +2094,9 @@ int gx_attention_bwd_cols(const void* ptr, const void* idx, const void* q,
 // (pre-scaled for scaled_dot); kt [n, a] float32; ew [E] float32 or null;
 // gshift [1] float32 (the shift, from gx_attention_gmax); eo [E, h] float32
 // out (e unrounded); den [n, h] float32 out (the row sums of e). kvec as
-// gx_attention_bwd_cols's (scaled_dot only). Rows of more than NM_CUT slots
+// gx_attention_bwd_cols's: it takes the scaled_dot instance (KV), so it is
+// read for att_type 0 only. beltrami_exp (att_type 4) is refused: the
+// interface has no positional pair. Rows of more than NM_CUT slots
 // go in segments of NM_SEG: plan as gx_attention_bwd_cols's, part [nseg, h]
 // float32 scratch.
 int gx_attention_norm(const void* ptr, const void* idx, const void* q,
@@ -2030,6 +2105,7 @@ int gx_attention_norm(const void* ptr, const void* idx, const void* q,
                       int n, int a, int h, int att_type, int reweight,
                       int square_plus, float ov2, float inv2l2, int dtype,
                       int kvec, int nlong, int nseg, void* stream) {
+  if (att_type == 4) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   const gx_att::Scal scal{ov2, inv2l2, 1.f, 0.5f};
   const void* ewp = reweight ? ew : nullptr;
@@ -2038,7 +2114,7 @@ int gx_attention_norm(const void* ptr, const void* idx, const void* q,
   run_norm<T, SQP, KV>(ptr, idx, q, kt, ewp, gshift, plan, part, eo, den, n, \
                        a, h, att_type, scal, nlong, nseg, s)
 #define GX_NORM_KV(T, SQP) \
-  (kvec ? GX_NORM(T, SQP, true) : GX_NORM(T, SQP, false))
+  (kvec && att_type == 0 ? GX_NORM(T, SQP, true) : GX_NORM(T, SQP, false))
   if (dtype == 0)
     return (int)(square_plus ? GX_NORM_KV(float, true)
                              : GX_NORM_KV(float, false));

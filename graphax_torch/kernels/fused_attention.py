@@ -306,15 +306,35 @@ def attention_gmax_plain(layout: Layout, q, kt, edge_w, att_type: str,
     return torch.where(g <= NEG / 2, torch.zeros_like(g), g)
 
 
+def _vec_unit(a: int, heads: int, att_type: str) -> int:
+    """The values the 16-byte score loads take from one place: scaled_dot's
+    head slice of ``a / heads``, or beltrami_exp's half of it (each half
+    starts at its own offset); 0 for the types scored one value at a
+    time."""
+    dk = a // heads
+    return {"scaled_dot": dk, "beltrami_exp": dk // 2}.get(att_type, 0)
+
+
 def score_vec(q: torch.Tensor, k: torch.Tensor, heads: int,
               att_type: str) -> int:
-    """1 where attention_gmax and K5 read scaled_dot's q and k head slices
-    (k in q's dtype or the f32 K table) by 16-byte loads: a head slice's
-    bytes of q a multiple of 16 (so of its row and of an f32 slice too) and
-    both tensors on 16 bytes; else 0 (one value at a time)."""
-    dk = q.shape[1] // heads
-    return int(att_type == "scaled_dot" and (dk * q.element_size()) % 16 == 0
+    """1 where attention_gmax and K5 read q and k (k in q's dtype or the
+    f32 K table) by 16-byte loads: scaled_dot's head slices, or each half
+    of beltrami_exp's (:func:`_vec_unit`), when a unit's bytes of q are a
+    multiple of 16 (so of its row and of an f32 unit too) and both tensors
+    sit on 16 bytes; else 0 (one value at a time)."""
+    unit = _vec_unit(q.shape[1], heads, att_type)
+    return int(unit > 0 and (unit * q.element_size()) % 16 == 0
                and q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0)
+
+
+def flash_kvec(kt: torch.Tensor, heads: int, att_type: str) -> int:
+    """1 where the flash kernels read the K table by 16-byte loads:
+    scaled_dot's head slices or beltrami_exp's halves (:func:`_vec_unit`)
+    a multiple of 4 values and ``kt`` on 16 bytes (q comes from each warp's
+    f32 row in shared memory, which beltrami_exp's instances keep on 16
+    bytes); else 0."""
+    unit = _vec_unit(kt.shape[1], heads, att_type)
+    return int(unit > 0 and unit % 4 == 0 and kt.data_ptr() % 16 == 0)
 
 
 _GMAX_STATE: dict = {}
@@ -391,11 +411,16 @@ def gather_width(x: torch.Tensor, *f32_views) -> int:
     return elem
 
 
-def flash_warps(a: int, heads: int) -> int:
+def flash_warps(a: int, heads: int, att_type: str = "scaled_dot") -> int:
     """Warps per block of the flash kernels: up to 8, each with q, the
     per-head shift and scale and a batch's 32 x H scores in shared memory
-    within one block's limit; 0 where not even one fits."""
-    return min(_WPB, _SMEM_LIMIT // (4 * (a + 2 * heads + _BATCH * heads)))
+    (beltrami_exp's instances round a warp's floats up to 4, the source's
+    ``flash_stride``) within one block's limit; 0 where not even one
+    fits."""
+    floats = a + 2 * heads + _BATCH * heads
+    if att_type == "beltrami_exp":
+        floats = -(-floats // 4) * 4
+    return min(_WPB, _SMEM_LIMIT // (4 * floats))
 
 
 def batch_warps(heads: int) -> int:
@@ -501,7 +526,7 @@ def flash_attention(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         raise ValueError("flash_attention: gshift must be one f32 value")
     _check_operands("flash_attention", x, layout.ptr, layout.idx, q, x, kt,
                     edge_w, gshift)
-    wpb = flash_warps(a, heads)
+    wpb = flash_warps(a, heads, att_type)
     if wpb < 1:
         raise ValueError(f"flash_attention: A={a}, H={heads} exceed one "
                          "block's shared memory")
@@ -510,7 +535,7 @@ def flash_attention(layout: Layout, q: torch.Tensor, x: torch.Tensor,
     st = torch.empty((nseg, 2 * heads), dtype=torch.float32, device=x.device)
     part = torch.empty((nseg, d), dtype=torch.float32, device=x.device)
     out = torch.empty((n, d), dtype=out_dtype, device=x.device)
-    kvec = int((a // heads) % 4 == 0 and kt.data_ptr() % 16 == 0)
+    kvec = flash_kvec(kt, heads, att_type)
     lib = _build.library("fused_attention")
     err = lib.gx_flash_attention(
         layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),

@@ -97,6 +97,21 @@ with 1 and 4 x rows in flight (``SD_ROWS``, 2 intact); with 6 blocks an
 SM in bf16 and 4 in f32, and with 8 in both (``min_blocks``, shared with
 the SpMM walk: 8 and 6 intact).
 
+``--only beltrami``: the beltrami_exp instances of flash_kernel (and
+its segment kernels) and gmax_kernel at path (b)'s shapes (the BLEND
+GRAND-nl preset's operands as ``torch_kernel_redesign.blend_operands``
+makes them: N 169,343, D 162, the K table 2 x 32 wide, 2 heads), bf16
+and f32: flash (softmax, f32 out) on the arxiv CSR and on
+``chip_smoke.hub_graph``, and in bf16 also on the arxiv CSR with x two
+columns wider (D 164, so 8-byte x loads: the VB 8 instance), gmax on the
+arxiv CSR; each on its 16-byte route and on its one-value route (the
+host's kvec / qvec forced to 0); intact (flash at 5 blocks an SM,
+``FLASH_MIN_BLOCKS``; gmax at 4, ``GM_MIN_BLOCKS``), then flash at 6, 7,
+6 and 4 blocks beside gmax at 2, 6, 8 and 3 (each constant sets the
+other score types' instances too, which these cases do not time). Each
+build's output against the intact build's, bit for bit, and its
+``-Xptxas=-v`` lines in ``results/ablations/``.
+
 A switched-off part leaves the results wrong: only the intact builds are
 checked (against the plain versions). Each ablated build is a copy of the
 source with guards on the switched-off statements and the case's
@@ -106,7 +121,8 @@ bits, and called through the same C interface as the port. One JSON
 line per measurement (device ms as chip_smoke's ``time_ms`` takes them),
 then the card's nvidia-smi line. Run from the root of the repo on the
 card: ``python3 scripts/torch_kernel_ablations.py [--only
-winatt_gmax|kproj_slab|bwd_cols_norm|fwd_res_bwd_rows|f32_core|sddmm]``.
+winatt_gmax|kproj_slab|bwd_cols_norm|fwd_res_bwd_rows|f32_core|sddmm|
+beltrami]``.
 """
 
 import ctypes
@@ -161,9 +177,9 @@ WINATT = ("winatt", "WINATT_OFF", [
      "    if (!(WINATT_OFF & 4) && vi < nvec) store_vec<E>(out, 0, nullptr,"),
 ], ())
 GMAX = ("fused_attention", "GMAX_OFF", [
-    ("    const T* qh = q + (size_t)__ldg(seg + e) * a + hh * dk;",
-     "    const T* qh = q + (GMAX_OFF & 1 ? (size_t)0 : (size_t)__ldg(seg + e))"
-     " * a + hh * dk;"),
+    ("      const T* qh = q + (size_t)__ldg(seg + e) * a + hh * dk;",
+     "      const T* qh = q + (GMAX_OFF & 1 ? (size_t)0 : "
+     "(size_t)__ldg(seg + e)) * a + hh * dk;"),
     ("        if (i0 + 4 * t < dk)\n"
      "          k[t] = __ldg(reinterpret_cast<const float4*>(kr + i0 + 4 * t));",
      "        if (!(GMAX_OFF & 2) && i0 + 4 * t < dk)\n"
@@ -206,9 +222,9 @@ FRBR = ("fused_attention", "FRBR_OFF", [
     ("    gather<T, VB, VPL, U<VB>>(acc, x, col, wt, len, d, v0, nvec, lane);",
      "    if (!(FRBR_OFF & 1)) gather<T, VB, VPL, U<VB>>(acc, x, col, wt, len, "
      "d, v0, nvec, lane);"),
-    ("    batch_scores(qs, kt, idx, nullptr, beg, len, a, h, 0, 0.f, 0.f,",
+    ("    batch_scores(qs, kt, idx, nullptr, beg, len, a, h, 0, gx_att::Scal{},",
      "    if (!(FRBR_OFF & 2)) batch_scores(qs, kt, idx, nullptr, beg, len, "
-     "a, h, 0, 0.f, 0.f,"),
+     "a, h, 0, gx_att::Scal{},"),
     (BATCH_LOADS, BATCH_LOADS.replace(
         "      load_rows", "      if (!(FRBR_OFF & 4)) load_rows")),
     ("  lane_sums(ws, kt, col, cnt, a, h, dq + (size_t)r * a, lane);",
@@ -326,6 +342,20 @@ SD_CASES = {"intact": 0, "no_x_gather": 1,
                 "8 : 6", b.replace("_", " : ")))])
                for b in ("6_4", "8_8")}}
 
+# the beltrami_exp instances: no part switched off; each case sets
+# flash's blocks an SM, then gmax's, named flash_<blocks>_gmax_<blocks>
+# (intact: 5, 4)
+BEL = ("fused_attention", "BEL_OFF", [], ("attention_score.cuh",))
+
+
+def bel_case(blocks: int, gm_blocks: int):
+    return (f"flash_{blocks}_gmax_{gm_blocks}",
+            (0, [const("FLASH_MIN_BLOCKS", 5, blocks),
+                 const("GM_MIN_BLOCKS", 4, gm_blocks)]))
+
+
+BEL_CASES = {"intact": 0, **dict(bel_case(*c) for c in (
+    (6, 2), (7, 6), (6, 8), (4, 3)))}
 
 def substitute(text: str, subs, what: str) -> str:
     """``text`` with each (old, new) of ``subs`` replaced, each ``old``
@@ -365,11 +395,13 @@ def build(spec, cases) -> dict:
                 '#include "', f'#include "{_build.CSRC}/'))
         so = os.path.join(OUT, f"lib{name}_{flag}_{tag}.so")
         proc = subprocess.run(
-            [_build._nvcc(), _build.ARCH, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", f"-D{flag}={bits}", "-o", so, src],
-            capture_output=True, text=True)
+            [_build._nvcc(), _build.ARCH, "-Xptxas=-v", "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC", f"-D{flag}={bits}", "-o", so,
+             src], capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        with open(so[:-3] + ".ptxas.txt", "w") as f:
+            f.write(proc.stdout + proc.stderr)
         lib = ctypes.CDLL(so)
         for fn, argtypes in _build.SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
@@ -864,6 +896,84 @@ def f32_core() -> None:
         del ref
 
 
+def beltrami() -> None:
+    """The ``beltrami`` group of the module's docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_kernel_redesign as rd
+
+    libs = build(BEL, BEL_CASES)
+    dts = (torch.bfloat16, torch.float32)
+    tr, ops = rd.blend_operands(get_dataset("ogbn-arxiv"), dts)
+    g = tr.data.graph
+    hub = cs.hub_graph("cuda")
+    for dt in dts:
+        o = ops[dt]
+        q, x, kt, scal, bel = o["q"], o["x"], o["kt"], o["scal"], o["bel"]
+        heads = scal[1]
+        name = str(dt)[6:]
+        graphs = [("arxiv CSR", g.csr, x), ("hub", hub.csr, x)]
+        if dt == torch.bfloat16:
+            graphs.append(("arxiv CSR, D 164", g.csr,
+                           torch.cat([x, x[:, :2]], 1)))
+        for label, lay, xg in graphs:
+            with torch.no_grad():
+                want = fa.flash_attention_plain(lay, q, xg, kt, None, None,
+                                                *scal, **bel)
+            out = torch.empty_like(want)
+            kvec = fa.flash_kvec(kt, heads, scal[0])
+            row = dict(kernel="flash_attention", att_type=scal[0],
+                       dtype=name, graph=label, E=lay.num_slots, kvec=kvec,
+                       D=xg.shape[1], vec_bytes=fa.gather_width(xg))
+            ref = None
+            for case, lib in libs.items():
+                for route, kv in (("", kvec), ("_one_value", 0)):
+                    def call(lib=lib, kv=kv, xg=xg):
+                        return rd.flash_call(lib.gx_flash_attention, lay, q,
+                                             xg, kt, None, scal, bel, out, kv)
+                    _build.check(call(), case)
+                    torch.cuda.synchronize()
+                    if ref is None:
+                        ref = out.clone()
+                        row["intact_max_abs_err"] = float(
+                            (out - want).abs().max())
+                    row[case + route + "_equal"] = bool(torch.equal(out, ref))
+                    row[case + route + "_ms"] = cs.time_ms(call)
+            print(json.dumps(row), flush=True)
+        lay = g.csr
+        qvec = fa.score_vec(q, kt, heads, scal[0])
+        want = fa.attention_gmax_plain(lay, q, kt, None, *scal, **bel)
+        out = torch.empty((), device="cuda")
+        state = torch.zeros(2, dtype=torch.int32, device="cuda")
+        row = dict(kernel="attention_gmax", att_type=scal[0], dtype=name,
+                   graph="arxiv CSR", E=lay.num_slots, qvec=qvec,
+                   intact_abs_err=None)
+        for case, lib in libs.items():
+            for route, qv in (("", qvec), ("_one_value", 0)):
+                def call(lib=lib, qv=qv):
+                    return lib.gx_attention_gmax(
+                        lay.seg.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
+                        kt.data_ptr(), None, state.data_ptr(),
+                        out.data_ptr(), lay.num_slots, q.shape[1], heads,
+                        fa.ATT_TYPES[scal[0]], 0, scal[2], scal[3],
+                        bel["ov2p"], bel["inv2l2p"], fa._DTYPES[dt], qv,
+                        _build.stream_ptr(q))
+                _build.check(call(), case)
+                torch.cuda.synchronize()
+                if row["intact_abs_err"] is None:
+                    row["intact_abs_err"] = float((out - want).abs())
+                    row["value"] = float(out)
+                row[case + route + "_equal"] = float(out) == row["value"]
+                row[case + route + "_ms"] = cs.time_ms(call)
+        print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     import argparse
 
@@ -872,7 +982,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("winatt_gmax", "kproj_slab",
                                        "bwd_cols_norm", "fwd_res_bwd_rows",
-                                       "f32_core", "sddmm"),
+                                       "f32_core", "sddmm", "beltrami"),
                     default=None, help="one group of ablations")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -896,6 +1006,8 @@ def main() -> int:
         f32_core()
     if args.only in (None, "sddmm"):
         sddmm()
+    if args.only in (None, "beltrami"):
+        beltrami()
     print(cs.smi_line(), flush=True)
     return 0
 

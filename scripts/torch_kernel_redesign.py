@@ -64,7 +64,11 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   three GRAND-nl evaluations each on CSR, path A and path B (NFE, ms per
   NFE), and one profiled GRAND-nl train step on CSR (device busy ms, the
   flash kernels' device ms, and the device ms of each kernel of the row
-  walk by name);
+  walk by name). First, in a checkout with ``beltrami_exp``: flash in
+  ``beltrami_exp`` at BLEND path (b)'s shapes (:func:`blend_operands`) on
+  the arxiv CSR and the hub graph (:func:`blend_flash`) and path (b)'s
+  3-epoch fit, and flash and gmax for the other four score types on the
+  arxiv CSR and the power-law graph (:func:`other_types`);
 - (``spmm``) spmm_csr, A x and A^T g, bf16 and f32, on the arxiv CSR
   (the ``community_window=0`` preset's graph), the windowed preset's
   residual, ``chip_smoke.hub_graph`` and :func:`pareto_graph`, each with
@@ -109,8 +113,13 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   q and K table), the arxiv CSR, the hub and the power-law graphs (the
   CSR model's operands), bf16 and f32: its value, error against the plain
   version, bound and all-miss count (K gathered per slot), beside the
-  same kernel with a fresh zeroed state each call; three squareplus (gmax
-  once per NFE) and three softmax CSR evaluations per NFE.
+  same kernel with a fresh zeroed state each call; in a checkout with
+  ``beltrami_exp`` first the same in ``beltrami_exp`` on path (b)'s
+  operands (:func:`blend_operands`) over the arxiv CSR and the hub graph;
+  three squareplus (gmax once per NFE) and three softmax CSR evaluations
+  per NFE;
+- (``ptxas``, this checkout then the parent, once each) each instance of
+  ``csrc/fused_attention.cu`` with its registers and spill bytes.
 
 - (``bwd_cols``) attention_bwd_cols (B3) on the CSR GRAND-nl model's own
   operands (its encoded state, q, the K table, the training forward's
@@ -157,7 +166,8 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   the adjoint's device ms, and the launches and device ms of sddmm,
   spmm_walk, win_bwd_dense and win_matmul).
 
-With ``--parent``, this checkout's ``windowed``, ``winatt``, ``gmax``,
+With ``--parent``, this checkout's ``windowed``, ``attention`` (its
+``beltrami_exp`` and other-type cases), ``winatt``, ``gmax``,
 ``bwd_cols``, ``norm``, ``fwd_res``, ``bwd_rows`` and ``sddmm`` runs also
 call the parent's kernels (built by the parent's ``_build``) on the same inputs:
 whether the f32 bodies' outputs (win_matmul, win_bwd_dense and
@@ -166,12 +176,12 @@ and den, gmax's value, B3's dk and dxv, the norm's e and den, fwd_res's
 out, scores, shift and denom and bwd_rows' dq and rho are equal bit for
 bit, the largest difference, the rows that differ and the shortest of
 them (of a score: its row's length); sddmm's largest difference and the
-parent kernel's ms.
+parent kernel's ms; gmax's and flash's ms in ``parent_ms`` too.
 
 One JSON line per measurement, then the card's nvidia-smi line. Run from
 the root of the repo: ``python3 scripts/torch_kernel_redesign.py [--parent
 DIR] [--only windowed|attention|spmm|pin|kproj|slab|winatt|gmax|bwd_cols|
-norm|fwd_res|bwd_rows|sddmm]``; a parent is a
+norm|fwd_res|bwd_rows|sddmm|ptxas]``; a parent is a
 ``git
 archive`` of another commit unpacked in a directory that ``.gitignore``
 lists.
@@ -247,7 +257,9 @@ def measure(root: str, only=None, against=None) -> None:
     if only in (None, "windowed"):
         windowed(emit, against)
     if only in (None, "attention"):
-        attention(emit)
+        attention(emit, against)
+    if only == "ptxas":
+        ptxas(emit, root)
     if only in (None, "spmm"):
         spmm(emit)
     if only in (None, "pin"):
@@ -269,6 +281,283 @@ def measure(root: str, only=None, against=None) -> None:
             row_kernels(emit, which, against)
     if only in (None, "sddmm"):
         sddmm(emit, against)
+
+
+def blend_operands(data, dtypes):
+    """Path (b)'s beltrami_exp operands (chip_smoke's ``blend`` phase): the
+    BLEND GRAND-nl preset (``beltrami=True, attention_type="exp_kernel",
+    function="transformer", block="constant", community_window=0``) on the
+    arxiv stand-in's CSR, its attention layer's random weights as
+    chip_smoke draws them (``randomize_beltrami``), with positional
+    encodings of DW64's width drawn from a seed in place of DeepWalk's
+    (the kernels' work does not depend on their values). Returns the
+    Trainer and, for each dtype of ``dtypes``, q, x and the K table, the
+    score arguments and ``beltrami_exp``'s keywords."""
+    import numpy as np
+    import torch
+
+    from graphax_torch import Trainer, best_config
+    from graphax_torch.kernels import fused_attention as fa
+
+    here = this_chip_smoke()
+    enc = np.random.RandomState(22).randn(data.num_nodes, 64).astype(
+        np.float32)
+    cfg = best_config("ogbn-arxiv", beltrami=True,
+                      attention_type="exp_kernel", function="transformer",
+                      block="constant", community_window=0, pos_enc_dim=64)
+    tr = Trainer(cfg, data.with_pos_encoding(enc))
+    att = tr.model.block.func.att
+    here.randomize_beltrami(att, 31)
+    tr.model.eval()
+    out = {}
+    with torch.no_grad():
+        x_enc = tr.model.encode(tr.data.x, train=False,
+                                pos_encoding=tr.data.pos_encoding)
+        g = tr.data.graph
+        for dt in dtypes:
+            x = x_enc.to(dt).contiguous()
+            p = fa.prep_inputs(tr.cfg, att, g, x)
+            scal, bel = fa.score_args(p)
+            kt = fa.attention_kproj(x, p["wk"], p["bk"])
+            out[dt] = dict(q=p["q"], x=x, kt=kt, scal=scal, bel=bel)
+    return tr, out
+
+
+def flash_call(fn, lay, q, x, kt, gs, scal, bel, out, kvec=None):
+    """``gx_flash_attention`` of a checkout's library (this one's or a
+    parent's, one whose C signature takes beltrami_exp's two scalars) on
+    ``lay`` without reweight, into ``out``; ``kvec`` None: the parent's
+    host rule (a head slice of a multiple of 4 values, kt on 16 bytes)."""
+    import torch
+
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    n, d = x.shape
+    a, heads = q.shape[1], scal[1]
+    if kvec is None:
+        kvec = int((a // heads) % 4 == 0 and kt.data_ptr() % 16 == 0)
+    plan, nlong, nseg = fa._row_plan(lay, fa._BATCH, fa.ROW_SPLIT)
+    flash_call.keep = (torch.empty((nseg, 2 * heads), device=x.device),
+                       torch.empty((nseg, d), device=x.device))
+    # warps a block at beltrami_exp's padded warp stride, which fits the
+    # unpadded one too (so any checkout's flash kernels take it)
+    wpb = fa.flash_warps(a, heads, "beltrami_exp")
+    return fn(lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
+              x.data_ptr(), kt.data_ptr(), None,
+              gs.data_ptr() if gs is not None else None, plan.data_ptr(),
+              flash_call.keep[0].data_ptr(), flash_call.keep[1].data_ptr(),
+              out.data_ptr(), n, d, a, heads, fa.ATT_TYPES[scal[0]], 0,
+              int(gs is not None), float(scal[2]), float(scal[3]),
+              float(bel.get("ov2p", 1.0)), float(bel.get("inv2l2p", 0.5)),
+              fa._DTYPES[x.dtype], fa._DTYPES[out.dtype], fa.gather_width(x),
+              kvec, wpb, fa.ROW_SPLIT, nlong, nseg, _build.stream_ptr(x))
+
+
+def against_parent_flash(row, plib, lay, q, x, kt, gs, scal, bel, got):
+    """The parent's flash kernel on the same inputs: its output against
+    ``got`` bit for bit (``parent_equal``, the largest difference) and its
+    ms in this process."""
+    import torch
+
+    from graphax_torch.kernels import _build
+
+    here = this_chip_smoke()
+    old = torch.empty_like(got)
+    fn = plib.gx_flash_attention
+    _build.check(flash_call(fn, lay, q, x, kt, gs, scal, bel, old),
+                 "parent flash")
+    row.update(parent_equal=bool(torch.equal(got, old)),
+               parent_max_diff=float((got.float() - old.float()).abs().max()),
+               parent_ms=here.time_ms(lambda: flash_call(
+                   fn, lay, q, x, kt, gs, scal, bel, old)))
+
+
+def blend_flash(emit, data, parent=None) -> None:
+    """flash_attention in beltrami_exp at path (b)'s shapes (N 169,343, D
+    162, the K table 2 x 32 wide, 2 heads) on the arxiv CSR and on
+    ``chip_smoke.hub_graph``, bf16 and f32, softmax and squareplus (the
+    shift from attention_gmax), f32 out and x's dtype out (the path's):
+    ms, the error against flash_attention_plain, the bound and the
+    all-miss count as chip_smoke counts them; with a parent, its output's
+    bits and its ms on the same inputs. Then path (b) itself,
+    ``fit(epochs=3)`` with fit's defaults as chip_smoke's ``blend`` phase
+    runs it: each epoch's seconds and NFE."""
+    import torch
+
+    from graphax_torch.kernels import fused_attention as fa
+
+    here = this_chip_smoke()
+    plib = parent_library(parent, "fused_attention") if parent else None
+    dts = (torch.bfloat16, torch.float32)
+    tr, ops = blend_operands(data, dts)
+    g = tr.data.graph
+    graphs = (("arxiv CSR", g.csr), ("hub", here.hub_graph("cuda").csr))
+    with torch.no_grad():
+        for dt in dts:
+            o = ops[dt]
+            q, x, kt, scal, bel = o["q"], o["x"], o["kt"], o["scal"], o["bel"]
+            n, d = x.shape
+            a, heads, b = q.shape[1], scal[1], dt.itemsize
+            name = str(dt)[6:]
+            for label, lay in graphs:
+                e = lay.num_slots
+                for variant in ("softmax", "squareplus"):
+                    gs = fa.attention_gmax(lay, q, kt, None, *scal, **bel) \
+                        if variant == "squareplus" else None
+                    ref = fa.flash_attention_plain(lay, q, x, kt, None, gs,
+                                                   *scal, **bel)
+                    for od in dict.fromkeys((torch.float32, dt)):
+                        fn = lambda od=od: fa.flash_attention(  # noqa: E731
+                            lay, q, x, kt, None, gs, *scal, out_dtype=od,
+                            **bel)
+                        got = fn()
+                        atol, rtol = here.TOL_FLASH[name]
+                        want = ref.to(od).float()
+                        err = (got.float() - want).abs()
+                        nbytes = (n * a * b + 4 * n * a + n * d * b
+                                  + 4 * e + 4 * (n + 1) + n * d * od.itemsize)
+                        ops_ = e * (3.0 * a + 8 * heads) + e * 2.0 * heads * d
+                        bms, by = here.bound_ms(nbytes, ops_, name)
+                        row = dict(kernel="flash_attention",
+                                   att_type="beltrami_exp", graph=label,
+                                   E=e, dtype=name, variant=variant,
+                                   out=str(od)[6:], ms=here.time_ms(fn),
+                                   max_abs_err=float(err.max()),
+                                   tol_flash=[atol, rtol],
+                                   within_tol=bool((err <= atol + rtol
+                                                    * want.abs()).all()),
+                                   bound_ms=bms, bound_by=by,
+                                   all_miss_ms=(nbytes - n * d * b
+                                                + e * d * b)
+                                   / here.HBM_BYTES_PER_S * 1e3)
+                        if hasattr(fa, "flash_kvec"):
+                            row["kvec"] = fa.flash_kvec(kt, heads, scal[0])
+                        if plib is not None:
+                            against_parent_flash(row, plib, lay, q, x, kt, gs,
+                                                 scal, bel, got)
+                        emit(**row)
+            del o, q, x, kt
+    del g, ops, graphs
+    torch.cuda.empty_cache()
+    fit = tr.fit(epochs=3)
+    torch.cuda.synchronize()
+    emit(path="blend b GRAND-nl", epoch_seconds=[h["time"]
+                                                 for h in fit["history"]],
+         solver=[{k: v for k, v in sv.items()
+                  if isinstance(v, (int, float, bool))}
+                 for sv in fit["solver"]])
+
+
+def other_types(emit, data, parent=None) -> None:
+    """flash_attention (softmax and squareplus, bf16 out) and
+    attention_gmax for scaled_dot, cosine_sim, pearson and exp_kernel at
+    GRAND-nl's arxiv widths (q and the K table of A 32, 2 heads, D 162,
+    bf16, from a seed) on the arxiv CSR and :func:`pareto_graph`: ms, and
+    with a parent its output's bits and its ms on the same inputs (the
+    instances the beltrami_exp flag left alone)."""
+    import torch
+
+    from graphax_torch import best_config
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    import chip_smoke as cs
+
+    here = this_chip_smoke()
+    plib = parent_library(parent, "fused_attention") if parent else None
+    bf = torch.bfloat16
+    g = cs.nl_trainer(best_config("ogbn-arxiv", community_window=0,
+                                  block="constant", function="transformer"),
+                      data, qk_seed=None).data.graph
+    graphs = (("arxiv CSR", g.csr), ("pareto", pareto_graph("cuda").csr))
+    n, d, a, heads = g.num_nodes, 162, 32, 2
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(n, d, generator=gen, device="cuda").to(bf)
+    q = (0.3 * torch.randn(n, a, generator=gen, device="cuda")).to(bf)
+    wk = (0.3 / d ** 0.5 * torch.randn(d, a, generator=gen,
+                                       device="cuda")).to(bf)
+    bk = 0.1 * torch.randn(a, generator=gen, device="cuda")
+    with torch.no_grad():
+        kt = fa.attention_kproj(x, wk, bk)
+        for att_type in ("scaled_dot", "cosine_sim", "pearson",
+                         "exp_kernel"):
+            scal = (att_type, heads, 1.3, 0.7)
+            for label, lay in graphs:
+                fn = lambda: fa.attention_gmax(lay, q, kt, None,  # noqa
+                                               *scal)
+                gs = fn()
+                row = dict(kernel="attention_gmax", att_type=att_type,
+                           graph=label, dtype="bfloat16", ms=here.time_ms(fn))
+                if plib is not None:
+                    old = torch.empty((), device="cuda")
+                    st = torch.zeros(2, dtype=torch.int32, device="cuda")
+                    call = lambda: gmax_call(  # noqa: E731
+                        plib.gx_attention_gmax, lay, q, kt, st, old, heads,
+                        scal, bf)
+                    _build.check(call(), "parent gmax")
+                    row.update(parent_equal=bool(torch.equal(gs, old)),
+                               parent_ms=here.time_ms(call))
+                emit(**row)
+                for variant, shift in (("softmax", None),
+                                       ("squareplus", gs)):
+                    fn = lambda s=shift: fa.flash_attention(  # noqa: E731
+                        lay, q, x, kt, None, s, *scal, out_dtype=bf)
+                    got = fn()
+                    row = dict(kernel="flash_attention", att_type=att_type,
+                               graph=label, dtype="bfloat16", out="bfloat16",
+                               variant=variant, ms=here.time_ms(fn))
+                    if plib is not None:
+                        against_parent_flash(row, plib, lay, q, x, kt, shift,
+                                             scal, {}, got)
+                    emit(**row)
+
+
+def ptxas(emit, root: str) -> None:
+    """``csrc/fused_attention.cu`` of the checkout at ``root`` compiled as
+    ``_build`` compiles it, with ``-Xptxas=-v``: each kernel instance's
+    registers and spill bytes (one line each, the name demangled)."""
+    import re
+    import shutil
+    import tempfile
+
+    from graphax_torch.kernels import _build
+
+    src = os.path.join(root, "graphax_torch", "kernels", "csrc",
+                       "fused_attention.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [_build._nvcc(), "-Xptxas=-v", _build.ARCH, "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC", "-o",
+             os.path.join(tmp, "lib.so"), src],
+            capture_output=True, text=True, check=True)
+    text = proc.stdout + proc.stderr
+    found, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            found.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            found.setdefault(cur, {})["registers"] = int(m.group(1))
+    filt = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    if not os.path.exists(filt):
+        filt = shutil.which("cu++filt") or "c++filt"
+    names = subprocess.run([filt], input="\n".join(found), text=True,
+                           capture_output=True, check=True).stdout.split("\n")
+    for mangled, name in zip(found, names):
+        if "registers" in found[mangled]:
+            emit(ptxas=name.strip(), **found[mangled])
 
 
 def parent_f32_runs(t, extent: int, run: int) -> int:
@@ -599,7 +888,7 @@ def dense_nl(emit) -> None:
              flash_dense_launches=_build.LAUNCHES["flash_dense"])
 
 
-def attention(emit) -> None:
+def attention(emit, parent=None) -> None:
     """The ``attention`` measurements of the module's docstring."""
     import time
 
@@ -620,6 +909,9 @@ def attention(emit) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
     data = get_dataset("ogbn-arxiv")
+    if hasattr(fa, "score_args"):   # a checkout with beltrami_exp
+        blend_flash(emit, data, parent)
+        other_types(emit, data, parent)
     base = dict(block="constant", function="transformer")
     trs = {"CSR": dict(community_window=0), "A": {},
            "B": dict(community_window=0, attention_norm_idx=1)}
@@ -1133,11 +1425,11 @@ def parent_library(parent: str, name: str):
     return sys.modules[key].library(name)
 
 
-def gmax_call(fn, lay, q, kt, state, out, heads, scal, dt):
+def gmax_call(fn, lay, q, kt, state, out, heads, scal, dt, bel=None):
     """``gx_attention_gmax`` of a checkout's library on ``lay`` without
     reweight, by the C signature it has: PR 12's (16 arguments: the row
     pointer and N), PR 13's (17: each slot's row and E) or PR 21's (19:
-    beltrami_exp's two scalars after exp_kernel's)."""
+    beltrami_exp's two scalars, ``bel``'s, after exp_kernel's)."""
     from graphax_torch.kernels import _build
     from graphax_torch.kernels import fused_attention as fa
 
@@ -1149,7 +1441,9 @@ def gmax_call(fn, lay, q, kt, state, out, heads, scal, dt):
     if len(fn.argtypes) == 16:
         return fn(lay.ptr.data_ptr(), lay.idx.data_ptr(), *ptrs, n, a, heads,
                   att, 0, ov2, inv2l2, fa._DTYPES[dt], stream)
-    extra = (1.0, 0.5) if len(fn.argtypes) == 19 else ()
+    bel = bel or {}
+    extra = (bel.get("ov2p", 1.0), bel.get("inv2l2p", 0.5)) \
+        if len(fn.argtypes) == 19 else ()
     qvec = fa.score_vec(q, kt, heads, scal[0])
     return fn(lay.seg.data_ptr(), lay.idx.data_ptr(), *ptrs, lay.num_slots,
               a, heads, att, 0, ov2, inv2l2, *extra,
@@ -1357,16 +1651,22 @@ def gmax(emit, parent=None) -> None:
                                      **base), data)
     plib = parent_library(parent, "fused_attention") if parent else None
 
-    def case(label, lay, q, kt, scal, dt):
+    def case(label, lay, q, kt, scal, dt, bel=None):
         n, a = q.shape
         e, heads, b = lay.num_slots, scal[1], dt.itemsize
-        fn = lambda: fa.attention_gmax(lay, q, kt, None, *scal)  # noqa
+        bel = bel or {}
+        fn = lambda: fa.attention_gmax(lay, q, kt, None, *scal,  # noqa
+                                       **bel)
         got = fn()
-        want = fa.attention_gmax_plain(lay, q, kt, None, *scal)
+        want = fa.attention_gmax_plain(lay, q, kt, None, *scal, **bel)
         nbytes = n * a * b + 4 * n * a + 4 * e + 4 * (n + 1)
-        bms, by = here.bound_ms(nbytes, e * 2.0 * a, str(dt)[6:])
+        # beltrami_exp: per slot the two squared distances (3 operations a
+        # value) and two exps a head, as chip_smoke counts them
+        ops = e * (3.0 * a + 8 * heads) if bel else e * 2.0 * a
+        bms, by = here.bound_ms(nbytes, ops, str(dt)[6:])
         row = dict(kernel="attention_gmax", graph=label, dtype=str(dt)[6:],
-                   E=e, ms=here.time_ms(fn), value=float(got),
+                   att_type=scal[0], E=e, ms=here.time_ms(fn),
+                   value=float(got),
                    max_abs_err=float((got - want).abs()), bound_ms=bms,
                    bound_by=by, all_miss_ms=(nbytes - 4 * n * a + 4 * e * a)
                    / here.HBM_BYTES_PER_S * 1e3)
@@ -1377,16 +1677,36 @@ def gmax(emit, parent=None) -> None:
             def fresh():
                 st = torch.zeros(2, dtype=torch.int32, device="cuda")
                 gmax_call(lib.gx_attention_gmax, lay, q, kt, st, out, heads,
-                          scal, dt)
+                          scal, dt, bel)
             row["fresh_state_ms"] = here.time_ms(fresh)
+            if hasattr(fa, "flash_kvec"):
+                row["qvec"] = fa.score_vec(q, kt, heads, scal[0])
         if plib is not None:
             old = torch.empty((), device="cuda")
             st = torch.zeros(2, dtype=torch.int32, device="cuda")
-            _build.check(gmax_call(plib.gx_attention_gmax, lay, q, kt, st,
-                                   old, heads, scal, dt), "parent gmax")
+            call = lambda: gmax_call(  # noqa: E731
+                plib.gx_attention_gmax, lay, q, kt, st, old, heads, scal, dt,
+                bel)
+            _build.check(call(), "parent gmax")
             row.update(parent_value=float(old),
-                       parent_equal=bool(torch.equal(got, old)))
+                       parent_equal=bool(torch.equal(got, old)),
+                       parent_ms=here.time_ms(call))
         emit(**row)
+
+    if hasattr(fa, "score_args"):   # a checkout with beltrami_exp: path (b)
+        dts = (torch.bfloat16, torch.float32)
+        btr, ops = blend_operands(data, dts)
+        g = btr.data.graph
+        hub = here.hub_graph("cuda")
+        with torch.no_grad():
+            for dt in dts:
+                o = ops[dt]
+                for label, lay in (("blend b CSR", g.csr),
+                                   ("blend b hub", hub.csr)):
+                    case(label, lay, o["q"], o["kt"], o["scal"], dt,
+                         o["bel"])
+        del btr, g, ops, hub, o
+        torch.cuda.empty_cache()
 
     with torch.no_grad():
         for dt in (torch.bfloat16, torch.float32):
@@ -1990,7 +2310,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("windowed", "attention", "spmm",
                                        "pin", "kproj", "slab", "winatt",
                                        "gmax", "bwd_cols", "norm", "fwd_res",
-                                       "bwd_rows", "sddmm"),
+                                       "bwd_rows", "sddmm", "ptxas"),
                     default=None, help="one group of measurements")
     ap.add_argument("--against", default=None,
                     help="a parent checkout whose kernels run beside this "
@@ -2010,6 +2330,8 @@ def main() -> int:
     order = [HERE] if args.parent is None else [
         os.path.abspath(args.parent), HERE, HERE,
         os.path.abspath(args.parent)]
+    if args.only == "ptxas":   # compiler output: once per checkout
+        order = order[:2]
     only = [] if args.only is None else ["--only", args.only]
     for root in order:
         against = [] if args.parent is None or root != HERE else [

@@ -316,6 +316,121 @@ def test_beltrami_columns_interleave_heads():
     assert cols == [0, 1, 2, 3, 8, 9, 10, 11, 4, 5, 6, 7, 12, 13, 14, 15]
 
 
+def _off(t, offset):
+    """``t``, or a contiguous copy of it one value past its storage's
+    start (off every 16-byte boundary)."""
+    if not offset:
+        return t
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hk", [3, 4, 6, 8, 16])
+@pytest.mark.parametrize("offset", [None, "q", "kt"])
+def test_beltrami_vector_rule(dtype, hk, offset):
+    """The host's 16-byte rule for beltrami_exp's instances, per half of a
+    head's slice (hk = dk / 2 values, each half at its own offset): flash
+    reads K by float4 where hk % 4 == 0 and the K table sits on 16 bytes
+    (q from shared memory, whatever its dtype); gmax reads q and K so where
+    a half of q fills whole 16-byte words and both tensors sit on 16
+    bytes. scaled_dot keeps its rule over the whole slice."""
+    heads, n = 2, 5
+    a = 2 * hk * heads
+    q = _off(torch.ones(n, a).to(dtype), offset == "q")
+    kt = _off(torch.ones(n, a), offset == "kt")
+    aligned = {"q": q.data_ptr() % 16 == 0, "kt": kt.data_ptr() % 16 == 0}
+    assert aligned == {"q": offset != "q", "kt": offset != "kt"}
+    want_gmax = int((hk * q.element_size()) % 16 == 0 and offset is None)
+    want_flash = int(hk % 4 == 0 and offset != "kt")
+    assert fa.score_vec(q, kt, heads, "beltrami_exp") == want_gmax
+    assert fa.flash_kvec(kt, heads, "beltrami_exp") == want_flash
+    # scaled_dot over the whole slice of 2 hk values, the other types none
+    dk = 2 * hk
+    assert fa.score_vec(q, kt, heads, "scaled_dot") == int(
+        (dk * q.element_size()) % 16 == 0 and offset is None)
+    assert fa.flash_kvec(kt, heads, "scaled_dot") == int(
+        dk % 4 == 0 and offset != "kt")
+    for other in ("exp_kernel", "cosine_sim", "pearson"):
+        assert fa.score_vec(q, kt, heads, other) == 0
+        assert fa.flash_kvec(kt, heads, other) == 0
+
+
+def test_flash_warps_beltrami_stride():
+    """beltrami_exp's flash instances round a warp's shared floats up to 4
+    (every warp's q on 16 bytes): fewer warps fit where the rounding
+    crosses the limit, and the other types keep the unrounded count."""
+    for a, h in ((64, 2), (6, 3), (2045, 3), (11588, 1), (1696, 2)):
+        floats = a + 2 * h + 32 * h
+        padded = -(-floats // 4) * 4
+        assert fa.flash_warps(a, h) == min(8, 232_448 // (4 * floats))
+        assert fa.flash_warps(a, h, "beltrami_exp") == min(
+            8, 232_448 // (4 * padded))
+    assert fa.flash_warps(11588, 1, "beltrami_exp") == 4
+    assert fa.flash_warps(11588, 1) == 5
+
+
+def make_long_graphs(n=40, seed=12, pad=3):
+    """make_graphs' pair with rows of 45 and 33 edges (more than one batch
+    of the flash walk), a row of 32, short rows and the last rows empty."""
+    rng = np.random.RandomState(seed)
+    deg = np.r_[45, 0, 33, 32, rng.randint(0, 5, n - 8), 0, 0, 0, 0]
+    row = np.repeat(np.arange(n), deg)
+    col = rng.randint(0, n - 4, row.size)
+    order = np.lexsort((col, row))
+    row, col = row[order], col[order]
+    w = (rng.rand(row.size) + 0.2).astype(np.float32)
+    gx = GxGraph.from_edges(row, col, n, edge_weight=w,
+                            edge_buffer_size=row.size + pad)
+    gx = dataclasses.replace(attach_tiles(gx, tile=8, block_edges=16),
+                             strategy="tiled")
+    pt = Graph.from_edges(row, col, n, edge_weight=w,
+                          edge_buffer_size=row.size + pad)
+    return gx, pt
+
+
+@pytest.mark.parametrize("square_plus,reweight", [(False, True),
+                                                  (True, False)])
+def test_flash_and_gmax_plain_beltrami_odd_half_long_rows(square_plus,
+                                                          reweight):
+    """flash and (under squareplus) gmax in beltrami_exp at a half of 3
+    values a head (attention_dim 6, 2 heads: the instances' one-value
+    route) on rows of up to 45 edges, against graphax's interpreted Pallas
+    kernels."""
+    gx, pt = make_long_graphs()
+    gcfg, cfg = _cfgs(attention_dim=6, square_plus=square_plus,
+                      reweight_attention=reweight)
+    p, att = beltrami_attention(gcfg, cfg, 9, seed=5)
+    x = np.random.RandomState(6).randn(gx.num_nodes, 9).astype(np.float32)
+    xt = torch.from_numpy(x)
+    want = fused_attention_ax_pallas(gcfg, p, gx.tiles, jnp.asarray(x),
+                                     edge_weight=gx.edge_weight)
+    with torch.no_grad():
+        ops = fa.prep_inputs(cfg, att, pt, xt)
+        got = fa.flash_attention_ax(cfg, att, pt, xt)
+    assert ops["q"].shape == (40, 12) and fa.flash_kvec(
+        ops["q"].float(), 2, "beltrami_exp") == 0
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL_FLASH)
+    assert np.all(got[[1, -4, -3, -2, -1]].numpy() == 0)
+    if not square_plus:
+        return
+    t = gx.tiles
+    q_tiles, xg, wk, bk, wb, scal = _prep_inputs(
+        gcfg, p, jnp.asarray(x), jnp.asarray(x), gx.edge_weight,
+        t.edge_slot, t.slot_mask, t.col, t.num_tiles, t.tile)
+    want = _gmax_call("beltrami_exp", reweight, gcfg.heads, q_tiles, xg, wk,
+                      bk, wb, t.local_row, t.tile_idx, scal, t.num_tiles,
+                      t.tile)
+    with torch.no_grad():
+        kt = fa.attention_kproj(xt, ops["wk"], ops["bk"])
+        scal_p, bel = fa.score_args(ops)
+        got = fa.attention_gmax(pt.csr, ops["q"], kt, ops["edge_w"], *scal_p,
+                                **bel)
+    np.testing.assert_allclose(float(got), float(want), **TOL_GMAX)
+
+
 # ----------------------------------------------------------------------
 # the model: encoder, attention, forward and a train step
 

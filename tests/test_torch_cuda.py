@@ -2021,6 +2021,170 @@ def test_cuda_beltrami_scalars_reach_the_kernels(cuda):
                                    rtol=2e-4, atol=2e-5)
 
 
+
+def _bel_flash_raw(lay, q, x, kt, ew, gs, heads, scal, kvec):
+    """gx_flash_attention in beltrami_exp with the K table's 16-byte route
+    forced on (kvec 1) or off (0): f32 out."""
+    from graphax_torch.kernels import _build
+
+    n, d = x.shape
+    a = q.shape[1]
+    plan, nlong, nseg = fa._row_plan(lay, fa._BATCH, fa.ROW_SPLIT)
+    st = torch.empty((nseg, 2 * heads), device=x.device)
+    part = torch.empty((nseg, d), device=x.device)
+    out = torch.empty((n, d), device=x.device)
+    err = _build.library("fused_attention").gx_flash_attention(
+        lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(), x.data_ptr(),
+        kt.data_ptr(), ew.data_ptr() if ew is not None else None,
+        gs.data_ptr() if gs is not None else None, plan.data_ptr(),
+        st.data_ptr(), part.data_ptr(), out.data_ptr(), n, d, a, heads,
+        fa.ATT_TYPES["beltrami_exp"], int(ew is not None),
+        int(gs is not None), *scal, fa._DTYPES[x.dtype], 0,
+        fa.gather_width(x), kvec, fa.flash_warps(a, heads, "beltrami_exp"),
+        fa.ROW_SPLIT, nlong, nseg, _build.stream_ptr(x))
+    _build.check(err, "flash_attention")
+    return out
+
+
+def _bel_gmax_raw(lay, q, kt, ew, heads, scal, qvec):
+    """gx_attention_gmax in beltrami_exp with its 16-byte route forced on
+    (qvec 1) or off (0), on a fresh zeroed state."""
+    from graphax_torch.kernels import _build
+
+    out = torch.empty((), device=q.device)
+    state = torch.zeros(2, dtype=torch.int32, device=q.device)
+    err = _build.library("fused_attention").gx_attention_gmax(
+        lay.seg.data_ptr(), lay.idx.data_ptr(), q.data_ptr(), kt.data_ptr(),
+        ew.data_ptr() if ew is not None else None, state.data_ptr(),
+        out.data_ptr(), lay.num_slots, q.shape[1], heads,
+        fa.ATT_TYPES["beltrami_exp"], int(ew is not None), *scal,
+        fa._DTYPES[q.dtype], qvec, _build.stream_ptr(q))
+    _build.check(err, "attention_gmax")
+    assert torch.all(state == 0)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("a,heads", [(32, 2), (16, 2), (24, 1), (6, 2)])
+def test_cuda_beltrami_instances_match_plain_and_routes_agree(cuda, dtype,
+                                                              a, heads):
+    """flash's and gmax's beltrami_exp instances (halves of 16, 8 and 24
+    values on the 16-byte route, 3 on the one-value route) against their
+    plain versions within TOL_FLASH and TOL_GMAX, on rows of 0, 1, 31-33,
+    700 and 3,000 edges (one batch, the segment kernels), reweight on and
+    off, softmax and squareplus, and on views off 16 bytes; the 16-byte
+    route against the one-value route of the same instance, bit for bit
+    (flash's out, gmax's max)."""
+    g = _walk_graph(cuda)
+    q, x, wk, bk = _beltrami_inputs(g, dtype, 162, a, heads, seed=a + heads)
+    kt = fa.attention_kproj(x, wk, bk)
+    hk = a // heads
+    assert fa.flash_kvec(kt, heads, "beltrami_exp") == int(hk % 4 == 0)
+    qvec = fa.score_vec(q, kt, heads, "beltrami_exp")
+    assert qvec == int((hk * q.element_size()) % 16 == 0)
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "float32" \
+        else dict(rtol=2e-2, atol=2e-3)
+    pos = ("beltrami_exp", heads, 1.3, 0.7)
+    bel = dict(ov2p=0.8, inv2l2p=0.4)
+    scal = (1.3, 0.7, 0.8, 0.4)
+    for ew in (None, g.edge_weight):
+        gs = fa.attention_gmax(g.csr, q, kt, ew, *pos, **bel)
+        torch.testing.assert_close(
+            gs, fa.attention_gmax_plain(g.csr, q, kt, ew, *pos, **bel),
+            rtol=1e-6, atol=1e-6)
+        # the wrapper's route (16-byte where qvec) against the one-value one
+        assert torch.equal(_bel_gmax_raw(g.csr, q, kt, ew, heads, scal, 0),
+                           gs)
+        for shift in (None, gs):
+            got = fa.flash_attention(g.csr, q, x, kt, ew, shift, *pos, **bel)
+            want = fa.flash_attention_plain(g.csr, q, x, kt, ew, shift, *pos,
+                                            **bel)
+            torch.testing.assert_close(got, want, **tol)
+            assert torch.all(got[[0, -3, -2, -1]] == 0)
+            assert torch.equal(
+                _bel_flash_raw(g.csr, q, x, kt, ew, shift, heads, scal, 0),
+                got)
+    # q and the K table one value off 16 bytes: the one-value route
+    q_off, kt_off = _off_word(q), _off_word(kt)
+    assert fa.score_vec(q_off, kt_off, heads, "beltrami_exp") == 0
+    assert fa.flash_kvec(kt_off, heads, "beltrami_exp") == 0
+    gs = fa.attention_gmax(g.csr, q_off, kt_off, None, *pos, **bel)
+    assert torch.equal(gs, fa.attention_gmax(g.csr, q, kt, None, *pos,
+                                             **bel))
+    got = fa.flash_attention(g.csr, q_off, x, kt_off, None, gs, *pos, **bel)
+    assert torch.equal(got, fa.flash_attention(g.csr, q, x, kt, None, gs,
+                                               *pos, **bel))
+
+
+def test_cuda_beltrami_instances_leave_other_types_alone(cuda):
+    """The other score types still reach their own instances: each type's
+    flash and gmax against its plain version on the long-row graph at a
+    head slice of 16 (scaled_dot's 16-byte route), so a dispatch that sent
+    them to the beltrami_exp instance shows."""
+    g = _walk_graph(cuda)
+    q, x, wk, bk = _flash_inputs(g, "float32", 40, 32, seed=4)
+    kt = fa.attention_kproj(x, wk, bk)
+    ew = g.edge_weight
+    for att_type in ("scaled_dot", "cosine_sim", "pearson", "exp_kernel"):
+        scal = (att_type, 2, 1.3, 0.7)
+        gs = fa.attention_gmax(g.csr, q, kt, ew, *scal)
+        torch.testing.assert_close(
+            gs, fa.attention_gmax_plain(g.csr, q, kt, ew, *scal), rtol=1e-6,
+            atol=1e-6)
+        for shift in (None, gs):
+            got = fa.flash_attention(g.csr, q, x, kt, ew, shift, *scal)
+            torch.testing.assert_close(
+                got, fa.flash_attention_plain(g.csr, q, x, kt, ew, shift,
+                                              *scal), rtol=2e-4, atol=2e-5)
+
+def _norm_raw(lay, q, kt, gs, heads, att_type, kvec):
+    """gx_attention_norm with its kvec argument forced: (the return code,
+    e, den)."""
+    from graphax_torch.kernels import _build
+
+    n = q.shape[0]
+    plan, nlong, nseg = fa._row_plan(lay, fa.NORM_CUT, fa.NORM_SEG)
+    part = torch.empty((nseg, heads), device=q.device)
+    e = torch.empty((lay.num_slots, heads), device=q.device)
+    den = torch.empty((n, heads), device=q.device)
+    err = _build.library("fused_attention").gx_attention_norm(
+        lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(), kt.data_ptr(),
+        None, gs.data_ptr(), plan.data_ptr(), part.data_ptr(), e.data_ptr(),
+        den.data_ptr(), n, q.shape[1], heads, fa.ATT_TYPES[att_type], 0, 0,
+        1.3, 0.7, fa._DTYPES[q.dtype], kvec, nlong, nseg,
+        _build.stream_ptr(q))
+    torch.cuda.synchronize()
+    return err, e, den
+
+
+def test_cuda_norm_reads_kvec_for_scaled_dot_only(cuda):
+    """gx_attention_norm's 16-byte instance scores scaled_dot only: with
+    kvec 1 each other type gives its own plain scores, bit for bit its
+    kvec 0 output, and beltrami_exp (whose positional pair the interface
+    does not carry) is refused with either kvec, so a caller that passes
+    score_vec's beltrami_exp rule gets an error and not scaled_dot's
+    scores."""
+    g = _walk_graph(cuda)
+    q, x, wk, bk = _flash_inputs(g, "float32", 40, 32, seed=6)
+    kt = fa.attention_kproj(x, wk, bk)
+    f32 = dict(rtol=2e-4, atol=2e-5)
+    for att_type in ("scaled_dot", "cosine_sim", "pearson", "exp_kernel"):
+        scal = (att_type, 2, 1.3, 0.7)
+        gs = fa.attention_gmax(g.csr, q, kt, None, *scal)
+        w_e, w_den = fa.attention_norm_plain(g.csr, q, kt, None, gs, *scal)
+        err1, e1, den1 = _norm_raw(g.csr, q, kt, gs, 2, att_type, 1)
+        err0, e0, den0 = _norm_raw(g.csr, q, kt, gs, 2, att_type, 0)
+        assert err1 == 0 and err0 == 0
+        torch.testing.assert_close(e1, w_e, **f32)
+        torch.testing.assert_close(den1, w_den, **f32)
+        if att_type != "scaled_dot":
+            assert torch.equal(e1, e0) and torch.equal(den1, den0)
+    gs = torch.zeros((), device=cuda)
+    for kvec in (1, 0):
+        err, _, _ = _norm_raw(g.csr, q, kt, gs, 2, "beltrami_exp", kvec)
+        assert err != 0
+
+
 def _knn_rows_agree(d_got, i_got, d_want, i_want, d_all, k):
     """The chosen distances within f32 rounding on every row, and the
     neighbour sets equal on the rows whose k-th and (k+1)-th distances are
