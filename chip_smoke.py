@@ -159,20 +159,24 @@ and prints no result):
 9. blend: BLEND at the arxiv preset's widths (features 64 + positional
    98 = 162) in graphax's driver order: DeepWalk's DW64 encodings of the
    stand-in by ``apply_beltrami`` (the skip-gram on the card; seconds,
-   probe accuracy, the cache read back); the four kernels of the Beltrami
+   probe accuracy, the cache read back); the five kernels of the Beltrami
    paths in ``beltrami_exp`` (attention_pin, attention_kproj,
-   flash_attention, attention_gmax under squareplus) against their plain
-   versions at the paths' shapes, timed beside their bounds, flash and
-   gmax also on the hub graph with path (b)'s operands (their segment
-   kernels' beltrami_exp instances); then fitted
+   flash_attention, attention_gmax under squareplus, attention_norm)
+   against their plain versions at the paths' shapes, timed beside their
+   bounds, the pin, flash, gmax and the norm also on the hub graph (their
+   segment kernels' beltrami_exp instances); then fitted
    with fit's defaults: (a) ``best_config("ogbn-arxiv", beltrami=True,
    attention_type="exp_kernel")`` (windowed, the pin in beltrami_exp),
    (b) the same as GRAND-nl on CSR (flash in beltrami_exp, the per-edge
    gradient replayed; one evaluation under squareplus, gmax's path),
-   (c) (a) on CSR with ``rewire_KNN=True, rewire_KNN_epoch=2`` (the 64
-   nearest neighbours of the encoder's output, spmm_csr then held to its
-   plain version on that graph), edge sampling at epoch 2 on the
-   Computers stand-in, and GAT
+   (d) (b) with ``attention_norm_idx=1`` (the column route: gmax, the
+   norm and attspmm per column in every RHS, the per-edge gradient
+   replayed), after a small graph evaluated on the card and on the CPU
+   from the same weights (logits within 1e-4, NFE equal), (c) (a) on CSR
+   with ``rewire_KNN=True, rewire_KNN_epoch=2`` (the 64 nearest
+   neighbours of the encoder's output; spmm_csr and the pin in
+   beltrami_exp then held to their plain versions on that graph), edge
+   sampling at epoch 2 on the Computers stand-in, and GAT
    (``function="GAT", block="constant", community_window=0``) on the
    arxiv CSR for 2 epochs (spmm_csr at every NFE, sddmm in the adjoint);
    per epoch the loss, seconds, NFE and peak memory, per path the
@@ -3300,22 +3304,81 @@ def randomize_beltrami(att, seed: int) -> None:
             getattr(att, name).fill_(v)
 
 
+def blend_pin_check(results: dict, label: str, lay, q, x, wk, bk, scal,
+                    bel, tag: str) -> None:
+    """attention_pin in ``beltrami_exp`` over ``lay`` against its plain
+    version within TOL_PIN, timed beside its bound (x, q, Wk, bk and the
+    CSR read once, one f32 written per edge) and its all-miss count (the K
+    table written and one K row read per edge from device memory)."""
+    from graphax_torch.kernels import attention_pin as pin_mod
+    from graphax_torch.kernels import fused_attention as fa
+
+    (n, d), a, heads = x.shape, q.shape[1], scal[1]
+    e, b = lay.num_slots, x.element_size()
+    args = (lay, q, x, wk, bk, None, *scal)
+    nbytes = (n * d * b + n * a * b + d * a * b + 4 * a + 4 * e
+              + 4 * (n + 1) + 4 * e)
+    # per edge the two squared distances (3 operations a value of 2A) and
+    # two exps a head; the K projection
+    ops = 2.0 * n * d * a + e * (3.0 * a + 8 * heads)
+    hold_to_plain(
+        results, dict(kernel="attention_pin", path=f"blend {label}",
+                      graph=tag, dtype=str(x.dtype)[6:],
+                      att_type="beltrami_exp", N=n, E=e, D=d, A=a, H=heads,
+                      kvec=int(fa._vec_unit(a, heads, scal[0]) % 4 == 0),
+                      **bel),
+        lambda: pin_mod.attention_pin(*args, **bel),
+        lambda: pin_mod.attention_pin_plain(*args, **bel), TOL_PIN, nbytes,
+        ops, tag=tag, miss_bytes=nbytes + 4 * n * a + 4 * e * a)
+
+
+def blend_norm_check(results: dict, lay, q, kt, scal, bel, name: str,
+                     tag: str) -> None:
+    """attention_norm in ``beltrami_exp`` under attention_gmax's shift (the
+    column route's) over ``lay`` against its plain version (e and den
+    within TOL_TRAIN), timed beside its bound (q, the K table, the CSR and
+    the shift read once; e [E, H] and den [N, H] written once) and its
+    all-miss count (a K row read per slot)."""
+    from graphax_torch.kernels import fused_attention as fa
+
+    (n, a), heads, b = q.shape, scal[1], q.element_size()
+    e = lay.num_slots
+    gs = fa.attention_gmax(lay, q, kt, None, *scal, **bel)
+    tabs = 4 * e * heads + 4 * n * heads
+    idx_bytes = 4 * e + 4 * (n + 1)
+    hold_to_plain(
+        results, dict(kernel="attention_norm", path="blend d", graph=tag,
+                      dtype=name, att_type="beltrami_exp", N=n, E=e, A=a,
+                      H=heads, kvec=fa.score_vec(q, kt, heads, scal[0]),
+                      **bel),
+        lambda: fa.attention_norm(lay, q, kt, None, gs, *scal, **bel),
+        lambda: fa.attention_norm_plain(lay, q, kt, None, gs, *scal, **bel),
+        (("e", TOL_TRAIN), ("den", TOL_TRAIN)),
+        n * a * b + 4 * n * a + idx_bytes + 4 + tabs,
+        # per slot and head the score (3 operations a value, two exps), e
+        # and its sum
+        e * (3.0 * a + 8 * heads) + e * 2.0 * heads, tag=tag,
+        miss_bytes=n * a * b + 4 * e * a + idx_bytes + 4 + tabs)
+
+
 def blend_kernel_checks(tr_a, tr_b, results: dict) -> None:
-    """The four kernels of the Beltrami paths in ``beltrami_exp`` against
+    """The five kernels of the Beltrami paths in ``beltrami_exp`` against
     their plain versions, at the paths' shapes (arxiv's N and E, D 162, the
     K table 2 x 32 wide, 2 heads), each timed beside its bound: the pin on
-    path (a)'s graph with its hard block's attention layer (random weights)
-    in f32 (the windowed strategy's, as the path runs it) and bf16 (the
-    CSR strategy's, path (c)), within TOL_PIN; the K projection at [162,
-    64] in both dtypes within TOL_KPROJ; flash on path (b)'s CSR with its
-    RHS's attention layer (random weights) in both dtypes within
-    TOL_FLASH, and under squareplus attention_gmax (TOL_GMAX) then flash
-    with its shift, in bf16; then flash and gmax the same on
-    :func:`hub_graph` with path (b)'s operands (rows of up to 13,000
-    edges: the segment kernels' beltrami_exp instances)."""
+    path (a)'s graph and on :func:`hub_graph` (rows of up to 13,000 edges:
+    the segment kernels' instances) with its hard block's attention layer
+    (random weights) in f32 (the windowed strategy's, as the path runs it)
+    and bf16 (the CSR strategy's, path (c)), within TOL_PIN
+    (:func:`blend_pin_check`); the K projection at [162, 64] in both
+    dtypes within TOL_KPROJ; flash on path (b)'s CSR with its RHS's
+    attention layer (random weights) in both dtypes within TOL_FLASH,
+    attention_norm under attention_gmax's shift (path (d)'s column route)
+    within TOL_TRAIN (:func:`blend_norm_check`), and under squareplus
+    attention_gmax (TOL_GMAX) then flash with its shift, in bf16; then
+    flash, the norm and gmax the same on the hub graph with path (b)'s
+    operands."""
     import torch
 
-    from graphax_torch.kernels import attention_pin as pin_mod
     from graphax_torch.kernels import fused_attention as fa
 
     hub = None
@@ -3330,8 +3393,7 @@ def blend_kernel_checks(tr_a, tr_b, results: dict) -> None:
                                     pos_encoding=tr.data.pos_encoding)
         d, heads = x_enc.shape[1], cfg.heads
         a = fa.score_width(cfg)
-        csr_bytes = 4 * e + 4 * (n + 1)
-        if label == "b":
+        if hub is None:
             hub = hub_graph(x_enc.device)
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).replace("torch.", "")
@@ -3360,20 +3422,11 @@ def blend_kernel_checks(tr_a, tr_b, results: dict) -> None:
                     ("torch.addmm out_dtype=float32",
                      lambda: torch.addmm(bk, x, wk, out_dtype=torch.float32)),
                     tag=f"beltrami {label}")
-                # per edge the two squared distances (3 operations a value
-                # of 2A) and two exps a head
-                score_ops = e * (3.0 * a + 8 * heads)
                 if label == "a":
-                    args = (g.csr, q, x, wk, bk, None, *scal)
-                    nbytes = (n * d * b + n * a * b + d * a * b + 4 * a
-                              + csr_bytes + 4 * e)
-                    hold_to_plain(
-                        results, row("attention_pin"),
-                        lambda: pin_mod.attention_pin(*args, **bel),
-                        lambda: pin_mod.attention_pin_plain(*args, **bel),
-                        TOL_PIN, nbytes, 2.0 * n * d * a + score_ops,
-                        tag="beltrami",
-                        miss_bytes=nbytes + 4 * n * a + 4 * e * a)
+                    for lay, tag in ((g.csr, "beltrami"),
+                                     (hub.csr, "beltrami hub")):
+                        blend_pin_check(results, label, lay, q, x, wk, bk,
+                                        scal, bel, tag)
                     continue
                 # path (b)'s CSR, then the hub graph with the same operands
                 # (its long rows in the segment kernels' instances)
@@ -3394,6 +3447,8 @@ def blend_kernel_checks(tr_a, tr_b, results: dict) -> None:
                                                          None, *scal, **bel),
                         TOL_FLASH[name], nbytes, ops, tag=tag,
                         miss_bytes=miss)
+                    blend_norm_check(results, lay, q, kt, scal, bel, name,
+                                     tag)
                     if dt != torch.bfloat16:
                         continue
                     gshift = hold_to_plain(
@@ -3419,6 +3474,77 @@ def blend_kernel_checks(tr_a, tr_b, results: dict) -> None:
             del x, q, wk, bk
         torch.cuda.empty_cache()
     del hub
+
+
+def blend_knn_pin_checks(tr_c, results: dict) -> None:
+    """The pin in ``beltrami_exp`` on path (c)'s kNN graph (every row of
+    64 edges or more, so all of it in the segment kernels' instances) with
+    its hard block's attention layer (random weights), bf16 (the CSR
+    strategy's) and f32, within TOL_PIN (:func:`blend_pin_check`)."""
+    import torch
+
+    from graphax_torch.kernels import fused_attention as fa
+
+    att = tr_c.model.block.att_layer
+    randomize_beltrami(att, 31)
+    g = tr_c.data.graph
+    tr_c.model.eval()
+    with torch.no_grad():
+        x_enc = tr_c.model.encode(tr_c.data.x, train=False,
+                                  pos_encoding=tr_c.data.pos_encoding)
+        for dt in (torch.bfloat16, torch.float32):
+            x = x_enc.to(dt).contiguous()
+            p = fa.prep_inputs(tr_c.cfg, att, g, x)
+            scal, bel = fa.score_args(p)
+            blend_pin_check(results, "c", g.csr, p["q"], x, p["wk"],
+                            p["bk"], scal, bel, "beltrami kNN")
+            del x, p
+    torch.cuda.empty_cache()
+
+
+def blend_reference_column(seed: int = 13) -> dict:
+    """Path (d)'s route on a small graph from the same weights on the card
+    (kernels) and on the CPU (plain versions), f32: Beltrami GRAND-nl
+    under column normalisation on a 400-node SBM with positional encodings
+    from a seed, at narrow widths (features 16 + positional 8, the K table
+    2 x 16 wide, 2 heads); the evaluation's logits within TOL_NL_REF and
+    NFE equal (dopri5)."""
+    import numpy as np
+    import torch
+
+    from graphax_torch import Config, Trainer, make_sbm_dataset
+    from graphax_torch.functions.transformer import attention_route
+
+    cfg = Config(dataset="smoke", block="constant", function="transformer",
+                 hidden_dim=24, heads=2, attention_dim=16, batch_norm=True,
+                 beltrami=True, attention_type="exp_kernel",
+                 feat_hidden_dim=16, pos_enc_hidden_dim=8, pos_enc_dim=8,
+                 attention_norm_idx=1, method="dopri5", tol_scale=11353.6,
+                 time=3.676, input_dropout=0.0, dropout=0.0, max_nfe=500,
+                 dtype="float32")
+    pos = np.random.RandomState(seed).randn(400, 8).astype(np.float32)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        data = make_sbm_dataset(num_nodes=400, num_classes=4,
+                                num_features=32, seed=0, strategy="sparse",
+                                device=dev).with_pos_encoding(pos)
+        tr = Trainer(cfg, data, device=dev)
+        check(attention_route(cfg, tr.data.graph, tr.model.state_dim)
+              == "column", "blend d reference: not the column route")
+        randomize_beltrami(tr.model.block.func.att, seed)
+        tr.model.eval()
+        with torch.no_grad():
+            logits, o = tr.model(tr.data.graph, tr.data.x, train=False,
+                                 pos_encoding=tr.data.pos_encoding)
+        got[dev] = (logits.float().cpu(), o.result.nfe)
+    err = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+    row = {"max_abs_err": err, "tol": TOL_NL_REF["float32"],
+           "nfe_cuda": got["cuda"][1], "nfe_cpu": got["cpu"][1]}
+    check(math.isfinite(err) and err <= TOL_NL_REF["float32"],
+          f"blend d reference: logits disagree {row}")
+    check(got["cuda"][1] == got["cpu"][1],
+          f"blend d reference: NFE differ {row}")
+    return row
 
 
 def blend_fit(label: str, tr, epochs: int, need, smi: str) -> dict:
@@ -3491,8 +3617,15 @@ def phase_blend(data, smi: str, results: dict, epochs: int) -> dict:
         encoder's 64 nearest neighbours, spmm_csr then held to its plain
         version on it;
 
-    each after the four kernels' checks (:func:`blend_kernel_checks`),
-    fitted ``epochs`` epochs; then edge sampling at epoch 2 on the
+    (d) (b) with ``attention_norm_idx=1``: the column route
+        (attention_gmax, attention_norm and attention_attspmm per column
+        in ``beltrami_exp``, once per forward, adjoint and evaluation
+        NFE), after the same route on a small graph held to the CPU
+        (:func:`blend_reference_column`);
+
+    each after the five kernels' checks (:func:`blend_kernel_checks`),
+    fitted ``epochs`` epochs, and on (c)'s kNN graph the pin
+    (:func:`blend_knn_pin_checks`); then edge sampling at epoch 2 on the
     Computers stand-in, and GAT on the arxiv CSR for 2 epochs. Returns the
     launches of the fits."""
     import pickle
@@ -3538,12 +3671,15 @@ def phase_blend(data, smi: str, results: dict, epochs: int) -> dict:
     cfg_c = cfg_a.replace(community_window=0, rewire_KNN=True,
                           rewire_KNN_epoch=2)
 
+    cfg_d = cfg_b.replace(attention_norm_idx=1)
+
     tr_a = Trainer(cfg_a, data_p)
     tr_b = Trainer(cfg_b, data_p)
     check(tr_a.data.graph.strategy == "windowed"
           and tr_a.model.state_dim == 162
           and tr_b.data.graph.strategy == "sparse"
-          and attention_route(cfg_b, tr_b.data.graph, 162) == "flash_replay",
+          and attention_route(cfg_b, tr_b.data.graph, 162) == "flash_replay"
+          and attention_route(cfg_d, tr_b.data.graph, 162) == "column",
           "blend: the paths' layouts or routes moved")
     blend_kernel_checks(tr_a, tr_b, results)
 
@@ -3579,6 +3715,24 @@ def phase_blend(data, smi: str, results: dict, epochs: int) -> dict:
     del tr_sp
     torch.cuda.empty_cache()
 
+    # (d): (b) under column normalisation, the column route in
+    # beltrami_exp, after the same route on a small graph against the CPU
+    emit({"phase": "blend", "path": "d column reference",
+          **blend_reference_column()})
+    tr_d = Trainer(cfg_d, data_p)
+    column = ("attention_kproj", "attention_gmax", "attention_norm",
+              "attention_attspmm")
+    counts, fit = blend_fit("d column", tr_d, epochs, column, smi)
+    nfe = (sum(h["nfe"] for h in fit["history"])
+           + sum(sv["bwd_nfe"] + sv["eval_nfe"] for sv in fit["solver"]))
+    check(all(counts[k] == nfe for k in column)
+          and "flash_attention" not in counts,
+          f"blend d: {counts} against {nfe} forward, adjoint and evaluation "
+          "NFE")
+    add(counts)
+    del tr_d
+    torch.cuda.empty_cache()
+
     tr_c = Trainer(cfg_c, data_p)
     e0 = tr_c.data.graph.num_edges
     counts, _ = blend_fit("c kNN", tr_c, epochs,
@@ -3591,6 +3745,7 @@ def phase_blend(data, smi: str, results: dict, epochs: int) -> dict:
           "knn_edges": n * cfg_c.rewire_KNN_k})
     check(g.num_edges != e0 and g.num_edges >= n * cfg_c.rewire_KNN_k // 2,
           f"blend c: {e0} -> {g.num_edges} edges")
+    blend_knn_pin_checks(tr_c, results)
     gen = torch.Generator(device="cuda").manual_seed(41)
     x = torch.randn(n, 162, generator=gen, device="cuda").bfloat16()
     vals = g.edge_weight.bfloat16().contiguous()
@@ -4186,9 +4341,12 @@ def main(argv=None) -> int:
         kernels[8][tag.replace(" ", "_")] = {
             k: results[("attention_gmax", "bfloat16", tag)].get(k)
             for k in walked}
-    # beltrami_exp (phase 9): the pin, flash, gmax and the K projection at
-    # the Beltrami paths' shapes, and their launches there
-    for i, kernel, tags in ((2, "attention_pin", ("beltrami",)),
+    # beltrami_exp (phase 9): the pin, the norm, flash, gmax and the K
+    # projection at the Beltrami paths' shapes, and their launches there
+    for i, kernel, tags in ((2, "attention_pin",
+                             ("beltrami", "beltrami hub", "beltrami kNN")),
+                            (14, "attention_norm",
+                             ("beltrami", "beltrami hub")),
                             (7, "flash_attention",
                              ("beltrami", "beltrami squareplus",
                               "beltrami hub", "beltrami hub squareplus")),
@@ -4207,6 +4365,7 @@ def main(argv=None) -> int:
                          for k in walked + ("library_ms",)}
     kernels[0]["blend_launches"] = blend_launches.get("spmm_csr", 0)
     kernels[1]["blend_launches"] = blend_launches.get("sddmm", 0)
+    kernels[15]["blend_launches"] = blend_launches.get("attention_attspmm", 0)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

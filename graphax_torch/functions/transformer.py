@@ -441,7 +441,9 @@ def attention_route(cfg, graph, d: int) -> str:
     gradient replayed) or ``"edge"`` (the per-edge path with autograd).
     Beltrami's split score never takes the dense route: on a dense graph
     within its guard it takes the per-edge path, as graphax's (:276-279);
-    under column normalisation elsewhere it raises."""
+    under column normalisation elsewhere it takes the column route as the
+    other types do, graphax's tiled route (its windowed route is row
+    normalisation's only, :246-256)."""
     bel = beltrami_exp(cfg)
     if use_dense_attention(graph, cfg.heads):
         return "edge" if bel else "dense"
@@ -449,11 +451,6 @@ def attention_route(cfg, graph, d: int) -> str:
     if graph.strategy == "windowed" and row_norm and not cfg.mix_features:
         return "windowed" if winatt_supported(cfg, d) else "windowed_plain"
     if not row_norm:
-        if bel:
-            raise NotImplementedError(
-                "Beltrami on the column route (attention_norm_idx=1: K3 and "
-                "the column norm in beltrami_exp) is not ported yet (ROADMAP "
-                "Queue 1, item 9)")
         return "column" if colnorm_supported(cfg, d) else "edge"
     if not flash_supported(cfg, d):
         return "edge"

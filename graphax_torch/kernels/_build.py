@@ -71,7 +71,8 @@ SIGNATURES = {
                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _P],
         "gx_attention_norm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I,
+                              _P],
         "gx_attention_attspmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },

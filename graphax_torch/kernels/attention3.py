@@ -18,9 +18,15 @@ column's sum while it streams rows, so it keeps K1, K2 and K3:
    (`attention_attspmm` with ``per_column``), its f32 sum rounded once to
    the state dtype by the kernel.
 
+Beltrami's ``beltrami_exp`` score takes steps 1 and 2 through the two
+kernels' instances of their own (the K table 2A wide), as graphax's K1
+scores it on this route (its gate, `pallas_fwd_supported` `:828-838`,
+does not exclude it); K3 and the column sums take e whatever the score.
+
 Its backward is graphax's: the custom VJP replays the plain per-edge
-attention (`:1135-1146`); :class:`ReplayAttention` carries that for this
-route and for the windowed one (`graphax_torch.kernels.winatt`)."""
+attention (`:1135-1146`; `pallas_bwd_supported` excludes Beltrami there
+too); :class:`ReplayAttention` carries that for this route and for the
+windowed one (`graphax_torch.kernels.winatt`)."""
 
 from __future__ import annotations
 
@@ -33,12 +39,14 @@ from graphax_torch.sparse.graph import Layout
 
 def colnorm_supported(cfg, d: int) -> bool:
     """The column route's gate: column normalisation, the four
-    `_score_math` types, head-mean aggregation, and the K projection's and
-    the score kernels' staged rows within one block's shared memory."""
-    a = cfg.attention_dim
+    `_score_math` types and Beltrami's ``beltrami_exp``, head-mean
+    aggregation, and the K projection's and the score kernels' staged rows
+    within one block's shared memory, at the K table's width
+    (:func:`fused_attention.score_width`)."""
+    a = fa.score_width(cfg)
     return (cfg.attention_norm_idx != 0 and cfg.attention_type in ATT_TYPES
-            and not fa.beltrami_exp(cfg) and not cfg.mix_features
-            and not cfg.multi_modal and a % cfg.heads == 0
+            and not cfg.mix_features and not cfg.multi_modal
+            and cfg.attention_dim % cfg.heads == 0
             and fa.kproj_fits(d, a) and 4 * fa._WPB * a <= fa._SMEM_STATIC)
 
 
@@ -63,11 +71,11 @@ def colnorm_attention_ax_fast(cfg, att, graph,
     `fused_attention_ax_pallas` forward with ``attention_norm_idx=1``."""
     x = x.contiguous()
     p = fa.prep_inputs(cfg, att, graph, x)
-    scal = (p["att_type"], p["heads"], p["ov2"], p["inv2l2"])
+    scal, bel = fa.score_args(p)
     kt = fa.attention_kproj(x, p["wk"], p["bk"])
-    g = fa.attention_gmax(graph.csr, p["q"], kt, p["edge_w"], *scal)
+    g = fa.attention_gmax(graph.csr, p["q"], kt, p["edge_w"], *scal, **bel)
     e, _ = fa.attention_norm(graph.csr, p["q"], kt, p["edge_w"], g, *scal,
-                             square_plus=bool(cfg.square_plus))
+                             square_plus=bool(cfg.square_plus), **bel)
     den = column_denominators(graph.csc, e)
     return fa.attention_attspmm(graph.csr, e, den, x, per_column=True,
                                 out_dtype=x.dtype)

@@ -16,7 +16,12 @@ exact state-dtype products, in another order), then the pin's row walk
 over the CSR, which gathers K rows (A values per edge, not D). Rows of
 more than 32 edges go to segments of ``fused_attention.ROW_SPLIT`` edges
 (:func:`fused_attention.row_split_plan`), whose per-head (max, sum) are
-combined in segment order before the write pass.
+combined in segment order before the write pass. beltrami_exp takes the
+kernels' instances of their own (two lanes a (edge, head) pair, one half
+each): the K table by 16-byte loads of each half where
+:func:`fused_attention.flash_kvec` allows (a half of a multiple of 4
+values), else one value at a time, and each warp's shared row rounded up
+to 4 floats (:func:`fused_attention.flash_warps` counts it).
 
 dtype steps as graphax's kernel path: q and Wk in the state dtype, bk and
 every score in f32; the output is f32 (the caller casts it to the state
@@ -88,7 +93,7 @@ def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         raise ValueError("attention_pin: heads must divide A and be <= 32")
     if layout.num_rows != n:
         raise ValueError("attention_pin: layout and x disagree on N")
-    wpb = fa.flash_warps(a, heads)
+    wpb = fa.flash_warps(a, heads, att_type)
     if not fa.kproj_supported(x.dtype, d, a) or wpb < 1:
         raise ValueError(f"attention_pin: A too large for shared memory "
                          f"(D={d}, A={a}, H={heads})")
@@ -106,7 +111,7 @@ def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
     plan, nlong, nseg = fa._row_plan(layout, fa._BATCH, fa.ROW_SPLIT)
     st = torch.empty((nseg, 2 * heads), dtype=torch.float32, device=x.device)
     out = torch.empty(layout.num_slots, dtype=torch.float32, device=x.device)
-    kvec = int((a // heads) % 4 == 0 and kt.data_ptr() % 16 == 0)
+    kvec = fa.flash_kvec(kt, heads, att_type)
     lib = _build.library("attention_pin")
     err = lib.gx_attention_pin(
         layout.ptr.data_ptr(), layout.idx.data_ptr(), q.data_ptr(),

@@ -6,13 +6,16 @@
 // (the pin and the CSR flash kernels).
 //
 // att_type: 0 scaled_dot (q pre-scaled by 1/sqrt(dk) by the caller),
-// 1 cosine_sim, 2 pearson, 3 exp_kernel (ov2 * exp(-|q - k|^2 * inv2l2)),
-// 4 beltrami_exp: Beltrami's product of two Gaussian kernels, the head's
-// slice of 2 * (dk / 2) values its feature half then its positional half
-// (the host interleaves graphax's [feature A | positional A] layout per
-// head), ov2 * exp(-|qx - kx|^2 * inv2l2) * ov2p * exp(-|qp - kp|^2 *
-// inv2l2p) (graphax's combined-weight trick,
-// graphax/kernels/pallas_attention.py:80-91, 893-915).
+// 1 cosine_sim, 2 pearson, 3 exp_kernel (ov2 * exp(-|q - k|^2 * inv2l2))
+// in score() and score_head(); 4 beltrami_exp in the kernels' instances
+// of their own (the template flag BEL), scored by bel_sum below:
+// Beltrami's product of two Gaussian kernels, the head's slice of 2 * (dk
+// / 2) values its feature half then its positional half (the host
+// interleaves graphax's [feature A | positional A] layout per head), ov2 *
+// exp(-|qx - kx|^2 * inv2l2) * ov2p * exp(-|qp - kp|^2 * inv2l2p)
+// (graphax's combined-weight trick, graphax/kernels/pallas_attention.py:
+// 80-91, 893-915). score() does not score it: every C entry point sends
+// att_type 4 to a BEL instance or refuses it.
 
 #pragma once
 
@@ -37,32 +40,6 @@ __device__ __forceinline__ float val(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// beltrami_exp in the pin's kernels (score()): exp_kernel's arithmetic on
-// each half of the head's slice, the product in graphax's order. Not
-// inlined: inlined, its second loop and scalars raised the register count
-// of every kernel that scores (the pin kernel spilled at its 48-register
-// bound), whatever its score type. Reading K here by 16-byte loads slowed
-// the other score types' kernels by 10-22 % (PERF.md), so the loop reads
-// one value at a time. The flash and gmax kernels have beltrami_exp
-// instances of their own (a template flag) that score by bel_sum below
-// instead
-template <typename Q>
-__device__ __noinline__ float beltrami(const Q* q, const float* k, int dk,
-                                       float ov2, float inv2l2, float ov2p,
-                                       float inv2l2p) {
-  const int hk = dk >> 1;
-  float sx = 0.f, sp = 0.f;
-  for (int i = 0; i < hk; ++i) {
-    const float t = val(q[i]) - k[i];
-    sx += t * t;
-  }
-  for (int i = hk; i < dk; ++i) {
-    const float t = val(q[i]) - k[i];
-    sp += t * t;
-  }
-  return ov2 * expf(-sx * inv2l2) * ov2p * expf(-sp * inv2l2p);
-}
-
 // q's head slice in f32 or the state dtype (its values are exact in f32)
 template <typename Q>
 __device__ __forceinline__ float score(const Q* q, const float* k, int dk,
@@ -80,8 +57,6 @@ __device__ __forceinline__ float score(const Q* q, const float* k, int dk,
     }
     return scal.ov2 * expf(-sq * scal.inv2l2);
   }
-  if (att_type == 4)
-    return beltrami(q, k, dk, scal.ov2, scal.inv2l2, scal.ov2p, scal.inv2l2p);
   float qm = 0.f, km = 0.f;
   if (att_type == 2) {
     for (int i = 0; i < dk; ++i) { qm += val(q[i]); km += k[i]; }
@@ -170,15 +145,18 @@ __device__ __forceinline__ float score_head(const Q* q, const float* kr,
 }
 
 // ---------------------------------------------------------------------
-// beltrami_exp in the flash and gmax kernels' instances (BEL)
+// beltrami_exp in the kernels' instances (BEL: the pin's, flash's, gmax's
+// and the norm's)
 // ---------------------------------------------------------------------
 //
-// The same arithmetic as beltrami() (each half's squared distance summed
-// in index order, t = q - k, s += t * t; the product ov2 exp(-sx inv2l2)
-// ov2p exp(-sp inv2l2p) left to right), so the scores are beltrami()'s
-// bit for bit, but inlined into kernels that score nothing else and, on
-// the vector route, with a half's K values read by 16-byte loads, all of
-// them issued before its arithmetic.
+// Each half's squared distance summed in index order (t = q - k, s += t *
+// t), the product ov2 exp(-sx inv2l2) ov2p exp(-sp inv2l2p) left to
+// right, so every instance gives every other's scores bit for bit (and
+// those of the first form, a __noinline__ helper reading K one value at a
+// time, which these replaced: inlined, its loops raised the registers of
+// every kernel that scores, whatever its type), inlined into instances
+// that score nothing else and, on the vector route, with a half's K
+// values read by 16-byte loads, all of them issued before its arithmetic.
 
 // the sum over hk values of (q - k)^2 in index order: one half of a head's
 // slice, q and k at the half's first value. vec: hk % 4 == 0 and the half
@@ -186,7 +164,7 @@ __device__ __forceinline__ float score_head(const Q* q, const float* kr,
 // issued before any arithmetic; q f32 in shared memory read by float4
 // where it is used, or with QV in the state dtype in device memory by
 // uint4, loaded beside K (which needs hk values of q to fill whole 16-byte
-// words). Else one value at a time, as beltrami() reads them
+// words). Else one value at a time
 template <typename Q, bool QV>
 __device__ __forceinline__ float bel_sum(const Q* q, const float* k, int hk,
                                          int vec) {
@@ -240,16 +218,40 @@ __device__ __forceinline__ float bel_sum(const Q* q, const float* k, int hk,
   return s;
 }
 
+// the score of a (edge, head) pair on one lane: q's and K's head slices
+// (q in the state dtype in device memory, QV; vec as bel_sum's, for each
+// half), both halves' squared distances, then ov2 exp(-sx inv2l2) times
+// ov2p times exp(-sp inv2l2p), left to right
+template <typename Q>
+__device__ __forceinline__ float bel_score(const Q* q, const float* k, int dk,
+                                           int vec, Scal scal) {
+  const int hk = dk >> 1;
+  const float sx = bel_sum<Q, true>(q, k, hk, vec);
+  const float sp = bel_sum<Q, true>(q + hk, k + hk, hk, vec);
+  const float u = scal.ov2 * expf(-sx * scal.inv2l2);
+  return u * scal.ov2p * expf(-sp * scal.inv2l2p);
+}
+
 // the score of a (edge, head) pair held by two neighbouring lanes, each
 // with its half's squared distance sq (half 0 the feature half): the even
 // lane's ov2 exp(-sx inv2l2) times ov2p times the odd lane's exp(-sp
-// inv2l2p), beltrami()'s product in its order; valid on the even lane.
+// inv2l2p), bel_score's product in its order; valid on the even lane.
 // Every lane of the warp calls it (one shuffle)
 __device__ __forceinline__ float bel_lanes_score(float sq, int half,
                                                  Scal scal) {
   const float u = half ? expf(-sq * scal.inv2l2p)
                        : scal.ov2 * expf(-sq * scal.inv2l2);
   return u * scal.ov2p * __shfl_xor_sync(0xffffffffu, u, 1);
+}
+
+// floats of one warp's shared memory in the row walk's scoring kernels (the
+// pin's and flash's): q [a], two per-head tables [h] each, the batch's
+// scores [BATCH, h]; the beltrami_exp instances (bel) round it up to 4, so
+// every warp's q starts on 16 bytes for bel_sum's float4 reads (the host's
+// fused_attention.flash_warps counts the same)
+__host__ __device__ __forceinline__ int warp_stride(int a, int h, bool bel) {
+  const int f = a + 2 * h + gx_rows::BATCH * h;
+  return bel ? (f + 3) & ~3 : f;
 }
 
 // the batch's edges e0 + j, j < cnt, one per lane: lane j loads edge j's

@@ -161,21 +161,24 @@
 //                 with no edge writes the addend (or 0). Rows longer than the
 //                 host's split go to attspmm_seg_sum and seg_combine.
 //   The beltrami_exp instances (the template flag BEL of flash_kernel, its
-//                 two segment kernels and gmax_kernel; att_type 4 reaches
-//                 only them, and the other types' instances compile from
-//                 the same code as before them): Beltrami's split score
-//                 over a head slice of 2 hk values, 2 x 32 wide at BLEND's
-//                 arxiv shapes, so 128 bytes of the f32 K table (43 MB,
-//                 mostly L2-resident) a (edge, head) pair. Two lanes take
-//                 a pair, one half each, its four float4 of K in flight
-//                 (q by float4 from the warp's shared row in flash, by
-//                 uint4 of the state dtype in gmax); each half summed in
-//                 index order as the pin's beltrami() sums it, the product
-//                 formed across the lane pair by one shuffle, so the
-//                 scores are the pin's bit for bit. One lane a pair, its
-//                 eight float4 in flight, spilled at flash's 48 and gmax's
-//                 64 registers and measured slower. The first form (the
-//                 pin's __noinline__ helper, K a value at a time) took
+//                 two segment kernels, gmax_kernel and norm_kernel;
+//                 att_type 4 reaches only them, and the other types'
+//                 instances compile from the same code as before them):
+//                 Beltrami's split score over a head slice of 2 hk values,
+//                 2 x 32 wide at BLEND's arxiv shapes, so 128 bytes of the
+//                 f32 K table (43 MB, mostly L2-resident) a (edge, head)
+//                 pair. In flash and gmax two lanes take a pair, one half
+//                 each, its four float4 of K in flight (q by float4 from
+//                 the warp's shared row in flash, by uint4 of the state
+//                 dtype in gmax); each half summed in index order
+//                 (attention_score.cuh's bel_sum), the product formed
+//                 across the lane pair by one shuffle. The norm keeps its
+//                 slot a lane and scores both halves on that lane
+//                 (bel_score, q by uint4 of the state dtype). Every
+//                 instance gives the same scores bit for bit. One lane a
+//                 pair, its eight float4 in flight, spilled at flash's 48
+//                 and gmax's 64 registers and measured slower. The first
+//                 form (a __noinline__ helper, K a value at a time) took
 //                 0.555 ms (flash, bf16) and 0.379 ms (gmax) on the H100
 //                 (PERF.md).
 //
@@ -236,6 +239,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 using gx_att::batch_scores;
 using gx_att::warp_max;
+using gx_att::warp_stride;
 using gx_att::warp_sum;
 using gx_rows::BATCH;
 using gx_rows::FULL;
@@ -779,26 +783,13 @@ __device__ __forceinline__ void gather_flash(
   }
 }
 
-// floats of one warp's shared memory in the flash kernels: q [a], shift
-// [h], scale [h], the batch's scores [BATCH, h]
-__host__ __device__ __forceinline__ int flash_warp_floats(int a, int h) {
-  return a + 2 * h + BATCH * h;
-}
-
-// a warp's floats in an instance of the flash kernels: the beltrami_exp
-// instances (BEL) round flash_warp_floats up to 4, so every warp's q
-// starts on 16 bytes for bel_sum's float4 reads; the others keep it
-__host__ __device__ __forceinline__ int flash_stride(int a, int h, bool bel) {
-  return bel ? (flash_warp_floats(a, h) + 3) & ~3 : flash_warp_floats(a, h);
-}
-
 // the rows of at most BATCH edges, one batch each: the scores, the shift
 // and the denominators, then the gather of the weights kept in shared
 // memory; longer rows are the segment kernels'. One row per warp: walking
 // rows r, r + stride, ... with the next row's bounds and columns loaded
 // ahead measured slower here than at the attspmm kernel (PERF.md). BEL:
 // beltrami_exp's instance (batch_scores<true>, the warp stride of
-// flash_stride); att_type 4 takes it and no other instance scores
+// gx_att::warp_stride); att_type 4 takes it and no other instance scores
 // beltrami_exp, so the others compile from the same code as before it.
 template <typename T, int VB, bool SQP, bool BEL>
 __global__ void __launch_bounds__(WPB * 32, FLASH_MIN_BLOCKS)
@@ -815,7 +806,7 @@ flash_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
   if (r >= n) return;
   const int beg = ptr[r], len = ptr[r + 1] - beg;
   if (len > BATCH) return;
-  float* qs = smem + (size_t)w * flash_stride(a, h, BEL);
+  float* qs = smem + (size_t)w * warp_stride(a, h, BEL);
   float* ms = qs + a;
   float* cs = ms + h;
   float* ws = cs + h;
@@ -858,7 +849,7 @@ flash_seg_stats(const int* __restrict__ ptr, const int* __restrict__ idx,
   if (j >= nseg) return;
   int r, sb, se, i;
   segment(ptr, plan, nlong, seg, j, r, sb, se, i);
-  float* qs = smem + (size_t)w * flash_stride(a, h, BEL);
+  float* qs = smem + (size_t)w * warp_stride(a, h, BEL);
   float* ms = qs + a;
   float* ds = ms + h;
   float* ws = ds + h;
@@ -904,7 +895,7 @@ flash_seg_sum(const int* __restrict__ ptr, const int* __restrict__ idx,
   if (j >= nseg) return;
   int r, sb, se, i;
   segment(ptr, plan, nlong, seg, j, r, sb, se, i);
-  float* qs = smem + (size_t)w * flash_stride(a, h, BEL);
+  float* qs = smem + (size_t)w * warp_stride(a, h, BEL);
   float* ms = qs + a;
   float* cs = ms + h;
   float* ws = cs + h;
@@ -1380,12 +1371,15 @@ constexpr int NM_CUT = 32;     // rows of more slots go to segments; the
                                // host's fused_attention.NORM_CUT
 constexpr int NM_SEG = 32;     // their segments' slots; NORM_SEG
 constexpr int NM_MIN_BLOCKS = 4;   // blocks an SM the registers allow
+constexpr int NM_BEL_MIN_BLOCKS = 4;   // the beltrami_exp instance's
 
 // one norm item: the slots [sb, se) of row r walked by a group of G lanes
 // (lane l holding slot sb + l of each batch), e into eo, and per head the
 // sum of the item's e into dst [h] (when dst is given). KV: scaled_dot's
-// scores by 16-byte loads (the host's kvec); else any score type
-template <typename T, bool SQP, bool KV, int G>
+// scores by 16-byte loads (the host's kvec); else any score type of
+// score(). BEL: beltrami_exp's instance (bel_score on the slot's lane,
+// each half by 16-byte loads where KV)
+template <typename T, bool SQP, bool KV, int G, bool BEL>
 __device__ __forceinline__ void norm_range(
     const int* __restrict__ idx, const T* __restrict__ q,
     const float* __restrict__ kt, const float* __restrict__ ew, float g,
@@ -1413,10 +1407,14 @@ __device__ __forceinline__ void norm_range(
           if (ew != nullptr) cw = ew[e];
         }
         const float* kh = kt + (size_t)c * a + hh * dk;
-        float s = KV ? gx_att::score_head<T, true>(qr + hh * dk, kh, dk, 0,
-                                                   scal, 1)
-                     : gx_att::score_head<T, true>(qr + hh * dk, kh, dk,
-                                                   att_type, scal, 0);
+        float s;
+        if constexpr (BEL)
+          s = gx_att::bel_score<T>(qr + hh * dk, kh, dk, KV ? 1 : 0, scal);
+        else
+          s = KV ? gx_att::score_head<T, true>(qr + hh * dk, kh, dk, 0, scal,
+                                               1)
+                 : gx_att::score_head<T, true>(qr + hh * dk, kh, dk,
+                                               att_type, scal, 0);
         if (ew != nullptr) s *= cw;
         v = weight<SQP>(s - g);
         eo[(size_t)e * h + hh] = v;
@@ -1430,9 +1428,12 @@ __device__ __forceinline__ void norm_range(
 
 // K1 + K2 with one shift g for every row: the rows of at most NM_CUT slots
 // (item r < n; a longer row's item walks nothing), then the segments of
-// NM_SEG slots of the longer ones (item n + j) into part [nseg, h]
-template <typename T, bool SQP, bool KV>
-__global__ void __launch_bounds__(WPB * 32, NM_MIN_BLOCKS)
+// NM_SEG slots of the longer ones (item n + j) into part [nseg, h]. BEL:
+// beltrami_exp's instance (NM_BEL_MIN_BLOCKS blocks an SM); att_type 4
+// takes it and no other instance scores beltrami_exp
+template <typename T, bool SQP, bool KV, bool BEL>
+__global__ void __launch_bounds__(WPB * 32,
+                                  BEL ? NM_BEL_MIN_BLOCKS : NM_MIN_BLOCKS)
 norm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
             const T* __restrict__ q, const float* __restrict__ kt,
             const float* __restrict__ ew, const float* __restrict__ gshift,
@@ -1458,8 +1459,8 @@ norm_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
     segment(ptr, plan, nlong, NM_SEG, item - n, r, sb, se, i);
     dst = part + (size_t)(item - n) * h;
   }
-  norm_range<T, SQP, KV, G>(idx, q, kt, ew, __ldg(gshift), eo, r, sb, se, dst,
-                            a, h, att_type, scal, l);
+  norm_range<T, SQP, KV, G, BEL>(idx, q, kt, ew, __ldg(gshift), eo, r, sb,
+                                 se, dst, a, h, att_type, scal, l);
 }
 
 // attspmm's weight of edge e (column col, row r): rnd(mean_h e / (den or
@@ -1712,7 +1713,7 @@ cudaError_t run_flash_segs(const void* ptr, const void* idx, const void* q,
                            int att_type, gx_att::Scal scal, int kvec,
                            int wpb, int seg, int nlong, int nseg,
                            cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)wpb * flash_stride(a, h, BEL);
+  const size_t smem = sizeof(float) * (size_t)wpb * warp_stride(a, h, BEL);
   const int grid = (nseg + wpb - 1) / wpb;
   cudaError_t err = allow_smem(flash_seg_stats<T, SQP, RES, BEL>, smem);
   if (err != cudaSuccess) return err;
@@ -1816,15 +1817,15 @@ cudaError_t run_bwd_cols(const void* ptr, const void* idx, const void* q,
   return cudaGetLastError();
 }
 
-template <typename T, bool SQP, bool KV>
+template <typename T, bool SQP, bool KV, bool BEL>
 cudaError_t run_norm(const void* ptr, const void* idx, const void* q,
                      const void* kt, const void* ew, const void* gshift,
                      const void* plan, void* part, void* eo, void* den, int n,
                      int a, int h, int att_type, gx_att::Scal scal,
                      int nlong, int nseg, cudaStream_t s) {
   const int items = n + nseg, per_block = WPB * (32 / NM_LANES);
-  norm_kernel<T, SQP, KV><<<(items + per_block - 1) / per_block, WPB * 32,
-                            0, s>>>(
+  norm_kernel<T, SQP, KV, BEL><<<(items + per_block - 1) / per_block,
+                                 WPB * 32, 0, s>>>(
       (const int*)ptr, (const int*)idx, (const T*)q, (const float*)kt,
       (const float*)ew, (const float*)gshift, (const int*)plan, (float*)part,
       (float*)eo, (float*)den, n, a, h, att_type, scal, nlong, nseg);
@@ -1862,7 +1863,7 @@ cudaError_t run_flash(const void* ptr, const void* idx, const void* q,
                       int h, int att_type, gx_att::Scal scal, int kvec,
                       int wpb, int seg, int nlong, int nseg,
                       cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)wpb * flash_stride(a, h, BEL);
+  const size_t smem = sizeof(float) * (size_t)wpb * warp_stride(a, h, BEL);
   cudaError_t err = allow_smem(flash_kernel<T, VB, SQP, BEL>, smem);
   if (err != cudaSuccess) return err;
   flash_kernel<T, VB, SQP, BEL><<<(n + wpb - 1) / wpb, wpb * 32, smem, s>>>(
@@ -2093,28 +2094,32 @@ int gx_attention_bwd_cols(const void* ptr, const void* idx, const void* q,
 // K1 + K2 with one shift for every row. q [n, a] in the state dtype
 // (pre-scaled for scaled_dot); kt [n, a] float32; ew [E] float32 or null;
 // gshift [1] float32 (the shift, from gx_attention_gmax); eo [E, h] float32
-// out (e unrounded); den [n, h] float32 out (the row sums of e). kvec as
-// gx_attention_bwd_cols's: it takes the scaled_dot instance (KV), so it is
-// read for att_type 0 only. beltrami_exp (att_type 4) is refused: the
-// interface has no positional pair. Rows of more than NM_CUT slots
-// go in segments of NM_SEG: plan as gx_attention_bwd_cols's, part [nseg, h]
-// float32 scratch.
+// out (e unrounded); den [n, h] float32 out (the row sums of e); ov2p,
+// inv2l2p: beltrami_exp's positional pair. kvec: scaled_dot's head slices
+// by 16-byte loads, as gx_attention_bwd_cols's, or beltrami_exp's halves
+// (att_type 4, which takes norm_kernel's BEL instance; the host's
+// score_vec rule); read for those two types only. Rows of more than
+// NM_CUT slots go in segments of NM_SEG: plan as gx_attention_bwd_cols's,
+// part [nseg, h] float32 scratch.
 int gx_attention_norm(const void* ptr, const void* idx, const void* q,
                       const void* kt, const void* ew, const void* gshift,
                       const void* plan, void* part, void* eo, void* den,
                       int n, int a, int h, int att_type, int reweight,
-                      int square_plus, float ov2, float inv2l2, int dtype,
-                      int kvec, int nlong, int nseg, void* stream) {
-  if (att_type == 4) return (int)cudaErrorInvalidValue;
+                      int square_plus, float ov2, float inv2l2, float ov2p,
+                      float inv2l2p, int dtype, int kvec, int nlong, int nseg,
+                      void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const gx_att::Scal scal{ov2, inv2l2, 1.f, 0.5f};
+  const gx_att::Scal scal{ov2, inv2l2, ov2p, inv2l2p};
   const void* ewp = reweight ? ew : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
-#define GX_NORM(T, SQP, KV)                                                  \
-  run_norm<T, SQP, KV>(ptr, idx, q, kt, ewp, gshift, plan, part, eo, den, n, \
-                       a, h, att_type, scal, nlong, nseg, s)
-#define GX_NORM_KV(T, SQP) \
-  (kvec && att_type == 0 ? GX_NORM(T, SQP, true) : GX_NORM(T, SQP, false))
+#define GX_NORM(T, SQP, KV, BEL)                                            \
+  run_norm<T, SQP, KV, BEL>(ptr, idx, q, kt, ewp, gshift, plan, part, eo,   \
+                            den, n, a, h, att_type, scal, nlong, nseg, s)
+#define GX_NORM_KV(T, SQP)                                                   \
+  (att_type == 4 ? (kvec ? GX_NORM(T, SQP, true, true)                       \
+                         : GX_NORM(T, SQP, false, true))                     \
+   : kvec && att_type == 0 ? GX_NORM(T, SQP, true, false)                    \
+                           : GX_NORM(T, SQP, false, false))
   if (dtype == 0)
     return (int)(square_plus ? GX_NORM_KV(float, true)
                              : GX_NORM_KV(float, false));

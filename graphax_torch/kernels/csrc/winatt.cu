@@ -498,15 +498,17 @@ extern "C" {
 // [1] float32; out [n, d] and den [n, h] float32. vb: bytes of one x load
 // (the host's gather_width: 4 or 8 for float32, 2, 4 or 8 for bfloat16);
 // kvec: q and k head slices on 16 bytes (scaled_dot's scores by 16-byte
-// loads); plan: the segments of BATCH cells of the rows of more than LANES
-// cells (nlong rows, nseg segments; the host's row_split_plan), st [nseg, 2 h] and part [nseg, d] float32
-// scratch.
+// loads); att_type one of win_score's four (K5 has no beltrami_exp
+// instance: 4 is refused); plan: the segments of BATCH cells of the rows
+// of more than LANES cells (nlong rows, nseg segments; the host's
+// row_split_plan), st [nseg, 2 h] and part [nseg, d] float32 scratch.
 int gx_winatt(const void* ptr, const void* idx, const void* q, const void* k,
               const void* x, const void* ew, const void* dres, const void* r0,
               const void* plan, void* st, void* part, void* out, void* den,
               int n, int d, int a, int h, int att_type, int reweight,
               float ov2, float inv2l2, int dtype, int vb, int kvec,
               int nlong, int nseg, void* stream) {
+  if (att_type < 0 || att_type > 3) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   const void* ewp = reweight ? ew : nullptr;
   cudaStream_t s = (cudaStream_t)stream;

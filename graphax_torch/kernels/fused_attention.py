@@ -317,7 +317,8 @@ def _vec_unit(a: int, heads: int, att_type: str) -> int:
 
 def score_vec(q: torch.Tensor, k: torch.Tensor, heads: int,
               att_type: str) -> int:
-    """1 where attention_gmax and K5 read q and k (k in q's dtype or the
+    """1 where attention_gmax, attention_norm and K5 read q and k (k in
+    q's dtype or the
     f32 K table) by 16-byte loads: scaled_dot's head slices, or each half
     of beltrami_exp's (:func:`_vec_unit`), when a unit's bytes of q are a
     multiple of 16 (so of its row and of an f32 unit too) and both tensors
@@ -412,11 +413,11 @@ def gather_width(x: torch.Tensor, *f32_views) -> int:
 
 
 def flash_warps(a: int, heads: int, att_type: str = "scaled_dot") -> int:
-    """Warps per block of the flash kernels: up to 8, each with q, the
-    per-head shift and scale and a batch's 32 x H scores in shared memory
+    """Warps per block of the flash and pin kernels: up to 8, each with q,
+    two per-head tables and a batch's 32 x H scores in shared memory
     (beltrami_exp's instances round a warp's floats up to 4, the source's
-    ``flash_stride``) within one block's limit; 0 where not even one
-    fits."""
+    ``gx_att::warp_stride``) within one block's limit; 0 where not even
+    one fits."""
     floats = a + 2 * heads + _BATCH * heads
     if att_type == "beltrami_exp":
         floats = -(-floats // 4) * 4
@@ -559,11 +560,12 @@ def flash_attention(layout: Layout, q: torch.Tensor, x: torch.Tensor,
 
 def attention_norm_plain(layout: Layout, q, kt, edge_w, shift,
                          att_type: str, heads: int, ov2: float = 1.0,
-                         inv2l2: float = 0.5, square_plus: bool = False):
+                         inv2l2: float = 0.5, square_plus: bool = False, *,
+                         ov2p: float = 1.0, inv2l2p: float = 0.5):
     """K1 + K2 under one shift in plain PyTorch: (e [E, H] f32, unrounded;
     the row sums of e [N, H] f32)."""
     s = edge_scores_plain(layout, q, kt, edge_w, att_type, heads, ov2,
-                          inv2l2)
+                          inv2l2, ov2p=ov2p, inv2l2p=inv2l2p)
     z = s - shift
     e = (z + torch.sqrt(z * z + 4.0)) / 2.0 if square_plus else torch.exp(z)
     return e, segment_sum(e, layout.seg, layout.num_rows)
@@ -572,25 +574,26 @@ def attention_norm_plain(layout: Layout, q, kt, edge_w, shift,
 def attention_norm(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
                    edge_w, shift: torch.Tensor, att_type: str, heads: int,
                    ov2: float = 1.0, inv2l2: float = 0.5,
-                   square_plus: bool = False):
+                   square_plus: bool = False, *, ov2p: float = 1.0,
+                   inv2l2p: float = 0.5):
     """graphax's K1 + K2 (`_scores_call`, `_norm_call`, `:114, 197`) with
     ONE shift for every row, as its column-normalised route (`:1078-1087`)
     and its windowed residual (`pallas_winatt.py:199-207`) run them: ``(e,
     den)`` as the plain version. ``q [N, A]`` in the state dtype
     (pre-scaled for scaled_dot), ``kt [N, A]`` f32, ``edge_w`` f32 per slot
     of ``layout`` or None, ``shift`` a 0-d f32 tensor (from
-    :func:`attention_gmax`). The kernel gives each row a group of 8 lanes,
-    one slot a lane; rows of more than ``NORM_CUT`` slots go in segments of
-    ``NORM_SEG`` (:func:`row_split_plan`), their sums added in order."""
+    :func:`attention_gmax`); ``ov2p`` and ``inv2l2p``: beltrami_exp's
+    positional pair. The kernel gives each row a group of 8 lanes, one slot
+    a lane (beltrami_exp both halves of the slot's score on its lane, by
+    16-byte loads of each half where :func:`score_vec` allows); rows of
+    more than ``NORM_CUT`` slots go in segments of ``NORM_SEG``
+    (:func:`row_split_plan`), their sums added in order."""
     _check_scores("attention_norm", q, kt, heads, att_type)
-    if att_type == "beltrami_exp":
-        raise NotImplementedError("attention_norm: beltrami_exp, Beltrami "
-                                  "on the column route, is not ported yet "
-                                  "(ROADMAP Queue 1, item 9)")
     _no_grad("attention_norm", q, kt, edge_w)
     if not q.is_cuda:
         return attention_norm_plain(layout, q, kt, edge_w, shift, att_type,
-                                    heads, ov2, inv2l2, square_plus)
+                                    heads, ov2, inv2l2, square_plus,
+                                    ov2p=ov2p, inv2l2p=inv2l2p)
     n = q.shape[0]
     _check_layout("attention_norm", layout, n, edge_w)
     if shift.dtype != torch.float32 or shift.numel() != 1:
@@ -609,8 +612,8 @@ def attention_norm(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
         shift.data_ptr(), plan.data_ptr(), part.data_ptr(), e.data_ptr(),
         den.data_ptr(), n, q.shape[1], heads, ATT_TYPES[att_type],
         int(edge_w is not None), int(square_plus), float(ov2), float(inv2l2),
-        _DTYPES[q.dtype], score_vec(q, kt, heads, att_type), nlong, nseg,
-        _build.stream_ptr(q))
+        float(ov2p), float(inv2l2p), _DTYPES[q.dtype],
+        score_vec(q, kt, heads, att_type), nlong, nseg, _build.stream_ptr(q))
     _build.check(err, "attention_norm")
     _build.LAUNCHES["attention_norm"] += 1
     return e, den

@@ -98,19 +98,37 @@ SM in bf16 and 4 in f32, and with 8 in both (``min_blocks``, shared with
 the SpMM walk: 8 and 6 intact).
 
 ``--only beltrami``: the beltrami_exp instances of flash_kernel (and
-its segment kernels) and gmax_kernel at path (b)'s shapes (the BLEND
-GRAND-nl preset's operands as ``torch_kernel_redesign.blend_operands``
-makes them: N 169,343, D 162, the K table 2 x 32 wide, 2 heads), bf16
-and f32: flash (softmax, f32 out) on the arxiv CSR and on
-``chip_smoke.hub_graph``, and in bf16 also on the arxiv CSR with x two
-columns wider (D 164, so 8-byte x loads: the VB 8 instance), gmax on the
-arxiv CSR; each on its 16-byte route and on its one-value route (the
-host's kvec / qvec forced to 0); intact (flash at 5 blocks an SM,
-``FLASH_MIN_BLOCKS``; gmax at 4, ``GM_MIN_BLOCKS``), then flash at 6, 7,
-6 and 4 blocks beside gmax at 2, 6, 8 and 3 (each constant sets the
-other score types' instances too, which these cases do not time). Each
-build's output against the intact build's, bit for bit, and its
+its segment kernels), gmax_kernel, the pin's three kernels and
+norm_kernel at path (b)'s shapes (the BLEND GRAND-nl preset's operands
+as ``torch_kernel_redesign.blend_operands`` makes them: N 169,343, D
+162, the K table 2 x 32 wide, 2 heads), bf16 and f32: flash (softmax,
+f32 out) on the arxiv CSR and on ``chip_smoke.hub_graph``, and in bf16
+also on the arxiv CSR with x two columns wider (D 164, so 8-byte x
+loads: the VB 8 instance), gmax on the arxiv CSR; each on its 16-byte
+route and on its one-value route (the host's kvec / qvec forced to 0);
+intact (flash at 5 blocks an SM, ``FLASH_MIN_BLOCKS``; gmax at 4,
+``GM_MIN_BLOCKS``), then flash at 6, 7, 6 and 4 blocks beside gmax at 2,
+6, 8 and 3 (each constant sets the other score types' instances too,
+which these cases do not time). The pin (its walk on the K table) on the
+arxiv CSR, the hub graph and ``torch_kernel_redesign.regular_graph``
+(the kNN graph's shape), each route, at 6 blocks an SM (intact,
+``BEL_MIN_BLOCKS``), 4 and 5; the norm on the arxiv CSR and the hub
+graph, each route, at 4 blocks (intact, ``NM_BEL_MIN_BLOCKS``), 3 and 5.
+Each build's output against the intact build's, bit for bit, and its
 ``-Xptxas=-v`` lines in ``results/ablations/``.
+
+``--only scoring [--parent DIR]``: the other score types' flash and pin
+kernels once the first-form beltrami_exp helper (a ``__noinline__`` call
+inside ``score()``) left the source, at GRAND-nl's arxiv widths (D 162,
+A 32, 2 heads; q, x, Wk from a seed) on the arxiv CSR, the hub graph and
+``torch_kernel_redesign.pareto_graph``: flash (softmax and squareplus)
+and the pin's walk for scaled_dot, cosine_sim and exp_kernel in bf16 and
+scaled_dot in f32, intact; with ``score()`` made a call again
+(``score_call``); with flash_seg_sum's instances other than
+beltrami_exp's at 4 blocks an SM (``seg_sum_4``); both; and the parent
+checkout's libraries on the same inputs. Each output against the intact
+build's, bit for bit; on the hub and power-law graphs each kernel's
+device microseconds a call (torch.profiler).
 
 A switched-off part leaves the results wrong: only the intact builds are
 checked (against the plain versions). Each ablated build is a copy of the
@@ -122,7 +140,7 @@ line per measurement (device ms as chip_smoke's ``time_ms`` takes them),
 then the card's nvidia-smi line. Run from the root of the repo on the
 card: ``python3 scripts/torch_kernel_ablations.py [--only
 winatt_gmax|kproj_slab|bwd_cols_norm|fwd_res_bwd_rows|f32_core|sddmm|
-beltrami]``.
+beltrami|scoring]``.
 """
 
 import ctypes
@@ -204,8 +222,8 @@ B3 = ("fused_attention", "B3_OFF", [
      "nullptr, 0, v0, nvec, lane);"),
 ], ())
 NORM = ("fused_attention", "NORM_OFF", [
-    ("        float s = KV ? gx_att::score_head<T, true>(",
-     "        float s = (NORM_OFF & 1) ? 0.f : KV ? gx_att::score_head<T, "
+    ("          s = KV ? gx_att::score_head<T, true>(",
+     "          s = (NORM_OFF & 1) ? 0.f : KV ? gx_att::score_head<T, "
      "true>("),
     ("        eo[(size_t)e * h + hh] = v;",
      "        if (!(NORM_OFF & 2)) eo[(size_t)e * h + hh] = v;"),
@@ -356,6 +374,15 @@ def bel_case(blocks: int, gm_blocks: int):
 
 BEL_CASES = {"intact": 0, **dict(bel_case(*c) for c in (
     (6, 2), (7, 6), (6, 8), (4, 3)))}
+# the pin's beltrami_exp instance at 4, 5 and 6 (intact) blocks an SM
+# (its BEL_MIN_BLOCKS), and the norm's at 3, 4 (intact) and 5
+# (NM_BEL_MIN_BLOCKS); each constant sets that instance alone
+PIN_BEL = ("attention_pin", "PIN_BEL_OFF", [], ())
+PIN_BEL_CASES = {"intact": 0, **{
+    f"pin_{m}": (0, [const("BEL_MIN_BLOCKS", 6, m)]) for m in (4, 5)}}
+NORM_BEL = ("fused_attention", "NORM_BEL_OFF", [], ())
+NORM_BEL_CASES = {"intact": 0, **{
+    f"norm_{m}": (0, [const("NM_BEL_MIN_BLOCKS", 4, m)]) for m in (3, 5)}}
 
 def substitute(text: str, subs, what: str) -> str:
     """``text`` with each (old, new) of ``subs`` replaced, each ``old``
@@ -614,8 +641,9 @@ def bwd_cols_norm() -> None:
             args = (lay.ptr.data_ptr(), lay.idx.data_ptr(), qq.data_ptr(),
                     kk.data_ptr(), None, gs.data_ptr(), plan.data_ptr(),
                     part.data_ptr(), e.data_ptr(), den.data_ptr(), n, a,
-                    heads, fa.ATT_TYPES[scal[0]], 0, 0, 0.0, 0.0, 1,
-                    fa.score_vec(qq, kk, heads, scal[0]), nlong, nseg, s(x))
+                    heads, fa.ATT_TYPES[scal[0]], 0, 0, 0.0, 0.0, 1.0, 0.5,
+                    1, fa.score_vec(qq, kk, heads, scal[0]), nlong, nseg,
+                    s(x))
             _build.check(lib.gx_attention_norm(*args), case)
             torch.cuda.synchronize()
             if case == "intact":
@@ -908,7 +936,12 @@ def beltrami() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch_kernel_redesign as rd
 
-    libs = build(BEL, BEL_CASES)
+    with ThreadPoolExecutor(3) as ex:
+        jobs = [ex.submit(build, spec, cases) for spec, cases in (
+            (BEL, BEL_CASES), (PIN_BEL, PIN_BEL_CASES),
+            (NORM_BEL, NORM_BEL_CASES))]
+        libs, libs_pin, libs_norm = (j.result() for j in jobs)
+    beltrami_pin_norm(libs_pin, libs_norm)
     dts = (torch.bfloat16, torch.float32)
     tr, ops = rd.blend_operands(get_dataset("ogbn-arxiv"), dts)
     g = tr.data.graph
@@ -974,6 +1007,208 @@ def beltrami() -> None:
         print(json.dumps(row), flush=True)
 
 
+def beltrami_pin_norm(libs_pin, libs_norm) -> None:
+    """The pin's and the norm's cases of the ``beltrami`` group."""
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import attention_pin as pin_mod
+    from graphax_torch.kernels import fused_attention as fa
+
+    import torch_kernel_redesign as rd
+
+    dts = (torch.bfloat16, torch.float32)
+    tr, ops = rd.blend_operands(get_dataset("ogbn-arxiv"), dts)
+    g = tr.data.graph
+    hub = cs.hub_graph("cuda")
+    knn = rd.regular_graph("cuda")
+    for dt in dts:
+        o = ops[dt]
+        q, x, kt, scal, bel = o["q"], o["x"], o["kt"], o["scal"], o["bel"]
+        heads, a = scal[1], q.shape[1]
+        name = str(dt)[6:]
+        kvec = fa.flash_kvec(kt, heads, scal[0])
+        wpb = fa.flash_warps(a, heads, scal[0])
+        for label, lay in (("arxiv CSR", g.csr), ("hub", hub.csr),
+                           ("64-regular", knn.csr)):
+            with torch.no_grad():
+                want = pin_mod.attention_pin_plain(lay, q, x, o["wk"],
+                                                   o["bk"], None, *scal,
+                                                   **bel)
+            out = torch.empty_like(want)
+            row = dict(kernel="attention_pin", att_type=scal[0], dtype=name,
+                       graph=label, E=lay.num_slots, kvec=kvec)
+            ref = None
+            for case, lib in libs_pin.items():
+                for route, kv in (("", kvec), ("_one_value", 0)):
+                    def call(lib=lib, kv=kv, lay=lay):
+                        return rd.pin_call(lib.gx_attention_pin, lay, q, kt,
+                                           None, scal, bel, out, kv, wpb)
+                    _build.check(call(), case)
+                    torch.cuda.synchronize()
+                    if ref is None:
+                        ref = out.clone()
+                        row["intact_max_abs_err"] = float(
+                            (out - want).abs().max())
+                    row[case + route + "_equal"] = bool(torch.equal(out, ref))
+                    row[case + route + "_ms"] = cs.time_ms(call)
+            print(json.dumps(row), flush=True)
+        qvec = fa.score_vec(q, kt, heads, scal[0])
+        for label, lay in (("arxiv CSR", g.csr), ("hub", hub.csr)):
+            with torch.no_grad():
+                gs = fa.attention_gmax(lay, q, kt, None, *scal, **bel)
+                want = fa.attention_norm_plain(lay, q, kt, None, gs, *scal,
+                                               **bel)
+            e = torch.empty_like(want[0])
+            den = torch.empty_like(want[1])
+            row = dict(kernel="attention_norm", att_type=scal[0], dtype=name,
+                       graph=label, E=lay.num_slots, qvec=qvec)
+            ref = None
+            for case, lib in libs_norm.items():
+                for route, qv in (("", qvec), ("_one_value", 0)):
+                    def call(lib=lib, qv=qv, lay=lay):
+                        return rd.norm_call(lib.gx_attention_norm, lay, q,
+                                            kt, gs, scal, bel, e, den, False,
+                                            qv)
+                    _build.check(call(), case)
+                    torch.cuda.synchronize()
+                    if ref is None:
+                        ref = (e.clone(), den.clone())
+                        row["intact_max_abs_err"] = max(
+                            float((e - want[0]).abs().max()),
+                            float((den - want[1]).abs().max()))
+                    row[case + route + "_equal"] = bool(
+                        torch.equal(e, ref[0]) and torch.equal(den, ref[1]))
+                    row[case + route + "_ms"] = cs.time_ms(call)
+            print(json.dumps(row), flush=True)
+
+
+# the other score types' kernels after the first-form beltrami_exp helper
+# (a __noinline__ call in score()) left the source: score() made a call
+# again (its type-0 to type-3 arithmetic not inlined), and flash_seg_sum's
+# instances other than beltrami_exp's held to 4 blocks an SM (64
+# registers), each alone and together
+SCORE_CALL = ("__device__ __forceinline__ float score(const Q* q, "
+              "const float* k, int dk,",
+              "__device__ __noinline__ float score(const Q* q, "
+              "const float* k, int dk,")
+SEG_SUM_4 = ("__global__ void __launch_bounds__(WPB * 32)\nflash_seg_sum(",
+             "__global__ void __launch_bounds__(WPB * 32, BEL ? 1 : 4)\n"
+             "flash_seg_sum(")
+SC_FA = ("fused_attention", "SC_OFF", [], ("attention_score.cuh",))
+SC_FA_CASES = {"intact": 0, "seg_sum_4": (0, [SEG_SUM_4]),
+               "score_call": (0, [SCORE_CALL]),
+               "score_call_seg_sum_4": (0, [SCORE_CALL, SEG_SUM_4])}
+SC_PIN = ("attention_pin", "SC_OFF", [], ("attention_score.cuh",))
+SC_PIN_CASES = {"intact": 0, "score_call": (0, [SCORE_CALL])}
+
+
+def kernel_us(call, reps: int = 10) -> dict:
+    """Device microseconds a launch of each kernel ``call()`` runs, by
+    name (its template arguments dropped), from torch.profiler over
+    ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = ev.cuda_time_total
+        if t > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0].split()[-1]
+            name = name.split("::")[-1]
+            out[name] = out.get(name, 0.0) + t / reps
+    return out
+
+
+def scoring(parent=None) -> None:
+    """The ``scoring`` group of the module's docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_kernel_redesign as rd
+
+    with ThreadPoolExecutor(2) as ex:
+        fa_job = ex.submit(build, SC_FA, SC_FA_CASES)
+        pin_job = ex.submit(build, SC_PIN, SC_PIN_CASES)
+        libs_fa, libs_pin = fa_job.result(), pin_job.result()
+    if parent is not None:   # the tree before the helper's deletion
+        libs_fa["parent"] = rd.parent_library(parent, "fused_attention")
+        libs_pin["parent"] = rd.parent_library(parent, "attention_pin")
+    g = Trainer(best_config("ogbn-arxiv", community_window=0),
+                get_dataset("ogbn-arxiv")).data.graph
+    graphs = (("arxiv CSR", g.csr), ("hub", cs.hub_graph("cuda").csr),
+              ("pareto", rd.pareto_graph("cuda").csr))
+    n, d, a, heads = g.num_nodes, 162, 32, 2
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x32 = torch.randn(n, d, generator=gen, device="cuda")
+    q32 = 0.3 * torch.randn(n, a, generator=gen, device="cuda")
+    wk32 = 0.3 / d ** 0.5 * torch.randn(d, a, generator=gen, device="cuda")
+    bk = 0.1 * torch.randn(a, generator=gen, device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        x, q, wk = x32.to(dt), q32.to(dt), wk32.to(dt)
+        kt = fa.attention_kproj(x, wk, bk)
+        types = ("scaled_dot", "cosine_sim", "exp_kernel") \
+            if dt == torch.bfloat16 else ("scaled_dot",)
+        for att_type in types:
+            scal = (att_type, heads, 1.3, 0.7)
+            for label, lay in graphs:
+                gs = fa.attention_gmax(lay, q, kt, None, *scal)
+                for variant, shift in (("softmax", None),
+                                       ("squareplus", gs)):
+                    out = torch.empty(n, d, device="cuda")
+                    row = dict(kernel="flash_attention", att_type=att_type,
+                               dtype=str(dt)[6:], graph=label,
+                               variant=variant)
+                    ref = None
+                    for case, lib in libs_fa.items():
+                        def call(lib=lib, lay=lay, shift=shift):
+                            return rd.flash_call(lib.gx_flash_attention, lay,
+                                                 q, x, kt, shift, scal, {},
+                                                 out)
+                        _build.check(call(), case)
+                        torch.cuda.synchronize()
+                        ref = out.clone() if ref is None else ref
+                        row[case + "_equal"] = bool(torch.equal(out, ref))
+                        row[case + "_ms"] = cs.time_ms(call)
+                        if label != "arxiv CSR":
+                            row[case + "_kernels_us"] = kernel_us(call)
+                    print(json.dumps(row), flush=True)
+                pout = torch.empty(lay.num_slots, device="cuda")
+                row = dict(kernel="attention_pin", att_type=att_type,
+                           dtype=str(dt)[6:], graph=label)
+                ref = None
+                for case, lib in libs_pin.items():
+                    def call(lib=lib, lay=lay):
+                        return rd.pin_call(
+                            lib.gx_attention_pin, lay, q, kt, None, scal, {},
+                            pout, fa.flash_kvec(kt, heads, att_type),
+                            fa.flash_warps(a, heads))
+                    _build.check(call(), case)
+                    torch.cuda.synchronize()
+                    ref = pout.clone() if ref is None else ref
+                    row[case + "_equal"] = bool(torch.equal(pout, ref))
+                    row[case + "_ms"] = cs.time_ms(call)
+                    if label != "arxiv CSR":
+                        row[case + "_kernels_us"] = kernel_us(call)
+                print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     import argparse
 
@@ -982,8 +1217,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("winatt_gmax", "kproj_slab",
                                        "bwd_cols_norm", "fwd_res_bwd_rows",
-                                       "f32_core", "sddmm", "beltrami"),
+                                       "f32_core", "sddmm", "beltrami",
+                                       "scoring"),
                     default=None, help="one group of ablations")
+    ap.add_argument("--parent", default=None,
+                    help="scoring: a parent checkout whose kernels run "
+                    "beside the builds on the same inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -1008,6 +1247,9 @@ def main() -> int:
         sddmm()
     if args.only in (None, "beltrami"):
         beltrami()
+    if args.only in (None, "scoring"):
+        scoring(None if args.parent is None
+                else os.path.abspath(args.parent))
     print(cs.smi_line(), flush=True)
     return 0
 

@@ -75,14 +75,19 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   its bound, all-miss count (x read once per edge) and, on the arxiv CSR,
   ``torch.sparse.mm``; then the steady epochs of the arxiv preset on both
   layouts (``fit`` with its defaults, the fastest of 3 after the first);
-- (``pin``) the pin at the arxiv preset's widths (random q, x, Wk as
-  chip_smoke draws them; bf16 as on CSR, f32 as on the windowed layout)
-  on the arxiv CSR, the hub graph and the power-law graph, and at
-  Computers' and Photo's widths in f32 on their stand-ins' graphs, each
-  with its largest error against its plain version, its bound and
-  all-miss count (K written, one K row read per edge) and the K
-  projection's time alone (which this checkout's pin runs); then the
-  steady epochs of Computers and Photo;
+- (``pin``) the pin in ``beltrami_exp`` at BLEND paths (a)'s and (c)'s
+  shapes (path (b)'s operands, :func:`blend_operands`: the K table 2 x 32
+  wide), bf16 and f32, on the arxiv CSR, the hub graph and
+  :func:`regular_graph` (every row 64 edges: the kNN graph's shape); the
+  pin at the arxiv preset's widths (random q, x, Wk as chip_smoke draws
+  them; bf16 as on CSR, f32 as on the windowed layout) on the arxiv CSR,
+  in bf16 for cosine_sim, pearson and exp_kernel too, on the hub graph
+  and the power-law graph, and at Computers' and Photo's widths in f32 on
+  their stand-ins' graphs; each with its largest error against its plain
+  version, its bound and all-miss count (K written, one K row read per
+  edge), the K projection's time alone and the walk's alone on the same
+  K table (``walk_ms``; in ``beltrami_exp`` whether its one-value route
+  gives the same bits); then the steady epochs of Computers and Photo;
 - (``kproj``) the f32 attention_kproj (the pin's on the windowed arxiv
   preset, Computers and Photo) on random x, Wk, bk from a seed at the
   arxiv widths (N 169,343, D 162, A 32), Computers' and Photo's (their
@@ -119,7 +124,8 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   three squareplus (gmax once per NFE) and three softmax CSR evaluations
   per NFE;
 - (``ptxas``, this checkout then the parent, once each) each instance of
-  ``csrc/fused_attention.cu`` with its registers and spill bytes.
+  ``csrc/fused_attention.cu``, ``attention_pin.cu`` and ``winatt.cu``
+  with its registers and spill bytes.
 
 - (``bwd_cols``) attention_bwd_cols (B3) on the CSR GRAND-nl model's own
   operands (its encoded state, q, the K table, the training forward's
@@ -130,11 +136,17 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   ratios to chip_smoke's tolerances, its bound and all-miss count (g, q
   and the row tables gathered per slot); then one profiled CSR GRAND-nl
   train step (its adjoint's device ms, B3's launches and device ms);
-- (``norm``) attention_norm on the windowed residual (path A's pre-scaled
-  q and K table under r0), the arxiv CSR (the column-normalised model's
-  operands, softmax and squareplus) and the hub graph, bf16 and f32, each
-  with its errors, bound and all-miss count (K gathered per slot); path
-  A's and path B's RHS alone (``windowed_attention_ax_fast``,
+- (``norm``) in a checkout with the norm's ``beltrami_exp`` first
+  attention_norm in it at BLEND path (d)'s shapes (path (b)'s operands,
+  :func:`blend_operands`) on the arxiv CSR (softmax and squareplus) and
+  the hub graph, bf16 and f32 (whether its one-value route gives the same
+  bits), and path (d)'s RHS alone; then attention_norm on the windowed
+  residual (path A's pre-scaled q and K table under r0), the arxiv CSR
+  (the column-normalised model's operands, softmax and squareplus) and
+  the hub graph, bf16 and f32, and for cosine_sim, pearson and exp_kernel
+  on the arxiv CSR (bf16, q and K from a seed); each with its errors,
+  bound and all-miss count (K gathered per slot); path A's and path B's
+  RHS alone (``windowed_attention_ax_fast``,
   ``colnorm_attention_ax_fast``; device and host ms); three evaluations of
   each path per NFE.
 
@@ -167,11 +179,13 @@ over 3.35 TB/s or operations over the dtype's peak, as chip_smoke's
   spmm_walk, win_bwd_dense and win_matmul).
 
 With ``--parent``, this checkout's ``windowed``, ``attention`` (its
-``beltrami_exp`` and other-type cases), ``winatt``, ``gmax``,
-``bwd_cols``, ``norm``, ``fwd_res``, ``bwd_rows`` and ``sddmm`` runs also
+``beltrami_exp`` and other-type cases), ``pin``, ``winatt``, ``gmax``,
+``bwd_cols``, ``norm`` (the score types the parent's norm takes),
+``fwd_res``, ``bwd_rows`` and ``sddmm`` runs also
 call the parent's kernels (built by the parent's ``_build``) on the same inputs:
 whether the f32 bodies' outputs (win_matmul, win_bwd_dense and
-win_bwd_slab with both outputs; ``parent_equal``, ``parent_ms``), K5's out
+win_bwd_slab with both outputs; ``parent_equal``, ``parent_ms``), the
+pin's (its walk on the same K table: ``parent_walk_ms``), K5's out
 and den, gmax's value, B3's dk and dxv, the norm's e and den, fwd_res's
 out, scores, shift and denom and bwd_rows' dq and rho are equal bit for
 bit, the largest difference, the rows that differ and the shortest of
@@ -263,7 +277,7 @@ def measure(root: str, only=None, against=None) -> None:
     if only in (None, "spmm"):
         spmm(emit)
     if only in (None, "pin"):
-        pin(emit)
+        pin(emit, against)
     if only in (None, "kproj"):
         kproj(emit)
     if only in (None, "slab"):
@@ -291,8 +305,9 @@ def blend_operands(data, dtypes):
     chip_smoke draws them (``randomize_beltrami``), with positional
     encodings of DW64's width drawn from a seed in place of DeepWalk's
     (the kernels' work does not depend on their values). Returns the
-    Trainer and, for each dtype of ``dtypes``, q, x and the K table, the
-    score arguments and ``beltrami_exp``'s keywords."""
+    Trainer and, for each dtype of ``dtypes``, q, x, the K weight and
+    bias and the K table, the score arguments and ``beltrami_exp``'s
+    keywords."""
     import numpy as np
     import torch
 
@@ -319,7 +334,8 @@ def blend_operands(data, dtypes):
             p = fa.prep_inputs(tr.cfg, att, g, x)
             scal, bel = fa.score_args(p)
             kt = fa.attention_kproj(x, p["wk"], p["bk"])
-            out[dt] = dict(q=p["q"], x=x, kt=kt, scal=scal, bel=bel)
+            out[dt] = dict(q=p["q"], x=x, kt=kt, wk=p["wk"], bk=p["bk"],
+                           scal=scal, bel=bel)
     return tr, out
 
 
@@ -514,50 +530,54 @@ def other_types(emit, data, parent=None) -> None:
 
 
 def ptxas(emit, root: str) -> None:
-    """``csrc/fused_attention.cu`` of the checkout at ``root`` compiled as
-    ``_build`` compiles it, with ``-Xptxas=-v``: each kernel instance's
-    registers and spill bytes (one line each, the name demangled)."""
+    """The scoring kernels' sources of the checkout at ``root``
+    (``csrc/fused_attention.cu``, ``attention_pin.cu`` and ``winatt.cu``)
+    compiled as ``_build`` compiles them, with ``-Xptxas=-v``: each kernel
+    instance's registers and spill bytes (one line each, the name
+    demangled, its source beside it)."""
     import re
     import shutil
     import tempfile
 
     from graphax_torch.kernels import _build
 
-    src = os.path.join(root, "graphax_torch", "kernels", "csrc",
-                       "fused_attention.cu")
-    with tempfile.TemporaryDirectory() as tmp:
-        proc = subprocess.run(
-            [_build._nvcc(), "-Xptxas=-v", _build.ARCH, "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-o",
-             os.path.join(tmp, "lib.so"), src],
-            capture_output=True, text=True, check=True)
-    text = proc.stdout + proc.stderr
-    found, cur = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            cur = m.group(1)
-            continue
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            cur = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and cur:
-            found.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
-                                             spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur:
-            found.setdefault(cur, {})["registers"] = int(m.group(1))
     filt = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
     if not os.path.exists(filt):
         filt = shutil.which("cu++filt") or "c++filt"
-    names = subprocess.run([filt], input="\n".join(found), text=True,
-                           capture_output=True, check=True).stdout.split("\n")
-    for mangled, name in zip(found, names):
-        if "registers" in found[mangled]:
-            emit(ptxas=name.strip(), **found[mangled])
+    for name in ("fused_attention", "attention_pin", "winatt"):
+        src = os.path.join(root, "graphax_torch", "kernels", "csrc",
+                           name + ".cu")
+        with tempfile.TemporaryDirectory() as tmp:
+            proc = subprocess.run(
+                [_build._nvcc(), "-Xptxas=-v", _build.ARCH, "-std=c++17",
+                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+                 os.path.join(tmp, "lib.so"), src],
+                capture_output=True, text=True, check=True)
+        text = proc.stdout + proc.stderr
+        found, cur = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = m.group(1)
+                continue
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                cur = m.group(1)
+                continue
+            m = re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and cur:
+                found.setdefault(cur, {}).update(
+                    spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                found.setdefault(cur, {})["registers"] = int(m.group(1))
+        names = subprocess.run([filt], input="\n".join(found), text=True,
+                               capture_output=True,
+                               check=True).stdout.split("\n")
+        for mangled, demangled in zip(found, names):
+            if "registers" in found[mangled]:
+                emit(ptxas=demangled.strip(), source=name, **found[mangled])
 
 
 def parent_f32_runs(t, extent: int, run: int) -> int:
@@ -1231,7 +1251,49 @@ def spmm(emit) -> None:
         steady_epochs(emit, f"arxiv {label}", tr)
 
 
-def pin(emit) -> None:
+def pin_call(fn, lay, q, kt, ew, scal, bel, out, kvec, wpb):
+    """``gx_attention_pin`` of a checkout's library (this one's or a
+    parent's whose C signature takes beltrami_exp's two scalars) on the K
+    table ``kt`` into ``out``, with the host's ``kvec`` and warps a block
+    given."""
+    import torch
+
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    n, a = q.shape
+    heads = scal[1]
+    plan, nlong, nseg = fa._row_plan(lay, fa._BATCH, fa.ROW_SPLIT)
+    pin_call.keep = torch.empty((nseg, 2 * heads), device=q.device)
+    return fn(lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
+              kt.data_ptr(), ew.data_ptr() if ew is not None else None,
+              plan.data_ptr(), pin_call.keep.data_ptr(), out.data_ptr(), n,
+              a, heads, fa.ATT_TYPES[scal[0]], float(scal[2]),
+              float(scal[3]), float(bel.get("ov2p", 1.0)),
+              float(bel.get("inv2l2p", 0.5)), fa._DTYPES[q.dtype], kvec, wpb,
+              fa.ROW_SPLIT, nlong, nseg, _build.stream_ptr(q))
+
+
+def regular_graph(device, n=169_343, k=64, seed=9):
+    """A graph at ogbn-arxiv's N whose every row has ``k`` edges to
+    distinct random columns: the shape of BLEND path (c)'s kNN graph (k
+    64, every row over 32 edges, so the pin walks all of it in its segment
+    kernels), built from a seed without the encoder."""
+    import numpy as np
+
+    from graphax_torch.sparse.graph import Graph
+
+    rng = np.random.RandomState(seed)
+    # k + 8 draws a row, sorted; repeats pushed past the end; the first k
+    cand = np.sort(rng.randint(0, n, (n, k + 8)), axis=1)
+    cand[:, 1:][cand[:, 1:] == cand[:, :-1]] = n
+    col = np.sort(cand, axis=1)[:, :k]
+    assert (col < n).all()
+    return Graph.from_edges(np.repeat(np.arange(n), k), col.reshape(-1), n,
+                            device=device)
+
+
+def pin(emit, parent=None) -> None:
     """The ``pin`` measurements of the module's docstring."""
     import torch
 
@@ -1243,41 +1305,98 @@ def pin(emit) -> None:
     here = this_chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
+    plib = parent_library(parent, "attention_pin") if parent else None
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def case(label, graph, dt, d, a, heads):
-        n, e = graph.num_nodes, graph.num_edges
-        b, name = dt.itemsize, str(dt)[6:]
+    def row_of(label, lay, q, x, wk, bk, scal, bel):
+        """The wrapper's ms, error and bound; its walk alone on the same K
+        table (this checkout's host rule, and with a parent the parent's
+        kernel by the parent's rule: ``parent_equal``, ``parent_walk_ms``;
+        in beltrami_exp the one-value route's bits)."""
+        (n, d), a, heads = x.shape, q.shape[1], scal[1]
+        e, b, name = lay.num_slots, x.element_size(), str(x.dtype)[6:]
+        args = (lay, q, x, wk, bk, None, *scal)
+        fn = lambda: pin_mod.attention_pin(*args, **bel)  # noqa: E731
+        got = fn()
+        err = float((got - pin_mod.attention_pin_plain(*args, **bel))
+                    .abs().max())
+        nbytes = (n * d * b + n * a * b + d * a * b + 4 * a + 4 * e
+                  + 4 * (n + 1) + 4 * e)
+        per_value = 3.0 if scal[0] == "beltrami_exp" else 2.0
+        bms, by = here.bound_ms(nbytes, 2.0 * n * d * a + e * (
+            per_value * a + (8 if per_value == 3.0 else 6) * heads), name)
+        kt = fa.attention_kproj(x, wk, bk)
+        out = torch.empty_like(got)
+        kvec = fa.flash_kvec(kt, heads, scal[0])
+        wpb = fa.flash_warps(a, heads, scal[0])
+        walk = lambda: pin_call(  # noqa: E731
+            _build.library("attention_pin").gx_attention_pin, lay, q, kt,
+            None, scal, bel, out, kvec, wpb)
+        _build.check(walk(), "attention_pin")
+        row = dict(kernel="attention_pin", att_type=scal[0], graph=label,
+                   dtype=name, N=n, E=e, D=d, A=a, H=heads, kvec=kvec,
+                   wpb=wpb, ms=here.time_ms(fn), max_abs_err=err,
+                   walk_ms=here.time_ms(walk),
+                   walk_equal=bool(torch.equal(out, got)),
+                   bound_ms=bms, bound_by=by,
+                   all_miss_ms=(nbytes + 4 * n * a + 4 * e * a)
+                   / here.HBM_BYTES_PER_S * 1e3,
+                   kproj_ms=here.time_ms(
+                       lambda: fa.attention_kproj(x, wk, bk)))
+        if scal[0] == "beltrami_exp" and kvec:
+            one = torch.empty_like(got)
+            _build.check(pin_call(
+                _build.library("attention_pin").gx_attention_pin, lay, q, kt,
+                None, scal, bel, one, 0, wpb), "attention_pin")
+            row["one_value_equal"] = bool(torch.equal(one, got))
+        if plib is not None:   # the parent's walk by the parent's rule
+            old = torch.empty_like(got)
+            pkvec = int((a // heads) % 4 == 0 and kt.data_ptr() % 16 == 0)
+            pwalk = lambda: pin_call(  # noqa: E731
+                plib.gx_attention_pin, lay, q, kt, None, scal, bel, old,
+                pkvec, fa.flash_warps(a, heads))
+            _build.check(pwalk(), "parent attention_pin")
+            row.update(parent_equal=bool(torch.equal(got, old)),
+                       parent_max_diff=float((got - old).abs().max()),
+                       parent_walk_ms=here.time_ms(pwalk))
+        emit(**row)
+
+    def case(label, graph, dt, d, a, heads, att_type="scaled_dot"):
+        n = graph.num_nodes
         q = torch.randn(n, a, generator=gen, device="cuda").mul(0.3).to(dt)
         x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
         wk = torch.randn(d, a, generator=gen, device="cuda").mul(0.1).to(dt)
         bk = torch.randn(a, generator=gen, device="cuda").mul(0.1)
-        args = (graph.csr, q, x, wk, bk, None, "scaled_dot", heads)
         with torch.no_grad():
-            fn = lambda: pin_mod.attention_pin(*args)  # noqa: E731
-            err = float((fn() - pin_mod.attention_pin_plain(*args))
-                        .abs().max())
-            nbytes = (n * d * b + n * a * b + d * a * b + 4 * a + 4 * e
-                      + 4 * (n + 1) + 4 * e)
-            bms, by = here.bound_ms(nbytes, 2.0 * n * d * a
-                                    + e * (2.0 * a + 6 * heads), name)
-            emit(kernel="attention_pin", graph=label, dtype=name, N=n, E=e,
-                 D=d, A=a, H=heads, ms=here.time_ms(fn), max_abs_err=err,
-                 bound_ms=bms, bound_by=by,
-                 all_miss_ms=(nbytes + 4 * n * a + 4 * e * a)
-                 / here.HBM_BYTES_PER_S * 1e3,
-                 kproj_ms=here.time_ms(
-                     lambda: fa.attention_kproj(x, wk, bk)))
+            row_of(label, graph.csr, q, x, wk, bk,
+                   (att_type, heads, 1.3, 0.7), {})
 
     data = get_dataset("ogbn-arxiv")
     g = Trainer(best_config("ogbn-arxiv", community_window=0),
                 data).data.graph
-    for dt in (torch.bfloat16, torch.float32):
+    hub = here.hub_graph("cuda")
+    # beltrami_exp at path (a)'s and (c)'s shapes: path (b)'s operands
+    # (the same K table 2 x 32 wide), on the arxiv CSR, the hub graph and
+    # the kNN graph's shape
+    dts = (torch.bfloat16, torch.float32)
+    tr, ops = blend_operands(data, dts)
+    knn = regular_graph("cuda")
+    with torch.no_grad():
+        for dt in dts:
+            o = ops[dt]
+            for label, gr in (("arxiv CSR", g), ("hub", hub),
+                              ("64-regular", knn)):
+                row_of(label, gr.csr, o["q"], o["x"], o["wk"], o["bk"],
+                       o["scal"], o["bel"])
+    del tr, ops, knn
+    torch.cuda.empty_cache()
+    for dt in dts:
         case("arxiv CSR", g, dt, 162, 32, 2)
-    for label, gr in (("hub", here.hub_graph("cuda")),
-                      ("pareto", pareto_graph("cuda"))):
+    for att_type in ("cosine_sim", "pearson", "exp_kernel"):
+        case("arxiv CSR", g, torch.bfloat16, 162, 32, 2, att_type)
+    for label, gr in (("hub", hub), ("pareto", pareto_graph("cuda"))):
         case(label, gr, torch.bfloat16, 162, 32, 2)
-    del data, g
+    del data, g, hub
     torch.cuda.empty_cache()
     for ds in ("Computers", "Photo"):
         cfg = best_config(ds)
@@ -2195,6 +2314,30 @@ def sddmm(emit, parent=None) -> None:
     profiled_train_step(emit, tr, "attention block f32 windowed", kernels)
 
 
+def norm_call(fn, lay, q, kt, gs, scal, bel, e, den, sqp, kvec):
+    """``gx_attention_norm`` of a checkout's library by the C signature it
+    has: without the positional pair (23 arguments) or with it (25:
+    beltrami_exp's ``ov2p``, ``inv2l2p`` after exp_kernel's), without
+    reweight, into ``e`` and ``den``."""
+    import torch
+
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import fused_attention as fa
+
+    n, a = q.shape
+    heads = scal[1]
+    plan, nlong, nseg = fa._row_plan(lay, fa.NORM_CUT, fa.NORM_SEG)
+    norm_call.keep = torch.empty((nseg, heads), device=q.device)
+    pair = (float(bel.get("ov2p", 1.0)), float(bel.get("inv2l2p", 0.5))) \
+        if len(fn.argtypes) == 25 else ()
+    return fn(lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
+              kt.data_ptr(), None, gs.data_ptr(), plan.data_ptr(),
+              norm_call.keep.data_ptr(), e.data_ptr(), den.data_ptr(), n, a,
+              heads, fa.ATT_TYPES[scal[0]], 0, int(sqp), float(scal[2]),
+              float(scal[3]), *pair, fa._DTYPES[q.dtype], kvec, nlong, nseg,
+              _build.stream_ptr(q))
+
+
 def norm(emit, parent=None) -> None:
     """The ``norm`` measurements of the module's docstring."""
     import torch
@@ -2215,25 +2358,32 @@ def norm(emit, parent=None) -> None:
     tr_b = cs.nl_trainer(best_config("ogbn-arxiv", community_window=0,
                                      attention_norm_idx=1, **base), data)
     plib = parent_library(parent, "fused_attention") if parent else None
+    # beltrami_exp in this checkout's norm (an earlier one refuses it)
+    has_bel = "ov2p" in inspect.signature(fa.attention_norm).parameters
 
-    def case(label, lay, q, kt, scal, dt, sqp=False):
+    def case(label, lay, q, kt, scal, dt, sqp=False, bel=None):
         n, a = q.shape
         e, heads, b = lay.num_slots, scal[1], dt.itemsize
-        gs = fa.attention_gmax(lay, q, kt, None, *scal)
+        bel = bel or {}
+        gs = fa.attention_gmax(lay, q, kt, None, *scal, **bel)
         args = (lay, q, kt, None, gs, *scal)
-        fn = lambda: fa.attention_norm(*args, square_plus=sqp)  # noqa
+        fn = lambda: fa.attention_norm(*args, square_plus=sqp,  # noqa
+                                       **bel)
         ev, den = fn()
-        w_e, w_den = fa.attention_norm_plain(*args, square_plus=sqp)
+        w_e, w_den = fa.attention_norm_plain(*args, square_plus=sqp, **bel)
         # q, K, CSR, shift in; e, den out; all-miss: K per slot
         nbytes = (n * a * b + 4 * n * a + 4 * e + 4 * (n + 1) + 4
                   + 4 * e * heads + 4 * n * heads)
-        bms, by = here.bound_ms(nbytes, e * (2.0 * a + 2.0 * heads),
-                                str(dt)[6:])
+        ops = e * (2.0 * a + 2.0 * heads) if not bel else \
+            e * (3.0 * a + 8 * heads) + e * 2.0 * heads
+        bms, by = here.bound_ms(nbytes, ops, str(dt)[6:])
         tol = here.TOL_TRAIN
+        kvec = fa.score_vec(q, kt, heads, scal[0])
         row = dict(kernel="attention_norm", graph=label, dtype=str(dt)[6:],
-                   squareplus=sqp, E=e, ms=here.time_ms(fn),
+                   att_type=scal[0], squareplus=sqp, E=e, kvec=kvec,
+                   ms=here.time_ms(fn),
                    plain_ms=here.time_ms(lambda: fa.attention_norm_plain(
-                       *args, square_plus=sqp), reps=5),
+                       *args, square_plus=sqp, **bel), reps=5),
                    bound_ms=bms, bound_by=by,
                    all_miss_ms=(nbytes - 4 * n * a + 4 * e * a)
                    / here.HBM_BYTES_PER_S * 1e3,
@@ -2241,24 +2391,53 @@ def norm(emit, parent=None) -> None:
                    den_max_abs_err=float((den - w_den).abs().max()),
                    den_tol_ratio=float(((den - w_den).abs() / (
                        tol[0] + tol[1] * w_den.abs())).max()))
-        if plib is not None:   # the parent's kernel, same inputs
+        if bel and kvec:   # the one-value route of the same instance
+            one = (torch.empty_like(ev), torch.empty_like(den))
+            _build.check(norm_call(
+                _build.library("fused_attention").gx_attention_norm, lay, q,
+                kt, gs, scal, bel, *one, sqp, 0), "attention_norm")
+            row["one_value_equal"] = bool(torch.equal(one[0], ev)
+                                          and torch.equal(one[1], den))
+        if plib is not None and not bel:   # the parent's kernel
             old = (torch.empty_like(ev), torch.empty_like(den))
-            pargs = (lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(),
-                     kt.data_ptr(), None, gs.data_ptr(), old[0].data_ptr(),
-                     old[1].data_ptr(), n, a, heads, fa.ATT_TYPES[scal[0]],
-                     0, int(sqp), scal[2], scal[3], fa._DTYPES[dt],
-                     _build.stream_ptr(q))
-            _build.check(plib.gx_attention_norm(*pargs),
-                         "parent attention_norm")
+            call = lambda: norm_call(  # noqa: E731
+                plib.gx_attention_norm, lay, q, kt, gs, scal, {}, *old, sqp,
+                kvec)
+            _build.check(call(), "parent attention_norm")
             deg = (lay.ptr[1:] - lay.ptr[:-1]).long()
-            row.update(parent_ms=here.time_ms(
-                lambda: plib.gx_attention_norm(*pargs)),
-                parent_e_equal=bool(torch.equal(ev, old[0])),
-                parent_e_max_abs_diff=float((ev - old[0]).abs().max()),
-                parent_den=differ(den, old[1], deg))
+            row.update(parent_ms=here.time_ms(call),
+                       parent_e_equal=bool(torch.equal(ev, old[0])),
+                       parent_e_max_abs_diff=float((ev - old[0]).abs().max()),
+                       parent_den=differ(den, old[1], deg))
         emit(**row)
 
+    hub = here.hub_graph("cuda")
     with torch.no_grad():
+        if has_bel:
+            # beltrami_exp at path (d)'s shapes: path (b)'s operands (the
+            # column route's q and K table, 2 x 32 wide)
+            dts = (torch.bfloat16, torch.float32)
+            tr, ops = blend_operands(data, dts)
+            for dt in dts:
+                o = ops[dt]
+                for label, lay in (("arxiv CSR", tr.data.graph.csr),
+                                   ("hub", hub.csr)):
+                    case(label, lay, o["q"], o["kt"], o["scal"], dt,
+                         bel=o["bel"])
+                case("arxiv CSR", tr.data.graph.csr, o["q"], o["kt"],
+                     o["scal"], dt, sqp=True, bel=o["bel"])
+            # path (d)'s RHS alone (colnorm_attention_ax_fast)
+            cfg_d = tr.cfg.replace(attention_norm_idx=1)
+            att = tr.model.block.func.att
+            for dt in dts:
+                x = ops[dt]["x"]
+                fn = lambda: a3.colnorm_attention_ax_fast(  # noqa: E731
+                    cfg_d, att, tr.data.graph, x)
+                emit(route="colnorm_attention_ax_fast", path="blend d",
+                     dtype=str(dt)[6:], ms=here.time_ms(fn),
+                     host_ms=host_ms(fn))
+            del tr, ops
+            torch.cuda.empty_cache()
         for dt in (torch.bfloat16, torch.float32):
             p = path_a_inputs(tr_a, dt)
             res = p["g"].windows.residual
@@ -2270,8 +2449,7 @@ def norm(emit, parent=None) -> None:
             cfg, att = tr_b.cfg, tr_b.model.block.func.att
             tr_b.model.eval()
             x_enc = tr_b.model.encode(tr_b.data.x, train=False)
-            for label, gr in (("arxiv CSR", tr_b.data.graph),
-                              ("hub", here.hub_graph("cuda"))):
+            for label, gr in (("arxiv CSR", tr_b.data.graph), ("hub", hub)):
                 if dt == torch.bfloat16:
                     emit(layout=label, N=gr.num_nodes, E=gr.num_edges,
                          **here.degree_shares(gr.csr.ptr, (16, 32)))
@@ -2283,8 +2461,20 @@ def norm(emit, parent=None) -> None:
                 case(label, gr.csr, ops["q"], kt, scal, dt)
                 if label == "arxiv CSR":
                     case(label, gr.csr, ops["q"], kt, scal, dt, sqp=True)
-                del gr, x, ops, kt
+                del x, ops, kt
             torch.cuda.empty_cache()
+        # the other score types on the arxiv CSR (bf16, q and K from a
+        # seed), beside the parent's kernel
+        g = tr_b.data.graph
+        n = g.num_nodes
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        q = (0.3 * torch.randn(n, 32, generator=gen, device="cuda")).to(
+            torch.bfloat16)
+        kt = 0.3 * torch.randn(n, 32, generator=gen, device="cuda")
+        for att_type in ("cosine_sim", "pearson", "exp_kernel"):
+            case("arxiv CSR", g.csr, q, kt, (att_type, 2, 1.3, 0.7),
+                 torch.bfloat16)
+        del q, kt
         # the routes that run the norm once per RHS, alone
         for path, tr, fn in (("A", tr_a, wa.windowed_attention_ax_fast),
                              ("B", tr_b, a3.colnorm_attention_ax_fast)):
@@ -2314,7 +2504,7 @@ def main() -> int:
                     default=None, help="one group of measurements")
     ap.add_argument("--against", default=None,
                     help="a parent checkout whose kernels run beside this "
-                    "one's on the same inputs (windowed, winatt, gmax, "
+                    "one's on the same inputs (windowed, pin, winatt, gmax, "
                     "bwd_cols, norm, fwd_res, bwd_rows, sddmm)")
     args = ap.parse_args()
     if args.root is not None:

@@ -2137,7 +2137,8 @@ def test_cuda_beltrami_instances_leave_other_types_alone(cuda):
                 got, fa.flash_attention_plain(g.csr, q, x, kt, ew, shift,
                                               *scal), rtol=2e-4, atol=2e-5)
 
-def _norm_raw(lay, q, kt, gs, heads, att_type, kvec):
+def _norm_raw(lay, q, kt, gs, heads, att_type, kvec, ew=None,
+              scal=(1.3, 0.7, 0.8, 0.4)):
     """gx_attention_norm with its kvec argument forced: (the return code,
     e, den)."""
     from graphax_torch.kernels import _build
@@ -2149,29 +2150,32 @@ def _norm_raw(lay, q, kt, gs, heads, att_type, kvec):
     den = torch.empty((n, heads), device=q.device)
     err = _build.library("fused_attention").gx_attention_norm(
         lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(), kt.data_ptr(),
-        None, gs.data_ptr(), plan.data_ptr(), part.data_ptr(), e.data_ptr(),
-        den.data_ptr(), n, q.shape[1], heads, fa.ATT_TYPES[att_type], 0, 0,
-        1.3, 0.7, fa._DTYPES[q.dtype], kvec, nlong, nseg,
-        _build.stream_ptr(q))
+        ew.data_ptr() if ew is not None else None, gs.data_ptr(),
+        plan.data_ptr(), part.data_ptr(), e.data_ptr(), den.data_ptr(), n,
+        q.shape[1], heads, fa.ATT_TYPES[att_type], int(ew is not None), 0,
+        *scal, fa._DTYPES[q.dtype], kvec, nlong, nseg, _build.stream_ptr(q))
     torch.cuda.synchronize()
     return err, e, den
 
 
 def test_cuda_norm_reads_kvec_for_scaled_dot_only(cuda):
-    """gx_attention_norm's 16-byte instance scores scaled_dot only: with
-    kvec 1 each other type gives its own plain scores, bit for bit its
-    kvec 0 output, and beltrami_exp (whose positional pair the interface
-    does not carry) is refused with either kvec, so a caller that passes
-    score_vec's beltrami_exp rule gets an error and not scaled_dot's
-    scores."""
+    """gx_attention_norm's 16-byte instances score scaled_dot and
+    beltrami_exp only: with kvec 1 each other type gives its own plain
+    scores, bit for bit its kvec 0 output; beltrami_exp (att_type 4, with
+    its positional pair) reaches its own instance with either kvec, each
+    within graphax's attention tolerance of the plain version and the two
+    bit for bit each other, so no type is scored as another."""
     g = _walk_graph(cuda)
     q, x, wk, bk = _flash_inputs(g, "float32", 40, 32, seed=6)
     kt = fa.attention_kproj(x, wk, bk)
     f32 = dict(rtol=2e-4, atol=2e-5)
-    for att_type in ("scaled_dot", "cosine_sim", "pearson", "exp_kernel"):
+    for att_type in ("scaled_dot", "cosine_sim", "pearson", "exp_kernel",
+                     "beltrami_exp"):
         scal = (att_type, 2, 1.3, 0.7)
-        gs = fa.attention_gmax(g.csr, q, kt, None, *scal)
-        w_e, w_den = fa.attention_norm_plain(g.csr, q, kt, None, gs, *scal)
+        bel = dict(ov2p=0.8, inv2l2p=0.4)
+        gs = fa.attention_gmax(g.csr, q, kt, None, *scal, **bel)
+        w_e, w_den = fa.attention_norm_plain(g.csr, q, kt, None, gs, *scal,
+                                             **bel)
         err1, e1, den1 = _norm_raw(g.csr, q, kt, gs, 2, att_type, 1)
         err0, e0, den0 = _norm_raw(g.csr, q, kt, gs, 2, att_type, 0)
         assert err1 == 0 and err0 == 0
@@ -2179,10 +2183,216 @@ def test_cuda_norm_reads_kvec_for_scaled_dot_only(cuda):
         torch.testing.assert_close(den1, w_den, **f32)
         if att_type != "scaled_dot":
             assert torch.equal(e1, e0) and torch.equal(den1, den0)
-    gs = torch.zeros((), device=cuda)
-    for kvec in (1, 0):
-        err, _, _ = _norm_raw(g.csr, q, kt, gs, 2, "beltrami_exp", kvec)
-        assert err != 0
+
+
+def _bel_pin_raw(lay, q, kt, ew, heads, scal, kvec):
+    """gx_attention_pin in beltrami_exp on the K table ``kt`` with the
+    16-byte route forced on (kvec 1) or off (0)."""
+    from graphax_torch.kernels import _build
+
+    n, a = q.shape
+    plan, nlong, nseg = fa._row_plan(lay, fa._BATCH, fa.ROW_SPLIT)
+    st = torch.empty((nseg, 2 * heads), device=q.device)
+    out = torch.empty(lay.num_slots, device=q.device)
+    err = _build.library("attention_pin").gx_attention_pin(
+        lay.ptr.data_ptr(), lay.idx.data_ptr(), q.data_ptr(), kt.data_ptr(),
+        ew.data_ptr() if ew is not None else None, plan.data_ptr(),
+        st.data_ptr(), out.data_ptr(), n, a, heads,
+        fa.ATT_TYPES["beltrami_exp"], *scal, fa._DTYPES[q.dtype], kvec,
+        fa.flash_warps(a, heads, "beltrami_exp"), fa.ROW_SPLIT, nlong, nseg,
+        _build.stream_ptr(q))
+    _build.check(err, "attention_pin")
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("a,heads", [(32, 2), (16, 2), (24, 1), (6, 2),
+                                     (12, 2)])
+def test_cuda_pin_and_norm_beltrami_instances_match_plain(cuda, dtype, a,
+                                                          heads):
+    """The pin's and the norm's beltrami_exp instances (halves of 16, 8
+    and 24 values on the 16-byte route; 3, odd, and 6, not a multiple of
+    4, on the one-value route) against their plain versions on rows of 0,
+    1, 31-33, 700 and 3,000 edges (one batch or group, the segment
+    kernels), reweight off and on, the norm under softmax and squareplus:
+    the pin within its f32 tolerance (2e-4 / 2e-5), e and den at graphax's
+    attention tolerance (2e-4 / 2e-5); the 16-byte route bit for bit the
+    one-value route of the same instance; empty rows without e."""
+    from graphax_torch.kernels import LAUNCHES
+
+    g = _walk_graph(cuda, seed=17)
+    q, x, wk, bk = _beltrami_inputs(g, dtype, 162, a, heads, seed=a + heads)
+    kt = fa.attention_kproj(x, wk, bk)
+    hk = a // heads
+    assert fa.flash_kvec(kt, heads, "beltrami_exp") == int(hk % 4 == 0)
+    qvec = fa.score_vec(q, kt, heads, "beltrami_exp")
+    assert qvec == int((hk * q.element_size()) % 16 == 0)
+    pos = ("beltrami_exp", heads, 1.3, 0.7)
+    bel = dict(ov2p=0.8, inv2l2p=0.4)
+    scal = (1.3, 0.7, 0.8, 0.4)
+    f32 = dict(rtol=2e-4, atol=2e-5)
+    empty = [0, -3, -2, -1]
+    for ew in (None, g.edge_weight):
+        args = (g.csr, q, x, wk, bk, ew) + pos
+        LAUNCHES.clear()
+        got = pin_mod.attention_pin(*args, **bel)
+        assert LAUNCHES["attention_pin"] == LAUNCHES["attention_kproj"] == 1
+        torch.testing.assert_close(
+            got, pin_mod.attention_pin_plain(*args, **bel), **f32)
+        for kvec in (0, 1) if hk % 4 == 0 else (0,):
+            assert torch.equal(
+                _bel_pin_raw(g.csr, q, kt, ew, heads, scal, kvec), got)
+        gs = fa.attention_gmax(g.csr, q, kt, ew, *pos, **bel)
+        for sqp in (False, True):
+            e, den = fa.attention_norm(g.csr, q, kt, ew, gs, *pos,
+                                       square_plus=sqp, **bel)
+            w_e, w_den = fa.attention_norm_plain(g.csr, q, kt, ew, gs, *pos,
+                                                 sqp, **bel)
+            torch.testing.assert_close(e, w_e, **f32)
+            torch.testing.assert_close(den, w_den, **f32)
+            assert not den[empty].any()
+            if sqp:
+                continue
+            for kvec in (0, 1) if qvec else (0,):
+                err, e_k, den_k = _norm_raw(g.csr, q, kt, gs, heads,
+                                            "beltrami_exp", kvec, ew, scal)
+                assert err == 0 and torch.equal(e_k, e) \
+                    and torch.equal(den_k, den)
+    # q and the K table one value off 16 bytes: the one-value routes
+    q_off, kt_off = _off_word(q), _off_word(kt)
+    assert fa.score_vec(q_off, kt_off, heads, "beltrami_exp") == 0
+    assert fa.flash_kvec(kt_off, heads, "beltrami_exp") == 0
+    gs = fa.attention_gmax(g.csr, q, kt, None, *pos, **bel)
+    e, den = fa.attention_norm(g.csr, q, kt, None, gs, *pos, **bel)
+    e_off, den_off = fa.attention_norm(g.csr, q_off, kt_off, None, gs, *pos,
+                                       **bel)
+    assert torch.equal(e_off, e) and torch.equal(den_off, den)
+
+
+def _doubled_row_layouts(device, n=300, seed=19):
+    """Two CSR layouts over the same nodes: in the first, row 0 has 32
+    edges (one batch: pin_kernel's); in the second, row 0 has the same 32
+    columns twice in the same order, 64 edges (one segment of two batches:
+    pin_seg_stats', pin_seg_write's); the other rows random, the same in
+    both."""
+    from graphax_torch.sparse.graph import Layout
+
+    rng = np.random.RandomState(seed)
+    cols = rng.choice(np.arange(1, n), 32, replace=False)
+    deg = np.r_[0, rng.randint(0, 9, n - 1)]
+    col = rng.randint(0, n, int(deg.sum()))
+    out = []
+    for times in (1, 2):
+        d = np.r_[32 * times, deg[1:]]
+        row = np.repeat(np.arange(n), d)
+        out.append(Layout(
+            ptr=torch.as_tensor(np.r_[0, np.cumsum(d)], dtype=torch.int32,
+                                device=device),
+            seg=torch.as_tensor(row, dtype=torch.int64, device=device),
+            idx=torch.as_tensor(np.r_[np.tile(cols, times), col],
+                                dtype=torch.int32, device=device),
+            perm=None))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("att_type", ["beltrami_exp", "scaled_dot",
+                                      "cosine_sim", "pearson", "exp_kernel"])
+def test_cuda_pin_segment_scores_are_the_batch_kernels(cuda, dtype, att_type):
+    """pin_seg_write recomputes its batches' scores: on a row of 32
+    columns taken twice (two batches of one segment) they are pin_kernel's
+    bits on the same row of 32. The segment's max is the batch's and its
+    denominator exactly twice the batch's, so each of the 64 edges gets
+    exactly half the one-batch edge's mean, and both copies the same."""
+    one_lay, two_lay = _doubled_row_layouts(cuda)
+    g = _cuda_graph(cuda)       # 300 nodes: the inputs' shapes
+    if att_type == "beltrami_exp":
+        q, x, wk, bk = _beltrami_inputs(g, dtype, 40, 16, 2, seed=5)
+        kw = dict(ov2p=0.8, inv2l2p=0.4)
+    else:
+        q, x, wk, bk = _flash_inputs(g, dtype, 40, 32, seed=5)
+        kw = {}
+    args = (q, x, wk, bk, None, att_type, 2, 1.3, 0.7)
+    one = pin_mod.attention_pin(one_lay, *args, **kw)
+    two = pin_mod.attention_pin(two_lay, *args, **kw)
+    torch.testing.assert_close(two, pin_mod.attention_pin_plain(
+        two_lay, *args, **kw), rtol=2e-4, atol=2e-5)
+    assert torch.equal(two[:32], two[32:64])
+    assert torch.equal(2 * two[:32], one[:32])
+    assert torch.equal(two[64:], one[32:])          # the other rows
+
+
+# the other score types' pin and norm outputs on the inputs of
+# `_other_type_outputs`, as the kernels gave them before the beltrami_exp
+# instances of the pin and the norm (digests of their bytes, recorded on
+# an NVIDIA H100 80GB HBM3 from the kernels of the tree before them)
+OTHER_TYPE_DIGESTS = {
+    "norm den cosine_sim bfloat16": "e7e4f84b585b8715",
+    "norm den cosine_sim float32": "ea1d7567877397d8",
+    "norm den exp_kernel bfloat16": "12e8c82052620be6",
+    "norm den exp_kernel float32": "0c4e1699d82d6df9",
+    "norm den pearson bfloat16": "e2759ec07ad3fa7f",
+    "norm den pearson float32": "93e08542c66cafaf",
+    "norm den scaled_dot bfloat16": "a0ac944eab6393d7",
+    "norm den scaled_dot float32": "666a1fb2321c9efc",
+    "norm e cosine_sim bfloat16": "08dfbdf6484c54dd",
+    "norm e cosine_sim float32": "380607eaebd5e79d",
+    "norm e exp_kernel bfloat16": "55f968db43a1a3c6",
+    "norm e exp_kernel float32": "40c100cd9d87ccb5",
+    "norm e pearson bfloat16": "49f71b4603db2366",
+    "norm e pearson float32": "0730cfc00602d541",
+    "norm e scaled_dot bfloat16": "6da34c494b863bf0",
+    "norm e scaled_dot float32": "5b9b367088d52050",
+    "pin cosine_sim bfloat16": "f3da91d4e5f896ae",
+    "pin cosine_sim float32": "335a41bde4866135",
+    "pin exp_kernel bfloat16": "b8b3b7fcd37a6e01",
+    "pin exp_kernel float32": "c1fc87445195026d",
+    "pin pearson bfloat16": "80d05ed755f3e791",
+    "pin pearson float32": "5e0762692c35d71a",
+    "pin scaled_dot bfloat16": "5b2e533399040b29",
+    "pin scaled_dot float32": "8b685c2018c8973f",
+}
+
+
+def _other_type_outputs(device):
+    """The pin's per-slot means and the norm's e and den for scaled_dot,
+    cosine_sim, pearson and exp_kernel, f32 and bf16, reweight on, on
+    `_walk_graph` with q, x, Wk and bk from a numpy seed (the card's own
+    generator plays no part): ``{case: sha256 of the output's bytes, first
+    16 hex digits}``."""
+    import hashlib
+
+    g = _walk_graph(device)
+    rng = np.random.RandomState(21)
+    n, d, a, heads = g.num_nodes, 40, 32, 2
+    base = [torch.from_numpy(t.astype(np.float32)).to(device) for t in (
+        0.3 * rng.randn(n, a), rng.randn(n, d), 0.3 * rng.randn(d, a))]
+    bk = torch.from_numpy((0.1 * rng.randn(a)).astype(np.float32)).to(device)
+    digest = lambda t: hashlib.sha256(  # noqa: E731
+        t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, x, wk = (t.to(dtype) for t in base)
+        kt = fa.attention_kproj(x, wk, bk)
+        for att_type in ("scaled_dot", "cosine_sim", "pearson",
+                         "exp_kernel"):
+            scal = (att_type, heads, 1.3, 0.7)
+            tag = f"{att_type} {str(dtype)[6:]}"
+            out["pin " + tag] = digest(pin_mod.attention_pin(
+                g.csr, q, x, wk, bk, g.edge_weight, *scal))
+            gs = fa.attention_gmax(g.csr, q, kt, g.edge_weight, *scal)
+            e, den = fa.attention_norm(g.csr, q, kt, g.edge_weight, gs,
+                                       *scal)
+            out["norm e " + tag] = digest(e)
+            out["norm den " + tag] = digest(den)
+    return out
+
+
+def test_cuda_pin_and_norm_other_types_keep_their_bits(cuda):
+    """The beltrami_exp instances of the pin and the norm left the other
+    score types' instances alone: their outputs on a fixed input are bit
+    for bit those the kernels gave before (OTHER_TYPE_DIGESTS)."""
+    assert _other_type_outputs(cuda) == OTHER_TYPE_DIGESTS
 
 
 def _knn_rows_agree(d_got, i_got, d_want, i_want, d_all, k):

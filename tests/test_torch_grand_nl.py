@@ -648,17 +648,42 @@ def test_unported_eval_routes_raise(monkeypatch, over, err):
      "Beltrami"),
 ])
 def test_still_unported_routes_raise(over, err):
-    """Beltrami on the column route raises, naming its ROADMAP item (its
-    row routes run since the port's Beltrami slice). Column normalisation
-    on the windowed strategy (once ROADMAP Queue 3's open entry) now takes
-    the column route over the windowed graph's CSR and CSC, and trains to
-    graphax's step."""
+    """The two routes this case once held to raising now run. Beltrami on
+    the column route (once ROADMAP Queue 1 item 9's) evaluates on CSR
+    through the column route, its split score in attention_gmax's and
+    attention_norm's beltrami_exp instances, to graphax's accuracies and
+    NFE from the same weights. Column normalisation on the windowed
+    strategy (once ROADMAP Queue 3's open entry) takes the column route
+    over the windowed graph's CSR and CSC, and trains to graphax's
+    step."""
     if err == "Beltrami":
+        from graphax.train.loop import Trainer as GxTrainer
+
+        pos = np.random.RandomState(0).randn(60, 3).astype(np.float32)
+        kw = dict(SLICE, hidden_dim=8, **over)
+        gdata = gx_make_sbm(num_nodes=60, num_classes=3, num_features=8,
+                            seed=1)
+        gdata = dataclasses.replace(gdata, graph=dataclasses.replace(
+            gdata.graph, strategy="sparse")).with_pos_encoding(
+                jnp.asarray(pos))
+        gtr = GxTrainer(GxConfig(**kw), gdata)
+        st = gtr.init_state()
+        att = st.params["block"]["func"]["att"]
+        rng = np.random.RandomState(5)
+        for name in ("Qx", "Kx", "Qp", "Kp"):
+            att[name] = {k: jnp.asarray(s * rng.randn(*att[name][k].shape),
+                                        jnp.float32)
+                         for k, s in (("w", 0.4), ("b", 0.1))}
         tr = _small_trainer(**over)
-        tr.data = tr.data.with_pos_encoding(
-            np.random.RandomState(0).randn(60, 3))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tr.evaluate()
+        tr.data = tr.data.with_pos_encoding(pos)
+        assert attention_route(tr.cfg, tr.data.graph,
+                               tr.model.state_dim) == "column"
+        load_graphax_params(tr.model, *(
+            jax.tree_util.tree_map(np.asarray, t)
+            for t in (st.params, st.model_state)))
+        accs, aux = gtr._eval(st.params, st.model_state, gtr.data)
+        assert tr.evaluate() == tuple(float(a) for a in accs)
+        assert tr.last_eval.success and tr.last_eval.nfe == int(aux["nfe"])
         return
     from test_torch_grand_nl_train import one_step
 
