@@ -180,10 +180,36 @@ and prints no result):
    (``function="GAT", block="constant", community_window=0``) on the
    arxiv CSR for 2 epochs (spmm_csr at every NFE, sddmm in the adjoint);
    per epoch the loss, seconds, NFE and peak memory, per path the
-   launches.
+   launches;
+10. surface: the rest of the single-graph model surface, each path after
+   a small graph (400 nodes, f32) trained 2 steps on the card and on the
+   CPU from the same weights (losses within 1e-4, forward and backward NFE
+   equal): (a) the arxiv preset under the adaptive adjoint
+   (``adjoint_method="adaptive_heun", tol_scale_adjoint=1000``, windowed,
+   2 epochs; the blocks' a_p integrated, win_bwd_dense once per adjoint
+   NFE, the peak memory printed); every path's forward, backward and
+   evaluation solves must succeed; (b) the regularisers: the preset
+   with all four (``REG4``) on CSR and windowed and the attention block
+   with directional_penalty on both, 1 epoch each, every launch of
+   spmm_csr, sddmm and the three windowed products as the NFE say
+   (``reg_launches``), then the Functions' second derivatives at the
+   arxiv shapes in bf16 and f32 against the same compositions of the
+   plain versions, and sddmm on the CSC timed beside its bound; (c) Adams:
+   the preset with ``explicit_adams`` and ``implicit_adams`` on a grid of
+   8 steps over T (NFE 12 + 5 and 12 + 10, the evaluation's by the same
+   rule), then graphax's solver comparison (``run_experiment``) on the
+   Cora stand-in, 1 epoch, five methods, step 0.25; (d) the higher-order
+   block (order 2) at arxiv widths on CSR, the rewire block on the Cora
+   stand-in (k-hop and random edges), the hard block over the transformer
+   and over GAT on the arxiv CSR, ``use_flux`` on the preset, and
+   ``train_cgnn`` on the Cora and arxiv stand-ins (2 epochs each, after a
+   small CGNN held card against CPU). On every path but the rewire
+   block's (dense: no kernel) and CGNN's, the launches of the kernels the
+   NFE decide equal what the NFE say (``first_order_launches``,
+   ``reg_launches``).
 
-Then the kernels line (launches summed over the paths of phases 5, 8 and
-9), the card's nvidia-smi line, and last ``{"ok": true, "device":
+Then the kernels line (launches summed over the paths of phases 5, 8, 9
+and 10), the card's nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``. Needs one card; builds everything from the checkout; needs no
 network."""
 
@@ -3779,6 +3805,551 @@ def phase_blend(data, smi: str, results: dict, epochs: int) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# 10. surface: the windowed adaptive adjoint, the regularisers' second
+# derivatives, Adams, and the higher-order, rewire, hard-block and CGNN
+# models
+# ----------------------------------------------------------------------
+
+# the four regularisers (the hard block's runs) at a coefficient that keeps
+# the loss the cross-entropy's order
+REG4 = dict(kinetic_energy=0.01, jacobian_norm2=0.01,
+            directional_penalty=0.01, total_deriv=0.01)
+# a second derivative against the same composition with the plain versions:
+# f32 sums in another order through two derivatives, 1e-4 relative plus
+# 1e-4 of the largest entry; bf16 roundings of those sums (one ulp of an
+# intermediate moves the terms after it) 2e-2 relative plus two bf16 ulps
+# (2^-6) of the largest entry
+TOL_SECOND = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -6, 2e-2)}
+# the small graphs on the card against the CPU (f32): losses, relative
+TOL_SURFACE_REF = 1e-4
+WIN_SECOND = "win_matmul+win_bwd_slab+win_bwd_dense"
+REF_DEVICES = ("cuda", "cpu")
+
+
+def reg_launches(block: str, strategy: str, d: int, f: int, b: int,
+                 e: int) -> dict:
+    """The launches of the Functions' kernels in one regularised epoch: a
+    train step of ``f`` forward and ``b`` adjoint NFE (the rk4 adjoint) and
+    an evaluation of ``e`` NFE, at state width ``d``. The hard block with
+    the four regularisers: each forward NFE the product and D + 1 vjps
+    (jacobian_norm2's basis vectors, one ``J^T f``); each adjoint NFE those
+    with their graph and their derivatives. The attention block with
+    directional_penalty alone: its pinned values' gradient adds sddmm and,
+    on the windowed layout, win_bwd_dense. The same counts hold on the CPU
+    (tests/test_torch_surface_launches.py counts the wrapper calls)."""
+    if block == "hard_attention":
+        out = {"spmm_csr": (d + 2) * f + (2 * d + 4) * b + e}
+        if strategy == "windowed":
+            out.update(win_matmul=f + (d + 2) * b + e,
+                       win_bwd_slab=(d + 1) * f + (d + 2) * b)
+        return out
+    out = {"spmm_csr": 2 * f + 4 * b + e, "sddmm": 3 * b}
+    if strategy == "windowed":
+        out.update(win_matmul=f + 2 * b + e, win_bwd_slab=f + 2 * b,
+                   win_bwd_dense=3 * b)
+    return out
+
+
+def first_order_launches(kind: str, strategy: str, fit) -> dict:
+    """The launches a ``fit`` of first-order steps (the rk4 or an adaptive
+    adjoint) makes, summed over its epochs from each epoch's forward (F),
+    adjoint (B) and evaluation (E) NFE. ``kind`` "laplacian" (the pin's
+    kernels aside): an A x every RHS evaluation, an A^T g every adjoint
+    NFE, on the windowed layout the blocks' product and the residual's,
+    under an adaptive adjoint also the blocks' and the residual values'
+    gradients; "GAT": A x every evaluation, A^T g and the attention
+    values' SDDMM every adjoint NFE; "transformer" (CSR): flash every
+    forward and evaluation NFE, the three training kernels every adjoint
+    NFE."""
+    f = sum(sv["nfe"] for sv in fit["solver"])
+    b = sum(sv["bwd_nfe"] for sv in fit["solver"])
+    e = sum(sv["eval_nfe"] for sv in fit["solver"])
+    if kind == "transformer":
+        return {"flash_attention": f + e, "attention_fwd_res": b,
+                "attention_bwd_rows": b, "attention_bwd_cols": b}
+    out = {"spmm_csr": f + 2 * b + e}
+    if kind == "GAT":
+        out["sddmm"] = b
+    elif strategy.startswith("windowed"):
+        out.update(win_matmul=f + b + e, win_bwd_slab=b)
+        if strategy == "windowed_adaptive":
+            out.update(win_bwd_dense=b, sddmm=b)
+    return out
+
+
+class plain_kernels:
+    """Within it, the autograd Functions of the SpMM and the windowed
+    products run the plain versions of their kernels on any device (the
+    wrappers' module names swapped), so that a composition of them, a
+    second derivative, is held to the same composition of the plain
+    versions on the same inputs."""
+
+    def __enter__(self):
+        from graphax_torch.kernels import spmm as sm
+        from graphax_torch.kernels import windowed_spmm as ws
+
+        self.saved = []
+        for mod, name, plain in ((sm, "spmm_csr", sm.spmm_csr_plain),
+                                 (sm, "sddmm", sm.sddmm_plain),
+                                 (ws, "win_matmul", ws.win_matmul_plain),
+                                 (ws, "win_bwd_slab", ws.win_bwd_slab_plain),
+                                 (ws, "win_bwd_dense",
+                                  ws.win_bwd_dense_plain)):
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def second_order_spmm(graph, wb, x, v, u, c):
+    """``d/d(wb, x, v)`` of ``<A^T v, u> + <dA(v, x), c>``: the SpMM's
+    backward (spmm_csr on the CSC, sddmm) differentiated again (spmm_csr on
+    both layouts, sddmm on the CSC)."""
+    import torch
+
+    from graphax_torch.kernels.spmm import _SpMM, transpose_values
+
+    y = _SpMM.apply(wb, transpose_values(graph, wb.detach()), x, graph.csr,
+                    graph.csc)
+    gx, gw = torch.autograd.grad(y, (x, wb), v, create_graph=True)
+    s = (gx.float() * u).sum() + (gw.float() * c).sum()
+    return torch.autograd.grad(s, (wb, x, v))
+
+
+def second_order_windowed(wl, dense, x, v, u, c):
+    """``d/d(blocks, x, v)`` of ``<B^T v, u> + <dB(v, x), c>``: the
+    windowed product's backward (win_bwd_slab, win_bwd_dense)
+    differentiated again (all three windowed kernels)."""
+    import torch
+
+    from graphax_torch.kernels.windowed_spmm import _WinMatmul
+
+    y = _WinMatmul.apply(dense, x, wl, torch.zeros_like(x))
+    gx, gd = torch.autograd.grad(y, (x, dense), v, create_graph=True)
+    s = (gx.float() * u).sum() + (gd.float() * c).sum()
+    return torch.autograd.grad(s, (dense, x, v))
+
+
+def second_order_checks(results: dict, graph_csr, graph_win) -> dict:
+    """Each Function's second derivative at the path's shapes (the arxiv
+    CSR and its windowed layout, D 162), bf16 and f32, against the same
+    composition with the plain versions: the launches of each kernel in
+    one composition, both compositions' ms; sddmm on the CSC (its new
+    layout) timed beside its bound. Returns the rows."""
+    import torch
+
+    from graphax_torch.kernels import _build
+    from graphax_torch.kernels import spmm as sm
+    from graphax_torch.kernels.windowed_spmm import densify_windows
+
+    out = {}
+    n, d, dev = graph_csr.num_nodes, 162, graph_csr.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    for dt in ("bfloat16", "float32"):
+        tdt = getattr(torch, dt)
+        atol_of_max, rtol = TOL_SECOND[dt]
+        cases = []
+        # a copy: requires_grad_ below must not reach the graph's weights
+        wb = graph_csr.edge_weight.to(tdt).detach().clone()
+        x, v, u = rnd(n, d).to(tdt), rnd(n, d).to(tdt), rnd(n, d)
+        c = rnd(graph_csr.edge_buffer_size)
+        cases.append(("spmm_csr+sddmm", lambda: second_order_spmm(
+            graph_csr, wb.requires_grad_(True), x.requires_grad_(True),
+            v.requires_grad_(True), u, c)))
+        wl = graph_win.windows
+        blocks = densify_windows(graph_win.edge_weight, wl, tdt).detach()
+        xw, vw, uw = rnd(n, d).to(tdt), rnd(n, d).to(tdt), rnd(n, d)
+        cw = rnd(*wl.block_shape)
+        cases.append((WIN_SECOND, lambda: second_order_windowed(
+            wl, blocks.requires_grad_(True), xw.requires_grad_(True),
+            vw.requires_grad_(True), uw, cw)))
+        for name, fn in cases:
+            _build.LAUNCHES.clear()
+            got = fn()
+            launched = dict(_build.LAUNCHES)
+            with plain_kernels():
+                want = fn()
+            parts = {}
+            for label, a, b in zip(("d_values", "d_x", "d_cotangent"), got,
+                                   want):
+                tol = (atol_of_max * float(b.float().abs().max()), rtol)
+                parts[label] = compare(a, b, tol)
+            row = {"phase": "surface", "second_order": name, "dtype": dt,
+                   "launches": launched, "parts": parts,
+                   "max_abs_err": max(p["max_abs_err"]
+                                      for p in parts.values()),
+                   "ms": time_ms(fn, reps=5, warmup=1)}
+            with plain_kernels():
+                row["plain_ms"] = time_ms(fn, reps=3, warmup=1)
+            emit(row)
+            check(all(p["ok"] for p in parts.values()),
+                  f"second derivative {name} {dt} disagrees with plain")
+            for k in name.split("+"):
+                check(launched.get(k, 0) > 0,
+                      f"{name} {dt}: {k} not launched ({launched})")
+            out[(name, dt)] = row
+        # sddmm on the CSC (the second derivative's new layout): timed
+        g_, x_ = rnd(n, d).to(tdt), rnd(n, d).to(tdt)
+        csc = graph_csr.csc
+        e, isz = csc.num_slots, 2 if dt == "bfloat16" else 4
+        nbytes = 2 * n * d * isz + e * 8 + (n + 1) * 4 + e * isz
+        hold_to_plain(results, {"kernel": "sddmm", "dtype": dt,
+                                "layout": "arxiv CSC (second order)"},
+                      lambda: sm.sddmm(csc, g_, x_, tdt),
+                      lambda: sm.sddmm_plain(csc, g_, x_, tdt),
+                      TOL_DOT if dt == "float32" else TOL["bfloat16"],
+                      nbytes, 2.0 * e * d, tag="csc second order",
+                      miss_bytes=nbytes + e * d * isz)
+    return out
+
+
+def surface_fit(label: str, tr, epochs: int, smi: str, need=(),
+                expect=None, **fit_kw) -> tuple:
+    """``tr.fit(epochs)`` with the launches zeroed before and read after:
+    per epoch the loss, seconds, NFE, backward and evaluation NFE, solver
+    success and the step's peak device memory; finite losses and the
+    success of the forward, backward and evaluation solves checked, every
+    kernel of ``need`` launched, and, where ``expect(fit)``
+    gives counts, the launches equal to them. Returns (launches, fit)."""
+    import torch
+
+    from graphax_torch.kernels import _build
+
+    peaks = []
+    step = tr._step
+
+    def recorded():
+        res = step()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        return res
+
+    tr._step = recorded
+    _build.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        fit = tr.fit(epochs=epochs, **fit_kw)
+    finally:
+        del tr._step
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    for h, sv, pk in zip(fit["history"], fit["solver"], peaks):
+        emit({"phase": "surface", "path": label, **h, **sv,
+              "peak_mem_gib_step": pk})
+        check(math.isfinite(h["loss"]) and bool(sv["success"])
+              and bool(sv["bwd_success"]) and bool(sv["eval_success"]),
+              f"surface {label} epoch {h['epoch']}: loss {h['loss']}, "
+              f"success {sv['success']}, backward {sv['bwd_success']}, "
+              f"evaluation {sv['eval_success']}")
+    want = expect(fit) if expect is not None else {}
+    emit({"phase": "surface", "path": label,
+          "seconds": time.perf_counter() - t0,
+          "epoch_seconds": [h["time"] for h in fit["history"]],
+          "strategy": tr.data.graph.strategy, "launches": counts,
+          "expected_launches": want, "best": fit["best"],
+          "peak_mem_gib": max(peaks), "nvidia_smi": smi})
+    for k in need:
+        check(counts.get(k, 0) > 0,
+              f"{k} never launched on the surface {label} path ({counts})")
+    for k, v in want.items():
+        check(counts.get(k, 0) == v, f"surface {label}: {k} launched "
+              f"{counts.get(k, 0)} times, the NFE say {v}")
+    return counts, fit
+
+
+def _randomize_all_attention(model, seed: int) -> None:
+    """Random Q/K in every transformer attention layer of ``model`` (a
+    uniform attention would put the hard block's threshold among ties)."""
+    from graphax_torch.functions.transformer import TransformerAttention
+
+    for m in model.modules():
+        if isinstance(m, TransformerAttention) and hasattr(m, "Q"):
+            randomize_attention(m, seed)
+
+
+def surface_trainer(cfg, data, swap=None, qk_seed=7, device=None):
+    """A Trainer whose every ``init_state`` draws random Q/K in its
+    attention layers; ``swap(model)`` replaces its block first (the
+    higher-order block, which no config selects)."""
+    from graphax_torch import Trainer
+
+    class SurfaceTrainer(Trainer):
+        def init_state(self, seed=None):
+            if swap is not None and not getattr(self, "_swapped", False):
+                swap(self.model)
+                self._swapped = True
+            super().init_state(seed)
+            if qk_seed is not None:
+                _randomize_all_attention(self.model, qk_seed)
+
+    return SurfaceTrainer(cfg, data, device=device)
+
+
+def higher_order_swap(model) -> None:
+    from graphax_torch.blocks import make_higher_order_block
+
+    model.block = make_higher_order_block(model.cfg, model.state_dim, 2) \
+        .to(next(model.parameters()).device)
+
+
+def surface_reference(label: str, cfg, strategy: str = "sparse",
+                      swap=None, steps: int = 2) -> dict:
+    """A small graph (400 nodes, f32) trained ``steps`` steps from the same
+    weights on the card and on the CPU: losses within TOL_SURFACE_REF,
+    forward and backward NFE equal."""
+    from graphax_torch import make_sbm_dataset
+
+    out = {"phase": "surface", "reference": label}
+    runs = {}
+    for dev in REF_DEVICES:
+        data = make_sbm_dataset(num_nodes=400, num_classes=4, num_features=32,
+                                seed=0, strategy=strategy, device=dev)
+        tr = surface_trainer(cfg, data, swap=swap, device=dev)
+        tr.init_state()
+        runs[dev] = [(tr.train_step(), tr.fm.get_value(), tr.bm.get_value())
+                     for _ in range(steps)]
+        out[dev + "_strategy"] = tr.data.graph.strategy
+    card, host = (runs[d] for d in REF_DEVICES)
+    out.update(card=card, host=host)
+    emit(out)
+    for (lc, fc, bc), (lp, fp, bp) in zip(card, host):
+        check(math.isfinite(lc) and abs(lc - lp) <= TOL_SURFACE_REF
+              * max(1.0, abs(lp)), f"surface {label}: loss cuda {lc} vs "
+              f"cpu {lp}")
+        check(fc == fp and bc == bp, f"surface {label}: NFE cuda {fc}/{bc} "
+              f"vs cpu {fp}/{bp}")
+    return out
+
+
+SMALL = dict(dataset="smoke", function="laplacian", hidden_dim=16, heads=2,
+             attention_dim=8, attention_type="scaled_dot", method="dopri5",
+             tol_scale=11353.6, time=3.0, att_samp_pct=0.8, adjoint=True,
+             adjoint_method="rk4", optimizer="rmsprop", lr=0.0055, decay=0.0,
+             input_dropout=0.0, dropout=0.0, max_nfe=500, batch_norm=True,
+             block="hard_attention")
+
+
+def cgnn_reference(label: str) -> dict:
+    """The CGNN on a small graph from the same weights on the card and on
+    the CPU: logits within 1e-4, NFE equal, a train step's gradients."""
+    import torch
+
+    from graphax_torch import Config, make_sbm_dataset
+    from graphax_torch.models import make_cgnn, normalize_for_cgnn
+
+    cfg = Config(hidden_dim=16, time=1.0, method="dopri5", tol_scale=100.0,
+                 input_dropout=0.0, dropout=0.0)
+    res = {}
+    for dev in REF_DEVICES:
+        data = make_sbm_dataset(num_nodes=400, num_classes=4, num_features=32,
+                                seed=0, strategy="sparse", device=dev)
+        m = make_cgnn(cfg, 32, 4).to(dev)
+        m.init_for_graph(data.graph, torch.Generator().manual_seed(0))
+        logits, aux = m(normalize_for_cgnn(data.graph), data.x, train=True)
+        (logits ** 2).sum().backward()
+        res[dev] = (logits.detach().cpu(), aux["nfe"],
+                    m.alpha_train.grad.detach().cpu())
+    card, host = (res[d] for d in REF_DEVICES)
+    err = float((card[0] - host[0]).abs().max())
+    gerr = float((card[2] - host[2]).abs().max()
+                 / host[2].abs().max().clamp(min=1e-30))
+    out = {"phase": "surface", "reference": label, "max_abs_err": err,
+           "alpha_grad_rel_err": gerr, "nfe": (card[1], host[1])}
+    emit(out)
+    check(err <= TOL_SURFACE_REF * max(1.0, float(host[0].abs().max()))
+          and gerr <= 1e-3 and card[1] == host[1],
+          f"surface {label}: {out}")
+    return out
+
+
+def phase_surface(trainer, trainer0, smi: str, results: dict) -> dict:
+    """(a) the arxiv preset under the adaptive adjoint on its windowed
+    layout, (b) the regularisers on CSR and windowed with the kernels'
+    second derivatives, (c) Adams, (d) the higher-order, rewire, hard-block
+    (transformer, GAT, flux) and CGNN models; each after its small graph
+    on the card against the CPU. Returns the launches summed over its
+    paths."""
+    import tempfile
+
+    import torch
+
+    from graphax_torch import Config, best_config, get_dataset
+    from graphax_torch.drivers.explicit_implicit import run_experiment
+    from graphax_torch.drivers.run_cgnn import train_cgnn
+    from graphax_torch.kernels import _build
+    from graphax_torch.ode.solvers import _fixed_grid
+
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t_phase = time.perf_counter()
+    data_w, data_s = trainer.data, trainer0.data
+    d = trainer.model.state_dim
+
+    # (a) the windowed strategy under the adaptive adjoint: the blocks' a_p
+    # integrated, win_bwd_dense at every adjoint NFE. The adjoint tolerance
+    # is raised 1000-fold (rtol 1e-6, atol 1e-4), within the other presets'
+    # range (443-16324): the preset's own (rtol 1e-9, atol 1e-7, set for
+    # its rk4 adjoint) lies below f32 and bf16 rounding, where the backward
+    # spends max_nfe without reaching t0
+    adaptive = dict(adjoint_method="adaptive_heun", tol_scale_adjoint=1000.0)
+    surface_reference("a_windowed_adaptive", Config(
+        **dict(SMALL, community_window=64, **adaptive)))
+    tr = surface_trainer(best_config("ogbn-arxiv", **adaptive), data_w)
+    counts, fit = surface_fit(
+        "a_windowed_adaptive", tr, 2, smi, expect=lambda fit:
+        first_order_launches("laplacian", "windowed_adaptive", fit))
+    bwd = sum(sv["bwd_nfe"] for sv in fit["solver"])
+    check(counts["win_bwd_dense"] == bwd,
+          f"(a): win_bwd_dense {counts['win_bwd_dense']} launches, "
+          f"{bwd} adjoint NFE")
+    add(counts)
+    del tr
+
+    # (b) the regularisers: the hard block with all four (CSR and windowed),
+    # the attention block with directional_penalty (its values' gradient);
+    # the second-order launches as the NFE say; the kernels' second
+    # derivatives held to their plain versions
+    for block, regs in (("hard_attention", REG4),
+                        ("attention", dict(directional_penalty=0.01))):
+        for strategy, window, base in (("sparse", 0, data_s),
+                                       ("windowed", 512, data_w)):
+            label = f"b_{block}_{strategy}"
+            surface_reference(label, Config(**dict(
+                SMALL, block=block, community_window=window // 8,
+                **regs)))
+            cfg = best_config("ogbn-arxiv", block=block,
+                              community_window=window, **regs)
+            tr = surface_trainer(cfg, base)
+            check(tr.data.graph.strategy == strategy, f"{label}: strategy")
+
+            def expect(fit, block=block, strategy=strategy):
+                sv = fit["solver"][0]
+                return reg_launches(block, strategy, d, sv["nfe"],
+                                    sv["bwd_nfe"], sv["eval_nfe"])
+
+            counts, _ = surface_fit(label, tr, 1, smi, expect=expect)
+            add(counts)
+            del tr
+    second = second_order_checks(results, data_s.graph, data_w.graph)
+
+    # (c) Adams on a fixed grid of 8 steps over T; the solver comparison
+    # on the Cora stand-in
+    cfg0 = best_config("ogbn-arxiv")
+    for method in ("explicit_adams", "implicit_adams"):
+        surface_reference(f"c_{method}", Config(
+            **dict(SMALL, method=method, step_size=0.375)))
+        cfg = best_config("ogbn-arxiv", method=method,
+                          step_size=cfg0.time / 8)
+        tr = surface_trainer(cfg, data_w)
+        counts, fit = surface_fit(
+            f"c_{method}", tr, 1, smi, expect=lambda fit:
+            first_order_launches("laplacian", "windowed", fit))
+        k = 2 if method == "implicit_adams" else 1
+        n_eval = len(_fixed_grid(0.0, cfg.earlystopxT * cfg.time,
+                                 cfg.step_size)) - 1
+        sv = fit["solver"][0]
+        check(sv["nfe"] == 12 + 5 * k and
+              sv["eval_nfe"] == 12 + (n_eval - 3) * k,
+              f"(c) {method}: NFE {sv['nfe']}, evaluation {sv['eval_nfe']}")
+        add(counts)
+        del tr
+    cora = get_dataset("Cora")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = run_experiment("Cora", step_sizes=(0.25,), epochs=1,
+                             results_dir=tmp, data=cora)
+    nfe = {m: rec["nfes"][0] for (m, _, _), rec in exp.items()}
+    emit({"phase": "surface", "path": "c_explicit_implicit",
+          "seconds": time.perf_counter() - t0, "nfe": nfe,
+          "losses": {m: rec["losses"][0] for (m, _, _), rec in exp.items()},
+          "best_val": {m: rec["best"]["val_acc"]
+                       for (m, _, _), rec in exp.items()}})
+    check(nfe.get("euler") == 12 and nfe.get("rk4") == 48
+          and nfe.get("explicit_adams") == 21
+          and nfe.get("implicit_adams") == 30 and "dopri5" in nfe
+          and all(math.isfinite(rec["losses"][0]) for rec in exp.values()),
+          f"(c) the solver comparison: {nfe}")
+
+    # (d) the new blocks and models
+    surface_reference("d_higher_order", Config(**dict(SMALL, block="constant")),
+                      swap=higher_order_swap)
+    tr = surface_trainer(best_config("ogbn-arxiv", block="constant",
+                                     community_window=0), data_s,
+                         swap=higher_order_swap)
+    counts, _ = surface_fit(
+        "d_higher_order", tr, 1, smi, use_early_stop=False,
+        expect=lambda fit: first_order_launches("laplacian", "sparse", fit))
+    add(counts)
+    del tr
+    for new_edges in ("k_hop_att", "random"):
+        label = f"d_rewire_{new_edges}"
+        surface_reference(label, Config(**dict(
+            SMALL, block="rewire_attention", new_edges=new_edges)),
+            strategy="dense")
+        tr = surface_trainer(best_config("Cora", block="rewire_attention",
+                                         new_edges=new_edges), cora)
+        counts, _ = surface_fit(label, tr, 1, smi)
+        add(counts)
+        del tr
+    for function in ("transformer", "GAT"):
+        label = f"d_hard_{function}"
+        surface_reference(label, Config(**dict(SMALL, function=function)))
+        tr = surface_trainer(best_config("ogbn-arxiv", function=function,
+                                         community_window=0), data_s)
+        counts, _ = surface_fit(
+            label, tr, 1, smi, need=("attention_pin",) * (
+                function == "transformer"),
+            expect=lambda fit, k=function: first_order_launches(
+                k, "sparse", fit))
+        add(counts)
+        del tr
+    surface_reference("d_use_flux", Config(**dict(SMALL, use_flux=True,
+                                                  community_window=64)))
+    tr = surface_trainer(best_config("ogbn-arxiv", use_flux=True), data_w)
+    counts, _ = surface_fit(
+        "d_use_flux", tr, 1, smi, need=("attention_pin",),
+        expect=lambda fit: first_order_launches("laplacian", "windowed", fit))
+    add(counts)
+    del tr
+    cgnn_reference("d_cgnn")
+    for name, dset in (("Cora", cora), ("ogbn-arxiv", data_s)):
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = train_cgnn(name, epochs=2, log_every=0, data=dset)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        emit({"phase": "surface", "path": f"d_cgnn_{name}",
+              "seconds": time.perf_counter() - t0,
+              "history": out["history"], "launches": counts,
+              "val_acc": out["val_acc"], "nvidia_smi": smi})
+        # one A x per NFE; autograd through the accepted steps adds one
+        # A^T g per stage that reached the result
+        nfe = sum(h["nfe"] + h["eval_nfe"] for h in out["history"])
+        check(all(math.isfinite(h["loss"]) and h["success"]
+                  and h["eval_success"] for h in out["history"]),
+              f"CGNN {name}: {out['history']}")
+        check(nfe < counts.get("spmm_csr", 0) <= nfe + sum(
+            h["nfe"] for h in out["history"]),
+              f"CGNN {name}: spmm_csr {counts.get('spmm_csr', 0)}, NFE "
+              f"{nfe}")
+        add(counts)
+    emit({"phase": "surface", "seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches, second
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=3,
@@ -4106,6 +4677,13 @@ def main(argv=None) -> int:
     for k, v in blend_launches.items():
         launches[k] = launches.get(k, 0) + v
 
+    # 10. the rest of the single-graph model surface: the windowed adaptive
+    # adjoint, the regularisers through the kernels' second derivatives,
+    # Adams, the higher-order, rewire, hard-block and CGNN models
+    surface_launches, second = phase_surface(trainer, trainer0, smi, results)
+    for k, v in surface_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
     # the kernels line (launches summed over the paths of phases 5 and 8):
     # times from phase 4 at the main path's shapes and
     # dtype (bf16); spmm_csr's at the residual edges, with its whole-graph
@@ -4366,6 +4944,22 @@ def main(argv=None) -> int:
     kernels[0]["blend_launches"] = blend_launches.get("spmm_csr", 0)
     kernels[1]["blend_launches"] = blend_launches.get("sddmm", 0)
     kernels[15]["blend_launches"] = blend_launches.get("attention_attspmm", 0)
+    # phase 10: the launches on the surface's paths, and the second
+    # derivatives (each composition against its plain versions, its ms)
+    for i, name, comp in ((0, "spmm_csr", "spmm_csr+sddmm"),
+                          (1, "sddmm", "spmm_csr+sddmm"),
+                          (4, "win_matmul", WIN_SECOND),
+                          (5, "win_bwd_dense", WIN_SECOND),
+                          (6, "win_bwd_slab", WIN_SECOND)):
+        kernels[i]["surface_launches"] = surface_launches.get(name, 0)
+        kernels[i]["second_order"] = {
+            dt: {k: second[(comp, dt)][k] for k in
+                 ("max_abs_err", "ms", "plain_ms", "launches")}
+            for dt in ("bfloat16", "float32")}
+        kernels[i]["second_order"]["composition"] = comp
+    kernels[1]["csc_second_order"] = {
+        k: results[("sddmm", "bfloat16", "csc second order")].get(k)
+        for k in numbers + ("all_miss_ms",)}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -3,8 +3,9 @@ and the solver harness (port of `graphax/blocks/common.py`)."""
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
@@ -12,6 +13,9 @@ from torch.profiler import record_function
 from graphax_torch.functions.common import FuncState, prepare_scalars
 from graphax_torch.functions.gat import GATFunction, gat_rhs
 from graphax_torch.functions.laplacian import laplacian_rhs
+from graphax_torch.functions.regularizers import (
+    init_reg_states, make_regularized_rhs,
+)
 from graphax_torch.functions.transformer import (
     TransformerFunction, transformer_rhs,
 )
@@ -21,7 +25,6 @@ from graphax_torch.kernels.dense_path import (
     dense_adjacency_mask, densify, use_dense_attention,
 )
 from graphax_torch.ode import ODEResult, Observer, odeint, odeint_adjoint
-from graphax_torch.ode.solvers import FIXED_STEP_METHODS
 from graphax_torch.sparse.graph import Graph
 from graphax_torch.sparse.ops import gcn_norm_weights, rw_norm_weights
 
@@ -29,6 +32,7 @@ from graphax_torch.sparse.ops import gcn_norm_weights, rw_norm_weights
 class BlockOutput(NamedTuple):
     z: torch.Tensor
     result: ODEResult
+    reg_states: tuple = ()
 
 
 def normalize_graph(cfg, graph: Graph) -> Graph:
@@ -113,31 +117,67 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
                      wb_t=transpose_values(graph, wb.detach()), pinned=pinned)
 
 
-def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
+def _windowed_zero_leaves(g: Graph, blocks_read: bool,
+                          residual_read: bool) -> int:
+    """graphax's adjoint leaves on the windowed layout that the port does
+    not carry (`graphax/blocks/common.py:71-97`): its blocked residual
+    tables (``res_t``, never read; ``res``, of which the port carries the
+    slots where the RHS reads them, the padding never) and, where the RHS
+    does not read them, the dense blocks."""
+    wl = g.windows
+    res, res_t = wl.graphax_residual_slots
+    zero = res_t + res - (wl.residual.num_slots if residual_read else 0)
+    if not blocks_read:
+        zero += wl.num_tiles * wl.tile * wl.window
+    return zero
+
+
+def integrate(cfg, func, fstate: FuncState, x, *, train: bool,
               t1: Optional[float] = None, observer: Optional[Observer] = None,
-              max_steps: Optional[int] = None) -> BlockOutput:
+              max_steps: Optional[int] = None,
+              augment: Optional[Callable] = None) -> BlockOutput:
     """Run the solve as the reference blocks invoke torchdiffeq
     (`src/block_constant.py:27-58`): the adjoint integrator when
     ``cfg.adjoint and train``, the plain one otherwise (autograd through the
     accepted steps when gradients are enabled). ``observer`` is seen on the
-    plain path only (the early-stop evaluation), as in graphax."""
-    if train and cfg.reg_coeffs():
-        raise NotImplementedError("regularised RHS are not ported yet "
-                                  "(ROADMAP Queue 1, item 9 (M8): "
-                                  "functions/regularizers.py)")
+    plain path only (the early-stop evaluation), as in graphax.
+
+    In training with regularisers (``cfg.reg_coeffs()``) the state is
+    ``(x, *reg_states)`` and the RHS `make_regularized_rhs`'s, on either
+    path (`graphax/blocks/common.py:179-217`); ``reg_states`` of the output
+    holds their values at T. Every regulariser but kinetic_energy takes the
+    RHS's vjp inside the RHS, so the loss is differentiated through a
+    derivative of it: ``fstate`` is then flagged ``second_order`` (the
+    transformer RHS leaves the kernel routes whose backward has no
+    derivative). ``augment`` maps the RHS ``f(t, x)`` to the RHS of a
+    tuple state ``x`` (graphax's ``rhs_override``, the higher-order
+    block's order reduction); ``z`` is then that tuple."""
     t_end = float(cfg.time if t1 is None else t1)
-    alpha, beta = prepare_scalars(func, cfg, x.dtype)
+    state_dtype = x[0].dtype if isinstance(x, tuple) else x.dtype
+    alpha, beta = prepare_scalars(func, cfg, state_dtype)
+    names = tuple(n for n, _ in cfg.reg_coeffs()) if train else ()
+    if any(n != "kinetic_energy" for n in names):
+        fstate = dataclasses.replace(fstate, second_order=True)
+    g = fstate.graph
+    state0 = x
+    if names:
+        if isinstance(x, tuple):
+            raise TypeError("the regularised RHS takes a one-tensor state, "
+                            "as graphax's (`make_regularized_rhs`)")
+        state0 = (x, *init_reg_states(g.num_nodes, names, x.dtype, x.device))
+
+    def wrap(rhs):
+        """The RHS of the solver's state from the function's ``rhs(t, x)``."""
+        if augment is not None:
+            rhs = augment(rhs)
+        if names:
+            rhs = make_regularized_rhs(rhs, names)
+        return rhs
+
     common = dict(method=cfg.method, rtol=cfg.rtol, atol=cfg.atol,
                   step_size=cfg.step_size, max_nfe=cfg.max_nfe,
                   max_steps=max_steps)
-    g = fstate.graph
     if cfg.adjoint and train:
-        adaptive = cfg.adjoint_method not in FIXED_STEP_METHODS
-        if adaptive and g.strategy == "windowed":
-            raise NotImplementedError(
-                "an adaptive adjoint on the windowed strategy: graphax "
-                "integrates the dense blocks' a_p in its error norm (ROADMAP "
-                "Queue 3); use a fixed-grid adjoint_method")
         # graphax's adjoint state (`_split_diff_state`) holds the a_p of
         # alpha_eff, beta_eff, x0, the edge weights and every parameter of
         # the RHS, which the port integrates under an adaptive method even
@@ -150,7 +190,11 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
         # holds dense_adj, the [N, N] operator: the Laplacian RHS reads it
         # (the port integrates its a_p in f32 as well, and the edge weights
         # and a pin's attention stay zero); the transformer and GAT RHS do
-        # not, so its N^2 leaves stay zero.
+        # not, so its N^2 leaves stay zero. On a windowed graph it holds
+        # the dense blocks and the blocked residual tables
+        # (`_windowed_zero_leaves`): the Laplacian RHS reads the blocks
+        # (their a_p is `win_bwd_dense`'s at every backward NFE) and the
+        # residual values, the transformer the blocks under reweight.
         zero = sum(p.numel() for p in func.parameters())
         if isinstance(func, (TransformerFunction, GATFunction)):
             att = func.adjoint_tensors()
@@ -159,42 +203,67 @@ def integrate(cfg, func, fstate: FuncState, x: torch.Tensor, *, train: bool,
                 params += (fstate.dense,)       # the windowed reweight
             track = (True,) * len(params)
             zero += g.edge_buffer_size - sum(p.numel() for p in att)
+            zero += g.edge_buffer_size if fstate.pinned else 0
             if g.strategy == "dense":
                 zero += g.num_nodes ** 2        # graphax's dense_adj
-            rhs = gat_rhs if isinstance(func, GATFunction) else \
-                functools.partial(transformer_rhs, mask=fstate.mask)
+            elif g.strategy == "windowed":
+                zero += _windowed_zero_leaves(g, fstate.dense is not None,
+                                              False)
+            if isinstance(func, GATFunction):
+                rhs = gat_rhs
+            else:
+                rhs = functools.partial(transformer_rhs, mask=fstate.mask,
+                                        second_order=fstate.second_order)
+            # the transformer's reweight reads the edge weights
+            reweight = isinstance(func, TransformerFunction) \
+                and cfg.reweight_attention
+            if reweight:
+                params += (g.edge_weight,)
+                track += (True,)
+                zero -= g.edge_buffer_size
 
-            def f_adj(p, t, y):
+            def base(p, t, y):
+                if reweight:
+                    return rhs(cfg, g.with_weights(p[-1]), p[:-1], y)
                 return rhs(cfg, g, p, y)
         elif g.strategy == "dense":
             params = (alpha, beta, fstate.x0, fstate.dense)
             track = (True,) * len(params)
             zero += g.edge_buffer_size * (2 if fstate.pinned else 1)
 
-            def f_adj(p, t, y):
+            def base(p, t, y):
                 return laplacian_rhs(cfg, g, *p[:3], None, None, y,
                                      dense=p[3])
         else:
             params = (alpha, beta, fstate.x0, fstate.wb, fstate.wb_t)
-            if fstate.dense is not None:
-                params += (fstate.dense,)
-            track = (True, True, True, True, False, False)[:len(params)]
+            track = (True, True, True, True, False)
             zero += g.edge_buffer_size if fstate.pinned else 0
+            if g.strategy == "windowed":
+                params += (fstate.dense,)
+                track += (True,)
+                zero += g.edge_buffer_size + _windowed_zero_leaves(g, True,
+                                                                   True)
 
-            def f_adj(p, t, y):
+            def base(p, t, y):
                 return laplacian_rhs(cfg, g, *p[:5], y,
                                      dense=p[5] if len(p) > 5 else None)
 
+        def f_adj(p, t, y):
+            return wrap(lambda tt, yy: base(p, tt, yy))(t, y)
+
         with record_function("graphax_torch.solve"):
             res = odeint_adjoint(
-                f_adj, params, x, 0.0, t_end,
+                f_adj, params, state0, 0.0, t_end,
                 adjoint_method=cfg.adjoint_method,
                 adjoint_rtol=cfg.rtol_adjoint, adjoint_atol=cfg.atol_adjoint,
                 adjoint_step_size=cfg.adjoint_step_size,
                 track=track,
                 zero_leaves=zero, **common)
     else:
+        call = wrap(lambda t, y: func.rhs(alpha, beta, fstate, t, y))
         with record_function("graphax_torch.solve"):
-            res = odeint(lambda t, y: func.rhs(alpha, beta, fstate, t, y), x,
-                         0.0, t_end, observer=observer, **common)
+            res = odeint(call, state0, 0.0, t_end, observer=observer,
+                         **common)
+    if names:
+        return BlockOutput(z=res.y[0], result=res, reg_states=res.y[1:])
     return BlockOutput(z=res.y, result=res)

@@ -34,6 +34,10 @@ class FuncState:
         ``[N, N]`` bool adjacency, built once per forward; else None.
       pinned: the values are attention a block pinned, not the graph's
         weights (graphax then keeps both as adjoint leaves).
+      second_order: a regulariser differentiates the RHS inside it, and
+        the loss is differentiated through that (set by
+        `graphax_torch.blocks.common.integrate`): the transformer RHS then
+        takes a route whose backward is autograd's.
     """
 
     graph: Graph
@@ -43,6 +47,7 @@ class FuncState:
     dense: torch.Tensor | None = None
     mask: torch.Tensor | None = None
     pinned: bool = False
+    second_order: bool = False
 
 
 def init_alpha_beta(module: nn.Module) -> None:

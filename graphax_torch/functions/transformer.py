@@ -410,12 +410,15 @@ def _replayed(cfg, att, graph, x, fast, plain, replay=True,
               **tensor_kw) -> torch.Tensor:
     """``fast(cfg, att, graph, x, **tensor_kw)`` when no gradient is
     needed, else the same through :class:`ReplayAttention`, whose backward
-    replays ``plain``'s vjp with respect to x, the `_Att` tensors and the
+    replays ``plain``'s vjp with respect to x, the `_Att` tensors, the
     tensors of ``tensor_kw`` (the windowed reweight's dense weights, the
-    dense graph's mask); without ``replay``, ``plain`` itself with
-    autograd."""
+    dense graph's mask) and, under reweight, the graph's edge weights where
+    they need a gradient (the adaptive adjoint's a_p); without ``replay``,
+    ``plain`` itself with autograd."""
+    ew = (graph.edge_weight,) if (cfg.reweight_attention and
+                                  graph.edge_weight.requires_grad) else ()
     tensors = (x, *_att_tensors(cfg).flatten(cfg, att),
-               *tensor_kw.values())
+               *tensor_kw.values(), *ew)
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in tensors)):
         return fast(cfg, att, graph, x, **tensor_kw)
@@ -424,14 +427,17 @@ def _replayed(cfg, att, graph, x, fast, plain, replay=True,
 
     def bind(fn):
         def call(x, *flat):
+            g = graph
+            if ew:
+                flat, g = flat[:-1], graph.with_weights(flat[-1])
             a, rest = _att_tensors(cfg).from_flat(cfg, flat)
-            return fn(cfg, a, graph, x, **dict(zip(tensor_kw, rest)))
+            return fn(cfg, a, g, x, **dict(zip(tensor_kw, rest)))
         return call
 
     return ReplayAttention.apply(bind(fast), bind(plain), *tensors)
 
 
-def attention_route(cfg, graph, d: int) -> str:
+def attention_route(cfg, graph, d: int, second_order: bool = False) -> str:
     """The route of :func:`attention_ax` for ``cfg`` on ``graph`` with a
     ``[N, d]`` state, graphax's dispatch (:276-311) with the port's kernel
     gates: ``"dense"``, ``"windowed"`` (K5's route), ``"windowed_plain"``
@@ -443,12 +449,26 @@ def attention_route(cfg, graph, d: int) -> str:
     within its guard it takes the per-edge path, as graphax's (:276-279);
     under column normalisation elsewhere it takes the column route as the
     other types do, graphax's tiled route (its windowed route is row
-    normalisation's only, :246-256)."""
+    normalisation's only, :246-256).
+
+    ``second_order``: a regulariser takes the RHS's vjp inside the RHS in
+    training (``FuncState.second_order``), and the loss is differentiated
+    through it. The kernel routes' backwards
+    are hand-written kernels with no derivative of their own, so the route
+    is one whose backward is autograd's, in the forward and the backward
+    solve alike: "windowed_plain" where the windowed route applies (it
+    reads the reweight's blocks as K5's route does), else "edge", graphax's
+    XLA route off the TPU. Under kinetic_energy alone the routes are the
+    usual ones."""
     bel = beltrami_exp(cfg)
+    row_norm = cfg.attention_norm_idx == 0
+    windowed = graph.strategy == "windowed" and row_norm \
+        and not cfg.mix_features
+    if second_order:
+        return "windowed_plain" if windowed else "edge"
     if use_dense_attention(graph, cfg.heads):
         return "edge" if bel else "dense"
-    row_norm = cfg.attention_norm_idx == 0
-    if graph.strategy == "windowed" and row_norm and not cfg.mix_features:
+    if windowed:
         return "windowed" if winatt_supported(cfg, d) else "windowed_plain"
     if not row_norm:
         return "column" if colnorm_supported(cfg, d) else "edge"
@@ -458,7 +478,8 @@ def attention_route(cfg, graph, d: int) -> str:
 
 
 def attention_ax(cfg, att, graph, x, dense=None, mask=None, *,
-                 vjp_now: bool = False) -> torch.Tensor:
+                 vjp_now: bool = False, second_order: bool = False
+                 ) -> torch.Tensor:
     """``A(x) x`` of the GRAND-nl RHS, in x's dtype, on the route of
     :func:`attention_route`. ``dense``: the windowed graph's ``[T, tile,
     W]`` densified weights (K5's route under reweight); ``mask``: a dense
@@ -467,8 +488,8 @@ def attention_ax(cfg, att, graph, x, dense=None, mask=None, *,
     differentiates its materialised route directly rather than computing
     the value first (K6 included) and replaying it; the kernel routes keep
     their backward, as graphax's custom VJPs run their forward there
-    too."""
-    route = attention_route(cfg, graph, x.shape[1])
+    too. ``second_order``: :func:`attention_route`'s."""
+    route = attention_route(cfg, graph, x.shape[1], second_order)
     if route == "dense":
         if mask is None:
             mask = dense_adjacency_mask(graph)
@@ -491,17 +512,17 @@ def attention_ax(cfg, att, graph, x, dense=None, mask=None, *,
     return edge_ax_plain(cfg, att, graph, x)
 
 
-def transformer_rhs(cfg, graph, p, x, mask=None):
+def transformer_rhs(cfg, graph, p, x, mask=None, second_order=False):
     """``alpha (A(x) x - x) [+ beta x0]`` as a function of its tensors ``p
     = (alpha, beta, x0, <the `_Att` flat layout>[, dense])``: the Q/K (and
     under mix_features V/Wout) weights and biases, exp_kernel's two
     scalars, and the windowed graph's densified weights under reweight (the
     adjoint differentiates it with respect to each); ``mask``, a dense
-    graph's adjacency mask."""
+    graph's adjacency mask; ``second_order``, :func:`attention_route`'s."""
     alpha, beta, x0, *flat = p
     att, rest = _att_tensors(cfg).from_flat(cfg, flat)
     ax = attention_ax(cfg, att, graph, x, rest[0] if rest else None, mask,
-                      vjp_now=True)
+                      vjp_now=True, second_order=second_order)
     return apply_alpha_beta(cfg, alpha, beta, ax, x, x0)
 
 
@@ -532,5 +553,5 @@ class TransformerFunction(nn.Module):
 
     def rhs(self, alpha, beta, fstate, t, x):
         ax = attention_ax(self.cfg, self.att, fstate.graph, x, fstate.dense,
-                          fstate.mask)
+                          fstate.mask, second_order=fstate.second_order)
         return apply_alpha_beta(self.cfg, alpha, beta, ax, x, fstate.x0)

@@ -20,6 +20,11 @@ segments of the longer rows, a warp each, several gathered x rows in
 flight against g's row in registers, and writes a batch's 32 values in one
 store.
 
+The autograd Functions (`_SpMM`, `_SDDMM`) take their backwards through
+each other, so a loss that holds a vjp of the RHS (the regularisers,
+`graphax_torch.functions.regularizers`) is differentiated again on the
+same kernels.
+
 Numerics (both versions): each product ``w_e * x[idx_e]`` is rounded to the
 state dtype, sums accumulate in f32 and are cast once to the state dtype;
 rows with no edge give 0; the SDDMM accumulates in f32 and rounds once to
@@ -27,6 +32,8 @@ its output dtype (f32 unless asked; the Function's backward asks for the
 values' dtype, graphax's ``.astype(wb.dtype)``)."""
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -130,11 +137,44 @@ def sddmm(layout: Layout, g: torch.Tensor, x: torch.Tensor,
     return out
 
 
+# by id of a layout's ``idx``: that tensor and its partner's (weakly) and
+# the slot map from the partner; an entry goes when the layout's ``idx``
+# does (a tensor compares by value, so it cannot key a WeakKeyDictionary)
+_SLOT_MAPS: dict = {}
+
+
+def _transpose_slots(a: Layout, b: Layout) -> torch.Tensor:
+    """Each slot of ``b``'s slot in ``a``, two layouts of the same edges
+    (a CSR and its CSC): their ``perm`` name each slot's edge position,
+    the slot itself where ``perm`` is None. Computed once per pair and
+    kept while ``b`` lives."""
+    hit = _SLOT_MAPS.get(id(b.idx))
+    if hit is not None and hit[0]() is b.idx and hit[1]() is a.idx:
+        return hit[2]
+    pos_a = a.perm if a.perm is not None else torch.arange(
+        a.num_slots, device=a.idx.device)
+    pos_b = b.perm if b.perm is not None else torch.arange(
+        b.num_slots, device=b.idx.device)
+    pos, order = torch.sort(pos_a)
+    slots = order[torch.searchsorted(pos, pos_b)]
+    if hit is None:
+        weakref.finalize(b.idx, _SLOT_MAPS.pop, id(b.idx), None)
+    _SLOT_MAPS[id(b.idx)] = (weakref.ref(b.idx), weakref.ref(a.idx), slots)
+    return slots
+
+
 class _SpMM(torch.autograd.Function):
     """``y = A x`` over the slots of ``csr`` with ``dx = A^T g`` (the same
     kernel on ``csc``, the transpose of the same edges) and, only when asked
     for, ``dw`` through the SDDMM. ``wb`` holds one value per CSR slot (or
-    more: the rest, a graph's padding, gets a zero gradient)."""
+    more: the rest, a graph's padding, gets a zero gradient).
+
+    The backward is itself differentiable, on the same kernels: ``dx`` is
+    this Function on the swapped layouts, ``dw`` :class:`_SDDMM`. A first
+    derivative launches what it would without that (the Functions run
+    their forward alone when no graph is recorded); under ``create_graph``
+    the transposed values are taken from ``wb`` itself where ``wb`` needs a
+    gradient, so ``A^T``'s dependence on them reaches it."""
 
     @staticmethod
     def forward(ctx, wb, wb_t, x, csr, csc):
@@ -149,10 +189,39 @@ class _SpMM(torch.autograd.Function):
         g = g.to(x.dtype).contiguous()
         dwb = dx = None
         if ctx.needs_input_grad[2]:
-            dx = spmm_csr(csc, wb_t, g, csc.num_rows)
+            if torch.is_grad_enabled() and ctx.needs_input_grad[0]:
+                wb_t = wb[_transpose_slots(csr, csc)]
+            dx = _SpMM.apply(wb_t, wb, g, csc, csr)
         if ctx.needs_input_grad[0]:
-            dwb = sddmm(csr, g, x, wb.dtype, wb.shape[0])
+            dwb = _SDDMM.apply(g, x, csr, csc, wb.dtype, wb.shape[0])
         return dwb, None, dx, None, None
+
+
+class _SDDMM(torch.autograd.Function):
+    """``c = sddmm(csr, g, x)``, one value per CSR slot, differentiable:
+    for a cotangent ``c'`` on the slots, ``dg = A(c') x`` (the SpMM over
+    ``csr`` with the values ``c'``) and ``dx = A(c')^T g`` (over ``csc``),
+    both through :class:`_SpMM`, so every order runs on the hand-written
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, g, x, csr, csc, out_dtype, length):
+        ctx.layouts = (csr, csc)
+        ctx.save_for_backward(g, x)
+        return sddmm(csr, g, x, out_dtype, length)
+
+    @staticmethod
+    def backward(ctx, c):
+        g, x = ctx.saved_tensors
+        csr, csc = ctx.layouts
+        c = c[:csr.num_slots].to(x.dtype).contiguous()
+        c_t = c[_transpose_slots(csr, csc)].contiguous()
+        dg = dx = None
+        if ctx.needs_input_grad[0]:
+            dg = _SpMM.apply(c, c_t, x, csr, csc)
+        if ctx.needs_input_grad[1]:
+            dx = _SpMM.apply(c_t, c, g, csc, csr)
+        return dg, dx, None, None, None, None
 
 
 def transpose_values(graph: Graph, wb: torch.Tensor) -> torch.Tensor:

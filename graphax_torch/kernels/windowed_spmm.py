@@ -22,7 +22,8 @@ result cast, `:330-331`: `win_bwd_dense` rounds its f32 sums once to that
 dtype in its epilogue, with no pass over an f32 copy) and ``dx`` in the
 state dtype (graphax's ``d_slab[:N].astype``, `:343-344`: `win_bwd_slab`
 writes the first N slab rows rounded once, with no f32 slab and no cast
-pass)."""
+pass). The backward's Functions (`_WinBwdSlab`, `_WinBwdDense`) are
+differentiable in turn, on the same three kernels."""
 
 from __future__ import annotations
 
@@ -336,7 +337,11 @@ def win_bwd_slab(wl: WindowLayout, dense: torch.Tensor, g: torch.Tensor,
 class _WinMatmul(torch.autograd.Function):
     """``out = blocks x + addend``, rounded to x's dtype, with ``dx`` from
     `win_bwd_slab`, the addend's gradient passed through, and, only when the
-    blocks need a gradient, ``d_dense`` from `win_bwd_dense`."""
+    blocks need a gradient, ``d_dense`` from `win_bwd_dense`. The backward
+    is itself differentiable: ``dx`` and ``d_dense`` come through
+    :class:`_WinBwdSlab` and :class:`_WinBwdDense`, whose own backwards are
+    these three kernels again (a first derivative launches what it would
+    without that)."""
 
     @staticmethod
     def forward(ctx, dense, x, wl, addend):
@@ -352,10 +357,59 @@ class _WinMatmul(torch.autograd.Function):
         d_dense = dx = None
         if ctx.needs_input_grad[1]:
             blocks = dense.to(x.dtype).contiguous()
-            dx = win_bwd_slab(wl, blocks, g, x.dtype)
+            dx = _WinBwdSlab.apply(blocks, g, wl, x.dtype)
         if ctx.needs_input_grad[0]:
-            d_dense = win_bwd_dense(wl, g, x, dense.dtype)
+            d_dense = _WinBwdDense.apply(g, x, wl, dense.dtype)
         return d_dense, dx, None, g
+
+
+class _WinBwdSlab(torch.autograd.Function):
+    """``dx = blocks^T g`` (`win_bwd_slab`), differentiable: for a
+    cotangent ``h [N, D]``, ``d_blocks = g h^T`` per tile (`win_bwd_dense`)
+    and ``dg = blocks h`` (`win_matmul`)."""
+
+    @staticmethod
+    def forward(ctx, dense, g, wl, out_dtype):
+        ctx.wl = wl
+        ctx.save_for_backward(dense, g)
+        return win_bwd_slab(wl, dense, g, out_dtype)
+
+    @staticmethod
+    def backward(ctx, h):
+        dense, g = ctx.saved_tensors
+        wl = ctx.wl
+        h = h.to(g.dtype).contiguous()
+        d_dense = dg = None
+        if ctx.needs_input_grad[0]:
+            d_dense = _WinBwdDense.apply(g, h, wl, dense.dtype)
+        if ctx.needs_input_grad[1]:
+            dg = _WinMatmul.apply(dense.to(g.dtype).contiguous(), h, wl,
+                                  torch.zeros_like(h))
+        return d_dense, dg, None, None
+
+
+class _WinBwdDense(torch.autograd.Function):
+    """``d_blocks = g x^T`` per tile (`win_bwd_dense`), differentiable: for
+    a cotangent ``c [T, tile, W]``, ``dg = c x`` (`win_matmul`) and ``dx =
+    c^T g`` (`win_bwd_slab`)."""
+
+    @staticmethod
+    def forward(ctx, g, x, wl, out_dtype):
+        ctx.wl = wl
+        ctx.save_for_backward(g, x)
+        return win_bwd_dense(wl, g, x, out_dtype)
+
+    @staticmethod
+    def backward(ctx, c):
+        g, x = ctx.saved_tensors
+        wl = ctx.wl
+        c = c.to(x.dtype).contiguous()
+        dg = dx = None
+        if ctx.needs_input_grad[0]:
+            dg = _WinMatmul.apply(c, x, wl, torch.zeros_like(x))
+        if ctx.needs_input_grad[1]:
+            dx = _WinBwdSlab.apply(c, g, wl, x.dtype)
+        return dg, dx, None, None
 
 
 def spmm_windowed(dense: torch.Tensor, res_wb: torch.Tensor,

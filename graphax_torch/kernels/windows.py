@@ -87,6 +87,15 @@ class WindowLayout:
         m[self.win_cell.long()] = True
         return m.reshape(self.block_shape)
 
+    @functools.cached_property
+    def graphax_residual_slots(self) -> tuple:
+        """The slots of graphax's blocked residual value tables (``res``
+        and ``res_t``), padding included (:func:`tiled_slots`): graphax's
+        adaptive adjoint integrates them, the padding and the transpose's
+        values as zero leaves."""
+        return (tiled_slots(self.residual, self.num_nodes, self.tile),
+                tiled_slots(self.residual_t, self.num_nodes, self.tile))
+
     def to(self, device) -> "WindowLayout":
         mv = lambda t: t.to(device)
         lay = lambda l: Layout(*(mv(t) for t in l))
@@ -95,6 +104,27 @@ class WindowLayout:
             win_cell=mv(self.win_cell), win_ptr=mv(self.win_ptr),
             win_tiles=mv(self.win_tiles), residual=lay(self.residual),
             residual_t=lay(self.residual_t))
+
+
+_BLOCK_EDGES = (384, 512, 640, 768, 1024, 1280, 1536, 1792, 2048, 2560,
+                3072, 4096)
+
+
+def tiled_slots(layout: Layout, num_nodes: int, tile: int) -> int:
+    """The slots of graphax's row-tiled table of ``layout``'s edges
+    (`build_row_tiles` with its cost model's block size,
+    `graphax/kernels/tiles.py:51-80`): each row tile's edges in blocks of
+    ``Eb`` slots, ``Eb`` minimising ``slots + 90 * blocks``, at least one
+    block."""
+    t = (num_nodes + tile - 1) // tile
+    deg = np.bincount((layout.seg // tile).cpu().numpy(), minlength=t)
+    best_eb, best_cost, best_blocks = None, None, 0
+    for eb in _BLOCK_EDGES:
+        blocks = int(((deg + eb - 1) // eb).sum())
+        cost = blocks * eb + 90 * blocks
+        if best_cost is None or cost < best_cost:
+            best_eb, best_cost, best_blocks = eb, cost, blocks
+    return max(best_blocks, 1) * best_eb
 
 
 def community_order(row, col, num_nodes: int, window: int = 512):

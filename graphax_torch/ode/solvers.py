@@ -20,9 +20,13 @@ Numerics follow graphax:
 - an :class:`Observer` sees every accepted step (`graphax/ode/solvers.py:
   48`): after each step of the fixed grid, and in the adaptive loop at t0
   and after every accepted step; ``max_steps`` caps the adaptive loop's
-  attempts (the early-stop evaluation's ``max_test_steps``).
-
-Explicit/implicit Adams are not ported yet (ROADMAP Queue 1, M2)."""
+  attempts (the early-stop evaluation's ``max_test_steps``);
+- ``norm_fn`` replaces the RMS error norm of the adaptive controller (it
+  takes the state's leaves raveled into one vector, as graphax's);
+- explicit and implicit Adams (graphax's `_odeint_adams`) run AB4, or an
+  AB4 predictor and one AM4 corrector (PECE), on the fixed grid, after
+  three classic-RK4 steps that fill the derivative history (kept in f32)
+  and reuse each step's first derivative as the RK4's first stage."""
 
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from torch.profiler import record_function
 from graphax_torch.ode.tableaus import TABLEAUS, stacked
 
 FIXED_STEP_METHODS = ("euler", "midpoint", "rk4", "rk4_classic")
+ADAMS_METHODS = ("explicit_adams", "implicit_adams")
 ADAPTIVE_METHODS = ("dopri5", "adaptive_heun", "bosh3")
 
 SAFETY, IFACTOR, DFACTOR = 0.9, 10.0, 0.2
@@ -54,9 +59,12 @@ class Observer(NamedTuple):
 @dataclasses.dataclass
 class AdjointRecord:
     """Filled by the adjoint's backward: the NFE of the backward solve (the
-    reference's `bm` meter)."""
+    reference's `bm` meter) and whether it reached t0 within ``max_nfe``
+    (graphax reports neither: a budget its backward exhausts goes
+    unseen)."""
 
     nfe: int = 0
+    success: bool = True
 
 
 @dataclasses.dataclass
@@ -106,6 +114,19 @@ def _rms(leaves, pad: int = 0) -> torch.Tensor:
     return _scalar(float(torch.sqrt(tot / cnt)))
 
 
+def _norm(leaves, pad: int, norm_fn) -> torch.Tensor:
+    """The controller's norm of ``leaves``: the RMS over them and ``pad``
+    zeros, or ``norm_fn`` of them raveled into one vector (the zeros
+    appended), as an f32 host scalar."""
+    if norm_fn is None:
+        return _rms(leaves, pad)
+    flat = [t.reshape(-1) for t in leaves]
+    if pad:
+        flat.append(torch.zeros(pad, dtype=flat[0].dtype,
+                                device=flat[0].device))
+    return _scalar(float(norm_fn(torch.cat(flat))))
+
+
 def _rk_step(call, st: _State, tab_name: str, t, y, h, f0=None):
     """One explicit RK step on the carried state. Returns (y1, f1 or None,
     err or None, nfe)."""
@@ -146,14 +167,15 @@ def _rk_step(call, st: _State, tab_name: str, t, y, h, f0=None):
     return y1, f1, err, nfe
 
 
-def _error_ratio(st: _State, err, y0, y1, rtol, atol, pad) -> torch.Tensor:
+def _error_ratio(st: _State, err, y0, y1, rtol, atol, pad,
+                 norm_fn=None) -> torch.Tensor:
     with torch.no_grad():
         scaled = []
         for e_, a_, b_ in zip(err, y0, y1):
             scale = atol + rtol * torch.maximum(a_.detach().to(st.acc).abs(),
                                                 b_.detach().to(st.acc).abs())
             scaled.append(e_.to(st.acc) / scale)
-        return _rms(scaled, pad)
+        return _norm(scaled, pad, norm_fn)
 
 
 def _optimal_step(h, ratio, order):
@@ -164,7 +186,8 @@ def _optimal_step(h, ratio, order):
     return h * factor
 
 
-def _initial_step(call, st: _State, t0, y0, f0, order, rtol, atol, pad):
+def _initial_step(call, st: _State, t0, y0, f0, order, rtol, atol, pad,
+                  norm_fn=None):
     """Hairer/Wanner initial step (torchdiffeq `_select_initial_step`).
     Costs one RHS evaluation."""
     with torch.no_grad():
@@ -172,16 +195,16 @@ def _initial_step(call, st: _State, t0, y0, f0, order, rtol, atol, pad):
         y0a = [t_.detach().to(acc) for t_ in y0]
         f0a = [t_.detach().to(acc) for t_ in f0]
         scale = [atol + t_.abs() * rtol for t_ in y0a]
-        d0 = _rms([u / s_ for u, s_ in zip(y0a, scale)], pad)
-        d1 = _rms([u / s_ for u, s_ in zip(f0a, scale)], pad)
+        d0 = _norm([u / s_ for u, s_ in zip(y0a, scale)], pad, norm_fn)
+        d1 = _norm([u / s_ for u, s_ in zip(f0a, scale)], pad, norm_fn)
         if bool((d0 < 1e-5) | (d1 < 1e-5)):
             h0 = _scalar(1e-6)
         else:
             h0 = 0.01 * d0 / d1
         y1 = tuple((u + float(h0) * f).to(st.flat) for u, f in zip(y0a, f0a))
         f1 = call(t0 + h0, y1)
-        d2 = _rms([(f.to(acc) - u) / s_ for f, u, s_ in zip(f1, f0a, scale)],
-                  pad) / h0
+        d2 = _norm([(f.to(acc) - u) / s_
+                    for f, u, s_ in zip(f1, f0a, scale)], pad, norm_fn) / h0
         dmax = torch.maximum(d1, d2)
         if bool(dmax <= 1e-15):
             h1 = torch.maximum(_scalar(1e-6), h0 * 1e-3)
@@ -203,19 +226,90 @@ def _fixed_grid(t0: float, t1: float, step_size: float) -> np.ndarray:
     return np.asarray(ts, dtype=np.float64)
 
 
+_AB4 = (55.0 / 24.0, -59.0 / 24.0, 37.0 / 24.0, -9.0 / 24.0)  # f_n..f_{n-3}
+_AM4 = (9.0 / 24.0, 19.0 / 24.0, -5.0 / 24.0, 1.0 / 24.0)     # f_{n+1}..f_{n-2}
+
+
+def _adams_update(st: _State, y, h, terms):
+    """``y + h * sum(c * f)`` per leaf: the sum in f32 in the order graphax
+    adds it, rounded to the state dtype, the update in f32 at least and
+    rounded to the state dtype."""
+    terms = list(terms)
+    out = []
+    for j, yj in enumerate(y):
+        incr = 0
+        for c, f in terms:
+            incr = incr + c * f[j]
+        out.append((yj.to(st.acc) + h * incr.to(yj.dtype).to(st.acc))
+                   .to(st.flat))
+    return tuple(out)
+
+
+def _odeint_adams(call, st: _State, y, t0, t1, method, step_size, observer,
+                  obs, corrector_iters: int = 1):
+    """graphax's `_odeint_adams`: the first min(3, n) steps of the fixed
+    grid by classic RK4 (each step's f_i is the RK4's first stage and joins
+    the history), then AB4, or for ``implicit_adams`` an AB4 predictor and
+    ``corrector_iters`` AM4 corrections. NFE: 4 per prologue step, 1 (+
+    the corrections) per multistep step."""
+    ts = _fixed_grid(t0, t1, step_size)
+    starts = torch.tensor(ts[:-1], dtype=F32)
+    hs = torch.tensor(np.diff(ts), dtype=F32)
+    n_steps = len(ts) - 1
+    implicit = method == "implicit_adams"
+    fdt = st.acc
+
+    def deriv(t, y):
+        return [f.to(fdt) for f in call(t, y)]
+
+    hist = []                                   # f_{n-1}, f_{n-2}, f_{n-3}
+    n_boot = min(3, n_steps)
+    nfe = 0
+    for i in range(n_boot):
+        f_i = deriv(starts[i], y)
+        hist = [f_i] + hist[:2]
+        y, _, _, n_extra = _rk_step(call, st, "rk4_classic", starts[i], y,
+                                    hs[i], f0=tuple(f.to(st.flat)
+                                                    for f in f_i))
+        nfe += 1 + n_extra
+        if observer is not None:
+            obs = observer.update(obs, starts[i] + hs[i], st.unravel(y))
+    for i in range(n_boot, n_steps):
+        t, h = starts[i], hs[i]
+        hist4 = [deriv(t, y)] + hist            # f_n..f_{n-3}
+        y_next = _adams_update(st, y, h, zip(_AB4, hist4))
+        nfe += 1
+        if implicit:
+            for _ in range(corrector_iters):    # PECE, fixed iterations
+                f_pred = deriv(t + h, y_next)
+                y_next = _adams_update(
+                    st, y, h, zip(_AM4, [f_pred] + hist4[:3]))
+                nfe += 1
+        y, hist = y_next, hist4[:3]
+        if observer is not None:
+            obs = observer.update(obs, t + h, st.unravel(y))
+    return ODEResult(y=st.unravel(y), nfe=nfe, steps=n_steps, success=True,
+                     observer=obs)
+
+
 def odeint(func: Callable, y0, t0: float, t1: float, *,
            method: str = "dopri5", rtol: float = 1e-9, atol: float = 1e-7,
            step_size: float = 1.0, max_nfe: int = 1000,
            max_steps: Optional[int] = None,
            observer: Optional[Observer] = None,
-           norm_pad: int = 0) -> ODEResult:
+           norm_pad: int = 0, norm_fn: Optional[Callable] = None
+           ) -> ODEResult:
     """Integrate ``dy/dt = func(t, y)`` from t0 to t1 (t1 > t0). ``y0`` is a
     tensor or a tuple of tensors; ``func`` returns the same structure.
     ``max_steps`` caps the adaptive loop's attempts (accepted and rejected;
     default from ``max_nfe``, as graphax's). ``observer`` sees every
     accepted step; its final carry is ``result.observer``. ``norm_pad``
     zeros join every error norm of the adaptive controller (the adjoint's
-    count of the reference's identically-zero leaves)."""
+    count of the reference's identically-zero leaves). ``norm_fn(vector)
+    -> scalar`` overrides the controller's RMS norm, over the state's
+    leaves raveled into one vector (graphax's ``norm_fn``). ``method`` may
+    also be ``"explicit_adams"`` or ``"implicit_adams"``, on the fixed grid
+    of ``step_size``."""
     st = _State(y0)
     obs = observer.init if observer is not None else None
 
@@ -235,10 +329,11 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
         n = len(ts) - 1
         return ODEResult(y=st.unravel(y), nfe=n * len(TABLEAUS[method].c),
                          steps=n, success=True, observer=obs)
+    if method in ADAMS_METHODS:
+        return _odeint_adams(call, st, y, t0, t1, method, step_size,
+                             observer, obs)
     if method not in ADAPTIVE_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} is not ported (explicit/implicit Adams: "
-            "ROADMAP Queue 1, M2)")
+        raise ValueError(f"unknown method {method!r}")
     tab = TABLEAUS[method]
     order = tab.order
     nfe_per_step = len(tab.c) - (1 if tab.fsal else 0)
@@ -249,7 +344,7 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
     span = t1a - t
     f = call(t, y)
     h = torch.minimum(_initial_step(call, st, t, y, f, order, rtol, atol,
-                                    norm_pad), span)
+                                    norm_pad, norm_fn), span)
     nfe = 2
     if observer is not None:
         obs = observer.update(obs, t, st.unravel(y))
@@ -261,7 +356,8 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
         h = torch.minimum(h, t1a - t)
         y_prop, f_prop, err, _ = _rk_step(call, st, method, t, y, h,
                                           f if tab.fsal else None)
-        ratio = _error_ratio(st, err, y, y_prop, rtol, atol, norm_pad)
+        ratio = _error_ratio(st, err, y, y_prop, rtol, atol, norm_pad,
+                             norm_fn)
         accept = bool(ratio <= 1.0)
         h_next = _optimal_step(h, ratio, order)
         if accept:
@@ -287,6 +383,7 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
 @dataclasses.dataclass
 class _AdjointSpec:
     func: Callable
+    single: bool
     t0: float
     t1: float
     solve_kwargs: dict
@@ -300,25 +397,35 @@ class _AdjointSpec:
 class _Adjoint(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, spec: _AdjointSpec, y0, *params):
-        res = odeint(lambda t, y: spec.func(params, t, y), y0, spec.t0,
-                     spec.t1, **spec.solve_kwargs)
+    def forward(ctx, spec: _AdjointSpec, n_y: int, *args):
+        y0, params = args[:n_y], args[n_y:]
+        # detached: an RHS that differentiates itself (a regulariser's
+        # vjp) takes no derivative with respect to them in this solve
+        fixed = tuple(p.detach() for p in params)
+        res = odeint(lambda t, y: spec.func(fixed, t, y),
+                     y0[0] if spec.single else y0, spec.t0, spec.t1,
+                     **spec.solve_kwargs)
         spec.result = res
         ctx.spec = spec
-        ctx.save_for_backward(res.y, *params)
-        return res.y
+        y1 = (res.y,) if spec.single else tuple(res.y)
+        ctx.n_y = len(y1)
+        ctx.save_for_backward(*y1, *params)
+        return y1
 
     @staticmethod
-    def backward(ctx, g_y1):
-        y1, *params = ctx.saved_tensors
+    def backward(ctx, *g_y1):
+        saved = ctx.saved_tensors
+        n = ctx.n_y
+        y1, params = saved[:n], saved[n:]
         spec = ctx.spec
-        needs = [bool(ctx.needs_input_grad[2 + i]) for i in range(len(params))]
+        needs = [bool(ctx.needs_input_grad[2 + n + i])
+                 for i in range(len(params))]
         # The a_p leaves never feed back into y or a_y, so a fixed grid
         # carries only those with a gradient. An adaptive method's error
         # norm reads the whole state: there the tracked leaves (those the
         # reference integrates although their gradient is discarded) are
         # integrated too, and its zero leaves are counted.
-        adaptive = spec.adj_kwargs["method"] not in FIXED_STEP_METHODS
+        adaptive = spec.adj_kwargs["method"] in ADAPTIVE_METHODS
         carried = [nd or (adaptive and tr)
                    for nd, tr in zip(needs, spec.track)]
         p_in = [p.detach().requires_grad_(c) for p, c in zip(params, carried)]
@@ -328,19 +435,25 @@ class _Adjoint(torch.autograd.Function):
         # augmented state z(s) = (y(t), a_y(t), a_p(t)) with s = t1 - t:
         # dy/ds = -f, da_y/ds = a^T df/dy, da_p/ds = a^T df/dp
         def aug(s, z):
-            y, a, *_ = z
+            y, a = z[:n], z[n:2 * n]
             with torch.enable_grad():
-                y_ = y.detach().requires_grad_(True)
-                f = spec.func(p_in, t1 - s, y_)
-                grads = torch.autograd.grad(f, [y_] + wanted, a,
-                                            allow_unused=True)
-            vy = grads[0] if grads[0] is not None else torch.zeros_like(y)
+                y_ = [t.detach().requires_grad_(True) for t in y]
+                f = spec.func(p_in, t1 - s, y_[0] if spec.single
+                              else tuple(y_))
+                f = (f,) if torch.is_tensor(f) else tuple(f)
+                live = [i for i, fi in enumerate(f) if fi.requires_grad]
+                grads = torch.autograd.grad(
+                    [f[i] for i in live], y_ + wanted, [a[i] for i in live],
+                    allow_unused=True) if live else (None,) * (n + len(wanted))
+            vy = [torch.zeros_like(t) if v is None else v
+                  for v, t in zip(grads[:n], y)]
             vp = [torch.zeros_like(p) if v is None else v
-                  for v, p in zip(grads[1:], wanted)]
-            return (-f.detach(), vy, *vp)
+                  for v, p in zip(grads[n:], wanted)]
+            return (*[-fi.detach() for fi in f], *vy, *vp)
 
         # a_p in f32 at least, as the reference's raveled parameter vector
-        z0 = (y1, g_y1.to(y1.dtype),
+        z0 = (*y1, *[torch.zeros_like(y) if g is None else g.to(y.dtype)
+                     for g, y in zip(g_y1, y1)],
               *[torch.zeros(p.shape, dtype=torch.promote_types(p.dtype, F32),
                             device=p.device) for p in wanted])
         with record_function("graphax_torch.adjoint"):
@@ -348,25 +461,30 @@ class _Adjoint(torch.autograd.Function):
                          norm_pad=spec.zero_leaves if adaptive else 0,
                          **spec.adj_kwargs)
         spec.record.nfe = res.nfe
-        _, a0, *ap = res.y
+        spec.record.success = res.success
+        a0, ap = res.y[n:2 * n], res.y[2 * n:]
         it = iter(ap)
         grads = [next(it) if c else None for c in carried]
-        return (None, a0, *[v.to(p.dtype) if nd else None
-                            for v, p, nd in zip(grads, params, needs)])
+        return (None, None, *a0, *[v.to(p.dtype) if nd else None
+                                   for v, p, nd in zip(grads, params, needs)])
 
 
-def odeint_adjoint(func: Callable, params, y0: torch.Tensor, t0: float,
+def odeint_adjoint(func: Callable, params, y0, t0: float,
                    t1: float, *, method: str = "dopri5", rtol: float = 1e-9,
                    atol: float = 1e-7, step_size: float = 1.0,
                    max_nfe: int = 1000, max_steps: Optional[int] = None,
                    adjoint_method: str = "adaptive_heun",
                    adjoint_rtol: float = 1e-9, adjoint_atol: float = 1e-7,
                    adjoint_step_size: float = 1.0, track=None,
-                   zero_leaves: int = 0) -> ODEResult:
+                   zero_leaves: int = 0, norm_fn: Optional[Callable] = None,
+                   adjoint_norm_fn: Optional[Callable] = None) -> ODEResult:
     """O(1)-memory gradients through the solve by the continuous adjoint,
     with its own method and tolerances. ``func(params, t, y) -> dy`` where
-    ``params`` is a sequence of tensors; gradients flow to those of them
-    that require grad and to ``y0``.
+    ``params`` is a sequence of tensors and ``y`` a tensor or a tuple of
+    tensors (the structure of ``y0``); gradients flow to the params that
+    require grad and to ``y0``. ``norm_fn`` and ``adjoint_norm_fn``
+    override the error norms of the forward and the backward controllers
+    (:func:`odeint`'s ``norm_fn``).
 
     The adjoint state holds ``y``, ``a_y`` and the ``a_p`` of every param
     that requires grad. Under an adaptive ``adjoint_method`` it also holds
@@ -379,17 +497,19 @@ def odeint_adjoint(func: Callable, params, y0: torch.Tensor, t0: float,
     ``result.adjoint.nfe`` holds the backward solve's NFE once backward has
     run."""
     params = tuple(params)
+    single = torch.is_tensor(y0)
+    y0 = (y0,) if single else tuple(y0)
     spec = _AdjointSpec(
-        func=func, t0=float(t0), t1=float(t1),
+        func=func, single=single, t0=float(t0), t1=float(t1),
         solve_kwargs=dict(method=method, rtol=rtol, atol=atol,
                           step_size=step_size, max_nfe=max_nfe,
-                          max_steps=max_steps),
+                          max_steps=max_steps, norm_fn=norm_fn),
         adj_kwargs=dict(method=adjoint_method, rtol=adjoint_rtol,
                         atol=adjoint_atol, step_size=adjoint_step_size,
-                        max_nfe=max_nfe),
+                        max_nfe=max_nfe, norm_fn=adjoint_norm_fn),
         track=tuple(track) if track is not None else (False,) * len(params),
         zero_leaves=int(zero_leaves))
-    y1 = _Adjoint.apply(spec, y0, *params)
+    y1 = _Adjoint.apply(spec, len(y0), *y0, *params)
     res = spec.result
-    return ODEResult(y=y1, nfe=res.nfe, steps=res.steps, success=res.success,
+    return ODEResult(y=y1[0] if single else tuple(y1), nfe=res.nfe, steps=res.steps, success=res.success,
                      adjoint=spec.record)

@@ -61,3 +61,18 @@ def refined_masked_quantile(values, mask, q: float, rounds: int = 2,
     v_hi = torch.where(k_hi == k_lo, v_lo,
                        _order_stat(values, mask, k_hi, rounds, bins))
     return (v_lo * (1 - frac) + v_hi * frac).to(values.dtype)
+
+
+def masked_quantile(values, mask, q: float):
+    """``torch.quantile`` (linear interpolation) over the masked entries by
+    a full sort (graphax's `masked_quantile`,
+    `graphax/blocks/hard_attention.py:28-38`; the rewire-attention block
+    thresholds on it)."""
+    big = torch.where(mask, values, torch.full_like(values, float("inf")))
+    sorted_vals = torch.sort(big).values
+    n = mask.sum()
+    pos = q * torch.clamp(n - 1, min=0).to(values.dtype)
+    lo = torch.floor(pos).long()
+    hi = torch.ceil(pos).long()
+    frac = pos - lo.to(values.dtype)
+    return sorted_vals[lo] * (1 - frac) + sorted_vals[hi] * frac

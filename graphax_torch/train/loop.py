@@ -25,9 +25,13 @@ applied to the dataset before the Trainer is built
 ``data.with_pos_encoding``), which the model reads from
 ``data.pos_encoding``.
 
-Not ported here (ROADMAP): graphax's 3-jit `split_step` (a TPU compiler
-workaround with no output change) and the CGNN baseline (``cfg.cgnn``),
-which raises. GRAND-nl (the transformer RHS) trains on every graph graphax
+The loss adds ``coeff * mean(reg_state)`` for each regulariser of
+``cfg.reg_coeffs()`` (`graphax/train/loop.py:181-182`), the states the
+block integrated beside x (`graphax_torch.functions.regularizers`).
+``cfg.cgnn`` is not read here, as graphax's Trainer does not read it: the
+CGNN baseline has its own model and driver (`graphax_torch.models.cgnn`,
+`graphax_torch.drivers.run_cgnn`). Not ported (no output change):
+graphax's 3-jit `split_step`, a TPU compiler workaround. GRAND-nl (the transformer RHS) trains on every graph graphax
 trains it on, by the route
 `graphax_torch.functions.transformer.attention_route` names."""
 
@@ -103,10 +107,6 @@ def cross_entropy_loss(logits, labels, mask):
     return per_node.sum() / torch.clamp(mask.sum(), min=1)
 
 
-_UNPORTED = {
-    "cgnn": "the CGNN baseline (models/cgnn.py, ROADMAP Queue 1, item 9)",
-}
-
 # optax's state of each optimizer (`graphax/train/optimizers.py:12-26`):
 # the fields of its first transform's state, in order, under the names the
 # port's OptaxOptimizer keeps per parameter
@@ -120,9 +120,6 @@ class Trainer:
     caller asks for the CPU; CUDA requested but absent raises)."""
 
     def __init__(self, cfg, data: GraphData, device=None):
-        for field, what in _UNPORTED.items():
-            if getattr(cfg, field):
-                raise NotImplementedError(f"{field}: {what} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         data = data.to(self.device)
@@ -208,6 +205,8 @@ class Trainer:
                                  generator=self.generator,
                                  pos_encoding=d.pos_encoding)
         loss = cross_entropy_loss(logits, d.y, loss_mask)
+        for rs, (_, coeff) in zip(out.reg_states, self.cfg.reg_coeffs()):
+            loss = loss + coeff * torch.mean(rs)
         loss.backward()
         with record_function("graphax_torch.optimizer"):
             self.optimizer.step()
@@ -217,9 +216,11 @@ class Trainer:
         bwd = res.adjoint.nfe if res.adjoint is not None else res.nfe
         self.fm.update(res.nfe)
         self.bm.update(bwd)
-        return float(loss.detach()), {"nfe": res.nfe, "bwd_nfe": bwd,
-                                      "steps": res.steps,
-                                      "success": res.success}
+        return float(loss.detach()), {
+            "nfe": res.nfe, "bwd_nfe": bwd, "steps": res.steps,
+            "success": res.success,
+            "bwd_success": res.adjoint.success if res.adjoint is not None
+            else res.success}
 
     @torch.no_grad()
     def evaluate(self):
@@ -258,12 +259,13 @@ class Trainer:
         best validation epoch. ``best`` and ``history`` carry graphax's
         keys; ``best_time`` is ``cfg.time`` without early stopping, the
         observer's time with it. ``solver`` holds per epoch the train
-        step's NFE, backward NFE and success and the evaluation's NFE and
-        success. It takes the place of graphax's ``state``: the Trainer
-        owns its weights, and ``fm``, ``bm`` and ``last_eval`` keep only the
-        last epoch's solve, so ``solver`` is the one record by which a
-        caller holds every epoch's solves to success without adding keys
-        to graphax's ``history``.
+        step's NFE, backward NFE, success and backward success (the
+        adjoint's backward solve reached t0 within ``max_nfe``) and the
+        evaluation's NFE and success. It takes the place of graphax's
+        ``state``: the Trainer owns its weights, and ``fm``, ``bm`` and
+        ``last_eval`` keep only the last epoch's solve, so ``solver`` is
+        the one record by which a caller holds every epoch's solves to
+        success without adding keys to graphax's ``history``.
 
         ``checkpoint_path``, as graphax's: where ``npz_path(path)`` exists,
         the weights, batch-norm statistics, optimizer state, dropout
@@ -310,6 +312,7 @@ class Trainer:
                                 nfe=aux["nfe"]))
             solver.append(dict(nfe=aux["nfe"], bwd_nfe=aux["bwd_nfe"],
                                success=aux["success"],
+                               bwd_success=aux["bwd_success"],
                                eval_nfe=self.last_eval.nfe,
                                eval_success=self.last_eval.success))
             if log_every and epoch % log_every == 0:

@@ -2467,3 +2467,93 @@ def test_cuda_gat_rhs_matches_cpu(cuda, mix):
             if mix else torch.zeros(()))]
     for got, want in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# second derivatives through the Functions, and Adams, on the card
+# ----------------------------------------------------------------------
+
+# (N, tile, W, D): a small odd shape and the arxiv preset's (169,343 nodes
+# on 1,323 tiles of 128 rows, windows of 512, D 162)
+SECOND_SHAPES = {"small_odd": (301, 8, 16, 5),
+                 "arxiv": (169_343, 128, 512, 162)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(SECOND_SHAPES))
+@pytest.mark.parametrize("which", ["spmm", "windowed"])
+def test_cuda_second_derivatives_match_plain(cuda, dtype, shape, which):
+    """Each Function's backward differentiated again (`_SpMM` with
+    `_SDDMM`; `_WinMatmul` with `_WinBwdSlab` and `_WinBwdDense`) against
+    the same composition with the plain versions (chip_smoke's
+    ``plain_kernels``), at chip_smoke's tolerance ``TOL_SECOND``: f32 1e-4
+    relative plus 1e-4 of the largest entry; bf16 2e-2 relative plus two
+    bf16 ulps of the largest entry. Every kernel of the composition
+    launches."""
+    import chip_smoke
+    from graphax_torch.kernels import LAUNCHES
+
+    n, tile, window, d = SECOND_SHAPES[shape]
+    g = _windowed_graph(cuda, n, tile, window)
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    x, v, u = rnd(n, d).to(tdt), rnd(n, d).to(tdt), rnd(n, d)
+    if which == "spmm":
+        wb = g.edge_weight.to(tdt).detach().clone()
+        c = rnd(g.edge_buffer_size)
+        fn = lambda: chip_smoke.second_order_spmm(
+            g, wb.requires_grad_(True), x.requires_grad_(True),
+            v.requires_grad_(True), u, c)
+        kernels = ("spmm_csr", "sddmm")
+    else:
+        wl = g.windows
+        blocks = ws.densify_plain(wl, g.edge_weight, tdt)
+        c = rnd(*wl.block_shape)
+        fn = lambda: chip_smoke.second_order_windowed(
+            wl, blocks.requires_grad_(True), x.requires_grad_(True),
+            v.requires_grad_(True), u, c)
+        kernels = ("win_matmul", "win_bwd_slab", "win_bwd_dense")
+    LAUNCHES.clear()
+    got = fn()
+    for k in kernels:
+        assert LAUNCHES[k] > 0, k
+    with chip_smoke.plain_kernels():
+        want = fn()
+    atol_of_max, rtol = chip_smoke.TOL_SECOND[dtype]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=rtol,
+            atol=atol_of_max * float(b.float().abs().max()))
+
+
+@pytest.mark.parametrize("method", ["explicit_adams", "implicit_adams"])
+def test_cuda_adams_matches_cpu(cuda, method):
+    """Adams on the card against the CPU, f32: a tuple state's solve
+    (values within 1e-5, NFE equal) and a train step of the laplacian
+    model from the same weights (loss within 1e-4, forward NFE equal)."""
+    from graphax_torch import Config, Trainer, make_sbm_dataset
+    from graphax_torch.ode import odeint
+
+    a = torch.randn(6, 6, generator=torch.Generator().manual_seed(0)) * 0.3
+    out = {}
+    for dev in ("cpu", cuda):
+        am = a.to(dev)
+        res = odeint(lambda t, y: (torch.tanh(y[0] @ am.T) - 0.5 * y[0],
+                                   -y[1]),
+                     (torch.ones(6, device=dev), torch.ones(3, device=dev)),
+                     0.0, 2.0, method=method, step_size=0.1)
+        data = make_sbm_dataset(num_nodes=400, num_classes=4,
+                                num_features=32, seed=0, strategy="sparse",
+                                device=dev)
+        cfg = Config(block="constant", hidden_dim=16, method=method,
+                     step_size=0.25, time=2.0, input_dropout=0.0,
+                     dropout=0.0, no_early=True)
+        tr = Trainer(cfg, data, device=dev)
+        out[str(dev)] = (res, tr.train_step(), tr.fm.get_value())
+    (rc, lc, fc), (rp, lp, fp) = out["cuda"], out["cpu"]
+    assert rc.nfe == rp.nfe and fc == fp
+    for yc, yp in zip(rc.y, rp.y):
+        torch.testing.assert_close(yc.cpu(), yp, rtol=1e-5, atol=1e-6)
+    assert abs(lc - lp) <= 1e-4 * max(1.0, abs(lp))

@@ -75,8 +75,10 @@ def test_graph_and_data_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("overrides,err", [
-    (dict(block="rewire_attention"), "M8"),
-    (dict(function="transformer"), "M6"),
+    (dict(multi_modal=True), "M9"),
+    (dict(function="transformer", beltrami=True, attention_type="exp_kernel",
+          multi_modal=True, pos_enc_dim=4, feat_hidden_dim=4,
+          pos_enc_hidden_dim=4), "M9"),
 ])
 def test_unported_configs_raise(overrides, err):
     cfg = Config(block="hard_attention", heads=2, attention_dim=8,
