@@ -208,8 +208,19 @@ and prints no result):
    NFE decide equal what the NFE say (``first_order_launches``,
    ``reg_launches``).
 
-Then the kernels line (launches summed over the paths of phases 5, 8, 9
-and 10), the card's nvidia-smi line, and last ``{"ok": true, "device":
+11. multimodal: the multimodal family (`phase_multimodal`): (a)
+   ``run_multi.main`` on MNIST's preset (synthetic digits; the dense
+   [784, 784] grid, no hand-written kernel), (b) ``train_clevr_style`` as
+   users run it and one epoch at the reference's widths (1024-wide
+   patches, 768-wide tokens), (c) 32 questions on their own chain graphs
+   (the block-diagonal union: spmm_csr once an evaluation for the batch,
+   the union against per-sample solves, dopri5 with a controller per
+   sample), (d) a small
+   multimodal model card against CPU, (e) the ResNet-101 trunk to layer3
+   card against CPU; under 60 s.
+
+Then the kernels line (launches summed over the paths of phases 5, 8, 9,
+10 and 11), the card's nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``. Needs one card; builds everything from the checkout; needs no
 network."""
 
@@ -4350,6 +4361,404 @@ def phase_surface(trainer, trainer0, smi: str, results: dict) -> dict:
     return launches, second
 
 
+# ----------------------------------------------------------------------
+# 11. the multimodal family
+
+# the union's logits against per-sample solves (graphax's own tolerance
+# for its batched graphs, tests/test_batched_graphs.py:77-80)
+TOL_UNION = (1e-5, 1e-6)
+# the small multimodal model on the card against the CPU (f32 logits)
+TOL_MM_REF = 1e-4
+# (c)'s union on the card against the same model on the CPU (the kernels'
+# plain versions): each parameter's gradient of one train step within this
+# fraction of its largest entry (of 1 where that is smaller; f32 sums in
+# another order through 16 evaluations and their backward)
+TOL_MM_GRAD = 1e-4
+# the ResNet-101 trunk to layer3 on the card against the CPU, relative to
+# the largest feature (f32 convolutions in another order, 30 blocks deep;
+# graphax's trunk tolerance)
+TOL_TRUNK = 2e-4
+
+
+def _random_resnet101(seed: int = 0, out_stage: int = 3) -> dict:
+    """A torchvision-layout ResNet-101 state dict through ``out_stage``
+    stages at its published widths, random from a seed: convolutions
+    scaled by 1 / sqrt(fan in), batch-norm statistics near the identity."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def conv(name, o, i, k):
+        sd[name + ".weight"] = torch.from_numpy(
+            (rng.randn(o, i, k, k) / math.sqrt(i * k * k)).astype("f4"))
+
+    def bn(name, c):
+        for leaf, val in (("weight", 1 + 0.1 * rng.randn(c)),
+                          ("bias", 0.1 * rng.randn(c)),
+                          ("running_mean", 0.1 * rng.randn(c)),
+                          ("running_var", 1 + 0.1 * rng.rand(c))):
+            sd[f"{name}.{leaf}"] = torch.from_numpy(val.astype("f4"))
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    c_in = 64
+    for s, blocks in enumerate((3, 4, 23, 3)[:out_stage]):
+        planes = 64 * 2 ** s
+        for i in range(blocks):
+            p = f"layer{s + 1}.{i}"
+            conv(p + ".conv1", planes, c_in, 1)
+            bn(p + ".bn1", planes)
+            conv(p + ".conv2", planes, planes, 3)
+            bn(p + ".bn2", planes)
+            conv(p + ".conv3", planes * 4, planes, 1)
+            bn(p + ".bn3", planes * 4)
+            if i == 0:
+                conv(p + ".downsample.0", planes * 4, c_in, 1)
+                bn(p + ".downsample.1", planes * 4)
+            c_in = planes * 4
+    return sd
+
+
+def _counted(fn):
+    """``fn()`` with the launches zeroed before and read after: (its
+    result, the launches, seconds ending in a device sync, the peak
+    device GiB)."""
+    import torch
+
+    from graphax_torch.kernels import _build
+
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, dict(_build.LAUNCHES), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _mm_chain_model(block: str, method: str, d: int, classes: int, device,
+                    seed: int = 3, tol_scale: float = 1.0):
+    import torch
+
+    from graphax_torch.models.multimodal import MultimodalGNN
+    from graphax_torch.train import Config
+
+    cfg = Config(block=block, method=method, step_size=0.25, time=1.0,
+                 input_dropout=0.0, dropout=0.0, heads=2, attention_dim=16,
+                 self_loop_weight=1.0, lr=0.005, tol_scale=tol_scale)
+    model = MultimodalGNN(cfg, 16, d, classes).to(device)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model
+
+
+def phase_multimodal(smi: str) -> dict:
+    """The multimodal family (`graphax_torch.models.multimodal`,
+    `graphax_torch.drivers.run_multi`): (a) ``run_multi.main`` on MNIST's
+    preset (28 x 28 grid with diagonals, 784 nodes, 1 channel, euler 0.25,
+    T 1) on the synthetic digits, 2 epochs at batch 4, train 32, test
+    512; (b) ``train_clevr_style`` as users run it (grid 14, feat 64,
+    text 32, 16 tokens, 28 classes, euler 0.5, 2 epochs of 32 samples at
+    batch 4), then one epoch at the reference's widths (ResNet-101
+    layer3's 14 x 14 x 1024 patches, BERT-base's 768-wide tokens; 256
+    samples, batch 32); (c) 32 questions of 8-16 tokens on their own chain
+    graphs through the constant and the attention block, 3 adam steps and
+    an evaluation under rk4 (one solve on the block-diagonal union:
+    spmm_csr once an evaluation for the batch, the pin once an
+    evaluation forward, sddmm once an evaluation in the attention block's
+    backward), the union against per-sample solves, and the first train
+    step's loss and gradients and the evaluation's logits against the same
+    model on the CPU (the kernels' plain versions: spmm_csr, sddmm, the
+    pin and its attention_kproj held at the union's shapes), then the
+    constant block's evaluation under dopri5 (one solve with a controller
+    per sample: each sample's NFE its own solve's, spmm_csr launched the
+    slowest sample's NFE times), also against the CPU; (d)
+    a small multimodal model on the card against the CPU; (e)
+    ``resnet_trunk`` to layer3 on a random ResNet-101 at 224 x 224, batch
+    8, against the CPU. Returns the launches summed over (a)-(d). The
+    dopri5 solves of (c) and (d) run at ``tol_scale=1000``, above the f32
+    noise floor."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from graphax_torch.data.extractors import resnet_trunk
+    from graphax_torch.data.multimodal import (
+        batched_chain_graphs, build_clevr_style_dataset,
+    )
+    from graphax_torch.drivers import run_multi
+    from graphax_torch.models.multimodal import MultimodalGNN
+    from graphax_torch.train.optimizers import get_optimizer
+
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) the README's command at MNIST's preset
+    buf = io.StringIO()
+    argv = ["--im_dataset", "MNIST", "--epoch", "2", "--batch_size", "4",
+            "--train_size", "32", "--test_size", "512", "--data_dir",
+            os.path.join(HERE, "no-mnist-files")]
+    with contextlib.redirect_stdout(buf):
+        out, counts, secs, peak = _counted(lambda: run_multi.main(argv))
+    hist = json.loads(buf.getvalue().strip().splitlines()[-1])["history"]
+    cfg = out["model"].cfg
+    emit({"phase": "multimodal", "path": "a_mnist", "argv": argv,
+          "history": hist, "epoch_seconds": [h["time"] for h in hist],
+          "nodes": out["model"].num_nodes, "method": cfg.method,
+          "step_size": cfg.step_size, "time": cfg.time, "seconds": secs,
+          "peak_mem_gib": peak, "launches": counts, "nvidia_smi": smi})
+    check(len(hist) == 2 and all(math.isfinite(h["loss"]) for h in hist)
+          and 0.0 <= hist[-1]["test_acc"] <= 1.0,
+          f"multimodal (a): history {hist}")
+    check(out["model"].num_nodes == 784 and cfg.method == "euler",
+          "multimodal (a): not MNIST's preset")
+    add(counts)
+
+    # (b) CLEVR-style as users run it, then the reference's widths
+    for label, kw in (("b_clevr", dict(epochs=2, batch_size=4,
+                                       num_samples=32)),
+                      ("b_clevr_reference_widths",
+                       dict(epochs=1, batch_size=32, num_samples=256,
+                            build_kwargs=dict(feat_dim=1024,
+                                              text_dim=768)))):
+        out, counts, secs, peak = _counted(
+            lambda kw=kw: run_multi.train_clevr_style(log=False, **kw))
+        hist = out["history"]
+        m = out["model"]
+        emit({"phase": "multimodal", "path": label, "history": hist,
+              "epoch_seconds": [h["time"] for h in hist],
+              "nodes": m.num_nodes, "features": m.m2.in_features
+              // m.num_nodes, "second_modality_dim":
+              m.cfg.second_modality_dim, "seconds": secs,
+              "peak_mem_gib": peak, "launches": counts, "nvidia_smi": smi})
+        check(all(math.isfinite(h["loss"]) for h in hist),
+              f"multimodal {label}: losses {hist}")
+        add(counts)
+
+    # (c) per-sample chain graphs
+    ds = build_clevr_style_dataset(num_samples=32, max_question_len=16,
+                                   text_dim=32, seed=5, device=cuda)
+    lens = ds.question_lengths
+    check(lens.min() >= 8 and lens.max() <= 16 and len(set(lens)) > 1,
+          f"multimodal (c): question lengths {lens}")
+    sel = np.arange(32)
+    graphs = ds.text_graphs_for(sel)
+    xs = torch.as_tensor(ds.questions, device=cuda)
+    ys = torch.as_tensor(ds.answers, device=cuda)
+    b = len(sel)
+    # the same data and models on the CPU, where every wrapper takes its
+    # kernel's plain version
+    cpu = torch.device("cpu")
+    graphs_c = build_clevr_style_dataset(
+        num_samples=32, max_question_len=16, text_dim=32, seed=5,
+        device=cpu).text_graphs_for(sel)
+    xs_c, ys_c = xs.cpu(), ys.cpu()
+
+    def cpu_twin(model, method, **kw):
+        ref = _mm_chain_model(model.cfg.block, method, 32, ds.num_classes,
+                              cpu, **kw)
+        ref.load_state_dict({k: v.cpu()
+                             for k, v in model.state_dict().items()})
+        return ref
+
+    for block in ("constant", "attention"):
+        model = _mm_chain_model(block, "rk4", 32, ds.num_classes, cuda)
+        ref = cpu_twin(model, "rk4")
+        ref_loss = run_multi.batch_loss(ref, None, xs_c, ys_c, train=True,
+                                        graphs=graphs_c)
+        ref_loss.backward()
+        opt = get_optimizer("adam", model.parameters(), 0.005)
+        steps = []
+        for _ in range(3):
+            loss, counts, secs, peak = _counted(
+                lambda: run_multi.train_step(model, opt, None, xs, ys,
+                                             graphs=graphs))
+            steps.append({"loss": float(loss), "seconds": secs,
+                          "peak_mem_gib": peak, "launches": counts})
+            add(counts)
+            if len(steps) == 1:
+                # the first step's gradients (the optimizer leaves .grad)
+                grad_err = {}
+                for (name, p), (_, q) in zip(model.named_parameters(),
+                                             ref.named_parameters()):
+                    check((p.grad is None) == (q.grad is None),
+                          f"multimodal (c) {block}: {name}'s gradient "
+                          "on one side only")
+                    if q.grad is not None:
+                        scale = max(1.0, float(q.grad.abs().max()))
+                        grad_err[name] = float(
+                            (p.grad.cpu() - q.grad).abs().max()) / scale
+        with torch.no_grad():
+            (logits, aux), counts, secs, peak = _counted(
+                lambda: model.forward_batched(None, xs, graphs=graphs))
+            add(counts)
+            single = torch.stack([model(graphs.sample(i), xs[i])[0]
+                                  for i in range(b)])
+            ref.load_state_dict({k: v.cpu()
+                                 for k, v in model.state_dict().items()})
+            ref_logits, ref_aux = ref.forward_batched(None, xs_c,
+                                                      graphs=graphs_c)
+        nfe = aux["nfe"][0]
+        err = float((logits - single).abs().max())
+        ok = torch.allclose(logits, single, rtol=TOL_UNION[0],
+                            atol=TOL_UNION[1])
+        cpu_err = float((logits.cpu() - ref_logits).abs().max())
+        loss_err = abs(steps[0]["loss"] - float(ref_loss.detach()))
+        emit({"phase": "multimodal", "path": f"c_chains_{block}",
+              "questions": b, "lengths": lens.tolist(),
+              "union_nodes": graphs.union().num_nodes,
+              "union_edges": graphs.union().num_edges, "train": steps,
+              "eval_nfe": aux["nfe"], "eval_seconds": secs,
+              "eval_launches": counts, "union_vs_per_sample_err": err,
+              "tol": TOL_UNION, "card_vs_cpu": {
+                  "logits_max_abs_err": cpu_err, "loss_abs_err": loss_err,
+                  "grad_rel_err": grad_err, "tol_logits": TOL_MM_REF,
+                  "tol_grad": TOL_MM_GRAD, "nfe_cpu": ref_aux["nfe"]},
+              "nvidia_smi": smi})
+        check(all(math.isfinite(s["loss"]) for s in steps),
+              f"multimodal (c) {block}: losses {steps}")
+        check(ok, f"multimodal (c) {block}: union against per-sample "
+              f"solves {err}")
+        check(cpu_err <= TOL_MM_REF and loss_err <= TOL_MM_REF
+              and ref_aux["nfe"] == aux["nfe"],
+              f"multimodal (c) {block}: card against CPU, logits {cpu_err}, "
+              f"loss {loss_err}, NFE {ref_aux['nfe']}")
+        check(bool(grad_err) and max(grad_err.values()) <= TOL_MM_GRAD,
+              f"multimodal (c) {block}: card against CPU gradients "
+              f"{grad_err}")
+        check(counts.get("spmm_csr", 0) == nfe == 16,
+              f"multimodal (c) {block}: spmm_csr {counts} for NFE {nfe} "
+              f"(B x NFE = {b * nfe})")
+        check(counts.get("attention_pin", 0)
+              == (1 if block == "attention" else 0),
+              f"multimodal (c) {block}: the pin {counts}")
+        # a train step: A x at each of the NFE, A^T g at each but the
+        # first (whose x is the data), and in the attention block the
+        # pinned values' gradient (sddmm) at each
+        for s in steps:
+            c = s["launches"]
+            check(c.get("spmm_csr", 0) == 2 * nfe - 1 and c.get("sddmm", 0)
+                  == (nfe if block == "attention" else 0),
+                  f"multimodal (c) {block} train step: {c}, NFE {nfe}")
+    # dopri5 above the f32 noise floor, as (d)'s
+    model = _mm_chain_model("constant", "dopri5", 32, ds.num_classes, cuda,
+                            tol_scale=1000.0)
+    ref = cpu_twin(model, "dopri5", tol_scale=1000.0)
+    with torch.no_grad():
+        (logits, aux), counts, secs, peak = _counted(
+            lambda: model.forward_batched(None, xs, graphs=graphs))
+        add(counts)
+        singles = [model(graphs.sample(i), xs[i]) for i in range(b)]
+        ref_logits, ref_aux = ref.forward_batched(None, xs_c,
+                                                  graphs=graphs_c)
+    err = float((logits - torch.stack([s[0] for s in singles])).abs().max())
+    cpu_err = float((logits.cpu() - ref_logits).abs().max())
+    emit({"phase": "multimodal", "path": "c_chains_dopri5",
+          "eval_nfe": aux["nfe"], "eval_seconds": secs,
+          "eval_launches": counts, "union_vs_per_sample_err": err,
+          "card_vs_cpu": {"logits_max_abs_err": cpu_err,
+                          "tol_logits": TOL_MM_REF,
+                          "nfe_cpu": ref_aux["nfe"]},
+          "nvidia_smi": smi})
+    check(cpu_err <= TOL_MM_REF and ref_aux["nfe"] == aux["nfe"],
+          f"multimodal (c) dopri5: card against CPU, logits {cpu_err}, "
+          f"NFE {ref_aux['nfe']} against {aux['nfe']}")
+    # one solve, a controller per sample: each sample's NFE its own solve's,
+    # the evaluations (and launches) the slowest sample's, not their sum
+    check(aux["nfe"] == [s[1]["nfe"] for s in singles]
+          and counts.get("spmm_csr", 0) == max(aux["nfe"])
+          and err <= TOL_UNION[1] + TOL_UNION[0] * float(logits.abs().max()),
+          f"multimodal (c) dopri5: NFE {aux['nfe']}, launches {counts}, "
+          f"err {err}")
+
+    # (d) a small multimodal model on the card against the CPU
+    refs = []
+    for label, block, method, chains in (
+            ("grid_dopri5", "constant", "dopri5", False),
+            ("chains_attention_rk4", "attention", "rk4", True)):
+        got = {}
+        for dev in (cuda, torch.device("cpu")):
+            small = build_clevr_style_dataset(
+                num_samples=6, grid=4, feat_dim=8, text_dim=6,
+                max_question_len=8, num_classes=5, seed=7, device=dev)
+            # chains: the questions on their graphs against the images;
+            # the grid: the images against the questions
+            feats, second = (small.questions, small.images) if chains \
+                else (small.images, small.questions)
+            # dopri5 above the f32 noise floor (graphax's default atol
+            # 1e-7 and rtol 1e-9 sit on it, where a borderline accept can
+            # flip between the card and the CPU: ROADMAP Queue 3)
+            cfg = run_multi.clevr_config(second.shape[-1]).replace(
+                block=block, method=method, heads=2, attention_dim=8,
+                input_dropout=0.0, dropout=0.0, tol_scale=1000.0)
+            m = MultimodalGNN(cfg, feats.shape[1], feats.shape[-1],
+                              5).to(dev)
+            m.reset_parameters(torch.Generator().manual_seed(9))
+            gen = torch.Generator().manual_seed(10)
+            with torch.no_grad():
+                for lin in (m.block.func.cross.Q2, m.block.func.cross.K2):
+                    lin.weight.copy_(0.3 * torch.randn(lin.weight.shape,
+                                                       generator=gen))
+                lg, ax = m.forward_batched(
+                    small.image_graph, torch.as_tensor(feats, device=dev),
+                    x2s=torch.as_tensor(second, device=dev),
+                    graphs=small.text_graphs_for(np.arange(6)) if chains
+                    else None)
+            got[dev.type] = (lg.cpu(), ax["nfe"])
+        err = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+        refs.append({"case": label, "max_abs_err": err, "tol": TOL_MM_REF,
+                     "nfe_cuda": got["cuda"][1], "nfe_cpu": got["cpu"][1]})
+        check(err <= TOL_MM_REF and got["cuda"][1] == got["cpu"][1],
+              f"multimodal (d) {refs[-1]}")
+    emit({"phase": "multimodal", "reference": refs})
+
+    # (e) the ResNet-101 trunk to layer3
+    sd = _random_resnet101()
+    x = torch.rand(8, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+    params = {k: v.to(cuda) for k, v in sd.items()}
+    xc = x.to(cuda)
+    with torch.no_grad():
+        feats = resnet_trunk(xc, params)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: resnet_trunk(xc, params), reps=5, warmup=1)
+        t0 = time.perf_counter()
+        want = resnet_trunk(x, sd)
+        cpu_s = time.perf_counter() - t0
+    scale = float(want.abs().max())
+    err = float((feats.cpu() - want).abs().max())
+    emit({"phase": "multimodal", "path": "e_resnet_trunk",
+          "shape": list(feats.shape), "ms": ms, "cpu_seconds": cpu_s,
+          "max_abs_err": err, "scale": scale, "tol": TOL_TRUNK,
+          "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32,
+          "nvidia_smi": smi})
+    check(tuple(feats.shape) == (8, 14, 14, 1024),
+          f"multimodal (e): trunk shape {tuple(feats.shape)}")
+    check(err <= TOL_TRUNK * scale, f"multimodal (e): trunk {err} of {scale}")
+
+    import importlib.util
+
+    emit({"phase": "multimodal", "not_on_card": {
+        "routes": ["the HDF5 cache (h5py)", "real CLEVR ingestion (PIL, "
+                   "h5py)", "text checkpoints (transformers)",
+                   "checkpoint weights (none in the repo)"],
+        "importable_here": {m: importlib.util.find_spec(m) is not None
+                            for m in ("h5py", "PIL", "transformers")}}})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "multimodal", "seconds": seconds, "launches": launches,
+          "nvidia_smi": smi})
+    check(seconds < 60.0, f"multimodal phase took {seconds:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=3,
@@ -4684,6 +5093,13 @@ def main(argv=None) -> int:
     for k, v in surface_launches.items():
         launches[k] = launches.get(k, 0) + v
 
+    # 11. the multimodal family: run_multi on MNIST's preset and the
+    # CLEVR-style data, per-sample chain graphs on their union, card
+    # against CPU, the ResNet-101 trunk
+    mm_launches = phase_multimodal(smi)
+    for k, v in mm_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
     # the kernels line (launches summed over the paths of phases 5 and 8):
     # times from phase 4 at the main path's shapes and
     # dtype (bf16); spmm_csr's at the residual edges, with its whole-graph
@@ -4957,6 +5373,12 @@ def main(argv=None) -> int:
                  ("max_abs_err", "ms", "plain_ms", "launches")}
             for dt in ("bfloat16", "float32")}
         kernels[i]["second_order"]["composition"] = comp
+    # phase 11: the launches on the multimodal paths (the union's A x and
+    # A^T g, the attention block's pinned values' gradient and its pin,
+    # which runs attention_kproj)
+    for i in (0, 1, 2, 9):
+        kernels[i]["multimodal_launches"] = mm_launches.get(
+            kernels[i]["name"], 0)
     kernels[1]["csc_second_order"] = {
         k: results[("sddmm", "bfloat16", "csc second order")].get(k)
         for k in numbers + ("all_miss_ms",)}

@@ -44,20 +44,23 @@ class AttentionBlock(nn.Module):
         return transformer_attention_apply(self.att_layer, self.cfg, graph,
                                            x)[0]
 
-    def pinned_values(self, graph, x, differentiable: bool):
+    def pinned_values(self, graph, x, differentiable: bool, y=None):
         """The operator's per-edge values pinned from x(0): the head-mean
-        attention (`attention_edge_means`)."""
+        attention (`attention_edge_means`), of x's cross-attention over
+        the second modality ``y`` under multi_modal."""
         return attention_edge_means(self.att_layer, self.cfg, graph, x,
-                                    differentiable=differentiable)
+                                    differentiable=differentiable, y=y)
 
-    def forward(self, graph, x, *, train: bool, t1=None, observer=None,
-                max_steps=None) -> BlockOutput:
+    def forward(self, graph, x, *, train: bool, y=None, t1=None,
+                observer=None, max_steps=None, samples=1) -> BlockOutput:
         cfg = self.cfg
         g = normalize_graph(cfg, graph)
         values = None
         if cfg.function == "laplacian":
             with record_function("graphax_torch.pin"):
-                values = self.pinned_values(g, x, differentiable=train)
-        fstate = make_fstate(g, x, attention=values, train=train, cfg=cfg)
+                values = self.pinned_values(g, x, differentiable=train, y=y)
+        fstate = make_fstate(g, x, attention=values, train=train, cfg=cfg,
+                             y=y)
         return integrate(cfg, self.func, fstate, x, train=train, t1=t1,
-                         observer=observer, max_steps=max_steps)
+                         observer=observer, max_steps=max_steps,
+                         samples=samples)

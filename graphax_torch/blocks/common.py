@@ -10,7 +10,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
-from graphax_torch.functions.common import FuncState, prepare_scalars
+from graphax_torch.functions.common import (
+    CrossTensors, FuncState, prepare_scalars,
+)
 from graphax_torch.functions.gat import GATFunction, gat_rhs
 from graphax_torch.functions.laplacian import laplacian_rhs
 from graphax_torch.functions.regularizers import (
@@ -24,7 +26,9 @@ from graphax_torch.kernels.windowed_spmm import densify_windows
 from graphax_torch.kernels.dense_path import (
     dense_adjacency_mask, densify, use_dense_attention,
 )
-from graphax_torch.ode import ODEResult, Observer, odeint, odeint_adjoint
+from graphax_torch.ode import (
+    ODEResult, Observer, odeint, odeint_adjoint,
+)
 from graphax_torch.sparse.graph import Graph
 from graphax_torch.sparse.ops import gcn_norm_weights, rw_norm_weights
 
@@ -58,7 +62,7 @@ def normalize_graph(cfg, graph: Graph) -> Graph:
 
 
 def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
-                train: bool, cfg=None) -> FuncState:
+                train: bool, cfg=None, y=None) -> FuncState:
     """The per-forward FuncState: edge values cast to the state dtype and
     permuted to the CSC order once here, not at every solver evaluation.
     On a dense graph the values become the ``[N, N]`` operator here, once
@@ -80,9 +84,14 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
     values ``wb_t`` feed only the product's backward (``dx = A^T g``), so
     they are detached: the values' gradient is the SDDMM's, and the
     adjoint carries no a_p for them (graphax's state off its tiled layout
-    has no such leaf)."""
+    has no such leaf). ``y``: the second modality of a multimodal model,
+    carried to the RHS (graphax :57)."""
     values = graph.edge_weight if attention is None else attention
-    pinned = attention is not None
+    fstate = _make_fstate(graph, x, values, attention is not None, cfg)
+    return fstate if y is None else dataclasses.replace(fstate, y=y)
+
+
+def _make_fstate(graph, x, values, pinned, cfg) -> FuncState:
     if cfg is not None and cfg.function == "GAT":
         # GAT reads the graph alone: its attention is recomputed at every
         # evaluation
@@ -101,7 +110,8 @@ def make_fstate(graph: Graph, x: torch.Tensor, attention=None, *,
     if graph.strategy == "windowed":
         wl = graph.windows
         if nl:
-            windowed = cfg.attention_norm_idx == 0 and not cfg.mix_features
+            windowed = cfg.attention_norm_idx == 0 and not cfg.mix_features \
+                and not cfg.multi_modal
             dense = densify_windows(values, wl, x.dtype) \
                 if cfg.reweight_attention and windowed else None
             return FuncState(graph=graph, x0=x.detach(), dense=dense,
@@ -135,7 +145,8 @@ def _windowed_zero_leaves(g: Graph, blocks_read: bool,
 def integrate(cfg, func, fstate: FuncState, x, *, train: bool,
               t1: Optional[float] = None, observer: Optional[Observer] = None,
               max_steps: Optional[int] = None,
-              augment: Optional[Callable] = None) -> BlockOutput:
+              augment: Optional[Callable] = None,
+              samples: int = 1) -> BlockOutput:
     """Run the solve as the reference blocks invoke torchdiffeq
     (`src/block_constant.py:27-58`): the adjoint integrator when
     ``cfg.adjoint and train``, the plain one otherwise (autograd through the
@@ -151,7 +162,13 @@ def integrate(cfg, func, fstate: FuncState, x, *, train: bool,
     transformer RHS leaves the kernel routes whose backward has no
     derivative). ``augment`` maps the RHS ``f(t, x)`` to the RHS of a
     tuple state ``x`` (graphax's ``rhs_override``, the higher-order
-    block's order reduction); ``z`` is then that tuple."""
+    block's order reduction); ``z`` is then that tuple.
+
+    ``samples`` B > 1: ``x`` holds B independent samples, a ``[B, N, D]``
+    state or the ``[B N, D]`` state of a block-diagonal union of B graphs
+    (`graphax_torch.models.multimodal`), solved at once on the plain path:
+    an adaptive method keeps its controller, budget and NFE per sample
+    (`odeint`'s ``samples``), as ``jax.vmap`` of graphax's solve does."""
     t_end = float(cfg.time if t1 is None else t1)
     state_dtype = x[0].dtype if isinstance(x, tuple) else x.dtype
     alpha, beta = prepare_scalars(func, cfg, state_dtype)
@@ -178,6 +195,10 @@ def integrate(cfg, func, fstate: FuncState, x, *, train: bool,
                   step_size=cfg.step_size, max_nfe=cfg.max_nfe,
                   max_steps=max_steps)
     if cfg.adjoint and train:
+        if samples > 1:
+            raise ValueError("the adjoint solves one sample: its controllers "
+                             "would be the batch's (solve each sample "
+                             "alone)")
         # graphax's adjoint state (`_split_diff_state`) holds the a_p of
         # alpha_eff, beta_eff, x0, the edge weights and every parameter of
         # the RHS, which the port integrates under an adaptive method even
@@ -194,8 +215,13 @@ def integrate(cfg, func, fstate: FuncState, x, *, train: bool,
         # the dense blocks and the blocked residual tables
         # (`_windowed_zero_leaves`): the Laplacian RHS reads the blocks
         # (their a_p is `win_bwd_dense`'s at every backward NFE) and the
-        # residual values, the transformer the blocks under reweight.
+        # residual values, the transformer the blocks under reweight. A
+        # multimodal model's second modality y is a leaf of graphax's state
+        # (its a_p integrated, discarded), as is every tensor the
+        # cross-attention reads (the Laplacian RHS's carried at their end
+        # of the tensors below, with y after them).
         zero = sum(p.numel() for p in func.parameters())
+        y2 = fstate.y if cfg.multi_modal else None
         if isinstance(func, (TransformerFunction, GATFunction)):
             att = func.adjoint_tensors()
             params = (alpha, beta, fstate.x0, *att)
@@ -221,32 +247,50 @@ def integrate(cfg, func, fstate: FuncState, x, *, train: bool,
                 params += (g.edge_weight,)
                 track += (True,)
                 zero -= g.edge_buffer_size
-
-            def base(p, t, y):
-                if reweight:
-                    return rhs(cfg, g.with_weights(p[-1]), p[:-1], y)
-                return rhs(cfg, g, p, y)
-        elif g.strategy == "dense":
-            params = (alpha, beta, fstate.x0, fstate.dense)
-            track = (True,) * len(params)
-            zero += g.edge_buffer_size * (2 if fstate.pinned else 1)
-
-            def base(p, t, y):
-                return laplacian_rhs(cfg, g, *p[:3], None, None, y,
-                                     dense=p[3])
-        else:
-            params = (alpha, beta, fstate.x0, fstate.wb, fstate.wb_t)
-            track = (True, True, True, True, False)
-            zero += g.edge_buffer_size if fstate.pinned else 0
-            if g.strategy == "windowed":
-                params += (fstate.dense,)
+            if y2 is not None:
+                params += (y2,)
                 track += (True,)
-                zero += g.edge_buffer_size + _windowed_zero_leaves(g, True,
-                                                                   True)
 
-            def base(p, t, y):
-                return laplacian_rhs(cfg, g, *p[:5], y,
-                                     dense=p[5] if len(p) > 5 else None)
+            def base(p, t, s):
+                yy = None
+                if y2 is not None:
+                    p, yy = p[:-1], p[-1]
+                if reweight:
+                    return rhs(cfg, g.with_weights(p[-1]), p[:-1], s, y=yy)
+                return rhs(cfg, g, p, s, y=yy)
+        else:
+            if g.strategy == "dense":
+                params = (alpha, beta, fstate.x0, fstate.dense)
+                track = (True,) * len(params)
+                zero += g.edge_buffer_size * (2 if fstate.pinned else 1)
+            else:
+                params = (alpha, beta, fstate.x0, fstate.wb, fstate.wb_t)
+                track = (True, True, True, True, False)
+                zero += g.edge_buffer_size if fstate.pinned else 0
+                if g.strategy == "windowed":
+                    params += (fstate.dense,)
+                    track += (True,)
+                    zero += g.edge_buffer_size + _windowed_zero_leaves(
+                        g, True, True)
+            n_op = len(params)
+            if y2 is not None:
+                cross = func.cross_tensors()
+                params += (*cross, y2)
+                track += (True,) * (len(cross) + 1)
+                zero -= sum(p.numel() for p in cross)
+
+            def base(p, t, s):
+                cross = yy = None
+                if y2 is not None:
+                    cross = CrossTensors.from_flat(p[n_op:n_op + 6])
+                    yy = p[-1]
+                op = p[:n_op]
+                if g.strategy == "dense":
+                    return laplacian_rhs(cfg, g, *op[:3], None, None, s,
+                                         dense=op[3], cross=cross, y=yy)
+                return laplacian_rhs(cfg, g, *op[:5], s,
+                                     dense=op[5] if n_op > 5 else None,
+                                     cross=cross, y=yy)
 
         def f_adj(p, t, y):
             return wrap(lambda tt, yy: base(p, tt, yy))(t, y)
@@ -262,8 +306,10 @@ def integrate(cfg, func, fstate: FuncState, x, *, train: bool,
     else:
         call = wrap(lambda t, y: func.rhs(alpha, beta, fstate, t, y))
         with record_function("graphax_torch.solve"):
+            if samples > 1 and names:
+                raise ValueError("a batched solve takes no regulariser")
             res = odeint(call, state0, 0.0, t_end, observer=observer,
-                         **common)
+                         samples=samples, **common)
     if names:
         return BlockOutput(z=res.y[0], result=res, reg_states=res.y[1:])
     return BlockOutput(z=res.y, result=res)

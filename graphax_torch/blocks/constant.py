@@ -20,9 +20,10 @@ class ConstantBlock(nn.Module):
     def reset_parameters(self, generator) -> None:
         self.func.reset_parameters(generator)
 
-    def forward(self, graph, x, *, train: bool, t1=None, observer=None,
-                max_steps=None) -> BlockOutput:
+    def forward(self, graph, x, *, train: bool, y=None, t1=None,
+                observer=None, max_steps=None, samples=1) -> BlockOutput:
         g = normalize_graph(self.cfg, graph)
-        fstate = make_fstate(g, x, train=train, cfg=self.cfg)
+        fstate = make_fstate(g, x, train=train, cfg=self.cfg, y=y)
         return integrate(self.cfg, self.func, fstate, x, train=train, t1=t1,
-                         observer=observer, max_steps=max_steps)
+                         observer=observer, max_steps=max_steps,
+                         samples=samples)

@@ -84,8 +84,8 @@ class HardAttentionBlock(EdgeAttentionBlock):
         sums = sums.to(att.dtype)[index]
         return torch.where(keep, kept / (sums + EPS), torch.zeros_like(att))
 
-    def forward(self, graph, x, *, train: bool, t1=None, observer=None,
-                max_steps=None) -> BlockOutput:
+    def forward(self, graph, x, *, train: bool, y=None, t1=None,
+                observer=None, max_steps=None) -> BlockOutput:
         cfg = self.cfg
         g = normalize_graph(cfg, graph)
         mask = g.edge_mask
@@ -103,6 +103,6 @@ class HardAttentionBlock(EdgeAttentionBlock):
                 edge_vals = torch.where(mask, mean_att,
                                         torch.zeros_like(mean_att))
         fstate = make_fstate(g, x, attention=edge_vals, train=train,
-                             cfg=cfg)
+                             cfg=cfg, y=y)
         return integrate(cfg, self.func, fstate, x, train=train, t1=t1,
                          observer=observer, max_steps=max_steps)

@@ -40,11 +40,11 @@ class HigherOrderBlock(nn.Module):
     def reset_parameters(self, generator) -> None:
         self.func.reset_parameters(generator)
 
-    def forward(self, graph, x, *, train: bool, t1=None, observer=None,
-                max_steps=None) -> BlockOutput:
+    def forward(self, graph, x, *, train: bool, y=None, t1=None,
+                observer=None, max_steps=None) -> BlockOutput:
         cfg = self.cfg
         g = normalize_graph(cfg, graph)
-        fstate = make_fstate(g, x, train=train, cfg=cfg)
+        fstate = make_fstate(g, x, train=train, cfg=cfg, y=y)
         if self.order == 1:
             return integrate(cfg, self.func, fstate, x, train=train, t1=t1,
                              observer=observer, max_steps=max_steps)

@@ -31,5 +31,7 @@ class MixedBlock(AttentionBlock):
         mean = mean.to(torch.promote_types(mean.dtype, gamma.dtype))
         return mean * (1 - gamma) + graph.edge_weight * gamma
 
-    def pinned_values(self, graph, x, differentiable: bool):
+    def pinned_values(self, graph, x, differentiable: bool, y=None):
+        """The mix (graphax's pin here reads no ``y``, `blocks/mixed.py:
+        34-35`)."""
         return self.mixed_attention(graph, x, differentiable)

@@ -102,8 +102,8 @@ class RewireAttentionBlock(EdgeAttentionBlock):
         grow = lambda t: torch.nn.functional.pad(t[order], (0, pad))
         return g2.with_weights(grow(w)), grow(vals)
 
-    def forward(self, graph, x, *, train: bool, t1=None, observer=None,
-                max_steps=None) -> BlockOutput:
+    def forward(self, graph, x, *, train: bool, y=None, t1=None,
+                observer=None, max_steps=None) -> BlockOutput:
         cfg = self.cfg
         g = normalize_graph(cfg, graph)
         with torch.no_grad():
@@ -115,6 +115,6 @@ class RewireAttentionBlock(EdgeAttentionBlock):
                 edge_vals = torch.where(g.edge_mask, att,
                                         torch.zeros_like(att))
         fstate = make_fstate(g_run, x, attention=edge_vals, train=train,
-                             cfg=cfg)
+                             cfg=cfg, y=y)
         return integrate(cfg, self.func, fstate, x, train=train, t1=t1,
                          observer=observer, max_steps=max_steps)

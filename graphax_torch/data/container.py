@@ -39,6 +39,15 @@ class GraphData:
             pos_encoding=None if self.pos_encoding is None
             else self.pos_encoding.to(device))
 
+    def with_masks(self, train_mask, val_mask, test_mask) -> "GraphData":
+        """The split masks (numpy or tensors) as bool on the features'
+        device."""
+        m = lambda t: torch.as_tensor(t, dtype=torch.bool,
+                                      device=self.x.device)
+        return dataclasses.replace(self, train_mask=m(train_mask),
+                                   val_mask=m(val_mask),
+                                   test_mask=m(test_mask))
+
     def with_graph(self, graph: Graph) -> "GraphData":
         return dataclasses.replace(self, graph=graph)
 

@@ -14,8 +14,11 @@ kernel on the card, its CSC transpose and `sddmm` in the backward for x
 and the attention values), the port's counterpart of graphax's tiled
 SpMM; every graph carries the CSR layout, so it serves each strategy.
 The scores, the softmax and the ``mix_features`` product are plain
-PyTorch, as graphax leaves them to XLA. Parameters as graphax's tree:
-``att.W [in, A]``, ``att.Wout [A, in]``, ``att.a [2 A / H]``,
+PyTorch, as graphax leaves them to XLA. Under ``multi_modal`` with the
+second modality ``y`` the scores and ``W x`` read the state's cross-modal
+attention over ``y`` (``att.cross``), while ``A`` multiplies the state
+itself (graphax `gat.py:43-44`). Parameters as graphax's tree: ``att.W
+[in, A]``, ``att.Wout [A, in]``, ``att.a [2 A / H]``, ``att.cross``,
 ``alpha_train``, ``beta_train``."""
 
 from __future__ import annotations
@@ -26,7 +29,10 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from graphax_torch.functions.common import apply_alpha_beta, init_alpha_beta
+from graphax_torch.functions.common import (
+    CrossModal, CrossTensors, apply_alpha_beta, cross_modal_apply,
+    init_alpha_beta,
+)
 from graphax_torch.kernels.dispatch import (
     segment_softmax_auto, spmm_multihead_auto,
 )
@@ -52,14 +58,13 @@ def xavier_normal_(t: torch.Tensor, generator: torch.Generator,
 class GATAttention(nn.Module):
     def __init__(self, cfg, in_dim: int):
         super().__init__()
-        if cfg.multi_modal:
-            raise NotImplementedError("multimodal cross-attention is not "
-                                      "ported yet (ROADMAP Queue 1, item 10)")
         att = cfg.attention_dim
         self.cfg = cfg
         self.W = nn.Parameter(torch.empty(in_dim, att))
         self.Wout = nn.Parameter(torch.empty(att, in_dim))
         self.a = nn.Parameter(torch.empty(2 * (att // cfg.heads)))
+        if cfg.multi_modal:
+            self.cross = CrossModal(in_dim, cfg.second_modality_dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         xavier_normal_(self.W, generator, 1.414)
@@ -68,11 +73,16 @@ class GATAttention(nn.Module):
         a = xavier_normal_(torch.empty(1, dk2, 1, 1), generator, 1.414)
         with torch.no_grad():
             self.a.copy_(a.reshape(dk2))
+        if self.cfg.multi_modal:
+            self.cross.reset_parameters(generator)
 
 
-def gat_attention_apply(att, cfg, graph, x):
+def gat_attention_apply(att, cfg, graph, x, y=None):
     """(attention ``[E_pad, H]`` normalised over the real edges of each row
-    or column, ``W x [N, A]``), graphax's `gat_attention_apply`."""
+    or column, ``W x [N, A]``), graphax's `gat_attention_apply`; under
+    ``multi_modal`` with a ``y``, of x's cross-attention over ``y``."""
+    if cfg.multi_modal and y is not None:
+        x = cross_modal_apply(att.cross, x, y)
     wx = x.to(att.W.dtype) @ att.W
     dk = cfg.attention_dim // cfg.heads
     h = wx.reshape(x.shape[0], cfg.heads, dk)
@@ -84,10 +94,10 @@ def gat_attention_apply(att, cfg, graph, x):
     return attention, wx
 
 
-def gat_ax(cfg, att, graph, x):
+def gat_ax(cfg, att, graph, x, y=None):
     """``A(x) x`` of the GAT RHS, in x's dtype (under ``mix_features`` in
-    Wout's)."""
-    attention, wx = gat_attention_apply(att, cfg, graph, x)
+    Wout's); ``y``: the second modality."""
+    attention, wx = gat_attention_apply(att, cfg, graph, x, y)
     mask = graph.edge_mask
     if cfg.mix_features:
         att_m = attention * mask[:, None]
@@ -104,16 +114,20 @@ class _GATTensors(NamedTuple):
     W: torch.Tensor
     a: torch.Tensor
     Wout: torch.Tensor | None
+    cross: CrossTensors | None = None
 
 
-def gat_rhs(cfg, graph, p, x):
+def gat_rhs(cfg, graph, p, x, y=None):
     """``alpha (A(x) x - x) [+ beta x0]`` as a function of its tensors ``p =
-    (alpha, beta, x0, W, a[, Wout])`` (the adjoint differentiates it with
-    respect to each)."""
+    (alpha, beta, x0, W, a[, Wout][, <CrossTensors>])`` (the adjoint
+    differentiates it with respect to each); ``y``, the second
+    modality."""
     alpha, beta, x0, w, a, *rest = p
-    att = _GATTensors(w, a, rest[0] if rest else None)
-    return apply_alpha_beta(cfg, alpha, beta, gat_ax(cfg, att, graph, x), x,
-                            x0)
+    wout = rest.pop(0) if cfg.mix_features else None
+    cross = CrossTensors.from_flat(rest) if cfg.multi_modal else None
+    att = _GATTensors(w, a, wout, cross)
+    return apply_alpha_beta(cfg, alpha, beta, gat_ax(cfg, att, graph, x, y),
+                            x, x0)
 
 
 class GATFunction(nn.Module):
@@ -136,9 +150,12 @@ class GATFunction(nn.Module):
         """The attention tensors `gat_rhs` reads after alpha, beta and x0."""
         att = self.att
         return (att.W, att.a) + ((att.Wout,) if self.cfg.mix_features
-                                 else ())
+                                 else ()) \
+            + (CrossTensors.flatten(att.cross) if self.cfg.multi_modal
+               else ())
 
     def rhs(self, alpha, beta, fstate, t, x):
         return apply_alpha_beta(self.cfg, alpha, beta,
-                                gat_ax(self.cfg, self.att, fstate.graph, x),
+                                gat_ax(self.cfg, self.att, fstate.graph, x,
+                                       fstate.y),
                                 x, fstate.x0)

@@ -50,8 +50,16 @@ in ``beltrami_exp`` mode on CSR with the per-edge gradient replayed
 (``pallas_bwd_supported`` excludes it). Beltrami on the column route
 raises (ROADMAP Queue 1, item 9).
 
+Under ``multi_modal`` with the second modality ``y``, the Q/K (and V)
+projections read the state's cross-modal attention over ``y`` in place of
+the state (Beltrami: each half through its own, ``cross`` and
+``cross_p``), and ``A`` multiplies the state itself (graphax :124-126,
+139-140, 210-211). The pin, flash, K5 and the column route exclude it, as
+graphax's gates do: it takes the dense route (K6 keeps graphax's gate) or
+the per-edge path.
+
 The Q, K and V projections are dense matmuls here, as graphax leaves them
-to XLA. Not ported yet, and raising: multi_modal (item 10)."""
+to XLA."""
 
 from __future__ import annotations
 
@@ -61,7 +69,10 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from graphax_torch.functions.common import apply_alpha_beta, init_alpha_beta
+from graphax_torch.functions.common import (
+    CrossModal, CrossTensors, _Linear, apply_alpha_beta, cross_modal_apply,
+    init_alpha_beta,
+)
 from graphax_torch.kernels.attention_pin import attention_pin
 from graphax_torch.kernels.dense_path import (
     dense_adjacency_mask, dense_matmul, dense_transformer_attention,
@@ -98,7 +109,9 @@ class TransformerAttention(nn.Module):
     :func:`beltrami_exp`, Qx/Kx/Vx on the features (the state less its
     ``pos_enc_hidden_dim`` positional columns), Qp/Kp/Vp on the positional
     columns, and each kernel's output_var and lengthscale (graphax
-    :45-60)."""
+    :45-60). Under ``multi_modal`` the cross-attention ``cross`` (on the
+    features under Beltrami, with ``cross_p`` on the positional
+    columns)."""
 
     def __init__(self, cfg, in_dim: int):
         super().__init__()
@@ -112,6 +125,10 @@ class TransformerAttention(nn.Module):
                 setattr(self, name, nn.Linear(cfg.pos_enc_hidden_dim, att))
             for name in _BELTRAMI_SCALARS:
                 setattr(self, name, nn.Parameter(torch.ones(())))
+            if cfg.multi_modal:
+                self.cross = CrossModal(feat_in, cfg.second_modality_dim)
+                self.cross_p = CrossModal(cfg.pos_enc_hidden_dim,
+                                          cfg.second_modality_dim)
         else:
             self.Q = nn.Linear(in_dim, att)
             self.K = nn.Linear(in_dim, att)
@@ -119,11 +136,16 @@ class TransformerAttention(nn.Module):
             if cfg.attention_type == "exp_kernel":
                 self.output_var = nn.Parameter(torch.ones(()))
                 self.lengthscale = nn.Parameter(torch.ones(()))
+            if cfg.multi_modal:
+                self.cross = CrossModal(in_dim, cfg.second_modality_dim)
         self.Wout = nn.Linear(att // cfg.heads, in_dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for layer in self.children():
-            linear_init(layer, generator, "const", 1e-5)
+            if isinstance(layer, CrossModal):
+                layer.reset_parameters(generator)
+            else:
+                linear_init(layer, generator, "const", 1e-5)
         for p in self.parameters(recurse=False):
             nn.init.ones_(p)
 
@@ -135,7 +157,7 @@ def attention_means_supported(cfg) -> bool:
 
 
 def attention_edge_means(att: TransformerAttention, cfg, graph, x, *,
-                         differentiable: bool) -> torch.Tensor:
+                         differentiable: bool, y=None) -> torch.Tensor:
     """Head-mean normalised attention per edge, ``[E_pad]`` (0 on padding):
     the blocks' pin (graphax `attention_edge_means`, :162-189).
 
@@ -153,9 +175,10 @@ def attention_edge_means(att: TransformerAttention, cfg, graph, x, *,
     (f32 for a bf16 state). The attention and mixed blocks take it for
     training, where the gradient reaches their attention layer through the
     pinned operator, and every config outside the kernel's gate (column
-    normalisation, squareplus) takes it in evaluation too."""
+    normalisation, squareplus, multi_modal) takes it in evaluation too;
+    ``y`` is the second modality there."""
     if differentiable or not attention_means_supported(cfg):
-        return edge_attention(att, cfg, graph, x)[0].mean(1)
+        return edge_attention(att, cfg, graph, x, y)[0].mean(1)
     if graph.strategy != "sparse":
         x = x.to(torch.promote_types(x.dtype, torch.float32))
     with torch.no_grad():
@@ -174,8 +197,13 @@ def attention_edge_means(att: TransformerAttention, cfg, graph, x, *,
 # the plain per-edge path
 # ----------------------------------------------------------------------
 
-_MULTI_MODAL = ("multimodal cross-attention is not ported yet (ROADMAP Queue "
-                "1, item 10: M9)")
+def _crossed(att, cfg, x, y):
+    """The state the projections read: its cross-modal attention over
+    ``y`` under ``multi_modal`` with a ``y`` (graphax :139-140), else x."""
+    if cfg.multi_modal and y is not None:
+        return cross_modal_apply(att.cross, x, y)
+    return x
+
 
 def _split_heads(z, heads: int):
     """``[N, A] -> [N, H, A / H]``, head-major (`:78-82`)."""
@@ -205,11 +233,16 @@ def _edge_scores(cfg, att, q_src, k_dst):
     raise ValueError(f"unknown attention_type {cfg.attention_type!r}")
 
 
-def _beltrami_edge_scores(cfg, att, graph, x):
+def _beltrami_edge_scores(cfg, att, graph, x, y=None):
     """``[E_pad, H]`` Beltrami scores (graphax :118-137): the product of
-    the feature and positional Gaussian kernels of each edge."""
+    the feature and positional Gaussian kernels of each edge; under
+    ``multi_modal`` with a ``y`` each half first through its own
+    cross-attention (:124-126)."""
     heads = cfg.heads
     feat, pos = beltrami_split(cfg, x)
+    if cfg.multi_modal and y is not None:
+        feat = cross_modal_apply(att.cross, feat, y)
+        pos = cross_modal_apply(att.cross_p, pos, y)
 
     def sq(lq, lk, z):
         q = _split_heads(linear_apply(lq, z), heads)
@@ -220,16 +253,16 @@ def _beltrami_edge_scores(cfg, att, graph, x):
                             sq(att.Qp, att.Kp, pos))
 
 
-def edge_attention(att, cfg, graph, x):
+def edge_attention(att, cfg, graph, x, y=None):
     """(attention ``[E_pad, H]`` normalised over the real edges of each row
     (``attention_norm_idx=0``) or column, the raw scores ``[E_pad, H]``):
-    the part of `transformer_attention_apply` that reads only Q and K."""
-    if cfg.multi_modal:
-        raise NotImplementedError(_MULTI_MODAL)
+    the part of `transformer_attention_apply` that reads only Q and K (and
+    the cross-attention over ``y``)."""
     heads = cfg.heads
     if beltrami_exp(cfg):
-        prods = _beltrami_edge_scores(cfg, att, graph, x)
+        prods = _beltrami_edge_scores(cfg, att, graph, x, y)
     else:
+        x = _crossed(att, cfg, x, y)
         q = _split_heads(linear_apply(att.Q, x), heads)
         k = _split_heads(linear_apply(att.K, x), heads)
         prods = _edge_scores(cfg, att, q[graph.row], k[graph.col])
@@ -244,11 +277,16 @@ def edge_attention(att, cfg, graph, x):
     return attention, prods
 
 
-def transformer_attention_apply(att: TransformerAttention, cfg, graph, x):
+def transformer_attention_apply(att: TransformerAttention, cfg, graph, x,
+                                y=None):
     """(attention ``[E_pad, H]`` normalised over the real edges of each row
     (``attention_norm_idx=0``) or column, (v ``[N, H, Dh]``, the raw scores
-    ``[E_pad, H]``)); v is None under Beltrami, as graphax's."""
-    attention, prods = edge_attention(att, cfg, graph, x)
+    ``[E_pad, H]``)); v is None under Beltrami, as graphax's. Under
+    ``multi_modal`` with a ``y``, q, k and v read the state's
+    cross-attention over ``y``."""
+    if not beltrami_exp(cfg):
+        x, y = _crossed(att, cfg, x, y), None
+    attention, prods = edge_attention(att, cfg, graph, x, y)
     v = None if beltrami_exp(cfg) else \
         _split_heads(linear_apply(att.V, x), cfg.heads)
     return attention, (v, prods)
@@ -270,24 +308,21 @@ def multiply_attention(att: TransformerAttention, cfg, graph, x, attention,
 # the RHS
 # ----------------------------------------------------------------------
 
-class _Linear(NamedTuple):
-    weight: torch.Tensor
-    bias: torch.Tensor
-
-
 class _Att(NamedTuple):
     """The attention layer's tensors that the RHS reads, as plain tensors,
     for the routes of :func:`attention_ax`: Q and K, exp_kernel's
-    output_var and lengthscale, and under mix_features V and Wout.
-    :meth:`flatten` and :meth:`from_flat` hold their one flat layout, that
-    of the adjoint's tensors and of :class:`ReplayAttention`'s: ``(Wq, bq,
-    Wk, bk[, output_var, lengthscale][, Wv, bv, Wout, bout])``."""
+    output_var and lengthscale, under mix_features V and Wout, and under
+    multi_modal the cross-attention. :meth:`flatten` and :meth:`from_flat`
+    hold their one flat layout, that of the adjoint's tensors and of
+    :class:`ReplayAttention`'s: ``(Wq, bq, Wk, bk[, output_var,
+    lengthscale][, Wv, bv, Wout, bout][, <CrossTensors>])``."""
     Q: _Linear
     K: _Linear
     output_var: torch.Tensor | None = None
     lengthscale: torch.Tensor | None = None
     V: _Linear | None = None
     Wout: _Linear | None = None
+    cross: CrossTensors | None = None
 
     @staticmethod
     def flatten(cfg, att) -> tuple:
@@ -298,26 +333,31 @@ class _Att(NamedTuple):
             out += (att.output_var, att.lengthscale)
         if cfg.mix_features:
             out += (att.V.weight, att.V.bias, att.Wout.weight, att.Wout.bias)
+        if cfg.multi_modal:
+            out += CrossTensors.flatten(att.cross)
         return out
 
     @classmethod
     def from_flat(cls, cfg, flat) -> tuple:
         """(the `_Att` at the front of ``flat``, the tensors after it)."""
         qw, qb, kw, kb, *rest = flat
-        ov = ls = v = wout = None
+        ov = ls = v = wout = cross = None
         if cfg.attention_type == "exp_kernel":
             ov, ls, *rest = rest
         if cfg.mix_features:
             vw, vb, ow, ob, *rest = rest
             v, wout = _Linear(vw, vb), _Linear(ow, ob)
-        return (cls(_Linear(qw, qb), _Linear(kw, kb), ov, ls, v, wout),
-                tuple(rest))
+        if cfg.multi_modal:
+            cross, rest = CrossTensors.from_flat(rest[:6]), rest[6:]
+        return (cls(_Linear(qw, qb), _Linear(kw, kb), ov, ls, v, wout,
+                    cross), tuple(rest))
 
 
 class _BeltramiAtt(NamedTuple):
     """`_Att`'s counterpart under :func:`beltrami_exp`: the tensors its
     scores read, in the flat layout ``(Wqx, bqx, Wkx, bkx, Wqp, bqp, Wkp,
-    bkp, output_var_x, lengthscale_x, output_var_p, lengthscale_p)``."""
+    bkp, output_var_x, lengthscale_x, output_var_p, lengthscale_p[,
+    <cross's CrossTensors>, <cross_p's>])``."""
     Qx: _Linear
     Kx: _Linear
     Qp: _Linear
@@ -326,6 +366,8 @@ class _BeltramiAtt(NamedTuple):
     lengthscale_x: torch.Tensor
     output_var_p: torch.Tensor
     lengthscale_p: torch.Tensor
+    cross: CrossTensors | None = None
+    cross_p: CrossTensors | None = None
 
     @staticmethod
     def flatten(cfg, att) -> tuple:
@@ -333,12 +375,19 @@ class _BeltramiAtt(NamedTuple):
         for name in ("Qx", "Kx", "Qp", "Kp"):
             layer = getattr(att, name)
             out += (layer.weight, layer.bias)
-        return out + tuple(getattr(att, n) for n in _BELTRAMI_SCALARS)
+        out += tuple(getattr(att, n) for n in _BELTRAMI_SCALARS)
+        if cfg.multi_modal:
+            out += CrossTensors.flatten(att.cross) \
+                + CrossTensors.flatten(att.cross_p)
+        return out
 
     @classmethod
     def from_flat(cls, cfg, flat) -> tuple:
         lin = [_Linear(flat[i], flat[i + 1]) for i in range(0, 8, 2)]
-        return cls(*lin, *flat[8:12]), tuple(flat[12:])
+        if not cfg.multi_modal:
+            return cls(*lin, *flat[8:12]), tuple(flat[12:])
+        return (cls(*lin, *flat[8:12], CrossTensors.from_flat(flat[12:18]),
+                    CrossTensors.from_flat(flat[18:24])), tuple(flat[24:]))
 
 
 def _att_tensors(cfg):
@@ -359,7 +408,7 @@ def flash_dense_gate(cfg, n: int) -> bool:
 
 
 def dense_rhs_ax(att: TransformerAttention, cfg, graph, x, mask=None,
-                 use_flash=None) -> torch.Tensor:
+                 use_flash=None, y=None) -> torch.Tensor:
     """``A(x) x`` on a dense graph (graphax `dense_rhs_ax`, :201-243), in
     x's dtype. Where ``use_flash`` (default: x on the card and
     :func:`flash_dense_gate`), the masked flash kernel per head on q
@@ -367,9 +416,12 @@ def dense_rhs_ax(att: TransformerAttention, cfg, graph, x, mask=None,
     the head mean in f32; else the materialised ``[H, N, N]`` attention's
     head mean times x, f32 sums, or under mix_features its heads times v's
     (f32 sums, the head mean in x's dtype) through Wout. ``mask`` is the
-    graph's adjacency mask if the caller has it."""
-    q = _split_heads(linear_apply(att.Q, x), cfg.heads)
-    k = _split_heads(linear_apply(att.K, x), cfg.heads)
+    graph's adjacency mask if the caller has it. Under multi_modal with a
+    ``y``, q, k (and v) come from the state's cross-attention over ``y``,
+    the values multiplied stay x (graphax :210-211)."""
+    x_att = _crossed(att, cfg, x, y)
+    q = _split_heads(linear_apply(att.Q, x_att), cfg.heads)
+    k = _split_heads(linear_apply(att.K, x_att), cfg.heads)
     if use_flash is None:
         use_flash = x.is_cuda and flash_dense_gate(cfg, graph.num_nodes)
     if mask is None:
@@ -381,28 +433,29 @@ def dense_rhs_ax(att: TransformerAttention, cfg, graph, x, mask=None,
         return out.float().mean(0).to(x.dtype)
     att_w, _ = dense_transformer_attention(att, cfg, graph, q, k, mask=mask)
     if cfg.mix_features:
-        v = _split_heads(linear_apply(att.V, x), cfg.heads).transpose(0, 1)
+        v = _split_heads(linear_apply(att.V, x_att),
+                         cfg.heads).transpose(0, 1)
         vx = torch.einsum("hnm,hmd->hnd", att_w.float(), v.float())
         return linear_apply(att.Wout, vx.mean(0).to(x.dtype))
     return dense_matmul(att_w.mean(0), x)
 
 
-def _dense_ax(cfg, att, graph, x, mask):
-    return dense_rhs_ax(att, cfg, graph, x, mask=mask)
+def _dense_ax(cfg, att, graph, x, mask, y=None):
+    return dense_rhs_ax(att, cfg, graph, x, mask=mask, y=y)
 
 
-def _dense_ax_plain(cfg, att, graph, x, mask):
-    return dense_rhs_ax(att, cfg, graph, x, mask=mask, use_flash=False)
+def _dense_ax_plain(cfg, att, graph, x, mask, y=None):
+    return dense_rhs_ax(att, cfg, graph, x, mask=mask, use_flash=False, y=y)
 
 
-def edge_ax_plain(cfg, att, graph, x):
+def edge_ax_plain(cfg, att, graph, x, y=None):
     """``A(x) x`` through the plain per-edge path (`edge_attention` +
     `multiply_attention`, v under mix_features), with autograd: graphax's
     route past the kernels' gates, and the replay behind the gradient of
     the column route and of the CSR flash forward."""
-    attention, _ = edge_attention(att, cfg, graph, x)
-    v = _split_heads(linear_apply(att.V, x), cfg.heads) \
-        if cfg.mix_features else None
+    attention, _ = edge_attention(att, cfg, graph, x, y)
+    v = _split_heads(linear_apply(att.V, _crossed(att, cfg, x, y)),
+                     cfg.heads) if cfg.mix_features else None
     return multiply_attention(att, cfg, graph, x, attention, v)
 
 
@@ -463,7 +516,7 @@ def attention_route(cfg, graph, d: int, second_order: bool = False) -> str:
     bel = beltrami_exp(cfg)
     row_norm = cfg.attention_norm_idx == 0
     windowed = graph.strategy == "windowed" and row_norm \
-        and not cfg.mix_features
+        and not cfg.mix_features and not cfg.multi_modal
     if second_order:
         return "windowed_plain" if windowed else "edge"
     if use_dense_attention(graph, cfg.heads):
@@ -478,7 +531,7 @@ def attention_route(cfg, graph, d: int, second_order: bool = False) -> str:
 
 
 def attention_ax(cfg, att, graph, x, dense=None, mask=None, *,
-                 vjp_now: bool = False, second_order: bool = False
+                 vjp_now: bool = False, second_order: bool = False, y=None
                  ) -> torch.Tensor:
     """``A(x) x`` of the GRAND-nl RHS, in x's dtype, on the route of
     :func:`attention_route`. ``dense``: the windowed graph's ``[T, tile,
@@ -488,13 +541,15 @@ def attention_ax(cfg, att, graph, x, dense=None, mask=None, *,
     differentiates its materialised route directly rather than computing
     the value first (K6 included) and replaying it; the kernel routes keep
     their backward, as graphax's custom VJPs run their forward there
-    too. ``second_order``: :func:`attention_route`'s."""
+    too. ``second_order``: :func:`attention_route`'s. ``y``: the second
+    modality under multi_modal (the dense route or the per-edge path)."""
     route = attention_route(cfg, graph, x.shape[1], second_order)
+    kw = {"y": y} if cfg.multi_modal and y is not None else {}
     if route == "dense":
         if mask is None:
             mask = dense_adjacency_mask(graph)
         return _replayed(cfg, att, graph, x, _dense_ax, _dense_ax_plain,
-                         replay=not vjp_now, mask=mask)
+                         replay=not vjp_now, mask=mask, **kw)
     if route == "windowed":
         kw = {} if dense is None else {"dense_weight": dense}
         return _replayed(cfg, att, graph, x, windowed_attention_ax_fast,
@@ -509,20 +564,21 @@ def attention_ax(cfg, att, graph, x, dense=None, mask=None, *,
     if route == "flash_replay":
         return _replayed(cfg, att, graph, x, flash_attention_ax,
                          edge_ax_plain)
-    return edge_ax_plain(cfg, att, graph, x)
+    return edge_ax_plain(cfg, att, graph, x, **kw)
 
 
-def transformer_rhs(cfg, graph, p, x, mask=None, second_order=False):
+def transformer_rhs(cfg, graph, p, x, mask=None, second_order=False, y=None):
     """``alpha (A(x) x - x) [+ beta x0]`` as a function of its tensors ``p
     = (alpha, beta, x0, <the `_Att` flat layout>[, dense])``: the Q/K (and
     under mix_features V/Wout) weights and biases, exp_kernel's two
     scalars, and the windowed graph's densified weights under reweight (the
     adjoint differentiates it with respect to each); ``mask``, a dense
-    graph's adjacency mask; ``second_order``, :func:`attention_route`'s."""
+    graph's adjacency mask; ``second_order``, :func:`attention_route`'s;
+    ``y``, the second modality."""
     alpha, beta, x0, *flat = p
     att, rest = _att_tensors(cfg).from_flat(cfg, flat)
     ax = attention_ax(cfg, att, graph, x, rest[0] if rest else None, mask,
-                      vjp_now=True, second_order=second_order)
+                      vjp_now=True, second_order=second_order, y=y)
     return apply_alpha_beta(cfg, alpha, beta, ax, x, x0)
 
 
@@ -535,8 +591,6 @@ class TransformerFunction(nn.Module):
 
     def __init__(self, cfg, in_dim: int):
         super().__init__()
-        if cfg.multi_modal:
-            raise NotImplementedError(_MULTI_MODAL)
         self.cfg = cfg
         init_alpha_beta(self)
         self.att = TransformerAttention(cfg, in_dim)
@@ -553,5 +607,6 @@ class TransformerFunction(nn.Module):
 
     def rhs(self, alpha, beta, fstate, t, x):
         ax = attention_ax(self.cfg, self.att, fstate.graph, x, fstate.dense,
-                          fstate.mask, second_order=fstate.second_order)
+                          fstate.mask, second_order=fstate.second_order,
+                          y=fstate.y)
         return apply_alpha_beta(self.cfg, alpha, beta, ax, x, fstate.x0)

@@ -26,7 +26,11 @@ Numerics follow graphax:
 - explicit and implicit Adams (graphax's `_odeint_adams`) run AB4, or an
   AB4 predictor and one AM4 corrector (PECE), on the fixed grid, after
   three classic-RK4 steps that fill the derivative history (kept in f32)
-  and reuse each step's first derivative as the RK4's first stage."""
+  and reuse each step's first derivative as the RK4's first stage;
+- ``samples`` B > 1 solves B independent samples at once (the multimodal
+  model's batched route): the adaptive controller's step size, error
+  ratio, accept, budgets and NFE are kept per sample, as ``jax.vmap`` of
+  graphax's solve keeps them."""
 
 from __future__ import annotations
 
@@ -75,6 +79,10 @@ class ODEResult:
     success: bool        # False iff the max_nfe or max_steps budget ran out
     adjoint: Optional[AdjointRecord] = None
     observer: Any = None  # the observer's final carry (None without one)
+    # ``samples`` > 1: each sample's NFE, accepted steps and success
+    sample_nfe: Optional[list] = None
+    sample_steps: Optional[list] = None
+    sample_success: Optional[list] = None
 
 
 def _scalar(v) -> torch.Tensor:
@@ -114,10 +122,16 @@ def _rms(leaves, pad: int = 0) -> torch.Tensor:
     return _scalar(float(torch.sqrt(tot / cnt)))
 
 
-def _norm(leaves, pad: int, norm_fn) -> torch.Tensor:
+def _norm(leaves, pad: int, norm_fn, samples: int = 1) -> torch.Tensor:
     """The controller's norm of ``leaves``: the RMS over them and ``pad``
     zeros, or ``norm_fn`` of them raveled into one vector (the zeros
-    appended), as an f32 host scalar."""
+    appended), as an f32 host scalar; for ``samples`` B > 1 each sample's
+    RMS over its block of every leaf, as f32 host values ``[B]``."""
+    if samples > 1:
+        tot = sum(torch.sum(torch.square(t.reshape(samples, -1)), 1)
+                  for t in leaves)
+        cnt = sum(t.numel() for t in leaves) // samples
+        return torch.sqrt(tot / cnt).to(F32).cpu()
     if norm_fn is None:
         return _rms(leaves, pad)
     flat = [t.reshape(-1) for t in leaves]
@@ -127,12 +141,52 @@ def _norm(leaves, pad: int, norm_fn) -> torch.Tensor:
     return _scalar(float(norm_fn(torch.cat(flat))))
 
 
-def _rk_step(call, st: _State, tab_name: str, t, y, h, f0=None):
-    """One explicit RK step on the carried state. Returns (y1, f1 or None,
-    err or None, nfe)."""
+def _axpy(u, h, c: float, k, acc, samples: int):
+    """``u + (h c) k`` in ``acc`` with the f32 coefficient ``h c``: a
+    scalar, or for ``samples`` B > 1 (``h [B]`` on k's device) each
+    sample's on its block of k's rows (sample-major)."""
+    if samples == 1:
+        return u + float(h * c) * k.to(acc)
+    kk = k.to(acc)
+    return u + ((h * c)[:, None] * kk.reshape(samples, -1)).reshape(
+        kk.shape)
+
+
+def _first(v) -> torch.Tensor:
+    """The time handed to the RHS: the scalar, or sample 0's of a batch
+    (the batched RHS must not read it: the diffusion functions are
+    autonomous)."""
+    return v if v.dim() == 0 else v[0]
+
+
+def _select(mask, new, old):
+    """``new`` where the host mask ``mask`` (numpy, 0-d for one sample)
+    holds, else ``old``."""
+    if np.ndim(mask) == 0:
+        return new if mask else old
+    return torch.where(torch.from_numpy(np.asarray(mask)), new, old)
+
+
+def _pick(accept, new, old, samples: int):
+    """The accepted samples' ``new`` leaves, the others' ``old``:
+    ``accept`` a host bool for one sample, else a ``[B, 1]`` mask on the
+    leaves' device."""
+    if samples == 1:
+        return new if accept else old
+    return tuple(torch.where(accept, n.reshape(samples, -1),
+                             o.reshape(samples, -1)).reshape(o.shape)
+                 for n, o in zip(new, old))
+
+
+def _rk_step(call, st: _State, tab_name: str, t, y, h, f0=None,
+             samples: int = 1):
+    """One explicit RK step on the carried state; for ``samples`` B > 1
+    each sample's block steps by its own ``h [B]``. Returns (y1, f1 or
+    None, err or None, nfe)."""
     tab = TABLEAUS[tab_name]
     a, b, c, e = stacked(tab)
     acc = st.acc
+    hc = h if samples == 1 else h.to(y[0].device)
     s = len(c)
     ks = []
     nfe = 0
@@ -143,16 +197,17 @@ def _rk_step(call, st: _State, tab_name: str, t, y, h, f0=None):
             yi = [t_.to(acc) for t_ in y]
             for j in range(i):
                 if a[i, j] != 0.0:
-                    coef = float(h * float(a[i, j]))
-                    yi = [u + coef * k.to(acc) for u, k in zip(yi, ks[j])]
-            ki = call(t + float(c[i]) * h, tuple(u.to(st.flat) for u in yi))
+                    yi = [_axpy(u, hc, float(a[i, j]), k, acc, samples)
+                          for u, k in zip(yi, ks[j])]
+            ki = call(_first(t + float(c[i]) * h),
+                      tuple(u.to(st.flat) for u in yi))
             nfe += 1
         ks.append(ki)
     y1 = [t_.to(acc) for t_ in y]
     for i in range(s):
         if b[i] != 0.0:
-            coef = float(h * float(b[i]))
-            y1 = [u + coef * k.to(acc) for u, k in zip(y1, ks[i])]
+            y1 = [_axpy(u, hc, float(b[i]), k, acc, samples)
+                  for u, k in zip(y1, ks[i])]
     y1 = tuple(u.to(st.flat) for u in y1)
     err = None
     if e is not None:
@@ -160,22 +215,21 @@ def _rk_step(call, st: _State, tab_name: str, t, y, h, f0=None):
             err = [torch.zeros(t_.shape, dtype=acc, device=t_.device) for t_ in y]
             for i in range(s):
                 if e[i] != 0.0:
-                    coef = float(h * float(e[i]))
-                    err = [u + coef * k.detach().to(acc)
-                           for u, k in zip(err, ks[i])]
+                    err = [_axpy(u, hc, float(e[i]), k.detach(), acc,
+                                 samples) for u, k in zip(err, ks[i])]
     f1 = ks[-1] if tab.fsal else None
     return y1, f1, err, nfe
 
 
 def _error_ratio(st: _State, err, y0, y1, rtol, atol, pad,
-                 norm_fn=None) -> torch.Tensor:
+                 norm_fn=None, samples: int = 1) -> torch.Tensor:
     with torch.no_grad():
         scaled = []
         for e_, a_, b_ in zip(err, y0, y1):
             scale = atol + rtol * torch.maximum(a_.detach().to(st.acc).abs(),
                                                 b_.detach().to(st.acc).abs())
             scaled.append(e_.to(st.acc) / scale)
-        return _norm(scaled, pad, norm_fn)
+        return _norm(scaled, pad, norm_fn, samples)
 
 
 def _optimal_step(h, ratio, order):
@@ -187,29 +241,31 @@ def _optimal_step(h, ratio, order):
 
 
 def _initial_step(call, st: _State, t0, y0, f0, order, rtol, atol, pad,
-                  norm_fn=None):
-    """Hairer/Wanner initial step (torchdiffeq `_select_initial_step`).
-    Costs one RHS evaluation."""
+                  norm_fn=None, samples: int = 1):
+    """Hairer/Wanner initial step (torchdiffeq `_select_initial_step`), per
+    sample for ``samples`` B > 1. Costs one RHS evaluation."""
     with torch.no_grad():
         acc = st.acc
         y0a = [t_.detach().to(acc) for t_ in y0]
         f0a = [t_.detach().to(acc) for t_ in f0]
         scale = [atol + t_.abs() * rtol for t_ in y0a]
-        d0 = _norm([u / s_ for u, s_ in zip(y0a, scale)], pad, norm_fn)
-        d1 = _norm([u / s_ for u, s_ in zip(f0a, scale)], pad, norm_fn)
-        if bool((d0 < 1e-5) | (d1 < 1e-5)):
-            h0 = _scalar(1e-6)
-        else:
-            h0 = 0.01 * d0 / d1
-        y1 = tuple((u + float(h0) * f).to(st.flat) for u, f in zip(y0a, f0a))
-        f1 = call(t0 + h0, y1)
+        d0 = _norm([u / s_ for u, s_ in zip(y0a, scale)], pad, norm_fn,
+                   samples)
+        d1 = _norm([u / s_ for u, s_ in zip(f0a, scale)], pad, norm_fn,
+                   samples)
+        h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), _scalar(1e-6),
+                         0.01 * d0 / d1)
+        hc = h0 if samples == 1 else h0.to(y0a[0].device)
+        y1 = tuple(_axpy(u, hc, 1.0, f, acc, samples).to(st.flat)
+                   for u, f in zip(y0a, f0a))
+        f1 = call(_first(t0 + h0), y1)
         d2 = _norm([(f.to(acc) - u) / s_
-                    for f, u, s_ in zip(f1, f0a, scale)], pad, norm_fn) / h0
+                    for f, u, s_ in zip(f1, f0a, scale)], pad, norm_fn,
+                   samples) / h0
         dmax = torch.maximum(d1, d2)
-        if bool(dmax <= 1e-15):
-            h1 = torch.maximum(_scalar(1e-6), h0 * 1e-3)
-        else:
-            h1 = (0.01 / dmax) ** (1.0 / (order + 1))
+        h1 = torch.where(dmax <= 1e-15,
+                         torch.maximum(_scalar(1e-6), h0 * 1e-3),
+                         (0.01 / dmax) ** (1.0 / (order + 1)))
         return torch.minimum(100.0 * h0, h1)
 
 
@@ -297,8 +353,8 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
            step_size: float = 1.0, max_nfe: int = 1000,
            max_steps: Optional[int] = None,
            observer: Optional[Observer] = None,
-           norm_pad: int = 0, norm_fn: Optional[Callable] = None
-           ) -> ODEResult:
+           norm_pad: int = 0, norm_fn: Optional[Callable] = None,
+           samples: int = 1) -> ODEResult:
     """Integrate ``dy/dt = func(t, y)`` from t0 to t1 (t1 > t0). ``y0`` is a
     tensor or a tuple of tensors; ``func`` returns the same structure.
     ``max_steps`` caps the adaptive loop's attempts (accepted and rejected;
@@ -309,71 +365,115 @@ def odeint(func: Callable, y0, t0: float, t1: float, *,
     -> scalar`` overrides the controller's RMS norm, over the state's
     leaves raveled into one vector (graphax's ``norm_fn``). ``method`` may
     also be ``"explicit_adams"`` or ``"implicit_adams"``, on the fixed grid
-    of ``step_size``."""
+    of ``step_size``.
+
+    ``samples`` B > 1: every leaf holds B independent samples as B equal
+    blocks of rows, sample-major (a ``[B, N, D]`` batch, or the ``[B N,
+    D]`` state of a block-diagonal union of B graphs), and ``func`` acts on
+    each block alone. An adaptive method then keeps per sample what it
+    keeps over the state for one, as ``jax.vmap`` of it does: the initial
+    step, each error ratio (the RMS over the sample's blocks), the accept,
+    the step size, the ``max_nfe`` and ``max_steps`` budgets and the NFE;
+    a sample that has reached t1 or its budget keeps its state while the
+    others step on. Every evaluation runs ``func`` once on the whole
+    state, so the RHS's launches follow the slowest sample's NFE. The
+    fixed grids are one grid for every sample. ``result.nfe`` and
+    ``steps`` are then the most of any sample's, and ``sample_nfe``,
+    ``sample_steps`` and ``sample_success`` each sample's."""
     st = _State(y0)
     obs = observer.init if observer is not None else None
+    if samples > 1 and (observer is not None or norm_pad or norm_fn):
+        raise ValueError("a batched solve takes no observer and no "
+                         "norm_pad or norm_fn")
 
     def call(t, carry):
         out = func(t, st.unravel(carry))
         return st.leaves(out)
 
     y = st.carry(y0)
-    if method in FIXED_STEP_METHODS:
-        ts = _fixed_grid(t0, t1, step_size)
-        starts = torch.tensor(ts[:-1], dtype=F32)
-        hs = torch.tensor(np.diff(ts), dtype=F32)
-        for i in range(len(ts) - 1):
-            y, _, _, _ = _rk_step(call, st, method, starts[i], y, hs[i])
-            if observer is not None:
-                obs = observer.update(obs, starts[i] + hs[i], st.unravel(y))
-        n = len(ts) - 1
-        return ODEResult(y=st.unravel(y), nfe=n * len(TABLEAUS[method].c),
-                         steps=n, success=True, observer=obs)
-    if method in ADAMS_METHODS:
-        return _odeint_adams(call, st, y, t0, t1, method, step_size,
-                             observer, obs)
+    if method in FIXED_STEP_METHODS or method in ADAMS_METHODS:
+        if method in ADAMS_METHODS:
+            res = _odeint_adams(call, st, y, t0, t1, method, step_size,
+                                observer, obs)
+        else:
+            ts = _fixed_grid(t0, t1, step_size)
+            starts = torch.tensor(ts[:-1], dtype=F32)
+            hs = torch.tensor(np.diff(ts), dtype=F32)
+            for i in range(len(ts) - 1):
+                y, _, _, _ = _rk_step(call, st, method, starts[i], y, hs[i])
+                if observer is not None:
+                    obs = observer.update(obs, starts[i] + hs[i],
+                                          st.unravel(y))
+            n = len(ts) - 1
+            res = ODEResult(y=st.unravel(y),
+                            nfe=n * len(TABLEAUS[method].c), steps=n,
+                            success=True, observer=obs)
+        if samples > 1:
+            res.sample_nfe = [res.nfe] * samples
+            res.sample_steps = [res.steps] * samples
+            res.sample_success = [res.success] * samples
+        return res
     if method not in ADAPTIVE_METHODS:
         raise ValueError(f"unknown method {method!r}")
+    if samples > 1 and any(t_.numel() % samples for t_ in y):
+        raise ValueError("a batched solve needs every leaf in B equal "
+                         "blocks")
     tab = TABLEAUS[method]
     order = tab.order
     nfe_per_step = len(tab.c) - (1 if tab.fsal else 0)
     if max_steps is None:
         max_steps = max(int(max_nfe) // nfe_per_step + 1, 4)
+    # the controller's time and step size: f32 host tensors, 0-d for one
+    # sample, [B] for a batch; its flags and counters numpy arrays of the
+    # same shape (cheap on the host at one sample)
     t = _scalar(t0)
+    if samples > 1:
+        t = t.repeat(samples)
     t1a = _scalar(t1)
     span = t1a - t
-    f = call(t, y)
+    f = call(_first(t), y)
     h = torch.minimum(_initial_step(call, st, t, y, f, order, rtol, atol,
-                                    norm_pad, norm_fn), span)
-    nfe = 2
+                                    norm_pad, norm_fn, samples), span)
+    nfe = np.full(t.shape, 2, np.int64)
     if observer is not None:
         obs = observer.update(obs, t, st.unravel(y))
-    steps = attempts = 0
-    done = bool(span <= 0)
+    steps = np.zeros(t.shape, np.int64)
+    attempts = np.zeros(t.shape, np.int64)
+    done = (span <= 0).numpy()
     end = t1a - 1e-12 * torch.maximum(_scalar(1.0), t1a.abs())
-    while (not done) and nfe + nfe_per_step <= max_nfe \
-            and attempts < max_steps:
+    while True:
+        live = ~done & (nfe + nfe_per_step <= max_nfe) \
+            & (attempts < max_steps)
+        if not live.any():
+            break
         h = torch.minimum(h, t1a - t)
         y_prop, f_prop, err, _ = _rk_step(call, st, method, t, y, h,
-                                          f if tab.fsal else None)
+                                          f if tab.fsal else None, samples)
         ratio = _error_ratio(st, err, y, y_prop, rtol, atol, norm_pad,
-                             norm_fn)
-        accept = bool(ratio <= 1.0)
+                             norm_fn, samples)
+        accept = (ratio <= 1.0).numpy() & live
         h_next = _optimal_step(h, ratio, order)
-        if accept:
-            t = t + h
-            y = y_prop
-            if tab.fsal:
-                f = f_prop
-            if observer is not None:
-                obs = observer.update(obs, t, st.unravel(y))
-        done = bool(t >= end)
-        nfe += nfe_per_step
-        steps += int(accept)
-        attempts += 1
-        h = h_next
-    return ODEResult(y=st.unravel(y), nfe=nfe, steps=steps, success=done,
-                     observer=obs)
+        sel = bool(accept) if samples == 1 \
+            else torch.from_numpy(accept).to(y[0].device)[:, None]
+        y = _pick(sel, y_prop, y, samples)
+        if tab.fsal:
+            f = _pick(sel, f_prop, f, samples)
+        t = _select(accept, t + h, t)
+        if observer is not None and sel:
+            obs = observer.update(obs, t, st.unravel(y))
+        done = done | (t >= end).numpy()
+        nfe = nfe + nfe_per_step * live
+        steps = steps + accept
+        attempts = attempts + live
+        h = _select(live, h_next, h)
+    res = ODEResult(y=st.unravel(y), nfe=int(nfe.max()),
+                    steps=int(steps.max()), success=bool(done.all()),
+                    observer=obs)
+    if samples > 1:
+        res.sample_nfe = nfe.tolist()
+        res.sample_steps = steps.tolist()
+        res.sample_success = done.tolist()
+    return res
 
 
 # ----------------------------------------------------------------------

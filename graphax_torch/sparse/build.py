@@ -98,9 +98,11 @@ def round_up(x: int, multiple: int) -> int:
 def build_graph(row, col, num_nodes: int, edge_weight=None,
                 self_loop_weight: float = 0.0, make_undirected: bool = False,
                 pad_multiple: int = 128, strategy: str = "auto",
-                dense_threshold: int = 20_000, device=None) -> Graph:
+                dense_threshold: int = 20_000, device=None,
+                extra_edge_capacity: int = 0) -> Graph:
     """[undirected] -> [self-loops] -> coalesce -> sort by (row, col) -> pad
-    to a bucket -> Graph on ``device`` (the card unless asked otherwise).
+    to a bucket (``extra_edge_capacity`` more slots first) -> Graph on
+    ``device`` (the card unless asked otherwise).
 
     ``strategy="auto"`` resolves as graphax does: dense when ``num_nodes <=
     dense_threshold`` (`graphax/sparse/build.py:155-156`), sparse otherwise.
@@ -108,10 +110,13 @@ def build_graph(row, col, num_nodes: int, edge_weight=None,
     them); each forward densifies its values once
     (`graphax_torch.kernels.dense_path`). ``"windowed"`` attaches the
     block-dense layout (`:157-162`; node ids should be community-ordered
-    first)."""
+    first). graphax's ``"edge"`` (its plain edge list, which the
+    multimodal chain graphs ask for) is the CSR's ``"sparse"`` here."""
     dev = resolve_device(device)
     if strategy == "auto":
         strategy = "dense" if num_nodes <= dense_threshold else "sparse"
+    elif strategy == "edge":
+        strategy = "sparse"
     if strategy not in ("dense", "sparse", "windowed"):
         raise ValueError(f"unknown strategy {strategy!r}")
     if make_undirected:
@@ -123,7 +128,7 @@ def build_graph(row, col, num_nodes: int, edge_weight=None,
     else:
         row, col, edge_weight = coalesce(row, col, edge_weight, num_nodes)
     e = int(row.shape[0])
-    cap = round_up(e, pad_multiple)
+    cap = round_up(e + int(extra_edge_capacity), pad_multiple)
     g = Graph.from_edges(row, col, num_nodes, edge_weight,
                          edge_buffer_size=cap, device=dev)
     if strategy == "windowed":

@@ -2557,3 +2557,121 @@ def test_cuda_adams_matches_cpu(cuda, method):
     for yc, yp in zip(rc.y, rp.y):
         torch.testing.assert_close(yc.cpu(), yp, rtol=1e-5, atol=1e-6)
     assert abs(lc - lp) <= 1e-4 * max(1.0, abs(lp))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_union_spmm_matches_per_sample_plain(cuda, dtype):
+    """The block-diagonal union of per-sample chain graphs (the multimodal
+    model's batched route): one `spmm_csr` launch for the whole batch,
+    each sample's rows against the plain version on that sample's graph
+    alone (f32 1e-5; bf16 one ulp)."""
+    from graphax_torch.data.multimodal import batched_chain_graphs
+    from graphax_torch.kernels import LAUNCHES
+
+    tdt = getattr(torch, dtype)
+    lengths, max_len, d = [8, 16, 11, 9, 16], 16, 64
+    batch = batched_chain_graphs(lengths, max_len, device=cuda)
+    u = batch.union()
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn(u.num_nodes, d, generator=gen, device=cuda).to(tdt)
+    w = (torch.rand(u.num_edges, generator=gen, device=cuda) + 0.1).to(tdt)
+    before = LAUNCHES["spmm_csr"]
+    y = spmm_mod.spmm_csr(u.csr, w, x, u.num_nodes)
+    assert LAUNCHES["spmm_csr"] == before + 1
+    off = 0
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=BF16_RTOL, atol=BF16_RTOL))
+    for i in range(len(lengths)):
+        g = batch.sample(i).to("cpu")
+        e = g.num_edges
+        rows = slice(i * max_len, (i + 1) * max_len)
+        want = spmm_mod.spmm_csr_plain(g.csr, w[off:off + e].cpu(),
+                                       x[rows].cpu(), max_len)
+        torch.testing.assert_close(y[rows].cpu(), want, **tol)
+        off += e
+
+
+@pytest.mark.parametrize("block", ["constant", "attention"])
+def test_cuda_multimodal_union_launches_once_per_evaluation(cuda, block):
+    """`MultimodalGNN.forward_batched` on per-sample chain graphs under
+    rk4: `spmm_csr` once an evaluation for the batch (the NFE, not B
+    times it), the attention block's pin once a forward; the logits
+    against per-sample forwards on the card (1e-5) and against the CPU
+    (1e-4)."""
+    from graphax_torch.data.multimodal import batched_chain_graphs
+    from graphax_torch.kernels import LAUNCHES
+    from graphax_torch.models.multimodal import MultimodalGNN
+    from graphax_torch.train import Config
+
+    cfg = Config(block=block, method="rk4", step_size=0.25, time=1.0,
+                 input_dropout=0.0, dropout=0.0, heads=2, attention_dim=8)
+    lengths, max_len, d = [8, 16, 11, 12], 16, 32
+    logits = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = MultimodalGNN(cfg, max_len, d, 5).to(dev)
+        model.reset_parameters(torch.Generator().manual_seed(3))
+        batch = batched_chain_graphs(lengths, max_len, device=dev)
+        xs = torch.randn(len(lengths), max_len, d,
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+        counts = dict(LAUNCHES)
+        with torch.no_grad():
+            out, aux = model.forward_batched(None, xs, graphs=batch)
+        if dev.type == "cuda":
+            assert LAUNCHES["spmm_csr"] - counts.get("spmm_csr", 0) == \
+                aux["nfe"][0] == 16
+            assert LAUNCHES["attention_pin"] \
+                - counts.get("attention_pin", 0) == \
+                (1 if block == "attention" else 0)
+            for i in range(len(lengths)):
+                with torch.no_grad():
+                    one, _ = model(batch.sample(i), xs[i])
+                torch.testing.assert_close(out[i], one, rtol=1e-5,
+                                           atol=1e-5)
+        logits[dev.type] = out.cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_cuda_multimodal_union_grand_nl_once_per_evaluation(cuda):
+    """GRAND-nl (row softmax) on the block-diagonal union of per-sample
+    chain graphs under rk4: `flash_attention` and `attention_kproj` once an
+    evaluation for the whole batch (the NFE, not B times it); the logits
+    against per-sample forwards on the card (1e-5) and against the CPU
+    (1e-4)."""
+    from graphax_torch.data.multimodal import batched_chain_graphs
+    from graphax_torch.kernels import LAUNCHES
+    from graphax_torch.models.multimodal import MultimodalGNN, one_solve
+    from graphax_torch.train import Config
+
+    cfg = Config(block="constant", function="transformer", method="rk4",
+                 step_size=0.25, time=1.0, input_dropout=0.0, dropout=0.0,
+                 heads=2, attention_dim=8)
+    assert one_solve(cfg, False, False)
+    lengths, max_len, d = [8, 16, 11, 12], 16, 32
+    logits = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = MultimodalGNN(cfg, max_len, d, 5).to(dev)
+        model.reset_parameters(torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            for lin in (model.block.func.att.Q, model.block.func.att.K):
+                lin.weight.copy_(0.3 * torch.randn(
+                    lin.weight.shape,
+                    generator=torch.Generator().manual_seed(5)))
+        batch = batched_chain_graphs(lengths, max_len, device=dev)
+        xs = torch.randn(len(lengths), max_len, d,
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+        counts = dict(LAUNCHES)
+        with torch.no_grad():
+            out, aux = model.forward_batched(None, xs, graphs=batch)
+        if dev.type == "cuda":
+            for name in ("flash_attention", "attention_kproj"):
+                assert LAUNCHES[name] - counts.get(name, 0) == \
+                    aux["nfe"][0] == 16, name
+            for i in range(len(lengths)):
+                with torch.no_grad():
+                    one, _ = model(batch.sample(i), xs[i])
+                torch.testing.assert_close(out[i], one, rtol=1e-5,
+                                           atol=1e-5)
+        logits[dev.type] = out.cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)

@@ -694,17 +694,21 @@ def test_still_unported_routes_raise(over, err):
 @pytest.mark.parametrize("over", [dict(mix_features=True),
                                   dict(multi_modal=True)])
 def test_unported_transformer_options_raise(over):
-    """multi_modal raises, naming its ROADMAP item; mix_features (once
-    raising here) trains to graphax's step on CSR, V and Wout with their
-    gradients."""
-    if over.get("multi_modal"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            _small_trainer(**over)
-        return
+    """Both options once raised here and now train to graphax's step on
+    CSR: mix_features with V and Wout's gradients; multi_modal (ROADMAP
+    item 10) with no second modality on the per-edge path (its gates keep
+    the flash kernels out, as graphax's do), the cross-attention's
+    tensors unused."""
     from test_torch_grand_nl_train import one_step
 
     tr = one_step("sparse", "edge", batch_norm=True, **over)
-    assert float(tr.model.block.func.att.Wout.weight.grad.abs().max()) > 0
+    att = tr.model.block.func.att
+    if over.get("multi_modal"):
+        assert attention_route(tr.cfg, tr.data.graph,
+                               tr.model.state_dim) == "edge"
+        assert all(p.grad is None for p in att.cross.parameters())
+        return
+    assert float(att.Wout.weight.grad.abs().max()) > 0
 
 
 def test_transplant_carries_the_transformer_tree():

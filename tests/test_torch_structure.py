@@ -81,10 +81,57 @@ def test_graph_and_data_entry_points_default_to_the_card():
           pos_enc_hidden_dim=4), "M9"),
 ])
 def test_unported_configs_raise(overrides, err):
-    cfg = Config(block="hard_attention", heads=2, attention_dim=8,
-                 hidden_dim=8, no_early=True).replace(**overrides)
-    with pytest.raises(NotImplementedError, match=err):
-        Trainer(cfg, _small_data(), device="cpu")
+    """The two configs once refused here (``err``: ROADMAP's M9, the
+    multimodal family) now build and train a step as graphax's Trainer
+    does with no second modality (y=None): the cross-attention's tensors
+    exist and stay unused, their gradient zero. One SGD step at lr 1 from
+    transplanted weights (graphax's parameter change is its gradient):
+    the loss 1e-5 relative, every gradient 1e-4 relative plus 1e-6,
+    forward NFE equal."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from graphax.data.synthetic import make_sbm_dataset as gx_make_sbm
+    from graphax.train import Config as GxConfig
+    from graphax.train.loop import Trainer as GxTrainer
+    from graphax_torch.utils.transplant import graphax_to_state_dict
+
+    assert err == "M9" and overrides["multi_modal"]
+    kw = dict(block="hard_attention", heads=2, attention_dim=8,
+              hidden_dim=8, no_early=True, method="rk4", step_size=0.5,
+              input_dropout=0.0, dropout=0.0, optimizer="sgd", lr=1.0,
+              decay=0.0, add_source=True, **overrides)
+    sbm = dict(num_nodes=60, num_classes=3, num_features=8, seed=1)
+    gd = gx_make_sbm(**sbm)
+    gd = dataclasses.replace(gd, graph=dataclasses.replace(
+        gd.graph, strategy="sparse"))
+    pd = _small_data()
+    if kw.get("beltrami"):
+        pos = np.random.RandomState(4).randn(60, 4).astype(np.float32)
+        gd, pd = gd.with_pos_encoding(jnp.asarray(pos)), \
+            pd.with_pos_encoding(pos)
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    gtr = GxTrainer(GxConfig(**kw), gd)
+    st = gtr.init_state()
+    tr = Trainer(Config(**kw), pd, device="cpu")
+    load_graphax_params(tr.model, to_np(st.params), to_np(st.model_state))
+    before = graphax_to_state_dict(to_np(st.params), to_np(st.model_state))
+    st, gx_loss = gtr.train_step(st)
+    loss = tr.train_step()
+    after = graphax_to_state_dict(to_np(st.params), to_np(st.model_state))
+    np.testing.assert_allclose(loss, float(gx_loss), rtol=1e-5)
+    assert tr.fm.get_value() == gtr.fm.get_value()
+    cross = [k for k in before if ".cross" in k]
+    assert cross
+    for k, p in tr.model.named_parameters():
+        g = np.zeros(tuple(p.shape), np.float32) if p.grad is None \
+            else p.grad.numpy()
+        np.testing.assert_allclose(g, before[k] - after[k], rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+        if k in cross:
+            assert not np.any(g)
 
 
 def test_community_window_trains_on_graphax_node_order():
