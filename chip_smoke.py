@@ -218,9 +218,22 @@ and prints no result):
    sample), (d) a small
    multimodal model card against CPU, (e) the ResNet-101 trunk to layer3
    card against CPU; under 60 s.
+12. drivers: the experiment entry points (`phase_drivers`): (a)
+   ``run_gnn.main`` as the README's Quickstart runs it (Cora's preset on
+   the synthetic fallback, 2 epochs) and on the arxiv preset from its
+   cache (2 splits of 2 epochs; spmm_csr, the pin, attention_kproj,
+   windowed_densify, win_matmul and win_bwd_slab as the NFE say); (b)
+   ``sweep.main`` on the arxiv cache's sparse strategy (4 trials, ASHA to
+   4 epochs, the winner replicated on 2 splits) with one trial at a time
+   and with two on two CUDA streams, under deterministic algorithms: the
+   trial tables equal, each sweep's seconds and the card's busy share;
+   (c) the sweep resumed from its checkpoint directory fits nothing; (d)
+   one arxiv epoch under ``profile_trace``, the trace naming the
+   hand-written kernels, and ``ThroughputMeter``'s edges x NFE per second.
 
-Then the kernels line (launches summed over the paths of phases 5, 8, 9,
-10 and 11), the card's nvidia-smi line, and last ``{"ok": true, "device":
+Then the kernels line (launches summed over the paths of phases 5 and
+8-12; each row's phase 12 launches as ``driver_launches``), the card's
+nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``. Needs one card; builds everything from the checkout; needs no
 network."""
 
@@ -3075,6 +3088,26 @@ def write_arxiv_cache(root: str, row, col, x, y, split, seed: int) -> str:
     return path
 
 
+def write_arxiv_files(root: str, seed: int = 23) -> str:
+    """ogbn-arxiv's cache under ``root`` (:func:`write_arxiv_cache`): the
+    stand-in's SBM recipe at the published shape (169,343 nodes, 128
+    features, 40 classes) from ``seed``, OGB's split sizes from ``seed +
+    1``."""
+    import numpy as np
+
+    from graphax_torch.data.loaders import SHAPES
+    from graphax_torch.data.synthetic import sbm_arrays
+
+    s = SHAPES["ogbn-arxiv"]
+    c, n = s["num_classes"], s["num_nodes"]
+    row, col, x, y = sbm_arrays(
+        np.random.RandomState(seed), n, c, s["num_features"],
+        min(3.0 * c / n, 0.5), 1.0 * c / (n * max(c - 1, 1)),
+        max(1.0, float(np.sqrt(s["num_features"])) / 2.1))
+    return write_arxiv_cache(root, row, col, x.astype(np.float32), y,
+                             ARXIV_SPLIT, seed + 1)
+
+
 def width_checks(graph, d: int, smi: str) -> None:
     """The windowed path's kernels at the label trick's state width ``d``
     (hidden 162 + 40 classes) on the real-format arxiv's layout, against
@@ -3173,16 +3206,7 @@ def phase_real_formats(smi: str) -> dict:
         row, col, x, y, keep_comp = sbm_with_strays(
             n, n_lcc, s["num_classes"], s["num_features"], 22)
         write_shchur_npz(tmp, "Computers", row, col, x, y)
-        s = shapes["ogbn-arxiv"]
-        from graphax_torch.data.synthetic import sbm_arrays
-        c, n = s["num_classes"], s["num_nodes"]
-        row, col, x, y = sbm_arrays(
-            np.random.RandomState(23), n, c, s["num_features"],
-            min(3.0 * c / n, 0.5), 1.0 * c / (n * max(c - 1, 1)),
-            max(1.0, float(np.sqrt(s["num_features"])) / 2.1))
-        write_arxiv_cache(tmp, row, col, x.astype(np.float32), y,
-                          ARXIV_SPLIT, 24)
-        del row, col, x, y
+        write_arxiv_files(tmp)
         emit({"phase": "real_formats", "write_seconds":
               time.perf_counter() - t0, "nvidia_smi": smi})
 
@@ -4759,6 +4783,369 @@ def phase_multimodal(smi: str) -> dict:
     return launches
 
 
+# the drivers phase's sweeps: the trials' solver budget. The sweep CLI's
+# base takes graphax's 1000 NFE; its trials train through the dopri5 steps
+# (no adjoint), whose autograd keeps about two [N, hidden] f32 tensors an
+# NFE, 0.17 GB at arxiv's N and hidden 128, so 1000 NFE would not hold two
+# trials at once in 80 GB: the phase gives them 64 (``--max_nfe``)
+SWEEP_MAX_NFE = 64
+# the kernels the arxiv preset's run_gnn must launch (PERF.md rows 1, 3,
+# 6, 11, 12, 14), and the sweep's trials on the sparse strategy (rows 1-3)
+DRIVER_KERNELS = ("spmm_csr", "attention_pin", "attention_kproj",
+                  "windowed_densify", "win_matmul", "win_bwd_slab")
+SWEEP_KERNELS = ("spmm_csr", "sddmm", "attention_pin")
+
+
+class recorded_fits:
+    """Within it, every ``Trainer.fit`` (from any thread) appends to
+    ``fits`` its Trainer's config, the result, and the graph's strategy,
+    node count and train nodes."""
+
+    def __enter__(self):
+        import threading
+
+        from graphax_torch.train import loop
+
+        self.fits = []
+        self.fit = loop.Trainer.fit
+        lock = threading.Lock()
+        fit = self.fit
+
+        def recorded(tr, *a, **k):
+            out = fit(tr, *a, **k)
+            with lock:
+                self.fits.append(dict(
+                    cfg=tr.cfg, fit=out, strategy=tr.data.graph.strategy,
+                    num_nodes=tr.data.num_nodes,
+                    train=int(tr.data.train_mask.sum())))
+            return out
+
+        loop.Trainer.fit = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from graphax_torch.train import loop
+
+        loop.Trainer.fit = self.fit
+        return False
+
+
+class busy_share:
+    """The card's busy share while the body runs: nvidia-smi's
+    ``utilization.gpu`` (the share of its sample period in which a kernel
+    ran), read every 0.25 s by a thread; ``mean`` is their mean as a
+    fraction, or None where no sample came back."""
+
+    def __enter__(self):
+        import threading
+
+        self.samples = []
+        self.stop = threading.Event()
+
+        def sample():
+            while not self.stop.wait(0.25):
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=utilization.gpu",
+                     "--format=csv,noheader,nounits", "--id=0"],
+                    capture_output=True, text=True, timeout=30).stdout
+                vals = [v.strip() for v in out.splitlines()]
+                if vals and vals[0].isdigit():
+                    self.samples.append(int(vals[0]) / 100.0)
+
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.mean = (sum(self.samples) / len(self.samples)
+                     if self.samples else None)
+        return False
+
+
+def sweep_table(out: dict) -> list:
+    """A sweep's trial table as compared: each trial's id, config, epochs
+    reached (its promotions) and best accuracies, then the replication's
+    raw accuracies where it ran."""
+    rows = [(t["id"], t["cfg"].to_dict(), t["epochs_done"], t["val_acc"],
+             t["test_acc"]) for t in out["trials"]]
+    rep = out.get("replication")
+    if rep is not None:
+        rows.append(("replication", rep["raw_val"], rep["raw_test"]))
+    return rows
+
+
+def run_quiet(fn):
+    """``fn()`` with its standard output captured: (result, the output's
+    lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def phase_drivers(smi: str) -> dict:
+    """The experiment entry points on the card (`graphax_torch.drivers`,
+    `graphax_torch.train.sweep`, `graphax_torch.utils.profiling`), on a
+    temporary directory holding ogbn-arxiv's cache from a seed
+    (:func:`write_arxiv_files`):
+
+    (a) the README's Quickstart twin, ``run_gnn.main(["--dataset", "Cora",
+    "--use_best_params", "--epoch", "2", "--num_splits", "1"])`` on the
+    synthetic fallback, then the arxiv preset as published (windowed,
+    169,343 nodes, hidden 162, bf16, dopri5, rk4 adjoint) over 2 splits of
+    2 epochs: the summary and each split's epoch seconds; finite
+    accuracies, n = 2, every fit's solves successful, the launches of
+    :data:`DRIVER_KERNELS` nonzero and those the NFE decide as the NFE say
+    (:func:`first_order_launches`, the pin and its K table twice an
+    epoch);
+
+    (b) ``sweep.main`` on the arxiv cache (the sparse strategy) with 4
+    samples, 4 epochs, grace 2, reduction 2, the winner replicated once on
+    2 splits, trials at ``--max_nfe`` :data:`SWEEP_MAX_NFE`, once with one
+    trial at a time and once with two (two CUDA streams on the card),
+    under ``torch.use_deterministic_algorithms`` (the plain scatters sum
+    in a fixed order); the two trial tables (configs, promotions, best
+    accuracies, the replication's) must be equal, and where they are not
+    a second sequential run shows whether one trial order already differs
+    from itself; each sweep's wall seconds and the card's busy share
+    (:class:`busy_share`); :data:`SWEEP_KERNELS` launched;
+
+    (c) the sequential sweep again with ``--checkpoint_dir`` (no
+    replication), then once more on the same directory: the second run
+    fits nothing and returns the same best;
+
+    (d) one arxiv epoch (the preset, fit's defaults) under
+    ``profile_trace``: the Chrome trace must exist and name ``spmm_walk``
+    and ``win_matmul_tc_kernel``; the epoch's edges x NFE per second by
+    ``ThroughputMeter``, the device synchronised before the meter's exit.
+
+    Every line carries the card's nvidia-smi line. Returns the launches of
+    (a)-(d)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graphax_torch import Trainer, best_config, get_dataset
+    from graphax_torch.data.loaders import SHAPES
+    from graphax_torch.drivers import run_gnn
+    from graphax_torch.drivers import sweep as sweep_cli
+    from graphax_torch.kernels import _build
+    from graphax_torch.utils.profiling import ThroughputMeter, profile_trace
+
+    t_phase = time.perf_counter()
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="graphax_drivers_") as tmp:
+        t0 = time.perf_counter()
+        write_arxiv_files(tmp)
+        empty = os.path.join(tmp, "no-files")
+        os.makedirs(empty)
+        emit({"phase": "drivers", "write_seconds": time.perf_counter() - t0,
+              "nvidia_smi": smi})
+
+        # (a) run_gnn: the README's command on Cora, then the arxiv preset
+        for label, splits, argv in (
+                ("a_cora", 1, ["--dataset", "Cora", "--use_best_params",
+                               "--epoch", "2", "--num_splits", "1",
+                               "--data_dir", empty]),
+                ("a_arxiv", 2, ["--dataset", "ogbn-arxiv",
+                                "--use_best_params", "--epoch", "2",
+                                "--num_splits", "2", "--data_dir", tmp])):
+            with recorded_fits() as rec:
+                (summary, lines), counts, secs, peak = _counted(
+                    lambda: run_quiet(lambda: run_gnn.main(argv)))
+            fits = rec.fits
+            emit({"phase": "drivers", "path": label, "argv": argv,
+                  "stdout": lines, "summary": summary, "seconds": secs,
+                  "epoch_seconds": [[h["time"] for h in r["fit"]["history"]]
+                                    for r in fits],
+                  "solver": [r["fit"]["solver"] for r in fits],
+                  "graphs": [{k: r[k] for k in ("strategy", "num_nodes",
+                                                "train")} for r in fits],
+                  "launches": counts, "peak_mem_gib": peak,
+                  "nvidia_smi": smi})
+            check(len(fits) == splits and json.loads(lines[-1]) == summary,
+                  f"drivers {label}: {len(fits)} fits, summary line "
+                  f"{lines[-1]}")
+            for part in ("val", "test"):
+                check(summary[part]["n"] == splits and all(
+                    math.isfinite(v) for v in summary[part].values()),
+                      f"drivers {label}: {part} {summary[part]}")
+            for r in fits:
+                for h, sv in zip(r["fit"]["history"], r["fit"]["solver"]):
+                    check(math.isfinite(h["loss"]) and bool(sv["success"])
+                          and bool(sv["eval_success"]),
+                          f"drivers {label} epoch {h['epoch']}: {h} {sv}")
+            add(counts)
+        for r in fits:
+            cfg = r["cfg"]
+            check(r["strategy"] == "windowed"
+                  and r["num_nodes"] == SHAPES["ogbn-arxiv"]["num_nodes"]
+                  and r["train"] == ARXIV_SPLIT[0]
+                  and cfg.hidden_dim == 162 and cfg.dtype == "bfloat16",
+                  f"drivers a_arxiv: not the preset on the cache: {r}")
+        want = {}
+        for r in fits:
+            for k, v in first_order_launches("laplacian", "windowed",
+                                             r["fit"]).items():
+                want[k] = want.get(k, 0) + v
+        # the pin (with its K table) in each epoch's train step and
+        # evaluation
+        want["attention_pin"] = want["attention_kproj"] = 2 * 2 * len(fits)
+        emit({"phase": "drivers", "path": "a_arxiv", "launches": counts,
+              "expected_launches": want, "nvidia_smi": smi})
+        for k in DRIVER_KERNELS:
+            check(counts.get(k, 0) > 0,
+                  f"{k} never launched on run_gnn's arxiv path ({counts})")
+        for k, v in want.items():
+            check(counts.get(k, 0) == v, f"drivers a_arxiv: {k} launched "
+                  f"{counts.get(k, 0)} times, the NFE say {v}")
+
+        # (b) the sweep, one trial at a time and two at once
+        argv = ["--dataset", "ogbn-arxiv", "--data_dir", tmp,
+                "--num_samples", "4", "--max_epochs", "4",
+                "--grace_period", "2", "--reduction_factor", "2",
+                "--num_splits", "2", "--max_nfe", str(SWEEP_MAX_NFE)]
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            sweeps, walls = {}, {}
+            for label, extra in (("b_sequential", ["--max_concurrent", "1"]),
+                                 ("b_two_streams",
+                                  ["--max_concurrent", "2"])):
+                extra = ["--replicate_reps", "1"] + extra
+                with recorded_fits() as rec, busy_share() as busy:
+                    (out, lines), counts, secs, peak = _counted(
+                        lambda: run_quiet(lambda: sweep_cli.main(
+                            argv + extra)))
+                sweeps[label] = out
+                walls[label] = {"seconds": secs, "busy_share": busy.mean}
+                emit({"phase": "drivers", "path": label,
+                      "argv": argv + extra, "stdout": lines,
+                      "seconds": secs, "busy_share": busy.mean,
+                      "busy_samples": len(busy.samples),
+                      "fits": len(rec.fits),
+                      "trials": [{**{k: v for k, v in t.items()
+                                     if k != "cfg"},
+                                  **{k: v for k, v in t["cfg"].to_dict()
+                                     .items() if k in sweep_cli.REPORTED}}
+                                 for t in out["trials"]],
+                      "replication": out["replication"],
+                      "launches": counts, "peak_mem_gib": peak,
+                      "nvidia_smi": smi})
+                for k in SWEEP_KERNELS:
+                    check(counts.get(k, 0) > 0,
+                          f"{k} never launched in the {label} sweep "
+                          f"({counts})")
+                add(counts)
+            seq, conc = (sweep_table(sweeps[k])
+                         for k in ("b_sequential", "b_two_streams"))
+            if seq != conc:
+                again, _ = run_quiet(lambda: sweep_cli.main(
+                    argv + ["--replicate_reps", "1", "--max_concurrent",
+                            "1"]))
+                again = sweep_table(again)
+                emit({"phase": "drivers", "path": "b_differ",
+                      "rows_two_streams_differ": [
+                          i for i, (a, b) in enumerate(zip(seq, conc))
+                          if a != b],
+                      "rows_sequential_repeat_differ": [
+                          i for i, (a, b) in enumerate(zip(seq, again))
+                          if a != b], "nvidia_smi": smi})
+                check(False, "drivers (b): the sweep with two streams "
+                      "differs from the sequential one" + (
+                          "; so does a second sequential run" if again !=
+                          seq else ", which repeats bit for bit"))
+            emit({"phase": "drivers", "path": "b_compare",
+                  "tables_equal": True, "trials": len(seq) - 1,
+                  **walls, "nvidia_smi": smi})
+
+            # (c) resume: the sequential sweep with a checkpoint directory,
+            # twice
+            ckpt = os.path.join(tmp, "sweep_ckpt")
+            argv_c = argv + ["--max_concurrent", "1", "--checkpoint_dir",
+                             ckpt]
+            runs = []
+            for _ in range(2):
+                with recorded_fits() as rec:
+                    (out, lines), counts, secs, _ = _counted(
+                        lambda: run_quiet(lambda: sweep_cli.main(argv_c)))
+                runs.append((out, len(rec.fits), secs))
+                add(counts)
+            (first, fits1, s1), (second, fits2, s2) = runs
+            emit({"phase": "drivers", "path": "c_resume", "argv": argv_c,
+                  "fits": [fits1, fits2], "seconds": [s1, s2],
+                  "best_val": [first["best_val"], second["best_val"]],
+                  "files": sorted(os.listdir(ckpt)), "nvidia_smi": smi})
+            check(fits1 > 0 and fits2 == 0,
+                  f"drivers (c): the resumed sweep ran {fits2} fits")
+            best = [{k: v for k, v in r["best_config"].to_dict().items()
+                     if k in sweep_cli.REPORTED} for r in (first, second)]
+            check(second["best_val"] == first["best_val"]
+                  and second["best_test"] == first["best_test"]
+                  and best[0] == best[1],
+                  f"drivers (c): the resumed sweep's best moved: {best}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+
+        # (d) one arxiv epoch under the profiler, and its edges x NFE / s
+        cfg = best_config("ogbn-arxiv")
+        tr = Trainer(cfg, get_dataset(cfg, data_dir=tmp,
+                                      synthetic_fallback=False))
+        graph = tr.data.graph
+        trace_dir = os.path.join(tmp, "trace")
+        meter = ThroughputMeter(units_per_call=0.0)
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        with profile_trace(trace_dir):
+            with meter:
+                fit = tr.fit(epochs=1)
+                torch.cuda.synchronize()
+                sv = fit["solver"][0]
+                nfe = sv["nfe"] + sv["bwd_nfe"] + sv["eval_nfe"]
+                meter.units = float(graph.num_edges) * nfe
+        counts = dict(_build.LAUNCHES)
+        trace = os.path.join(trace_dir, "trace.json")
+        check(os.path.exists(trace), "drivers (d): no trace file")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {}
+        for ev in events:
+            if ev.get("cat") == "kernel":
+                for name in ("spmm_walk", "win_matmul_tc_kernel"):
+                    if name in ev.get("name", ""):
+                        kernels[name] = kernels.get(name, 0) + 1
+        emit({"phase": "drivers", "path": "d_profile",
+              "trace_mib": os.path.getsize(trace) / 2 ** 20,
+              "events": len(events), "kernel_events": kernels,
+              "epoch_seconds": fit["history"][0]["time"],
+              "meter_seconds": meter.total_time, "edges": graph.num_edges,
+              "nfe": [sv["nfe"], sv["bwd_nfe"], sv["eval_nfe"]],
+              "edges_nfe_per_s": meter.rate, "launches": counts,
+              "nvidia_smi": smi})
+        for name in ("spmm_walk", "win_matmul_tc_kernel"):
+            check(kernels.get(name, 0) > 0,
+                  f"drivers (d): the trace names no {name} kernel")
+        add(counts)
+        del tr, graph, fit
+        torch.cuda.empty_cache()
+    emit({"phase": "drivers", "seconds": time.perf_counter() - t_phase,
+          "launches": launches, "nvidia_smi": smi})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=3,
@@ -5100,7 +5487,15 @@ def main(argv=None) -> int:
     for k, v in mm_launches.items():
         launches[k] = launches.get(k, 0) + v
 
-    # the kernels line (launches summed over the paths of phases 5 and 8):
+    # 12. the experiment entry points: run_gnn (the README's Quickstart) on
+    # Cora and the arxiv preset, the sweep with one trial at a time and
+    # two on two streams, its resume, one arxiv epoch under the profiler
+    drv_launches = phase_drivers(smi)
+    for k, v in drv_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
+    # the kernels line (launches summed over the paths of phases 5 and
+    # 8-12):
     # times from phase 4 at the main path's shapes and
     # dtype (bf16); spmm_csr's at the residual edges, with its whole-graph
     # numbers (the community_window=0 path), the hub graph's and f32's
@@ -5379,6 +5774,10 @@ def main(argv=None) -> int:
     for i in (0, 1, 2, 9):
         kernels[i]["multimodal_launches"] = mm_launches.get(
             kernels[i]["name"], 0)
+    # phase 12: the launches on the drivers' paths (run_gnn's arxiv preset,
+    # the sweeps' trials on the sparse strategy, the profiled epoch)
+    for row in kernels:
+        row["driver_launches"] = drv_launches.get(row["name"], 0)
     kernels[1]["csc_second_order"] = {
         k: results[("sddmm", "bfloat16", "csc second order")].get(k)
         for k in numbers + ("all_miss_ms",)}

@@ -47,8 +47,10 @@ projections and Gaussian kernel, the score their product (graphax
 (:276-279; the per-edge path on a dense graph), the windowed twin on the
 windowed strategy (graphax's winatt kernel gates it out), the flash kernel
 in ``beltrami_exp`` mode on CSR with the per-edge gradient replayed
-(``pallas_bwd_supported`` excludes it). Beltrami on the column route
-raises (ROADMAP Queue 1, item 9).
+(``pallas_bwd_supported`` excludes it), and under column normalisation
+the column route (`kernels/attention3.py::colnorm_supported` takes
+``beltrami_exp``: gmax and the norm in their ``beltrami_exp`` instances,
+then attspmm per column, the per-edge gradient replayed).
 
 Under ``multi_modal`` with the second modality ``y``, the Q/K (and V)
 projections read the state's cross-modal attention over ``y`` in place of

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -30,10 +31,15 @@ BUILD_DIR = os.path.join(HERE, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # launches of each kernel, counted by its wrapper where it launches and
-# nowhere else (chip_smoke.py zeroes them around the main path)
+# nowhere else, through count_launch (chip_smoke.py zeroes them around the
+# main path)
 LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCH_LOCK = threading.Lock()
 
 _LIBS: dict = {}
+# held while a library is built or loaded: trials training in threads (the
+# sweep's concurrent trials) may reach their first launch together
+_BUILD_LOCK = threading.RLock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -136,9 +142,29 @@ def _target(name: str) -> tuple:
     return src, _library_path(src, BUILD_DIR, name, headers)
 
 
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]``; a wrapper calls it where it launches
+    its kernel. Under a lock: threads launching at once lose no count."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
+
+def _tmp_name(so: str) -> str:
+    """A temporary output beside ``so``, unique to this process and
+    thread."""
+    return so + f".tmp{os.getpid()}-{threading.get_ident()}"
+
+
 def build_all(verbose: bool = False) -> float:
     """Compile every source that has no up-to-date library (in parallel)
-    and load all of them. Returns the seconds spent."""
+    and load all of them. Returns the seconds spent. One thread builds at a
+    time; another that enters meanwhile waits and then finds the libraries
+    built and loaded."""
+    with _BUILD_LOCK:
+        return _build_all(verbose)
+
+
+def _build_all(verbose: bool) -> float:
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = None
@@ -150,7 +176,7 @@ def build_all(verbose: bool = False) -> float:
         if os.path.exists(so):
             continue
         nvcc = nvcc or _nvcc()
-        tmp = so + f".tmp{os.getpid()}"
+        tmp = _tmp_name(so)
         cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-lineinfo", "-shared",
                "-Xcompiler", "-fPIC", "-o", tmp, src]
         if verbose:
@@ -175,6 +201,7 @@ def build_all(verbose: bool = False) -> float:
 
 
 def _load(name: str) -> ctypes.CDLL:
+    """Load the built library of ``name`` (under ``_BUILD_LOCK``)."""
     if name in _LIBS:
         return _LIBS[name]
     _, so = _target(name)
@@ -200,11 +227,18 @@ def host_library(name: str) -> ctypes.CDLL:
     key = "host:" + name
     if key in _LIBS:
         return _LIBS[key]
+    with _BUILD_LOCK:
+        if key not in _LIBS:
+            _LIBS[key] = _build_host(name)
+    return _LIBS[key]
+
+
+def _build_host(name: str) -> ctypes.CDLL:
     src = os.path.join(HOST_DIR, name + ".cpp")
     so = _library_path(src, HOST_BUILD_DIR, name)
     if not os.path.exists(so):
         os.makedirs(HOST_BUILD_DIR, exist_ok=True)
-        tmp = so + f".tmp{os.getpid()}"
+        tmp = _tmp_name(so)
         proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
                                "-o", tmp, src], capture_output=True,
                               text=True)
@@ -216,13 +250,26 @@ def host_library(name: str) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = restype
-    _LIBS[key] = lib
     return lib
 
 
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError_t {err})")
+
+
+def publish(t):
+    """``t`` with the work that made it finished, for a cache that other
+    streams read: the sweep's concurrent trials share one dataset, so a
+    plan or slot map made on one trial's stream is read on another's.
+    Synchronises the current stream where ``t`` is a CUDA tensor, once per
+    cache entry. The entry lives as long as its layout, which outlives the
+    trials (each trial's stream is synchronised at its end)."""
+    import torch
+
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
 
 
 def stream_ptr(t) -> int:

@@ -121,5 +121,5 @@ def attention_pin(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         float(inv2l2p), fa._DTYPES[x.dtype],
         kvec, wpb, fa.ROW_SPLIT, nlong, nseg, _build.stream_ptr(x))
     _build.check(err, "attention_pin")
-    _build.LAUNCHES["attention_pin"] += 1
+    _build.count_launch("attention_pin")
     return out

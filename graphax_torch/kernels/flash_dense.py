@@ -119,5 +119,5 @@ def flash_attention_multihead(q: torch.Tensor, k: torch.Tensor,
                              out.data_ptr(), n, h, dk, d, _DTYPES[v.dtype],
                              vec4, _build.stream_ptr(v))
     _build.check(err, "flash_dense")
-    _build.LAUNCHES["flash_dense"] += 1
+    _build.count_launch("flash_dense")
     return out

@@ -271,7 +271,7 @@ def attention_kproj(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
             a, _DTYPES[x.dtype], kproj_copy_bytes(x), kproj_copy_bytes(wk),
             _build.stream_ptr(x))
     _build.check(err, "attention_kproj")
-    _build.LAUNCHES["attention_kproj"] += 1
+    _build.count_launch("attention_kproj")
     return kt
 
 
@@ -388,7 +388,7 @@ def attention_gmax(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
         float(inv2l2p), _DTYPES[q.dtype], score_vec(q, kt, heads, att_type),
         stream)
     _build.check(err, "attention_gmax")
-    _build.LAUNCHES["attention_gmax"] += 1
+    _build.count_launch("attention_gmax")
     return out
 
 
@@ -452,14 +452,16 @@ _PLANS: dict = {}
 def _row_plan(layout: Layout, longer_than: int, seg: int) -> tuple:
     """:func:`row_split_plan` of ``layout`` on its device, made once per
     layout and arguments (one copy of ``ptr`` to the host) and kept while
-    ``layout.ptr`` lives."""
+    ``layout.ptr`` lives; its copy to the device finished before any
+    stream reads it (``_build.publish``)."""
     key = (id(layout.ptr), longer_than, seg)
     hit = _PLANS.get(key)
     if hit is not None and hit[0]() is layout.ptr:
         return hit[1]
     plan, nlong, nseg = row_split_plan(layout.ptr.cpu().numpy(), longer_than,
                                        seg)
-    found = (torch.as_tensor(plan, device=layout.ptr.device), nlong, nseg)
+    found = (_build.publish(torch.as_tensor(plan, device=layout.ptr.device)),
+             nlong, nseg)
     _PLANS[key] = (weakref.ref(layout.ptr,
                                lambda _, k=key: _PLANS.pop(k, None)), found)
     return found
@@ -550,7 +552,7 @@ def flash_attention(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         gather_width(x), kvec, wpb, ROW_SPLIT, nlong, nseg,
         _build.stream_ptr(x))
     _build.check(err, "flash_attention")
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.count_launch("flash_attention")
     return out
 
 
@@ -615,7 +617,7 @@ def attention_norm(layout: Layout, q: torch.Tensor, kt: torch.Tensor,
         float(ov2p), float(inv2l2p), _DTYPES[q.dtype],
         score_vec(q, kt, heads, att_type), nlong, nseg, _build.stream_ptr(q))
     _build.check(err, "attention_norm")
-    _build.LAUNCHES["attention_norm"] += 1
+    _build.count_launch("attention_norm")
     return e, den
 
 
@@ -681,7 +683,7 @@ def attention_attspmm(layout: Layout, e: torch.Tensor, den: torch.Tensor,
         _DTYPES[x.dtype], _DTYPES[out_dtype], gather_width(x, addend),
         ROW_SPLIT, nlong, nseg, _build.stream_ptr(x))
     _build.check(err, "attention_attspmm")
-    _build.LAUNCHES["attention_attspmm"] += 1
+    _build.count_launch("attention_attspmm")
     return out
 
 
@@ -925,7 +927,7 @@ def attention_fwd_res(layout: Layout, q: torch.Tensor, x: torch.Tensor,
         score_vec(q, kt, heads, "scaled_dot"), wpb, ROW_SPLIT, nlong, nseg,
         _build.stream_ptr(x))
     _build.check(err, "attention_fwd_res")
-    _build.LAUNCHES["attention_fwd_res"] += 1
+    _build.count_launch("attention_fwd_res")
     return out, sc, shift, denom
 
 
@@ -988,7 +990,7 @@ def attention_bwd_rows(layout: Layout, sc: torch.Tensor, shift: torch.Tensor,
         _DTYPES[x.dtype], min(gather_width(g), gather_width(x)), wpb, nlong,
         nseg, _build.stream_ptr(x))
     _build.check(err, "attention_bwd_rows")
-    _build.LAUNCHES["attention_bwd_rows"] += 1
+    _build.count_launch("attention_bwd_rows")
     return dq, rho
 
 
@@ -1053,7 +1055,7 @@ def attention_bwd_cols(layout: Layout, q: torch.Tensor, g: torch.Tensor,
         score_vec(q, kt, heads, "scaled_dot"), wpb, nlong, nseg,
         _build.stream_ptr(x))
     _build.check(err, "attention_bwd_cols")
-    _build.LAUNCHES["attention_bwd_cols"] += 1
+    _build.count_launch("attention_bwd_cols")
     return dk, dxv
 
 

@@ -91,7 +91,7 @@ def spmm_csr(layout: Layout, values: torch.Tensor, x: torch.Tensor,
                           _DTYPES[x.dtype], fa.gather_width(x),
                           fa.ROW_SPLIT, nlong, nseg, _build.stream_ptr(x))
     _build.check(err, "spmm_csr")
-    _build.LAUNCHES["spmm_csr"] += 1
+    _build.count_launch("spmm_csr")
     return y
 
 
@@ -133,7 +133,7 @@ def sddmm(layout: Layout, g: torch.Tensor, x: torch.Tensor,
                            int(out_dtype == torch.bfloat16), nlong, nseg, n,
                            length, _build.stream_ptr(x))
     _build.check(err, "sddmm")
-    _build.LAUNCHES["sddmm"] += 1
+    _build.count_launch("sddmm")
     return out
 
 
@@ -147,7 +147,8 @@ def _transpose_slots(a: Layout, b: Layout) -> torch.Tensor:
     """Each slot of ``b``'s slot in ``a``, two layouts of the same edges
     (a CSR and its CSC): their ``perm`` name each slot's edge position,
     the slot itself where ``perm`` is None. Computed once per pair and
-    kept while ``b`` lives."""
+    kept while ``b`` lives, finished before any stream reads it
+    (``_build.publish``)."""
     hit = _SLOT_MAPS.get(id(b.idx))
     if hit is not None and hit[0]() is b.idx and hit[1]() is a.idx:
         return hit[2]
@@ -156,7 +157,7 @@ def _transpose_slots(a: Layout, b: Layout) -> torch.Tensor:
     pos_b = b.perm if b.perm is not None else torch.arange(
         b.num_slots, device=b.idx.device)
     pos, order = torch.sort(pos_a)
-    slots = order[torch.searchsorted(pos, pos_b)]
+    slots = _build.publish(order[torch.searchsorted(pos, pos_b)])
     if hit is None:
         weakref.finalize(b.idx, _SLOT_MAPS.pop, id(b.idx), None)
     _SLOT_MAPS[id(b.idx)] = (weakref.ref(b.idx), weakref.ref(a.idx), slots)

@@ -169,7 +169,7 @@ def winatt(win: Layout, q: torch.Tensor, k: torch.Tensor, x: torch.Tensor,
         fa.score_vec(q, k, heads, att_type), nlong, nseg,
         _build.stream_ptr(x))
     _build.check(err, "winatt")
-    _build.LAUNCHES["winatt"] += 1
+    _build.count_launch("winatt")
     return out, den
 
 

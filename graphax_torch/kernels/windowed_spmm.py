@@ -122,7 +122,7 @@ def densify(wl: WindowLayout, values: torch.Tensor,
         dense.data_ptr(), wl.in_window_edges, dense.numel(),
         _DTYPES[values.dtype], _DTYPES[dtype], _build.stream_ptr(values))
     _build.check(err, "densify")
-    _build.LAUNCHES["windowed_densify"] += 1
+    _build.count_launch("windowed_densify")
     return dense
 
 
@@ -209,7 +209,7 @@ def win_matmul(wl: WindowLayout, dense: torch.Tensor, x: torch.Tensor,
         wl.num_tiles, wl.tile, wl.window, n, d, _DTYPES[x.dtype], va, vb,
         _build.stream_ptr(x))
     _build.check(err, "win_matmul")
-    _build.LAUNCHES["win_matmul"] += 1
+    _build.count_launch("win_matmul")
     return out
 
 
@@ -260,7 +260,7 @@ def win_bwd_dense(wl: WindowLayout, g: torch.Tensor, x: torch.Tensor,
         wl.num_tiles, wl.tile, wl.window, n, d, _DTYPES[x.dtype],
         _DTYPES[out_dtype], va, vb, _build.stream_ptr(x))
     _build.check(err, "win_bwd_dense")
-    _build.LAUNCHES["win_bwd_dense"] += 1
+    _build.count_launch("win_bwd_dense")
     return out
 
 
@@ -330,7 +330,7 @@ def win_bwd_slab(wl: WindowLayout, dense: torch.Tensor, g: torch.Tensor,
         wl.window, n, d, _DTYPES[g.dtype], _DTYPES[out_dtype], va, vb,
         _build.stream_ptr(g))
     _build.check(err, "win_bwd_slab")
-    _build.LAUNCHES["win_bwd_slab"] += 1
+    _build.count_launch("win_bwd_slab")
     return out
 
 

@@ -37,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from graphax_torch.kernels._build import publish
 from graphax_torch.sparse.graph import Layout, _ptr, build_layouts
 
 
@@ -76,8 +77,10 @@ class WindowLayout:
         ptr = torch.zeros(self.num_nodes + 1, dtype=torch.int64,
                           device=cell.device)
         ptr[1:] = torch.cumsum(counts, 0)
-        return Layout(ptr=ptr.to(torch.int32), seg=row,
-                      idx=col.to(torch.int32), perm=cell)
+        lay = Layout(ptr=ptr.to(torch.int32), seg=row,
+                     idx=col.to(torch.int32), perm=cell)
+        publish(lay.idx)        # every field queued: finished before shared
+        return lay
 
     @functools.cached_property
     def dense_mask(self) -> torch.Tensor:
@@ -85,7 +88,7 @@ class WindowLayout:
         m = torch.zeros(self.num_tiles * self.tile * self.window,
                         dtype=torch.bool, device=self.win_cell.device)
         m[self.win_cell.long()] = True
-        return m.reshape(self.block_shape)
+        return publish(m.reshape(self.block_shape))
 
     @functools.cached_property
     def graphax_residual_slots(self) -> tuple:

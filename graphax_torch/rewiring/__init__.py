@@ -6,7 +6,9 @@ from graphax_torch.rewiring.beltrami import (
     apply_beltrami, apply_gdc_rewiring, apply_two_hop_rewiring,
     dirichlet_energy, make_symmetric,
 )
-from graphax_torch.rewiring.deepwalk import deepwalk_embeddings
+from graphax_torch.rewiring.deepwalk import (
+    deepwalk_embeddings, pick_best_embeddings,
+)
 from graphax_torch.rewiring.distances import (
     apply_pos_dist_rewire, knn_from_distances, poincare_distances,
     quantile_threshold_adjacency,
@@ -24,6 +26,7 @@ __all__ = [
     "apply_edge_sampling", "apply_gdc_rewiring", "apply_knn",
     "apply_pos_dist_rewire", "apply_two_hop_rewiring", "deepwalk_embeddings",
     "dirichlet_energy", "edge_sampling", "knn_from_distances", "knn_graph",
-    "make_symmetric", "poincare_distances", "quantile_threshold_adjacency",
+    "make_symmetric", "pick_best_embeddings", "poincare_distances",
+    "quantile_threshold_adjacency",
     "rewire_graph_with_edges",
 ]

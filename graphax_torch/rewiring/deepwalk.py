@@ -147,3 +147,35 @@ def deepwalk_embeddings(row, col, num_nodes: int, dim: int = 64,
     acc = probe_accuracy(emb, np.asarray(labels), seed) \
         if labels is not None else float("nan")
     return emb, acc
+
+
+def pick_best_embeddings(cache_dir: str, dataset: str, dim: int):
+    """Among the DeepWalk pickles ``{cache_dir}/pos_encodings/{dataset}_
+    DW{dim}*.pkl``, link the one of best probe accuracy (its ``acc``) to
+    the canonical ``{dataset}_DW{dim}.pkl`` name that `apply_beltrami`
+    reads (the capability of the reference's `deepwalk_gen_symlinks.py`,
+    `:24-47`). Returns the canonical path, or None where there is no
+    candidate."""
+    import os
+    import pickle
+
+    pos_dir = os.path.join(cache_dir, "pos_encodings")
+    if not os.path.isdir(pos_dir):
+        return None
+    best, best_acc = None, -1.0
+    for fname in os.listdir(pos_dir):
+        if fname.startswith(f"{dataset}_DW{dim}") and fname.endswith(".pkl"):
+            with open(os.path.join(pos_dir, fname), "rb") as f:
+                obj = pickle.load(f)
+            acc = obj.get("acc", 0.0) if isinstance(obj, dict) else 0.0
+            if acc > best_acc:
+                best, best_acc = fname, acc
+    if best is None:
+        return None
+    canonical = os.path.join(pos_dir, f"{dataset}_DW{dim}.pkl")
+    src = os.path.join(pos_dir, best)
+    if os.path.abspath(src) != os.path.abspath(canonical):
+        if os.path.lexists(canonical):
+            os.remove(canonical)
+        os.symlink(os.path.basename(src), canonical)
+    return canonical

@@ -71,6 +71,22 @@ def to_undirected(row, col, num_nodes: Optional[int] = None
     return (key // n).astype(np.int64), (key % n).astype(np.int64)
 
 
+def remove_self_loops(row, col, weight=None) -> Edges:
+    """Drop the diagonal entries (`src/utils.py:44-70`)."""
+    row, col, weight = _as_edges(row, col, weight)
+    keep = row != col
+    return row[keep], col[keep], weight[keep]
+
+
+def dense_to_edges(adj: np.ndarray) -> Edges:
+    """The nonzero entries of a dense adjacency, in row-major order
+    (`src/utils.py:78-95`'s intent)."""
+    adj = np.asarray(adj)
+    row, col = np.nonzero(adj)
+    return (row.astype(np.int64), col.astype(np.int64),
+            adj[row, col].astype(np.float64))
+
+
 def full_adjacency(num_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
     """All N^2 (row, col) pairs (`graphax/sparse/build.py:105`)."""
     row = np.repeat(np.arange(num_nodes, dtype=np.int64), num_nodes)

@@ -32,6 +32,22 @@ def segment_max(data, segment_ids, num_segments: int):
                                include_self=True)
 
 
+def segment_mean(data, segment_ids, num_segments: int, mask=None):
+    """Mean per segment over the unmasked rows of ``data``; an empty
+    segment holds 0 (its count is taken as 1)."""
+    if mask is not None:
+        ones = mask.to(torch.float32)
+        data = torch.where(_expand(mask, data), data,
+                           torch.zeros_like(data))
+    else:
+        ones = torch.ones(data.shape[0], dtype=torch.float32,
+                          device=data.device)
+    total = segment_sum(data, segment_ids, num_segments)
+    count = segment_sum(ones, segment_ids, num_segments)
+    return total / torch.clamp(count, min=1.0).reshape(
+        (-1,) + (1,) * (data.dim() - 1))
+
+
 def segment_softmax(scores, segment_ids, num_segments: int, mask=None):
     """Softmax over edge segments: shift by the segment max, exponentiate,
     divide by the segment sum + 1e-16. Masked edges get 0."""
@@ -70,6 +86,16 @@ def spmm(row, col, weight, x, num_nodes: int):
     """``y = A @ x`` with A in COO form; padded edges must carry weight 0."""
     gathered = x[col] * weight.to(x.dtype)[:, None]
     return segment_sum(gathered, row, num_nodes)
+
+
+def attention_spmm(row, col, attention, x, num_nodes: int, mask=None):
+    """Head-mean attention SpMM: ``attention [E, H]``, ``x [N, D]``; the
+    non-mix_features path of the reference's `multiply_attention`
+    (`src/function_transformer_attention.py:33-41`). Masked edges get 0."""
+    mean_att = attention.mean(dim=1)
+    if mask is not None:
+        mean_att = torch.where(mask, mean_att, torch.zeros_like(mean_att))
+    return spmm(row, col, mean_att, x, num_nodes)
 
 
 def spmm_multihead(row, col, att, v, num_nodes: int):

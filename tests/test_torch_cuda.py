@@ -24,6 +24,8 @@ sums of rounded products as the training kernels' (stated at
 against autograd through their plain twins at the training route's
 tolerance."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -2675,3 +2677,175 @@ def test_cuda_multimodal_union_grand_nl_once_per_evaluation(cuda):
         logits[dev.type] = out.cpu()
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# Two threads on two streams: the sweep's concurrent trials share one
+# dataset, so its layouts and the caches built from them
+
+def _hub_graph(device, n=600, seed=12):
+    """Random edges plus two hub rows (200 and 140 edges) and a hub column,
+    so the row-split plans and the long-row segments are taken."""
+    rng = np.random.RandomState(seed)
+    row = np.concatenate([rng.randint(0, n, 3000), np.full(200, 3),
+                          np.full(140, 17), rng.randint(0, n, 150)])
+    col = np.concatenate([rng.randint(0, n, 3000), rng.randint(0, n, 200),
+                          rng.randint(0, n, 140), np.full(150, 5)])
+    key = np.unique(row * n + col)
+    row, col = key // n, key % n
+    w = rng.rand(len(row)).astype(np.float32) + 0.1
+    return Graph.from_edges(row, col, n, edge_weight=w,
+                            edge_buffer_size=len(row) + 9, device=device)
+
+
+def _stream_case(device):
+    g = _hub_graph(device)
+    wg = _windowed_graph(device, 3000, 128, 512)
+    gen = torch.Generator(device=device).manual_seed(13)
+    tdt, n, d, a = torch.bfloat16, g.num_nodes, 162, 32
+    ops = dict(
+        x=torch.randn(n, d, generator=gen, device=device).to(tdt),
+        gr=torch.randn(n, d, generator=gen, device=device).to(tdt),
+        q=(0.3 * torch.randn(n, a, generator=gen, device=device)).to(tdt),
+        wk=(0.1 * torch.randn(d, a, generator=gen, device=device)).to(tdt),
+        bk=0.1 * torch.randn(a, generator=gen, device=device),
+        xw=torch.randn(3000, d, generator=gen, device=device).to(tdt),
+        aw=torch.randn(3000, d, generator=gen, device=device).to(tdt))
+    return g, wg, ops
+
+
+def _stream_run(g, wg, o):
+    """spmm_csr (A x, A^T g), sddmm, the pin and win_matmul on the shared
+    layouts, and the caches they build: the row-split plans, the CSR/CSC
+    slot map, the windowed layout's in-window CSR."""
+    tdt = o["x"].dtype
+    w = g.edge_weight.to(tdt)
+    wt = spmm_mod.transpose_values(g, w)
+    wl = wg.windows
+    dense = ws.densify(wl, wg.edge_weight, tdt)
+    return {
+        "A.x": spmm_mod.spmm_csr(g.csr, w, o["x"], g.num_nodes),
+        "AT.g": spmm_mod.spmm_csr(g.csc, wt, o["gr"], g.num_nodes),
+        "sddmm": spmm_mod.sddmm(g.csr, o["gr"], o["x"]),
+        "slots": spmm_mod._transpose_slots(g.csr, g.csc),
+        "pin": pin_mod.attention_pin(g.csr, o["q"], o["x"], o["wk"],
+                                     o["bk"], g.edge_weight, "scaled_dot",
+                                     2, 1.0, 0.5),
+        "win_matmul": ws.win_matmul(wl, dense, o["xw"], o["aw"]),
+        "in_window": wl.in_window.idx,
+    }
+
+
+def test_cuda_kernels_on_two_streams_equal_one_stream(cuda):
+    """Two threads, each on a stream of its own (the sweep's `on_device`),
+    run the kernels on layouts no call has touched yet, so the first
+    thread's plans and slot maps are made on one stream while the other
+    reads them; both results are bit for bit those of the same calls on
+    one stream, on the same layouts afterwards and on fresh ones."""
+    import threading
+
+    from graphax_torch.train.sweep import on_device
+
+    g, wg, ops = _stream_case(cuda)
+    torch.cuda.synchronize()
+    results, errors = [None, None], []
+    barrier = threading.Barrier(2)
+
+    def worker(i):
+        try:
+            with on_device(cuda):
+                assert torch.cuda.current_stream() != \
+                    torch.cuda.default_stream()
+                barrier.wait()
+                results[i] = {k: v.clone() for k, v in
+                              _stream_run(g, wg, ops).items()}
+        except BaseException as e:          # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    fresh_g, fresh_wg, _ = _stream_case(cuda)
+    for want in (_stream_run(g, wg, ops), _stream_run(fresh_g, fresh_wg,
+                                                      ops)):
+        for got in results:
+            for k, v in want.items():
+                assert torch.equal(got[k], v), k
+
+
+def test_cuda_launches_lose_no_count_under_two_threads(cuda):
+    import threading
+
+    from graphax_torch.kernels import LAUNCHES
+    from graphax_torch.train.sweep import on_device
+
+    g = _hub_graph(cuda)
+    x = torch.randn(g.num_nodes, 16, device=cuda)
+    spmm_mod.spmm_csr(g.csr, g.edge_weight, x, g.num_nodes)
+    before = LAUNCHES["spmm_csr"]
+    barrier = threading.Barrier(2)
+
+    def worker():
+        with on_device(cuda):
+            barrier.wait()
+            for _ in range(2000):
+                spmm_mod.spmm_csr(g.csr, g.edge_weight, x, g.num_nodes)
+
+    threads = [threading.Thread(target=worker) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert LAUNCHES["spmm_csr"] - before == 4000
+
+
+def test_cuda_build_all_from_two_threads_builds_once(cuda, monkeypatch,
+                                                     tmp_path):
+    """``build_all`` entered from two threads at once on an empty build
+    directory: nvcc runs once for the source, both threads return with the
+    library loaded, and its kernel matches the plain version."""
+    import subprocess
+    import threading
+
+    from graphax_torch.kernels import _build
+
+    calls = []
+    popen = subprocess.Popen
+
+    def counted(cmd, **kw):
+        calls.append(cmd)
+        return popen(cmd, **kw)
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "SIGNATURES",
+                        {"spmm": _build.SIGNATURES["spmm"]})
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build.subprocess, "Popen", counted)
+    barrier = threading.Barrier(2)
+    errors = []
+
+    def worker():
+        try:
+            barrier.wait()
+            _build.build_all()
+        except BaseException as e:          # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(calls) == 1 and set(_build._LIBS) == {"spmm"}
+    assert os.listdir(tmp_path) == [os.path.basename(_build._target(
+        "spmm")[1])]
+    g = _hub_graph(cuda)
+    x = torch.randn(g.num_nodes, 16, device=cuda)
+    torch.testing.assert_close(
+        spmm_mod.spmm_csr(g.csr, g.edge_weight, x, g.num_nodes),
+        spmm_mod.spmm_csr_plain(g.csr, g.edge_weight, x, g.num_nodes),
+        rtol=1e-5, atol=1e-5)
